@@ -1,0 +1,44 @@
+"""The PyTorch port stands alone: no file of dlimgedit_tpu_torch/, and not
+chip_smoke.py, imports jax or the JAX package (dlimgedit_tpu, whose
+__init__ imports jax)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dlimgedit_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "dlimgedit_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_package_and_catches_a_jax_import(tmp_path):
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "dlimgedit_tpu_torch" / "__init__.py") in PORT_FILES
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os\nfrom dlimgedit_tpu.ops import quant\n"
+                     "import jax.numpy as jnp\nimport dlimgedit_tpu_torch\n")
+    assert [m for m in _imported_modules(probe) if _forbidden(m)] == [
+        "dlimgedit_tpu.ops", "jax.numpy"]
