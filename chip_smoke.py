@@ -5,36 +5,50 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. Phases, each of which fails the run (non-zero exit) on any error:
+package. Phases, each of which fails the run (non-zero exit) on any error,
+each printing its seconds:
 
   1. builds the port's CUDA kernels from dlimgedit_tpu_torch/csrc/ (nvcc,
      sm_90a) and prints nvcc's register / shared-memory report;
-  2. holds each kernel against its plain PyTorch version on the card, at
-     every shape the main path gives it, in bfloat16 and float32, and times
-     kernel, plain version, the library yardstick (F.layer_norm,
-     F.scaled_dot_product_attention; timed only, never used by the port)
-     and the least time the card could take (bound);
-  3. checks the port on the card against the port on the CPU at a small
-     size (float32, image size 64): embedding within 1e-4, masks equal;
-  4. drives the main path at full width: MobileSAM at 1024 in bfloat16 with
-     seeded random weights, `process` on a 1024x768 and a 1500x1000 image
-     (canvas buckets 1024 and 2048), and per image `compute_mask(Point)`,
-     `compute_mask(Region)` with largest_region_object, `compute_masks` and
-     `compute_mask_batch` of 4 prompts. Launch counters are zeroed before
-     and read after: 22 LayerNorm (K1) and 10 attention (K2) launches per
-     `process`. Masks must be {0, 255} at the original extent. The embedding
-     is held against the plain path (kernels off): in float32 within
-     relative L2 1e-5; in bf16 its relative L2 distance to the float32
-     result may be at most 1.1x the bf16 plain path's (the two bf16 paths
-     round independently, which puts them ~1e-2 apart on random weights);
-  5. times `process` and one mask query (medians, host clock around work
-     that ends in a device synchronise).
+  2. holds each kernel against its plain PyTorch version on the card, in
+     bfloat16 and float32, at every shape the two main paths give it
+     (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5) and at ViT-H's shapes
+     (C 1280, 16 heads of width 80), with nonzero rel-pos tables; in bf16
+     it times kernel, plain version, the library yardstick (F.layer_norm;
+     x + d then F.layer_norm, two calls; F.scaled_dot_product_attention
+     with the materialised float bias; timed only, never used by the port)
+     and computes the least time the card could take (bound);
+  3. checks the port on the card against the port on the CPU (float32):
+     MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
+     ViT-B at 512, full width and depth, with seeded nonzero rel-pos
+     tables, pos_embed and qkv biases (embedding within relative L2 1e-5;
+     mask pixels that differ at most 1e-4 of the mask, threshold noise);
+     at 512 the global blocks take K4 (N = 1024) and the windowed blocks
+     K5 with the pad-query skip (grid 32 -> 42, valid_rows 4);
+  4. drives each main path at full width with seeded random weights:
+     MobileSAM at 1024 in bfloat16, then ViT-B at 1024 (embed 768, depth
+     12, 12 heads) in bfloat16 with seeded nonzero rel-pos tables,
+     pos_embed and qkv biases (JAX's init zeroes them, which would leave the
+     rel-pos indexing unchecked). Per path: `process` on a 1024x768 and a
+     1500x1000 image (canvas buckets 1024 and 2048), and per image
+     `compute_mask(Point)`, `compute_mask(Region)` with
+     largest_region_object, `compute_masks` and `compute_mask_batch` of 4
+     prompts. The launch counters are zeroed just before each path and read
+     just after. Per `process`: MobileSAM 22 K1 and 10 K2 launches; ViT-B 1
+     K1 (block 0's norm1), 23 K3 (every other block LayerNorm), 4 K4 (the
+     global blocks) and 8 K5 (the windowed blocks, one launch each). Masks
+     must be {0, 255} at the original extent. The embedding is held against
+     the plain path (kernels off): in float32 within relative L2 1e-5; in
+     bf16 its relative L2 distance to the float32 result may be at most
+     1.1x the bf16 plain path's (the two bf16 paths round independently);
+  5. times `process` and one mask query per path (medians, host clock
+     around work that ends in a device synchronise).
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
 timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
-`bound_ms` in the JSON are sums over the launches it made on the main path
-(its `launches`: both images' `process` calls).
+`bound_ms` in the JSON are sums over the launches it made on the main
+paths (its `launches`: both images' `process` calls of each path).
 """
 
 from __future__ import annotations
@@ -51,7 +65,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12           # float32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12      # bf16 tensor cores, dense
 
-# Main-path shapes of one `process` call at image size 1024:
+# Main-path shapes of one MobileSAM `process` call at image size 1024:
 # (rows, C, eps, launches per process) for K1 ...
 LN_SHAPES = [
     (17689, 128, 1e-5, 2), (16384, 128, 1e-5, 2),   # stage 1 attn / mlp
@@ -63,6 +77,21 @@ LN_SHAPES = [
 ATTN_SHAPES = [(361, 49, 4, 2), (25, 196, 5, 6), (100, 49, 10, 2)]
 LN_PER_PROCESS = sum(s[3] for s in LN_SHAPES)        # 22
 ATTN_PER_PROCESS = sum(s[3] for s in ATTN_SHAPES)    # 10
+
+# SAM ViT shapes at 1024 (grid 64; ViT-B's launches per process, ViT-H's
+# shapes held with 0 launches): K1 and K3 rows (rows, C, launches) ...
+VIT_LN_SHAPES = [(4096, 768, 1), (4096, 1280, 0)]
+VIT_ADD_LN_SHAPES = [(4096, 768, 23), (4096, 1280, 0)]
+# ... K4 (heads, grid, head width, launches): one group per head ...
+VIT_GLOBAL_SHAPES = [(12, 64, 64, 4), (16, 64, 80, 0)]
+# ... and K5 (windows, heads, window, head width, n_w, valid_rows,
+# launches): the 64-grid pads to 70 = 5 x 14, the bottom row of 5 windows
+# keeps 8 of its 14 rows.
+VIT_WINDOW_SHAPES = [(25, 12, 14, 64, 5, 8, 8), (25, 16, 14, 80, 5, 8, 0)]
+VIT_PER_PROCESS = {"fused_layer_norm": 1, "fused_add_layer_norm": 23,
+                   "relpos_attention_global": 4,
+                   "relpos_attention_windowed": 8}
+
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 
@@ -75,6 +104,20 @@ SAMPLE_RETRIES = 10
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
+
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("fused_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+     "dlimgedit_tpu/ops/fused_norm.py:64"),
+    ("levit_window_attention", "dlimgedit_tpu_torch/csrc/levit_attention.cu",
+     "dlimgedit_tpu/ops/flash_attention.py:531"),
+    ("fused_add_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+     "dlimgedit_tpu/ops/fused_norm.py:98"),
+    ("relpos_attention_global", "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+     "dlimgedit_tpu/ops/flash_attention.py:139"),
+    ("relpos_attention_windowed",
+     "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+     "dlimgedit_tpu/ops/flash_attention.py:307"),
+)
 
 
 def fail(msg: str) -> None:
@@ -135,119 +178,380 @@ def time_ms(torch, fn, samples: int = 20, per_sample: int = 10) -> float:
     return statistics.median(times)
 
 
-def check_kernels(torch, dl_ops):
-    """Phase 2: each kernel against its plain version at the main-path
-    shapes. Returns the JSON entries: bf16 times summed over the launches
-    of the main path's run (every image's `process`)."""
-    import torch.nn.functional as F
+class Entries:
+    """Per-kernel sums over the main paths' launches (bf16 only)."""
 
-    fln = dl_ops["fused_layer_norm"]
-    ln_plain = dl_ops["layer_norm_plain"]
-    attn = dl_ops["levit_window_attention"]
-    attn_plain = dl_ops["levit_window_attention_plain"]
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    entries = {}
+    def __init__(self):
+        self.by_name = {}
 
-    def record(name, dtype, err, ms, plain_ms, lib_ms, bound_bytes_ms,
-               bound_ops_ms, launches):
-        if dtype != "bfloat16":
-            return
+    def record(self, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
+               launches):
         launches *= len(IMAGES)
-        e = entries.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                          library_ms=0.0, bytes_ms=0.0,
-                                          ops_ms=0.0))
+        e = self.by_name.setdefault(name, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+            bytes_ms=0.0, ops_ms=0.0))
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["ms"] += ms * launches
         e["plain_ms"] += plain_ms * launches
         e["library_ms"] += lib_ms * launches
-        e["bytes_ms"] += bound_bytes_ms * launches
-        e["ops_ms"] += bound_ops_ms * launches
+        e["bytes_ms"] += bytes_ms * launches
+        e["ops_ms"] += ops_ms * launches
 
+
+def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
+                 nbytes, flops_mm, flops_f32, launches, entries, compare=None):
+    """One kernel at one shape: max |kernel - plain| within `tol`; in bf16
+    also the times of kernel, plain version and library call, and the
+    bound from the bytes moved and the operations done."""
+    t0 = time.perf_counter()
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (compare or (lambda a, b: (a.float() - b.float()).abs().max().item())
+           )(out, ref)
+    del out, ref
+    if not err <= tol:
+        fail(f"{label} {dname}: max|diff| {err} > {tol}")
+    if dname != "bfloat16":
+        print(f"{label} {dname}: max|diff|={err:.3e} (atol {tol:g}) "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        return
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    lib_ms = time_ms(torch, library)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (flops_mm / PEAK_BF16_TC_FLOPS + flops_f32 / PEAK_F32_FLOPS) * 1e3
+    print(f"{label} {dname} x{launches}: max|diff|={err:.3e} (atol {tol:g}) "
+          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+          f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    entries.record(name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, launches)
+
+
+def check_kernels(torch, ops, entries):
+    """Phase 2, MobileSAM's kernels K1 and K2 at their main-path shapes."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
+        mm_flops = 1.0 if dtype == torch.bfloat16 else 0.0
         for rows, C, eps, per in LN_SHAPES:
             x = torch.randn((rows, C), generator=gen, device=dev).to(dtype)
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
             bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
-            out = fln(x, scale, bias, eps)
-            ref = ln_plain(x, scale, bias, eps)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL[("ln", dname)]
-            ms = time_ms(torch, lambda: fln(x, scale, bias, eps))
-            plain_ms = time_ms(torch, lambda: ln_plain(x, scale, bias, eps))
-            lib_ms = time_ms(torch, lambda: F.layer_norm(x, (C,), scale, bias, eps))
-            nbytes = (2 * rows * C + 2 * C) * es
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = 7 * rows * C / PEAK_F32_FLOPS * 1e3
-            print(f"K1 fused_layer_norm {dname} ({rows},{C}) x{per}: "
-                  f"max|diff|={err:.3e} (atol {tol:g}) kernel_ms={ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
-                  f"bound_ms={max(bytes_ms, ops_ms):.5f}", flush=True)
-            if not err <= tol:
-                fail(f"fused_layer_norm {dname} ({rows},{C}): {err} > {tol}")
-            record("fused_layer_norm", dname, err, ms, plain_ms, lib_ms,
-                   bytes_ms, ops_ms, per)
+            check_kernel(
+                torch, f"K1 fused_layer_norm ({rows},{C})", "fused_layer_norm",
+                dname, lambda: ops.fused_layer_norm(x, scale, bias, eps),
+                lambda: ops.layer_norm_plain(x, scale, bias, eps),
+                lambda: F.layer_norm(x, (C,), scale, bias, eps),
+                TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
+                7 * rows * C, per, entries)
         for G, N, nh, per in ATTN_SHAPES:
             kd = 32
             qkv = torch.randn((G, N, nh * 3 * kd), generator=gen, device=dev).to(dtype)
             bias = (0.5 * torch.randn((nh, N, N), generator=gen, device=dev)).to(dtype)
-            out = attn(qkv, bias, nh)
-            ref = attn_plain(qkv, bias, nh)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL[("attn", dname)]
             q5 = qkv.view(G, N, nh, 3, kd)
             q, k, v = (q5[:, :, :, i].transpose(1, 2) for i in range(3))
             mask = bias[None].expand(G, nh, N, N)
-            ms = time_ms(torch, lambda: attn(qkv, bias, nh))
-            plain_ms = time_ms(torch, lambda: attn_plain(qkv, bias, nh))
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask))
-            nbytes = (G * N * nh * 4 * kd + nh * N * N) * es
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            mm_peak = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-            ops_ms = (4 * G * nh * N * N * kd / mm_peak
-                      + 7 * G * nh * N * N / PEAK_F32_FLOPS) * 1e3
-            print(f"K2 levit_window_attention {dname} ({G},{N},{nh * 3 * kd}) "
-                  f"nh={nh} x{per}: max|diff|={err:.3e} (atol {tol:g}) "
-                  f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-                  f"library_ms={lib_ms:.5f} "
-                  f"bound_ms={max(bytes_ms, ops_ms):.5f}", flush=True)
-            if not err <= tol:
-                fail(f"levit_window_attention {dname} ({G},{N}): {err} > {tol}")
-            record("levit_window_attention", dname, err, ms, plain_ms, lib_ms,
-                   bytes_ms, ops_ms, per)
-    return entries
+            mm = 4 * G * nh * N * N * kd
+            check_kernel(
+                torch, f"K2 levit_window_attention ({G},{N},{nh * 3 * kd}) "
+                f"nh={nh}", "levit_window_attention", dname,
+                lambda: ops.levit_window_attention(qkv, bias, nh),
+                lambda: ops.levit_window_attention_plain(qkv, bias, nh),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
+                mm * mm_flops, 7 * G * nh * N * N + mm * (1 - mm_flops), per,
+                entries)
+
+
+def relpos_mask(torch, bhw, grid_h, grid_w, folded, scale, dtype):
+    """The materialised float bias of K4 / K5 for the SDPA yardstick."""
+    n = grid_h * grid_w
+    tok = torch.arange(n, device=bhw.device)
+    b = bhw.float()
+    bias = b[:, :, :grid_h][:, :, tok // grid_w] + b[:, :, grid_h:][:, :, tok % grid_w]
+    return (bias * scale if folded else bias).to(dtype)
+
+
+def check_vit_kernels(torch, ops, entries):
+    """Phase 2, the SAM ViT's kernels: K1 at the ViT widths, K3, K4, K5 at
+    ViT-B's and ViT-H's shapes at 1024, rel-pos tables nonzero."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        es = torch.empty((), dtype=dtype).element_size()
+        bf16 = dtype == torch.bfloat16
+        for (rows, C, per), (_, _, per3) in zip(VIT_LN_SHAPES, VIT_ADD_LN_SHAPES):
+            x, d = (torch.randn((rows, C), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
+            bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
+            check_kernel(
+                torch, f"K1 fused_layer_norm ({rows},{C})", "fused_layer_norm",
+                dname, lambda: ops.fused_layer_norm(x, scale, bias, 1e-6),
+                lambda: ops.layer_norm_plain(x, scale, bias, 1e-6),
+                lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
+                TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
+                7 * rows * C, per, entries)
+
+            def add_err(a, b):  # s bit for bit, then y within the tolerance
+                if not torch.equal(a[0], b[0]):
+                    fail(f"K3 ({rows},{C}) {dname}: s differs from x + d")
+                return (a[1].float() - b[1].float()).abs().max().item()
+
+            check_kernel(
+                torch, f"K3 fused_add_layer_norm ({rows},{C})",
+                "fused_add_layer_norm", dname,
+                lambda: ops.fused_add_layer_norm(x, d, scale, bias, 1e-6),
+                lambda: ops.fused_add_layer_norm_plain(x, d, scale, bias, 1e-6),
+                lambda: F.layer_norm(x + d, (C,), scale, bias, 1e-6),
+                TOL[("ln", dname)], (4 * rows * C + 2 * C) * es, 0,
+                8 * rows * C, per3, entries, compare=add_err)
+        for nh, g, hd, per in VIT_GLOBAL_SHAPES:
+            N = g * g
+            q, k, v = (torch.randn((nh, N, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, g, g)
+            mask = relpos_mask(torch, bhw, g, g, False, 1.0, dtype)
+            mm = 4 * nh * N * N * hd
+            check_kernel(
+                torch, f"K4 relpos_attention_global ({nh},{N},{hd})",
+                "relpos_attention_global", dname,
+                lambda: ops.relpos_attention_global(q, k, v, bhw, g, g),
+                lambda: ops.attention_relpos_plain(q, k, v, bhw, g, g),
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask[None]),
+                TOL[("attn", dname)], (4 * nh * N * hd + nh * N * 2 * g) * es,
+                mm if bf16 else 0, 7 * nh * N * N + (0 if bf16 else mm), per,
+                entries)
+            del mask
+        for W, nh, ws, hd, n_w, valid_rows, per in VIT_WINDOW_SHAPES:
+            N, G = ws * ws, W * nh
+            scale = hd ** -0.5
+            q, k, v = (torch.randn((G, N, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, ws, ws, out_scale=1.0 / scale)
+            mask = relpos_mask(torch, bhw, ws, ws, True, scale, dtype)
+            rows = (W - n_w) * nh * N + n_w * nh * valid_rows * ws  # computed
+            mm = 4 * rows * N * hd
+
+            def win_err(a, b):  # skipped pad-query rows must be zero
+                if a[-n_w * nh:, valid_rows * ws:].any():
+                    fail(f"K5 {dname}: skipped pad-query rows are not zero")
+                return (a.float() - b.float()).abs().max().item()
+
+            check_kernel(
+                torch, f"K5 relpos_attention_windowed ({G},{N},{hd}) n_w={n_w} "
+                f"valid_rows={valid_rows}", "relpos_attention_windowed", dname,
+                lambda: ops.relpos_attention_windowed(q, k, v, bhw, ws, ws, nh,
+                                                      True, n_w, valid_rows),
+                lambda: ops.attention_relpos_plain(
+                    q, k, v, bhw, ws, ws, folded=True, heads=nh, n_w=n_w,
+                    valid_rows=valid_rows),
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask[None]),
+                TOL[("attn", dname)],
+                (2 * G * N * hd + rows * (hd + 2 * ws) + G * N * hd) * es,
+                mm if bf16 else 0, 7 * rows * N + (0 if bf16 else mm), per,
+                entries, compare=win_err)
+            del mask
 
 
 def rgba(np, h: int, w: int, seed: int):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
 
 
-def check_small_against_cpu(torch, np, dl):
+def seed_vit_extras(torch, model, seed: int = 0) -> None:
+    """Seeded nonzero rel-pos tables, pos_embed and qkv biases in the SAM
+    ViT encoder (JAX's init zeroes them); the same values for every model
+    of one config, cast to each model's dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.encoder.named_parameters():
+            if name == "pos_embed" or name.endswith(("rel_pos_h", "rel_pos_w",
+                                                     "qkv.b")):
+                std = 0.5 if name == "pos_embed" else 0.3
+                p.copy_((std * torch.randn(p.shape, generator=gen)).to(p.dtype))
+
+
+def rel_l2(torch, a, b) -> float:
+    return (torch.linalg.vector_norm(a.float() - b.float())
+            / torch.linalg.vector_norm(b.float())).item()
+
+
+def check_small_against_cpu(torch, np, dl, counters):
     """Phase 3: the port on the card against the port on the CPU (the plain
-    path, which the CPU tests hold against the JAX package), float32."""
-    opts = dict(allow_random_weights=True, compute_dtype="float32",
-                sam_image_size=64, largest_region_object=True)
-    envs = [dl.Environment(dl.Options(backend=b, **opts))
-            for b in (dl.Backend.cpu, dl.Backend.gpu)]
-    img = dl.Image(dl.Extent(96, 64), dl.Channels.rgba, rgba(np, 64, 96, 42))
-    segs = [dl.Segmentation.process(img, e) for e in envs]
-    e_cpu, e_gpu = (s.embedding.float().cpu() for s in segs)
-    err = (e_cpu - e_gpu).abs().max().item()
-    print(f"small f32 embedding, card vs CPU: max|diff|={err:.3e} (atol 1e-4)")
-    if not err <= 1e-4:
-        fail(f"card embedding differs from the CPU port: {err}")
-    prompts = [dl.Point(30, 20), dl.Region(dl.Point(8, 8), dl.Point(80, 56))]
-    for p in prompts:
-        a, b = (s.compute_mask(p).pixels for s in segs)
-        flips = int((a != b).sum())
-        print(f"small f32 mask {p}: {flips} pixels differ")
-        if flips:
-            fail(f"card mask differs from the CPU port for {p}")
+    path, which the CPU tests hold against the JAX package), float32:
+    MobileSAM at 64, ViT-B at 512."""
+    for variant, size, emb_check in (("mobile_sam", 64, "abs"),
+                                     ("vit_b", 512, "rel")):
+        t0 = time.perf_counter()
+        opts = dict(allow_random_weights=True, compute_dtype="float32",
+                    sam_image_size=size, largest_region_object=True,
+                    sam_variant=variant)
+        envs = [dl.Environment(dl.Options(backend=b, **opts))
+                for b in (dl.Backend.cpu, dl.Backend.gpu)]
+        if variant != "mobile_sam":
+            for e in envs:
+                seed_vit_extras(torch, e.sam_model(variant).model)
+        w, h = size * 3 // 2, size
+        img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 42))
+        before = counters()
+        segs = [dl.Segmentation.process(img, e) for e in envs]
+        e_cpu, e_gpu = (s.embedding.float().cpu() for s in segs)
+        err = (e_cpu - e_gpu).abs().max().item()
+        rel = rel_l2(torch, e_gpu, e_cpu)
+        launched = {k: v - before[k] for k, v in counters().items()}
+        print(f"{variant} at {size}, f32 embedding, card vs CPU: "
+              f"max|diff|={err:.3e} relative L2 {rel:.3e} "
+              f"({'atol 1e-4' if emb_check == 'abs' else 'limit 1e-5'}); "
+              f"card launches {launched}")
+        if emb_check == "abs" and not err <= 1e-4:
+            fail(f"{variant}: card embedding differs from the CPU port: {err}")
+        if emb_check == "rel" and not rel <= 1e-5:
+            fail(f"{variant}: card embedding differs from the CPU port: "
+                 f"relative L2 {rel}")
+        if variant == "vit_b":
+            want = {k: n for k, n in VIT_PER_PROCESS.items()}
+            if {k: launched[k] for k in want} != want:
+                fail(f"vit_b at 512 launched {launched}, want {want}")
+        prompts = [dl.Point(w * 5 // 16, h * 5 // 16),
+                   dl.Region(dl.Point(size // 8, size // 8),
+                             dl.Point(w * 5 // 6, h * 7 // 8))]
+        for p in prompts:
+            a, b = (s.compute_mask(p).pixels for s in segs)
+            flips = int((a != b).sum())
+            print(f"{variant} f32 mask {p}: {flips} of {a.size} pixels differ")
+            limit = 0 if variant == "mobile_sam" else 1e-4 * a.size
+            if flips > limit:
+                fail(f"{variant}: card mask differs from the CPU port for {p}")
+        print(f"phase 3 {variant}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def queries(dl, seg):
+    ext = seg.extent
+    cx, cy = ext.width // 2, ext.height // 2
+    region = dl.Region(dl.Point(ext.width // 8, ext.height // 8),
+                       dl.Point(ext.width * 7 // 8, ext.height * 7 // 8))
+    out = [seg.compute_mask(dl.Point(cx, cy)), seg.compute_mask(region)]
+    out += [m.image for m in seg.compute_masks(dl.Point(cx // 2, cy))]
+    out += [m.image for m in seg.compute_mask_batch(
+        [dl.Point(cx, cy), region, dl.Point(ext.width // 4, ext.height // 4),
+         dl.Point(ext.width * 3 // 4, ext.height * 3 // 4)])]
+    return out
+
+
+def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
+    """Phase 4 for one variant: process + the four mask entry points on
+    both images; launch counts checked; the embedding held against the
+    plain path. Returns (env, images, segs, launches)."""
+    t0 = time.perf_counter()
+    env = dl.Environment(dl.Options(allow_random_weights=True,
+                                    largest_region_object=True,
+                                    sam_variant=variant))
+    bundle = env.sam_model(variant)
+    vit = bundle.cfg.encoder_vit is not None
+    enc_cfg = bundle.cfg.encoder_vit if vit else bundle.cfg.encoder_tiny
+    on = (enc_cfg.use_flash_attention if vit else
+          enc_cfg.use_fused_norm and enc_cfg.use_flash_attention)
+    if env.device.type != "cuda" or not on:
+        fail(f"the default {variant} Environment is not on the card with its "
+             f"kernels ({env.device}, {enc_cfg})")
+    if vit:
+        seed_vit_extras(torch, bundle.model)
+    print(f"{variant} model load (random weights, seed 0): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    images = [dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, s))
+              for (w, h, s) in IMAGES]
+
+    zero_counters()
+    segs = []
+    for img in images:
+        seg = dl.Segmentation.process(img, env)
+        masks = queries(dl, seg)
+        torch.cuda.synchronize()
+        segs.append(seg)
+        emb = seg.embedding
+        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
+            fail(f"{variant}: bad embedding {tuple(emb.shape)}")
+        for m in masks:
+            px = m.pixels
+            if px.shape != (img.extent.height, img.extent.width, 1):
+                fail(f"mask shape {px.shape} != extent {img.extent}")
+            if not set(np.unique(px).tolist()) <= {0, 255}:
+                fail("mask is not binary {0, 255}")
+        print(f"{variant} image {img.extent.width}x{img.extent.height}: "
+              f"embedding {tuple(emb.shape)}, {len(masks)} masks, foreground "
+              f"shares {[round(float((m.pixels > 0).mean()), 3) for m in masks]}",
+              flush=True)
+    launches = counters()
+    print(f"{variant} main-path launches over {len(images)} process calls: "
+          f"{launches}")
+    want = {k: want.get(k, 0) * len(images) for k in launches}
+    if launches != want:
+        fail(f"{variant}: kernel launches {launches} != {want}")
+
+    # The same model with the kernels switched off (the plain PyTorch path on
+    # the card), and both paths in float32. In bf16 the kernel and plain
+    # paths round independently, so they are compared through their
+    # distance to the float32 result; in float32 they are compared directly.
+    def make_env(dtype, kernels):
+        e = dl.Environment(dl.Options(allow_random_weights=True,
+                                      compute_dtype=dtype, sam_variant=variant))
+        b = e.sam_model(variant)
+        if vit:
+            seed_vit_extras(torch, b.model)
+            b.cfg = dataclasses.replace(b.cfg, encoder_vit=dataclasses.replace(
+                b.cfg.encoder_vit, use_flash_attention=kernels))
+        else:
+            b.cfg = dataclasses.replace(b.cfg, encoder_tiny=dataclasses.replace(
+                b.cfg.encoder_tiny, use_fused_norm=kernels,
+                use_flash_attention=kernels))
+        for (k, v), (k2, v2) in zip(bundle.model.state_dict().items(),
+                                    b.model.state_dict().items()):
+            if k != k2 or not torch.equal(v, v2.to(v.dtype)):
+                fail(f"the {dtype} {variant} model differs from the main one "
+                     f"at {k}")
+        return e
+
+    plain_env = make_env("bfloat16", False)
+    f32_plain_env = make_env("float32", False)
+    f32_kernel_env = make_env("float32", True)
+    for img, seg in zip(images, segs):
+        counts = counters()
+        plain = dl.Segmentation.process(img, plain_env).embedding
+        ref = dl.Segmentation.process(img, f32_plain_env).embedding
+        if counters() != counts:
+            fail(f"{variant}: the plain path launched a kernel")
+        f32_k = dl.Segmentation.process(img, f32_kernel_env).embedding
+        f32_err = rel_l2(torch, f32_k, ref)
+        k_err, p_err = rel_l2(torch, seg.embedding, ref), rel_l2(torch, plain, ref)
+        print(f"{variant} embedding {img.extent.width}x{img.extent.height}, "
+              f"relative L2: float32 kernels vs float32 plain {f32_err:.3e} "
+              f"(limit 1e-5); bf16 kernels vs float32 {k_err:.4e}, bf16 plain "
+              f"vs float32 {p_err:.4e} (limit 1.1x); bf16 kernels vs bf16 "
+              f"plain {rel_l2(torch, seg.embedding, plain):.4e}", flush=True)
+        if not f32_err <= 1e-5:
+            fail(f"{variant}: float32 kernel path differs from the plain path: "
+                 f"{f32_err}")
+        if not k_err <= 1.1 * p_err:
+            fail(f"{variant}: bf16 kernel path is further from float32 "
+                 f"({k_err}) than the bf16 plain path ({p_err})")
+    del plain_env, f32_plain_env, f32_kernel_env
+    torch.cuda.empty_cache()
+    print(f"phase 4 {variant}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return env, images, segs, launches
 
 
 def main() -> int:
@@ -264,18 +568,34 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    import types
+
     import numpy as np
 
     import dlimgedit_tpu_torch as dl
+    from dlimgedit_tpu_torch.ops import flash_attention as fa
+    from dlimgedit_tpu_torch.ops import fused_norm as fn
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
-    from dlimgedit_tpu_torch.ops.flash_attention import (
-        levit_window_attention,
-        levit_window_attention_plain,
-    )
-    from dlimgedit_tpu_torch.ops.fused_norm import (
-        fused_layer_norm,
-        layer_norm_plain,
-    )
+
+    ops = types.SimpleNamespace(
+        fused_layer_norm=fn.fused_layer_norm,
+        layer_norm_plain=fn.layer_norm_plain,
+        fused_add_layer_norm=fn.fused_add_layer_norm,
+        fused_add_layer_norm_plain=fn.fused_add_layer_norm_plain,
+        levit_window_attention=fa.levit_window_attention,
+        levit_window_attention_plain=fa.levit_window_attention_plain,
+        relpos_attention_global=fa.relpos_attention_global,
+        relpos_attention_windowed=fa.relpos_attention_windowed,
+        attention_relpos_plain=fa.attention_relpos_plain,
+        bias_halves=fa._bias_halves)
+    wrappers = {name: getattr(ops, name) for name, _, _ in KERNELS}
+
+    def counters():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def zero_counters():
+        for w in wrappers.values():
+            w.launches = 0
 
     # Full-precision float32 references everywhere (the cuDNN default lets
     # float32 convolutions run in TF32).
@@ -293,122 +613,40 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     LIBRARY.get()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s -> {LIBRARY.path}")
+    print(f"phase 1, kernel build: {time.perf_counter() - t0:.2f} s -> "
+          f"{LIBRARY.path}")
     for line in LIBRARY.build_log.splitlines():
         if line.startswith("==") or "Used" in line or "spill" in line:
             print("  nvcc:", line.strip())
     sys.stdout.flush()
 
     # -- 2. kernels against their plain versions -------------------------
-    entries = check_kernels(torch, dict(
-        fused_layer_norm=fused_layer_norm, layer_norm_plain=layer_norm_plain,
-        levit_window_attention=levit_window_attention,
-        levit_window_attention_plain=levit_window_attention_plain))
+    t0 = time.perf_counter()
+    entries = Entries()
+    check_kernels(torch, ops, entries)
+    check_vit_kernels(torch, ops, entries)
+    torch.cuda.empty_cache()
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. small size: the card against the CPU -------------------------
-    check_small_against_cpu(torch, np, dl)
+    check_small_against_cpu(torch, np, dl, counters)
 
-    # -- 4. main path at full width --------------------------------------
-    t0 = time.perf_counter()
-    env = dl.Environment(dl.Options(allow_random_weights=True,
-                                    largest_region_object=True))
-    bundle = env.sam_model()
-    enc_cfg = bundle.cfg.encoder_tiny
-    if env.device.type != "cuda" or not (enc_cfg.use_fused_norm
-                                         and enc_cfg.use_flash_attention):
-        fail(f"the default Environment is not on the card with both kernels "
-             f"({env.device}, {enc_cfg})")
-    print(f"model load (random weights, seed 0): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    images = [dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, s))
-              for (w, h, s) in IMAGES]
-
-    def queries(seg):
-        ext = seg.extent
-        cx, cy = ext.width // 2, ext.height // 2
-        region = dl.Region(dl.Point(ext.width // 8, ext.height // 8),
-                           dl.Point(ext.width * 7 // 8, ext.height * 7 // 8))
-        out = [seg.compute_mask(dl.Point(cx, cy)), seg.compute_mask(region)]
-        out += [m.image for m in seg.compute_masks(dl.Point(cx // 2, cy))]
-        out += [m.image for m in seg.compute_mask_batch(
-            [dl.Point(cx, cy), region, dl.Point(ext.width // 4, ext.height // 4),
-             dl.Point(ext.width * 3 // 4, ext.height * 3 // 4)])]
-        return out
-
-    fused_layer_norm.launches = 0
-    levit_window_attention.launches = 0
-    segs = []
-    for img in images:
-        seg = dl.Segmentation.process(img, env)
-        masks = queries(seg)
-        torch.cuda.synchronize()
-        segs.append(seg)
-        emb = seg.embedding
-        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
-            fail(f"bad embedding {tuple(emb.shape)}")
-        for m in masks:
-            px = m.pixels
-            if px.shape != (img.extent.height, img.extent.width, 1):
-                fail(f"mask shape {px.shape} != extent {img.extent}")
-            if not set(np.unique(px).tolist()) <= {0, 255}:
-                fail("mask is not binary {0, 255}")
-        print(f"image {img.extent.width}x{img.extent.height}: embedding "
-              f"{tuple(emb.shape)}, {len(masks)} masks, foreground shares "
-              f"{[round(float((m.pixels > 0).mean()), 3) for m in masks]}",
-              flush=True)
-    launches = {"fused_layer_norm": fused_layer_norm.launches,
-                "levit_window_attention": levit_window_attention.launches}
-    print(f"main-path launches over {len(images)} process calls: {launches}")
-    want = {"fused_layer_norm": LN_PER_PROCESS * len(images),
-            "levit_window_attention": ATTN_PER_PROCESS * len(images)}
-    if launches != want:
-        fail(f"kernel launches {launches} != {want}")
-
-    # The same model with the kernels switched off (the plain PyTorch path on
-    # the card), and both paths in float32. In bf16 the kernel and plain
-    # paths round independently, so they are compared through their
-    # distance to the float32 result; in float32 they are compared directly.
-    def make_env(dtype, kernels):
-        e = dl.Environment(dl.Options(allow_random_weights=True,
-                                      compute_dtype=dtype))
-        b = e.sam_model()
-        b.cfg = dataclasses.replace(b.cfg, encoder_tiny=dataclasses.replace(
-            b.cfg.encoder_tiny, use_fused_norm=kernels,
-            use_flash_attention=kernels))
-        for (k, v), (k2, v2) in zip(bundle.model.state_dict().items(),
-                                    b.model.state_dict().items()):
-            if k != k2 or not torch.equal(v, v2.to(v.dtype)):
-                fail(f"the {dtype} model differs from the main one at {k}")
-        return e
-
-    def rel_l2(a, b):
-        return (torch.linalg.vector_norm(a - b)
-                / torch.linalg.vector_norm(b)).item()
-
-    plain_env = make_env("bfloat16", False)
-    f32_plain_env = make_env("float32", False)
-    f32_kernel_env = make_env("float32", True)
-    for img, seg in zip(images, segs):
-        counts = (fused_layer_norm.launches, levit_window_attention.launches)
-        plain = dl.Segmentation.process(img, plain_env).embedding
-        ref = dl.Segmentation.process(img, f32_plain_env).embedding
-        if (fused_layer_norm.launches, levit_window_attention.launches) != counts:
-            fail("the plain path launched a kernel")
-        f32_k = dl.Segmentation.process(img, f32_kernel_env).embedding
-        f32_err = rel_l2(f32_k, ref)
-        k_err, p_err = rel_l2(seg.embedding, ref), rel_l2(plain, ref)
-        print(f"embedding {img.extent.width}x{img.extent.height}, relative L2: "
-              f"float32 kernels vs float32 plain {f32_err:.3e} (limit 1e-5); "
-              f"bf16 kernels vs float32 {k_err:.4e}, bf16 plain vs float32 "
-              f"{p_err:.4e} (limit 1.1x); bf16 kernels vs bf16 plain "
-              f"{rel_l2(seg.embedding, plain):.4e}", flush=True)
-        if not f32_err <= 1e-5:
-            fail(f"float32 kernel path differs from the plain path: {f32_err}")
-        if not k_err <= 1.1 * p_err:
-            fail(f"bf16 kernel path is further from float32 ({k_err}) than "
-                 f"the bf16 plain path ({p_err})")
+    # -- 4. main paths at full width -------------------------------------
+    launches = {name: 0 for name in wrappers}
+    runs = {}
+    for variant, want in (
+            ("mobile_sam", {"fused_layer_norm": LN_PER_PROCESS,
+                            "levit_window_attention": ATTN_PER_PROCESS}),
+            ("vit_b", VIT_PER_PROCESS)):
+        env, images, segs, counts = drive_main_path(
+            torch, np, dl, variant, counters, zero_counters, want)
+        runs[variant] = (env, images, segs)
+        for name, n in counts.items():
+            launches[name] += n
 
     # -- 5. end-to-end times ---------------------------------------------
+    t0 = time.perf_counter()
+
     def host_ms(fn, n=20):
         fn()
         torch.cuda.synchronize()
@@ -420,22 +658,19 @@ def main() -> int:
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
 
-    for img, seg in zip(images, segs):
-        p_ms = host_ms(lambda: dl.Segmentation.process(img, env))
-        c = dl.Point(img.extent.width // 2, img.extent.height // 2)
-        m_ms = host_ms(lambda: seg.compute_mask(c))
-        print(f"e2e {img.extent.width}x{img.extent.height} on {gpu_line}: "
-              f"process_ms={p_ms:.3f} mask_ms={m_ms:.3f} (medians of 20)",
-              flush=True)
+    for variant, (env, images, segs) in runs.items():
+        for img, seg in zip(images, segs):
+            p_ms = host_ms(lambda: dl.Segmentation.process(img, env))
+            c = dl.Point(img.extent.width // 2, img.extent.height // 2)
+            m_ms = host_ms(lambda: seg.compute_mask(c))
+            print(f"e2e {variant} {img.extent.width}x{img.extent.height} on "
+                  f"{gpu_line}: process_ms={p_ms:.3f} mask_ms={m_ms:.3f} "
+                  f"(medians of 20)", flush=True)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
-    for name, source, replaces in (
-            ("fused_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
-             "dlimgedit_tpu/ops/fused_norm.py:64"),
-            ("levit_window_attention",
-             "dlimgedit_tpu_torch/csrc/levit_attention.cu",
-             "dlimgedit_tpu/ops/flash_attention.py:531")):
-        e = entries[name]
+    for name, source, replaces in KERNELS:
+        e = entries.by_name[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

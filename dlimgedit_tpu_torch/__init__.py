@@ -1,10 +1,10 @@
 """dlimgedit_tpu_torch — the PyTorch / CUDA port of dlimgedit_tpu.
 
-Interactive segmentation with MobileSAM (TinyViT-5M encoder + SAM prompt
-encoder and mask decoder) on an NVIDIA GPU, with the same public
-vocabulary as the JAX package. The encoder's LayerNorm and LeViT window
-attention run as hand-written CUDA kernels (``csrc/``), built with nvcc at
-first use.
+Interactive segmentation with MobileSAM (TinyViT-5M encoder) or SAM ViT-B,
+-L, -H (``Options.sam_variant``), each with the SAM prompt encoder and mask
+decoder, on an NVIDIA GPU, with the same public vocabulary as the JAX
+package. The encoders' LayerNorms and attention run as hand-written CUDA
+kernels (``csrc/``), built with nvcc at first use.
 
 Quick start::
 
@@ -15,9 +15,9 @@ Quick start::
     mask = seg.compute_mask(dl.Point(320, 210))  # cheap interactive queries
     masks = seg.compute_masks(dl.Point(320, 210))  # 3 candidates + accuracy
 
-The port imports neither jax nor dlimgedit_tpu. ViT-B/L/H, automatic mask
-generation, BiRefNet, quantisation and the parallel tiers come with later
-slices and raise ``DlimgError`` here.
+The port imports neither jax nor dlimgedit_tpu. Automatic mask generation,
+BiRefNet, quantisation and the parallel tiers come with later slices and
+raise ``DlimgError`` here.
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

@@ -3,10 +3,11 @@
 ``params_from_numpy`` takes the nested dict/list of numpy arrays that
 ``utils.pytree_io.load_pytree`` returns (or ``np.asarray`` of a JAX
 ``init_sam`` tree) and returns the port's ``state_dict``: keys are the tree
-paths joined with dots (``encoder.stages.1.blocks.0.attn.qkv.w``), every
-4-D leaf goes from the tree's HWIO to the port's OIHW, and every other leaf
-keeps its shape (linear weights stay (in, out)). One ``.npz`` bundle thus
-serves both packages.
+paths joined with dots (``encoder.stages.1.blocks.0.attn.qkv.w``). A
+convolution kernel (a 4-D leaf named ``w``) goes from the tree's HWIO to
+the port's OIHW; every other leaf keeps its shape and layout (linear
+weights stay (in, out), the ViT's ``pos_embed`` stays (1, g, g, C)). One
+``.npz`` bundle thus serves both packages.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ def params_from_numpy(tree, device="cpu",
     state = {}
     for path, arr in flatten_tree(tree).items():
         arr = np.asarray(arr)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if arr.ndim == 4 and path.split("/")[-1] == "w":
+            arr = arr.transpose(3, 2, 0, 1)  # conv kernel: HWIO -> OIHW
         t = torch.tensor(arr)  # a copy: the tree may hold read-only arrays
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)

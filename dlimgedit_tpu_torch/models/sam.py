@@ -1,6 +1,7 @@
 """SAM model: image encoder + prompt encoder + mask decoder (counterpart of
-dlimgedit_tpu/models/sam.py). This slice ports the MobileSAM variant
-(TinyViT-5M encoder); the ViT-B/L/H encoders come with the SAM ViT slice.
+dlimgedit_tpu/models/sam.py). Variants: "mobile_sam" / "vit_t" (TinyViT-5M
+encoder) and "vit_b", "vit_l", "vit_h" (the SAM ViT encoders); the prompt
+encoder and decoder are the same for all.
 
 Image embeddings are NHWC (B, 64, 64, 256).
 """
@@ -13,7 +14,6 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..errors import not_in_this_slice
 from .mask_decoder import MaskDecoder, MaskDecoderConfig, predict_masks, select_single_mask
 from .prompt_encoder import (
     PromptEncoder,
@@ -23,6 +23,7 @@ from .prompt_encoder import (
     embed_points,
 )
 from .tinyvit import TinyViT, TinyViTConfig
+from .vit_sam import VIT_PRESETS, SamViT, SamViTConfig
 
 # SAM pixel normalisation.
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -33,9 +34,16 @@ SAM_PIXEL_STD = (58.395, 57.12, 57.375)
 class SamConfig:
     variant: str = "mobile_sam"
     image_size: int = 1024
-    encoder_tiny: TinyViTConfig = TinyViTConfig()
+    encoder_tiny: Optional[TinyViTConfig] = None
+    encoder_vit: Optional[SamViTConfig] = None
     prompt: PromptEncoderConfig = PromptEncoderConfig()
     decoder: MaskDecoderConfig = MaskDecoderConfig()
+
+    def __post_init__(self):
+        if (self.encoder_tiny is None) == (self.encoder_vit is None):
+            raise ValueError("SamConfig needs exactly one encoder config "
+                             "(encoder_tiny or encoder_vit); build configs "
+                             "with sam.make_config()")
 
     @property
     def embedding_size(self) -> int:
@@ -53,8 +61,10 @@ def make_config(variant: str = "mobile_sam", image_size: int = 1024) -> SamConfi
         return SamConfig(variant="mobile_sam", image_size=image_size,
                          encoder_tiny=TinyViTConfig(img_size=image_size),
                          prompt=prompt)
-    if variant in ("vit_b", "vit_l", "vit_h"):
-        raise not_in_this_slice(f"SAM variant {variant!r}", "SAM ViT")
+    if variant in VIT_PRESETS:
+        return SamConfig(variant=variant, image_size=image_size,
+                         encoder_vit=VIT_PRESETS[variant](img_size=image_size),
+                         prompt=prompt)
     raise ValueError(f"Unknown SAM variant: {variant}")
 
 
@@ -64,7 +74,10 @@ class Sam(nn.Module):
     def __init__(self, cfg: SamConfig, gen: Optional[torch.Generator] = None):
         super().__init__()
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
-        self.encoder = TinyViT(cfg.encoder_tiny, gen)
+        if cfg.encoder_tiny is not None:
+            self.encoder = TinyViT(cfg.encoder_tiny, gen)
+        else:
+            self.encoder = SamViT(cfg.encoder_vit, gen)
         self.prompt_encoder = PromptEncoder(cfg.prompt, gen)
         self.decoder = MaskDecoder(cfg.decoder, gen)
 
@@ -77,8 +90,8 @@ def init_sam(gen: torch.Generator, cfg: SamConfig) -> Sam:
 
 def encode_image(model: Sam, cfg: SamConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, S, 3) normalised pixels -> (B, S/16, S/16, 256). The
-    kernel flags are read from `cfg.encoder_tiny`."""
-    return model.encoder(x, cfg.encoder_tiny)
+    kernel flags are read from the encoder's config in `cfg`."""
+    return model.encoder(x, cfg.encoder_tiny or cfg.encoder_vit)
 
 
 def decode_masks(model: Sam, cfg: SamConfig, image_embedding: torch.Tensor,

@@ -44,8 +44,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, scale, bias, out, rows, cols, dtype, eps, stream
     "dlimg_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+    # x, d, scale, bias, s_out, out, rows, cols, dtype, eps, stream
+    "dlimg_add_layer_norm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     # qkv, bias, out, g, n, nh, kd, dtype, scale, stream
     "dlimg_levit_attention": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP],
+    # q, k, v, bhw, out, g, n, hd, gh, gw, dtype, scale, stream
+    "dlimg_relpos_attention_global": [_VP] * 5 + [_I] * 6 + [_F, _VP],
+    # q, k, v, bhw, out, g, n, hd, gh, gw, folded, g_skip, n_valid, dtype,
+    # scale, stream
+    "dlimg_relpos_attention_windowed": [_VP] * 5 + [_I] * 9 + [_F, _VP],
 }
 
 

@@ -6,9 +6,11 @@ Model directory convention, shared with the JAX package:
 ``<name>.npz.sha256`` file beside it. Encoder weights follow the compute
 dtype; the prompt encoder and decoder stay float32.
 
-On a CUDA device the TinyViT encoder runs the port's two kernels (K1
-LayerNorm, K2 window attention). Executables are plain eager callables:
-no ``torch.compile`` and no CUDA graphs in this slice.
+On a CUDA device the encoders run the port's kernels: TinyViT K1
+(LayerNorm) and K2 (window attention); the SAM ViTs K1 and K3 (LayerNorm,
+residual add + LayerNorm), K4 (global rel-pos attention) and K5 (windowed
+rel-pos attention). On the CPU they run the plain path. Executables are
+plain eager callables: no ``torch.compile`` and no CUDA graphs yet.
 """
 
 from __future__ import annotations
@@ -29,8 +31,13 @@ from ..utils.profiling import Profiler
 from ..utils.pytree_io import load_pytree
 from .lazy import Lazy
 
-# The bundle of the one SAM variant of this slice (the JAX package's name).
-MOBILE_SAM_BUNDLE = "mobile_sam.npz"
+# Weight-bundle file names per SAM variant (the JAX package's names).
+SAM_BUNDLES = {
+    "mobile_sam": "mobile_sam.npz",
+    "vit_b": "sam_vit_b.npz",
+    "vit_l": "sam_vit_l.npz",
+    "vit_h": "sam_vit_h.npz",
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,9 +49,17 @@ def is_supported(backend: Backend) -> bool:
     return torch.cuda.is_available()
 
 
+def _variant(name: str) -> str:
+    """The registry key of a SAM variant name ("vit_t" is MobileSAM)."""
+    name = "mobile_sam" if name == "vit_t" else name
+    if name not in SAM_BUNDLES:
+        raise DlimgError(f"Unknown SAM variant {name!r} (have "
+                         f"{sorted(SAM_BUNDLES)} and 'vit_t')")
+    return name
+
+
 def _reject_unported(o: Options) -> None:
-    if o.sam_variant in ("vit_b", "vit_l", "vit_h"):
-        raise not_in_this_slice(f"sam_variant={o.sam_variant!r}", "SAM ViT")
+    _variant(o.sam_variant)
     if o.quantize_encoder or o.quantize_activations:
         raise not_in_this_slice("int8 quantisation (quantize_encoder, "
                                 "quantize_activations)", "quantisation")
@@ -87,7 +102,7 @@ class Environment:
             raise DlimgError("GPU backend requested but no CUDA device is "
                              "available")
         self.compute_dtype = _DTYPES[self.options.compute_dtype]
-        self._sam_model = Lazy()
+        self._sam_models: Dict[str, Lazy] = {v: Lazy() for v in SAM_BUNDLES}
         self._executables: Dict[Tuple, Callable] = {}
         self._exec_lock = threading.Lock()
         self._sizes_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
@@ -114,9 +129,9 @@ class Environment:
     # -- model registry ------------------------------------------------------
 
     def sam_model(self, variant: str = "mobile_sam") -> SamModelBundle:
-        if variant not in ("mobile_sam", "vit_t"):
-            raise not_in_this_slice(f"SAM variant {variant!r}", "SAM ViT")
-        return self._sam_model.get_or_create(self._load_sam)
+        variant = _variant(variant)
+        return self._sam_models[variant].get_or_create(
+            lambda: self._load_sam(variant))
 
     def _verified_load(self, path: Path):
         """Load a bundle, verifying a pinned sha256 when `<bundle>.sha256`
@@ -134,14 +149,18 @@ class Environment:
                     f"sha256 {actual} != pinned {expected}")
         return load_pytree(path)
 
-    def _load_sam(self) -> SamModelBundle:
-        cfg = sam_lib.make_config("mobile_sam",
+    def _load_sam(self, variant: str) -> SamModelBundle:
+        cfg = sam_lib.make_config(variant,
                                   image_size=self.options.sam_image_size)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and cfg.encoder_tiny is not None:
             # The port's kernels K1 (LayerNorm) and K2 (window attention).
             cfg = dataclasses.replace(cfg, encoder_tiny=dataclasses.replace(
                 cfg.encoder_tiny, use_fused_norm=True, use_flash_attention=True))
-        path = self.model_directory / "segmentation" / MOBILE_SAM_BUNDLE
+        elif self.device.type == "cuda":
+            # K4 / K5 (rel-pos attention); the LayerNorms (K1, K3) follow.
+            cfg = dataclasses.replace(cfg, encoder_vit=dataclasses.replace(
+                cfg.encoder_vit, use_flash_attention=True))
+        path = self.model_directory / "segmentation" / SAM_BUNDLES[variant]
         if path.exists():
             model = sam_lib.Sam(cfg)
             model.load_state_dict(params_from_numpy(self._verified_load(path)),

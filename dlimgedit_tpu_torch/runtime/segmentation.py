@@ -2,7 +2,8 @@
 dlimgedit_tpu/runtime/segmentation.py).
 
   * `process`      — pack + copy the canvas, `sam_preprocess` (resize,
-                     normalise, pad on the device) and the TinyViT encoder.
+                     normalise, pad on the device) and the variant's image
+                     encoder (TinyViT for MobileSAM, or a SAM ViT).
                      The embedding STAYS ON THE DEVICE.
   * `compute_mask` — prompt encoder + two-way decoder + upsample to the
                      original size + threshold + bit-pack. Only the packed

@@ -1,16 +1,17 @@
 """Where the time of the port's main path goes on one GPU.
 
-    python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR
+    python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR \
+        [--variant mobile_sam|vit_b|vit_l|vit_h]
 
-Drives the main path as a user calls it — MobileSAM at 1024 in bfloat16
-with seeded random weights, `Segmentation.process` on a 1024x768 RGBA
-image, then `compute_mask(Point)` — and traces a steady window (after
-warm-up) of each with torch.profiler (CPU and CUDA activities). For each it
-prints:
+Drives the main path as a user calls it — the SAM variant (default
+MobileSAM) at 1024 in bfloat16 with seeded random weights,
+`Segmentation.process` on a 1024x768 RGBA image, then
+`compute_mask(Point)` — and traces a steady window (after warm-up) of each
+with torch.profiler (CPU and CUDA activities). For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
-  * device time by layer (the port's kernels K1 and K2, convolutions,
+  * device time by layer (the port's kernels K1-K5, convolutions,
     matrix products, elementwise, reductions, copies, other) and the top
     kernels by device time.
 The Chrome traces go to DIR. Needs CUDA.
@@ -33,8 +34,11 @@ from torch.profiler import ProfilerActivity, profile
 import dlimgedit_tpu_torch as dl
 
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
+    ("K3 fused_add_layer_norm", ("add_layer_norm_kernel<",)),
     ("K1 fused_layer_norm", ("layer_norm_kernel<",)),
     ("K2 levit_window_attention", ("levit_attention_kernel",)),
+    ("K4 relpos_attention_global", ("relpos_global_kernel",)),
+    ("K5 relpos_attention_windowed", ("relpos_window_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "winograd", "dgrad")),
     ("matrix product", ("gemm", "cublas", "cutlass", "matmul", "xmma", "sgemm")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -105,6 +109,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True,
                     help="directory for the Chrome traces")
     ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--variant", default="mobile_sam",
+                    choices=("mobile_sam", "vit_b", "vit_l", "vit_h"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -115,14 +121,16 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{gpu}; torch {torch.__version__}")
-    env = dl.Environment(dl.Options(allow_random_weights=True))
+    env = dl.Environment(dl.Options(allow_random_weights=True,
+                                    sam_variant=args.variant))
     px = np.random.default_rng(1).integers(0, 256, (768, 1024, 4), dtype=np.uint8)
     img = dl.Image(dl.Extent(1024, 768), dl.Channels.rgba, px)
     seg = dl.Segmentation.process(img, env)
-    profile_calls("process", lambda: dl.Segmentation.process(img, env),
-                  args.calls, out_dir)
-    profile_calls("compute_mask", lambda: seg.compute_mask(dl.Point(512, 384)),
-                  args.calls, out_dir)
+    profile_calls(f"{args.variant}_process",
+                  lambda: dl.Segmentation.process(img, env), args.calls, out_dir)
+    profile_calls(f"{args.variant}_compute_mask",
+                  lambda: seg.compute_mask(dl.Point(512, 384)), args.calls,
+                  out_dir)
     return 0
 
 

@@ -169,8 +169,9 @@ class Options:
 
     Fields the port does not support yet (``quantize_encoder``,
     ``quantize_activations``, ``scaleout_devices != 1``,
-    ``compilation_cache_dir``, the ViT ``sam_variant``s) are rejected by
-    ``Environment`` with a ``DlimgError`` that names the later slice.
+    ``compilation_cache_dir``) are rejected by ``Environment`` with a
+    ``DlimgError`` that names the later slice. ``sam_variant`` is one of
+    "mobile_sam" (or "vit_t"), "vit_b", "vit_l", "vit_h".
     """
 
     backend: Backend = Backend.gpu

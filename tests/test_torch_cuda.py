@@ -8,7 +8,7 @@ nor the JAX package, so on a GPU machine without JAX it runs with
 
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
-bf16 atol 2e-2.
+bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit.
 """
 
 import pytest
@@ -16,10 +16,19 @@ import torch
 
 from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.ops.flash_attention import (
+    _bias_halves,
+    attention_relpos_plain,
     levit_window_attention,
     levit_window_attention_plain,
+    relpos_attention_global,
+    relpos_attention_windowed,
 )
-from dlimgedit_tpu_torch.ops.fused_norm import fused_layer_norm, layer_norm_plain
+from dlimgedit_tpu_torch.ops.fused_norm import (
+    fused_add_layer_norm,
+    fused_add_layer_norm_plain,
+    fused_layer_norm,
+    layer_norm_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +45,9 @@ def dev():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,eps", [((3 * 49, 128), 1e-5), ((2, 7, 160), 1e-5),
-                                       ((33, 320), 1e-5), ((1, 4, 4, 256), 1e-6)])
+                                       ((33, 320), 1e-5), ((1, 4, 4, 256), 1e-6),
+                                       ((1, 9, 7, 768), 1e-6), ((37, 1024), 1e-6),
+                                       ((65, 1280), 1e-6)])
 def test_fused_layer_norm_kernel_matches_plain(dev, shape, eps, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     C = shape[-1]
@@ -67,6 +78,72 @@ def test_levit_attention_kernel_matches_plain(dev, G, N, nh, dtype):
                                rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 9, 7, 768), (37, 1024), (65, 1280)])
+def test_fused_add_layer_norm_kernel_matches_plain(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(2)
+    C = shape[-1]
+    x, d = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2))
+    scale = (0.25 + 0.5 * torch.rand(C, generator=g, device=dev)).to(dtype)
+    bias = (0.5 * torch.rand(C, generator=g, device=dev) - 0.25).to(dtype)
+    before = fused_add_layer_norm.launches
+    s, y = fused_add_layer_norm(x, d, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert fused_add_layer_norm.launches == before + 1
+    want_s, want_y = fused_add_layer_norm_plain(x, d, scale, bias, 1e-6)
+    torch.testing.assert_close(s, want_s, atol=0, rtol=0)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=TOL[dtype][0],
+                               rtol=0)
+
+
+def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N = gh * gw
+    q, k, v = (torch.randn((G, N, hd), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    rh = 0.3 * torch.randn((gh, gh, hd), generator=g, device=dev)
+    rw = 0.3 * torch.randn((gw, gw, hd), generator=g, device=dev)
+    return q, k, v, _bias_halves(q, rh, rw, gh, gw, out_scale=out_scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,gh,gw,hd", [(2, 20, 20, 64), (3, 32, 32, 80),
+                                        (1, 7, 9, 64), (2, 64, 64, 64)])
+def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
+    q, k, v, bhw = _relpos_inputs(dev, G, gh, gw, hd, dtype, 1.0, 3)
+    before = relpos_attention_global.launches
+    got = relpos_attention_global(q, k, v, bhw, gh, gw)
+    torch.cuda.synchronize()
+    assert relpos_attention_global.launches == before + 1
+    want = attention_relpos_plain(q, k, v, bhw, gh, gw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,heads,hd,folded,n_w,valid_rows", [
+    (25, 12, 64, True, 5, 8),     # ViT-B at 1024
+    (25, 16, 80, True, 5, 8),     # ViT-H at 1024
+    (9, 2, 64, False, 3, 4),      # the unfolded bias
+    (4, 3, 80, True, None, None),
+])
+def test_relpos_windowed_kernel_matches_plain(dev, W, heads, hd, folded, n_w,
+                                              valid_rows, dtype):
+    q, k, v, bhw = _relpos_inputs(dev, W * heads, 14, 14, hd, dtype,
+                                  (1.0 / hd ** -0.5) if folded else 1.0, 4)
+    before = relpos_attention_windowed.launches
+    got = relpos_attention_windowed(q, k, v, bhw, 14, 14, heads, folded, n_w,
+                                    valid_rows)
+    torch.cuda.synchronize()
+    assert relpos_attention_windowed.launches == before + 1
+    want = attention_relpos_plain(q, k, v, bhw, 14, 14, folded=folded,
+                                  heads=heads, n_w=n_w, valid_rows=valid_rows)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+    if n_w:
+        assert not got[-n_w * heads:, valid_rows * 14:].any()
+
+
 def test_kernels_raise_instead_of_falling_back(dev):
     x = torch.zeros(4, 96, device=dev)  # no kernel for C = 96
     with pytest.raises(DlimgError):
@@ -78,3 +155,13 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(DlimgError):
         fused_layer_norm(x, torch.ones(128, device=dev, dtype=torch.float16),
                          torch.zeros(128, device=dev, dtype=torch.float16))
+    x = torch.zeros(4, 96, device=dev)
+    with pytest.raises(DlimgError):
+        fused_add_layer_norm(x, x, torch.ones(96, device=dev),
+                             torch.zeros(96, device=dev))
+    q = torch.zeros(2, 49, 32, device=dev)  # head width 32: no K4 / K5
+    bhw = torch.zeros(2, 49, 14, device=dev)
+    with pytest.raises(DlimgError):
+        relpos_attention_global(q, q, q, bhw, 7, 7)
+    with pytest.raises(DlimgError):
+        relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)

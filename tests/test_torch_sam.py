@@ -68,10 +68,3 @@ def test_select_single_mask_follows_the_onnx_rule():
     assert float(m[0, 0, 0, 0]) == 2.0 and float(s[0, 0]) == pytest.approx(0.5)
     m, s = sam.select_single_mask(masks, iou, num_points=3)
     assert float(m[0, 0, 0, 0]) == 0.0 and float(s[0, 0]) == pytest.approx(0.9)
-
-
-def test_vit_variants_are_a_later_slice():
-    from dlimgedit_tpu_torch.errors import DlimgError
-
-    with pytest.raises(DlimgError, match="SAM ViT"):
-        sam.make_config("vit_b")

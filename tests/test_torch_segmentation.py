@@ -191,7 +191,6 @@ def test_sha256_pin_is_enforced(model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("sam_variant", "vit_b", "SAM ViT"),
     ("quantize_encoder", True, "quantisation"),
     ("quantize_activations", True, "quantisation"),
     ("scaleout_devices", 0, "parallel"),
@@ -219,8 +218,10 @@ def test_unported_entry_points_raise(envs, segs, pixels):
 def test_gpu_backend_is_the_default_and_never_falls_back(monkeypatch):
     assert pdl.Options().backend == pdl.Backend.gpu
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(pdl.DlimgError, match="no CUDA device"):
-        pdl.Environment(pdl.Options(allow_random_weights=True))
+    for variant in ("mobile_sam", "vit_b"):
+        with pytest.raises(pdl.DlimgError, match="no CUDA device"):
+            pdl.Environment(pdl.Options(allow_random_weights=True,
+                                        sam_variant=variant))
     assert not pdl.is_supported(pdl.Backend.gpu)
     assert pdl.is_supported(pdl.Backend.cpu)
 

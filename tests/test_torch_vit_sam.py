@@ -1,0 +1,276 @@
+"""The port's SAM ViT encoder and its slice against the JAX package, on the
+CPU in float32, all inputs from numpy seeds:
+
+  * ``sam_vit_apply`` at narrow widths (embed 128 and 160 with 2 heads:
+    hd 64 and 80), depth 2 with one windowed (14) and one global block, at
+    image sizes 256 and 384, with nonzero rel-pos tables, ``pos_embed`` and
+    qkv bias: the kernel path (JAX's Pallas kernels in interpret mode, the
+    port's kernel wrappers, which on the CPU compute their plain versions)
+    and the dense path. At 256 every block is windowed in the kernel
+    sense (N <= 256: K5, with the pad-query skip on the 14-windows of the
+    16-grid); at 384 the global block takes K4 (N = 576). Tolerance atol
+    1e-4, rtol 1e-4: float32 summation order through two blocks and the
+    neck;
+  * the weight carry: a JAX ViT-B tree (full width, image size 64) read by
+    ``params_from_numpy`` fills the port's ``Sam`` with strict=True,
+    ``pos_embed`` keeps its (1, g, g, C) layout, and both encoders agree;
+  * ``Segmentation`` end to end with an injected narrow ``vit_b`` bundle:
+    the embedding within atol 1e-4, masks byte for byte, a flipped pixel
+    allowed only where JAX's logit is within 1e-4 of zero.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dlimgedit_tpu as jdl
+import dlimgedit_tpu_torch as pdl
+from dlimgedit_tpu.models import sam as jax_sam
+from dlimgedit_tpu.models import vit_sam as jax_vit
+from dlimgedit_tpu.ops.connected import largest_component_mask as jax_lcc
+from dlimgedit_tpu.ops.postprocess import upsample_mask_logits as jax_upsample
+from dlimgedit_tpu.ops.preprocess import pick_bucket
+from dlimgedit_tpu.runtime.environment import SamModelBundle as JaxBundle
+from dlimgedit_tpu_torch.convert.from_numpy import params_from_numpy
+from dlimgedit_tpu_torch.models import sam, vit_sam
+from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
+
+torch.set_num_threads(2)
+
+NEAR_ZERO = 1e-4
+
+
+def _narrow(mod, embed: int, img_size: int):
+    return mod.SamViTConfig(img_size=img_size, embed_dim=embed, depth=2,
+                            num_heads=2, window_size=14,
+                            global_attn_indexes=(1,))
+
+
+def _randomise(encoder: dict, seed: int) -> dict:
+    """Nonzero rel-pos tables, pos_embed and qkv bias (JAX's init zeroes
+    them), so the rel-pos indexing, the embedding layout and the pad keys
+    of edge windows (k = v = qkv bias) all count."""
+    rng = np.random.default_rng(seed)
+
+    def fill(a, std):
+        return (std * rng.standard_normal(a.shape)).astype(np.float32)
+
+    encoder["pos_embed"] = fill(encoder["pos_embed"], 0.5)
+    for b in encoder["blocks"]:
+        b["rel_pos_h"] = fill(b["rel_pos_h"], 0.3)
+        b["rel_pos_w"] = fill(b["rel_pos_w"], 0.3)
+        b["qkv"]["b"] = fill(b["qkv"]["b"], 0.3)
+    return encoder
+
+
+def _jax_tree(cfg, seed=0):
+    return jax.tree_util.tree_map(
+        np.asarray, jax_sam.init_sam(jax.random.PRNGKey(seed), cfg))
+
+
+@pytest.mark.parametrize("path", ["kernel", "dense"])
+@pytest.mark.parametrize("embed,img_size", [(128, 256), (160, 384)])
+def test_sam_vit_matches_jax(embed, img_size, path):
+    jcfg = _narrow(jax_vit, embed, img_size)
+    params = _randomise(jax.tree_util.tree_map(
+        np.asarray, jax_vit.init_sam_vit(jax.random.PRNGKey(0), jcfg)), 7)
+    x = np.random.default_rng(3).standard_normal(
+        (1, img_size, img_size, 3)).astype(np.float32)
+    kernels = path == "kernel"
+    jcfg = dataclasses.replace(jcfg, use_flash_attention=kernels,
+                               flash_interpret=kernels)
+    want = np.asarray(jax_vit.sam_vit_apply(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), jcfg))
+
+    cfg = dataclasses.replace(_narrow(vit_sam, embed, img_size),
+                              use_flash_attention=kernels)
+    model = vit_sam.SamViT(cfg)
+    model.load_state_dict(params_from_numpy(params), strict=True)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, img_size // 16, img_size // 16, 256)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_fused_window_blocks_is_not_ported_yet():
+    """JAX's strip-sliced windowed kernel (flash_attention.py:646
+    windowed_attention_fused, B7 in ROADMAP) is still to port."""
+    cfg = dataclasses.replace(_narrow(vit_sam, 128, 64),
+                              fused_window_blocks=True)
+    model = vit_sam.SamViT(cfg)
+    with pytest.raises(pdl.DlimgError, match="windowed_attention_fused"):
+        model(torch.zeros(1, 64, 64, 3))
+
+
+@pytest.mark.parametrize("variant", ["vit_b", "vit_l", "vit_h"])
+def test_vit_presets_match_jax(variant):
+    got = sam.make_config(variant, 512)
+    want = jax_sam.make_config(variant, 512)
+    assert got.variant == want.variant and got.encoder_tiny is None
+    for f in dataclasses.fields(got.encoder_vit):
+        assert getattr(got.encoder_vit, f.name) == getattr(want.encoder_vit,
+                                                           f.name), f.name
+    assert got.prompt.image_embedding_size == 32
+
+
+def test_vit_b_weights_carry_across():
+    """A JAX ViT-B tree at full width fills the port's Sam exactly
+    (strict=True); pos_embed keeps its layout; both encoders agree."""
+    jcfg = jax_sam.make_config("vit_b", image_size=64)
+    tree = _jax_tree(jcfg)
+    _randomise(tree["encoder"], 11)
+    state = params_from_numpy(tree)
+    pos = tree["encoder"]["pos_embed"]
+    assert pos.shape == (1, 4, 4, 768)
+    np.testing.assert_array_equal(state["encoder.pos_embed"].numpy(), pos)
+    w = tree["encoder"]["patch_embed"]["w"]  # HWIO (16, 16, 3, 768)
+    np.testing.assert_array_equal(state["encoder.patch_embed.w"].numpy(),
+                                  w.transpose(3, 2, 0, 1))
+    cfg = sam.make_config("vit_b", image_size=64)
+    model = sam.Sam(cfg)
+    model.load_state_dict(state, strict=True)
+
+    x = np.random.default_rng(4).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jax_sam.encode_image(
+        jax.tree_util.tree_map(jnp.asarray, tree), jcfg, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = sam.encode_image(model.eval(), cfg, torch.from_numpy(x)).numpy()
+    assert got.shape == (1, 4, 4, 256)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Segmentation end to end with a narrow vit_b bundle
+# ---------------------------------------------------------------------------
+
+IMAGE_SIZE = 256
+
+
+def _opts(mod):
+    return mod.Options(backend=mod.Backend.cpu, allow_random_weights=True,
+                       compute_dtype="float32", sam_variant="vit_b",
+                       sam_image_size=IMAGE_SIZE, largest_region_object=True,
+                       model_directory="no-such-directory")
+
+
+@pytest.fixture(scope="module")
+def envs():
+    """JAX and port Environments holding one narrow vit_b bundle (the
+    default decoder, a 2-block encoder of width 128)."""
+    jcfg = jax_sam.make_config("vit_b", IMAGE_SIZE)
+    jcfg = dataclasses.replace(jcfg,
+                               encoder_vit=_narrow(jax_vit, 128, IMAGE_SIZE))
+    tree = _jax_tree(jcfg, seed=1)
+    _randomise(tree["encoder"], 13)
+    je = jdl.Environment(_opts(jdl))
+    jb = JaxBundle(jcfg, jax.tree_util.tree_map(jnp.asarray, tree), je.device,
+                   jnp.float32)
+    assert je._sam_models["vit_b"].get_or_create(lambda: jb) is jb
+
+    cfg = sam.make_config("vit_b", IMAGE_SIZE)
+    cfg = dataclasses.replace(cfg,
+                              encoder_vit=_narrow(vit_sam, 128, IMAGE_SIZE))
+    model = sam.Sam(cfg)
+    model.load_state_dict(params_from_numpy(tree), strict=True)
+    pe = pdl.Environment(_opts(pdl))
+    pb = SamModelBundle(cfg, model, torch.float32)
+    assert pe._sam_models["vit_b"].get_or_create(lambda: pb) is pb
+    return je, pe
+
+
+@pytest.fixture(scope="module")
+def segs(envs):
+    px = np.random.default_rng(42).integers(0, 256, (200, 300, 4), dtype=np.uint8)
+    js = jdl.Segmentation.process(
+        jdl.Image(jdl.Extent(300, 200), jdl.Channels.rgba, px), envs[0])
+    ps = pdl.Segmentation.process(
+        pdl.Image(pdl.Extent(300, 200), pdl.Channels.rgba, px), envs[1])
+    return js, ps
+
+
+def _jax_logits(je, js, prompt, multimask=False, lcc=False) -> np.ndarray:
+    """JAX's upsampled mask logits at the original extent, (T, H, W)."""
+    bundle = je.sam_model("vit_b")
+    cfg = bundle.cfg
+    is_region = isinstance(prompt, jdl.Region)
+    points, labels = js._prompt_arrays(None if is_region else prompt,
+                                       prompt if is_region else None)
+    masks, _ = jax_sam.decode_masks(bundle.params, cfg, js.embedding,
+                                    jnp.asarray(points), jnp.asarray(labels),
+                                    multimask=multimask)
+    if multimask:
+        masks = masks[:, 1:4]
+    if lcc:
+        masks = jnp.where(jax.vmap(jax.vmap(jax_lcc))(masks > 0), masks, -10.0)
+    h, w = js.extent.height, js.extent.width
+    logits = jax_upsample(masks, pick_bucket(js.extent), cfg.image_size, h, w,
+                          js._crop[0], js._crop[1])
+    return np.asarray(logits[0])[:, :h, :w]
+
+
+def _assert_mask_matches(got: np.ndarray, want: np.ndarray, logits):
+    assert got.shape == want.shape and got.dtype == np.uint8
+    flips = got[..., 0] != want[..., 0]
+    if flips.any():
+        near = np.abs(logits()[flips]) <= NEAR_ZERO
+        assert near.all(), (f"{int(flips.sum())} pixels flipped, "
+                            f"{int((~near).sum())} where JAX's logit is not "
+                            f"within {NEAR_ZERO} of zero")
+
+
+def test_vit_embedding_matches_jax(segs):
+    js, ps = segs
+    want = np.asarray(js.embedding)
+    assert ps.embedding.shape == want.shape == (1, 16, 16, 256)
+    np.testing.assert_allclose(ps.embedding.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["point", "region", "multimask", "batch"])
+def test_vit_masks_match_jax(envs, segs, kind):
+    je = envs[0]
+    js, ps = segs
+    if kind == "point":
+        _assert_mask_matches(
+            ps.compute_mask(pdl.Point(150, 100)).pixels,
+            js.compute_mask(jdl.Point(150, 100)).pixels,
+            lambda: _jax_logits(je, js, jdl.Point(150, 100))[0])
+    elif kind == "region":
+        jr = jdl.Region(jdl.Point(40, 30), jdl.Point(250, 170))
+        got = ps.compute_mask(pdl.Region(pdl.Point(40, 30),
+                                         pdl.Point(250, 170))).pixels
+        _assert_mask_matches(got, js.compute_mask(jr).pixels,
+                             lambda: _jax_logits(je, js, jr, lcc=True)[0])
+    elif kind == "multimask":
+        got = ps.compute_masks(pdl.Point(80, 60))
+        want = js.compute_masks(jdl.Point(80, 60))
+        assert len(got) == 3
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_mask_matches(
+                g.image.pixels, w.image.pixels,
+                lambda i=i: _jax_logits(je, js, jdl.Point(80, 60),
+                                        multimask=True)[i])
+            assert abs(g.accuracy - w.accuracy) <= 1e-4
+    else:
+        jp = [jdl.Point(20, 20), jdl.Region(jdl.Point(10, 10),
+                                            jdl.Point(200, 150))]
+        pp = [pdl.Point(20, 20), pdl.Region(pdl.Point(10, 10),
+                                            pdl.Point(200, 150))]
+        got, want = ps.compute_mask_batch(pp), js.compute_mask_batch(jp)
+        assert len(got) == 2
+        for g, w, prompt in zip(got, want, jp):
+            _assert_mask_matches(
+                g.image.pixels, w.image.pixels,
+                lambda prompt=prompt: _jax_logits(
+                    je, js, prompt, lcc=isinstance(prompt, jdl.Region))[0])
+            assert abs(g.accuracy - w.accuracy) <= 1e-4
+
+
+def test_unknown_variant_is_refused():
+    opts = _opts(pdl)
+    opts.sam_variant = "vit_q"
+    with pytest.raises(pdl.DlimgError, match="Unknown SAM variant"):
+        pdl.Environment(opts)
