@@ -5,50 +5,78 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. Phases, each of which fails the run (non-zero exit) on any error,
-each printing its seconds:
+package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
 
-  1. builds the port's CUDA kernels from dlimgedit_tpu_torch/csrc/ (nvcc,
-     sm_90a) and prints nvcc's register / shared-memory report;
+  K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
+  K2 levit_window_attention                      levit_attention.cu
+  K4 relpos_attention_global, K5 ..._windowed,
+  K7 relpos_attention_qkv                        relpos_attention.cu
+  K6 windowed_attention_fused                    window_strip_attention.cu
+  K8 smem_gather (the gather probe)              gather_probe.cu
+
+Phases, each of which fails the run (non-zero exit) on any error, each
+printing its seconds:
+
+  1. builds the kernels (nvcc, sm_90a, one process per source) and prints
+     nvcc's register / shared-memory report;
   2. holds each kernel against its plain PyTorch version on the card, in
-     bfloat16 and float32, at every shape the two main paths give it
-     (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5) and at ViT-H's shapes
-     (C 1280, 16 heads of width 80), with nonzero rel-pos tables; in bf16
-     it times kernel, plain version, the library yardstick (F.layer_norm;
-     x + d then F.layer_norm, two calls; F.scaled_dot_product_attention
-     with the materialised float bias; timed only, never used by the port)
-     and computes the least time the card could take (bound);
+     bfloat16 and float32, at every shape the main paths give it
+     (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5; ViT-B with
+     fused_window_blocks: K6 on the strips of a (1, 70, 70, 2304) qkv) and
+     at ViT-H's shapes (C 1280, 16 heads of width 80), with nonzero rel-pos
+     tables; K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
+     (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
+     row-replicated and per-lane indices, reps 8 and 16), bit for bit. In
+     bf16 it times kernel, plain version, the library yardstick
+     (F.layer_norm; x + d then F.layer_norm, two calls;
+     F.scaled_dot_product_attention with the materialised float bias, on
+     the partitioned windows for K6 - it also prints the time of that
+     partition, which K6 does not need; none for K8; timed only, never
+     used by the port) and computes the least time the card could take
+     (bound);
   3. checks the port on the card against the port on the CPU (float32):
      MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
      ViT-B at 512, full width and depth, with seeded nonzero rel-pos
      tables, pos_embed and qkv biases (embedding within relative L2 1e-5;
-     mask pixels that differ at most 1e-4 of the mask, threshold noise);
-     at 512 the global blocks take K4 (N = 1024) and the windowed blocks
-     K5 with the pad-query skip (grid 32 -> 42, valid_rows 4);
+     mask pixels that differ at most 1e-4 of the mask, threshold noise),
+     once as the Environment builds it (the global blocks take K4, N =
+     1024; the windowed blocks K5 with the pad-query skip, grid 32 -> 42,
+     valid_rows 4) and once with fused_window_blocks (the windowed blocks
+     take K6);
   4. drives each main path at full width with seeded random weights:
      MobileSAM at 1024 in bfloat16, then ViT-B at 1024 (embed 768, depth
      12, 12 heads) in bfloat16 with seeded nonzero rel-pos tables,
      pos_embed and qkv biases (JAX's init zeroes them, which would leave the
-     rel-pos indexing unchecked). Per path: `process` on a 1024x768 and a
+     rel-pos indexing unchecked), then the same ViT-B with its bundle's
+     fused_window_blocks set. Per path: `process` on a 1024x768 and a
      1500x1000 image (canvas buckets 1024 and 2048), and per image
      `compute_mask(Point)`, `compute_mask(Region)` with
      largest_region_object, `compute_masks` and `compute_mask_batch` of 4
      prompts. The launch counters are zeroed just before each path and read
      just after. Per `process`: MobileSAM 22 K1 and 10 K2 launches; ViT-B 1
      K1 (block 0's norm1), 23 K3 (every other block LayerNorm), 4 K4 (the
-     global blocks) and 8 K5 (the windowed blocks, one launch each). Masks
-     must be {0, 255} at the original extent. The embedding is held against
-     the plain path (kernels off): in float32 within relative L2 1e-5; in
-     bf16 its relative L2 distance to the float32 result may be at most
-     1.1x the bf16 plain path's (the two bf16 paths round independently);
-  5. times `process` and one mask query per path (medians, host clock
+     global blocks) and 8 K5 (the windowed blocks, one launch each); the
+     fused-window ViT-B the same with 8 K6 in place of the 8 K5. No path
+     launches K7 (no path of either package calls JAX's
+     windowed_attention_qkv) or K8 (a measurement tool). Masks must be
+     {0, 255} at the original extent. The embedding is held against the
+     plain path (kernels off): in float32 within relative L2 1e-5; in bf16
+     its relative L2 distance to the float32 result may be at most 1.1x the
+     bf16 plain path's (the two bf16 paths round independently);
+  5. runs the gather probe (dlimgedit_tpu_torch.tools.probe_smem_gather)
+     at small reps: K8 against its plain version and torch's gathers from
+     device memory, printed;
+  6. times `process` and one mask query per path (medians, host clock
      around work that ends in a device synchronise).
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
 timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
 `bound_ms` in the JSON are sums over the launches it made on the main
-paths (its `launches`: both images' `process` calls of each path).
+paths (its `launches`: both images' `process` calls of each path). For K7
+and K8, which no main path launches, they are the numbers of one call at
+their first shape (ViT-B's windows; the probe's row-replicated indices at
+reps 8, bf16 table).
 """
 
 from __future__ import annotations
@@ -78,19 +106,32 @@ ATTN_SHAPES = [(361, 49, 4, 2), (25, 196, 5, 6), (100, 49, 10, 2)]
 LN_PER_PROCESS = sum(s[3] for s in LN_SHAPES)        # 22
 ATTN_PER_PROCESS = sum(s[3] for s in ATTN_SHAPES)    # 10
 
-# SAM ViT shapes at 1024 (grid 64; ViT-B's launches per process, ViT-H's
-# shapes held with 0 launches): K1 and K3 rows (rows, C, launches) ...
-VIT_LN_SHAPES = [(4096, 768, 1), (4096, 1280, 0)]
-VIT_ADD_LN_SHAPES = [(4096, 768, 23), (4096, 1280, 0)]
+# SAM ViT shapes at 1024 (grid 64; launches per image of the main paths:
+# ViT-B runs twice, with its windows partitioned and with
+# fused_window_blocks, and both launch K1, K3 and K4 alike; ViT-H's shapes
+# are held with 0 launches): K1 and K3 rows (rows, C, launches) ...
+VIT_LN_SHAPES = [(4096, 768, 2 * 1), (4096, 1280, 0)]
+VIT_ADD_LN_SHAPES = [(4096, 768, 2 * 23), (4096, 1280, 0)]
 # ... K4 (heads, grid, head width, launches): one group per head ...
-VIT_GLOBAL_SHAPES = [(12, 64, 64, 4), (16, 64, 80, 0)]
+VIT_GLOBAL_SHAPES = [(12, 64, 64, 2 * 4), (16, 64, 80, 0)]
 # ... and K5 (windows, heads, window, head width, n_w, valid_rows,
-# launches): the 64-grid pads to 70 = 5 x 14, the bottom row of 5 windows
-# keeps 8 of its 14 rows.
+# launches; the partitioned path only): the 64-grid pads to 70 = 5 x 14,
+# the bottom row of 5 windows keeps 8 of its 14 rows.
 VIT_WINDOW_SHAPES = [(25, 12, 14, 64, 5, 8, 8), (25, 16, 14, 80, 5, 8, 0)]
 VIT_PER_PROCESS = {"fused_layer_norm": 1, "fused_add_layer_norm": 23,
                    "relpos_attention_global": 4,
                    "relpos_attention_windowed": 8}
+# K6 on the fused_window_blocks path (batch, padded grid, heads, head width,
+# window, launches per image): the strips of the padded 70 x 70 qkv
+# output, ViT-B's 8 windowed blocks; ViT-H's shape held with 0 launches.
+VIT_STRIP_SHAPES = [(1, 70, 12, 64, 14, 8), (1, 70, 16, 80, 14, 0)]
+VIT_FUSED_PER_PROCESS = {"fused_layer_norm": 1, "fused_add_layer_norm": 23,
+                         "relpos_attention_global": 4,
+                         "windowed_attention_fused": 8}
+# K7 (windows, heads, window, head width): ViT-B's and ViT-H's windows.
+VIT_QKV_SHAPES = [(25, 12, 14, 64), (25, 16, 14, 80)]
+# K8: the gather probe's (rows, lanes) and reps.
+PROBE_SHAPE, PROBE_REPS = (4096, 128), (8, 16)
 
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
@@ -105,7 +146,7 @@ SAMPLE_RETRIES = 10
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
 
-KERNELS = (  # name, source, the TPU kernel it replaces
+KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
     ("fused_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
      "dlimgedit_tpu/ops/fused_norm.py:64"),
     ("levit_window_attention", "dlimgedit_tpu_torch/csrc/levit_attention.cu",
@@ -117,6 +158,13 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("relpos_attention_windowed",
      "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
      "dlimgedit_tpu/ops/flash_attention.py:307"),
+    ("windowed_attention_fused",
+     "dlimgedit_tpu_torch/csrc/window_strip_attention.cu",
+     "dlimgedit_tpu/ops/flash_attention.py:646"),
+    ("relpos_attention_qkv", "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+     "dlimgedit_tpu/ops/flash_attention.py:382"),
+    ("smem_gather", "dlimgedit_tpu_torch/csrc/gather_probe.cu",
+     "tools/probe_vmem_gather.py:53"),
 )
 
 
@@ -179,30 +227,43 @@ def time_ms(torch, fn, samples: int = 20, per_sample: int = 10) -> float:
 
 
 class Entries:
-    """Per-kernel sums over the main paths' launches (bf16 only)."""
+    """Per-kernel sums over the main paths' launches (bf16 only), and the
+    numbers of one call at each kernel's first shape (for a kernel that no
+    main path launches). A kernel with no library yardstick records None."""
+
+    TIMES = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
 
     def __init__(self):
         self.by_name = {}
+        self.first = {}
 
     def record(self, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
                launches):
         launches *= len(IMAGES)
+        vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
+        self.first.setdefault(name, vals)
         e = self.by_name.setdefault(name, dict(
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-            bytes_ms=0.0, ops_ms=0.0))
+            max_abs_err=0.0, launches=0, **{k: 0.0 for k in self.TIMES}))
         e["max_abs_err"] = max(e["max_abs_err"], err)
-        e["ms"] += ms * launches
-        e["plain_ms"] += plain_ms * launches
-        e["library_ms"] += lib_ms * launches
-        e["bytes_ms"] += bytes_ms * launches
-        e["ops_ms"] += ops_ms * launches
+        e["launches"] += launches
+        for k, v in vals.items():
+            e[k] = None if v is None or e[k] is None else e[k] + v * launches
+
+    def numbers(self, name, launches):
+        """The JSON numbers: sums over the main paths' launches, or one
+        call at the first shape when no main path launched the kernel."""
+        e = dict(self.by_name[name])
+        if not launches:
+            e.update(self.first[name])
+        return e
 
 
 def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
                  nbytes, flops_mm, flops_f32, launches, entries, compare=None):
     """One kernel at one shape: max |kernel - plain| within `tol`; in bf16
-    also the times of kernel, plain version and library call, and the
-    bound from the bytes moved and the operations done."""
+    also the times of kernel, plain version and library call (None: there
+    is no library yardstick), and the bound from the bytes moved and the
+    operations done."""
     t0 = time.perf_counter()
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -217,11 +278,12 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
         return
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain)
-    lib_ms = time_ms(torch, library)
+    lib_ms = None if library is None else time_ms(torch, library)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (flops_mm / PEAK_BF16_TC_FLOPS + flops_f32 / PEAK_F32_FLOPS) * 1e3
+    lib = "none" if lib_ms is None else f"{lib_ms:.5f}"
     print(f"{label} {dname} x{launches}: max|diff|={err:.3e} (atol {tol:g}) "
-          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} "
           f"bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
@@ -368,6 +430,87 @@ def check_vit_kernels(torch, ops, entries):
             del mask
 
 
+def check_window_kernels(torch, ops, entries):
+    """Phase 2, the last three kernels: K6 at the fused-window path's
+    shapes (ViT-B, and ViT-H's), K7 at ViT-B's and ViT-H's windows, K8 at
+    the gather probe's shapes."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        es = torch.empty((), dtype=dtype).element_size()
+        bf16 = dtype == torch.bfloat16
+        for B, grid, nh, hd, ws, per in VIT_STRIP_SHAPES:
+            C, n, nw = nh * hd, ws * ws, grid // ws
+            G = B * nw * nw * nh
+            qkv = torch.randn((B, grid, grid, 3 * C), generator=gen,
+                              device=dev).to(dtype)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen,
+                                        device=dev) for _ in range(2))
+
+            def partition():  # what the SDPA yardstick needs, K6 does not
+                t = qkv.view(B, nw, ws, nw, ws, 3, nh, hd)
+                return t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, G, n, hd)
+
+            qw, kw, vw = partition()
+            mask = relpos_mask(torch, ops.bias_halves(qw, rh, rw, ws, ws), ws,
+                               ws, False, 1.0, dtype)
+            mm = 4 * G * n * n * hd + 4 * G * n * ws * hd  # + bias halves
+            label = f"K6 windowed_attention_fused ({B},{grid},{grid},{C})"
+            check_kernel(
+                torch, label, "windowed_attention_fused", dname,
+                lambda: ops.windowed_attention_fused(q, k, v, rh, rw, ws=ws,
+                                                     num_heads=nh),
+                lambda: ops.windowed_attention_fused_plain(
+                    q, k, v, rh, rw, ws=ws, num_heads=nh),
+                lambda: F.scaled_dot_product_attention(
+                    qw[None], kw[None], vw[None], attn_mask=mask[None]),
+                TOL[("attn", dname)],
+                (4 * B * grid * grid * C + 2 * ws * ws * hd) * es,
+                mm if bf16 else 0, 7 * G * n * n + (0 if bf16 else mm), per,
+                entries)
+            if bf16:
+                print(f"{label} {dname}: partition of q, k, v into windows "
+                      f"(the yardstick's copies) "
+                      f"{time_ms(torch, partition):.5f} ms", flush=True)
+            del mask, qw, kw, vw
+        for W, nh, ws, hd in VIT_QKV_SHAPES:
+            n, G = ws * ws, W * nh
+            qkv = torch.randn((W, 3, nh, n, hd), generator=gen,
+                              device=dev).to(dtype)
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen,
+                                        device=dev) for _ in range(2))
+            bhw = ops.bias_halves(qkv[:, 0].reshape(G, n, hd), rh, rw, ws, ws)
+            mask = relpos_mask(torch, bhw, ws, ws, False, 1.0, dtype)
+            mm = 4 * G * n * n * hd
+            check_kernel(
+                torch, f"K7 relpos_attention_qkv ({W},3,{nh},{n},{hd})",
+                "relpos_attention_qkv", dname,
+                lambda: ops.relpos_attention_qkv(qkv, bhw, ws, ws),
+                lambda: ops.windowed_attention_qkv_plain(qkv, bhw, ws, ws),
+                lambda: F.scaled_dot_product_attention(
+                    qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                    attn_mask=mask.view(W, nh, n, n)),
+                TOL[("attn", dname)], (4 * G * n * hd + G * n * 2 * ws) * es,
+                mm if bf16 else 0, 7 * G * n * n + (0 if bf16 else mm), 0,
+                entries)
+            del mask
+        table, layouts = ops.probe_inputs(dev, dtype)
+        rows, lanes = PROBE_SHAPE
+        for layout, idx in layouts.items():
+            for reps in PROBE_REPS:
+                check_kernel(
+                    torch, f"K8 smem_gather ({rows},{lanes}) {layout} "
+                    f"reps={reps}", "smem_gather", dname,
+                    lambda: ops.smem_gather(table, idx, reps),
+                    lambda: ops.smem_gather_plain(table, idx, reps), None,
+                    0.0, rows * lanes * (es + 4 + 4), 0, reps * rows * lanes,
+                    0, entries)
+
+
 def rgba(np, h: int, w: int, seed: int):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
 
@@ -390,12 +533,21 @@ def rel_l2(torch, a, b) -> float:
             / torch.linalg.vector_norm(b.float())).item()
 
 
+def use_fused_windows(bundle) -> None:
+    """Set fused_window_blocks on a loaded ViT bundle's encoder config (as
+    the tests inject bundles); before its first `process`, which builds the
+    executables from the config."""
+    bundle.cfg = dataclasses.replace(bundle.cfg, encoder_vit=dataclasses.replace(
+        bundle.cfg.encoder_vit, fused_window_blocks=True))
+
+
 def check_small_against_cpu(torch, np, dl, counters):
     """Phase 3: the port on the card against the port on the CPU (the plain
     path, which the CPU tests hold against the JAX package), float32:
-    MobileSAM at 64, ViT-B at 512."""
-    for variant, size, emb_check in (("mobile_sam", 64, "abs"),
-                                     ("vit_b", 512, "rel")):
+    MobileSAM at 64, ViT-B at 512, ViT-B at 512 with fused_window_blocks."""
+    for variant, size, emb_check, fused in (
+            ("mobile_sam", 64, "abs", False), ("vit_b", 512, "rel", False),
+            ("vit_b", 512, "rel", True)):
         t0 = time.perf_counter()
         opts = dict(allow_random_weights=True, compute_dtype="float32",
                     sam_image_size=size, largest_region_object=True,
@@ -405,6 +557,9 @@ def check_small_against_cpu(torch, np, dl, counters):
         if variant != "mobile_sam":
             for e in envs:
                 seed_vit_extras(torch, e.sam_model(variant).model)
+                if fused:
+                    use_fused_windows(e.sam_model(variant))
+        label = f"{variant}{' fused-window' if fused else ''}"
         w, h = size * 3 // 2, size
         img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 42))
         before = counters()
@@ -413,30 +568,31 @@ def check_small_against_cpu(torch, np, dl, counters):
         err = (e_cpu - e_gpu).abs().max().item()
         rel = rel_l2(torch, e_gpu, e_cpu)
         launched = {k: v - before[k] for k, v in counters().items()}
-        print(f"{variant} at {size}, f32 embedding, card vs CPU: "
+        print(f"{label} at {size}, f32 embedding, card vs CPU: "
               f"max|diff|={err:.3e} relative L2 {rel:.3e} "
               f"({'atol 1e-4' if emb_check == 'abs' else 'limit 1e-5'}); "
               f"card launches {launched}")
         if emb_check == "abs" and not err <= 1e-4:
-            fail(f"{variant}: card embedding differs from the CPU port: {err}")
+            fail(f"{label}: card embedding differs from the CPU port: {err}")
         if emb_check == "rel" and not rel <= 1e-5:
-            fail(f"{variant}: card embedding differs from the CPU port: "
+            fail(f"{label}: card embedding differs from the CPU port: "
                  f"relative L2 {rel}")
         if variant == "vit_b":
-            want = {k: n for k, n in VIT_PER_PROCESS.items()}
-            if {k: launched[k] for k in want} != want:
-                fail(f"vit_b at 512 launched {launched}, want {want}")
+            per = VIT_FUSED_PER_PROCESS if fused else VIT_PER_PROCESS
+            want = {k: per.get(k, 0) for k in launched}
+            if launched != want:
+                fail(f"{label} at 512 launched {launched}, want {want}")
         prompts = [dl.Point(w * 5 // 16, h * 5 // 16),
                    dl.Region(dl.Point(size // 8, size // 8),
                              dl.Point(w * 5 // 6, h * 7 // 8))]
         for p in prompts:
             a, b = (s.compute_mask(p).pixels for s in segs)
             flips = int((a != b).sum())
-            print(f"{variant} f32 mask {p}: {flips} of {a.size} pixels differ")
+            print(f"{label} f32 mask {p}: {flips} of {a.size} pixels differ")
             limit = 0 if variant == "mobile_sam" else 1e-4 * a.size
             if flips > limit:
-                fail(f"{variant}: card mask differs from the CPU port for {p}")
-        print(f"phase 3 {variant}: {time.perf_counter() - t0:.1f} s", flush=True)
+                fail(f"{label}: card mask differs from the CPU port for {p}")
+        print(f"phase 3 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def queries(dl, seg):
@@ -452,11 +608,14 @@ def queries(dl, seg):
     return out
 
 
-def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
-    """Phase 4 for one variant: process + the four mask entry points on
-    both images; launch counts checked; the embedding held against the
-    plain path. Returns (env, images, segs, launches)."""
+def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
+                    fused=False):
+    """Phase 4 for one variant (with ``fused``, its bundle's
+    fused_window_blocks set): process + the four mask entry points on both
+    images; launch counts checked; the embedding held against the plain
+    path. Returns (env, images, segs, launches)."""
     t0 = time.perf_counter()
+    label = f"{variant}{' fused-window' if fused else ''}"
     env = dl.Environment(dl.Options(allow_random_weights=True,
                                     largest_region_object=True,
                                     sam_variant=variant))
@@ -470,7 +629,9 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
              f"kernels ({env.device}, {enc_cfg})")
     if vit:
         seed_vit_extras(torch, bundle.model)
-    print(f"{variant} model load (random weights, seed 0): "
+    if fused:
+        use_fused_windows(bundle)
+    print(f"{label} model load (random weights, seed 0): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     images = [dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, s))
               for (w, h, s) in IMAGES]
@@ -484,28 +645,29 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
         segs.append(seg)
         emb = seg.embedding
         if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
-            fail(f"{variant}: bad embedding {tuple(emb.shape)}")
+            fail(f"{label}: bad embedding {tuple(emb.shape)}")
         for m in masks:
             px = m.pixels
             if px.shape != (img.extent.height, img.extent.width, 1):
                 fail(f"mask shape {px.shape} != extent {img.extent}")
             if not set(np.unique(px).tolist()) <= {0, 255}:
                 fail("mask is not binary {0, 255}")
-        print(f"{variant} image {img.extent.width}x{img.extent.height}: "
+        print(f"{label} image {img.extent.width}x{img.extent.height}: "
               f"embedding {tuple(emb.shape)}, {len(masks)} masks, foreground "
               f"shares {[round(float((m.pixels > 0).mean()), 3) for m in masks]}",
               flush=True)
     launches = counters()
-    print(f"{variant} main-path launches over {len(images)} process calls: "
+    print(f"{label} main-path launches over {len(images)} process calls: "
           f"{launches}")
     want = {k: want.get(k, 0) * len(images) for k in launches}
     if launches != want:
-        fail(f"{variant}: kernel launches {launches} != {want}")
+        fail(f"{label}: kernel launches {launches} != {want}")
 
     # The same model with the kernels switched off (the plain PyTorch path on
-    # the card), and both paths in float32. In bf16 the kernel and plain
-    # paths round independently, so they are compared through their
-    # distance to the float32 result; in float32 they are compared directly.
+    # the card: for the ViT the dense path, fused_window_blocks off too), and
+    # both paths in float32. In bf16 the kernel and plain paths round
+    # independently, so they are compared through their distance to the
+    # float32 result; in float32 they are compared directly.
     def make_env(dtype, kernels):
         e = dl.Environment(dl.Options(allow_random_weights=True,
                                       compute_dtype=dtype, sam_variant=variant))
@@ -513,7 +675,8 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
         if vit:
             seed_vit_extras(torch, b.model)
             b.cfg = dataclasses.replace(b.cfg, encoder_vit=dataclasses.replace(
-                b.cfg.encoder_vit, use_flash_attention=kernels))
+                b.cfg.encoder_vit, use_flash_attention=kernels,
+                fused_window_blocks=fused and kernels))
         else:
             b.cfg = dataclasses.replace(b.cfg, encoder_tiny=dataclasses.replace(
                 b.cfg.encoder_tiny, use_fused_norm=kernels,
@@ -521,7 +684,7 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
         for (k, v), (k2, v2) in zip(bundle.model.state_dict().items(),
                                     b.model.state_dict().items()):
             if k != k2 or not torch.equal(v, v2.to(v.dtype)):
-                fail(f"the {dtype} {variant} model differs from the main one "
+                fail(f"the {dtype} {label} model differs from the main one "
                      f"at {k}")
         return e
 
@@ -533,24 +696,24 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want):
         plain = dl.Segmentation.process(img, plain_env).embedding
         ref = dl.Segmentation.process(img, f32_plain_env).embedding
         if counters() != counts:
-            fail(f"{variant}: the plain path launched a kernel")
+            fail(f"{label}: the plain path launched a kernel")
         f32_k = dl.Segmentation.process(img, f32_kernel_env).embedding
         f32_err = rel_l2(torch, f32_k, ref)
         k_err, p_err = rel_l2(torch, seg.embedding, ref), rel_l2(torch, plain, ref)
-        print(f"{variant} embedding {img.extent.width}x{img.extent.height}, "
+        print(f"{label} embedding {img.extent.width}x{img.extent.height}, "
               f"relative L2: float32 kernels vs float32 plain {f32_err:.3e} "
               f"(limit 1e-5); bf16 kernels vs float32 {k_err:.4e}, bf16 plain "
               f"vs float32 {p_err:.4e} (limit 1.1x); bf16 kernels vs bf16 "
               f"plain {rel_l2(torch, seg.embedding, plain):.4e}", flush=True)
         if not f32_err <= 1e-5:
-            fail(f"{variant}: float32 kernel path differs from the plain path: "
+            fail(f"{label}: float32 kernel path differs from the plain path: "
                  f"{f32_err}")
         if not k_err <= 1.1 * p_err:
-            fail(f"{variant}: bf16 kernel path is further from float32 "
+            fail(f"{label}: bf16 kernel path is further from float32 "
                  f"({k_err}) than the bf16 plain path ({p_err})")
     del plain_env, f32_plain_env, f32_kernel_env
     torch.cuda.empty_cache()
-    print(f"phase 4 {variant}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 4 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
     return env, images, segs, launches
 
 
@@ -576,6 +739,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.ops import flash_attention as fa
     from dlimgedit_tpu_torch.ops import fused_norm as fn
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
+    from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
 
     ops = types.SimpleNamespace(
         fused_layer_norm=fn.fused_layer_norm,
@@ -587,7 +751,14 @@ def main() -> int:
         relpos_attention_global=fa.relpos_attention_global,
         relpos_attention_windowed=fa.relpos_attention_windowed,
         attention_relpos_plain=fa.attention_relpos_plain,
-        bias_halves=fa._bias_halves)
+        bias_halves=fa._bias_halves,
+        windowed_attention_fused=fa.windowed_attention_fused,
+        windowed_attention_fused_plain=fa.windowed_attention_fused_plain,
+        relpos_attention_qkv=fa.relpos_attention_qkv,
+        windowed_attention_qkv_plain=fa.windowed_attention_qkv_plain,
+        smem_gather=probe.smem_gather,
+        smem_gather_plain=probe.smem_gather_plain,
+        probe_inputs=probe.probe_inputs)
     wrappers = {name: getattr(ops, name) for name, _, _ in KERNELS}
 
     def counters():
@@ -625,6 +796,7 @@ def main() -> int:
     entries = Entries()
     check_kernels(torch, ops, entries)
     check_vit_kernels(torch, ops, entries)
+    check_window_kernels(torch, ops, entries)
     torch.cuda.empty_cache()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -634,17 +806,24 @@ def main() -> int:
     # -- 4. main paths at full width -------------------------------------
     launches = {name: 0 for name in wrappers}
     runs = {}
-    for variant, want in (
+    for variant, want, fused in (
             ("mobile_sam", {"fused_layer_norm": LN_PER_PROCESS,
-                            "levit_window_attention": ATTN_PER_PROCESS}),
-            ("vit_b", VIT_PER_PROCESS)):
+                            "levit_window_attention": ATTN_PER_PROCESS}, False),
+            ("vit_b", VIT_PER_PROCESS, False),
+            ("vit_b", VIT_FUSED_PER_PROCESS, True)):
         env, images, segs, counts = drive_main_path(
-            torch, np, dl, variant, counters, zero_counters, want)
-        runs[variant] = (env, images, segs)
+            torch, np, dl, variant, counters, zero_counters, want, fused)
+        runs[f"{variant}{' fused-window' if fused else ''}"] = (env, images,
+                                                                 segs)
         for name, n in counts.items():
             launches[name] += n
 
-    # -- 5. end-to-end times ---------------------------------------------
+    # -- 5. the gather probe, briefly ------------------------------------
+    t0 = time.perf_counter()
+    probe.main(["--reps", "2", "4"])  # raises (a non-zero exit) on any fault
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 6. end-to-end times ---------------------------------------------
     t0 = time.perf_counter()
 
     def host_ms(fn, n=20):
@@ -666,11 +845,14 @@ def main() -> int:
             print(f"e2e {variant} {img.extent.width}x{img.extent.height} on "
                   f"{gpu_line}: process_ms={p_ms:.3f} mask_ms={m_ms:.3f} "
                   f"(medians of 20)", flush=True)
-    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for name, source, replaces in KERNELS:
-        e = entries.by_name[name]
+        e = entries.numbers(name, launches[name])
+        if e["launches"] != launches[name]:
+            fail(f"{name}: phase 2 timed {e['launches']} main-path launches, "
+                 f"the main paths made {launches[name]}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -1,5 +1,5 @@
-// K4 and K5: attention with the MViTv2 decomposed relative-position bias
-// of the SAM ViT encoders, exact float32 softmax.
+// K4, K5 and K7: attention with the MViTv2 decomposed relative-position
+// bias of the SAM ViT encoders, exact float32 softmax.
 //
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
@@ -10,6 +10,11 @@
 // `_head_loop_kernel_folded` :248): the windowed blocks (25 windows x 12
 // heads of N = 196), with the folded bias and the pad-query skip of the
 // bottom window row in the same launch.
+// K7 (`dlimg_relpos_attention_qkv`) replaces :382 `windowed_attention_qkv`
+// (body `_head_loop_kernel_qkv`, :285): windows whose q, k and v are the
+// three components of ONE (W, 3, nh, N, hd) tensor, addressed in place by
+// per-group offsets; the bias halves are not folded and no query row is
+// skipped.
 //
 // For group g (a head of an image or of a window) with token grid gh x gw,
 // token i at (y_i, x_i) = divmod(i, gw), and bias halves
@@ -28,7 +33,8 @@
 // What bounds it on an H100: operations. K4 does 4 G N^2 hd = 51.5 GFLOP
 // per launch at ViT-B 1024 (52 us at the bf16 tensor-core peak) against
 // ~25 MB of q, k, v, bias halves and output (7.5 us at 3.35 TB/s). K5 is
-// at N = 196 near the ridge: ~4 GFLOP against ~33 MB.
+// at N = 196 near the ridge: ~4 GFLOP against ~33 MB; K7 at ViT-B's
+// windows: ~3.0 GFLOP against ~33 MB (qkv, bias halves, output).
 //
 // Design: an EXACT two-pass softmax, so p is normalised before it is
 // rounded, exactly where the JAX kernel rounds it. K and V of a global head
@@ -73,6 +79,7 @@ struct RelposArgs {
   int g_skip, n_valid;  // groups >= g_skip keep only n_valid query rows
   float scale;
   int folded;
+  int qkv_heads;  // > 0: q, k, v are components of one (W, 3, qkv_heads, n, HD)
 };
 
 template <int HD>
@@ -114,9 +121,17 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const size_t gbase = static_cast<size_t>(g) * n;
-  const T* q = static_cast<const T*>(a.q) + gbase * HD;
-  const T* k = static_cast<const T*>(a.k) + gbase * HD;
-  const T* v = static_cast<const T*>(a.v) + gbase * HD;
+  size_t qbase = gbase, kbase = gbase, vbase = gbase;
+  if (a.qkv_heads > 0) {  // group g = (window w, head h) of the combined qkv
+    const size_t w = g / a.qkv_heads, h = g % a.qkv_heads;
+    const size_t hn = static_cast<size_t>(a.qkv_heads) * n;
+    qbase = w * 3 * hn + h * n;
+    kbase = qbase + hn;
+    vbase = kbase + hn;
+  }
+  const T* q = static_cast<const T*>(a.q) + qbase * HD;
+  const T* k = static_cast<const T*>(a.k) + kbase * HD;
+  const T* v = static_cast<const T*>(a.v) + vbase * HD;
   const T* bhw = static_cast<const T*>(a.bhw) + gbase * ghw;
   T* out = static_cast<T*>(a.out) + gbase * HD;
   const int nq = g >= a.g_skip ? a.n_valid : n;  // rows whose output is kept
@@ -267,7 +282,8 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
   }
 }
 
-// Two entry kernels over one body, so that a profile tells K4 from K5.
+// Three entry kernels over one body, so that a profile tells K4, K5 and K7
+// apart.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kRpThreads, 2) relpos_global_kernel(RelposArgs a) {
   relpos_attention_body<T, HD>(a);
@@ -278,10 +294,18 @@ __global__ void __launch_bounds__(kRpThreads, 2) relpos_window_kernel(RelposArgs
   relpos_attention_body<T, HD>(a);
 }
 
-template <typename T, int HD, bool WINDOWED>
+template <typename T, int HD>
+__global__ void __launch_bounds__(kRpThreads, 2) relpos_qkv_kernel(RelposArgs a) {
+  relpos_attention_body<T, HD>(a);
+}
+
+enum RelposKind { kRelposGlobal, kRelposWindowed, kRelposQkv };
+
+template <typename T, int HD, int KIND>
 cudaError_t launch_relpos(const RelposArgs& a, int g, cudaStream_t stream) {
-  void (*kernel)(RelposArgs) =
-      WINDOWED ? &relpos_window_kernel<T, HD> : &relpos_global_kernel<T, HD>;
+  void (*kernel)(RelposArgs) = KIND == kRelposWindowed ? &relpos_window_kernel<T, HD>
+                               : KIND == kRelposQkv    ? &relpos_qkv_kernel<T, HD>
+                                                       : &relpos_global_kernel<T, HD>;
   const size_t smem = relpos_smem_bytes<HD>(a.gh + a.gw);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -293,14 +317,14 @@ cudaError_t launch_relpos(const RelposArgs& a, int g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool WINDOWED>
+template <int KIND>
 int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
   if (g <= 0 || a.n <= 0) return 0;
   if (g > 65535 || a.gh <= 0 || a.gw <= 0 || a.gh * a.gw != a.n || a.n_valid < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLIMG_RP_CASE(T, HD) \
-  if (hd == HD) return launch_relpos<T, HD, WINDOWED>(a, g, s);
+  if (hd == HD) return launch_relpos<T, HD, KIND>(a, g, s);
   if (dtype == kDtypeF32) {
     DLIMG_RP_CASE(float, 64)
     DLIMG_RP_CASE(float, 80)
@@ -322,8 +346,8 @@ extern "C" int dlimg_relpos_attention_global(const void* q, const void* k,
                                              void* out, int g, int n, int hd, int gh,
                                              int gw, int dtype, float scale,
                                              void* stream) {
-  const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g, n, scale, 0};
-  return dlimg::relpos_entry<false>(a, g, hd, dtype, stream);
+  const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g, n, scale, 0, 0};
+  return dlimg::relpos_entry<dlimg::kRelposGlobal>(a, g, hd, dtype, stream);
 }
 
 // The same with groups ordered (window, head); `folded` selects the folded
@@ -335,6 +359,17 @@ extern "C" int dlimg_relpos_attention_windowed(const void* q, const void* k,
                                                int g_skip, int n_valid, int dtype,
                                                float scale, void* stream) {
   const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g_skip, n_valid, scale,
-                            folded};
-  return dlimg::relpos_entry<true>(a, g, hd, dtype, stream);
+                            folded, 0};
+  return dlimg::relpos_entry<dlimg::kRelposWindowed>(a, g, hd, dtype, stream);
+}
+
+// qkv: (w, 3, nh, n, hd) contiguous; bhw: (w * nh, n, gh + gw), unfolded;
+// out: (w, nh, n, hd); groups ordered (window, head) as for K5.
+extern "C" int dlimg_relpos_attention_qkv(const void* qkv, const void* bhw, void* out,
+                                          int w, int nh, int n, int hd, int gh, int gw,
+                                          int dtype, float scale, void* stream) {
+  if (nh <= 0) return cudaErrorInvalidValue;
+  const int g = w * nh;
+  const dlimg::RelposArgs a{qkv, qkv, qkv, bhw, out, n, gh, gw, g, n, scale, 0, nh};
+  return dlimg::relpos_entry<dlimg::kRelposQkv>(a, g, hd, dtype, stream);
 }

@@ -8,11 +8,18 @@ Kernel routing, as on the JAX package's accelerator path:
   * ``use_flash_attention`` sends the attention of every block through
     ``ops.flash_attention.flash_attention_relpos``: K5 for the windows
     (with the bottom-window pad-query skip), K4 for the global blocks;
-  * so do the block LayerNorms: block 0's ``norm1`` through K1, every
-    other block LayerNorm through K3 (the residual add fused in, in the
-    residual-carry form of ``_vit_block_carry``). JAX's separate
-    ``fused_layer_norm`` override (an A/B switch of its TPU ledger) is not
-    carried over.
+  * ``fused_window_blocks`` (with ``use_rel_pos``) sends the windowed
+    blocks, whatever ``use_flash_attention`` says, through
+    ``ops.flash_attention.windowed_attention_fused`` (K6): the normed x is
+    padded to a multiple of the window before the qkv linear and the
+    kernel reads the windows in place from the three channel slices of
+    its output, with no partition copy; the global blocks keep K4 (or the
+    dense path);
+  * ``use_flash_attention`` also routes the block LayerNorms: block 0's
+    ``norm1`` through K1, every other block LayerNorm through K3 (the
+    residual add fused in, in the residual-carry form of
+    ``_vit_block_carry``). JAX's separate ``fused_layer_norm`` override (an
+    A/B switch of its TPU ledger) is not carried over.
 On CPU tensors the wrappers compute their plain versions. With both flags
 off the encoder runs the dense path (``_decomposed_rel_pos_bias``), JAX's
 CPU reference. The JAX patch embed's space-to-depth matmul is a TPU device;
@@ -28,8 +35,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..errors import not_in_this_slice
-from ..ops.flash_attention import flash_attention_relpos
+from ..ops.flash_attention import (
+    flash_attention_relpos,
+    windowed_attention_fused,
+)
 from ..ops.fused_norm import fused_add_layer_norm, fused_layer_norm
 from .common import (
     Conv,
@@ -63,8 +72,9 @@ class SamViTConfig:
     # K4 / K5 for the attention and K1 / K3 for the block LayerNorms (the
     # Environment turns it on for CUDA).
     use_flash_attention: bool = False
-    # JAX's strip-sliced windowed kernel (windowed_attention_fused): not
-    # ported yet; the encoder raises when it is set.
+    # The windowed blocks through K6 (windowed_attention_fused), windows
+    # read in place from the padded qkv output instead of partitioned; off
+    # by default, as in JAX (set on a bundle's config to use it).
     fused_window_blocks: bool = False
 
     @property
@@ -260,6 +270,19 @@ def _vit_attn_branch(bp: Block, x: torch.Tensor, cfg: SamViTConfig
     if window == 0:
         return _vit_attention(bp, x, cfg.num_heads, cfg.use_rel_pos,
                               use_flash=cfg.use_flash_attention)
+    if cfg.fused_window_blocks and cfg.use_rel_pos:
+        # Pad the normed x BEFORE the qkv linear: pad tokens get k = v = the
+        # qkv bias, as in the partitioned path.
+        pad_b, pad_r = (-H) % window, (-W) % window
+        if pad_b or pad_r:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        qkv = linear(bp.qkv, x)  # (B, Hp, Wp, 3C)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        att = windowed_attention_fused(
+            q, k, v, gather_rel_pos(bp.rel_pos_h, window).to(q.dtype),
+            gather_rel_pos(bp.rel_pos_w, window).to(q.dtype), ws=window,
+            num_heads=cfg.num_heads)
+        return linear(bp.proj, att[:, :H, :W, :])
     # Partition AFTER the LayerNorm: zero pad tokens give k = v = the qkv
     # bias and take part as keys, as in JAX.
     wx, meta = _window_partition(x, window)
@@ -284,9 +307,6 @@ def _patch_embed(pe: PatchEmbed, x: torch.Tensor, P: int) -> torch.Tensor:
 def sam_vit_apply(model: SamViT, x: torch.Tensor, cfg: SamViTConfig
                   ) -> torch.Tensor:
     """x: (B, S, S, 3) normalised pixels -> (B, S/16, S/16, neck_dim)."""
-    if cfg.fused_window_blocks:
-        raise not_in_this_slice("SamViTConfig.fused_window_blocks",
-                                "windowed_attention_fused")
     x = _patch_embed(model.patch_embed, x, cfg.patch_size)
     if cfg.use_abs_pos and hasattr(model, "pos_embed"):
         x = x + model.pos_embed.to(x.dtype)

@@ -53,6 +53,12 @@ _SIGNATURES = {
     # q, k, v, bhw, out, g, n, hd, gh, gw, folded, g_skip, n_valid, dtype,
     # scale, stream
     "dlimg_relpos_attention_windowed": [_VP] * 5 + [_I] * 9 + [_F, _VP],
+    # qkv, bhw, out, w, nh, n, hd, gh, gw, dtype, scale, stream
+    "dlimg_relpos_attention_qkv": [_VP] * 3 + [_I] * 7 + [_F, _VP],
+    # q, k, v, rh, rw, out, b, hp, wp, c, ts, ws, nh, hd, dtype, scale, stream
+    "dlimg_window_strip_attention": [_VP] * 6 + [_I] * 9 + [_F, _VP],
+    # table, idx, out, rows, lanes, reps, row_chunks, dtype, stream
+    "dlimg_gather_probe": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 

@@ -1,4 +1,4 @@
-"""Attention kernels of the encoders — K2, K4 and K5.
+"""Attention kernels of the encoders — K2, K4, K5, K6 and K7.
 
 Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
@@ -9,13 +9,26 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
     for windows (N <= 256 with ``heads`` given) and to
     ``relpos_attention_global`` (K4; JAX ``_attention_grouped``, :139)
-    otherwise, both in ``csrc/relpos_attention.cu``.
+    otherwise, both in ``csrc/relpos_attention.cu``;
+  * ``windowed_attention_qkv`` (JAX :382): windows whose q, k, v are the
+    components of one (W, 3, nh, N, hd) tensor, through
+    ``relpos_attention_qkv`` (K7, a third entry kernel of
+    ``csrc/relpos_attention.cu``; JAX body ``_head_loop_kernel_qkv``, :285);
+  * ``windowed_attention_fused`` (K6, ``csrc/window_strip_attention.cu``;
+    JAX :646, body ``_window_strip_kernel`` :575): the windowed blocks of
+    the ViT's ``fused_window_blocks`` path, windows read in place from the
+    padded NHWC q, k, v, bias halves computed in the kernel.
+
+The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
+``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
+(``tools/probe_smem_gather.py``, ``csrc/gather_probe.cu``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel; on a CPU
 tensor it computes the plain PyTorch version (``levit_window_attention_plain``,
-``attention_relpos_plain``), which repeats the JAX kernels' rounding. The
-bias halves [q.rh | q.rw] are plain tensor work outside the kernels, as in
-JAX (``_bias_halves``).
+``attention_relpos_plain``, ``windowed_attention_qkv_plain``,
+``windowed_attention_fused_plain``), which repeats the JAX kernels'
+rounding. For K4, K5 and K7 the bias halves [q.rh | q.rw] are plain tensor
+work outside the kernels, as in JAX (``_bias_halves``); K6 computes them.
 """
 
 from __future__ import annotations
@@ -31,9 +44,12 @@ from .cuda_build import DTYPE_CODES, LIBRARY, check_launch
 # The K2 kernel's head width and largest window (csrc/levit_attention.cu).
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_TOKENS = 256
-# Head widths K4 and K5 are instantiated for (csrc/relpos_attention.cu):
+# Head widths K4, K5, K6 and K7 are instantiated for:
 # SAM ViT-B/L (64) and ViT-H (80).
 KERNEL_HEAD_DIMS = (64, 80)
+# The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN): 13
+# keys a lane; SAM's 14 x 14 windows.
+STRIP_MAX_TOKENS = 208
 
 
 def levit_window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -311,6 +327,221 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          folded, n_w, valid_rows)
     bhw = _bias_halves(q, rh_g, rw_g, grid_h, grid_w)
     return relpos_attention_global(q, k, v, bhw, grid_h, grid_w)
+
+
+# ---------------------------------------------------------------------------
+# Windows of a combined qkv tensor (K7)
+# ---------------------------------------------------------------------------
+
+def windowed_attention_qkv_plain(qkv: torch.Tensor, bhw: torch.Tensor,
+                                 grid_h: int, grid_w: int) -> torch.Tensor:
+    """The plain version of K7: ``attention_relpos_plain`` (unfolded bias,
+    no skipped rows) on the q, k, v components. Returns (W, nh, N, hd)."""
+    W, _, nh, N, hd = qkv.shape
+    q, k, v = (qkv[:, c].reshape(W * nh, N, hd) for c in range(3))
+    return attention_relpos_plain(q, k, v, bhw, grid_h, grid_w).reshape(
+        W, nh, N, hd)
+
+
+def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
+                         grid_w: int) -> torch.Tensor:
+    """Rel-pos attention over windows whose q, k, v are the components of
+    one (W, 3, nh, N, hd) tensor, read in place; bhw: (W * nh, N, gh + gw)
+    unfolded bias halves. Returns (W, nh, N, hd). CUDA tensors go through
+    K7 (one launch counted in ``relpos_attention_qkv.launches``); CPU
+    tensors through ``windowed_attention_qkv_plain``."""
+    name = "relpos_attention_qkv"
+    if qkv.dim() != 5 or qkv.shape[1] != 3:
+        raise DlimgError(f"{name}: qkv must be (W, 3, nh, N, hd), got "
+                         f"{tuple(qkv.shape)}")
+    W, _, nh, N, hd = qkv.shape
+    if N != grid_h * grid_w:
+        raise DlimgError(f"{name}: N = {N} is not grid_h * grid_w = "
+                         f"{grid_h} * {grid_w}")
+    if tuple(bhw.shape) != (W * nh, N, grid_h + grid_w):
+        raise DlimgError(f"{name}: bias halves {tuple(bhw.shape)} must be "
+                         f"({W * nh}, {N}, {grid_h + grid_w})")
+    if bhw.device != qkv.device:
+        raise DlimgError(f"{name}: all inputs must share a device")
+    if qkv.device.type == "cpu":
+        return windowed_attention_qkv_plain(qkv, bhw, grid_h, grid_w)
+    if not qkv.is_cuda:
+        raise DlimgError(f"{name}: unsupported device {qkv.device}")
+    if str(qkv.dtype) not in DTYPE_CODES or bhw.dtype != qkv.dtype:
+        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                         f"inputs of one dtype")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
+                         f"{KERNEL_HEAD_DIMS})")
+    if not (qkv.is_contiguous() and bhw.is_contiguous()):
+        raise DlimgError(f"{name}: inputs must be contiguous")
+    out = torch.empty((W, nh, N, hd), dtype=qkv.dtype, device=qkv.device)
+    rc = LIBRARY.get().dlimg_relpos_attention_qkv(
+        qkv.data_ptr(), bhw.data_ptr(), out.data_ptr(), W, nh, N, hd, grid_h,
+        grid_w, DTYPE_CODES[str(qkv.dtype)], float(hd ** -0.5),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    check_launch(name, rc)
+    relpos_attention_qkv.launches += 1
+    return out
+
+
+relpos_attention_qkv.launches = 0
+
+
+def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
+                           rw: torch.Tensor, *, grid_h: int,
+                           grid_w: int) -> torch.Tensor:
+    """Head-fused windowed attention over a combined qkv tensor (JAX :382,
+    which no path of either package calls; its docstring records why).
+
+    qkv: (W, 3, nh, N, hd) window-major; rh / rw raw (2*g-1, hd) or
+    gathered (g, g, hd) tables. Returns (W, nh, N, hd). The bias halves
+    come from the q component, unscaled, outside the kernel (JAX :413-417);
+    the attention is ``relpos_attention_qkv`` (K7)."""
+    W, _, nh, N, hd = qkv.shape
+    if rh.dim() == 2:
+        rh_g, rw_g = _gathered_tables(rh, rw, grid_h, grid_w, qkv.dtype)
+    else:
+        rh_g, rw_g = rh.to(qkv.dtype), rw.to(qkv.dtype)
+    bhw = _bias_halves(qkv[:, 0].reshape(W * nh, N, hd), rh_g, rw_g, grid_h,
+                       grid_w)
+    return relpos_attention_qkv(qkv, bhw, grid_h, grid_w)
+
+
+# ---------------------------------------------------------------------------
+# Windows read in place from padded NHWC tensors (K6)
+# ---------------------------------------------------------------------------
+
+def _to_windows(t: torch.Tensor, ws: int, num_heads: int) -> torch.Tensor:
+    """(B, Hp, Wp, C) -> (B * nWy * nWx, nh, ws * ws, hd)."""
+    B, Hp, Wp, C = t.shape
+    hd = C // num_heads
+    t = t.reshape(B, Hp // ws, ws, Wp // ws, ws, num_heads, hd)
+    return t.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, num_heads, ws * ws, hd)
+
+
+def _from_windows(t: torch.Tensor, B: int, Hp: int, Wp: int, ws: int
+                  ) -> torch.Tensor:
+    """The inverse of ``_to_windows``."""
+    _, nh, _, hd = t.shape
+    t = t.reshape(B, Hp // ws, Wp // ws, nh, ws, ws, hd)
+    return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, Hp, Wp, nh * hd)
+
+
+def windowed_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, rh: torch.Tensor,
+                                   rw: torch.Tensor, *, ws: int,
+                                   num_heads: int) -> torch.Tensor:
+    """The plain version of K6, with the JAX strip kernel's rounding:
+    bh[i, y] = sum_d q[i, d] rh[i // ws, y, d] and bw[i, x] (rw[i % ws])
+    in float32 from the dtype's q and tables, each rounded to the dtype;
+    s = ((q.k) * scale + bh[i, y_j]) + bw[i, x_j] in float32; exact
+    softmax, p rounded to the dtype before p.v, which accumulates in
+    float32. Every token of the padded grid gets its output."""
+    B, Hp, Wp, C = q.shape
+    dtype = q.dtype
+    hd = C // num_heads
+    n = ws * ws
+    qw, kw, vw = (_to_windows(t, ws, num_heads).float() for t in (q, k, v))
+    tok = torch.arange(n, device=q.device)
+    yi, xi = tok // ws, tok % ws
+    rh_e = rh.to(dtype).float()[yi]   # (n, ws, hd): rh[y_i]
+    rw_e = rw.to(dtype).float()[xi]   # (n, ws, hd): rw[x_i]
+    bh = torch.einsum("gnid,iyd->gniy", qw, rh_e).to(dtype).float()
+    bw = torch.einsum("gnid,ixd->gnix", qw, rw_e).to(dtype).float()
+    s = (qw @ kw.transpose(-1, -2)) * (hd ** -0.5)
+    s = s + bh[..., yi]
+    s = s + bw[..., xi]
+    p = torch.softmax(s, dim=-1).to(dtype)
+    out = (p.float() @ vw).to(dtype)
+    return _from_windows(out, B, Hp, Wp, ws)
+
+
+def _strip_token_stride(name: str, q, k, v, rh, rw, ws: int,
+                        num_heads: int) -> int:
+    """Check the operands of K6 and return the token stride of q, k, v:
+    (B, Hp, Wp, C) views with one set of strides, unit channel stride and
+    dense rows (contiguous, or the channel slices of one (B, Hp, Wp, 3C)
+    qkv tensor, token stride 3C). Any other layout raises: the kernel
+    reads the windows in place and the wrapper never copies them."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise DlimgError(f"{name}: q, k, v must be (B, Hp, Wp, C) of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Hp, Wp, C = q.shape
+    if ws <= 0 or Hp % ws or Wp % ws:
+        raise DlimgError(f"{name}: the grid {Hp}x{Wp} is not a multiple of "
+                         f"the window {ws}")
+    if num_heads <= 0 or C % num_heads:
+        raise DlimgError(f"{name}: C = {C} is not a multiple of num_heads = "
+                         f"{num_heads}")
+    hd = C // num_heads
+    for t, label in ((rh, "rh"), (rw, "rw")):
+        if tuple(t.shape) != (ws, ws, hd):
+            raise DlimgError(f"{name}: {label} must be the gathered "
+                             f"({ws}, {ws}, {hd}) table, got {tuple(t.shape)}")
+    if any(t.device != q.device for t in (k, v, rh, rw)):
+        raise DlimgError(f"{name}: all inputs must share a device")
+    st = q.stride()
+    ts = st[2]
+    if (k.stride() != st or v.stride() != st or st[3] != 1 or ts < C
+            or st[1] != Wp * ts or (B > 1 and st[0] != Hp * Wp * ts)):
+        raise DlimgError(f"{name}: q, k, v must share strides with unit "
+                         f"channel stride and dense rows (contiguous, or the "
+                         f"channel slices of one qkv tensor), got strides "
+                         f"{st}, {k.stride()}, {v.stride()}")
+    return ts
+
+
+def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, rh: torch.Tensor,
+                             rw: torch.Tensor, *, ws: int,
+                             num_heads: int) -> torch.Tensor:
+    """Windowed rel-pos attention on padded NHWC tensors (JAX :646; the
+    ViT's ``fused_window_blocks`` path).
+
+    q, k, v: (B, Hp, Wp, C) with Hp % ws == Wp % ws == 0 and C = nh * hd,
+    typically the three channel slices of the qkv linear's output; rh, rw:
+    gathered (ws, ws, hd) tables. Returns (B, Hp, Wp, C), contiguous. CUDA
+    tensors go through K6, which reads q, k, v in place (one launch
+    counted in ``windowed_attention_fused.launches``); CPU tensors through
+    ``windowed_attention_fused_plain``."""
+    name = "windowed_attention_fused"
+    ts = _strip_token_stride(name, q, k, v, rh, rw, ws, num_heads)
+    if q.device.type == "cpu":
+        return windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                              num_heads=num_heads)
+    if not q.is_cuda:
+        raise DlimgError(f"{name}: unsupported device {q.device}")
+    if str(q.dtype) not in DTYPE_CODES or any(t.dtype != q.dtype
+                                              for t in (k, v)):
+        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype")
+    B, Hp, Wp, C = q.shape
+    hd = C // num_heads
+    if hd not in KERNEL_HEAD_DIMS or ws * ws > STRIP_MAX_TOKENS:
+        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
+                         f"{KERNEL_HEAD_DIMS}) or window {ws} (ws * ws <= "
+                         f"{STRIP_MAX_TOKENS})")
+    if (any(t.data_ptr() % 16 for t in (q, k, v))
+            or ts * q.element_size() % 16):
+        raise DlimgError(f"{name}: the CUDA kernel reads q, k, v in 16-byte "
+                         f"chunks: their data and token stride must be "
+                         f"16-byte aligned")
+    rh_t = rh.to(q.dtype).contiguous()
+    rw_t = rw.to(q.dtype).contiguous()
+    out = torch.empty((B, Hp, Wp, C), dtype=q.dtype, device=q.device)
+    rc = LIBRARY.get().dlimg_window_strip_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh_t.data_ptr(),
+        rw_t.data_ptr(), out.data_ptr(), B, Hp, Wp, C, ts, ws, num_heads, hd,
+        DTYPE_CODES[str(q.dtype)], float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(name, rc)
+    windowed_attention_fused.launches += 1
+    return out
+
+
+windowed_attention_fused.launches = 0
 
 
 def attention_reference(q, k, v, rh, rw, grid_h: int, grid_w: int):

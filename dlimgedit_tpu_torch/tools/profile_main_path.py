@@ -1,17 +1,20 @@
 """Where the time of the port's main path goes on one GPU.
 
     python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR \
-        [--variant mobile_sam|vit_b|vit_l|vit_h]
+        [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks]
 
 Drives the main path as a user calls it — the SAM variant (default
-MobileSAM) at 1024 in bfloat16 with seeded random weights,
+MobileSAM) at 1024 in bfloat16 with seeded random weights (with
+``--fused-window-blocks`` a ViT bundle's config has ``fused_window_blocks``
+set, so its windowed blocks run K6 on the padded qkv output instead of the
+window partition and K5),
 `Segmentation.process` on a 1024x768 RGBA image, then
 `compute_mask(Point)` — and traces a steady window (after warm-up) of each
 with torch.profiler (CPU and CUDA activities). For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
-  * device time by layer (the port's kernels K1-K5, convolutions,
+  * device time by layer (the port's kernels K1-K7, convolutions,
     matrix products, elementwise, reductions, copies, other) and the top
     kernels by device time.
 The Chrome traces go to DIR. Needs CUDA.
@@ -20,6 +23,7 @@ The Chrome traces go to DIR. Needs CUDA.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -39,6 +43,8 @@ LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("K2 levit_window_attention", ("levit_attention_kernel",)),
     ("K4 relpos_attention_global", ("relpos_global_kernel",)),
     ("K5 relpos_attention_windowed", ("relpos_window_kernel",)),
+    ("K6 windowed_attention_fused", ("window_strip_attention_kernel",)),
+    ("K7 relpos_attention_qkv", ("relpos_qkv_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "winograd", "dgrad")),
     ("matrix product", ("gemm", "cublas", "cutlass", "matmul", "xmma", "sgemm")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -111,6 +117,9 @@ def main(argv=None) -> int:
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--variant", default="mobile_sam",
                     choices=("mobile_sam", "vit_b", "vit_l", "vit_h"))
+    ap.add_argument("--fused-window-blocks", action="store_true",
+                    help="a ViT's windowed blocks through K6 (its bundle's "
+                         "SamViTConfig.fused_window_blocks)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -123,12 +132,22 @@ def main(argv=None) -> int:
     print(f"{gpu}; torch {torch.__version__}")
     env = dl.Environment(dl.Options(allow_random_weights=True,
                                     sam_variant=args.variant))
+    label = args.variant
+    if args.fused_window_blocks:
+        bundle = env.sam_model(args.variant)
+        if bundle.cfg.encoder_vit is None:
+            print("profile_main_path: --fused-window-blocks needs a ViT "
+                  "variant", file=sys.stderr)
+            return 2
+        bundle.cfg = dataclasses.replace(bundle.cfg, encoder_vit=dataclasses.replace(
+            bundle.cfg.encoder_vit, fused_window_blocks=True))
+        label += "_fused_window"
     px = np.random.default_rng(1).integers(0, 256, (768, 1024, 4), dtype=np.uint8)
     img = dl.Image(dl.Extent(1024, 768), dl.Channels.rgba, px)
     seg = dl.Segmentation.process(img, env)
-    profile_calls(f"{args.variant}_process",
+    profile_calls(f"{label}_process",
                   lambda: dl.Segmentation.process(img, env), args.calls, out_dir)
-    profile_calls(f"{args.variant}_compute_mask",
+    profile_calls(f"{label}_compute_mask",
                   lambda: seg.compute_mask(dl.Point(512, 384)), args.calls,
                   out_dir)
     return 0

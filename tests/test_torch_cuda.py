@@ -8,7 +8,8 @@ nor the JAX package, so on a GPU machine without JAX it runs with
 
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
-bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit.
+bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit, and K8
+(the gather probe) its plain version: both sum in the same order.
 """
 
 import pytest
@@ -21,13 +22,22 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     levit_window_attention,
     levit_window_attention_plain,
     relpos_attention_global,
+    relpos_attention_qkv,
     relpos_attention_windowed,
+    windowed_attention_fused,
+    windowed_attention_fused_plain,
+    windowed_attention_qkv_plain,
 )
 from dlimgedit_tpu_torch.ops.fused_norm import (
     fused_add_layer_norm,
     fused_add_layer_norm_plain,
     fused_layer_norm,
     layer_norm_plain,
+)
+from dlimgedit_tpu_torch.tools.probe_smem_gather import (
+    probe_inputs,
+    smem_gather,
+    smem_gather_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -165,3 +175,74 @@ def test_kernels_raise_instead_of_falling_back(dev):
         relpos_attention_global(q, q, q, bhw, 7, 7)
     with pytest.raises(DlimgError):
         relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,grid,heads,hd,ws", [
+    (1, 70, 12, 64, 14),   # ViT-B at 1024, q, k, v slices of the qkv output
+    (1, 70, 16, 80, 14),   # ViT-H at 1024
+    (2, 28, 2, 64, 14),    # two images
+    (1, 21, 3, 80, 7),     # smaller windows
+])
+def test_window_strip_kernel_matches_plain(dev, B, grid, heads, hd, ws, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    C = heads * hd
+    qkv = torch.randn((B, grid, grid, 3 * C), generator=g, device=dev).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=g, device=dev)
+              for _ in range(2))
+    before = windowed_attention_fused.launches
+    got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    torch.cuda.synchronize()
+    assert windowed_attention_fused.launches == before + 1
+    want = windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                          num_heads=heads)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,heads,hd,g", [(25, 12, 64, 14), (25, 16, 80, 14),
+                                          (3, 2, 64, 5)])
+def test_relpos_qkv_kernel_matches_plain(dev, W, heads, hd, g, dtype):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn((W, 3, heads, g * g, hd), generator=gen,
+                      device=dev).to(dtype)
+    rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+              for _ in range(2))
+    bhw = _bias_halves(qkv[:, 0].reshape(W * heads, g * g, hd), rh, rw, g, g)
+    before = relpos_attention_qkv.launches
+    got = relpos_attention_qkv(qkv, bhw, g, g)
+    torch.cuda.synchronize()
+    assert relpos_attention_qkv.launches == before + 1
+    want = windowed_attention_qkv_plain(qkv, bhw, g, g)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["row-replicated", "per-lane"])
+@pytest.mark.parametrize("reps", [1, 8, 16])
+def test_smem_gather_kernel_matches_plain(dev, layout, reps, dtype):
+    table, layouts = probe_inputs(dev, dtype)
+    before = smem_gather.launches
+    got = smem_gather(table, layouts[layout], reps)
+    torch.cuda.synchronize()
+    assert smem_gather.launches == before + 1
+    want = smem_gather_plain(table, layouts[layout], reps)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_new_kernels_raise_instead_of_falling_back(dev):
+    x = torch.zeros(1, 28, 28, 3 * 96, device=dev)  # head width 48: no K6
+    q, k, v = x[..., :96], x[..., 96:192], x[..., 192:]
+    rh = torch.zeros(14, 14, 48, device=dev)
+    with pytest.raises(DlimgError):
+        windowed_attention_fused(q, k, v, rh, rh, ws=14, num_heads=2)
+    qkv = torch.zeros(2, 3, 2, 49, 32, device=dev)  # head width 32: no K7
+    with pytest.raises(DlimgError):
+        relpos_attention_qkv(qkv, torch.zeros(4, 49, 14, device=dev), 7, 7)
+    table = torch.zeros(8000, 16, device=dev)  # 8000 rows: no slab fits
+    with pytest.raises(DlimgError):
+        smem_gather(table, torch.zeros(8000, 16, dtype=torch.int32,
+                                       device=dev), 2)

@@ -14,9 +14,14 @@ CPU in float32, all inputs from numpy seeds:
   * the weight carry: a JAX ViT-B tree (full width, image size 64) read by
     ``params_from_numpy`` fills the port's ``Sam`` with strict=True,
     ``pos_embed`` keeps its (1, g, g, C) layout, and both encoders agree;
-  * ``Segmentation`` end to end with an injected narrow ``vit_b`` bundle:
-    the embedding within atol 1e-4, masks byte for byte, a flipped pixel
-    allowed only where JAX's logit is within 1e-4 of zero.
+  * ``fused_window_blocks``: ``sam_vit_apply`` with the windowed blocks on
+    the strip path (K6's plain version; JAX's strip kernel in interpret
+    mode) at JAX's own test geometry (image 48, window 2, grid 3 -> 4) and
+    at the narrow widths above, with ``use_flash_attention`` on and off;
+  * ``Segmentation`` end to end with an injected narrow ``vit_b`` bundle,
+    and again with its windowed block on the strip path: the embedding
+    within atol 1e-4, masks byte for byte, a flipped pixel allowed only
+    where JAX's logit is within 1e-4 of zero.
 """
 
 import dataclasses
@@ -96,14 +101,48 @@ def test_sam_vit_matches_jax(embed, img_size, path):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_fused_window_blocks_is_not_ported_yet():
-    """JAX's strip-sliced windowed kernel (flash_attention.py:646
-    windowed_attention_fused, B7 in ROADMAP) is still to port."""
-    cfg = dataclasses.replace(_narrow(vit_sam, 128, 64),
-                              fused_window_blocks=True)
+def _fused_geometry(mod, geometry: str):
+    if geometry == "ws2_img48":  # JAX's test_vit_fused_window_blocks_matches_dense
+        return mod.SamViTConfig(img_size=48, patch_size=16, embed_dim=32,
+                                depth=2, num_heads=2, window_size=2,
+                                global_attn_indexes=(), neck_dim=32)
+    embed, img_size = {"ws14_embed128_img256": (128, 256),
+                       "ws14_embed160_img384": (160, 384)}[geometry]
+    return _narrow(mod, embed, img_size)
+
+
+@pytest.mark.parametrize("flash", ["flash_on", "flash_off"])
+@pytest.mark.parametrize("geometry", ["ws2_img48", "ws14_embed128_img256",
+                                      "ws14_embed160_img384"])
+def test_sam_vit_fused_window_blocks_matches_jax(geometry, flash):
+    """``fused_window_blocks``: the windowed blocks through
+    ``windowed_attention_fused`` (K6's plain version here, JAX's strip
+    kernel in interpret mode), the global blocks through K4 or the dense
+    path as ``use_flash_attention`` says. Grid 3 pads to 4 (ws 2), 16 to 28
+    and 24 to 28 (ws 14): pad tokens carry k = v = the qkv bias."""
+    kernels = flash == "flash_on"
+    jcfg = dataclasses.replace(_fused_geometry(jax_vit, geometry),
+                               fused_window_blocks=True,
+                               use_flash_attention=kernels,
+                               flash_interpret=True)
+    params = _randomise(jax.tree_util.tree_map(
+        np.asarray, jax_vit.init_sam_vit(jax.random.PRNGKey(0), jcfg)), 5)
+    size = jcfg.img_size
+    x = np.random.default_rng(6).standard_normal(
+        (1, size, size, 3)).astype(np.float32)
+    want = np.asarray(jax_vit.sam_vit_apply(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x), jcfg))
+
+    cfg = dataclasses.replace(_fused_geometry(vit_sam, geometry),
+                              fused_window_blocks=True,
+                              use_flash_attention=kernels)
     model = vit_sam.SamViT(cfg)
-    with pytest.raises(pdl.DlimgError, match="windowed_attention_fused"):
-        model(torch.zeros(1, 64, 64, 3))
+    model.load_state_dict(params_from_numpy(params), strict=True)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, size // 16, size // 16,
+                                       cfg.neck_dim)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("variant", ["vit_b", "vit_l", "vit_h"])
@@ -157,13 +196,18 @@ def _opts(mod):
                        model_directory="no-such-directory")
 
 
-@pytest.fixture(scope="module")
-def envs():
+def _injected_envs(fused: bool):
     """JAX and port Environments holding one narrow vit_b bundle (the
-    default decoder, a 2-block encoder of width 128)."""
-    jcfg = jax_sam.make_config("vit_b", IMAGE_SIZE)
-    jcfg = dataclasses.replace(jcfg,
-                               encoder_vit=_narrow(jax_vit, 128, IMAGE_SIZE))
+    default decoder, a 2-block encoder of width 128); with ``fused`` its
+    windowed block takes the ``fused_window_blocks`` path."""
+    jenc = _narrow(jax_vit, 128, IMAGE_SIZE)
+    penc = _narrow(vit_sam, 128, IMAGE_SIZE)
+    if fused:
+        jenc = dataclasses.replace(jenc, fused_window_blocks=True,
+                                   flash_interpret=True)
+        penc = dataclasses.replace(penc, fused_window_blocks=True)
+    jcfg = dataclasses.replace(jax_sam.make_config("vit_b", IMAGE_SIZE),
+                               encoder_vit=jenc)
     tree = _jax_tree(jcfg, seed=1)
     _randomise(tree["encoder"], 13)
     je = jdl.Environment(_opts(jdl))
@@ -171,9 +215,8 @@ def envs():
                    jnp.float32)
     assert je._sam_models["vit_b"].get_or_create(lambda: jb) is jb
 
-    cfg = sam.make_config("vit_b", IMAGE_SIZE)
-    cfg = dataclasses.replace(cfg,
-                              encoder_vit=_narrow(vit_sam, 128, IMAGE_SIZE))
+    cfg = dataclasses.replace(sam.make_config("vit_b", IMAGE_SIZE),
+                              encoder_vit=penc)
     model = sam.Sam(cfg)
     model.load_state_dict(params_from_numpy(tree), strict=True)
     pe = pdl.Environment(_opts(pdl))
@@ -182,14 +225,33 @@ def envs():
     return je, pe
 
 
-@pytest.fixture(scope="module")
-def segs(envs):
+def _process_both(envs):
     px = np.random.default_rng(42).integers(0, 256, (200, 300, 4), dtype=np.uint8)
     js = jdl.Segmentation.process(
         jdl.Image(jdl.Extent(300, 200), jdl.Channels.rgba, px), envs[0])
     ps = pdl.Segmentation.process(
         pdl.Image(pdl.Extent(300, 200), pdl.Channels.rgba, px), envs[1])
     return js, ps
+
+
+@pytest.fixture(scope="module")
+def envs():
+    return _injected_envs(fused=False)
+
+
+@pytest.fixture(scope="module")
+def segs(envs):
+    return _process_both(envs)
+
+
+@pytest.fixture(scope="module")
+def fused_envs():
+    return _injected_envs(fused=True)
+
+
+@pytest.fixture(scope="module")
+def fused_segs(fused_envs):
+    return _process_both(fused_envs)
 
 
 def _jax_logits(je, js, prompt, multimask=False, lcc=False) -> np.ndarray:
@@ -267,6 +329,41 @@ def test_vit_masks_match_jax(envs, segs, kind):
                 lambda prompt=prompt: _jax_logits(
                     je, js, prompt, lcc=isinstance(prompt, jdl.Region))[0])
             assert abs(g.accuracy - w.accuracy) <= 1e-4
+
+
+def test_fused_window_vit_embedding_matches_jax(fused_segs):
+    js, ps = fused_segs
+    want = np.asarray(js.embedding)
+    assert ps.embedding.shape == want.shape == (1, 16, 16, 256)
+    np.testing.assert_allclose(ps.embedding.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["point", "region", "multimask"])
+def test_fused_window_vit_masks_match_jax(fused_envs, fused_segs, kind):
+    """Masks of the fused-window bundle byte for byte, a flipped pixel
+    allowed only where JAX's logit is within 1e-4 of zero."""
+    je = fused_envs[0]
+    js, ps = fused_segs
+    if kind == "point":
+        _assert_mask_matches(
+            ps.compute_mask(pdl.Point(150, 100)).pixels,
+            js.compute_mask(jdl.Point(150, 100)).pixels,
+            lambda: _jax_logits(je, js, jdl.Point(150, 100))[0])
+    elif kind == "region":
+        jr = jdl.Region(jdl.Point(40, 30), jdl.Point(250, 170))
+        got = ps.compute_mask(pdl.Region(pdl.Point(40, 30),
+                                         pdl.Point(250, 170))).pixels
+        _assert_mask_matches(got, js.compute_mask(jr).pixels,
+                             lambda: _jax_logits(je, js, jr, lcc=True)[0])
+    else:
+        got = ps.compute_masks(pdl.Point(80, 60))
+        want = js.compute_masks(jdl.Point(80, 60))
+        assert len(got) == 3
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_mask_matches(
+                g.image.pixels, w.image.pixels,
+                lambda i=i: _jax_logits(je, js, jdl.Point(80, 60),
+                                        multimask=True)[i])
 
 
 def test_unknown_variant_is_refused():
