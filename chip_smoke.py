@@ -9,7 +9,9 @@ package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention.cu
-  K4 relpos_attention_global, K5 ..._windowed,
+  K4 relpos_attention_global, K5 ..._windowed   relpos_attention_tc.cu (bf16,
+                                                 tensor cores), relpos_attention.cu
+                                                 (float32)
   K7 relpos_attention_qkv                        relpos_attention.cu
   K6 windowed_attention_fused                    window_strip_attention.cu
   K8 smem_gather (the gather probe)              gather_probe.cu
@@ -18,13 +20,17 @@ Phases, each of which fails the run (non-zero exit) on any error, each
 printing its seconds:
 
   1. builds the kernels (nvcc, sm_90a, one process per source) and prints
-     nvcc's register / shared-memory report;
+     nvcc's register and spill report, one line per kernel instance; it
+     fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
+     wgmma, K5 on mma.sync) spills;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it
      (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5; ViT-B with
      fused_window_blocks: K6 on the strips of a (1, 70, 70, 2304) qkv) and
      at ViT-H's shapes (C 1280, 16 heads of width 80), with nonzero rel-pos
-     tables; K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
+     tables; K4 also at grid 32 (ViT-B at 512, held with 0 launches: the
+     general bias path of the bf16 kernel, a key tile spanning two grid
+     rows); K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
      (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
      row-replicated and per-lane indices, reps 8 and 16), bit for bit. In
      bf16 it times kernel, plain version, the library yardstick
@@ -33,7 +39,7 @@ printing its seconds:
      the partitioned windows for K6 - it also prints the time of that
      partition, which K6 does not need; none for K8; timed only, never
      used by the port) and computes the least time the card could take
-     (bound);
+     (bound); it prints kernel / library for each attention shape;
   3. checks the port on the card against the port on the CPU (float32):
      MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
      ViT-B at 512, full width and depth, with seeded nonzero rel-pos
@@ -83,6 +89,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,7 +120,7 @@ ATTN_PER_PROCESS = sum(s[3] for s in ATTN_SHAPES)    # 10
 VIT_LN_SHAPES = [(4096, 768, 2 * 1), (4096, 1280, 0)]
 VIT_ADD_LN_SHAPES = [(4096, 768, 2 * 23), (4096, 1280, 0)]
 # ... K4 (heads, grid, head width, launches): one group per head ...
-VIT_GLOBAL_SHAPES = [(12, 64, 64, 2 * 4), (16, 64, 80, 0)]
+VIT_GLOBAL_SHAPES = [(12, 64, 64, 2 * 4), (16, 64, 80, 0), (12, 32, 64, 0)]
 # ... and K5 (windows, heads, window, head width, n_w, valid_rows,
 # launches; the partitioned path only): the 64-grid pads to 70 = 5 x 14,
 # the bottom row of 5 windows keeps 8 of its 14 rows.
@@ -153,10 +160,11 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
      "dlimgedit_tpu/ops/flash_attention.py:531"),
     ("fused_add_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
      "dlimgedit_tpu/ops/fused_norm.py:98"),
-    ("relpos_attention_global", "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+    ("relpos_attention_global",
+     "dlimgedit_tpu_torch/csrc/relpos_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:139"),
     ("relpos_attention_windowed",
-     "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+     "dlimgedit_tpu_torch/csrc/relpos_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:307"),
     ("windowed_attention_fused",
      "dlimgedit_tpu_torch/csrc/window_strip_attention.cu",
@@ -281,13 +289,45 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
     lib_ms = None if library is None else time_ms(torch, library)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (flops_mm / PEAK_BF16_TC_FLOPS + flops_f32 / PEAK_F32_FLOPS) * 1e3
-    lib = "none" if lib_ms is None else f"{lib_ms:.5f}"
+    lib = ("none" if lib_ms is None
+           else f"{lib_ms:.5f} (kernel/library {ms / lib_ms:.2f}x)")
     print(f"{label} {dname} x{launches}: max|diff|={err:.3e} (atol {tol:g}) "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} "
           f"bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
     entries.record(name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, launches)
+
+
+def nvcc_report(build_log: str):
+    """nvcc's per-kernel lines, (source, kernel, template arguments,
+    registers, spill store bytes), from the -Xptxas -v log of the build."""
+    rows, source, kernel = [], None, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"([a-z_]+_kernel(?:_tc)?)I(.*)EEv", m.group(1))
+            if name:
+                targs = name.group(2)
+                dtype = ("bf16 " if "bfloat16" in targs
+                         else "f32 " if targs.startswith("f") else "")
+                kernel = (name.group(1), dtype + ",".join(
+                    re.findall(r"L[ib](\d+)E", targs)))
+            else:
+                kernel = (m.group(1), "")
+            spill = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((source, kernel[0], kernel[1], int(m.group(1)), spill))
+            kernel = None
+    return rows
 
 
 def check_kernels(torch, ops, entries):
@@ -786,9 +826,14 @@ def main() -> int:
     LIBRARY.get()
     print(f"phase 1, kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{LIBRARY.path}")
-    for line in LIBRARY.build_log.splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
-            print("  nvcc:", line.strip())
+    report = nvcc_report(LIBRARY.build_log)
+    if LIBRARY.build_log and not report:
+        fail("no register report in nvcc's output")
+    for source, kernel, targs, regs, spill in report:
+        print(f"  nvcc: {source} {kernel}<{targs}>: {regs} registers, "
+              f"{spill} bytes spill stores")
+        if source == "relpos_attention_tc.cu" and spill != 0:
+            fail(f"{kernel}<{targs}> spills ({spill} bytes of spill stores)")
     sys.stdout.flush()
 
     # -- 2. kernels against their plain versions -------------------------

@@ -1,6 +1,11 @@
 // K4, K5 and K7: attention with the MViTv2 decomposed relative-position
 // bias of the SAM ViT encoders, exact float32 softmax.
 //
+// This file's CUDA-core body runs K4 and K5 on float32 inputs and K7 in
+// both dtypes; bf16 K4 and K5 (the ViT main paths' dtype) run on the tensor
+// cores in relpos_attention_tc.cu, and each C entry point picks the body by
+// dtype.
+//
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
 // body `_kernel`, :32): the global blocks, one group per head over the
@@ -54,11 +59,11 @@
 // read without bank conflicts, and row reductions are shuffles across the
 // 16 lanes that share a row. The block's bias halves (64 x (gh + gw)) are
 // staged once. All arithmetic is float32 on the CUDA cores, which keeps the
-// kernel simple and exact for both dtypes; wgmma or mma.sync products, TMA
-// and bf16 staging are later work.
+// body exact for float32 (2e-5 against the plain version needs float32
+// products, not TF32); K7 moves to the tensor-core body with K6 later.
 #include <math.h>
 
-#include "common.cuh"
+#include "relpos_attention.cuh"
 
 namespace dlimg {
 
@@ -68,19 +73,6 @@ constexpr int kRpBK = 64;         // keys per tile
 constexpr int kRpQS = kRpBQ + 1;  // row stride of q^T in shared memory
 constexpr int kRpKS = kRpBK + 1;  // row stride of K^T
 constexpr int kRpPS = kRpBQ + 2;  // row stride of p^T (conflict-free stores)
-
-struct RelposArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* bhw;
-  void* out;
-  int n, gh, gw;
-  int g_skip, n_valid;  // groups >= g_skip keep only n_valid query rows
-  float scale;
-  int folded;
-  int qkv_heads;  // > 0: q, k, v are components of one (W, 3, qkv_heads, n, HD)
-};
 
 template <int HD>
 size_t relpos_smem_bytes(int ghw) {
@@ -303,9 +295,14 @@ enum RelposKind { kRelposGlobal, kRelposWindowed, kRelposQkv };
 
 template <typename T, int HD, int KIND>
 cudaError_t launch_relpos(const RelposArgs& a, int g, cudaStream_t stream) {
-  void (*kernel)(RelposArgs) = KIND == kRelposWindowed ? &relpos_window_kernel<T, HD>
-                               : KIND == kRelposQkv    ? &relpos_qkv_kernel<T, HD>
-                                                       : &relpos_global_kernel<T, HD>;
+  void (*kernel)(RelposArgs);  // only the instances that run are compiled
+  if constexpr (KIND == kRelposWindowed) {
+    kernel = &relpos_window_kernel<T, HD>;
+  } else if constexpr (KIND == kRelposQkv) {
+    kernel = &relpos_qkv_kernel<T, HD>;
+  } else {
+    kernel = &relpos_global_kernel<T, HD>;
+  }
   const size_t smem = relpos_smem_bytes<HD>(a.gh + a.gw);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -329,8 +326,16 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
     DLIMG_RP_CASE(float, 64)
     DLIMG_RP_CASE(float, 80)
   } else if (dtype == kDtypeBF16) {
-    DLIMG_RP_CASE(__nv_bfloat16, 64)
-    DLIMG_RP_CASE(__nv_bfloat16, 80)
+    // bf16 K4 and K5 run on the tensor cores (relpos_attention_tc.cu); K7
+    // stays on this body.
+    if constexpr (KIND == kRelposGlobal) {
+      return relpos_global_tc(a, g, hd, s);
+    } else if constexpr (KIND == kRelposWindowed) {
+      return relpos_windowed_tc(a, g, hd, s);
+    } else {
+      DLIMG_RP_CASE(__nv_bfloat16, 64)
+      DLIMG_RP_CASE(__nv_bfloat16, 80)
+    }
   }
 #undef DLIMG_RP_CASE
   return cudaErrorInvalidValue;

@@ -9,7 +9,9 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
     for windows (N <= 256 with ``heads`` given) and to
     ``relpos_attention_global`` (K4; JAX ``_attention_grouped``, :139)
-    otherwise, both in ``csrc/relpos_attention.cu``;
+    otherwise; in bf16 both run on the tensor cores
+    (``csrc/relpos_attention_tc.cu``), in float32 on the CUDA cores
+    (``csrc/relpos_attention.cu``);
   * ``windowed_attention_qkv`` (JAX :382): windows whose q, k, v are the
     components of one (W, 3, nh, N, hd) tensor, through
     ``relpos_attention_qkv`` (K7, a third entry kernel of
@@ -47,6 +49,9 @@ KERNEL_MAX_TOKENS = 256
 # Head widths K4, K5, K6 and K7 are instantiated for:
 # SAM ViT-B/L (64) and ViT-H (80).
 KERNEL_HEAD_DIMS = (64, 80)
+# The largest window the bf16 K5 takes (csrc/relpos_attention_tc.cu: score
+# rows of up to 256 keys in registers).
+WINDOW_MAX_TOKENS = 256
 # The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN): 13
 # keys a lane; SAM's 14 x 14 windows.
 STRIP_MAX_TOKENS = 208
@@ -286,6 +291,9 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         raise DlimgError(f"{name}: unsupported device {q.device}")
     G, N, hd = q.shape
+    if q.dtype == torch.bfloat16 and N > WINDOW_MAX_TOKENS:
+        raise DlimgError(f"{name}: the bf16 CUDA kernel takes windows of at "
+                         f"most {WINDOW_MAX_TOKENS} tokens, got N = {N}")
     g_skip, n_valid = _skip_rows(G, N, grid_h, grid_w, heads, n_w, valid_rows)
     out = torch.empty_like(q)
     rc = LIBRARY.get().dlimg_relpos_attention_windowed(

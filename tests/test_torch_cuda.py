@@ -118,7 +118,9 @@ def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,gh,gw,hd", [(2, 20, 20, 64), (3, 32, 32, 80),
-                                        (1, 7, 9, 64), (2, 64, 64, 64)])
+                                        (1, 7, 9, 64), (2, 64, 64, 64),
+                                        (1, 24, 40, 80),   # gw vs the 64-key tile
+                                        (2, 32, 32, 64)])  # ViT-B at 512
 def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
     q, k, v, bhw = _relpos_inputs(dev, G, gh, gw, hd, dtype, 1.0, 3)
     before = relpos_attention_global.launches
@@ -136,6 +138,7 @@ def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
     (25, 16, 80, True, 5, 8),     # ViT-H at 1024
     (9, 2, 64, False, 3, 4),      # the unfolded bias
     (4, 3, 80, True, None, None),
+    (6, 2, 80, False, 2, 3),      # 42 kept rows straddle a 16-row stripe
 ])
 def test_relpos_windowed_kernel_matches_plain(dev, W, heads, hd, folded, n_w,
                                               valid_rows, dtype):
@@ -152,6 +155,21 @@ def test_relpos_windowed_kernel_matches_plain(dev, W, heads, hd, folded, n_w,
                                rtol=0)
     if n_w:
         assert not got[-n_w * heads:, valid_rows * 14:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws,hd", [(15, 64), (16, 80)])
+def test_relpos_windowed_kernel_wide_windows(dev, ws, hd, dtype):
+    """Windows of more than 208 tokens (the bf16 kernel's 256-key rows)."""
+    q, k, v, bhw = _relpos_inputs(dev, 6, ws, ws, hd, dtype,
+                                  1.0 / hd ** -0.5, 7)
+    got = relpos_attention_windowed(q, k, v, bhw, ws, ws, 2, True, 1, 5)
+    torch.cuda.synchronize()
+    want = attention_relpos_plain(q, k, v, bhw, ws, ws, folded=True, heads=2,
+                                  n_w=1, valid_rows=5)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+    assert not got[-2:, 5 * ws:].any()
 
 
 def test_kernels_raise_instead_of_falling_back(dev):
