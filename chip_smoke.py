@@ -9,11 +9,11 @@ package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention.cu
-  K4 relpos_attention_global, K5 ..._windowed   relpos_attention_tc.cu (bf16,
-                                                 tensor cores), relpos_attention.cu
+  K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
+  K7 relpos_attention_qkv                        tensor cores), relpos_attention.cu
                                                  (float32)
-  K7 relpos_attention_qkv                        relpos_attention.cu
-  K6 windowed_attention_fused                    window_strip_attention.cu
+  K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
+                                                 window_strip_attention.cu (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
 
 Phases, each of which fails the run (non-zero exit) on any error, each
@@ -22,7 +22,8 @@ printing its seconds:
   1. builds the kernels (nvcc, sm_90a, one process per source) and prints
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
-     wgmma, K5 on mma.sync) spills;
+     wgmma; K5, K7 and K6 on mma.sync) spills or is missing from the
+     report;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it
      (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5; ViT-B with
@@ -36,9 +37,10 @@ printing its seconds:
      bf16 it times kernel, plain version, the library yardstick
      (F.layer_norm; x + d then F.layer_norm, two calls;
      F.scaled_dot_product_attention with the materialised float bias, on
-     the partitioned windows for K6 - it also prints the time of that
-     partition, which K6 does not need; none for K8; timed only, never
-     used by the port) and computes the least time the card could take
+     the partitioned windows for K6 - it also prints SDPA's time with
+     that partition, which K6 does not need, and of the partition alone;
+     none for K8; timed only, never used by the port) and computes the
+     least time the card could take
      (bound); it prints kernel / library for each attention shape;
   3. checks the port on the card against the port on the CPU (float32):
      MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
@@ -143,12 +145,19 @@ PROBE_SHAPE, PROBE_REPS = (4096, 128), (8, 16)
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 
-# The spin kernel run ahead of timed launches (about 20 ms at the H100's
-# clocks; its device time is measured once, in `spin_ms`), and how many
-# times a sample may be taken again when the host took longer than 3/4 of
-# the spin to queue its calls (the host is shared and stalls at times).
+# The shortest spin kernel run ahead of timed launches (about 20 ms at the
+# H100's clocks; its device time is measured once, in `spin_ms`; longer for
+# a callable that the host takes longer to queue), and how many times a
+# sample may be taken again when the host took longer than 3/4 of the spin
+# to queue its calls (the host is shared and stalls at times).
 SPIN_CYCLES = 40_000_000
 SAMPLE_RETRIES = 10
+
+# The tensor-core kernels (csrc/relpos_attention_tc.cu), bf16 K4, K5, K7
+# and K6: phase 1 fails if one is missing from nvcc's report or spills.
+TC_SOURCE = "relpos_attention_tc.cu"
+TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
+              "relpos_qkv_kernel_tc", "window_strip_kernel_tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
@@ -167,9 +176,10 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
      "dlimgedit_tpu_torch/csrc/relpos_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:307"),
     ("windowed_attention_fused",
-     "dlimgedit_tpu_torch/csrc/window_strip_attention.cu",
+     "dlimgedit_tpu_torch/csrc/relpos_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:646"),
-    ("relpos_attention_qkv", "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+    ("relpos_attention_qkv",
+     "dlimgedit_tpu_torch/csrc/relpos_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:382"),
     ("smem_gather", "dlimgedit_tpu_torch/csrc/gather_probe.cu",
      "tools/probe_vmem_gather.py:53"),
@@ -204,17 +214,26 @@ def time_ms(torch, fn, samples: int = 20, per_sample: int = 10) -> float:
     """Device time of one call: median over `samples` of the mean of
     `per_sample` back-to-back calls between two CUDA events. A spin kernel
     runs first, so the host has queued every call before the first one
-    starts and the events time the device, not the host's launch rate; a
-    sample whose calls the host queued too slowly for that is taken again."""
-    host_limit_ms = 0.75 * spin_ms(torch)
+    starts and the events time the device, not the host's launch rate; the
+    spin lasts at least 3x the host's time to queue `per_sample` calls (a
+    plain version of many small launches needs longer than a kernel), and
+    a sample whose calls the host queued too slowly for it is taken again."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(per_sample):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    stretch = max(1.0, 3 * queue_ms / spin_ms(torch))
+    cycles = int(SPIN_CYCLES * stretch)
+    host_limit_ms = 0.75 * spin_ms(torch) * stretch
     times, retries = [], 0
     while len(times) < samples:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         start.record()
         t0 = time.perf_counter()
         for _ in range(per_sample):
@@ -271,7 +290,8 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
     """One kernel at one shape: max |kernel - plain| within `tol`; in bf16
     also the times of kernel, plain version and library call (None: there
     is no library yardstick), and the bound from the bytes moved and the
-    operations done."""
+    operations done. Returns the library call's time (None in float32 or
+    without a yardstick)."""
     t0 = time.perf_counter()
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -283,7 +303,7 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
     if dname != "bfloat16":
         print(f"{label} {dname}: max|diff|={err:.3e} (atol {tol:g}) "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-        return
+        return None
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain)
     lib_ms = None if library is None else time_ms(torch, library)
@@ -297,6 +317,7 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
     entries.record(name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, launches)
+    return lib_ms
 
 
 def nvcc_report(build_log: str):
@@ -488,8 +509,9 @@ def check_window_kernels(torch, ops, entries):
             qkv = torch.randn((B, grid, grid, 3 * C), generator=gen,
                               device=dev).to(dtype)
             q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen,
-                                        device=dev) for _ in range(2))
+            # In the activation dtype, as the fused-window path passes them.
+            rh, rw = ((0.3 * torch.randn((ws, ws, hd), generator=gen,
+                                         device=dev)).to(dtype) for _ in range(2))
 
             def partition():  # what the SDPA yardstick needs, K6 does not
                 t = qkv.view(B, nw, ws, nw, ws, 3, nh, hd)
@@ -500,7 +522,7 @@ def check_window_kernels(torch, ops, entries):
                                ws, False, 1.0, dtype)
             mm = 4 * G * n * n * hd + 4 * G * n * ws * hd  # + bias halves
             label = f"K6 windowed_attention_fused ({B},{grid},{grid},{C})"
-            check_kernel(
+            lib_ms = check_kernel(
                 torch, label, "windowed_attention_fused", dname,
                 lambda: ops.windowed_attention_fused(q, k, v, rh, rw, ws=ws,
                                                      num_heads=nh),
@@ -513,9 +535,13 @@ def check_window_kernels(torch, ops, entries):
                 mm if bf16 else 0, 7 * G * n * n + (0 if bf16 else mm), per,
                 entries)
             if bf16:
-                print(f"{label} {dname}: partition of q, k, v into windows "
-                      f"(the yardstick's copies) "
-                      f"{time_ms(torch, partition):.5f} ms", flush=True)
+                both_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    *(t[None] for t in partition()), attn_mask=mask[None]))
+                print(f"{label} {dname}: SDPA yardstick without the partition "
+                      f"{lib_ms:.5f} ms, with it {both_ms:.5f} ms; the "
+                      f"partition of q, k, v into windows alone (copies K6 "
+                      f"does not make) {time_ms(torch, partition):.5f} ms",
+                      flush=True)
             del mask, qw, kw, vw
         for W, nh, ws, hd in VIT_QKV_SHAPES:
             n, G = ws * ws, W * nh
@@ -832,8 +858,12 @@ def main() -> int:
     for source, kernel, targs, regs, spill in report:
         print(f"  nvcc: {source} {kernel}<{targs}>: {regs} registers, "
               f"{spill} bytes spill stores")
-        if source == "relpos_attention_tc.cu" and spill != 0:
+        if source == TC_SOURCE and spill != 0:
             fail(f"{kernel}<{targs}> spills ({spill} bytes of spill stores)")
+    reported = {kernel for source, kernel, *_ in report if source == TC_SOURCE}
+    if LIBRARY.build_log and not set(TC_KERNELS) <= reported:
+        fail(f"tensor-core kernels missing from nvcc's report: "
+             f"{sorted(set(TC_KERNELS) - reported)}")
     sys.stdout.flush()
 
     # -- 2. kernels against their plain versions -------------------------

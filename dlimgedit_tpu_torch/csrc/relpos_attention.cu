@@ -1,10 +1,9 @@
 // K4, K5 and K7: attention with the MViTv2 decomposed relative-position
 // bias of the SAM ViT encoders, exact float32 softmax.
 //
-// This file's CUDA-core body runs K4 and K5 on float32 inputs and K7 in
-// both dtypes; bf16 K4 and K5 (the ViT main paths' dtype) run on the tensor
-// cores in relpos_attention_tc.cu, and each C entry point picks the body by
-// dtype.
+// This file's CUDA-core body runs K4, K5 and K7 on float32 inputs; in bf16
+// (the ViT main paths' dtype) all three run on the tensor cores in
+// relpos_attention_tc.cu, and each C entry point picks the body by dtype.
 //
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
@@ -60,7 +59,7 @@
 // 16 lanes that share a row. The block's bias halves (64 x (gh + gw)) are
 // staged once. All arithmetic is float32 on the CUDA cores, which keeps the
 // body exact for float32 (2e-5 against the plain version needs float32
-// products, not TF32); K7 moves to the tensor-core body with K6 later.
+// products, not TF32).
 #include <math.h>
 
 #include "relpos_attention.cuh"
@@ -326,15 +325,12 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
     DLIMG_RP_CASE(float, 64)
     DLIMG_RP_CASE(float, 80)
   } else if (dtype == kDtypeBF16) {
-    // bf16 K4 and K5 run on the tensor cores (relpos_attention_tc.cu); K7
-    // stays on this body.
+    // bf16 runs on the tensor cores (relpos_attention_tc.cu); K7 is the
+    // windowed body with a.qkv_heads set.
     if constexpr (KIND == kRelposGlobal) {
       return relpos_global_tc(a, g, hd, s);
-    } else if constexpr (KIND == kRelposWindowed) {
-      return relpos_windowed_tc(a, g, hd, s);
     } else {
-      DLIMG_RP_CASE(__nv_bfloat16, 64)
-      DLIMG_RP_CASE(__nv_bfloat16, 80)
+      return relpos_windowed_tc(a, g, hd, s);
     }
   }
 #undef DLIMG_RP_CASE

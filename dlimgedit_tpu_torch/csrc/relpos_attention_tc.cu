@@ -1,5 +1,6 @@
-// K4 and K5 in bfloat16 on Hopper's tensor cores: attention with the
-// decomposed relative-position bias of the SAM ViT encoders, exact softmax.
+// K4, K5, K7 and K6 in bfloat16 on Hopper's tensor cores: attention with
+// the decomposed relative-position bias of the SAM ViT encoders, exact
+// softmax.
 //
 // K4 (`relpos_global_tc`, kernel `relpos_global_kernel_tc`) replaces the TPU
 // kernel dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped`: the
@@ -8,11 +9,18 @@
 // K5 (`relpos_windowed_tc`, kernel `relpos_window_kernel_tc`) replaces :307
 // `_attention_head_fused`: the windowed blocks (25 windows x 12 heads of
 // N = 196), folded or plain bias, pad-query skip of the bottom window row.
-// The float32 route of both, and K7 in both dtypes, stay on the CUDA-core
-// body of relpos_attention.cu, whose head note gives the arithmetic; this
-// file computes the same function with the JAX rounding: scores and softmax
-// in float32, p normalised in float32 and then rounded to bf16, p . v
-// accumulated in float32.
+// K7 (`relpos_windowed_tc` with qkv_heads, kernel `relpos_qkv_kernel_tc`)
+// replaces :382 `windowed_attention_qkv`: K5's body on groups read in place
+// from one (W, 3, nh, N, hd) tensor, plain bias, no skip.
+// K6 (`window_strip_tc`, kernel `window_strip_kernel_tc`) replaces :646
+// `windowed_attention_fused`: K5's body on windows read in place from the
+// padded NHWC q, k, v (the channel slices of the qkv output), bias halves
+// computed in the block, no skip.
+// The float32 routes stay on the CUDA-core bodies of relpos_attention.cu
+// (K4, K5, K7) and window_strip_attention.cu (K6), whose head notes give
+// the arithmetic; this file computes the same functions with the JAX
+// rounding: scores and softmax in float32, p normalised in float32 and then
+// rounded to bf16, p . v accumulated in float32.
 //
 // What bounds them on an H100. K4 at ViT-B: 4 G N^2 hd = 51.5 GFLOP of
 // minimal products (52 us at the bf16 peak) against ~25 MB moved (7.5 us),
@@ -20,9 +28,10 @@
 // two exponentials per score (402 M a launch, ~0.11 ms on the SFUs at 16 a
 // clock per SM): a second floor, shared by the two passes, that the
 // products can hide only if they run beside it. K5 at N = 196 is near the
-// ridge: ~3.7 GFLOP against ~33 MB (~10 us either way).
+// ridge: ~3.7 GFLOP against ~33 MB (~10 us either way); K7 and K6 likewise
+// (K6 reads its q, k, v once from the qkv output, ~23 MB, writes 7.5 MB).
 //
-// Both: exp(x) is ex2(x log2 e), log2 e folded into the FMA that forms the
+// All: exp(x) is ex2(x log2 e), log2 e folded into the FMA that forms the
 // exponent (`ex2.approx`; the bf16 tolerance covers its last ulp against
 // expf). p goes from the score accumulators straight into the A fragments
 // of p . v, never through shared memory.
@@ -33,15 +42,33 @@
 // hd 80) arrive in shared memory by 16-byte cp.async, zero-filled to 208
 // keys (256 for windows of up to 16 x 16), rows padded to hd + 8 elements
 // so that the 8 rows an ldmatrix reads fall on distinct banks; beside them
-// the group's bias halves (float32, times log2 e) and a key -> (y, x)
-// table. A warp owns a 16-row stripe (13 stripes cover 196 rows, 4 rows of
-// waste) and takes stripes in turn; its q fragments come straight from
-// device memory. The whole score row stays in registers (26 key tiles, 104
-// floats a lane), so the row max and sum are exact in one pass and no key
-// is seen twice. Keys past N score -inf; the window-partition pad keys are
+// each query row's bias halves [bh | bw] and each key's one-hot row
+// [ky | 16 + kx], bf16, 16 columns a half (windows of up to 16 x 16). A
+// warp owns a 16-row stripe (13 stripes cover 196 rows, 4 rows of waste)
+// and takes stripes in turn; its q fragments come straight from device
+// memory. The bias is two more depth steps of the score product, [bh | bw]
+// against the one-hot rows after q . k is scaled: exact products, no
+// per-score lookups (adding bh[i, y_j] + bw[i, x_j] by index, four
+// shared-memory reads a score, was a large share of the body's time). The whole
+// score row stays in registers (26 key tiles, 104 floats a lane), so the
+// row max and sum are exact in one pass and no key is seen twice. Keys past
+// N score -inf; the window-partition pad keys are
 // real zero-valued keys, as in JAX. Groups >= g_skip compute only the
 // stripes that hold rows below n_valid and write zeros for every other row,
-// including the rows of a stripe that straddles n_valid.
+// including the rows of a stripe that straddles n_valid. K7 and K6 run the
+// same body (`window_tc_body`), templated on where a group's rows lie:
+// K7's at per-group offsets into the combined qkv, K6's at the window's
+// tokens of the padded grid (token stride 3C for q, k, v, C for out; K and
+// V by 16-byte cp.async from those strided rows, q by 4-byte loads, nothing
+// partitioned or copied), one block per (image, window, head). K6 fills
+// the bias halves itself before the stripes: for each window row (and
+// column) a 16 x 16 x hd product of its tokens' q rows with the table
+// slice rh[y] (rw[x]) on mma.sync, each half rounded to bf16 on its own as
+// the TPU kernel rounds. q and the tables are read from device memory (staging
+// them would cost the shared memory that lets two blocks share an SM at
+// hd 80) in 16-byte loads, the head dims permuted alike in both operands
+// (`bias_tile`), not in the stripes' 4-byte fragment loads, each of which
+// touches 8 lines.
 //
 // K4 design (`wgmma`): K and V of a global head (512 KB each at ViT-B) do
 // not fit 227 KB, so 64-key tiles stream through a five-stage cp.async ring,
@@ -275,55 +302,195 @@ __device__ __forceinline__ void stage_key_table(int* kyx, int count, int n, int 
 }
 
 // ---------------------------------------------------------------------------
-// K5: windows, one block per (window, head) group
+// K5, K7 and K6: windows, one block per group (a head of a window)
 // ---------------------------------------------------------------------------
 
 constexpr int kWinThreads = 128;  // 4 warps, each taking 16-row stripes in turn
 
-template <int HD, int NP>
-__global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(RelposArgs a) {
+// The bias halves of the window body, in shared memory as bf16 rows of
+// kBiasCols: a query row's [bh (16 columns) | bw (16)], and a key's one-hot
+// [ky | 16 + kx] (zero past n), so that the bias is two more depth steps
+// of the score product (`window_tc_body`). Windows of up to 16 x 16.
+constexpr int kBiasSide = 16;
+constexpr int kBiasCols = 2 * kBiasSide + 8;  // + 8: 16-byte rows on distinct banks
+
+// Where a group of K5 or K7 keeps its rows: q, k, v and out rows r at
+// r * HD from their pointers; the caller's bf16 bias halves, n x (gh + gw).
+template <int HD>
+struct DenseRows {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  const bf16* bhw;
+
+  __device__ __forceinline__ size_t in(int r) const { return static_cast<size_t>(r) * HD; }
+  __device__ __forceinline__ size_t out_off(int r) const { return static_cast<size_t>(r) * HD; }
+
+  // The kept rows' bias halves, zero-padded to 16 columns each.
+  __device__ __forceinline__ void stage_bias(bf16* ba, int nq, int gh, int gw, int tid, int,
+                                             int) const {
+    const int ghw = gh + gw;
+    for (int e = tid; e < nq * kBiasSide; e += kWinThreads) {
+      const int r = e / kBiasSide, c = 2 * (e - r * kBiasSide);  // c, c + 1 < 32
+      const int half = c / kBiasSide, cc = c - half * kBiasSide;
+      const int lim = half ? gw : gh;
+      const bf16* src = bhw + static_cast<size_t>(r) * ghw + (half ? gh : 0) + cc;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      __nv_bfloat162 w;
+      w.x = cc < lim ? src[0] : zero;
+      w.y = cc + 1 < lim ? src[1] : zero;
+      *reinterpret_cast<__nv_bfloat162*>(ba + r * kBiasCols + c) = w;
+    }
+  }
+};
+
+// c[t] += (rows r0, r1 of A) . (rows t0, t1 of B)^T for one 16 x 16 tile
+// over HD: A rows gr (r0) and gr + 8 (r1), B rows gr (t0, columns 0 .. 7)
+// and 8 + gr (t1, columns 8 .. 15), each row HD contiguous bf16 in device
+// memory. A dot product does not care in which order its HD terms are
+// summed, so A and B share a permutation of the head dims that lets each
+// lane read 16 bytes a row: in depth step 2j (2j + 1) the lane's four
+// k slots {2gq, 2gq + 1, 2gq + 8, 2gq + 9} hold dims 32j + 8gq + 0 .. 3
+// (4 .. 7); at hd 80 the last step holds dims 64 + 4gq + 0 .. 3 (8 bytes).
+template <int HD>
+__device__ __forceinline__ void bias_tile(float (&c)[2][4], const bf16* r0, const bf16* r1,
+                                          const bf16* t0, const bf16* t1, int gq) {
+  constexpr int PAIRS = HD / 32;
+  const bf16* rows[4] = {r0, r1, t0, t1};
+  uint4 w[4][PAIRS];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < PAIRS; ++j)
+      w[r][j] = __ldg(reinterpret_cast<const uint4*>(rows[r] + 32 * j + 8 * gq));
+#pragma unroll
+  for (int j = 0; j < PAIRS; ++j) {
+    const uint32_t lo[4] = {w[0][j].x, w[1][j].x, w[0][j].y, w[1][j].y};
+    mma_bf16(c[0], lo, w[2][j].x, w[2][j].y);
+    mma_bf16(c[1], lo, w[3][j].x, w[3][j].y);
+    const uint32_t hi[4] = {w[0][j].z, w[1][j].z, w[0][j].w, w[1][j].w};
+    mma_bf16(c[0], hi, w[2][j].z, w[2][j].w);
+    mma_bf16(c[1], hi, w[3][j].z, w[3][j].w);
+  }
+  if constexpr (HD % 32 != 0) {
+    static_assert(HD % 32 == 16, "a last depth step of 16 dims");
+    uint2 x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      x[r] = __ldg(reinterpret_cast<const uint2*>(rows[r] + 32 * PAIRS + 4 * gq));
+    const uint32_t a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
+    mma_bf16(c[0], a, x[2].x, x[2].y);
+    mma_bf16(c[1], a, x[3].x, x[3].y);
+  }
+}
+
+// K6's group: the ws x ws tokens of one window of a padded (B, hp, wp, *)
+// grid, read in place. Token t of the window is t / ws rows and t % ws
+// columns from its first token; q, k, v rows are `ts` elements apart (3C
+// for the channel slices of the qkv output), out rows `c`. Each pointer is
+// at the window's first token and the head's first channel.
+template <int HD>
+struct WindowRows {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  const bf16* rh;  // gathered (ws, ws, HD) tables
+  const bf16* rw;
+  int ws, wp, ts, c;
+
+  __device__ __forceinline__ size_t tok(int t) const {
+    const int y = t / ws;
+    return static_cast<size_t>(y) * wp + (t - y * ws);
+  }
+  __device__ __forceinline__ size_t in(int r) const { return tok(r) * ts; }
+  __device__ __forceinline__ size_t out_off(int r) const { return tok(r) * c; }
+
+  // The bias halves of every row, computed here as the TPU kernel does:
+  // bh[i, y] = q_i . rh[y_i, y] and bw[i, x] = q_i . rw[x_i, x], float32
+  // sums of the bf16 products on mma.sync, each half rounded to bf16 on
+  // its own. Step u of a warp takes the ws tokens of window row u against
+  // rh[u] (their bh) and those of window column u against rw[u] (their
+  // bw), two independent 16 x 16 tiles whose 16 columns are the rows' 16
+  // bias columns (those past ws written as zeros; tile rows past ws repeat
+  // row ws - 1 and are dropped).
+  __device__ __forceinline__ void stage_bias(bf16* ba, int, int, int, int, int warp,
+                                             int lane) const {
+    const int gr = lane >> 2, gq = lane & 3;
+    const int m0 = min(gr, ws - 1), m1 = min(gr + 8, ws - 1);
+    for (int u = warp; u < ws; u += kWinThreads / 32) {
+      float c[2][2][4] = {};  // [bh, bw][columns 0 .. 7, 8 .. 15][fragment]
+      const bf16* th = rh + static_cast<size_t>(u) * ws * HD;
+      const bf16* tw = rw + static_cast<size_t>(u) * ws * HD;
+      bias_tile<HD>(c[0], q + in(u * ws + m0), q + in(u * ws + m1), th + m0 * HD,
+                    th + m1 * HD, gq);
+      bias_tile<HD>(c[1], q + in(m0 * ws + u), q + in(m1 * ws + u), tw + m0 * HD,
+                    tw + m1 * HD, gq);
+      // c[h][t][e]: tile row gr (+ 8 for e >= 2), column 8 t + 2 gq + (e & 1).
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int m = gr + 8 * hi;
+        if (m >= ws) continue;
+        bf16* rowh = ba + (u * ws + m) * kBiasCols + 2 * gq;
+        bf16* roww = ba + (m * ws + u) * kBiasCols + kBiasSide + 2 * gq;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int col = 8 * t + 2 * gq;
+          const float* ch = c[0][t] + 2 * hi;
+          const float* cw = c[1][t] + 2 * hi;
+          st_u32(rowh + 8 * t, pack_bf16(col < ws ? ch[0] : 0.f, col + 1 < ws ? ch[1] : 0.f));
+          st_u32(roww + 8 * t, pack_bf16(col < ws ? cw[0] : 0.f, col + 1 < ws ? cw[1] : 0.f));
+        }
+      }
+    }
+  }
+};
+
+// The body of K5, K7 and K6 for one group of n <= NP tokens on a grid of
+// gh x gw <= 16 x 16 (`Rows` says where its rows lie and where its bias
+// halves come from); rows below nq are computed, the rest written as
+// zeros. The score is s = (q.k) alpha + bh + bw, the bias added by two
+// depth steps of [bh | bw] against the keys' one-hot rows, whose products
+// are exact; p = exp(s - max s) = 2^(s gamma - max s gamma). alpha = scale
+// and gamma = log2 e for the plain bias; alpha = 1 and gamma = scale log2 e
+// for the folded one (the halves divided by scale).
+template <int HD, int NP, class Rows>
+__device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Rows& g,
+                                               const int n, const int gh, const int gw,
+                                               const int nq, const float alpha,
+                                               const float gamma) {
   static_assert(HD % 16 == 0 && NP % 16 == 0, "tiles of 16");
+  static_assert(HD / 2 <= kBiasCols, "a half output row fits a bias row");
   constexpr int KS = HD + 8;       // shared row stride (elements)
   constexpr int KSTEPS = HD / 16;  // depth steps of q . k
   constexpr int NT = NP / 8;       // 8-key tiles of a score row
   constexpr int DT = HD / 8;       // 8-column tiles of the output
   constexpr int CPR = HD / 8;      // 16-byte chunks of a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int BS = kBiasCols;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // NP x KS
   bf16* vs = ks + NP * KS;                       // NP x KS
-  int* kyx = reinterpret_cast<int*>(vs + NP * KS);
-  float* bs = reinterpret_cast<float*>(kyx + NP);  // NP x (gh + gw), nq rows staged
+  bf16* oh = vs + NP * KS;                       // NP x BS: keys' one-hot rows
+  bf16* ba = oh + NP * BS;                       // NP x BS: rows' bias halves (nq staged)
 
-  const int n = a.n, ghw = a.gh + a.gw;
-  const int g = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, gq = lane & 3;
-  const size_t base = static_cast<size_t>(g) * n;
-  const bf16* q = static_cast<const bf16*>(a.q) + base * HD;
-  const bf16* k = static_cast<const bf16*>(a.k) + base * HD;
-  const bf16* v = static_cast<const bf16*>(a.v) + base * HD;
-  bf16* out = static_cast<bf16*>(a.out) + base * HD;
-  const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
 
   for (int e = tid; e < NP * CPR; e += kWinThreads) {
     const int r = e / CPR, c = (e - r * CPR) * 8;
     const bool ok = r < n;
-    const size_t off = static_cast<size_t>(ok ? r : 0) * HD + c;
-    cp_async16(ks + r * KS + c, k + off, ok);
-    cp_async16(vs + r * KS + c, v + off, ok);
+    const size_t off = g.in(ok ? r : 0) + c;
+    cp_async16(ks + r * KS + c, g.k + off, ok);
+    cp_async16(vs + r * KS + c, g.v + off, ok);
   }
   cp_async_commit();
-  // s = q.k * alpha + (bh + bw) * beta: alpha = beta = scale for the folded
-  // bias, alpha = scale and beta = 1 for the plain one. Scores are kept in
-  // the log2 domain, u = s log2 e, so exp(s - max s) = 2^(u - max u).
-  const float beta_l2 = (a.folded ? a.scale : 1.f) * kLog2e;
-  const float alpha_l2 = a.scale * kLog2e;
-  stage_key_table(kyx, NP, n, a.gh, a.gw, -1, tid, kWinThreads);
-  {  // the kept rows' bias halves, times beta log2 e
-    const bf16* bhw = static_cast<const bf16*>(a.bhw) + base * ghw;
-#pragma unroll 4
-    for (int e = tid; e < nq * ghw; e += kWinThreads) bs[e] = bf(bhw[e]) * beta_l2;
+  for (int e = tid; e < NP * kBiasSide; e += kWinThreads) {  // one-hot pairs
+    const int j = e / kBiasSide, c = 2 * (e - j * kBiasSide);
+    const int ky = j / gw, hit = c < kBiasSide ? ky : kBiasSide + j - ky * gw;
+    const uint32_t one = 0x3f80u;  // bf16 1.0
+    st_u32(oh + j * BS + c, j >= n ? 0u : hit == c ? one : hit == c + 1 ? one << 16 : 0u);
   }
+  g.stage_bias(ba, nq, gh, gw, tid, warp, lane);
   cp_async_wait<0>();
   __syncthreads();
   const int stripes = (nq + 15) / 16;  // stripes holding a kept row
@@ -334,8 +501,8 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(Relpos
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const int c = 8 * dt + 2 * gq;
-        if (r0 < n) st_u32(out + static_cast<size_t>(r0) * HD + c, 0u);
-        if (r1 < n) st_u32(out + static_cast<size_t>(r1) * HD + c, 0u);
+        if (r0 < n) st_u32(g.out + g.out_off(r0) + c, 0u);
+        if (r1 < n) st_u32(g.out + g.out_off(r1) + c, 0u);
       }
       continue;
     }
@@ -343,8 +510,8 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(Relpos
     // their results are never stored).
     uint32_t qa[KSTEPS][4];
     {
-      const bf16* q0 = q + static_cast<size_t>(min(r0, n - 1)) * HD + 2 * gq;
-      const bf16* q1 = q + static_cast<size_t>(min(r1, n - 1)) * HD + 2 * gq;
+      const bf16* q0 = g.q + g.in(min(r0, n - 1)) + 2 * gq;
+      const bf16* q1 = g.q + g.in(min(r1, n - 1)) + 2 * gq;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         qa[kk][0] = ldg_u32(q0 + 16 * kk);
@@ -368,38 +535,49 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(Relpos
         mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
       }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= alpha;
 
-    // Bias by index, keys past n masked, row max.
-    const float* b0r = bs + r0 * ghw;
-    const float* b1r = bs + r1 * ghw;
+    // + bh[i, y_j] + bw[i, x_j]: the stripe's [bh | bw] rows against the keys'
+    // one-hot rows, two depth steps.
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      uint32_t a[4];
+      ldsm_x4(a, ba + (16 * st + (lane & 7) + ((lane >> 3) & 1) * 8) * BS + 16 * kb +
+                     (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, oh + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * BS + 16 * kb +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], a, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+
+    // Keys past n masked, row max.
     float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int2 t = *reinterpret_cast<const int2*>(kyx + 8 * j + 2 * gq);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int te = e ? t.y : t.x;
-        if (te < 0) {
+        if (8 * j + 2 * gq + e >= n) {
           s[j][e] = -INFINITY;
           s[j][2 + e] = -INFINITY;
-        } else {
-          const int ky = te & 0xffff, kx = te >> 16;
-          s[j][e] = fmaf(s[j][e], alpha_l2, b0r[ky] + b0r[kx]);
-          s[j][2 + e] = fmaf(s[j][2 + e], alpha_l2, b1r[ky] + b1r[kx]);
         }
         m0 = fmaxf(m0, s[j][e]);
         m1 = fmaxf(m1, s[j][2 + e]);
       }
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
+    const float c0 = -quad_max(m0) * gamma, c1 = -quad_max(m1) * gamma;
     float l0 = 0.f, l1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      s[j][0] = ex2(s[j][0] - m0);
-      s[j][1] = ex2(s[j][1] - m0);
-      s[j][2] = ex2(s[j][2] - m1);
-      s[j][3] = ex2(s[j][3] - m1);
+      s[j][0] = ex2(fmaf(s[j][0], gamma, c0));
+      s[j][1] = ex2(fmaf(s[j][1], gamma, c0));
+      s[j][2] = ex2(fmaf(s[j][2], gamma, c1));
+      s[j][3] = ex2(fmaf(s[j][3], gamma, c1));
       l0 += s[j][0] + s[j][1];
       l1 += s[j][2] + s[j][3];
     }
@@ -426,33 +604,113 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(Relpos
         mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
       }
     }
+    // The output tile goes out through this stripe's bias rows (read above
+    // and by no other warp), HD / 2 columns at a time, so that each store
+    // writes 16-byte chunks of 8 rows. (K6's output rows lie C apart, and
+    // 4-byte stores straight from the accumulators were a large share of
+    // its time.)
+    constexpr int HW = HD / 2, CH = HW / 8;  // columns, 16-byte chunks a half row
+    bf16* stage = ba + 16 * st * BS;
+    __syncwarp();
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int c = 8 * dt + 2 * gq;
-      if (r0 < n)
-        st_u32(out + static_cast<size_t>(r0) * HD + c,
-               r0 < nq ? pack_bf16(o[dt][0], o[dt][1]) : 0u);
-      if (r1 < n)
-        st_u32(out + static_cast<size_t>(r1) * HD + c,
-               r1 < nq ? pack_bf16(o[dt][2], o[dt][3]) : 0u);
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int dt = h * DT / 2; dt < (h + 1) * DT / 2; ++dt) {
+        const int c = 8 * dt - h * HW + 2 * gq;
+        st_u32(stage + gr * BS + c, r0 < nq ? pack_bf16(o[dt][0], o[dt][1]) : 0u);
+        st_u32(stage + (gr + 8) * BS + c, r1 < nq ? pack_bf16(o[dt][2], o[dt][3]) : 0u);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int e = lane; e < 16 * CH; e += 32) {
+        const int rr = e / CH, c = (e - rr * CH) * 8, r = 16 * st + rr;
+        if (r < n)
+          *reinterpret_cast<uint4*>(g.out + g.out_off(r) + h * HW + c) =
+              *reinterpret_cast<const uint4*>(stage + rr * BS + c);
+      }
+      __syncwarp();
     }
   }
 }
 
+// Three entry kernels over one body, so that a profile tells K5, K7 and K6
+// apart. K5: group g's rows at g * n, folded or plain bias, pad-query skip.
 template <int HD, int NP>
-cudaError_t launch_window_tc(const RelposArgs& a, int g, cudaStream_t stream) {
-  auto kernel = &relpos_window_kernel_tc<HD, NP>;
-  // Bias halves for all NP rows: the stripe past n reads (and ignores) them.
-  const size_t smem = sizeof(bf16) * 2 * NP * (HD + 8) +
-                      sizeof(float) * static_cast<size_t>(NP) * (a.gh + a.gw) +
-                      sizeof(int) * NP;
+__global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(RelposArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, g = blockIdx.x;
+  const size_t base = static_cast<size_t>(g) * n;
+  const DenseRows<HD> rows{static_cast<const bf16*>(a.q) + base * HD,
+                           static_cast<const bf16*>(a.k) + base * HD,
+                           static_cast<const bf16*>(a.v) + base * HD,
+                           static_cast<bf16*>(a.out) + base * HD,
+                           static_cast<const bf16*>(a.bhw) + base * (a.gh + a.gw)};
+  const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
+  window_tc_body<HD, NP>(smem_raw, rows, n, a.gh, a.gw, nq, a.folded ? 1.f : a.scale,
+                         a.folded ? a.scale * kLog2e : kLog2e);
+}
+
+// K7: group g = (window w, head h) reads q, k, v in place from the
+// (W, 3, nh, n, HD) qkv at w 3 nh n + h n and one and two nh n further;
+// output and bias halves at g * n. Plain bias, every row kept.
+template <int HD, int NP>
+__global__ void __launch_bounds__(kWinThreads, 2) relpos_qkv_kernel_tc(RelposArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, nh = a.qkv_heads, g = blockIdx.x;
+  const size_t hn = static_cast<size_t>(nh) * n;
+  const size_t qbase = static_cast<size_t>(g / nh) * 3 * hn + static_cast<size_t>(g % nh) * n;
+  const size_t base = static_cast<size_t>(g) * n;
+  const bf16* qkv = static_cast<const bf16*>(a.q);
+  const DenseRows<HD> rows{qkv + qbase * HD, qkv + (qbase + hn) * HD,
+                           qkv + (qbase + 2 * hn) * HD, static_cast<bf16*>(a.out) + base * HD,
+                           static_cast<const bf16*>(a.bhw) + base * (a.gh + a.gw)};
+  window_tc_body<HD, NP>(smem_raw, rows, n, a.gh, a.gw, n, a.scale, kLog2e);
+}
+
+// K6: block g = ((b, wy, wx) window, head), head fastest; every token of
+// the padded grid is a query and a key (no skip), the bias halves are
+// computed in the block.
+template <int HD, int NP>
+__global__ void __launch_bounds__(kWinThreads, 2) window_strip_kernel_tc(StripArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ws = a.ws, nwx = a.wp / ws, nwy = a.hp / ws;
+  const int head = blockIdx.x % a.nh, win = blockIdx.x / a.nh;
+  const int wx = win % nwx, wy = (win / nwx) % nwy, b = win / (nwx * nwy);
+  const size_t tok0 = (static_cast<size_t>(b) * a.hp + wy * ws) * a.wp + wx * ws;
+  const size_t in0 = tok0 * a.ts + static_cast<size_t>(head) * HD;
+  const size_t out0 = tok0 * a.c + static_cast<size_t>(head) * HD;
+  const WindowRows<HD> rows{static_cast<const bf16*>(a.q) + in0,
+                            static_cast<const bf16*>(a.k) + in0,
+                            static_cast<const bf16*>(a.v) + in0,
+                            static_cast<bf16*>(a.out) + out0,
+                            static_cast<const bf16*>(a.rh),
+                            static_cast<const bf16*>(a.rw),
+                            ws, a.wp, a.ts, a.c};
+  window_tc_body<HD, NP>(smem_raw, rows, ws * ws, ws, ws, ws * ws, a.scale, kLog2e);
+}
+
+// K, V, the keys' one-hot rows and the rows' bias halves, NP rows each (a
+// stripe past n reads and ignores its rows): 91 KB at hd 64 and 104 KB at
+// hd 80 for 14 x 14 windows, so that two blocks share an SM.
+template <int HD, int NP, class Args>
+cudaError_t launch_window_tc(void (*kernel)(Args), const Args& a, long long blocks,
+                             cudaStream_t stream) {
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(bf16) * 2 * NP * (HD + 8 + kBiasCols);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<g, kWinThreads, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kWinThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD, int NP>
+cudaError_t launch_relpos_window_tc(const RelposArgs& a, int g, cudaStream_t stream) {
+  return a.qkv_heads > 0
+             ? launch_window_tc<HD, NP>(&relpos_qkv_kernel_tc<HD, NP>, a, g, stream)
+             : launch_window_tc<HD, NP>(&relpos_window_kernel_tc<HD, NP>, a, g, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -879,14 +1137,25 @@ cudaError_t relpos_global_tc(const RelposArgs& a, int g, int hd, cudaStream_t st
 }
 
 cudaError_t relpos_windowed_tc(const RelposArgs& a, int g, int hd, cudaStream_t stream) {
-  if (a.n > 256) return cudaErrorInvalidValue;
+  if (a.gh > kBiasSide || a.gw > kBiasSide) return cudaErrorInvalidValue;
   const bool small = a.n <= 208;  // 14 x 14 windows: 13 stripes
   if (hd == 64)
-    return small ? launch_window_tc<64, 208>(a, g, stream)
-                 : launch_window_tc<64, 256>(a, g, stream);
+    return small ? launch_relpos_window_tc<64, 208>(a, g, stream)
+                 : launch_relpos_window_tc<64, 256>(a, g, stream);
   if (hd == 80)
-    return small ? launch_window_tc<80, 208>(a, g, stream)
-                 : launch_window_tc<80, 256>(a, g, stream);
+    return small ? launch_relpos_window_tc<80, 208>(a, g, stream)
+                 : launch_relpos_window_tc<80, 256>(a, g, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t window_strip_tc(const StripArgs& a, int batch, int hd, cudaStream_t stream) {
+  // Windows of up to 14 x 14 tokens (the caller checks ws * ws <= 208).
+  if (a.ws > 14) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(batch) * (a.hp / a.ws) * (a.wp / a.ws) * a.nh;
+  if (hd == 64)
+    return launch_window_tc<64, 208>(&window_strip_kernel_tc<64, 208>, a, blocks, stream);
+  if (hd == 80)
+    return launch_window_tc<80, 208>(&window_strip_kernel_tc<80, 208>, a, blocks, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,10 @@
 // K6: windowed attention with the MViTv2 decomposed relative-position bias
 // of the SAM ViT encoders, read in place from the padded NHWC q, k and v
 // (the three channel slices of the qkv linear's output), bias halves
-// computed in the kernel, exact float32 softmax.
+// computed in the kernel, exact float32 softmax. This file's CUDA-core body
+// runs float32 inputs; bf16 (the ViT's dtype) runs on the tensor cores
+// (relpos_attention_tc.cu, `window_strip_kernel_tc`), picked by dtype in
+// the C entry point below.
 //
 // Replaces the TPU kernel dlimgedit_tpu/ops/flash_attention.py:646
 // `windowed_attention_fused` (Pallas body `_window_strip_kernel`, :575): the
@@ -38,12 +41,11 @@
 // x 13 keys (rows ty + 16 i, keys tx + 16 j), so the softmax is exact in
 // one pass (max and sum by shuffles across the 16 lanes of a row), p is
 // normalised and rounded where JAX rounds it, and p . v runs over 64-key
-// chunks of p staged transposed in shared memory. About 108 KB of shared
-// memory per block at hd 80 in bf16, so two blocks share an SM. Float32 on
-// the CUDA cores; tensor-core products are later work.
+// chunks of p staged transposed in shared memory. Float32 on the CUDA
+// cores throughout (2e-5 against the plain version needs float32 products).
 #include <math.h>
 
-#include "common.cuh"
+#include "relpos_attention.cuh"
 
 namespace dlimg {
 
@@ -54,17 +56,6 @@ constexpr int kWsMaxN = 16 * kWsNJ;     // 208 >= 14 * 14 tokens per window
 constexpr int kWsKS = kWsMaxN + 2;      // row stride of K^T (conflict-free stores)
 constexpr int kWsPC = 64;               // keys per chunk of p^T
 constexpr int kWsPS = kWsBQ + 2;        // row stride of p^T
-
-struct StripArgs {
-  const void* q;   // (B, hp, wp, *) with token stride ts, head h at h * HD
-  const void* k;
-  const void* v;
-  const void* rh;  // (ws, ws, HD) contiguous, activation dtype
-  const void* rw;
-  void* out;       // (B, hp, wp, c) contiguous
-  int hp, wp, c, ts, ws, nh;
-  float scale;
-};
 
 template <typename T, int HD>
 size_t strip_smem_bytes(int ws) {
@@ -329,8 +320,7 @@ extern "C" int dlimg_window_strip_attention(const void* q, const void* k, const 
     DLIMG_WS_CASE(float, 64)
     DLIMG_WS_CASE(float, 80)
   } else if (dtype == dlimg::kDtypeBF16) {
-    DLIMG_WS_CASE(__nv_bfloat16, 64)
-    DLIMG_WS_CASE(__nv_bfloat16, 80)
+    return dlimg::window_strip_tc(a, b, hd, s);
   }
 #undef DLIMG_WS_CASE
   return cudaErrorInvalidValue;

@@ -9,17 +9,20 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
     for windows (N <= 256 with ``heads`` given) and to
     ``relpos_attention_global`` (K4; JAX ``_attention_grouped``, :139)
-    otherwise; in bf16 both run on the tensor cores
-    (``csrc/relpos_attention_tc.cu``), in float32 on the CUDA cores
-    (``csrc/relpos_attention.cu``);
+    otherwise;
   * ``windowed_attention_qkv`` (JAX :382): windows whose q, k, v are the
     components of one (W, 3, nh, N, hd) tensor, through
-    ``relpos_attention_qkv`` (K7, a third entry kernel of
-    ``csrc/relpos_attention.cu``; JAX body ``_head_loop_kernel_qkv``, :285);
-  * ``windowed_attention_fused`` (K6, ``csrc/window_strip_attention.cu``;
-    JAX :646, body ``_window_strip_kernel`` :575): the windowed blocks of
-    the ViT's ``fused_window_blocks`` path, windows read in place from the
-    padded NHWC q, k, v, bias halves computed in the kernel.
+    ``relpos_attention_qkv`` (K7, a third entry point beside K4 and K5;
+    JAX body ``_head_loop_kernel_qkv``, :285);
+  * ``windowed_attention_fused`` (K6; JAX :646, body
+    ``_window_strip_kernel`` :575): the windowed blocks of the ViT's
+    ``fused_window_blocks`` path, windows read in place from the padded
+    NHWC q, k, v, bias halves computed in the kernel.
+
+In bf16 K4, K5, K7 and K6 run on the tensor cores
+(``csrc/relpos_attention_tc.cu``; K5, K7 and K6 share one ``mma.sync``
+body), in float32 on the CUDA cores (``csrc/relpos_attention.cu`` for K4,
+K5 and K7, ``csrc/window_strip_attention.cu`` for K6).
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -49,11 +52,12 @@ KERNEL_MAX_TOKENS = 256
 # Head widths K4, K5, K6 and K7 are instantiated for:
 # SAM ViT-B/L (64) and ViT-H (80).
 KERNEL_HEAD_DIMS = (64, 80)
-# The largest window the bf16 K5 takes (csrc/relpos_attention_tc.cu: score
-# rows of up to 256 keys in registers).
-WINDOW_MAX_TOKENS = 256
-# The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN): 13
-# keys a lane; SAM's 14 x 14 windows.
+# The largest window side the bf16 K5 and K7 take (csrc/relpos_attention_tc.cu
+# kBiasSide: 16 bias columns a half, score rows of up to 256 keys).
+WINDOW_MAX_SIDE = 16
+# The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN, 13
+# keys a lane; the bf16 instances of csrc/relpos_attention_tc.cu, score
+# rows of 208 keys): SAM's 14 x 14 windows.
 STRIP_MAX_TOKENS = 208
 
 
@@ -240,6 +244,13 @@ def _check_relpos(name, q, k, v, bhw, grid_h, grid_w):
         raise DlimgError(f"{name}: inputs must be contiguous")
 
 
+def _check_window_side(name, dtype, grid_h, grid_w):
+    if dtype == torch.bfloat16 and max(grid_h, grid_w) > WINDOW_MAX_SIDE:
+        raise DlimgError(f"{name}: the bf16 CUDA kernel takes windows of at "
+                         f"most {WINDOW_MAX_SIDE} x {WINDOW_MAX_SIDE} tokens, "
+                         f"got {grid_h} x {grid_w}")
+
+
 def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bhw: torch.Tensor, grid_h: int,
                             grid_w: int) -> torch.Tensor:
@@ -291,9 +302,7 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         raise DlimgError(f"{name}: unsupported device {q.device}")
     G, N, hd = q.shape
-    if q.dtype == torch.bfloat16 and N > WINDOW_MAX_TOKENS:
-        raise DlimgError(f"{name}: the bf16 CUDA kernel takes windows of at "
-                         f"most {WINDOW_MAX_TOKENS} tokens, got N = {N}")
+    _check_window_side(name, q.dtype, grid_h, grid_w)
     g_skip, n_valid = _skip_rows(G, N, grid_h, grid_w, heads, n_w, valid_rows)
     out = torch.empty_like(q)
     rc = LIBRARY.get().dlimg_relpos_attention_windowed(
@@ -381,6 +390,7 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     if hd not in KERNEL_HEAD_DIMS:
         raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
                          f"{KERNEL_HEAD_DIMS})")
+    _check_window_side(name, qkv.dtype, grid_h, grid_w)
     if not (qkv.is_contiguous() and bhw.is_contiguous()):
         raise DlimgError(f"{name}: inputs must be contiguous")
     out = torch.empty((W, nh, N, hd), dtype=qkv.dtype, device=qkv.device)
@@ -536,8 +546,10 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
         raise DlimgError(f"{name}: the CUDA kernel reads q, k, v in 16-byte "
                          f"chunks: their data and token stride must be "
                          f"16-byte aligned")
-    rh_t = rh.to(q.dtype).contiguous()
-    rw_t = rw.to(q.dtype).contiguous()
+    # The bf16 kernel reads table rows in 16-byte loads too: a table view
+    # that does not start on 16 bytes is cloned (2 ws^2 hd values).
+    rh_t, rw_t = (t.to(q.dtype).contiguous() for t in (rh, rw))
+    rh_t, rw_t = (t.clone() if t.data_ptr() % 16 else t for t in (rh_t, rw_t))
     out = torch.empty((B, Hp, Wp, C), dtype=q.dtype, device=q.device)
     rc = LIBRARY.get().dlimg_window_strip_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh_t.data_ptr(),

@@ -43,7 +43,8 @@ LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("K2 levit_window_attention", ("levit_attention_kernel",)),
     ("K4 relpos_attention_global", ("relpos_global_kernel",)),
     ("K5 relpos_attention_windowed", ("relpos_window_kernel",)),
-    ("K6 windowed_attention_fused", ("window_strip_attention_kernel",)),
+    ("K6 windowed_attention_fused", ("window_strip_attention_kernel",
+                                     "window_strip_kernel_tc")),
     ("K7 relpos_attention_qkv", ("relpos_qkv_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "winograd", "dgrad")),
     ("matrix product", ("gemm", "cublas", "cutlass", "matmul", "xmma", "sgemm")),

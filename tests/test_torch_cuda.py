@@ -10,6 +10,13 @@ chip_smoke.py runs the same comparisons at the main path's full shapes.
 Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
 bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit, and K8
 (the gather probe) its plain version: both sum in the same order.
+
+K6's large-table case holds the rounding of its bias halves: q and the
+tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
+their products is exact in any order and the halves (~24 in size, bf16
+steps of 1/8) round the same on both sides; rounding bh + bw together, or
+scaling before rounding, moves scores by up to half such a step and the
+output by more than the tolerance.
 """
 
 import pytest
@@ -219,9 +226,71 @@ def test_window_strip_kernel_matches_plain(dev, B, grid, heads, hd, ws, dtype):
                                rtol=0)
 
 
+def _strip_operands(qkv, layout):
+    """q, k, v as the channel slices of qkv (token stride 3C) or as three
+    contiguous tensors (token stride C)."""
+    C = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,grid,heads,hd,ws", [(1, 70, 12, 64, 14),
+                                                (2, 28, 2, 80, 14)])
+def test_window_strip_kernel_contiguous_operands(dev, B, grid, heads, hd, ws,
+                                                 dtype):
+    """q, k, v as three contiguous tensors (token stride C); the tables as
+    views that do not start on 16 bytes (the kernel reads 16-byte chunks of
+    their rows; the wrapper copies such a table)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    C = heads * hd
+    qkv = torch.randn((B, grid, grid, 3 * C), generator=g, device=dev).to(dtype)
+    q, k, v = _strip_operands(qkv, "contiguous")
+    rh, rw = (torch.empty(ws * ws * hd + 1, device=dev, dtype=dtype)[1:]
+              .view(ws, ws, hd).copy_(0.3 * torch.randn((ws, ws, hd), generator=g,
+                                                         device=dev))
+              for _ in range(2))
+    before = windowed_attention_fused.launches
+    got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    torch.cuda.synchronize()
+    assert windowed_attention_fused.launches == before + 1
+    want = windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                          num_heads=heads)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["slices", "contiguous"])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_window_strip_kernel_large_tables(dev, hd, layout):
+    """bf16, rel-pos tables of scale ~3 on values whose bias sums are
+    exact (see the module note): the halves' rounding order decides."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, grid, heads, ws = 1, 42, 4, 14
+    C = heads * hd
+
+    def quarters(shape, std, limit):
+        x = std * torch.randn(shape, generator=g, device=dev)
+        return (torch.round(x * 4) / 4).clamp(-limit, limit)
+
+    qkv = torch.randn((B, grid, grid, 3 * C), generator=g, device=dev)
+    qkv[..., :C] = quarters((B, grid, grid, C), 1.0, 4.0)
+    q, k, v = _strip_operands(qkv.to(torch.bfloat16), layout)
+    rh, rw = (quarters((ws, ws, hd), 3.0, 12.0).to(torch.bfloat16)
+              for _ in range(2))
+    got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    torch.cuda.synchronize()
+    want = windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                          num_heads=heads)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16][1], rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("W,heads,hd,g", [(25, 12, 64, 14), (25, 16, 80, 14),
-                                          (3, 2, 64, 5)])
+                                          (3, 2, 64, 5), (2, 3, 80, 14)])
 def test_relpos_qkv_kernel_matches_plain(dev, W, heads, hd, g, dtype):
     gen = torch.Generator(device=dev).manual_seed(6)
     qkv = torch.randn((W, 3, heads, g * g, hd), generator=gen,
@@ -260,6 +329,14 @@ def test_new_kernels_raise_instead_of_falling_back(dev):
     qkv = torch.zeros(2, 3, 2, 49, 32, device=dev)  # head width 32: no K7
     with pytest.raises(DlimgError):
         relpos_attention_qkv(qkv, torch.zeros(4, 49, 14, device=dev), 7, 7)
+    # bf16 windows with a side above 16 (the tensor-core body's bias columns)
+    qkv = torch.zeros(2, 3, 2, 8 * 32, 64, device=dev, dtype=torch.bfloat16)
+    bhw = torch.zeros(4, 8 * 32, 40, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(DlimgError):
+        relpos_attention_qkv(qkv, bhw, 8, 32)
+    q = qkv[:, 0].reshape(4, 8 * 32, 64)
+    with pytest.raises(DlimgError):
+        relpos_attention_windowed(q, q, q, bhw, 8, 32, 2, False)
     table = torch.zeros(8000, 16, device=dev)  # 8000 rows: no slab fits
     with pytest.raises(DlimgError):
         smem_gather(table, torch.zeros(8000, 16, dtype=torch.int32,

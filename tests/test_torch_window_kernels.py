@@ -4,11 +4,14 @@ all inputs from numpy seeds:
   * K6 ``windowed_attention_fused`` (its plain version on CPU tensors)
     against JAX ``windowed_attention_fused(..., interpret=True)`` at ws 4 on
     a (2, 8, 12) padded grid, with 2 heads of 16 and 4 heads of 64 (JAX's
-    ``_head_group`` then splits the channels into two strips), q, k and v
-    passed as the channel slices of one qkv tensor;
+    ``_head_group`` then splits the channels into two strips), and at SAM's
+    own window, one 14 x 14 window with 1 or 2 heads of 64 (the window the
+    bf16 kernel tiles by 16-row stripes); q, k and v passed as the channel
+    slices of one qkv tensor;
   * K7 ``windowed_attention_qkv`` against JAX ``windowed_attention_qkv(...,
     interpret=True)`` at the shapes of JAX's
-    ``test_combined_qkv_kernel_matches_dense``;
+    ``test_combined_qkv_kernel_matches_dense`` and at a 14 x 14 window of
+    2 heads of 64;
   * K8 ``smem_gather`` (the gather probe) against a numpy transcription of
     tools/probe_vmem_gather.py ``gather_kernel`` (the JAX tool has no
     interpret switch), bit for bit: both sum in the same order.
@@ -71,8 +74,11 @@ def _atol(want: np.ndarray, dtype: str) -> float:
     return float(2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7))
 
 
-# (B, Hp, Wp, heads, hd) at ws 4
-STRIP_CASES = {"2x16": (2, 8, 12, 2, 16), "4x64_two_strips": (2, 8, 12, 4, 64)}
+# (B, Hp, Wp, heads, hd, ws)
+STRIP_CASES = {"2x16": (2, 8, 12, 2, 16, 4),
+               "4x64_two_strips": (2, 8, 12, 4, 64, 4),
+               "1x64_ws14": (1, 14, 14, 1, 64, 14),
+               "2x64_ws14": (1, 14, 14, 2, 64, 14)}
 
 
 def _strip_inputs(B, Hp, Wp, heads, hd, ws, seed):
@@ -86,8 +92,8 @@ def _strip_inputs(B, Hp, Wp, heads, hd, ws, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(STRIP_CASES))
 def test_windowed_attention_fused_matches_pallas(case, dtype):
-    B, Hp, Wp, heads, hd = STRIP_CASES[case]
-    ws, C = 4, heads * hd
+    B, Hp, Wp, heads, hd, ws = STRIP_CASES[case]
+    C = heads * hd
     qkv, rh, rw = _strip_inputs(B, Hp, Wp, heads, hd, ws, seed=hd)
     (jqkv, tqkv), (jrh, trh), (jrw, trw) = (_pair(a, dtype)
                                             for a in (qkv, rh, rw))
@@ -107,8 +113,8 @@ def test_windowed_attention_fused_matches_pallas(case, dtype):
 def test_windowed_attention_fused_plain_matches_dense_reference():
     """Per window and head, the strip's plain version is the dense rel-pos
     attention of that window (float32)."""
-    B, Hp, Wp, heads, hd = STRIP_CASES["2x16"]
-    ws, C = 4, heads * hd
+    B, Hp, Wp, heads, hd, ws = STRIP_CASES["2x16"]
+    C = heads * hd
     qkv, rh, rw = (torch.from_numpy(a) for a in
                    _strip_inputs(B, Hp, Wp, heads, hd, ws, seed=9))
     got = windowed_attention_fused_plain(qkv[..., :C], qkv[..., C:2 * C],
@@ -161,11 +167,9 @@ def test_windowed_attention_fused_takes_transposed_views_only_as_slices():
     assert out.shape == (1, 8, 8, 16)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_windowed_attention_qkv_matches_pallas(dtype):
-    windows, gh, gw, hd, heads = 3, 5, 5, 16, 2
+def _check_qkv_against_pallas(windows, gh, gw, hd, heads, dtype, seed):
     N = gh * gw
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     qkv = rng.standard_normal((windows, 3, heads, N, hd)).astype(np.float32)
     rh = (0.3 * rng.standard_normal((gh, gh, hd))).astype(np.float32)
     rw = (0.3 * rng.standard_normal((gw, gw, hd))).astype(np.float32)
@@ -179,6 +183,17 @@ def test_windowed_attention_qkv_matches_pallas(dtype):
     assert got.dtype == tqkv.dtype and got.shape == (windows, heads, N, hd)
     np.testing.assert_allclose(_f32(got), _f32(want),
                                atol=_atol(_f32(want), dtype), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_attention_qkv_matches_pallas(dtype):
+    _check_qkv_against_pallas(3, 5, 5, 16, 2, dtype, seed=7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_attention_qkv_matches_pallas_at_sam_window(dtype):
+    """SAM's 14 x 14 window, 2 heads of 64."""
+    _check_qkv_against_pallas(1, 14, 14, 64, 2, dtype, seed=10)
 
 
 def test_windowed_attention_qkv_takes_raw_tables_and_checks_bias():
