@@ -8,7 +8,9 @@ nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
 package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
-  K2 levit_window_attention                      levit_attention.cu
+  K2 levit_window_attention                      levit_attention_tc.cu (bf16,
+                                                 tensor cores), levit_attention.cu
+                                                 (float32)
   K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
   K7 relpos_attention_qkv                        tensor cores), relpos_attention.cu
                                                  (float32)
@@ -22,14 +24,16 @@ printing its seconds:
   1. builds the kernels (nvcc, sm_90a, one process per source) and prints
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
-     wgmma; K5, K7 and K6 on mma.sync) spills or is missing from the
-     report;
+     wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
+     mma.sync) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it
-     (MobileSAM: K1, K2; SAM ViT-B: K1, K3, K4, K5; ViT-B with
-     fused_window_blocks: K6 on the strips of a (1, 70, 70, 2304) qkv) and
-     at ViT-H's shapes (C 1280, 16 heads of width 80), with nonzero rel-pos
-     tables; K4 also at grid 32 (ViT-B at 512, held with 0 launches: the
+     (MobileSAM: K1, K2 - bf16 on the tensor cores, float32 on the CUDA
+     cores; SAM ViT-B, ViT-L (C 1024, 16 heads of 64) and ViT-H (C 1280,
+     16 heads of 80): K1, K3, K4, K5; ViT-B with fused_window_blocks: K6 on
+     the strips of a (1, 70, 70, 2304) qkv; K6 also at ViT-H's shape, with
+     0 launches), with nonzero rel-pos tables; K4 also at grid 32 (ViT-B
+     at 512, held with 0 launches: the
      general bias path of the bf16 kernel, a key tile spanning two grid
      rows); K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
      (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
@@ -51,20 +55,23 @@ printing its seconds:
      1024; the windowed blocks K5 with the pad-query skip, grid 32 -> 42,
      valid_rows 4) and once with fused_window_blocks (the windowed blocks
      take K6);
-  4. drives each main path at full width with seeded random weights:
-     MobileSAM at 1024 in bfloat16, then ViT-B at 1024 (embed 768, depth
-     12, 12 heads) in bfloat16 with seeded nonzero rel-pos tables,
+  4. drives each main path at full width and full depth with seeded random
+     weights: MobileSAM at 1024 in bfloat16, then ViT-B at 1024 (embed 768,
+     depth 12, 12 heads) in bfloat16 with seeded nonzero rel-pos tables,
      pos_embed and qkv biases (JAX's init zeroes them, which would leave the
-     rel-pos indexing unchecked), then the same ViT-B with its bundle's
-     fused_window_blocks set. Per path: `process` on a 1024x768 and a
-     1500x1000 image (canvas buckets 1024 and 2048), and per image
-     `compute_mask(Point)`, `compute_mask(Region)` with
-     largest_region_object, `compute_masks` and `compute_mask_batch` of 4
-     prompts. The launch counters are zeroed just before each path and read
-     just after. Per `process`: MobileSAM 22 K1 and 10 K2 launches; ViT-B 1
-     K1 (block 0's norm1), 23 K3 (every other block LayerNorm), 4 K4 (the
-     global blocks) and 8 K5 (the windowed blocks, one launch each); the
-     fused-window ViT-B the same with 8 K6 in place of the 8 K5. No path
+     rel-pos indexing unchecked), the same ViT-B with its bundle's
+     fused_window_blocks set, then ViT-L (embed 1024, depth 24, 16 heads of
+     64) and ViT-H (embed 1280, depth 32, 16 heads of 80) as ViT-B. Per
+     path: `process` on a 1024x768 and a 1500x1000 image (canvas buckets
+     1024 and 2048), and per image `compute_mask(Point)`,
+     `compute_mask(Region)` with largest_region_object, `compute_masks` and
+     `compute_mask_batch` of 4 prompts. The launch counters are zeroed just
+     before each path and read just after. Per `process`: MobileSAM 22 K1
+     and 10 K2 launches; a ViT of depth d 1 K1 (block 0's norm1), 2d - 1 K3
+     (every other block LayerNorm), 4 K4 (the global blocks) and d - 4 K5
+     (the windowed blocks, one launch each): 23 K3 and 8 K5 for ViT-B, 47
+     and 20 for ViT-L, 63 and 28 for ViT-H; the fused-window ViT-B the same
+     as ViT-B with 8 K6 in place of the 8 K5. No path
      launches K7 (no path of either package calls JAX's
      windowed_attention_qkv) or K8 (a measurement tool). Masks must be
      {0, 255} at the original extent. The embedding is held against the
@@ -117,19 +124,29 @@ ATTN_PER_PROCESS = sum(s[3] for s in ATTN_SHAPES)    # 10
 
 # SAM ViT shapes at 1024 (grid 64; launches per image of the main paths:
 # ViT-B runs twice, with its windows partitioned and with
-# fused_window_blocks, and both launch K1, K3 and K4 alike; ViT-H's shapes
-# are held with 0 launches): K1 and K3 rows (rows, C, launches) ...
-VIT_LN_SHAPES = [(4096, 768, 2 * 1), (4096, 1280, 0)]
-VIT_ADD_LN_SHAPES = [(4096, 768, 2 * 23), (4096, 1280, 0)]
+# fused_window_blocks, and both launch K1, K3 and K4 alike; ViT-L and ViT-H
+# run partitioned): K1 and K3 rows (rows, C, launches) ...
+VIT_LN_SHAPES = [(4096, 768, 2 * 1), (4096, 1024, 1), (4096, 1280, 1)]
+VIT_ADD_LN_SHAPES = [(4096, 768, 2 * 23), (4096, 1024, 47), (4096, 1280, 63)]
 # ... K4 (heads, grid, head width, launches): one group per head ...
-VIT_GLOBAL_SHAPES = [(12, 64, 64, 2 * 4), (16, 64, 80, 0), (12, 32, 64, 0)]
+VIT_GLOBAL_SHAPES = [(12, 64, 64, 2 * 4), (16, 64, 64, 4), (16, 64, 80, 4),
+                     (12, 32, 64, 0)]
 # ... and K5 (windows, heads, window, head width, n_w, valid_rows,
 # launches; the partitioned path only): the 64-grid pads to 70 = 5 x 14,
 # the bottom row of 5 windows keeps 8 of its 14 rows.
-VIT_WINDOW_SHAPES = [(25, 12, 14, 64, 5, 8, 8), (25, 16, 14, 80, 5, 8, 0)]
-VIT_PER_PROCESS = {"fused_layer_norm": 1, "fused_add_layer_norm": 23,
-                   "relpos_attention_global": 4,
-                   "relpos_attention_windowed": 8}
+VIT_WINDOW_SHAPES = [(25, 12, 14, 64, 5, 8, 8), (25, 16, 14, 64, 5, 8, 20),
+                     (25, 16, 14, 80, 5, 8, 28)]
+
+
+def vit_per_process(depth: int) -> dict:
+    """Launches per `process` of a ViT of this depth with 4 global blocks,
+    its windows partitioned."""
+    return {"fused_layer_norm": 1, "fused_add_layer_norm": 2 * depth - 1,
+            "relpos_attention_global": 4,
+            "relpos_attention_windowed": depth - 4}
+
+
+VIT_PER_PROCESS = vit_per_process(12)
 # K6 on the fused_window_blocks path (batch, padded grid, heads, head width,
 # window, launches per image): the strips of the padded 70 x 70 qkv
 # output, ViT-B's 8 windowed blocks; ViT-H's shape held with 0 launches.
@@ -153,11 +170,13 @@ IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 SPIN_CYCLES = 40_000_000
 SAMPLE_RETRIES = 10
 
-# The tensor-core kernels (csrc/relpos_attention_tc.cu), bf16 K4, K5, K7
-# and K6: phase 1 fails if one is missing from nvcc's report or spills.
-TC_SOURCE = "relpos_attention_tc.cu"
+# The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu)
+# and bf16 K2 (csrc/levit_attention_tc.cu): phase 1 fails if one is missing
+# from nvcc's report or spills.
+TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
-              "relpos_qkv_kernel_tc", "window_strip_kernel_tc")
+              "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
+              "levit_window_kernel_tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
@@ -165,7 +184,7 @@ TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
 KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
     ("fused_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
      "dlimgedit_tpu/ops/fused_norm.py:64"),
-    ("levit_window_attention", "dlimgedit_tpu_torch/csrc/levit_attention.cu",
+    ("levit_window_attention", "dlimgedit_tpu_torch/csrc/levit_attention_tc.cu",
      "dlimgedit_tpu/ops/flash_attention.py:531"),
     ("fused_add_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
      "dlimgedit_tpu/ops/fused_norm.py:98"),
@@ -382,7 +401,8 @@ def check_kernels(torch, ops, entries):
             mm = 4 * G * nh * N * N * kd
             check_kernel(
                 torch, f"K2 levit_window_attention ({G},{N},{nh * 3 * kd}) "
-                f"nh={nh}", "levit_window_attention", dname,
+                f"nh={nh} ({'tensor' if mm_flops else 'CUDA'} cores)",
+                "levit_window_attention", dname,
                 lambda: ops.levit_window_attention(qkv, bias, nh),
                 lambda: ops.levit_window_attention_plain(qkv, bias, nh),
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
@@ -402,7 +422,7 @@ def relpos_mask(torch, bhw, grid_h, grid_w, folded, scale, dtype):
 
 def check_vit_kernels(torch, ops, entries):
     """Phase 2, the SAM ViT's kernels: K1 at the ViT widths, K3, K4, K5 at
-    ViT-B's and ViT-H's shapes at 1024, rel-pos tables nonzero."""
+    ViT-B's, ViT-L's and ViT-H's shapes at 1024, rel-pos tables nonzero."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -858,9 +878,9 @@ def main() -> int:
     for source, kernel, targs, regs, spill in report:
         print(f"  nvcc: {source} {kernel}<{targs}>: {regs} registers, "
               f"{spill} bytes spill stores")
-        if source == TC_SOURCE and spill != 0:
+        if source in TC_SOURCES and spill != 0:
             fail(f"{kernel}<{targs}> spills ({spill} bytes of spill stores)")
-    reported = {kernel for source, kernel, *_ in report if source == TC_SOURCE}
+    reported = {kernel for source, kernel, *_ in report if source in TC_SOURCES}
     if LIBRARY.build_log and not set(TC_KERNELS) <= reported:
         fail(f"tensor-core kernels missing from nvcc's report: "
              f"{sorted(set(TC_KERNELS) - reported)}")
@@ -885,7 +905,9 @@ def main() -> int:
             ("mobile_sam", {"fused_layer_norm": LN_PER_PROCESS,
                             "levit_window_attention": ATTN_PER_PROCESS}, False),
             ("vit_b", VIT_PER_PROCESS, False),
-            ("vit_b", VIT_FUSED_PER_PROCESS, True)):
+            ("vit_b", VIT_FUSED_PER_PROCESS, True),
+            ("vit_l", vit_per_process(24), False),
+            ("vit_h", vit_per_process(32), False)):
         env, images, segs, counts = drive_main_path(
             torch, np, dl, variant, counters, zero_counters, want, fused)
         runs[f"{variant}{' fused-window' if fused else ''}"] = (env, images,

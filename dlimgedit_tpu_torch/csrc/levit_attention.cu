@@ -10,6 +10,11 @@
 // q, k and v are read in place from the qkv linear's output; no head
 // transpose and no score tensor is ever written to device memory.
 //
+// This file's CUDA-core body runs the float32 route (its 2e-5 tolerance
+// needs float32 products, not TF32); bf16, the main path's dtype, runs on
+// the tensor cores in levit_attention_tc.cu, whose head note gives the
+// bound and that design. The C entry point picks the body by dtype.
+//
 // What bounds it on an H100: bytes. Per window and head it reads 3 N kd
 // values and writes N kd values, while doing 4 N^2 kd operations: N / 2
 // operations per byte in bf16 (25 at N = 49, 98 at N = 196), below the
@@ -25,14 +30,16 @@
 // of keys l, l+32, ... in registers (at most 8 per lane, N <= 256), so max,
 // exp and sum are warp shuffles. For p v, each p_j is broadcast from the
 // lane that owns key j with a shuffle and lane l accumulates output column
-// l. No wgmma and no TMA: the arithmetic runs on the CUDA cores, which
-// keeps the kernel simple and exact; moving the two products to the tensor
-// cores is later work.
+// l. The arithmetic runs on the CUDA cores in float32.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace dlimg {
+
+// bf16 K2 on the tensor cores (levit_attention_tc.cu); the launch's error.
+cudaError_t levit_attention_tc(const void* qkv, const void* bias, void* out, int g, int n,
+                               int nh, float scale, cudaStream_t stream);
 
 constexpr int kKd = 32;
 constexpr int kAttnWarps = 8;
@@ -167,16 +174,17 @@ cudaError_t dispatch_attention(const void* qkv, const void* bias, void* out, int
 }  // namespace dlimg
 
 // qkv: (g, n, nh * 3 * 32), bias: (nh, n, n), out: (g, n, nh * 32), all
-// contiguous and of one dtype; 1 <= n <= 256.
+// contiguous and of one dtype (bf16: qkv and out 16-byte aligned);
+// 1 <= n <= 256. float32 on the CUDA cores, bf16 on the tensor cores.
 extern "C" int dlimg_levit_attention(const void* qkv, const void* bias, void* out,
                                      int g, int n, int nh, int kd, int dtype,
                                      float scale, void* stream) {
   if (g <= 0) return 0;
-  if (kd != dlimg::kKd || n <= 0 || nh <= 0) return cudaErrorInvalidValue;
+  if (kd != dlimg::kKd || n <= 0 || n > 256 || nh <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dlimg::kDtypeF32)
     return dlimg::dispatch_attention<float>(qkv, bias, out, g, n, nh, scale, s);
   if (dtype == dlimg::kDtypeBF16)
-    return dlimg::dispatch_attention<__nv_bfloat16>(qkv, bias, out, g, n, nh, scale, s);
+    return dlimg::levit_attention_tc(qkv, bias, out, g, n, nh, scale, s);
   return cudaErrorInvalidValue;
 }

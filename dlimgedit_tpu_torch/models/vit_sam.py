@@ -31,12 +31,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..ops.flash_attention import (
+    cached_rel_pos_index,
     flash_attention_relpos,
+    rel_pos_index,
     windowed_attention_fused,
 )
 from ..ops.fused_norm import fused_add_layer_norm, fused_layer_norm
@@ -131,6 +132,12 @@ class Block(nn.Module):
             hd = d // cfg.num_heads
             self.rel_pos_h = _param(torch.zeros(2 * size - 1, hd))
             self.rel_pos_w = _param(torch.zeros(2 * size - 1, hd))
+            # The tables' gather index, made with the model and moved with
+            # it (JAX makes it a constant of the jitted program): no host
+            # copy per call. The tables are gathered per call, so that
+            # weights written after the model is built count.
+            self.register_buffer("rel_pos_idx", rel_pos_index(size),
+                                 persistent=False)
 
 
 class Neck(nn.Module):
@@ -171,20 +178,23 @@ class SamViT(nn.Module):
 # Functions
 # ---------------------------------------------------------------------------
 
-def gather_rel_pos(table: torch.Tensor, size: int) -> torch.Tensor:
+def gather_rel_pos(table: torch.Tensor, size: int,
+                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(2*size-1, hd) raw table -> (size, size, hd) with
-    g[i, j] = table[i - j + size - 1]."""
-    idx = np.arange(size)[:, None] - np.arange(size)[None, :] + (size - 1)
-    return table[torch.from_numpy(idx).to(table.device)]
+    g[i, j] = table[i - j + size - 1]. ``idx``: a block's ``rel_pos_idx``
+    buffer; for another size (an input grid other than the configured one)
+    the index made once per (size, device)."""
+    if idx is None or idx.shape[0] != size:
+        idx = cached_rel_pos_index(size, table.device)
+    return table[idx]
 
 
-def _decomposed_rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor,
-                             rel_pos_w: torch.Tensor, h: int, w: int
+def _decomposed_rel_pos_bias(q: torch.Tensor, bp: Block, h: int, w: int
                              ) -> torch.Tensor:
     """q: (B*, nh, h*w, hd) -> the float32 bias (B*, nh, h*w, h*w) (the
     dense path)."""
-    rh = gather_rel_pos(rel_pos_h, h).to(q.dtype).float()
-    rw = gather_rel_pos(rel_pos_w, w).to(q.dtype).float()
+    rh = gather_rel_pos(bp.rel_pos_h, h, bp.rel_pos_idx).to(q.dtype).float()
+    rw = gather_rel_pos(bp.rel_pos_w, w, bp.rel_pos_idx).to(q.dtype).float()
     Bn, nh, _, hd = q.shape
     qr = q.float().reshape(Bn, nh, h, w, hd)
     bias_h = torch.einsum("bnhwc,hkc->bnhwk", qr, rh)
@@ -207,8 +217,8 @@ def _vit_attention(bp: Block, x: torch.Tensor, num_heads: int,
     qkv = qkv.reshape(Bn, h * w, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (Bn, nh, hw, hd)
     if use_flash and use_rel_pos:
-        rh = gather_rel_pos(bp.rel_pos_h, h).to(q.dtype)
-        rw = gather_rel_pos(bp.rel_pos_w, w).to(q.dtype)
+        rh = gather_rel_pos(bp.rel_pos_h, h, bp.rel_pos_idx).to(q.dtype)
+        rw = gather_rel_pos(bp.rel_pos_w, w, bp.rel_pos_idx).to(q.dtype)
         out = flash_attention_relpos(
             q.reshape(Bn * num_heads, h * w, hd),
             k.reshape(Bn * num_heads, h * w, hd),
@@ -218,8 +228,7 @@ def _vit_attention(bp: Block, x: torch.Tensor, num_heads: int,
     else:
         attn = (q.float() @ k.float().transpose(-1, -2)) * (hd ** -0.5)
         if use_rel_pos:
-            attn = attn + _decomposed_rel_pos_bias(q, bp.rel_pos_h,
-                                                   bp.rel_pos_w, h, w)
+            attn = attn + _decomposed_rel_pos_bias(q, bp, h, w)
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = (attn.float() @ v.float()).to(v.dtype)
     out = out.permute(0, 2, 1, 3).reshape(Bn, h, w, C)
@@ -279,8 +288,10 @@ def _vit_attn_branch(bp: Block, x: torch.Tensor, cfg: SamViTConfig
         qkv = linear(bp.qkv, x)  # (B, Hp, Wp, 3C)
         q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
         att = windowed_attention_fused(
-            q, k, v, gather_rel_pos(bp.rel_pos_h, window).to(q.dtype),
-            gather_rel_pos(bp.rel_pos_w, window).to(q.dtype), ws=window,
+            q, k, v,
+            gather_rel_pos(bp.rel_pos_h, window, bp.rel_pos_idx).to(q.dtype),
+            gather_rel_pos(bp.rel_pos_w, window, bp.rel_pos_idx).to(q.dtype),
+            ws=window,
             num_heads=cfg.num_heads)
         return linear(bp.proj, att[:, :H, :W, :])
     # Partition AFTER the LayerNorm: zero pad tokens give k = v = the qkv

@@ -2,14 +2,17 @@
 
 Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
-  * ``levit_window_attention`` (K2, ``csrc/levit_attention.cu``; JAX :531):
-    TinyViT's window attention with a static per-head bias;
+  * ``levit_window_attention`` (K2; JAX :531): TinyViT's window attention
+    with a static per-head bias, in bf16 on the tensor cores
+    (``csrc/levit_attention_tc.cu``), in float32 on the CUDA cores
+    (``csrc/levit_attention.cu``);
   * ``flash_attention_relpos`` (JAX :443): the SAM ViT's attention with the
     decomposed relative-position bias, routed as in JAX to
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
     for windows (N <= 256 with ``heads`` given) and to
     ``relpos_attention_global`` (K4; JAX ``_attention_grouped``, :139)
-    otherwise;
+    otherwise, and a bf16 window wider than the tensor-core K5 takes to K4
+    (``relpos_route``);
   * ``windowed_attention_qkv`` (JAX :382): windows whose q, k, v are the
     components of one (W, 3, nh, N, hd) tensor, through
     ``relpos_attention_qkv`` (K7, a third entry point beside K4 and K5;
@@ -38,22 +41,24 @@ work outside the kernels, as in JAX (``_bias_halves``); K6 computes them.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..errors import DlimgError
 from .cuda_build import DTYPE_CODES, LIBRARY, check_launch
 
-# The K2 kernel's head width and largest window (csrc/levit_attention.cu).
+# The K2 kernels' head width and largest window (csrc/levit_attention.cu,
+# csrc/levit_attention_tc.cu).
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_TOKENS = 256
 # Head widths K4, K5, K6 and K7 are instantiated for:
 # SAM ViT-B/L (64) and ViT-H (80).
 KERNEL_HEAD_DIMS = (64, 80)
 # The largest window side the bf16 K5 and K7 take (csrc/relpos_attention_tc.cu
-# kBiasSide: 16 bias columns a half, score rows of up to 256 keys).
+# kBiasSide: 16 bias columns a half, score rows of up to 256 keys); the
+# routers send wider bf16 windows to K4.
 WINDOW_MAX_SIDE = 16
 # The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN, 13
 # keys a lane; the bf16 instances of csrc/relpos_attention_tc.cu, score
@@ -117,13 +122,17 @@ def levit_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     qkv: (G, N, nh * 3 * kd), the qkv linear's output per window;
     bias: (nh, N, N), the gathered attention-bias table. Returns
     (G, N, nh * kd). CUDA tensors go through the K2 kernel (and count one
-    launch in ``levit_window_attention.launches``)."""
+    launch in ``levit_window_attention.launches``); the bf16 kernel reads
+    qkv in 16-byte chunks, so a view that does not start on 16 bytes is
+    cloned."""
     kd = _check(qkv, bias, num_heads)
     if qkv.device.type == "cpu":
         return levit_window_attention_plain(qkv, bias, num_heads)
     if not qkv.is_cuda:
         raise DlimgError(f"levit_window_attention: unsupported device "
                          f"{qkv.device}")
+    if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
+        qkv = qkv.clone()
     G, N, _ = qkv.shape
     out = torch.empty((G, N, num_heads * kd), dtype=qkv.dtype,
                       device=qkv.device)
@@ -144,14 +153,26 @@ levit_window_attention.launches = 0
 # Rel-pos attention of the SAM ViT encoders (K4, K5)
 # ---------------------------------------------------------------------------
 
+def rel_pos_index(size: int, device=None) -> torch.Tensor:
+    """The (size, size) int64 gather index of a raw (2*size-1, hd) rel-pos
+    table, idx[i, j] = i - j + size - 1, made on ``device`` (JAX makes it a
+    constant of the jitted program; made here, it needs no host copy)."""
+    r = torch.arange(size, device=device)
+    return r[:, None] - r[None, :] + (size - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def cached_rel_pos_index(size: int, device: torch.device) -> torch.Tensor:
+    """``rel_pos_index`` made once per (size, device)."""
+    return rel_pos_index(size, device)
+
+
 def _gathered_tables(rh: torch.Tensor, rw: torch.Tensor, grid_h: int,
                      grid_w: int, dtype: torch.dtype):
     """Raw (2*g-1, hd) tables -> gathered (g, g, hd) with
     rh_g[yi, yj] = rh[yi - yj + gh - 1]; likewise rw along x."""
-    idx_h = np.arange(grid_h)[:, None] - np.arange(grid_h)[None, :] + grid_h - 1
-    idx_w = np.arange(grid_w)[:, None] - np.arange(grid_w)[None, :] + grid_w - 1
-    rh_g = rh[torch.from_numpy(idx_h).to(rh.device)]
-    rw_g = rw[torch.from_numpy(idx_w).to(rw.device)]
+    rh_g = rh[cached_rel_pos_index(grid_h, rh.device)]
+    rw_g = rw[cached_rel_pos_index(grid_w, rw.device)]
     return rh_g.to(dtype), rw_g.to(dtype)
 
 
@@ -318,6 +339,29 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
 relpos_attention_windowed.launches = 0
 
 
+def _jax_window(G: int, N: int, heads: Optional[int]) -> bool:
+    """JAX's condition for its windowed kernel (flash_attention.py:464)."""
+    return heads is not None and N <= 256 and G % heads == 0
+
+
+def _window_fits(dtype: torch.dtype, grid_h: int, grid_w: int) -> bool:
+    """Whether K5 / K7 take a window of this grid: the bf16 (tensor-core)
+    body takes sides of at most WINDOW_MAX_SIDE, float32 any."""
+    return dtype != torch.bfloat16 or max(grid_h, grid_w) <= WINDOW_MAX_SIDE
+
+
+def relpos_route(dtype: torch.dtype, G: int, grid_h: int, grid_w: int,
+                 heads: Optional[int]) -> str:
+    """The kernel ``flash_attention_relpos`` runs on G groups of a
+    grid_h x grid_w grid: "windowed" (K5) where JAX routes to its windowed
+    kernel and the window fits K5, else "global" (K4; its general bias path
+    for a bf16 window with a side above WINDOW_MAX_SIDE)."""
+    if (_jax_window(G, grid_h * grid_w, heads)
+            and _window_fits(dtype, grid_h, grid_w)):
+        return "windowed"
+    return "global"
+
+
 def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            rh: torch.Tensor, rw: torch.Tensor, *, grid_h: int,
                            grid_w: int, heads: Optional[int] = None,
@@ -329,21 +373,30 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (groups are windows * heads, head fastest) and N <= 256 the windowed
     kernel K5 runs, with the folded bias when hd + gh + gw <= 128 and the
     pad-query skip given by n_w / valid_rows; otherwise the global kernel
-    K4. The routing is JAX's (flash_attention.py:464)."""
+    K4. The routing is JAX's (flash_attention.py:464), except that a bf16
+    window with a side above WINDOW_MAX_SIDE goes to K4 (``relpos_route``):
+    there the bias is unfolded (at hd 64 the scale 1/8 is a power of two,
+    so both forms round alike) and the skipped pad-query rows are zeroed
+    afterwards, as JAX's windowed kernel leaves them."""
     G, N, hd = q.shape
     if rh.dim() == 2:
         rh_g, rw_g = _gathered_tables(rh, rw, grid_h, grid_w, q.dtype)
     else:
         rh_g, rw_g = rh.to(q.dtype), rw.to(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if heads is not None and N <= 256 and G % heads == 0:
+    if relpos_route(q.dtype, G, grid_h, grid_w, heads) == "windowed":
         folded = hd + grid_h + grid_w <= 128
         bhw = _bias_halves(q, rh_g, rw_g, grid_h, grid_w,
                            out_scale=1.0 / hd ** -0.5 if folded else 1.0)
         return relpos_attention_windowed(q, k, v, bhw, grid_h, grid_w, heads,
                                          folded, n_w, valid_rows)
     bhw = _bias_halves(q, rh_g, rw_g, grid_h, grid_w)
-    return relpos_attention_global(q, k, v, bhw, grid_h, grid_w)
+    out = relpos_attention_global(q, k, v, bhw, grid_h, grid_w)
+    if _jax_window(G, N, heads):
+        g_skip, n_valid = _skip_rows(G, N, grid_h, grid_w, heads, n_w,
+                                     valid_rows)
+        out[g_skip:, n_valid:] = 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +468,9 @@ def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
     qkv: (W, 3, nh, N, hd) window-major; rh / rw raw (2*g-1, hd) or
     gathered (g, g, hd) tables. Returns (W, nh, N, hd). The bias halves
     come from the q component, unscaled, outside the kernel (JAX :413-417);
-    the attention is ``relpos_attention_qkv`` (K7)."""
+    the attention is ``relpos_attention_qkv`` (K7), or for a bf16 window
+    with a side above WINDOW_MAX_SIDE K4's general bias path on the copied
+    q, k, v components (the same function)."""
     W, _, nh, N, hd = qkv.shape
     if rh.dim() == 2:
         rh_g, rw_g = _gathered_tables(rh, rw, grid_h, grid_w, qkv.dtype)
@@ -423,6 +478,10 @@ def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
         rh_g, rw_g = rh.to(qkv.dtype), rw.to(qkv.dtype)
     bhw = _bias_halves(qkv[:, 0].reshape(W * nh, N, hd), rh_g, rw_g, grid_h,
                        grid_w)
+    if not _window_fits(qkv.dtype, grid_h, grid_w):
+        q, k, v = (qkv[:, c].reshape(W * nh, N, hd) for c in range(3))
+        return relpos_attention_global(q, k, v, bhw, grid_h, grid_w).reshape(
+            W, nh, N, hd)
     return relpos_attention_qkv(qkv, bhw, grid_h, grid_w)
 
 

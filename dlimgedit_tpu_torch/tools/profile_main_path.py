@@ -16,7 +16,9 @@ with torch.profiler (CPU and CUDA activities). For each it prints:
   * idle share: 1 - busy / wall (time the device waits for the host);
   * device time by layer (the port's kernels K1-K7, convolutions,
     matrix products, elementwise, reductions, copies, other) and the top
-    kernels by device time.
+    kernels by device time;
+  * the host-to-device copies per call (count and device ms): a pageable
+    copy waits for the work queued before it.
 The Chrome traces go to DIR. Needs CUDA.
 """
 
@@ -40,7 +42,8 @@ import dlimgedit_tpu_torch as dl
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("K3 fused_add_layer_norm", ("add_layer_norm_kernel<",)),
     ("K1 fused_layer_norm", ("layer_norm_kernel<",)),
-    ("K2 levit_window_attention", ("levit_attention_kernel",)),
+    ("K2 levit_window_attention", ("levit_attention_kernel",
+                                   "levit_window_kernel_tc")),
     ("K4 relpos_attention_global", ("relpos_global_kernel",)),
     ("K5 relpos_attention_windowed", ("relpos_window_kernel",)),
     ("K6 windowed_attention_fused", ("window_strip_attention_kernel",
@@ -87,6 +90,7 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
             walls.append((time.perf_counter() - t) * 1e3)
     prof.export_chrome_trace(str(out_dir / f"{label}.json"))
     intervals, by_layer, by_kernel = [], defaultdict(float), defaultdict(list)
+    h2d = []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -95,6 +99,8 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
         us = end - start
         by_layer[_layer(ev.name)] += us
         by_kernel[ev.name].append(us)
+        if "htod" in ev.name.lower():
+            h2d.append(us)
     if not intervals:
         sys.exit(f"{label}: the profiler recorded no device activity")
     busy = _union_ms(intervals) / calls
@@ -104,6 +110,8 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
           f"{1 - busy / (sum(walls) / calls):.3f}")
     for layer, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
         print(f"  {layer:<28} {us / 1e3 / calls:8.4f} ms per call")
+    print(f"  host-to-device copies: {len(h2d) / calls:.1f} per call, "
+          f"{sum(h2d) / 1e3 / calls:.4f} ms per call")
     print("  top kernels (ms per call, launches per call):")
     top = sorted(by_kernel.items(), key=lambda kv: -sum(kv[1]))[:12]
     for name, us in top:

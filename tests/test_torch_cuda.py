@@ -11,6 +11,11 @@ Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
 bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit, and K8
 (the gather probe) its plain version: both sum in the same order.
 
+K2's large-bias case (bias of scale 4, bf16) fails at 2e-2 if the bias is
+added before the scale (max |diff| ~3) or the biased score is rounded to
+bf16 (~0.045), both checked on the CPU against such variants of the plain
+version.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -26,6 +31,7 @@ from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
     attention_relpos_plain,
+    flash_attention_relpos,
     levit_window_attention,
     levit_window_attention_plain,
     relpos_attention_global,
@@ -33,6 +39,7 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     relpos_attention_windowed,
     windowed_attention_fused,
     windowed_attention_fused_plain,
+    windowed_attention_qkv,
     windowed_attention_qkv_plain,
 )
 from dlimgedit_tpu_torch.ops.fused_norm import (
@@ -93,6 +100,46 @@ def test_levit_attention_kernel_matches_plain(dev, G, N, nh, dtype):
     want = levit_window_attention_plain(qkv, bias, nh)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 17, 48, 49, 64, 65, 196, 208, 256])
+def test_levit_attention_kernel_every_window_size(dev, N, dtype):
+    """bf16 K2 on the tensor cores (instances of 64, 208 and 256 keys; N
+    above 64 splits a (window, head) group's 16-row stripes over blocks of
+    4) and float32 K2 on the CUDA cores; qkv a view that starts 16 bytes
+    into its storage and, for bf16, one that does not start on 16 bytes."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    G, nh = 3, 2
+    base = torch.randn((G * N * nh * 96 + 8,), generator=g, device=dev).to(dtype)
+    bias = (0.5 * torch.randn((nh, N, N), generator=g, device=dev)).to(dtype)
+    views = [base[16 // base.element_size():][:G * N * nh * 96]]
+    if dtype == torch.bfloat16:
+        views.append(base[1:][:G * N * nh * 96])
+    for flat in views:
+        qkv = flat.view(G, N, nh * 96)
+        before = levit_window_attention.launches
+        got = levit_window_attention(qkv, bias, nh)
+        torch.cuda.synchronize()
+        assert levit_window_attention.launches == before + 1
+        want = levit_window_attention_plain(qkv, bias, nh)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype][1], rtol=0)
+
+
+@pytest.mark.parametrize("N", [49, 196])
+def test_levit_attention_kernel_large_bias(dev, N):
+    """bf16, bias of scale 4: the bias must be added after the scale and
+    the score kept in float32 (see the module note)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    G, nh = 8, 2
+    qkv = torch.randn((G, N, nh * 96), generator=g, device=dev).to(torch.bfloat16)
+    bias = (4.0 * torch.randn((nh, N, N), generator=g, device=dev)).to(torch.bfloat16)
+    got = levit_window_attention(qkv, bias, nh)
+    torch.cuda.synchronize()
+    want = levit_window_attention_plain(qkv, bias, nh)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16][1], rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -177,6 +224,39 @@ def test_relpos_windowed_kernel_wide_windows(dev, ws, hd, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
                                rtol=0)
     assert not got[-2:, 5 * ws:].any()
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_wide_bf16_windows_route_to_the_global_kernel(dev, hd):
+    """A bf16 8 x 32 window (a side above the tensor-core K5's 16) goes
+    through K4 from both routers and matches the same call on the CPU (the
+    plain versions), with the skipped pad-query rows zero."""
+    gh, gw, heads, W = 8, 32, 2, 3
+    q, k, v, _ = _relpos_inputs(dev, W * heads, gh, gw, hd, torch.bfloat16,
+                                1.0, 12)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rh = (0.3 * torch.randn((2 * gh - 1, hd), generator=g, device=dev)).to(torch.bfloat16)
+    rw = (0.3 * torch.randn((2 * gw - 1, hd), generator=g, device=dev)).to(torch.bfloat16)
+    counts = (relpos_attention_global.launches,
+              relpos_attention_windowed.launches, relpos_attention_qkv.launches)
+    got = flash_attention_relpos(q, k, v, rh, rw, grid_h=gh, grid_w=gw,
+                                 heads=heads, n_w=1, valid_rows=5)
+    qkv = torch.stack([t.view(W, heads, gh * gw, hd) for t in (q, k, v)], 1)
+    got_qkv = windowed_attention_qkv(qkv, rh, rw, grid_h=gh, grid_w=gw)
+    torch.cuda.synchronize()
+    assert (relpos_attention_global.launches,
+            relpos_attention_windowed.launches,
+            relpos_attention_qkv.launches) == (counts[0] + 2, *counts[1:])
+    cpu = [t.cpu() for t in (q, k, v, rh, rw)]
+    want = flash_attention_relpos(*cpu, grid_h=gh, grid_w=gw, heads=heads,
+                                  n_w=1, valid_rows=5)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=TOL[torch.bfloat16][1], rtol=0)
+    assert not got[-heads:, 5 * gw:].any()
+    want_qkv = windowed_attention_qkv(qkv.cpu(), cpu[3], cpu[4], grid_h=gh,
+                                      grid_w=gw)
+    torch.testing.assert_close(got_qkv.cpu().float(), want_qkv.float(),
+                               atol=TOL[torch.bfloat16][1], rtol=0)
 
 
 def test_kernels_raise_instead_of_falling_back(dev):
@@ -329,7 +409,9 @@ def test_new_kernels_raise_instead_of_falling_back(dev):
     qkv = torch.zeros(2, 3, 2, 49, 32, device=dev)  # head width 32: no K7
     with pytest.raises(DlimgError):
         relpos_attention_qkv(qkv, torch.zeros(4, 49, 14, device=dev), 7, 7)
-    # bf16 windows with a side above 16 (the tensor-core body's bias columns)
+    # bf16 windows with a side above 16 (the tensor-core body's bias
+    # columns): the low-level wrappers refuse them; flash_attention_relpos
+    # and windowed_attention_qkv route them to K4 (see above)
     qkv = torch.zeros(2, 3, 2, 8 * 32, 64, device=dev, dtype=torch.bfloat16)
     bhw = torch.zeros(4, 8 * 32, 40, device=dev, dtype=torch.bfloat16)
     with pytest.raises(DlimgError):

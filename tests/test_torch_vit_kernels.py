@@ -5,7 +5,9 @@ kernels, run in interpret mode on the CPU: K1 at the ViT widths, K3
 windowed, folded and unfolded bias, pad-query skip; K4: grouped, at N = 400
 and N = 1024, the two JAX query blockings). On CPU tensors the wrappers
 compute their plain versions; the CUDA kernels are held against those on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+the card (tests/test_torch_cuda.py, chip_smoke.py). A bf16 window with a
+side above 16 (8 x 32 here) is routed to K4 where JAX takes its windowed
+kernel; ``test_relpos_route`` holds that decision.
 
 Tolerances: float32 atol 1e-5 (LayerNorm) and 2e-5 (attention), the
 summation-order noise of float32 reductions; bfloat16 atol 2e-2, a bit more
@@ -37,6 +39,7 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     flash_attention_relpos,
     relpos_attention_global,
     relpos_attention_windowed,
+    relpos_route,
 )
 from dlimgedit_tpu_torch.ops.fused_norm import (
     fused_add_layer_norm,
@@ -133,6 +136,11 @@ RELPOS_CASES = {
     # grouped, N = 1024: JAX's 128-row query blocks
     "global_n1024_hd80": (2, 32, 32, 80, None, None, None),
     "global_n1024": (2, 32, 32, 64, None, None, None),
+    # an 8 x 32 window (N = 256, folded: 64 + 40 <= 128) with the skip: JAX's
+    # windowed kernel; in bf16 the port routes it to K4 (a side above 16),
+    # unfolded, and zeroes the skipped rows. At hd 64 the scale is 1/8, so
+    # the folded and unfolded forms round alike.
+    "window_8x32_skip": (2 * 2, 8, 32, 64, 2, 1, 5),
 }
 
 
@@ -155,6 +163,17 @@ def test_flash_attention_relpos_matches_pallas(case, dtype):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(_f32(got), _f32(want), atol=ATTN_ATOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype,grid,route", [
+    (torch.bfloat16, (8, 32), "global"),     # a side above 16: K4
+    (torch.bfloat16, (17, 17), "global"),    # N = 289 > 256: K4, as in JAX
+    (torch.bfloat16, (14, 14), "windowed"),  # SAM's windows: K5
+    (torch.float32, (8, 32), "windowed"),    # the float32 K5 takes any side
+])
+def test_relpos_route(dtype, grid, route):
+    assert relpos_route(dtype, 2 * 3, *grid, heads=3) == route
+    assert relpos_route(dtype, 2 * 3, *grid, heads=None) == "global"
 
 
 def test_pad_query_skip_keeps_valid_rows_and_zeroes_the_rest():

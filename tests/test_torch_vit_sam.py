@@ -145,6 +145,48 @@ def test_sam_vit_fused_window_blocks_matches_jax(geometry, flash):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("path", ["kernel", "dense", "fused_window"])
+def test_vit_forward_copies_no_index_from_the_host(path, monkeypatch):
+    """The rel-pos gather index is a buffer of each block, made with the
+    model: after a warm call, a forward runs with ``torch.from_numpy``
+    raising (a per-call index built with numpy and copied to the device
+    would call it)."""
+    cfg = dataclasses.replace(_narrow(vit_sam, 128, 256),
+                              use_flash_attention=path == "kernel",
+                              fused_window_blocks=path == "fused_window")
+    model = vit_sam.SamViT(cfg)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 256, 256, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = model(x)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("torch.from_numpy in a ViT forward")
+
+        monkeypatch.setattr(torch, "from_numpy", refuse)
+        got = model(x)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert not any(k.endswith("rel_pos_idx") for k in model.state_dict())
+
+
+@pytest.mark.parametrize("size", [7, 14, 64])
+def test_rel_pos_index_buffers_gather_like_jax(size):
+    """A block's index buffer (window 7 or 14, or the global grid 64)
+    gathers a raw table as JAX ``gather_rel_pos`` does."""
+    window = 0 if size == 64 else size
+    cfg = vit_sam.SamViTConfig(img_size=16 * size, embed_dim=128, depth=1,
+                               num_heads=2, window_size=window or 14,
+                               global_attn_indexes=(0,) if window == 0 else ())
+    block = vit_sam.Block(cfg, window, torch.Generator().manual_seed(0))
+    assert tuple(block.rel_pos_idx.shape) == (size, size)
+    table = np.random.default_rng(size).standard_normal(
+        (2 * size - 1, 64)).astype(np.float32)
+    want = np.asarray(jax_vit.gather_rel_pos(jnp.asarray(table), size))
+    got = vit_sam.gather_rel_pos(torch.from_numpy(table), size,
+                                 block.rel_pos_idx)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("variant", ["vit_b", "vit_l", "vit_h"])
 def test_vit_presets_match_jax(variant):
     got = sam.make_config(variant, 512)
