@@ -65,8 +65,16 @@ printing its seconds:
      path: `process` on a 1024x768 and a 1500x1000 image (canvas buckets
      1024 and 2048), and per image `compute_mask(Point)`,
      `compute_mask(Region)` with largest_region_object, `compute_masks` and
-     `compute_mask_batch` of 4 prompts. The launch counters are zeroed just
-     before each path and read just after. Per `process`: MobileSAM 22 K1
+     `compute_mask_batch` of 4 prompts, in three rounds: every executable
+     is a CUDA graph (Environment.executable; a decode with
+     largest_component two, the labelling eager between them), so round
+     1 warms each key up eagerly and captures it, rounds 2 and 3 replay. After each image
+     of each round every graph, replayed on its last inputs, must equal
+     its eager program (`.eager`) on the same inputs bit for bit, and
+     rounds 2 and 3 must give round 1's embeddings and masks. The launch
+     counters are zeroed before each round and read after it (a replay
+     adds the launches its capture recorded); the counted main-path run
+     is round 2, replays only. Per `process`: MobileSAM 22 K1
      and 10 K2 launches; a ViT of depth d 1 K1 (block 0's norm1), 2d - 1 K3
      (every other block LayerNorm), 4 K4 (the global blocks) and d - 4 K5
      (the windowed blocks, one launch each): 23 K3 and 8 K5 for ViT-B, 47
@@ -77,18 +85,30 @@ printing its seconds:
      {0, 255} at the original extent. The embedding is held against the
      plain path (kernels off): in float32 within relative L2 1e-5; in bf16
      its relative L2 distance to the float32 result may be at most 1.1x the
-     bf16 plain path's (the two bf16 paths round independently);
+     bf16 plain path's (the two bf16 paths round independently). It
+     prints each path's device memory (max_memory_allocated above what
+     was resident before the path). On MobileSAM: `process` A, then B in
+     A's canvas bucket, then a click on A: A's embedding and mask must
+     be unchanged;
   5. runs the gather probe (dlimgedit_tpu_torch.tools.probe_smem_gather)
      at small reps: K8 against its plain version and torch's gathers from
      device memory, printed;
-  6. times `process` and one mask query per path (medians, host clock
-     around work that ends in a device synchronise).
+  6. times `process` and one mask query per path and image, graphed and
+     eager (the same entry points with each executable's `graphed` set
+     False, so its eager program runs), medians of 20, host clock around
+     work that ends in a device synchronise, with the device memory each
+     mode allocates while timed; and, on a MobileSAM region click with
+     largest_component, the eager early-exit labelling between two graphs
+     (the port) against the fixed 64 sweeps inside the decode's graph
+     (estimated: the graphed decode without labelling plus a graph of the
+     64 sweeps on its masks, which must label alike).
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
 timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
 `bound_ms` in the JSON are sums over the launches it made on the main
-paths (its `launches`: both images' `process` calls of each path). For K7
+paths (its `launches`: both images' `process` calls of each path in round
+2, all replays). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table).
@@ -161,6 +181,8 @@ PROBE_SHAPE, PROBE_REPS = (4096, 128), (8, 16)
 
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
+# Rounds of phase 4 over the images: warm-up and capture, then replays.
+ROUNDS = 3
 
 # The shortest spin kernel run ahead of timed launches (about 20 ms at the
 # H100's clocks; its device time is measured once, in `spin_ms`; longer for
@@ -694,14 +716,127 @@ def queries(dl, seg):
     return out
 
 
+def hold_replays_against_eager(torch, env, label) -> None:
+    """Every CUDA graph of `env`, replayed on its last call's inputs, must
+    equal its eager program on the same inputs bit for bit (the same
+    kernels in the same order). The comparison's launches are not
+    counted."""
+    for key, exe in env.executables.items():
+        if not exe.graphed:
+            fail(f"{label}: executable {key} is not a CUDA graph")
+        got, want = exe.replay_against_eager()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                err = (g.float() - w.float()).abs().max().item()
+                fail(f"{label}: {key} replayed differs from eager, "
+                     f"max|diff| {err}")
+
+
+def check_no_aliasing(torch, np, dl, env, images, segs) -> None:
+    """`process` B in the bucket of an earlier Segmentation A, then a click
+    on A: A's embedding and mask are still A's (a replay overwrites the
+    graph's static output; the embedding handed out is a clone)."""
+    a = segs[0]
+    w, h, _ = IMAGES[0]
+    point = dl.Point(w // 2, h // 2)
+    emb, mask = a.embedding.clone(), a.compute_mask(point).pixels
+    b = dl.Segmentation.process(
+        dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 3)), env)
+    if torch.equal(b.embedding, emb):
+        fail("aliasing check: images A and B embed alike")
+    if not torch.equal(a.embedding, emb):
+        fail("aliasing check: processing B changed A's embedding")
+    if not np.array_equal(a.compute_mask(point).pixels, mask):
+        fail("aliasing check: A's mask changed after processing B")
+    print(f"aliasing check passed: process A, process B in A's bucket, "
+          f"click on A", flush=True)
+
+
+def lcc_options(torch, dl, run, host_ms) -> None:
+    """A region click with largest_component on MobileSAM's first image,
+    two ways of labelling in a graphed decode: (b) the eager early-exit
+    labelling between two graphs (what the port runs), and (a) the fixed
+    64 sweeps captured in the decode's graph, estimated as the graphed
+    decode without labelling plus a graph of the 64 sweeps (and the
+    selection of the largest component) on the same decoder masks."""
+    from dlimgedit_tpu_torch.models import sam as sam_lib
+    from dlimgedit_tpu_torch.ops import connected
+
+    env, images, segs, _ = run
+    seg, ext = segs[0], images[0].extent
+    region = dl.Region(dl.Point(ext.width // 8, ext.height // 8),
+                       dl.Point(ext.width * 7 // 8, ext.height * 7 // 8))
+    b_ms = host_ms(lambda: seg.compute_mask(region, largest_component=True))
+    plain_ms = host_ms(lambda: seg.compute_mask(region,
+                                                largest_component=False))
+    bundle = env.sam_model("mobile_sam")
+    points, labels = seg._prompt_arrays(None, region)
+    dev = env.device
+
+    def fixed_sweeps(mask):  # option (a)'s labelling: no host read
+        B, H, W = mask.shape
+        ids = torch.arange(1, H * W + 1, device=dev).reshape(1, H, W)
+        lab, fg = torch.where(mask, ids, 0), mask.reshape(B, H * W)
+        for _ in range(64):
+            lab = connected._sweep(lab, mask, fg)
+        sizes = torch.zeros((B, H * W + 1), dtype=torch.int64, device=dev)
+        sizes.scatter_add_(1, lab.reshape(B, H * W), fg.to(torch.int64))
+        sizes[:, 0].fill_(0)  # a fill: a scalar store would copy from the host
+        return (lab == torch.argmax(sizes, dim=1)[:, None, None]) & mask
+
+    with torch.inference_mode():
+        masks, _ = sam_lib.decode_masks(
+            bundle.model, bundle.cfg, seg.embedding,
+            torch.from_numpy(points).to(dev), torch.from_numpy(labels).to(dev),
+            multimask=False)
+        mask = masks[:, 0] > 0
+        sweeps = [0]
+        sweep = connected._sweep
+
+        def counted(*args):
+            sweeps[0] += 1
+            return sweep(*args)
+
+        connected._sweep = counted
+        try:
+            want = connected.largest_component_mask(mask)
+        finally:
+            connected._sweep = sweep
+        label_ms = host_ms(lambda: connected.largest_component_mask(mask))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fixed_sweeps(mask)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = fixed_sweeps(mask)
+        fixed_ms = host_ms(graph.replay)
+        if not torch.equal(got, want):
+            fail("the 64 fixed sweeps disagree with the early-exit labelling")
+    print(f"largest_component on a MobileSAM region click ({ext.width}x"
+          f"{ext.height}), mask_ms: (b) eager labelling between two graphs "
+          f"(the port) {b_ms:.3f}; graphed decode without labelling "
+          f"{plain_ms:.3f}; the eager early-exit labelling alone {label_ms:.3f} "
+          f"({sweeps[0]} sweeps); a graph of the fixed 64 sweeps alone "
+          f"{fixed_ms:.3f} (equal to the early exit); (a) estimated "
+          f"{plain_ms + fixed_ms:.3f}", flush=True)
+
+
 def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
                     fused=False):
     """Phase 4 for one variant (with ``fused``, its bundle's
     fused_window_blocks set): process + the four mask entry points on both
     images; launch counts checked; the embedding held against the plain
-    path. Returns (env, images, segs, launches)."""
+    path. Returns (env, images, segs, launches of round 2, (peak
+    allocated, allocated, reserved) device bytes of the path's model and
+    graphed rounds))."""
     t0 = time.perf_counter()
     label = f"{variant}{' fused-window' if fused else ''}"
+    torch.cuda.empty_cache()  # reserved = allocated, before the path
+    base_mem = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
     env = dl.Environment(dl.Options(allow_random_weights=True,
                                     largest_region_object=True,
                                     sam_variant=variant))
@@ -722,32 +857,63 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     images = [dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, s))
               for (w, h, s) in IMAGES]
 
-    zero_counters()
-    segs = []
-    for img in images:
-        seg = dl.Segmentation.process(img, env)
-        masks = queries(dl, seg)
-        torch.cuda.synchronize()
-        segs.append(seg)
-        emb = seg.embedding
-        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
-            fail(f"{label}: bad embedding {tuple(emb.shape)}")
-        for m in masks:
-            px = m.pixels
-            if px.shape != (img.extent.height, img.extent.width, 1):
-                fail(f"mask shape {px.shape} != extent {img.extent}")
-            if not set(np.unique(px).tolist()) <= {0, 255}:
-                fail("mask is not binary {0, 255}")
-        print(f"{label} image {img.extent.width}x{img.extent.height}: "
-              f"embedding {tuple(emb.shape)}, {len(masks)} masks, foreground "
-              f"shares {[round(float((m.pixels > 0).mean()), 3) for m in masks]}",
-              flush=True)
-    launches = counters()
-    print(f"{label} main-path launches over {len(images)} process calls: "
-          f"{launches}")
-    want = {k: want.get(k, 0) * len(images) for k in launches}
-    if launches != want:
-        fail(f"{label}: kernel launches {launches} != {want}")
+    # Three rounds over both images, each `process` and the four mask
+    # queries: round 1 warms each key up (its eager launches count) and
+    # captures its CUDA graph, rounds 2 and 3 replay. Each round's launches
+    # are checked; the counted main-path run is round 2 (replays only).
+    segs, first_masks, launches = [None] * len(images), [None] * len(images), None
+    for rnd in range(ROUNDS):
+        zero_counters()
+        for i, img in enumerate(images):
+            seg = dl.Segmentation.process(img, env)
+            masks = queries(dl, seg)
+            torch.cuda.synchronize()
+            emb = seg.embedding
+            if rnd == 0:
+                segs[i], first_masks[i] = seg, masks
+                if (tuple(emb.shape) != (1, 64, 64, 256)
+                        or not bool(torch.isfinite(emb).all())):
+                    fail(f"{label}: bad embedding {tuple(emb.shape)}")
+                for m in masks:
+                    px = m.pixels
+                    if px.shape != (img.extent.height, img.extent.width, 1):
+                        fail(f"mask shape {px.shape} != extent {img.extent}")
+                    if not set(np.unique(px).tolist()) <= {0, 255}:
+                        fail("mask is not binary {0, 255}")
+                print(f"{label} image {img.extent.width}x{img.extent.height}: "
+                      f"embedding {tuple(emb.shape)}, {len(masks)} masks, "
+                      f"foreground shares "
+                      f"{[round(float((m.pixels > 0).mean()), 3) for m in masks]}",
+                      flush=True)
+            else:
+                if not torch.equal(emb, segs[i].embedding):
+                    fail(f"{label} round {rnd + 1}: the replayed embedding "
+                         f"differs from round 1's")
+                if not all(np.array_equal(m.pixels, f.pixels)
+                           for m, f in zip(masks, first_masks[i])):
+                    fail(f"{label} round {rnd + 1}: a replayed mask differs "
+                         f"from round 1's")
+            hold_replays_against_eager(torch, env, f"{label} round {rnd + 1}")
+        counts = counters()
+        if rnd == 1:
+            launches = counts
+        print(f"{label} round {rnd + 1} ({'warm-up and capture' if rnd == 0 else 'replays'}) "
+              f"launches over {len(images)} process calls: {counts}", flush=True)
+        expect = {k: want.get(k, 0) * len(images) for k in counts}
+        if counts != expect:
+            fail(f"{label} round {rnd + 1}: kernel launches {counts} != {expect}")
+    memory = (torch.cuda.max_memory_allocated() - base_mem,
+              torch.cuda.memory_allocated() - base_mem,
+              torch.cuda.memory_reserved() - base_reserved)
+    captured = sum(e.captured for e in env.executables.values())
+    print(f"{label}: {captured} executables captured, each replayed output "
+          f"bit-equal to "
+          f"its eager program; device memory of the path (above what the "
+          f"earlier paths left): max_memory_allocated {memory[0] / 2**30:.3f} "
+          f"GiB, allocated after {memory[1] / 2**30:.3f} GiB (weights, "
+          f"static buffers, embeddings), reserved after "
+          f"{memory[2] / 2**30:.3f} GiB (the graphs' memory pools too)",
+          flush=True)
 
     # The same model with the kernels switched off (the plain PyTorch path on
     # the card: for the ViT the dense path, fused_window_blocks off too), and
@@ -800,7 +966,7 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     del plain_env, f32_plain_env, f32_kernel_env
     torch.cuda.empty_cache()
     print(f"phase 4 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
-    return env, images, segs, launches
+    return env, images, segs, launches, memory
 
 
 def main() -> int:
@@ -908,10 +1074,12 @@ def main() -> int:
             ("vit_b", VIT_FUSED_PER_PROCESS, True),
             ("vit_l", vit_per_process(24), False),
             ("vit_h", vit_per_process(32), False)):
-        env, images, segs, counts = drive_main_path(
+        env, images, segs, counts, memory = drive_main_path(
             torch, np, dl, variant, counters, zero_counters, want, fused)
-        runs[f"{variant}{' fused-window' if fused else ''}"] = (env, images,
-                                                                 segs)
+        if variant == "mobile_sam":
+            check_no_aliasing(torch, np, dl, env, images, segs)
+        runs[f"{variant}{' fused-window' if fused else ''}"] = (
+            env, images, segs, memory)
         for name, n in counts.items():
             launches[name] += n
 
@@ -934,14 +1102,33 @@ def main() -> int:
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
 
-    for variant, (env, images, segs) in runs.items():
+    def set_graphed(env, on: bool) -> None:
+        """Run the path's executables as CUDA graphs, or their eager
+        programs through the same entry points."""
+        for exe in env.executables.values():
+            exe.graphed = on
+
+    for variant, (env, images, segs, memory) in runs.items():
         for img, seg in zip(images, segs):
-            p_ms = host_ms(lambda: dl.Segmentation.process(img, env))
             c = dl.Point(img.extent.width // 2, img.extent.height // 2)
-            m_ms = host_ms(lambda: seg.compute_mask(c))
+            ms = {}
+            for mode in ("graphed", "eager"):
+                set_graphed(env, mode == "graphed")
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                ms[mode] = (host_ms(lambda: dl.Segmentation.process(img, env)),
+                            host_ms(lambda: seg.compute_mask(c)),
+                            (torch.cuda.max_memory_allocated() - resident) / 2**20)
+            set_graphed(env, True)
+            (gp, gm, gpk), (ep, em, epk) = ms["graphed"], ms["eager"]
             print(f"e2e {variant} {img.extent.width}x{img.extent.height} on "
-                  f"{gpu_line}: process_ms={p_ms:.3f} mask_ms={m_ms:.3f} "
-                  f"(medians of 20)", flush=True)
+                  f"{gpu_line}: process_ms graphed={gp:.3f} eager={ep:.3f}; "
+                  f"mask_ms graphed={gm:.3f} eager={em:.3f} (medians of 20); "
+                  f"transient device memory while timed: graphed {gpk:.1f} "
+                  f"MiB, eager {epk:.1f} MiB; the path's max_memory_allocated "
+                  f"in phase 4 {memory[0] / 2**30:.3f} GiB, "
+                  f"{memory[2] / 2**30:.3f} GiB left reserved", flush=True)
+    lcc_options(torch, dl, runs["mobile_sam"], host_ms)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []

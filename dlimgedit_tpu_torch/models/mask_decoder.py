@@ -236,9 +236,10 @@ def select_single_mask(masks: torch.Tensor, iou_pred: torch.Tensor,
                        num_points: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """ONNX-export `select_masks`: penalise the single-click token (index 0)
     unless >= 3 points were given, then take the argmax-IoU mask."""
-    penalty = torch.zeros(masks.shape[1], dtype=torch.float32,
-                          device=masks.device)
-    penalty[0] = 1000.0
+    # 1000 on token 0, made on the device (a scalar store into a device
+    # tensor is a host copy, which a CUDA graph capture refuses).
+    token = torch.arange(masks.shape[1], device=masks.device)
+    penalty = (token == 0).to(torch.float32) * 1000.0
     score = iou_pred + (num_points - 2.5) * penalty
     best = torch.argmax(score, dim=1)
     b = torch.arange(masks.shape[0], device=masks.device)

@@ -12,7 +12,8 @@ compiled loop. Here each test is a device-to-host read, so the test runs
 after every group of ``_SWEEPS_PER_CHECK`` sweeps instead. The result is the
 same: a sweep at the fixpoint changes nothing, and the cap (64) is a
 multiple of the group size, so a run that hits the cap has done exactly 64
-sweeps either way.
+sweeps either way. Those reads rule out a CUDA graph: a graphed decode
+runs the labelling eagerly between two graphs (``Environment.executable``).
 """
 
 from __future__ import annotations

@@ -163,7 +163,10 @@ def rel_pos_index(size: int, device=None) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def cached_rel_pos_index(size: int, device: torch.device) -> torch.Tensor:
-    """``rel_pos_index`` made once per (size, device)."""
+    """``rel_pos_index`` made once per (size, device); by a graphed
+    executable's eager warm-up, never inside its capture (a tensor first
+    made there would live in the graph's memory pool and hold nothing
+    until a replay)."""
     return rel_pos_index(size, device)
 
 

@@ -113,12 +113,14 @@ def pack_rgb_canvas(view: ImageView, bucket: int) -> np.ndarray:
 
 def pack_and_put_canvas(view: ImageView, bucket: int, device: torch.device, *,
                         pool: CanvasPool | None = None,
-                        n_chunks: int = 1) -> torch.Tensor:
+                        n_chunks: int = 1,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Pack an image into a (bucket, bucket, 3) uint8 canvas on `device`.
 
     On the CPU the packed numpy canvas is wrapped without a copy. On CUDA
     the pack goes into pinned memory (from `pool` when given) and is copied
-    asynchronously, `n_chunks` row chunks at a time."""
+    asynchronously, `n_chunks` row chunks at a time, into `out` when given
+    (a graphed executable's static canvas) or else a new tensor."""
     if device.type == "cpu":
         return torch.from_numpy(pack_rgb_canvas(view, bucket))
     arr = view.pixels
@@ -129,7 +131,8 @@ def pack_and_put_canvas(view: ImageView, bucket: int, device: torch.device, *,
     host = pool.take(bucket) if pool is not None else torch.empty(
         (bucket, bucket, 3), dtype=torch.uint8, pin_memory=True)
     host_np = host.numpy()
-    dev = torch.empty((bucket, bucket, 3), dtype=torch.uint8, device=device)
+    dev = out if out is not None else torch.empty(
+        (bucket, bucket, 3), dtype=torch.uint8, device=device)
     rows = -(-bucket // max(1, n_chunks))  # ceil: the last chunk may be short
     for r0 in range(0, bucket, rows):
         r1 = min(r0 + rows, bucket)
@@ -147,7 +150,8 @@ def pack_and_put_canvas(view: ImageView, bucket: int, device: torch.device, *,
 def _pixel_stats(device: torch.device):
     """SAM's pixel mean and std on `device`, made once: building them from a
     Python list per call would be a pageable host copy, which waits for all
-    work queued on the stream."""
+    work queued on the stream. A graphed executable's eager warm-up makes
+    them, never its capture."""
     return (torch.tensor(SAM_PIXEL_MEAN, dtype=torch.float32, device=device),
             torch.tensor(SAM_PIXEL_STD, dtype=torch.float32, device=device))
 

@@ -9,22 +9,31 @@ dtype; the prompt encoder and decoder stay float32.
 On a CUDA device the encoders run the port's kernels: TinyViT K1
 (LayerNorm) and K2 (window attention); the SAM ViTs K1 and K3 (LayerNorm,
 residual add + LayerNorm), K4 (global rel-pos attention) and K5 (windowed
-rel-pos attention). On the CPU they run the plain path. Executables are
-plain eager callables: no ``torch.compile`` and no CUDA graphs yet.
+rel-pos attention). On the CPU they run the plain path.
+
+Each (program, variant, bucket, ...) key is one ``Executable``. On a CUDA
+device it is a captured ``torch.cuda.CUDAGraph``, the counterpart of the
+JAX package's one XLA executable per key: its first call runs the program
+eagerly on a side stream (the warm-up, whose result it returns) and then
+captures it; every later call copies its inputs into the graph's static
+buffers and replays it. On the CPU it runs the program eagerly. No
+``torch.compile``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..convert.from_numpy import params_from_numpy
 from ..errors import DlimgError, ModelNotFoundError, not_in_this_slice
 from ..models import sam as sam_lib
+from ..ops import flash_attention, fused_norm
 from ..ops.preprocess import CanvasPool
 from ..types import Backend, Options
 from ..utils.profiling import Profiler
@@ -66,10 +75,269 @@ def _reject_unported(o: Options) -> None:
     if o.scaleout_devices != 1:
         raise not_in_this_slice("scaleout_devices != 1", "parallel")
     if o.compilation_cache_dir:
-        raise not_in_this_slice("compilation_cache_dir", "CUDA graph")
+        raise DlimgError(
+            "compilation_cache_dir has no counterpart in dlimgedit_tpu_torch: "
+            "its executables are CUDA graphs, which live only as long as "
+            "their process, and the kernel library is already cached on "
+            "disk (dlimgedit_tpu_torch/_build/)")
     if o.compute_dtype not in _DTYPES:
         raise DlimgError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                          f"got {o.compute_dtype!r}")
+
+
+# The kernel wrappers whose ``launches`` counters the executables keep: a
+# replay launches the kernels its capture recorded, but no Python runs.
+COUNTED_KERNELS = (
+    fused_norm.fused_layer_norm, fused_norm.fused_add_layer_norm,
+    flash_attention.levit_window_attention,
+    flash_attention.relpos_attention_global,
+    flash_attention.relpos_attention_windowed,
+    flash_attention.relpos_attention_qkv,
+    flash_attention.windowed_attention_fused,
+)
+
+# One capture at a time in the process (a rule of torch.cuda.graph).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def launch_counts() -> Tuple[int, ...]:
+    return tuple(k.launches for k in COUNTED_KERNELS)
+
+
+def add_launches(delta: Sequence[int]) -> None:
+    for k, d in zip(COUNTED_KERNELS, delta):
+        k.launches += d
+
+
+def _as_tuple(outputs) -> Tuple[torch.Tensor, ...]:
+    return outputs if isinstance(outputs, tuple) else (outputs,)
+
+
+def _compose(stages: Sequence[Callable]) -> Callable:
+    def run(*args):
+        out = stages[0](*args)
+        for stage in stages[1:]:
+            out = stage(*_as_tuple(out))
+        return out
+
+    return run
+
+
+class _Graph:
+    """One captured stage: its static inputs and outputs, and the kernel
+    launches its capture counted."""
+
+    def __init__(self, graph, static_inputs, static_outputs, launches):
+        self.graph = graph
+        self.static_inputs = static_inputs
+        self.static_outputs = static_outputs
+        self.launches = launches
+
+
+class Executable:
+    """One program of the executable cache.
+
+    ``build()`` gives the program: one callable, or a tuple (head, between,
+    tail) of callables, each taking the previous one's outputs, whose
+    ``between`` runs eagerly on every call (it reads the device from the
+    host, which no graph may do: the component labelling). ``eager`` is the
+    whole program, run under ``torch.inference_mode``: tests and
+    ``chip_smoke.py`` hold the graphs against it; the main path never calls
+    it directly. ``copy_out`` turns the program's outputs into what the
+    caller keeps: a replay overwrites its static outputs, so what outlives
+    the call is copied out under ``lock`` (a device clone, or the host
+    copy that ends a decode).
+
+    On a CUDA device (``graphed``; a measurement may set it False to run
+    the eager program through the same entry points) the first call runs
+    the program eagerly on a side stream, the warm-up (this makes the
+    lazily cached device tensors, e.g. the pixel statistics and rel-pos
+    indices, outside any capture), returns that result, and then captures
+    the head, and the tail, each into a ``CUDAGraph`` with static input
+    buffers shaped like that call's. Every later call copies its arguments
+    into the head's buffers (an argument that already is the buffer, such
+    as a canvas packed with ``out=input_buffer(0)``, is not copied; host
+    tensors go through a pinned staging buffer, asynchronously), replays,
+    runs ``between`` on the head's outputs, copies its results into the
+    tail's buffers, replays the tail, and copies out. ``lock``
+    (re-entrant) covers all of it; a caller that fills a static buffer
+    itself holds it around that and the call. A capture that fails raises
+    ``DlimgError`` naming the key: nothing runs eagerly in its place.
+
+    The graphs read the model's weights from the storages they had at
+    capture: weights may be overwritten in place (``copy_``) at any time,
+    but a model or config that is swapped (e.g. ``bundle.cfg`` replaced)
+    must be so before the key's first call.
+
+    Kernel launch counters: the Python counters run once, at capture, so
+    the capture's increments are taken back and added again on each
+    replay; the warm-up's launches, and ``between``'s, count as the real
+    launches they are. (Like the counters themselves, this is exact when
+    one thread drives the kernels.)
+    """
+
+    def __init__(self, key: Tuple, program, device: torch.device,
+                 copy_out: Callable[[Any], Any], profiler: Profiler):
+        stages = program if isinstance(program, tuple) else (program,)
+        if len(stages) not in (1, 3):
+            raise DlimgError(f"executable {key}: a program is one callable "
+                             f"or (head, between, tail)")
+        self.key = key
+        self._stages = [torch.inference_mode()(f) for f in stages]
+        self.eager = torch.inference_mode()(_compose(stages))
+        self.graphed = device.type == "cuda"
+        self.lock = threading.RLock()
+        self._device = device
+        self._copy_out = copy_out
+        self._profile_key = "/".join(str(k) for k in key)
+        self._profiler = profiler
+        self._graphs: List[_Graph] = []  # the head's, then the tail's
+        self._side = None
+        self._staging: Dict[int, torch.Tensor] = {}
+        self._staged = None  # event behind the last copy out of staging
+
+    @property
+    def captured(self) -> bool:
+        return bool(self._graphs)
+
+    @property
+    def static_inputs(self) -> Optional[List[torch.Tensor]]:
+        """The head graph's input buffers (None before the capture)."""
+        return self._graphs[0].static_inputs if self._graphs else None
+
+    def input_buffer(self, i: int) -> Optional[torch.Tensor]:
+        """The static device buffer of argument ``i`` (None before the
+        capture, and on the CPU)."""
+        inputs = self.static_inputs
+        return None if inputs is None else inputs[i]
+
+    def __call__(self, *args: torch.Tensor):
+        with self._profiler.measure(self._profile_key):
+            if not self.graphed:
+                return self._copy_out(
+                    self.eager(*(a.to(self._device) for a in args)))
+            with self.lock:
+                if not self._graphs:
+                    return self._warm_up_and_capture(args)
+                self._copy_in(args)
+                return self._copy_out(self._run())
+
+    def replay_against_eager(self) -> Tuple[List[torch.Tensor],
+                                            List[torch.Tensor]]:
+        """Run the graphs on the last call's inputs, and the eager program
+        on the same inputs: (replayed, eager) outputs, each a list of
+        device tensors, for holding one against the other. The launch
+        counters are left as they were."""
+        if not self._graphs:
+            raise DlimgError(f"executable {self.key} has no CUDA graph")
+        counts = launch_counts()
+        with self.lock:
+            got = [t.clone() for t in _as_tuple(self._run())]
+            want = list(_as_tuple(self.eager(*self.static_inputs)))
+        add_launches([a - b for a, b in zip(counts, launch_counts())])
+        return got, want
+
+    def _run(self):
+        """Replay the head; with (head, between, tail): run between on its
+        outputs, copy them into the tail's inputs and replay the tail."""
+        head = self._graphs[0]
+        self._replay(head)
+        if len(self._stages) == 1:
+            return head.static_outputs
+        mid = _as_tuple(self._stages[1](*_as_tuple(head.static_outputs)))
+        tail = self._graphs[1]
+        for buf, t in zip(tail.static_inputs, mid):
+            if t is not buf:
+                buf.copy_(t)
+        self._replay(tail)
+        return tail.static_outputs
+
+    def _warm_up_and_capture(self, args):
+        inputs = [a.to(self._device) for a in args]
+        stage_inputs, result = self._warm_up(inputs)
+        result = self._copy_out(result)
+        graphs = []
+        for i in range(0, len(self._stages), 2):
+            static = [torch.empty_like(a) for a in stage_inputs[i]]
+            for buf, a in zip(static, stage_inputs[i]):
+                buf.copy_(a)
+            before = launch_counts()
+            try:
+                graph, outputs = self._capture(self._stages[i], static)
+            finally:
+                launches = tuple(a - b for a, b in zip(launch_counts(),
+                                                       before))
+                add_launches([-d for d in launches])
+            graphs.append(_Graph(graph, static, outputs, launches))
+        self._graphs = graphs  # all captured, or none
+        return result
+
+    def _warm_up(self, inputs):
+        """The program run eagerly, stage by stage, on the side stream.
+        -> (each stage's inputs, the program's outputs)."""
+        stage_inputs, out = [], tuple(inputs)
+        with self._on_side_stream():
+            for i, stage in enumerate(self._stages):
+                stage_inputs.append(out)
+                out = stage(*out)
+                if i + 1 < len(self._stages):
+                    out = _as_tuple(out)
+        return stage_inputs, out
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        """Run on the side stream that the captures then use (cuBLAS keeps
+        a workspace per stream), ordered after the caller's work and
+        before what the caller queues next."""
+        caller = torch.cuda.current_stream(self._device)
+        self._side = torch.cuda.Stream(self._device)
+        self._side.wait_stream(caller)
+        with torch.cuda.stream(self._side):
+            yield
+        caller.wait_stream(self._side)
+
+    def _capture(self, fn, static_inputs):
+        """-> (graph, static outputs) of ``fn`` on ``static_inputs``."""
+        graph = torch.cuda.CUDAGraph()
+        caller = torch.cuda.current_stream(self._device)
+        try:
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                    graph, stream=self._side, capture_error_mode="thread_local"):
+                outputs = fn(*static_inputs)
+        except RuntimeError as e:
+            raise DlimgError(f"CUDA graph of executable {self.key}: capture "
+                             f"failed: {e}") from e
+        finally:
+            # torch.cuda.graph leaves the capture stream current when ending
+            # a broken capture raises.
+            torch.cuda.set_stream(caller)
+        return graph, outputs
+
+    def _copy_in(self, args) -> None:
+        for i, (buf, a) in enumerate(zip(self.static_inputs, args)):
+            if a is buf:
+                continue
+            if a.device != buf.device:  # a host tensor: stage it pinned
+                stage = self._staging.get(i)
+                if stage is None:
+                    stage = self._staging[i] = torch.empty(
+                        a.shape, dtype=a.dtype, pin_memory=True)
+                elif self._staged is not None:
+                    self._staged.synchronize()
+                stage.copy_(a)
+                a = stage
+            buf.copy_(a, non_blocking=True)
+        if self._staging:
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self._device))
+
+    def _replay(self, g: _Graph) -> None:
+        try:
+            g.graph.replay()
+        except RuntimeError as e:
+            raise DlimgError(f"CUDA graph of executable {self.key}: replay "
+                             f"failed: {e}") from e
+        add_launches(g.launches)
 
 
 class SamModelBundle:
@@ -103,7 +371,7 @@ class Environment:
                              "available")
         self.compute_dtype = _DTYPES[self.options.compute_dtype]
         self._sam_models: Dict[str, Lazy] = {v: Lazy() for v in SAM_BUNDLES}
-        self._executables: Dict[Tuple, Callable] = {}
+        self._executables: Dict[Tuple, Executable] = {}
         self._exec_lock = threading.Lock()
         self._sizes_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
         self.canvas_pool = CanvasPool() if self.device.type == "cuda" else None
@@ -178,16 +446,23 @@ class Environment:
 
     # -- executable cache ----------------------------------------------------
 
-    def executable(self, key: Tuple, build: Callable[[], Callable]) -> Callable:
-        """Get-or-build an eager program, one per key, run under
-        ``torch.inference_mode``."""
+    def executable(self, key: Tuple, build: Callable[[], Callable],
+                   copy_out: Callable[[Any], Any]) -> Executable:
+        """Get-or-build the ``Executable`` of a key (see its docstring:
+        on CUDA a CUDA graph, captured at its first call)."""
         fn = self._executables.get(key)
         if fn is not None:
             return fn
         with self._exec_lock:
             fn = self._executables.get(key)
             if fn is None:
-                fn = self.profiler.wrap("/".join(str(k) for k in key),
-                                        torch.inference_mode()(build()))
+                fn = Executable(key, build(), self.device, copy_out,
+                                self.profiler)
                 self._executables[key] = fn
         return fn
+
+    @property
+    def executables(self) -> Dict[Tuple, Executable]:
+        """The executables built so far, by key (a copy)."""
+        with self._exec_lock:
+            return dict(self._executables)

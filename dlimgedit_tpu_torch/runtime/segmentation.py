@@ -11,7 +11,11 @@ dlimgedit_tpu/runtime/segmentation.py).
                      copy each.
 
 One executable per (program, variant, canvas bucket, ...) key, as in the
-JAX package; here each is an eager PyTorch callable.
+JAX package; on CUDA each is a CUDA graph (``Environment.executable``), or
+two with the component labelling run eagerly between them.
+The canvas is packed straight into the embed graph's static canvas; the
+embedding a `process` returns is a clone of the graph's static output, so
+a later `process` in the same bucket does not overwrite it.
 """
 
 from __future__ import annotations
@@ -62,49 +66,80 @@ def _build_batch_decode_fn(bundle, out_bucket: int,
                            largest_component: bool = False):
     """N prompts against ONE cached embedding. With `largest_component`,
     region prompts (first label 2.0, the box top-left) keep only their
-    largest connected object; point prompts (label 1.0) are untouched."""
+    largest connected object; point prompts (label 1.0) are untouched. The
+    labelling reads the device from the host, so that program is (decode,
+    label, finish): the labelling runs between two graphs."""
     cfg = bundle.cfg
 
-    def run(emb, points, labels, sizes):
+    def decode(emb, points, labels, sizes):
         n = points.shape[0]
         masks, iou = sam_lib.decode_masks(bundle.model, cfg,
                                           emb.expand(n, *emb.shape[1:]),
                                           points, labels, multimask=False)
-        m = masks[:, 0]  # (N, L, L)
-        if largest_component:
-            keep = largest_component_mask(m > 0)
-            is_region = (labels[:, 0] == 2.0)[:, None, None]
-            m = torch.where(is_region & ~keep, -10.0, m)
+        return masks[:, 0], iou[:, 0], labels, sizes  # (N, L, L), (N,)
+
+    def pack(m, iou, sizes):
         logits = upsample_mask_logits(m[None], out_bucket, cfg.image_size,
                                       sizes[0], sizes[1], sizes[2], sizes[3])
-        return pack_mask_bits(logits)[0].reshape(-1), iou[:, 0]
+        return pack_mask_bits(logits)[0].reshape(-1), iou
+
+    def label(m, iou, labels, sizes):
+        return m, largest_component_mask(m > 0), iou, labels, sizes
+
+    def finish(m, keep, iou, labels, sizes):
+        is_region = (labels[:, 0] == 2.0)[:, None, None]
+        return pack(torch.where(is_region & ~keep, -10.0, m), iou, sizes)
+
+    if largest_component:
+        return decode, label, finish
+
+    def run(emb, points, labels, sizes):
+        m, iou, _, _ = decode(emb, points, labels, sizes)
+        return pack(m, iou, sizes)
 
     return run
 
 
 def _build_decode_fn(bundle, out_bucket: int, multimask: bool,
                      largest_component: bool):
+    """One prompt; with `largest_component` the program is (decode, label,
+    finish), as in `_build_batch_decode_fn`."""
     cfg = bundle.cfg
 
-    def run(emb, points, labels, sizes):
+    def decode(emb, points, labels, sizes):
         masks, iou = sam_lib.decode_masks(bundle.model, cfg, emb, points,
                                           labels, multimask=multimask)
         if multimask:
             # The reference consumes decoder tokens 1..3.
             masks = masks[:, 1:4]
             iou = iou[:, 1:4]
-        if largest_component:
-            B, T, L, _ = masks.shape
-            keep = largest_component_mask(masks.reshape(B * T, L, L) > 0)
-            masks = torch.where(keep.reshape(B, T, L, L), masks, -10.0)
+        return masks, iou, sizes
+
+    def pack(masks, iou, sizes):
         logits = upsample_mask_logits(masks, out_bucket, cfg.image_size,
                                       sizes[0], sizes[1], sizes[2], sizes[3])
         return pack_mask_bits(logits)[0].reshape(-1), iou[0]
 
+    def label(masks, iou, sizes):
+        B, T, L, _ = masks.shape
+        keep = largest_component_mask(masks.reshape(B * T, L, L) > 0)
+        return masks, keep.reshape(B, T, L, L), iou, sizes
+
+    def finish(masks, keep, iou, sizes):
+        return pack(torch.where(keep, masks, -10.0), iou, sizes)
+
+    if largest_component:
+        return decode, label, finish
+
+    def run(emb, points, labels, sizes):
+        return pack(*decode(emb, points, labels, sizes))
+
     return run
 
 
-def _to_host(packed: torch.Tensor, iou: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+def _to_host(outputs: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    packed, iou = outputs
     return packed.cpu().numpy(), iou.float().cpu().numpy()
 
 
@@ -148,11 +183,14 @@ class Segmentation:
             bucket = pick_bucket(extent)
             sizes = (extent.height, extent.width, target.height, target.width)
         embed = env.executable(("embed", variant, bucket),
-                               lambda: _build_embed_fn(bundle))
-        canvas = pack_and_put_canvas(
-            view, bucket, env.device, pool=env.canvas_pool,
-            n_chunks=resolve_h2d_chunks(env.options.h2d_overlap_chunks))
-        emb = embed(canvas, env.sizes_on_device(sizes))
+                               lambda: _build_embed_fn(bundle),
+                               torch.Tensor.clone)
+        with embed.lock:  # the static canvas is the graph's input
+            canvas = pack_and_put_canvas(
+                view, bucket, env.device, pool=env.canvas_pool,
+                n_chunks=resolve_h2d_chunks(env.options.h2d_overlap_chunks),
+                out=embed.input_buffer(0))
+            emb = embed(canvas, env.sizes_on_device(sizes))
         return Segmentation(env, variant, emb, extent, scale,
                             (target.height, target.width))
 
@@ -207,11 +245,9 @@ class Segmentation:
         decode = env.executable(
             ("decode", self._variant, bucket, multimask, largest_component),
             lambda: _build_decode_fn(bundle, bucket, multimask,
-                                     largest_component))
-        dev = env.device
-        packed, iou = _to_host(*decode(
-            self._embedding, torch.from_numpy(points).to(dev),
-            torch.from_numpy(labels).to(dev), self._sizes()))
+                                     largest_component), _to_host)
+        packed, iou = decode(self._embedding, torch.from_numpy(points),
+                             torch.from_numpy(labels), self._sizes())
         return self._unpack(packed, bucket), iou
 
     def _to_mask_image(self, mask_canvas: np.ndarray) -> Image:
@@ -267,11 +303,9 @@ class Segmentation:
         decode = env.executable(
             ("decode_batch", self._variant, bucket, padded, lcc),
             lambda: _build_batch_decode_fn(bundle, bucket,
-                                           largest_component=lcc))
-        dev = env.device
-        packed, iou = _to_host(*decode(
-            self._embedding, torch.from_numpy(points).to(dev),
-            torch.from_numpy(labels).to(dev), self._sizes()))
+                                           largest_component=lcc), _to_host)
+        packed, iou = decode(self._embedding, torch.from_numpy(points),
+                             torch.from_numpy(labels), self._sizes())
         mask_u8 = self._unpack(packed, bucket)
         return [Mask(self._to_mask_image(mask_u8[i]), float(iou[i]))
                 for i in range(n)]

@@ -14,11 +14,15 @@ with torch.profiler (CPU and CUDA activities). For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
+  * the device operations (kernels, copies) per call;
   * device time by layer (the port's kernels K1-K7, convolutions,
     matrix products, elementwise, reductions, copies, other) and the top
     kernels by device time;
   * the host-to-device copies per call (count and device ms): a pageable
     copy waits for the work queued before it.
+Every executable is a CUDA graph (``Environment.executable``), captured
+in the warm-up calls; torch.profiler records each kernel of a graph
+replay (torch 2.11, CUDA 12.8), so busy_ms is read as for eager calls.
 The Chrome traces go to DIR. Needs CUDA.
 """
 
@@ -107,7 +111,8 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
     wall = statistics.median(walls)
     print(f"\n== {label}: {calls} calls; wall_ms median {wall:.3f}, "
           f"busy_ms {busy:.3f} per call, device idle share "
-          f"{1 - busy / (sum(walls) / calls):.3f}")
+          f"{1 - busy / (sum(walls) / calls):.3f}; "
+          f"{len(intervals) / calls:.1f} device operations per call")
     for layer, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
         print(f"  {layer:<28} {us / 1e3 / calls:8.4f} ms per call")
     print(f"  host-to-device copies: {len(h2d) / calls:.1f} per call, "

@@ -16,6 +16,16 @@ added before the scale (max |diff| ~3) or the biased score is rounded to
 bf16 (~0.045), both checked on the CPU against such variants of the plain
 version.
 
+The executable cache's CUDA graphs (the ``graph`` tests): at small
+sizes, for every key kind (embed, decode with and without
+largest_component, multimask decode, decode_batch), a replay must equal
+the key's eager program on the same inputs bit for bit (the same kernels
+run in the same order; with largest_component the labelling runs eagerly
+between two graphs). Also: a `process` in the
+same bucket leaves an earlier embedding and its masks alone, two threads
+on one key each get their own answer, and a capture that fails raises
+instead of running eagerly.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -24,10 +34,16 @@ scaling before rounding, moves scores by up to half such a step and the
 output by more than the tolerance.
 """
 
+import dataclasses
+import threading
+
+import numpy as np
 import pytest
 import torch
 
+import dlimgedit_tpu_torch as dl
 from dlimgedit_tpu_torch.errors import DlimgError
+from dlimgedit_tpu_torch.models import sam, vit_sam
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
     attention_relpos_plain,
@@ -53,6 +69,7 @@ from dlimgedit_tpu_torch.tools.probe_smem_gather import (
     smem_gather,
     smem_gather_plain,
 )
+from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
 
 pytestmark = pytest.mark.cuda
 
@@ -423,3 +440,147 @@ def test_new_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(DlimgError):
         smem_gather(table, torch.zeros(8000, 16, dtype=torch.int32,
                                        device=dev), 2)
+
+
+# -- the executable cache as CUDA graphs ------------------------------------
+
+GRAPH_SIZES = {"mobile_sam": 64, "vit_b": 256}
+
+
+def _graph_env(variant, dtype):
+    """A card Environment at a small image size; for vit_b a narrow
+    injected bundle (width 128, 2 heads of 64, one windowed and one global
+    block) with nonzero rel-pos tables and qkv biases."""
+    size = GRAPH_SIZES[variant]
+    env = dl.Environment(dl.Options(
+        allow_random_weights=True, compute_dtype=dtype, sam_variant=variant,
+        sam_image_size=size, largest_region_object=True,
+        model_directory="no-such-directory"))
+    if variant == "vit_b":
+        enc = vit_sam.SamViTConfig(img_size=size, embed_dim=128, depth=2,
+                                   num_heads=2, global_attn_indexes=(1,),
+                                   use_flash_attention=True)
+        cfg = dataclasses.replace(sam.make_config("vit_b", size),
+                                  encoder_vit=enc)
+        model = sam.init_sam(torch.Generator().manual_seed(3), cfg)
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, p in model.encoder.named_parameters():
+                if name.endswith(("rel_pos_h", "rel_pos_w", "qkv.b")):
+                    p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+        model.encoder.to(env.compute_dtype)
+        bundle = SamModelBundle(cfg, model.to(env.device), env.compute_dtype)
+        assert env._sam_models["vit_b"].get_or_create(lambda: bundle) is bundle
+    return env
+
+
+def _image(w, h, seed):
+    px = np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
+    return dl.Image(dl.Extent(w, h), dl.Channels.rgba, px)
+
+
+def _queries(seg):
+    w, h = seg.extent.width, seg.extent.height
+    region = dl.Region(dl.Point(w // 8, h // 8), dl.Point(w * 7 // 8, h * 7 // 8))
+    return ([seg.compute_mask(dl.Point(w // 2, h // 2)).pixels,
+             seg.compute_mask(region).pixels,
+             seg.compute_mask(region, largest_component=False).pixels]
+            + [m.image.pixels for m in seg.compute_masks(dl.Point(w // 3, h // 2))]
+            + [m.image.pixels for m in seg.compute_mask_batch(
+                [dl.Point(w // 2, h // 2), region, dl.Point(w // 4, h // 4)])])
+
+
+@pytest.mark.parametrize("variant,dtype", [("mobile_sam", "float32"),
+                                           ("mobile_sam", "bfloat16"),
+                                           ("vit_b", "float32"),
+                                           ("vit_b", "bfloat16")])
+def test_graph_replay_equals_eager(dev, variant, dtype):
+    env = _graph_env(variant, dtype)
+    for img in (_image(100, 80, 1), _image(400, 300, 2)):  # buckets 256, 512
+        segs = [dl.Segmentation.process(img, env) for _ in range(3)]
+        first = _queries(segs[0])
+        for _ in range(2):
+            again = _queries(segs[0])
+            assert all(np.array_equal(a, b) for a, b in zip(first, again))
+        for seg in segs[1:]:
+            assert torch.equal(seg.embedding, segs[0].embedding)
+        kinds = {key[0] for key in env.executables}
+        assert kinds == {"embed", "decode", "decode_batch"}
+        for key, exe in env.executables.items():
+            assert exe.graphed and exe.captured, key
+            got, want = exe.replay_against_eager()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{key}: max|diff| {(g.float() - w.float()).abs().max()}")
+    # Both largest_component kinds were captured, the labelled one as two
+    # graphs around the eager labelling.
+    assert {k[4] for k in env.executables if k[0] == "decode"} == {True, False}
+    assert {len(e._stages) for e in env.executables.values()} == {1, 3}
+
+
+@pytest.mark.parametrize("variant", ["mobile_sam", "vit_b"])
+def test_graph_results_do_not_alias(dev, variant):
+    env = _graph_env(variant, "bfloat16")
+    size = GRAPH_SIZES[variant]
+    a_img, b_img = _image(size * 3 // 2, size, 5), _image(size * 3 // 2, size, 6)
+    for _ in range(2):  # captured, then replayed
+        dl.Segmentation.process(a_img, env)
+    a = dl.Segmentation.process(a_img, env)
+    a_emb = a.embedding.clone()
+    a_masks = _queries(a)
+    b = dl.Segmentation.process(b_img, env)
+    assert not torch.equal(b.embedding, a_emb)
+    assert torch.equal(a.embedding, a_emb)
+    assert all(np.array_equal(x, y) for x, y in zip(_queries(a), a_masks))
+
+
+def test_graph_two_threads_on_one_key(dev):
+    env = _graph_env("mobile_sam", "bfloat16")
+    imgs = [_image(96, 64, 7), _image(96, 64, 8)]
+    segs = [dl.Segmentation.process(img, env) for img in imgs]
+    points = [dl.Point(20, 20), dl.Point(70, 40)]
+    want_emb = [s.embedding.clone() for s in segs]
+    want = [s.compute_mask(p).pixels for s, p in zip(segs, points)]
+    errors = []
+
+    def work(i):
+        try:
+            for _ in range(20):
+                seg = dl.Segmentation.process(imgs[i], env)
+                if not torch.equal(seg.embedding, want_emb[i]):
+                    errors.append(f"thread {i}: embedding")
+                if not np.array_equal(seg.compute_mask(points[i]).pixels, want[i]):
+                    errors.append(f"thread {i}: mask")
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+
+
+def test_graph_capture_failure_raises(dev):
+    env = _graph_env("mobile_sam", "float32")
+    ran = []
+
+    def build():
+        def run(x):
+            ran.append(1)
+            return x * float(x.sum().item())  # a host read: not capturable
+        return run
+
+    exe = env.executable(("host_read",), build, lambda t: t.clone())
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        ran.clear()
+        with pytest.raises(DlimgError, match="host_read"):
+            exe(x)
+        assert len(ran) == 2  # the warm-up, then the capture attempt
+    # The caller's stream and the rest of the Environment still work.
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    seg = dl.Segmentation.process(_image(96, 64, 9), env)
+    assert seg.compute_mask(dl.Point(10, 10)).pixels.shape == (64, 96, 1)
