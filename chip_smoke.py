@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
+package. The port's nine kernels (dlimgedit_tpu_torch/csrc/):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
@@ -17,6 +17,8 @@ package. The port's eight kernels (dlimgedit_tpu_torch/csrc/):
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
                                                  window_strip_attention.cu (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
+  greedy_nms (AMG's exact greedy box NMS; not    greedy_nms.cu
+  a TPU kernel: JAX runs a lax.fori_loop)
 
 Phases, each of which fails the run (non-zero exit) on any error, each
 printing its seconds:
@@ -37,7 +39,12 @@ printing its seconds:
      general bias path of the bf16 kernel, a key tile spanning two grid
      rows); K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
      (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
-     row-replicated and per-lane indices, reps 8 and 16), bit for bit. In
+     row-replicated and per-lane indices, reps 8 and 16), bit for bit;
+     greedy_nms at M = 256, 2304, 9216 and 14400 (the last above what
+     shared memory holds) on seeded overlapping boxes, keep flags bit for
+     bit against the plain row loop and a numpy mirror; then K1's time at
+     each of MobileSAM's shapes beside an empty kernel's, back to back and
+     in a CUDA graph (the launch floor). In
      bf16 it times kernel, plain version, the library yardstick
      (F.layer_norm; x + d then F.layer_norm, two calls;
      F.scaled_dot_product_attention with the materialised float bias, on
@@ -101,7 +108,21 @@ printing its seconds:
      largest_component, the eager early-exit labelling between two graphs
      (the port) against the fixed 64 sweeps inside the decode's graph
      (estimated: the graphed decode without labelling plus a graph of the
-     64 sweeps on its masks, which must label alike).
+     64 sweeps on its masks, which must label alike);
+  7. automatic mask generation (`Segmentation.generate_masks`, grid 32,
+     64 slots, the IoU and stability filters off): MobileSAM (bf16
+     encoder, f32 decoder) on 1024x768, per round `process` and three
+     calls (nms 0.7; nms 1.0, 64 winners; nms 1.0 with
+     min_mask_region_area 1000, the program head, eager labelling, tail),
+     three rounds: every replay bit-equal to its eager program, the
+     winners equal to a numpy mirror of the selection fed with the card's
+     own pass-A statistics (`amg_candidates`, M = 2304), rounds 2 and 3
+     equal to round 1, exact launches per round (greedy_nms one a call);
+     a threshold change makes no new key and no new capture; the graphs'
+     node counts; the NMS kernel timed on round 2's pools; wall times
+     graphed and eager, medians of 5, with peak device memory;
+     generate_masks_image with one crop layer; ViT-B (partitioned, bf16)
+     once on 1500x1000 (bucket 2048) at nms 1.0.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
@@ -111,11 +132,13 @@ paths (its `launches`: both images' `process` calls of each path in round
 2, all replays). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
-reps 8, bf16 table).
+reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
+calls), each launch timed on the pool it had.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -179,6 +202,25 @@ VIT_QKV_SHAPES = [(25, 12, 14, 64), (25, 16, 14, 80)]
 # K8: the gather probe's (rows, lanes) and reps.
 PROBE_SHAPE, PROBE_REPS = (4096, 128), (8, 16)
 
+# Phase 7, automatic mask generation on MobileSAM at 1024 (and ViT-B once):
+# grid 32 (1024 prompts, 3072 candidates, a pre-NMS pool of 2304), 64
+# slots, the IoU and stability filters off; the configurations, each a
+# `generate_masks` call per round (nms 1.0 keeps every valid candidate, so
+# 64 winners; the small-region filter makes the program head, eager
+# labelling, tail).
+AMG_GRID, AMG_SLOTS = 32, 64
+AMG_THRESH = dict(iou_thresh=0.0, stability_thresh=0.0)
+AMG_CONFIGS = (("nms 0.7", dict(nms_thresh=0.7)),
+               ("nms 1.0", dict(nms_thresh=1.0)),
+               ("nms 1.0, min_mask_region_area 1000",
+                dict(nms_thresh=1.0, min_mask_region_area=1000)))
+# The greedy NMS kernel against its plain version (M: 256, the main path's
+# 2304, grid 64's 9216, and 14400, above what shared memory holds), and the
+# float32 operations of one IoU test (max, min x4; sub, add, max x2 each
+# side; mul; add, sub; max; div; compare).
+NMS_SIZES = (256, 2304, 9216, 14400)
+NMS_OPS_PER_TEST = 16
+
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 # Rounds of phase 4 over the images: warm-up and capture, then replays.
@@ -224,6 +266,9 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
      "dlimgedit_tpu/ops/flash_attention.py:382"),
     ("smem_gather", "dlimgedit_tpu_torch/csrc/gather_probe.cu",
      "tools/probe_vmem_gather.py:53"),
+    # Not a TPU kernel: the lax.fori_loop of JAX's exact greedy NMS.
+    ("greedy_nms", "dlimgedit_tpu_torch/csrc/greedy_nms.cu",
+     "dlimgedit_tpu/ops/amg.py:175"),
 )
 
 
@@ -304,9 +349,11 @@ class Entries:
     def __init__(self):
         self.by_name = {}
         self.first = {}
+        self.rows = []  # (label, kernel ms, bound ms) per shape
 
-    def record(self, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
+    def record(self, label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
                launches):
+        self.rows.append((label, ms, max(bytes_ms, ops_ms)))
         launches *= len(IMAGES)
         vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
         self.first.setdefault(name, vals)
@@ -357,7 +404,8 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
           f"bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-    entries.record(name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, launches)
+    entries.record(label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
+                   launches)
     return lib_ms
 
 
@@ -619,6 +667,130 @@ def check_window_kernels(torch, ops, entries):
                     0, entries)
 
 
+def np_greedy_nms(np, boxes, scores, thresh):
+    """The exact greedy box NMS in numpy float32, each kept row vectorised
+    over the later candidates still kept, with the plain version's ops in
+    its order. -> (keep, the IoU tests these inputs need: each kept row
+    against the later candidates still kept when it runs)."""
+    f, one, zero = np.float32, np.float32(1), np.float32(0)
+    x0, y0, x1, y1 = boxes.astype(f).T
+    area = np.maximum(x1 - x0 + one, zero) * np.maximum(y1 - y0 + one, zero)
+    keep = scores > 0
+    tests = 0
+    for i in range(len(keep)):
+        if not keep[i]:
+            continue
+        live = np.flatnonzero(keep[i + 1:]) + i + 1
+        tests += len(live)
+        iw = np.maximum(np.minimum(x1[i], x1[live])
+                        - np.maximum(x0[i], x0[live]) + one, zero)
+        ih = np.maximum(np.minimum(y1[i], y1[live])
+                        - np.maximum(y0[i], y0[live]) + one, zero)
+        inter = iw * ih
+        iou = inter / np.maximum(area[i] + area[live] - inter, one)
+        keep[live[iou > f(thresh)]] = False
+    return keep, tests
+
+
+def nms_inputs(torch, M, seed):
+    """Score-sorted overlapping boxes on the 256 low-res grid, a duplicate
+    tail and invalid (-1) scores (as tests/test_torch_cuda.py makes them)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(seed)
+    xy = torch.randint(0, 200, (M, 2), generator=gen)
+    wh = torch.randint(1, 80, (M, 2), generator=gen)
+    boxes = torch.cat([xy, xy + wh - 1], dim=1).float()
+    boxes[M - M // 8:] = boxes[torch.randint(0, M, (M // 8,), generator=gen)]
+    boxes = boxes[torch.randperm(M, generator=gen)]
+    scores = torch.sort(torch.rand(M, generator=gen), descending=True).values
+    scores[M - M // 10:] = -1.0
+    return boxes.to(dev), scores.to(dev)
+
+
+def graph_time_ms(torch, fn) -> float:
+    """Device time of `fn` captured in a CUDA graph, one replay a sample:
+    for a plain version of thousands of small launches, which the host
+    cannot queue behind a spin (the launch queue fills and the host
+    waits), and which inside a graphed program runs as such a graph."""
+    caller = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        fn()
+    caller.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    ms = time_ms(torch, graph.replay, samples=5, per_sample=1)
+    del graph
+    return ms
+
+
+def nms_numbers(torch, np, ops, boxes, scores, thresh):
+    """The NMS kernel and its plain version on one input: their keep flags
+    must equal each other's and the numpy mirror's bit for bit. -> (kernel
+    ms, plain ms, bytes ms, operations ms, kept, IoU tests)."""
+    keep = ops.greedy_nms(boxes, scores, thresh)
+    plain = ops.greedy_nms_plain(boxes, scores, thresh)
+    mirror, tests = np_greedy_nms(np, boxes.cpu().numpy(), scores.cpu().numpy(),
+                                  float(thresh.item()))
+    if not torch.equal(keep, plain):
+        fail(f"greedy_nms M={len(keep)}: {int((keep != plain).sum())} keep "
+             f"flags differ from the plain version")
+    if not np.array_equal(keep.cpu().numpy(), mirror):
+        fail(f"greedy_nms M={len(keep)}: keep flags differ from numpy's")
+    M = len(keep)
+    ms = time_ms(torch, lambda: ops.greedy_nms(boxes, scores, thresh))
+    plain_ms = graph_time_ms(
+        torch, lambda: ops.greedy_nms_plain(boxes, scores, thresh))
+    bytes_ms = (M * (16 + 4 + 1) + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = tests * NMS_OPS_PER_TEST / PEAK_F32_FLOPS * 1e3
+    return ms, plain_ms, bytes_ms, ops_ms, int(mirror.sum()), tests
+
+
+def check_nms_kernel(torch, np, ops):
+    """Phase 2, the greedy NMS kernel at NMS_SIZES on seeded boxes
+    (threshold 0.7)."""
+    thresh = torch.tensor([0.7], device="cuda")
+    for M in NMS_SIZES:
+        t0 = time.perf_counter()
+        boxes, scores = nms_inputs(torch, M, M)
+        ms, plain_ms, bytes_ms, ops_ms, kept, tests = nms_numbers(
+            torch, np, ops, boxes, scores, thresh)
+        optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+        where = "shared" if M * 17 <= optin else "global"
+        print(f"greedy_nms M={M} (boxes in {where} memory): keep flags equal "
+              f"to the plain version's and numpy's ({kept} kept, {tests} IoU "
+              f"tests) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (the plain "
+              f"loop replayed as a CUDA graph) "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; the "
+              f"kernel is latency bound: {kept} dependent rows) "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+
+def k1_launch_floor(torch, entries):
+    """K1 at each of MobileSAM's shapes (µs, bound), beside an empty kernel
+    (`torch.cuda._sleep(0)`) timed back to back as the kernels are, and
+    replayed 100 to a CUDA graph."""
+    for label, ms, bound in entries.rows:
+        if label.startswith("K1") and any(f"({r},{c})" in label
+                                          for r, c, _, _ in LN_SHAPES):
+            print(f"K1 at MobileSAM's {label[len('K1 fused_layer_norm '):]}: "
+                  f"{ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                  f"({bound / ms:.0%} of it)")
+    eager_us = time_ms(torch, lambda: torch.cuda._sleep(0)) * 1e3
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(100):
+            torch.cuda._sleep(0)
+    graph_us = time_ms(torch, graph.replay) * 1e3 / 100
+    print(f"an empty kernel: {eager_us:.2f} us a launch back to back, "
+          f"{graph_us:.2f} us a kernel in a CUDA graph of 100", flush=True)
+
+
 def rgba(np, h: int, w: int, seed: int):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
 
@@ -701,6 +873,73 @@ def check_small_against_cpu(torch, np, dl, counters):
             if flips > limit:
                 fail(f"{label}: card mask differs from the CPU port for {p}")
         print(f"phase 3 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def amg_logits(torch, env, seg, grid, slots, thr, refine):
+    """The upsampled logits (K, H, W) of the winners of the AMG program on
+    `thr`, run eagerly from its own stages (for the near-zero flip rule)."""
+    from dlimgedit_tpu_torch.ops.postprocess import upsample_mask_logits
+    from dlimgedit_tpu_torch.ops.preprocess import pick_bucket
+    from dlimgedit_tpu_torch.runtime import amg as ramg
+
+    bundle = env.sam_model()
+    cfg = bundle.cfg
+    bucket = pick_bucket(seg.extent)
+    head, between, _ = ramg._build_amg_fn(
+        bundle, bucket, grid, slots, ramg._prenms_pool(grid * grid, slots), True)
+    sizes = seg._sizes()
+    with torch.inference_mode():
+        out = head(seg.embedding, sizes, thr)
+        m = between(*out)[0] if refine else out[0]
+        logits = upsample_mask_logits(m[None], bucket, cfg.image_size, *sizes)
+    h, w = seg.extent.height, seg.extent.width
+    return logits[0, :, :h, :w].cpu().numpy()
+
+
+def check_amg_small_against_cpu(torch, np, dl):
+    """Phase 3, automatic mask generation at image size 64, float32: the
+    card against the CPU (grid 4; the goldens' call, 8 winners at nms 1.0,
+    and those through the small-region filter): the same count,
+    accuracies within 2e-5, masks equal but where the CPU's logit is within
+    1e-4 of zero."""
+    t0 = time.perf_counter()
+    opts = dict(allow_random_weights=True, compute_dtype="float32",
+                sam_image_size=64)
+    envs = [dl.Environment(dl.Options(backend=b, **opts))
+            for b in (dl.Backend.cpu, dl.Backend.gpu)]
+    img = dl.Image(dl.Extent(96, 64), dl.Channels.rgba, rgba(np, 64, 96, 42))
+    segs = [dl.Segmentation.process(img, e) for e in envs]
+    for kw in (dict(max_masks=4, nms_thresh=0.7),
+               dict(max_masks=8, nms_thresh=1.0),
+               dict(max_masks=8, nms_thresh=1.0, min_mask_region_area=400)):
+        cpu, card = (s.generate_masks(grid=4, **AMG_THRESH, **kw) for s in segs)
+        if len(cpu) != len(card) or not cpu:
+            fail(f"AMG at 64 {kw}: {len(card)} masks on the card, {len(cpu)} "
+                 f"on the CPU")
+        err = max(abs(a.accuracy - b.accuracy) for a, b in zip(cpu, card))
+        if not err <= 2e-5:
+            fail(f"AMG at 64 {kw}: accuracies differ by {err}")
+        seg = segs[0]
+        lr = seg._scale * 16 / 64
+        thr = envs[0].floats_on_device((0.0, 0.0, kw["nms_thresh"], 0.0, 1.0,
+                                        kw.get("min_mask_region_area", 0) * lr * lr))
+        logits = amg_logits(torch, envs[0], seg, 4, kw["max_masks"], thr,
+                            "min_mask_region_area" in kw)
+        flips = 0
+        for i, (a, b) in enumerate(zip(cpu, card)):
+            if not np.array_equal(np.where(logits[i] > 0, 255, 0),
+                                  a.image.pixels[..., 0]):
+                fail(f"AMG at 64 {kw}: the program's own logits do not give "
+                     f"its mask {i}")
+            flip = a.image.pixels[..., 0] != b.image.pixels[..., 0]
+            if not (np.abs(logits[i][flip]) <= 1e-4).all():
+                fail(f"AMG at 64 {kw}: mask {i} differs from the CPU's away "
+                     f"from the threshold")
+            flips += int(flip.sum())
+        print(f"AMG at 64 {kw}, card vs CPU: {len(card)} masks each, "
+              f"accuracies max|diff|={err:.2e} (limit 2e-5), {flips} pixels "
+              f"flipped (allowed where the CPU's logit is within 1e-4 of 0)")
+    print(f"phase 3 AMG: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def queries(dl, seg):
@@ -969,6 +1208,270 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     return env, images, segs, launches, memory
 
 
+def amg_thresholds(seg, bundle, kw):
+    """generate_masks's threshold vector for the keywords `kw`."""
+    lr = seg._scale * bundle.cfg.mask_input_size / bundle.cfg.image_size
+    t = dict(AMG_THRESH, nms_thresh=0.7, min_area_frac=0.0, max_area_frac=1.0,
+             min_mask_region_area=0)
+    t.update(kw)
+    return (t["iou_thresh"], t["stability_thresh"], t["nms_thresh"],
+            t["min_area_frac"], t["max_area_frac"],
+            t["min_mask_region_area"] * lr * lr)
+
+
+def hold_amg_against_mirror(torch, np, env, seg, exe, thr):
+    """The winners of the key's last call (replayed) against the numpy
+    mirror of the selection (filter, stable sort, the pool, greedy NMS,
+    top-K) fed with the card's own pass-A statistics (`amg_candidates`).
+    -> the pool's (boxes, scores) on the card, the NMS kernel's input."""
+    from dlimgedit_tpu_torch.runtime import amg as ramg
+
+    bundle = env.sam_model(seg._variant)
+    prenms = ramg._prenms_pool(AMG_GRID * AMG_GRID, AMG_SLOTS)
+    with torch.inference_mode():
+        cands = ramg.amg_candidates(bundle, seg.embedding, seg._sizes(), AMG_GRID)
+        valid = ramg._grid_and_valid(bundle.cfg, seg._sizes(), AMG_GRID)[1]
+        boxes_p, sc_p, idx_p = ramg.amg_pool(
+            *cands, valid, env.floats_on_device(thr), prenms)
+    iou, stab, area, boxes = (t.cpu().numpy() for t in cands)
+    f = np.float32
+    valid_area = f(valid.sum().item())
+    ok = ((iou >= f(thr[0])) & (stab >= f(thr[1]))
+          & (area >= max(f(thr[3]) * valid_area, f(1)))
+          & (area <= f(thr[4]) * valid_area))
+    score = np.where(ok, iou, f(-1))
+    order = np.argsort(-score, kind="stable")[:prenms]
+    if not np.array_equal(order, idx_p.cpu().numpy()):
+        fail("AMG: the pre-NMS pool differs from numpy's stable sort")
+    keep, _ = np_greedy_nms(np, boxes[order], score[order], thr[2])
+    win = order[keep][:AMG_SLOTS]
+    got, _ = exe.replay_against_eager()
+    sc, st, ar = (t.cpu().numpy() for t in got[1:])
+    n = int((sc > 0).sum())
+    if n != len(win) or not (np.array_equal(sc[:n], iou[win])
+                             and np.array_equal(st[:n], stab[win])
+                             and np.array_equal(ar[:n], area[win])):
+        fail(f"AMG thresholds {thr}: the program's {n} winners differ from "
+             f"the numpy mirror's {len(win)}")
+    return boxes_p, sc_p, n
+
+
+def graph_nodes(torch, exe, restore_counters) -> str:
+    """Nodes of the key's CUDA graphs (head, and tail), counted on a second
+    capture kept as a cudaGraph_t (the driver's cuGraphGetNodes)."""
+    import ctypes
+
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        counts = []
+        for stage, g in zip(exe._stages[::2], exe._graphs):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with restore_counters(), torch.cuda.graph(graph, stream=side):
+                stage(*g.static_inputs)
+            n = ctypes.c_size_t(0)
+            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                      None, ctypes.byref(n))
+            if rc != 0:
+                return f"not measured (cuGraphGetNodes returned {rc})"
+            counts.append(n.value)
+            del graph
+        return " + ".join(str(c) for c in counts)
+    except (OSError, TypeError, AttributeError, RuntimeError) as e:
+        return f"not measured ({type(e).__name__}: {e})"
+
+
+def drive_amg(torch, np, dl, ops, counters, zero_counters, restore_counters,
+              host_ms, gpu_line):
+    """Phase 7: automatic mask generation. MobileSAM (bf16 encoder, f32
+    decoder) on 1024x768: per round `process` and the AMG_CONFIGS calls,
+    three rounds (warm-up and capture, then replays); every replay
+    bit-equal to its eager program, the winners equal to the numpy
+    mirror's, the masks of rounds 2 and 3 equal to round 1's, exact launch
+    counts per round (round 2 is the counted run). Then a threshold
+    change (no new key, no new capture), times graphed and eager, ViT-B
+    once on 1500x1000, and generate_masks_image with one crop layer.
+    Returns greedy_nms's JSON numbers (sums over round 2's launches, each
+    timed on the input that launch had)."""
+    t0 = time.perf_counter()
+    env = dl.Environment(dl.Options(allow_random_weights=True))
+    bundle = env.sam_model()
+    w, h, seed = IMAGES[0]
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+    kwargs = [dict(grid=AMG_GRID, max_masks=AMG_SLOTS, **AMG_THRESH, **kw)
+              for _, kw in AMG_CONFIGS]
+
+    def amg_key(kw):
+        refine = kw.get("min_mask_region_area", 0) > 0
+        keys = [k for k in env.executables if k[0] == "amg" and k[6] == refine]
+        if len(keys) != 1:
+            fail(f"AMG: keys {keys} for refine={refine}")
+        return keys[0]
+
+    first, nms = {}, []
+    per_process = {"fused_layer_norm": LN_PER_PROCESS,
+                   "levit_window_attention": ATTN_PER_PROCESS,
+                   "greedy_nms": len(AMG_CONFIGS)}
+    launches = None
+    for rnd in range(ROUNDS):
+        zero_counters()
+        seg = dl.Segmentation.process(img, env)
+        for (label, kw), args in zip(AMG_CONFIGS, kwargs):
+            before = counters()["greedy_nms"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            masks = seg.generate_masks(**args)
+            wall = (time.perf_counter() - t) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            if counters()["greedy_nms"] != before + 1:
+                fail(f"AMG {label}: greedy_nms launched "
+                     f"{counters()['greedy_nms'] - before} times in one call")
+            px = [m.image.pixels for m in masks]
+            acc = [m.accuracy for m in masks]
+            if not masks or (kw["nms_thresh"] >= 1.0 and len(masks) != AMG_SLOTS):
+                fail(f"AMG {label}: {len(masks)} masks")
+            if acc != sorted(acc, reverse=True) or any(
+                    p.shape != (h, w, 1) or not set(np.unique(p).tolist()) <= {0, 255}
+                    for p in px):
+                fail(f"AMG {label}: masks not binary at the extent, or not "
+                     f"sorted by accuracy")
+            exe = env.executables[amg_key(kw)]
+            if not exe.graphed or not exe.captured:
+                fail(f"AMG {label}: {exe.key} is not a captured CUDA graph")
+            hold_replays_against_eager(torch, env, f"AMG {label} round {rnd + 1}")
+            boxes_p, sc_p, n = hold_amg_against_mirror(
+                torch, np, env, seg, exe, amg_thresholds(seg, bundle, kw))
+            if rnd == 0:
+                first[label] = (px, acc)
+            elif (acc != first[label][1]
+                  or not all(np.array_equal(a, b) for a, b in zip(px, first[label][0]))):
+                fail(f"AMG {label} round {rnd + 1}: masks differ from round 1's")
+            if rnd == 1:
+                nms.append((label, boxes_p, sc_p,
+                            env.floats_on_device(amg_thresholds(seg, bundle, kw))[2:3]))
+            if rnd < 2:
+                print(f"AMG {label} round {rnd + 1} "
+                      f"({'warm-up and capture' if rnd == 0 else 'replay'}): "
+                      f"{len(masks)} masks (numpy mirror: {n} winners, equal), "
+                      f"accuracies {acc[0]:.4f}..{acc[-1]:.4f}, {wall:.1f} ms, "
+                      f"max_memory_allocated above resident {peak:.3f} GiB",
+                      flush=True)
+        counts = counters()
+        expect = {k: per_process.get(k, 0) for k in counts}
+        if counts != expect:
+            fail(f"AMG round {rnd + 1}: launches {counts} != {expect}")
+        if rnd == 1:
+            launches = counts["greedy_nms"]
+    print(f"AMG rounds: every replay bit-equal to its eager program; launches "
+          f"per round {expect}", flush=True)
+
+    # A threshold change: the same keys and graphs, the eager result.
+    graphs = {k: [id(g.graph) for g in e._graphs] for k, e in env.executables.items()}
+    new = dict(iou_thresh=0.02, stability_thresh=0.0, nms_thresh=0.95)
+    seg.generate_masks(grid=AMG_GRID, max_masks=AMG_SLOTS, **new)
+    if {k: [id(g.graph) for g in e._graphs]
+            for k, e in env.executables.items()} != graphs:
+        fail("AMG: a threshold change made a new key or a new capture")
+    hold_replays_against_eager(torch, env, "AMG threshold change")
+    _, _, n = hold_amg_against_mirror(torch, np, env, seg,
+                                      env.executables[amg_key(new)],
+                                      amg_thresholds(seg, bundle, new))
+    print(f"AMG threshold change {new}: same keys and graphs, {n} winners "
+          f"equal to the mirror's and to eager", flush=True)
+    for label, kw in AMG_CONFIGS:
+        exe = env.executables[amg_key(kw)]
+        print(f"AMG {label}: graph nodes "
+              f"{graph_nodes(torch, exe, restore_counters)}", flush=True)
+
+    # The NMS kernel on round 2's inputs: the JSON row.
+    row = dict(max_abs_err=0.0, launches=launches, ms=0.0, plain_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, library_ms=None)
+    for label, boxes_p, sc_p, thresh in nms:
+        ms, plain_ms, bytes_ms, ops_ms, kept, tests = nms_numbers(
+            torch, np, ops, boxes_p, sc_p, thresh)
+        for k, v in zip(("ms", "plain_ms", "bytes_ms", "ops_ms"),
+                        (ms, plain_ms, bytes_ms, ops_ms)):
+            row[k] += v
+        print(f"greedy_nms on AMG {label}'s pool (M={len(sc_p)}): {kept} kept, "
+              f"{tests} IoU tests; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} (latency bound)",
+              flush=True)
+
+    # Wall time, graphed and eager (host clock, median of 5).
+    for (label, kw), args in zip(AMG_CONFIGS, kwargs):
+        exe = env.executables[amg_key(kw)]
+        graphed = host_ms(lambda: seg.generate_masks(**args), n=5)
+        exe.graphed = False
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        eager = host_ms(lambda: seg.generate_masks(**args), n=5)
+        eager_peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        exe.graphed = True
+        print(f"e2e AMG MobileSAM {w}x{h} grid {AMG_GRID} {label} on "
+              f"{gpu_line}: amg_ms graphed={graphed:.3f} eager={eager:.3f} "
+              f"(medians of 5); eager max_memory_allocated above resident "
+              f"{eager_peak:.3f} GiB", flush=True)
+
+    # generate_masks_image with one crop layer, once.
+    t = time.perf_counter()
+    crops = dl.generate_masks_image(img, env, grid=AMG_GRID, max_masks=AMG_SLOTS,
+                                    crop_n_layers=1, **AMG_THRESH)
+    torch.cuda.synchronize()
+    crop_ms = (time.perf_counter() - t) * 1e3
+    acc = [m.accuracy for m in crops]
+    if (not crops or len(crops) > AMG_SLOTS or acc != sorted(acc, reverse=True)
+            or any(m.image.extent != img.extent
+                   or not set(np.unique(m.image.pixels).tolist()) <= {0, 255}
+                   for m in crops)):
+        fail("generate_masks_image: bad masks")
+    print(f"generate_masks_image MobileSAM {w}x{h}, crop_n_layers=1 (5 crops): "
+          f"{len(crops)} masks, {crop_ms:.1f} ms (first call of the crops' "
+          f"buckets included; host clock)", flush=True)
+    del env, seg
+    torch.cuda.empty_cache()
+
+    # ViT-B, windows partitioned, bf16: one call on 1500x1000 (bucket 2048).
+    w, h, seed = IMAGES[1]
+    env = dl.Environment(dl.Options(allow_random_weights=True,
+                                    sam_variant="vit_b"))
+    vb = env.sam_model("vit_b")
+    seed_vit_extras(torch, vb.model)
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+    args = dict(grid=AMG_GRID, max_masks=AMG_SLOTS, **AMG_THRESH, nms_thresh=1.0)
+    zero_counters()
+    seg = dl.Segmentation.process(img, env)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    masks = seg.generate_masks(**args)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    counts = counters()
+    expect = {k: dict(VIT_PER_PROCESS, greedy_nms=1).get(k, 0) for k in counts}
+    if counts != expect:
+        fail(f"AMG ViT-B: launches {counts} != {expect}")
+    if len(masks) != AMG_SLOTS or any(m.image.pixels.shape != (h, w, 1)
+                                      for m in masks):
+        fail(f"AMG ViT-B: {len(masks)} masks")
+    hold_replays_against_eager(torch, env, "AMG ViT-B")
+    exe = next(e for k, e in env.executables.items() if k[0] == "amg")
+    graphed = host_ms(lambda: seg.generate_masks(**args), n=5)
+    exe.graphed = False
+    eager = host_ms(lambda: seg.generate_masks(**args), n=5)
+    exe.graphed = True
+    print(f"e2e AMG ViT-B {w}x{h} (bucket 2048) grid {AMG_GRID} nms 1.0 on "
+          f"{gpu_line}: {len(masks)} masks; amg_ms graphed={graphed:.3f} "
+          f"eager={eager:.3f} (medians of 5); first call (warm-up and "
+          f"capture) max_memory_allocated above resident {peak:.3f} GiB; "
+          f"launches {counts}", flush=True)
+    del env, seg
+    torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -988,6 +1491,7 @@ def main() -> int:
     import numpy as np
 
     import dlimgedit_tpu_torch as dl
+    from dlimgedit_tpu_torch.ops import amg
     from dlimgedit_tpu_torch.ops import flash_attention as fa
     from dlimgedit_tpu_torch.ops import fused_norm as fn
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
@@ -1010,7 +1514,9 @@ def main() -> int:
         windowed_attention_qkv_plain=fa.windowed_attention_qkv_plain,
         smem_gather=probe.smem_gather,
         smem_gather_plain=probe.smem_gather_plain,
-        probe_inputs=probe.probe_inputs)
+        probe_inputs=probe.probe_inputs,
+        greedy_nms=amg.greedy_nms,
+        greedy_nms_plain=amg.greedy_nms_plain)
     wrappers = {name: getattr(ops, name) for name, _, _ in KERNELS}
 
     def counters():
@@ -1019,6 +1525,17 @@ def main() -> int:
     def zero_counters():
         for w in wrappers.values():
             w.launches = 0
+
+    @contextlib.contextmanager
+    def restore_counters():
+        """Leave the counters as they were (around a capture that is not a
+        launch of the main path)."""
+        saved = counters()
+        try:
+            yield
+        finally:
+            for name, w in wrappers.items():
+                w.launches = saved[name]
 
     # Full-precision float32 references everywhere (the cuDNN default lets
     # float32 convolutions run in TF32).
@@ -1058,11 +1575,14 @@ def main() -> int:
     check_kernels(torch, ops, entries)
     check_vit_kernels(torch, ops, entries)
     check_window_kernels(torch, ops, entries)
+    check_nms_kernel(torch, np, ops)
+    k1_launch_floor(torch, entries)
     torch.cuda.empty_cache()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. small size: the card against the CPU -------------------------
     check_small_against_cpu(torch, np, dl, counters)
+    check_amg_small_against_cpu(torch, np, dl)
 
     # -- 4. main paths at full width -------------------------------------
     launches = {name: 0 for name in wrappers}
@@ -1130,10 +1650,18 @@ def main() -> int:
                   f"{memory[2] / 2**30:.3f} GiB left reserved", flush=True)
     lcc_options(torch, dl, runs["mobile_sam"], host_ms)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    # -- 7. automatic mask generation ------------------------------------
+    nms_row = drive_amg(torch, np, dl, ops, counters, zero_counters,
+                        restore_counters, host_ms, gpu_line)
+    launches["greedy_nms"] = nms_row["launches"]
 
     kernels = []
     for name, source, replaces in KERNELS:
-        e = entries.numbers(name, launches[name])
+        e = (nms_row if name == "greedy_nms"
+             else entries.numbers(name, launches[name]))
         if e["launches"] != launches[name]:
             fail(f"{name}: phase 2 timed {e['launches']} main-path launches, "
                  f"the main paths made {launches[name]}")

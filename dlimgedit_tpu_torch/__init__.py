@@ -14,20 +14,17 @@ Quick start::
     seg = dl.Segmentation.process(img, env)      # embed once (on the GPU)
     mask = seg.compute_mask(dl.Point(320, 210))  # cheap interactive queries
     masks = seg.compute_masks(dl.Point(320, 210))  # 3 candidates + accuracy
+    every = seg.generate_masks()                 # segment everything
 
-The port imports neither jax nor dlimgedit_tpu. Automatic mask generation,
-BiRefNet, quantisation and the parallel tiers come with later slices and
-raise ``DlimgError`` here.
+The port imports neither jax nor dlimgedit_tpu. BiRefNet, quantisation
+and the parallel tiers come with later slices and raise ``DlimgError``
+here.
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError
+from .runtime.amg import generate_masks_image
 from .runtime.environment import Environment, is_supported
-from .runtime.segmentation import (
-    Mask,
-    Segmentation,
-    generate_masks_image,
-    segment_objects,
-)
+from .runtime.segmentation import Mask, Segmentation, segment_objects
 from .types import (
     Backend,
     Channels,

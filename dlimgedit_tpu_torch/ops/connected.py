@@ -3,8 +3,9 @@ dlimgedit_tpu/ops/connected.py), batched over a leading axis.
 
 Hook + pointer-jump labelling: every foreground pixel is seeded with a
 unique id (flat index + 1, so a label doubles as a pointer to a pixel);
-each sweep HOOKS (the 4-neighbourhood max is scatter-maxed onto the pixel
-each label points at) and then POINTER-JUMPS twice (labels <- labels[labels]).
+each sweep HOOKS (the 4-neighbourhood max, or with ``conn8`` the
+8-neighbourhood's, is scatter-maxed onto the pixel each label points at)
+and then POINTER-JUMPS twice (labels <- labels[labels]).
 It converges in O(log(H*W)) sweeps, capped at 64 as in the JAX package.
 
 The JAX package tests for convergence after every sweep inside one
@@ -24,20 +25,30 @@ import torch.nn.functional as F
 _SWEEPS_PER_CHECK = 4
 
 
-def _propagate_once(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """labels, mask: (B, H, W) -> max over the pixel and its 4-neighbours,
-    zero on the background."""
+def _propagate_once(labels: torch.Tensor, mask: torch.Tensor,
+                    conn8: bool = False) -> torch.Tensor:
+    """labels, mask: (B, H, W) -> max over the pixel and its 4-neighbours
+    (8-neighbours with ``conn8``), zero on the background."""
     up = F.pad(labels[:, :-1, :], (0, 0, 1, 0))
     down = F.pad(labels[:, 1:, :], (0, 0, 0, 1))
     left = F.pad(labels[:, :, :-1], (1, 0))
     right = F.pad(labels[:, :, 1:], (0, 1))
     m = torch.maximum(torch.maximum(up, down), torch.maximum(left, right))
+    if conn8:
+        # Diagonal neighbours: shift the already-shifted rows sideways.
+        ul = F.pad(up[:, :, :-1], (1, 0))
+        ur = F.pad(up[:, :, 1:], (0, 1))
+        dl = F.pad(down[:, :, :-1], (1, 0))
+        dr = F.pad(down[:, :, 1:], (0, 1))
+        m = torch.maximum(m, torch.maximum(torch.maximum(ul, ur),
+                                           torch.maximum(dl, dr)))
     return torch.where(mask, torch.maximum(labels, m), 0)
 
 
-def _sweep(labels: torch.Tensor, mask: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+def _sweep(labels: torch.Tensor, mask: torch.Tensor, fg: torch.Tensor,
+           conn8: bool = False) -> torch.Tensor:
     B, H, W = labels.shape
-    cand = _propagate_once(labels, mask).reshape(B, H * W)
+    cand = _propagate_once(labels, mask, conn8).reshape(B, H * W)
     f = labels.reshape(B, H * W)
     # Hook: push the neighbourhood max onto the pixel this label points at
     # (background pixels scatter the harmless value 0 onto pixel 0).
@@ -51,9 +62,11 @@ def _sweep(labels: torch.Tensor, mask: torch.Tensor, fg: torch.Tensor) -> torch.
     return f.reshape(B, H, W)
 
 
-def _label_components(mask: torch.Tensor, max_iters: int = 64) -> torch.Tensor:
+def _label_components(mask: torch.Tensor, max_iters: int = 64,
+                      conn8: bool = False) -> torch.Tensor:
     """mask: (B, H, W) bool -> labels (B, H, W) int64, every pixel of a
-    4-connected component holding the component's max pixel id."""
+    4-connected (8-connected with ``conn8``) component holding the
+    component's max pixel id."""
     B, H, W = mask.shape
     ids = torch.arange(1, H * W + 1, device=mask.device).reshape(1, H, W)
     labels = torch.where(mask, ids, 0)
@@ -62,7 +75,7 @@ def _label_components(mask: torch.Tensor, max_iters: int = 64) -> torch.Tensor:
     while done < max_iters:
         prev = labels
         for _ in range(min(_SWEEPS_PER_CHECK, max_iters - done)):
-            labels = _sweep(labels, mask, fg)
+            labels = _sweep(labels, mask, fg, conn8)
         done += _SWEEPS_PER_CHECK
         if not bool((labels != prev).any()):
             break

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "dlimg_window_strip_attention": [_VP] * 6 + [_I] * 9 + [_F, _VP],
     # table, idx, out, rows, lanes, reps, row_chunks, dtype, stream
     "dlimg_gather_probe": [_VP] * 3 + [_I] * 5 + [_VP],
+    # boxes, scores, thresh, keep, m, stream
+    "dlimg_greedy_nms": [_VP] * 4 + [_I, _VP],
 }
 
 

@@ -9,7 +9,9 @@ dtype; the prompt encoder and decoder stay float32.
 On a CUDA device the encoders run the port's kernels: TinyViT K1
 (LayerNorm) and K2 (window attention); the SAM ViTs K1 and K3 (LayerNorm,
 residual add + LayerNorm), K4 (global rel-pos attention) and K5 (windowed
-rel-pos attention). On the CPU they run the plain path.
+rel-pos attention). On the CPU they run the plain path. Automatic mask
+generation's greedy box NMS runs one kernel of its own
+(``ops/amg.py::greedy_nms``).
 
 Each (program, variant, bucket, ...) key is one ``Executable``. On a CUDA
 device it is a captured ``torch.cuda.CUDAGraph``, the counterpart of the
@@ -33,7 +35,7 @@ import torch
 from ..convert.from_numpy import params_from_numpy
 from ..errors import DlimgError, ModelNotFoundError, not_in_this_slice
 from ..models import sam as sam_lib
-from ..ops import flash_attention, fused_norm
+from ..ops import amg, flash_attention, fused_norm
 from ..ops.preprocess import CanvasPool
 from ..types import Backend, Options
 from ..utils.profiling import Profiler
@@ -94,6 +96,7 @@ COUNTED_KERNELS = (
     flash_attention.relpos_attention_windowed,
     flash_attention.relpos_attention_qkv,
     flash_attention.windowed_attention_fused,
+    amg.greedy_nms,
 )
 
 # One capture at a time in the process (a rule of torch.cuda.graph).
@@ -383,11 +386,25 @@ class Environment:
         repeat heavily in serving; each new tensor is a host copy). Bounded
         FIFO cache, thread-safe."""
         key = tuple(int(v) for v in values)
+        return self._cached(key, lambda: torch.tensor(
+            key, dtype=torch.int32, device=self.device))
+
+    def floats_on_device(self, values: Tuple[float, ...]) -> torch.Tensor:
+        """Device-resident float32 vector, cached per value tuple like
+        ``sizes_on_device`` (the threshold vector of ``generate_masks``: a
+        graph reads it as a static input, so a new value is a new input,
+        never a new capture)."""
+        key = ("f32",) + tuple(float(v) for v in values)
+        return self._cached(key, lambda: torch.tensor(
+            key[1:], dtype=torch.float32, device=self.device))
+
+    def _cached(self, key: Tuple, make: Callable[[], torch.Tensor]
+                ) -> torch.Tensor:
         with self._exec_lock:
             hit = self._sizes_cache.get(key)
             if hit is not None:
                 return hit
-        arr = torch.tensor(key, dtype=torch.int32, device=self.device)
+        arr = make()
         with self._exec_lock:
             if len(self._sizes_cache) >= 256:
                 self._sizes_cache.pop(next(iter(self._sizes_cache)))

@@ -9,6 +9,7 @@ dlimgedit_tpu/runtime/segmentation.py).
                      original size + threshold + bit-pack. Only the packed
                      mask and the IoU scores cross back to the host, in one
                      copy each.
+  * `generate_masks` — every object's mask (runtime/amg.py).
 
 One executable per (program, variant, canvas bucket, ...) key, as in the
 JAX package; on CUDA each is a CUDA graph (``Environment.executable``), or
@@ -310,16 +311,38 @@ class Segmentation:
         return [Mask(self._to_mask_image(mask_u8[i]), float(iou[i]))
                 for i in range(n)]
 
-    def generate_masks(self, *args, **kwargs) -> List[Mask]:
-        """Automatic mask generation: not in this slice of the port."""
-        raise not_in_this_slice("Segmentation.generate_masks", "AMG")
+    def generate_masks(self, grid: int = 32, max_masks: int = 64,
+                       iou_thresh: float = 0.88,
+                       stability_thresh: float = 0.95,
+                       nms_thresh: float = 0.7,
+                       min_area_frac: float = 0.0,
+                       max_area_frac: float = 1.0,
+                       min_mask_region_area: int = 0) -> List[Mask]:
+        """Segment everything: masks for all objects, best-first.
+
+        Upstream SAM's automatic mask generator (point grid -> multimask
+        decode -> IoU / stability / area filter -> greedy box NMS) as one
+        program against the cached embedding, one CUDA graph on the card
+        (runtime/amg.py). The thresholds are a device vector: tuning them
+        reuses the graph.
+
+        grid: points per side of the prompt grid (grid^2 prompts, 3
+        candidate masks each). max_masks: output slots; fewer may return.
+        Masks are sorted by predicted IoU (Mask.accuracy).
+        min_mask_region_area (original-image px, upstream's parameter):
+        fill holes / drop islands smaller than this. For multi-crop
+        generation use the module-level generate_masks_image: it needs the
+        pixels, which a Segmentation no longer holds."""
+        from .amg import generate_masks as _amg
+
+        return _amg(self, grid=grid, max_masks=max_masks,
+                    iou_thresh=iou_thresh,
+                    stability_thresh=stability_thresh,
+                    nms_thresh=nms_thresh, min_area_frac=min_area_frac,
+                    max_area_frac=max_area_frac,
+                    min_mask_region_area=min_mask_region_area)
 
 
 def segment_objects(img: Union[Image, ImageView], env: Environment) -> Image:
     """Dichotomous foreground segmentation (BiRefNet): not in this slice."""
     raise not_in_this_slice("segment_objects", "BiRefNet")
-
-
-def generate_masks_image(*args, **kwargs):
-    """Multi-crop automatic mask generation: not in this slice."""
-    raise not_in_this_slice("generate_masks_image", "AMG")

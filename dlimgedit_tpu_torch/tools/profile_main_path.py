@@ -1,7 +1,8 @@
 """Where the time of the port's main path goes on one GPU.
 
     python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR \
-        [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks]
+        [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks] \
+        [--amg [--grid N] [--nms T] [--refine]]
 
 Drives the main path as a user calls it — the SAM variant (default
 MobileSAM) at 1024 in bfloat16 with seeded random weights (with
@@ -10,7 +11,11 @@ set, so its windowed blocks run K6 on the padded qkv output instead of the
 window partition and K5),
 `Segmentation.process` on a 1024x768 RGBA image, then
 `compute_mask(Point)` — and traces a steady window (after warm-up) of each
-with torch.profiler (CPU and CUDA activities). For each it prints:
+with torch.profiler (CPU and CUDA activities). With ``--amg`` it traces
+`generate_masks` instead (automatic mask generation: grid N, 64 slots,
+thresholds 0 but ``--nms``; ``--refine`` adds min_mask_region_area 1000,
+the eager small-region filter between two graphs), with the greedy NMS
+kernel as a layer of its own. For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
@@ -44,6 +49,7 @@ from torch.profiler import ProfilerActivity, profile
 import dlimgedit_tpu_torch as dl
 
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
+    ("greedy_nms (AMG)", ("greedy_nms_kernel",)),
     ("K3 fused_add_layer_norm", ("add_layer_norm_kernel<",)),
     ("K1 fused_layer_norm", ("layer_norm_kernel<",)),
     ("K2 levit_window_attention", ("levit_attention_kernel",
@@ -134,6 +140,14 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-window-blocks", action="store_true",
                     help="a ViT's windowed blocks through K6 (its bundle's "
                          "SamViTConfig.fused_window_blocks)")
+    ap.add_argument("--amg", action="store_true",
+                    help="trace generate_masks instead of the mask click")
+    ap.add_argument("--grid", type=int, default=32,
+                    help="--amg: points per side of the prompt grid")
+    ap.add_argument("--nms", type=float, default=0.7,
+                    help="--amg: nms_thresh")
+    ap.add_argument("--refine", action="store_true",
+                    help="--amg: min_mask_region_area 1000")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -159,6 +173,17 @@ def main(argv=None) -> int:
     px = np.random.default_rng(1).integers(0, 256, (768, 1024, 4), dtype=np.uint8)
     img = dl.Image(dl.Extent(1024, 768), dl.Channels.rgba, px)
     seg = dl.Segmentation.process(img, env)
+    if args.amg:
+        refine = 1000 if args.refine else 0
+        profile_calls(
+            f"{label}_amg_grid{args.grid}_nms{args.nms}"
+            f"{'_refine' if refine else ''}",
+            lambda: seg.generate_masks(grid=args.grid, max_masks=64,
+                                       iou_thresh=0.0, stability_thresh=0.0,
+                                       nms_thresh=args.nms,
+                                       min_mask_region_area=refine),
+            args.calls, out_dir)
+        return 0
     profile_calls(f"{label}_process",
                   lambda: dl.Segmentation.process(img, env), args.calls, out_dir)
     profile_calls(f"{label}_compute_mask",

@@ -26,6 +26,11 @@ same bucket leaves an earlier embedding and its masks alone, two threads
 on one key each get their own answer, and a capture that fails raises
 instead of running eagerly.
 
+The greedy box NMS kernel (``greedy_nms``, csrc/greedy_nms.cu) must keep
+the plain row loop's flags bit for bit, at M = 256 and 2304 (boxes in
+shared memory), 9216 (grid 64's pool) and 14400 (boxes read from global
+memory), and a CUDA graph of it must read the threshold's current value.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -44,6 +49,7 @@ import torch
 import dlimgedit_tpu_torch as dl
 from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.models import sam, vit_sam
+from dlimgedit_tpu_torch.ops.amg import greedy_nms, greedy_nms_plain
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
     attention_relpos_plain,
@@ -584,3 +590,69 @@ def test_graph_capture_failure_raises(dev):
     assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
     seg = dl.Segmentation.process(_image(96, 64, 9), env)
     assert seg.compute_mask(dl.Point(10, 10)).pixels.shape == (64, 96, 1)
+
+
+# -- the greedy box NMS kernel ----------------------------------------------
+
+
+def _nms_inputs(dev, M, seed):
+    """Score-sorted overlapping boxes on a 256 grid (the low-res mask grid
+    at image size 1024), with duplicates, and an invalid (-1) tail."""
+    gen = torch.Generator().manual_seed(seed)
+    xy = torch.randint(0, 200, (M, 2), generator=gen)
+    wh = torch.randint(1, 80, (M, 2), generator=gen)
+    boxes = torch.cat([xy, xy + wh - 1], dim=1).float()
+    dup = torch.randint(0, M, (M // 8,), generator=gen)
+    boxes[M - M // 8:] = boxes[dup]
+    boxes = boxes[torch.randperm(M, generator=gen)]
+    scores = torch.sort(torch.rand(M, generator=gen), descending=True).values
+    scores[M - M // 10:] = -1.0
+    return boxes.to(dev), scores.to(dev)
+
+
+@pytest.mark.parametrize("M", [256, 2304, 9216, 14400])
+def test_greedy_nms_kernel_matches_plain(dev, M):
+    boxes, scores = _nms_inputs(dev, M, M)
+    for t in (0.3, 0.7, 1.0):
+        thresh = torch.tensor([t], device=dev)
+        before = greedy_nms.launches
+        got = greedy_nms(boxes, scores, thresh)
+        assert greedy_nms.launches == before + 1
+        want = greedy_nms_plain(boxes, scores, thresh)
+        assert got.dtype == torch.bool and torch.equal(got, want), (
+            f"M {M} thresh {t}: {int((got != want).sum())} flags differ")
+        if t < 1.0:
+            assert 0 < int(want.sum()) < int((scores > 0).sum())
+        else:
+            assert torch.equal(want, scores > 0)
+
+
+def test_greedy_nms_graph_reads_the_current_threshold(dev):
+    boxes, scores = _nms_inputs(dev, 2304, 7)
+    thresh = torch.tensor([0.5], device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        greedy_nms(boxes, scores, thresh)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        keep = greedy_nms(boxes, scores, thresh)
+    for t in (0.5, 0.2, 0.9):
+        thresh.fill_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(keep, greedy_nms_plain(boxes, scores, thresh)), t
+
+
+def test_greedy_nms_raises_instead_of_falling_back(dev):
+    boxes, scores = _nms_inputs(dev, 64, 1)
+    with pytest.raises(DlimgError):
+        greedy_nms(boxes, scores, 0.5)  # a host float would be baked in
+    with pytest.raises(DlimgError):
+        greedy_nms(boxes, scores, torch.tensor([0.5]))  # on the host
+    with pytest.raises(DlimgError):
+        greedy_nms(boxes.double(), scores, torch.tensor([0.5], device=dev))
+    with pytest.raises(DlimgError):
+        greedy_nms(boxes.view(-1)[1:-3].reshape(-1, 4), scores[1:],
+                   torch.tensor([0.5], device=dev))  # not 16-byte aligned

@@ -16,7 +16,14 @@ hold bit for bit against the key's eager program. Here:
   * the decode keys with largest_component are split around the
     labelling, which reads the device from the host (the eager stage
     between two graphs); their masks are held against JAX's in
-    tests/test_torch_segmentation.py and tests/test_torch_vit_sam.py.
+    tests/test_torch_segmentation.py and tests/test_torch_vit_sam.py;
+  * automatic mask generation: a threshold change reuses the key, a new
+    grid or the small-region filter makes one new key, and the filter's
+    program is (head, refine, tail); with the fake graphs each call equals
+    the eager program on its own thresholds.
+
+Marked `cuda` (skipped here): the AMG keys as real CUDA graphs, replays
+bit-equal to `.eager`, with and without the small-region filter.
 """
 
 import contextlib
@@ -28,7 +35,7 @@ import torch
 
 import dlimgedit_tpu_torch as pdl
 from dlimgedit_tpu_torch.models import sam, vit_sam
-from dlimgedit_tpu_torch.ops import fused_norm
+from dlimgedit_tpu_torch.ops import amg, fused_norm
 from dlimgedit_tpu_torch.ops.flash_attention import levit_window_attention
 from dlimgedit_tpu_torch.runtime.environment import (
     COUNTED_KERNELS,
@@ -37,6 +44,7 @@ from dlimgedit_tpu_torch.runtime.environment import (
     add_launches,
     launch_counts,
 )
+from dlimgedit_tpu_torch.runtime.amg import _build_amg_fn
 from dlimgedit_tpu_torch.utils.profiling import Profiler
 
 torch.set_num_threads(2)
@@ -199,3 +207,101 @@ def test_labelled_decode_is_split_around_the_labelling():
                       ("decode", "vit_b", 512, False, True): 3,
                       ("decode", "vit_b", 512, False, False): 1,
                       ("decode_batch", "vit_b", 512, 2, True): 3}
+
+
+# -- automatic mask generation ----------------------------------------------
+
+AMG_KW = dict(grid=4, max_masks=4, iou_thresh=0.0, stability_thresh=0.0)
+
+
+def _mobile_env(backend=pdl.Backend.gpu, dtype="float32"):
+    return pdl.Environment(pdl.Options(
+        backend=backend, allow_random_weights=True, compute_dtype=dtype,
+        sam_image_size=64, model_directory="no-such-directory"))
+
+
+def _small_image(seed):
+    px = np.random.default_rng(seed).integers(0, 256, (64, 96, 4), dtype=np.uint8)
+    return pdl.Image(pdl.Extent(96, 64), pdl.Channels.rgba, px)
+
+
+def test_amg_executable_per_key():
+    """Thresholds are a device vector (no new key); the grid and the
+    small-region filter are part of the key, as in JAX (tests/test_amg.py)."""
+    env = _mobile_env(pdl.Backend.cpu)
+    seg = pdl.Segmentation.process(_small_image(0), env)
+    seg.generate_masks(**AMG_KW)
+    n0 = len(env.executables)
+    seg.generate_masks(**dict(AMG_KW, iou_thresh=0.5, stability_thresh=0.2,
+                              nms_thresh=0.9))
+    assert len(env.executables) == n0
+    seg.generate_masks(**dict(AMG_KW, grid=2))
+    assert len(env.executables) == n0 + 1
+    seg.generate_masks(min_mask_region_area=9, **AMG_KW)
+    assert len(env.executables) == n0 + 2
+    seg.generate_masks(min_mask_region_area=25, **AMG_KW)
+    assert len(env.executables) == n0 + 2
+    stages = {k[3:]: len(e._stages) for k, e in env.executables.items()
+              if k[0] == "amg"}
+    assert stages == {(4, 4, 48, False): 1, (2, 4, 12, False): 1,
+                      (4, 4, 48, True): 3}
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_amg_graph_logic_follows_the_thresholds(refine):
+    """Through the fake graphs: one capture, then each call's thresholds
+    copied into the static input give that call's eager result."""
+    env = _mobile_env(pdl.Backend.cpu)
+    seg = pdl.Segmentation.process(_small_image(1), env)
+    bundle = env.sam_model()
+    exe = _CpuGraphed(("amg",), _build_amg_fn(bundle, 256, 4, 8, 48, refine))
+    for thr in ((0.0, 0.0, 0.7, 0.0, 1.0, 6.0), (0.0, 0.0, 1.0, 0.0, 1.0, 6.0),
+                (0.1, 0.5, 1.0, 0.0, 0.9, 40.0)):
+        t = torch.tensor(thr)
+        got = exe(seg.embedding, seg._sizes(), t)
+        want = exe.eager(seg.embedding, seg._sizes(), t)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), thr
+    assert exe.replays == 2 * (2 if refine else 1)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs and the NMS kernel)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_amg_graph_replay_equals_eager(dev, dtype):
+    env = _mobile_env(dtype=dtype)
+    seg = pdl.Segmentation.process(_small_image(2), env)
+    calls = [dict(AMG_KW), dict(AMG_KW, nms_thresh=1.0, max_masks=8),
+             dict(AMG_KW, min_mask_region_area=300)]
+    first = None
+    for rnd in range(3):  # warm-up and capture, then replays
+        before = amg.greedy_nms.launches
+        out = [seg.generate_masks(**kw) for kw in calls]
+        assert amg.greedy_nms.launches == before + len(calls)
+        masks = [m.image.pixels for ms in out for m in ms]
+        first = first or masks
+        assert len(masks) == len(first)
+        assert all(np.array_equal(a, b) for a, b in zip(masks, first))
+        for key, exe in env.executables.items():
+            if key[0] != "amg":
+                continue
+            assert exe.graphed and exe.captured
+            got, want = exe.replay_against_eager()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), key
+    assert {len(e._stages) for k, e in env.executables.items()
+            if k[0] == "amg"} == {1, 3}
+    # A new threshold reuses the key's graph and gives the eager result.
+    n0 = len(env.executables)
+    seg.generate_masks(**dict(AMG_KW, nms_thresh=0.95, iou_thresh=0.05))
+    assert len(env.executables) == n0
+    key = next(k for k in env.executables if k[0] == "amg" and k[4] == 4
+               and not k[6])
+    got, want = env.executables[key].replay_against_eager()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
