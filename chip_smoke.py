@@ -5,7 +5,8 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. The port's nine kernels (dlimgedit_tpu_torch/csrc/):
+package. The port's nine kernels (dlimgedit_tpu_torch/csrc/; phase 8's
+BiRefNet launches none of them):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
@@ -43,8 +44,13 @@ printing its seconds:
      greedy_nms at M = 256, 2304, 9216 and 14400 (the last above what
      shared memory holds) on seeded overlapping boxes, keep flags bit for
      bit against the plain row loop and a numpy mirror; then K1's time at
-     each of MobileSAM's shapes beside an empty kernel's, back to back and
-     in a CUDA graph (the launch floor). In
+     each of MobileSAM's shapes, back to back and inside a CUDA graph of
+     100 launches (as the graphed main path runs it), beside an empty
+     kernel's both ways (the launch floor). Phase 2 alone runs with the
+     TF32 flags off (its plain versions are float32 references); every
+     other phase runs with PyTorch's defaults, under which the port's
+     entry points keep float32 at full precision themselves (every
+     executable enters models/common.py::full_precision). In
      bf16 it times kernel, plain version, the library yardstick
      (F.layer_norm; x + d then F.layer_norm, two calls;
      F.scaled_dot_product_attention with the materialised float bias, on
@@ -53,7 +59,8 @@ printing its seconds:
      none for K8; timed only, never used by the port) and computes the
      least time the card could take
      (bound); it prints kernel / library for each attention shape;
-  3. checks the port on the card against the port on the CPU (float32):
+  3. checks the port on the card against the port on the CPU (float32,
+     PyTorch's default TF32 flags in force):
      MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
      ViT-B at 512, full width and depth, with seeded nonzero rel-pos
      tables, pos_embed and qkv biases (embedding within relative L2 1e-5;
@@ -122,7 +129,27 @@ printing its seconds:
      node counts; the NMS kernel timed on round 2's pools; wall times
      graphed and eager, medians of 5, with peak device memory;
      generate_masks_image with one crop layer; ViT-B (partitioned, bf16)
-     once on 1500x1000 (bucket 2048) at nms 1.0.
+     once on 1500x1000 (bucket 2048) at nms 1.0;
+  8. BiRefNet `segment_objects` (dichotomous foreground segmentation) at
+     the full BiRefNet_lite width (swin_v1_tiny; mul_scl_ipt 'cat',
+     cxt_num 3, decoder inter 64, ASPP 256 wide with kernels 1/3/7, gdt
+     16) in bf16 with seeded nonzero offset and modulator convs, biases,
+     LayerNorms and rel-pos tables: `general` (resolution 1024) on 1024x768 (bucket
+     1024) and 1500x1000 (bucket 2048), `high_res` (resolution 2048) on
+     2000x1500, which escalates; three rounds, every replay bit-equal to
+     its key's eager program, rounds 2 and 3 equal to round 1, uint8
+     masks at the extent, not constant, and no launch of the port's
+     kernels (BiRefNet reaches no TPU kernel); the graphs' node counts;
+     the int8 deform option at 1024 (every deform conv of one forward
+     both ways on its own inputs, within 2% of the output range; the
+     int8 model's mask against the exact one, printed); float32 on the
+     card against the CPU at resolution 256, full width, under PyTorch's
+     default TF32 flags: logits within relative L2 1e-4 (also printed
+     outside the port's full-precision scope: the TF32 it repairs),
+     masks within 1 quantum; `birefnet_ms` graphed and eager (host
+     clock, medians of 10), the host's resize of the mask back to the
+     extent alone (and once as the dense products), and each key's peak
+     device memory.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
@@ -141,6 +168,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -226,6 +254,15 @@ IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 # Rounds of phase 4 over the images: warm-up and capture, then replays.
 ROUNDS = 3
 
+# Phase 8, BiRefNet `segment_objects` (bf16, full BiRefNet_lite width):
+# (kind it must take, width, height, seed): resolution 1024 in buckets 1024
+# and 2048, and an image above 1536 px that escalates to resolution 2048.
+BIREFNET_IMAGES = (("general", 1024, 768, 4), ("general", 1500, 1000, 5),
+                   ("high_res", 2000, 1500, 6))
+# Float32 on the card against float32 on the CPU: the full width at this
+# resolution (every Swin stage still pads, the shifted blocks included).
+BIREFNET_F32_RESOLUTION = 256
+
 # The shortest spin kernel run ahead of timed launches (about 20 ms at the
 # H100's clocks; its device time is measured once, in `spin_ms`; longer for
 # a callable that the host takes longer to queue), and how many times a
@@ -275,6 +312,23 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """The TF32 flags off for a phase's own float32 references (the plain
+    kernel versions), and put back after: the port's entry points scope
+    their own precision, and the rest of this script runs with PyTorch's
+    default flags."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 _SPIN_MS = []
@@ -769,18 +823,42 @@ def check_nms_kernel(torch, np, ops):
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
-def k1_launch_floor(torch, entries):
-    """K1 at each of MobileSAM's shapes (µs, bound), beside an empty kernel
-    (`torch.cuda._sleep(0)`) timed back to back as the kernels are, and
-    replayed 100 to a CUDA graph."""
-    for label, ms, bound in entries.rows:
-        if label.startswith("K1") and any(f"({r},{c})" in label
-                                          for r, c, _, _ in LN_SHAPES):
-            print(f"K1 at MobileSAM's {label[len('K1 fused_layer_norm '):]}: "
-                  f"{ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
-                  f"({bound / ms:.0%} of it)")
-    eager_us = time_ms(torch, lambda: torch.cuda._sleep(0)) * 1e3
+def k1_launch_floor(torch, ops, entries, restore_counters):
+    """K1 at each of MobileSAM's shapes (µs, bound), timed back to back as
+    phase 2 times it and inside a CUDA graph of 100 launches (as the main
+    path runs it since its executables are graphs), beside an empty kernel
+    (`torch.cuda._sleep(0)`) timed both ways, and the in-graph sum over
+    MobileSAM's main-path launches against the bound's."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     side = torch.cuda.Stream()
+    rows = {label: (ms, bound) for label, ms, bound in entries.rows}
+    graph_sum = bound_sum = 0.0
+    for n, C, eps, per in LN_SHAPES:
+        ms, bound = rows[f"K1 fused_layer_norm ({n},{C})"]
+        x = torch.randn((n, C), generator=gen, device=dev).to(torch.bfloat16)
+        scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)
+                 ).to(torch.bfloat16)
+        bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25
+                ).to(torch.bfloat16)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with restore_counters():
+            with torch.cuda.stream(side):
+                ops.fused_layer_norm(x, scale, bias, eps)
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(100):
+                    ops.fused_layer_norm(x, scale, bias, eps)
+        in_graph = time_ms(torch, graph.replay) * 1e3 / 100
+        del graph
+        graph_sum += in_graph * per * len(IMAGES) / 1e3
+        bound_sum += bound * per * len(IMAGES)
+        print(f"K1 at MobileSAM's ({n},{C}): {ms * 1e3:.2f} us back to back, "
+              f"{in_graph:.2f} us in a CUDA graph of 100, bound "
+              f"{bound * 1e3:.2f} us ({bound * 1e3 / in_graph:.0%} of the "
+              f"in-graph time)")
+    eager_us = time_ms(torch, lambda: torch.cuda._sleep(0)) * 1e3
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
@@ -789,6 +867,9 @@ def k1_launch_floor(torch, entries):
     graph_us = time_ms(torch, graph.replay) * 1e3 / 100
     print(f"an empty kernel: {eager_us:.2f} us a launch back to back, "
           f"{graph_us:.2f} us a kernel in a CUDA graph of 100", flush=True)
+    print(f"K1 over MobileSAM's {LN_PER_PROCESS * len(IMAGES)} main-path "
+          f"launches, in CUDA graphs: {graph_sum:.5f} ms against a bound of "
+          f"{bound_sum:.5f} ms ({bound_sum / graph_sum:.0%})", flush=True)
 
 
 def rgba(np, h: int, w: int, seed: int):
@@ -1472,6 +1553,264 @@ def drive_amg(torch, np, dl, ops, counters, zero_counters, restore_counters,
     return row
 
 
+def birefnet_models_equal(torch, a, b, label) -> None:
+    for (k, v), (k2, v2) in zip(a.state_dict().items(), b.state_dict().items()):
+        if k != k2 or not torch.equal(v.cpu(), v2.to(v.dtype).cpu()):
+            fail(f"BiRefNet {label}: the models differ at {k}")
+
+
+def check_birefnet_f32_against_cpu(torch, np, dl, seed_extras):
+    """Phase 8: BiRefNet_lite at full width in float32 at resolution
+    BIREFNET_F32_RESOLUTION, the card against the CPU, with PyTorch's
+    default TF32 flags in force (cuDNN's allows TF32): the logits of one
+    forward within relative L2 1e-4 (run in ``full_precision``, the scope
+    every executable enters), the `segment_objects` masks within 1
+    quantum. Also prints the card's logits of the same forward outside
+    the scope (cuDNN in TF32, as the port ran before the repair)."""
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.models.common import full_precision
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if flags != (True, False):
+        fail(f"phase 8 float32: the TF32 flags are {flags}, not PyTorch's "
+             f"defaults (cudnn True, matmul False)")
+    os.environ["DLIMG_BIREFNET_RESOLUTION"] = str(BIREFNET_F32_RESOLUTION)
+    try:
+        envs = [dl.Environment(dl.Options(backend=b, allow_random_weights=True,
+                                          compute_dtype="float32"))
+                for b in (dl.Backend.cpu, dl.Backend.gpu)]
+        bundles = [e.birefnet_model("general") for e in envs]
+    finally:
+        del os.environ["DLIMG_BIREFNET_RESOLUTION"]
+    for b in bundles:
+        seed_extras(b.model)
+    birefnet_models_equal(torch, bundles[0].model, bundles[1].model, "float32")
+    S = BIREFNET_F32_RESOLUTION
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, S, S, 3)).astype(np.float32))
+    cfg = bundles[0].cfg
+    with torch.inference_mode():
+        want = bn.birefnet_apply(bundles[0].model, x, cfg)
+        with full_precision():  # what the port's executables enter
+            got = bn.birefnet_apply(bundles[1].model, x.cuda(), cfg).cpu()
+        tf32 = bn.birefnet_apply(bundles[1].model, x.cuda(), cfg).cpu()
+    rel, err = rel_l2(torch, got, want), (got - want).abs().max().item()
+    rel_tf32 = rel_l2(torch, tf32, want)
+    err_tf32 = (tf32 - want).abs().max().item()
+    print(f"BiRefNet float32 at {S}, card vs CPU, default TF32 flags: logits "
+          f"relative L2 {rel:.3e} (limit 1e-4), max|diff| {err:.3e}; outside "
+          f"the port's scope (cuDNN in TF32, as before the repair): relative L2 "
+          f"{rel_tf32:.3e}, max|diff| {err_tf32:.3e}; logits range "
+          f"[{want.min().item():.3f}, {want.max().item():.3f}]", flush=True)
+    if not rel <= 1e-4:
+        fail(f"BiRefNet float32: the card's logits differ from the CPU's: "
+             f"relative L2 {rel}")
+    img = dl.Image(dl.Extent(320, 256), dl.Channels.rgba, rgba(np, 256, 320, 8))
+    cpu, card = (dl.segment_objects(img, e).pixels.astype(np.int32)
+                 for e in envs)
+    diff = np.abs(cpu - card)
+    print(f"BiRefNet float32 segment_objects 320x256, card vs CPU: mask "
+          f"max quantum diff {diff.max()}, {int((diff > 0).sum())} of "
+          f"{diff.size} pixels differ (limit 1 quantum)", flush=True)
+    if diff.max() > 1:
+        fail(f"BiRefNet float32: the card's mask differs from the CPU's by "
+             f"{diff.max()} quanta")
+    if (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) != flags:
+        fail("BiRefNet float32: the port changed the caller's TF32 flags")
+    print(f"phase 8 float32: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_birefnet_int8(torch, np, dl, env, seed_extras, first_mask, img):
+    """Phase 8: `birefnet_int8_deform` at 1024. Every deform conv of one
+    eager forward of the exact model is run both ways on its own inputs
+    (the main path's shapes and data): the int8 corner stack within 2% of
+    the output range (the JAX suite's bound). Then the int8 model's mask
+    against the exact one's, printed."""
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.ops import deform
+
+    t0 = time.perf_counter()
+    exe = env.executables[("birefnet", "general", 1024)]
+    devs = []
+
+    def both(x, offset, mask, w, bias=None, padding=0, int8_gather=False):
+        exact = deform.deform_conv2d(x, offset, mask, w, bias, padding)
+        q = deform.deform_conv2d(x, offset, mask, w, bias, padding,
+                                 int8_gather=True)
+        devs.append((tuple(x.shape), w.shape[-1], (
+            (exact.float() - q.float()).abs().max()
+            / exact.float().abs().max()).item()))
+        return exact
+
+    bn.deform_conv2d = both
+    try:
+        exe.eager(*exe.static_inputs)
+    finally:
+        bn.deform_conv2d = deform.deform_conv2d
+    worst = max(devs, key=lambda d: d[2])
+    print(f"BiRefNet int8 deform at 1024: {len(devs)} deform convs of one "
+          f"forward, int8 against exact max|diff| / max|exact| up to "
+          f"{worst[2]:.4f} (at input {worst[0]}, kernel {worst[1]}; limit "
+          f"0.02); per conv "
+          f"{[round(d[2], 4) for d in devs]}", flush=True)
+    if not worst[2] < 0.02:
+        fail(f"BiRefNet int8 deform deviates {worst[2]} of the output range")
+    env8 = dl.Environment(dl.Options(allow_random_weights=True,
+                                     birefnet_int8_deform=True))
+    b8 = env8.birefnet_model("general")
+    if not b8.cfg.deform_int8_gather:
+        fail("birefnet_int8_deform did not reach the model config")
+    seed_extras(b8.model)
+    birefnet_models_equal(torch, env.birefnet_model("general").model,
+                          b8.model, "int8")
+    q = dl.segment_objects(img, env8).pixels.astype(np.int32)
+    diff = np.abs(q - first_mask.astype(np.int32))
+    print(f"BiRefNet int8 deform at 1024, segment_objects "
+          f"{img.extent.width}x{img.extent.height} against the exact model: "
+          f"mask max quantum diff {diff.max()}, mean {diff.mean():.3f}, "
+          f"{(diff > 1).mean():.4f} of pixels differ by more than 1 "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    del env8
+    torch.cuda.empty_cache()
+
+
+def drive_birefnet(torch, np, dl, counters, zero_counters, restore_counters,
+                   host_ms, gpu_line):
+    """Phase 8: BiRefNet `segment_objects` at the full BiRefNet_lite width
+    (swin_v1_tiny, mul_scl_ipt 'cat', cxt_num 3, decoder inter 64, ASPP 256
+    wide with kernels 1/3/7, gdt 16) in bf16, seeded random weights with
+    nonzero offset and modulator convs, biases, LayerNorms and rel-pos
+    tables (models/birefnet.py::seed_nonzero_init); the
+    BIREFNET_IMAGES in three rounds (warm-up and capture, then replays):
+    every replay bit-equal to its key's eager program, rounds 2 and 3
+    equal to round 1, masks uint8 at the extent and not constant, no
+    launch of the port's kernels (BiRefNet reaches none). Then float32
+    on the card against the CPU, the int8 deform option, and per image
+    `birefnet_ms` graphed and eager (medians of 10) with the host's
+    resize_mask back to the extent timed alone, the dense box-filter
+    products once at the last image, the peak device memory of each key's
+    first call and its graph's nodes."""
+    from dlimgedit_tpu_torch.image import resize as host_resize
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.ops.preprocess import pick_bucket
+
+    t0 = time.perf_counter()
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+    torch.cuda.empty_cache()
+    env = dl.Environment(dl.Options(allow_random_weights=True))
+    for kind, res in (("general", 1024), ("high_res", 2048)):
+        b = env.birefnet_model(kind)
+        cfg, sw = b.cfg, b.cfg.swin
+        got = (cfg.img_size, sw.embed_dim, sw.depths, sw.num_heads, sw.window,
+               cfg.mul_scl_ipt, cfg.cxt_num, cfg.dec_inter_channels,
+               cfg.aspp_channelster, cfg.aspp_kernel_sizes, cfg.gdt_channels,
+               b.compute_dtype, next(b.model.parameters()).device.type)
+        want = (res, 96, (2, 2, 6, 2), (3, 6, 12, 24), 7, "cat", 3, 64, 256,
+                (1, 3, 7), 16, torch.bfloat16, "cuda")
+        if got != want:
+            fail(f"BiRefNet {kind}: configuration {got} != {want}")
+        seed_nonzero_init(b.model)
+    birefnet_models_equal(torch, env.birefnet_model("general").model,
+                          env.birefnet_model("high_res").model, "kinds")
+    n_params = sum(p.numel() for p in env.birefnet_model("general").model.parameters())
+    print(f"BiRefNet_lite model load (random weights, seed 0, nonzero "
+          f"offsets, modulators, biases; {n_params / 1e6:.2f} M parameters "
+          f"each, bf16), both kinds: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    images = [(kind, dl.Image(dl.Extent(w, h), dl.Channels.rgba,
+                              rgba(np, h, w, seed)))
+              for kind, w, h, seed in BIREFNET_IMAGES]
+    keys = [("birefnet", kind, pick_bucket(img.extent)) for kind, img in images]
+    first, memory = [None] * len(images), {}
+    for rnd in range(ROUNDS):
+        zero_counters()
+        for i, ((kind, img), key) in enumerate(zip(images, keys)):
+            new = key not in env.executables
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            t = time.perf_counter()
+            px = dl.segment_objects(img, env).pixels
+            wall = (time.perf_counter() - t) * 1e3
+            if new:
+                memory[key] = (
+                    (torch.cuda.max_memory_allocated() - resident) / 2**30,
+                    (torch.cuda.memory_reserved() - reserved) / 2**30)
+            if key not in env.executables:
+                fail(f"BiRefNet {img.extent}: no executable {key} (kind "
+                     f"escalation)")
+            exe = env.executables[key]
+            if not exe.graphed or not exe.captured:
+                fail(f"BiRefNet: {key} is not a captured CUDA graph")
+            got, want = exe.replay_against_eager()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"BiRefNet round {rnd + 1}: {key} replayed differs from "
+                     f"its eager program")
+            ext = img.extent
+            if (px.shape != (ext.height, ext.width, 1) or px.dtype != np.uint8
+                    or px.min() == px.max()):
+                fail(f"BiRefNet {key}: mask {px.shape} {px.dtype} "
+                     f"[{px.min()}, {px.max()}] at extent {ext}")
+            if rnd == 0:
+                first[i] = px
+                print(f"BiRefNet {kind} {ext.width}x{ext.height} -> {key}: "
+                      f"mask uint8 [{px.min()}, {px.max()}], mean "
+                      f"{px.mean():.2f}; first call (warm-up and capture) "
+                      f"{wall:.1f} ms, max_memory_allocated above resident "
+                      f"{memory[key][0]:.3f} GiB, reserved grew "
+                      f"{memory[key][1]:.3f} GiB (the graph's pool)",
+                      flush=True)
+            elif not np.array_equal(px, first[i]):
+                fail(f"BiRefNet round {rnd + 1}: {key}'s mask differs from "
+                     f"round 1's")
+        counts = counters()
+        if any(counts.values()):
+            fail(f"BiRefNet round {rnd + 1} launched the port's kernels: "
+                 f"{counts}")
+    print(f"BiRefNet rounds: {len(env.executables)} keys "
+          f"{sorted(env.executables)}, every replay bit-equal to its eager "
+          f"program, rounds 2 and 3 equal to round 1; no launch of K1-K8 or "
+          f"greedy_nms", flush=True)
+    for key in sorted(env.executables):
+        print(f"BiRefNet {key}: graph nodes "
+              f"{graph_nodes(torch, env.executables[key], restore_counters)}",
+              flush=True)
+    for (kind, img), key in zip(images, keys):
+        exe = env.executables[key]
+        graphed = host_ms(lambda: dl.segment_objects(img, env), n=10)
+        exe.graphed = False
+        eager = host_ms(lambda: dl.segment_objects(img, env), n=10)
+        exe.graphed = True
+        S = env.birefnet_model(kind).resolution
+        mask = np.random.default_rng(S).integers(0, 256, (S, S, 1),
+                                                 dtype=np.uint8)
+        resize_ms = host_ms(lambda: host_resize.resize_mask(
+            dl.ImageView.from_array(mask, dl.Channels.mask), img.extent), n=5)
+        print(f"e2e BiRefNet {kind} {img.extent.width}x{img.extent.height} "
+              f"{key} on {gpu_line}: birefnet_ms graphed={graphed:.3f} "
+              f"eager={eager:.3f} (medians of 10); of it the host's "
+              f"resize_mask {S}x{S} -> extent alone {resize_ms:.3f} ms "
+              f"(median of 5); first call max_memory_allocated above "
+              f"resident {memory[key][0]:.3f} GiB", flush=True)
+    t = time.perf_counter()
+    host_resize._resample(mask / 255.0, img.extent, "box")
+    print(f"BiRefNet host resize {S}x{S} -> {img.extent.width}x"
+          f"{img.extent.height} as the dense box-filter products instead "
+          f"(image/resize.py::_resample, once): "
+          f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+    check_birefnet_int8(torch, np, dl, env, seed_nonzero_init, first[0],
+                        images[0][1])
+    del env
+    torch.cuda.empty_cache()
+    check_birefnet_f32_against_cpu(torch, np, dl, seed_nonzero_init)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1537,18 +1876,16 @@ def main() -> int:
             for name, w in wrappers.items():
                 w.launches = saved[name]
 
-    # Full-precision float32 references everywhere (the cuDNN default lets
-    # float32 convolutions run in TF32).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     gpu_line = smi.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
-          f"device count {torch.cuda.device_count()}", flush=True)
+          f"device count {torch.cuda.device_count()}; TF32 flags (PyTorch's "
+          f"defaults, in force outside phase 2): cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1572,11 +1909,12 @@ def main() -> int:
     # -- 2. kernels against their plain versions -------------------------
     t0 = time.perf_counter()
     entries = Entries()
-    check_kernels(torch, ops, entries)
-    check_vit_kernels(torch, ops, entries)
-    check_window_kernels(torch, ops, entries)
-    check_nms_kernel(torch, np, ops)
-    k1_launch_floor(torch, entries)
+    with tf32_off(torch):  # the plain versions are float32 references
+        check_kernels(torch, ops, entries)
+        check_vit_kernels(torch, ops, entries)
+        check_window_kernels(torch, ops, entries)
+        check_nms_kernel(torch, np, ops)
+        k1_launch_floor(torch, ops, entries, restore_counters)
     torch.cuda.empty_cache()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1657,6 +1995,10 @@ def main() -> int:
     nms_row = drive_amg(torch, np, dl, ops, counters, zero_counters,
                         restore_counters, host_ms, gpu_line)
     launches["greedy_nms"] = nms_row["launches"]
+
+    # -- 8. BiRefNet segment_objects -------------------------------------
+    drive_birefnet(torch, np, dl, counters, zero_counters, restore_counters,
+                   host_ms, gpu_line)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -2,9 +2,10 @@
 
 Interactive segmentation with MobileSAM (TinyViT-5M encoder) or SAM ViT-B,
 -L, -H (``Options.sam_variant``), each with the SAM prompt encoder and mask
-decoder, on an NVIDIA GPU, with the same public vocabulary as the JAX
-package. The encoders' LayerNorms and attention run as hand-written CUDA
-kernels (``csrc/``), built with nvcc at first use.
+decoder, and dichotomous foreground segmentation with BiRefNet
+(``segment_objects``), on an NVIDIA GPU, with the same public vocabulary
+as the JAX package. The SAM encoders' LayerNorms and attention run as
+hand-written CUDA kernels (``csrc/``), built with nvcc at first use.
 
 Quick start::
 
@@ -15,10 +16,10 @@ Quick start::
     mask = seg.compute_mask(dl.Point(320, 210))  # cheap interactive queries
     masks = seg.compute_masks(dl.Point(320, 210))  # 3 candidates + accuracy
     every = seg.generate_masks()                 # segment everything
+    fg = dl.segment_objects(img, env)            # remove background
 
-The port imports neither jax nor dlimgedit_tpu. BiRefNet, quantisation
-and the parallel tiers come with later slices and raise ``DlimgError``
-here.
+The port imports neither jax nor dlimgedit_tpu. Quantisation and the
+parallel tiers come with later slices and raise ``DlimgError`` here.
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

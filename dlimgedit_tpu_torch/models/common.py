@@ -19,7 +19,9 @@ package's distributions; the numbers differ from ``jax.random``'s.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -136,12 +138,96 @@ class Mlp(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Float32 precision
+# ---------------------------------------------------------------------------
+
+_PRECISION_LOCK = threading.Lock()
+_precision_depth = 0
+_precision_saved: Optional[tuple] = None
+
+# The per-operation ``fp32_precision`` flags (backend, operation) that may
+# let a float32 product or convolution round its operands below float32:
+# TF32 in cuBLAS and cuDNN, bf16 or TF32 in oneDNN on the CPU. cuDNN's RNN
+# leaf is set with its conv leaf so that the legacy flag stays readable.
+_LEAVES = (("cuda", "matmul"), ("cudnn", "conv"), ("cudnn", "rnn"),
+           ("mkldnn", "matmul"), ("mkldnn", "conv"))
+
+
+def _leaf(name):
+    return getattr(getattr(torch.backends, name[0]), name[1])
+
+
+def _legacy_flags():
+    """The legacy flags as (get, set, the block's value, the leaves their
+    setter also writes): PyTorch checks each against those leaves when it
+    is read, and refuses a mix."""
+    cudnn = torch.backends.cudnn
+    return ((lambda: cudnn.allow_tf32,
+             lambda v: setattr(cudnn, "allow_tf32", v), False,
+             (("cudnn", "conv"), ("cudnn", "rnn"))),
+            (torch.get_float32_matmul_precision,
+             torch.set_float32_matmul_precision, "highest",
+             (("cuda", "matmul"), ("mkldnn", "matmul"))))
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Float32 products and convolutions at full float32 precision inside the
+    block, whatever the caller's TF32 flags (the JAX package's
+    ``precision=HIGHEST``); bf16 operands are unaffected.
+
+    PyTorch's flags are process-wide, so this holds for every thread while
+    any block is open: the first block to enter sets them, the last to
+    leave puts back the caller's values, and blocks may nest and run on
+    several threads at once. The legacy flags are set along with the
+    per-operation ones, so that other threads can still read them. A flag
+    that another thread writes meanwhile takes effect at once, also for
+    the work inside the block, and stands afterwards: a flag is put back
+    only if it still holds the value the block set. A CUDA graph keeps the
+    algorithms chosen at its capture, so a capture runs inside the
+    block."""
+    global _precision_depth, _precision_saved
+    with _PRECISION_LOCK:
+        if _precision_depth == 0:
+            leaves = {n: _leaf(n).fp32_precision for n in _LEAVES}
+            legacy = []
+            for get, put, value, _ in _legacy_flags():
+                try:
+                    legacy.append(get())
+                except RuntimeError:  # a mix the caller made: left alone
+                    legacy.append(None)
+                else:
+                    put(value)
+            _precision_saved = (legacy, leaves)
+            for n in _LEAVES:
+                _leaf(n).fp32_precision = "ieee"
+        _precision_depth += 1
+    try:
+        yield
+    finally:
+        with _PRECISION_LOCK:
+            _precision_depth -= 1
+            if _precision_depth == 0:
+                legacy, leaves = _precision_saved
+                untouched = {n for n in _LEAVES
+                             if _leaf(n).fp32_precision == "ieee"}
+                for (_, put, _, own), old in zip(_legacy_flags(), legacy):
+                    if old is not None and untouched.issuperset(own):
+                        put(old)
+                for n in untouched:
+                    _leaf(n).fp32_precision = leaves[n]
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
            groups: int = 1) -> torch.Tensor:
-    """NHWC conv with an OIHW kernel (the kernel follows x's dtype)."""
+    """NHWC conv with an OIHW kernel (the kernel follows x's dtype). Float32
+    runs at full precision, as JAX's HIGHEST, inside ``full_precision``,
+    which the runtime's executables enter (runtime/environment.py); a
+    direct call takes the caller's flags."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=stride,
                  padding=padding, groups=groups)
     # A channels_last result makes this a no-op.

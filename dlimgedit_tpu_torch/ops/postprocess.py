@@ -3,7 +3,8 @@
 The ONNX decoder's `mask_postprocessing` — bilinear low-res -> model input
 size, crop to the pre-padded size, bilinear to the original size — is linear,
 so it composes into ONE pair of (bucket x L) matrices: the whole
-postprocess is two matrix products, a compare and a bit-pack.
+postprocess is two matrix products, a compare and a bit-pack. BiRefNet's
+postprocess is ``sigmoid_to_u8``.
 """
 
 from __future__ import annotations
@@ -52,3 +53,10 @@ def unpack_mask_bits(packed: np.ndarray, width: int) -> np.ndarray:
     """Host inverse of pack_mask_bits: (..., W//8) u8 -> (..., W) u8 {0,255}."""
     bits = np.unpackbits(packed, axis=-1, count=width)
     return bits * np.uint8(255)
+
+
+def sigmoid_to_u8(logits: torch.Tensor) -> torch.Tensor:
+    """BiRefNet postprocess: uint8(sigmoid(x) * 255) in float32, truncated
+    like the reference's C cast (floor; sigmoid * 255 is never negative)."""
+    v = torch.sigmoid(logits.float()) * 255.0
+    return torch.floor(v).to(torch.uint8)

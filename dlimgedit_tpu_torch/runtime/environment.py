@@ -4,7 +4,9 @@ cache (counterpart of dlimgedit_tpu/runtime/environment.py).
 Model directory convention, shared with the JAX package:
 ``model_directory/segmentation/<name>.npz``, optionally pinned by a
 ``<name>.npz.sha256`` file beside it. Encoder weights follow the compute
-dtype; the prompt encoder and decoder stay float32.
+dtype; the prompt encoder and decoder stay float32. BiRefNet
+(``birefnet_model``, one per kind; runtime/birefnet.py) follows the
+compute dtype whole.
 
 On a CUDA device the encoders run the port's kernels: TinyViT K1
 (LayerNorm) and K2 (window attention); the SAM ViTs K1 and K3 (LayerNorm,
@@ -35,11 +37,13 @@ import torch
 from ..convert.from_numpy import params_from_numpy
 from ..errors import DlimgError, ModelNotFoundError, not_in_this_slice
 from ..models import sam as sam_lib
+from ..models.common import full_precision
 from ..ops import amg, flash_attention, fused_norm
 from ..ops.preprocess import CanvasPool
 from ..types import Backend, Options
 from ..utils.profiling import Profiler
 from ..utils.pytree_io import load_pytree
+from .birefnet import BIREFNET_RESOLUTION, BiRefNetBundle, load_birefnet
 from .lazy import Lazy
 
 # Weight-bundle file names per SAM variant (the JAX package's names).
@@ -126,6 +130,17 @@ def _compose(stages: Sequence[Callable]) -> Callable:
     return run
 
 
+def _scoped(fn: Callable) -> Callable:
+    """``fn`` under inference mode with float32 at full precision (the
+    caller's TF32 flags put back afterwards): its eager runs, its warm-up
+    and its capture, so a graph keeps full-precision algorithms. Every
+    program has float32 products, also in bf16: the device resample
+    (ops/resample.py), the SAM decoder, BiRefNet's ASPP sums. This is the
+    port's one precision scope; its flags are process-wide
+    (``full_precision``)."""
+    return torch.inference_mode()(full_precision()(fn))
+
+
 class _Graph:
     """One captured stage: its static inputs and outputs, and the kernel
     launches its capture counted."""
@@ -144,9 +159,11 @@ class Executable:
     tail) of callables, each taking the previous one's outputs, whose
     ``between`` runs eagerly on every call (it reads the device from the
     host, which no graph may do: the component labelling). ``eager`` is the
-    whole program, run under ``torch.inference_mode``: tests and
-    ``chip_smoke.py`` hold the graphs against it; the main path never calls
-    it directly. ``copy_out`` turns the program's outputs into what the
+    whole program; every stage runs under ``torch.inference_mode`` and
+    ``models.common.full_precision`` (float32 whatever the caller's TF32
+    flags, also in the capture). Tests and ``chip_smoke.py`` hold the
+    graphs against ``eager``; the main path never calls it directly.
+    ``copy_out`` turns the program's outputs into what the
     caller keeps: a replay overwrites its static outputs, so what outlives
     the call is copied out under ``lock`` (a device clone, or the host
     copy that ends a decode).
@@ -186,8 +203,8 @@ class Executable:
             raise DlimgError(f"executable {key}: a program is one callable "
                              f"or (head, between, tail)")
         self.key = key
-        self._stages = [torch.inference_mode()(f) for f in stages]
-        self.eager = torch.inference_mode()(_compose(stages))
+        self._stages = [_scoped(f) for f in stages]
+        self.eager = _scoped(_compose(stages))
         self.graphed = device.type == "cuda"
         self.lock = threading.RLock()
         self._device = device
@@ -374,6 +391,8 @@ class Environment:
                              "available")
         self.compute_dtype = _DTYPES[self.options.compute_dtype]
         self._sam_models: Dict[str, Lazy] = {v: Lazy() for v in SAM_BUNDLES}
+        self._birefnet_models: Dict[str, Lazy] = {
+            k: Lazy() for k in BIREFNET_RESOLUTION}
         self._executables: Dict[Tuple, Executable] = {}
         self._exec_lock = threading.Lock()
         self._sizes_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
@@ -417,6 +436,15 @@ class Environment:
         variant = _variant(variant)
         return self._sam_models[variant].get_or_create(
             lambda: self._load_sam(variant))
+
+    def birefnet_model(self, kind: str = "general") -> BiRefNetBundle:
+        """The BiRefNet of `kind` ("general" or "high_res"; see
+        ``runtime/birefnet.py::load_birefnet``), loaded once."""
+        if kind not in self._birefnet_models:
+            raise DlimgError(f"Unknown BiRefNet kind {kind!r} (have "
+                             f"{sorted(self._birefnet_models)})")
+        return self._birefnet_models[kind].get_or_create(
+            lambda: load_birefnet(self, kind))
 
     def _verified_load(self, path: Path):
         """Load a bundle, verifying a pinned sha256 when `<bundle>.sha256`

@@ -10,6 +10,7 @@ dlimgedit_tpu/runtime/segmentation.py).
                      mask and the IoU scores cross back to the host, in one
                      copy each.
   * `generate_masks` — every object's mask (runtime/amg.py).
+  * `segment_objects` — BiRefNet's foreground mask (runtime/birefnet.py).
 
 One executable per (program, variant, canvas bucket, ...) key, as in the
 JAX package; on CUDA each is a CUDA graph (``Environment.executable``), or
@@ -27,7 +28,6 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..errors import not_in_this_slice
 from ..image.resize import resize_longest_side_extent, transform_point
 from ..models import sam as sam_lib
 from ..ops.connected import largest_component_mask
@@ -39,6 +39,7 @@ from ..ops.preprocess import (
     sam_preprocess,
 )
 from ..types import Channels, Extent, Image, ImageView, Point, Region
+from .birefnet import birefnet_segment
 from .environment import Environment
 
 
@@ -344,5 +345,7 @@ class Segmentation:
 
 
 def segment_objects(img: Union[Image, ImageView], env: Environment) -> Image:
-    """Dichotomous foreground segmentation (BiRefNet): not in this slice."""
-    raise not_in_this_slice("segment_objects", "BiRefNet")
+    """Dichotomous foreground segmentation (BiRefNet; runtime/birefnet.py):
+    a uint8 foreground mask at the image's extent."""
+    view = img.view() if isinstance(img, Image) else img
+    return birefnet_segment(env, view)

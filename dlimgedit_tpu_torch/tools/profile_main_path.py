@@ -2,7 +2,8 @@
 
     python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR \
         [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks] \
-        [--amg [--grid N] [--nms T] [--refine]]
+        [--amg [--grid N] [--nms T] [--refine]] \
+        [--birefnet [--kind general|high_res]]
 
 Drives the main path as a user calls it — the SAM variant (default
 MobileSAM) at 1024 in bfloat16 with seeded random weights (with
@@ -15,13 +16,21 @@ with torch.profiler (CPU and CUDA activities). With ``--amg`` it traces
 `generate_masks` instead (automatic mask generation: grid N, 64 slots,
 thresholds 0 but ``--nms``; ``--refine`` adds min_mask_region_area 1000,
 the eager small-region filter between two graphs), with the greedy NMS
-kernel as a layer of its own. For each it prints:
+kernel as a layer of its own. With ``--birefnet`` it traces
+`segment_objects` instead (BiRefNet_lite at full width in bfloat16, seeded
+random weights with nonzero offset and modulator convs and biases,
+``models/birefnet.py::seed_nonzero_init``): ``general`` on a 1024x768
+image (resolution 1024), ``high_res`` on a 2000x1500 one (resolution
+2048), and the host's resize of the mask back to the extent alone, and
+the device ms of the Swin backbone and of the deformable convolutions,
+each captured alone (``birefnet_stages``). For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
   * the device operations (kernels, copies) per call;
-  * device time by layer (the port's kernels K1-K7, convolutions,
-    matrix products, elementwise, reductions, copies, other) and the top
+  * device time by layer (the port's kernels K1-K7, row gathers (the
+    deform taps' index_select), convolutions, matrix products,
+    elementwise, reductions, copies, other) and the top
     kernels by device time;
   * the host-to-device copies per call (count and device ms): a pageable
     copy waits for the work queued before it.
@@ -47,6 +56,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import dlimgedit_tpu_torch as dl
+from dlimgedit_tpu_torch.image.resize import resize_mask
+from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
 
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("greedy_nms (AMG)", ("greedy_nms_kernel",)),
@@ -59,6 +70,7 @@ LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("K6 windowed_attention_fused", ("window_strip_attention_kernel",
                                      "window_strip_kernel_tc")),
     ("K7 relpos_attention_qkv", ("relpos_qkv_kernel",)),
+    ("gather (index_select)", ("indexselect", "vectorized_gather_kernel")),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "winograd", "dgrad")),
     ("matrix product", ("gemm", "cublas", "cutlass", "matmul", "xmma", "sgemm")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -130,6 +142,74 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
               f"{name[:110]}")
 
 
+def _graph_ms(fn, reps: int = 10) -> float:
+    """Device ms of `fn` captured as one CUDA graph: the median of `reps`
+    replays, each between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def birefnet_stages(env, kind: str) -> None:
+    """Device ms of BiRefNet's two leading stages, each captured alone as a
+    CUDA graph on the input of the key's last call, beside the whole
+    forward's: the Swin backbone (both passes) and the deformable
+    convolutions (every call of one forward, replayed on its own stored
+    inputs, so they lose the L2 reuse they have inside the forward: the
+    stages do not add up to the whole)."""
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.models.common import full_precision
+    from dlimgedit_tpu_torch.models.swin import swin_apply
+    from dlimgedit_tpu_torch.runtime.birefnet import birefnet_input
+
+    bundle = env.birefnet_model(kind)
+    key = next(k for k in env.executables if k[:2] == ("birefnet", kind))
+    cfg, model = bundle.cfg, bundle.model
+    calls, deform = [], bn.deform_conv2d
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return deform(*a, **k)
+
+    with torch.inference_mode(), full_precision():
+        x = birefnet_input(bundle, key[2], *env.executables[key].static_inputs)
+        S = x.shape[1]
+        bn.deform_conv2d = record
+        try:
+            bn.birefnet_apply(model, x, cfg)
+        finally:
+            bn.deform_conv2d = deform
+
+        def swin():
+            swin_apply(model.backbone, x, cfg.swin)
+            swin_apply(model.backbone,
+                       bn.resize_align_corners(x, (S // 2, S // 2)), cfg.swin)
+
+        whole = _graph_ms(lambda: bn.birefnet_apply(model, x, cfg))
+        backbone = _graph_ms(swin)
+        taps = _graph_ms(lambda: [deform(*a, **k) for a, k in calls])
+    n_taps = sum(a[3].shape[2] * a[3].shape[3] for a, _ in calls)
+    print(f"  device ms by stage (each alone as a CUDA graph, median of 10 "
+          f"replays): whole forward {whole:.3f}; Swin backbone, both passes "
+          f"{backbone:.3f}; deformable convolutions ({len(calls)} calls, "
+          f"{n_taps} taps) {taps:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True,
@@ -148,6 +228,10 @@ def main(argv=None) -> int:
                     help="--amg: nms_thresh")
     ap.add_argument("--refine", action="store_true",
                     help="--amg: min_mask_region_area 1000")
+    ap.add_argument("--birefnet", action="store_true",
+                    help="trace segment_objects (BiRefNet) instead")
+    ap.add_argument("--kind", default="general", choices=("general", "high_res"),
+                    help="--birefnet: the model kind (resolution 1024 / 2048)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -158,6 +242,28 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{gpu}; torch {torch.__version__}")
+    if args.birefnet:
+        env = dl.Environment(dl.Options(allow_random_weights=True))
+        seed_nonzero_init(env.birefnet_model(args.kind).model)
+        w, h = (1024, 768) if args.kind == "general" else (2000, 1500)
+        px = np.random.default_rng(1).integers(0, 256, (h, w, 4), dtype=np.uint8)
+        img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, px)
+        profile_calls(f"birefnet_{args.kind}_{w}x{h}",
+                      lambda: dl.segment_objects(img, env), args.calls, out_dir)
+        S = env.birefnet_model(args.kind).resolution
+        mask = dl.ImageView.from_array(
+            np.random.default_rng(2).integers(0, 256, (S, S), dtype=np.uint8),
+            dl.Channels.mask)
+        times = []
+        for _ in range(6):
+            t = time.perf_counter()
+            resize_mask(mask, img.extent)
+            times.append((time.perf_counter() - t) * 1e3)
+        print(f"  host resize_mask {S}x{S} -> {w}x{h} alone: "
+              f"{statistics.median(times[1:]):.3f} ms (median of 5, after "
+              f"one call that makes the taps)")
+        birefnet_stages(env, args.kind)
+        return 0
     env = dl.Environment(dl.Options(allow_random_weights=True,
                                     sam_variant=args.variant))
     label = args.variant

@@ -31,6 +31,15 @@ the plain row loop's flags bit for bit, at M = 256 and 2304 (boxes in
 shared memory), 9216 (grid 64's pool) and 14400 (boxes read from global
 memory), and a CUDA graph of it must read the threshold's current value.
 
+The float32 precision repair (``tf32``): with cuDNN's TF32 flag on (its
+default) and the caller's matmul TF32 flag on too, a float32 MobileSAM
+`process` matches the CPU port (relative L2 1e-5), a float32 slim
+BiRefNet `segment_objects` within 1 quantum, one conv of the port's
+conv2d as an executable (warm-up, eager, replays) within relative L2
+1e-5, and the caller's flags stay as they were.
+BiRefNet's graphs (``birefnet``): three rounds over two buckets and an
+escalated image, every replay bit-equal to its key's eager program.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -656,3 +665,101 @@ def test_greedy_nms_raises_instead_of_falling_back(dev):
     with pytest.raises(DlimgError):
         greedy_nms(boxes.view(-1)[1:-3].reshape(-1, 4), scores[1:],
                    torch.tensor([0.5], device=dev))  # not 16-byte aligned
+
+
+# ---------------------------------------------------------------------------
+# The float32 precision repair and BiRefNet on the card
+# ---------------------------------------------------------------------------
+
+def _slim_birefnet_env(monkeypatch, backend, dtype):
+    """The slim BiRefNet at resolution 64 with seeded nonzero offset and
+    modulator convs and biases (the same weights on every backend)."""
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+
+    monkeypatch.setenv("DLIMG_BIREFNET_TEST_SLIM", "1")
+    monkeypatch.setenv("DLIMG_BIREFNET_RESOLUTION", "64")
+    env = dl.Environment(dl.Options(backend=backend, allow_random_weights=True,
+                                    compute_dtype=dtype,
+                                    model_directory="no-such-directory"))
+    seed_nonzero_init(env.birefnet_model("general").model)
+    return env
+
+
+@pytest.mark.parametrize("path", ["mobile_sam", "birefnet"])
+def test_float32_under_tf32_flags_matches_cpu(dev, monkeypatch, path):
+    """cuDNN's default TF32 flag on and the caller's matmul TF32 on as well:
+    a float32 `process` (MobileSAM at 64: relative L2 1e-5) or
+    `segment_objects` (slim BiRefNet at 64: within 1 quantum) on the card
+    matches the CPU port, and the caller's flags are as they were."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    img = _image(96, 64, 42)
+    if path == "mobile_sam":
+        envs = [dl.Environment(dl.Options(
+            backend=b, allow_random_weights=True, compute_dtype="float32",
+            sam_image_size=64, model_directory="no-such-directory"))
+            for b in (dl.Backend.cpu, dl.Backend.gpu)]
+        cpu, card = (dl.Segmentation.process(img, e).embedding.float().cpu()
+                     for e in envs)
+        rel = (torch.linalg.vector_norm(card - cpu)
+               / torch.linalg.vector_norm(cpu)).item()
+        assert rel <= 1e-5, rel
+    else:
+        envs = [_slim_birefnet_env(monkeypatch, b, "float32")
+                for b in (dl.Backend.cpu, dl.Backend.gpu)]
+        cpu, card = (dl.segment_objects(img, e).pixels.astype(np.int32)
+                     for e in envs)
+        assert np.abs(cpu - card).max() <= 1
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+def test_float32_conv_executable_ignores_tf32_flags(dev, monkeypatch):
+    """One float32 conv of the port's conv2d as an executable, with cuDNN's
+    and cuBLAS's TF32 flags on: its warm-up, its eager program and its
+    graph's replays at full precision against the CPU (relative L2 1e-5),
+    while the same conv called outside any executable takes the caller's
+    TF32 (its error is printed); the caller's flags stay as they were."""
+    from dlimgedit_tpu_torch.models.common import conv2d
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 64, 64, 256), generator=g)
+    w = torch.randn((256, 256, 3, 3), generator=g) * 0.05
+    want = conv2d(x, w, padding=1)
+
+    def rel(got):
+        return (torch.linalg.vector_norm(got.cpu() - want)
+                / torch.linalg.vector_norm(want)).item()
+
+    env = _graph_env("mobile_sam", "float32")
+    exe = env.executable(("conv",), lambda: lambda a, b: conv2d(a, b, padding=1),
+                         lambda t: t.clone())
+    xd, wd = x.to(dev), w.to(dev)
+    errs = [rel(exe(xd, wd)) for _ in range(3)] + [rel(exe.eager(xd, wd))]
+    assert exe.captured
+    assert max(errs) <= 1e-5, errs
+    print(f"outside any executable: relative L2 {rel(conv2d(xd, wd, padding=1))}")
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_birefnet_graph_replay_equals_eager(dev, monkeypatch, dtype):
+    """segment_objects as one CUDA graph per ("birefnet", kind, bucket):
+    three rounds over two buckets and an escalated image, every replay
+    bit-equal to the key's eager program and to round 1."""
+    env = _slim_birefnet_env(monkeypatch, dl.Backend.gpu, dtype)
+    imgs = (_image(100, 80, 1), _image(400, 300, 2), _image(1600, 90, 3))
+    first = [dl.segment_objects(img, env).pixels for img in imgs]
+    for _ in range(2):
+        for img, want in zip(imgs, first):
+            assert np.array_equal(dl.segment_objects(img, env).pixels, want)
+    assert sorted(env.executables) == [("birefnet", "general", 256),
+                                       ("birefnet", "general", 512),
+                                       ("birefnet", "high_res", 2048)]
+    for key, exe in env.executables.items():
+        assert exe.graphed and exe.captured, key
+        got, want = exe.replay_against_eager()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), key
