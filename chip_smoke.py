@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. The port's nine kernels (dlimgedit_tpu_torch/csrc/; phase 8's
+package. The port's eleven kernels (dlimgedit_tpu_torch/csrc/; phase 8's
 BiRefNet launches none of them):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
@@ -20,6 +20,9 @@ BiRefNet launches none of them):
   K8 smem_gather (the gather probe)              gather_probe.cu
   greedy_nms (AMG's exact greedy box NMS; not    greedy_nms.cu
   a TPU kernel: JAX runs a lax.fori_loop)
+  quantize_rows_int8 (P2), int8_epilogue (P3)   quantize_rows.cu
+  (the s8 x s8 linears' passes over the
+  activations; not TPU kernels: XLA fuses them)
 
 Phases, each of which fails the run (non-zero exit) on any error, each
 printing its seconds:
@@ -46,7 +49,12 @@ printing its seconds:
      bit against the plain row loop and a numpy mirror; then K1's time at
      each of MobileSAM's shapes, back to back and inside a CUDA graph of
      100 launches (as the graphed main path runs it), beside an empty
-     kernel's both ways (the launch floor). Phase 2 alone runs with the
+     kernel's both ways (the launch floor); P2 and P3 at every (M, K, N)
+     of the w8a8 main paths of phase 9, bit for bit against their plain
+     versions in bf16 and float32 (P2's row scales spread over e^{+-2}),
+     each bf16 linear shape also timed as cuBLASLt's s8 x s8 product
+     (torch._int_mm) and as the bf16 x @ w it replaces, with their bounds
+     at the int8 and bf16 tensor-core peaks. Phase 2 alone runs with the
      TF32 flags off (its plain versions are float32 references); every
      other phase runs with PyTorch's defaults, under which the port's
      entry points keep float32 at full precision themselves (every
@@ -149,7 +157,24 @@ printing its seconds:
      masks within 1 quantum; `birefnet_ms` graphed and eager (host
      clock, medians of 10), the host's resize of the mask back to the
      extent alone (and once as the dense products), and each key's peak
-     device memory.
+     device memory;
+  9. quantised serving (Options.quantize_encoder, quantize_activations):
+     first the quantised encoders on the card against the same models on
+     the CPU in float32 (MobileSAM at 256, ViT-B at 512, full width and
+     depth): w8 `process` embeddings within phase 3's limits; w8a8 the
+     encoder on one input with the card's P2 counting its tie flips
+     against the CPU's quanta (each |dq| = 1 within 1e-3 of a .5, at most
+     1e-3 of the quanta) and continuing from the CPU's, within the same
+     limits. Then MobileSAM, ViT-B (partitioned and fused_window_blocks),
+     ViT-L and ViT-H at 1024 on 1024x768 in bf16, w8 and w8a8 (seeded
+     random weights): `process` and `compute_mask(Point)` in three rounds,
+     every replay bit-equal to its eager program, rounds 2 and 3 equal to
+     round 1, exact launches per round (the float path's, and under w8a8
+     P2 and P3 once per quantised linear: 40 for MobileSAM, 48 ViT-B, 96
+     ViT-L, 128 ViT-H), the s8 x s8 shapes those phase 2 held, w_scale
+     float32 in the bf16 bundles; `process_ms` and `mask_ms` graphed per
+     mode (medians of 20) and the encoder's parameter bytes; last the
+     canvas pack, native against numpy, at 1024x768 and 2000x1500 RGBA.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
@@ -160,7 +185,10 @@ paths (its `launches`: both images' `process` calls of each path in round
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
-calls), each launch timed on the pool it had.
+calls), each launch timed on the pool it had. P2's and P3's are sums over
+phase 9's counted round (round 2, replays) of its w8a8 paths, one image
+each; their library_ms is null (no one PyTorch call computes either; the
+products beside P3 are printed in phase 2).
 """
 
 from __future__ import annotations
@@ -249,6 +277,40 @@ AMG_CONFIGS = (("nms 0.7", dict(nms_thresh=0.7)),
 NMS_SIZES = (256, 2304, 9216, 14400)
 NMS_OPS_PER_TEST = 16
 
+# Phase 9, quantised serving: the paths (variant, fused_window_blocks), each
+# in bf16, w8 (int8 weights) and w8a8 (int8 weights and activations) on one
+# 1024x768 image; the ViTs' (width, depth); the image sizes of the card
+# against the CPU (every linear needs more than 16 tokens for cuBLASLt's
+# int8 product); the pack's images (width, height, canvas bucket).
+QUANT_PATHS = (("mobile_sam", False), ("vit_b", False), ("vit_b", True),
+               ("vit_l", False), ("vit_h", False))
+QUANT_MODES = ("bf16", "w8", "w8a8")
+VIT_WIDTHS = {"vit_b": (768, 12), "vit_l": (1024, 24), "vit_h": (1280, 32)}
+QUANT_CPU_SIZES = (("mobile_sam", 256), ("vit_b", 512))
+PACK_IMAGES = ((1024, 768, 1024), (2000, 1500, 2048))
+PEAK_INT8_TC_OPS = 1979e12       # int8 tensor cores, dense
+
+
+def quant_linears(variant: str) -> list:
+    """(M, K, N, launches per `process`) of each quantised linear of a
+    variant at 1024: TinyViT's stages (width, tokens, tokens of the padded
+    windows, blocks), whose qkv and proj run on the windows; a ViT's
+    windowed blocks run qkv on the 70 x 70 padded grid (partitioned or
+    fused), every other linear on the 64 x 64 tokens."""
+    if variant == "mobile_sam":
+        rows = []
+        for C, tokens, windows, blocks in ((128, 16384, 17689, 2),
+                                           (160, 4096, 4900, 6),
+                                           (320, 4096, 4900, 2)):
+            rows += [(windows, C, 3 * C, blocks), (windows, C, C, blocks),
+                     (tokens, C, 4 * C, blocks), (tokens, 4 * C, C, blocks)]
+        return rows
+    C, depth = VIT_WIDTHS[variant]
+    return [(4900, C, 3 * C, depth - 4), (4096, C, 3 * C, 4),
+            (4096, C, C, depth), (4096, C, 4 * C, depth),
+            (4096, 4 * C, C, depth)]
+
+
 # The main path's images, (width, height, seed): canvas buckets 1024 and 2048.
 IMAGES = ((1024, 768, 1), (1500, 1000, 2))
 # Rounds of phase 4 over the images: warm-up and capture, then replays.
@@ -306,7 +368,14 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
     # Not a TPU kernel: the lax.fori_loop of JAX's exact greedy NMS.
     ("greedy_nms", "dlimgedit_tpu_torch/csrc/greedy_nms.cu",
      "dlimgedit_tpu/ops/amg.py:175"),
+    # Not TPU kernels: the passes over the activations of JAX's int8_linear
+    # (its per-token quantisation and its epilogue), which XLA fuses.
+    ("quantize_rows_int8", "dlimgedit_tpu_torch/csrc/quantize_rows.cu",
+     "dlimgedit_tpu/ops/quant.py:57"),
+    ("int8_epilogue", "dlimgedit_tpu_torch/csrc/quantize_rows.cu",
+     "dlimgedit_tpu/ops/quant.py:75"),
 )
+QUANT_KERNELS = ("quantize_rows_int8", "int8_epilogue")
 
 
 def fail(msg: str) -> None:
@@ -406,9 +475,9 @@ class Entries:
         self.rows = []  # (label, kernel ms, bound ms) per shape
 
     def record(self, label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
-               launches):
+               launches, images=len(IMAGES)):
         self.rows.append((label, ms, max(bytes_ms, ops_ms)))
-        launches *= len(IMAGES)
+        launches *= images
         vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
         self.first.setdefault(name, vals)
         e = self.by_name.setdefault(name, dict(
@@ -428,7 +497,8 @@ class Entries:
 
 
 def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
-                 nbytes, flops_mm, flops_f32, launches, entries, compare=None):
+                 nbytes, flops_mm, flops_f32, launches, entries, compare=None,
+                 images=len(IMAGES)):
     """One kernel at one shape: max |kernel - plain| within `tol`; in bf16
     also the times of kernel, plain version and library call (None: there
     is no library yardstick), and the bound from the bytes moved and the
@@ -459,7 +529,7 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
     entries.record(label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
-                   launches)
+                   launches, images)
     return lib_ms
 
 
@@ -533,6 +603,80 @@ def check_kernels(torch, ops, entries):
                 TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
                 mm * mm_flops, 7 * G * nh * N * N + mm * (1 - mm_flops), per,
                 entries)
+
+
+def same_bits(a, b) -> float:
+    """0.0 when the outputs (a tensor or a tuple of tensors) are equal bit
+    for bit, else the largest difference."""
+    a, b = (t if isinstance(t, tuple) else (t,) for t in (a, b))
+    if all(x.dtype == y.dtype and x.equal(y) for x, y in zip(a, b)):
+        return 0.0
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def check_quant_kernels(torch, ops, entries, gemm_ms):
+    """Phase 2, P2 and P3 at every shape of the w8a8 main paths (phase 9:
+    per linear, M tokens, K its input width, N its output width), bit for
+    bit against their plain versions in bf16 and float32, bf16 timed; at
+    each linear's shape also the two products P3's time is to be read
+    beside: cuBLASLt's s8 x s8 (``torch._int_mm``, what the w8a8 path
+    runs, with the weight column-major as ``QuantLinear`` stores it, and
+    row-major for the record) and the bf16 ``x @ w`` it replaces. Adds the
+    products' times over the main paths' launches to ``gemm_ms``."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p2, p3 = {}, {}
+    for variant, _ in QUANT_PATHS:
+        for M, K, N, per in quant_linears(variant):
+            p2[(M, K)] = p2.get((M, K), 0) + per
+            p3[(M, K, N)] = p3.get((M, K, N), 0) + per
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        es = torch.empty((), dtype=dtype).element_size()
+        for (M, C), per in sorted(p2.items()):
+            x = torch.randn((M, C), generator=gen, device=dev)
+            x = (x * torch.exp(torch.randn((M, 1), generator=gen, device=dev))
+                 ).to(dtype)
+            check_kernel(
+                torch, f"P2 quantize_rows_int8 ({M},{C})", "quantize_rows_int8",
+                dname, lambda: ops.quantize_rows_int8(x),
+                lambda: ops.quantize_activations_int8(x), None, 0.0,
+                M * C * (es + 1) + 4 * M, 0, 5 * M * C, per, entries,
+                compare=same_bits, images=1)
+        for (M, K, N), per in sorted(p3.items()):
+            q = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w_q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                                dtype=torch.int8)
+            acc = torch._int_mm(q, w_q)
+            xs = torch.rand((M, 1), generator=gen, device=dev) * 1e-2
+            ws = torch.rand((N,), generator=gen, device=dev) * 1e-3
+            b = torch.randn((N,), generator=gen, device=dev).to(dtype)
+            check_kernel(
+                torch, f"P3 int8_epilogue ({M},{N}) K={K}", "int8_epilogue",
+                dname, lambda: ops.int8_epilogue(acc, xs, ws, b, dtype),
+                lambda: ops.int8_epilogue_plain(acc, xs, ws, b, dtype), None,
+                0.0, M * N * (4 + es) + 4 * M + N * (4 + es), 0, 4 * M * N, per,
+                entries, compare=same_bits, images=1)
+            if dtype == torch.bfloat16:
+                xb = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+                wb = torch.randn((K, N), generator=gen, device=dev).to(dtype)
+                w_col = w_q.t().contiguous().t()  # QuantLinear's layout
+                int_ms = time_ms(torch, lambda: torch._int_mm(q, w_col))
+                row_ms = time_ms(torch, lambda: torch._int_mm(q, w_q))
+                mm_ms = time_ms(torch, lambda: xb @ wb)
+                ops_n = 2 * M * K * N
+                print(f"  beside P3 at ({M},{K},{N}) x{per}: torch._int_mm "
+                      f"{int_ms:.5f} ms with the port's column-major weight "
+                      f"({row_ms:.5f} row-major; bound "
+                      f"{ops_n / PEAK_INT8_TC_OPS * 1e3:.5f}), bf16 x @ w "
+                      f"{mm_ms:.5f} ms (bound "
+                      f"{ops_n / PEAK_BF16_TC_FLOPS * 1e3:.5f})", flush=True)
+                gemm_ms["int_mm"] += int_ms * per
+                gemm_ms["int_mm_row_major"] += row_ms * per
+                gemm_ms["bf16"] += mm_ms * per
+                del xb, wb, w_col
+            del q, w_q, acc
 
 
 def relpos_mask(torch, bhw, grid_h, grid_w, folded, scale, dtype):
@@ -1811,6 +1955,288 @@ def drive_birefnet(torch, np, dl, counters, zero_counters, restore_counters,
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+@contextlib.contextmanager
+def quant_shapes(quant_mod):
+    """Record (M, K, N) of each s8 x s8 linear that runs Python in the
+    block (warm-ups and captures; a replay runs none)."""
+    shapes, real = [], quant_mod.int8_mm
+
+    def record(q, w):
+        shapes.append((q.shape[0], q.shape[1], w.shape[1]))
+        return real(q, w)
+
+    quant_mod.int8_mm = record
+    try:
+        yield shapes
+    finally:
+        quant_mod.int8_mm = real
+
+
+def follow_cpu_quanta(torch, np, real, recorded, dev):
+    """A stand-in for P2's wrapper on the card that launches P2, counts the
+    quanta that differ from the CPU's at the same linear (each must be a
+    tie flip: |dq| = 1 where the CPU's x / scale lies within 1e-3 of a
+    .5) and goes on with the CPU's quanta and scales, so a flip does not
+    spread through the later layers. ``real`` is P2's wrapper. Returns
+    (function, counts)."""
+    counts = {"calls": 0, "flips": 0, "quanta": 0}
+
+    def follow(x):  # a launch counts on the module's name: this stand-in
+        q, s = real(x)
+        cx, cq, cs = recorded[counts["calls"]]
+        counts["calls"] += 1
+        diff = q.cpu().numpy() != cq
+        if diff.any():
+            t = (cx / cs)[diff]
+            dist = np.abs(np.abs(t - np.floor(t)) - 0.5).max()
+            dq = np.abs(q.cpu().numpy()[diff].astype(int) - cq[diff]).max()
+            if dist > 1e-3 or dq != 1:
+                fail(f"an activation quantum differs from the CPU's away from "
+                     f"a rounding tie (distance {dist}, |dq| {dq})")
+        counts["flips"] += int(diff.sum())
+        counts["quanta"] += diff.size
+        return (torch.from_numpy(cq).to(dev),
+                torch.from_numpy(cs).to(dev))
+
+    follow.launches = 0
+    return follow, counts
+
+
+def check_quant_small_against_cpu(torch, np, dl, quant_mod):
+    """Phase 9, the quantised encoders on the card against the same
+    quantised models on the CPU (the plain path, which the CPU tests hold
+    against the JAX package), float32: MobileSAM at 256 and ViT-B at 512,
+    full width and depth, seeded nonzero rel-pos tables, pos_embed and qkv
+    biases. w8: `process` on both, the embedding within phase 3's limits
+    (atol 1e-4; relative L2 1e-5). w8a8: the encoder on one normalised
+    input, the card's P2 counting its tie flips against the CPU's quanta
+    and continuing from them (``follow_cpu_quanta``), the embedding within
+    the same limits; the unaltered `process` embeddings' distance is
+    printed."""
+    from dlimgedit_tpu_torch.models import sam as sam_lib
+    from dlimgedit_tpu_torch.models.common import full_precision
+
+    dev = torch.device("cuda", 0)
+    for variant, size in QUANT_CPU_SIZES:
+        for mode in ("w8", "w8a8"):
+            t0 = time.perf_counter()
+            opts = dict(allow_random_weights=True, compute_dtype="float32",
+                        sam_image_size=size, sam_variant=variant,
+                        quantize_encoder=True,
+                        quantize_activations=mode == "w8a8")
+            envs = [dl.Environment(dl.Options(backend=b, **opts))
+                    for b in (dl.Backend.cpu, dl.Backend.gpu)]
+            if variant != "mobile_sam":
+                for e in envs:
+                    seed_vit_extras(torch, e.sam_model(variant).model)
+            w, h = size * 3 // 2, size
+            img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 43))
+            e_cpu, e_gpu = (dl.Segmentation.process(img, e).embedding.float().cpu()
+                            for e in envs)
+            err = (e_cpu - e_gpu).abs().max().item()
+            rel = rel_l2(torch, e_gpu, e_cpu)
+            label = f"{variant} {mode} at {size}, f32 embedding, card vs CPU"
+            print(f"{label} (process): max|diff|={err:.3e} relative L2 "
+                  f"{rel:.3e}", flush=True)
+            if mode == "w8a8":
+                x = np.random.default_rng(44).standard_normal(
+                    (1, size, size, 3)).astype(np.float32)
+                b_cpu, b_gpu = (e.sam_model(variant) for e in envs)
+                recorded, real = [], quant_mod.quantize_rows_int8
+
+                def record(v):
+                    q, sc = real(v)
+                    recorded.append((v.reshape(-1, v.shape[-1]).numpy().copy(),
+                                     q.numpy().copy(), sc.numpy().copy()))
+                    return q, sc
+
+                quant_mod.quantize_rows_int8 = record
+                try:
+                    with torch.inference_mode():
+                        e_cpu = sam_lib.encode_image(b_cpu.model, b_cpu.cfg,
+                                                     torch.from_numpy(x))
+                    follow, counts = follow_cpu_quanta(
+                        torch, np, real, recorded, dev)
+                    quant_mod.quantize_rows_int8 = follow
+                    with torch.inference_mode(), full_precision():
+                        e_gpu = sam_lib.encode_image(
+                            b_gpu.model, b_gpu.cfg,
+                            torch.from_numpy(x).to(dev)).cpu()
+                finally:
+                    quant_mod.quantize_rows_int8 = real
+                if counts["calls"] != len(recorded) or not recorded:
+                    fail(f"{label}: {counts['calls']} quantised linears on the "
+                         f"card, {len(recorded)} on the CPU")
+                if counts["flips"] > 1e-3 * counts["quanta"]:
+                    fail(f"{label}: {counts['flips']} tie flips of "
+                         f"{counts['quanta']} quanta")
+                err = (e_cpu - e_gpu).abs().max().item()
+                rel = rel_l2(torch, e_gpu, e_cpu)
+                print(f"{label} (encoder continuing from the CPU's quanta): "
+                      f"max|diff|={err:.3e} relative L2 {rel:.3e}; "
+                      f"{counts['flips']} tie flips of {counts['quanta']} "
+                      f"quanta in {counts['calls']} linears", flush=True)
+            if variant == "mobile_sam" and not err <= 1e-4:
+                fail(f"{label}: max|diff| {err} > 1e-4")
+            if variant != "mobile_sam" and not rel <= 1e-5:
+                fail(f"{label}: relative L2 {rel} > 1e-5")
+            print(f"phase 9 {variant} {mode} card vs CPU: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def pack_times(torch, np, gpu_line) -> None:
+    """Phase 9, the canvas pack before a `process`: the native loop
+    (utils/hostops.py) against numpy's strided copies, RGBA into the
+    pinned canvas, host clock, medians of 20."""
+    from dlimgedit_tpu_torch.ops import preprocess
+    from dlimgedit_tpu_torch.types import RGB_CHANNEL_MAP, Channels
+
+    for w, h, bucket in PACK_IMAGES:
+        px = rgba(np, h, w, 3)
+        canvas = torch.empty((bucket, bucket, 3), dtype=torch.uint8,
+                             pin_memory=True).numpy()
+        ms = {}
+        for name, pack in (("native", preprocess._pack_rows),
+                           ("numpy", preprocess.pack_rows_plain)):
+            times = []
+            for _ in range(21):
+                t = time.perf_counter()
+                pack(px, RGB_CHANNEL_MAP[Channels.rgba], canvas, 0, h, w)
+                times.append((time.perf_counter() - t) * 1e3)
+            ms[name] = statistics.median(times[1:])
+            if name == "native":
+                got = canvas[:h, :w].copy()
+            elif not np.array_equal(got, canvas[:h, :w]):
+                fail(f"the native pack differs from numpy's at {w}x{h}")
+        print(f"canvas pack {w}x{h} RGBA into the pinned {bucket}-bucket canvas "
+              f"on the host of {gpu_line}: native {ms['native']:.3f} ms, numpy "
+              f"{ms['numpy']:.3f} ms (medians of 20)", flush=True)
+
+
+def drive_quantized(torch, np, dl, quant_mod, counters, zero_counters,
+                    host_ms, gpu_line):
+    """Phase 9: quantised serving. The card against the CPU at small sizes
+    (``check_quant_small_against_cpu``); then each of QUANT_PATHS at 1024
+    in bf16, w8 and w8a8 (seeded random weights, the ViTs' rel-pos
+    tables, pos_embed and qkv biases seeded nonzero): `process` and
+    `compute_mask(Point)` on 1024x768 in three rounds (warm-up and
+    capture, then replays), every replay bit-equal to its eager program,
+    rounds 2 and 3 equal to round 1, exact launches per round (the float
+    path's K1-K6, and under w8a8 P2 and P3 once per quantised linear, 4 a
+    block), the shapes of the s8 x s8 linears those of phase 2, the int8
+    embeddings' relative L2 to the bf16 one (below 0.5: int8 weights carry
+    ~0.4% error each; a wrong scale gives ~1 or more); then
+    `process_ms` and `mask_ms` graphed per mode, in turns, and the
+    encoder's parameter bytes. Last the canvas pack's time. Returns the
+    P2 and P3 launches of the counted rounds (round 2, w8a8)."""
+    import collections
+
+    from dlimgedit_tpu_torch.ops.quant import quantized_bytes
+
+    t0 = time.perf_counter()
+    check_quant_small_against_cpu(torch, np, dl, quant_mod)
+    w, h, seed = IMAGES[0]
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+    point = dl.Point(w // 2, h // 2)
+    launches = {name: 0 for name in QUANT_KERNELS}
+    for variant, fused in QUANT_PATHS:
+        label = f"{variant}{' fused-window' if fused else ''}"
+        vit = variant != "mobile_sam"
+        if not vit:
+            float_want = {"fused_layer_norm": LN_PER_PROCESS,
+                          "levit_window_attention": ATTN_PER_PROCESS}
+        elif fused:
+            float_want = VIT_FUSED_PER_PROCESS
+        else:
+            float_want = vit_per_process(VIT_WIDTHS[variant][1])
+        blocks = 10 if not vit else VIT_WIDTHS[variant][1]
+        envs, embs, nbytes = {}, {}, {}
+        for mode in QUANT_MODES:
+            t1 = time.perf_counter()
+            env = dl.Environment(dl.Options(
+                allow_random_weights=True, sam_variant=variant,
+                quantize_encoder=mode != "bf16",
+                quantize_activations=mode == "w8a8"))
+            bundle = env.sam_model(variant)
+            want_quant = {"bf16": "none"}.get(mode, mode)
+            scales = {str(p.dtype) for n, p in bundle.model.encoder.named_parameters()
+                      if n.endswith("w_scale")}
+            if bundle.quant != want_quant or (mode != "bf16"
+                                              and scales != {"torch.float32"}):
+                fail(f"{label} {mode}: bundle quant {bundle.quant}, w_scale "
+                     f"dtypes {scales}")
+            if vit:
+                seed_vit_extras(torch, bundle.model)
+            if fused:
+                use_fused_windows(bundle)
+            nbytes[mode] = quantized_bytes(bundle.model.encoder)
+            want = dict(float_want)
+            if mode == "w8a8":
+                want.update({k: 4 * blocks for k in QUANT_KERNELS})
+            first = None
+            for rnd in range(ROUNDS):
+                zero_counters()
+                with quant_shapes(quant_mod) as shapes:
+                    seg = dl.Segmentation.process(img, env)
+                    mask = seg.compute_mask(point).pixels
+                torch.cuda.synchronize()
+                emb = seg.embedding
+                if rnd == 0:
+                    if (tuple(emb.shape) != (1, 64, 64, 256)
+                            or not bool(torch.isfinite(emb).all())):
+                        fail(f"{label} {mode}: bad embedding {tuple(emb.shape)}")
+                    if mask.shape != (h, w, 1) or not set(
+                            np.unique(mask).tolist()) <= {0, 255}:
+                        fail(f"{label} {mode}: bad mask {mask.shape}")
+                    first = (emb, mask)
+                    # Each s8 x s8 linear ran Python twice: warm-up, capture.
+                    want_shapes = collections.Counter(
+                        {(M, K, N): 2 * n for M, K, N, n in quant_linears(variant)}
+                        if mode == "w8a8" else {})
+                    if collections.Counter(shapes) != want_shapes:
+                        fail(f"{label} {mode}: s8 x s8 linears "
+                             f"{sorted(collections.Counter(shapes).items())}, "
+                             f"phase 2 checked {sorted(want_shapes.items())}")
+                elif not (torch.equal(emb, first[0])
+                          and np.array_equal(mask, first[1])):
+                    fail(f"{label} {mode} round {rnd + 1}: a replay differs "
+                         f"from round 1")
+                hold_replays_against_eager(torch, env, f"{label} {mode} round "
+                                                       f"{rnd + 1}")
+                counts = counters()
+                expect = {k: want.get(k, 0) for k in counts}
+                if counts != expect:
+                    fail(f"{label} {mode} round {rnd + 1}: launches {counts} "
+                         f"!= {expect}")
+                if rnd == 1:
+                    for k in QUANT_KERNELS:
+                        launches[k] += counts[k]
+            envs[mode], embs[mode] = env, first[0]
+            rel = {m: rel_l2(torch, embs[mode], embs[m]) for m in embs if m != mode}
+            print(f"{label} {mode}: 3 rounds, replays bit-equal to eager, "
+                  f"launches per round {counts}; embedding relative L2 to "
+                  f"{rel}; encoder parameters {nbytes[mode]} bytes "
+                  f"[{time.perf_counter() - t1:.1f} s]", flush=True)
+            if mode != "bf16" and not rel_l2(torch, embs[mode], embs["bf16"]) < 0.5:
+                fail(f"{label} {mode}: embedding relative L2 to bf16 "
+                     f"{rel_l2(torch, embs[mode], embs['bf16'])} >= 0.5")
+        ms = {}
+        for mode, env in envs.items():
+            seg = dl.Segmentation.process(img, env)
+            ms[mode] = (host_ms(lambda: dl.Segmentation.process(img, env)),
+                        host_ms(lambda: seg.compute_mask(point)))
+        print(f"e2e quantised {label} {w}x{h} on {gpu_line}: process_ms "
+              f"graphed " + ", ".join(f"{m}={ms[m][0]:.3f}" for m in ms)
+              + "; mask_ms graphed " + ", ".join(f"{m}={ms[m][1]:.3f}" for m in ms)
+              + " (medians of 20); encoder parameter bytes "
+              + ", ".join(f"{m}={nbytes[m]}" for m in nbytes), flush=True)
+        del envs, embs, env, seg
+        torch.cuda.empty_cache()
+    pack_times(torch, np, gpu_line)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1833,6 +2259,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.ops import amg
     from dlimgedit_tpu_torch.ops import flash_attention as fa
     from dlimgedit_tpu_torch.ops import fused_norm as fn
+    from dlimgedit_tpu_torch.ops import quant
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
     from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
 
@@ -1855,7 +2282,11 @@ def main() -> int:
         smem_gather_plain=probe.smem_gather_plain,
         probe_inputs=probe.probe_inputs,
         greedy_nms=amg.greedy_nms,
-        greedy_nms_plain=amg.greedy_nms_plain)
+        greedy_nms_plain=amg.greedy_nms_plain,
+        quantize_rows_int8=quant.quantize_rows_int8,
+        quantize_activations_int8=quant.quantize_activations_int8,
+        int8_epilogue=quant.int8_epilogue,
+        int8_epilogue_plain=quant.int8_epilogue_plain)
     wrappers = {name: getattr(ops, name) for name, _, _ in KERNELS}
 
     def counters():
@@ -1915,6 +2346,12 @@ def main() -> int:
         check_window_kernels(torch, ops, entries)
         check_nms_kernel(torch, np, ops)
         k1_launch_floor(torch, ops, entries, restore_counters)
+        gemm_ms = {"int_mm": 0.0, "int_mm_row_major": 0.0, "bf16": 0.0}
+        check_quant_kernels(torch, ops, entries, gemm_ms)
+    print(f"phase 2, the products beside P3, summed over phase 9's w8a8 "
+          f"launches: torch._int_mm {gemm_ms['int_mm']:.5f} ms (row-major "
+          f"weights {gemm_ms['int_mm_row_major']:.5f}), bf16 x @ w "
+          f"{gemm_ms['bf16']:.5f} ms", flush=True)
     torch.cuda.empty_cache()
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1999,6 +2436,10 @@ def main() -> int:
     # -- 8. BiRefNet segment_objects -------------------------------------
     drive_birefnet(torch, np, dl, counters, zero_counters, restore_counters,
                    host_ms, gpu_line)
+
+    # -- 9. quantised serving --------------------------------------------
+    launches.update(drive_quantized(torch, np, dl, quant, counters,
+                                    zero_counters, host_ms, gpu_line))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -18,8 +18,10 @@ Quick start::
     every = seg.generate_masks()                 # segment everything
     fg = dl.segment_objects(img, env)            # remove background
 
-The port imports neither jax nor dlimgedit_tpu. Quantisation and the
-parallel tiers come with later slices and raise ``DlimgError`` here.
+The port imports neither jax nor dlimgedit_tpu. The encoders may be
+quantised to int8 (``Options.quantize_encoder``, ``quantize_activations``);
+the parallel tiers come with a later slice (``scaleout_devices != 1``
+raises ``DlimgError``).
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

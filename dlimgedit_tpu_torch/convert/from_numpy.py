@@ -8,6 +8,12 @@ convolution kernel (a 4-D leaf named ``w``) goes from the tree's HWIO to
 the port's OIHW; every other leaf keeps its shape and layout (linear
 weights stay (in, out), the ViT's ``pos_embed`` stays (1, g, g, C)). One
 ``.npz`` bundle thus serves both packages.
+
+A tree that JAX's ``quantize_encoder`` has quantised carries int8 ``w_q``
+or ``w_q8`` leaves and float32 ``w_scale`` leaves in place of a linear's
+``w``: both keep their dtype. ``load_into`` swaps the matching ``Linear``s
+of the model for ``QuantLinear``s before it loads, so such a tree loads
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -16,22 +22,47 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..models.common import QuantLinear
 from ..utils.pytree_io import flatten_tree
+
+_INT8_WEIGHTS = ("w_q", "w_q8")
 
 
 def params_from_numpy(tree, device="cpu",
                       dtype: Optional[torch.dtype] = torch.float32
                       ) -> Dict[str, torch.Tensor]:
     """Nested numpy tree -> flat state dict on `device`. Floating leaves are
-    cast to `dtype` (None keeps theirs); integer leaves keep theirs."""
+    cast to `dtype` (None keeps theirs), except the int8 scales
+    (``w_scale``), which stay float32; integer leaves keep theirs."""
     state = {}
     for path, arr in flatten_tree(tree).items():
         arr = np.asarray(arr)
-        if arr.ndim == 4 and path.split("/")[-1] == "w":
+        name = path.split("/")[-1]
+        if arr.ndim == 4 and name == "w":
             arr = arr.transpose(3, 2, 0, 1)  # conv kernel: HWIO -> OIHW
         t = torch.tensor(arr)  # a copy: the tree may hold read-only arrays
-        if dtype is not None and t.is_floating_point():
+        if name == "w_scale":
+            t = t.float()
+        elif dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         state[path.replace("/", ".")] = t.to(device)
     return state
+
+
+def load_into(model: nn.Module, tree, dtype: Optional[torch.dtype] = torch.float32
+              ) -> nn.Module:
+    """Load a numpy tree into ``model`` with ``strict=True``: each linear
+    that the tree holds quantised (``<path>.w_q`` or ``<path>.w_q8``)
+    becomes a ``QuantLinear`` first. Returns ``model``."""
+    state = params_from_numpy(tree, dtype=dtype)
+    for key, t in state.items():
+        path, _, name = key.rpartition(".")
+        if name in _INT8_WEIGHTS:
+            model.set_submodule(path, QuantLinear(
+                torch.empty_like(t), torch.empty(t.shape[1]),
+                torch.empty(t.shape[1]) if f"{path}.b" in state else None,
+                act_int8=name == "w_q8"))
+    model.load_state_dict(state, strict=True)
+    return model

@@ -9,7 +9,10 @@ like:
   * conv weights are OIHW (the JAX tree's HWIO, transposed once by
     ``convert.from_numpy``); the k == s transposed conv of the mask decoder
     keeps the same rule, (kh, kw, in, out) -> (out, in, kh, kw);
-  * BatchNorm is folded into a per-channel (scale, bias) affine.
+  * BatchNorm is folded into a per-channel (scale, bias) affine;
+  * an int8-quantised linear (ops/quant.py) is a ``QuantLinear`` holding
+    ``w_q`` or ``w_q8`` (int8, (in, out)), ``w_scale`` (float32, (out,))
+    and ``b``; ``cast_tree`` leaves int8 weights and ``w_scale`` alone.
 
 Parameter containers are ``nn.Module``s whose attribute names are the JAX
 tree's keys, so a ``state_dict`` key is the tree path joined with dots.
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_norm import layer_norm_plain
+from ..ops.quant import dequantize_weight, int8_linear
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +92,30 @@ class Linear(nn.Module):
         else:
             self.w = _param(trunc_normal(gen, (cin, cout), trunc_std))
             self.b = _param(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self, x)
+
+
+class QuantLinear(nn.Module):
+    """An int8 linear (ops/quant.py ``quantize_encoder``): {"w_q": int8 (in,
+    out)} for the weight-only product, or {"w_q8": ...} for the s8 x s8
+    one, with {"w_scale": float32 (out,)} and an optional {"b"}. ``w_q8``
+    is an (in, out) view of column-major storage: cuBLASLt's fast int8
+    kernels take the product only in that layout ("TN"); with a row-major
+    weight ``torch._int_mm`` falls back to a kernel ~5x slower on an
+    H100."""
+
+    def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, act_int8: bool = False):
+        super().__init__()
+        if act_int8:
+            self.w_q8 = _param(w_q.t().contiguous().t())
+        else:
+            self.w_q = _param(w_q)
+        self.w_scale = _param(w_scale)
+        if b is not None:
+            self.b = _param(b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(self, x)
@@ -261,8 +289,39 @@ def layer_norm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.T
     return layer_norm_plain(x, params.scale, params.bias, eps)
 
 
-def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params.w.to(x.dtype)
+def linear(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x @ w + b, dispatched on what the module holds: ``w_q8`` runs the
+    s8 x s8 product (``int8_linear``), ``w_q`` is dequantised per call into
+    the product, ``w`` is used as it is."""
+    if hasattr(params, "w_q8"):
+        return int8_linear(params, x)
+    if hasattr(params, "w_q"):
+        w = dequantize_weight(params.w_q, params.w_scale, x.dtype)
+    else:
+        w = params.w.to(x.dtype)
+    y = x @ w
     if hasattr(params, "b"):
         y = y + params.b.to(x.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Dtype policy
+# ---------------------------------------------------------------------------
+
+def cast_tree(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the floating parameters and buffers of ``module`` to ``dtype``,
+    in place, as ``module.to(dtype)`` would, except every ``w_scale``: the
+    int8 scales, taken from float32 weights, stay float32 (integer tensors
+    are never cast). Returns ``module``."""
+    for mod in module.modules():
+        for table in (mod._parameters, mod._buffers):
+            for name, t in table.items():
+                if (t is None or name == "w_scale"
+                        or not t.is_floating_point() or t.dtype == dtype):
+                    continue
+                if isinstance(t, nn.Parameter):
+                    t.data = t.data.to(dtype)
+                else:
+                    table[name] = t.to(dtype)
+    return module

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "dlimg_gather_probe": [_VP] * 3 + [_I] * 5 + [_VP],
     # boxes, scores, thresh, keep, m, stream
     "dlimg_greedy_nms": [_VP] * 4 + [_I, _VP],
+    # x, q, scale, rows, cols, dtype, stream
+    "dlimg_quantize_rows_int8": [_VP] * 3 + [_I] * 3 + [_VP],
+    # acc, x_scale, w_scale, b, y, rows, cols, dtype, stream
+    "dlimg_int8_epilogue": [_VP] * 5 + [_I] * 3 + [_VP],
 }
 
 

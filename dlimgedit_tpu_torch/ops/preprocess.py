@@ -1,9 +1,9 @@
 """SAM image preprocessing (counterpart of dlimgedit_tpu/ops/preprocess.py).
 
-The host only packs the raw uint8 RGB pixels into a bucketed canvas and
-copies it to the device; the resize (antialiased bilinear, any scale),
-normalisation and padding run on the device with shapes fixed by the
-bucket.
+The host only packs the raw uint8 RGB pixels into a bucketed canvas (the
+native loop of utils/hostops.py) and copies it to the device; the resize
+(antialiased bilinear, any scale), normalisation and padding run on the
+device with shapes fixed by the bucket.
 
 Host -> device copy on CUDA: the canvas is packed into pinned host memory
 and copied with ``non_blocking=True``, optionally in row chunks (chunk i's
@@ -25,6 +25,7 @@ import torch
 
 from ..models.sam import SAM_PIXEL_MEAN, SAM_PIXEL_STD
 from ..types import Extent, ImageView, RGB_CHANNEL_MAP
+from ..utils import hostops
 from .resample import apply_resample, resample_matrix
 
 # Canvas buckets: shapes are fixed per bucket.
@@ -84,18 +85,26 @@ class CanvasPool:
 def resolve_h2d_chunks(option_value: int) -> int:
     """Options.h2d_overlap_chunks, 0 = auto = one copy. On a PCIe or NVLink
     host a 1024-bucket canvas (3 MB) copies from pinned memory in a small
-    fraction of the time numpy takes to pack it, so chunking has little to
-    hide; a caller may still ask for chunks."""
+    fraction of the time the host takes to pack it, so chunking has little
+    to hide; a caller may still ask for chunks."""
     return max(1, int(option_value)) if option_value else 1
+
+
+def pack_rows_plain(arr: np.ndarray, cmap, canvas: np.ndarray,
+                    r0: int, r1: int, w: int) -> None:
+    """Channel-map pack arr[r0:r1, :w] -> canvas[r0:r1, :w] with numpy's
+    strided slice copies: the plain version of the native pack."""
+    src, dst = arr[r0:r1], canvas[r0:r1]
+    dst[:, :w, 0] = src[:, :w, cmap[0]]
+    dst[:, :w, 1] = src[:, :w, cmap[1]]
+    dst[:, :w, 2] = src[:, :w, cmap[2]]
 
 
 def _pack_rows(arr: np.ndarray, cmap, canvas: np.ndarray,
                r0: int, r1: int, w: int) -> None:
-    """Channel-map pack arr[r0:r1, :w] -> canvas[r0:r1, :w]."""
-    src, dst = arr[r0:r1], canvas[r0:r1]
-    dst[:, :w, 0] = src[:, :, cmap[0]]
-    dst[:, :w, 1] = src[:, :, cmap[1]]
-    dst[:, :w, 2] = src[:, :, cmap[2]]
+    """Channel-map pack arr[r0:r1, :w] -> canvas[r0:r1, :w] with the native
+    loop (utils/hostops.py)."""
+    hostops.pack_rgb(arr[r0:r1], cmap, canvas[r0:r1], r1 - r0, w)
 
 
 def pack_rgb_canvas(view: ImageView, bucket: int) -> np.ndarray:

@@ -4,14 +4,18 @@ cache (counterpart of dlimgedit_tpu/runtime/environment.py).
 Model directory convention, shared with the JAX package:
 ``model_directory/segmentation/<name>.npz``, optionally pinned by a
 ``<name>.npz.sha256`` file beside it. Encoder weights follow the compute
-dtype; the prompt encoder and decoder stay float32. BiRefNet
-(``birefnet_model``, one per kind; runtime/birefnet.py) follows the
-compute dtype whole.
+dtype; the prompt encoder and decoder stay float32. With
+``Options.quantize_encoder`` (or ``quantize_activations``, which implies
+it) the encoder's attention and MLP linears are quantised to int8 first,
+from the float32 weights (ops/quant.py), and their float32 scales survive
+the cast. BiRefNet (``birefnet_model``, one per kind; runtime/birefnet.py)
+follows the compute dtype whole and is never quantised.
 
 On a CUDA device the encoders run the port's kernels: TinyViT K1
 (LayerNorm) and K2 (window attention); the SAM ViTs K1 and K3 (LayerNorm,
 residual add + LayerNorm), K4 (global rel-pos attention) and K5 (windowed
-rel-pos attention). On the CPU they run the plain path. Automatic mask
+rel-pos attention); a w8a8 encoder's linears also P2 and P3
+(ops/quant.py). On the CPU they run the plain path. Automatic mask
 generation's greedy box NMS runs one kernel of its own
 (``ops/amg.py::greedy_nms``).
 
@@ -34,11 +38,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..convert.from_numpy import params_from_numpy
+from ..convert.from_numpy import load_into
 from ..errors import DlimgError, ModelNotFoundError, not_in_this_slice
 from ..models import sam as sam_lib
-from ..models.common import full_precision
-from ..ops import amg, flash_attention, fused_norm
+from ..models.common import cast_tree, full_precision
+from ..ops import amg, flash_attention, fused_norm, quant
 from ..ops.preprocess import CanvasPool
 from ..types import Backend, Options
 from ..utils.profiling import Profiler
@@ -75,9 +79,6 @@ def _variant(name: str) -> str:
 
 def _reject_unported(o: Options) -> None:
     _variant(o.sam_variant)
-    if o.quantize_encoder or o.quantize_activations:
-        raise not_in_this_slice("int8 quantisation (quantize_encoder, "
-                                "quantize_activations)", "quantisation")
     if o.scaleout_devices != 1:
         raise not_in_this_slice("scaleout_devices != 1", "parallel")
     if o.compilation_cache_dir:
@@ -101,6 +102,7 @@ COUNTED_KERNELS = (
     flash_attention.relpos_attention_qkv,
     flash_attention.windowed_attention_fused,
     amg.greedy_nms,
+    quant.quantize_rows_int8, quant.int8_epilogue,
 )
 
 # One capture at a time in the process (a rule of torch.cuda.graph).
@@ -361,12 +363,26 @@ class Executable:
 
 
 class SamModelBundle:
-    """A loaded SAM variant: config + model resident on the device."""
+    """A loaded SAM variant: config + model (moved to the device by the
+    caller).
+
+    The encoder follows ``compute_dtype``. With ``quantize`` or
+    ``quantize_activations`` (which implies int8 weights) its linears are
+    quantised BEFORE the cast, so the int8 scales come from the float32
+    weights, and ``cast_tree`` keeps them float32. ``quant`` ("none", "w8"
+    or "w8a8", read from the encoder once here) is part of the embed
+    executable's key, so a graph of a float encoder is never replayed for
+    a quantised one."""
 
     def __init__(self, cfg: sam_lib.SamConfig, model: sam_lib.Sam,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, quantize: bool = False,
+                 quantize_activations: bool = False):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        if quantize or quantize_activations:
+            quant.quantize_encoder(model.encoder, act_int8=quantize_activations)
+        cast_tree(model.encoder, compute_dtype)
+        self.quant = quant.quant_mode(model.encoder)
         self.model = model.eval().requires_grad_(False)
 
 
@@ -475,19 +491,19 @@ class Environment:
                 cfg.encoder_vit, use_flash_attention=True))
         path = self.model_directory / "segmentation" / SAM_BUNDLES[variant]
         if path.exists():
-            model = sam_lib.Sam(cfg)
-            model.load_state_dict(params_from_numpy(self._verified_load(path)),
-                                  strict=True)
+            model = load_into(sam_lib.Sam(cfg), self._verified_load(path))
         elif self.options.allow_random_weights:
             model = sam_lib.init_sam(torch.Generator().manual_seed(0), cfg)
         else:
             raise ModelNotFoundError(
                 f"Model file not found: {path} (convert a checkpoint with "
                 f"dlimgedit_tpu.convert, or set allow_random_weights)")
-        # The JAX package's cast_tree: with no int8 leaves in this slice it
-        # is a plain cast of the encoder.
-        model.encoder.to(self.compute_dtype)
-        return SamModelBundle(cfg, model.to(self.device), self.compute_dtype)
+        o = self.options
+        bundle = SamModelBundle(cfg, model, self.compute_dtype,
+                                quantize=o.quantize_encoder,
+                                quantize_activations=o.quantize_activations)
+        bundle.model.to(self.device)
+        return bundle
 
     # -- executable cache ----------------------------------------------------
 

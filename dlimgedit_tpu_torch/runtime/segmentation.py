@@ -184,7 +184,7 @@ class Segmentation:
         else:
             bucket = pick_bucket(extent)
             sizes = (extent.height, extent.width, target.height, target.width)
-        embed = env.executable(("embed", variant, bucket),
+        embed = env.executable(("embed", variant, bucket, bundle.quant),
                                lambda: _build_embed_fn(bundle),
                                torch.Tensor.clone)
         with embed.lock:  # the static canvas is the graph's input

@@ -2,6 +2,7 @@
 
     python3 -m dlimgedit_tpu_torch.tools.profile_main_path --out DIR \
         [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks] \
+        [--quantize none|w8|w8a8] \
         [--amg [--grid N] [--nms T] [--refine]] \
         [--birefnet [--kind general|high_res]]
 
@@ -9,7 +10,9 @@ Drives the main path as a user calls it — the SAM variant (default
 MobileSAM) at 1024 in bfloat16 with seeded random weights (with
 ``--fused-window-blocks`` a ViT bundle's config has ``fused_window_blocks``
 set, so its windowed blocks run K6 on the padded qkv output instead of the
-window partition and K5),
+window partition and K5; with ``--quantize w8`` or ``w8a8`` the encoder's
+linears are int8, ``Options.quantize_encoder`` / ``quantize_activations``,
+and a w8a8 encoder launches P2 and P3 around each s8 x s8 product),
 `Segmentation.process` on a 1024x768 RGBA image, then
 `compute_mask(Point)` — and traces a steady window (after warm-up) of each
 with torch.profiler (CPU and CUDA activities). With ``--amg`` it traces
@@ -28,7 +31,7 @@ each captured alone (``birefnet_stages``). For each it prints:
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
   * the device operations (kernels, copies) per call;
-  * device time by layer (the port's kernels K1-K7, row gathers (the
+  * device time by layer (the port's kernels K1-K7, P2 and P3, row gathers (the
     deform taps' index_select), convolutions, matrix products,
     elementwise, reductions, copies, other) and the top
     kernels by device time;
@@ -53,11 +56,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import dlimgedit_tpu_torch as dl
 from dlimgedit_tpu_torch.image.resize import resize_mask
 from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+from dlimgedit_tpu_torch.utils.profiling import chrome_trace
 
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("greedy_nms (AMG)", ("greedy_nms_kernel",)),
@@ -70,6 +73,8 @@ LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("K6 windowed_attention_fused", ("window_strip_attention_kernel",
                                      "window_strip_kernel_tc")),
     ("K7 relpos_attention_qkv", ("relpos_qkv_kernel",)),
+    ("P2 quantize_rows_int8", ("quantize_rows_kernel",)),
+    ("P3 int8_epilogue", ("int8_epilogue_kernel",)),
     ("gather (index_select)", ("indexselect", "vectorized_gather_kernel")),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "winograd", "dgrad")),
     ("matrix product", ("gemm", "cublas", "cutlass", "matmul", "xmma", "sgemm")),
@@ -104,13 +109,12 @@ def profile_calls(label: str, fn, calls: int, out_dir: Path) -> None:
         fn()
     torch.cuda.synchronize()
     walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with chrome_trace(out_dir, label) as prof:
         for _ in range(calls):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
-    prof.export_chrome_trace(str(out_dir / f"{label}.json"))
     intervals, by_layer, by_kernel = [], defaultdict(float), defaultdict(list)
     h2d = []
     for ev in prof.events():
@@ -220,6 +224,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-window-blocks", action="store_true",
                     help="a ViT's windowed blocks through K6 (its bundle's "
                          "SamViTConfig.fused_window_blocks)")
+    ap.add_argument("--quantize", default="none", choices=("none", "w8", "w8a8"),
+                    help="int8 encoder linears: weights only, or weights "
+                         "and activations")
     ap.add_argument("--amg", action="store_true",
                     help="trace generate_masks instead of the mask click")
     ap.add_argument("--grid", type=int, default=32,
@@ -264,9 +271,11 @@ def main(argv=None) -> int:
               f"one call that makes the taps)")
         birefnet_stages(env, args.kind)
         return 0
-    env = dl.Environment(dl.Options(allow_random_weights=True,
-                                    sam_variant=args.variant))
-    label = args.variant
+    env = dl.Environment(dl.Options(
+        allow_random_weights=True, sam_variant=args.variant,
+        quantize_encoder=args.quantize != "none",
+        quantize_activations=args.quantize == "w8a8"))
+    label = args.variant + ("" if args.quantize == "none" else f"_{args.quantize}")
     if args.fused_window_blocks:
         bundle = env.sam_model(args.variant)
         if bundle.cfg.encoder_vit is None:

@@ -144,15 +144,18 @@ class Image:
 
     @staticmethod
     def load(filepath) -> "Image":
-        raise NotImplementedError(
-            "Image.load (image/io.py) comes with the host-layer slice of the "
-            "port; decode the file with another library and wrap the pixels "
-            "in Image(extent, channels, pixels)")
+        """Decode an image file (image/io.py ``load_image``)."""
+        from .image.io import load_image
+
+        return load_image(str(filepath))
 
     def save(img: Union["Image", ImageView], filepath) -> None:  # noqa: N805
-        raise NotImplementedError(
-            "Image.save (image/io.py) comes with the host-layer slice of the "
-            "port")
+        """Write a PNG. Not a @staticmethod, so both ``img.save(path)`` and
+        ``Image.save(img_or_view, path)`` work."""
+        from .image.io import save_image
+
+        save_image(img if isinstance(img, ImageView) else img.view(),
+                   str(filepath))
 
 
 class Backend(enum.Enum):
@@ -167,10 +170,9 @@ class Backend(enum.Enum):
 class Options:
     """Inference options; the fields of the JAX package's Options.
 
-    Fields the port does not support yet (``quantize_encoder``,
-    ``quantize_activations``, ``scaleout_devices != 1``,
-    ``compilation_cache_dir``) are rejected by ``Environment`` with a
-    ``DlimgError`` that names the later slice. ``sam_variant`` is one of
+    ``Environment`` rejects with a ``DlimgError`` ``scaleout_devices != 1``
+    (a later slice of the port) and ``compilation_cache_dir`` (a CUDA graph
+    lives only as long as its process). ``sam_variant`` is one of
     "mobile_sam" (or "vit_t"), "vit_b", "vit_l", "vit_h".
     """
 
@@ -185,7 +187,12 @@ class Options:
     largest_region_object: bool = False
     # Record per-executable call latencies (Environment.profiler.report()).
     enable_profiling: bool = False
+    # int8 weights for the encoder's attention and MLP linears, scales per
+    # output channel from the float32 weights (ops/quant.py) ...
     quantize_encoder: bool = False
+    # ... and int8 activations, quantised per token, for an s8 x s8 product
+    # (implies quantize_encoder). On the card its token count must exceed
+    # 16 at every linear (cuBLASLt's int8 product), so image size >= 128.
     quantize_activations: bool = False
     birefnet_int8_deform: bool = False
     # "device" (antialiased bilinear resample on the device) or "host"

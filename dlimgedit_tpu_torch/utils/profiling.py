@@ -1,10 +1,13 @@
-"""Per-executable call-latency recorder (counterpart of the ``Profiler`` in
-dlimgedit_tpu/utils/profiling.py).
+"""Per-executable call-latency recorder and device traces (counterparts
+of the ``Profiler`` and ``xplane_trace`` in dlimgedit_tpu/utils/profiling.py).
 
 PyTorch returns from a CUDA call before the device has finished, so on a
 CUDA device the recorder synchronises the device before it starts and
 before it stops the clock: a recorded time covers completed work. It costs
 nothing when disabled (``wrap`` returns the function itself).
+``chrome_trace`` records the host's and the device's timeline of a block
+with torch.profiler and writes it as a Chrome trace (Perfetto,
+chrome://tracing), the port's form of JAX's XPlane trace.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, Optional
+from pathlib import Path
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -87,3 +91,24 @@ class Profiler:
             lines.append(f"{key:<48} {s.count:>6} {s.mean_ms:>9.2f} "
                          f"{s.min_ms:>8.2f} {s.max_ms:>8.2f}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def chrome_trace(log_dir, name: str = "trace") -> Iterator[
+        "torch.profiler.profile"]:
+    """Trace the block with torch.profiler (CPU activity, and CUDA activity
+    where a device is present) and write ``<log_dir>/<name>.json``, a
+    Chrome trace. Yields the profiler, whose ``events()`` hold the block's
+    operations; the device's work is synchronised before the trace ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out / f"{name}.json"))

@@ -40,6 +40,17 @@ conv2d as an executable (warm-up, eager, replays) within relative L2
 BiRefNet's graphs (``birefnet``): three rounds over two buckets and an
 escalated image, every replay bit-equal to its key's eager program.
 
+The int8 kernels (``quant``): P2 ``quantize_rows_int8`` at every row
+width it has (row counts that do not fill a block, a row of zeros) and P3
+``int8_epilogue`` at the encoders' output widths, with and without a
+bias, bit for bit against their plain versions in float32 and bf16; the
+s8 x s8 ``int8_linear`` on the card bit for bit against the CPU's; a CUDA
+tensor never reaches a plain version (both are patched to raise); an
+int8 product cuBLASLt cannot take (16 rows) raises; and quantised
+``process`` calls (w8 and w8a8, MobileSAM at 256 and a narrow ViT-B)
+replay bit-equal to their eager programs, with P2 and P3 launched once
+per quantised linear under w8a8 and never under w8.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -58,6 +69,7 @@ import torch
 import dlimgedit_tpu_torch as dl
 from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.models import sam, vit_sam
+from dlimgedit_tpu_torch.models.common import QuantLinear
 from dlimgedit_tpu_torch.ops.amg import greedy_nms, greedy_nms_plain
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
@@ -79,6 +91,7 @@ from dlimgedit_tpu_torch.ops.fused_norm import (
     fused_layer_norm,
     layer_norm_plain,
 )
+from dlimgedit_tpu_torch.ops import quant
 from dlimgedit_tpu_torch.tools.probe_smem_gather import (
     probe_inputs,
     smem_gather,
@@ -763,3 +776,135 @@ def test_birefnet_graph_replay_equals_eager(dev, monkeypatch, dtype):
         assert exe.graphed and exe.captured, key
         got, want = exe.replay_against_eager()
         assert all(torch.equal(g, w) for g, w in zip(got, want)), key
+
+
+# -- int8 quantisation: P2, P3 and the quantised encoders -----------------
+
+# The encoders' linear output widths (TinyViT qkv / proj / fc1, the ViTs'
+# qkv / proj / lin1 at B, L, H).
+EPILOGUE_WIDTHS = (384, 480, 960, 128, 640, 1280, 2304, 768, 3072, 4096, 5120,
+                   3840)
+
+
+def _activations(dev, rows, C, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, C), generator=g, device=dev)
+    x = x * torch.exp(2 * torch.randn((rows, 1), generator=g, device=dev))
+    x[rows // 2] = 0  # the 1e-8 floor of the scale
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", quant.QUANT_ROW_WIDTHS)
+def test_quant_rows_kernel_bit_equal_to_plain(dev, C, dtype):
+    for rows, seed in ((3, 0), (37, 1), (4900, 2)):
+        x = _activations(dev, rows, C, dtype, seed)
+        before = quant.quantize_rows_int8.launches
+        q, s = quant.quantize_rows_int8(x)
+        torch.cuda.synchronize()
+        assert quant.quantize_rows_int8.launches == before + 1
+        q_want, s_want = quant.quantize_activations_int8(x)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert torch.equal(s, s_want), (rows, (s - s_want).abs().max())
+        assert torch.equal(q, q_want), (rows, int((q != q_want).sum()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", EPILOGUE_WIDTHS)
+def test_quant_epilogue_kernel_bit_equal_to_plain(dev, N, dtype):
+    g = torch.Generator(device=dev).manual_seed(N)
+    for rows, bias in ((17, True), (4096, True), (300, False)):
+        acc = torch.randint(-2**24, 2**24, (rows, N), generator=g, device=dev,
+                            dtype=torch.int32)
+        xs = torch.rand((rows, 1), generator=g, device=dev) * 1e-2
+        ws = torch.rand((N,), generator=g, device=dev) * 1e-3
+        b = (torch.randn((N,), generator=g, device=dev).to(dtype)
+             if bias else None)
+        before = quant.int8_epilogue.launches
+        y = quant.int8_epilogue(acc, xs, ws, b, dtype)
+        torch.cuda.synchronize()
+        assert quant.int8_epilogue.launches == before + 1
+        want = quant.int8_epilogue_plain(acc, xs, ws, b, dtype)
+        assert y.dtype == dtype and torch.equal(y, want), (
+            rows, bias, (y.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(320, 960), (640, 160), (768, 3072), (5120, 1280)])
+def test_quant_int8_linear_on_card_equals_cpu(dev, K, N, dtype):
+    """The s8 x s8 linear on the card (P2, cuBLASLt's int8 product, P3)
+    equals the CPU's plain path bit for bit on the same inputs."""
+    g = torch.Generator().manual_seed(K + N)
+    w_q, w_scale = quant.quantize_weight(0.05 * torch.randn((K, N), generator=g))
+    lin = QuantLinear(w_q, w_scale, 0.1 * torch.randn(N, generator=g),
+                      act_int8=True)
+    x = torch.randn((2, 77, K), generator=g).to(dtype)
+    lin.b.data = lin.b.data.to(dtype)
+    want = quant.int8_linear(lin, x)
+    got = quant.int8_linear(lin.to(dev), x.to(dev))
+    assert got.is_contiguous() and got.shape == (2, 77, N)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_quant_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(quant, "quantize_activations_int8", refuse)
+    monkeypatch.setattr(quant, "int8_epilogue_plain", refuse)
+    x = torch.randn((40, 320), device=dev, dtype=torch.bfloat16)
+    q, s = quant.quantize_rows_int8(x)
+    acc = torch.zeros((40, 960), dtype=torch.int32, device=dev)
+    quant.int8_epilogue(acc, s, torch.ones(960, device=dev), None, x.dtype)
+    torch.cuda.synchronize()
+    with pytest.raises(DlimgError, match="no CUDA kernel for width"):
+        quant.quantize_rows_int8(torch.randn((40, 96), device=dev))
+    with pytest.raises(DlimgError, match="M > 16"):
+        quant.int8_mm(torch.zeros((16, 320), dtype=torch.int8, device=dev),
+                      torch.zeros((320, 960), dtype=torch.int8, device=dev))
+
+
+def _quant_env(variant, mode, dtype="bfloat16"):
+    """A card Environment with an int8 encoder: MobileSAM at 256 (every
+    linear has more than 16 tokens), or the narrow ViT-B of _graph_env,
+    quantised as ``_load_sam`` does (before the cast)."""
+    opts = dict(quantize_encoder=True, quantize_activations=mode == "w8a8")
+    env = dl.Environment(dl.Options(
+        allow_random_weights=True, compute_dtype=dtype, sam_variant=variant,
+        sam_image_size=256, largest_region_object=True,
+        model_directory="no-such-directory", **opts))
+    if variant == "vit_b":
+        enc = vit_sam.SamViTConfig(img_size=256, embed_dim=128, depth=2,
+                                   num_heads=2, global_attn_indexes=(1,),
+                                   use_flash_attention=True)
+        cfg = dataclasses.replace(sam.make_config("vit_b", 256), encoder_vit=enc)
+        model = sam.init_sam(torch.Generator().manual_seed(3), cfg)
+        bundle = SamModelBundle(cfg, model, env.compute_dtype,
+                                quantize=True, quantize_activations=mode == "w8a8")
+        bundle.model.to(env.device)
+        assert env._sam_models["vit_b"].get_or_create(lambda: bundle) is bundle
+    return env
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+@pytest.mark.parametrize("variant", ["mobile_sam", "vit_b"])
+def test_quant_process_replays_equal_eager(dev, variant, mode):
+    env = _quant_env(variant, mode)
+    bundle = env.sam_model(variant)
+    assert bundle.quant == mode
+    blocks = 10 if variant == "mobile_sam" else 2
+    img = _image(300, 200, 7)
+    counts = []
+    for _ in range(3):
+        before = (quant.quantize_rows_int8.launches, quant.int8_epilogue.launches)
+        seg = dl.Segmentation.process(img, env)
+        seg.compute_mask(dl.Point(150, 100))
+        torch.cuda.synchronize()
+        counts.append((quant.quantize_rows_int8.launches - before[0],
+                       quant.int8_epilogue.launches - before[1]))
+    per = 4 * blocks if mode == "w8a8" else 0
+    assert counts == [(per, per)] * 3
+    assert env.executables[("embed", variant, 512, mode)].captured
+    for k, exe in env.executables.items():
+        got, want = exe.replay_against_eager()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), k

@@ -92,7 +92,7 @@ def test_cpu_executables_are_eager_and_results_do_not_alias():
     assert {k[0] for k in env.executables} == {"embed", "decode"}
     for key, exe in env.executables.items():
         assert not exe.graphed and exe.input_buffer(0) is None, key
-    emb_exe = env.executables[("embed", "vit_b", 512)]
+    emb_exe = env.executables[("embed", "vit_b", 512, "none")]
     canvas = torch.zeros((512, 512, 3), dtype=torch.uint8)
     sizes = torch.tensor([200, 300, 171, 256], dtype=torch.int32)
     assert torch.equal(emb_exe(canvas, sizes), emb_exe.eager(canvas, sizes))
@@ -203,7 +203,7 @@ def test_labelled_decode_is_split_around_the_labelling():
     seg.compute_mask(region, largest_component=False)
     seg.compute_mask_batch([region, pdl.Point(50, 50)])
     stages = {k: len(e._stages) for k, e in env.executables.items()}
-    assert stages == {("embed", "vit_b", 512): 1,
+    assert stages == {("embed", "vit_b", 512, "none"): 1,
                       ("decode", "vit_b", 512, False, True): 3,
                       ("decode", "vit_b", 512, False, False): 1,
                       ("decode_batch", "vit_b", 512, 2, True): 3}

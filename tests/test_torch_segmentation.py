@@ -191,8 +191,6 @@ def test_sha256_pin_is_enforced(model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("quantize_encoder", True, "quantisation"),
-    ("quantize_activations", True, "quantisation"),
     ("scaleout_devices", 0, "parallel"),
     ("compilation_cache_dir", "cache", "CUDA graph"),
 ])
@@ -201,11 +199,6 @@ def test_unported_options_are_rejected(field, value, slice_name):
     setattr(opts, field, value)
     with pytest.raises(pdl.DlimgError, match=slice_name):
         pdl.Environment(opts)
-
-
-def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="host-layer"):
-        pdl.Image.load("x.png")
 
 
 def test_gpu_backend_is_the_default_and_never_falls_back(monkeypatch):
