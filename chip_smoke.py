@@ -33,7 +33,10 @@ printing its seconds:
      wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
      mma.sync) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
-     bfloat16 and float32, at every shape the main paths give it
+     bfloat16 and float32, at every shape the main paths give it (also
+     the batched shapes of phases 10 and 11: MobileSAM's K1 and K2 and
+     ViT-B's K1, K3, K4 and K5 at 4 frames, ViT-H's at 2, K5 without the
+     pad-query skip)
      (MobileSAM: K1, K2 - bf16 on the tensor cores, float32 on the CUDA
      cores; SAM ViT-B, ViT-L (C 1024, 16 heads of 64) and ViT-H (C 1280,
      16 heads of 80): K1, K3, K4, K5; ViT-B with fused_window_blocks: K6 on
@@ -174,14 +177,44 @@ printing its seconds:
      ViT-L, 128 ViT-H), the s8 x s8 shapes those phase 2 held, w_scale
      float32 in the bf16 bundles; `process_ms` and `mask_ms` graphed per
      mode (medians of 20) and the encoder's parameter bytes; last the
-     canvas pack, native against numpy, at 1024x768 and 2000x1500 RGBA.
+     canvas pack, native against numpy, at 1024x768 and 2000x1500 RGBA;
+     and one w8a8 MobileSAM `process` and mask at sam_image_size 64, whose
+     16-token linears ``int8_mm`` pads to cuBLASLt's 17 rows;
+ 10. batched frames (parallel/batch.py): `encode_frames` at 1024 in bf16
+     with the serving flags on MobileSAM and ViT-B at B = 1 and 4, three
+     rounds a key (warm-up and capture, replays; exact launches, replays
+     bit-equal to `.eager`), each frame of the batch within relative L2
+     2e-2 of its B = 1 call, ms per call and frames/s; `segment_frames`
+     (BiRefNet_lite, 1024, bf16, B = 2) on frames made by
+     `segment_objects`' own input stage, each frame within 2e-2 of B = 1
+     and its mask within 1 quantum of `segment_objects`' (all but 0.1% of
+     the pixels); `scaleout_devices=0` serving as 1 on the one card;
+ 11. the single-device train tier at full width, float32 masters, plain
+     paths: the MobileSAM fine-tune at 1024, B = 4 (float32 and bf16
+     encoder x accum_steps 1, 2 x remat_encoder off, on), distillation of
+     the TinyViT student against ViT-H teacher embeddings (the teacher on
+     its kernels through `teacher_embeddings`, B = 2), the BiRefNet_lite
+     fine-tune at 1024 at the largest batch of (6, 5, 4, 2, 1) that fits: per
+     run `train_step_ms` (median of 5 after 2 warm-ups), `train_peak_gib`,
+     the losses (falling) and 0 kernel launches in a step; float32 card
+     against CPU (MobileSAM at 256, the slim BiRefNet at 256): loss and
+     every leaf's gradient within relative L2 1e-5 (an attention key
+     bias, whose exact gradient is zero, below 1e-6 of the largest leaf's
+     norm on both devices; BiRefNet at its init, offsets zero, and again
+     with seeded nonzero offsets: within 1e-3 where a ReLU input within
+     1e-5 of zero changed sign between the devices, which moves every
+     leaf upstream of it, and with nonzero offsets, whose gradient jumps
+     where a sample crosses a pixel edge); a checkpoint round
+     trip resuming to the same next-step loss; `export_serving_bundle`
+     loaded by an Environment (sha256 pin) and served.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
 timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
 `bound_ms` in the JSON are sums over the launches it made on the main
 paths (its `launches`: both images' `process` calls of each path in round
-2, all replays). For K7
+2, all replays; and, at the batched shapes, phase 10's round-2 replay of
+each B = 4 `encode_frames` key and phase 11's one teacher call). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
@@ -253,6 +286,26 @@ VIT_STRIP_SHAPES = [(1, 70, 12, 64, 14, 8), (1, 70, 16, 80, 14, 0)]
 VIT_FUSED_PER_PROCESS = {"fused_layer_norm": 1, "fused_add_layer_norm": 23,
                          "relpos_attention_global": 4,
                          "windowed_attention_fused": 8}
+# Phases 10 and 11, batched frames: `encode_frames` of FRAMES_B frames on
+# MobileSAM and ViT-B (its counted run one replay each), `segment_frames`
+# and the distillation teacher (ViT-H, one `teacher_embeddings` call, its
+# warm-up) on TEACHER_B frames. Per counted call the launches of one
+# `process`, at B times the rows and groups; K5 runs without the pad-query
+# skip (a batch's bottom windows are not the tail of the window axis).
+FRAMES_B, TEACHER_B = 4, 2
+FRAMES_LN_SHAPES = [(FRAMES_B * r, C, eps, per) for r, C, eps, per in LN_SHAPES]
+FRAMES_ATTN_SHAPES = [(FRAMES_B * G, N, nh, per) for G, N, nh, per in ATTN_SHAPES]
+BATCHED_VIT_SHAPES = (  # K1, K3, K4 (groups = B x heads), K5 (B x 25 windows)
+    (f"ViT-B B={FRAMES_B}", [(FRAMES_B * 4096, 768, 1)],
+     [(FRAMES_B * 4096, 768, 23)], [(FRAMES_B * 12, 64, 64, 4)],
+     [(FRAMES_B * 25, 12, 14, 64, None, None, 8)]),
+    (f"ViT-H B={TEACHER_B} (teacher)", [(TEACHER_B * 4096, 1280, 1)],
+     [(TEACHER_B * 4096, 1280, 63)], [(TEACHER_B * 16, 64, 80, 4)],
+     [(TEACHER_B * 25, 16, 14, 80, None, None, 28)]),
+)
+# Phase 11: the BiRefNet_lite fine-tune's batches, largest first; the first
+# whose steps fit in device memory is the one measured.
+BIREFNET_TRAIN_BATCHES = (6, 5, 4, 2, 1)
 # K7 (windows, heads, window, head width): ViT-B's and ViT-H's windows.
 VIT_QKV_SHAPES = [(25, 12, 14, 64), (25, 16, 14, 80)]
 # K8: the gather probe's (rows, lanes) and reps.
@@ -564,8 +617,11 @@ def nvcc_report(build_log: str):
     return rows
 
 
-def check_kernels(torch, ops, entries):
-    """Phase 2, MobileSAM's kernels K1 and K2 at their main-path shapes."""
+def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
+                  attn_shapes=ATTN_SHAPES, images=len(IMAGES)):
+    """Phase 2, MobileSAM's kernels K1 and K2 at their main-path shapes
+    (``images``: the calls of the counted main-path run per shape's
+    launches: phase 4's two images, or phase 10's one batch)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -574,7 +630,7 @@ def check_kernels(torch, ops, entries):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         mm_flops = 1.0 if dtype == torch.bfloat16 else 0.0
-        for rows, C, eps, per in LN_SHAPES:
+        for rows, C, eps, per in ln_shapes:
             x = torch.randn((rows, C), generator=gen, device=dev).to(dtype)
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
             bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
@@ -584,8 +640,8 @@ def check_kernels(torch, ops, entries):
                 lambda: ops.layer_norm_plain(x, scale, bias, eps),
                 lambda: F.layer_norm(x, (C,), scale, bias, eps),
                 TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
-                7 * rows * C, per, entries)
-        for G, N, nh, per in ATTN_SHAPES:
+                7 * rows * C, per, entries, images=images)
+        for G, N, nh, per in attn_shapes:
             kd = 32
             qkv = torch.randn((G, N, nh * 3 * kd), generator=gen, device=dev).to(dtype)
             bias = (0.5 * torch.randn((nh, N, N), generator=gen, device=dev)).to(dtype)
@@ -602,7 +658,7 @@ def check_kernels(torch, ops, entries):
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                 TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
                 mm * mm_flops, 7 * G * nh * N * N + mm * (1 - mm_flops), per,
-                entries)
+                entries, images=images)
 
 
 def same_bits(a, b) -> float:
@@ -688,9 +744,14 @@ def relpos_mask(torch, bhw, grid_h, grid_w, folded, scale, dtype):
     return (bias * scale if folded else bias).to(dtype)
 
 
-def check_vit_kernels(torch, ops, entries):
+def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
+                      add_ln_shapes=VIT_ADD_LN_SHAPES,
+                      global_shapes=VIT_GLOBAL_SHAPES,
+                      window_shapes=VIT_WINDOW_SHAPES, images=len(IMAGES)):
     """Phase 2, the SAM ViT's kernels: K1 at the ViT widths, K3, K4, K5 at
-    ViT-B's, ViT-L's and ViT-H's shapes at 1024, rel-pos tables nonzero."""
+    ViT-B's, ViT-L's and ViT-H's shapes at 1024, rel-pos tables nonzero
+    (``images`` as in ``check_kernels``). A window shape with n_w None
+    runs K5 without the pad-query skip (a batch of frames)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -699,7 +760,7 @@ def check_vit_kernels(torch, ops, entries):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         bf16 = dtype == torch.bfloat16
-        for (rows, C, per), (_, _, per3) in zip(VIT_LN_SHAPES, VIT_ADD_LN_SHAPES):
+        for (rows, C, per), (_, _, per3) in zip(ln_shapes, add_ln_shapes):
             x, d = (torch.randn((rows, C), generator=gen, device=dev).to(dtype)
                     for _ in range(2))
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
@@ -710,7 +771,7 @@ def check_vit_kernels(torch, ops, entries):
                 lambda: ops.layer_norm_plain(x, scale, bias, 1e-6),
                 lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
                 TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
-                7 * rows * C, per, entries)
+                7 * rows * C, per, entries, images=images)
 
             def add_err(a, b):  # s bit for bit, then y within the tolerance
                 if not torch.equal(a[0], b[0]):
@@ -724,8 +785,9 @@ def check_vit_kernels(torch, ops, entries):
                 lambda: ops.fused_add_layer_norm_plain(x, d, scale, bias, 1e-6),
                 lambda: F.layer_norm(x + d, (C,), scale, bias, 1e-6),
                 TOL[("ln", dname)], (4 * rows * C + 2 * C) * es, 0,
-                8 * rows * C, per3, entries, compare=add_err)
-        for nh, g, hd, per in VIT_GLOBAL_SHAPES:
+                8 * rows * C, per3, entries, compare=add_err,
+                images=images)
+        for nh, g, hd, per in global_shapes:
             N = g * g
             q, k, v = (torch.randn((nh, N, hd), generator=gen, device=dev).to(dtype)
                        for _ in range(3))
@@ -743,9 +805,9 @@ def check_vit_kernels(torch, ops, entries):
                     q[None], k[None], v[None], attn_mask=mask[None]),
                 TOL[("attn", dname)], (4 * nh * N * hd + nh * N * 2 * g) * es,
                 mm if bf16 else 0, 7 * nh * N * N + (0 if bf16 else mm), per,
-                entries)
+                entries, images=images)
             del mask
-        for W, nh, ws, hd, n_w, valid_rows, per in VIT_WINDOW_SHAPES:
+        for W, nh, ws, hd, n_w, valid_rows, per in window_shapes:
             N, G = ws * ws, W * nh
             scale = hd ** -0.5
             q, k, v = (torch.randn((G, N, hd), generator=gen, device=dev).to(dtype)
@@ -754,11 +816,12 @@ def check_vit_kernels(torch, ops, entries):
                       for _ in range(2))
             bhw = ops.bias_halves(q, rh, rw, ws, ws, out_scale=1.0 / scale)
             mask = relpos_mask(torch, bhw, ws, ws, True, scale, dtype)
-            rows = (W - n_w) * nh * N + n_w * nh * valid_rows * ws  # computed
+            skipped = n_w or 0
+            rows = (W - skipped) * nh * N + skipped * nh * (valid_rows or 0) * ws
             mm = 4 * rows * N * hd
 
             def win_err(a, b):  # skipped pad-query rows must be zero
-                if a[-n_w * nh:, valid_rows * ws:].any():
+                if n_w and a[-n_w * nh:, valid_rows * ws:].any():
                     fail(f"K5 {dname}: skipped pad-query rows are not zero")
                 return (a.float() - b.float()).abs().max().item()
 
@@ -775,7 +838,7 @@ def check_vit_kernels(torch, ops, entries):
                 TOL[("attn", dname)],
                 (2 * G * N * hd + rows * (hd + 2 * ws) + G * N * hd) * es,
                 mm if bf16 else 0, 7 * rows * N + (0 if bf16 else mm), per,
-                entries, compare=win_err)
+                entries, compare=win_err, images=images)
             del mask
 
 
@@ -2113,6 +2176,43 @@ def pack_times(torch, np, gpu_line) -> None:
               f"{ms['numpy']:.3f} ms (medians of 20)", flush=True)
 
 
+def check_w8a8_at_64(torch, np, dl, counters, zero_counters):
+    """Phase 9: a w8a8 MobileSAM `process` and `compute_mask` at
+    sam_image_size 64, where TinyViT's last stages see 16 tokens a linear
+    (fewer than cuBLASLt's int8 product takes: ``int8_mm`` pads them to 17
+    rows and slices back). The embedding finite and within relative L2
+    0.5 of the bf16 float path's on the same image (as at 1024), P2 and P3
+    one launch per quantised linear (40), the mask at the extent."""
+    w, h = 96, 64
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 64))
+    embs = {}
+    for mode in ("bf16", "w8a8"):
+        env = dl.Environment(dl.Options(
+            allow_random_weights=True, sam_image_size=64,
+            quantize_activations=mode == "w8a8"))
+        zero_counters()
+        seg = dl.Segmentation.process(img, env)
+        mask = seg.compute_mask(dl.Point(w // 2, h // 2)).pixels
+        torch.cuda.synchronize()
+        counts = counters()
+        embs[mode] = seg.embedding
+        if (tuple(seg.embedding.shape) != (1, 4, 4, 256)
+                or not bool(torch.isfinite(seg.embedding).all())
+                or mask.shape != (h, w, 1)):
+            fail(f"w8a8 at 64 ({mode}): bad embedding or mask")
+        want = 40 if mode == "w8a8" else 0
+        if any(counts[k] != want for k in QUANT_KERNELS):
+            fail(f"w8a8 at 64 ({mode}): P2 / P3 launches {counts}, want {want}")
+    rel = rel_l2(torch, embs["w8a8"], embs["bf16"])
+    print(f"phase 9 w8a8 MobileSAM at sam_image_size 64 (16-token linears "
+          f"padded to 17 rows): process and mask served, P2 / P3 "
+          f"{counts['quantize_rows_int8']} / {counts['int8_epilogue']} "
+          f"launches, embedding relative L2 to bf16 {rel:.3e} (limit 0.5)",
+          flush=True)
+    if not rel < 0.5:
+        fail(f"w8a8 at 64: embedding relative L2 to bf16 {rel} >= 0.5")
+
+
 def drive_quantized(torch, np, dl, quant_mod, counters, zero_counters,
                     host_ms, gpu_line):
     """Phase 9: quantised serving. The card against the CPU at small sizes
@@ -2135,6 +2235,7 @@ def drive_quantized(torch, np, dl, quant_mod, counters, zero_counters,
 
     t0 = time.perf_counter()
     check_quant_small_against_cpu(torch, np, dl, quant_mod)
+    check_w8a8_at_64(torch, np, dl, counters, zero_counters)
     w, h, seed = IMAGES[0]
     img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
     point = dl.Point(w // 2, h // 2)
@@ -2237,6 +2338,491 @@ def drive_quantized(torch, np, dl, quant_mod, counters, zero_counters,
     return launches
 
 
+def frames_executable(pbatch, model, program, shape):
+    """The Executable of ``encode_frames`` / ``segment_frames`` for a model
+    and a frames shape (parallel/batch.py's cache)."""
+    hits = [exe for key, exe in pbatch._GRAPH_CACHE.items()
+            if key[0] == program and key[1] is model and key[3] == shape]
+    if len(hits) != 1:
+        fail(f"{program}: {len(hits)} executables for shape {shape}")
+    return hits[0]
+
+
+def drive_frames(torch, np, dl, counters, zero_counters, restore_counters,
+                 host_ms, gpu_line):
+    """Phase 10: batched frames on the card. ``encode_frames`` at 1024 in
+    bf16 with the serving flags (the Environment's bundle: kernels on) on
+    MobileSAM and ViT-B (seeded nonzero rel-pos tables, pos_embed and qkv
+    biases), B = 1 and B = FRAMES_B, each key in three rounds (warm-up and
+    capture, then replays; round 2, the B = FRAMES_B replay, is the
+    counted run): every round's launches those of one `process`, rounds 2
+    and 3 equal to round 1, the replay bit-equal to the eager program,
+    each frame of the batch within relative L2 2e-2 (phase 2's bf16
+    tolerance) of the B = 1 call on it alone; frames/s and ms per call
+    (host clock, medians of 20). Then ``segment_frames``: BiRefNet_lite
+    (general, 1024, bf16, nonzero offsets) on TEACHER_B frames made by
+    `segment_objects`' own input stage from two 1024x768 images: each
+    frame's logits within relative L2 2e-2 of the B = 1 call, and its
+    mask, resized to the extent as `segment_objects` resizes, within 1
+    quantum of `segment_objects`' on all but 0.1% of the pixels; no
+    kernel launched. Last `scaleout_devices=0`: one `process` and one
+    mask equal to `scaleout_devices=1`'s bit for bit. Returns the
+    launches of the counted runs."""
+    from dlimgedit_tpu_torch.image.resize import resize_mask
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.models.common import full_precision
+    from dlimgedit_tpu_torch.ops.postprocess import sigmoid_to_u8
+    from dlimgedit_tpu_torch.ops.preprocess import pack_and_put_canvas
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
+    from dlimgedit_tpu_torch.runtime.birefnet import birefnet_input
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    launches = {}
+    for variant, want in (("mobile_sam", {"fused_layer_norm": LN_PER_PROCESS,
+                                          "levit_window_attention":
+                                              ATTN_PER_PROCESS}),
+                          ("vit_b", VIT_PER_PROCESS)):
+        t1 = time.perf_counter()
+        env = dl.Environment(dl.Options(allow_random_weights=True,
+                                        sam_variant=variant))
+        bundle = env.sam_model(variant)
+        if variant != "mobile_sam":
+            seed_vit_extras(torch, bundle.model)
+        model, cfg = bundle.model, bundle.cfg
+        gen = torch.Generator(device=dev).manual_seed(10)
+        frames = torch.randn((FRAMES_B, 1024, 1024, 3), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        outs, ms = {}, {}
+        for B in (1, FRAMES_B):
+            x = frames[:B]
+            first = None
+            for rnd in range(ROUNDS):
+                zero_counters()
+                out = pbatch.encode_frames(model, cfg, x)
+                torch.cuda.synchronize()
+                counts = counters()
+                expect = {k: want.get(k, 0) for k in counts}
+                if counts != expect:
+                    fail(f"frames {variant} B={B} round {rnd + 1}: launches "
+                         f"{counts} != {expect}")
+                if rnd == 0:
+                    if (tuple(out.shape) != (B, 64, 64, 256)
+                            or not bool(torch.isfinite(out).all())):
+                        fail(f"frames {variant} B={B}: bad embeddings "
+                             f"{tuple(out.shape)}")
+                    first = out
+                elif not torch.equal(out, first):
+                    fail(f"frames {variant} B={B} round {rnd + 1}: a replay "
+                         f"differs from round 1")
+                if rnd == 1 and B == FRAMES_B:
+                    for k, v in counts.items():
+                        launches[k] = launches.get(k, 0) + v
+            exe = frames_executable(pbatch, model, "encode", tuple(x.shape))
+            with restore_counters():
+                got, ref = exe.replay_against_eager()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"frames {variant} B={B}: the replay differs from the "
+                     f"eager program")
+            outs[B] = first
+            ms[B] = host_ms(lambda: pbatch.encode_frames(model, cfg, x))
+        ones = [outs[1]] + [pbatch.encode_frames(model, cfg, frames[i:i + 1])
+                            for i in range(1, FRAMES_B)]
+        rels = [rel_l2(torch, outs[FRAMES_B][i], ones[i][0])
+                for i in range(FRAMES_B)]
+        print(f"frames {variant} bf16 at 1024: launches per call {counts}; "
+              f"replays bit-equal to eager; each frame of B={FRAMES_B} against "
+              f"B=1, relative L2 {[f'{r:.3e}' for r in rels]} (limit 2e-2)",
+              flush=True)
+        if not max(rels) <= 2e-2:
+            fail(f"frames {variant}: a frame of the batch is {max(rels)} "
+                 f"from its B=1 call")
+        print(f"e2e frames {variant} on {gpu_line}: encode_frames ms per "
+              f"call B=1 {ms[1]:.3f} ({1e3 / ms[1]:.1f} frames/s), "
+              f"B={FRAMES_B} {ms[FRAMES_B]:.3f} "
+              f"({FRAMES_B * 1e3 / ms[FRAMES_B]:.1f} frames/s) (medians of 20) "
+              f"[{time.perf_counter() - t1:.1f} s]", flush=True)
+        del env, bundle, model, frames, outs, ones
+        torch.cuda.empty_cache()
+
+    # segment_frames: BiRefNet_lite on frames made by segment_objects' input
+    # stage, against segment_objects.
+    t1 = time.perf_counter()
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+    env = dl.Environment(dl.Options(allow_random_weights=True))
+    bundle = env.birefnet_model("general")
+    seed_nonzero_init(bundle.model)
+    images = [dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+              for w, h, seed in ((1024, 768, 21), (1024, 768, 22))]
+    xs = []
+    with torch.inference_mode(), full_precision():
+        for img in images:
+            canvas = pack_and_put_canvas(img.view(), 1024, dev)
+            sizes = env.sizes_on_device((img.extent.height, img.extent.width))
+            xs.append(birefnet_input(bundle, 1024, canvas, sizes))
+    frames = torch.cat(xs)
+    before = counters()
+    logits = pbatch.segment_frames(bundle.model, bundle.cfg, frames)
+    again = pbatch.segment_frames(bundle.model, bundle.cfg, frames)
+    if not torch.equal(logits, again):
+        fail("segment_frames: the replay differs from round 1")
+    if tuple(logits.shape) != (TEACHER_B, 1024, 1024, 1) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"segment_frames: bad logits {tuple(logits.shape)}")
+    for i, img in enumerate(images):
+        one = pbatch.segment_frames(bundle.model, bundle.cfg, frames[i:i + 1])
+        rel = rel_l2(torch, logits[i], one[0])
+        u8 = sigmoid_to_u8(logits[i, :, :, 0]).cpu().numpy()
+        mine = resize_mask(dl.ImageView.from_array(u8, dl.Channels.mask),
+                           img.extent)
+        theirs = dl.segment_objects(img, env).pixels
+        d = np.abs(mine.astype(np.int32).reshape(theirs.shape)
+                   - theirs.astype(np.int32))
+        share = float((d > 1).mean())
+        print(f"segment_frames frame {i}: logits relative L2 to B=1 "
+              f"{rel:.3e} (limit 2e-2); mask vs segment_objects max diff "
+              f"{int(d.max())}, share of pixels above 1 quantum {share:.2e} "
+              f"(limit 1e-3)", flush=True)
+        if not rel <= 2e-2 or not share <= 1e-3:
+            fail(f"segment_frames frame {i} differs from segment_objects")
+    if counters() != before:
+        fail("segment_frames launched a kernel of the port")
+    bms = host_ms(lambda: pbatch.segment_frames(bundle.model, bundle.cfg,
+                                                frames), n=10)
+    print(f"e2e segment_frames BiRefNet_lite B={TEACHER_B} at 1024 on "
+          f"{gpu_line}: {bms:.3f} ms per call ({TEACHER_B * 1e3 / bms:.2f} "
+          f"frames/s; median of 10) [{time.perf_counter() - t1:.1f} s]",
+          flush=True)
+    del env, bundle, frames, logits, again
+    torch.cuda.empty_cache()
+
+    # scaleout_devices=0 on the one card: the single-device path.
+    w, h, seed = IMAGES[0]
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+    segs = [dl.Segmentation.process(img, dl.Environment(dl.Options(
+        allow_random_weights=True, scaleout_devices=n))) for n in (1, 0)]
+    p = dl.Point(w // 2, h // 2)
+    if not (torch.equal(segs[0].embedding, segs[1].embedding)
+            and np.array_equal(segs[0].compute_mask(p).pixels,
+                               segs[1].compute_mask(p).pixels)):
+        fail("scaleout_devices=0 serves unlike scaleout_devices=1")
+    print(f"scaleout_devices=0 on {torch.cuda.device_count()} device: process "
+          f"and mask equal to scaleout_devices=1, bit for bit", flush=True)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def grads_close(torch, got, want, rel, floor=1e-4, zero=1e-6):
+    """(largest relative L2, its leaf) between two gradient dicts, leaf by
+    leaf; fails above ``rel``. An attention key bias (a leaf named
+    ``k.b``) has an exact gradient of zero (the softmax cancels a shift of
+    every key by one vector): both devices' gradients of it are rounding
+    and must each stay below ``zero`` times the largest leaf's norm.
+    Another leaf whose reference gradient is below ``floor`` times the
+    largest leaf's norm is measured against that."""
+    scale = max(float(g.norm()) for g in want.values())
+    worst = (0.0, None)
+    for k, w in want.items():
+        if k.endswith(".k.b"):
+            if not max(float(w.norm()), float(got[k].norm())) <= zero * scale:
+                fail(f"gradient of {k}: not zero up to rounding on both "
+                     f"devices ({float(w.norm())}, {float(got[k].norm())})")
+            continue
+        err = float((got[k].cpu() - w).norm())
+        worst = max(worst, (err / max(float(w.norm()), floor * scale), k))
+    if not worst[0] <= rel:
+        fail(f"gradient of {worst[1]}: card vs CPU relative L2 {worst[0]} > "
+             f"{rel}")
+    return worst
+
+
+def train_run(torch, counters, zero_counters, step, model, state, batches,
+              label, gpu_line, warm=2, timed=5):
+    """``warm`` + ``timed`` steps on device batches (``prefetch_to_device``
+    of a fixed batch): ms per step (host clock around a step that ends in
+    a synchronise; median of the timed steps), peak device memory, the
+    timed steps' losses (the last must be below the first step's, the
+    loss before any update: the SAM loss's IoU term jumps from step to
+    step as the predicted masks' threshold moves), and no kernel launch
+    of the port."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    zero_counters()
+    losses, times = [], []
+    for i, batch in enumerate(batches(warm + timed)):
+        t = time.perf_counter()
+        model, state, loss, _ = step(model, state, batch)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    net = peak - resident / 2**30
+    launched = {k: v for k, v in counters().items() if v}
+    if launched:
+        fail(f"train {label}: a step launched the port's kernels {launched}")
+    if not all(abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train {label}: the loss did not fall: {losses}")
+    print(f"train {label} on {gpu_line}: train_step_ms "
+          f"{statistics.median(times):.3f} (median of {timed} after {warm} "
+          f"warm-ups), train_peak_gib {peak:.3f} (max_memory_allocated; "
+          f"{net:.3f} above the {resident / 2**30:.3f} GiB resident before "
+          f"the first step, the model and its optimizer state included), "
+          f"first loss "
+          f"{losses[0]:.5f}, timed steps' losses "
+          f"{[round(x, 5) for x in losses[warm:]]}, 0 kernel launches",
+          flush=True)
+    return model, state
+
+
+def drive_training(torch, np, dl, counters, zero_counters, gpu_line):
+    """Phase 11: the single-device train tier at full width on the card,
+    float32 masters, the plain paths (no kernel has a backward).
+
+      * SAM fine-tune: MobileSAM at 1024, B = 4, float32 and bf16 encoder,
+        accum_steps 1 and 2, remat_encoder off and on (8 configs), each
+        from the same seeded weights on the same batch, fed through
+        ``prefetch_to_device`` (pinned copies on a copy stream);
+      * distillation: the MobileSAM TinyViT student at 1024 (B =
+        TEACHER_B) against ViT-H teacher embeddings from
+        ``teacher_embeddings`` (the Environment's bf16 ViT-H with its
+        kernels; launches counted: one `process`'s worth);
+      * BiRefNet_lite fine-tune at 1024, float32, at the largest batch of
+        BIREFNET_TRAIN_BATCHES whose step fits (an out-of-memory step
+        tries the next);
+    each with ``train_run``'s numbers. Then float32 card against CPU
+    (MobileSAM at 256, B = 2; the slim BiRefNet at 256, B = 1, at its init
+    and with nonzero offsets): loss within relative 1e-5 and every leaf's
+    gradient within relative L2 1e-5 (1e-3 with nonzero offsets, or
+    where a ReLU input at a tie changed sign between the devices;
+    ``grads_close``), both under full precision; a checkpoint round
+    trip on the card resumes to the same next-step loss; and
+    ``export_serving_bundle`` writes a bundle that an Environment loads
+    with its sha256 pin and serves (`process`, `compute_mask`). Returns
+    the teacher's launches."""
+    import copy
+    import gc
+    import hashlib
+    import tempfile
+
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.models import sam
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
+    from dlimgedit_tpu_torch.runtime.birefnet import slim_config
+    from dlimgedit_tpu_torch.train import birefnet_step, checkpoint, distill
+    from dlimgedit_tpu_torch.train import step as tstep
+    from dlimgedit_tpu_torch.train.data import prefetch_to_device, sam_batch_iterator
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gc.collect()  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+
+    def fixed(batch):
+        return lambda n: prefetch_to_device(iter([batch] * n), depth=2)
+
+    cfg = sam.make_config("mobile_sam", 1024)
+    base = sam.init_sam(torch.Generator().manual_seed(0), cfg).to(dev)
+    batch = next(sam_batch_iterator(np.random.default_rng(0), batch_size=4,
+                                    image_size=1024,
+                                    mask_size=cfg.mask_input_size))
+    last = None
+    for dtype in ("float32", "bfloat16"):
+        for accum in (1, 2):
+            for remat in (False, True):
+                tcfg = tstep.TrainConfig(encoder_dtype=dtype,
+                                         remat_encoder=remat)
+                model = copy.deepcopy(base)
+                state = tstep.init_train_state(model, tcfg)
+                step = tstep.make_train_step(cfg, tcfg, accum_steps=accum)
+                model, state = train_run(
+                    torch, counters, zero_counters, step, model, state,
+                    fixed(batch), f"MobileSAM 1024 B=4 {dtype} encoder, "
+                    f"accum_steps {accum}, remat {'on' if remat else 'off'}",
+                    gpu_line)
+                if dtype == "float32" and accum == 1 and not remat:
+                    last = (model, state, step)
+                del model, state
+    torch.cuda.empty_cache()
+
+    # Checkpoint round trip on the card, then the serving export.
+    model, state, step = last
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_train_state(d, 7, model, state)
+        probe = next(fixed(batch)(1))
+        fresh, opt, n = checkpoint.restore_train_state(
+            d, like=sam.init_sam(torch.Generator().manual_seed(9), cfg).to(dev))
+        _, _, want, _ = step(model, state, probe)
+        _, _, got, _ = step(fresh, opt, probe)
+        if n != 7 or float(got) != float(want):
+            fail(f"checkpoint: resumed step {n} loss {float(got)} != "
+                 f"{float(want)}")
+        bundle = Path(d) / "models" / "segmentation" / "mobile_sam.npz"
+        checkpoint.export_serving_bundle(fresh, bundle)
+        digest = hashlib.sha256(bundle.read_bytes()).hexdigest()
+        bundle.with_suffix(".npz.sha256").write_text(digest + "\n")
+        env = dl.Environment(dl.Options(model_directory=str(Path(d) / "models")))
+        served = env.sam_model("mobile_sam").model
+        for k, v in tstep.leaves(fresh).items():
+            if not torch.equal(served.state_dict()[k].float(),
+                               v.to(served.state_dict()[k].dtype).float()):
+                fail(f"export: the served leaf {k} is not the trained one")
+        w, h, seed = IMAGES[0]
+        img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, seed))
+        seg = dl.Segmentation.process(img, env)
+        mask = seg.compute_mask(dl.Point(w // 2, h // 2)).pixels
+        if mask.shape != (h, w, 1) or not bool(torch.isfinite(seg.embedding).all()):
+            fail("export: the exported bundle does not serve")
+        print(f"checkpoint: save / restore on the card resumes to the same "
+              f"next-step loss ({float(got):.6f}); exported bundle (sha256 "
+              f"{digest[:12]}...) loaded and served", flush=True)
+        del env, served, seg
+    del model, state, fresh, opt, last, base
+    torch.cuda.empty_cache()
+
+    # Distillation: TinyViT student against ViT-H teacher embeddings.
+    env = dl.Environment(dl.Options(allow_random_weights=True,
+                                    sam_variant="vit_h"))
+    teacher = env.sam_model("vit_h")
+    seed_vit_extras(torch, teacher.model)
+    images = torch.randn((TEACHER_B, 1024, 1024, 3), generator=torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    zero_counters()
+    emb = distill.teacher_embeddings(teacher.model, teacher.cfg, images)
+    torch.cuda.synchronize()
+    teacher_launches = counters()
+    want = {k: vit_per_process(32).get(k, 0) for k in teacher_launches}
+    if teacher_launches != want:
+        fail(f"distill teacher: launches {teacher_launches} != {want}")
+    if tuple(emb.shape) != (TEACHER_B, 64, 64, 256) or emb.dtype != torch.float32:
+        fail(f"distill teacher: embeddings {tuple(emb.shape)} {emb.dtype}")
+    print(f"distill teacher ViT-H bf16 B={TEACHER_B}: launches "
+          f"{teacher_launches}", flush=True)
+    del env, teacher
+    pbatch._GRAPH_CACHE.clear()  # the teacher's graph holds the teacher
+    torch.cuda.empty_cache()
+    student = sam.init_sam(torch.Generator().manual_seed(1), cfg).to(dev)
+    dcfg = distill.DistillConfig()
+    train_run(torch, counters, zero_counters,
+              distill.make_distill_step(cfg, dcfg), student.encoder,
+              distill.init_distill_state(student.encoder, dcfg),
+              fixed({"images": images, "teacher_emb": emb}),
+              f"distill TinyViT student 1024 B={TEACHER_B} float32", gpu_line)
+    del student, images, emb
+    torch.cuda.empty_cache()
+
+    # BiRefNet_lite at the largest batch that fits.
+    bcfg = bn.BiRefNetConfig(img_size=1024)
+    bt = birefnet_step.BiRefNetTrainConfig(learning_rate=1e-4)
+    rng = np.random.default_rng(2)
+    for B in BIREFNET_TRAIN_BATCHES:
+        model = bn.init_birefnet(torch.Generator().manual_seed(0), bcfg)
+        bn.seed_nonzero_init(model)
+        model = model.to(dev)
+        images = rng.standard_normal((B, 1024, 1024, 3)).astype(np.float32)
+        # A target the model can learn (the first channel's sign), so the
+        # loss falls from step to step rather than around pixel noise.
+        bbatch = {"images": images,
+                  "masks": (images[..., 0] > 0).astype(np.float32)}
+        state = birefnet_step.init_birefnet_train_state(model, bt)
+        step = birefnet_step.make_birefnet_train_step(bcfg, bt)
+        try:
+            train_run(torch, counters, zero_counters, step, model, state,
+                      fixed(bbatch), f"BiRefNet_lite 1024 B={B} float32 "
+                      f"(lr 1e-4)", gpu_line)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"train BiRefNet_lite 1024 B={B}: out of device memory, "
+                  f"trying a smaller batch", flush=True)
+        finally:
+            del model, state, step
+            torch.cuda.empty_cache()
+    else:
+        fail("BiRefNet_lite: no batch fits")
+
+    # Float32 card against CPU: loss and every leaf's gradient. A ReLU's
+    # gradient jumps at 0, so where a pre-activation lies within rounding
+    # distance of 0 the two devices may take different sides and every
+    # leaf upstream of it moves (BiRefNet's decoder is ReLU; MobileSAM's
+    # encoder is GELU). BiRefNet's ReLU inputs are recorded on both
+    # devices: with no sign flip the limit is 1e-5; flips, each of a
+    # pre-activation below 1e-5 in size (a tie, not a divergence), allow
+    # 1e-3. BiRefNet runs twice: at its init (offset and modulator convs
+    # zero, so every deformable sample lies on the pixel grid) and with
+    # seeded nonzero offsets, where the offsets' gradient (the bilinear
+    # sample's derivative in the position) also jumps at a pixel edge and
+    # the devices' offsets differ by rounding: 1e-3.
+    slim = slim_config(256, False)
+    bir_batch = {"images": np.random.default_rng(5).standard_normal(
+        (1, 256, 256, 3)).astype(np.float32),
+        "masks": (np.random.default_rng(6).random((1, 256, 256)) > 0.5
+                  ).astype(np.float32)}
+    relu = bn.relu
+
+    def relu_inputs(fn):
+        """fn() with BiRefNet's ReLU inputs recorded: (result, inputs)."""
+        seen = []
+
+        def recorded(x):
+            seen.append(x.detach().cpu())
+            return relu(x)
+
+        bn.relu = recorded
+        try:
+            return fn(), seen
+        finally:
+            bn.relu = relu
+
+    for label, make, loss_fn, lcfg, b, smooth in (
+            ("MobileSAM 256 B=2",
+             lambda: sam.init_sam(torch.Generator().manual_seed(3),
+                                  sam.make_config("mobile_sam", 256)),
+             tstep.mask_loss, sam.make_config("mobile_sam", 256),
+             next(sam_batch_iterator(np.random.default_rng(4), batch_size=2,
+                                     image_size=256, mask_size=64)), True),
+            ("slim BiRefNet 256 B=1, its init (offsets zero)",
+             lambda: bn.init_birefnet(torch.Generator().manual_seed(0), slim),
+             birefnet_step.birefnet_loss, slim, bir_batch, True),
+            ("slim BiRefNet 256 B=1, seeded nonzero offsets",
+             lambda: seeded_birefnet(bn, torch, slim),
+             birefnet_step.birefnet_loss, slim, bir_batch, False)):
+        t1 = time.perf_counter()
+        cpu_model = make()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        ((l_cpu, _), g_cpu), r_cpu = relu_inputs(
+            lambda: tstep.loss_and_grads(loss_fn, cpu_model, lcfg, b))
+        ((l_gpu, _), g_gpu), r_gpu = relu_inputs(
+            lambda: tstep.loss_and_grads(loss_fn, gpu_model, lcfg, b))
+        flips = [(a > 0) != (c > 0) for a, c in zip(r_cpu, r_gpu)]
+        n_flips = sum(int(f.sum()) for f in flips)
+        tie = max((float(a[f].abs().max()) for a, f in zip(r_cpu, flips)
+                   if f.any()), default=0.0)
+        if not tie <= 1e-5:
+            fail(f"card vs CPU {label}: a ReLU input of {tie} changed sign")
+        limit = 1e-5 if smooth and not n_flips else 1e-3
+        rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+        if not rel <= 1e-5:
+            fail(f"card vs CPU {label}: loss {float(l_gpu)} vs {float(l_cpu)}")
+        err, leaf = grads_close(torch, g_gpu, g_cpu, limit)
+        print(f"train card vs CPU float32 {label}: loss relative {rel:.3e} "
+              f"(limit 1e-5), worst leaf gradient relative L2 {err:.3e} "
+              f"({leaf}; limit {limit:g}, {len(g_cpu)} leaves); ReLU inputs "
+              f"that changed sign {n_flips} (largest {tie:.2e}) "
+              f"[{time.perf_counter() - t1:.1f} s]", flush=True)
+        del cpu_model, gpu_model, g_cpu, g_gpu
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return teacher_launches
+
+
+def seeded_birefnet(bn, torch, cfg):
+    model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
+    bn.seed_nonzero_init(model)
+    return model
+
+
 def main() -> int:
     import torch
 
@@ -2261,6 +2847,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.ops import fused_norm as fn
     from dlimgedit_tpu_torch.ops import quant
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
     from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
 
     ops = types.SimpleNamespace(
@@ -2343,6 +2930,12 @@ def main() -> int:
     with tf32_off(torch):  # the plain versions are float32 references
         check_kernels(torch, ops, entries)
         check_vit_kernels(torch, ops, entries)
+        check_kernels(torch, ops, entries, FRAMES_LN_SHAPES,
+                      FRAMES_ATTN_SHAPES, images=1)
+        for label, ln, add_ln, glob, win in BATCHED_VIT_SHAPES:
+            print(f"phase 2, batched: {label}", flush=True)
+            check_vit_kernels(torch, ops, entries, ln, add_ln, glob, win,
+                              images=1)
         check_window_kernels(torch, ops, entries)
         check_nms_kernel(torch, np, ops)
         k1_launch_floor(torch, ops, entries, restore_counters)
@@ -2440,6 +3033,20 @@ def main() -> int:
     # -- 9. quantised serving --------------------------------------------
     launches.update(drive_quantized(torch, np, dl, quant, counters,
                                     zero_counters, host_ms, gpu_line))
+
+    # -- 10. batched frames ------------------------------------------------
+    for name, n in drive_frames(torch, np, dl, counters, zero_counters,
+                                restore_counters, host_ms, gpu_line).items():
+        launches[name] += n
+    pbatch._GRAPH_CACHE.clear()  # the frames' graphs hold their models
+    torch.cuda.empty_cache()
+
+    # -- 11. the single-device train tier --------------------------------
+    for name, n in drive_training(torch, np, dl, counters, zero_counters,
+                                  gpu_line).items():
+        launches[name] += n
+    pbatch._GRAPH_CACHE.clear()
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, source, replaces in KERNELS:

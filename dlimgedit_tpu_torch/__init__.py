@@ -19,9 +19,12 @@ Quick start::
     fg = dl.segment_objects(img, env)            # remove background
 
 The port imports neither jax nor dlimgedit_tpu. The encoders may be
-quantised to int8 (``Options.quantize_encoder``, ``quantize_activations``);
-the parallel tiers come with a later slice (``scaleout_devices != 1``
-raises ``DlimgError``).
+quantised to int8 (``Options.quantize_encoder``, ``quantize_activations``).
+Batches of frames run through ``parallel.batch`` (``encode_frames``,
+``segment_frames``), and ``train`` fine-tunes, distils and checkpoints on
+one device. ``scaleout_devices`` 0 or N serves as 1 where the backend has
+fewer than 2 devices; the multi-device tier comes with a later slice (2 or
+more CUDA devices raise ``DlimgError``).
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

@@ -14,18 +14,23 @@ or ``w_q8`` leaves and float32 ``w_scale`` leaves in place of a linear's
 ``w``: both keep their dtype. ``load_into`` swaps the matching ``Linear``s
 of the model for ``QuantLinear``s before it loads, so such a tree loads
 ``strict=True``.
+
+``numpy_from_params`` is the inverse: a state dict (or a module's) back to
+the nested numpy tree, OIHW convolution kernels back to HWIO, int8 and
+``w_scale`` leaves in their dtype, so a trained model exports the
+``.npz`` that both packages load.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..models.common import QuantLinear
-from ..utils.pytree_io import flatten_tree
+from ..utils.pytree_io import flatten_tree, unflatten_tree
 
 _INT8_WEIGHTS = ("w_q", "w_q8")
 
@@ -66,3 +71,23 @@ def load_into(model: nn.Module, tree, dtype: Optional[torch.dtype] = torch.float
                 act_int8=name == "w_q8"))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def numpy_from_params(params: Union[nn.Module, Dict[str, torch.Tensor]]):
+    """A state dict (or a module's ``state_dict``) -> the nested numpy tree
+    of ``params_from_numpy``'s input, on the host: 4-D leaves named ``w``
+    go from OIHW back to HWIO; float32, float16, float64 and integer
+    leaves keep their dtype, other floating leaves (bfloat16, which numpy
+    lacks) become float32."""
+    state = params.state_dict() if isinstance(params, nn.Module) else params
+    flat = {}
+    for key, t in state.items():
+        t = t.detach().cpu()
+        if t.is_floating_point() and t.dtype not in (
+                torch.float32, torch.float16, torch.float64):
+            t = t.float()
+        arr = t.numpy()
+        if arr.ndim == 4 and key.rsplit(".", 1)[-1] == "w":
+            arr = arr.transpose(2, 3, 1, 0)  # conv kernel: OIHW -> HWIO
+        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+    return unflatten_tree(flat)

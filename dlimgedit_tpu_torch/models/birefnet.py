@@ -78,6 +78,7 @@ class BiRefNetConfig:
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _ac_matrix(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
     """(n_out, n_in) float32 bilinear matrix with torch's align_corners=True
     mapping, src = i * (n_in - 1) / (n_out - 1), made on `device` once (by

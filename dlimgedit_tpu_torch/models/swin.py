@@ -59,6 +59,7 @@ SWIN_PRESETS = {
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _rel_pos_index(window: int, device: torch.device) -> torch.Tensor:
     """The Swin relative-position index (w^2, w^2) into the ((2w-1)^2,)
     bias table, int64 on `device`, made there once: by a graphed
@@ -71,6 +72,7 @@ def _rel_pos_index(window: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _shift_attn_mask(pH: int, pW: int, window: int, shift: int,
                      device: torch.device) -> torch.Tensor:
     """The additive region mask (0 / -100) of shifted-window attention over

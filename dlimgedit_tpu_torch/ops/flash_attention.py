@@ -162,6 +162,7 @@ def rel_pos_index(size: int, device=None) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def cached_rel_pos_index(size: int, device: torch.device) -> torch.Tensor:
     """``rel_pos_index`` made once per (size, device); by a graphed
     executable's eager warm-up, never inside its capture (a tensor first

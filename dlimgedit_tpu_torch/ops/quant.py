@@ -171,17 +171,35 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
 int8_epilogue.launches = 0
 
 
+# cuBLASLt's int8 product on the card takes only M > 16 rows.
+INT8_MM_MIN_ROWS = 17
+
+
+def pad_rows(q: torch.Tensor, rows: int = INT8_MM_MIN_ROWS) -> torch.Tensor:
+    """``q`` (M, K) with zero rows appended up to ``rows`` (``q`` itself
+    when it has that many). The rows of a product are independent, so
+    ``(pad_rows(q) @ w)[:M]`` equals ``q @ w`` exactly."""
+    M = q.shape[0]
+    if M >= rows:
+        return q
+    return torch.cat([q, q.new_zeros((rows - M,) + tuple(q.shape[1:]))])
+
+
 def int8_mm(q: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact. On the card
-    cuBLASLt's int8 product needs M > 16 and K, N multiples of 8: another
-    shape raises here rather than falling back to a float product. It is
-    fast only with ``w_q8`` column-major, as ``QuantLinear`` stores it."""
+    cuBLASLt's int8 product needs M > 16, so fewer rows are padded with
+    zero rows and the result sliced back (``pad_rows``); K and N must be
+    multiples of 8, and another shape raises here rather than falling
+    back to a float product. It is fast only with ``w_q8`` column-major,
+    as ``QuantLinear`` stores it."""
     M, K = q.shape
     N = w_q8.shape[1]
-    if q.is_cuda and (M <= 16 or K % 8 or N % 8):
-        raise DlimgError(f"int8_mm: the CUDA int8 product needs M > 16 and K, "
-                         f"N multiples of 8, got ({M}, {K}) x ({K}, {N})")
-    return torch._int_mm(q, w_q8)
+    if not q.is_cuda:
+        return torch._int_mm(q, w_q8)
+    if K % 8 or N % 8:
+        raise DlimgError(f"int8_mm: the CUDA int8 product needs K and N "
+                         f"multiples of 8, got ({M}, {K}) x ({K}, {N})")
+    return torch._int_mm(pad_rows(q), w_q8)[:M]
 
 
 def int8_linear(params: nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -79,8 +79,6 @@ def _variant(name: str) -> str:
 
 def _reject_unported(o: Options) -> None:
     _variant(o.sam_variant)
-    if o.scaleout_devices != 1:
-        raise not_in_this_slice("scaleout_devices != 1", "parallel")
     if o.compilation_cache_dir:
         raise DlimgError(
             "compilation_cache_dir has no counterpart in dlimgedit_tpu_torch: "
@@ -90,6 +88,20 @@ def _reject_unported(o: Options) -> None:
     if o.compute_dtype not in _DTYPES:
         raise DlimgError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                          f"got {o.compute_dtype!r}")
+
+
+def _scaleout(requested: int, device: torch.device) -> None:
+    """``Options.scaleout_devices`` as the JAX package reads it: 0 means
+    every device of the backend, N means min(N, that count). Fewer than 2
+    take the single-device path, so a serving config may set 0 whatever
+    the machine; 2 or more CUDA devices would need the multi-device tier,
+    which raises."""
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = count if requested == 0 else min(requested, count)
+    if n >= 2:
+        raise not_in_this_slice(
+            f"scaleout_devices={requested} over {n} CUDA devices",
+            "multi-device parallel")
 
 
 # The kernel wrappers whose ``launches`` counters the executables keep: a
@@ -405,6 +417,7 @@ class Environment:
         else:
             raise DlimgError("GPU backend requested but no CUDA device is "
                              "available")
+        _scaleout(self.options.scaleout_devices, self.device)
         self.compute_dtype = _DTYPES[self.options.compute_dtype]
         self._sam_models: Dict[str, Lazy] = {v: Lazy() for v in SAM_BUNDLES}
         self._birefnet_models: Dict[str, Lazy] = {

@@ -4,7 +4,8 @@
         [--variant mobile_sam|vit_b|vit_l|vit_h] [--fused-window-blocks] \
         [--quantize none|w8|w8a8] \
         [--amg [--grid N] [--nms T] [--refine]] \
-        [--birefnet [--kind general|high_res]]
+        [--birefnet [--kind general|high_res]] \
+        [--train [--batch B] [--encoder-dtype float32|bfloat16]]
 
 Drives the main path as a user calls it — the SAM variant (default
 MobileSAM) at 1024 in bfloat16 with seeded random weights (with
@@ -26,7 +27,11 @@ random weights with nonzero offset and modulator convs and biases,
 image (resolution 1024), ``high_res`` on a 2000x1500 one (resolution
 2048), and the host's resize of the mask back to the extent alone, and
 the device ms of the Swin backbone and of the deformable convolutions,
-each captured alone (``birefnet_stages``). For each it prints:
+each captured alone (``birefnet_stages``). With ``--train`` it traces the
+SAM fine-tuning step instead (train/step.py: MobileSAM at 1024, float32
+masters, batch ``--batch`` of synthetic prompts and masks, the encoder in
+``--encoder-dtype``; forward, backward and AdamW, the plain paths, eager).
+For each it prints:
   * wall_ms: host clock per call, ending in a device synchronise;
   * busy_ms: the union of the device's kernel and copy intervals per call;
   * idle share: 1 - busy / wall (time the device waits for the host);
@@ -214,6 +219,26 @@ def birefnet_stages(env, kind: str) -> None:
           f"{n_taps} taps) {taps:.3f}")
 
 
+def profile_train_step(args, out_dir: Path) -> None:
+    """The MobileSAM fine-tuning step (train/step.py) at 1024, traced as a
+    call: one step on a fixed device batch, ending in a synchronise."""
+    from dlimgedit_tpu_torch.models import sam
+    from dlimgedit_tpu_torch.train import step as tstep
+    from dlimgedit_tpu_torch.train.data import sam_batch_iterator
+
+    dev = torch.device("cuda", 0)
+    cfg = sam.make_config("mobile_sam", 1024)
+    model = sam.init_sam(torch.Generator().manual_seed(0), cfg).to(dev)
+    tcfg = tstep.TrainConfig(encoder_dtype=args.encoder_dtype)
+    state = tstep.init_train_state(model, tcfg)
+    step = tstep.make_train_step(cfg, tcfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(sam_batch_iterator(
+        np.random.default_rng(0), batch_size=args.batch, image_size=1024,
+        mask_size=cfg.mask_input_size)).items()}
+    profile_calls(f"train_step_mobile_sam_b{args.batch}_{args.encoder_dtype}",
+                  lambda: step(model, state, batch), args.calls, out_dir)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True,
@@ -239,6 +264,13 @@ def main(argv=None) -> int:
                     help="trace segment_objects (BiRefNet) instead")
     ap.add_argument("--kind", default="general", choices=("general", "high_res"),
                     help="--birefnet: the model kind (resolution 1024 / 2048)")
+    ap.add_argument("--train", action="store_true",
+                    help="trace the MobileSAM fine-tuning step instead")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--train: images per step")
+    ap.add_argument("--encoder-dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="--train: TrainConfig.encoder_dtype")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
@@ -249,6 +281,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{gpu}; torch {torch.__version__}")
+    if args.train:
+        profile_train_step(args, out_dir)
+        return 0
     if args.birefnet:
         env = dl.Environment(dl.Options(allow_random_weights=True))
         seed_nonzero_init(env.birefnet_model(args.kind).model)

@@ -1,0 +1,106 @@
+"""BiRefNet fine-tuning step on one device (counterpart of
+dlimgedit_tpu/train/birefnet_step.py): pixel BCE and smoothed soft IoU on
+the full-resolution logits (upstream BiRefNet weights them 30 : 0.5),
+applied to exactly the graph ``segment_objects`` serves, so a fine-tuned
+model serves unchanged. The model holds the float32 masters; the step
+follows train/step.py (leaves, full precision, AdamW in place).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..models.birefnet import BiRefNetConfig, birefnet_apply
+from .step import (
+    _on,
+    adamw_init,
+    adamw_update,
+    call_with,
+    learning_rate_schedule,
+    leaves,
+    loss_and_grads,
+    remat_call,
+    shadow,
+    sigmoid_bce,
+)
+
+__all__ = ["BiRefNetTrainConfig", "birefnet_loss", "init_birefnet_train_state",
+           "make_birefnet_train_step"]
+
+
+@dataclass(frozen=True)
+class BiRefNetTrainConfig:
+    learning_rate: float = 1e-5  # fine-tune scale: the backbone is pretrained
+    weight_decay: float = 0.01
+    bce_weight: float = 30.0  # upstream BiRefNet's loss config (lambdas_pix)
+    iou_weight: float = 0.5
+    # The schedule of train/step.py's TrainConfig.
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    # Recompute the forward's activations in the backward pass.
+    remat: bool = False
+    # "bfloat16": bf16 shadows of the float32 masters for the forward and
+    # backward; gradients return in float32.
+    compute_dtype: str = "float32"
+
+
+def _soft_iou_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """1 - (inter + 1) / (union + 1) on the sigmoid probabilities, per
+    image: the +1 makes a correct near-zero prediction on an empty target
+    a loss near 0 (the unsmoothed ratio is 0 / 0)."""
+    p = torch.sigmoid(logits)
+    inter = torch.sum(p * targets, dim=(-3, -2, -1))
+    union = (torch.sum(p, dim=(-3, -2, -1))
+             + torch.sum(targets, dim=(-3, -2, -1)) - inter)
+    return torch.mean(1.0 - (inter + 1.0) / (union + 1.0))
+
+
+def birefnet_loss(model: nn.Module, cfg: BiRefNetConfig, batch: Dict,
+                  tcfg: BiRefNetTrainConfig = BiRefNetTrainConfig(),
+                  params: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: images (B, S, S, 3) ImageNet-normalised, masks (B, S, S) in
+    [0, 1] (soft targets are fine). ``params``: leaves to use in place of
+    the model's."""
+    params = leaves(model) if params is None else params
+    batch = _on(model, batch)
+    images = batch["images"]
+    if tcfg.compute_dtype == "bfloat16":
+        params, images = shadow(params, torch.bfloat16), images.to(torch.bfloat16)
+
+    logits = remat_call(
+        lambda p, x: call_with(model, p,
+                               lambda m, y: birefnet_apply(m, y, cfg), x),
+        params, images, tcfg.remat).float()  # (B, S, S, 1)
+    targets = batch["masks"].float()[..., None]
+    bce = torch.mean(sigmoid_bce(logits, targets))
+    iou = _soft_iou_loss(logits, targets)
+    loss = tcfg.bce_weight * bce + tcfg.iou_weight * iou
+    return loss, {"bce": bce, "iou": iou}
+
+
+def init_birefnet_train_state(model: nn.Module,
+                              tcfg: BiRefNetTrainConfig = BiRefNetTrainConfig()
+                              ) -> Dict:
+    """AdamW state over the model's leaves, on its device."""
+    return adamw_init(leaves(model), callable(learning_rate_schedule(tcfg)))
+
+
+def make_birefnet_train_step(cfg: BiRefNetConfig,
+                             tcfg: BiRefNetTrainConfig = BiRefNetTrainConfig()):
+    """The train step: (model, opt_state, batch) -> (model, opt_state, loss,
+    aux), the model's leaves and ``opt_state`` updated in place."""
+    schedule = learning_rate_schedule(tcfg)
+
+    def step(model, opt_state, batch):
+        (loss, aux), grads = loss_and_grads(birefnet_loss, model, cfg, batch,
+                                            tcfg)
+        adamw_update(leaves(model), grads, opt_state, schedule,
+                     tcfg.weight_decay)
+        return model, opt_state, loss, aux
+
+    return step

@@ -170,10 +170,9 @@ class Backend(enum.Enum):
 class Options:
     """Inference options; the fields of the JAX package's Options.
 
-    ``Environment`` rejects with a ``DlimgError`` ``scaleout_devices != 1``
-    (a later slice of the port) and ``compilation_cache_dir`` (a CUDA graph
-    lives only as long as its process). ``sam_variant`` is one of
-    "mobile_sam" (or "vit_t"), "vit_b", "vit_l", "vit_h".
+    ``Environment`` rejects with a ``DlimgError`` ``compilation_cache_dir``
+    (a CUDA graph lives only as long as its process). ``sam_variant`` is
+    one of "mobile_sam" (or "vit_t"), "vit_b", "vit_l", "vit_h".
     """
 
     backend: Backend = Backend.gpu
@@ -191,8 +190,7 @@ class Options:
     # output channel from the float32 weights (ops/quant.py) ...
     quantize_encoder: bool = False
     # ... and int8 activations, quantised per token, for an s8 x s8 product
-    # (implies quantize_encoder). On the card its token count must exceed
-    # 16 at every linear (cuBLASLt's int8 product), so image size >= 128.
+    # (implies quantize_encoder).
     quantize_activations: bool = False
     birefnet_int8_deform: bool = False
     # "device" (antialiased bilinear resample on the device) or "host"
@@ -202,6 +200,10 @@ class Options:
     # chunk i+1 is packed. 0 = auto (one copy: see ops/preprocess.py).
     h2d_overlap_chunks: int = 0
     compilation_cache_dir: Optional[str] = None
+    # Devices one image may span: 1 (the default) one; 0 every device of the
+    # backend; N that many, at most the count. Fewer than 2 take the
+    # single-device path, so serving configs can set 0 unconditionally; 2
+    # or more CUDA devices raise (the multi-device tier is not ported yet).
     scaleout_devices: int = 1
 
 

@@ -81,7 +81,13 @@ class HostOpsLibrary:
 
     def _build(self) -> Path:
         cmd = [CXX, *CXX_FLAGS]
-        key = hashlib.sha256(SOURCE.read_bytes() + " ".join(cmd).encode()
+        try:
+            source = SOURCE.read_bytes()
+        except OSError as e:
+            raise DlimgError(f"reading {SOURCE} failed (is the package "
+                             f"installed without its csrc/ sources?): "
+                             f"{e}") from e
+        key = hashlib.sha256(source + " ".join(cmd).encode()
                              + platform.machine().encode()).hexdigest()[:16]
         target = BUILD_DIR / f"libdlimg_hostops_{key}.so"
         if target.exists():

@@ -97,7 +97,7 @@ from dlimgedit_tpu_torch.tools.probe_smem_gather import (
     smem_gather,
     smem_gather_plain,
 )
-from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
+from dlimgedit_tpu_torch.runtime.environment import COUNTED_KERNELS, SamModelBundle
 
 pytestmark = pytest.mark.cuda
 
@@ -859,9 +859,18 @@ def test_quant_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch):
     torch.cuda.synchronize()
     with pytest.raises(DlimgError, match="no CUDA kernel for width"):
         quant.quantize_rows_int8(torch.randn((40, 96), device=dev))
-    with pytest.raises(DlimgError, match="M > 16"):
-        quant.int8_mm(torch.zeros((16, 320), dtype=torch.int8, device=dev),
-                      torch.zeros((320, 960), dtype=torch.int8, device=dev))
+    with pytest.raises(DlimgError, match="multiples of 8"):
+        quant.int8_mm(torch.zeros((32, 324), dtype=torch.int8, device=dev),
+                      torch.zeros((324, 960), dtype=torch.int8, device=dev))
+    # Fewer than 17 rows are padded for cuBLASLt and sliced back: exact.
+    gen = torch.Generator().manual_seed(0)
+    for M in (1, 4, 16):
+        q = torch.randint(-127, 128, (M, 320), generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, (320, 960), generator=gen,
+                          dtype=torch.int8)
+        got = quant.int8_mm(q.to(dev), w.to(dev).t().contiguous().t())
+        assert got.shape == (M, 960)
+        assert torch.equal(got.cpu(), torch._int_mm(q, w))
 
 
 def _quant_env(variant, mode, dtype="bfloat16"):
@@ -908,3 +917,54 @@ def test_quant_process_replays_equal_eager(dev, variant, mode):
     for k, exe in env.executables.items():
         got, want = exe.replay_against_eager()
         assert all(torch.equal(g, w) for g, w in zip(got, want)), k
+
+
+@pytest.mark.parametrize("variant", ["mobile_sam", "vit_b"])
+def test_encode_frames_graph_replay_equals_eager(dev, variant):
+    """encode_frames on the card: one CUDA graph per batch shape, its
+    replay bit-equal to the eager program and to the first call, the
+    kernels launched (K5 without the pad-query skip for ViT-B's batch),
+    results that the next call does not overwrite, each frame within
+    relative L2 2e-2 of a call on it alone (bf16)."""
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
+
+    env = _graph_env(variant, "bfloat16")
+    bundle = env.sam_model(variant)
+    size = GRAPH_SIZES[variant]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    frames = torch.randn((3, size, size, 3), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    before = {k.__name__: k.launches for k in COUNTED_KERNELS}
+    first = pbatch.encode_frames(bundle.model, bundle.cfg, frames)
+    kept = first.clone()
+    second = pbatch.encode_frames(bundle.model, bundle.cfg, frames)
+    assert torch.equal(first, kept) and torch.equal(second, first)
+    launched = {k.__name__: k.launches - before[k.__name__]
+                for k in COUNTED_KERNELS}
+    assert sum(launched.values()) > 0
+    exe = next(e for key, e in pbatch._GRAPH_CACHE.items()
+               if key[1] is bundle.model and key[3] == tuple(frames.shape))
+    assert exe.captured
+    got, want = exe.replay_against_eager()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for i in range(3):
+        one = pbatch.encode_frames(bundle.model, bundle.cfg, frames[i:i + 1])
+        rel = float((first[i].float() - one[0].float()).norm()
+                    / one[0].float().norm())
+        assert rel <= 2e-2, rel
+
+
+def test_prefetch_to_device_on_the_card(dev):
+    """Batches arrive on cuda:0 in order, from a copy stream, and a step's
+    work on them sees every byte (the consumer waits on the copy's
+    event)."""
+    from dlimgedit_tpu_torch.train.data import prefetch_to_device
+
+    host = [{"x": np.full((256, 1024), i, np.float32), "y": [np.arange(8) + i]}
+            for i in range(6)]
+    out = []
+    for b in prefetch_to_device(iter(host), depth=3):
+        assert b["x"].device == dev and b["x"].is_cuda
+        out.append((float(b["x"].sum()), b["y"][0].cpu().numpy()))
+    assert [o[0] for o in out] == [float(i * 256 * 1024) for i in range(6)]
+    assert all(np.array_equal(o[1], np.arange(8) + i) for i, o in enumerate(out))

@@ -14,6 +14,8 @@ CPU:
     numpy.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -118,3 +120,30 @@ def test_a_failing_build_raises(tmp_path, monkeypatch, compiler):
     with pytest.raises(DlimgError, match="failed"):
         preprocess.pack_rgb_canvas(view, 256)
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_package_data_ships_every_csrc_source():
+    """Each file of the port's csrc/ matches a package-data glob of
+    pyproject.toml, so an installed port carries every source it builds
+    (the host pack's hostops.cpp included)."""
+    import fnmatch
+    import tomllib
+
+    root = Path(__file__).resolve().parent.parent
+    data = tomllib.loads((root / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["dlimgedit_tpu_torch"]
+    csrc = root / "dlimgedit_tpu_torch" / "csrc"
+    files = sorted(f.relative_to(csrc.parent).as_posix()
+                   for f in csrc.iterdir() if f.is_file())
+    assert "csrc/hostops.cpp" in files
+    missing = [f for f in files
+               if not any(fnmatch.fnmatch(f, g) for g in globs)]
+    assert not missing, f"not shipped by the package data: {missing}"
+
+
+def test_a_missing_source_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(hostops, "SOURCE", tmp_path / "hostops.cpp")
+    monkeypatch.setattr(hostops, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(hostops, "LIBRARY", hostops.HostOpsLibrary())
+    with pytest.raises(DlimgError, match="hostops.cpp"):
+        hostops.LIBRARY.get()

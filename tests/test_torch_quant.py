@@ -156,6 +156,23 @@ def test_weight_only_linear_matches_jax(K, N):
     _assert_bits(deq, jq.dequantize_weight(jw_q, js, jnp.bfloat16))
 
 
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_padded_int8_product_equals_the_unpadded_one(M):
+    """The card pads fewer than 17 rows with zero rows for cuBLASLt's int8
+    product and slices back (``int8_mm``); rows are independent, so the
+    padded product is the unpadded one bit for bit."""
+    gen = torch.Generator().manual_seed(M)
+    q = torch.randint(-127, 128, (M, 64), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (64, 48), generator=gen, dtype=torch.int8)
+    padded = pq.pad_rows(q)
+    assert padded.shape == (pq.INT8_MM_MIN_ROWS, 64)
+    assert not padded[M:].any()
+    got = torch._int_mm(padded, w)[:M]
+    assert torch.equal(got, torch._int_mm(q, w))
+    assert torch.equal(got, pq.int8_mm(q, w))
+    assert pq.pad_rows(padded) is padded
+
+
 def _narrow(mod, img_size=256):
     return mod.SamViTConfig(img_size=img_size, embed_dim=128, depth=2,
                             num_heads=2, window_size=14,

@@ -191,7 +191,6 @@ def test_sha256_pin_is_enforced(model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("scaleout_devices", 0, "parallel"),
     ("compilation_cache_dir", "cache", "CUDA graph"),
 ])
 def test_unported_options_are_rejected(field, value, slice_name):
@@ -221,3 +220,32 @@ def test_random_weights_are_seeded():
     a, b = (pdl.Environment(opts).sam_model().model.state_dict()
             for _ in range(2))
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("devices", [0, 4])
+def test_scaleout_devices_on_one_device_serves_as_one(model_dir, pixels,
+                                                      segs, devices):
+    """``scaleout_devices`` 0 (every device of the backend) or N (at most
+    that many) leaves one device here, so the Environment takes the
+    single-device path, as JAX's does (tests/test_scaleout.py): the same
+    embedding and mask as ``scaleout_devices=1``, bit for bit."""
+    opts = _opts(pdl, model_dir)
+    opts.scaleout_devices = devices
+    seg = pdl.Segmentation.process(
+        pdl.Image(pdl.Extent(96, 64), pdl.Channels.rgba, pixels),
+        pdl.Environment(opts))
+    one = segs[1]
+    assert torch.equal(seg.embedding, one.embedding)
+    for prompt in (pdl.Point(20, 20), pdl.Point(70, 40)):
+        np.testing.assert_array_equal(seg.compute_mask(prompt).pixels,
+                                      one.compute_mask(prompt).pixels)
+
+
+def test_scaleout_over_two_cuda_devices_is_not_ported(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    opts = pdl.Options(allow_random_weights=True, scaleout_devices=0)
+    with pytest.raises(pdl.DlimgError, match="multi-device parallel"):
+        pdl.Environment(opts)
+    opts.scaleout_devices = 1
+    assert pdl.Environment(opts).device.type == "cuda"
