@@ -6,7 +6,8 @@
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
 package. The port's eleven kernels (dlimgedit_tpu_torch/csrc/; phase 8's
-BiRefNet launches none of them):
+BiRefNet launches none of them; phase 12's schedules run K1-K5 at the
+shapes of their shards and mesh rows):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
@@ -57,7 +58,9 @@ printing its seconds:
      versions in bf16 and float32 (P2's row scales spread over e^{+-2}),
      each bf16 linear shape also timed as cuBLASLt's s8 x s8 product
      (torch._int_mm) and as the bf16 x @ w it replaces, with their bounds
-     at the int8 and bf16 tensor-core peaks. Phase 2 alone runs with the
+     at the int8 and bf16 tensor-core peaks; K1-K5 at phase 12's shapes
+     (the sp shards' windows, rows of two frames; a shape timed already
+     takes phase 12's launches too). Phase 2 alone runs with the
      TF32 flags off (its plain versions are float32 references); every
      other phase runs with PyTorch's defaults, under which the port's
      entry points keep float32 at full precision themselves (every
@@ -206,15 +209,36 @@ printing its seconds:
      leaf upstream of it, and with nonzero offsets, whose gradient jumps
      where a sample crosses a pixel edge); a checkpoint round
      trip resuming to the same next-step loss; `export_serving_bundle`
-     loaded by an Environment (sha256 pin) and served.
+     loaded by an Environment (sha256 pin) and served;
+ 12. the multi-device tier's explicit schedules (parallel/mesh.py, sp.py,
+     batch.py, multihost.py) over meshes whose devices are all cuda:0:
+     the sequence-parallel ViT-B and ViT-H at 1024 (bf16, kernels on, B =
+     1) over 2 and 4 shards, exact launches per run (every shard K1 twice
+     and K5 once per windowed block on its windows, and each global block
+     whole: K1, K3, K4), the embedding held against the float32 plain path
+     by phase 4's 1.1x rule, and ViT-B in float32 (kernels off: the
+     row-sharded global blocks) within atol 1e-5, rtol 1e-5 of the dense
+     path; `encode_frames` of 4 frames (MobileSAM, ViT-B; bf16, the
+     serving flags) over (dp 4, tp 1), every frame bit for bit its B = 1
+     call, and over (dp 2, tp 2) finite, then in float32 (MobileSAM,
+     ViT-B; 2 frames) within atol 2e-4, rtol 1e-3 of the dense call;
+     `segment_frames`
+     (BiRefNet_lite, 1024, B = 2) over dp 2, bit for bit; an NCCL group of
+     one (``multihost.initialize``) running the dp step's all-reduce; two
+     processes on the card in one gloo group taking the MobileSAM dp train
+     step at 1024 (2 frames each): the same loss on both ranks,
+     parameters bit-equal across them and, with the gradients, within
+     the train tier's tolerances of one process on the whole batch; each
+     call's wall time (no speed-up: one card does every shard's work).
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
 timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
 `bound_ms` in the JSON are sums over the launches it made on the main
 paths (its `launches`: both images' `process` calls of each path in round
-2, all replays; and, at the batched shapes, phase 10's round-2 replay of
-each B = 4 `encode_frames` key and phase 11's one teacher call). For K7
+2, all replays; at the batched shapes, phase 10's round-2 replay of
+each B = 4 `encode_frames` key and phase 11's one teacher call; and
+phase 12's counted sp runs and mesh `encode_frames` calls). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
@@ -306,6 +330,62 @@ BATCHED_VIT_SHAPES = (  # K1, K3, K4 (groups = B x heads), K5 (B x 25 windows)
 # Phase 11: the BiRefNet_lite fine-tune's batches, largest first; the first
 # whose steps fit in device memory is the one measured.
 BIREFNET_TRAIN_BATCHES = (6, 5, 4, 2, 1)
+# Phase 12, the multi-device schedules over meshes of cuda:0 repeated: the
+# sequence-parallel ViTs (variant, C, heads, head width, depth) at 1024,
+# B = 1, over SP_SIZES shards; encode_frames of MESH_B frames over (dp, tp)
+# = MESH_LAYOUTS; segment_frames of TEACHER_B frames over dp 2; the dp
+# train step of two ranks on one card (MobileSAM at 1024, MESH_B frames in
+# all, one gloo group) and of one rank in an NCCL group.
+SP_SIZES = (2, 4)
+SP_VITS = (("vit_b", 768, 12, 64, 12), ("vit_h", 1280, 16, 80, 32))
+MESH_B = 4
+MESH_LAYOUTS = ((4, 1), (2, 2))
+
+
+def sp_windows(sp: int) -> int:
+    """Windows a shard holds: grid 64 pads to 70 = 5 x 14, 25 windows,
+    and dummy windows until sp divides them (sp 4: 7 a shard, 3 dummy)."""
+    return (25 + (-25) % sp) // sp
+
+
+def sp_per_run(depth: int, sp: int) -> dict:
+    """Launches of one sp encode (kernels on): every shard runs K1 twice in
+    each windowed block and K5 once on its windows, and each of the 4
+    global blocks whole (replicated form: K1, K3, K4)."""
+    return {"fused_layer_norm": sp * (2 * (depth - 4) + 4),
+            "fused_add_layer_norm": 4 * sp, "relpos_attention_global": 4 * sp,
+            "relpos_attention_windowed": sp * (depth - 4)}
+
+
+def phase12_shapes() -> dict:
+    """The kernels' shapes and launches over phase 12's counted runs, by
+    kind: "ln" K1 at MobileSAM's widths (rows, C, eps, launches), "attn"
+    K2 (G, N, heads, launches), "vit_ln" K1 at the ViT widths and
+    "add_ln" K3 (rows, C, launches), "global" K4 (heads, grid, head width,
+    launches), "window" K5 (windows, heads, window, head width, n_w,
+    valid_rows, launches). A dp row of one frame runs the single-image
+    shapes (K5 with the pad-query skip), a row of two frames twice the
+    rows and groups (K5 without it)."""
+    out = {"ln": [], "attn": [], "vit_ln": [], "add_ln": [], "global": [],
+           "window": []}
+    for _, C, nh, hd, depth in SP_VITS:
+        for sp in SP_SIZES:
+            n = sp_windows(sp)
+            out["vit_ln"] += [(n * 196, C, 2 * (depth - 4) * sp),
+                              (4096, C, 4 * sp)]
+            out["add_ln"].append((4096, C, 4 * sp))
+            out["global"].append((nh, 64, hd, 4 * sp))
+            out["window"].append((n, nh, 14, hd, None, None, (depth - 4) * sp))
+    for dp, tp in MESH_LAYOUTS:
+        b = MESH_B // dp  # frames a row
+        out["ln"] += [(b * r, C, eps, per * dp) for r, C, eps, per in LN_SHAPES]
+        out["attn"] += [(b * G, N, nh, per * dp) for G, N, nh, per in ATTN_SHAPES]
+        out["vit_ln"].append((b * 4096, 768, dp))
+        out["add_ln"].append((b * 4096, 768, 23 * dp))
+        out["global"].append((b * 12, 64, 64, 4 * dp))
+        out["window"].append((b * 25, 12, 14, 64, 5 if b == 1 else None,
+                              8 if b == 1 else None, 8 * dp))
+    return out
 # K7 (windows, heads, window, head width): ViT-B's and ViT-H's windows.
 VIT_QKV_SHAPES = [(25, 12, 14, 64), (25, 16, 14, 80)]
 # K8: the gather probe's (rows, lanes) and reps.
@@ -515,6 +595,28 @@ def time_ms(torch, fn, samples: int = 20, per_sample: int = 10) -> float:
     return statistics.median(times)
 
 
+def ln_label(rows, C):
+    return f"K1 fused_layer_norm ({rows},{C})"
+
+
+def add_ln_label(rows, C):
+    return f"K3 fused_add_layer_norm ({rows},{C})"
+
+
+def levit_label(G, N, nh, tensor_cores):
+    return (f"K2 levit_window_attention ({G},{N},{nh * 3 * 32}) nh={nh} "
+            f"({'tensor' if tensor_cores else 'CUDA'} cores)")
+
+
+def global_label(nh, N, hd):
+    return f"K4 relpos_attention_global ({nh},{N},{hd})"
+
+
+def window_label(G, N, hd, n_w, valid_rows):
+    return (f"K5 relpos_attention_windowed ({G},{N},{hd}) n_w={n_w} "
+            f"valid_rows={valid_rows}")
+
+
 class Entries:
     """Per-kernel sums over the main paths' launches (bf16 only), and the
     numbers of one call at each kernel's first shape (for a kernel that no
@@ -526,16 +628,29 @@ class Entries:
         self.by_name = {}
         self.first = {}
         self.rows = []  # (label, kernel ms, bound ms) per shape
+        self.per_shape = {}  # (name, label) -> the times of one launch
 
     def record(self, label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
                launches, images=len(IMAGES)):
         self.rows.append((label, ms, max(bytes_ms, ops_ms)))
-        launches *= images
         vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
         self.first.setdefault(name, vals)
+        self.per_shape.setdefault((name, label), vals)
         e = self.by_name.setdefault(name, dict(
             max_abs_err=0.0, launches=0, **{k: 0.0 for k in self.TIMES}))
         e["max_abs_err"] = max(e["max_abs_err"], err)
+        self._add(e, vals, launches * images)
+
+    def add(self, label, name, launches) -> bool:
+        """More main-path launches at a shape already timed (phase 12's);
+        False when the shape has not been timed."""
+        vals = self.per_shape.get((name, label))
+        if vals is None:
+            return False
+        self._add(self.by_name[name], vals, launches)
+        return True
+
+    def _add(self, e, vals, launches):
         e["launches"] += launches
         for k, v in vals.items():
             e[k] = None if v is None or e[k] is None else e[k] + v * launches
@@ -635,7 +750,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
             bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
             check_kernel(
-                torch, f"K1 fused_layer_norm ({rows},{C})", "fused_layer_norm",
+                torch, ln_label(rows, C), "fused_layer_norm",
                 dname, lambda: ops.fused_layer_norm(x, scale, bias, eps),
                 lambda: ops.layer_norm_plain(x, scale, bias, eps),
                 lambda: F.layer_norm(x, (C,), scale, bias, eps),
@@ -650,8 +765,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
             mask = bias[None].expand(G, nh, N, N)
             mm = 4 * G * nh * N * N * kd
             check_kernel(
-                torch, f"K2 levit_window_attention ({G},{N},{nh * 3 * kd}) "
-                f"nh={nh} ({'tensor' if mm_flops else 'CUDA'} cores)",
+                torch, levit_label(G, N, nh, mm_flops),
                 "levit_window_attention", dname,
                 lambda: ops.levit_window_attention(qkv, bias, nh),
                 lambda: ops.levit_window_attention_plain(qkv, bias, nh),
@@ -765,13 +879,16 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                     for _ in range(2))
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
             bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
-            check_kernel(
-                torch, f"K1 fused_layer_norm ({rows},{C})", "fused_layer_norm",
-                dname, lambda: ops.fused_layer_norm(x, scale, bias, 1e-6),
-                lambda: ops.layer_norm_plain(x, scale, bias, 1e-6),
-                lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
-                TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
-                7 * rows * C, per, entries, images=images)
+            if per is not None:  # None: only K3 at this shape
+                check_kernel(
+                    torch, ln_label(rows, C), "fused_layer_norm",
+                    dname, lambda: ops.fused_layer_norm(x, scale, bias, 1e-6),
+                    lambda: ops.layer_norm_plain(x, scale, bias, 1e-6),
+                    lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
+                    TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
+                    7 * rows * C, per, entries, images=images)
+            if per3 is None:  # only K1 at this shape
+                continue
 
             def add_err(a, b):  # s bit for bit, then y within the tolerance
                 if not torch.equal(a[0], b[0]):
@@ -779,7 +896,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 return (a[1].float() - b[1].float()).abs().max().item()
 
             check_kernel(
-                torch, f"K3 fused_add_layer_norm ({rows},{C})",
+                torch, add_ln_label(rows, C),
                 "fused_add_layer_norm", dname,
                 lambda: ops.fused_add_layer_norm(x, d, scale, bias, 1e-6),
                 lambda: ops.fused_add_layer_norm_plain(x, d, scale, bias, 1e-6),
@@ -797,7 +914,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
             mask = relpos_mask(torch, bhw, g, g, False, 1.0, dtype)
             mm = 4 * nh * N * N * hd
             check_kernel(
-                torch, f"K4 relpos_attention_global ({nh},{N},{hd})",
+                torch, global_label(nh, N, hd),
                 "relpos_attention_global", dname,
                 lambda: ops.relpos_attention_global(q, k, v, bhw, g, g),
                 lambda: ops.attention_relpos_plain(q, k, v, bhw, g, g),
@@ -826,8 +943,8 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 return (a.float() - b.float()).abs().max().item()
 
             check_kernel(
-                torch, f"K5 relpos_attention_windowed ({G},{N},{hd}) n_w={n_w} "
-                f"valid_rows={valid_rows}", "relpos_attention_windowed", dname,
+                torch, window_label(G, N, hd, n_w, valid_rows),
+                "relpos_attention_windowed", dname,
                 lambda: ops.relpos_attention_windowed(q, k, v, bhw, ws, ws, nh,
                                                       True, n_w, valid_rows),
                 lambda: ops.attention_relpos_plain(
@@ -1042,7 +1159,7 @@ def k1_launch_floor(torch, ops, entries, restore_counters):
     rows = {label: (ms, bound) for label, ms, bound in entries.rows}
     graph_sum = bound_sum = 0.0
     for n, C, eps, per in LN_SHAPES:
-        ms, bound = rows[f"K1 fused_layer_norm ({n},{C})"]
+        ms, bound = rows[ln_label(n, C)]
         x = torch.randn((n, C), generator=gen, device=dev).to(torch.bfloat16)
         scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)
                  ).to(torch.bfloat16)
@@ -2817,6 +2934,462 @@ def drive_training(torch, np, dl, counters, zero_counters, gpu_line):
     return teacher_launches
 
 
+def check_phase12_shapes(torch, ops, entries):
+    """Phase 2, the kernels at phase 12's shapes (``phase12_shapes``): a
+    shape phase 2 has timed already takes phase 12's launches too; the
+    others (the sp shards' windows, the rows of two frames) are held
+    against their plain versions and timed here."""
+    sh = phase12_shapes()
+
+    def merge(rows, key):
+        out = {}
+        for r in rows:
+            out[key(r)] = out.get(key(r), 0) + r[-1]
+        return out
+
+    ln = merge(sh["ln"], lambda r: r[:3])
+    ln = [k + (n,) for k, n in ln.items()
+          if not entries.add(ln_label(k[0], k[1]), "fused_layer_norm", n)]
+    attn = merge(sh["attn"], lambda r: r[:3])
+    attn = [k + (n,) for k, n in attn.items()
+            if not entries.add(levit_label(*k, True), "levit_window_attention",
+                               n)]
+    check_kernels(torch, ops, entries, ln, attn, images=1)
+    vit_ln = {k: n for k, n in merge(sh["vit_ln"], lambda r: r[:2]).items()
+              if not entries.add(ln_label(*k), "fused_layer_norm", n)}
+    add_ln = {k: n for k, n in merge(sh["add_ln"], lambda r: r[:2]).items()
+              if not entries.add(add_ln_label(*k), "fused_add_layer_norm", n)}
+    pairs = sorted(set(vit_ln) | set(add_ln))
+    glob = [k + (n,) for k, n in merge(sh["global"], lambda r: r[:3]).items()
+            if not entries.add(global_label(k[0], k[1] ** 2, k[2]),
+                               "relpos_attention_global", n)]
+    win = [k + (n,) for k, n in merge(sh["window"], lambda r: r[:6]).items()
+           if not entries.add(window_label(k[0] * k[1], k[2] ** 2, k[3], k[4],
+                                           k[5]),
+                              "relpos_attention_windowed", n)]
+    check_vit_kernels(torch, ops, entries,
+                      [k + (vit_ln.get(k),) for k in pairs],
+                      [k + (add_ln.get(k),) for k in pairs], glob, win,
+                      images=1)
+
+
+def sam_train_batch(np, B: int, seed: int = 7) -> dict:
+    """A seeded MobileSAM train batch at 1024 (train/step.py's schema)."""
+    rng = np.random.default_rng(seed)
+    return {"images": rng.standard_normal((B, 1024, 1024, 3)).astype(np.float32),
+            "point_coords": rng.uniform(0, 1024, (B, 2, 2)).astype(np.float32),
+            "point_labels": np.tile(np.array([[1.0, -1.0]], np.float32), (B, 1)),
+            "masks": (rng.random((B, 256, 256)) > 0.5).astype(np.float32)}
+
+
+def params_close(torch, got, want, g_got, g_want, lr):
+    """Parameters after one AdamW step from equal parameters on gradients
+    ``g_got`` and ``g_want`` (tests/test_torch_train_step.py's rule): where
+    either gradient element is below 1e-6 in size (Adam moves it by about
+    +-lr on its sign, which a rounding may flip), within 1e-6 + 2 lr; every
+    other element of a leaf within relative L2 1e-5 of the leaf, plus 1e-4
+    lr per element. Returns the largest relative L2 seen."""
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        small = (g_got[k].abs() < 1e-6) | (g_want[k].abs() < 1e-6)
+        if small.any() and not float(d[small].max()) <= 1e-6 + 2 * lr:
+            fail(f"parameter {k}: a small-gradient element moved "
+                 f"{float(d[small].max())} apart")
+        rest = ~small
+        err, ref = float(d[rest].norm()), float(w[rest].norm())
+        if not err <= 1e-5 * ref + 1e-4 * lr * float(rest.sum()) ** 0.5:
+            fail(f"parameter {k}: relative L2 {err / max(ref, 1e-30)} > 1e-5")
+        worst = max(worst, err / max(ref, 1e-30))
+    return worst
+
+
+def dp_worker(rank: int, port: int) -> int:
+    """One of phase 12's two ranks on one card (``chip_smoke.py
+    --dp-worker RANK PORT``): a gloo group of 2 through torch.distributed
+    itself, a global mesh of one device a process (cuda:0 in both), the
+    MobileSAM dp train step at 1024 on MESH_B frames, MESH_B // 2 a rank.
+    Rank 1 starts from other weights, which ``replicate_params`` replaces
+    by rank 0's. Prints one "DP-WORKER" JSON line: the loss, a digest of
+    the parameters after the step, the gradients against a one-process
+    run on the whole batch, and the step's ms."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dlimgedit_tpu_torch.models import sam
+    from dlimgedit_tpu_torch.parallel import multihost
+    from dlimgedit_tpu_torch.train import step as pstep
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    dev = torch.device("cuda", 0)
+    cfg = sam.make_config("mobile_sam", 1024)
+    tcfg = pstep.TrainConfig()
+    mesh = multihost.global_mesh(dp=2, devices=[dev])
+    model = multihost.replicate_params(
+        mesh, sam.init_sam(torch.Generator().manual_seed(rank), cfg))
+    ref = sam.init_sam(torch.Generator().manual_seed(0), cfg).to(dev)
+    for (k, a), b in zip(model.state_dict().items(), ref.state_dict().values()):
+        if not torch.equal(a, b):
+            fail(f"rank {rank}: {k} differs from rank 0's after the broadcast")
+    batch = sam_train_batch(np, MESH_B)
+    (l1, _), g1 = pstep.loss_and_grads(pstep.mask_loss, ref, cfg, batch, tcfg)
+    m, o, placed = pstep.place_train_state(
+        model, pstep.init_train_state(model), batch, mesh)
+    (l2, _), g2 = pstep.mesh_loss_and_grads(pstep.mask_loss, m, cfg, placed,
+                                            tcfg, 1, tp=True)
+    g_worst, g_leaf = grads_close(torch, g2, {k: v.cpu() for k, v in g1.items()},
+                                  1e-5)
+    step = pstep.make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m, o, loss, _ = step(m, o, placed)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    _, _, one_loss, _ = step(ref, pstep.init_train_state(ref), batch)
+    p_worst = params_close(torch, dict(m.state_dict()), dict(ref.state_dict()),
+                           g2, g1, tcfg.learning_rate)
+    digest = hashlib.sha256(b"".join(
+        t.detach().cpu().numpy().tobytes()
+        for t in m.state_dict().values())).hexdigest()
+    print("DP-WORKER " + json.dumps({
+        "rank": rank, "loss": float(loss), "one_process_loss": float(one_loss),
+        "mesh_loss_before_step": float(l2), "one_process_loss_before": float(l1),
+        "grad_rel_l2": g_worst, "grad_leaf": g_leaf, "param_rel_l2": p_worst,
+        "params": digest, "step_ms": step_ms}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_nccl_group_of_one(torch, np, gpu_line):
+    """The NCCL route (multihost.initialize on a CUDA process) in a group
+    of one: the dp step's gradient all-reduce runs on NCCL, and its loss
+    and gradients equal the step without a mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dlimgedit_tpu_torch.models import sam
+    from dlimgedit_tpu_torch.parallel import multihost
+    from dlimgedit_tpu_torch.train import step as pstep
+
+    dev = torch.device("cuda", 0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"initialize on a CUDA process chose {dist.get_backend()}")
+        cfg = sam.make_config("mobile_sam", 1024)
+        tcfg = pstep.TrainConfig()
+        model = sam.init_sam(torch.Generator().manual_seed(0), cfg).to(dev)
+        batch = sam_train_batch(np, 2)
+        (l1, _), g1 = pstep.loss_and_grads(pstep.mask_loss, model, cfg, batch,
+                                           tcfg)
+        mesh = multihost.global_mesh(dp=1, devices=[dev])
+        m, o, placed = pstep.place_train_state(
+            model, pstep.init_train_state(model), batch, mesh)
+        t = time.perf_counter()
+        (l2, _), g2 = pstep.mesh_loss_and_grads(pstep.mask_loss, m, cfg,
+                                                placed, tcfg, 1, tp=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        worst, leaf = grads_close(torch, g2, {k: v.cpu() for k, v in g1.items()},
+                                  1e-5)
+        if abs(float(l2) - float(l1)) > 1e-6 * abs(float(l1)):
+            fail(f"NCCL group of one: loss {float(l2)} != {float(l1)}")
+        print(f"multi-process, NCCL group of one on {gpu_line}: the dp "
+              f"step's all-reduce ran on NCCL; loss {float(l2):.6f} against "
+              f"{float(l1):.6f} without a mesh, gradients within relative "
+              f"L2 {worst:.3e} ({leaf}); loss and gradients in {ms:.1f} ms",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_two_ranks(torch, gpu_line):
+    """Phase 12's two ranks on cuda:0 (``dp_worker``), spawned and waited
+    for; every process stopped before this returns."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(r),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in out.splitlines()
+                     if ln.startswith("DP-WORKER ")), None)
+        if p.returncode != 0 or line is None:
+            fail(f"dp worker {r} exited {p.returncode}:\n{out[-3000:]}")
+        rows.append(json.loads(line[len("DP-WORKER "):]))
+    if rows[0]["loss"] != rows[1]["loss"]:
+        fail(f"the two ranks' losses differ: {rows[0]['loss']} "
+             f"{rows[1]['loss']}")
+    if rows[0]["params"] != rows[1]["params"]:
+        fail("the two ranks' parameters after the step differ")
+    r0 = rows[0]
+    if not abs(r0["loss"] - r0["one_process_loss"]) <= 1e-5 * abs(
+            r0["one_process_loss"]):
+        fail(f"two ranks' loss {r0['loss']} against one process "
+             f"{r0['one_process_loss']}")
+    print(f"multi-process, two ranks on one card (gloo) on {gpu_line}: the "
+          f"same loss {r0['loss']!r} on both (one process on the whole "
+          f"batch: {r0['one_process_loss']!r}), parameters after the step "
+          f"bit-equal across the ranks (sha256 {r0['params'][:16]}), within "
+          f"relative L2 {r0['param_rel_l2']:.3e} of the one-process step's; "
+          f"gradients within {r0['grad_rel_l2']:.3e} ({r0['grad_leaf']}); "
+          f"step ms rank 0 {r0['step_ms']:.1f}, rank 1 "
+          f"{rows[1]['step_ms']:.1f} (one step, both ranks sharing the card "
+          f"and gloo's host copies) [{time.perf_counter() - t0:.1f} s]",
+          flush=True)
+
+
+def drive_multi_device(torch, np, dl, counters, zero_counters, host_ms,
+                       gpu_line):
+    """Phase 12: the multi-device tier's explicit schedules over meshes
+    whose devices are all cuda:0 (the card holds every schedule for
+    exactness and runs its kernels; a virtual mesh does the dense work
+    plus the gathers, so its times are no speed-ups).
+
+      * sp: ViT-B and ViT-H at 1024, bf16, B = 1, kernels on, over SP_SIZES
+        shards: launches per run exactly ``sp_per_run`` (the counted run),
+        the embedding's relative L2 to the float32 plain path at most 1.1x
+        the dense bf16 path's (phase 4's rule); ViT-B in float32, kernels
+        off (the row-sharded global blocks at full precision) within atol
+        1e-5, rtol 1e-5 of the dense float32 path (JAX's tests/test_sp.py);
+      * ``encode_frames`` of MESH_B frames, MobileSAM and ViT-B, bf16, the
+        serving flags: over (dp 4, tp 1) every frame bit for bit its B = 1
+        call, over (dp 2, tp 2) finite (its relative L2 to the dense call
+        printed: bf16 rounds each row-parallel part, so no bf16 limit
+        tells a sound split from a faulty one); exact launches of the
+        counted calls; then MobileSAM and ViT-B in float32 over (dp 2, tp
+        2), 2 frames, within the CPU test's atol 2e-4, rtol 1e-3 of the
+        dense call (the tp reassociation tolerance);
+      * ``segment_frames``, BiRefNet_lite at 1024, bf16, TEACHER_B frames
+        over dp 2: each frame bit for bit its B = 1 call, no launch;
+      * the NCCL group of one and the two gloo ranks on one card.
+    Times (host clock, medians) with the card's name and power limit.
+    Returns the counted runs' launches."""
+    import copy
+    import types
+
+    from dlimgedit_tpu_torch.models import sam as sam_lib
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.models.common import cast_tree, full_precision
+    from dlimgedit_tpu_torch.models.vit_sam import SamViT, sam_vit_apply
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
+    from dlimgedit_tpu_torch.parallel import mesh as pmesh
+    from dlimgedit_tpu_torch.parallel import sp as psp
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    launches = {}
+
+    def count(label, expect, run):
+        zero_counters()
+        out = run()
+        torch.cuda.synchronize()
+        counts = counters()
+        want = {k: expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"{label}: launches {counts} != {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    # -- sp ------------------------------------------------------------------
+    for variant, C, nh, hd, depth in SP_VITS:
+        t1 = time.perf_counter()
+        vcfg = sam_lib.make_config(variant, 1024).encoder_vit
+        kcfg = dataclasses.replace(vcfg, use_flash_attention=True)
+        enc32 = SamViT(vcfg, torch.Generator().manual_seed(0)).to(dev)
+        seed_vit_extras(torch, types.SimpleNamespace(encoder=enc32))
+        enc16 = cast_tree(copy.deepcopy(enc32), torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x32 = torch.randn((1, 1024, 1024, 3), generator=gen, device=dev)
+        x16 = x32.to(torch.bfloat16)
+
+        def dense(enc, x, cfg):
+            with torch.inference_mode(), full_precision():
+                return sam_vit_apply(enc, x, cfg)
+
+        def sharded(enc, x, cfg, mesh):
+            with torch.inference_mode():
+                return psp.sam_vit_apply_sp(enc, x, cfg, mesh)
+
+        ref32 = dense(enc32, x32, vcfg)
+        dense16 = dense(enc16, x16, kcfg)
+        r_dense = rel_l2(torch, dense16, ref32)
+        ms_dense = host_ms(lambda: dense(enc16, x16, kcfg), n=5)
+        for sp in SP_SIZES:
+            mesh = psp.make_sp_mesh(sp, devices=[dev] * sp)
+            out, counts = count(f"sp {variant} sp={sp}", sp_per_run(depth, sp),
+                                lambda: sharded(enc16, x16, kcfg, mesh))
+            r_sp, r_vs = rel_l2(torch, out, ref32), rel_l2(torch, out, dense16)
+            if tuple(out.shape) != (1, 64, 64, 256) or not r_sp <= 1.1 * r_dense:
+                fail(f"sp {variant} sp={sp} bf16: relative L2 to float32 "
+                     f"{r_sp} > 1.1 x the dense path's {r_dense}")
+            ms = host_ms(lambda: sharded(enc16, x16, kcfg, mesh), n=5)
+            per_shard = {k: v // sp for k, v in counts.items() if v}
+            print(f"sp {variant} bf16 over [cuda:0] x {sp} ({sp_windows(sp)} "
+                  f"windows a shard, {sp * sp_windows(sp) - 25} dummy): "
+                  f"launches {sum(counts.values())} ({per_shard} a shard); "
+                  f"relative L2 to float32 {r_sp:.3e} (dense bf16 "
+                  f"{r_dense:.3e}; limit 1.1x), to dense bf16 {r_vs:.3e}; on "
+                  f"{gpu_line}: sp call {ms:.3f} ms, dense eager call "
+                  f"{ms_dense:.3f} ms (medians of 5; one card, so no "
+                  f"speed-up)", flush=True)
+            if variant == "vit_b":
+                got = sharded(enc32, x32, vcfg, mesh)
+                err = float((got - ref32).abs().max())
+                if not torch.allclose(got, ref32, atol=1e-5, rtol=1e-5):
+                    fail(f"sp vit_b sp={sp} float32: max|diff| {err} to the "
+                         f"dense path (atol 1e-5, rtol 1e-5)")
+                print(f"sp vit_b float32 (row-sharded global blocks) over "
+                      f"sp={sp}: max|diff| to the dense float32 path "
+                      f"{err:.3e} (atol 1e-5, rtol 1e-5)", flush=True)
+        print(f"phase 12, sp {variant}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        del enc32, enc16, ref32, dense16, out
+        pmesh.clear_replicas()
+        torch.cuda.empty_cache()
+
+    # -- encode_frames over (dp, tp) -----------------------------------------
+    for variant, per_call in (("mobile_sam", {"fused_layer_norm":
+                                              LN_PER_PROCESS,
+                                              "levit_window_attention":
+                                              ATTN_PER_PROCESS}),
+                              ("vit_b", VIT_PER_PROCESS)):
+        t1 = time.perf_counter()
+        env = dl.Environment(dl.Options(allow_random_weights=True,
+                                        sam_variant=variant))
+        bundle = env.sam_model(variant)
+        if variant != "mobile_sam":
+            seed_vit_extras(torch, bundle.model)
+        model, cfg = bundle.model, bundle.cfg
+        gen = torch.Generator(device=dev).manual_seed(13)
+        frames = torch.randn((MESH_B, 1024, 1024, 3), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        whole = pbatch.encode_frames(model, cfg, frames)
+        ones = [pbatch.encode_frames(model, cfg, frames[i:i + 1])
+                for i in range(MESH_B)]
+        ms_whole = host_ms(lambda: pbatch.encode_frames(model, cfg, frames),
+                           n=10)
+        for dp, tp in MESH_LAYOUTS:
+            mesh = pmesh.make_mesh(dp * tp, dp=dp, tp=tp, devices=[dev] * 4)
+            pbatch.encode_frames(model, cfg, frames, mesh=mesh)  # warm-up
+            out, _ = count(f"encode_frames {variant} dp={dp} tp={tp}",
+                           {k: v * dp for k, v in per_call.items()},
+                           lambda: pbatch.encode_frames(model, cfg, frames,
+                                                        mesh=mesh))
+            if tp == 1:
+                if not all(torch.equal(out[i], ones[i][0])
+                           for i in range(MESH_B)):
+                    fail(f"encode_frames {variant} dp={dp}: a frame differs "
+                         f"from its B=1 call")
+                note = "every frame bit-equal to its B=1 call"
+            else:
+                if (out.shape != whole.shape
+                        or not bool(torch.isfinite(out).all())):
+                    fail(f"encode_frames {variant} dp={dp} tp={tp}: shape "
+                         f"{tuple(out.shape)} or a value not finite")
+                note = (f"finite; relative L2 to the dense B={MESH_B} call "
+                        f"{rel_l2(torch, out, whole):.3e} (bf16, no limit: "
+                        f"held in float32 below)")
+            ms = host_ms(lambda: pbatch.encode_frames(model, cfg, frames,
+                                                      mesh=mesh), n=10)
+            print(f"encode_frames {variant} bf16 over (dp {dp}, tp {tp}) on "
+                  f"[cuda:0] x 4: {note}; on {gpu_line}: {ms:.3f} ms a call "
+                  f"({'graphs per row' if tp == 1 else 'eager'}), dense "
+                  f"B={MESH_B} graph {ms_whole:.3f} ms (medians of 10)",
+                  flush=True)
+        del env, bundle, model, frames, whole, ones, out
+        pbatch._GRAPH_CACHE.clear()
+        pmesh.clear_replicas()
+        torch.cuda.empty_cache()
+        print(f"phase 12, frames {variant}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    # float32: the tp split (ViT-B's qkv, proj, lin1 and lin2; TinyViT's
+    # qkv, proj, fc1 and fc2) against the dense call at the CPU test's
+    # reassociation tolerance.
+    mesh = pmesh.make_mesh(4, dp=2, tp=2, devices=[dev] * 4)
+    x = torch.randn((2, 1024, 1024, 3), generator=gen, device=dev)
+    for variant in ("mobile_sam", "vit_b"):
+        env = dl.Environment(dl.Options(allow_random_weights=True,
+                                        compute_dtype="float32",
+                                        sam_variant=variant))
+        bundle = env.sam_model(variant)
+        if variant != "mobile_sam":
+            seed_vit_extras(torch, bundle.model)
+        want = pbatch.encode_frames(bundle.model, bundle.cfg, x)
+        got = pbatch.encode_frames(bundle.model, bundle.cfg, x, mesh=mesh)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=2e-4, rtol=1e-3):
+            fail(f"encode_frames {variant} float32 over (dp 2, tp 2): "
+                 f"max|diff| {err} to the dense call (atol 2e-4, rtol 1e-3)")
+        print(f"encode_frames {variant} float32 B=2 over (dp 2, tp 2): "
+              f"max|diff| to the dense call {err:.3e} (atol 2e-4, rtol 1e-3)",
+              flush=True)
+        del env, bundle, got, want
+        pbatch._GRAPH_CACHE.clear()
+        pmesh.clear_replicas()
+    del x
+    torch.cuda.empty_cache()
+
+    # -- segment_frames over dp ----------------------------------------------
+    t1 = time.perf_counter()
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+    env = dl.Environment(dl.Options(allow_random_weights=True))
+    bundle = env.birefnet_model("general")
+    seed_nonzero_init(bundle.model)
+    frames = torch.randn((TEACHER_B, 1024, 1024, 3), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    mesh = pmesh.make_mesh(TEACHER_B, dp=TEACHER_B, devices=[dev] * TEACHER_B)
+    ones = [pbatch.segment_frames(bundle.model, bundle.cfg, frames[i:i + 1])
+            for i in range(TEACHER_B)]
+    logits, _ = count("segment_frames over dp", {},
+                      lambda: pbatch.segment_frames(bundle.model, bundle.cfg,
+                                                    frames, mesh=mesh))
+    if not all(torch.equal(logits[i], ones[i][0]) for i in range(TEACHER_B)):
+        fail("segment_frames over dp: a frame differs from its B=1 call")
+    ms = host_ms(lambda: pbatch.segment_frames(bundle.model, bundle.cfg,
+                                               frames, mesh=mesh), n=5)
+    print(f"segment_frames BiRefNet_lite bf16 B={TEACHER_B} over dp "
+          f"{TEACHER_B} on [cuda:0] x {TEACHER_B}: every frame bit-equal to "
+          f"its B=1 call, no kernel launched; on {gpu_line}: {ms:.3f} ms a "
+          f"call (median of 5) [{time.perf_counter() - t1:.1f} s]", flush=True)
+    del env, bundle, frames, logits, ones
+    pbatch._GRAPH_CACHE.clear()
+    pmesh.clear_replicas()
+    torch.cuda.empty_cache()
+
+    # -- the multi-process tier -----------------------------------------------
+    check_nccl_group_of_one(torch, np, gpu_line)
+    torch.cuda.empty_cache()
+    run_two_ranks(torch, gpu_line)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -2837,6 +3410,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    if sys.argv[1:2] == ["--dp-worker"]:  # one of phase 12's two ranks
+        return dp_worker(int(sys.argv[2]), int(sys.argv[3]))
     import types
 
     import numpy as np
@@ -2924,6 +3499,17 @@ def main() -> int:
              f"{sorted(set(TC_KERNELS) - reported)}")
     sys.stdout.flush()
 
+    def host_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
     # -- 2. kernels against their plain versions -------------------------
     t0 = time.perf_counter()
     entries = Entries()
@@ -2936,6 +3522,8 @@ def main() -> int:
             print(f"phase 2, batched: {label}", flush=True)
             check_vit_kernels(torch, ops, entries, ln, add_ln, glob, win,
                               images=1)
+        print("phase 2, phase 12's shapes", flush=True)
+        check_phase12_shapes(torch, ops, entries)
         check_window_kernels(torch, ops, entries)
         check_nms_kernel(torch, np, ops)
         k1_launch_floor(torch, ops, entries, restore_counters)
@@ -2978,17 +3566,6 @@ def main() -> int:
 
     # -- 6. end-to-end times ---------------------------------------------
     t0 = time.perf_counter()
-
-    def host_ms(fn, n=20):
-        fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(n):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(ts)
 
     def set_graphed(env, on: bool) -> None:
         """Run the path's executables as CUDA graphs, or their eager
@@ -3047,6 +3624,11 @@ def main() -> int:
         launches[name] += n
     pbatch._GRAPH_CACHE.clear()
     torch.cuda.empty_cache()
+
+    # -- 12. the multi-device schedules over meshes of the one card -------
+    for name, n in drive_multi_device(torch, np, dl, counters, zero_counters,
+                                      host_ms, gpu_line).items():
+        launches[name] += n
 
     kernels = []
     for name, source, replaces in KERNELS:

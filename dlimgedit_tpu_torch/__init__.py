@@ -21,10 +21,13 @@ Quick start::
 The port imports neither jax nor dlimgedit_tpu. The encoders may be
 quantised to int8 (``Options.quantize_encoder``, ``quantize_activations``).
 Batches of frames run through ``parallel.batch`` (``encode_frames``,
-``segment_frames``), and ``train`` fine-tunes, distils and checkpoints on
-one device. ``scaleout_devices`` 0 or N serves as 1 where the backend has
-fewer than 2 devices; the multi-device tier comes with a later slice (2 or
-more CUDA devices raise ``DlimgError``).
+``segment_frames``), on one device or over a (dp, tp) mesh; ``parallel``
+also shards one image's ViT over an ('sp',) mesh and joins processes on
+``torch.distributed``; ``train`` fine-tunes, distils and checkpoints, on
+one device or over a mesh. ``scaleout_devices`` 0 or N encodes the ViTs
+sequence-parallel over 2 or more CUDA devices and serves as 1 where the
+backend has fewer; MobileSAM and BiRefNet over a mesh need canvas-row
+sharding, which a later slice brings (they raise ``DlimgError``).
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

@@ -19,6 +19,11 @@ of the model for ``QuantLinear``s before it loads, so such a tree loads
 the nested numpy tree, OIHW convolution kernels back to HWIO, int8 and
 ``w_scale`` leaves in their dtype, so a trained model exports the
 ``.npz`` that both packages load.
+
+A bias that the JAX package reads only when the tree holds it (a linear's
+``b``, a BiRefNet conv's ``b``: the modules with ``bias_optional``) may
+be absent from the tree: ``load_into`` then removes it from the module,
+which adds no bias, as JAX. Every other leaf is required.
 """
 
 from __future__ import annotations
@@ -60,8 +65,13 @@ def load_into(model: nn.Module, tree, dtype: Optional[torch.dtype] = torch.float
               ) -> nn.Module:
     """Load a numpy tree into ``model`` with ``strict=True``: each linear
     that the tree holds quantised (``<path>.w_q`` or ``<path>.w_q8``)
-    becomes a ``QuantLinear`` first. Returns ``model``."""
+    becomes a ``QuantLinear`` first, and an optional bias the tree leaves
+    out is removed from its module. Returns ``model``."""
     state = params_from_numpy(tree, dtype=dtype)
+    for path, mod in model.named_modules():
+        if (getattr(mod, "bias_optional", False) and hasattr(mod, "b")
+                and (f"{path}.b" if path else "b") not in state):
+            del mod.b
     for key, t in state.items():
         path, _, name = key.rpartition(".")
         if name in _INT8_WEIGHTS:

@@ -121,11 +121,17 @@ def resize_align_corners(x: torch.Tensor, size_hw: Tuple[int, int]
 # ---------------------------------------------------------------------------
 
 class ConvB(nn.Module):
-    """{"w": OIHW, "b"}: Kaiming-uniform w and a zero b, or both zero."""
+    """{"w": OIHW, "b"}: Kaiming-uniform w and a zero b, or both zero. The
+    JAX package adds "b" only where the tree holds it (``_conv``, the
+    deform conv, the head fold), so a tree without it loads
+    (``convert.from_numpy.load_into`` drops the leaf); the ASPP projection
+    reads its bias unconditionally there, and here
+    (``bias_optional=False``)."""
 
     def __init__(self, cin: int, cout: int, ks: int, gen: torch.Generator,
-                 zero: bool = False):
+                 zero: bool = False, bias_optional: bool = True):
         super().__init__()
+        self.bias_optional = bias_optional
         shape = (cout, cin, ks, ks)
         self.w = _param(torch.zeros(shape) if zero
                         else kaiming_uniform_conv(gen, shape))
@@ -151,7 +157,8 @@ class Aspp(nn.Module):
         self.deforms = nn.ModuleList(Deform(cin, cs, s, gen)
                                      for s in cfg.aspp_kernel_sizes)
         self.gap = ConvB(cin, cs, 1, gen)
-        self.proj = ConvB((2 + len(cfg.aspp_kernel_sizes)) * cs, cin, 1, gen)
+        self.proj = ConvB((2 + len(cfg.aspp_kernel_sizes)) * cs, cin, 1, gen,
+                          bias_optional=False)
 
 
 class DecBlk(nn.Module):
@@ -220,7 +227,10 @@ def init_birefnet(gen: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _conv(p: ConvB, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
-    return conv2d(x, p.w, padding=padding) + p.b.to(x.dtype)
+    y = conv2d(x, p.w, padding=padding)
+    if hasattr(p, "b"):
+        y = y + p.b.to(y.dtype)
+    return y
 
 
 def _apply_deform(p: Deform, x: torch.Tensor, ks: int,
@@ -230,7 +240,8 @@ def _apply_deform(p: Deform, x: torch.Tensor, ks: int,
     pad = ks // 2
     offset = _conv(p.offset, x, padding=pad).float()
     modulator = 2.0 * torch.sigmoid(_conv(p.modulator, x, padding=pad).float())
-    y = deform_conv2d(x, offset, modulator, p.conv.w, p.conv.b, padding=pad,
+    y = deform_conv2d(x, offset, modulator, p.conv.w,
+                      getattr(p.conv, "b", None), padding=pad,
                       int8_gather=int8_gather)
     return relu(y)
 
@@ -290,7 +301,8 @@ def _head_fold(dec: Decoder, p: torch.Tensor, x: torch.Tensor,
 
     where head_b . conv_out is ONE 3x3 inter -> 1 conv,
     w_fold[0, i, k, l] = sum_c w_out[c, i, k, l] * head_w[c], its bias
-    folded likewise: one channel is resized instead of ch[3] // 2."""
+    folded likewise: one channel is resized instead of ch[3] // 2. A bias
+    the tree leaves out adds nothing, as in JAX (where it adds 0.0)."""
     cp = p.shape[-1]
     head_w = dec.head.w                          # (1, cp + ci, 1, 1)
     wa = head_w[:, :cp]
@@ -299,11 +311,16 @@ def _head_fold(dec: Decoder, p: torch.Tensor, x: torch.Tensor,
     a = resize_align_corners(a, size_hw)
     blk = dec.ipt_blk1
     w_fold = torch.einsum("cikl,c->ikl", blk.conv_out.w.float(), wb)[None]
-    b_fold = blk.conv_out.b.float() @ wb
     t = _conv(blk.conv1, x, padding=1)
     b = conv2d(t, w_fold.to(t.dtype), padding=1)
-    bias = (b_fold + dec.head.b.float()).to(a.dtype)
-    return a + b.to(a.dtype) + bias
+    out = a + b.to(a.dtype)
+    bias = None
+    if hasattr(blk.conv_out, "b"):
+        bias = blk.conv_out.b.float() @ wb
+    if hasattr(dec.head, "b"):
+        hb = dec.head.b.float()
+        bias = hb if bias is None else bias + hb
+    return out if bias is None else out + bias.to(a.dtype)
 
 
 def _get_patches(x: torch.Tensor, tile: int) -> torch.Tensor:

@@ -80,7 +80,11 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class Linear(nn.Module):
     """{"w": (in, out), "b": (out,)}; torch nn.Linear default init, or a
-    truncated normal weight with a zero bias (TinyViT attention)."""
+    truncated normal weight with a zero bias (TinyViT attention). The JAX
+    package's ``linear`` adds "b" only when the tree holds it, so a tree
+    without it loads (``convert.from_numpy.load_into`` drops the leaf)."""
+
+    bias_optional = True
 
     def __init__(self, cin: int, cout: int, gen: torch.Generator,
                  trunc_std: Optional[float] = None):
@@ -290,9 +294,13 @@ def layer_norm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 
 def linear(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b, dispatched on what the module holds: ``w_q8`` runs the
-    s8 x s8 product (``int8_linear``), ``w_q`` is dequantised per call into
-    the product, ``w`` is used as it is."""
+    """x @ w + b (b when the module holds one), dispatched on what the
+    module holds: ``w_q8`` runs the s8 x s8 product (``int8_linear``),
+    ``w_q`` is dequantised per call into the product, ``w`` is used as it
+    is, and a tensor-parallel linear (parallel/mesh.py ``TPLinear``) runs
+    its own forward over its devices."""
+    if hasattr(params, "w_shards"):
+        return params(x)
     if hasattr(params, "w_q8"):
         return int8_linear(params, x)
     if hasattr(params, "w_q"):

@@ -17,8 +17,8 @@ import os
 import numpy as np
 import torch
 
-from ..convert.from_numpy import params_from_numpy
-from ..errors import ModelNotFoundError
+from ..convert.from_numpy import load_into
+from ..errors import CANVAS_ROWS, ModelNotFoundError, not_in_this_slice
 from ..image.resize import resize_mask
 from ..models.birefnet import BiRefNet, BiRefNetConfig, birefnet_apply, init_birefnet
 from ..models.swin import SwinConfig
@@ -74,9 +74,7 @@ def load_birefnet(env, kind: str) -> BiRefNetBundle:
     for name in BIREFNET_BUNDLES[kind]:
         path = env.model_directory / "segmentation" / name
         if path.exists():
-            state = params_from_numpy(env._verified_load(path))
-            model = BiRefNet(cfg)
-            model.load_state_dict(state, strict=True)
+            model = load_into(BiRefNet(cfg), env._verified_load(path))
             break
     else:
         if not env.options.allow_random_weights:
@@ -132,6 +130,10 @@ def _to_host(mask: torch.Tensor) -> np.ndarray:
 def birefnet_segment(env, view: ImageView) -> Image:
     """`segment_objects`: the foreground mask at the image's extent."""
     extent = view.extent
+    if env.mesh is not None:
+        raise not_in_this_slice(
+            f"segment_objects over a mesh of {env.mesh.size} devices",
+            CANVAS_ROWS)
     kind = ("high_res" if extent.width > 1536 or extent.height > 1536
             else "general")
     bundle = env.birefnet_model(kind)

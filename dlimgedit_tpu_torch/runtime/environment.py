@@ -26,6 +26,11 @@ eagerly on a side stream (the warm-up, whose result it returns) and then
 captures it; every later call copies its inputs into the graph's static
 buffers and replays it. On the CPU it runs the program eagerly. No
 ``torch.compile``.
+
+``Options.scaleout_devices`` over 2 or more of the backend's distinct
+devices (``backend_devices``) gives the environment an ('sp',) ``mesh``
+(parallel/sp.py), as the JAX package's; the ViTs' embed program then runs
+sequence-parallel over it, eagerly (it crosses devices).
 """
 
 from __future__ import annotations
@@ -39,11 +44,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..convert.from_numpy import load_into
-from ..errors import DlimgError, ModelNotFoundError, not_in_this_slice
+from ..errors import DlimgError, ModelNotFoundError
 from ..models import sam as sam_lib
 from ..models.common import cast_tree, full_precision
 from ..ops import amg, flash_attention, fused_norm, quant
 from ..ops.preprocess import CanvasPool
+from ..parallel.mesh import cuda_devices
 from ..types import Backend, Options
 from ..utils.profiling import Profiler
 from ..utils.pytree_io import load_pytree
@@ -90,18 +96,29 @@ def _reject_unported(o: Options) -> None:
                          f"got {o.compute_dtype!r}")
 
 
-def _scaleout(requested: int, device: torch.device) -> None:
-    """``Options.scaleout_devices`` as the JAX package reads it: 0 means
-    every device of the backend, N means min(N, that count). Fewer than 2
-    take the single-device path, so a serving config may set 0 whatever
-    the machine; 2 or more CUDA devices would need the multi-device tier,
-    which raises."""
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
-    n = count if requested == 0 else min(requested, count)
-    if n >= 2:
-        raise not_in_this_slice(
-            f"scaleout_devices={requested} over {n} CUDA devices",
-            "multi-device parallel")
+def backend_devices(device: torch.device) -> List[torch.device]:
+    """The distinct devices of ``device``'s backend: every CUDA device, or
+    the one CPU."""
+    if device.type == "cuda":
+        return cuda_devices()
+    return [device]
+
+
+def _scaleout(requested: int, device: torch.device):
+    """``Options.scaleout_devices`` as the JAX package reads it: 1 is off,
+    0 means every device of the backend, N means min(N, that count). With
+    2 or more, a 1-D ('sp',) mesh over the first n of them (the latency
+    tier: parallel/sp.py); fewer take the single-device path, so a
+    serving config may set 0 whatever the machine. -> the mesh or None."""
+    if requested == 1:
+        return None
+    devices = backend_devices(device)
+    n = len(devices) if requested == 0 else min(requested, len(devices))
+    if n < 2:
+        return None
+    from ..parallel.sp import make_sp_mesh
+
+    return make_sp_mesh(n, devices=devices[:n])
 
 
 # The kernel wrappers whose ``launches`` counters the executables keep: a
@@ -417,7 +434,8 @@ class Environment:
         else:
             raise DlimgError("GPU backend requested but no CUDA device is "
                              "available")
-        _scaleout(self.options.scaleout_devices, self.device)
+        # The latency scale-out mesh (Options.scaleout_devices), or None.
+        self.mesh = _scaleout(self.options.scaleout_devices, self.device)
         self.compute_dtype = _DTYPES[self.options.compute_dtype]
         self._sam_models: Dict[str, Lazy] = {v: Lazy() for v in SAM_BUNDLES}
         self._birefnet_models: Dict[str, Lazy] = {
@@ -521,9 +539,11 @@ class Environment:
     # -- executable cache ----------------------------------------------------
 
     def executable(self, key: Tuple, build: Callable[[], Callable],
-                   copy_out: Callable[[Any], Any]) -> Executable:
+                   copy_out: Callable[[Any], Any],
+                   graphed: bool = True) -> Executable:
         """Get-or-build the ``Executable`` of a key (see its docstring:
-        on CUDA a CUDA graph, captured at its first call)."""
+        on CUDA a CUDA graph, captured at its first call; eager with
+        ``graphed=False``, for a program that crosses devices)."""
         fn = self._executables.get(key)
         if fn is not None:
             return fn
@@ -532,6 +552,7 @@ class Environment:
             if fn is None:
                 fn = Executable(key, build(), self.device, copy_out,
                                 self.profiler)
+                fn.graphed = fn.graphed and graphed
                 self._executables[key] = fn
         return fn
 

@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..errors import CANVAS_ROWS, not_in_this_slice
 from ..image.resize import resize_longest_side_extent, transform_point
 from ..models import sam as sam_lib
 from ..ops.connected import largest_component_mask
@@ -40,7 +41,7 @@ from ..ops.preprocess import (
 )
 from ..types import Channels, Extent, Image, ImageView, Point, Region
 from .birefnet import birefnet_segment
-from .environment import Environment
+from .environment import Environment, _variant
 
 
 @dataclass
@@ -51,15 +52,25 @@ class Mask:
     accuracy: float = 0.0
 
 
-def _build_embed_fn(bundle):
-    """Preprocess + image encoder."""
+def _build_embed_fn(bundle, mesh=None):
+    """Preprocess + image encoder. With ``mesh`` (Options.scaleout_devices)
+    a ViT encoder runs sequence-parallel over its ('sp',) axis
+    (parallel/sp.py) and the embedding lands on the mesh's first device,
+    so every decode program downstream is unchanged."""
     cfg = bundle.cfg
 
     def run(canvas, sizes):
         x = sam_preprocess(canvas, sizes[0], sizes[1], sizes[2], sizes[3],
                            image_size=cfg.image_size,
                            compute_dtype=bundle.compute_dtype)
-        return sam_lib.encode_image(bundle.model, cfg, x).float()
+        if mesh is not None:
+            from ..parallel.sp import sam_vit_apply_sp
+
+            emb = sam_vit_apply_sp(bundle.model.encoder, x, cfg.encoder_vit,
+                                   mesh)
+        else:
+            emb = sam_lib.encode_image(bundle.model, cfg, x)
+        return emb.float()
 
     return run
 
@@ -166,6 +177,10 @@ class Segmentation:
         queued on the device."""
         view = img.view() if isinstance(img, Image) else img
         variant = variant or env.options.sam_variant
+        if env.mesh is not None and _variant(variant) == "mobile_sam":
+            raise not_in_this_slice(
+                f"Segmentation.process of {variant} over a mesh of "
+                f"{env.mesh.size} devices", CANVAS_ROWS)
         bundle = env.sam_model(variant)
         cfg = bundle.cfg
         extent = view.extent
@@ -184,9 +199,11 @@ class Segmentation:
         else:
             bucket = pick_bucket(extent)
             sizes = (extent.height, extent.width, target.height, target.width)
+        # Over a mesh the program crosses devices: eager, not a graph.
         embed = env.executable(("embed", variant, bucket, bundle.quant),
-                               lambda: _build_embed_fn(bundle),
-                               torch.Tensor.clone)
+                               lambda: _build_embed_fn(bundle, env.mesh),
+                               torch.Tensor.clone,
+                               graphed=env.mesh is None)
         with embed.lock:  # the static canvas is the graph's input
             canvas = pack_and_put_canvas(
                 view, bucket, env.device, pool=env.canvas_pool,

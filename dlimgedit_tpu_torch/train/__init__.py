@@ -1,14 +1,14 @@
-"""Training on one device (counterpart of dlimgedit_tpu/train): the SAM
-fine-tuning step, encoder distillation, the BiRefNet fine-tuning step, the
-prefetching loader and checkpoints. The ``place_*`` functions of the JAX
-package place state on a device mesh and come with the multi-device
-slice."""
+"""Training (counterpart of dlimgedit_tpu/train): the SAM fine-tuning
+step, encoder distillation, the BiRefNet fine-tuning step, the prefetching
+loader and checkpoints, on one device or over a mesh (the ``place_*``
+functions; ``train.step.place_train_state`` for the SAM step)."""
 
 from .birefnet_step import (
     BiRefNetTrainConfig,
     birefnet_loss,
     init_birefnet_train_state,
     make_birefnet_train_step,
+    place_birefnet_train_state,
 )
 from .data import prefetch_to_device, sam_batch_iterator
 from .distill import (
@@ -17,6 +17,7 @@ from .distill import (
     graft_student,
     init_distill_state,
     make_distill_step,
+    place_distill_state,
     teacher_embeddings,
 )
 from .step import (
@@ -32,5 +33,5 @@ __all__ = ["BiRefNetTrainConfig", "DistillConfig", "TrainConfig",
            "init_birefnet_train_state", "init_distill_state",
            "init_train_state", "learning_rate_schedule",
            "make_birefnet_train_step", "make_distill_step", "make_train_step",
-           "mask_loss", "prefetch_to_device", "sam_batch_iterator",
-           "teacher_embeddings"]
+           "mask_loss", "place_birefnet_train_state", "place_distill_state",
+           "prefetch_to_device", "sam_batch_iterator", "teacher_embeddings"]

@@ -1,9 +1,12 @@
-"""BiRefNet fine-tuning step on one device (counterpart of
+"""BiRefNet fine-tuning step (counterpart of
 dlimgedit_tpu/train/birefnet_step.py): pixel BCE and smoothed soft IoU on
 the full-resolution logits (upstream BiRefNet weights them 30 : 0.5),
 applied to exactly the graph ``segment_objects`` serves, so a fine-tuned
 model serves unchanged. The model holds the float32 masters; the step
-follows train/step.py (leaves, full precision, AdamW in place).
+follows train/step.py (leaves, full precision, AdamW in place). Over a
+('dp',) mesh (``place_birefnet_train_state``) it is train/step.py's mesh
+step with the parameters replicated; the canvas-row (sp) axis of JAX's
+('dp', 'sp') mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,22 +17,27 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..errors import CANVAS_ROWS, not_in_this_slice
 from ..models.birefnet import BiRefNetConfig, birefnet_apply
 from .step import (
     _on,
     adamw_init,
     adamw_update,
     call_with,
+    is_placed,
     learning_rate_schedule,
     leaves,
     loss_and_grads,
+    mesh_loss_and_grads,
+    place_train_state,
     remat_call,
     shadow,
     sigmoid_bce,
+    sync_rows,
 )
 
 __all__ = ["BiRefNetTrainConfig", "birefnet_loss", "init_birefnet_train_state",
-           "make_birefnet_train_step"]
+           "make_birefnet_train_step", "place_birefnet_train_state"]
 
 
 @dataclass(frozen=True)
@@ -97,10 +105,34 @@ def make_birefnet_train_step(cfg: BiRefNetConfig,
     schedule = learning_rate_schedule(tcfg)
 
     def step(model, opt_state, batch):
-        (loss, aux), grads = loss_and_grads(birefnet_loss, model, cfg, batch,
-                                            tcfg)
+        placed = is_placed(batch)
+        if placed:
+            (loss, aux), grads = mesh_loss_and_grads(
+                birefnet_loss, model, cfg, batch, tcfg, 1, tp=False)
+        else:
+            (loss, aux), grads = loss_and_grads(birefnet_loss, model, cfg,
+                                                batch, tcfg)
         adamw_update(leaves(model), grads, opt_state, schedule,
                      tcfg.weight_decay)
+        if placed:
+            sync_rows(model, batch, tp=False)
         return model, opt_state, loss, aux
 
     return step
+
+
+def place_birefnet_train_state(model: nn.Module, opt_state: Dict,
+                               batch: Dict, mesh, dp_axis: str = "dp",
+                               sp_axis: str = "sp"):
+    """(model, opt_state, batch) placed for a step over a ('dp',) mesh:
+    the parameters replicated (each dp row's replica is made by the
+    step), every batch entry dp-sharded on its leading axis. A mesh with
+    an sp axis (JAX's canvas-row sharding) raises."""
+    if sp_axis in mesh.shape:
+        raise not_in_this_slice(
+            f"place_birefnet_train_state over a mesh with an {sp_axis!r} "
+            f"axis", CANVAS_ROWS)
+    if tuple(mesh.shape) != (dp_axis,):
+        raise ValueError(f"place_birefnet_train_state needs a ({dp_axis!r},) "
+                         f"mesh, got axes {tuple(mesh.shape)}")
+    return place_train_state(model, opt_state, batch, mesh)

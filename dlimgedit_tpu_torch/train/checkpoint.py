@@ -7,6 +7,11 @@ written under a temporary name in the same directory and moved into place
 with ``os.replace``, so a reader never sees half a file.
 ``export_serving_bundle`` writes the ``.npz`` bundle both packages load
 (``convert/from_numpy.py::numpy_from_params``).
+
+Under several processes (parallel/multihost.py) every process holds the
+same state after a step, so rank 0 alone writes; every process restores
+the same file (a directory all of them see), and both calls end at a
+barrier, so a restore that follows a save reads the whole file.
 """
 
 from __future__ import annotations
@@ -21,19 +26,14 @@ from torch import nn
 
 from ..convert.from_numpy import numpy_from_params
 from ..errors import DlimgError
+from ..parallel.multihost import barrier, world
 from ..utils.pytree_io import save_pytree
-from .step import TrainConfig, learning_rate_schedule, leaves
+from .step import TrainConfig, learning_rate_schedule, leaves, to_device
 
 __all__ = ["export_serving_bundle", "latest_step", "restore_train_state",
            "save_train_state"]
 
 Params = Union[nn.Module, Dict[str, torch.Tensor]]
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.detach().to(device)
 
 
 def _state(params: Params) -> Dict[str, torch.Tensor]:
@@ -43,11 +43,17 @@ def _state(params: Params) -> Dict[str, torch.Tensor]:
 def save_train_state(directory, step: int, params: Params,
                      opt_state: Dict) -> None:
     """Write ``directory/step_<step>`` atomically (a model's leaves, or a
-    state dict, and the optimizer state, as host tensors)."""
-    d = Path(directory)
+    state dict, and the optimizer state, as host tensors); rank 0 writes
+    under several processes."""
+    if world()[1] == 0:
+        _write(Path(directory), step, params, opt_state)
+    barrier()
+
+
+def _write(d: Path, step: int, params: Params, opt_state: Dict) -> None:
     d.mkdir(parents=True, exist_ok=True)
-    payload = {"params": _to(_state(params), "cpu"),
-               "opt_state": _to(opt_state, "cpu"), "step": int(step)}
+    payload = {"params": to_device(_state(params), "cpu"),
+               "opt_state": to_device(opt_state, "cpu"), "step": int(step)}
     fd, tmp = tempfile.mkstemp(prefix=f".step_{step}.", dir=d)
     try:
         with os.fdopen(fd, "wb") as f:
@@ -89,11 +95,12 @@ def restore_train_state(directory, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoints in {directory}")
     path = Path(directory) / f"step_{step}"
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    barrier()
     params, opt_state = payload["params"], payload["opt_state"]
     if like is not None:
         like.load_state_dict(params, strict=True)
         device = next(like.parameters()).device
-        return like, _to(opt_state, device), int(payload["step"])
+        return like, to_device(opt_state, device), int(payload["step"])
     scheduled = callable(learning_rate_schedule(tcfg or TrainConfig()))
     want = 2 * len(params) + 1 + int(scheduled)
     have = _count_leaves(opt_state)

@@ -8,7 +8,10 @@ N + depth overlaps the compute of batch N. A batch is yielded after the
 consumer's stream waits on its copy's event, and each device tensor is
 marked as used by that stream (``record_stream``), so the caching
 allocator does not hand its memory to the copy stream again while the
-consumer may still read it.
+consumer may still read it. With a ``mesh`` each leaf is dp-sharded on
+the way in (``parallel/mesh.py::put``): each mesh row of this process
+gets its leading-axis part, so the same loader drives one card, a mesh
+and several processes (each feeds its rows).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..errors import DlimgError
+from ..parallel.mesh import batch_sharding, put
 
 __all__ = ["prefetch_to_device", "sam_batch_iterator"]
 
@@ -47,22 +51,33 @@ def _device(device) -> torch.device:
     return torch.device(device)
 
 
+def _default_placement(mesh) -> Callable[[Any], Any]:
+    """Per-leaf placement under a mesh: the leading axis dp-sharded."""
+    return lambda leaf: put(leaf, batch_sharding(mesh, np.ndim(leaf)))
+
+
 def prefetch_to_device(batches: Iterable[Any], depth: int = 2,
-                       device=None) -> Iterator[Any]:
+                       device=None, mesh=None) -> Iterator[Any]:
     """Yield the batches (pytrees of dicts, lists and tuples of host
     arrays or tensors) as device tensors, keeping ``depth`` copies in
     flight beyond the one yielded. ``device`` None means ``cuda:0`` and
-    raises without a CUDA device; ``"cpu"`` keeps them on the CPU."""
+    raises without a CUDA device; ``"cpu"`` keeps them on the CPU. With
+    ``mesh`` every leaf becomes a ``Sharded`` over it (``device`` unused)."""
     if depth < 1:
         raise DlimgError(f"prefetch_to_device: depth must be >= 1, got {depth}")
-    dev = _device(device)
-    if dev.type != "cuda":
+    dev = None if mesh is not None else _device(device)
+    if mesh is not None:
+        placement = _default_placement(mesh)
+
+        def place(batch):
+            return _tree_map(placement, batch), None
+    elif dev.type != "cuda":
         def place(batch):
             return _tree_map(lambda a: torch.as_tensor(a).to(dev), batch), None
     else:
         copy_stream = torch.cuda.Stream(dev)
 
-        def put(a):
+        def copy_in(a):
             host = torch.as_tensor(np.ascontiguousarray(a)
                                    if isinstance(a, np.ndarray) else a)
             if host.device.type == "cpu" and not host.is_pinned():
@@ -72,7 +87,7 @@ def prefetch_to_device(batches: Iterable[Any], depth: int = 2,
         def place(batch):
             copy_stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(copy_stream):
-                out = _tree_map(put, batch)
+                out = _tree_map(copy_in, batch)
                 done = torch.cuda.Event()
                 done.record(copy_stream)
             return out, done

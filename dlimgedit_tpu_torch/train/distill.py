@@ -1,4 +1,4 @@
-"""Encoder distillation on one device (counterpart of
+"""Encoder distillation (counterpart of
 dlimgedit_tpu/train/distill.py): train a small SAM image encoder (the
 student, e.g. MobileSAM's TinyViT) to match a frozen big one's (the
 teacher, e.g. SAM ViT-H) neck embeddings under MSE, then graft the
@@ -9,7 +9,10 @@ The teacher is inference: ``teacher_embeddings`` runs it through
 ``parallel/batch.py::encode_frames`` under ``torch.no_grad``, so a teacher
 config with the kernel flags on (as the Environment sets them on the card)
 runs the port's kernels, one CUDA graph per batch shape. The student step
-trains the encoder subtree only, on its plain paths.
+trains the encoder subtree only, on its plain paths. Over a mesh
+(``place_distill_state``) the student is replicated on every dp row (it
+is small by construction) and the batch dp-sharded, as in JAX; the step
+is train/step.py's mesh step without tp.
 """
 
 from __future__ import annotations
@@ -26,16 +29,21 @@ from .step import (
     _on,
     adamw_init,
     adamw_update,
+    is_placed,
     learning_rate_schedule,
     leaves,
     loss_and_grads,
+    mesh_loss_and_grads,
+    place_train_state,
     plain_paths_only,
     run_encoder,
     shadow,
+    sync_rows,
 )
 
 __all__ = ["DistillConfig", "distill_loss", "graft_student",
-           "init_distill_state", "make_distill_step", "teacher_embeddings"]
+           "init_distill_state", "make_distill_step", "place_distill_state",
+           "teacher_embeddings"]
 
 
 @dataclass(frozen=True)
@@ -88,13 +96,28 @@ def make_distill_step(student_cfg: sam_lib.SamConfig,
     schedule = learning_rate_schedule(tcfg)
 
     def step(encoder, opt_state, batch):
-        (loss, aux), grads = loss_and_grads(distill_loss, encoder,
-                                            student_cfg, batch, tcfg)
+        placed = is_placed(batch)
+        if placed:
+            (loss, aux), grads = mesh_loss_and_grads(
+                distill_loss, encoder, student_cfg, batch, tcfg, 1, tp=False)
+        else:
+            (loss, aux), grads = loss_and_grads(distill_loss, encoder,
+                                                student_cfg, batch, tcfg)
         adamw_update(leaves(encoder), grads, opt_state, schedule,
                      tcfg.weight_decay)
+        if placed:
+            sync_rows(encoder, batch, tp=False)
         return encoder, opt_state, loss, aux
 
     return step
+
+
+def place_distill_state(encoder: nn.Module, opt_state: Dict, batch: Dict,
+                        mesh):
+    """(encoder, opt_state, batch) placed for a step over ``mesh``: the
+    student replicated (each dp row's replica is made by the step), the
+    batch dp-sharded."""
+    return place_train_state(encoder, opt_state, batch, mesh)
 
 
 def teacher_embeddings(teacher: sam_lib.Sam, teacher_cfg: sam_lib.SamConfig,
@@ -102,7 +125,9 @@ def teacher_embeddings(teacher: sam_lib.Sam, teacher_cfg: sam_lib.SamConfig,
     """The frozen teacher's embeddings of a batch of preprocessed images,
     float32 and without gradient, through ``encode_frames`` (one CUDA
     graph per batch shape on the card; its kernels when ``teacher_cfg``
-    turns them on). The images are cast to the teacher encoder's dtype."""
+    turns them on; over the (dp, tp) ``mesh`` when one is given, the whole
+    batch returned on its first device). The images are cast to the
+    teacher encoder's dtype."""
     dtype = next(teacher.encoder.parameters()).dtype
     with torch.no_grad():
         emb = encode_frames(teacher, teacher_cfg,

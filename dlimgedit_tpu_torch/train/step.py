@@ -12,6 +12,17 @@ place. The optimizer state is a dict of tensors on the model's device:
 ``count``, ``mu`` and ``nu`` (one tensor per leaf) and, with a schedule,
 ``schedule_count``, the leaves of optax's ``adamw`` state in its order.
 
+Over a mesh (``place_train_state``; JAX's step inherits its shardings
+from its inputs, the port's from the placed batch): each of this
+process's mesh rows runs its part of the batch on its replica of the
+model (``parallel/mesh.py::replica``; tensor-parallel over the row when tp
+> 1), the rows' gradients are summed on the model's device in row order
+and, when the mesh spans processes, over them with ONE all-reduce of the
+loss, aux and gradients flattened into one buffer; divided by dp, they
+are the global batch's mean, as JAX's. AdamW runs once on the model,
+and the rows are brought in step with it. ``accum_steps`` splits each
+row's part.
+
 Float32 runs at full precision, the forward and the backward inside
 ``models/common.py::full_precision`` (PyTorch's TF32 defaults would round
 the card's float32 products and convolutions). The models run their plain
@@ -25,6 +36,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,10 +46,12 @@ from torch.utils.checkpoint import checkpoint
 from ..errors import DlimgError
 from ..models import sam as sam_lib
 from ..models.common import full_precision
+from ..parallel.mesh import Mesh, Sharded, batch_sharding, put, replica_entry
+from ..parallel.multihost import all_reduce_sum
 
 __all__ = ["TrainConfig", "adamw_init", "adamw_update", "init_train_state",
            "learning_rate_schedule", "leaves", "loss_and_grads",
-           "make_train_step", "mask_loss"]
+           "make_train_step", "mask_loss", "place_train_state"]
 
 # optax.adamw's defaults.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -354,6 +368,90 @@ def accumulate(loss_fn: Callable, model: nn.Module, cfg, batch: Dict, tcfg,
     return (loss * inv, {k: v * inv for k, v in aux.items()}), grads
 
 
+def to_device(tree, device):
+    """A dict tree of tensors, detached, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+def place_train_state(model: nn.Module, opt_state: Dict, batch: Dict,
+                      mesh: Mesh):
+    """(model, opt_state, batch) placed for a step over ``mesh``: the
+    model (the float32 masters) and the optimizer state on this process's
+    first mesh device, each batch entry's leading (batch) axis dp-sharded
+    (each process keeps its rows). The step makes each row's replica,
+    with the tensor-parallel rule of ``parallel/mesh.py::sam_param_sharding``
+    when tp > 1."""
+    device = mesh.first_device
+    model.to(device)
+    batch = {k: put(v, batch_sharding(mesh, np.ndim(v)))
+             for k, v in batch.items()}
+    return model, to_device(opt_state, device), batch
+
+
+def is_placed(batch: Dict) -> bool:
+    return any(isinstance(v, Sharded) for v in batch.values())
+
+
+def _flat(loss, aux, grads) -> torch.Tensor:
+    return torch.cat([loss.reshape(1).float()]
+                     + [v.reshape(1).float() for v in aux.values()]
+                     + [g.reshape(-1) for g in grads.values()])
+
+
+def _unflat(flat, loss, aux, grads):
+    sizes = [1] * (1 + len(aux)) + [g.numel() for g in grads.values()]
+    parts = torch.split(flat, sizes)
+    aux = {k: p.reshape(()).to(v.dtype) for (k, v), p in zip(aux.items(),
+                                                             parts[1:])}
+    grads = {k: p.view_as(g) for (k, g), p in
+             zip(grads.items(), parts[1 + len(aux):])}
+    return parts[0].reshape(()).to(loss.dtype), aux, grads
+
+
+def _row_entries(model: nn.Module, mesh: Mesh, tp: bool):
+    return [(r, replica_entry(model, devices if tp else devices[:1],
+                              tp=tp and len(devices) > 1))
+            for r, devices in mesh.rows()]
+
+
+def mesh_loss_and_grads(loss_fn: Callable, model: nn.Module, cfg,
+                        batch: Dict[str, Sharded], tcfg, accum_steps: int,
+                        tp: bool):
+    """((loss, aux), grads) of ``loss_fn`` over a placed batch, as the
+    global batch's mean (see the module docstring); ``tp``: the rows run
+    tensor-parallel."""
+    mesh = next(iter(batch.values())).mesh
+    parts = {k: dict(v.row_parts()) for k, v in batch.items()}
+    device = next(model.parameters()).device
+    total = None
+    for r, entry in _row_entries(model, mesh, tp):
+        part = {k: parts[k][r] for k in batch}
+        (loss, aux), grads = accumulate(loss_fn, entry.module, cfg, part,
+                                        tcfg, accum_steps)
+        grads = entry.gather(grads, device)
+        loss, aux = loss.to(device), {k: v.to(device) for k, v in aux.items()}
+        if total is None:
+            total = [loss, aux, grads]
+            continue
+        total[0] = total[0] + loss
+        total[1] = {k: total[1][k] + v for k, v in aux.items()}
+        torch._foreach_add_(list(total[2].values()), list(grads.values()))
+    loss, aux, grads = total
+    if mesh.processes is not None:  # a global mesh: one all-reduce
+        loss, aux, grads = _unflat(all_reduce_sum(_flat(loss, aux, grads)),
+                                   loss, aux, grads)
+    inv = 1.0 / mesh.devices.shape[0]
+    torch._foreach_mul_(list(grads.values()), inv)
+    return (loss * inv, {k: v * inv for k, v in aux.items()}), grads
+
+
+def sync_rows(model: nn.Module, batch: Dict[str, Sharded], tp: bool) -> None:
+    """Copy the updated masters back to the rows' replicas."""
+    _row_entries(model, next(iter(batch.values())).mesh, tp)
+
+
 def make_train_step(cfg: sam_lib.SamConfig, tcfg: TrainConfig = TrainConfig(),
                     accum_steps: int = 1):
     """The train step: (model, opt_state, batch) -> (model, opt_state, loss,
@@ -361,15 +459,23 @@ def make_train_step(cfg: sam_lib.SamConfig, tcfg: TrainConfig = TrainConfig(),
     donation). ``accum_steps > 1`` splits the batch into that many
     microbatches and averages their gradients: the same update as the
     full batch. ``batch`` may hold numpy arrays or tensors; it goes to the
-    model's device. ``loss`` and ``aux`` stay device tensors."""
+    model's device; a batch from ``place_train_state`` runs over its mesh.
+    ``loss`` and ``aux`` stay device tensors."""
     plain_paths_only(cfg.encoder_tiny or cfg.encoder_vit)
     schedule = learning_rate_schedule(tcfg)
 
     def step(model, opt_state, batch):
-        (loss, aux), grads = accumulate(mask_loss, model, cfg, batch, tcfg,
-                                        accum_steps)
+        placed = is_placed(batch)
+        if placed:
+            (loss, aux), grads = mesh_loss_and_grads(
+                mask_loss, model, cfg, batch, tcfg, accum_steps, tp=True)
+        else:
+            (loss, aux), grads = accumulate(mask_loss, model, cfg, batch,
+                                            tcfg, accum_steps)
         adamw_update(leaves(model), grads, opt_state, schedule,
                      tcfg.weight_decay)
+        if placed:
+            sync_rows(model, batch, tp=True)
         return model, opt_state, loss, aux
 
     return step

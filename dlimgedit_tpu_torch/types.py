@@ -202,8 +202,10 @@ class Options:
     compilation_cache_dir: Optional[str] = None
     # Devices one image may span: 1 (the default) one; 0 every device of the
     # backend; N that many, at most the count. Fewer than 2 take the
-    # single-device path, so serving configs can set 0 unconditionally; 2
-    # or more CUDA devices raise (the multi-device tier is not ported yet).
+    # single-device path, so serving configs can set 0 unconditionally;
+    # with 2 or more distinct CUDA devices the ViTs encode sequence-parallel
+    # over an ('sp',) mesh (parallel/sp.py), and MobileSAM and BiRefNet
+    # raise (canvas-row sharding is not ported yet).
     scaleout_devices: int = 1
 
 

@@ -23,6 +23,9 @@ all inputs from numpy seeds and every weight a JAX tree carried across by
     environment as its general bundle);
   * the host's box-filter ``resize_mask`` (through the filter's nonzero
     taps) within 1 quantum of JAX's;
+  * a tree without the biases JAX treats as optional (a decoder block's
+    and the head fold's ``conv_out``, the head, a deform conv) loads and
+    matches JAX within the forward's tolerance; a missing weight raises;
   * kind escalation, the bundle preference order, the sha256 pin,
     ``ModelNotFoundError``, the int8 option, and the TF32 repair (the
     port's float32 convolutions run at full precision whatever the
@@ -316,6 +319,42 @@ def test_birefnet_apply_matches_jax(slim):
     u8 = sigmoid_to_u8(torch.from_numpy(got)).numpy().astype(np.int32)
     ju8 = np.floor(np.asarray(jax.nn.sigmoid(want)) * 255).astype(np.int32)
     assert np.abs(u8 - ju8).max() <= 1
+
+
+def test_a_tree_without_optional_biases_loads_and_matches_jax(slim):
+    """JAX reads a conv's "b" only where the tree holds it (``_conv``, the
+    deform conv, the head fold's ``conv_out`` and ``head``), and its
+    converter leaves it out of a checkpoint without one: such a tree
+    loads into the port (``load_into``) and gives JAX's logits, within
+    this file's forward tolerance. A missing weight, and the ASPP
+    projection's bias (which JAX reads unconditionally), still raise."""
+    import copy
+
+    from dlimgedit_tpu_torch.convert.from_numpy import load_into
+
+    tree = copy.deepcopy(slim["tree"])
+    dec = tree["decoder"]
+    for node in (dec["dec2"]["conv_out"], dec["ipt_blk1"]["conv_out"],
+                 dec["head"], dec["dec3"]["aspp"]["aspp1"]["conv"]):
+        del node["b"]
+    model = load_into(bn.BiRefNet(slim["cfg"]), tree)
+    assert not hasattr(model.decoder.head, "b")
+    assert hasattr(model.decoder.dec1.conv_out, "b")
+    want = np.asarray(jbn.birefnet_apply(_jnp(tree), jnp.asarray(slim["x"]),
+                                         slim["jcfg"]))
+    assert np.abs(want - slim["want"]).max() > 1e-3  # the biases mattered
+    with torch.inference_mode():
+        got = bn.birefnet_apply(model, torch.from_numpy(slim["x"]),
+                                slim["cfg"]).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    for drop in (("dec2", "conv_out", "w"), ("dec2", "aspp", "proj", "b")):
+        bad = copy.deepcopy(slim["tree"])
+        node = bad["decoder"]
+        for k in drop[:-1]:
+            node = node[k]
+        del node[drop[-1]]
+        with pytest.raises(RuntimeError, match="Missing key"):
+            load_into(bn.BiRefNet(slim["cfg"]), bad)
 
 
 def test_birefnet_forward_copies_nothing_from_the_host(slim, monkeypatch):

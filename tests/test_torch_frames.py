@@ -14,7 +14,8 @@ one device, as the port has no mesh yet):
     the slim BiRefNet at 64 with nonzero offsets: atol 1e-4, rtol 1e-4
     (tests/test_torch_birefnet.py's);
   * one executable per (program, model, config, shape, dtype) key, results
-    that the next call does not overwrite, and a mesh of 2 devices raises.
+    that the next call does not overwrite, and a mesh of 2 devices runs
+    each row through it.
 """
 
 import dataclasses
@@ -32,6 +33,7 @@ from dlimgedit_tpu.models import vit_sam as jvit
 from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.models import sam, vit_sam
 from dlimgedit_tpu_torch.parallel import batch as pbatch
+from dlimgedit_tpu_torch.parallel import mesh as pmesh
 
 torch.set_num_threads(2)
 
@@ -96,11 +98,21 @@ def test_one_executable_per_key_and_no_aliasing(sam_frames):
 
 
 def test_a_mesh_of_two_devices_is_not_ported(sam_frames):
+    """The name dates from when a mesh of two devices raised. It now runs:
+    each dp row encodes its part of the batch through the single-device
+    executable of its (device, key), so over two distinct CPU device
+    objects every frame equals the call without a mesh bit for bit; a
+    batch that dp does not divide raises, as in JAX (the mesh tier's
+    tests are tests/test_torch_parallel.py)."""
     _, _, cfg, model, frames = sam_frames
-    x = torch.from_numpy(frames[:1])
-    with pytest.raises(DlimgError, match="multi-device parallel"):
-        pbatch.encode_frames(model, cfg, x, mesh=["cpu:0", "cpu:1"])
-    assert pbatch.encode_frames(model, cfg, x, mesh=["cpu:0"]).shape[0] == 1
+    x = torch.from_numpy(frames)
+    mesh = pmesh.make_mesh(2, dp=2, devices=[torch.device("cpu"),
+                                             torch.device("cpu")])
+    got = pbatch.encode_frames(model, cfg, x, mesh=mesh)
+    assert torch.equal(got[:2], pbatch.encode_frames(model, cfg, x[:2]))
+    assert torch.equal(got[2:], pbatch.encode_frames(model, cfg, x[2:]))
+    with pytest.raises(DlimgError, match="must divide"):
+        pbatch.encode_frames(model, cfg, x[:1], mesh=mesh)
 
 
 def test_segment_frames_matches_jax():

@@ -75,3 +75,34 @@ def test_dtype_cast_keeps_integer_leaves():
     state = params_from_numpy(tree, dtype=torch.bfloat16)
     assert state["a.w"].dtype == torch.bfloat16
     assert state["idx"].dtype == torch.int64
+
+
+def test_a_linear_without_its_bias_loads_and_matches_jax(jax_tree):
+    """JAX's ``linear`` adds "b" only when the tree holds it
+    (models/common.py): a SAM tree whose linears lack it loads into the
+    port and encodes as JAX does (atol 1e-4, the encoder parity
+    tolerance); a missing weight still raises."""
+    import copy
+
+    import jax.numpy as jnp
+
+    from dlimgedit_tpu_torch.convert.from_numpy import load_into
+
+    tree = copy.deepcopy(jax_tree)
+    block = tree["encoder"]["stages"][1]["blocks"][0]
+    del block["attn"]["proj"]["b"], block["mlp"]["fc1"]["b"]
+    del tree["decoder"]["transformer"]["final_attn"]["out"]["b"]
+    cfg = sam.make_config("mobile_sam", IMAGE_SIZE)
+    model = load_into(sam.Sam(cfg), tree)
+    assert not hasattr(model.encoder.stages[1].blocks[0].attn.proj, "b")
+    x = np.random.default_rng(0).standard_normal(
+        (1, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    jcfg = jax_sam.make_config("mobile_sam", IMAGE_SIZE)
+    want = np.asarray(jax.jit(lambda p, im: jax_sam.encode_image(p, jcfg, im))(
+        jax.tree_util.tree_map(jnp.asarray, tree), x))
+    with torch.inference_mode():
+        got = sam.encode_image(model, cfg, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    del tree["encoder"]["stages"][1]["blocks"][0]["mlp"]["fc2"]["w"]
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_into(sam.Sam(cfg), tree)
