@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
 package. The port's eleven kernels (dlimgedit_tpu_torch/csrc/; phase 8's
 BiRefNet launches none of them; phase 12's schedules run K1-K5 at the
-shapes of their shards and mesh rows):
+shapes of their shards and mesh rows, phase 13's TinyViT row bands K1
+and K2 at the bands' rows and windows):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
@@ -60,7 +61,7 @@ printing its seconds:
      (torch._int_mm) and as the bf16 x @ w it replaces, with their bounds
      at the int8 and bf16 tensor-core peaks; K1-K5 at phase 12's shapes
      (the sp shards' windows, rows of two frames; a shape timed already
-     takes phase 12's launches too). Phase 2 alone runs with the
+     takes phase 12's launches too); K1 and K2 at phase 13's band shapes. Phase 2 alone runs with the
      TF32 flags off (its plain versions are float32 references); every
      other phase runs with PyTorch's defaults, under which the port's
      entry points keep float32 at full precision themselves (every
@@ -229,7 +230,22 @@ printing its seconds:
      step at 1024 (2 frames each): the same loss on both ranks,
      parameters bit-equal across them and, with the gradients, within
      the train tier's tolerances of one process on the whole batch; each
-     call's wall time (no speed-up: one card does every shard's work).
+     call's wall time (no speed-up: one card does every shard's work);
+ 13. canvas-row sharding (parallel/spatial.py) over meshes of cuda:0
+     repeated, through the public entry points (``scaleout_devices``,
+     the ('dp', 'sp') train placement): MobileSAM `process` at 1024 over
+     2 and 4 row bands in float32 (the embedding within atol 2e-4, rtol
+     1e-4 of the dense call) and bf16 (phase 4's 1.1x rule), masks of 3
+     clicks flipped on under 5e-3 of the pixels, K1 and K2 launches per
+     band exactly the geometry's (22 and 10 a band, each band's windows
+     printed); BiRefNet_lite `segment_objects` `general` on 1024x768
+     over 2 and 4 bands and `high_res` on 2000x1500 over 2: float32 masks
+     within 1 quantum on under 5e-3 of the pixels of the dense call's,
+     bf16 timed and its logits held by the 1.1x rule (float32 logits
+     within relative L2 1e-5); the BiRefNet_lite train step at 1024 over
+     (dp 1, sp 2) and (dp 2, sp 2) against the dense step: loss relative
+     1e-5, parameters atol 5e-5, rtol 1e-4; `mesh_call_ms` beside the
+     dense eager call, peak memory.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
@@ -238,7 +254,8 @@ timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
 paths (its `launches`: both images' `process` calls of each path in round
 2, all replays; at the batched shapes, phase 10's round-2 replay of
 each B = 4 `encode_frames` key and phase 11's one teacher call; and
-phase 12's counted sp runs and mesh `encode_frames` calls). For K7
+phase 12's counted sp runs and mesh `encode_frames` calls; and phase
+13's bf16 MobileSAM `process` over 2 and over 4 bands). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
@@ -386,6 +403,45 @@ def phase12_shapes() -> dict:
         out["window"].append((b * 25, 12, 14, 64, 5 if b == 1 else None,
                               8 if b == 1 else None, 8 * dp))
     return out
+# Phase 13, canvas-row sharding over meshes of cuda:0 repeated: MobileSAM
+# `process` at 1024 and BiRefNet_lite `segment_objects` (`general` over
+# BAND_SIZES, `high_res` over 2) on row bands, the BiRefNet_lite train step
+# over (dp, sp) = BAND_TRAIN at B = dp. TinyViT's window-attention stages
+# at 1024 (rows = columns, window, C, heads, blocks).
+BAND_SIZES = (2, 4)
+BAND_TRAIN = ((1, 2), (2, 2))
+TINYVIT_STAGES = ((128, 7, 128, 4, 2), (64, 14, 160, 5, 6), (64, 7, 320, 10, 2))
+
+
+def band_windows(H: int, ws: int, sp: int) -> list:
+    """(rows, window rows computed) of each band of H rows over sp bands
+    (``parallel/spatial.py::split_rows``): every window that meets a band
+    is computed whole, so a window straddling an edge counts in both."""
+    c = -(-H // sp)
+    out = []
+    for i in range(sp):
+        o0, o1 = min(i * c, H), min((i + 1) * c, H)
+        out.append((o1 - o0, -(-o1 // ws) - o0 // ws if o1 > o0 else 0))
+    return out
+
+
+def band_shapes(sp: int):
+    """K1 (rows, C, eps, launches) and K2 (G, N, heads, launches) of one
+    MobileSAM `process` at 1024 over sp bands: per band and block the
+    attention's LayerNorm on its windows' tokens, the MLP's on its rows,
+    K2 on its windows; the neck's two on its rows of the 64-row grid (22
+    K1 and 10 K2 a band, as the dense encoder)."""
+    ln, attn = [], []
+    for H, ws, C, nh, blocks in TINYVIT_STAGES:
+        cols = -(-H // ws)
+        for rows, wr in band_windows(H, ws, sp):
+            ln += [(wr * cols * ws * ws, C, 1e-5, blocks),
+                   (rows * H, C, 1e-5, blocks)]
+            attn.append((wr * cols, ws * ws, nh, blocks))
+    ln += [(rows * 64, 256, 1e-6, 2) for rows, _ in band_windows(64, 1, sp)]
+    return ln, attn
+
+
 # K7 (windows, heads, window, head width): ViT-B's and ViT-H's windows.
 VIT_QKV_SHAPES = [(25, 12, 14, 64), (25, 16, 14, 80)]
 # K8: the gather probe's (rows, lanes) and reps.
@@ -1960,10 +2016,12 @@ def check_birefnet_int8(torch, np, dl, env, seed_extras, first_mask, img):
     exe = env.executables[("birefnet", "general", 1024)]
     devs = []
 
-    def both(x, offset, mask, w, bias=None, padding=0, int8_gather=False):
-        exact = deform.deform_conv2d(x, offset, mask, w, bias, padding)
+    def both(x, offset, mask, w, bias=None, padding=0, int8_gather=False,
+             rows=None):
+        exact = deform.deform_conv2d(x, offset, mask, w, bias, padding,
+                                     rows=rows)
         q = deform.deform_conv2d(x, offset, mask, w, bias, padding,
-                                 int8_gather=True)
+                                 int8_gather=True, rows=rows)
         devs.append((tuple(x.shape), w.shape[-1], (
             (exact.float() - q.float()).abs().max()
             / exact.float().abs().max()).item()))
@@ -2973,6 +3031,26 @@ def check_phase12_shapes(torch, ops, entries):
                       images=1)
 
 
+def check_phase13_shapes(torch, ops, entries):
+    """Phase 2, K1 and K2 at the band shapes of phase 13's counted runs
+    (``band_shapes`` over BAND_SIZES, one bf16 `process` each): a shape
+    timed already takes the launches; the others are held against their
+    plain versions and timed here."""
+    ln, attn = {}, {}
+    for sp in BAND_SIZES:
+        l, a = band_shapes(sp)
+        for r in l:
+            ln[r[:3]] = ln.get(r[:3], 0) + r[3]
+        for r in a:
+            attn[r[:3]] = attn.get(r[:3], 0) + r[3]
+    ln = [k + (n,) for k, n in ln.items()
+          if not entries.add(ln_label(k[0], k[1]), "fused_layer_norm", n)]
+    attn = [k + (n,) for k, n in attn.items()
+            if not entries.add(levit_label(*k, True), "levit_window_attention",
+                               n)]
+    check_kernels(torch, ops, entries, ln, attn, images=1)
+
+
 def sam_train_batch(np, B: int, seed: int = 7) -> dict:
     """A seeded MobileSAM train batch at 1024 (train/step.py's schema)."""
     rng = np.random.default_rng(seed)
@@ -3390,6 +3468,315 @@ def drive_multi_device(torch, np, dl, counters, zero_counters, host_ms,
     return launches
 
 
+def drive_canvas_rows(torch, np, dl, counters, zero_counters, host_ms,
+                      gpu_line):
+    """Phase 13: canvas-row sharding (parallel/spatial.py) through the
+    public entry points, every mesh cuda:0 repeated
+    (``runtime.environment.backend_devices`` patched to [cuda:0] x k, the
+    CPU tests' seam; one card, so no time is a speed-up):
+
+      * MobileSAM `Segmentation.process` at 1024 on 1024x768 over
+        BAND_SIZES bands, float32 then bf16 (kernels on): the embedding
+        in float32 within atol 2e-4, rtol 1e-4 of the dense call, in bf16
+        its relative L2 to the float32 dense embedding at most 1.1x the
+        dense bf16 one's (phase 4's rule); masks of 3 clicks flipped on
+        under 5e-3 of the pixels; K1 and K2 launches per band exactly the
+        geometry's (``band_shapes``; the bf16 runs are counted); the
+        executable not graphed;
+      * BiRefNet_lite `segment_objects` (seeded nonzero offsets):
+        `general` on 1024x768 over BAND_SIZES bands and `high_res` on
+        2000x1500 over 2, no kernel launched; in float32 the uint8 mask at
+        most 1 quantum off the dense call's, on under 5e-3 of the pixels;
+        in bf16 (the served dtype, timed) the masks' distance to the
+        float32 mask printed beside the dense bf16 call's, and the logits
+        held instead: `birefnet_apply_spatial` at 1024 over 2 bands within
+        relative L2 1e-5 of `birefnet_apply` in float32, and in bf16 at
+        most 1.1x the dense bf16 path's relative L2 to float32 (phase 4's
+        rule: two bf16 programs round apart);
+      * the BiRefNet_lite train step at 1024 in float32 over (dp, sp) =
+        BAND_TRAIN, B = dp, learning rate 1e-3, against the dense step on
+        the same model and batch: loss relative 1e-5; parameters within
+        atol 5e-5, rtol 1e-4 (tests/test_torch_parallel.py's limits) where
+        both gradients exceed 1e-6 in size, within 1e-6 + 2 lr elsewhere
+        (Adam's first step moves those by +-lr on a sign a rounding may
+        flip); the gradients' largest relative L2 printed (a deform
+        offset's gradient jumps where a sample crosses a pixel edge);
+        the step's time and peak device memory beside the dense step's.
+    `mesh_call_ms`: each band call beside the dense eager call (host
+    clock, medians). Returns the counted runs' launches."""
+    import copy
+
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.models.common import cast_tree, full_precision
+    from dlimgedit_tpu_torch.parallel import mesh as pmesh
+    from dlimgedit_tpu_torch.parallel import spatial
+    from dlimgedit_tpu_torch.runtime import environment as renv
+    from dlimgedit_tpu_torch.train import birefnet_step as bstep
+    from dlimgedit_tpu_torch.train import step as pstep
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    seam = renv.backend_devices
+    launches = {}
+
+    def env_over(k, **kw):
+        renv.backend_devices = lambda device: [dev] * k
+        try:
+            return dl.Environment(dl.Options(allow_random_weights=True,
+                                             scaleout_devices=k, **kw))
+        finally:
+            renv.backend_devices = seam
+
+    def eager_ms(env, fn, n):
+        """The call with every executable of ``env`` eager."""
+        for exe in env.executables.values():
+            exe.graphed = False
+        return host_ms(fn, n=n)
+
+    # -- MobileSAM ---------------------------------------------------------
+    img = dl.Image(dl.Extent(1024, 768), dl.Channels.rgba,
+                   rgba(np, 768, 1024, 31))
+    clicks = [dl.Point(300, 200), dl.Point(512, 384), dl.Point(800, 600)]
+    ref32 = None
+    for dtype in ("float32", "bfloat16"):
+        t1 = time.perf_counter()
+        dense = env_over(1, compute_dtype=dtype)
+        seg1 = dl.Segmentation.process(img, dense)
+        masks1 = [seg1.compute_mask(c).pixels for c in clicks]
+        emb1 = seg1.embedding.clone()
+        if ref32 is None:
+            ref32 = emb1
+        r_dense = rel_l2(torch, emb1, ref32)
+        ms_dense = eager_ms(dense, lambda: dl.Segmentation.process(img, dense),
+                            5)
+        for sp in BAND_SIZES:
+            env = env_over(sp, compute_dtype=dtype)
+            if env.mesh.shape != {"sp": sp}:
+                fail(f"scaleout_devices={sp}: mesh {env.mesh}")
+            zero_counters()
+            seg = dl.Segmentation.process(img, env)
+            torch.cuda.synchronize()
+            counts = counters()
+            want = {k: 0 for k in counts}
+            want.update(fused_layer_norm=22 * sp, levit_window_attention=10 * sp)
+            if counts != want:
+                fail(f"MobileSAM {dtype} over {sp} bands: launches {counts} != "
+                     f"{want}")
+            if dtype == "bfloat16":
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            exe = next(e for k, e in env.executables.items() if k[0] == "embed")
+            if exe.graphed:
+                fail("the band-sharded embed executable is graphed")
+            emb = seg.embedding
+            err = float((emb - emb1).abs().max())
+            if dtype == "float32":
+                if not torch.allclose(emb, emb1, atol=2e-4, rtol=1e-4):
+                    fail(f"MobileSAM float32 over {sp} bands: max|diff| {err} "
+                         f"to the dense embedding (atol 2e-4, rtol 1e-4)")
+                note = f"max|diff| to the dense embedding {err:.3e}"
+            else:
+                r_sp = rel_l2(torch, emb, ref32)
+                if not r_sp <= 1.1 * r_dense:
+                    fail(f"MobileSAM bf16 over {sp} bands: relative L2 to "
+                         f"float32 {r_sp} > 1.1 x the dense bf16 {r_dense}")
+                note = (f"relative L2 to the float32 embedding {r_sp:.3e} "
+                        f"(dense bf16 {r_dense:.3e}; limit 1.1x), max|diff| "
+                        f"to the dense bf16 embedding {err:.3e}")
+            flips = [float(np.mean(seg.compute_mask(c).pixels != m))
+                     for c, m in zip(clicks, masks1)]
+            if not max(flips) < 5e-3:
+                fail(f"MobileSAM {dtype} over {sp} bands: mask pixels "
+                     f"flipped {flips} (limit 5e-3)")
+            ms = host_ms(lambda: dl.Segmentation.process(img, env), n=5)
+            windows = {f"{H}/{ws}": [w for _, w in band_windows(H, ws, sp)]
+                       for H, ws, *_ in TINYVIT_STAGES}
+            print(f"MobileSAM {dtype} process over {sp} bands on [cuda:0] x "
+                  f"{sp}: launches {sum(counts.values())} (22 K1 and 10 K2 a "
+                  f"band); window rows a band (stage rows/window: band by "
+                  f"band, 19/5/10 columns) {windows}; {note}; mask flips "
+                  f"{[f'{f:.2e}' for f in flips]} (limit 5e-3); eager; on "
+                  f"{gpu_line}: mesh_call_ms {ms:.3f}, dense eager call "
+                  f"{ms_dense:.3f} (medians of 5; one card, so the "
+                  f"schedule's overhead, no speed-up)", flush=True)
+            del env, seg
+            pmesh.clear_replicas()
+        del dense, seg1
+        print(f"phase 13, MobileSAM {dtype}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    # -- BiRefNet segment_objects ---------------------------------------------
+    t1 = time.perf_counter()
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+
+    def birefnet_env(k, dtype):
+        env = env_over(k, compute_dtype=dtype)
+        for kind in ("general", "high_res"):
+            bn.seed_nonzero_init(env.birefnet_model(kind).model)
+        return env
+
+    images = [(kind, dl.Image(dl.Extent(w, h), dl.Channels.rgba,
+                              rgba(np, h, w, 32)), sizes)
+              for kind, w, h, sizes in (("general", 1024, 768, BAND_SIZES),
+                                        ("high_res", 2000, 1500, (2,)))]
+    masks32 = {}
+    for dtype in ("float32", "bfloat16"):
+        dense = birefnet_env(1, dtype)
+        for kind, img, sizes in images:
+            m1 = dl.segment_objects(img, dense).pixels
+            ref = masks32.setdefault(kind, m1).astype(np.int32)
+            off_dense = np.abs(m1.astype(np.int32) - ref)
+            if dtype == "bfloat16":
+                ms_dense = eager_ms(dense, lambda: dl.segment_objects(img,
+                                                                      dense), 3)
+            for sp in sizes:
+                env = birefnet_env(sp, dtype)
+                zero_counters()
+                m = dl.segment_objects(img, env).pixels
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in counters().items() if v}
+                if launched:
+                    fail(f"BiRefNet {kind} over {sp} bands launched {launched}")
+                d = np.abs(m.astype(np.int32) - m1.astype(np.int32))
+                label = (f"BiRefNet_lite {kind} {dtype} segment_objects "
+                         f"{img.extent.width}x{img.extent.height} over {sp} "
+                         f"bands on [cuda:0] x {sp}: mask at most {d.max()} "
+                         f"quanta off the dense call's, on "
+                         f"{np.mean(d > 0):.2e} of the pixels")
+                if dtype == "float32":
+                    if not (m.shape == m1.shape and d.max() <= 1
+                            and np.mean(d > 0) < 5e-3):
+                        fail(f"{label} (limit 1 quantum on 5e-3)")
+                    print(f"{label} (limit 1 quantum on 5e-3); no kernel "
+                          f"launched", flush=True)
+                else:
+                    off = np.abs(m.astype(np.int32) - ref)
+                    ms = host_ms(lambda: dl.segment_objects(img, env), n=3)
+                    print(f"{label} (bf16 rounding: held on the logits "
+                          f"below); mean |mask - float32 mask| {off.mean():.4f} "
+                          f"quanta (dense bf16 {off_dense.mean():.4f}); no "
+                          f"kernel launched; eager; on {gpu_line}: "
+                          f"mesh_call_ms {ms:.3f}, dense eager call "
+                          f"{ms_dense:.3f} (medians of 3; one card: the "
+                          f"schedule's overhead, no speed-up)", flush=True)
+                del env
+                pmesh.clear_replicas()
+                torch.cuda.empty_cache()
+        del dense
+        torch.cuda.empty_cache()
+    cfg = bn.BiRefNetConfig(img_size=1024)
+    model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
+    bn.seed_nonzero_init(model)
+    model = model.to(dev).eval()
+    m16 = cast_tree(copy.deepcopy(model), torch.bfloat16)
+    x = torch.randn((1, 1024, 1024, 3),
+                    generator=torch.Generator(device=dev).manual_seed(33),
+                    device=dev)
+    mesh = spatial.make_spatial_mesh(2, devices=[dev] * 2)
+    with torch.inference_mode():
+        with full_precision():
+            want = bn.birefnet_apply(model, x, cfg)
+            dense16 = bn.birefnet_apply(m16, x.to(torch.bfloat16), cfg)
+        got = spatial.birefnet_apply_spatial(model, x, cfg, mesh)
+        got16 = spatial.birefnet_apply_spatial(m16, x.to(torch.bfloat16), cfg,
+                                               mesh)
+    r, err = rel_l2(torch, got, want), float((got - want).abs().max())
+    if not (got.shape == want.shape and r <= 1e-5):
+        fail(f"birefnet_apply_spatial float32 over 2 bands: relative L2 {r} "
+             f"(max|diff| {err}) to birefnet_apply (limit 1e-5)")
+    r16, r_dense = rel_l2(torch, got16, want), rel_l2(torch, dense16, want)
+    if not r16 <= 1.1 * r_dense:
+        fail(f"birefnet_apply_spatial bf16 over 2 bands: relative L2 to "
+             f"float32 {r16} > 1.1 x the dense bf16 {r_dense}")
+    print(f"birefnet_apply_spatial at 1024 over 2 bands: float32 relative L2 "
+          f"{r:.3e}, max|diff| {err:.3e} to birefnet_apply (limit 1e-5); "
+          f"bf16 relative L2 to the float32 logits {r16:.3e} (dense bf16 "
+          f"{r_dense:.3e}; limit 1.1x) [BiRefNet: "
+          f"{time.perf_counter() - t1:.1f} s]", flush=True)
+    del got, want, x, m16, got16, dense16
+    pmesh.clear_replicas()
+
+    # -- the (dp, sp) train step ----------------------------------------------
+    t1 = time.perf_counter()
+    lr = 1e-3
+    tcfg = bstep.BiRefNetTrainConfig(learning_rate=lr)
+    step = bstep.make_birefnet_train_step(cfg, tcfg)
+    for dp, sp in BAND_TRAIN:
+        rng = np.random.default_rng(40 + dp)
+        batch = {"images": rng.standard_normal((dp, 1024, 1024, 3)
+                                               ).astype(np.float32),
+                 "masks": (rng.random((dp, 1024, 1024)) > 0.5
+                           ).astype(np.float32)}
+        md, mb = copy.deepcopy(model), copy.deepcopy(model)
+        (_, _), g1 = pstep.loss_and_grads(bstep.birefnet_loss, md, cfg, batch,
+                                          tcfg)
+        od = bstep.init_birefnet_train_state(md, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, _, l1, _ = step(md, od, batch)
+        torch.cuda.synchronize()
+        ms_dense = (time.perf_counter() - t) * 1e3
+        peak_dense = torch.cuda.max_memory_allocated() / 2**30
+        mesh = pmesh.Mesh(np.asarray([[dev] * sp] * dp, dtype=object),
+                          ("dp", "sp"))
+        mb, ob, placed = bstep.place_birefnet_train_state(
+            mb, bstep.init_birefnet_train_state(mb, tcfg), batch, mesh)
+        (_, _), g2 = pstep.mesh_loss_and_grads(bstep.birefnet_loss, mb, cfg,
+                                               placed, tcfg, 1, tp=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_counters()
+        t = time.perf_counter()
+        _, _, l2, _ = step(mb, ob, placed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: v for k, v in counters().items() if v}
+        if launched:
+            fail(f"train over (dp {dp}, sp {sp}) launched {launched}")
+        if not abs(float(l2) - float(l1)) <= 1e-5 * abs(float(l1)):
+            fail(f"train over (dp {dp}, sp {sp}): loss {float(l2)} != the "
+                 f"dense step's {float(l1)} (relative 1e-5)")
+        # Printed, not held: a deform offset's gradient jumps where a
+        # sample crosses a pixel edge, which a rounding moves.
+        worst, leaf = grads_close(torch, g2, {k: v.cpu() for k, v in g1.items()},
+                                  float("inf"))
+        pb, pd = pstep.leaves(mb), pstep.leaves(md)
+        flipped = 0
+        for k, w in pd.items():
+            small = (g1[k].abs() < 1e-6) | (g2[k].abs() < 1e-6)
+            d = (pb[k] - w).abs()
+            if small.any() and not float(d[small].max()) <= 1e-6 + 2 * lr:
+                fail(f"train over (dp {dp}, sp {sp}): parameter {k} moved "
+                     f"{float(d[small].max())} apart at a small gradient")
+            flipped += int((d[small] > 1e-6 + lr).sum())
+            ok = d[~small] <= 5e-5 + 1e-4 * w[~small].abs()
+            if not bool(ok.all()):
+                fail(f"train over (dp {dp}, sp {sp}): parameter {k} off the "
+                     f"dense step's by {float(d[~small].max())} (atol 5e-5, "
+                     f"rtol 1e-4)")
+        print(f"BiRefNet_lite train step float32 B={dp} over (dp {dp}, sp "
+              f"{sp}) on [cuda:0] x {dp * sp}: loss {float(l2):.6f} against "
+              f"the dense step's {float(l1):.6f}; parameters within atol "
+              f"5e-5, rtol 1e-4 ({flipped} small-gradient elements moved "
+              f"apart by Adam's sign); gradients' largest relative L2 "
+              f"{worst:.3e} ({leaf}); no kernel launched; on {gpu_line}: "
+              f"mesh_call_ms {ms:.1f} (one step; the dense step {ms_dense:.1f}"
+              f"), train_peak_gib {peak:.3f} ({resident / 2**30:.3f} "
+              f"resident before; the dense step {peak_dense:.3f})",
+              flush=True)
+        del md, mb, od, ob, placed, g1, g2
+        pmesh.clear_replicas()
+        torch.cuda.empty_cache()
+    print(f"phase 13, train: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -3524,6 +3911,8 @@ def main() -> int:
                               images=1)
         print("phase 2, phase 12's shapes", flush=True)
         check_phase12_shapes(torch, ops, entries)
+        print("phase 2, phase 13's band shapes", flush=True)
+        check_phase13_shapes(torch, ops, entries)
         check_window_kernels(torch, ops, entries)
         check_nms_kernel(torch, np, ops)
         k1_launch_floor(torch, ops, entries, restore_counters)
@@ -3628,6 +4017,11 @@ def main() -> int:
     # -- 12. the multi-device schedules over meshes of the one card -------
     for name, n in drive_multi_device(torch, np, dl, counters, zero_counters,
                                       host_ms, gpu_line).items():
+        launches[name] += n
+
+    # -- 13. canvas-row sharding over meshes of the one card --------------
+    for name, n in drive_canvas_rows(torch, np, dl, counters, zero_counters,
+                                     host_ms, gpu_line).items():
         launches[name] += n
 
     kernels = []

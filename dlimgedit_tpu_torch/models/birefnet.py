@@ -109,8 +109,15 @@ def resize_align_corners(x: torch.Tensor, size_hw: Tuple[int, int]
     h, w = size_hw
     if (H, W) == (h, w):
         return x
-    R = _ac_matrix(h, H, x.device)
-    Cm = _ac_matrix(w, W, x.device)
+    return _apply_ac(_ac_matrix(h, H, x.device), _ac_matrix(w, W, x.device),
+                     x)
+
+
+def _apply_ac(R: torch.Tensor, Cm: torch.Tensor, x: torch.Tensor
+              ) -> torch.Tensor:
+    """R @ x @ Cm^T over the rows and columns of x (B, H, W, C), in
+    float32, cast back: the resize, or a canvas-row band of it (the rows
+    of R it keeps and the columns they read)."""
     y = torch.einsum("ih,bhwc->biwc", R, x.float())
     y = torch.einsum("biwc,jw->bijc", y, Cm)
     return y.to(x.dtype)
@@ -233,16 +240,27 @@ def _conv(p: ConvB, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
     return y
 
 
+def _deform_offsets(p: Deform, x: torch.Tensor, padding
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The offsets and the modulator (2 sigmoid) of a deform conv, float32."""
+    offset = _conv(p.offset, x, padding=padding).float()
+    modulator = 2.0 * torch.sigmoid(_conv(p.modulator, x,
+                                          padding=padding).float())
+    return offset, modulator
+
+
 def _apply_deform(p: Deform, x: torch.Tensor, ks: int,
-                  int8_gather: bool = False) -> torch.Tensor:
+                  int8_gather: bool = False, offsets=None,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """_ASPPModuleDeformable: modulated deformable conv (+ folded BN) +
-    ReLU; offsets and modulator in float32."""
+    ReLU; offsets and modulator in float32. A canvas-row band passes the
+    whole input, its rows' ``offsets`` and the ``rows`` themselves."""
     pad = ks // 2
-    offset = _conv(p.offset, x, padding=pad).float()
-    modulator = 2.0 * torch.sigmoid(_conv(p.modulator, x, padding=pad).float())
+    offset, modulator = (_deform_offsets(p, x, pad) if offsets is None
+                         else offsets)
     y = deform_conv2d(x, offset, modulator, p.conv.w,
                       getattr(p.conv, "b", None), padding=pad,
-                      int8_gather=int8_gather)
+                      int8_gather=int8_gather, rows=rows)
     return relu(y)
 
 
@@ -257,8 +275,15 @@ def _apply_aspp(p: Aspp, x: torch.Tensor, cfg: BiRefNetConfig
         _apply_deform(p.aspp1, x, 1, cfg.deform_int8_gather)]
     for bp, s in zip(p.deforms, cfg.aspp_kernel_sizes):
         branches.append(_apply_deform(bp, x, s, cfg.deform_int8_gather))
-    gap = x.float().mean(dim=(1, 2), keepdim=True)
-    gap = relu(_conv(p.gap, gap.to(x.dtype)))
+    return _aspp_project(p, branches, x.float().mean(dim=(1, 2), keepdim=True),
+                         x.dtype)
+
+
+def _aspp_project(p: Aspp, branches: List[torch.Tensor], mean: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The ASPP tail: the branches and the float32 global average ``mean``
+    (B, 1, 1, C) projected, summed, ReLU."""
+    gap = relu(_conv(p.gap, mean.to(dtype)))
     w = p.proj.w                            # (cout, n_branch * cs, 1, 1)
     cs = gap.shape[-1]
     y = conv2d(branches[0], w[:, :cs]).float()
@@ -268,7 +293,7 @@ def _apply_aspp(p: Aspp, x: torch.Tensor, cfg: BiRefNetConfig
     # 1x1-pixel product broadcast over the block.
     y = y + conv2d(gap, w[:, len(branches) * cs:]).float()
     y = y + p.proj.b.float()
-    return relu(y).to(x.dtype)  # dropout: eval-mode identity
+    return relu(y).to(dtype)  # dropout: eval-mode identity
 
 
 def _apply_dec_blk(p: DecBlk, x: torch.Tensor, cfg: BiRefNetConfig
@@ -285,7 +310,13 @@ def _apply_simple_convs(p: SimpleConvs, x: torch.Tensor) -> torch.Tensor:
 
 def _gdt_gate(dec: Decoder, idx: int, p: torch.Tensor) -> torch.Tensor:
     """out_ref gate: p * sigmoid(attn(gdt_convs(p)))."""
-    g = relu(_conv(getattr(dec, f"gdt{idx}"), p, padding=1))
+    return _gdt_attend(dec, idx, p,
+                       relu(_conv(getattr(dec, f"gdt{idx}"), p, padding=1)))
+
+
+def _gdt_attend(dec: Decoder, idx: int, p: torch.Tensor, g: torch.Tensor
+                ) -> torch.Tensor:
+    """The gate's per-pixel tail on the gdt conv's output g."""
     attn = torch.sigmoid(_conv(getattr(dec, f"gdt_attn{idx}"), g).float())
     return p * attn.to(p.dtype)
 
@@ -303,35 +334,45 @@ def _head_fold(dec: Decoder, p: torch.Tensor, x: torch.Tensor,
     w_fold[0, i, k, l] = sum_c w_out[c, i, k, l] * head_w[c], its bias
     folded likewise: one channel is resized instead of ch[3] // 2. A bias
     the tree leaves out adds nothing, as in JAX (where it adds 0.0)."""
-    cp = p.shape[-1]
+    wa, w_fold, bias = _head_weights(dec, p.shape[-1])
+    a = resize_align_corners(conv2d(p, wa), size_hw)  # (B, S, S, 1)
+    t = _conv(dec.ipt_blk1.conv1, x, padding=1)
+    return _head_sum(a, conv2d(t, w_fold.to(t.dtype), padding=1), bias)
+
+
+def _head_weights(dec: Decoder, cp: int):
+    """(head_a (1, cp, 1, 1), the folded 3x3 w_fold (1, inter, 3, 3)
+    float32, the folded bias or None) of ``_head_fold``."""
     head_w = dec.head.w                          # (1, cp + ci, 1, 1)
-    wa = head_w[:, :cp]
     wb = head_w[0, cp:, 0, 0].float()
-    a = conv2d(p, wa)                            # (B, s, s, 1)
-    a = resize_align_corners(a, size_hw)
     blk = dec.ipt_blk1
     w_fold = torch.einsum("cikl,c->ikl", blk.conv_out.w.float(), wb)[None]
-    t = _conv(blk.conv1, x, padding=1)
-    b = conv2d(t, w_fold.to(t.dtype), padding=1)
-    out = a + b.to(a.dtype)
     bias = None
     if hasattr(blk.conv_out, "b"):
         bias = blk.conv_out.b.float() @ wb
     if hasattr(dec.head, "b"):
         hb = dec.head.b.float()
         bias = hb if bias is None else bias + hb
+    return head_w[:, :cp], w_fold, bias
+
+
+def _head_sum(a: torch.Tensor, b: torch.Tensor, bias) -> torch.Tensor:
+    out = a + b.to(a.dtype)
     return out if bias is None else out + bias.to(a.dtype)
 
 
-def _get_patches(x: torch.Tensor, tile: int) -> torch.Tensor:
+def _get_patches(x: torch.Tensor, tile: int,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Decoder.get_patches_batch: the image split into (tile x tile)
     patches stacked into channels, column-major (the W split outer, the H
-    split inner: upstream splits along -1 first)."""
+    split inner: upstream splits along -1 first). ``rows`` = (lo, hi):
+    only those rows of the result (a canvas-row band's)."""
     B, H, W, C = x.shape
     nh, nw = H // tile, W // tile
-    y = x.reshape(B, nh, tile, nw, tile, C)
-    y = y.permute(0, 2, 4, 3, 1, 5)  # (B, tile, tile, nw, nh, C)
-    return y.reshape(B, tile, tile, nw * nh * C)
+    lo, hi = rows or (0, tile)
+    y = x.reshape(B, nh, tile, nw, tile, C)[:, :, lo:hi]
+    y = y.permute(0, 2, 4, 3, 1, 5)  # (B, rows, tile, nw, nh, C)
+    return y.reshape(B, hi - lo, tile, nw * nh * C)
 
 
 def birefnet_apply(model: BiRefNet, x: torch.Tensor,

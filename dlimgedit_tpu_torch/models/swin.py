@@ -190,30 +190,57 @@ def _window_attention(p: SwinBlock, x: torch.Tensor, num_heads: int,
 
 def _swin_block(p: SwinBlock, x: torch.Tensor, num_heads: int, window: int,
                 shift: int, eps: float) -> torch.Tensor:
-    B, H, W, C = x.shape
-    shortcut = x
-    x = layer_norm(p.norm1, x, eps=eps)
+    H = x.shape[1]
+    y = layer_norm(p.norm1, x, eps=eps)
     pad_b = (window - H % window) % window
-    pad_r = (window - W % window) % window
-    if pad_b or pad_r:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-    pH, pW = H + pad_b, W + pad_r
+    if pad_b:
+        y = torch.nn.functional.pad(y, (0, 0, 0, 0, 0, pad_b))
+    mask = None
     if shift > 0:
-        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        mask = _shift_attn_mask(pH, pW, window, shift, x.device)
-    else:
-        mask = None
-    nH, nW = pH // window, pW // window
+        y = torch.roll(y, -shift, dims=1)
+        mask = _shift_attn_mask(H + pad_b, _padded(y.shape[2], window),
+                                window, shift, y.device)
+    y = _attend_rows(p, y, num_heads, window, shift, mask)
+    if shift > 0:
+        y = torch.roll(y, shift, dims=1)
+    return _swin_tail(p, x, y[:, :H], eps)
+
+
+def _padded(n: int, window: int) -> int:
+    return n + (window - n % window) % window
+
+
+def _attend_rows(p: SwinBlock, x: torch.Tensor, num_heads: int, window: int,
+                 shift: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Window attention over whole rows of windows: x (B, h, W, C), the
+    normed (and zero-padded) rows, h a multiple of the window, already
+    rolled up by `shift` rows; the columns are padded and rolled here.
+    mask: the shift mask of these windows, (h / w * pW / w, w^2, w^2), or
+    None. -> (B, h, W, C) in the same (rolled) rows. The dense block runs
+    it on the whole padded grid, a canvas-row band on the windows that
+    meet its rows (parallel/spatial.py)."""
+    B, h, W, C = x.shape
+    pad_r = (window - W % window) % window
+    if pad_r:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad_r))
+    pW = W + pad_r
+    if shift > 0:
+        x = torch.roll(x, -shift, dims=2)
+    nH, nW = h // window, pW // window
     x = x.reshape(B, nH, window, nW, window, C).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(B, nH * nW, window * window, C)
     x = _window_attention(p, x, num_heads, window, mask)
     x = x.reshape(B, nH, nW, window, window, C).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(B, pH, pW, C)
+    x = x.reshape(B, h, pW, C)
     if shift > 0:
-        x = torch.roll(x, (shift, shift), dims=(1, 2))
-    if pad_b or pad_r:
-        x = x[:, :H, :W, :]
-    x = shortcut + x
+        x = torch.roll(x, shift, dims=2)
+    return x[:, :, :W]
+
+
+def _swin_tail(p: SwinBlock, shortcut: torch.Tensor, attn: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The block after its attention: residual, norm2, MLP, residual."""
+    x = shortcut + attn
     y = layer_norm(p.norm2, x, eps=eps)
     y = linear(p.mlp.lin2, gelu(linear(p.mlp.lin1, y)))
     return x + y
@@ -234,13 +261,20 @@ def _patch_merge(p: _PatchMerge, x: torch.Tensor, eps: float) -> torch.Tensor:
     return linear(p.reduction, x)
 
 
+def _patch_embed(pe: _PatchEmbed, x: torch.Tensor, cfg: SwinConfig,
+                 padding=0) -> torch.Tensor:
+    """The patch embed (a patch-strided conv, its bias, LayerNorm); a
+    canvas-row band passes padding (0, 0) with its rows fetched."""
+    x = conv2d(x, pe.w, stride=cfg.patch_size, padding=padding)
+    x = x + pe.b.to(x.dtype)
+    return layer_norm(pe.norm, x, eps=cfg.layer_norm_eps)
+
+
 def swin_apply(model: Swin, x: torch.Tensor, cfg: SwinConfig = SwinConfig()
                ) -> List[torch.Tensor]:
     """x: (B, S, S, 3) -> 4 feature maps at strides 4/8/16/32, each
     layer-normed (the dense-prediction pyramid)."""
-    pe = model.patch_embed
-    x = conv2d(x, pe.w, stride=cfg.patch_size) + pe.b.to(x.dtype)
-    x = layer_norm(pe.norm, x, eps=cfg.layer_norm_eps)
+    x = _patch_embed(model.patch_embed, x, cfg)
     feats = []
     for i, stage in enumerate(model.stages):
         for j, bp in enumerate(stage.blocks):

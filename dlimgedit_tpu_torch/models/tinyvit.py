@@ -178,13 +178,22 @@ class Block(nn.Module):
         if H == ws and W == ws:
             att = self.attn(x.reshape(B, H * W, C), cfg).reshape(B, H, W, C)
         else:
-            # Partition BEFORE the attention's LayerNorm: zero pad tokens
-            # become LN(0) = bias and take part as keys, as in JAX.
-            wx, meta = _window_partition(x, ws)
-            att = _window_unpartition(self.attn(wx, cfg), ws, meta, H, W, C)
+            att = self.attend(x, cfg)
         x = shortcut + att
         x = self.local_conv(x, padding=cfg.local_conv_size // 2)
         return x + _mlp_ln(self.mlp, x, cfg)
+
+    def attend(self, x: torch.Tensor, cfg: TinyViTConfig) -> torch.Tensor:
+        """The window attention of x (B, H, W, C) over a window grid from
+        its first row and column. The partition comes BEFORE the
+        attention's LayerNorm: zero pad tokens become LN(0) = bias and take
+        part as keys, as in JAX. A canvas-row band (parallel/spatial.py)
+        passes whole rows of windows, the zero rows below the image
+        already fetched."""
+        B, H, W, C = x.shape
+        wx, meta = _window_partition(x, self.window)
+        return _window_unpartition(self.attn(wx, cfg), self.window, meta,
+                                   H, W, C)
 
 
 class Stage(nn.Module):
@@ -248,9 +257,7 @@ class TinyViT(nn.Module):
             for blk in stage.blocks:
                 x = blk(x) if i == 0 else blk(x, cfg)
             if hasattr(stage, "downsample"):
-                # Stride-1 merge into the last stage keeps 64x64 (MobileSAM).
-                stride = 1 if cfg.embed_dims[i + 1] in (320, 448, 576) else 2
-                x = stage.downsample(x, stride)
+                x = stage.downsample(x, merge_stride(cfg, i))
         neck = self.neck
         x = conv2d(x, neck.conv1.w)
         x = _ln(neck.ln1, x, cfg, eps=1e-6)
@@ -261,6 +268,12 @@ class TinyViT(nn.Module):
 # ---------------------------------------------------------------------------
 # Functions
 # ---------------------------------------------------------------------------
+
+def merge_stride(cfg: TinyViTConfig, i: int) -> int:
+    """The stride of stage i's PatchMerging: the merge into the last stage
+    keeps 64x64 (MobileSAM)."""
+    return 1 if cfg.embed_dims[i + 1] in (320, 448, 576) else 2
+
 
 def _ln(params: LayerNorm, x: torch.Tensor, cfg: TinyViTConfig,
         eps: float = 1e-5) -> torch.Tensor:

@@ -17,7 +17,7 @@ at resolution 2048, are ~0.3 GB).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -106,27 +106,32 @@ def _bilinear_sample_stacked(stack_info, py: torch.Tensor, px: torch.Tensor,
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   w: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  padding: int = 0, int8_gather: bool = False) -> torch.Tensor:
+                  padding: int = 0, int8_gather: bool = False,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Modulated deformable conv, stride 1 / dilation 1 / one offset group.
 
-    x:      (B, H, W, C)
-    offset: (B, H, W, 2K) float32, interleaved (dy, dx) per tap
+    x:      (B, H, W, C), the whole input
+    offset: (B, h, W, 2K) float32, interleaved (dy, dx) per tap
             k = ky * kw + kx (torchvision's channel order, channels last)
-    mask:   (B, H, W, K) float32 modulation (through 2 * sigmoid already)
+    mask:   (B, h, W, K) float32 modulation (through 2 * sigmoid already)
     w:      (Cout, C, kh, kw) OIHW
     bias:   (Cout,) or None, added last
     int8_gather: gather from an int8 corner stack (a bounded approximation,
-            ``_corner_stack``)
-    Every tap's sample, modulation and product is float32; the result is
-    cast to x's dtype.
+            ``_corner_stack``, built from the whole input)
+    rows:   (lo, hi), the output rows to compute (h = hi - lo; a canvas-row
+            band's, parallel/spatial.py); default every row (h = H)
+    Every tap's sample, modulation and product is float32; the result,
+    (B, h, W, Cout), is cast to x's dtype.
     """
     B, H, W, C = x.shape
     cout, _, kh, kw = w.shape
+    lo, hi = rows or (0, H)
+    h = hi - lo
     stack_info = _corner_stack(x, int8=int8_gather)  # shared by every tap
     wmat = w.float().permute(2, 3, 1, 0)  # (kh, kw, C, Cout)
-    ys = torch.arange(H, device=x.device, dtype=offset.dtype)[:, None]
+    ys = torch.arange(lo, hi, device=x.device, dtype=offset.dtype)[:, None]
     xs = torch.arange(W, device=x.device, dtype=offset.dtype)[None, :]
-    acc = torch.zeros((B * H * W, cout), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((B * h * W, cout), dtype=torch.float32, device=x.device)
     for ky in range(kh):
         for kx in range(kw):
             k = ky * kw + kx
@@ -134,8 +139,8 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
             px = xs + (kx - padding) + offset[..., 2 * k + 1]
             val = _bilinear_sample_stacked(stack_info, py, px, C,
                                            torch.float32) * mask[..., k:k + 1]
-            acc.addmm_(val.reshape(B * H * W, C), wmat[ky, kx])
-    out = acc.reshape(B, H, W, cout)
+            acc.addmm_(val.reshape(B * h * W, C), wmat[ky, kx])
+    out = acc.reshape(B, h, W, cout)
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)

@@ -215,12 +215,29 @@ class Sharded:
     def mesh(self) -> Mesh:
         return self.sharding.mesh
 
-    def row_parts(self) -> List[Tuple[int, torch.Tensor]]:
-        """(row, tensor) for this process's mesh rows: the shard on each
-        row's first device."""
+    def row_parts(self) -> List[Tuple[int, object]]:
+        """(row, its part) for this process's mesh rows: the shard on each
+        row's first device or, for an entry whose dim 1 is split over the
+        row's own axis (canvas rows over a ('dp', 'sp') mesh), the row's
+        shards as a ``parallel/spatial.py::Bands``."""
         tail = (0,) * (self.mesh.devices.ndim - 1)
-        return [(where[0], t) for where, _, t in self.shards
-                if where[1:] == tail]
+        spec = self.sharding.spec
+        if self.mesh.devices.ndim == 1 or len(spec) < 2 or spec[1] is None:
+            return [(where[0], t) for where, _, t in self.shards
+                    if where[1:] == tail]
+        from .spatial import Bands
+
+        out = {}
+        for where, index, t in self.shards:
+            out.setdefault(where[0], []).append((index[1], where, t))
+        parts = []
+        for r, shards in out.items():
+            shards.sort(key=lambda s: s[0].start)
+            starts = tuple(s[0].start for s in shards) + (shards[-1][0].stop,)
+            parts.append((r, Bands([t for _, _, t in shards], starts,
+                                   tuple(self.mesh.devices[w]
+                                         for _, w, _ in shards))))
+        return parts
 
 
 def put(x, sharding: NamedSharding) -> Sharded:

@@ -6,7 +6,9 @@ model), the canvas resampled to the model's resolution and ImageNet
 normalised on the device, the forward, floor(sigmoid * 255) to uint8, and
 a box-filter resize back to the image's extent on the host. One
 executable per ("birefnet", kind, bucket) key: a CUDA graph on the card
-(``Environment.executable``).
+(``Environment.executable``). Over a mesh (Options.scaleout_devices) the
+forward runs on canvas-row bands (parallel/spatial.py) and the executable
+is eager: it crosses devices.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..convert.from_numpy import load_into
-from ..errors import CANVAS_ROWS, ModelNotFoundError, not_in_this_slice
+from ..errors import ModelNotFoundError
 from ..image.resize import resize_mask
 from ..models.birefnet import BiRefNet, BiRefNetConfig, birefnet_apply, init_birefnet
 from ..models.swin import SwinConfig
@@ -112,13 +114,20 @@ def birefnet_input(bundle: BiRefNetBundle, bucket: int, canvas: torch.Tensor,
     return ((x - mean) / std)[None].to(bundle.compute_dtype)
 
 
-def _build_birefnet_fn(bundle: BiRefNetBundle, bucket: int):
-    """(canvas, sizes) -> the (S, S) uint8 mask at the model's resolution."""
+def _build_birefnet_fn(bundle: BiRefNetBundle, bucket: int, mesh=None):
+    """(canvas, sizes) -> the (S, S) uint8 mask at the model's resolution.
+    With ``mesh`` the resize and normalise run on the first device and the
+    forward's rows over the mesh; the logits come back whole."""
 
     def run(canvas, sizes):
         x = birefnet_input(bundle, bucket, canvas, sizes)
-        logits = birefnet_apply(bundle.model, x, bundle.cfg)  # (1, S, S, 1)
-        return sigmoid_to_u8(logits[0, :, :, 0])
+        if mesh is not None:
+            from ..parallel.spatial import birefnet_apply_spatial
+
+            logits = birefnet_apply_spatial(bundle.model, x, bundle.cfg, mesh)
+        else:
+            logits = birefnet_apply(bundle.model, x, bundle.cfg)
+        return sigmoid_to_u8(logits[0, :, :, 0])  # logits (1, S, S, 1)
 
     return run
 
@@ -130,16 +139,13 @@ def _to_host(mask: torch.Tensor) -> np.ndarray:
 def birefnet_segment(env, view: ImageView) -> Image:
     """`segment_objects`: the foreground mask at the image's extent."""
     extent = view.extent
-    if env.mesh is not None:
-        raise not_in_this_slice(
-            f"segment_objects over a mesh of {env.mesh.size} devices",
-            CANVAS_ROWS)
     kind = ("high_res" if extent.width > 1536 or extent.height > 1536
             else "general")
     bundle = env.birefnet_model(kind)
     bucket = pick_bucket(extent)
     run = env.executable(("birefnet", kind, bucket),
-                         lambda: _build_birefnet_fn(bundle, bucket), _to_host)
+                         lambda: _build_birefnet_fn(bundle, bucket, env.mesh),
+                         _to_host, graphed=env.mesh is None)
     with run.lock:  # the static canvas is the graph's input
         canvas = pack_and_put_canvas(
             view, bucket, env.device, pool=env.canvas_pool,

@@ -28,7 +28,6 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..errors import CANVAS_ROWS, not_in_this_slice
 from ..image.resize import resize_longest_side_extent, transform_point
 from ..models import sam as sam_lib
 from ..ops.connected import largest_component_mask
@@ -41,7 +40,7 @@ from ..ops.preprocess import (
 )
 from ..types import Channels, Extent, Image, ImageView, Point, Region
 from .birefnet import birefnet_segment
-from .environment import Environment, _variant
+from .environment import Environment
 
 
 @dataclass
@@ -55,19 +54,25 @@ class Mask:
 def _build_embed_fn(bundle, mesh=None):
     """Preprocess + image encoder. With ``mesh`` (Options.scaleout_devices)
     a ViT encoder runs sequence-parallel over its ('sp',) axis
-    (parallel/sp.py) and the embedding lands on the mesh's first device,
-    so every decode program downstream is unchanged."""
+    (parallel/sp.py), TinyViT on canvas-row bands (parallel/spatial.py),
+    and the embedding lands on the mesh's first device, so every decode
+    program downstream is unchanged."""
     cfg = bundle.cfg
 
     def run(canvas, sizes):
         x = sam_preprocess(canvas, sizes[0], sizes[1], sizes[2], sizes[3],
                            image_size=cfg.image_size,
                            compute_dtype=bundle.compute_dtype)
-        if mesh is not None:
+        if mesh is not None and cfg.encoder_vit is not None:
             from ..parallel.sp import sam_vit_apply_sp
 
             emb = sam_vit_apply_sp(bundle.model.encoder, x, cfg.encoder_vit,
                                    mesh)
+        elif mesh is not None:
+            from ..parallel.spatial import tinyvit_apply_spatial
+
+            emb = tinyvit_apply_spatial(bundle.model.encoder, x,
+                                        cfg.encoder_tiny, mesh)
         else:
             emb = sam_lib.encode_image(bundle.model, cfg, x)
         return emb.float()
@@ -177,10 +182,6 @@ class Segmentation:
         queued on the device."""
         view = img.view() if isinstance(img, Image) else img
         variant = variant or env.options.sam_variant
-        if env.mesh is not None and _variant(variant) == "mobile_sam":
-            raise not_in_this_slice(
-                f"Segmentation.process of {variant} over a mesh of "
-                f"{env.mesh.size} devices", CANVAS_ROWS)
         bundle = env.sam_model(variant)
         cfg = bundle.cfg
         extent = view.extent

@@ -4,9 +4,14 @@ the full-resolution logits (upstream BiRefNet weights them 30 : 0.5),
 applied to exactly the graph ``segment_objects`` serves, so a fine-tuned
 model serves unchanged. The model holds the float32 masters; the step
 follows train/step.py (leaves, full precision, AdamW in place). Over a
-('dp',) mesh (``place_birefnet_train_state``) it is train/step.py's mesh
-step with the parameters replicated; the canvas-row (sp) axis of JAX's
-('dp', 'sp') mesh is not ported yet.
+('dp',) or ('dp', 'sp') mesh (``place_birefnet_train_state``) it is
+train/step.py's mesh step with the parameters replicated; with 'sp' each
+dp row's images and masks arrive as canvas-row bands over the row's
+devices, the forward runs on them (parallel/spatial.py) with each band's
+device on a replica bound to the row's leaves (``.to`` its device, so
+autograd sums every band's gradient onto those leaves in float32), and
+the loss runs on the logits gathered to the row's first device, as the
+dense loss.
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..errors import CANVAS_ROWS, not_in_this_slice
 from ..models.birefnet import BiRefNetConfig, birefnet_apply
+from ..parallel import spatial
+from ..parallel.mesh import P, replica
 from .step import (
     _on,
     adamw_init,
@@ -75,20 +81,52 @@ def birefnet_loss(model: nn.Module, cfg: BiRefNetConfig, batch: Dict,
     [0, 1] (soft targets are fine). ``params``: leaves to use in place of
     the model's."""
     params = leaves(model) if params is None else params
-    batch = _on(model, batch)
-    images = batch["images"]
+    images, masks = batch["images"], batch["masks"]
+    banded = isinstance(images, spatial.Bands)
+    if banded:  # a ('dp', 'sp') row: its canvas rows over its devices
+        masks = spatial.gather(masks, images.devices[0])
+    else:
+        batch = _on(model, batch)
+        images, masks = batch["images"], batch["masks"]
     if tcfg.compute_dtype == "bfloat16":
-        params, images = shadow(params, torch.bfloat16), images.to(torch.bfloat16)
+        params = shadow(params, torch.bfloat16)
+        images = (spatial.local(lambda i, v: v.to(torch.bfloat16), images)
+                  if banded else images.to(torch.bfloat16))
 
-    logits = remat_call(
-        lambda p, x: call_with(model, p,
-                               lambda m, y: birefnet_apply(m, y, cfg), x),
-        params, images, tcfg.remat).float()  # (B, S, S, 1)
-    targets = batch["masks"].float()[..., None]
+    if banded:
+        def run(p, x):
+            return spatial.gather(_band_logits(model, cfg, p, x),
+                                  x.devices[0])
+    else:
+        def run(p, x):
+            return call_with(model, p, lambda m, y: birefnet_apply(m, y, cfg),
+                             x)
+    logits = remat_call(run, params, images, tcfg.remat).float()
+    targets = masks.float()[..., None]
     bce = torch.mean(sigmoid_bce(logits, targets))
     iou = _soft_iou_loss(logits, targets)
     loss = tcfg.bce_weight * bce + tcfg.iou_weight * iou
     return loss, {"bce": bce, "iou": iou}
+
+
+def _band_logits(model: nn.Module, cfg: BiRefNetConfig,
+                 params: Dict[str, torch.Tensor], x: spatial.Bands
+                 ) -> spatial.Bands:
+    """``birefnet_apply_bands`` with each band's device on a replica of
+    ``model`` bound to ``params`` moved there (differentiably): one
+    functional call nested inside the other, a device each."""
+    devices = list(dict.fromkeys(x.devices))
+
+    def nest(k, bound):
+        if k == len(devices):
+            return spatial.birefnet_apply_bands(
+                spatial.PerBand([bound[d] for d in x.devices]), x, cfg)
+        d = devices[k]
+        moved = {n: v.to(d) for n, v in params.items()}
+        return call_with(replica(model, (d,)), moved,
+                         lambda m: nest(k + 1, {**bound, d: m}))
+
+    return nest(0, {})
 
 
 def init_birefnet_train_state(model: nn.Module,
@@ -124,15 +162,16 @@ def make_birefnet_train_step(cfg: BiRefNetConfig,
 def place_birefnet_train_state(model: nn.Module, opt_state: Dict,
                                batch: Dict, mesh, dp_axis: str = "dp",
                                sp_axis: str = "sp"):
-    """(model, opt_state, batch) placed for a step over a ('dp',) mesh:
-    the parameters replicated (each dp row's replica is made by the
-    step), every batch entry dp-sharded on its leading axis. A mesh with
-    an sp axis (JAX's canvas-row sharding) raises."""
-    if sp_axis in mesh.shape:
-        raise not_in_this_slice(
-            f"place_birefnet_train_state over a mesh with an {sp_axis!r} "
-            f"axis", CANVAS_ROWS)
-    if tuple(mesh.shape) != (dp_axis,):
+    """(model, opt_state, batch) placed for a step over a ('dp',) or
+    ('dp', 'sp') mesh: the parameters replicated (each dp row's replica is
+    made by the step), ``images`` and ``masks`` P(dp, sp) (batch over dp,
+    canvas rows over sp) and every other entry P(dp), as JAX's."""
+    axes = tuple(mesh.shape)
+    if axes not in ((dp_axis,), (dp_axis, sp_axis)):
         raise ValueError(f"place_birefnet_train_state needs a ({dp_axis!r},) "
-                         f"mesh, got axes {tuple(mesh.shape)}")
-    return place_train_state(model, opt_state, batch, mesh)
+                         f"or ({dp_axis!r}, {sp_axis!r}) mesh, got axes "
+                         f"{axes}")
+    specs = None
+    if sp_axis in mesh.shape:
+        specs = {"images": P(dp_axis, sp_axis), "masks": P(dp_axis, sp_axis)}
+    return place_train_state(model, opt_state, batch, mesh, specs)

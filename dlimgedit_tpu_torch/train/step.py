@@ -46,7 +46,15 @@ from torch.utils.checkpoint import checkpoint
 from ..errors import DlimgError
 from ..models import sam as sam_lib
 from ..models.common import full_precision
-from ..parallel.mesh import Mesh, Sharded, batch_sharding, put, replica_entry
+from ..parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    P,
+    Sharded,
+    batch_sharding,
+    put,
+    replica_entry,
+)
 from ..parallel.multihost import all_reduce_sum
 
 __all__ = ["TrainConfig", "adamw_init", "adamw_update", "init_train_state",
@@ -376,16 +384,18 @@ def to_device(tree, device):
 
 
 def place_train_state(model: nn.Module, opt_state: Dict, batch: Dict,
-                      mesh: Mesh):
+                      mesh: Mesh, specs: Optional[Dict[str, P]] = None):
     """(model, opt_state, batch) placed for a step over ``mesh``: the
     model (the float32 masters) and the optimizer state on this process's
     first mesh device, each batch entry's leading (batch) axis dp-sharded
-    (each process keeps its rows). The step makes each row's replica,
-    with the tensor-parallel rule of ``parallel/mesh.py::sam_param_sharding``
-    when tp > 1."""
+    (each process keeps its rows), or laid out as ``specs`` names it. The
+    step makes each row's replica, with the tensor-parallel rule of
+    ``parallel/mesh.py::sam_param_sharding`` when tp > 1."""
     device = mesh.first_device
     model.to(device)
-    batch = {k: put(v, batch_sharding(mesh, np.ndim(v)))
+    specs = specs or {}
+    batch = {k: put(v, NamedSharding(mesh, specs[k]) if k in specs
+                    else batch_sharding(mesh, np.ndim(v)))
              for k, v in batch.items()}
     return model, to_device(opt_state, device), batch
 

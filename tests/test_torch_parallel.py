@@ -6,7 +6,7 @@ takes ~20 s here) and numpy-seeded inputs. JAX's tests run on 8 virtual
 CPU devices; the port's meshes here are explicit device lists: ``[cpu] *
 n`` (one object repeated) and n distinct ``torch.device`` objects.
 Models: JAX's tests/test_parallel.py, test_distill.py,
-test_train_birefnet.py (dp only) and test_train_data.py.
+test_train_birefnet.py (dp, and dp x sp) and test_train_data.py.
 
 Tolerances (JAX's own tests'):
   * dp and tp ``encode_frames`` against JAX's single-device
@@ -408,9 +408,44 @@ def test_birefnet_dp_step_matches_the_single_device_step():
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, atol=5e-5, rtol=1e-4,
                                    err_msg=k)
-    sp_mesh = pmesh.Mesh(np.asarray([[CPU, CPU]], dtype=object), ("dp", "sp"))
-    with pytest.raises(DlimgError, match="canvas-row sharding"):
-        birefnet_step.place_birefnet_train_state(m, o, batch, sp_mesh)
+
+
+def test_birefnet_dp_sp_step_matches_the_single_device_step():
+    """The port's step over a ('dp', 'sp') mesh of [[cpu, cpu], [cpu,
+    cpu]] (each dp row's image on 2 canvas-row bands) against JAX's
+    single-device step on the same tree and batch."""
+    cfg = rbn.slim_config(64, False)
+    model = _slim_birefnet(cfg)
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.standard_normal((2, 64, 64, 3)).astype(np.float32),
+             "masks": (rng.random((2, 64, 64)) > 0.5).astype(np.float32)}
+    jtcfg = jbstep.BiRefNetTrainConfig(learning_rate=1e-3)
+    jparams = numpy_from_params(model)
+    jp, _, jl, _ = jbstep.make_birefnet_train_step(
+        _slim_jax_config(), jtcfg, donate=False)(
+        jparams, jbstep.init_birefnet_train_state(jparams, jtcfg), batch)
+    want = flatten_tree(np_tree(jp))
+    tcfg = birefnet_step.BiRefNetTrainConfig(learning_rate=1e-3)
+    mesh = pmesh.Mesh(np.asarray([[CPU, CPU], [CPU, CPU]], dtype=object),
+                      ("dp", "sp"))
+    m, o, placed = birefnet_step.place_birefnet_train_state(
+        model, birefnet_step.init_birefnet_train_state(model, tcfg),
+        dict(batch, weights=np.ones((2,), np.float32)), mesh)
+    assert placed["images"].sharding.spec == pmesh.P("dp", "sp")
+    assert placed["weights"].sharding.spec == pmesh.P("dp")
+    assert [tuple(t.shape) for _, _, t in placed["images"].shards] == [
+        (1, 32, 64, 3)] * 4
+    del placed["weights"]
+    _, _, loss, _ = birefnet_step.make_birefnet_train_step(cfg, tcfg)(
+        m, o, placed)
+    rel_close(loss, jl)
+    got = flat_port(m)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, atol=5e-5, rtol=1e-4,
+                                   err_msg=k)
+    with pytest.raises(ValueError, match="'sp'"):
+        birefnet_step.place_birefnet_train_state(
+            m, o, batch, pmesh.Mesh([CPU, CPU], ("sp",)))
 
 
 def test_prefetch_dp_shards_over_mesh():
