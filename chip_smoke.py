@@ -245,17 +245,36 @@ printing its seconds:
      within relative L2 1e-5); the BiRefNet_lite train step at 1024 over
      (dp 1, sp 2) and (dp 2, sp 2) against the dense step: loss relative
      1e-5, parameters atol 5e-5, rtol 1e-4; `mesh_call_ms` beside the
-     dense eager call, peak memory.
+     dense eager call, peak memory;
+ 14. the C ABI's bridge (native_bridge.py) on cuda:0 at full width, every
+     call with ctypes buffers as native/src/capi.cpp passes them: a
+     full-width official-layout MobileSAM checkpoint
+     (tests/_torch_official_sd.py) converted by `python -m
+     dlimgedit_tpu_torch.convert.mobile_sam` and served by
+     `create_environment(1, dir)` without random weights (the served
+     weights equal to the .npz); MobileSAM `process` of a 1024x768 RGBA
+     buffer and a 1500x1000 BGRA one with rows padded by 64 bytes, a
+     point and a region mask, three masks, a batch of 16 mixed prompts,
+     `generate_masks` (grid 32, 64 slots); ViT-B `process` and a mask;
+     BiRefNet_lite `run_segment_objects`; a PNG saved and loaded. Every
+     buffer byte for byte against the same call through the Python API,
+     accuracies within 1e-6, each bridge call's launches exact (22 K1 and
+     10 K2 a MobileSAM `process`, phase 4's ViT-B counts, one greedy_nms
+     a `generate_masks`); the converter's seconds and the bridge's wall
+     against the direct call's (medians of 20).
 
 The line before the last is one JSON object with per-kernel numbers; the
-last line is {"ok": true, "device": {...}}. Times are medians of 20 runs
-timed with CUDA events; a kernel's `ms`, `plain_ms`, `library_ms` and
+last line is {"ok": true, "device": {...}}. Kernel and library times are
+medians of 20 samples of 10 calls timed with CUDA events, a plain
+version's of 3 samples of 2 calls (it is no yardstick); a kernel's `ms`,
+`plain_ms`, `library_ms` and
 `bound_ms` in the JSON are sums over the launches it made on the main
 paths (its `launches`: both images' `process` calls of each path in round
 2, all replays; at the batched shapes, phase 10's round-2 replay of
 each B = 4 `encode_frames` key and phase 11's one teacher call; and
 phase 12's counted sp runs and mesh `encode_frames` calls; and phase
-13's bf16 MobileSAM `process` over 2 and over 4 bands). For K7
+13's bf16 MobileSAM `process` over 2 and over 4 bands; phase 14 runs
+phase 4's shapes and holds its launches exact itself). For K7
 and K8, which no main path launches, they are the numbers of one call at
 their first shape (ViT-B's windows; the probe's row-replicated indices at
 reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
@@ -521,6 +540,29 @@ BIREFNET_F32_RESOLUTION = 256
 # to queue its calls (the host is shared and stalls at times).
 SPIN_CYCLES = 40_000_000
 SAMPLE_RETRIES = 10
+# A plain version's time is printed beside the kernel's (it is no
+# yardstick: the kernel is held against the plain version for its values
+# and against the library call for its time), from far fewer calls than
+# the kernel's and the library's 20 samples of 10.
+PLAIN_SAMPLES, PLAIN_PER_SAMPLE = 3, 2
+
+# Phase 14, the C ABI's bridge: MobileSAM's images as a C caller hands
+# them over, (width, height, channel code, bytes of padding a row, seed):
+# RGBA packed, and BGRA with padded rows (canvas buckets 1024 and 2048).
+BRIDGE_IMAGES = ((1024, 768, 4, 0, 41), (1500, 1000, 5, 64, 42))
+BRIDGE_BATCH = 16
+# generate_masks through the bridge: (IoU, stability, NMS thresholds,
+# slots) as a C caller passes them (NMS 1.0 keeps every candidate, so all
+# 64 slots fill); the grid from DLIMG_AMG_GRID.
+BRIDGE_AMG = (0.0, 0.0, 1.0, 64)
+BRIDGE_AMG_GRID = 32
+# The environment variables the bridge reads (native_bridge.py); phase 14
+# sets them and puts back what was there.
+BRIDGE_VARS = ("DLIMG_ALLOW_RANDOM_WEIGHTS", "DLIMG_SAM_VARIANT",
+               "DLIMG_SAM_IMAGE_SIZE", "DLIMG_COMPUTE_DTYPE",
+               "DLIMG_COMPILATION_CACHE", "DLIMG_SCALEOUT_DEVICES",
+               "DLIMG_AMG_GRID", "DLIMG_BIREFNET_TEST_SLIM",
+               "DLIMG_BIREFNET_RESOLUTION")
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu)
 # and bf16 K2 (csrc/levit_attention_tc.cu): phase 1 fails if one is missing
@@ -741,7 +783,7 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
         return None
     ms = time_ms(torch, kernel)
-    plain_ms = time_ms(torch, plain)
+    plain_ms = time_ms(torch, plain, PLAIN_SAMPLES, PLAIN_PER_SAMPLE)
     lib_ms = None if library is None else time_ms(torch, library)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (flops_mm / PEAK_BF16_TC_FLOPS + flops_f32 / PEAK_F32_FLOPS) * 1e3
@@ -3777,6 +3819,424 @@ def drive_canvas_rows(torch, np, dl, counters, zero_counters, host_ms,
     return launches
 
 
+def memoize_seeded_init(torch, sam_module) -> None:
+    """Seeded random SAM weights made once per (config, seed) in this
+    process: the first ``sam_module.init_sam`` call with a fresh generator
+    draws them on the host (seconds for ViT-H), later calls of the same
+    config and seed get a copy (the generator is then left undrawn; a
+    generator already drawn from always takes the real init). The phases
+    build the same seeded models many times (every random-weights
+    Environment, phase 4's plain and float32 twins, phase 9's quantised
+    ones): a copy holds the same numbers, so no check changes."""
+    import copy
+
+    real, cache = sam_module.init_sam, {}
+
+    def init_sam(gen, cfg):
+        seed = gen.initial_seed()
+        if not torch.equal(gen.get_state(),
+                           torch.Generator().manual_seed(seed).get_state()):
+            return real(gen, cfg)
+        if (cfg, seed) not in cache:
+            cache[cfg, seed] = real(gen, cfg)
+        return copy.deepcopy(cache[cfg, seed])
+
+    sam_module.init_sam = init_sam
+
+
+def c_pixels(ctypes, np, arr, pad: int):
+    """A C caller's pixel buffer holding `arr` (h, w, c) in rows of
+    w * c + pad bytes (the padding a pattern no pixel copy may read) ->
+    (the ctypes array, the stride argument: 0 for packed rows)."""
+    h, w, c = arr.shape
+    stride = w * c + pad
+    buf = (ctypes.c_uint8 * (stride * h))()
+    rows = np.frombuffer(buf, np.uint8).reshape(h, stride)
+    rows[:] = 77
+    rows[:, :w * c] = arr.reshape(h, w * c)
+    return buf, (stride if pad else 0)
+
+
+def c_masks(ctypes, n: int, size: int):
+    """n caller-owned mask buffers of `size` bytes and their addresses."""
+    bufs = [(ctypes.c_uint8 * size)() for _ in range(n)]
+    return bufs, [ctypes.addressof(b) for b in bufs]
+
+
+def same_bytes(np, buf, image, label) -> None:
+    want = np.ascontiguousarray(image.pixels).tobytes()
+    if bytes(buf) != want:
+        got = np.frombuffer(buf, np.uint8)
+        fail(f"phase 14 {label}: the bridge's buffer differs from the direct "
+             f"call's mask in {int((got != np.frombuffer(want, np.uint8)).sum())}"
+             f" of {len(want)} bytes")
+
+
+def same_accuracies(acc, masks, label) -> None:
+    err = max(abs(acc[i] - m.accuracy) for i, m in enumerate(masks))
+    if not err <= 1e-6:
+        fail(f"phase 14 {label}: accuracies differ from the direct call's by "
+             f"{err} (limit 1e-6)")
+
+
+def counted(torch, counters, zero_counters, fn):
+    """fn() with the launch counters zeroed just before and read just
+    after: -> (fn's result, the launches)."""
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counters()
+
+
+def expect_launches(counts, want, label) -> None:
+    expect = {k: want.get(k, 0) for k in counts}
+    if counts != expect:
+        fail(f"phase 14 {label}: kernel launches {counts} != {expect}")
+    print(f"phase 14 {label}: launches {({k: v for k, v in counts.items() if v})}"
+          f" exactly", flush=True)
+
+
+def paired_ms(torch, fa, fb, n: int = 20):
+    """Medians of n host-clock walls of fa and of fb, their calls
+    interleaved, each ending in a device synchronise."""
+    fa(), fb()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for _ in range(n):
+        for f, ts in ((fa, ta), (fb, tb)):
+            t = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def bridge_queries(np, rng, w: int, h: int):
+    """Phase 14's prompts on a w x h image: a point, a region, the point of
+    the three masks, and BRIDGE_BATCH mixed prompts as the C ABI passes
+    them (a flat int tuple of 4 a prompt, is_region flags)."""
+    point, point3 = (w // 2, h // 2), (w // 4, h // 2)
+    region = (w // 8, h // 8, w * 7 // 8, h * 7 // 8)
+    flat, is_region = [], []
+    for i in range(BRIDGE_BATCH):
+        x0, x1 = sorted(int(v) for v in rng.integers(0, w, 2))
+        y0, y1 = sorted(int(v) for v in rng.integers(0, h, 2))
+        is_region.append(i % 2)
+        flat += [x0, y0, x1 + 1, y1 + 1] if i % 2 else [x0, y0, 0, 0]
+    return point, region, point3, tuple(flat), tuple(is_region)
+
+
+def bridge_process_and_masks(ctypes, nb, env, buf, stride, w, h, code, q):
+    """`process` of a caller's buffer and the mask entry points on it, all
+    through the bridge, the masks into caller buffers: -> (the
+    Segmentation, (the point and region masks, the three masks, their
+    accuracies, the batch's masks, its accuracies))."""
+    point, region, point3, flat, is_region = q
+    n = w * h
+    seg = nb.process(env, ctypes.addressof(buf), w, h, code, stride)
+    one, one_p = c_masks(ctypes, 2, n)
+    nb.compute_mask(seg, point, None, [one_p[0], 0, 0], 0)
+    nb.compute_mask(seg, None, region, [one_p[1], 0, 0], 0)
+    three, three_p = c_masks(ctypes, 3, n)
+    acc3 = (ctypes.c_float * 3)()
+    nb.compute_mask(seg, point3, None, three_p, ctypes.addressof(acc3))
+    batch, batch_p = c_masks(ctypes, BRIDGE_BATCH, n)
+    accb = (ctypes.c_float * BRIDGE_BATCH)()
+    nb.compute_mask_batch(seg, flat, is_region, BRIDGE_BATCH, batch_p,
+                          ctypes.addressof(accb))
+    return seg, (one, three, acc3, batch, accb)
+
+
+def hold_masks_against_direct(np, dl, direct, q, outs, label) -> None:
+    """The bridge's mask buffers and accuracies (``outs`` of
+    ``bridge_process_and_masks``) against the same queries through the
+    Python API on `direct`: bytes equal, accuracies within 1e-6."""
+    point, region, point3, flat, is_region = q
+    one, three, acc3, batch, accb = outs
+    same_bytes(np, one[0], direct.compute_mask(dl.Point(*point)),
+               f"{label} point")
+    same_bytes(np, one[1], direct.compute_mask(dl.Region(
+        dl.Point(*region[:2]), dl.Point(*region[2:]))), f"{label} region")
+    masks = direct.compute_masks(dl.Point(*point3))
+    for i, m in enumerate(masks):
+        same_bytes(np, three[i], m.image, f"{label} mask {i} of three")
+    same_accuracies(acc3, masks, f"{label} three masks")
+    prompts = [dl.Region(dl.Point(*flat[4 * i:4 * i + 2]),
+                         dl.Point(*flat[4 * i + 2:4 * i + 4]))
+               if is_region[i] else dl.Point(*flat[4 * i:4 * i + 2])
+               for i in range(BRIDGE_BATCH)]
+    masks = direct.compute_mask_batch(prompts)
+    for i, m in enumerate(masks):
+        same_bytes(np, batch[i], m.image, f"{label} batch mask {i}")
+    same_accuracies(accb, masks, f"{label} batch")
+    shares = [round(float(np.frombuffer(b, np.uint8).mean() / 255), 3)
+              for b in one + three]
+    print(f"phase 14 {label}: embedding, 2 + 3 + {BRIDGE_BATCH} masks and "
+          f"accuracies equal to the direct calls' (foreground shares "
+          f"{shares})", flush=True)
+
+
+def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root):
+    """Phase 14, the C ABI's bridge (native_bridge.py) on cuda:0 at full
+    width, every call with ctypes buffers exactly as native/src/capi.cpp
+    passes them: a full-width official-layout MobileSAM checkpoint
+    (tests/_torch_official_sd.py, from the port's seeded tree) saved with
+    torch.save and converted by ``python -m
+    dlimgedit_tpu_torch.convert.mobile_sam`` into the model directory;
+    ``create_environment(1, dir)`` with DLIMG_ALLOW_RANDOM_WEIGHTS=0 must
+    serve exactly what the converter wrote. MobileSAM at 1024:
+    `process` of BRIDGE_IMAGES, a point and a region mask, the three
+    masks with their accuracies, a batch of 16 mixed prompts, and on the
+    first image `generate_masks` (grid 32, 64 slots); ViT-B (seeded random
+    weights, rel-pos tables, pos_embed and qkv biases as phase 4)
+    `process` and a point mask; BiRefNet_lite `general` (offsets seeded
+    nonzero as phase 8) through `run_segment_objects`; a PNG saved and
+    loaded. Every buffer byte for byte against the same call through the
+    port's Python API (its Image a contiguous copy in the declared channel
+    order), accuracies within 1e-6; the launches of each bridge call
+    exact (22 K1 and 10 K2 a MobileSAM `process`, phase 4's ViT-B counts,
+    one greedy_nms a `generate_masks`, none for BiRefNet). Prints the
+    converter's seconds and the bridge's wall against the direct call's."""
+    import ctypes
+    import tempfile
+
+    from dlimgedit_tpu_torch import native_bridge as nb
+    from dlimgedit_tpu_torch.convert import mobile_sam as conv
+    from dlimgedit_tpu_torch.convert.from_numpy import (
+        numpy_from_params,
+        params_from_numpy,
+    )
+    from dlimgedit_tpu_torch.models import sam as sam_lib
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.utils.pytree_io import flatten_tree, load_pytree
+
+    sys.path.insert(0, str(root / "tests"))
+    from _torch_official_sd import as_tensors, official_sam_state_dict
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in BRIDGE_VARS}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        model_dir = Path(tmp.name)
+        (model_dir / "segmentation").mkdir()
+        # -- the converted bundle ------------------------------------------
+        tree = numpy_from_params(sam_lib.init_sam(
+            torch.Generator().manual_seed(0), sam_lib.make_config("mobile_sam")))
+        # The init's conv + BN affines are (1, 0): seeded ones instead, so
+        # the converter's fold of the BatchNorm statistics does arithmetic.
+        bn_rng = np.random.default_rng(140)
+        for leaf in flatten_tree(tree):
+            node = tree
+            for part in leaf.split("/")[:-1]:
+                node = node[int(part)] if isinstance(node, list) else node[part]
+            if "scale" in node and np.ndim(node.get("w")) == 4:
+                n = node["scale"].shape
+                node["scale"] = bn_rng.uniform(0.5, 1.5, n).astype(np.float32)
+                node["bias"] = (0.1 * bn_rng.standard_normal(n)).astype(np.float32)
+        src = model_dir / "mobile_sam.pt"
+        torch.save(as_tensors(official_sam_state_dict(tree, "mobile_sam", 14)),
+                   src)
+        dst = model_dir / "segmentation" / "mobile_sam.npz"
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "dlimgedit_tpu_torch.convert.mobile_sam",
+             str(src), str(dst)], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"phase 14: the converter failed: {r.stderr[-2000:]}")
+        t = time.perf_counter()
+        again = flatten_tree(conv.convert_checkpoint(conv.load_state_dict(str(src))))
+        conv_s = time.perf_counter() - t
+        written, seeded = flatten_tree(load_pytree(dst)), flatten_tree(tree)
+        if set(written) != set(seeded) or any(
+                not np.array_equal(written[k], again[k]) for k in written):
+            fail("phase 14: the converter's .npz is not the converted tree")
+        fold = max(float(np.abs(written[k] - seeded[k]).max()
+                         / max(float(np.abs(seeded[k]).max()), 1e-30))
+                   for k in seeded)
+        if not fold <= 1e-6:
+            fail(f"phase 14: the converted tree is {fold} (relative) off the "
+                 f"seeded tree")
+        n_params = sum(v.size for v in seeded.values())
+        print(f"phase 14 converter mobile_sam at full width on the host of "
+              f"{gpu_line} ({n_params} "
+              f"parameters, {len(seeded)} leaves, official layout with "
+              f"BatchNorm statistics): the CLI {cli_s:.2f} s (a fresh "
+              f"interpreter: imports, torch.load, conversion, .npz), the "
+              f"load and conversion alone {conv_s:.2f} s; the folds within "
+              f"{fold:.2e} (relative) of the seeded tree", flush=True)
+
+        os.environ.update({"DLIMG_ALLOW_RANDOM_WEIGHTS": "0",
+                           "DLIMG_SAM_IMAGE_SIZE": "1024",
+                           "DLIMG_COMPUTE_DTYPE": "bfloat16",
+                           "DLIMG_AMG_GRID": str(BRIDGE_AMG_GRID)})
+        for k in ("DLIMG_SAM_VARIANT", "DLIMG_COMPILATION_CACHE",
+                  "DLIMG_SCALEOUT_DEVICES", "DLIMG_BIREFNET_TEST_SLIM",
+                  "DLIMG_BIREFNET_RESOLUTION"):
+            os.environ.pop(k, None)
+        if not (nb.backend_supported(0) and nb.backend_supported(1)):
+            fail("phase 14: backend_supported(1) is False on the card")
+        env = nb.create_environment(1, str(model_dir))
+        if env.device != torch.device("cuda", 0) or env.options.allow_random_weights:
+            fail(f"phase 14: create_environment(1, ...) gave {env.device}, "
+                 f"random weights {env.options.allow_random_weights}")
+        served = env.sam_model().model.state_dict()
+        want = params_from_numpy(load_pytree(dst))
+        if set(served) != set(want) or any(
+                not torch.equal(v.cpu(), want[k].to(v.dtype))
+                for k, v in served.items()):
+            fail("phase 14: the card does not serve the converted bundle")
+        print(f"phase 14: create_environment(1, dir) on {env.device} serves "
+              f"the converted bundle ({len(served)} leaves, encoder "
+              f"{env.compute_dtype}, equal to the .npz cast)", flush=True)
+
+        # -- MobileSAM through the bridge, then the direct calls ------------
+        codes = {1: dl.Channels.mask, 3: dl.Channels.rgb, 4: dl.Channels.rgba,
+                 5: dl.Channels.bgra, 6: dl.Channels.argb}
+        rng = np.random.default_rng(14)
+        runs = []
+        for w, h, code, pad, seed in BRIDGE_IMAGES:
+            nch = 4 if code in (5, 6) else code
+            arr = rgba(np, h, w, seed)[:, :, :nch]
+            buf, stride = c_pixels(ctypes, np, arr, pad)
+            q = bridge_queries(np, rng, w, h)
+            (seg, outs), counts = counted(
+                torch, counters, zero_counters,
+                lambda: bridge_process_and_masks(ctypes, nb, env, buf, stride,
+                                                 w, h, code, q))
+            label = f"MobileSAM {w}x{h} code {code} stride {stride}"
+            expect_launches(counts, {"fused_layer_norm": LN_PER_PROCESS,
+                                     "levit_window_attention": ATTN_PER_PROCESS},
+                            f"{label}: process, 2 + 3 + {BRIDGE_BATCH} masks")
+            if nb.segmentation_extent(seg) != (w, h):
+                fail(f"phase 14 {label}: extent {nb.segmentation_extent(seg)}")
+            img = dl.Image(dl.Extent(w, h), codes[code], np.ascontiguousarray(arr))
+            direct = dl.Segmentation.process(img, env)
+            if not torch.equal(seg.embedding, direct.embedding):
+                fail(f"phase 14 {label}: the bridge's embedding differs from "
+                     f"the direct call's")
+            hold_masks_against_direct(np, dl, direct, q, outs, label)
+            point = q[0]
+            runs.append((w, h, code, buf, stride, img, seg, direct, point))
+
+        w, h, code, buf, stride, img, seg, direct, point = runs[0]
+        iou, stab, nms, slots = BRIDGE_AMG
+        gen, gen_p = c_masks(ctypes, slots, w * h)
+        accg = (ctypes.c_float * slots)()
+        count, counts = counted(torch, counters, zero_counters,
+                                lambda: nb.generate_masks(seg, iou, stab, nms,
+                                                          slots, gen_p,
+                                                          ctypes.addressof(accg)))
+        expect_launches(counts, {"greedy_nms": 1},
+                        f"generate_masks grid {BRIDGE_AMG_GRID}")
+        masks = direct.generate_masks(grid=BRIDGE_AMG_GRID, max_masks=slots,
+                                      iou_thresh=iou, stability_thresh=stab,
+                                      nms_thresh=nms)
+        if count != len(masks) or count < 1:
+            fail(f"phase 14 generate_masks: {count} masks through the bridge, "
+                 f"{len(masks)} direct")
+        for i, m in enumerate(masks):
+            same_bytes(np, gen[i], m.image, f"generated mask {i}")
+        same_accuracies(accg, masks, "generate_masks")
+        print(f"phase 14 generate_masks MobileSAM {w}x{h}: {count} masks and "
+              f"accuracies equal to the direct call's", flush=True)
+
+        pacc = (ctypes.c_float * 3)()
+        mbuf, mptr = c_masks(ctypes, 1, w * h)
+        process_ms = paired_ms(
+            torch, lambda: nb.process(env, ctypes.addressof(buf), w, h, code,
+                                      stride),
+            lambda: dl.Segmentation.process(img, env))
+        mask_ms = paired_ms(
+            torch, lambda: nb.compute_mask(seg, point, None, [mptr[0], 0, 0],
+                                           ctypes.addressof(pacc)),
+            lambda: direct.compute_mask(dl.Point(*point)))
+        print(f"e2e bridge MobileSAM {w}x{h} on {gpu_line}: process_ms "
+              f"bridge={process_ms[0]:.3f} direct={process_ms[1]:.3f}; "
+              f"mask_ms bridge={mask_ms[0]:.3f} direct={mask_ms[1]:.3f} "
+              f"(medians of 20, the two calls interleaved; the bridge wraps "
+              f"the caller's pointer and copies the mask into its buffer)",
+              flush=True)
+        del runs, seg, direct, env, served
+        torch.cuda.empty_cache()
+
+        # -- ViT-B and BiRefNet on seeded random weights ---------------------
+        os.environ.update({"DLIMG_SAM_VARIANT": "vit_b",
+                           "DLIMG_ALLOW_RANDOM_WEIGHTS": "1"})
+        env_b = nb.create_environment(1, str(model_dir))
+        seed_vit_extras(torch, env_b.sam_model("vit_b").model)
+        w, h, code, pad, seed = BRIDGE_IMAGES[0]
+        arr = rgba(np, h, w, seed)
+        buf, stride = c_pixels(ctypes, np, arr, pad)
+        vmask, vptr = c_masks(ctypes, 1, w * h)
+
+        def vit_calls():
+            s = nb.process(env_b, ctypes.addressof(buf), w, h, code, stride)
+            nb.compute_mask(s, (w // 2, h // 2), None, [vptr[0], 0, 0], 0)
+            return s
+
+        vseg, counts = counted(torch, counters, zero_counters, vit_calls)
+        expect_launches(counts, VIT_PER_PROCESS, f"ViT-B {w}x{h}: process, a mask")
+        img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr)
+        vdirect = dl.Segmentation.process(img, env_b)
+        if not torch.equal(vseg.embedding, vdirect.embedding):
+            fail("phase 14 ViT-B: the bridge's embedding differs from the "
+                 "direct call's")
+        same_bytes(np, vmask[0], vdirect.compute_mask(dl.Point(w // 2, h // 2)),
+                   "ViT-B point")
+        print(f"phase 14 ViT-B {w}x{h}: embedding and mask equal to the direct "
+              f"calls'", flush=True)
+        del vseg, vdirect
+
+        b = env_b.birefnet_model("general")
+        if (b.cfg.img_size, b.cfg.swin.embed_dim, b.compute_dtype) != (
+                1024, 96, torch.bfloat16):
+            fail(f"phase 14 BiRefNet: not BiRefNet_lite general in bf16 "
+                 f"({b.cfg.img_size}, {b.cfg.swin.embed_dim}, {b.compute_dtype})")
+        seed_nonzero_init(b.model)
+        out, optr = c_masks(ctypes, 1, w * h)
+        _, counts = counted(torch, counters, zero_counters,
+                            lambda: nb.run_segment_objects(
+                                env_b, ctypes.addressof(buf), w, h, code,
+                                stride, optr[0]))
+        expect_launches(counts, {}, f"run_segment_objects {w}x{h}")
+        mask = dl.segment_objects(img, env_b)
+        same_bytes(np, out[0], mask, "run_segment_objects")
+        px = np.frombuffer(out[0], np.uint8)
+        if px.min() == px.max():
+            fail("phase 14 run_segment_objects: a constant mask")
+        print(f"phase 14 run_segment_objects BiRefNet_lite general {w}x{h}: "
+              f"mask equal to segment_objects' (uint8 {px.min()}..{px.max()}, "
+              f"mean {px.mean():.2f})", flush=True)
+        del env_b, b
+        torch.cuda.empty_cache()
+
+        # -- image files ------------------------------------------------------
+        for code, pad in ((3, 40), (1, 7)):
+            arr = rgba(np, 120, 160, 5)[:, :, :code]
+            buf, stride = c_pixels(ctypes, np, arr, pad)
+            mine, theirs = model_dir / "bridge.png", model_dir / "direct.png"
+            nb.save_image(ctypes.addressof(buf), 160, 120, code, stride,
+                          str(mine))
+            dl.Image(dl.Extent(160, 120), codes[code], arr).save(str(theirs))
+            if mine.read_bytes() != theirs.read_bytes():
+                fail(f"phase 14 save_image code {code}: the file differs from "
+                     f"Image.save's")
+            if nb.load_image(str(mine)) != (160, 120, code, arr.tobytes()):
+                fail(f"phase 14 load_image code {code}: not the saved pixels")
+        print("phase 14 save_image / load_image: PNG bytes equal to "
+              "Image.save's, pixels read back", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -3804,6 +4264,7 @@ def main() -> int:
     import numpy as np
 
     import dlimgedit_tpu_torch as dl
+    from dlimgedit_tpu_torch.models import sam as sam_module
     from dlimgedit_tpu_torch.ops import amg
     from dlimgedit_tpu_torch.ops import flash_attention as fa
     from dlimgedit_tpu_torch.ops import fused_norm as fn
@@ -3837,6 +4298,7 @@ def main() -> int:
         int8_epilogue=quant.int8_epilogue,
         int8_epilogue_plain=quant.int8_epilogue_plain)
     wrappers = {name: getattr(ops, name) for name, _, _ in KERNELS}
+    memoize_seeded_init(torch, sam_module)
 
     def counters():
         return {name: w.launches for name, w in wrappers.items()}
@@ -4023,6 +4485,9 @@ def main() -> int:
     for name, n in drive_canvas_rows(torch, np, dl, counters, zero_counters,
                                      host_ms, gpu_line).items():
         launches[name] += n
+
+    # -- 14. the C ABI's bridge and a converted bundle --------------------
+    drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root)
 
     kernels = []
     for name, source, replaces in KERNELS:

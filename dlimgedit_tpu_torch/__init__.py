@@ -25,9 +25,12 @@ Batches of frames run through ``parallel.batch`` (``encode_frames``,
 also shards one image's ViT over an ('sp',) mesh and joins processes on
 ``torch.distributed``; ``train`` fine-tunes, distils and checkpoints, on
 one device or over a mesh. ``scaleout_devices`` 0 or N encodes the ViTs
-sequence-parallel over 2 or more CUDA devices and serves as 1 where the
-backend has fewer; MobileSAM and BiRefNet over a mesh need canvas-row
-sharding, which a later slice brings (they raise ``DlimgError``).
+sequence-parallel over 2 or more CUDA devices, and runs MobileSAM and
+BiRefNet on canvas-row bands over them, and serves as 1 where the backend
+has fewer. ``convert`` turns upstream MobileSAM, SAM, HF SAM and BiRefNet
+checkpoints into the weight bundles both packages load
+(``python -m dlimgedit_tpu_torch.convert.mobile_sam src.pt dst.npz``);
+``native_bridge`` is the marshalling layer a C ABI host calls.
 """
 
 from .errors import DlimgError, ModelNotFoundError, UnsupportedImageError

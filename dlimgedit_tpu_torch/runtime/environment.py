@@ -528,7 +528,7 @@ class Environment:
         else:
             raise ModelNotFoundError(
                 f"Model file not found: {path} (convert a checkpoint with "
-                f"dlimgedit_tpu.convert, or set allow_random_weights)")
+                f"dlimgedit_tpu_torch.convert, or set allow_random_weights)")
         o = self.options
         bundle = SamModelBundle(cfg, model, self.compute_dtype,
                                 quantize=o.quantize_encoder,

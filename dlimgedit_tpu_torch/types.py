@@ -204,8 +204,9 @@ class Options:
     # backend; N that many, at most the count. Fewer than 2 take the
     # single-device path, so serving configs can set 0 unconditionally;
     # with 2 or more distinct CUDA devices the ViTs encode sequence-parallel
-    # over an ('sp',) mesh (parallel/sp.py), and MobileSAM and BiRefNet
-    # raise (canvas-row sharding is not ported yet).
+    # over an ('sp',) mesh (parallel/sp.py), and MobileSAM's `process` and
+    # BiRefNet's `segment_objects` run on canvas-row bands over it
+    # (parallel/spatial.py).
     scaleout_devices: int = 1
 
 

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no file of dlimgedit_tpu_torch/, and not
-chip_smoke.py, imports jax or the JAX package (dlimgedit_tpu, whose
-__init__ imports jax)."""
+"""The PyTorch port stands alone: no file of dlimgedit_tpu_torch/, not
+chip_smoke.py and not the test helpers it imports, imports jax or the JAX
+package (dlimgedit_tpu, whose __init__ imports jax)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dlimgedit_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_official_sd.py",
+    ROOT / "tests" / "_torch_bridge_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "dlimgedit_tpu")
 
 
@@ -42,3 +43,12 @@ def test_scan_sees_the_package_and_catches_a_jax_import(tmp_path):
                      "import jax.numpy as jnp\nimport dlimgedit_tpu_torch\n")
     assert [m for m in _imported_modules(probe) if _forbidden(m)] == [
         "dlimgedit_tpu.ops", "jax.numpy"]
+
+
+@pytest.mark.parametrize("module", [
+    "native_bridge.py", "convert/mobile_sam.py", "convert/hf_sam.py",
+    "convert/birefnet.py"])
+def test_the_bridge_and_the_converters_are_scanned(module):
+    """The C ABI's bridge and the checkpoint converters are the port's own
+    (the JAX package has modules of the same names)."""
+    assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES

@@ -241,13 +241,12 @@ def test_scaleout_devices_on_one_device_serves_as_one(model_dir, pixels,
                                       one.compute_mask(prompt).pixels)
 
 
-def test_scaleout_over_two_cuda_devices_is_not_ported(monkeypatch):
+def test_scaleout_over_two_faked_cuda_devices_gives_an_sp_mesh(monkeypatch):
     """Two CUDA devices (faked) give Environment an ('sp',) mesh over
     cuda:0 and cuda:1, on which the ViTs run sequence-parallel and
     MobileSAM and BiRefNet on canvas-row bands
     (tests/test_torch_scaleout.py holds both on CPU meshes);
-    ``scaleout_devices=1`` keeps the one device. The name dates from when
-    two CUDA devices raised; nothing of the scale-out is left unported."""
+    ``scaleout_devices=1`` keeps the one device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     opts = pdl.Options(allow_random_weights=True, scaleout_devices=0)
