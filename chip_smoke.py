@@ -261,7 +261,33 @@ printing its seconds:
      accuracies within 1e-6, each bridge call's launches exact (22 K1 and
      10 K2 a MobileSAM `process`, phase 4's ViT-B counts, one greedy_nms
      a `generate_masks`); the converter's seconds and the bridge's wall
-     against the direct call's (medians of 20).
+     against the direct call's (medians of 20);
+ 15. the C hosts on cuda:0, through the port's own C library
+     (dlimgedit_tpu_torch/native/, built by native_build.py with the C++
+     compiler; it imports dlimgedit_tpu_torch.native_bridge itself) on
+     phase 14's converted bundle and a seeded BiRefNet_lite `general`
+     bundle, without random weights: the library loaded with ctypes into
+     this interpreter (no jax, no JAX package before or after), every
+     table entry through `dlimg_init()`'s table with backend 1 on phase
+     14's two images (process, a point and a region mask, three masks, a
+     batch of 16, `generate_masks` grid 32 with 64 slots,
+     `segment_objects`, a PNG saved and loaded), every buffer byte for
+     byte against the Python API on an Environment of the same options,
+     accuracies within 1e-6, launches exact (22 K1 and 10 K2 a `process`,
+     one greedy_nms a `generate_masks`), `process_ms` and `mask_ms`
+     through the library against the direct call (medians of 20,
+     interleaved); `dlimg-serve --backend gpu --threads 4
+     --batch-window-ms 2` as a process of its own, its PID on the card:
+     two sessions opened at once (first calls and captures in parallel),
+     8 point and 4 box queries at concurrency 1 and 16 point queries at
+     concurrency 4 (`batched_calls` above 0), `all=1`, `/auto-masks`,
+     `/v1/segment`, `/v1/remove-bg`, every PNG decoded and held byte for
+     byte against the direct call the daemon makes (at concurrency 4,
+     against the prompt's batches of 1, 2 and 4: the batch a query rode
+     in is not known), each endpoint's median wall, `/v1/stats`, the
+     sessions deleted and SIGTERM answered with exit 0; `dlimg segment`
+     (its mask file equal to the direct call's), `test_cpp_api gpu` and
+     `test_cpp_dynamic` exiting 0.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -288,12 +314,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -563,6 +591,14 @@ BRIDGE_VARS = ("DLIMG_ALLOW_RANDOM_WEIGHTS", "DLIMG_SAM_VARIANT",
                "DLIMG_COMPILATION_CACHE", "DLIMG_SCALEOUT_DEVICES",
                "DLIMG_AMG_GRID", "DLIMG_BIREFNET_TEST_SLIM",
                "DLIMG_BIREFNET_RESOLUTION")
+
+# Phase 15, the C hosts: (points, boxes) at concurrency 1, then points at
+# concurrency 4 on one session of dlimg-serve, and the daemon's batch
+# window; `/v1/segment` and `/v1/remove-bg` are sent twice (the first call
+# captures), `/auto-masks` once.
+SERVE_C1 = (8, 4)
+SERVE_C4 = 16
+SERVE_WINDOW_MS = 2
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu)
 # and bf16 K2 (csrc/levit_attention_tc.cu): phase 1 fails if one is missing
@@ -3863,20 +3899,21 @@ def c_masks(ctypes, n: int, size: int):
     return bufs, [ctypes.addressof(b) for b in bufs]
 
 
-def same_bytes(np, buf, image, label) -> None:
+def same_bytes(np, buf, image, label, phase: int = 14) -> None:
     want = np.ascontiguousarray(image.pixels).tobytes()
     if bytes(buf) != want:
         got = np.frombuffer(buf, np.uint8)
-        fail(f"phase 14 {label}: the bridge's buffer differs from the direct "
-             f"call's mask in {int((got != np.frombuffer(want, np.uint8)).sum())}"
-             f" of {len(want)} bytes")
+        fail(f"phase {phase} {label}: the caller's buffer differs from the "
+             f"direct call's mask in "
+             f"{int((got != np.frombuffer(want, np.uint8)).sum())} of "
+             f"{len(want)} bytes")
 
 
-def same_accuracies(acc, masks, label) -> None:
+def same_accuracies(acc, masks, label, phase: int = 14) -> None:
     err = max(abs(acc[i] - m.accuracy) for i, m in enumerate(masks))
     if not err <= 1e-6:
-        fail(f"phase 14 {label}: accuracies differ from the direct call's by "
-             f"{err} (limit 1e-6)")
+        fail(f"phase {phase} {label}: accuracies differ from the direct call's "
+             f"by {err} (limit 1e-6)")
 
 
 def counted(torch, counters, zero_counters, fn):
@@ -3888,12 +3925,12 @@ def counted(torch, counters, zero_counters, fn):
     return out, counters()
 
 
-def expect_launches(counts, want, label) -> None:
+def expect_launches(counts, want, label, phase: int = 14) -> None:
     expect = {k: want.get(k, 0) for k in counts}
     if counts != expect:
-        fail(f"phase 14 {label}: kernel launches {counts} != {expect}")
-    print(f"phase 14 {label}: launches {({k: v for k, v in counts.items() if v})}"
-          f" exactly", flush=True)
+        fail(f"phase {phase} {label}: kernel launches {counts} != {expect}")
+    print(f"phase {phase} {label}: launches "
+          f"{({k: v for k, v in counts.items() if v})} exactly", flush=True)
 
 
 def paired_ms(torch, fa, fb, n: int = 20):
@@ -3947,42 +3984,47 @@ def bridge_process_and_masks(ctypes, nb, env, buf, stride, w, h, code, q):
     return seg, (one, three, acc3, batch, accb)
 
 
-def hold_masks_against_direct(np, dl, direct, q, outs, label) -> None:
-    """The bridge's mask buffers and accuracies (``outs`` of
-    ``bridge_process_and_masks``) against the same queries through the
-    Python API on `direct`: bytes equal, accuracies within 1e-6."""
+def hold_masks_against_direct(np, dl, direct, q, outs, label,
+                              phase: int = 14) -> None:
+    """The mask buffers and accuracies the bridge (phase 14) or the C
+    library (phase 15) filled (``outs`` as ``bridge_process_and_masks``
+    returns them) against the same queries through the Python API on
+    `direct`: bytes equal, accuracies within 1e-6."""
     point, region, point3, flat, is_region = q
     one, three, acc3, batch, accb = outs
     same_bytes(np, one[0], direct.compute_mask(dl.Point(*point)),
-               f"{label} point")
+               f"{label} point", phase)
     same_bytes(np, one[1], direct.compute_mask(dl.Region(
-        dl.Point(*region[:2]), dl.Point(*region[2:]))), f"{label} region")
+        dl.Point(*region[:2]), dl.Point(*region[2:]))), f"{label} region",
+        phase)
     masks = direct.compute_masks(dl.Point(*point3))
     for i, m in enumerate(masks):
-        same_bytes(np, three[i], m.image, f"{label} mask {i} of three")
-    same_accuracies(acc3, masks, f"{label} three masks")
+        same_bytes(np, three[i], m.image, f"{label} mask {i} of three", phase)
+    same_accuracies(acc3, masks, f"{label} three masks", phase)
     prompts = [dl.Region(dl.Point(*flat[4 * i:4 * i + 2]),
                          dl.Point(*flat[4 * i + 2:4 * i + 4]))
                if is_region[i] else dl.Point(*flat[4 * i:4 * i + 2])
                for i in range(BRIDGE_BATCH)]
     masks = direct.compute_mask_batch(prompts)
     for i, m in enumerate(masks):
-        same_bytes(np, batch[i], m.image, f"{label} batch mask {i}")
-    same_accuracies(accb, masks, f"{label} batch")
+        same_bytes(np, batch[i], m.image, f"{label} batch mask {i}", phase)
+    same_accuracies(accb, masks, f"{label} batch", phase)
     shares = [round(float(np.frombuffer(b, np.uint8).mean() / 255), 3)
               for b in one + three]
-    print(f"phase 14 {label}: embedding, 2 + 3 + {BRIDGE_BATCH} masks and "
+    print(f"phase {phase} {label}: 2 + 3 + {BRIDGE_BATCH} masks and "
           f"accuracies equal to the direct calls' (foreground shares "
           f"{shares})", flush=True)
 
 
-def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root):
+def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root,
+                 model_dir):
     """Phase 14, the C ABI's bridge (native_bridge.py) on cuda:0 at full
     width, every call with ctypes buffers exactly as native/src/capi.cpp
     passes them: a full-width official-layout MobileSAM checkpoint
     (tests/_torch_official_sd.py, from the port's seeded tree) saved with
     torch.save and converted by ``python -m
-    dlimgedit_tpu_torch.convert.mobile_sam`` into the model directory;
+    dlimgedit_tpu_torch.convert.mobile_sam`` into `model_dir` (phase 15
+    serves it again);
     ``create_environment(1, dir)`` with DLIMG_ALLOW_RANDOM_WEIGHTS=0 must
     serve exactly what the converter wrote. MobileSAM at 1024:
     `process` of BRIDGE_IMAGES, a point and a region mask, the three
@@ -3998,7 +4040,6 @@ def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root):
     one greedy_nms a `generate_masks`, none for BiRefNet). Prints the
     converter's seconds and the bridge's wall against the direct call's."""
     import ctypes
-    import tempfile
 
     from dlimgedit_tpu_torch import native_bridge as nb
     from dlimgedit_tpu_torch.convert import mobile_sam as conv
@@ -4015,10 +4056,8 @@ def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root):
 
     t0 = time.perf_counter()
     saved = {k: os.environ.get(k) for k in BRIDGE_VARS}
-    tmp = tempfile.TemporaryDirectory()
     try:
-        model_dir = Path(tmp.name)
-        (model_dir / "segmentation").mkdir()
+        (model_dir / "segmentation").mkdir(parents=True)
         # -- the converted bundle ------------------------------------------
         tree = numpy_from_params(sam_lib.init_sam(
             torch.Generator().manual_seed(0), sam_lib.make_config("mobile_sam")))
@@ -4228,13 +4267,651 @@ def drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root):
         print("phase 14 save_image / load_image: PNG bytes equal to "
               "Image.save's, pixels read back", flush=True)
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        tmp.cleanup()
+        restore_vars(saved)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def restore_vars(saved) -> None:
+    """Put the environment variables back as `saved` holds them."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def foreign_modules() -> list:
+    """jax and the JAX package, where this process imported them."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "dlimgedit_tpu"))
+
+
+def compute_apps() -> list:
+    """The PIDs nvidia-smi lists as compute processes on the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()
+
+
+class Daemon:
+    """The port's dlimg-serve as a process of its own, its output drained
+    by a thread (a full pipe would block the embedded interpreter while it
+    holds the GIL) and kept for a failure's message."""
+
+    def __init__(self, exe, args, apps_before):
+        """Start it; `apps_before` are the card's compute processes before
+        it (``compute_apps``)."""
+        self.apps_before = apps_before
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([str(exe), "--port", "0", *args],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+
+    def wait_listening(self) -> None:
+        """Read its output up to the line with the port it listens on."""
+        while True:
+            line = self.proc.stdout.readline()
+            if not line:
+                fail(f"phase 15: dlimg-serve exited before it listened "
+                     f"(exit {self.proc.wait()}): {''.join(self.lines)[-3000:]}")
+            self.lines.append(line)
+            if "listening on" in line:
+                break
+            if time.perf_counter() - self.t0 > 300:
+                self.stop()
+                fail("phase 15: dlimg-serve did not listen within 300 s")
+        self.start_s = time.perf_counter() - self.t0
+        self.port = int(line.split(":")[-1].split()[0])
+        import threading
+
+        self.drain = threading.Thread(target=self._drain, daemon=True)
+        self.drain.start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    def request(self, method, path, data=None):
+        """-> (status, body, wall ms)."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{self.port}{path}",
+                                     data=data, method=method)
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, body = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read()
+        return status, body, (time.perf_counter() - t) * 1e3
+
+    def ok(self, method, path, data=None):
+        status, body, ms = self.request(method, path, data)
+        if status not in (200, 204):
+            self.stop()
+            fail(f"phase 15: {method} {path}: HTTP {status} {body[:500]!r}; "
+                 f"dlimg-serve said: {''.join(self.lines)[-2000:]}")
+        return body, ms
+
+    def stop(self) -> int:
+        """SIGTERM, then the exit code (killed after 60 s)."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+                return -9
+        return self.proc.returncode
+
+
+def timed_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def png_bytes(arr) -> bytes:
+    from PIL import Image as PILImage
+
+    buf = io.BytesIO()
+    PILImage.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def png_pixels(np, data: bytes):
+    from PIL import Image as PILImage
+
+    return np.asarray(PILImage.open(io.BytesIO(data)))
+
+
+def served_equal(np, data: bytes, image, label) -> None:
+    """A PNG the daemon served, decoded, against a direct call's mask."""
+    got = png_pixels(np, data)
+    want = np.ascontiguousarray(image.pixels).reshape(got.shape)
+    if not np.array_equal(got, want):
+        fail(f"phase 15 {label}: the served mask differs from the direct "
+             f"call's in {int((got != want).sum())} of {got.size} pixels")
+
+
+def library_calls(ctypes, np, api, handle, buf, stride, w, h, code, q):
+    """`process` of a caller's buffer and the mask entries on it, all
+    through the C library's table: -> (the segmentation handle, outputs
+    as ``bridge_process_and_masks`` returns them)."""
+    from dlimgedit_tpu_torch.native_build import DlimgImageView
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    point, region, point3, flat, is_region = q
+    n = w * h
+
+    def ok(rc, what):
+        if rc != 0:
+            fail(f"phase 15 {what}: rc {rc}: {api.last_error().decode()}")
+
+    def ptrs(bufs, slots=None):
+        p = [ctypes.cast(b, u8p) for b in bufs]
+        return (u8p * (slots or len(p)))(*p)
+
+    view = DlimgImageView(width=w, height=h, channels=code, stride=stride,
+                          pixels=ctypes.cast(buf, u8p))
+    seg = ctypes.c_void_p()
+    ok(api.process_image_for_segmentation(ctypes.byref(seg),
+                                          ctypes.byref(view), handle),
+       "process")
+    one, _ = c_masks(ctypes, 2, n)
+    ok(api.get_segmentation_mask(seg, (ctypes.c_int * 2)(*point), None,
+                                 ptrs(one[:1], 3), None), "point mask")
+    ok(api.get_segmentation_mask(seg, None, (ctypes.c_int * 4)(*region),
+                                 ptrs(one[1:], 3), None), "region mask")
+    three, _ = c_masks(ctypes, 3, n)
+    acc3 = (ctypes.c_float * 3)()
+    ok(api.get_segmentation_mask(seg, (ctypes.c_int * 2)(*point3), None,
+                                 ptrs(three), acc3), "three masks")
+    batch, _ = c_masks(ctypes, BRIDGE_BATCH, n)
+    accb = (ctypes.c_float * BRIDGE_BATCH)()
+    ok(api.compute_mask_batch(seg, (ctypes.c_int * len(flat))(*flat),
+                              (ctypes.c_int * BRIDGE_BATCH)(*is_region),
+                              BRIDGE_BATCH, ptrs(batch), accb), "batch")
+    return seg, (one, three, acc3, batch, accb)
+
+
+class Host:
+    """A C host as a process of its own, started from the directory that
+    holds `model_dir` (test_cpp_api's ./models); a thread waits for it,
+    so its seconds are its own."""
+
+    def __init__(self, cmd, model_dir):
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=model_dir.parent,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     env={**os.environ,
+                                          "TMPDIR": str(model_dir)})
+        self.out = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        self.out = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+
+    def result(self):
+        """-> (exit code, stdout, stderr, seconds), once it has ended."""
+        self.waiter.join(timeout=600)
+        if self.out is None:
+            self.proc.kill()
+            fail(f"phase 15: {self.proc.args[0]} ran over 600 s")
+        return self.proc.returncode, *self.out, self.seconds
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+
+
+def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
+                  model_dir):
+    """Phase 15, the C hosts through the port's own C library on cuda:0
+    (the module docstring's item 15)."""
+    import ctypes
+
+    from dlimgedit_tpu_torch import native_bridge as nb
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.convert.from_numpy import numpy_from_params
+    from dlimgedit_tpu_torch.models import birefnet as bn
+    from dlimgedit_tpu_torch.utils.pytree_io import save_pytree
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in BRIDGE_VARS}
+    running, daemon = {}, None
+    try:
+        # -- 1. the build ------------------------------------------------------
+        t = time.perf_counter()
+        build = native_build.build()
+        print(f"phase 15 native build: {time.perf_counter() - t:.2f} s "
+              f"({'built' if build.seconds is not None else 'found built'}), "
+              f"compiler {build.compiler}, codecs "
+              f"{list(build.codecs) or 'none: PNG through the bridge (Pillow)'}"
+              f" -> {build.directory}", flush=True)
+        # BiRefNet_lite general, seeded nonzero offsets, as a bundle file.
+        t = time.perf_counter()
+        save_pytree(model_dir / "segmentation" / "birefnet_general.npz",
+                    numpy_from_params(seeded_birefnet(
+                        bn, torch, bn.BiRefNetConfig(img_size=1024))))
+        print(f"phase 15: BiRefNet_lite general bundle written in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        os.environ.update({"DLIMG_ALLOW_RANDOM_WEIGHTS": "0",
+                           "DLIMG_SAM_IMAGE_SIZE": "1024",
+                           "DLIMG_COMPUTE_DTYPE": "bfloat16",
+                           "DLIMG_AMG_GRID": str(BRIDGE_AMG_GRID)})
+        for k in ("DLIMG_SAM_VARIANT", "DLIMG_COMPILATION_CACHE",
+                  "DLIMG_SCALEOUT_DEVICES", "DLIMG_BIREFNET_TEST_SLIM",
+                  "DLIMG_BIREFNET_RESOLUTION"):
+            os.environ.pop(k, None)
+
+        # The C hosts that are processes of their own start now, each a fresh
+        # interpreter importing torch (~8 s): dlimg segment, the C++ tests
+        # and the daemon run alongside the in-process checks below, and
+        # are done or idle before anything is timed.
+        apps_before = compute_apps()
+        w, h, _, _, seed = BRIDGE_IMAGES[0]
+        cli_in = rgba(np, h, w, seed)
+        (model_dir / "cli.png").write_bytes(png_bytes(cli_in))
+        cli_point = (w // 3, h // 2)
+        hosts = {
+            "dlimg segment --backend gpu": [
+                str(build.executable("dlimg")), "segment",
+                str(model_dir / "cli.png"), "--backend", "gpu", "--models",
+                str(model_dir), "--point", f"{cli_point[0]},{cli_point[1]}",
+                "-o", str(model_dir / "cli_mask.png"), "--time"],
+            "test_cpp_api gpu": [str(build.executable("test_cpp_api")), "gpu"],
+            "test_cpp_dynamic": [str(build.executable("test_cpp_dynamic")),
+                                 str(build.library)]}
+        running = {name: Host(cmd, model_dir) for name, cmd in hosts.items()}
+        daemon = Daemon(build.executable("dlimg-serve"), [
+            "--backend", "gpu", "--models", str(model_dir), "--threads", "4",
+            "--batch-window-ms", str(SERVE_WINDOW_MS)], apps_before)
+
+        # -- 2. the library in this interpreter --------------------------------
+        if foreign_modules():
+            fail(f"phase 15: imported before the library: {foreign_modules()}")
+        api = native_build.load_api(build.library)
+        if api.is_backend_supported(1) != 1:
+            fail(f"phase 15: the library reports no backend 1: "
+                 f"{api.last_error().decode()}")
+        handle = ctypes.c_void_p()
+        opts = native_build.DlimgOptions(backend=1,
+                                         model_directory=str(model_dir).encode())
+        if api.create_environment(ctypes.byref(handle), ctypes.byref(opts)):
+            fail(f"phase 15 create_environment: {api.last_error().decode()}")
+        denv = nb.create_environment(1, str(model_dir))  # the direct calls'
+        rng = np.random.default_rng(15)
+        runs = []
+        for w, h, code, pad, seed in BRIDGE_IMAGES:
+            nch = 4 if code in (5, 6) else code
+            arr = rgba(np, h, w, seed)[:, :, :nch]
+            buf, stride = c_pixels(ctypes, np, arr, pad)
+            q = bridge_queries(np, rng, w, h)
+            label = f"library MobileSAM {w}x{h} code {code} stride {stride}"
+            (seg, outs), counts = counted(
+                torch, counters, zero_counters,
+                lambda: library_calls(ctypes, np, api, handle, buf, stride, w,
+                                      h, code, q))
+            expect_launches(counts, {"fused_layer_norm": LN_PER_PROCESS,
+                                     "levit_window_attention": ATTN_PER_PROCESS},
+                            f"{label}: process, 2 + 3 + {BRIDGE_BATCH} masks",
+                            15)
+            extent = (ctypes.c_int * 2)()
+            api.get_segmentation_extent(seg, extent)
+            if (extent[0], extent[1]) != (w, h):
+                fail(f"phase 15 {label}: extent {tuple(extent)}")
+            img = dl.Image(dl.Extent(w, h), {4: dl.Channels.rgba,
+                                             5: dl.Channels.bgra}[code],
+                           np.ascontiguousarray(arr))
+            direct = dl.Segmentation.process(img, denv)
+            hold_masks_against_direct(np, dl, direct, q, outs, label, 15)
+            runs.append((w, h, code, buf, stride, img, seg, direct, q[0]))
+
+        w, h, code, buf, stride, img, seg, direct, point = runs[0]
+        iou, stab, nms, slots = BRIDGE_AMG
+        gen, _ = c_masks(ctypes, slots, w * h)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        accg = (ctypes.c_float * slots)()
+        count = ctypes.c_int(-1)
+
+        def generate():
+            if api.generate_masks(seg, (ctypes.c_float * 3)(iou, stab, nms),
+                                  slots, (u8p * slots)(*[
+                                      ctypes.cast(b, u8p) for b in gen]),
+                                  accg, ctypes.byref(count)):
+                fail(f"phase 15 generate_masks: {api.last_error().decode()}")
+
+        _, counts = counted(torch, counters, zero_counters, generate)
+        expect_launches(counts, {"greedy_nms": 1},
+                        f"library generate_masks grid {BRIDGE_AMG_GRID}", 15)
+        masks = direct.generate_masks(grid=BRIDGE_AMG_GRID, max_masks=slots,
+                                      iou_thresh=iou, stability_thresh=stab,
+                                      nms_thresh=nms)
+        if count.value != len(masks) or count.value < 1:
+            fail(f"phase 15 generate_masks: {count.value} masks through the "
+                 f"library, {len(masks)} direct")
+        for i, m in enumerate(masks):
+            same_bytes(np, gen[i], m.image, f"generated mask {i}", 15)
+        same_accuracies(accg, masks, "generate_masks", 15)
+
+        view = native_build.DlimgImageView(width=w, height=h, channels=code,
+                                           stride=stride,
+                                           pixels=ctypes.cast(buf, u8p))
+        obj, _ = c_masks(ctypes, 1, w * h)
+
+        def segment_objects():
+            if api.segment_objects(ctypes.byref(view),
+                                   ctypes.cast(obj[0], u8p), handle):
+                fail(f"phase 15 segment_objects: {api.last_error().decode()}")
+
+        _, counts = counted(torch, counters, zero_counters, segment_objects)
+        expect_launches(counts, {}, f"library segment_objects {w}x{h}", 15)
+        same_bytes(np, obj[0], dl.segment_objects(img, denv),
+                   "segment_objects", 15)
+        print(f"phase 15 library: generate_masks ({count.value} masks) and "
+              f"segment_objects (BiRefNet_lite general) equal to the direct "
+              f"calls'", flush=True)
+
+        png_route = ("native libpng" if "libpng" in build.codecs
+                     else "the bridge (Pillow)")
+        arr = rgba(np, 120, 160, 5)[:, :, :3]
+        pbuf, pstride = c_pixels(ctypes, np, arr, 40)
+        mine, theirs = model_dir / "library.png", model_dir / "direct.png"
+        pview = native_build.DlimgImageView(width=160, height=120, channels=3,
+                                            stride=pstride,
+                                            pixels=ctypes.cast(pbuf, u8p))
+        if api.save_image(ctypes.byref(pview), str(mine).encode()):
+            fail(f"phase 15 save_image: {api.last_error().decode()}")
+        dl.Image(dl.Extent(160, 120), dl.Channels.rgb, arr).save(str(theirs))
+        if "libpng" not in build.codecs and (
+                mine.read_bytes() != theirs.read_bytes()):
+            fail("phase 15 save_image: the file differs from Image.save's")
+        ext, ch, px = (ctypes.c_int * 2)(), ctypes.c_int(), u8p()
+        if api.load_image(str(mine).encode(), ext, ctypes.byref(ch),
+                          ctypes.byref(px)):
+            fail(f"phase 15 load_image: {api.last_error().decode()}")
+        got = ctypes.string_at(px, 160 * 120 * 3)
+        api.destroy_image(px)
+        if (ext[0], ext[1], ch.value) != (160, 120, 3) or got != arr.tobytes():
+            fail("phase 15 load_image: not the saved pixels")
+        print(f"phase 15 library save_image / load_image of a PNG through "
+              f"{png_route}: pixels read back"
+              f"{'' if 'libpng' in build.codecs else ', bytes equal to Image.save'}",
+              flush=True)
+
+        # -- 4. dlimg segment, test_cpp_api, test_cpp_dynamic, finished ----------
+        for name, host in running.items():
+            rc, out, err, took = host.result()
+            if rc != 0:
+                fail(f"phase 15 {name}: exit {rc}: {out[-1000:]} {err[-2000:]}")
+            phases = " ".join(line.strip() for line in err.splitlines()
+                              if line.startswith("[dlimg]"))
+            print(f"phase 15 {name}: exit 0 in {took:.1f} s, alongside the "
+                  f"library's checks ({out.strip()}"
+                  f"{'; ' + phases if phases else ''})", flush=True)
+        cli_seg = dl.Segmentation.process(dl.Image(
+            dl.Extent(cli_in.shape[1], cli_in.shape[0]), dl.Channels.rgba,
+            cli_in), denv)
+        served_equal(np, (model_dir / "cli_mask.png").read_bytes(),
+                     cli_seg.compute_mask(dl.Point(*cli_point)),
+                     "dlimg segment")
+        print("phase 15 dlimg segment: its mask file equal to the direct "
+              "call's", flush=True)
+        daemon.wait_listening()
+
+        pacc = (ctypes.c_float * 3)()
+        one, _ = c_masks(ctypes, 1, w * h)
+        slot = (u8p * 3)(ctypes.cast(one[0], u8p), None, None)
+        pview = native_build.DlimgImageView(width=w, height=h, channels=code,
+                                            stride=stride,
+                                            pixels=ctypes.cast(buf, u8p))
+
+        def library_process():
+            s = ctypes.c_void_p()
+            if api.process_image_for_segmentation(ctypes.byref(s),
+                                                  ctypes.byref(pview), handle):
+                fail(f"phase 15 process: {api.last_error().decode()}")
+            api.destroy_segmentation(s)
+
+        process_ms = paired_ms(torch, library_process,
+                               lambda: dl.Segmentation.process(img, denv))
+        mask_ms = paired_ms(
+            torch, lambda: api.get_segmentation_mask(
+                seg, (ctypes.c_int * 2)(*point), None, slot, pacc),
+            lambda: direct.compute_mask(dl.Point(*point)))
+        print(f"e2e C library MobileSAM {w}x{h} on {gpu_line}: process_ms "
+              f"library={process_ms[0]:.3f} direct={process_ms[1]:.3f}; "
+              f"mask_ms library={mask_ms[0]:.3f} direct={mask_ms[1]:.3f} "
+              f"(medians of 20, the two calls interleaved; the library wraps "
+              f"the caller's pointer into the bridge and copies the mask into "
+              f"its buffer)", flush=True)
+        for r in runs:
+            api.destroy_segmentation(r[6])
+        api.destroy_environment(handle)
+        if foreign_modules():
+            fail(f"phase 15: imported after the library: {foreign_modules()}")
+        del runs, seg, direct
+        torch.cuda.empty_cache()
+
+        # -- 3. dlimg-serve -----------------------------------------------------
+        try:
+            drive_daemon(np, dl, denv, daemon, gpu_line)
+        finally:
+            code_ = daemon.stop()
+        if code_ != 0:
+            fail(f"phase 15: dlimg-serve answered SIGTERM with exit {code_}: "
+                 f"{''.join(daemon.lines)[-2000:]}")
+        print(f"phase 15 dlimg-serve: sessions deleted, SIGTERM answered with "
+              f"exit 0; compute processes on the card after it: "
+              f"{compute_apps()}", flush=True)
+
+        del denv
+        torch.cuda.empty_cache()
+    finally:
+        for host in running.values():
+            host.kill()
+        if daemon is not None:
+            daemon.stop()
+        restore_vars(saved)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def drive_daemon(np, dl, denv, daemon, gpu_line):
+    """Phase 15's dlimg-serve on cuda:0 against the direct calls on
+    `denv` (an Environment of the daemon's options)."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    print(f"phase 15 dlimg-serve: listening {daemon.start_s:.1f} s after its "
+          f"start (interpreter, torch, the Environment; it started alongside "
+          f"the library's checks), PID {daemon.proc.pid}", flush=True)
+    info = json.loads(daemon.ok("GET", "/v1/info")[0])
+    if (info.get("backend"), info.get("mode")) != ("gpu",
+                                                   "embedded-python-pytorch"):
+        fail(f"phase 15 /v1/info: {info}")
+    images, directs = [], []
+    for w, h, code, _, seed in BRIDGE_IMAGES:
+        arr = rgba(np, h, w, seed)  # RGBA; phase 14's BGRA buffer holds these
+        images.append((w, h, arr, png_bytes(arr)))
+        directs.append(dl.Segmentation.process(
+            dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr), denv))
+    # The first two requests open both sessions at once: the daemon's first
+    # process calls, with their warm-ups and captures, run in parallel.
+    with ThreadPoolExecutor(2) as pool:
+        opened = list(pool.map(lambda im: daemon.ok("POST", "/v1/sessions",
+                                                     im[3]), images))
+    sids = []
+    for (w, h, _, _), (body, ms) in zip(images, opened):
+        meta = json.loads(body)
+        if (meta["width"], meta["height"]) != (w, h):
+            fail(f"phase 15 /v1/sessions: {meta}")
+        sids.append(meta["id"])
+    times = {"sessions (first, 2 at once)": [ms for _, ms in opened]}
+    apps = compute_apps()
+    if str(daemon.proc.pid) in apps:
+        print(f"phase 15 dlimg-serve: PID {daemon.proc.pid} among the card's "
+              f"compute processes {apps}", flush=True)
+    elif len(apps) == len(daemon.apps_before) + 1:
+        # nvidia-smi reports PIDs of another PID namespace (a container):
+        # the daemon shows as one more compute process on the card.
+        print(f"phase 15 dlimg-serve: one more compute process on the card "
+              f"while it serves ({daemon.apps_before} -> {apps}; nvidia-smi "
+              f"reports PIDs outside this PID namespace)", flush=True)
+    else:
+        fail(f"phase 15: dlimg-serve (PID {daemon.proc.pid}) is not on the "
+             f"card: compute processes {daemon.apps_before} before it "
+             f"started, {apps} while it serves")
+    for im in images:  # a session once the embeddings' graphs exist
+        body, ms = daemon.ok("POST", "/v1/sessions", im[3])
+        sids.append(json.loads(body)["id"])
+        times.setdefault("sessions (again)", []).append(ms)
+
+    (w, h, _, png), direct = images[0], directs[0]
+    rng = np.random.default_rng(151)
+
+    def point():
+        return int(rng.integers(0, w)), int(rng.integers(0, h))
+
+    def box():
+        x0, x1 = sorted(int(v) for v in rng.integers(0, w, 2))
+        y0, y1 = sorted(int(v) for v in rng.integers(0, h, 2))
+        return x0, y0, x1 + 1, y1 + 1
+
+    def query(v):
+        q = (f"box={v[0]},{v[1]},{v[2]},{v[3]}" if len(v) == 4
+             else f"point={v[0]},{v[1]}")
+        return daemon.ok("POST", f"/v1/sessions/{sids[0]}/mask?{q}")
+
+    def prompt(v):
+        return (dl.Region(dl.Point(*v[:2]), dl.Point(*v[2:])) if len(v) == 4
+                else dl.Point(*v))
+
+    def batched(v, n):
+        return direct.compute_mask_batch([prompt(v)] * n)[0].image
+
+    n_points, n_boxes = SERVE_C1
+    c1 = [point() for _ in range(n_points)] + [box() for _ in range(n_boxes)]
+    c1_ms = {"point": [], "box": []}
+    for v in c1:  # the batch window's single prompts: batches of 1
+        body, ms = query(v)
+        served_equal(np, body, batched(v, 1), f"concurrency 1 {v}")
+        c1_ms["box" if len(v) == 4 else "point"].append(ms)
+    times["mask point, concurrency 1"] = c1_ms["point"]
+    times["mask box, concurrency 1"] = c1_ms["box"]
+    stats0 = json.loads(daemon.ok("GET", "/v1/stats")[0])
+    c4 = [point() for _ in range(SERVE_C4)]
+    with ThreadPoolExecutor(4) as pool:
+        served = list(pool.map(query, c4))
+    sizes, same_across = {1: 0, 2: 0, 4: 0}, 0
+    for v, (body, _) in zip(c4, served):
+        got = png_pixels(np, body)
+        refs = {n: np.ascontiguousarray(batched(v, n).pixels).reshape(got.shape)
+                for n in sizes}
+        hit = [n for n, ref in refs.items() if np.array_equal(got, ref)]
+        if not hit:
+            fail(f"phase 15 concurrency 4 {v}: the served mask equals none "
+                 f"of the prompt's batches of 1, 2 and 4")
+        sizes[hit[0]] += 1
+        same_across += all(np.array_equal(refs[1], r) for r in refs.values())
+    times["mask point, concurrency 4"] = [ms for _, ms in served]
+    stats = json.loads(daemon.ok("GET", "/v1/stats")[0])
+    calls = stats["batched_calls"] - stats0["batched_calls"]
+    if not calls > 0 or stats["batched_prompts"] - stats0["batched_prompts"] \
+            != SERVE_C4:
+        fail(f"phase 15 concurrency 4: batched_calls {calls}, stats {stats}")
+    print(f"phase 15 dlimg-serve: {n_points} point and {n_boxes} box masks at "
+          f"concurrency 1 equal to the direct batch of 1; {SERVE_C4} at "
+          f"concurrency 4 in {calls} batched calls (largest batch so far "
+          f"{stats['largest_batch']}), each equal to a direct batch "
+          f"(first match by batch size {sizes}; the batches of 1, 2 and 4 "
+          f"agree bit for bit for {same_across} of {SERVE_C4} prompts)",
+          flush=True)
+
+    (wb, hb, _, png_b), direct_b = images[1], directs[1]
+    pb = (wb // 3, hb // 3)
+    body, ms = daemon.ok("POST", f"/v1/sessions/{sids[1]}/mask?point="
+                                 f"{pb[0]},{pb[1]}&all=1")
+    times["mask all=1"] = [ms]
+    served3 = json.loads(body)["masks"]
+    want = direct_b.compute_masks(dl.Point(*pb))
+    for i, (s, m) in enumerate(zip(served3, want)):
+        served_equal(np, base64.b64decode(s["png_base64"]), m.image,
+                     f"all=1 mask {i}")
+        if not abs(s["accuracy"] - m.accuracy) <= 5e-5:  # printed as %.4f
+            fail(f"phase 15 all=1: accuracy {s['accuracy']} != {m.accuracy}")
+    if len(served3) != 3:
+        fail(f"phase 15 all=1: {len(served3)} masks")
+    iou, stab, nms, slots = BRIDGE_AMG
+    want = direct.generate_masks(grid=BRIDGE_AMG_GRID, max_masks=slots,
+                                 iou_thresh=iou, stability_thresh=stab,
+                                 nms_thresh=nms)
+    times["auto-masks"], times["segment"], times["remove-bg"] = [], [], []
+    seg_point = (w // 2, h // 3)
+    want_seg = direct.compute_mask(dl.Point(*seg_point))
+    want_obj = dl.segment_objects(
+        dl.Image(dl.Extent(w, h), dl.Channels.rgba, images[0][2]), denv)
+    body, ms = daemon.ok("POST", f"/v1/sessions/{sids[0]}/auto-masks?"
+                                 f"iou={iou}&stability={stab}&nms={nms}"
+                                 f"&max={slots}")
+    times["auto-masks"].append(ms)
+    auto = json.loads(body)["masks"]
+    if len(auto) != len(want):
+        fail(f"phase 15 /auto-masks: {len(auto)} masks, {len(want)} direct")
+    for i, (s, m) in enumerate(zip(auto, want)):
+        served_equal(np, base64.b64decode(s["png_base64"]), m.image,
+                     f"/auto-masks mask {i}")
+    for _ in range(2):
+        body, ms = daemon.ok("POST", f"/v1/segment?point={seg_point[0]},"
+                                     f"{seg_point[1]}", png)
+        times["segment"].append(ms)
+        served_equal(np, body, want_seg, "/v1/segment")
+        body, ms = daemon.ok("POST", "/v1/remove-bg", png)
+        times["remove-bg"].append(ms)
+        served_equal(np, body, want_obj, "/v1/remove-bg")
+    print(f"phase 15 dlimg-serve: all=1 (3 masks), /auto-masks ({len(want)} "
+          f"masks, grid {BRIDGE_AMG_GRID}), /v1/segment and /v1/remove-bg "
+          f"(BiRefNet_lite general, twice each) equal to the direct calls'",
+          flush=True)
+    # The host's share: Pillow's PNG codec in this process on this host
+    # (the card's machine has no libpng, so the daemon's PNGs go through
+    # Pillow too), on a served mask and on the session image.
+    from PIL import Image as PILImage
+
+    mask_px = np.ascontiguousarray(want_seg.pixels).reshape(h, w)
+    encode = statistics.median(timed_ms(lambda: PILImage.fromarray(
+        mask_px, mode="L").save(io.BytesIO(), format="PNG")) for _ in range(5))
+    decode = statistics.median(timed_ms(lambda: png_pixels(np, png))
+                               for _ in range(5))
+    print(f"phase 15 host PNG codec (Pillow, this process, medians of 5): "
+          f"encode of the /v1/segment mask {encode:.1f} ms "
+          f"({len(png_bytes(mask_px))} bytes), decode of the session image "
+          f"{decode:.1f} ms ({len(png)} bytes)", flush=True)
+    summary = "; ".join(
+        f"{k} " + (" and ".join(f"{ms:.1f}" for ms in v) + " ms" if len(v) <= 2
+                   else f"first {v[0]:.1f} ms, then median "
+                        f"{statistics.median(v[1:]):.1f} of {len(v) - 1}")
+        for k, v in times.items())
+    print(f"e2e dlimg-serve MobileSAM {w}x{h} (masks) on {gpu_line}, HTTP "
+          f"walls seen from this process (image bytes in, PNG out, "
+          f"--batch-window-ms {SERVE_WINDOW_MS}): {summary}", flush=True)
+    print(f"phase 15 /v1/stats: {daemon.ok('GET', '/v1/stats')[0].decode()}",
+          flush=True)
+    for sid in sids:
+        daemon.ok("DELETE", f"/v1/sessions/{sid}")
+        if daemon.request("POST", f"/v1/sessions/{sid}/mask?point=1,1")[0] \
+                != 404:
+            fail(f"phase 15: session {sid} still answers after DELETE")
 
 
 def seeded_birefnet(bn, torch, cfg):
@@ -4487,7 +5164,13 @@ def main() -> int:
         launches[name] += n
 
     # -- 14. the C ABI's bridge and a converted bundle --------------------
-    drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root)
+    # -- 15. the C hosts: the port's library, dlimg-serve, dlimg ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = Path(tmp) / "models"
+        drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root,
+                     model_dir)
+        drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
+                      model_dir)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -2,21 +2,22 @@
 dlimgedit_tpu/native_bridge.py, with its eleven functions under the same
 names and signatures).
 
-The C library (native/src/capi.cpp) embeds CPython and calls these
-functions positionally with raw pointers as Python ints; this module does
-the numpy marshalling, so the C side stays free of the numpy C API. A point
-arrives as ``(x, y)``, a region as ``(x0, y0, x1, y1)``, a list of output
-pointers as a list of ints. Pixel buffers are wrapped zero-copy with
+The port's C library (dlimgedit_tpu_torch/native/src/capi.cpp, built by
+native_build.py) embeds CPython, imports this module by its name, and
+calls these functions positionally with raw pointers as Python ints; this
+module does the numpy marshalling, so the C side stays free of the numpy
+C API. A point arrives as ``(x, y)``, a region as ``(x0, y0, x1, y1)``, a
+list of output pointers as a list of ints. Pixel buffers are wrapped zero-copy with
 ctypes: the view lives only as long as the call (the port packs it into a
 canvas of its own before it returns, so a caller may free its pixels as
 soon as ``process`` returns). Masks are copied into the caller-owned
 ``width * height`` byte buffers, accuracies into its float buffers.
 
-The C library imports its bridge by the name ``dlimgedit_tpu.native_bridge``
-(native/src/capi.cpp), so a library built from that source serves the JAX
-package; this module is the port's bridge for a host that imports it
-itself, and it keeps no state of its own (the C library calls it from
-several threads, under the GIL).
+The JAX package's library (native/src/capi.cpp) imports
+``dlimgedit_tpu.native_bridge`` and serves the JAX package; the port's
+copy of it imports this module, with no stand-in module for a C host to
+provide. This module keeps no state of its own (the C library calls it
+from several threads, under the GIL).
 
 Configuration beyond dlimg_Options' two fields (backend, model_directory)
 comes from environment variables, the JAX bridge's:
@@ -31,6 +32,8 @@ comes from environment variables, the JAX bridge's:
                                   off, N = that many)
   DLIMG_AMG_GRID=16             - generate_masks prompt-grid side
                                   (default 32)
+  DLIMG_PJRT_BUNDLE=/path       - the port's C library refuses it: the port
+                                  has no PJRT serving route
 
 Backend 0 is the CPU; backend 1 is ``cuda:0``, and without a CUDA device
 ``create_environment(1, ...)`` raises ``DlimgError``: it never serves on

@@ -10,7 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "dlimgedit_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_official_sd.py",
-    ROOT / "tests" / "_torch_bridge_worker.py"]
+    ROOT / "tests" / "_torch_bridge_worker.py",
+    ROOT / "tests" / "_torch_native_lib_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "dlimgedit_tpu")
 
 
@@ -47,8 +48,9 @@ def test_scan_sees_the_package_and_catches_a_jax_import(tmp_path):
 
 @pytest.mark.parametrize("module", [
     "native_bridge.py", "convert/mobile_sam.py", "convert/hf_sam.py",
-    "convert/birefnet.py"])
+    "convert/birefnet.py", "native_build.py"])
 def test_the_bridge_and_the_converters_are_scanned(module):
-    """The C ABI's bridge and the checkpoint converters are the port's own
-    (the JAX package has modules of the same names)."""
+    """The C ABI's bridge, its build and the checkpoint converters are the
+    port's own (the JAX package has modules of the same names, or a CMake
+    build)."""
     assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES
