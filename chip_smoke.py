@@ -49,9 +49,9 @@ printing its seconds:
      rows); K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
      (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
      row-replicated and per-lane indices, reps 8 and 16), bit for bit;
-     greedy_nms at M = 256, 2304, 9216 and 14400 (the last above what
-     shared memory holds) on seeded overlapping boxes, keep flags bit for
-     bit against the plain row loop and a numpy mirror; then K1's time at
+     greedy_nms (an IoU bitmask kernel, then a one-warp scan, one call) at M = 256, 2304, 9216 and 14400 on seeded overlapping boxes,
+     keep flags bit for bit against the plain row loop and a numpy
+     mirror, each timed; then K1's time at
      each of MobileSAM's shapes, back to back and inside a CUDA graph of
      100 launches (as the graphed main path runs it), beside an empty
      kernel's both ways (the launch floor); P2 and P3 at every (M, K, N)
@@ -118,7 +118,13 @@ printing its seconds:
      prints each path's device memory (max_memory_allocated above what
      was resident before the path). On MobileSAM: `process` A, then B in
      A's canvas bucket, then a click on A: A's embedding and mask must
-     be unchanged;
+     be unchanged; and C5, JAX's contract for `compute_mask_batch`
+     (tests/test_segmentation.py::test_compute_mask_batch_matches_individual)
+     on A: 16 seeded points and boxes (tools/probe_batch_masks.py), every
+     batch size 1-8 with each prompt at every position, each mask
+     byte-equal to `compute_mask` of its prompt, with
+     largest_region_object on and off (each batched prompt is decoded
+     and upsampled at the shapes `compute_mask` uses);
   5. runs the gather probe (dlimgedit_tpu_torch.tools.probe_smem_gather)
      at small reps: K8 against its plain version and torch's gathers from
      device memory, printed;
@@ -283,8 +289,10 @@ printing its seconds:
      concurrency 4 (`batched_calls` above 0), `all=1`, `/auto-masks`,
      `/v1/segment`, `/v1/remove-bg`, every PNG decoded and held byte for
      byte against the direct call the daemon makes (at concurrency 4,
-     against the prompt's batches of 1, 2 and 4: the batch a query rode
-     in is not known), each endpoint's median wall, `/v1/stats`, the
+     where the batch a query rode in is not known, against the prompt's
+     batch of 1 and `compute_mask`, and the prompt's batches of 1, 2, 4
+     and 8 must all equal `compute_mask`: 16 of 16 prompts), each
+     endpoint's median wall, `/v1/stats`, the
      sessions deleted and SIGTERM answered with exit 0; `dlimg segment`
      (its mask file equal to the direct call's), `test_cpp_api gpu` and
      `test_cpp_dynamic` exiting 0.
@@ -507,7 +515,7 @@ AMG_CONFIGS = (("nms 0.7", dict(nms_thresh=0.7)),
                ("nms 1.0, min_mask_region_area 1000",
                 dict(nms_thresh=1.0, min_mask_region_area=1000)))
 # The greedy NMS kernel against its plain version (M: 256, the main path's
-# 2304, grid 64's 9216, and 14400, above what shared memory holds), and the
+# 2304, grid 64's 9216, and 14400, a 26 MB scratch bitmask), and the
 # float32 operations of one IoU test (max, min x4; sub, add, max x2 each
 # side; mul; add, sub; max; div; compare).
 NMS_SIZES = (256, 2304, 9216, 14400)
@@ -561,12 +569,14 @@ BIREFNET_IMAGES = (("general", 1024, 768, 4), ("general", 1500, 1000, 5),
 # resolution (every Swin stage still pads, the shifted blocks included).
 BIREFNET_F32_RESOLUTION = 256
 
-# The shortest spin kernel run ahead of timed launches (about 20 ms at the
-# H100's clocks; its device time is measured once, in `spin_ms`; longer for
-# a callable that the host takes longer to queue), and how many times a
+# The shortest spin kernel run ahead of timed launches (about 10 ms at the
+# H100's clocks, some 20x what the host takes to queue a sample of 10
+# kernel launches; its device time is measured once, in `spin_ms`; longer
+# for a callable that the host takes longer to queue), and how many times a
 # sample may be taken again when the host took longer than 3/4 of the spin
-# to queue its calls (the host is shared and stalls at times).
-SPIN_CYCLES = 40_000_000
+# to queue its calls (the host is shared and stalls at times). Every
+# sample waits out the spin, so its length is most of phase 2's time.
+SPIN_CYCLES = 20_000_000
 SAMPLE_RETRIES = 10
 # A plain version's time is printed beside the kernel's (it is no
 # yardstick: the kernel is held against the plain version for its values
@@ -598,6 +608,9 @@ BRIDGE_VARS = ("DLIMG_ALLOW_RANDOM_WEIGHTS", "DLIMG_SAM_VARIANT",
 # captures), `/auto-masks` once.
 SERVE_C1 = (8, 4)
 SERVE_C4 = 16
+# The direct batches each concurrency-4 prompt is repeated in: every one
+# must equal compute_mask (C5).
+SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu)
@@ -1269,15 +1282,14 @@ def check_nms_kernel(torch, np, ops):
         boxes, scores = nms_inputs(torch, M, M)
         ms, plain_ms, bytes_ms, ops_ms, kept, tests = nms_numbers(
             torch, np, ops, boxes, scores, thresh)
-        optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-        where = "shared" if M * 17 <= optin else "global"
-        print(f"greedy_nms M={M} (boxes in {where} memory): keep flags equal "
-              f"to the plain version's and numpy's ({kept} kept, {tests} IoU "
-              f"tests) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (the plain "
-              f"loop replayed as a CUDA graph) "
+        print(f"greedy_nms M={M}: keep flags equal to the plain version's "
+              f"and numpy's ({kept} kept, {tests} IoU tests) kernel_ms="
+              f"{ms:.5f} (one call: the IoU bitmask, then the one-warp scan "
+              f"over {-(-M // 64)} row blocks) plain_ms={plain_ms:.5f} (the "
+              f"plain loop replayed as a CUDA graph) "
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; the "
-              f"kernel is latency bound: {kept} dependent rows) "
+              f"scan is latency bound) "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
@@ -1528,6 +1540,31 @@ def check_no_aliasing(torch, np, dl, env, images, segs) -> None:
         fail("aliasing check: A's mask changed after processing B")
     print(f"aliasing check passed: process A, process B in A's bucket, "
           f"click on A", flush=True)
+
+
+def check_batch_contract(torch, dl, probe_masks, env, images) -> None:
+    """Phase 4 on MobileSAM, C5: JAX's contract (tests/test_segmentation.py::
+    test_compute_mask_batch_matches_individual) at the main size. On image
+    A, 16 seeded points and boxes, every batch size 1-8 with each prompt at
+    every position: each `compute_mask_batch` mask byte-equal to
+    `compute_mask` of its prompt, with largest_region_object on (the path's
+    Environment) and off (a second one of the same seeded weights); then
+    every graph of each Environment against its eager program."""
+    t0 = time.perf_counter()
+    for lcc in (True, False):
+        e = env if lcc else dl.Environment(dl.Options(
+            allow_random_weights=True, largest_region_object=False,
+            sam_variant="mobile_sam"))
+        seg = dl.Segmentation.process(images[0], e)
+        report = probe_masks.hold_batches(
+            dl, seg, probe_masks.batch_prompts(dl, seg.extent))
+        line = probe_masks.describe(report)
+        if report["differ"]:
+            fail(f"phase 4 C5, largest_region_object={lcc}: {line}")
+        hold_replays_against_eager(torch, e, f"C5 largest_region_object={lcc}")
+        print(f"phase 4 C5 mobile_sam, largest_region_object={lcc}: {line} "
+              f"(batch sizes 1-8, every position)", flush=True)
+    print(f"phase 4 C5: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def lcc_options(torch, dl, run, host_ms) -> None:
@@ -4813,17 +4850,22 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
     c4 = [point() for _ in range(SERVE_C4)]
     with ThreadPoolExecutor(4) as pool:
         served = list(pool.map(query, c4))
-    sizes, same_across = {1: 0, 2: 0, 4: 0}, 0
+    same_across = 0
     for v, (body, _) in zip(c4, served):
+        # The batch a query rode in is not known; every batch of the prompt
+        # must give compute_mask's bytes (C5), so the served mask must too.
         got = png_pixels(np, body)
+        single = np.ascontiguousarray(
+            direct.compute_mask(prompt(v)).pixels).reshape(got.shape)
         refs = {n: np.ascontiguousarray(batched(v, n).pixels).reshape(got.shape)
-                for n in sizes}
-        hit = [n for n, ref in refs.items() if np.array_equal(got, ref)]
-        if not hit:
-            fail(f"phase 15 concurrency 4 {v}: the served mask equals none "
-                 f"of the prompt's batches of 1, 2 and 4")
-        sizes[hit[0]] += 1
-        same_across += all(np.array_equal(refs[1], r) for r in refs.values())
+                for n in SERVE_BATCHES}
+        if not (np.array_equal(got, refs[1]) and np.array_equal(got, single)):
+            fail(f"phase 15 concurrency 4 {v}: the served mask differs from "
+                 f"the prompt's batch of 1 or its compute_mask")
+        same_across += all(np.array_equal(single, r) for r in refs.values())
+    if same_across != SERVE_C4:
+        fail(f"phase 15 concurrency 4: the batches of {SERVE_BATCHES} equal "
+             f"compute_mask for only {same_across} of {SERVE_C4} prompts")
     times["mask point, concurrency 4"] = [ms for _, ms in served]
     stats = json.loads(daemon.ok("GET", "/v1/stats")[0])
     calls = stats["batched_calls"] - stats0["batched_calls"]
@@ -4833,10 +4875,10 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
     print(f"phase 15 dlimg-serve: {n_points} point and {n_boxes} box masks at "
           f"concurrency 1 equal to the direct batch of 1; {SERVE_C4} at "
           f"concurrency 4 in {calls} batched calls (largest batch so far "
-          f"{stats['largest_batch']}), each equal to a direct batch "
-          f"(first match by batch size {sizes}; the batches of 1, 2 and 4 "
-          f"agree bit for bit for {same_across} of {SERVE_C4} prompts)",
-          flush=True)
+          f"{stats['largest_batch']}), each equal to the prompt's direct "
+          f"batch of 1 and compute_mask; the batches of "
+          f"{', '.join(map(str, SERVE_BATCHES))} equal compute_mask bit for "
+          f"bit for {same_across} of {SERVE_C4} prompts", flush=True)
 
     (wb, hb, _, png_b), direct_b = images[1], directs[1]
     pb = (wb // 3, hb // 3)
@@ -4948,6 +4990,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.ops import quant
     from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
     from dlimgedit_tpu_torch.parallel import batch as pbatch
+    from dlimgedit_tpu_torch.tools import probe_batch_masks as probe_masks
     from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
 
     ops = types.SimpleNamespace(
@@ -5082,6 +5125,7 @@ def main() -> int:
             torch, np, dl, variant, counters, zero_counters, want, fused)
         if variant == "mobile_sam":
             check_no_aliasing(torch, np, dl, env, images, segs)
+            check_batch_contract(torch, dl, probe_masks, env, images)
         runs[f"{variant}{' fused-window' if fused else ''}"] = (
             env, images, segs, memory)
         for name, n in counts.items():

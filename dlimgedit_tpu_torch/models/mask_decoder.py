@@ -11,7 +11,7 @@ has no TPU kernel for it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,11 +125,14 @@ class MaskDecoder(nn.Module):
 # Apply
 # ---------------------------------------------------------------------------
 
-def _attn(params: Attn, q, k, v, num_heads: int) -> torch.Tensor:
-    """SAM decoder attention: project, split heads, attend, recombine."""
-    q = linear(params.q, q)
-    k = linear(params.k, k)
-    v = linear(params.v, v)
+def _attn(params: Attn, q, k, v, num_heads: int, q_proj=None, k_proj=None,
+          v_proj=None) -> torch.Tensor:
+    """SAM decoder attention: project, split heads, attend, recombine. A
+    projection given (``q_proj``, ``k_proj``, ``v_proj``: block 0's
+    prompt-independent ones, ``DecoderContext``) stands for its input's."""
+    q = linear(params.q, q) if q_proj is None else q_proj
+    k = linear(params.k, k) if k_proj is None else k_proj
+    v = linear(params.v, v) if v_proj is None else v_proj
     B, Nq, C = q.shape
     Nk = k.shape[1]
     hd = C // num_heads
@@ -146,8 +149,46 @@ def _mlp_block(params: MlpBlock, x) -> torch.Tensor:
     return linear(params.lin2, relu(linear(params.lin1, x)))
 
 
+class DecoderContext(NamedTuple):
+    """What the decoder computes from the image alone (no mask prompt):
+    the keys ``image_embedding + dense_prompt`` and their positional
+    encoding, (B, H*W, C), and block 0's projections of them: its
+    token-to-image k and v and its image-to-token q. The keys change per
+    prompt only after block 0's image-to-token attention. One context
+    serves every prompt decoded against the same image, at the batch it
+    was made at (``predict_masks_from``). ``dtype`` is the embedding's,
+    which the sparse prompt is cast to."""
+
+    keys: torch.Tensor
+    key_pe: torch.Tensor
+    t2i_k: torch.Tensor
+    t2i_v: torch.Tensor
+    i2t_q: torch.Tensor
+    grid: Tuple[int, int]
+    dtype: torch.dtype
+
+
+def decoder_context(params: MaskDecoder, image_embedding: torch.Tensor,
+                    image_pe: torch.Tensor, dense_prompt: torch.Tensor
+                    ) -> DecoderContext:
+    """image_embedding, dense_prompt: (B, H, W, C); image_pe: (H, W, C)."""
+    B, H, W, C = image_embedding.shape
+    src = image_embedding + dense_prompt
+    keys = src.reshape(B, H * W, C)
+    key_pe = image_pe[None].expand(B, H, W, C).to(src.dtype).reshape(B, H * W, C)
+    k = keys + key_pe
+    block = params.transformer.blocks[0]
+    return DecoderContext(keys, key_pe, linear(block.cross_attn_t2i.k, k),
+                          linear(block.cross_attn_t2i.v, keys),
+                          linear(block.cross_attn_i2t.q, k), (H, W),
+                          image_embedding.dtype)
+
+
 def _twoway_block(params: TwoWayBlock, queries, keys, query_pe, key_pe,
-                  num_heads: int, skip_first_layer_pe: bool):
+                  num_heads: int, skip_first_layer_pe: bool,
+                  ctx: Optional[DecoderContext] = None):
+    """With ``ctx`` (block 0) the keys are the context's and its
+    projections of them are used."""
     if skip_first_layer_pe:
         queries = _attn(params.self_attn, queries, queries, queries, num_heads)
     else:
@@ -156,30 +197,37 @@ def _twoway_block(params: TwoWayBlock, queries, keys, query_pe, key_pe,
     queries = layer_norm(params.norm1, queries)
 
     q = queries + query_pe
-    k = keys + key_pe
-    queries = queries + _attn(params.cross_attn_t2i, q, k, keys, num_heads)
+    if ctx is None:
+        k = keys + key_pe
+        queries = queries + _attn(params.cross_attn_t2i, q, k, keys, num_heads)
+    else:
+        queries = queries + _attn(params.cross_attn_t2i, q, None, None,
+                                  num_heads, k_proj=ctx.t2i_k, v_proj=ctx.t2i_v)
     queries = layer_norm(params.norm2, queries)
 
     queries = queries + _mlp_block(params.mlp, queries)
     queries = layer_norm(params.norm3, queries)
 
     q = queries + query_pe
-    k = keys + key_pe
-    keys = keys + _attn(params.cross_attn_i2t, k, q, queries, num_heads)
+    if ctx is None:
+        k = keys + key_pe
+        keys = keys + _attn(params.cross_attn_i2t, k, q, queries, num_heads)
+    else:
+        keys = keys + _attn(params.cross_attn_i2t, None, q, queries, num_heads,
+                            q_proj=ctx.i2t_q)
     keys = layer_norm(params.norm4, keys)
     return queries, keys
 
 
 def _twoway_transformer(params: TwoWayTransformer, cfg: MaskDecoderConfig,
-                        image_embedding, image_pe, point_embedding):
-    """image_embedding/image_pe: (B, H, W, C); point_embedding: (B, N, C)."""
-    B, H, W, C = image_embedding.shape
-    keys = image_embedding.reshape(B, H * W, C)
-    key_pe = image_pe.reshape(B, H * W, C)
+                        ctx: DecoderContext, point_embedding):
+    """point_embedding: (B, N, C), at the context's batch."""
+    keys, key_pe = ctx.keys, ctx.key_pe
     queries = point_embedding
     for i, bp in enumerate(params.blocks):
         queries, keys = _twoway_block(bp, queries, keys, point_embedding, key_pe,
-                                      cfg.num_heads, skip_first_layer_pe=(i == 0))
+                                      cfg.num_heads, skip_first_layer_pe=(i == 0),
+                                      ctx=ctx if i == 0 else None)
     q = queries + point_embedding
     k = keys + key_pe
     queries = queries + _attn(params.final_attn, q, k, keys, cfg.num_heads)
@@ -204,16 +252,25 @@ def predict_masks(params: MaskDecoder, image_embedding: torch.Tensor,
     """Low-res mask logits. image_embedding: (B, H, W, C); image_pe:
     (H, W, C); sparse_prompt: (B, N, C); dense_prompt: (B, H, W, C).
     Returns (masks (B, nmt, 4H, 4W), iou_pred (B, nmt))."""
-    B, H, W, C = image_embedding.shape
+    ctx = decoder_context(params, image_embedding, image_pe, dense_prompt)
+    return predict_masks_from(params, ctx, sparse_prompt, cfg)
+
+
+def predict_masks_from(params: MaskDecoder, ctx: DecoderContext,
+                       sparse_prompt: torch.Tensor,
+                       cfg: MaskDecoderConfig = MaskDecoderConfig()
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``predict_masks`` from the image's context; sparse_prompt (B, N, C)
+    at the context's batch B. A context made at B = 1 and one prompt at a
+    time give each prompt the operations and shapes of a single decode."""
+    B = ctx.keys.shape[0]
+    (H, W), C = ctx.grid, ctx.keys.shape[2]
     nmt = cfg.num_mask_tokens
     output_tokens = torch.cat([params.iou_token, params.mask_tokens],
                               dim=0).to(sparse_prompt.dtype)
     tokens = torch.cat([output_tokens[None].expand(B, 1 + nmt, C), sparse_prompt],
                        dim=1)
-    src = image_embedding + dense_prompt
-    image_pe = image_pe[None].expand(B, H, W, C)
-    hs, src = _twoway_transformer(params.transformer, cfg, src,
-                                  image_pe.to(src.dtype), tokens)
+    hs, src = _twoway_transformer(params.transformer, cfg, ctx, tokens)
     iou_token_out = hs[:, 0]
     mask_tokens_out = hs[:, 1:1 + nmt]
 

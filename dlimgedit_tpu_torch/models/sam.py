@@ -14,7 +14,14 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .mask_decoder import MaskDecoder, MaskDecoderConfig, predict_masks, select_single_mask
+from .mask_decoder import (
+    DecoderContext,
+    MaskDecoder,
+    MaskDecoderConfig,
+    decoder_context,
+    predict_masks_from,
+    select_single_mask,
+)
 from .prompt_encoder import (
     PromptEncoder,
     PromptEncoderConfig,
@@ -104,6 +111,16 @@ def decode_masks(model: Sam, cfg: SamConfig, image_embedding: torch.Tensor,
     image_embedding: (B, He, We, C); point_coords: (B, N, 2) in padded-image
     pixels; point_labels: (B, N). Returns multimask -> (B, 4, L, L), (B, 4);
     otherwise the ONNX single-mask selection -> (B, 1, L, L), (B, 1)."""
+    ctx = decode_context(model, cfg, image_embedding, mask_input, has_mask)
+    return decode_prompts(model, cfg, ctx, point_coords, point_labels,
+                          multimask)
+
+
+def decode_context(model: Sam, cfg: SamConfig, image_embedding: torch.Tensor,
+                   mask_input: Optional[torch.Tensor] = None,
+                   has_mask: Optional[torch.Tensor] = None) -> DecoderContext:
+    """The decoder's work on the image and the dense prompt alone
+    (``mask_decoder.decoder_context``), at the embedding's batch B."""
     B = image_embedding.shape[0]
     s = cfg.mask_input_size
     dev, dt = image_embedding.device, image_embedding.dtype
@@ -113,11 +130,18 @@ def decode_masks(model: Sam, cfg: SamConfig, image_embedding: torch.Tensor,
     if mask_input is None:
         mask_input = torch.zeros((B, s, s, 1), dtype=dt, device=dev)
     pe = model.prompt_encoder
-    sparse = embed_points(pe, cfg.prompt, point_coords, point_labels).to(dt)
     dense = embed_masks(pe, cfg.prompt, mask_input, has_mask)
-    image_pe = dense_pe(pe, cfg.prompt)
-    masks, iou = predict_masks(model.decoder, image_embedding, image_pe,
-                               sparse, dense, cfg.decoder)
+    return decoder_context(model.decoder, image_embedding,
+                           dense_pe(pe, cfg.prompt), dense)
+
+
+def decode_prompts(model: Sam, cfg: SamConfig, ctx: DecoderContext,
+                   point_coords: torch.Tensor, point_labels: torch.Tensor,
+                   multimask: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_masks`` of B prompts from a context made at batch B."""
+    sparse = embed_points(model.prompt_encoder, cfg.prompt, point_coords,
+                          point_labels).to(ctx.dtype)
+    masks, iou = predict_masks_from(model.decoder, ctx, sparse, cfg.decoder)
     if not multimask:
         masks, iou = select_single_mask(masks, iou,
                                         num_points=point_coords.shape[1])

@@ -143,17 +143,27 @@ def greedy_nms_plain(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
     return keep
 
 
+def nms_scratch_words(M: int) -> int:
+    """int64 words of the NMS kernel's scratch: ceil(M / 64) words a row
+    for 64 * ceil(M / 64) rows at an even stride, then the live flags."""
+    nw = -(-M // 64)
+    return nw * 64 * (nw + nw % 2) + nw
+
+
 def greedy_nms(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
                thresh: Union[torch.Tensor, float]) -> torch.Tensor:
     """Exact greedy box NMS (see ``greedy_nms_plain``) -> (M,) bool keep.
 
     boxes_sorted: (M, 4) float32 inclusive pixel boxes, scores_sorted:
     (M,) float32, both in descending score order. On a CUDA tensor it
-    launches the kernel of ``csrc/greedy_nms.cu`` (one launch, counted in
-    ``greedy_nms.launches``); ``thresh`` must then be a one-element float32
-    tensor on the same device, which the kernel reads through its pointer
-    (a graph replay sees its current value). On a CPU tensor it runs
-    ``greedy_nms_plain``. It raises on anything else."""
+    launches the kernels of ``csrc/greedy_nms.cu`` (the IoU bitmask, then
+    the one-warp scan: one call, counted once in ``greedy_nms.launches``)
+    with a scratch bitmask of ``nms_scratch_words(M)`` int64 words from
+    ``torch.empty`` (inside a capture, from the graph's pool); ``thresh``
+    must then be a one-element float32 tensor on the same device, which
+    the kernel reads through its pointer (a graph replay sees its current
+    value). On a CPU tensor it runs ``greedy_nms_plain``. It raises on
+    anything else."""
     M = boxes_sorted.shape[0]
     if tuple(boxes_sorted.shape) != (M, 4) or tuple(scores_sorted.shape) != (M,):
         raise DlimgError(f"greedy_nms: boxes {tuple(boxes_sorted.shape)} must "
@@ -178,9 +188,11 @@ def greedy_nms(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
     keep = torch.empty((M,), dtype=torch.bool, device=boxes_sorted.device)
     if M == 0:
         return keep
+    words = nms_scratch_words(M)
+    scratch = torch.empty((words,), dtype=torch.int64, device=boxes_sorted.device)
     rc = LIBRARY.get().dlimg_greedy_nms(
         boxes_sorted.data_ptr(), scores_sorted.data_ptr(), thresh.data_ptr(),
-        keep.data_ptr(), M,
+        keep.data_ptr(), scratch.data_ptr(), words, M,
         torch.cuda.current_stream(boxes_sorted.device).cuda_stream)
     check_launch("greedy_nms", rc)
     greedy_nms.launches += 1

@@ -59,8 +59,8 @@ _SIGNATURES = {
     "dlimg_window_strip_attention": [_VP] * 6 + [_I] * 9 + [_F, _VP],
     # table, idx, out, rows, lanes, reps, row_chunks, dtype, stream
     "dlimg_gather_probe": [_VP] * 3 + [_I] * 5 + [_VP],
-    # boxes, scores, thresh, keep, m, stream
-    "dlimg_greedy_nms": [_VP] * 4 + [_I, _VP],
+    # boxes, scores, thresh, keep, scratch, scratch words, m, stream
+    "dlimg_greedy_nms": [_VP] * 5 + [ctypes.c_longlong, _I, _VP],
     # x, q, scale, rows, cols, dtype, stream
     "dlimg_quantize_rows_int8": [_VP] * 3 + [_I] * 3 + [_VP],
     # acc, x_scale, w_scale, b, y, rows, cols, dtype, stream

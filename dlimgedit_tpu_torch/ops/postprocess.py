@@ -9,6 +9,8 @@ postprocess is ``sigmoid_to_u8``.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -25,16 +27,27 @@ def _composed_axis_matrix(bucket: int, low: int, model_size: int, orig, crop,
     return down @ up
 
 
+def upsample_matrices(low: int, bucket: int, model_size: int, orig_h, orig_w,
+                      crop_h, crop_w, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (bucket, low) row and column matrices of ``upsample_mask_logits``."""
+    return (_composed_axis_matrix(bucket, low, model_size, orig_h, crop_h, device),
+            _composed_axis_matrix(bucket, low, model_size, orig_w, crop_w, device))
+
+
+def upsample_with(R: torch.Tensor, C: torch.Tensor,
+                  low_res: torch.Tensor) -> torch.Tensor:
+    """``upsample_mask_logits`` with its matrices made beforehand."""
+    x = torch.einsum("ih,bthw->btiw", R, low_res.float())
+    return torch.einsum("btiw,jw->btij", x, C)
+
+
 def upsample_mask_logits(low_res: torch.Tensor, bucket: int, model_size: int,
                          orig_h, orig_w, crop_h, crop_w) -> torch.Tensor:
     """low_res: (B, T, L, L) logits -> (B, T, bucket, bucket) logits at the
     original resolution (valid region [:orig_h, :orig_w], rest zero)."""
-    L = low_res.shape[-1]
-    dev = low_res.device
-    R = _composed_axis_matrix(bucket, L, model_size, orig_h, crop_h, dev)
-    C = _composed_axis_matrix(bucket, L, model_size, orig_w, crop_w, dev)
-    x = torch.einsum("ih,bthw->btiw", R, low_res.float())
-    return torch.einsum("btiw,jw->btij", x, C)
+    R, C = upsample_matrices(low_res.shape[-1], bucket, model_size, orig_h,
+                             orig_w, crop_h, crop_w, low_res.device)
+    return upsample_with(R, C, low_res)
 
 
 def pack_mask_bits(logits: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,9 @@ a later `process` in the same bucket does not overwrite it.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,7 +32,13 @@ import torch
 from ..image.resize import resize_longest_side_extent, transform_point
 from ..models import sam as sam_lib
 from ..ops.connected import largest_component_mask
-from ..ops.postprocess import pack_mask_bits, unpack_mask_bits, upsample_mask_logits
+from ..ops.postprocess import (
+    pack_mask_bits,
+    unpack_mask_bits,
+    upsample_mask_logits,
+    upsample_matrices,
+    upsample_with,
+)
 from ..ops.preprocess import (
     pack_and_put_canvas,
     pick_bucket,
@@ -80,26 +87,69 @@ def _build_embed_fn(bundle, mesh=None):
     return run
 
 
+_FORKS = threading.local()
+
+
+def _each_prompt(n: int, device: torch.device, fn: Callable[[int], Any]) -> list:
+    """[fn(i) for i < n]. On the card each call runs on a stream of its
+    own, forked from the current stream and joined back to it: the same
+    operations as the loop, but as parallel branches of a CUDA graph (or
+    concurrent eager work) rather than one chain. The streams are this
+    thread's: a stream in a capture may carry no other thread's work."""
+    if device.type != "cuda":
+        return [fn(i) for i in range(n)]
+    pools = getattr(_FORKS, "pools", None)
+    if pools is None:
+        pools = _FORKS.pools = {}
+    streams = pools.setdefault(device, [])
+    while len(streams) < n:
+        streams.append(torch.cuda.Stream(device))
+    main = torch.cuda.current_stream(device)
+    out = []
+    for i, stream in enumerate(streams[:n]):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out.append(fn(i))
+    for stream in streams[:n]:
+        main.wait_stream(stream)
+    return out
+
+
 def _build_batch_decode_fn(bundle, out_bucket: int,
                            largest_component: bool = False):
-    """N prompts against ONE cached embedding. With `largest_component`,
-    region prompts (first label 2.0, the box top-left) keep only their
-    largest connected object; point prompts (label 1.0) are untouched. The
-    labelling reads the device from the host, so that program is (decode,
-    label, finish): the labelling runs between two graphs."""
+    """N prompts against ONE cached embedding, each mask byte-equal to
+    `compute_mask`'s for its prompt, whatever else shares the batch (JAX's
+    contract, tests/test_segmentation.py::
+    test_compute_mask_batch_matches_individual). On the card a product
+    over N prompts' rows can take another kernel at each N, and so sum a
+    row in another order; so the image's part of the decoder
+    (``sam.decode_context``: the keys and block 0's projections of them)
+    is made once, and each prompt is decoded and upsampled on its own with
+    the operations and shapes `compute_mask` runs, in the one program
+    (on the card as parallel branches of its graph, ``_each_prompt``).
+    With `largest_component`, region prompts (first label 2.0, the box
+    top-left) keep only their largest connected object; point prompts
+    (label 1.0) are untouched. The labelling reads the device from the
+    host, so that program is (decode, label, finish): the labelling runs
+    between two graphs."""
     cfg = bundle.cfg
 
     def decode(emb, points, labels, sizes):
-        n = points.shape[0]
-        masks, iou = sam_lib.decode_masks(bundle.model, cfg,
-                                          emb.expand(n, *emb.shape[1:]),
-                                          points, labels, multimask=False)
-        return masks[:, 0], iou[:, 0], labels, sizes  # (N, L, L), (N,)
+        ctx = sam_lib.decode_context(bundle.model, cfg, emb)
+        one = _each_prompt(points.shape[0], emb.device, lambda i: (
+            sam_lib.decode_prompts(bundle.model, cfg, ctx, points[i:i + 1],
+                                   labels[i:i + 1], multimask=False)))
+        masks = torch.cat([m[:, 0] for m, _ in one])  # (N, L, L)
+        iou = torch.cat([q[:, 0] for _, q in one])  # (N,)
+        return masks, iou, labels, sizes
 
     def pack(m, iou, sizes):
-        logits = upsample_mask_logits(m[None], out_bucket, cfg.image_size,
-                                      sizes[0], sizes[1], sizes[2], sizes[3])
-        return pack_mask_bits(logits)[0].reshape(-1), iou
+        R, C = upsample_matrices(m.shape[-1], out_bucket, cfg.image_size,
+                                 sizes[0], sizes[1], sizes[2], sizes[3],
+                                 m.device)
+        return torch.cat(_each_prompt(m.shape[0], m.device, lambda i: (
+            pack_mask_bits(upsample_with(R, C, m[i:i + 1][None])).reshape(-1)
+        ))), iou
 
     def label(m, iou, labels, sizes):
         return m, largest_component_mask(m > 0), iou, labels, sizes

@@ -68,7 +68,8 @@ from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
 from dlimgedit_tpu_torch.utils.profiling import chrome_trace
 
 LAYERS = (  # first match wins; matched against the lower-cased kernel name
-    ("greedy_nms (AMG)", ("greedy_nms_kernel",)),
+    ("greedy_nms bitmask (AMG)", ("greedy_nms_mask_kernel",)),
+    ("greedy_nms scan (AMG)", ("greedy_nms_scan_kernel",)),
     ("K3 fused_add_layer_norm", ("add_layer_norm_kernel<",)),
     ("K1 fused_layer_norm", ("layer_norm_kernel<",)),
     ("K2 levit_window_attention", ("levit_attention_kernel",

@@ -26,10 +26,23 @@ same bucket leaves an earlier embedding and its masks alone, two threads
 on one key each get their own answer, and a capture that fails raises
 instead of running eagerly.
 
-The greedy box NMS kernel (``greedy_nms``, csrc/greedy_nms.cu) must keep
-the plain row loop's flags bit for bit, at M = 256 and 2304 (boxes in
-shared memory), 9216 (grid 64's pool) and 14400 (boxes read from global
-memory), and a CUDA graph of it must read the threshold's current value.
+The greedy box NMS kernel (``greedy_nms``, csrc/greedy_nms.cu: an IoU
+bitmask, then a one-warp scan, one call) must keep the plain row loop's
+flags bit for bit, at M = 256, 2304, 9216 (grid 64's pool) and 14400, at
+M = 1, 63, 64 and 65 (the edges of its 64-bit words) with boxes at IoU
+exactly the threshold (kept: the test is >), exact duplicates and scores
+at 0 and below, and a CUDA graph of it must read the threshold's current
+value. K8 (``smem_gather``) holds its plain version also at row counts
+that fill no whole row chunk, slabs cut short by the lanes and bf16
+widths whose rows are not 16-byte multiples.
+
+``compute_mask_batch`` (C5): JAX's contract at the main path's size,
+full-width MobileSAM at 1024 in bf16 on a 1024x768 image: 16 seeded
+points and boxes, every batch size 1-8 with each prompt at every
+position, each mask byte-equal to `compute_mask` of its prompt, with
+largest_region_object on and off (tools/probe_batch_masks.py; on a
+failure the message gives the flipped pixels and the largest |logit|
+under a flip).
 
 The float32 precision repair (``tf32``): with cuDNN's TF32 flag on (its
 default) and the caller's matmul TF32 flag on too, a float32 MobileSAM
@@ -70,7 +83,7 @@ import dlimgedit_tpu_torch as dl
 from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.models import sam, vit_sam
 from dlimgedit_tpu_torch.models.common import QuantLinear
-from dlimgedit_tpu_torch.ops.amg import greedy_nms, greedy_nms_plain
+from dlimgedit_tpu_torch.ops.amg import box_iou_matrix, greedy_nms, greedy_nms_plain
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
     attention_relpos_plain,
@@ -92,6 +105,7 @@ from dlimgedit_tpu_torch.ops.fused_norm import (
     layer_norm_plain,
 )
 from dlimgedit_tpu_torch.ops import quant
+from dlimgedit_tpu_torch.tools import probe_batch_masks
 from dlimgedit_tpu_torch.tools.probe_smem_gather import (
     probe_inputs,
     smem_gather,
@@ -445,6 +459,25 @@ def test_smem_gather_kernel_matches_plain(dev, layout, reps, dtype):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,lanes", [(1, 16), (37, 40), (1000, 36),
+                                        (4095, 24), (4097, 128), (7264, 16)])
+def test_smem_gather_kernel_ragged_shapes(dev, rows, lanes, dtype):
+    """Row counts that fill no whole row chunk, slabs cut short by the
+    lanes (40, 36, 24), widths whose rows are not 16-byte multiples in
+    bf16 (the scalar staging), and indices outside [0, rows), negative
+    too: bit-equal to the plain version at reps 1, 8 and 16."""
+    gen = torch.Generator(device=dev).manual_seed(rows + lanes)
+    table = torch.randn((rows, lanes), generator=gen, device=dev).to(dtype)
+    idx = torch.randint(-3 * rows, 3 * rows, (rows, lanes), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for reps in (1, 8, 16):
+        got = smem_gather(table, idx, reps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, smem_gather_plain(table, idx, reps),
+                                   atol=0, rtol=0)
+
+
 def test_new_kernels_raise_instead_of_falling_back(dev):
     x = torch.zeros(1, 28, 28, 3 * 96, device=dev)  # head width 48: no K6
     q, k, v = x[..., :96], x[..., 96:192], x[..., 192:]
@@ -591,6 +624,22 @@ def test_graph_two_threads_on_one_key(dev):
     assert not errors, errors
 
 
+@pytest.mark.parametrize("largest_region_object", [True, False])
+def test_compute_mask_batch_equals_compute_mask_at_the_main_size(
+        dev, largest_region_object):
+    """JAX's contract (tests/test_segmentation.py::
+    test_compute_mask_batch_matches_individual) on the card, at the main
+    path's size: full-width MobileSAM at 1024 in bf16 (the decoder
+    float32), a 1024x768 image, 16 seeded points and boxes, every batch
+    size 1-8 with each prompt at every position, each mask byte-equal to
+    `compute_mask` of its prompt."""
+    env, seg = probe_batch_masks.main_path_segmentation(dl, largest_region_object)
+    prompts = probe_batch_masks.batch_prompts(dl, seg.extent)
+    report = probe_batch_masks.hold_batches(dl, seg, prompts)
+    assert report["calls"] == 8 * len(prompts)
+    assert not report["differ"], probe_batch_masks.describe(report)
+
+
 def test_graph_capture_failure_raises(dev):
     env = _graph_env("mobile_sam", "float32")
     ran = []
@@ -665,6 +714,52 @@ def test_greedy_nms_graph_reads_the_current_threshold(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(keep, greedy_nms_plain(boxes, scores, thresh)), t
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 2304, 14400])
+def test_greedy_nms_kernel_word_edges_and_exact_ties(dev, M):
+    """Row counts around the kernel's 64-bit words, pairs of boxes at IoU
+    exactly 0.5 (both kept at threshold 0.5: the test is >) and exact
+    duplicates (IoU 1.0, kept at threshold 1.0), scores at 0 and below
+    (never kept, never suppressing), and the threshold changed between
+    replays of one CUDA graph: keep flags bit-equal to the plain loop."""
+    boxes, scores = _nms_inputs(dev, M, M + 1)
+    boxes, scores = boxes.cpu(), scores.cpu()
+    for i in range(0, M - 1, 61):  # a pair in every 64-row block or across two
+        boxes[i] = torch.tensor([10.0, 10.0, 19.0, 19.0])  # area 100
+        boxes[i + 1] = torch.tensor([10.0, 10.0, 19.0, 29.0])  # 200, inter 100
+    scores[torch.arange(M) % 7 == 3] = 0.0
+    scores[torch.arange(M) % 11 == 5] = -0.25
+    boxes, scores = boxes.to(dev), scores.to(dev)
+    if M > 1:
+        iou = box_iou_matrix(boxes[:2])
+        assert float(iou[0, 1]) == 0.5
+    thresh = torch.tensor([0.5], device=dev)
+    want = greedy_nms_plain(boxes, scores, thresh)
+    if M > 1:
+        assert bool(want[0]) and bool(want[1])  # IoU == thresh: both kept
+    assert not bool((want & (scores <= 0)).any())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        before = greedy_nms.launches
+        eager = greedy_nms(boxes, scores, thresh)
+        assert greedy_nms.launches == before + 1  # one call, two launches
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        keep = greedy_nms(boxes, scores, thresh)
+    for t in (1.0, 0.3, 0.5, 0.0):
+        thresh.fill_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = greedy_nms_plain(boxes, scores, thresh)
+        assert torch.equal(keep, want), (
+            f"M {M} thresh {t}: {int((keep != want).sum())} flags differ")
+        if t == 1.0:
+            assert torch.equal(keep, scores > 0)
 
 
 def test_greedy_nms_raises_instead_of_falling_back(dev):

@@ -154,6 +154,46 @@ def test_batch_masks_match_jax(envs, segs):
         assert abs(g.accuracy - w.accuracy) <= 1e-4
 
 
+@pytest.fixture(scope="module")
+def seg_128():
+    """The port alone at sam_image_size 128, float32, seeded random
+    weights, on a 128x96 image, with 8 points and 8 boxes on it."""
+    env = pdl.Environment(pdl.Options(
+        backend=pdl.Backend.cpu, allow_random_weights=True,
+        compute_dtype="float32", sam_image_size=128,
+        largest_region_object=True, model_directory="no-such-directory"))
+    px = np.random.default_rng(11).integers(0, 256, (96, 128, 4), dtype=np.uint8)
+    seg = pdl.Segmentation.process(
+        pdl.Image(pdl.Extent(128, 96), pdl.Channels.rgba, px), env)
+    rng = np.random.default_rng(12)
+    points = [pdl.Point(int(x), int(y)) for x, y in
+              zip(rng.integers(0, 128, 8), rng.integers(0, 96, 8))]
+    boxes = []
+    for _ in range(8):
+        x0, y0 = int(rng.integers(0, 96)), int(rng.integers(0, 64))
+        boxes.append(pdl.Region(pdl.Point(x0, y0),
+                                pdl.Point(x0 + int(rng.integers(16, 32)),
+                                          y0 + int(rng.integers(16, 32)))))
+    return seg, {"points": points, "boxes": boxes}
+
+
+@pytest.mark.parametrize("kind", ["points", "boxes"])
+@pytest.mark.parametrize("n", range(1, 9))
+def test_compute_mask_batch_equals_compute_mask(seg_128, n, kind):
+    """JAX's contract (tests/test_segmentation.py::
+    test_compute_mask_batch_matches_individual) on the port: each mask of a
+    batch of n, with each prompt at every position, is byte-equal to
+    `compute_mask` of its prompt (boxes with largest_region_object)."""
+    seg, prompts = seg_128[0], seg_128[1][kind]
+    want = [seg.compute_mask(p).pixels for p in prompts]
+    for s in range(len(prompts)):
+        got = seg.compute_mask_batch([prompts[(s + j) % 8] for j in range(n)])
+        assert len(got) == n
+        for j, m in enumerate(got):
+            assert np.array_equal(m.image.pixels, want[(s + j) % 8]), (
+                f"batch of {n} from prompt {s}, position {j}")
+
+
 def test_second_bucket_matches_jax(envs):
     """A 300x200 RGB image: canvas bucket 512, another resample geometry."""
     je, pe = envs
