@@ -295,7 +295,29 @@ printing its seconds:
      endpoint's median wall, `/v1/stats`, the
      sessions deleted and SIGTERM answered with exit 0; `dlimg segment`
      (its mask file equal to the direct call's), `test_cpp_api gpu` and
-     `test_cpp_dynamic` exiting 0.
+     `test_cpp_dynamic` exiting 0;
+ 16. the device-memory tool and the examples, in process, in a
+     temporary directory: `tools/memory_footprint.py` at full width
+     (MobileSAM at 1024 in bf16 on a 1024x1024 image, a click, AMG grid
+     32, BiRefNet_lite `general` at 1024), each row printed with the
+     card's name and power limit; it fails if a weights row's allocated
+     delta is below its analytic bytes, a graph pool's bytes exceed
+     `memory_reserved`, or the resident total is not
+     `torch.cuda.memory_allocated()`; then examples 3-5 at full width
+     on a seeded 1024x768 RGBA PNG with seeded random weights
+     (interactive_segmentation, generate_masks at grid 32 with 32 masks,
+     also with the IoU and stability filters off so that masks are
+     written, foreground_extraction): every mask file byte for byte the
+     same call's on a second Environment, the cutout's alpha
+     `segment_objects`' mask, launches exact (22 K1 and 10 K2 a
+     `process`, one greedy_nms a `generate_masks`; checked here, not
+     added to the kernels' sums); then examples 6-10 on meshes of
+     [cuda:0] * 2 at their own defaults (streaming_frames, latency_scaleout
+     with ViT-B at 1024 and main_birefnet at 1024 in float32 on the float32
+     kernels, distill_encoder, finetune_decoder twice, the second resuming
+     from step 5, multihost_train in one process), each example's own
+     assertions holding and its printed lines checked; each example's
+     seconds.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -322,6 +344,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -4956,6 +4979,220 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
             fail(f"phase 15: session {sid} still answers after DELETE")
 
 
+def tee(fn, *args, **kw):
+    """fn's result and what it printed (echoed as it is)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    sys.stdout.write(buf.getvalue())
+    sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def check_memory_tool(torch, gpu_line) -> None:
+    """Phase 16's first part: the device-memory tool at full width, its
+    rows printed with the card, and the checks that catch a meter that
+    reads nothing."""
+    from dlimgedit_tpu_torch.tools import memory_footprint as mf
+
+    for var in ("DLIMG_BIREFNET_RESOLUTION", "DLIMG_BIREFNET_TEST_SLIM"):
+        if var in os.environ:
+            fail(f"phase 16: {var} is set; the memory tool runs at full width")
+    t = time.perf_counter()
+    # No collection of earlier phases' garbage between the tool's last
+    # reading and this one.
+    gc.collect()
+    gc.disable()
+    try:
+        fp = mf.main(["--variant", "mobile_sam", "--size", "1024"])
+        allocated = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    for r in fp.rows:
+        row = dict(phase=r.name, allocated_delta=r.allocated,
+                   reserved_delta=r.reserved, driver_delta=r.driver,
+                   peak_delta=r.peak, analytic=r.analytic,
+                   keys=["/".join(map(str, k)) for k in r.keys])
+        print(f"phase 16 memory on {gpu_line}: {json.dumps(row)}")
+        if r.name.endswith("weights") and not r.allocated >= r.analytic:
+            fail(f"phase 16 memory: {r.name}: allocated delta {r.allocated} "
+                 f"below the analytic {r.analytic} bytes")
+    for key, (n, nbytes) in fp.pools.items():
+        print(f"phase 16 memory on {gpu_line}: pool {'/'.join(map(str, key))}: "
+              f"{n} graphs, {nbytes} bytes")
+        if nbytes is not None and nbytes > fp.final.reserved:
+            fail(f"phase 16 memory: pool of {key} {nbytes} bytes above "
+                 f"memory_reserved {fp.final.reserved}")
+    print(f"phase 16 memory: the graphs' pool ids "
+          f"{'all' if fp.pools_matched else 'NOT all'} found in the snapshot",
+          flush=True)
+    if fp.final.allocated != allocated:
+        fail(f"phase 16 memory: resident {fp.final.allocated} bytes, "
+             f"torch.cuda.memory_allocated() {allocated}")
+    print(f"phase 16 memory on {gpu_line}: resident {fp.final.allocated}, "
+          f"peak {fp.peak}, reserved {fp.final.reserved}, driver used "
+          f"{fp.final.driver}, before the environment {fp.baseline}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    del fp
+    torch.cuda.empty_cache()
+
+
+def drive_examples(torch, np, dl, counters, zero_counters, gpu_line,
+                   tmp: Path) -> None:
+    """Phase 16 (see the module docstring): the memory tool, then the eight
+    examples of dlimgedit_tpu_torch/examples/ on the card."""
+    import importlib
+
+    from dlimgedit_tpu_torch.parallel import batch as pbatch
+    from dlimgedit_tpu_torch.parallel.mesh import clear_replicas
+
+    t0 = time.perf_counter()
+    check_memory_tool(torch, gpu_line)
+
+    def example(name):
+        return importlib.import_module(f"dlimgedit_tpu_torch.examples.{name}")
+
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        out, text = tee(fn, *args, **kw)
+        torch.cuda.synchronize()
+        print(f"phase 16 {label}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out, text
+
+    def same_file(got: Path, image, label) -> None:
+        want = tmp / "direct.png"
+        dl.Image.save(image, want)
+        if got.read_bytes() != want.read_bytes():
+            fail(f"phase 16 {label}: {got.name} differs from the direct "
+                 f"call's mask")
+
+    # -- examples 3-5 at full width ----------------------------------------
+    w, h = 1024, 768
+    png = tmp / "photo.png"
+    dl.Image.save(dl.Image(dl.Extent(w, h), dl.Channels.rgba,
+                           rgba(np, h, w, 16)), png)
+    options = dl.Options(backend=dl.Backend.gpu, allow_random_weights=True,
+                         model_directory=str(tmp))
+    direct = dl.Environment(options)
+    img = dl.Image.load(png)
+    seg = dl.Segmentation.process(img, direct)
+    per_process = {"fused_layer_norm": LN_PER_PROCESS,
+                   "levit_window_attention": ATTN_PER_PROCESS}
+
+    x, y = w // 2, h // 3
+    zero_counters()
+    _, text = timed("interactive_segmentation",
+                    example("interactive_segmentation").main,
+                    argv=[str(png), str(x), str(y), str(tmp / "mask.png")],
+                    options=options)
+    expect_launches(counters(), per_process, "interactive_segmentation", 16)
+    same_file(tmp / "mask.png", seg.compute_mask(dl.Point(x, y)).view(),
+              "interactive_segmentation")
+    got = [float(v) for v in re.findall(r"predicted IoU (\S+)", text)]
+    want = [round(m.accuracy, 3) for m in seg.compute_masks(dl.Point(x, y))]
+    if got != want or "batched 3 prompts" not in text:
+        fail(f"phase 16 interactive_segmentation: printed {got}, the direct "
+             f"call's accuracies {want}")
+
+    for filters in ("script", "off"):
+        out_dir = tmp / f"masks_{filters}"
+        real = dl.Segmentation.generate_masks
+        if filters == "off":  # random weights pass neither filter
+            dl.Segmentation.generate_masks = lambda self, **kw: real(
+                self, **kw, iou_thresh=0.0, stability_thresh=0.0)
+        try:
+            zero_counters()
+            _, text = timed(f"generate_masks ({filters} filters)",
+                            example("generate_masks").main,
+                            argv=[str(png), str(out_dir)], options=options)
+            expect_launches(counters(), dict(per_process, greedy_nms=1),
+                            f"generate_masks ({filters} filters)", 16)
+            masks = seg.generate_masks(grid=32, max_masks=32)
+        finally:
+            dl.Segmentation.generate_masks = real
+        files = sorted(out_dir.glob("mask_*.png")) if out_dir.exists() else []
+        if len(files) != len(masks) or (filters == "off" and not masks):
+            fail(f"phase 16 generate_masks: {len(files)} files, the direct "
+                 f"call {len(masks)} masks")
+        for f, m in zip(files, masks):
+            same_file(f, m.image.view(), f"generate_masks {f.name}")
+        print(f"phase 16 generate_masks ({filters} filters): {len(files)} "
+              f"mask files, each the direct call's", flush=True)
+
+    zero_counters()
+    timed("foreground_extraction", example("foreground_extraction").main,
+          argv=[str(png), str(tmp / "cutout.png")], options=options)
+    expect_launches(counters(), {}, "foreground_extraction", 16)
+    cut = dl.Image.load(tmp / "cutout.png").pixels
+    mask = dl.segment_objects(img, direct).pixels
+    if not (np.array_equal(cut[..., 3], mask[..., 0])
+            and np.array_equal(cut[..., :3], img.pixels[..., :3])):
+        fail("phase 16 foreground_extraction: the cutout is not the image "
+             "with segment_objects' mask as alpha")
+    del direct, seg
+    torch.cuda.empty_cache()
+
+    # -- examples 6-10 on meshes of the one card ----------------------------
+    dev = torch.device("cuda", 0)
+    devices = [dev] * 2
+    zero_counters()
+    _, text = timed("streaming_frames", example("streaming_frames").main,
+                    devices=devices)
+    # 3 chunks x 2 dp rows, each row's encode one `process`'s launches.
+    expect_launches(counters(), {k: 6 * v for k, v in per_process.items()},
+                    "streaming_frames", 16)
+    for want in ("embeddings: (4, 16, 16, 256)", "masks: (6, 1, 64, 64)"):
+        if want not in text:
+            fail(f"phase 16 streaming_frames: no {want!r} in its output")
+    pbatch._GRAPH_CACHE.clear()
+    clear_replicas()
+
+    scaleout = example("latency_scaleout")
+    zero_counters()
+    emb, _ = timed("latency_scaleout (ViT-B 1024, float32)", scaleout.main,
+                   devices=devices)
+    want = sp_per_run(12, 2)
+    want = {k: want.get(k, 0) + VIT_PER_PROCESS.get(k, 0)
+            for k in set(want) | set(VIT_PER_PROCESS)}
+    expect_launches(counters(), want, "latency_scaleout (sp 2 + single)", 16)
+    logits, _ = timed("latency_scaleout main_birefnet (1024, float32)",
+                      scaleout.main_birefnet, devices=devices)
+    if tuple(emb.shape) != (1, 64, 64, 256) or tuple(logits.shape) != (
+            1, 1024, 1024, 1):
+        fail(f"phase 16 latency_scaleout: shapes {tuple(emb.shape)}, "
+             f"{tuple(logits.shape)}")
+    del emb, logits
+    clear_replicas()
+
+    _, text = timed("distill_encoder", example("distill_encoder").main,
+                    devices=devices)
+    if "step 3: mse" not in text or "grafted student serves" not in text:
+        fail("phase 16 distill_encoder: its steps or the graft not printed")
+    pbatch._GRAPH_CACHE.clear()
+    clear_replicas()
+
+    finetune = example("finetune_decoder")
+    bundle = tmp / "models" / "segmentation" / "mobile_sam.npz"
+    for run in (1, 2):
+        _, text = timed(f"finetune_decoder run {run}", finetune.main,
+                        argv=[str(tmp / "ckpts")], bundle_out=str(bundle),
+                        devices=devices)
+        if "exported serving bundle" not in text or (
+                run == 2 and "resumed from step 5" not in text):
+            fail(f"phase 16 finetune_decoder run {run}: not resumed or not "
+                 f"exported")
+    clear_replicas()
+
+    _, text = timed("multihost_train", example("multihost_train").main,
+                    argv=[str(tmp / "mh_ckpts")], devices=devices)
+    if ("collective checkpoint at step 3" not in text
+            or not (tmp / "mh_ckpts" / "step_3").exists()):
+        fail("phase 16 multihost_train: no checkpoint at step 3")
+    clear_replicas()
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -5215,6 +5452,11 @@ def main() -> int:
                      model_dir)
         drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
                       model_dir)
+
+    # -- 16. the device-memory tool and the examples ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        drive_examples(torch, np, dl, counters, zero_counters, gpu_line,
+                       Path(tmp))
 
     kernels = []
     for name, source, replaces in KERNELS:

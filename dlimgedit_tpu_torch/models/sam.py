@@ -8,6 +8,7 @@ Image embeddings are NHWC (B, 64, 64, 256).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -73,6 +74,18 @@ def make_config(variant: str = "mobile_sam", image_size: int = 1024) -> SamConfi
                          encoder_vit=VIT_PRESETS[variant](img_size=image_size),
                          prompt=prompt)
     raise ValueError(f"Unknown SAM variant: {variant}")
+
+
+def with_kernels(cfg: SamConfig) -> SamConfig:
+    """``cfg`` with the port's encoder kernels on, as an Environment serves
+    on a CUDA device: TinyViT's K1 (LayerNorm) and K2 (window attention);
+    a ViT's K4 and K5 (rel-pos attention; its LayerNorms, K1 and K3,
+    follow)."""
+    if cfg.encoder_tiny is not None:
+        return dataclasses.replace(cfg, encoder_tiny=dataclasses.replace(
+            cfg.encoder_tiny, use_fused_norm=True, use_flash_attention=True))
+    return dataclasses.replace(cfg, encoder_vit=dataclasses.replace(
+        cfg.encoder_vit, use_flash_attention=True))
 
 
 class Sam(nn.Module):

@@ -73,6 +73,10 @@ class CanvasPool:
         return torch.empty((bucket, bucket, 3), dtype=torch.uint8,
                            pin_memory=True)
 
+    def pinned_bytes(self) -> int:
+        """Bytes of this thread's pooled canvases (host memory)."""
+        return sum(e[0].nbytes for ring in self._rings().values() for e in ring)
+
     def note_copy(self, canvas: torch.Tensor, event: "torch.cuda.Event") -> None:
         """Record the event behind the last copy out of a pooled canvas
         (unpooled canvases are ignored)."""

@@ -36,7 +36,6 @@ sequence-parallel over it, eagerly (it crosses devices).
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import threading
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -250,6 +249,13 @@ class Executable:
     @property
     def captured(self) -> bool:
         return bool(self._graphs)
+
+    @property
+    def graphs(self) -> Tuple["torch.cuda.CUDAGraph", ...]:
+        """The captured graphs, the head's then the tail's (none before the
+        capture, and on the CPU). Each owns a private memory pool
+        (``CUDAGraph.pool()``), which tools/memory_footprint.py reads."""
+        return tuple(g.graph for g in self._graphs)
 
     @property
     def static_inputs(self) -> Optional[List[torch.Tensor]]:
@@ -512,14 +518,8 @@ class Environment:
     def _load_sam(self, variant: str) -> SamModelBundle:
         cfg = sam_lib.make_config(variant,
                                   image_size=self.options.sam_image_size)
-        if self.device.type == "cuda" and cfg.encoder_tiny is not None:
-            # The port's kernels K1 (LayerNorm) and K2 (window attention).
-            cfg = dataclasses.replace(cfg, encoder_tiny=dataclasses.replace(
-                cfg.encoder_tiny, use_fused_norm=True, use_flash_attention=True))
-        elif self.device.type == "cuda":
-            # K4 / K5 (rel-pos attention); the LayerNorms (K1, K3) follow.
-            cfg = dataclasses.replace(cfg, encoder_vit=dataclasses.replace(
-                cfg.encoder_vit, use_flash_attention=True))
+        if self.device.type == "cuda":
+            cfg = sam_lib.with_kernels(cfg)
         path = self.model_directory / "segmentation" / SAM_BUNDLES[variant]
         if path.exists():
             model = load_into(sam_lib.Sam(cfg), self._verified_load(path))

@@ -54,3 +54,15 @@ def test_the_bridge_and_the_converters_are_scanned(module):
     port's own (the JAX package has modules of the same names, or a CMake
     build)."""
     assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "examples/__init__.py", "examples/interactive_segmentation.py",
+    "examples/generate_masks.py", "examples/foreground_extraction.py",
+    "examples/streaming_frames.py", "examples/latency_scaleout.py",
+    "examples/distill_encoder.py", "examples/finetune_decoder.py",
+    "examples/multihost_train.py", "tools/memory_footprint.py"])
+def test_the_examples_and_the_memory_tool_are_scanned(module):
+    """The examples and the device-memory tool are the port's own (the
+    repo's examples/ and tools/ have JAX scripts of the same names)."""
+    assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES
