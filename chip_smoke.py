@@ -317,7 +317,29 @@ printing its seconds:
      kernels, distill_encoder, finetune_decoder twice, the second resuming
      from step 5, multihost_train in one process), each example's own
      assertions holding and its printed lines checked; each example's
-     seconds.
+     seconds;
+ 17. the Python-free serving route (DLIMG_PJRT_BUNDLE) on cuda:0: a
+     MobileSAM 1024 bf16 bundle of seeded weights exported by `python -m
+     dlimgedit_tpu_torch.tools.aot_export` (buckets 512 and 1024) and the
+     serving library built (`native_build.build_serving()`, beside the
+     export); in a fresh process with no PYTHONPATH of the repo and a
+     sitecustomize that leaves a marker if an interpreter starts,
+     `test_serving gpu` through the public C++ API: `process` of a
+     1024x768 RGBA image and of a 500x375 RGB one (bucket 512), 8 point
+     and 4 box `compute_mask`, `compute_masks` of a point,
+     `compute_mask_batch` of the 12, two threads processing two 1024x768
+     images at once for 8 rounds; every mask byte for byte and every
+     accuracy bit for bit the Python API's on the exporter's Environment,
+     22 K1 and 10 K2 launches counted by the serving library per
+     `process` (also a replayed one), each CUDA graph's replay equal to
+     its eager run, Py_IsInitialized false and no marker (checked here,
+     not added to the kernels' sums); `test_serving_programs gpu` over
+     the six programs (each output equal to the exporter's, the host's
+     float32 flags put back after them, the weights held on the device
+     printed) and `test_bundle_parse`; then `process_ms` and `mask_ms` through this
+     route, the embedded-interpreter library and the direct call, in this
+     interpreter, medians of 20 with the three interleaved, the serving
+     library's K1 / K2 counts over its route's calls exact.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -5193,6 +5215,196 @@ def drive_examples(torch, np, dl, counters, zero_counters, gpu_line,
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 17, the Python-free serving route: prompts on the 1024x768 image.
+SERVING_POINTS, SERVING_BOXES = 8, 4
+
+
+def interleaved_ms(torch, fns, n: int = 20):
+    """Medians of n host-clock walls of each callable, their calls
+    interleaved, each ending in a device synchronise."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    ts = [[] for _ in fns]
+    for _ in range(n):
+        for f, t_ in zip(fns, ts):
+            t = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            t_.append((time.perf_counter() - t) * 1e3)
+    return [statistics.median(t_) for t_ in ts]
+
+
+def drive_python_free(torch, np, dl, gpu_line) -> None:
+    """Phase 17, the Python-free serving route on cuda:0 (the module
+    docstring's item 17)."""
+    import ctypes
+    import re
+    import threading
+
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.tools import aot_export, serving_check
+
+    t0 = time.perf_counter()
+    built = {}
+
+    def build():
+        try:
+            built["build"] = native_build.build_serving()
+        except Exception as e:  # reported below, after the export
+            built["error"] = e
+
+    builder = threading.Thread(target=build)
+    builder.start()
+    saved = {k: os.environ.get(k) for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE")}
+    handles, api = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        bundle, check = work / "bundle", work / "check"
+        try:
+            t = time.perf_counter()
+            env = aot_export.export_serving(
+                serving_check.bundle_args(bundle, 1024, "gpu"))
+            goldens = serving_check.write_goldens(env, check, 1024,
+                                                  SERVING_POINTS, SERVING_BOXES)
+            print(f"phase 17: bundle exported and the Python API's results "
+                  f"written in {time.perf_counter() - t:.1f} s", flush=True)
+            builder.join()
+            if "error" in built:
+                fail(f"phase 17: the serving build failed: {built['error']}")
+            b = built["build"]
+            print(f"phase 17 serving build: {b.seconds or 0.0:.2f} s -> "
+                  f"{b.serving_library}", flush=True)
+            try:
+                r = serving_check.run_test_serving(b, bundle, check, work,
+                                                   "gpu", time_n=20)
+                p = serving_check.run_test_programs(b, bundle, work, "gpu")
+            except RuntimeError as e:
+                fail(f"phase 17: {e}")
+            counts = re.findall(r"launches per process (\S+(?: \(replay\))?): "
+                                r"K1 (\d+) K2 (\d+)", r.stdout)
+            if len(counts) != 3 or any(
+                    (int(k1), int(k2)) != (LN_PER_PROCESS, ATTN_PER_PROCESS)
+                    for _, k1, k2 in counts):
+                fail(f"phase 17: test_serving's launches per process "
+                     f"{counts}, want {LN_PER_PROCESS} K1 and "
+                     f"{ATTN_PER_PROCESS} K2 each")
+            held = re.search(r"replays equal eager: (\d+) graphs", r.stdout)
+            if not held or int(held.group(1)) < 5:
+                fail(f"phase 17: graphs held against their eager runs: "
+                     f"{held and held.group(1)}")
+            for line in r.stdout.splitlines():
+                if not line.startswith(("point mask", "box mask")):
+                    print(f"phase 17 test_serving: {line}", flush=True)
+            if not re.search(r"concurrent process of 2 images x \d+ rounds "
+                             r"vs the Python API: 0/\d+ pixels differ",
+                             r.stdout):
+                fail("phase 17: test_serving's concurrent leg did not hold")
+            n_pass = p.stdout.count(": PASS")
+            if n_pass != 6:
+                fail(f"phase 17: test_serving_programs passed {n_pass} of 6")
+            if "the host's float32 flags after the programs: put back" \
+                    not in p.stdout:
+                fail("phase 17: the serving library left the host's float32 "
+                     "flags changed")
+            held_w = re.search(r"weights held on the device: .*", p.stdout)
+            print(f"phase 17 test_serving_programs gpu: "
+                  f"{held_w and held_w.group(0)} on {gpu_line}", flush=True)
+            print(f"phase 17 test_serving_programs gpu: 6 of 6 programs "
+                  f"byte-equal to the exporter's outputs; "
+                  f"{p.stdout.strip().splitlines()[-1]}", flush=True)
+
+            # The three routes in this interpreter, interleaved.
+            lib = ctypes.CDLL(str(b.serving_library))
+            api = native_build.load_api(b.library)
+            opts = native_build.DlimgOptions(backend=1, model_directory=b".")
+            os.environ["DLIMG_PJRT_BUNDLE"] = str(bundle)
+            served = ctypes.c_void_p()
+            if api.create_environment(ctypes.byref(served),
+                                      ctypes.byref(opts)):
+                fail(f"phase 17 create_environment (serving): "
+                     f"{api.last_error().decode()}")
+            handles.append(served)
+            for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE"):
+                os.environ.pop(k, None)
+            os.environ.update({"DLIMG_ALLOW_RANDOM_WEIGHTS": "1",
+                               "DLIMG_SAM_IMAGE_SIZE": "1024",
+                               "DLIMG_COMPUTE_DTYPE": "bfloat16"})
+            embedded = ctypes.c_void_p()
+            if api.create_environment(ctypes.byref(embedded),
+                                      ctypes.byref(opts)):
+                fail(f"phase 17 create_environment (embedded): "
+                     f"{api.last_error().decode()}")
+            handles.append(embedded)
+            (w, h), _ = serving_check.image_sizes(1024)
+            arr = np.frombuffer((check / "image.raw").read_bytes(),
+                                np.uint8).reshape(h, w, 4)
+            buf, stride = c_pixels(ctypes, np, arr, 0)
+            view = native_build.DlimgImageView(
+                width=w, height=h, channels=4, stride=stride,
+                pixels=ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)))
+            img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr.copy())
+            point = goldens["prompts"][0]
+            c_point = (ctypes.c_int * 2)(point.x, point.y)
+            out_mask, addrs = c_masks(ctypes, 1, w * h)
+            slot = (ctypes.POINTER(ctypes.c_uint8) * 3)(
+                ctypes.cast(addrs[0], ctypes.POINTER(ctypes.c_uint8)),
+                None, None)
+
+            def c_process(handle):
+                s_ = ctypes.c_void_p()
+                if api.process_image_for_segmentation(
+                        ctypes.byref(s_), ctypes.byref(view), handle):
+                    fail(f"phase 17 process: {api.last_error().decode()}")
+                return s_
+
+            segs = {name: c_process(hd) for name, hd in
+                    (("serving", served), ("embedded", embedded))}
+            direct = dl.Segmentation.process(img, env)
+
+            def c_mask(name):
+                if api.get_segmentation_mask(segs[name], c_point, None, slot,
+                                             None):
+                    fail(f"phase 17 compute_mask: {api.last_error().decode()}")
+
+            c_mask("serving")
+            if bytes(out_mask[0]) != goldens["masks"][0].tobytes():
+                fail("phase 17: the served mask in this interpreter differs "
+                     "from the Python API's")
+            lib.dlimg_serving_reset_launches()
+            process_ms = interleaved_ms(torch, [
+                lambda: api.destroy_segmentation(c_process(served)),
+                lambda: api.destroy_segmentation(c_process(embedded)),
+                lambda: dl.Segmentation.process(img, env)])
+            k1, k2 = ctypes.c_int64(), ctypes.c_int64()
+            lib.dlimg_serving_launches(ctypes.byref(k1), ctypes.byref(k2))
+            if (k1.value, k2.value) != (21 * LN_PER_PROCESS,
+                                        21 * ATTN_PER_PROCESS):
+                fail(f"phase 17: the serving library counted K1 {k1.value}, "
+                     f"K2 {k2.value} over its route's 21 process calls")
+            mask_ms = interleaved_ms(torch, [
+                lambda: c_mask("serving"), lambda: c_mask("embedded"),
+                lambda: direct.compute_mask(dl.Point(point.x, point.y))])
+            print(f"e2e Python-free serving MobileSAM {w}x{h} on {gpu_line}: "
+                  f"process_ms serving={process_ms[0]:.3f} embedded="
+                  f"{process_ms[1]:.3f} direct={process_ms[2]:.3f}; mask_ms "
+                  f"serving={mask_ms[0]:.3f} embedded={mask_ms[1]:.3f} direct="
+                  f"{mask_ms[2]:.3f} (medians of 20, the three routes "
+                  f"interleaved in this interpreter; the serving library "
+                  f"launched K1 {k1.value} and K2 {k2.value} times over its "
+                  f"21 process calls, 22 and 10 a call)", flush=True)
+            for s_ in segs.values():
+                api.destroy_segmentation(s_)
+            del direct, goldens, env
+        finally:
+            for hd in handles:
+                api.destroy_environment(hd)
+            restore_vars(saved)
+            builder.join()
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -5457,6 +5669,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         drive_examples(torch, np, dl, counters, zero_counters, gpu_line,
                        Path(tmp))
+
+    # -- 17. the Python-free serving route ---------------------------------
+    drive_python_free(torch, np, dl, gpu_line)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -22,24 +22,47 @@
 // directory that holds the dlimgedit_tpu_torch package (DLIMG_PACKAGE_ROOT)
 // is appended to sys.path. PYTHONPATH and PYTHONHOME are honoured as usual.
 //
-// The JAX package's PJRT serving mode (DLIMG_PJRT_BUNDLE) has no
-// counterpart here: the port's executables are CUDA graphs, which live
-// only as long as their process, so there is no exported program to
-// serve. With DLIMG_PJRT_BUNDLE set, create_environment fails with a
-// message and is_backend_supported reports no backend.
+// Python-free serving mode: with DLIMG_PJRT_BUNDLE set to a bundle written
+// by the port's exporter (python -m dlimgedit_tpu_torch.tools.aot_export
+// --program serving), create_environment, process, compute_mask(s) and
+// compute_mask_batch run through the port's serving library,
+// libdlimgedit_tpu_torch_serving.so (torch_backend.hpp: C++ on libtorch,
+// CUDA graphs and the port's kernels on cuda:0), which this library
+// dlopens from its own directory, as the JAX package's library dlopens
+// its PJRT plugin. Nothing then starts the interpreter: load_image and
+// save_image keep to the native codecs, and generate_masks and
+// segment_objects fail, naming the slice that will serve them. The
+// variable keeps the JAX package's name, so a host configured for either
+// library works with the other's; a JAX bundle (plugin_path.txt, .pjrt
+// programs) is refused with a message that names the port's exporter.
+// Backend 1 is cuda:0 and fails without CUDA; backend 0 is the CPU.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
 #include <dlimgedit/detail/dlimgedit.h>
 
+#include <dlfcn.h>
+
+#include <algorithm>
 #include <cstdlib>
 #include <cstring>
 #include <exception>
 #include <mutex>
 #include <string>
+#include <vector>
 
+#include "bundle.hpp"
 #include "codecs.hpp"
+#include "torch_backend.hpp"
+
+// csrc/hostops.cpp (compiled into this library): the channel-map pack
+// shared with the Python path.
+extern "C" void dlimg_hostops_pack_rgb(const uint8_t* src,
+                                       int64_t src_stride, int h, int w,
+                                       int src_c, int m0, int m1, int m2,
+                                       uint8_t* dst, int64_t dst_stride,
+                                       int threads);
 
 #ifndef DLIMG_PYTHON_EXECUTABLE
 #error "build with native_build.py: it defines DLIMG_PYTHON_EXECUTABLE"
@@ -51,16 +74,13 @@
 namespace {
 
 char const kBridge[] = "dlimgedit_tpu_torch.native_bridge";
-char const kNoPjrt[] =
-    "DLIMG_PJRT_BUNDLE is set, but the PyTorch port has no PJRT serving "
-    "route (its executables are CUDA graphs, which live only as long as "
-    "their process); unset it to serve through the embedded interpreter";
+char const kServingLibrary[] = "libdlimgedit_tpu_torch_serving.so";
 
 thread_local std::string g_last_error;
 
 void set_error(std::string msg) { g_last_error = std::move(msg); }
 
-bool pjrt_requested() { return std::getenv("DLIMG_PJRT_BUNDLE") != nullptr; }
+char const* serving_bundle() { return std::getenv("DLIMG_PJRT_BUNDLE"); }
 
 // Exception -> error-code bridge (the reference's try_, dlimgedit.cpp:31-40):
 // nothing may throw across the extern-C function table — a bad_alloc in a
@@ -201,24 +221,330 @@ PyObject* bridge_call(char const* fn, PyObject* args /* steals */) {
 // ---------------------------------------------------------------------------
 
 struct dlimg_Environment_ {
-    PyObject* obj = nullptr;  // the bridge's Environment
+    PyObject* obj = nullptr;  // the bridge's Environment (embedded mode)
+    void* serving = nullptr;  // the serving library's backend (serving mode)
 };
 struct dlimg_Segmentation_ {
     PyObject* obj = nullptr;  // the bridge's Segmentation
     int width = 0;
     int height = 0;
+    // Serving mode: the embedding stays on the device.
+    void* serving = nullptr;
+    void* emb = nullptr;
+    int bucket = 0;
+    double scale = 1.0;  // double: image/resize.py's Python-float rounding
+    int crop_h = 0;
+    int crop_w = 0;
 };
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// Python-free serving mode (DLIMG_PJRT_BUNDLE; see the head of this file)
+// ---------------------------------------------------------------------------
+
+// libdlimgedit_tpu_torch_serving.so from this library's directory, loaded
+// once per process; its table or nullptr (the reason in last_error).
+struct ServingLibrary {
+    dlimg_serving_api const* api = nullptr;
+    std::string error;
+
+    static ServingLibrary& get() {
+        static ServingLibrary lib;
+        return lib;
+    }
+
+    bool ensure() {
+        static std::once_flag once;
+        std::call_once(once, [this] {
+            Dl_info info{};
+            if (!dladdr(reinterpret_cast<void*>(&serving_bundle), &info) ||
+                !info.dli_fname) {
+                error = "cannot find the directory of the port's C library";
+                return;
+            }
+            std::string dir = info.dli_fname;
+            dir = dir.substr(0, dir.rfind('/') + 1);
+            std::string path = dir + kServingLibrary;
+            void* lib = dlopen(path.c_str(), RTLD_NOW | RTLD_LOCAL);
+            if (!lib) {
+                char const* why = dlerror();
+                error = "loading " + path + " failed (" +
+                        std::string(why ? why : "unknown") +
+                        "): build it with python -m "
+                        "dlimgedit_tpu_torch.native_build --serving";
+                return;
+            }
+            auto init = reinterpret_cast<dlimg_serving_init_fn>(
+                dlsym(lib, "dlimg_serving_init"));
+            dlimg_serving_api const* table = init ? init() : nullptr;
+            if (!table || table->abi != DLIMG_SERVING_ABI) {
+                error = path + " is not a serving library of this build "
+                        "(no dlimg_serving_init of ABI " +
+                        std::to_string(DLIMG_SERVING_ABI) + ")";
+                return;
+            }
+            api = table;
+        });
+        if (!api) set_error(error);
+        return api != nullptr;
+    }
+};
+
+dlimg_serving_api const& serving() { return *ServingLibrary::get().api; }
+
+// A serving-library call that failed: its message into last_error.
+dlimg_Result serving_error(std::string const& what) {
+    set_error(what + ": " + serving().last_error());
+    return dlimg_error;
+}
+
+// Channel-index maps: types.py RGB_CHANNEL_MAP by the ABI's channel code.
+void rgb_map(int channels, int* c, int m[3]) {
+    switch (channels) {
+        case 1: *c = 1; m[0] = m[1] = m[2] = 0; break;           // mask
+        case 3: *c = 3; m[0] = 0; m[1] = 1; m[2] = 2; break;     // rgb
+        case 4: *c = 4; m[0] = 0; m[1] = 1; m[2] = 2; break;     // rgba
+        case 5: *c = 4; m[0] = 2; m[1] = 1; m[2] = 0; break;     // bgra
+        default: *c = 4; m[0] = 1; m[1] = 2; m[2] = 3; break;    // argb
+    }
+}
+
+dlimg_serving_arg host_arg(void const* data, std::vector<int64_t> const& dims,
+                           char const* dtype) {
+    return dlimg_serving_arg{data,    dims.data(), int(dims.size()),
+                             dtype,   nullptr,     nullptr,
+                             nullptr};
+}
+
+// The image packed into the embed program's canvas (the bucket's top-left
+// corner), by the serving library under its lock: a canvas is one buffer
+// per program, shared by every thread. It is not zeroed between calls:
+// the resample matrices give every pixel outside the image zero weight
+// (ops/preprocess.py's pooled canvases rely on the same).
+struct CanvasPack {
+    dlimg_ImageView const* img;
+    int64_t stride;
+    int channels;
+    int map[3];
+    int bucket;
+};
+
+void pack_canvas(void* ctx, void* dst) {
+    auto const* c = static_cast<CanvasPack const*>(ctx);
+    dlimg_hostops_pack_rgb(c->img->pixels, c->stride, c->img->height,
+                           c->img->width, c->channels, c->map[0], c->map[1],
+                           c->map[2], static_cast<uint8_t*>(dst),
+                           int64_t(c->bucket) * 3, 0);
+}
+
+// Segmentation.process: the smallest exported bucket that holds the image
+// (ops/preprocess.py pick_bucket over the bundle's buckets), the
+// resize-longest-side extent (image/resize.py), the native pack, then the
+// embed program; its embedding stays on the device.
+dlimg_Result serving_process(dlimg_Segmentation* out,
+                             dlimg_ImageView const* img,
+                             dlimg_Environment env) {
+    auto const& api = serving();
+    void* be = env->serving;
+    int const w = img->width, h = img->height;
+    int bucket = 0;
+    for (int i = 0, n = api.bucket_count(be); i < n; ++i) {
+        int b = api.bucket(be, i);
+        if (std::max(w, h) <= b && (bucket == 0 || b < bucket)) bucket = b;
+    }
+    if (bucket == 0) {
+        set_error("process: image " + std::to_string(w) + "x" +
+                  std::to_string(h) + " exceeds every canvas bucket of the "
+                  "serving bundle (export it with a larger --buckets)");
+        return dlimg_error;
+    }
+    double scale = double(api.image_size(be)) / double(std::max(w, h));
+    int tw = int(w * scale + 0.5);
+    int th = int(h * scale + 0.5);
+    std::string name = "serve_embed_" + std::string(api.variant(be)) + "_" +
+                       std::to_string(bucket);
+    // Packed straight into the program's canvas: on the card its pinned
+    // staging buffer (ops/preprocess.py packs into pinned memory too).
+    CanvasPack pack{img, 0, 0, {0, 0, 0}, bucket};
+    rgb_map(img->channels, &pack.channels, pack.map);
+    pack.stride = img->stride ? img->stride : int64_t(w) * pack.channels;
+    int32_t sizes[4] = {h, w, th, tw};
+    std::vector<int64_t> canvas_dims = {bucket, bucket, 3}, size_dims = {4};
+    dlimg_serving_arg args[2] = {host_arg(nullptr, canvas_dims, "uint8"),
+                                 host_arg(sizes, size_dims, "int32")};
+    args[0].fill = pack_canvas;
+    args[0].fill_ctx = &pack;
+    void* outs[4] = {};
+    int n_outs = 0;
+    if (api.run(be, name.c_str(), args, 2, outs, 4, &n_outs) != 0)
+        return serving_error("process");
+    if (n_outs != 1) {
+        for (int i = 0; i < n_outs; ++i) api.release(be, outs[i]);
+        set_error(name + ": " + std::to_string(n_outs) + " outputs, expected "
+                  "the embedding alone (stale or mismatched bundle)");
+        return dlimg_error;
+    }
+    auto* seg = new dlimg_Segmentation_{};
+    seg->width = w;
+    seg->height = h;
+    seg->serving = be;
+    seg->emb = outs[0];
+    seg->bucket = bucket;
+    seg->scale = scale;
+    seg->crop_h = th;
+    seg->crop_w = tw;
+    *out = seg;
+    return dlimg_success;
+}
+
+// pack_mask_bits rows (MSB first) of a bucket canvas -> an (h, w) 0/255
+// mask (Segmentation._unpack), eight pixels a table lookup.
+void unpack_mask(uint8_t const* packed, int bucket, int h, int w,
+                 uint8_t* dst) {
+    static auto const table = [] {
+        std::vector<uint8_t> t(256 * 8);
+        for (int b = 0; b < 256; ++b)
+            for (int k = 0; k < 8; ++k)
+                t[b * 8 + k] = (b >> (7 - k)) & 1 ? 255 : 0;
+        return t;
+    }();
+    int row_bytes = bucket / 8;
+    for (int y = 0; y < h; ++y) {
+        uint8_t const* row = packed + size_t(y) * row_bytes;
+        uint8_t* out = dst + size_t(y) * w;
+        int x = 0;
+        for (; x + 8 <= w; x += 8)
+            std::memcpy(out + x, &table[size_t(row[x >> 3]) * 8], 8);
+        for (; x < w; ++x) out[x] = table[size_t(row[x >> 3]) * 8 + (x & 7)];
+    }
+}
+
+// Segmentation._prompt_arrays: point -> (p, 1), (0, 0, -1); box ->
+// (tl, 2), (br, 3); coordinates through image/resize.py transform_point.
+void encode_prompt(double scale, int const* v, bool is_region,
+                   float pts[4], float lbl[2]) {
+    auto tp = [&](int x) { return float(int(x * scale + 0.5)); };
+    if (is_region) {
+        pts[0] = tp(v[0]);
+        pts[1] = tp(v[1]);
+        pts[2] = tp(v[2]);
+        pts[3] = tp(v[3]);
+        lbl[0] = 2.0f;
+        lbl[1] = 3.0f;
+    } else {
+        pts[0] = tp(v[0]);
+        pts[1] = tp(v[1]);
+        pts[2] = 0.0f;
+        pts[3] = 0.0f;
+        lbl[0] = 1.0f;
+        lbl[1] = -1.0f;
+    }
+}
+
+// One prompt through serve_decode (one mask) or serve_decode3 (three masks
+// and their accuracies): Segmentation._decode.
+dlimg_Result serving_get_mask(dlimg_Segmentation seg, int const* point,
+                              int const* region, uint8_t* const* out_masks,
+                              float* out_accuracies) {
+    auto const& api = serving();
+    void* be = seg->serving;
+    bool const single = out_masks[1] == nullptr;
+    if (!single && !point) {
+        set_error("compute_mask: three masks need a point prompt");
+        return dlimg_error;
+    }
+    float pts[4], lbl[2];
+    encode_prompt(seg->scale, point ? point : region, point == nullptr, pts,
+                  lbl);
+    int32_t sizes[4] = {seg->height, seg->width, seg->crop_h, seg->crop_w};
+    std::vector<int64_t> pts_dims = {1, 2, 2}, lbl_dims = {1, 2},
+                         size_dims = {4};
+    dlimg_serving_arg args[4] = {
+        dlimg_serving_arg{nullptr, nullptr, 0, nullptr, seg->emb, nullptr,
+                          nullptr},
+        host_arg(pts, pts_dims, "float32"), host_arg(lbl, lbl_dims, "float32"),
+        host_arg(sizes, size_dims, "int32")};
+    std::string name = std::string(single ? "serve_decode_" : "serve_decode3_") +
+                       api.variant(be) + "_" + std::to_string(seg->bucket);
+    void* outs[4] = {};
+    int n_outs = 0;
+    if (api.run(be, name.c_str(), args, 4, outs, 4, &n_outs) != 0)
+        return serving_error("compute_mask");
+    int const n_masks = single ? 1 : 3;
+    size_t const row_bytes = size_t(seg->bucket) / 8;
+    std::vector<uint8_t> packed(size_t(n_masks) * seg->bucket * row_bytes);
+    std::vector<float> iou(n_masks);
+    bool ok = n_outs == 2 &&
+              api.fetch(be, outs[1], iou.data(), iou.size() * sizeof(float)) ==
+                  0 &&
+              api.fetch(be, outs[0], packed.data(), packed.size()) == 0;
+    std::string why = n_outs == 2 ? std::string(api.last_error())
+                                  : name + ": " + std::to_string(n_outs) +
+                                        " outputs, expected 2 (stale or "
+                                        "mismatched bundle)";
+    for (int i = 0; i < n_outs; ++i) api.release(be, outs[i]);
+    if (!ok) {
+        set_error("compute_mask: " + why);
+        return dlimg_error;
+    }
+    for (int i = 0; i < n_masks; ++i) {
+        unpack_mask(packed.data() + size_t(i) * seg->bucket * row_bytes,
+                    seg->bucket, seg->height, seg->width, out_masks[i]);
+        if (out_accuracies) out_accuracies[i] = iou[i];
+    }
+    return dlimg_success;
+}
+
+// Each prompt through serve_decode, as the port's batch path decodes each
+// prompt at batch 1 (runtime/segmentation.py _build_batch_decode_fn): each
+// mask is compute_mask's for its prompt.
+dlimg_Result serving_compute_mask_batch(dlimg_Segmentation seg,
+                                        int const* prompts,
+                                        int const* is_region, int n,
+                                        uint8_t* const* out_masks,
+                                        float* out_accuracies) {
+    for (int i = 0; i < n; ++i) {
+        int const* v = prompts + size_t(i) * 4;
+        uint8_t* one[3] = {out_masks[i], nullptr, nullptr};
+        dlimg_Result r = serving_get_mask(
+            seg, is_region[i] ? nullptr : v, is_region[i] ? v : nullptr, one,
+            out_accuracies ? out_accuracies + i : nullptr);
+        if (r != dlimg_success) return r;
+    }
+    return dlimg_success;
+}
+
+dlimg_Result serving_unserved(char const* what) {
+    set_error(std::string(what) + ": the port's Python-free serving route "
+              "(DLIMG_PJRT_BUNDLE) does not serve it yet (a later slice of "
+              "ROADMAP A8); unset DLIMG_PJRT_BUNDLE to serve it through the "
+              "embedded interpreter");
+    return dlimg_error;
+}
 
 // ---------------------------------------------------------------------------
 // API entries
 // ---------------------------------------------------------------------------
 
 int api_is_backend_supported(dlimg_Backend backend) {
-    if (pjrt_requested()) {  // answered without starting Python
-        set_error(kNoPjrt);
-        return 0;
+    if (char const* bundle = serving_bundle()) {
+        // Answered without starting Python: the bundle's backend, and for
+        // the GPU a CUDA device as the serving library sees it.
+        try {
+            dlimg_bundle::Index index;
+            std::string problem = dlimg_bundle::read_index(bundle, &index);
+            if (!problem.empty()) {
+                set_error(problem);
+                return 0;
+            }
+            if (index.backend != (backend == dlimg_gpu ? "gpu" : "cpu"))
+                return 0;
+            if (backend == dlimg_cpu) return 1;
+            return ServingLibrary::get().ensure() && serving().cuda_available();
+        } catch (...) {
+            return 0;
+        }
     }
     try {
         if (!PyRuntime::get().ensure()) return 0;
@@ -241,9 +567,26 @@ dlimg_Result api_create_environment(dlimg_Environment* out,
         set_error("create_environment: invalid arguments (null pointer)");
         return dlimg_error;
     }
-    if (pjrt_requested()) {
-        set_error(kNoPjrt);
-        return dlimg_error;
+    if (char const* bundle = serving_bundle()) {
+        // The refusals of what is no bundle of the port's exporter come
+        // before the serving library (and libtorch) is loaded.
+        dlimg_bundle::Index index;
+        std::string problem = dlimg_bundle::read_index(bundle, &index);
+        if (!problem.empty()) {
+            set_error(problem);
+            return dlimg_error;
+        }
+        if (!ServingLibrary::get().ensure()) return dlimg_error;
+        void* be = serving().create(bundle, int(opts->backend));
+        if (!be) {
+            set_error(std::string("serving bundle ") + bundle + ": " +
+                      serving().last_error());
+            return dlimg_error;
+        }
+        auto* env = new dlimg_Environment_{};
+        env->serving = be;
+        *out = env;
+        return dlimg_success;
     }
     if (!PyRuntime::get().ensure()) return dlimg_error;
     Gil gil;
@@ -265,6 +608,7 @@ void api_destroy_environment(dlimg_Environment env) {
         Gil gil;
         Py_XDECREF(env->obj);
     }
+    if (env->serving) serving().destroy(env->serving);
     delete env;
 }
 
@@ -275,6 +619,7 @@ dlimg_Result api_process(dlimg_Segmentation* out, dlimg_ImageView const* img,
         set_error("process: invalid arguments (null environment/image)");
         return dlimg_error;
     }
+    if (env->serving) return serving_process(out, img, env);
     Gil gil;
     PyObject* r = bridge_call(
         "process",
@@ -298,6 +643,8 @@ dlimg_Result api_get_mask(dlimg_Segmentation seg, int const* point,
         set_error("compute_mask: invalid arguments (null handle/outputs)");
         return dlimg_error;
     }
+    if (seg->serving)
+        return serving_get_mask(seg, point, region, out_masks, out_accuracies);
     Gil gil;
     PyObject* py_point = point ? Py_BuildValue("(ii)", point[0], point[1])
                                : Py_NewRef(Py_None);
@@ -329,6 +676,9 @@ dlimg_Result api_compute_mask_batch(dlimg_Segmentation seg,
         set_error("compute_mask_batch: invalid arguments");
         return dlimg_error;
     }
+    if (seg->serving)
+        return serving_compute_mask_batch(seg, prompts, is_region, n,
+                                          out_masks, out_accuracies);
     Gil gil;
     PyObject* py_prompts = PyTuple_New(size_t(n) * 4);
     PyObject* py_isreg = PyTuple_New(n);
@@ -387,6 +737,7 @@ dlimg_Result api_generate_masks(dlimg_Segmentation seg,
         return dlimg_error;
     }
     *out_count = 0;
+    if (seg->serving) return serving_unserved("generate_masks");
     Gil gil;
     PyObject* ptrs = PyList_New(max_masks);
     if (!ptrs) {
@@ -433,6 +784,7 @@ void api_destroy_segmentation(dlimg_Segmentation seg) {
         Gil gil;
         Py_XDECREF(seg->obj);
     }
+    if (seg->emb) serving().release(seg->serving, seg->emb);
     delete seg;
 }
 
@@ -443,6 +795,7 @@ dlimg_Result api_segment_objects(dlimg_ImageView const* img, uint8_t* out_mask,
         set_error("segment_objects: invalid arguments (null handle/image)");
         return dlimg_error;
     }
+    if (env->serving) return serving_unserved("segment_objects");
     Gil gil;
     PyObject* r = bridge_call(
         "run_segment_objects",
@@ -478,6 +831,14 @@ dlimg_Result api_load_image(char const* filepath, int* out_extent,
             set_error("load_image: " + err);
             return dlimg_error;
         }
+    }
+    if (serving_bundle()) {
+        // Serving mode starts no interpreter: a container the native
+        // codecs do not read is an error here.
+        set_error("load_image: unrecognised image format (native codecs: "
+                  "png/jpeg where built, bmp/tga; the Python codec fallback "
+                  "is disabled in serving mode, DLIMG_PJRT_BUNDLE)");
+        return dlimg_error;
     }
     if (!PyRuntime::get().ensure()) return dlimg_error;
     Gil gil;
@@ -528,6 +889,18 @@ dlimg_Result api_save_image(dlimg_ImageView const* img, char const* filepath) {
             set_error("save_image: " + err);
             return dlimg_error;
         }
+    }
+    if (serving_bundle()) {
+        set_error(img->channels == 1 || img->channels == 3 ||
+                          img->channels == 4
+                      ? "save_image: native PNG encoder unavailable (built "
+                        "without libpng); the Python codec fallback is "
+                        "disabled in serving mode (DLIMG_PJRT_BUNDLE)"
+                      : "save_image: unsupported channel order for the "
+                        "native PNG encoder (mask/rgb/rgba); the Python codec "
+                        "fallback is disabled in serving mode "
+                        "(DLIMG_PJRT_BUNDLE)");
+        return dlimg_error;
     }
     if (!PyRuntime::get().ensure()) return dlimg_error;
     Gil gil;

@@ -222,16 +222,21 @@ dlimg::Environment make_env(Args const& a) {
 int cmd_info() {
     using namespace dlimg;
     std::printf("dlimg (dlimgedit_tpu_torch native CLI)\n");
-    std::printf("backend cpu: %s\n",
-                Environment::is_supported(Backend::cpu) ? "supported"
-                                                        : "unavailable");
-    std::printf("backend gpu: %s\n",
-                Environment::is_supported(Backend::gpu) ? "supported (cuda:0)"
-                                                        : "unavailable");
-    std::printf("runtime mode: embedded-Python PyTorch\n");
-    if (char const* bundle = std::getenv("DLIMG_PJRT_BUNDLE"))
-        std::printf("DLIMG_PJRT_BUNDLE=%s: the PyTorch port has no PJRT "
-                    "serving route; unset it\n", bundle);
+    bool const cpu = Environment::is_supported(Backend::cpu);
+    bool const gpu = Environment::is_supported(Backend::gpu);
+    std::printf("backend cpu: %s\n", cpu ? "supported" : "unavailable");
+    std::printf("backend gpu: %s\n", gpu ? "supported (cuda:0)"
+                                         : "unavailable");
+    char const* bundle = std::getenv("DLIMG_PJRT_BUNDLE");
+    std::printf("runtime mode: %s\n",
+                bundle ? "Python-free serving bundle (libtorch, no "
+                         "interpreter)"
+                       : "embedded-Python PyTorch");
+    if (bundle) {
+        std::printf("bundle: %s\n", bundle);
+        if (!cpu && !gpu)
+            std::printf("bundle refused: %s\n", detail::api().last_error());
+    }
     return 0;
 }
 

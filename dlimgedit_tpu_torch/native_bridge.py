@@ -32,8 +32,9 @@ comes from environment variables, the JAX bridge's:
                                   off, N = that many)
   DLIMG_AMG_GRID=16             - generate_masks prompt-grid side
                                   (default 32)
-  DLIMG_PJRT_BUNDLE=/path       - the port's C library refuses it: the port
-                                  has no PJRT serving route
+  DLIMG_PJRT_BUNDLE=/path       - never reaches this module: the port's C
+                                  library then serves the bundle with no
+                                  Python (native/src/torch_backend.hpp)
 
 Backend 0 is the CPU; backend 1 is ``cuda:0``, and without a CUDA device
 ``create_environment(1, ...)`` raises ``DlimgError``: it never serves on

@@ -1,7 +1,7 @@
 """Build the port's C library and its executables (the port's counterpart of
 native/CMakeLists.txt), with the C++ compiler called directly:
 
-    python -m dlimgedit_tpu_torch.native_build
+    python -m dlimgedit_tpu_torch.native_build [--serving]
 
 builds (when not built yet) and prints the paths, the compiler and the
 codecs found.
@@ -19,9 +19,26 @@ From ``dlimgedit_tpu_torch/native/`` and ``csrc/hostops.cpp`` it builds
   test_cpp_dynamic           the ``dlopen`` client (DLIMGEDIT_LOAD_DYNAMIC)
 
 each executable with an ``$ORIGIN`` rpath to the library, all into
-``dlimgedit_tpu_torch/_build/native_<hash>/``. The hash covers every source
-and every flag: the compiler, the interpreter's paths (baked into the
-library: see the head of capi.cpp) and the codecs. libpng and libjpeg are
+``dlimgedit_tpu_torch/_build/native_<hash>/``. With ``--serving``
+(``build_serving()``) it also builds, into the same directory,
+
+  libdlimgedit_tpu_torch_serving.so
+                             the Python-free serving backend
+                             (native/src/torch_backend.cpp,
+                             torch_programs.cpp) on libtorch's ATen, which
+                             the library dlopens when DLIMG_PJRT_BUNDLE is
+                             set; linked against the installed torch (its
+                             C++ ABI flag, an rpath to torch/lib, and on a
+                             CUDA build libtorch_cuda with --no-as-needed, so
+                             that its CUDA hooks register)
+  test_serving               the public C++ API against a serving bundle
+  test_serving_programs      each program of a bundle against its samples
+  test_bundle_parse          a bundle's specs against its .npy files
+
+so the embedded-mode library keeps its build time and links no libtorch.
+The hash covers every source and every flag: the compiler, the
+interpreter's paths (baked into the library: see the head of capi.cpp),
+the codecs and the torch installation. libpng and libjpeg are
 compiled in where a test program that includes their header links against
 them (CMake's ``find_package(PNG)`` / ``find_package(JPEG)`` in
 native/CMakeLists.txt); without them PNG and JPEG files go through the
@@ -43,6 +60,7 @@ import ctypes
 import fcntl
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -62,6 +80,16 @@ INCLUDE_DIR = NATIVE_DIR / "include"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIBRARY_NAME = "libdlimgedit_tpu_torch.so"
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-Wall", "-Wextra", "-pthread"]
+SERVING_LIBRARY = "libdlimgedit_tpu_torch_serving.so"
+SERVING_SOURCES = (NATIVE_DIR / "src" / "torch_backend.cpp",
+                   NATIVE_DIR / "src" / "torch_programs.cpp")
+# serving executable -> (source, what it links: "library", "serving", None)
+SERVING_EXECUTABLES = {
+    "test_serving": (NATIVE_DIR / "test" / "test_serving.cpp", "library"),
+    "test_serving_programs": (NATIVE_DIR / "test" / "test_serving_programs.cpp",
+                              "serving"),
+    "test_bundle_parse": (NATIVE_DIR / "test" / "test_bundle_parse.cpp", None),
+}
 LIBRARY_SOURCES = (NATIVE_DIR / "src" / "capi.cpp",
                    NATIVE_DIR / "src" / "codecs.cpp",
                    PACKAGE_DIR / "csrc" / "hostops.cpp")
@@ -122,6 +150,53 @@ def python_flags() -> Tuple[List[str], List[str]]:
             [str(library), f"-Wl,-rpath,{libdir}"])
 
 
+def torch_flags(cuda_home: Optional[str] = None) -> Tuple[List[str], List[str]]:
+    """(compile flags, link flags) of a translation unit on libtorch's ATen:
+    the installed torch's headers, its C++ ABI flag, and its libraries
+    with an rpath; on a CUDA build of torch also the CUDA headers
+    (``cuda_home``) and libtorch_cuda / libc10_cuda, linked with
+    --no-as-needed (nothing names them, but their static initialisers
+    register the CUDA hooks: without them a C++ process sees no CUDA).
+    The C++ standard follows torch: gnu++20 from torch 2.12 on."""
+    import torch
+
+    root = Path(torch.__file__).resolve().parent
+    lib = root / "lib"
+    if not (root / "include" / "ATen" / "ATen.h").is_file():
+        raise DlimgError(f"no ATen headers in {root / 'include'}: the serving "
+                         f"library is built against the installed torch")
+    major, minor = (int(v) for v in torch.__version__.split(".")[:2])
+    std = "-std=gnu++20" if (major, minor) >= (2, 12) else "-std=gnu++17"
+    cflags = [std, "-O2", "-fPIC", "-pthread", "-Wall", "-Wextra",
+              "-Wno-unused-parameter",
+              f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+              f"-I{root / 'include'}"]
+    libs = ["-lc10", "-ltorch_cpu", "-ltorch"]
+    if torch.version.cuda is not None and (lib / "libtorch_cuda.so").is_file():
+        if cuda_home is None:
+            from torch.utils.cpp_extension import CUDA_HOME
+
+            cuda_home = CUDA_HOME
+        if not cuda_home or not (Path(cuda_home) / "include"
+                                 / "cuda_runtime_api.h").is_file():
+            raise DlimgError(f"torch {torch.__version__} is a CUDA build, but "
+                             f"no CUDA headers were found (CUDA_HOME "
+                             f"{cuda_home}): the serving library includes "
+                             f"ATen's CUDA headers")
+        cflags += ["-DDLIMG_SERVING_CUDA", f"-I{Path(cuda_home) / 'include'}"]
+        libs += ["-lc10_cuda", "-ltorch_cuda"]
+    return cflags, [f"-L{lib}", "-Wl,--no-as-needed", *libs,
+                    "-Wl,--as-needed", f"-Wl,-rpath,{lib}"]
+
+
+def _torch_identity() -> List[str]:
+    """What of the installed torch a serving build depends on."""
+    import torch
+
+    return [torch.__version__, str(Path(torch.__file__).resolve().parent),
+            str(torch._C._GLIBCXX_USE_CXX11_ABI), str(torch.version.cuda)]
+
+
 def _run_all(commands: Dict[str, List[str]]) -> Dict[str, subprocess.CompletedProcess]:
     """Run the commands in parallel: -> name -> finished process."""
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -165,8 +240,13 @@ class NativeBuild:
     def library(self) -> Path:
         return self.directory / LIBRARY_NAME
 
+    @property
+    def serving_library(self) -> Path:
+        """The serving library (present after ``build_serving()``)."""
+        return self.directory / SERVING_LIBRARY
+
     def executable(self, name: str) -> Path:
-        if name not in EXECUTABLES:
+        if name not in EXECUTABLES and name not in SERVING_EXECUTABLES:
             raise DlimgError(f"no executable {name!r} in the native build")
         return self.directory / name
 
@@ -178,12 +258,73 @@ class NativeBuilder:
     def __init__(self):
         self._lock = threading.Lock()
         self._build: Optional[NativeBuild] = None
+        self._serving: Optional[NativeBuild] = None
 
     def get(self) -> NativeBuild:
         with self._lock:
             if self._build is None:
                 self._build = self._get()
             return self._build
+
+    def get_serving(self) -> NativeBuild:
+        """The build with the serving library and its test programs."""
+        build = self.get()
+        with self._lock:
+            if self._serving is None:
+                self._serving = self._get_serving(build)
+            return self._serving
+
+    def _get_serving(self, build: NativeBuild) -> NativeBuild:
+        with open(BUILD_DIR / "native.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if build.serving_library.is_file():
+                return build
+            t0 = time.perf_counter()
+            work = Path(tempfile.mkdtemp(prefix="serving-", dir=BUILD_DIR))
+            try:
+                self._compile_serving(build.compiler, build.directory, work)
+                # The library last: its presence marks a complete build.
+                for name in (*SERVING_EXECUTABLES, SERVING_LIBRARY):
+                    os.replace(work / name, build.directory / name)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            return NativeBuild(build.directory, build.compiler, build.codecs,
+                               time.perf_counter() - t0)
+
+    @staticmethod
+    def _compile_serving(cxx: str, directory: Path, work: Path,
+                         sources=SERVING_SOURCES,
+                         executables=SERVING_EXECUTABLES) -> None:
+        """Compile the serving library and its executables into `work`;
+        `directory` holds the embedded-mode library test_serving links."""
+        t_cflags, t_ldflags = torch_flags()
+        inc = [f"-I{INCLUDE_DIR}"]
+        obj = work / "obj"
+        obj.mkdir()
+        commands = {src.name: [cxx, *t_cflags, *inc, "-c", str(src),
+                               "-o", str(obj / (src.stem + ".o"))]
+                    for src in sources}
+        for name, (src, links) in executables.items():
+            flags = t_cflags if links == "serving" else CXX_FLAGS
+            commands[name] = [cxx, *flags, *inc, "-c", str(src),
+                              "-o", str(obj / f"{name}.o")]
+        _check(_run_all(commands))
+        library = work / SERVING_LIBRARY
+        _check(_run_all({SERVING_LIBRARY: [
+            cxx, "-shared", "-pthread", f"-Wl,-soname,{SERVING_LIBRARY}",
+            "-o", str(library), *(str(obj / (src.stem + ".o"))
+                                  for src in sources),
+            *t_ldflags, "-ldl"]}))
+        links = {}
+        for name, (_, what) in executables.items():
+            extra = {"library": [str(directory / LIBRARY_NAME),
+                                 "-Wl,-rpath,$ORIGIN", "-ldl"],
+                     "serving": [str(library), "-Wl,-rpath,$ORIGIN",
+                                 *t_ldflags],
+                     None: []}[what]
+            links[name] = [cxx, "-pthread", "-o", str(work / name),
+                           str(obj / f"{name}.o"), *extra]
+        _check(_run_all(links))
 
     def _get(self) -> NativeBuild:
         cxx = compiler()
@@ -202,7 +343,7 @@ class NativeBuilder:
             h.update(str(path.relative_to(PACKAGE_DIR)).encode())
             h.update(path.read_bytes())
         h.update(json.dumps([cxx, cflags, py_cflags, py_ldflags,
-                             codec_ldflags]).encode())
+                             codec_ldflags, _torch_identity()]).encode())
         target = BUILD_DIR / f"native_{h.hexdigest()[:16]}"
         with open(BUILD_DIR / "native.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
@@ -239,7 +380,7 @@ class NativeBuilder:
             cxx, "-shared", "-pthread", f"-Wl,-soname,{LIBRARY_NAME}",
             "-o", str(library),
             *(str(obj / (src.stem + ".o")) for src in LIBRARY_SOURCES),
-            *codec_ldflags, *py_ldflags]}))
+            *codec_ldflags, *py_ldflags, "-ldl"]}))
         links = {}
         for name, (_, links_library) in EXECUTABLES.items():
             extra = ([str(library), "-Wl,-rpath,$ORIGIN"] if links_library
@@ -263,6 +404,12 @@ BUILDER = NativeBuilder()
 def build() -> NativeBuild:
     """The port's native build, built first if needed."""
     return BUILDER.get()
+
+
+def build_serving() -> NativeBuild:
+    """The native build with the serving library and its test programs,
+    built first if needed."""
+    return BUILDER.get_serving()
 
 
 # The table of native/include/dlimgedit/detail/dlimgedit.h as ctypes sees
@@ -328,8 +475,14 @@ def load_api(library: Path) -> DlimgApi:
     return api
 
 
-def main() -> int:
-    b = build()
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--serving"]):
+        print("usage: python -m dlimgedit_tpu_torch.native_build [--serving]",
+              file=sys.stderr)
+        return 2
+    serving = argv == ["--serving"]
+    b = build_serving() if serving else build()
     took = ("already built" if b.seconds is None
             else f"built in {b.seconds:.2f} s")
     print(f"compiler {b.compiler}; codecs: "
@@ -338,6 +491,10 @@ def main() -> int:
     print(f"{'library':<17}{b.library}")
     for name in EXECUTABLES:
         print(f"{name:<17}{b.executable(name)}")
+    if serving:
+        print(f"{'serving library':<17}{b.serving_library}")
+        for name in SERVING_EXECUTABLES:
+            print(f"{name:<17}{b.executable(name)}")
     return 0
 
 

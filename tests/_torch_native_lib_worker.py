@@ -14,8 +14,8 @@ serves as the environment's ``general`` model (the test seam of
 tests/test_torch_native_bridge.py: the bridge's ``create_environment`` is
 wrapped to keep the environments it makes); TIFF is an image file the
 native codecs leave to the bridge. The error paths are checked here:
-backend 1 without CUDA and ``DLIMG_PJRT_BUNDLE`` must fail with the
-port's messages. It exits non-zero when a call fails, when the library
+backend 1 without CUDA and ``DLIMG_PJRT_BUNDLE`` naming a directory that
+is no serving bundle must fail with the port's messages. It exits non-zero when a call fails, when the library
 did not import the bridge itself, or when jax or the JAX package was
 imported. The environment variables (DLIMG_*) come from the caller.
 """
@@ -136,7 +136,7 @@ def main(out_path: str, model_dir: str, birefnet_tree: str, tif: str) -> int:
                                      model_directory=model_dir.encode())
     os.environ["DLIMG_PJRT_BUNDLE"] = model_dir
     check(api.create_environment(ctypes.byref(handle), ctypes.byref(opts)) == 1
-          and b"no PJRT serving route" in api.last_error(),
+          and b"holds no serving.txt" in api.last_error(),
           f"DLIMG_PJRT_BUNDLE: {api.last_error()}")
     check(api.is_backend_supported(0) == 0,
           "DLIMG_PJRT_BUNDLE: backend 0 still reported")

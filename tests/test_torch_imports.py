@@ -66,3 +66,11 @@ def test_the_examples_and_the_memory_tool_are_scanned(module):
     """The examples and the device-memory tool are the port's own (the
     repo's examples/ and tools/ have JAX scripts of the same names)."""
     assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "tools/aot_export.py", "tools/serving_check.py"])
+def test_the_serving_exporter_and_check_are_scanned(module):
+    """The serving bundle's exporter and its end-to-end check are the
+    port's own (the repo's tools/ has JAX scripts of the same names)."""
+    assert ROOT / "dlimgedit_tpu_torch" / module in PORT_FILES

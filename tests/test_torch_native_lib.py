@@ -15,9 +15,11 @@ sam_image_size 64 on JAX's seed-0 ``init_sam`` bundle.
   generated masks), BiRefNet within 1 quantum, image files equal (decoded
   pixels where the build has libpng: the library encodes with it, the
   bridges with Pillow). The worker checks the error paths: backend 1
-  without CUDA and DLIMG_PJRT_BUNDLE fail with the port's messages.
+  without CUDA, and DLIMG_PJRT_BUNDLE naming a directory that is no
+  serving bundle, fail with the port's messages.
 - ``dlimg segment`` writes the port's Python API's mask; ``dlimg
-  apply-mask`` starts no Python; ``dlimg info`` reports the port's mode;
+  apply-mask`` starts no Python; ``dlimg info`` reports the port's mode
+  (and, with DLIMG_PJRT_BUNDLE, the serving mode without starting Python);
   ``test_cpp_api`` and ``test_cpp_dynamic`` exit 0.
 """
 
@@ -340,10 +342,14 @@ def test_cli_apply_mask_starts_no_python(build, tmp_path):
     assert "backend cpu: supported" in r.stdout
     assert "backend gpu: unavailable" in r.stdout  # no CUDA device here
     assert marker.exists()
+    marker.unlink()
     r = subprocess.run([str(build.executable("dlimg")), "info"],
                        env={**env, "DLIMG_PJRT_BUNDLE": str(tmp_path)},
                        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0 and "no PJRT serving route" in r.stdout
+    assert r.returncode == 0, r.stderr
+    assert "runtime mode: Python-free serving bundle" in r.stdout
+    assert "bundle refused" in r.stdout and "holds no serving.txt" in r.stdout
+    assert not marker.exists()
 
 
 @pytest.mark.parametrize("name", ["test_cpp_api", "test_cpp_dynamic"])
