@@ -339,7 +339,22 @@ printing its seconds:
      printed) and `test_bundle_parse`; then `process_ms` and `mask_ms` through this
      route, the embedded-interpreter library and the direct call, in this
      interpreter, medians of 20 with the three interleaved, the serving
-     library's K1 / K2 counts over its route's calls exact.
+     library's K1 / K2 counts over its route's calls exact;
+ 18. the Python-free serving route with the SAM ViT encoders on cuda:0:
+     ViT-B (with `--batch-sizes 4,8`) and ViT-H bundles, full width and
+     depth, bf16, seeded weights (buckets 512 and 1024), as phase 17:
+     `test_serving gpu` in a fresh process (8 points, 4 boxes, three
+     masks, batches of 3 and 12 through the batch programs (4; 8 then 4),
+     the two-thread leg with batches; every mask and accuracy the direct
+     Python call's; K1 1 / K3 23 / K4 4 / K5 8 per ViT-B `process` and
+     1 / 63 / 4 / 28 per ViT-H `process`, counted by the serving library
+     (checked here, not added to the kernels' sums); every graph's replay
+     equal to its eager run; no marker, Py_IsInitialized false);
+     `test_serving_programs gpu` over ViT-B's programs (the batch programs
+     included) and `test_bundle_parse`; then `process_ms` and `mask_ms`
+     through the route against the direct call, in this interpreter,
+     medians of 20 interleaved, the counts over the route's calls exact.
+     ViT-L runs ViT-B's code at other widths and is not run here.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -5301,8 +5316,10 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
                              r.stdout):
                 fail("phase 17: test_serving's concurrent leg did not hold")
             n_pass = p.stdout.count(": PASS")
-            if n_pass != 6:
-                fail(f"phase 17: test_serving_programs passed {n_pass} of 6")
+            n_programs = len(serving_check.programs(bundle))
+            if n_pass != n_programs or n_programs != 6:
+                fail(f"phase 17: test_serving_programs passed {n_pass} of "
+                     f"the bundle's {n_programs} programs (6 expected)")
             if "the host's float32 flags after the programs: put back" \
                     not in p.stdout:
                 fail("phase 17: the serving library left the host's float32 "
@@ -5310,8 +5327,9 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
             held_w = re.search(r"weights held on the device: .*", p.stdout)
             print(f"phase 17 test_serving_programs gpu: "
                   f"{held_w and held_w.group(0)} on {gpu_line}", flush=True)
-            print(f"phase 17 test_serving_programs gpu: 6 of 6 programs "
-                  f"byte-equal to the exporter's outputs; "
+            print(f"phase 17 test_serving_programs gpu: {n_pass} of "
+                  f"{n_programs} programs byte-equal to the exporter's "
+                  f"outputs; "
                   f"{p.stdout.strip().splitlines()[-1]}", flush=True)
 
             # The three routes in this interpreter, interleaved.
@@ -5376,12 +5394,12 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
                 lambda: api.destroy_segmentation(c_process(served)),
                 lambda: api.destroy_segmentation(c_process(embedded)),
                 lambda: dl.Segmentation.process(img, env)])
-            k1, k2 = ctypes.c_int64(), ctypes.c_int64()
-            lib.dlimg_serving_launches(ctypes.byref(k1), ctypes.byref(k2))
-            if (k1.value, k2.value) != (21 * LN_PER_PROCESS,
-                                        21 * ATTN_PER_PROCESS):
-                fail(f"phase 17: the serving library counted K1 {k1.value}, "
-                     f"K2 {k2.value} over its route's 21 process calls")
+            k = (ctypes.c_int64 * 5)()
+            lib.dlimg_serving_launches(k, 5)
+            if tuple(k) != (21 * LN_PER_PROCESS, 21 * ATTN_PER_PROCESS, 0, 0,
+                            0):
+                fail(f"phase 17: the serving library counted K1..K5 "
+                     f"{tuple(k)} over its route's 21 process calls")
             mask_ms = interleaved_ms(torch, [
                 lambda: c_mask("serving"), lambda: c_mask("embedded"),
                 lambda: direct.compute_mask(dl.Point(point.x, point.y))])
@@ -5391,7 +5409,7 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
                   f"serving={mask_ms[0]:.3f} embedded={mask_ms[1]:.3f} direct="
                   f"{mask_ms[2]:.3f} (medians of 20, the three routes "
                   f"interleaved in this interpreter; the serving library "
-                  f"launched K1 {k1.value} and K2 {k2.value} times over its "
+                  f"launched K1 {k[0]} and K2 {k[1]} times over its "
                   f"21 process calls, 22 and 10 a call)", flush=True)
             for s_ in segs.values():
                 api.destroy_segmentation(s_)
@@ -5403,6 +5421,175 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
             builder.join()
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# Phase 18: the SAM ViTs through the Python-free route (variant, batch
+# sizes, depth); launches per `process` are vit_per_process(depth).
+SERVING_VITS = (("vit_b", "4,8", 12), ("vit_h", "", 32))
+
+
+def launch_lines(re, stdout: str) -> list:
+    """test_serving's "launches per process" lines -> [(what, (K1..K5))]."""
+    return [(m[0], tuple(int(v) for v in m[1:])) for m in re.findall(
+        r"launches per process (\S+(?: \(replay\))?): K1 (\d+) K2 (\d+) "
+        r"K3 (\d+) K4 (\d+) K5 (\d+)", stdout)]
+
+
+def per_process_counts(depth: int) -> tuple:
+    """K1..K5 per ViT `process` on the route, in the library's order."""
+    want = vit_per_process(depth)
+    return (want["fused_layer_norm"], 0, want["fused_add_layer_norm"],
+            want["relpos_attention_global"], want["relpos_attention_windowed"])
+
+
+def drive_python_free_vits(torch, np, dl, gpu_line) -> None:
+    """Phase 18, the SAM ViTs through the Python-free serving route on
+    cuda:0 (the module docstring's item 18)."""
+    import ctypes
+    import re
+
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.tools import aot_export, serving_check
+
+    t0 = time.perf_counter()
+    b = native_build.build_serving()  # phase 17's build
+    lib = ctypes.CDLL(str(b.serving_library))
+    api = native_build.load_api(b.library)
+    opts = native_build.DlimgOptions(backend=1, model_directory=b".")
+    saved = {k: os.environ.get(k) for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE")}
+    for variant, batch_sizes, depth in SERVING_VITS:
+        t1 = time.perf_counter()
+        want = per_process_counts(depth)
+        handle = None
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            bundle, check = work / "bundle", work / "check"
+            try:
+                env = aot_export.export_serving(serving_check.bundle_args(
+                    bundle, 1024, "gpu", variant=variant,
+                    batch_sizes=batch_sizes))
+                goldens = serving_check.write_goldens(
+                    env, check, 1024, SERVING_POINTS, SERVING_BOXES)
+                t_export = time.perf_counter() - t1
+                try:
+                    r = serving_check.run_test_serving(b, bundle, check, work,
+                                                       "gpu")
+                    p = (serving_check.run_test_programs(b, bundle, work, "gpu")
+                         if batch_sizes else None)
+                except RuntimeError as e:
+                    fail(f"phase 18 {variant}: {e}")
+                counts = launch_lines(re, r.stdout)
+                if len(counts) != 3 or any(c != want for _, c in counts):
+                    fail(f"phase 18 {variant}: test_serving's launches per "
+                         f"process {counts}, want K1..K5 {want} each")
+                n = SERVING_POINTS + SERVING_BOXES
+                for k in (3, n):
+                    if not re.search(rf"compute_mask_batch of {k} vs the "
+                                     rf"Python API: 0/\d+ pixels differ, "
+                                     rf"0/{k} accuracies", r.stdout):
+                        fail(f"phase 18 {variant}: the batch of {k} differs")
+                if not re.search(r"concurrent process of 2 images x \d+ "
+                                 r"rounds vs the Python API: 0/\d+ pixels "
+                                 r"differ; batches of \d+: 0 pixels",
+                                 r.stdout):
+                    fail(f"phase 18 {variant}: the concurrent leg did not "
+                         f"hold")
+                held = re.search(r"replays equal eager: (\d+) graphs \(the "
+                                 r"bundle has (\d+) programs\)", r.stdout)
+                if not held or int(held.group(1)) < 5:
+                    fail(f"phase 18 {variant}: graphs held against their "
+                         f"eager runs: {held and held.group(0)}")
+                for line in r.stdout.splitlines():
+                    if not line.startswith(("point mask", "box mask")):
+                        print(f"phase 18 {variant} test_serving: {line}",
+                              flush=True)
+                if p is not None:
+                    n_programs = len(serving_check.programs(bundle))
+                    n_pass = p.stdout.count(": PASS")
+                    if n_pass != n_programs:
+                        fail(f"phase 18 {variant}: test_serving_programs "
+                             f"passed {n_pass} of {n_programs}")
+                    for line in p.stdout.splitlines():
+                        if line.startswith(("programs byte-equal",
+                                            "weights held", "serving.txt",
+                                            "bundle parse")):
+                            print(f"phase 18 {variant} test_serving_programs "
+                                  f"gpu: {line}", flush=True)
+
+                # The route and the direct call in this interpreter.
+                os.environ["DLIMG_PJRT_BUNDLE"] = str(bundle)
+                served = ctypes.c_void_p()
+                if api.create_environment(ctypes.byref(served),
+                                          ctypes.byref(opts)):
+                    fail(f"phase 18 {variant} create_environment: "
+                         f"{api.last_error().decode()}")
+                handle = served
+                (w, h), _ = serving_check.image_sizes(1024)
+                arr = np.frombuffer((check / "image.raw").read_bytes(),
+                                    np.uint8).reshape(h, w, 4)
+                buf, stride = c_pixels(ctypes, np, arr, 0)
+                view = native_build.DlimgImageView(
+                    width=w, height=h, channels=4, stride=stride,
+                    pixels=ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)))
+                img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr.copy())
+                point = goldens["prompts"][0]
+                c_point = (ctypes.c_int * 2)(point.x, point.y)
+                out_mask, addrs = c_masks(ctypes, 1, w * h)
+                slot = (ctypes.POINTER(ctypes.c_uint8) * 3)(
+                    ctypes.cast(addrs[0], ctypes.POINTER(ctypes.c_uint8)),
+                    None, None)
+
+                def c_process():
+                    s_ = ctypes.c_void_p()
+                    if api.process_image_for_segmentation(
+                            ctypes.byref(s_), ctypes.byref(view), served):
+                        fail(f"phase 18 process: {api.last_error().decode()}")
+                    return s_
+
+                seg = c_process()
+                direct = dl.Segmentation.process(img, env)
+
+                def c_mask():
+                    if api.get_segmentation_mask(seg, c_point, None, slot,
+                                                 None):
+                        fail(f"phase 18 compute_mask: "
+                             f"{api.last_error().decode()}")
+
+                c_mask()
+                if bytes(out_mask[0]) != goldens["masks"][0].tobytes():
+                    fail(f"phase 18 {variant}: the served mask in this "
+                         f"interpreter differs from the Python API's")
+                lib.dlimg_serving_reset_launches()
+                process_ms = interleaved_ms(torch, [
+                    lambda: api.destroy_segmentation(c_process()),
+                    lambda: dl.Segmentation.process(img, env)])
+                k = (ctypes.c_int64 * 5)()
+                lib.dlimg_serving_launches(k, 5)
+                if tuple(k) != tuple(21 * v for v in want):
+                    fail(f"phase 18 {variant}: the serving library counted "
+                         f"K1..K5 {tuple(k)} over its route's 21 process "
+                         f"calls, want 21 x {want}")
+                mask_ms = interleaved_ms(torch, [
+                    c_mask,
+                    lambda: direct.compute_mask(dl.Point(point.x, point.y))])
+                print(f"e2e Python-free serving {variant} {w}x{h} on "
+                      f"{gpu_line}: process_ms serving={process_ms[0]:.3f} "
+                      f"direct={process_ms[1]:.3f}; mask_ms serving="
+                      f"{mask_ms[0]:.3f} direct={mask_ms[1]:.3f} (medians of "
+                      f"20, interleaved in this interpreter; the serving "
+                      f"library launched K1..K5 {tuple(k)} over its 21 "
+                      f"process calls, {want} a call); export and goldens "
+                      f"{t_export:.1f} s", flush=True)
+                api.destroy_segmentation(seg)
+                del direct, goldens, env
+            finally:
+                if handle is not None:
+                    api.destroy_environment(handle)
+                restore_vars(saved)
+        torch.cuda.empty_cache()
+        print(f"phase 18 {variant}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def seeded_birefnet(bn, torch, cfg):
@@ -5672,6 +5859,9 @@ def main() -> int:
 
     # -- 17. the Python-free serving route ---------------------------------
     drive_python_free(torch, np, dl, gpu_line)
+
+    # -- 18. the SAM ViTs and the batch programs on that route -------------
+    drive_python_free_vits(torch, np, dl, gpu_line)
 
     kernels = []
     for name, source, replaces in KERNELS:

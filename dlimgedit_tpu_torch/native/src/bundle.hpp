@@ -16,7 +16,7 @@
 namespace dlimg_bundle {
 
 // tools/aot_export.py FORMAT.
-constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-2";
+constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-3";
 constexpr char kExporter[] =
     "python -m dlimgedit_tpu_torch.tools.aot_export --program serving";
 
@@ -27,10 +27,43 @@ struct Index {
   int image_size = 1024;
   int decoder_heads = 8;
   std::vector<int> buckets;   // ascending
+  std::vector<int> batch;     // serve_decode_batch<N> sizes, ascending
+  std::string encoder;        // "tinyvit" | "vit"
+  // The encoder's kernel route (models/sam.py with_kernels): K1 / K2 for
+  // TinyViT, K1 / K3 / K4 / K5 for a ViT; off, the plain versions run.
+  bool kernel_route = false;
+  // A ViT's geometry (SamViTConfig).
+  int num_heads = 0;
+  int window_size = 0;
+  std::vector<int> global_attn_indexes;
+  int patch_size = 16;
+  double layer_norm_eps = 1e-6;
 };
 
+// "a,b,c" -> ints; throws on a token that is not one.
+inline std::vector<int> int_list(const std::string& val) {
+  std::vector<int> out;
+  std::stringstream bs(val);
+  std::string tok;
+  while (std::getline(bs, tok, ',')) {
+    if (tok.empty()) continue;
+    size_t used = 0;
+    int v = std::stoi(tok, &used);
+    if (used != tok.size()) throw std::invalid_argument(tok);
+    out.push_back(v);
+  }
+  return out;
+}
+
+inline bool flag(const std::string& val) {
+  if (val != "0" && val != "1") throw std::invalid_argument(val);
+  return val == "1";
+}
+
 // Reads dir/serving.txt into *out. -> "" for a bundle of the port's
-// exporter, else why `dir` is none.
+// exporter, else why `dir` is none: a JAX bundle, another format (an
+// older export), a malformed or missing row, or a gpu bundle with the
+// encoder's kernel route off.
 inline std::string read_index(const std::string& dir, Index* out) {
   const std::string where = "DLIMG_PJRT_BUNDLE=" + dir;
   const std::string write = ": write the port's bundle with " +
@@ -56,22 +89,40 @@ inline std::string read_index(const std::string& dir, Index* out) {
       else if (key == "compute_dtype") idx.compute_dtype = val;
       else if (key == "image_size") idx.image_size = std::stoi(val);
       else if (key == "decoder_heads") idx.decoder_heads = std::stoi(val);
-      else if (key == "buckets") {
-        std::stringstream bs(val);
-        std::string tok;
-        while (std::getline(bs, tok, ','))
-          if (!tok.empty()) idx.buckets.push_back(std::stoi(tok));
-      }
+      else if (key == "buckets") idx.buckets = int_list(val);
+      else if (key == "batch") idx.batch = int_list(val);
+      else if (key == "encoder") idx.encoder = val;
+      else if (key == "kernel_route") idx.kernel_route = flag(val);
+      else if (key == "num_heads") idx.num_heads = std::stoi(val);
+      else if (key == "window_size") idx.window_size = std::stoi(val);
+      else if (key == "global_attn_indexes")
+        idx.global_attn_indexes = int_list(val);
+      else if (key == "patch_size") idx.patch_size = std::stoi(val);
+      else if (key == "layer_norm_eps") idx.layer_norm_eps = std::stod(val);
     }
   } catch (const std::exception&) {
     return where + ": malformed serving.txt line '" + line + "'" + write;
   }
   if (format != kFormat)
-    return where + ": serving.txt does not name the port's bundle format " +
-           std::string(kFormat) + write;
+    return where + ": serving.txt names the bundle format '" + format +
+           "', not the port's " + std::string(kFormat) +
+           " (an older export is not read)" + write;
   if (idx.buckets.empty() || idx.variant.empty() || idx.backend.empty())
     return where + ": serving.txt has no variant, backend or buckets" + write;
+  if (idx.encoder != "tinyvit" && idx.encoder != "vit")
+    return where + ": serving.txt names no encoder (tinyvit or vit)" + write;
+  if (idx.encoder == "vit" &&
+      (idx.num_heads <= 0 || idx.window_size <= 0 || idx.patch_size <= 0))
+    return where + ": serving.txt lacks the ViT's num_heads, window_size or "
+                   "patch_size" + write;
+  for (int n : idx.batch)
+    if (n < 1)
+      return where + ": serving.txt has a batch size below 1" + write;
+  if (idx.backend == "gpu" && !idx.kernel_route)
+    return where + ": a gpu bundle must have the encoder's kernel route on "
+                   "(kernel_route 1)" + write;
   std::sort(idx.buckets.begin(), idx.buckets.end());
+  std::sort(idx.batch.begin(), idx.batch.end());
   *out = idx;
   return "";
 }

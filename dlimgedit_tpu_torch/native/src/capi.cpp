@@ -25,7 +25,9 @@
 // Python-free serving mode: with DLIMG_PJRT_BUNDLE set to a bundle written
 // by the port's exporter (python -m dlimgedit_tpu_torch.tools.aot_export
 // --program serving), create_environment, process, compute_mask(s) and
-// compute_mask_batch run through the port's serving library,
+// compute_mask_batch of the bundle's variant (MobileSAM or a SAM ViT;
+// compute_mask_batch through the bundle's batch programs where it has
+// them) run through the port's serving library,
 // libdlimgedit_tpu_torch_serving.so (torch_backend.hpp: C++ on libtorch,
 // CUDA graphs and the port's kernels on cuda:0), which this library
 // dlopens from its own directory, as the JAX package's library dlopens
@@ -442,39 +444,32 @@ void encode_prompt(double scale, int const* v, bool is_region,
     }
 }
 
-// One prompt through serve_decode (one mask) or serve_decode3 (three masks
-// and their accuracies): Segmentation._decode.
-dlimg_Result serving_get_mask(dlimg_Segmentation seg, int const* point,
-                              int const* region, uint8_t* const* out_masks,
-                              float* out_accuracies) {
+// Decode program `name` on `rows` prompts (pts: rows x 2 x 2, lbl: rows x
+// 2) against the segmentation's embedding, which gives `produced` masks and
+// IoUs; the first `n_masks` masks unpacked into out_masks and their IoUs
+// into out_accuracies (if given).
+dlimg_Result serving_decode(dlimg_Segmentation seg, std::string const& name,
+                            char const* what, float const* pts,
+                            float const* lbl, int rows, int produced,
+                            int n_masks, uint8_t* const* out_masks,
+                            float* out_accuracies) {
     auto const& api = serving();
     void* be = seg->serving;
-    bool const single = out_masks[1] == nullptr;
-    if (!single && !point) {
-        set_error("compute_mask: three masks need a point prompt");
-        return dlimg_error;
-    }
-    float pts[4], lbl[2];
-    encode_prompt(seg->scale, point ? point : region, point == nullptr, pts,
-                  lbl);
     int32_t sizes[4] = {seg->height, seg->width, seg->crop_h, seg->crop_w};
-    std::vector<int64_t> pts_dims = {1, 2, 2}, lbl_dims = {1, 2},
+    std::vector<int64_t> pts_dims = {rows, 2, 2}, lbl_dims = {rows, 2},
                          size_dims = {4};
     dlimg_serving_arg args[4] = {
         dlimg_serving_arg{nullptr, nullptr, 0, nullptr, seg->emb, nullptr,
                           nullptr},
         host_arg(pts, pts_dims, "float32"), host_arg(lbl, lbl_dims, "float32"),
         host_arg(sizes, size_dims, "int32")};
-    std::string name = std::string(single ? "serve_decode_" : "serve_decode3_") +
-                       api.variant(be) + "_" + std::to_string(seg->bucket);
     void* outs[4] = {};
     int n_outs = 0;
     if (api.run(be, name.c_str(), args, 4, outs, 4, &n_outs) != 0)
-        return serving_error("compute_mask");
-    int const n_masks = single ? 1 : 3;
-    size_t const row_bytes = size_t(seg->bucket) / 8;
-    std::vector<uint8_t> packed(size_t(n_masks) * seg->bucket * row_bytes);
-    std::vector<float> iou(n_masks);
+        return serving_error(what);
+    size_t const mask_bytes = size_t(seg->bucket) * (size_t(seg->bucket) / 8);
+    std::vector<uint8_t> packed(size_t(produced) * mask_bytes);
+    std::vector<float> iou(produced);
     bool ok = n_outs == 2 &&
               api.fetch(be, outs[1], iou.data(), iou.size() * sizeof(float)) ==
                   0 &&
@@ -485,41 +480,102 @@ dlimg_Result serving_get_mask(dlimg_Segmentation seg, int const* point,
                                         "mismatched bundle)";
     for (int i = 0; i < n_outs; ++i) api.release(be, outs[i]);
     if (!ok) {
-        set_error("compute_mask: " + why);
+        set_error(std::string(what) + ": " + why);
         return dlimg_error;
     }
     for (int i = 0; i < n_masks; ++i) {
-        unpack_mask(packed.data() + size_t(i) * seg->bucket * row_bytes,
-                    seg->bucket, seg->height, seg->width, out_masks[i]);
+        unpack_mask(packed.data() + size_t(i) * mask_bytes, seg->bucket,
+                    seg->height, seg->width, out_masks[i]);
         if (out_accuracies) out_accuracies[i] = iou[i];
     }
     return dlimg_success;
 }
 
-// Each prompt through serve_decode, as the port's batch path decodes each
-// prompt at batch 1 (runtime/segmentation.py _build_batch_decode_fn): each
-// mask is compute_mask's for its prompt.
+std::string program_name(dlimg_Segmentation seg, std::string const& head) {
+    return head + "_" + serving().variant(seg->serving) + "_" +
+           std::to_string(seg->bucket);
+}
+
+// One prompt through serve_decode (one mask) or serve_decode3 (three masks
+// and their accuracies): Segmentation._decode.
+dlimg_Result serving_get_mask(dlimg_Segmentation seg, int const* point,
+                              int const* region, uint8_t* const* out_masks,
+                              float* out_accuracies) {
+    bool const single = out_masks[1] == nullptr;
+    if (!single && !point) {
+        set_error("compute_mask: three masks need a point prompt");
+        return dlimg_error;
+    }
+    float pts[4], lbl[2];
+    encode_prompt(seg->scale, point ? point : region, point == nullptr, pts,
+                  lbl);
+    int const n_masks = single ? 1 : 3;
+    return serving_decode(
+        seg, program_name(seg, single ? "serve_decode" : "serve_decode3"),
+        "compute_mask", pts, lbl, 1, n_masks, n_masks, out_masks,
+        out_accuracies);
+}
+
+// compute_mask_batch through the bundle's serve_decode_batch<N> programs
+// (the JAX package's pjrt_compute_mask_batch): the smallest exported size
+// that covers what is left of the request, else the largest, and loop;
+// slots past the request hold the (-1, -1) "no prompt" labels. Each mask
+// is compute_mask's for its prompt (runtime/segmentation.py
+// _build_batch_decode_fn decodes each prompt at batch 1). A bundle
+// exported without --batch-sizes takes each prompt through serve_decode.
 dlimg_Result serving_compute_mask_batch(dlimg_Segmentation seg,
                                         int const* prompts,
                                         int const* is_region, int n,
                                         uint8_t* const* out_masks,
                                         float* out_accuracies) {
-    for (int i = 0; i < n; ++i) {
-        int const* v = prompts + size_t(i) * 4;
-        uint8_t* one[3] = {out_masks[i], nullptr, nullptr};
-        dlimg_Result r = serving_get_mask(
-            seg, is_region[i] ? nullptr : v, is_region[i] ? v : nullptr, one,
-            out_accuracies ? out_accuracies + i : nullptr);
+    auto const& api = serving();
+    std::vector<int> sizes_avail;
+    for (int i = 0, k = api.batch_count(seg->serving); i < k; ++i)
+        sizes_avail.push_back(api.batch_size(seg->serving, i));
+    if (sizes_avail.empty()) {
+        for (int i = 0; i < n; ++i) {
+            int const* v = prompts + size_t(i) * 4;
+            uint8_t* one[3] = {out_masks[i], nullptr, nullptr};
+            dlimg_Result r = serving_get_mask(
+                seg, is_region[i] ? nullptr : v, is_region[i] ? v : nullptr,
+                one, out_accuracies ? out_accuracies + i : nullptr);
+            if (r != dlimg_success) return r;
+        }
+        return dlimg_success;
+    }
+    int done = 0;
+    while (done < n) {
+        int const want = n - done;
+        int nb = sizes_avail.back();
+        for (int s : sizes_avail)
+            if (s >= want) {
+                nb = s;
+                break;
+            }
+        int const take = std::min(want, nb);
+        std::vector<float> pts(size_t(nb) * 4, 0.0f);
+        std::vector<float> lbl(size_t(nb) * 2, -1.0f);  // padding: no prompt
+        for (int i = 0; i < take; ++i)
+            encode_prompt(seg->scale, prompts + size_t(done + i) * 4,
+                          is_region[done + i] != 0, pts.data() + 4 * i,
+                          lbl.data() + 2 * i);
+        dlimg_Result r = serving_decode(
+            seg, program_name(seg, "serve_decode_batch" + std::to_string(nb)),
+            "compute_mask_batch", pts.data(), lbl.data(), nb, nb, take,
+            out_masks + done, out_accuracies ? out_accuracies + done : nullptr);
         if (r != dlimg_success) return r;
+        done += take;
     }
     return dlimg_success;
 }
 
 dlimg_Result serving_unserved(char const* what) {
     set_error(std::string(what) + ": the port's Python-free serving route "
-              "(DLIMG_PJRT_BUNDLE) does not serve it yet (a later slice of "
-              "ROADMAP A8); unset DLIMG_PJRT_BUNDLE to serve it through the "
-              "embedded interpreter");
+              "(DLIMG_PJRT_BUNDLE) serves process, compute_mask(s) and "
+              "compute_mask_batch of MobileSAM and the SAM ViTs; automatic "
+              "mask generation, BiRefNet and the int8 encoders are later "
+              "slices of ROADMAP A8: unset DLIMG_PJRT_BUNDLE to serve this "
+              "through the embedded interpreter");
     return dlimg_error;
 }
 

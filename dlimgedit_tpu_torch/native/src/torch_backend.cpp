@@ -3,7 +3,9 @@
 //
 // A bundle directory (tools/aot_export.py --program serving) holds
 //   serving.txt          key \t value: format, variant, backend, image_size,
-//                        buckets, compute_dtype, decoder_heads (bundle.hpp)
+//                        buckets, batch, compute_dtype, decoder_heads, the
+//                        encoder and its kernel route, a ViT's geometry
+//                        (bundle.hpp)
 //   kernels_path.txt     the port's kernel library (a cuda bundle only)
 //   weights/<name>.npy   each state_dict tensor once, whichever programs
 //                        use it
@@ -21,7 +23,9 @@
 // result it returns), then captures it into a CUDA graph with static input
 // buffers; later calls copy their inputs into those buffers (host data
 // through a pinned staging buffer) and replay. Launch counters: a capture
-// takes back what it counted and each replay adds it again.
+// takes back what it counted and each replay adds it again. A batch
+// decode forks each prompt's work onto streams of the calling thread, held
+// by the backend (a stream in a capture may carry no other thread's work).
 #include "torch_backend.hpp"
 
 #include <ATen/ATen.h>
@@ -36,6 +40,7 @@
 #include <mutex>
 #include <set>
 #include <sstream>
+#include <thread>
 
 #include "bundle.hpp"
 #include "npy.hpp"
@@ -134,22 +139,33 @@ Tensor tensor_from_npy(const dlimg_npy::Npy& npy) {
       .clone();
 }
 
-// Launches of K1 and K2 (torch_programs.cpp's counters).
+// Launches of K1, K2, K3, K4 and K5, in that order (torch_programs.cpp's
+// counters).
+constexpr int kKernels = 5;
+std::atomic<int64_t>* const kCounters[kKernels] = {
+    &g_layer_norm_launches, &g_levit_attention_launches,
+    &g_add_layer_norm_launches, &g_relpos_global_launches,
+    &g_relpos_windowed_launches};
+
 struct Launches {
-  int64_t layer_norm = 0;
-  int64_t levit_attention = 0;
+  int64_t n[kKernels] = {};
 };
 
 Launches counted() {
   Launches l;
-  l.layer_norm = g_layer_norm_launches.load();
-  l.levit_attention = g_levit_attention_launches.load();
+  for (int i = 0; i < kKernels; ++i) l.n[i] = kCounters[i]->load();
   return l;
 }
 
+// after - before
+Launches since(const Launches& before) {
+  Launches d = counted();
+  for (int i = 0; i < kKernels; ++i) d.n[i] -= before.n[i];
+  return d;
+}
+
 void add_launches(const Launches& d, int sign) {
-  g_layer_norm_launches += sign * d.layer_norm;
-  g_levit_attention_launches += sign * d.levit_attention;
+  for (int i = 0; i < kKernels; ++i) *kCounters[i] += sign * d.n[i];
 }
 
 // models/common.py full_precision: float32 products and convolutions at
@@ -269,7 +285,9 @@ struct Backend {
   Tensor pixel_mean, pixel_std;
   Weights weights;  // on the device, each once, for every program
   std::map<std::string, std::unique_ptr<Program>> programs;
-  // One program runs at a time (graphs, static and host buffers).
+  // A batch decode's fork streams (cudaStream_t), per calling thread.
+  std::map<std::thread::id, std::vector<void*>> forks;
+  // One program runs at a time (graphs, static and host buffers, forks).
   std::mutex mu;
 };
 
@@ -287,13 +305,39 @@ void load_kernels(Backend* be) {
   be->kernel_lib = dlopen(so.c_str(), RTLD_NOW | RTLD_LOCAL);
   if (!be->kernel_lib)
     throw std::runtime_error("dlopen " + so + ": " + dlerror());
-  be->kernels.layer_norm = reinterpret_cast<Kernels::LayerNorm>(
-      dlsym(be->kernel_lib, "dlimg_layer_norm"));
-  be->kernels.levit_attention = reinterpret_cast<Kernels::LevitAttention>(
-      dlsym(be->kernel_lib, "dlimg_levit_attention"));
-  if (!be->kernels.layer_norm || !be->kernels.levit_attention)
-    throw std::runtime_error(so + " lacks dlimg_layer_norm or "
-                                  "dlimg_levit_attention");
+  auto entry = [&](const char* name) {
+    void* f = dlsym(be->kernel_lib, name);
+    if (!f) throw std::runtime_error(so + " lacks " + name);
+    return f;
+  };
+  Kernels& k = be->kernels;
+  k.layer_norm = reinterpret_cast<Kernels::LayerNorm>(entry("dlimg_layer_norm"));
+  k.levit_attention = reinterpret_cast<Kernels::LevitAttention>(
+      entry("dlimg_levit_attention"));
+  k.add_layer_norm = reinterpret_cast<Kernels::AddLayerNorm>(
+      entry("dlimg_add_layer_norm"));
+  k.relpos_attention_global = reinterpret_cast<Kernels::RelposGlobal>(
+      entry("dlimg_relpos_attention_global"));
+  k.relpos_attention_windowed = reinterpret_cast<Kernels::RelposWindowed>(
+      entry("dlimg_relpos_attention_windowed"));
+}
+
+// The calling thread's first n fork streams, made at their first use.
+std::vector<void*> fork_streams(Backend* be, int64_t n) {
+#ifdef DLIMG_SERVING_CUDA
+  std::vector<void*>& mine = be->forks[std::this_thread::get_id()];
+  while (int64_t(mine.size()) < n) {
+    cudaStream_t s = nullptr;
+    cudaError_t rc = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+    if (rc != cudaSuccess)
+      throw std::runtime_error(std::string("cudaStreamCreateWithFlags: ") +
+                               cudaGetErrorString(rc));
+    mine.push_back(s);
+  }
+  return std::vector<void*>(mine.begin(), mine.begin() + n);
+#else
+  throw std::runtime_error("this serving library was built without CUDA");
+#endif
 }
 
 // Weight row `r` in be->weights: read from weights/<name>.npy to the
@@ -322,7 +366,7 @@ void load_weight(Backend* be, const SpecRow& r) {
   be->weights[r.name] = tensor_from_npy(npy).to(be->device);
 }
 
-// serve_<embed|decode|decode3>_<variant>_<bucket>
+// serve_<embed|decode|decode3|decode_batch<N>>_<variant>_<bucket>
 Program* get_program(Backend* be, const std::string& name) {
   auto it = be->programs.find(name);
   if (it != be->programs.end()) return it->second.get();
@@ -338,7 +382,16 @@ Program* get_program(Backend* be, const std::string& name) {
   p->cfg.image_size = be->index.image_size;
   p->cfg.compute_dtype = scalar_type(be->index.compute_dtype);
   p->cfg.decoder_heads = be->index.decoder_heads;
+  const dlimg_bundle::Index& ix = be->index;
+  p->cfg.vit = ix.encoder == "vit";
+  p->cfg.kernel_route = ix.kernel_route;
+  p->cfg.num_heads = ix.num_heads;
+  p->cfg.window_size = ix.window_size;
+  p->cfg.global_attn_indexes = ix.global_attn_indexes;
+  p->cfg.patch_size = ix.patch_size;
+  p->cfg.layer_norm_eps = ix.layer_norm_eps;
   p->cfg.kernels = be->device.is_cuda() ? &be->kernels : nullptr;
+  const std::string batch = "serve_decode_batch";
   if (head == "serve_embed") {
     p->fn = embed_program;
     p->cfg.pixel_mean = be->pixel_mean;
@@ -346,10 +399,16 @@ Program* get_program(Backend* be, const std::string& name) {
   } else if (head == "serve_decode" || head == "serve_decode3") {
     p->fn = decode_program;
     p->cfg.multimask = head == "serve_decode3";
+  } else if (head.compare(0, batch.size(), batch) == 0 &&
+             head.size() > batch.size() &&
+             head.find_first_not_of("0123456789", batch.size()) ==
+                 std::string::npos) {
+    p->fn = decode_batch_program;
+    p->cfg.fork_streams = [be](int64_t n) { return fork_streams(be, n); };
   } else {
     throw std::runtime_error("program " + name +
                              " is none of serve_embed, serve_decode, "
-                             "serve_decode3");
+                             "serve_decode3, serve_decode_batch<N>");
   }
   for (const SpecRow& r : read_spec(be->dir + "/" + name + ".spec.txt")) {
     if (r.kind == "ind") p->dynamic.push_back(r);
@@ -446,15 +505,11 @@ std::vector<Tensor> warm_up_and_capture(Backend* be, Program* p,
     }
     graph->capture_end();
   } catch (const std::exception& e) {
-    Launches after = counted();
-    add_launches({after.layer_norm - before.layer_norm,
-                  after.levit_attention - before.levit_attention}, -1);
+    add_launches(since(before), -1);
     throw std::runtime_error("CUDA graph of " + p->name +
                              ": capture failed: " + e.what());
   }
-  Launches after = counted();
-  p->captured = {after.layer_norm - before.layer_norm,
-                 after.levit_attention - before.levit_attention};
+  p->captured = since(before);
   add_launches(p->captured, -1);
   p->static_in = std::move(static_in);
   p->static_out = std::move(static_out);
@@ -566,6 +621,14 @@ void destroy(Backend* be) {
     std::lock_guard<std::mutex> lk(be->mu);
     be->programs.clear();
     be->weights.clear();
+#ifdef DLIMG_SERVING_CUDA
+    if (!be->forks.empty()) {
+      c10::cuda::device_synchronize();
+      for (auto& kv : be->forks)
+        for (void* s : kv.second)
+          cudaStreamDestroy(static_cast<cudaStream_t>(s));
+    }
+#endif
   }
   // The kernel library stays loaded: graphs destroyed above may still be
   // referenced by work queued on the device.
@@ -575,6 +638,7 @@ void destroy(Backend* be) {
 const std::string& variant(Backend* b) { return b->index.variant; }
 int image_size(Backend* b) { return b->index.image_size; }
 const std::vector<int>& buckets(Backend* b) { return b->index.buckets; }
+const std::vector<int>& batch_sizes(Backend* b) { return b->index.batch; }
 
 bool run(Backend* be, const std::string& name, const std::vector<Arg>& args,
          std::vector<Buf*>* outs, std::string* err) {
@@ -718,9 +782,7 @@ int check_replays(std::string* report, std::string* err) {
         replay(p);
         std::vector<Tensor> got = clone_all(p->static_out);
         std::vector<Tensor> want = p->eager(p->static_in);
-        Launches now = counted();
-        add_launches({now.layer_norm - saved.layer_norm,
-                      now.levit_attention - saved.levit_attention}, -1);
+        add_launches(since(saved), -1);
         bool same = got.size() == want.size();
         for (size_t i = 0; same && i < got.size(); ++i)
           same = bytes_equal(got[i], want[i]);
@@ -780,6 +842,23 @@ int c_bucket(void* be, int i) {
   return dlimg_torch::buckets(static_cast<Backend*>(be)).at(size_t(i));
 }
 
+int c_batch_count(void* be) {
+  return int(dlimg_torch::batch_sizes(static_cast<Backend*>(be)).size());
+}
+
+int c_batch_size(void* be, int i) {
+  return dlimg_torch::batch_sizes(static_cast<Backend*>(be)).at(size_t(i));
+}
+
+void c_launches(int64_t* counts, int n) {
+  dlimg_torch::Launches l = dlimg_torch::counted();
+  for (int i = 0; i < n && i < dlimg_torch::kKernels; ++i) counts[i] = l.n[i];
+}
+
+void c_reset_launches() {
+  for (auto* c : dlimg_torch::kCounters) *c = 0;
+}
+
 int c_run(void* be, const char* name, const dlimg_serving_arg* args,
           int n_args, void** outs, int max_outs, int* n_outs) {
   std::vector<dlimg_torch::Arg> a(size_t(std::max(n_args, 0)));
@@ -837,9 +916,10 @@ int c_cuda_available() {
 }
 
 const dlimg_serving_api kApi = {
-    DLIMG_SERVING_ABI, c_create,  c_destroy, c_variant,   c_image_size,
-    c_bucket_count,    c_bucket,  c_run,     c_fetch,     c_release,
-    c_last_error,      c_cuda_available,
+    DLIMG_SERVING_ABI, c_create,        c_destroy,   c_variant,
+    c_image_size,      c_bucket_count,  c_bucket,    c_batch_count,
+    c_batch_size,      c_run,           c_fetch,     c_release,
+    c_last_error,      c_cuda_available, c_launches, c_reset_launches,
 };
 
 }  // namespace
@@ -850,16 +930,13 @@ dlimg_serving_init(void) {
 }
 
 extern "C" __attribute__((visibility("default"))) void dlimg_serving_launches(
-    int64_t* layer_norm, int64_t* levit_attention) {
-  dlimg_torch::Launches l = dlimg_torch::counted();
-  if (layer_norm) *layer_norm = l.layer_norm;
-  if (levit_attention) *levit_attention = l.levit_attention;
+    int64_t* counts, int n) {
+  c_launches(counts, n);
 }
 
 extern "C" __attribute__((visibility("default"))) void
 dlimg_serving_reset_launches(void) {
-  dlimg_torch::g_layer_norm_launches = 0;
-  dlimg_torch::g_levit_attention_launches = 0;
+  c_reset_launches();
 }
 
 extern "C" __attribute__((visibility("default"))) int

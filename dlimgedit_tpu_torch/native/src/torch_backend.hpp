@@ -14,10 +14,12 @@
 // The programs are C++ that mirrors the port's Python modules op for op
 // (torch_programs.cpp). On cuda:0 each program is captured into a CUDA
 // graph at its first call, after an eager warm-up, as the Python
-// Executable does (runtime/environment.py); kernels K1 (fused LayerNorm)
-// and K2 (TinyViT window attention) are launched through the port's kernel
-// library, whose path the bundle names. On the CPU the programs run
-// eagerly and K1 / K2 take their plain versions.
+// Executable does (runtime/environment.py); the encoder's kernels (K1
+// fused LayerNorm and K2 TinyViT window attention for MobileSAM; K1, K3
+// add + LayerNorm, K4 global and K5 windowed rel-pos attention for a SAM
+// ViT) are launched through the port's kernel library, whose path the
+// bundle names. On the CPU the programs run eagerly and the kernels'
+// wrappers take their plain versions.
 //
 // One program runs at a time per backend, under its lock; host data a
 // caller fills (Arg::fill) is written under that lock too. A host that
@@ -67,6 +69,7 @@ void destroy(Backend*);
 const std::string& variant(Backend*);
 int image_size(Backend*);
 const std::vector<int>& buckets(Backend*);
+const std::vector<int>& batch_sizes(Backend*);  // serve_decode_batch<N>
 
 // Run program `name` (loaded at its first call: its spec, and the weights
 // no earlier program loaded to the device: each weight is held once). Outputs are tensors on the device, each a copy the caller owns;
@@ -91,7 +94,7 @@ void held_weights(Backend*, int64_t* count, int64_t* bytes);
 // The plain C table capi.cpp reaches through dlopen/dlsym.
 // ---------------------------------------------------------------------------
 
-#define DLIMG_SERVING_ABI 2
+#define DLIMG_SERVING_ABI 3
 
 extern "C" {
 
@@ -116,25 +119,33 @@ typedef struct dlimg_serving_api {
   int (*image_size)(void* backend);
   int (*bucket_count)(void* backend);
   int (*bucket)(void* backend, int i);
+  // The exported serve_decode_batch<N> sizes, ascending (none: 0).
+  int (*batch_count)(void* backend);
+  int (*batch_size)(void* backend, int i);
   int (*run)(void* backend, const char* name, const dlimg_serving_arg* args,
              int n_args, void** outs, int max_outs, int* n_outs);
   int (*fetch)(void* backend, void* buf, void* dst, size_t dst_size);
   void (*release)(void* backend, void* buf);
   const char* (*last_error)(void);
   int (*cuda_available)(void);
+  // The launches of K1, K2, K3, K4 and K5, in that order, made by this
+  // library's programs (the first n into counts), and their reset.
+  void (*launches)(int64_t* counts, int n);
+  void (*reset_launches)(void);
 } dlimg_serving_api;
 
 typedef const dlimg_serving_api* (*dlimg_serving_init_fn)(void);
 
 // Exported by libdlimgedit_tpu_torch_serving.so.
 const dlimg_serving_api* dlimg_serving_init(void);
-// For test programs: the launches of K1 and K2 made by this library's
-// programs since the process started or the last reset (a graph replay
-// adds what its capture counted), and the replay check: every captured
-// graph of every live backend replayed and its eager program run on the
-// same static inputs, the outputs compared byte for byte, a line per graph
-// into `report`; -> the number of graphs held, -1 on a difference.
-void dlimg_serving_launches(int64_t* layer_norm, int64_t* levit_attention);
+// For test programs: the launches of K1, K2, K3, K4 and K5 (the first n
+// into counts, in that order) made by this library's programs since the
+// process started or the last reset (a graph replay adds what its capture
+// counted), and the replay check: every captured graph of every live
+// backend replayed and its eager program run on the same static inputs,
+// the outputs compared byte for byte, a line per graph into `report`;
+// -> the number of graphs held, -1 on a difference.
+void dlimg_serving_launches(int64_t* counts, int n);
 void dlimg_serving_reset_launches(void);
 int dlimg_serving_check_replays(char* report, size_t report_size);
 

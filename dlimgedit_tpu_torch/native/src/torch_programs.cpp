@@ -7,17 +7,23 @@
 
 #include <ATen/TensorIndexing.h>
 
+#include <algorithm>
 #include <cmath>
 #include <stdexcept>
 
 #ifdef DLIMG_SERVING_CUDA
 #include <ATen/cuda/CUDAContext.h>
+#include <ATen/cuda/CUDAEvent.h>
+#include <c10/cuda/CUDAGuard.h>
 #endif
 
 namespace dlimg_torch {
 
 std::atomic<int64_t> g_layer_norm_launches{0};
 std::atomic<int64_t> g_levit_attention_launches{0};
+std::atomic<int64_t> g_add_layer_norm_launches{0};
+std::atomic<int64_t> g_relpos_global_launches{0};
+std::atomic<int64_t> g_relpos_windowed_launches{0};
 
 namespace {
 
@@ -32,6 +38,11 @@ constexpr double kTwoPi = 2.0 * 3.141592653589793;
 constexpr int64_t kLayerNormWidths[] = {128, 160, 256, 320, 768, 1024, 1280};
 constexpr int64_t kLevitHeadDim = 32;
 constexpr int64_t kLevitMaxTokens = 256;
+// ops/flash_attention.py KERNEL_HEAD_DIMS, WINDOW_MAX_SIDE.
+constexpr int64_t kRelposHeadDims[] = {64, 80};
+constexpr int64_t kWindowMaxSide = 16;
+// An absent Optional[int] of the Python signatures.
+constexpr int64_t kNone = -1;
 
 [[noreturn]] void fail(const std::string& msg) {
   throw std::runtime_error(msg);
@@ -145,6 +156,26 @@ Tensor linear(const Weights& w, const std::string& p, const Tensor& x) {
 // version on a CPU tensor.
 // ---------------------------------------------------------------------------
 
+// ops/fused_norm.py _check's CUDA conditions, for K1 and K3.
+void check_norm_kernel(const char* name, const std::vector<Tensor>& ts) {
+  const Tensor& x = ts[0];
+  const int code = dtype_code(x.scalar_type());
+  bool same = true, contiguous = true;
+  for (const Tensor& t : ts) {
+    same &= t.scalar_type() == x.scalar_type();
+    contiguous &= t.is_contiguous();
+  }
+  if (code < 0 || !same)
+    fail(std::string(name) + ": the CUDA kernel takes float32 or bfloat16 "
+         "inputs of x's dtype");
+  bool width_ok = false;
+  for (int64_t c : kLayerNormWidths) width_ok |= c == x.size(-1);
+  if (!width_ok)
+    fail(std::string(name) + ": no CUDA kernel for width " +
+         std::to_string(x.size(-1)));
+  if (!contiguous) fail(std::string(name) + ": inputs must be contiguous");
+}
+
 Tensor fused_layer_norm(const Tensor& x, const Tensor& scale,
                         const Tensor& bias, double eps,
                         const Kernels* kernels) {
@@ -157,17 +188,8 @@ Tensor fused_layer_norm(const Tensor& x, const Tensor& scale,
     fail("fused_layer_norm: all inputs must share a device");
   if (x.is_cpu()) return layer_norm_plain(x, scale, bias, eps);
   if (!x.is_cuda()) fail("fused_layer_norm: unsupported device");
+  check_norm_kernel("fused_layer_norm", {x, scale, bias});
   const int code = dtype_code(x.scalar_type());
-  if (code < 0 || scale.scalar_type() != x.scalar_type() ||
-      bias.scalar_type() != x.scalar_type())
-    fail("fused_layer_norm: the CUDA kernel takes float32 or bfloat16 "
-         "inputs of x's dtype");
-  bool width_ok = false;
-  for (int64_t c : kLayerNormWidths) width_ok |= c == C;
-  if (!width_ok)
-    fail("fused_layer_norm: no CUDA kernel for width " + std::to_string(C));
-  if (!x.is_contiguous() || !scale.is_contiguous() || !bias.is_contiguous())
-    fail("fused_layer_norm: inputs must be contiguous");
   if (kernels == nullptr || kernels->layer_norm == nullptr)
     fail("fused_layer_norm: the kernel library is not loaded");
   Tensor out = at::empty_like(x);
@@ -180,6 +202,50 @@ Tensor fused_layer_norm(const Tensor& x, const Tensor& scale,
          std::to_string(rc));
   ++g_layer_norm_launches;
   return out;
+}
+
+std::pair<Tensor, Tensor> fused_add_layer_norm_plain(const Tensor& x,
+                                                     const Tensor& delta,
+                                                     const Tensor& scale,
+                                                     const Tensor& bias,
+                                                     double eps) {
+  Tensor s = (x.to(at::kFloat) + delta.to(at::kFloat)).to(x.scalar_type());
+  return {s, layer_norm_plain(s, scale, bias, eps)};
+}
+
+// ops/fused_norm.py fused_add_layer_norm (K3): (x + delta, LN(x + delta)).
+std::pair<Tensor, Tensor> fused_add_layer_norm(const Tensor& x,
+                                               const Tensor& delta,
+                                               const Tensor& scale,
+                                               const Tensor& bias, double eps,
+                                               const Kernels* kernels) {
+  const int64_t C = x.size(-1);
+  if (scale.dim() != 1 || scale.size(0) != C || bias.dim() != 1 ||
+      bias.size(0) != C)
+    fail("fused_add_layer_norm: scale and bias must be (" +
+         std::to_string(C) + ",)");
+  if (delta.sizes() != x.sizes())
+    fail("fused_add_layer_norm: delta must have x's shape");
+  if (scale.device() != x.device() || bias.device() != x.device() ||
+      delta.device() != x.device())
+    fail("fused_add_layer_norm: all inputs must share a device");
+  if (x.is_cpu()) return fused_add_layer_norm_plain(x, delta, scale, bias, eps);
+  if (!x.is_cuda()) fail("fused_add_layer_norm: unsupported device");
+  check_norm_kernel("fused_add_layer_norm", {x, scale, bias, delta});
+  if (kernels == nullptr || kernels->add_layer_norm == nullptr)
+    fail("fused_add_layer_norm: the kernel library is not loaded");
+  Tensor s = at::empty_like(x);
+  Tensor out = at::empty_like(x);
+  const int64_t rows = C ? x.numel() / C : 0;
+  int rc = kernels->add_layer_norm(
+      x.data_ptr(), delta.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+      s.data_ptr(), out.data_ptr(), int(rows), int(C),
+      dtype_code(x.scalar_type()), float(eps), current_stream());
+  if (rc != 0)
+    fail("CUDA kernel fused_add_layer_norm failed to launch: cudaError " +
+         std::to_string(rc));
+  ++g_add_layer_norm_launches;
+  return {s, out};
 }
 
 Tensor levit_window_attention_plain(const Tensor& qkv, const Tensor& bias,
@@ -240,14 +306,207 @@ Tensor levit_window_attention(Tensor qkv, const Tensor& bias, int64_t nh,
   return out;
 }
 
+
 // ---------------------------------------------------------------------------
-// models/tinyvit.py; the flags follow the device (the Environment turns
-// K1 and K2 on for CUDA devices, and both wrappers take their plain
-// versions on the CPU).
+// ops/flash_attention.py: the SAM ViT's rel-pos attention, routed to
+// relpos_attention_windowed (K5) or relpos_attention_global (K4); each
+// kernel on a CUDA tensor, attention_relpos_plain on a CPU tensor.
+// ---------------------------------------------------------------------------
+
+// _bias_halves: [q.rh | q.rw] (G, N, gh + gw) in q's dtype; out_scale
+// multiplies the float32 result before the one rounding.
+Tensor bias_halves(const Tensor& q, const Tensor& rh_g, const Tensor& rw_g,
+                   int64_t gh, int64_t gw, double out_scale) {
+  const int64_t G = q.size(0), N = q.size(1), hd = q.size(2);
+  Tensor q4 = q.to(at::kFloat).reshape({G, gh, gw, hd});
+  Tensor bh = at::einsum("ghwd,hyd->ghwy",
+                         {q4, rh_g.to(q.scalar_type()).to(at::kFloat)});
+  Tensor bw = at::einsum("ghwd,wyd->ghwy",
+                         {q4, rw_g.to(q.scalar_type()).to(at::kFloat)});
+  Tensor b = at::cat({bh, bw}, -1).reshape({G, N, gh + gw});
+  if (out_scale != 1.0) b = b * out_scale;
+  return b.to(q.scalar_type());
+}
+
+// _skip_rows: (first group with the pad-query skip, query rows it keeps).
+std::pair<int64_t, int64_t> skip_rows(int64_t G, int64_t N, int64_t gh,
+                                      int64_t gw, int64_t heads, int64_t n_w,
+                                      int64_t valid_rows) {
+  if (heads == kNone || n_w == kNone || valid_rows == kNone) return {G, N};
+  const int64_t Wn = G / heads;
+  if (0 < valid_rows && valid_rows < gh && 0 < n_w && n_w < Wn)
+    return {(Wn - n_w) * heads, valid_rows * gw};
+  return {G, N};
+}
+
+Tensor attention_relpos_plain(const Tensor& q, const Tensor& k,
+                              const Tensor& v, const Tensor& bhw, int64_t gh,
+                              int64_t gw, bool folded, int64_t heads,
+                              int64_t n_w, int64_t valid_rows) {
+  const int64_t G = q.size(0), N = q.size(1), hd = q.size(2);
+  const double scale = std::pow(double(hd), -0.5);
+  Tensor tok = at::arange(N, on(q, at::kLong));
+  Tensor b = bhw.to(at::kFloat);
+  Tensor bias =
+      b.index({Slice(), Slice(), Slice(at::indexing::None, gh)})
+          .index({Slice(), Slice(), at::floor_divide(tok, gw)}) +
+      b.index({Slice(), Slice(), Slice(gh)})
+          .index({Slice(), Slice(), at::remainder(tok, gw)});
+  Tensor qk = at::matmul(q.to(at::kFloat), k.to(at::kFloat).transpose(1, 2));
+  Tensor s = folded ? (qk + bias) * scale : qk * scale + bias;
+  Tensor p = at::softmax(s, -1).to(q.scalar_type());
+  Tensor out = at::matmul(p.to(at::kFloat), v.to(at::kFloat))
+                   .to(q.scalar_type());
+  auto [g_skip, n_valid] = skip_rows(G, N, gh, gw, heads, n_w, valid_rows);
+  if (g_skip < G) out.index({Slice(g_skip), Slice(n_valid)}).fill_(0);
+  return out;
+}
+
+// _check_relpos's CUDA conditions, for K4 and K5.
+void check_relpos_kernel(const char* name, const Tensor& q, const Tensor& k,
+                         const Tensor& v, const Tensor& bhw) {
+  const int code = dtype_code(q.scalar_type());
+  bool same = true, contiguous = true;
+  for (const Tensor* t : {&q, &k, &v, &bhw}) {
+    same &= t->scalar_type() == q.scalar_type();
+    contiguous &= t->is_contiguous();
+  }
+  if (code < 0 || !same)
+    fail(std::string(name) + ": the CUDA kernel takes float32 or bfloat16 "
+         "inputs of one dtype");
+  bool hd_ok = false;
+  for (int64_t hd : kRelposHeadDims) hd_ok |= hd == q.size(2);
+  if (!hd_ok)
+    fail(std::string(name) + ": no CUDA kernel for head width " +
+         std::to_string(q.size(2)));
+  if (!contiguous) fail(std::string(name) + ": inputs must be contiguous");
+}
+
+void check_relpos_shapes(const char* name, const Tensor& q, const Tensor& k,
+                         const Tensor& v, const Tensor& bhw, int64_t gh,
+                         int64_t gw) {
+  if (q.dim() != 3 || k.sizes() != q.sizes() || v.sizes() != q.sizes())
+    fail(std::string(name) + ": q, k, v must be (G, N, hd) of one shape");
+  if (q.size(1) != gh * gw)
+    fail(std::string(name) + ": N is not grid_h * grid_w");
+  if (bhw.dim() != 3 || bhw.size(0) != q.size(0) || bhw.size(1) != q.size(1) ||
+      bhw.size(2) != gh + gw)
+    fail(std::string(name) + ": bias halves must be (G, N, gh + gw)");
+  for (const Tensor* t : {&k, &v, &bhw})
+    if (t->device() != q.device())
+      fail(std::string(name) + ": all inputs must share a device");
+}
+
+Tensor relpos_attention_global(const Tensor& q, const Tensor& k,
+                               const Tensor& v, const Tensor& bhw, int64_t gh,
+                               int64_t gw, const Kernels* kernels) {
+  const char* name = "relpos_attention_global";
+  check_relpos_shapes(name, q, k, v, bhw, gh, gw);
+  if (q.is_cpu())
+    return attention_relpos_plain(q, k, v, bhw, gh, gw, false, kNone, kNone,
+                                  kNone);
+  if (!q.is_cuda()) fail("relpos_attention_global: unsupported device");
+  check_relpos_kernel(name, q, k, v, bhw);
+  if (kernels == nullptr || kernels->relpos_attention_global == nullptr)
+    fail("relpos_attention_global: the kernel library is not loaded");
+  const int64_t G = q.size(0), N = q.size(1), hd = q.size(2);
+  Tensor out = at::empty_like(q);
+  int rc = kernels->relpos_attention_global(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), bhw.data_ptr(),
+      out.data_ptr(), int(G), int(N), int(hd), int(gh), int(gw),
+      dtype_code(q.scalar_type()), float(std::pow(double(hd), -0.5)),
+      current_stream());
+  if (rc != 0)
+    fail("CUDA kernel relpos_attention_global failed to launch: cudaError " +
+         std::to_string(rc));
+  ++g_relpos_global_launches;
+  return out;
+}
+
+Tensor relpos_attention_windowed(const Tensor& q, const Tensor& k,
+                                 const Tensor& v, const Tensor& bhw,
+                                 int64_t gh, int64_t gw, int64_t heads,
+                                 bool folded, int64_t n_w, int64_t valid_rows,
+                                 const Kernels* kernels) {
+  const char* name = "relpos_attention_windowed";
+  check_relpos_shapes(name, q, k, v, bhw, gh, gw);
+  if (q.size(0) % heads)
+    fail("relpos_attention_windowed: G is not a multiple of heads");
+  if (q.is_cpu())
+    return attention_relpos_plain(q, k, v, bhw, gh, gw, folded, heads, n_w,
+                                  valid_rows);
+  if (!q.is_cuda()) fail("relpos_attention_windowed: unsupported device");
+  check_relpos_kernel(name, q, k, v, bhw);
+  if (q.scalar_type() == at::kBFloat16 && std::max(gh, gw) > kWindowMaxSide)
+    fail("relpos_attention_windowed: the bf16 CUDA kernel takes windows of "
+         "at most 16 x 16 tokens");
+  if (kernels == nullptr || kernels->relpos_attention_windowed == nullptr)
+    fail("relpos_attention_windowed: the kernel library is not loaded");
+  const int64_t G = q.size(0), N = q.size(1), hd = q.size(2);
+  auto [g_skip, n_valid] = skip_rows(G, N, gh, gw, heads, n_w, valid_rows);
+  Tensor out = at::empty_like(q);
+  int rc = kernels->relpos_attention_windowed(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), bhw.data_ptr(),
+      out.data_ptr(), int(G), int(N), int(hd), int(gh), int(gw), int(folded),
+      int(g_skip), int(n_valid), dtype_code(q.scalar_type()),
+      float(std::pow(double(hd), -0.5)), current_stream());
+  if (rc != 0)
+    fail("CUDA kernel relpos_attention_windowed failed to launch: "
+         "cudaError " + std::to_string(rc));
+  ++g_relpos_windowed_launches;
+  return out;
+}
+
+// _jax_window: JAX's condition for its windowed kernel.
+bool jax_window(int64_t G, int64_t N, int64_t heads) {
+  return heads != kNone && N <= 256 && G % heads == 0;
+}
+
+// relpos_route == "windowed": JAX's windowed kernel, and the window fits
+// K5 (the bf16 body takes sides of at most 16).
+bool windowed_route(at::ScalarType dtype, int64_t G, int64_t gh, int64_t gw,
+                    int64_t heads) {
+  return jax_window(G, gh * gw, heads) &&
+         (dtype != at::kBFloat16 || std::max(gh, gw) <= kWindowMaxSide);
+}
+
+// flash_attention_relpos with gathered (g, g, hd) tables.
+Tensor flash_attention_relpos(Tensor q, Tensor k, Tensor v, const Tensor& rh,
+                              const Tensor& rw, int64_t gh, int64_t gw,
+                              int64_t heads, int64_t n_w, int64_t valid_rows,
+                              const Kernels* kernels) {
+  const int64_t G = q.size(0), N = q.size(1), hd = q.size(2);
+  Tensor rh_g = rh.to(q.scalar_type()), rw_g = rw.to(q.scalar_type());
+  q = q.contiguous();
+  k = k.contiguous();
+  v = v.contiguous();
+  if (windowed_route(q.scalar_type(), G, gh, gw, heads)) {
+    const bool folded = hd + gh + gw <= 128;
+    Tensor bhw = bias_halves(
+        q, rh_g, rw_g, gh, gw,
+        folded ? 1.0 / std::pow(double(hd), -0.5) : 1.0);
+    return relpos_attention_windowed(q, k, v, bhw, gh, gw, heads, folded, n_w,
+                                     valid_rows, kernels);
+  }
+  Tensor bhw = bias_halves(q, rh_g, rw_g, gh, gw, 1.0);
+  Tensor out = relpos_attention_global(q, k, v, bhw, gh, gw, kernels);
+  if (jax_window(G, N, heads)) {
+    auto [g_skip, n_valid] = skip_rows(G, N, gh, gw, heads, n_w, valid_rows);
+    out.index({Slice(g_skip), Slice(n_valid)}).fill_(0);
+  }
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// models/tinyvit.py; the kernel route is the bundle's (use_fused_norm, K1,
+// and use_flash_attention, K2, which the Environment turns on together for
+// CUDA devices).
 // ---------------------------------------------------------------------------
 
 Tensor tv_ln(const Weights& w, const std::string& p, const Tensor& x,
              const ProgramConfig& c, double eps = 1e-5) {
+  if (!c.kernel_route)
+    return layer_norm_plain(x, W(w, p + ".scale"), W(w, p + ".bias"), eps);
   return fused_layer_norm(x, W(w, p + ".scale"), W(w, p + ".bias"), eps,
                           c.kernels);
 }
@@ -258,7 +517,10 @@ Tensor tv_attention(const Weights& w, const std::string& p, Tensor x,
   Tensor qkv = linear(w, p + ".qkv", x);
   const Tensor& biases = W(w, p + ".attention_biases");
   Tensor bias = biases.index({Slice(), W(w, p + ".bias_idxs")});
-  Tensor out = levit_window_attention(qkv, bias, biases.size(0), c.kernels);
+  Tensor out =
+      c.kernel_route
+          ? levit_window_attention(qkv, bias, biases.size(0), c.kernels)
+          : levit_window_attention_plain(qkv, bias, biases.size(0));
   return linear(w, p + ".proj", out);
 }
 
@@ -287,6 +549,35 @@ Tensor tv_mlp_ln(const Weights& w, const std::string& p, const Tensor& x,
 // Block.forward, with attend's window partition (_window_partition /
 // _window_unpartition): bottom and right zero padding before the
 // attention's LayerNorm.
+// models/tinyvit.py _window_partition / _window_unpartition (also the ViT's).
+struct WindowMeta {
+  int64_t B, pH, pW, nH, nW, pad_b, pad_r;
+};
+
+// (B, H, W, C) -> (B*nH*nW, ws*ws, C) with bottom and right zero padding.
+Tensor window_partition(const Tensor& x, int64_t ws, WindowMeta* meta) {
+  const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  const int64_t pad_b = (ws - H % ws) % ws, pad_r = (ws - Wd % ws) % ws;
+  Tensor xp = x;
+  if (pad_b || pad_r) xp = at::pad(x, {0, 0, 0, pad_r, 0, pad_b});
+  const int64_t pH = H + pad_b, pW = Wd + pad_r;
+  const int64_t nH = pH / ws, nW = pW / ws;
+  xp = xp.reshape({B, nH, ws, nW, ws, C}).permute({0, 1, 3, 2, 4, 5});
+  *meta = {B, pH, pW, nH, nW, pad_b, pad_r};
+  return xp.reshape({B * nH * nW, ws * ws, C});
+}
+
+Tensor window_unpartition(const Tensor& x, int64_t ws, const WindowMeta& m,
+                          int64_t H, int64_t Wd, int64_t C) {
+  Tensor y = x.reshape({m.B, m.nH, m.nW, ws, ws, C})
+                 .permute({0, 1, 3, 2, 4, 5});
+  y = y.reshape({m.B, m.pH, m.pW, C});
+  if (m.pad_b || m.pad_r)
+    y = y.index({Slice(), Slice(at::indexing::None, H),
+                 Slice(at::indexing::None, Wd), Slice()});
+  return y.contiguous();
+}
+
 Tensor tv_block(const Weights& w, const std::string& p, Tensor x,
                 const ProgramConfig& c) {
   const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
@@ -298,20 +589,10 @@ Tensor tv_block(const Weights& w, const std::string& p, Tensor x,
     att = tv_attention(w, p + ".attn", x.reshape({B, H * Wd, C}), c)
               .reshape({B, H, Wd, C});
   } else {
-    const int64_t pad_b = (ws - H % ws) % ws, pad_r = (ws - Wd % ws) % ws;
-    Tensor xp = x;
-    if (pad_b || pad_r) xp = at::pad(x, {0, 0, 0, pad_r, 0, pad_b});
-    const int64_t pH = H + pad_b, pW = Wd + pad_r;
-    const int64_t nH = pH / ws, nW = pW / ws;
-    xp = xp.reshape({B, nH, ws, nW, ws, C}).permute({0, 1, 3, 2, 4, 5});
-    Tensor wx = xp.reshape({B * nH * nW, ws * ws, C});
-    Tensor y = tv_attention(w, p + ".attn", wx, c);
-    y = y.reshape({B, nH, nW, ws, ws, C}).permute({0, 1, 3, 2, 4, 5});
-    y = y.reshape({B, pH, pW, C});
-    if (pad_b || pad_r)
-      y = y.index({Slice(), Slice(at::indexing::None, H),
-                   Slice(at::indexing::None, Wd), Slice()});
-    att = y.contiguous();
+    WindowMeta meta;
+    Tensor wx = window_partition(x, ws, &meta);
+    att = window_unpartition(tv_attention(w, p + ".attn", wx, c), ws, meta,
+                             H, Wd, C);
   }
   x = shortcut + att;
   const int64_t ks = W(w, p + ".local_conv.w").size(2);
@@ -348,6 +629,165 @@ Tensor tinyvit(const Weights& w, Tensor x, const ProgramConfig& c) {
   x = tv_ln(w, "encoder.neck.ln1", x, c, 1e-6);
   x = conv2d_(x, W(w, "encoder.neck.conv2.w"), 1, 1);
   return tv_ln(w, "encoder.neck.ln2", x, c, 1e-6);
+}
+
+
+// ---------------------------------------------------------------------------
+// models/vit_sam.py (SAM ViT-B / L / H); on the kernel route
+// (use_flash_attention) the attention takes K4 / K5 and the block
+// LayerNorms K1 (block 0's norm1) and K3, else the dense path (JAX's CPU
+// reference).
+// ---------------------------------------------------------------------------
+
+// gather_rel_pos with the block's rel_pos_idx buffer (made with the model,
+// a weight of the bundle: no index is made in a program).
+Tensor gather_rel_pos(const Tensor& table, int64_t size, const Tensor& idx) {
+  if (idx.size(0) != size)
+    fail("gather_rel_pos: the block's rel_pos_idx is for size " +
+         std::to_string(idx.size(0)) + ", not " + std::to_string(size));
+  return table.index({idx});
+}
+
+// _decomposed_rel_pos_bias: q (B*, nh, h*w, hd) -> float32 (B*, nh, hw, hw).
+Tensor decomposed_rel_pos_bias(const Weights& w, const std::string& p,
+                               const Tensor& q, int64_t h, int64_t wd) {
+  const Tensor& idx = W(w, p + ".rel_pos_idx");
+  Tensor rh = gather_rel_pos(W(w, p + ".rel_pos_h"), h, idx)
+                  .to(q.scalar_type()).to(at::kFloat);
+  Tensor rw = gather_rel_pos(W(w, p + ".rel_pos_w"), wd, idx)
+                  .to(q.scalar_type()).to(at::kFloat);
+  const int64_t Bn = q.size(0), nh = q.size(1), hd = q.size(3);
+  Tensor qr = q.to(at::kFloat).reshape({Bn, nh, h, wd, hd});
+  Tensor bias_h = at::einsum("bnhwc,hkc->bnhwk", {qr, rh});
+  Tensor bias_w = at::einsum("bnhwc,wkc->bnhwk", {qr, rw});
+  Tensor bias = bias_h.unsqueeze(-1) + bias_w.unsqueeze(-2);
+  return bias.reshape({Bn, nh, h * wd, h * wd});
+}
+
+// _vit_attention: x (B*, h, w, C) -> (B*, h, w, C); apply_proj false
+// returns the output before proj; n_w / valid_rows: the pad-query skip.
+Tensor vit_attention(const Weights& w, const std::string& p, const Tensor& x,
+                     const ProgramConfig& c, bool apply_proj, int64_t n_w,
+                     int64_t valid_rows) {
+  const int64_t Bn = x.size(0), h = x.size(1), wd = x.size(2), C = x.size(3);
+  const int64_t nh = c.num_heads, hd = C / nh;
+  const bool rel = has(w, p + ".rel_pos_h");
+  Tensor qkv = linear(w, p + ".qkv", x.reshape({Bn, h * wd, C}));
+  qkv = qkv.reshape({Bn, h * wd, 3, nh, hd}).permute({2, 0, 3, 1, 4});
+  Tensor q = qkv.select(0, 0), k = qkv.select(0, 1), v = qkv.select(0, 2);
+  Tensor out;
+  if (c.kernel_route && rel) {
+    const Tensor& idx = W(w, p + ".rel_pos_idx");
+    Tensor rh = gather_rel_pos(W(w, p + ".rel_pos_h"), h, idx)
+                    .to(q.scalar_type());
+    Tensor rw = gather_rel_pos(W(w, p + ".rel_pos_w"), wd, idx)
+                    .to(q.scalar_type());
+    out = flash_attention_relpos(q.reshape({Bn * nh, h * wd, hd}),
+                                 k.reshape({Bn * nh, h * wd, hd}),
+                                 v.reshape({Bn * nh, h * wd, hd}), rh, rw, h,
+                                 wd, nh, n_w, valid_rows, c.kernels);
+    out = out.reshape({Bn, nh, h * wd, hd});
+  } else {
+    Tensor attn = at::matmul(q.to(at::kFloat),
+                             k.to(at::kFloat).transpose(-1, -2)) *
+                  std::pow(double(hd), -0.5);
+    if (rel) attn = attn + decomposed_rel_pos_bias(w, p, q, h, wd);
+    attn = at::softmax(attn, -1).to(v.scalar_type());
+    out = at::matmul(attn.to(at::kFloat), v.to(at::kFloat))
+              .to(v.scalar_type());
+  }
+  out = out.permute({0, 2, 1, 3}).reshape({Bn, h, wd, C});
+  if (!apply_proj) return out;
+  return linear(w, p + ".proj", out);
+}
+
+// _vit_attn_branch on the normed x: a global block whole, a windowed one
+// partitioned after the LayerNorm (zero pad tokens take part as keys),
+// the pad-query skip at batch 1 only, proj after the crop.
+Tensor vit_attn_branch(const Weights& w, const std::string& p,
+                       const Tensor& x, const ProgramConfig& c,
+                       int64_t window) {
+  const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  if (window == 0) return vit_attention(w, p, x, c, true, kNone, kNone);
+  WindowMeta meta;
+  Tensor wx = window_partition(x, window, &meta);
+  const bool skip_ok = B == 1 && meta.pad_b > 0;
+  wx = vit_attention(w, p, wx.reshape({-1, window, window, C}), c, false,
+                     skip_ok ? meta.nW : kNone,
+                     skip_ok ? window - meta.pad_b : kNone);
+  Tensor y = window_unpartition(wx.reshape({-1, window * window, C}), window,
+                                meta, H, Wd, C);
+  return linear(w, p + ".proj", y);
+}
+
+// _layer_norm / _add_layer_norm: K1 / K3 on the kernel route.
+Tensor vit_layer_norm(const Weights& w, const std::string& p, const Tensor& x,
+                      const ProgramConfig& c) {
+  if (c.kernel_route)
+    return fused_layer_norm(x, W(w, p + ".scale"), W(w, p + ".bias"),
+                            c.layer_norm_eps, c.kernels);
+  return layer_norm_plain(x, W(w, p + ".scale"), W(w, p + ".bias"),
+                          c.layer_norm_eps);
+}
+
+std::pair<Tensor, Tensor> vit_add_layer_norm(const Weights& w,
+                                             const std::string& p,
+                                             const Tensor& x,
+                                             const Tensor& delta,
+                                             const ProgramConfig& c) {
+  if (c.kernel_route)
+    return fused_add_layer_norm(x, delta, W(w, p + ".scale"),
+                                W(w, p + ".bias"), c.layer_norm_eps,
+                                c.kernels);
+  Tensor s = x + delta;
+  return {s, layer_norm_plain(s, W(w, p + ".scale"), W(w, p + ".bias"),
+                              c.layer_norm_eps)};
+}
+
+// _vit_block_carry: the stream is base + delta (delta undefined for block
+// 0); -> (h, mlp_out), the block output h + mlp_out.
+std::pair<Tensor, Tensor> vit_block_carry(const Weights& w,
+                                          const std::string& p,
+                                          const Tensor& base,
+                                          const Tensor& delta,
+                                          const ProgramConfig& c,
+                                          int64_t window) {
+  Tensor x, y1;
+  if (!delta.defined()) {
+    x = base;
+    y1 = vit_layer_norm(w, p + ".norm1", x, c);
+  } else {
+    std::tie(x, y1) = vit_add_layer_norm(w, p + ".norm1", base, delta, c);
+  }
+  Tensor a = vit_attn_branch(w, p, y1, c, window);
+  auto [h, y2] = vit_add_layer_norm(w, p + ".norm2", x, a, c);
+  Tensor m = linear(w, p + ".mlp.lin2",
+                    gelu_(linear(w, p + ".mlp.lin1", y2)));
+  return {h, m};
+}
+
+// sam_vit_apply; the depth comes from the weights' names.
+Tensor sam_vit(const Weights& w, Tensor x, const ProgramConfig& c) {
+  if (c.num_heads <= 0) fail("sam_vit: the bundle names no num_heads");
+  x = conv2d_(x, W(w, "encoder.patch_embed.w"), c.patch_size) +
+      W(w, "encoder.patch_embed.b").to(x.scalar_type());
+  if (has(w, "encoder.pos_embed"))
+    x = x + W(w, "encoder.pos_embed").to(x.scalar_type());
+  Tensor delta;
+  for (int i = 0;; ++i) {
+    const std::string b = "encoder.blocks." + std::to_string(i);
+    if (!has(w, b + ".qkv.w")) break;
+    const bool global =
+        std::find(c.global_attn_indexes.begin(), c.global_attn_indexes.end(),
+                  i) != c.global_attn_indexes.end();
+    std::tie(x, delta) =
+        vit_block_carry(w, b, x, delta, c, global ? 0 : c.window_size);
+  }
+  if (delta.defined()) x = x + delta;
+  x = conv2d_(x, W(w, "encoder.neck.conv1.w"));
+  x = layer_norm(w, "encoder.neck.ln1", x, 1e-6);
+  x = conv2d_(x, W(w, "encoder.neck.conv2.w"), 1, 1);
+  return layer_norm(w, "encoder.neck.ln2", x, 1e-6);
 }
 
 // ---------------------------------------------------------------------------
@@ -659,6 +1099,56 @@ Tensor pack_mask_bits(const Tensor& logits) {
                  at::kByte);
 }
 
+// runtime/segmentation.py _each_prompt: [fn(i) for i < n]; on the card
+// each call on a fork stream of the calling thread (ProgramConfig::
+// fork_streams), forked from the current stream and joined back to it
+// through events recorded on it: parallel branches of the one graph.
+template <class F>
+auto each_prompt(int64_t n, const Tensor& like, const ProgramConfig& c, F fn)
+    -> std::vector<decltype(fn(int64_t(0)))> {
+  std::vector<decltype(fn(int64_t(0)))> out;
+  if (!like.is_cuda()) {
+    for (int64_t i = 0; i < n; ++i) out.push_back(fn(i));
+    return out;
+  }
+#ifdef DLIMG_SERVING_CUDA
+  if (!c.fork_streams) fail("decode_batch: no fork streams on the card");
+  const std::vector<void*> raw = c.fork_streams(n);
+  if (int64_t(raw.size()) < n) fail("decode_batch: too few fork streams");
+  at::cuda::CUDAStream main = at::cuda::getCurrentCUDAStream();
+  std::vector<at::cuda::CUDAStream> streams;
+  for (int64_t i = 0; i < n; ++i)
+    streams.push_back(at::cuda::getStreamFromExternal(
+        static_cast<cudaStream_t>(raw[i]), like.device().index()));
+  for (int64_t i = 0; i < n; ++i) {
+    at::cuda::CUDAEvent fork;
+    fork.record(main);
+    fork.block(streams[i]);
+    c10::cuda::CUDAStreamGuard guard(streams[i]);
+    out.push_back(fn(i));
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    at::cuda::CUDAEvent join;
+    join.record(streams[i]);
+    join.block(main);
+  }
+  return out;
+#else
+  fail("this serving library was built without CUDA");
+#endif
+}
+
+// sam.decode_context with no mask prompt, at the embedding's batch.
+DecoderContext no_mask_context(const Weights& w, const ProgramConfig& c,
+                               const Tensor& emb) {
+  const int64_t B = emb.size(0);
+  const int64_t s = 4 * (c.image_size / 16);  // SamConfig.mask_input_size
+  Tensor has_mask = at::zeros({B}, on(emb, emb.scalar_type()));
+  Tensor mask_input = at::zeros({B, s, s, 1}, on(emb, emb.scalar_type()));
+  Tensor dense = embed_masks(w, mask_input, has_mask);
+  return decoder_context(w, emb, dense_pe(w, c.image_size / 16), dense);
+}
+
 }  // namespace
 
 // _build_embed_fn's run on one device: preprocess, encoder, float32.
@@ -668,7 +1158,7 @@ std::vector<Tensor> embed_program(const Weights& w, const ProgramConfig& c,
   const Tensor& sizes = in.at(1);
   Tensor x = sam_preprocess(canvas, sizes.select(0, 0), sizes.select(0, 1),
                             sizes.select(0, 2), sizes.select(0, 3), c);
-  return {tinyvit(w, x, c).to(at::kFloat)};
+  return {(c.vit ? sam_vit(w, x, c) : tinyvit(w, x, c)).to(at::kFloat)};
 }
 
 // _build_decode_fn's run (largest_component off): decode_masks, then the
@@ -679,14 +1169,7 @@ std::vector<Tensor> decode_program(const Weights& w, const ProgramConfig& c,
   const Tensor& points = in.at(1);
   const Tensor& labels = in.at(2);
   const Tensor& sizes = in.at(3);
-  // sam.decode_context: no mask prompt.
-  const int64_t B = emb.size(0);
-  const int64_t s = 4 * (c.image_size / 16);  // SamConfig.mask_input_size
-  Tensor has_mask = at::zeros({B}, on(emb, emb.scalar_type()));
-  Tensor mask_input = at::zeros({B, s, s, 1}, on(emb, emb.scalar_type()));
-  Tensor dense = embed_masks(w, mask_input, has_mask);
-  DecoderContext ctx =
-      decoder_context(w, emb, dense_pe(w, c.image_size / 16), dense);
+  DecoderContext ctx = no_mask_context(w, c, emb);
   // sam.decode_prompts
   Tensor sparse = embed_points(w, c, points, labels).to(ctx.dtype);
   auto [masks, iou] = predict_masks_from(w, ctx, sparse, c.decoder_heads);
@@ -703,6 +1186,44 @@ std::vector<Tensor> decode_program(const Weights& w, const ProgramConfig& c,
                                   sizes.select(0, 1), sizes.select(0, 3));
   Tensor logits = upsample_with(R, C, masks);
   return {pack_mask_bits(logits).select(0, 0).reshape({-1}), iou.select(0, 0)};
+}
+
+// _build_batch_decode_fn's run (largest_component off): the context once,
+// then each prompt's decode_prompts, and then each prompt's upsample and
+// pack, at batch 1 (_each_prompt), as compute_mask runs them.
+std::vector<Tensor> decode_batch_program(const Weights& w,
+                                         const ProgramConfig& c,
+                                         const std::vector<Tensor>& in) {
+  const Tensor& emb = in.at(0);
+  const Tensor& points = in.at(1);
+  const Tensor& labels = in.at(2);
+  const Tensor& sizes = in.at(3);
+  const int64_t n = points.size(0);
+  DecoderContext ctx = no_mask_context(w, c, emb);
+  auto one = each_prompt(n, emb, c, [&](int64_t i) {
+    Tensor pts = points.index({Slice(i, i + 1)});
+    Tensor lbl = labels.index({Slice(i, i + 1)});
+    Tensor sparse = embed_points(w, c, pts, lbl).to(ctx.dtype);
+    auto [m, q] = predict_masks_from(w, ctx, sparse, c.decoder_heads);
+    return select_single_mask(m, q, pts.size(1));
+  });
+  std::vector<Tensor> ms, qs;
+  for (const auto& [m, q] : one) {
+    ms.push_back(m.select(1, 0));
+    qs.push_back(q.select(1, 0));
+  }
+  Tensor masks = at::cat(ms);  // (N, L, L)
+  Tensor iou = at::cat(qs);    // (N,)
+  // upsample_matrices
+  Tensor R = composed_axis_matrix(c.bucket, masks.size(-1), c.image_size,
+                                  sizes.select(0, 0), sizes.select(0, 2));
+  Tensor C = composed_axis_matrix(c.bucket, masks.size(-1), c.image_size,
+                                  sizes.select(0, 1), sizes.select(0, 3));
+  auto packed = each_prompt(n, masks, c, [&](int64_t i) {
+    Tensor m = masks.index({Slice(i, i + 1)}).unsqueeze(0);
+    return pack_mask_bits(upsample_with(R, C, m)).reshape({-1});
+  });
+  return {at::cat(packed), iou};
 }
 
 }  // namespace dlimg_torch

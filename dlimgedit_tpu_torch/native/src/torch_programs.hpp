@@ -3,11 +3,22 @@
 // program gives the bytes the Python path gives on the same device.
 //
 //   embed   runtime/segmentation.py::_build_embed_fn: ops/preprocess.py
-//           sam_preprocess, then models/tinyvit.py (MobileSAM's encoder)
+//           sam_preprocess, then the variant's encoder: models/tinyvit.py
+//           (MobileSAM) or models/vit_sam.py (SAM ViT-B / L / H, its
+//           windows partitioned; fused_window_blocks, K6, is not served)
 //   decode  runtime/segmentation.py::_build_decode_fn with
 //           largest_component off: models/sam.py decode_masks
 //           (prompt_encoder.py, mask_decoder.py), ops/postprocess.py
 //           upsample_mask_logits and pack_mask_bits
+//   decode_batch  runtime/segmentation.py::_build_batch_decode_fn with
+//           largest_component off: the decoder's context once, then each
+//           prompt decoded and packed at batch 1, on the card each on a
+//           fork stream of the calling thread (_each_prompt)
+//
+// The encoder's kernel route is the bundle's (serving.txt): on, the
+// kernels' wrappers run (K1 / K2 for TinyViT; K1 / K3 / K4 / K5 for a
+// ViT), each launching its kernel on a CUDA tensor and computing its plain
+// version on a CPU tensor; off, the plain versions run.
 //
 // Weights are looked up by their state_dict name (the bundle's spec).
 #pragma once
@@ -15,6 +26,7 @@
 #include <ATen/ATen.h>
 
 #include <atomic>
+#include <functional>
 #include <map>
 #include <string>
 #include <vector>
@@ -29,16 +41,36 @@ struct Kernels {
   // x, scale, bias, out, rows, cols, dtype, eps, stream
   using LayerNorm = int (*)(const void*, const void*, const void*, void*, int,
                             int, int, float, void*);
+  // x, d, scale, bias, s_out, out, rows, cols, dtype, eps, stream
+  using AddLayerNorm = int (*)(const void*, const void*, const void*,
+                               const void*, void*, void*, int, int, int,
+                               float, void*);
   // qkv, bias, out, g, n, nh, kd, dtype, scale, stream
   using LevitAttention = int (*)(const void*, const void*, void*, int, int,
                                  int, int, int, float, void*);
-  LayerNorm layer_norm = nullptr;
-  LevitAttention levit_attention = nullptr;
+  // q, k, v, bhw, out, g, n, hd, gh, gw, dtype, scale, stream
+  using RelposGlobal = int (*)(const void*, const void*, const void*,
+                               const void*, void*, int, int, int, int, int,
+                               int, float, void*);
+  // q, k, v, bhw, out, g, n, hd, gh, gw, folded, g_skip, n_valid, dtype,
+  // scale, stream
+  using RelposWindowed = int (*)(const void*, const void*, const void*,
+                                 const void*, void*, int, int, int, int, int,
+                                 int, int, int, int, float, void*);
+  LayerNorm layer_norm = nullptr;                    // K1
+  AddLayerNorm add_layer_norm = nullptr;             // K3
+  LevitAttention levit_attention = nullptr;          // K2
+  RelposGlobal relpos_attention_global = nullptr;    // K4
+  RelposWindowed relpos_attention_windowed = nullptr;  // K5
 };
 
-// Launch counters of K1 and K2 (each launch on a CUDA tensor adds one).
+// Launch counters of K1, K2, K3, K4 and K5 (each launch on a CUDA tensor
+// adds one).
 extern std::atomic<int64_t> g_layer_norm_launches;
 extern std::atomic<int64_t> g_levit_attention_launches;
+extern std::atomic<int64_t> g_add_layer_norm_launches;
+extern std::atomic<int64_t> g_relpos_global_launches;
+extern std::atomic<int64_t> g_relpos_windowed_launches;
 
 struct ProgramConfig {
   int image_size = 1024;   // SamConfig.image_size
@@ -46,9 +78,21 @@ struct ProgramConfig {
   at::ScalarType compute_dtype = at::kBFloat16;  // the encoder's dtype
   int decoder_heads = 8;   // MaskDecoderConfig.num_heads
   bool multimask = false;  // decode3: tokens 1..3 and their IoUs
+  // The encoder (serving.txt): a ViT, else TinyViT, and its kernel route.
+  bool vit = false;
+  bool kernel_route = false;
+  // A ViT's geometry (SamViTConfig).
+  int num_heads = 0;
+  int window_size = 14;
+  std::vector<int> global_attn_indexes;
+  int patch_size = 16;
+  double layer_norm_eps = 1e-6;
   const Kernels* kernels = nullptr;  // required on CUDA tensors
   at::Tensor pixel_mean;   // SAM's pixel statistics on the device, made
   at::Tensor pixel_std;    // once, outside any capture
+  // decode_batch on the card: n streams (cudaStream_t) of the calling
+  // thread, to fork each prompt's work onto.
+  std::function<std::vector<void*>(int64_t n)> fork_streams;
 };
 
 // (canvas u8 (S, S, 3), sizes i32 (4,)) -> {embedding f32 (1, E, E, C)}
@@ -59,5 +103,10 @@ std::vector<at::Tensor> embed_program(const Weights& w, const ProgramConfig& c,
 std::vector<at::Tensor> decode_program(const Weights& w,
                                        const ProgramConfig& c,
                                        const std::vector<at::Tensor>& in);
+// (embedding, points f32 (N, 2, 2), labels f32 (N, 2), sizes i32 (4,))
+//   -> {packed masks u8 (N * bucket * bucket / 8,), IoUs f32 (N,)}
+std::vector<at::Tensor> decode_batch_program(
+    const Weights& w, const ProgramConfig& c,
+    const std::vector<at::Tensor>& in);
 
 }  // namespace dlimg_torch

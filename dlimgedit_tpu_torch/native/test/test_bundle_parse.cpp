@@ -4,8 +4,12 @@
 // through the backend's own reader (native/src/npy.hpp) must have the
 // row's dtype (bf16 stored as its 16 bits), dims and payload size, and
 // every weight row must name its tensor. Each file of weights/ must be
-// named by a spec, so that every weight is stored once. The port's copy
-// of the JAX package's native/test/test_bundle_parse.cpp.
+// named by a spec, so that every weight is stored once. serving.txt is
+// read through the backend's own parser (native/src/bundle.hpp): its
+// format (an older one is refused), encoder, kernel route and geometry,
+// and every bucket must have its embed and decode programs and one
+// serve_decode_batch<N> per batch size. The port's copy of the JAX
+// package's native/test/test_bundle_parse.cpp.
 //
 //   test_bundle_parse <bundle_dir>    (exit 77 = skip, no dir given)
 
@@ -18,6 +22,7 @@
 #include <string>
 #include <vector>
 
+#include "../src/bundle.hpp"
 #include "../src/npy.hpp"
 
 namespace fs = std::filesystem;
@@ -43,6 +48,40 @@ int main(int argc, char** argv) {
     return 77;
   }
   fs::path dir(argv[1]);
+  dlimg_bundle::Index index;
+  const std::string problem = dlimg_bundle::read_index(argv[1], &index);
+  if (!problem.empty()) {
+    std::fprintf(stderr, "FATAL: %s\n", problem.c_str());
+    return 1;
+  }
+  std::string batch, globals;
+  for (int n : index.batch) batch += (batch.empty() ? "" : ",") + std::to_string(n);
+  for (int g : index.global_attn_indexes)
+    globals += (globals.empty() ? "" : ",") + std::to_string(g);
+  std::printf("serving.txt: variant %s, encoder %s, kernel route %s, batch "
+              "sizes [%s]", index.variant.c_str(), index.encoder.c_str(),
+              index.kernel_route ? "on" : "off",
+              batch.c_str());
+  if (index.encoder == "vit")
+    std::printf(", num_heads %d, window_size %d, global_attn_indexes [%s], "
+                "patch_size %d, layer_norm_eps %g", index.num_heads,
+                index.window_size, globals.c_str(), index.patch_size,
+                index.layer_norm_eps);
+  std::printf("\n");
+  for (int b : index.buckets) {
+    const std::string tail = "_" + index.variant + "_" + std::to_string(b);
+    std::vector<std::string> want = {"serve_embed" + tail,
+                                     "serve_decode" + tail,
+                                     "serve_decode3" + tail};
+    for (int n : index.batch)
+      want.push_back("serve_decode_batch" + std::to_string(n) + tail);
+    for (const std::string& prog : want)
+      if (!fs::exists(dir / (prog + ".spec.txt"))) {
+        std::fprintf(stderr, "FATAL: serving.txt names no program %s\n",
+                     prog.c_str());
+        return 1;
+      }
+  }
   int programs = 0, rows = 0, weights = 0, bf16_rows = 0;
   std::set<std::string> named;  // weights/ files the specs name
   for (const auto& ent : fs::directory_iterator(dir)) {

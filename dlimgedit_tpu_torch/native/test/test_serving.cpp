@@ -19,14 +19,17 @@
 //   image2.raw, golden2.raw  a second image of image.raw's size (and
 //                       bucket) and the first point prompt's mask on it
 // Legs: every prompt's mask, three masks and their accuracies, the small
-// image, compute_mask_batch of every prompt, and two threads that process
-// image.raw and image2.raw at once, round after round, each holding its
-// own image's mask; masks byte-equal and accuracies bit-equal. Prints the K1 / K2 launches of each process (the
-// serving library's counters; the main image once more, where its graph
-// replays), holds every CUDA graph's replay against its
-// eager run, and with --time N prints the medians of N process and
-// compute_mask calls, one of each in turn. Exits 77 when the variables are
-// unset.
+// image, compute_mask_batch of the first 3 prompts and of every prompt
+// (through the bundle's serve_decode_batch<N> programs where it has them,
+// padded slots included), and two threads that process image.raw and
+// image2.raw at once, round after round, each holding its own image's
+// mask and batch; masks byte-equal and accuracies bit-equal. Prints the
+// K1 / K2 / K3 / K4 / K5 launches of each process (the serving library's
+// counters; the main image once more, where its graph replays), holds
+// every CUDA graph's replay against its eager run (out of the bundle's
+// programs, counted from its spec files), and with --time N prints the
+// medians of N process and compute_mask calls, one of each in turn. Exits
+// 77 when the variables are unset.
 
 #include <dlfcn.h>
 
@@ -36,8 +39,9 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <fstream>
 #include <exception>
+#include <filesystem>
+#include <fstream>
 #include <string>
 #include <thread>
 #include <vector>
@@ -67,10 +71,26 @@ size_t count_diff(const uint8_t* a, const uint8_t* b, size_t n) {
   return d;
 }
 
-// The serving library's counters, through its exported C function (it is
-// loaded by the C library with RTLD_LOCAL; RTLD_NOLOAD finds it by name).
+// The serving library's counters of K1..K5, through its exported C
+// function (it is loaded by the C library with RTLD_LOCAL; RTLD_NOLOAD
+// finds it by name).
+struct Launches {
+  int64_t k[5] = {};
+  Launches operator-(const Launches& o) const {
+    Launches d;
+    for (int i = 0; i < 5; ++i) d.k[i] = k[i] - o.k[i];
+    return d;
+  }
+};
+
+void print_launches(const char* what, const Launches& d) {
+  std::printf("launches per process %s: K1 %lld K2 %lld K3 %lld K4 %lld "
+              "K5 %lld\n", what, (long long)d.k[0], (long long)d.k[1],
+              (long long)d.k[2], (long long)d.k[3], (long long)d.k[4]);
+}
+
 struct Counters {
-  using Fn = void (*)(int64_t*, int64_t*);
+  using Fn = void (*)(int64_t*, int);
   using CheckFn = int (*)(char*, size_t);
   Fn launches = nullptr;
   CheckFn check_replays = nullptr;
@@ -84,12 +104,22 @@ struct Counters {
     if (!launches || !check_replays)
       fatal("the serving library lacks its counters");
   }
-  std::pair<int64_t, int64_t> now() const {
-    int64_t a = 0, b = 0;
-    launches(&a, &b);
-    return {a, b};
+  Launches now() const {
+    Launches l;
+    launches(l.k, 5);
+    return l;
   }
 };
+
+// The bundle's programs: its <name>.spec.txt files.
+int bundle_programs(const std::string& bundle) {
+  int n = 0;
+  for (const auto& e : std::filesystem::directory_iterator(bundle)) {
+    const std::string f = e.path().filename().string();
+    n += f.size() > 9 && f.compare(f.size() - 9, 9, ".spec.txt") == 0;
+  }
+  return n;
+}
 
 dlimg::ImageView view_of(const std::string& pixels, int w, int h, int c) {
   dlimg::ImageView v;
@@ -165,12 +195,10 @@ int main(int argc, char** argv) {
   counters.bind();
 
   const dlimg::ImageView view = view_of(pixels, w, h, c);
+  const std::string main_size = std::to_string(w) + "x" + std::to_string(h);
   auto before = counters.now();
   auto seg = dlimg::Segmentation::process(view, env);
-  auto after = counters.now();
-  std::printf("launches per process %dx%d: K1 %lld K2 %lld\n", w, h,
-              (long long)(after.first - before.first),
-              (long long)(after.second - before.second));
+  print_launches(main_size.c_str(), counters.now() - before);
 
   // Every prompt through compute_mask (the point and box legs).
   for (size_t i = 0; i < prompts.size(); ++i) {
@@ -213,29 +241,41 @@ int main(int argc, char** argv) {
     if (d3 != 0 || dacc != 0) fatal("compute_masks differs");
   }
 
-  // compute_mask_batch of every prompt.
-  {
-    const std::string gi = read_file(dir + "/golden_batch_iou.raw");
-    if (gi.size() != prompts.size() * sizeof(float))
-      fatal("golden_batch_iou.raw size");
+  // compute_mask_batch of the first k prompts against compute_mask's masks
+  // and the Python API's batch accuracies: -> (pixels, accuracies) that
+  // differ.
+  const std::string batch_iou = read_file(dir + "/golden_batch_iou.raw");
+  if (batch_iou.size() != prompts.size() * sizeof(float))
+    fatal("golden_batch_iou.raw size");
+  auto batch_diff = [&](dlimg::Segmentation& s, size_t k) {
     std::vector<dlimg::Segmentation::Prompt> batch;
-    for (const Prompt& p : prompts)
+    for (size_t i = 0; i < k; ++i) {
+      const Prompt& p = prompts[i];
       batch.push_back(p.is_region
                           ? dlimg::Segmentation::Prompt(dlimg::Region{
                                 dlimg::Point{p.v[0], p.v[1]},
                                 dlimg::Point{p.v[2], p.v[3]}})
                           : dlimg::Segmentation::Prompt(
                                 dlimg::Point{p.v[0], p.v[1]}));
-    auto masks = seg.compute_mask_batch(batch);
-    size_t d = 0, dacc = 0;
-    for (size_t i = 0; i < prompts.size(); ++i) {
-      d += count_diff(masks[i].image.pixels(), golden_mask(i), px);
-      dacc += std::memcmp(&masks[i].accuracy, gi.data() + i * sizeof(float),
-                          sizeof(float)) != 0;
     }
+    auto masks = s.compute_mask_batch(batch);
+    std::pair<size_t, size_t> d{0, 0};
+    for (size_t i = 0; i < k; ++i) {
+      d.first += count_diff(masks[i].image.pixels(), golden_mask(i), px);
+      d.second += std::memcmp(&masks[i].accuracy,
+                              batch_iou.data() + i * sizeof(float),
+                              sizeof(float)) != 0;
+    }
+    return d;
+  };
+  // A request of 3 (a batch program's padded slot) and of every prompt.
+  std::vector<size_t> requests = {std::min<size_t>(3, prompts.size())};
+  if (prompts.size() > requests[0]) requests.push_back(prompts.size());
+  for (size_t k : requests) {
+    auto [d, dacc] = batch_diff(seg, k);
     std::printf("compute_mask_batch of %zu vs the Python API: %zu/%zu pixels "
-                "differ, %zu/%zu accuracies differ in bits\n", prompts.size(),
-                d, prompts.size() * px, dacc, prompts.size());
+                "differ, %zu/%zu accuracies differ in bits\n", k, d, k * px,
+                dacc, k);
     if (d != 0 || dacc != 0) fatal("compute_mask_batch differs");
   }
 
@@ -250,10 +290,9 @@ int main(int argc, char** argv) {
     if (sgolden.size() != sn) fatal("golden_small.raw size");
     auto b2 = counters.now();
     auto sseg = dlimg::Segmentation::process(view_of(spixels, sw, sh, sc), env);
-    auto a2 = counters.now();
-    std::printf("launches per process %dx%d: K1 %lld K2 %lld\n", sw, sh,
-                (long long)(a2.first - b2.first),
-                (long long)(a2.second - b2.second));
+    const std::string small_size =
+        std::to_string(sw) + "x" + std::to_string(sh);
+    print_launches(small_size.c_str(), counters.now() - b2);
     dlimg::Image sm_mask = sseg.compute_mask(dlimg::Point{spx, spy});
     size_t d = count_diff(sm_mask.pixels(),
                           reinterpret_cast<const uint8_t*>(sgolden.data()), sn);
@@ -263,7 +302,8 @@ int main(int argc, char** argv) {
   }
 
   // Two threads process two images of one bucket at once: each mask must
-  // be its own image's, whatever the other thread does meanwhile.
+  // be its own image's, whatever the other thread does meanwhile; the
+  // thread of image.raw also runs the batch of every prompt each round.
   {
     const std::string pixels2 = read_file(dir + "/image2.raw");
     const std::string golden2 = read_file(dir + "/golden2.raw");
@@ -274,7 +314,7 @@ int main(int argc, char** argv) {
     if (first == prompts.size()) fatal("prompts.txt has no point");
     const dlimg::Point point{prompts[first].v[0], prompts[first].v[1]};
     const int rounds = 8;
-    size_t diff[2] = {0, 0};
+    size_t diff[2] = {0, 0}, batch_diffs = 0;
     std::string errors[2];
     auto worker = [&](int k) {
       try {
@@ -285,6 +325,10 @@ int main(int argc, char** argv) {
         for (int r = 0; r < rounds; ++r) {
           auto s = dlimg::Segmentation::process(v, env);
           diff[k] += count_diff(s.compute_mask(point).pixels(), want, px);
+          if (k == 0) {
+            auto [d, dacc] = batch_diff(s, prompts.size());
+            batch_diffs += d + dacc;
+          }
         }
       } catch (const std::exception& e) {
         errors[k] = e.what();
@@ -296,9 +340,10 @@ int main(int argc, char** argv) {
     for (const std::string& e : errors)
       if (!e.empty()) fatal("concurrent process: " + e);
     std::printf("concurrent process of 2 images x %d rounds vs the Python "
-                "API: %zu/%zu pixels differ\n", rounds, diff[0] + diff[1],
-                2 * rounds * px);
-    if (diff[0] + diff[1] != 0)
+                "API: %zu/%zu pixels differ; batches of %zu: %zu pixels and "
+                "accuracies differ\n", rounds, diff[0] + diff[1],
+                2 * rounds * px, prompts.size(), batch_diffs);
+    if (diff[0] + diff[1] + batch_diffs != 0)
       fatal("a mask of a concurrent process differs from the Python API's");
   }
 
@@ -306,10 +351,7 @@ int main(int argc, char** argv) {
   {
     auto b3 = counters.now();
     auto again = dlimg::Segmentation::process(view, env);
-    auto a3 = counters.now();
-    std::printf("launches per process %dx%d (replay): K1 %lld K2 %lld\n", w,
-                h, (long long)(a3.first - b3.first),
-                (long long)(a3.second - b3.second));
+    print_launches((main_size + " (replay)").c_str(), counters.now() - b3);
   }
 
   if (time_n > 0) {
@@ -335,7 +377,8 @@ int main(int argc, char** argv) {
   int held = counters.check_replays(report.data(), report.size());
   std::printf("%s", report.data());
   if (held < 0) fatal("a CUDA graph's replay differs from its eager run");
-  std::printf("replays equal eager: %d graphs\n", held);
+  std::printf("replays equal eager: %d graphs (the bundle has %d programs)\n",
+              held, bundle_programs(std::getenv("DLIMG_PJRT_BUNDLE")));
 
   using IsInitFn = int (*)();
   auto is_init =

@@ -8,7 +8,9 @@
 // The process is a host that shares libtorch: it sets ATen's float32
 // flags away from full precision first, and they must hold its values
 // again after the programs ran (at full precision). Prints the weights
-// the backend holds on its device, each once for every program.
+// the backend holds on its device, each once for every program, and how
+// many of the programs passed, out of those given and of the bundle's
+// (its spec files).
 //
 //   test_serving_programs [cpu|gpu] <bundle_dir> <program>...
 
@@ -16,6 +18,7 @@
 
 #include <cstdio>
 #include <cstring>
+#include <filesystem>
 #include <string>
 
 #include "../src/torch_backend.hpp"
@@ -37,7 +40,8 @@ int main(int argc, char** argv) {
   ctx.setFloat32MatmulPrecision("high");
   ctx.setAllowTF32CuDNN(true);
   std::string err;
-  dlimg_torch::Backend* be = dlimg_torch::create(argv[argi++], device, &err);
+  const std::string bundle = argv[argi++];
+  dlimg_torch::Backend* be = dlimg_torch::create(bundle, device, &err);
   if (!be) {
     std::fprintf(stderr, "FATAL: backend: %s\n", err.c_str());
     return 1;
@@ -50,6 +54,14 @@ int main(int argc, char** argv) {
                 ok ? "PASS" : ("FAIL (" + err + ")").c_str());
     failures += !ok;
   }
+  int in_bundle = 0;
+  for (const auto& e : std::filesystem::directory_iterator(bundle)) {
+    const std::string f = e.path().filename().string();
+    in_bundle += f.size() > 9 && f.compare(f.size() - 9, 9, ".spec.txt") == 0;
+  }
+  std::printf("programs byte-equal to the exporter's outputs: %d of %d "
+              "given, the bundle has %d\n", argc - argi - failures,
+              argc - argi, in_bundle);
   int64_t count = 0, bytes = 0;
   dlimg_torch::held_weights(be, &count, &bytes);
   std::printf("weights held on the device: %lld tensors, %lld bytes\n",

@@ -29,6 +29,8 @@
 #include <string>
 #include <vector>
 
+#include "../src/bundle.hpp"
+
 namespace {
 
 using Clock = std::chrono::steady_clock;
@@ -236,6 +238,19 @@ int cmd_info() {
         std::printf("bundle: %s\n", bundle);
         if (!cpu && !gpu)
             std::printf("bundle refused: %s\n", detail::api().last_error());
+        dlimg_bundle::Index index;
+        if (dlimg_bundle::read_index(bundle, &index).empty()) {
+            std::string batch;
+            for (int n : index.batch)
+                batch += (batch.empty() ? "" : ",") + std::to_string(n);
+            std::printf("bundle variant: %s (encoder %s, kernel route %s)\n",
+                        index.variant.c_str(), index.encoder.c_str(),
+                        index.kernel_route ? "on" : "off");
+            std::printf("bundle batch sizes: %s\n",
+                        batch.empty() ? "none (compute_mask_batch decodes "
+                                        "each prompt)"
+                                      : batch.c_str());
+        }
     }
     return 0;
 }

@@ -2,8 +2,9 @@
 counterpart of the JAX package's ``tools/aot_export.py --program serving``.
 
     python -m dlimgedit_tpu_torch.tools.aot_export --out DIR --program serving
-        [--variant mobile_sam] [--buckets 512,1024] [--sam-image-size N]
-        [--backend gpu|cpu] [--compute-dtype bfloat16|float32] [--models DIR]
+        [--variant mobile_sam|vit_b|vit_l|vit_h] [--buckets 512,1024]
+        [--batch-sizes 4,8] [--sam-image-size N] [--backend gpu|cpu]
+        [--compute-dtype bfloat16|float32] [--models DIR]
 
 A C or C++ host that sets ``DLIMG_PJRT_BUNDLE=DIR`` then serves
 ``create_environment``, ``process``, ``compute_mask(s)`` and
@@ -13,10 +14,13 @@ process: the library dlopens ``libdlimgedit_tpu_torch_serving.so``
 programs mirror the Python modules op for op (native/src/torch_programs.cpp).
 
 The bundle holds, per canvas bucket (``ops/preprocess.py`` CANVAS_BUCKETS),
-three programs, ``serve_embed_<variant>_<bucket>`` (preprocess + encoder),
-``serve_decode_<variant>_<bucket>`` (one mask) and
-``serve_decode3_<variant>_<bucket>`` (three masks and their accuracies),
-each as
+the programs ``serve_embed_<variant>_<bucket>`` (preprocess + encoder:
+TinyViT for MobileSAM, a SAM ViT for vit_b / vit_l / vit_h),
+``serve_decode_<variant>_<bucket>`` (one mask),
+``serve_decode3_<variant>_<bucket>`` (three masks and their accuracies)
+and, per ``--batch-sizes`` entry N, ``serve_decode_batch<N>_<variant>_
+<bucket>`` (N prompts against one embedding, each mask ``compute_mask``'s
+for its prompt: runtime/segmentation.py ``_build_batch_decode_fn``), each as
   <name>.spec.txt   one row per argument, then per output:
                       inw <dtype> <d0,d1,..> <state_dict name>   a weight
                       ind <dtype> <d0,d1,..>                     dynamic
@@ -26,18 +30,23 @@ each as
                     environment's executables, as ``Segmentation`` runs them)
 and, once for every program that names it, ``weights/<state_dict
 name>.npy``: the loaded module's tensor after every load-time transform
-(the compute-dtype cast, TinyViT's attention-bias index tables), bf16 as
-its 16 bits (the spec names the dtype). Then ``serving.txt`` (format,
-variant, backend, image_size, buckets,
-compute_dtype, decoder_heads). A ``gpu`` bundle also names the port's
-kernel library in ``kernels_path.txt`` (built first, ops/cuda_build.py), as
-the JAX bundle names its PJRT plugin in ``plugin_path.txt``.
+(the compute-dtype cast, TinyViT's attention-bias index tables, a ViT
+block's rel-pos gather index ``rel_pos_idx``), bf16 as its 16 bits (the
+spec names the dtype). Then ``serving.txt`` (format, variant, backend,
+image_size, buckets, batch sizes, compute_dtype, decoder_heads, the
+encoder kind and its kernel route, and a ViT's geometry: num_heads,
+window_size, global_attn_indexes, patch_size, layer_norm_eps; parsed by
+native/src/bundle.hpp). A ``gpu`` bundle also names the port's kernel
+library in ``kernels_path.txt`` (built first, ops/cuda_build.py), as the
+JAX bundle names its PJRT plugin in ``plugin_path.txt``, and has the
+encoder's kernel route on.
 
 Weights are random (seed 0) unless ``--models`` names a model directory
-(``<dir>/segmentation/mobile_sam.npz``, e.g. from the converters). The
+(``<dir>/segmentation/mobile_sam.npz`` or ``sam_vit_<b|l|h>.npz``, e.g.
+from the converters). The
 options of later slices of this route (ROADMAP A8) raise ``DlimgError``:
-the SAM ViTs, ``--batch-sizes``, ``--amg``, ``--birefnet``, ``--quantize``,
-``--quantize-activations``, ``--int8-deform``.
+``--amg``, ``--birefnet``, ``--quantize``, ``--quantize-activations``,
+``--int8-deform``.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import argparse
 import shutil
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,14 +63,21 @@ import torch
 from ..errors import DlimgError
 from ..ops.preprocess import CANVAS_BUCKETS
 from ..runtime.environment import Environment
-from ..runtime.segmentation import _build_decode_fn, _build_embed_fn, _to_host
+from ..runtime.segmentation import (
+    _build_batch_decode_fn,
+    _build_decode_fn,
+    _build_embed_fn,
+    _to_host,
+)
 from ..types import Backend, Options
 
-FORMAT = "dlimgedit_tpu_torch-serving-2"  # native/src/bundle.hpp kFormat
+FORMAT = "dlimgedit_tpu_torch-serving-3"  # native/src/bundle.hpp kFormat
+
+# The variants the route serves (models/sam.py make_config).
+VARIANTS = ("mobile_sam", "vit_t", "vit_b", "vit_l", "vit_h")
 
 # The JAX exporter's options that later slices of this route will serve.
 LATER_SLICES = {
-    "batch_sizes": ("--batch-sizes", "serve_decode_batch"),
     "amg": ("--amg", "automatic mask generation"),
     "birefnet": ("--birefnet", "BiRefNet segment_objects"),
     "quantize": ("--quantize", "the int8 encoders"),
@@ -89,7 +105,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["bfloat16", "float32"])
     ap.add_argument("--models", default="",
                     help="model directory (default: seeded random weights)")
-    ap.add_argument("--batch-sizes", default="")
+    ap.add_argument("--batch-sizes", default="",
+                    help="comma list of serve_decode_batch<N> sizes")
     ap.add_argument("--amg", default="")
     ap.add_argument("--birefnet", default="")
     ap.add_argument("--quantize", action="store_true")
@@ -99,11 +116,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _refuse_later_slices(args: argparse.Namespace) -> None:
-    if args.variant not in ("mobile_sam", "vit_t"):
-        raise DlimgError(
-            f"--variant {args.variant}: the Python-free route serves "
-            f"MobileSAM in this slice; the SAM ViTs are a later slice "
-            f"(ROADMAP A8)")
+    if args.variant not in VARIANTS:
+        raise DlimgError(f"--variant {args.variant}: the Python-free route "
+                         f"serves {', '.join(VARIANTS)}")
     for attr, (flag, what) in LATER_SLICES.items():
         if getattr(args, attr):
             raise DlimgError(
@@ -120,6 +135,64 @@ def _buckets(text: str) -> List[int]:
                          f"CANVAS_BUCKETS {CANVAS_BUCKETS} (ops/preprocess.py "
                          f"pick_bucket)")
     return buckets
+
+
+def _batch_sizes(text: str) -> List[int]:
+    sizes = []
+    for tok in (t.strip() for t in text.split(",")):
+        if not tok:
+            continue
+        if not tok.isdigit() or int(tok) < 1:
+            raise DlimgError(f"--batch-sizes {text!r}: each batch size must "
+                             f"be a positive integer")
+        sizes.append(int(tok))
+    return sorted(set(sizes))
+
+
+def _batch_prompts(nb: int, bucket: int):
+    """The sample prompts of serve_decode_batch<nb>: JAX's mix, points at
+    even slots and regions at odd ones (the JAX package's
+    tools/aot_export.py)."""
+    pts = np.zeros((nb, 2, 2), np.float32)
+    lbl = np.full((nb, 2), -1.0, np.float32)
+    for i in range(nb):
+        if i % 2 == 0:
+            pts[i, 0] = (bucket / 2 + i, bucket / 2)
+            lbl[i] = (1.0, -1.0)
+        else:
+            pts[i] = ((bucket / 4, bucket / 4),
+                      (3 * bucket / 4, 3 * bucket / 4))
+            lbl[i] = (2.0, 3.0)
+    return pts, lbl
+
+
+def _encoder_rows(cfg) -> Tuple[str, bool]:
+    """(serving.txt's encoder rows, whether the kernel route is on): the
+    kind, its kernel route (``models/sam.py::with_kernels`` turns TinyViT's
+    two flags on together, a ViT's one; its LayerNorms follow) and a
+    ViT's geometry."""
+    if cfg.encoder_tiny is not None:
+        t = cfg.encoder_tiny
+        if t.use_flash_attention != t.use_fused_norm:
+            raise DlimgError("the Python-free route runs TinyViT's K1 and K2 "
+                             "together (models/sam.py with_kernels): "
+                             "use_flash_attention and use_fused_norm differ")
+        return (f"encoder\ttinyvit\nkernel_route\t{int(t.use_fused_norm)}\n",
+                t.use_fused_norm)
+    v = cfg.encoder_vit
+    if v.fused_window_blocks:
+        raise DlimgError("fused_window_blocks: the Python-free route runs a "
+                         "ViT's windows partitioned (K5); turn it off before "
+                         "the export")
+    return (f"encoder\tvit\n"
+            f"kernel_route\t{int(v.use_flash_attention)}\n"
+            f"num_heads\t{v.num_heads}\n"
+            f"window_size\t{v.window_size}\n"
+            f"global_attn_indexes\t"
+            f"{','.join(map(str, v.global_attn_indexes))}\n"
+            f"patch_size\t{v.patch_size}\n"
+            f"layer_norm_eps\t{v.layer_norm_eps!r}\n",
+            v.use_flash_attention)
 
 
 def _row(kind: str, x, key: str = ""):
@@ -186,7 +259,7 @@ def make_environment(args: argparse.Namespace) -> Environment:
         backend=Backend.cpu if args.backend == "cpu" else Backend.gpu,
         model_directory=args.models or "models",
         allow_random_weights=not args.models,
-        compute_dtype=args.compute_dtype, sam_variant="mobile_sam", **extra))
+        compute_dtype=args.compute_dtype, sam_variant=args.variant, **extra))
 
 
 def export_serving(args: argparse.Namespace,
@@ -196,6 +269,7 @@ def export_serving(args: argparse.Namespace,
     options must be the arguments')."""
     _refuse_later_slices(args)
     buckets = _buckets(args.buckets)
+    batch_sizes = _batch_sizes(args.batch_sizes)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for stale in [*out.glob("serve_*"), out / "serving.txt",
@@ -204,8 +278,15 @@ def export_serving(args: argparse.Namespace,
     shutil.rmtree(out / "weights", ignore_errors=True)
     (out / "weights").mkdir()
     env = env if env is not None else make_environment(args)
-    variant = "mobile_sam"
+    variant = "mobile_sam" if args.variant == "vit_t" else args.variant
     bundle = env.sam_model(variant)
+    if bundle.quant != "none":
+        raise DlimgError("the int8 encoders through the Python-free route "
+                         "are a later slice (ROADMAP A8)")
+    encoder_rows, route_on = _encoder_rows(bundle.cfg)
+    if args.backend == "gpu" and not route_on:
+        raise DlimgError("a gpu bundle runs the encoder's kernels: its "
+                         "config has the kernel route off")
     if env.device.type == "cuda":
         from ..ops.cuda_build import LIBRARY
 
@@ -239,14 +320,27 @@ def export_serving(args: argparse.Namespace,
                                  env.sizes_on_device(tuple(sizes)))
             write_program(out, f"{name}_{variant}_{b}", decoder,
                           [emb, pts, lbl, sizes], [packed, iou], stored)
+        for nb in batch_sizes:
+            bpts, blbl = _batch_prompts(nb, b)
+            decode = env.executable(
+                ("decode_batch", variant, b, nb, False),
+                lambda: _build_batch_decode_fn(bundle, b), _to_host)
+            packed, iou = decode(emb, torch.from_numpy(bpts),
+                                 torch.from_numpy(blbl),
+                                 env.sizes_on_device(tuple(sizes)))
+            write_program(out, f"serve_decode_batch{nb}_{variant}_{b}",
+                          decoder, [emb, bpts, blbl, sizes], [packed, iou],
+                          stored)
     (out / "serving.txt").write_text(
         f"format\t{FORMAT}\n"
         f"variant\t{variant}\n"
         f"backend\t{args.backend}\n"
         f"image_size\t{image_size}\n"
         f"buckets\t{','.join(map(str, buckets))}\n"
+        f"batch\t{','.join(map(str, batch_sizes))}\n"
         f"compute_dtype\t{args.compute_dtype}\n"
-        f"decoder_heads\t{bundle.cfg.decoder.num_heads}\n")
+        f"decoder_heads\t{bundle.cfg.decoder.num_heads}\n"
+        f"{encoder_rows}")
     return env
 
 

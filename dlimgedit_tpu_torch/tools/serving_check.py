@@ -2,12 +2,14 @@
 counterpart of the JAX package's ``tools/serving_check.py``.
 
     python -m dlimgedit_tpu_torch.tools.serving_check --dir DIR
-        [--size 1024] [--sam-image-size N] [--backend gpu|cpu]
+        [--size 1024] [--variant mobile_sam|vit_b|vit_l|vit_h]
+        [--batch-sizes 4,8] [--sam-image-size N] [--backend gpu|cpu]
         [--compute-dtype bfloat16] [--models DIR] [--time N]
 
-1. Exports a serving bundle (tools/aot_export.py) into DIR/bundle, for the
-   buckets of a ``size`` x ``3/4 size`` image and of a smaller non-square
-   one (``size * 500/1024`` x ``size * 375/1024``).
+1. Exports a serving bundle (tools/aot_export.py) of the variant into
+   DIR/bundle, for the buckets of a ``size`` x ``3/4 size`` image and of a
+   smaller non-square one (``size * 500/1024`` x ``size * 375/1024``), with
+   ``serve_decode_batch<N>`` programs of the batch sizes.
 2. Writes the port's Python API's results into DIR/check, with the
    exporter's environment (the same weights): ``compute_mask`` of 8
    points and 4 boxes, ``compute_masks`` of the first
@@ -55,14 +57,17 @@ def image_sizes(size: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
 
 
 def bundle_args(out: Path, size: int, backend: str, sam_image_size: int = 0,
-                compute_dtype: str = "bfloat16",
-                models: str = "") -> argparse.Namespace:
+                compute_dtype: str = "bfloat16", models: str = "",
+                variant: str = "mobile_sam",
+                batch_sizes: str = "") -> argparse.Namespace:
     """The exporter's arguments for `size`'s two images."""
     main, small = image_sizes(size)
     buckets = sorted({pick_bucket(Extent(*main)), pick_bucket(Extent(*small))})
-    argv = ["--out", str(out), "--backend", backend,
+    argv = ["--out", str(out), "--backend", backend, "--variant", variant,
             "--buckets", ",".join(map(str, buckets)),
             "--compute-dtype", compute_dtype]
+    if batch_sizes:
+        argv += ["--batch-sizes", batch_sizes]
     if sam_image_size:
         argv += ["--sam-image-size", str(sam_image_size)]
     if models:
@@ -204,6 +209,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="dlimgedit_tpu_torch.tools.serving_check")
     ap.add_argument("--dir", required=True)
     ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--variant", default="mobile_sam")
+    ap.add_argument("--batch-sizes", default="")
     ap.add_argument("--sam-image-size", type=int, default=0)
     ap.add_argument("--backend", default="gpu", choices=["gpu", "cpu"])
     ap.add_argument("--compute-dtype", default="bfloat16",
@@ -216,7 +223,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     bundle, check = work / "bundle", work / "check"
     env = aot_export.export_serving(bundle_args(
         bundle, args.size, args.backend, args.sam_image_size,
-        args.compute_dtype, args.models))
+        args.compute_dtype, args.models, args.variant, args.batch_sizes))
     write_goldens(env, check, args.size, 8, 4)
     build = native_build.build_serving()
     print(run_test_serving(build, bundle, check, work, args.backend,

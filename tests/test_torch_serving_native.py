@@ -267,7 +267,9 @@ def test_backend_1_fails_without_cuda_and_a_bundle_keeps_its_backend(
     gpu_bundle = tmp_path / "gpu_bundle"
     shutil.copytree(served["bundle"], gpu_bundle)
     txt = gpu_bundle / "serving.txt"
-    txt.write_text(txt.read_text().replace("backend\tcpu", "backend\tgpu"))
+    # A gpu bundle has the encoder's kernel route on (bundle.hpp).
+    txt.write_text(txt.read_text().replace("backend\tcpu", "backend\tgpu")
+                   .replace("kernel_route\t0", "kernel_route\t1"))
     r = subprocess.run([str(build.executable("test_serving_programs")), "gpu",
                         str(gpu_bundle), "serve_embed_mobile_sam_256"],
                        env=env, capture_output=True, text=True, timeout=300)
@@ -280,14 +282,23 @@ def test_backend_1_fails_without_cuda_and_a_bundle_keeps_its_backend(
     assert "exported for backend gpu, not cpu" in r.stderr
 
 
+# The options the route refuses, and the words of each refusal: the later
+# slices name ROADMAP A8; the SAM ViTs and --batch-sizes are served, so
+# their cases hold the refusal of a size that is no batch size and of a
+# variant that is none of the route's.
+_REFUSALS = {"--batch-sizes": "each batch size must be a positive integer",
+             "--variant": "the Python-free route serves mobile_sam"}
+
+
 @pytest.mark.parametrize("extra", [
-    ["--amg", "4:8"], ["--batch-sizes", "4"], ["--birefnet", "general:256"],
+    ["--amg", "4:8"], ["--batch-sizes", "0"], ["--birefnet", "general:256"],
     ["--quantize"], ["--quantize-activations"], ["--int8-deform"],
-    ["--variant", "vit_b"]], ids=lambda e: e[0])
+    ["--variant", "sam2_hiera"]], ids=lambda e: e[0])
 def test_later_slice_options_raise(tmp_path, extra):
     args = aot_export.parse_args(["--out", str(tmp_path), "--backend", "cpu",
                                   *extra])
-    with pytest.raises(DlimgError, match=r"later slice \(ROADMAP A8\)"):
+    match = _REFUSALS.get(extra[0], r"later slice \(ROADMAP A8\)")
+    with pytest.raises(DlimgError, match=match):
         aot_export.export_serving(args)
     assert not (tmp_path / "serving.txt").exists()
 
