@@ -354,7 +354,28 @@ printing its seconds:
      included) and `test_bundle_parse`; then `process_ms` and `mask_ms`
      through the route against the direct call, in this interpreter,
      medians of 20 interleaved, the counts over the route's calls exact.
-     ViT-L runs ViT-B's code at other widths and is not run here.
+     ViT-L runs ViT-B's code at other widths and is not run here;
+ 19. automatic mask generation and BiRefNet `segment_objects` on the
+     Python-free route on cuda:0, from one bundle: MobileSAM 1024 bf16
+     (buckets 512 and 1024) exported with `--amg 32:64` and `--birefnet
+     general:1024,high_res:2048` (BiRefNet_lite at full width and depth,
+     bf16, seeded weights with nonzero offsets). `test_serving gpu` in a
+     fresh process: phase 17's legs, then `generate_masks` of the
+     1024x768 image twice (the second call replays the graph the first
+     captured), its count, masks and accuracies byte for byte the direct
+     Python call's, one P1 launch a call counted by the serving library
+     (one call of the two-kernel `greedy_nms`, as the Python wrapper
+     counts it); `segment_objects` of a 1024x768 image (`general`) and a
+     2000x1500 one (`high_res`, bucket 2048), each final mask within one
+     grey level of the direct call's (the C host resizes with the native
+     box filter), an image over every bucket refused; every graph's
+     replay equal to its eager run; `test_serving_programs gpu` over the
+     `serve_amg` and `serve_birefnet` programs (each (S, S) mask and each
+     AMG output byte for byte the Python executable's) and
+     `test_bundle_parse`; then, in this interpreter through the C
+     library, the same calls against the direct ones: `amg_ms` (medians
+     of 5) and `birefnet_ms` (medians of 10), interleaved. Its launches
+     are checked here, not added to the kernels' sums.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -5394,11 +5415,11 @@ def drive_python_free(torch, np, dl, gpu_line) -> None:
                 lambda: api.destroy_segmentation(c_process(served)),
                 lambda: api.destroy_segmentation(c_process(embedded)),
                 lambda: dl.Segmentation.process(img, env)])
-            k = (ctypes.c_int64 * 5)()
-            lib.dlimg_serving_launches(k, 5)
+            k = (ctypes.c_int64 * 6)()
+            lib.dlimg_serving_launches(k, 6)
             if tuple(k) != (21 * LN_PER_PROCESS, 21 * ATTN_PER_PROCESS, 0, 0,
-                            0):
-                fail(f"phase 17: the serving library counted K1..K5 "
+                            0, 0):
+                fail(f"phase 17: the serving library counted K1..K5, P1 "
                      f"{tuple(k)} over its route's 21 process calls")
             mask_ms = interleaved_ms(torch, [
                 lambda: c_mask("serving"), lambda: c_mask("embedded"),
@@ -5429,17 +5450,20 @@ SERVING_VITS = (("vit_b", "4,8", 12), ("vit_h", "", 32))
 
 
 def launch_lines(re, stdout: str) -> list:
-    """test_serving's "launches per process" lines -> [(what, (K1..K5))]."""
+    """test_serving's "launches per process" lines -> [(what, (K1..K5,
+    P1))]."""
     return [(m[0], tuple(int(v) for v in m[1:])) for m in re.findall(
         r"launches per process (\S+(?: \(replay\))?): K1 (\d+) K2 (\d+) "
-        r"K3 (\d+) K4 (\d+) K5 (\d+)", stdout)]
+        r"K3 (\d+) K4 (\d+) K5 (\d+) P1 (\d+)", stdout)]
 
 
 def per_process_counts(depth: int) -> tuple:
-    """K1..K5 per ViT `process` on the route, in the library's order."""
+    """K1..K5 and P1 per ViT `process` on the route, in the library's
+    order."""
     want = vit_per_process(depth)
     return (want["fused_layer_norm"], 0, want["fused_add_layer_norm"],
-            want["relpos_attention_global"], want["relpos_attention_windowed"])
+            want["relpos_attention_global"], want["relpos_attention_windowed"],
+            0)
 
 
 def drive_python_free_vits(torch, np, dl, gpu_line) -> None:
@@ -5563,11 +5587,11 @@ def drive_python_free_vits(torch, np, dl, gpu_line) -> None:
                 process_ms = interleaved_ms(torch, [
                     lambda: api.destroy_segmentation(c_process()),
                     lambda: dl.Segmentation.process(img, env)])
-                k = (ctypes.c_int64 * 5)()
-                lib.dlimg_serving_launches(k, 5)
+                k = (ctypes.c_int64 * 6)()
+                lib.dlimg_serving_launches(k, 6)
                 if tuple(k) != tuple(21 * v for v in want):
                     fail(f"phase 18 {variant}: the serving library counted "
-                         f"K1..K5 {tuple(k)} over its route's 21 process "
+                         f"K1..K5, P1 {tuple(k)} over its route's 21 process "
                          f"calls, want 21 x {want}")
                 mask_ms = interleaved_ms(torch, [
                     c_mask,
@@ -5577,7 +5601,7 @@ def drive_python_free_vits(torch, np, dl, gpu_line) -> None:
                       f"direct={process_ms[1]:.3f}; mask_ms serving="
                       f"{mask_ms[0]:.3f} direct={mask_ms[1]:.3f} (medians of "
                       f"20, interleaved in this interpreter; the serving "
-                      f"library launched K1..K5 {tuple(k)} over its 21 "
+                      f"library launched K1..K5, P1 {tuple(k)} over its 21 "
                       f"process calls, {want} a call); export and goldens "
                       f"{t_export:.1f} s", flush=True)
                 api.destroy_segmentation(seg)
@@ -5592,6 +5616,215 @@ def drive_python_free_vits(torch, np, dl, gpu_line) -> None:
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 19: automatic mask generation and BiRefNet `segment_objects` on the
+# Python-free route, from one bundle (MobileSAM bf16 with `--amg`, and
+# BiRefNet_lite `general` at 1024 and `high_res` at 2048).
+SERVING_AMG = "32:64"
+SERVING_BIREFNET = "general:1024,high_res:2048"
+
+
+def drive_python_free_amg_birefnet(torch, np, dl, gpu_line) -> None:
+    """Phase 19, generate_masks and segment_objects through the
+    Python-free serving route on cuda:0 (the module docstring's item
+    19)."""
+    import ctypes
+    import re
+
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.tools import aot_export, serving_check
+
+    t0 = time.perf_counter()
+    b = native_build.build_serving()  # phase 17's build
+    lib = ctypes.CDLL(str(b.serving_library))
+    api = native_build.load_api(b.library)
+    opts = native_build.DlimgOptions(backend=1, model_directory=b".")
+    saved = {k: os.environ.get(k) for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE")}
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+    grid, slots = (int(v) for v in SERVING_AMG.split(":"))
+    handle = None
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        bundle, check = work / "bundle", work / "check"
+        try:
+            args = serving_check.bundle_args(bundle, 1024, "gpu",
+                                             amg=SERVING_AMG,
+                                             birefnet=SERVING_BIREFNET)
+            env = aot_export.make_environment(args)
+            for kind in ("general", "high_res"):
+                seed_nonzero_init(env.birefnet_model(kind).model)
+            aot_export.export_serving(args, env=env)
+            serving_check.write_goldens(env, check, 1024, SERVING_POINTS,
+                                        SERVING_BOXES)
+            amg_masks = serving_check.write_amg_goldens(env, check, grid,
+                                                        slots)
+            biref = serving_check.write_birefnet_goldens(env, check, 1024,
+                                                         [1024, 2048])
+            print(f"phase 19: bundle exported and the Python API's results "
+                  f"written in {time.perf_counter() - t0:.1f} s "
+                  f"({len(amg_masks)} AMG masks)", flush=True)
+            try:
+                r = serving_check.run_test_serving(b, bundle, check, work,
+                                                   "gpu")
+            except RuntimeError as e:
+                fail(f"phase 19: {e}")
+            (w, h), _ = serving_check.image_sizes(1024)
+            n = len(amg_masks)
+            for call in (1, 2):
+                if (f"generate_masks (call {call}) vs the Python API: {n} of "
+                        f"{n} masks, 0/{n * w * h} pixels differ, 0/{n} "
+                        f"accuracies differ in bits") not in r.stdout:
+                    fail(f"phase 19: test_serving's generate_masks call "
+                         f"{call} differs from the Python API's")
+            per_call = re.findall(r"launches per generate_masks \S+: K1 0 "
+                                  r"K2 0 K3 0 K4 0 K5 0 P1 (\d+)", r.stdout)
+            if per_call != ["1", "1"]:
+                fail(f"phase 19: the serving library counted P1 {per_call} "
+                     f"over test_serving's two generate_masks calls, want 1 "
+                     f"each (one call of the two-kernel greedy_nms)")
+            levels = re.findall(r"segment_objects (\d+x\d+) \((\w+)\) vs the "
+                                r"Python API: (\d+)/(\d+) pixels differ, by "
+                                r"at most (\d)", r.stdout)
+            if [(s, k) for s, k, *_ in levels] != [
+                    ("1024x768", "general"), ("2000x1500", "high_res")] or \
+                    any(int(m) > 1 for *_, m in levels):
+                fail(f"phase 19: test_serving's segment_objects {levels}")
+            if not re.search(r"segment_objects \d+x\d+: refused", r.stdout):
+                fail("phase 19: an image over every bucket was not refused")
+            held = re.search(r"replays equal eager: (\d+) graphs", r.stdout)
+            if not held or int(held.group(1)) < 8:
+                fail(f"phase 19: graphs held against their eager runs: "
+                     f"{held and held.group(0)}")
+            for line in r.stdout.splitlines():
+                if line.startswith(("generate_masks", "segment_objects",
+                                    "launches per generate",
+                                    "launches per segment", "replays",
+                                    "serve_amg", "serve_birefnet", "Py_")):
+                    print(f"phase 19 test_serving: {line}", flush=True)
+            new = [p_ for p_ in serving_check.programs(bundle)
+                   if p_.startswith(("serve_amg", "serve_birefnet"))]
+            p = subprocess.run(
+                [str(b.executable("test_serving_programs")), "gpu",
+                 str(bundle), *new], env=serving_check.fresh_env(work),
+                capture_output=True, text=True, timeout=900)
+            if p.returncode != 0 or p.stdout.count(": PASS") != len(new) or \
+                    len(new) != 4:
+                fail(f"phase 19: test_serving_programs over {new}: "
+                     f"{p.stdout[-3000:]}{p.stderr[-2000:]}")
+            for line in p.stdout.splitlines():
+                print(f"phase 19 test_serving_programs gpu: {line}",
+                      flush=True)
+            parse = subprocess.run([str(b.executable("test_bundle_parse")),
+                                    str(bundle)], capture_output=True,
+                                   text=True, timeout=300)
+            if parse.returncode != 0:
+                fail(f"phase 19: test_bundle_parse: {parse.stderr[-2000:]}")
+            for line in parse.stdout.splitlines():
+                print(f"phase 19 test_bundle_parse: {line}", flush=True)
+
+            # The route and the direct call in this interpreter.
+            os.environ["DLIMG_PJRT_BUNDLE"] = str(bundle)
+            served = ctypes.c_void_p()
+            if api.create_environment(ctypes.byref(served),
+                                      ctypes.byref(opts)):
+                fail(f"phase 19 create_environment: "
+                     f"{api.last_error().decode()}")
+            handle = served
+            arr = np.frombuffer((check / "image.raw").read_bytes(),
+                                np.uint8).reshape(h, w, 4)
+            buf, stride = c_pixels(ctypes, np, arr, 0)
+            view = native_build.DlimgImageView(
+                width=w, height=h, channels=4, stride=stride,
+                pixels=ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)))
+            seg = ctypes.c_void_p()
+            if api.process_image_for_segmentation(ctypes.byref(seg),
+                                                  ctypes.byref(view), served):
+                fail(f"phase 19 process: {api.last_error().decode()}")
+            direct = dl.Segmentation.process(
+                dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr.copy()), env)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            gen, addrs = c_masks(ctypes, slots, w * h)
+            acc = (ctypes.c_float * slots)()
+            count = ctypes.c_int()
+            iou, stab, nms = serving_check.AMG_THRESHOLDS
+
+            def c_generate():
+                thr = (ctypes.c_float * 3)(iou, stab, nms)
+                if api.generate_masks(seg, thr, slots, (u8p * slots)(*[
+                        ctypes.cast(a, u8p) for a in addrs]), acc,
+                        ctypes.byref(count)):
+                    fail(f"phase 19 generate_masks: "
+                         f"{api.last_error().decode()}")
+
+            def direct_generate():
+                return direct.generate_masks(grid=grid, max_masks=slots,
+                                             iou_thresh=iou,
+                                             stability_thresh=stab,
+                                             nms_thresh=nms)
+
+            lib.dlimg_serving_reset_launches()
+            c_generate()
+            k = (ctypes.c_int64 * 6)()
+            lib.dlimg_serving_launches(k, 6)
+            if tuple(k) != (0, 0, 0, 0, 0, 1):
+                fail(f"phase 19: one generate_masks in this interpreter "
+                     f"counted K1..K5, P1 {tuple(k)}")
+            if count.value != n or any(
+                    bytes(gen[i]) != amg_masks[i].image.pixels.tobytes()
+                    or acc[i] != np.float32(amg_masks[i].accuracy)
+                    for i in range(n)):
+                fail("phase 19: generate_masks in this interpreter differs "
+                     "from the Python API's")
+            amg_ms = interleaved_ms(torch, [c_generate, direct_generate], n=5)
+            obj, oaddrs = c_masks(ctypes, 1, 2000 * 1500)
+            biref_ms = []
+            for (px, want) in biref:
+                bh, bw = want.shape
+                bbuf, bstride = c_pixels(ctypes, np, px, 0)
+                bview = native_build.DlimgImageView(
+                    width=bw, height=bh, channels=3, stride=bstride,
+                    pixels=ctypes.cast(bbuf, u8p))
+                img = dl.Image(dl.Extent(bw, bh), dl.Channels.rgb, px.copy())
+
+                def c_segment():
+                    if api.segment_objects(ctypes.byref(bview),
+                                           ctypes.cast(oaddrs[0], u8p),
+                                           served):
+                        fail(f"phase 19 segment_objects: "
+                             f"{api.last_error().decode()}")
+
+                c_segment()
+                got = np.frombuffer(obj[0], np.uint8)[:bw * bh]
+                worst = int(np.abs(got.astype(int) - want.reshape(-1)
+                                   .astype(int)).max())
+                if worst > 1:
+                    fail(f"phase 19: segment_objects {bw}x{bh} in this "
+                         f"interpreter differs by {worst} from the Python "
+                         f"API's")
+                biref_ms.append((f"{bw}x{bh}", worst, interleaved_ms(
+                    torch, [c_segment, lambda img=img: dl.segment_objects(
+                        img, env)], n=10)))
+            print(f"e2e Python-free serving generate_masks MobileSAM "
+                  f"{w}x{h} grid {grid}, {slots} slots ({n} masks) on "
+                  f"{gpu_line}: amg_ms serving={amg_ms[0]:.3f} direct="
+                  f"{amg_ms[1]:.3f} (medians of 5, interleaved in this "
+                  f"interpreter; 1 P1 launch a call)", flush=True)
+            for size, worst, (srv, drc) in biref_ms:
+                print(f"e2e Python-free serving segment_objects "
+                      f"BiRefNet_lite {size} on {gpu_line}: birefnet_ms "
+                      f"serving={srv:.3f} direct={drc:.3f} (medians of 10, "
+                      f"interleaved; final mask within {worst} of the "
+                      f"direct call's)", flush=True)
+            api.destroy_segmentation(seg)
+            del direct, env
+        finally:
+            if handle is not None:
+                api.destroy_environment(handle)
+            restore_vars(saved)
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -5599,6 +5832,7 @@ def seeded_birefnet(bn, torch, cfg):
 
 
 def main() -> int:
+    run_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5863,6 +6097,9 @@ def main() -> int:
     # -- 18. the SAM ViTs and the batch programs on that route -------------
     drive_python_free_vits(torch, np, dl, gpu_line)
 
+    # -- 19. generate_masks and segment_objects on that route --------------
+    drive_python_free_amg_birefnet(torch, np, dl, gpu_line)
+
     kernels = []
     for name, source, replaces in KERNELS:
         e = (nms_row if name == "greedy_nms"
@@ -5878,6 +6115,8 @@ def main() -> int:
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
             "library_ms": e["library_ms"]})
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - run_t0:.1f} s "
+          f"on {gpu_line}", flush=True)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,17 @@
 namespace dlimg_bundle {
 
 // tools/aot_export.py FORMAT.
-constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-3";
+constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-4";
 constexpr char kExporter[] =
     "python -m dlimgedit_tpu_torch.tools.aot_export --program serving";
+
+// A BiRefNet program of the bundle: serve_birefnet_<kind>_<bucket>, its
+// model's input side `resolution`.
+struct BirefProgram {
+  std::string kind;  // "general" | "high_res"
+  int bucket = 0;
+  int resolution = 0;
+};
 
 struct Index {
   std::string variant;
@@ -38,7 +46,44 @@ struct Index {
   std::vector<int> global_attn_indexes;
   int patch_size = 16;
   double layer_norm_eps = 1e-6;
+  // Automatic mask generation (serve_amg_<variant>_<bucket>): the point
+  // grid's side and the winners K; none when amg_grid is 0.
+  int amg_grid = 0;
+  int amg_masks = 0;
+  // BiRefNet segment_objects: the programs, and the configuration they
+  // share (models/birefnet.py BiRefNetConfig, its Swin's SwinConfig).
+  std::vector<BirefProgram> birefnet;
+  int birefnet_embed_dim = 0;
+  std::vector<int> birefnet_depths, birefnet_num_heads;
+  int birefnet_window = 0;
+  int birefnet_patch_size = 0;
+  double birefnet_layer_norm_eps = 0.0;
+  // dec_inter_channels, aspp_channelster, gdt_channels
+  std::vector<int> birefnet_decoder_channels;
+  std::vector<int> birefnet_aspp_kernel_sizes;
+  std::string birefnet_mul_scl_ipt;  // "cat" | "none"
+  int birefnet_cxt_num = -1;
 };
+
+// runtime/amg.py _prenms_pool: the pre-NMS pool of a grid of G points (3G
+// candidates), at least 3/4 of them, floored at 256 and at 4x the winners.
+inline int prenms_pool(int G, int max_masks) {
+  return std::min(3 * G, std::max({256, 3 * G * 3 / 4, 4 * max_masks}));
+}
+
+// "a:b" -> {a, b}, each a positive integer; throws otherwise.
+inline std::vector<int> colon_ints(const std::string& val) {
+  std::vector<int> out;
+  std::stringstream ss(val);
+  std::string tok;
+  while (std::getline(ss, tok, ':')) {
+    size_t used = 0;
+    int v = std::stoi(tok, &used);
+    if (used != tok.size() || v < 1) throw std::invalid_argument(tok);
+    out.push_back(v);
+  }
+  return out;
+}
 
 // "a,b,c" -> ints; throws on a token that is not one.
 inline std::vector<int> int_list(const std::string& val) {
@@ -75,7 +120,7 @@ inline std::string read_index(const std::string& dir, Index* out) {
   std::ifstream f(dir + "/serving.txt");
   if (!f) return where + " holds no serving.txt" + write;
   Index idx;
-  std::string line, format;
+  std::string line, format, quant;
   try {
     while (std::getline(f, line)) {
       auto t = line.find('\t');
@@ -84,6 +129,7 @@ inline std::string read_index(const std::string& dir, Index* out) {
       while (!val.empty() && (val.back() == '\r' || val.back() == ' '))
         val.pop_back();
       if (key == "format") format = val;
+      else if (key == "quant") quant = val;
       else if (key == "variant") idx.variant = val;
       else if (key == "backend") idx.backend = val;
       else if (key == "compute_dtype") idx.compute_dtype = val;
@@ -99,6 +145,37 @@ inline std::string read_index(const std::string& dir, Index* out) {
         idx.global_attn_indexes = int_list(val);
       else if (key == "patch_size") idx.patch_size = std::stoi(val);
       else if (key == "layer_norm_eps") idx.layer_norm_eps = std::stod(val);
+      else if (key == "amg") {
+        std::vector<int> gk = colon_ints(val);
+        if (gk.size() != 2) throw std::invalid_argument(val);
+        idx.amg_grid = gk[0];
+        idx.amg_masks = gk[1];
+      } else if (key == "birefnet") {
+        std::stringstream bs(val);
+        std::string spec;
+        while (std::getline(bs, spec, ',')) {
+          auto cut = spec.find(':');
+          if (cut == std::string::npos) throw std::invalid_argument(spec);
+          std::vector<int> br = colon_ints(spec.substr(cut + 1));
+          if (br.size() != 2) throw std::invalid_argument(spec);
+          idx.birefnet.push_back({spec.substr(0, cut), br[0], br[1]});
+        }
+      } else if (key == "birefnet_embed_dim")
+        idx.birefnet_embed_dim = std::stoi(val);
+      else if (key == "birefnet_depths") idx.birefnet_depths = int_list(val);
+      else if (key == "birefnet_num_heads")
+        idx.birefnet_num_heads = int_list(val);
+      else if (key == "birefnet_window") idx.birefnet_window = std::stoi(val);
+      else if (key == "birefnet_patch_size")
+        idx.birefnet_patch_size = std::stoi(val);
+      else if (key == "birefnet_layer_norm_eps")
+        idx.birefnet_layer_norm_eps = std::stod(val);
+      else if (key == "birefnet_decoder_channels")
+        idx.birefnet_decoder_channels = int_list(val);
+      else if (key == "birefnet_aspp_kernel_sizes")
+        idx.birefnet_aspp_kernel_sizes = int_list(val);
+      else if (key == "birefnet_mul_scl_ipt") idx.birefnet_mul_scl_ipt = val;
+      else if (key == "birefnet_cxt_num") idx.birefnet_cxt_num = std::stoi(val);
     }
   } catch (const std::exception&) {
     return where + ": malformed serving.txt line '" + line + "'" + write;
@@ -107,6 +184,10 @@ inline std::string read_index(const std::string& dir, Index* out) {
     return where + ": serving.txt names the bundle format '" + format +
            "', not the port's " + std::string(kFormat) +
            " (an older export is not read)" + write;
+  if (!quant.empty())
+    return where + ": serving.txt names int8 programs (quant " + quant +
+           "): the int8 encoders through the Python-free route are a later "
+           "slice, ROADMAP A8 (5)" + write;
   if (idx.buckets.empty() || idx.variant.empty() || idx.backend.empty())
     return where + ": serving.txt has no variant, backend or buckets" + write;
   if (idx.encoder != "tinyvit" && idx.encoder != "vit")
@@ -118,6 +199,28 @@ inline std::string read_index(const std::string& dir, Index* out) {
   for (int n : idx.batch)
     if (n < 1)
       return where + ": serving.txt has a batch size below 1" + write;
+  if (idx.amg_grid > 0 && idx.amg_masks > 3 * idx.amg_grid * idx.amg_grid)
+    return where + ": serving.txt's amg row names more winners than the "
+                   "grid's 3 * grid^2 candidates" + write;
+  for (const BirefProgram& b : idx.birefnet)
+    if ((b.kind != "general" && b.kind != "high_res") || b.resolution % 64)
+      return where + ": serving.txt's birefnet row names a kind other than "
+                     "general or high_res, or a resolution that is no "
+                     "multiple of 64" + write;
+  if (!idx.birefnet.empty() &&
+      (idx.birefnet_embed_dim <= 0 || idx.birefnet_depths.size() != 4 ||
+       idx.birefnet_num_heads.size() != 4 || idx.birefnet_window <= 0 ||
+       idx.birefnet_patch_size <= 0 || idx.birefnet_layer_norm_eps <= 0.0 ||
+       idx.birefnet_decoder_channels.size() != 3 ||
+       idx.birefnet_aspp_kernel_sizes.empty() ||
+       (idx.birefnet_mul_scl_ipt != "cat" &&
+        idx.birefnet_mul_scl_ipt != "none") ||
+       idx.birefnet_cxt_num < 0 || idx.birefnet_cxt_num > 3))
+    return where + ": serving.txt has a birefnet row but lacks the "
+                   "BiRefNet's configuration rows (birefnet_embed_dim, "
+                   "_depths, _num_heads, _window, _patch_size, "
+                   "_layer_norm_eps, _decoder_channels, _aspp_kernel_sizes, "
+                   "_mul_scl_ipt, _cxt_num)" + write;
   if (idx.backend == "gpu" && !idx.kernel_route)
     return where + ": a gpu bundle must have the encoder's kernel route on "
                    "(kernel_route 1)" + write;

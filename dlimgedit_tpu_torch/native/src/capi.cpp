@@ -27,13 +27,15 @@
 // --program serving), create_environment, process, compute_mask(s) and
 // compute_mask_batch of the bundle's variant (MobileSAM or a SAM ViT;
 // compute_mask_batch through the bundle's batch programs where it has
-// them) run through the port's serving library,
+// them), generate_masks (its serve_amg programs, --amg) and
+// segment_objects (its BiRefNet programs, --birefnet) run through the
+// port's serving library,
 // libdlimgedit_tpu_torch_serving.so (torch_backend.hpp: C++ on libtorch,
 // CUDA graphs and the port's kernels on cuda:0), which this library
 // dlopens from its own directory, as the JAX package's library dlopens
 // its PJRT plugin. Nothing then starts the interpreter: load_image and
-// save_image keep to the native codecs, and generate_masks and
-// segment_objects fail, naming the slice that will serve them. The
+// save_image keep to the native codecs, and a call the bundle has no
+// program for fails, naming the exporter's option that writes it. The
 // variable keeps the JAX package's name, so a host configured for either
 // library works with the other's; a JAX bundle (plugin_path.txt, .pjrt
 // programs) is refused with a message that names the port's exporter.
@@ -59,12 +61,17 @@
 #include "torch_backend.hpp"
 
 // csrc/hostops.cpp (compiled into this library): the channel-map pack
-// shared with the Python path.
+// shared with the Python path, and the box-filter mask resize
+// (image/resize.py resize_mask's counterpart, within one grey level).
 extern "C" void dlimg_hostops_pack_rgb(const uint8_t* src,
                                        int64_t src_stride, int h, int w,
                                        int src_c, int m0, int m1, int m2,
                                        uint8_t* dst, int64_t dst_stride,
                                        int threads);
+extern "C" void dlimg_hostops_resize_mask_box(const uint8_t* src, int src_h,
+                                              int src_w, int64_t src_stride,
+                                              uint8_t* dst, int dst_h,
+                                              int dst_w, int64_t dst_stride);
 
 #ifndef DLIMG_PYTHON_EXECUTABLE
 #error "build with native_build.py: it defines DLIMG_PYTHON_EXECUTABLE"
@@ -225,6 +232,7 @@ PyObject* bridge_call(char const* fn, PyObject* args /* steals */) {
 struct dlimg_Environment_ {
     PyObject* obj = nullptr;  // the bridge's Environment (embedded mode)
     void* serving = nullptr;  // the serving library's backend (serving mode)
+    dlimg_bundle::Index index;  // the bundle's serving.txt (serving mode)
 };
 struct dlimg_Segmentation_ {
     PyObject* obj = nullptr;  // the bridge's Segmentation
@@ -237,6 +245,7 @@ struct dlimg_Segmentation_ {
     double scale = 1.0;  // double: image/resize.py's Python-float rounding
     int crop_h = 0;
     int crop_w = 0;
+    int amg_masks = 0;  // the bundle's serve_amg winners K (0: no --amg)
 };
 
 namespace {
@@ -396,6 +405,7 @@ dlimg_Result serving_process(dlimg_Segmentation* out,
     seg->scale = scale;
     seg->crop_h = th;
     seg->crop_w = tw;
+    seg->amg_masks = env->index.amg_masks;
     *out = seg;
     return dlimg_success;
 }
@@ -569,14 +579,130 @@ dlimg_Result serving_compute_mask_batch(dlimg_Segmentation seg,
     return dlimg_success;
 }
 
-dlimg_Result serving_unserved(char const* what) {
-    set_error(std::string(what) + ": the port's Python-free serving route "
-              "(DLIMG_PJRT_BUNDLE) serves process, compute_mask(s) and "
-              "compute_mask_batch of MobileSAM and the SAM ViTs; automatic "
-              "mask generation, BiRefNet and the int8 encoders are later "
-              "slices of ROADMAP A8: unset DLIMG_PJRT_BUNDLE to serve this "
-              "through the embedded interpreter");
-    return dlimg_error;
+// generate_masks through the bundle's serve_amg program (the JAX
+// package's pjrt_generate_masks): the thresholds {iou, stability, nms, 0,
+// 1, 0} (no area filter and no region refinement, as the C ABI's), one
+// graph on the card; the scores first, then the packed masks. The count is
+// the leading scores above 0 (sorted descending; the rest are pads or
+// masks the decoder rated <= 0), at most max_out.
+dlimg_Result serving_generate_masks(dlimg_Segmentation seg,
+                                    float const* thresholds, int max_out,
+                                    uint8_t* const* out_masks,
+                                    float* out_accuracies, int* out_count) {
+    auto const& api = serving();
+    void* be = seg->serving;
+    int const K = seg->amg_masks;
+    if (K == 0) {
+        set_error("generate_masks: the serving bundle was exported without "
+                  "--amg (re-run python -m dlimgedit_tpu_torch.tools."
+                  "aot_export --program serving --amg grid:max_masks)");
+        return dlimg_error;
+    }
+    float const thr[6] = {thresholds[0], thresholds[1], thresholds[2],
+                          0.0f, 1.0f, 0.0f};
+    int32_t sizes[4] = {seg->height, seg->width, seg->crop_h, seg->crop_w};
+    std::vector<int64_t> size_dims = {4}, thr_dims = {6};
+    dlimg_serving_arg args[3] = {
+        dlimg_serving_arg{nullptr, nullptr, 0, nullptr, seg->emb, nullptr,
+                          nullptr},
+        host_arg(sizes, size_dims, "int32"), host_arg(thr, thr_dims, "float32")};
+    std::string const name = program_name(seg, "serve_amg");
+    void* outs[4] = {};
+    int n_outs = 0;
+    if (api.run(be, name.c_str(), args, 3, outs, 4, &n_outs) != 0)
+        return serving_error("generate_masks");
+    size_t const mask_bytes = size_t(seg->bucket) * (size_t(seg->bucket) / 8);
+    std::vector<float> score(K);
+    std::vector<uint8_t> packed(size_t(K) * mask_bytes);
+    bool ok = n_outs == 4 &&
+              api.fetch(be, outs[1], score.data(),
+                        score.size() * sizeof(float)) == 0 &&
+              api.fetch(be, outs[0], packed.data(), packed.size()) == 0;
+    std::string why = n_outs == 4 ? std::string(api.last_error())
+                                  : name + ": " + std::to_string(n_outs) +
+                                        " outputs, expected 4 (stale or "
+                                        "mismatched bundle)";
+    for (int i = 0; i < n_outs; ++i) api.release(be, outs[i]);
+    if (!ok) {
+        set_error("generate_masks: " + why);
+        return dlimg_error;
+    }
+    int n = 0;
+    while (n < K && n < max_out && score[n] > 0.0f) ++n;
+    for (int i = 0; i < n; ++i) {
+        unpack_mask(packed.data() + size_t(i) * mask_bytes, seg->bucket,
+                    seg->height, seg->width, out_masks[i]);
+        if (out_accuracies) out_accuracies[i] = score[i];
+    }
+    *out_count = n;
+    return dlimg_success;
+}
+
+// segment_objects through the bundle's BiRefNet programs (the JAX
+// package's pjrt_segment_objects; runtime/birefnet.py birefnet_segment):
+// high_res when the longer side exceeds 1536 px, the smallest bucket of
+// that kind that holds the image, else of any kind; the canvas packed by
+// the serving library's fill under its lock; the (S, S) mask at the
+// model's resolution, resized to the image's extent with the box filter.
+dlimg_Result serving_segment_objects(dlimg_ImageView const* img,
+                                     uint8_t* out_mask,
+                                     dlimg_Environment env) {
+    auto const& api = serving();
+    void* be = env->serving;
+    auto const& progs = env->index.birefnet;
+    if (progs.empty()) {
+        set_error("segment_objects: the serving bundle has no BiRefNet "
+                  "program (re-run python -m dlimgedit_tpu_torch.tools."
+                  "aot_export --program serving --birefnet general:1024)");
+        return dlimg_error;
+    }
+    int const w = img->width, h = img->height, side = std::max(w, h);
+    std::string const want = side > 1536 ? "high_res" : "general";
+    dlimg_bundle::BirefProgram const* best = nullptr;
+    for (int any = 0; any < 2 && !best; ++any)
+        for (auto const& p : progs)
+            if ((any || p.kind == want) && side <= p.bucket &&
+                (!best || p.bucket < best->bucket))
+                best = &p;
+    if (!best) {
+        set_error("segment_objects: image " + std::to_string(w) + "x" +
+                  std::to_string(h) + " exceeds every BiRefNet bucket of the "
+                  "serving bundle (export it with a larger --birefnet "
+                  "kind:bucket)");
+        return dlimg_error;
+    }
+    CanvasPack pack{img, 0, 0, {0, 0, 0}, best->bucket};
+    rgb_map(img->channels, &pack.channels, pack.map);
+    pack.stride = img->stride ? img->stride : int64_t(w) * pack.channels;
+    int32_t sizes[2] = {h, w};
+    std::vector<int64_t> canvas_dims = {best->bucket, best->bucket, 3},
+                         size_dims = {2};
+    dlimg_serving_arg args[2] = {host_arg(nullptr, canvas_dims, "uint8"),
+                                 host_arg(sizes, size_dims, "int32")};
+    args[0].fill = pack_canvas;
+    args[0].fill_ctx = &pack;
+    std::string const name = "serve_birefnet_" + best->kind + "_" +
+                             std::to_string(best->bucket);
+    void* outs[2] = {};
+    int n_outs = 0;
+    if (api.run(be, name.c_str(), args, 2, outs, 2, &n_outs) != 0)
+        return serving_error("segment_objects");
+    int const S = best->resolution;
+    std::vector<uint8_t> model_mask(size_t(S) * S);
+    bool ok = n_outs == 1 && api.fetch(be, outs[0], model_mask.data(),
+                                       model_mask.size()) == 0;
+    std::string why = n_outs == 1 ? std::string(api.last_error())
+                                  : name + ": " + std::to_string(n_outs) +
+                                        " outputs, expected the mask alone "
+                                        "(stale or mismatched bundle)";
+    for (int i = 0; i < n_outs; ++i) api.release(be, outs[i]);
+    if (!ok) {
+        set_error("segment_objects: " + why);
+        return dlimg_error;
+    }
+    dlimg_hostops_resize_mask_box(model_mask.data(), S, S, S, out_mask, h, w,
+                                  w);
+    return dlimg_success;
 }
 
 // ---------------------------------------------------------------------------
@@ -641,6 +767,7 @@ dlimg_Result api_create_environment(dlimg_Environment* out,
         }
         auto* env = new dlimg_Environment_{};
         env->serving = be;
+        env->index = index;
         *out = env;
         return dlimg_success;
     }
@@ -793,7 +920,9 @@ dlimg_Result api_generate_masks(dlimg_Segmentation seg,
         return dlimg_error;
     }
     *out_count = 0;
-    if (seg->serving) return serving_unserved("generate_masks");
+    if (seg->serving)
+        return serving_generate_masks(seg, thresholds, max_masks, out_masks,
+                                      out_accuracies, out_count);
     Gil gil;
     PyObject* ptrs = PyList_New(max_masks);
     if (!ptrs) {
@@ -851,7 +980,7 @@ dlimg_Result api_segment_objects(dlimg_ImageView const* img, uint8_t* out_mask,
         set_error("segment_objects: invalid arguments (null handle/image)");
         return dlimg_error;
     }
-    if (env->serving) return serving_unserved("segment_objects");
+    if (env->serving) return serving_segment_objects(img, out_mask, env);
     Gil gil;
     PyObject* r = bridge_call(
         "run_segment_objects",

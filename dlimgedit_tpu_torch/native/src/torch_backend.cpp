@@ -4,11 +4,13 @@
 // A bundle directory (tools/aot_export.py --program serving) holds
 //   serving.txt          key \t value: format, variant, backend, image_size,
 //                        buckets, batch, compute_dtype, decoder_heads, the
-//                        encoder and its kernel route, a ViT's geometry
-//                        (bundle.hpp)
+//                        encoder and its kernel route, a ViT's geometry,
+//                        the amg grid and winners, the BiRefNet programs
+//                        and configuration (bundle.hpp)
 //   kernels_path.txt     the port's kernel library (a cuda bundle only)
 //   weights/<name>.npy   each state_dict tensor once, whichever programs
-//                        use it
+//                        use it; a BiRefNet's under birefnet.<kind>., with
+//                        its index tables (tables.*)
 //   <name>.spec.txt      one row per argument, then per output:
 //                          inw <dtype> <d0,d1,..> <state_dict name>  weight
 //                          ind <dtype> <d0,d1,..>                    dynamic
@@ -29,6 +31,7 @@
 #include "torch_backend.hpp"
 
 #include <ATen/ATen.h>
+#include <ATen/Parallel.h>
 #include <c10/core/InferenceMode.h>
 #include <dlfcn.h>
 
@@ -139,13 +142,13 @@ Tensor tensor_from_npy(const dlimg_npy::Npy& npy) {
       .clone();
 }
 
-// Launches of K1, K2, K3, K4 and K5, in that order (torch_programs.cpp's
-// counters).
-constexpr int kKernels = 5;
+// Launches of K1, K2, K3, K4, K5 and P1, in that order
+// (torch_programs.cpp's counters).
+constexpr int kKernels = 6;
 std::atomic<int64_t>* const kCounters[kKernels] = {
     &g_layer_norm_launches, &g_levit_attention_launches,
     &g_add_layer_norm_launches, &g_relpos_global_launches,
-    &g_relpos_windowed_launches};
+    &g_relpos_windowed_launches, &g_greedy_nms_launches};
 
 struct Launches {
   int64_t n[kKernels] = {};
@@ -252,6 +255,9 @@ struct Program {
   ProgramFn fn = nullptr;
   ProgramConfig cfg;
   const Weights* weights = nullptr;  // the backend's, shared
+  // A BiRefNet program's weights by their name in its model: the
+  // backend's tensors, without the kind's prefix.
+  Weights own;
   std::vector<SpecRow> dynamic;
   // One per dynamic argument, made at its first use: the buffer a caller
   // fills (Arg::fill); on CUDA pinned, and the staging of every host
@@ -283,6 +289,7 @@ struct Backend {
   void* kernel_lib = nullptr;
   Kernels kernels;
   Tensor pixel_mean, pixel_std;
+  Tensor imagenet_mean, imagenet_std;  // runtime/birefnet.py IMAGENET_*
   Weights weights;  // on the device, each once, for every program
   std::map<std::string, std::unique_ptr<Program>> programs;
   // A batch decode's fork streams (cudaStream_t), per calling thread.
@@ -320,6 +327,8 @@ void load_kernels(Backend* be) {
       entry("dlimg_relpos_attention_global"));
   k.relpos_attention_windowed = reinterpret_cast<Kernels::RelposWindowed>(
       entry("dlimg_relpos_attention_windowed"));
+  k.greedy_nms = reinterpret_cast<Kernels::GreedyNms>(
+      entry("dlimg_greedy_nms"));
 }
 
 // The calling thread's first n fork streams, made at their first use.
@@ -366,55 +375,145 @@ void load_weight(Backend* be, const SpecRow& r) {
   be->weights[r.name] = tensor_from_npy(npy).to(be->device);
 }
 
-// serve_<embed|decode|decode3|decode_batch<N>>_<variant>_<bucket>
+// A ProgramConfig with the bundle's rows (serving.txt) and the device's.
+ProgramConfig base_config(Backend* be) {
+  ProgramConfig c;
+  const dlimg_bundle::Index& ix = be->index;
+  c.image_size = ix.image_size;
+  c.compute_dtype = scalar_type(ix.compute_dtype);
+  c.decoder_heads = ix.decoder_heads;
+  c.vit = ix.encoder == "vit";
+  c.kernel_route = ix.kernel_route;
+  c.num_heads = ix.num_heads;
+  c.window_size = ix.window_size;
+  c.global_attn_indexes = ix.global_attn_indexes;
+  c.patch_size = ix.patch_size;
+  c.layer_norm_eps = ix.layer_norm_eps;
+  c.kernels = be->device.is_cuda() ? &be->kernels : nullptr;
+  return c;
+}
+
+// serve_birefnet_<kind>_<bucket>: the kind's row of serving.txt and its
+// configuration; -> the kind.
+std::string birefnet_config(Backend* be, Program* p, const std::string& spec) {
+  const auto cut = spec.rfind('_');
+  const std::string kind = spec.substr(0, cut);
+  const dlimg_bundle::Index& ix = be->index;
+  const dlimg_bundle::BirefProgram* row = nullptr;
+  for (const auto& r : ix.birefnet)
+    if (cut != std::string::npos && r.kind == kind &&
+        std::to_string(r.bucket) == spec.substr(cut + 1))
+      row = &r;
+  if (!row)
+    throw std::runtime_error("program " + p->name + " is not in serving.txt's "
+                             "birefnet row");
+  p->cfg.bucket = row->bucket;
+  BirefConfig& b = p->cfg.biref;
+  b.resolution = row->resolution;
+  b.depths = ix.birefnet_depths;
+  b.num_heads = ix.birefnet_num_heads;
+  b.window = ix.birefnet_window;
+  b.patch_size = ix.birefnet_patch_size;
+  b.layer_norm_eps = ix.birefnet_layer_norm_eps;
+  b.aspp_kernel_sizes = ix.birefnet_aspp_kernel_sizes;
+  b.mul_scl_ipt = ix.birefnet_mul_scl_ipt == "cat";
+  b.cxt_num = ix.birefnet_cxt_num;
+  p->cfg.imagenet_mean = be->imagenet_mean;
+  p->cfg.imagenet_std = be->imagenet_std;
+  p->fn = birefnet_program;
+  return kind;
+}
+
+// serving.txt's BiRefNet rows against a program's weights: a bundle whose
+// rows and weights disagree is refused.
+void check_birefnet_rows(const dlimg_bundle::Index& ix, const Weights& w,
+                         const std::string& name) {
+  auto width = [&](const std::string& key) {
+    auto it = w.find(key);
+    return it == w.end() ? int64_t(-1) : it->second.size(0);
+  };
+  bool ok = width("backbone.patch_embed.w") == ix.birefnet_embed_dim &&
+            width("squeeze.conv_in.w") == ix.birefnet_decoder_channels[0] &&
+            width("squeeze.aspp.gap.w") == ix.birefnet_decoder_channels[1] &&
+            width("decoder.gdt4.w") == ix.birefnet_decoder_channels[2];
+  for (size_t i = 0; ok && i < ix.birefnet_depths.size(); ++i) {
+    const std::string s = "backbone.stages." + std::to_string(i) + ".blocks.";
+    ok = w.count(s + std::to_string(ix.birefnet_depths[i] - 1) + ".qkv.w") &&
+         !w.count(s + std::to_string(ix.birefnet_depths[i]) + ".qkv.w");
+  }
+  if (!ok)
+    throw std::runtime_error(name + ": the weights do not match serving.txt's "
+                             "birefnet_embed_dim, _depths or "
+                             "_decoder_channels");
+}
+
+// serve_<embed|decode|decode3|decode_batch<N>|amg>_<variant>_<bucket>, or
+// serve_birefnet_<kind>_<bucket>
 Program* get_program(Backend* be, const std::string& name) {
   auto it = be->programs.find(name);
   if (it != be->programs.end()) return it->second.get();
   auto p = std::make_unique<Program>();
   p->name = name;
-  const std::string tail = "_" + be->index.variant + "_";
-  auto pos = name.rfind(tail);
-  if (pos == std::string::npos)
-    throw std::runtime_error("program " + name + " is not of variant " +
-                             be->index.variant);
-  const std::string head = name.substr(0, pos);
-  p->cfg.bucket = std::stoi(name.substr(pos + tail.size()));
-  p->cfg.image_size = be->index.image_size;
-  p->cfg.compute_dtype = scalar_type(be->index.compute_dtype);
-  p->cfg.decoder_heads = be->index.decoder_heads;
-  const dlimg_bundle::Index& ix = be->index;
-  p->cfg.vit = ix.encoder == "vit";
-  p->cfg.kernel_route = ix.kernel_route;
-  p->cfg.num_heads = ix.num_heads;
-  p->cfg.window_size = ix.window_size;
-  p->cfg.global_attn_indexes = ix.global_attn_indexes;
-  p->cfg.patch_size = ix.patch_size;
-  p->cfg.layer_norm_eps = ix.layer_norm_eps;
-  p->cfg.kernels = be->device.is_cuda() ? &be->kernels : nullptr;
-  const std::string batch = "serve_decode_batch";
-  if (head == "serve_embed") {
-    p->fn = embed_program;
-    p->cfg.pixel_mean = be->pixel_mean;
-    p->cfg.pixel_std = be->pixel_std;
-  } else if (head == "serve_decode" || head == "serve_decode3") {
-    p->fn = decode_program;
-    p->cfg.multimask = head == "serve_decode3";
-  } else if (head.compare(0, batch.size(), batch) == 0 &&
-             head.size() > batch.size() &&
-             head.find_first_not_of("0123456789", batch.size()) ==
-                 std::string::npos) {
-    p->fn = decode_batch_program;
-    p->cfg.fork_streams = [be](int64_t n) { return fork_streams(be, n); };
+  p->cfg = base_config(be);
+  const std::string biref = "serve_birefnet_";
+  std::string prefix;  // a BiRefNet's weights: birefnet.<kind>.
+  if (name.compare(0, biref.size(), biref) == 0) {
+    prefix = "birefnet." + birefnet_config(be, p.get(),
+                                           name.substr(biref.size())) + ".";
   } else {
-    throw std::runtime_error("program " + name +
-                             " is none of serve_embed, serve_decode, "
-                             "serve_decode3, serve_decode_batch<N>");
+    const std::string tail = "_" + be->index.variant + "_";
+    auto pos = name.rfind(tail);
+    if (pos == std::string::npos)
+      throw std::runtime_error("program " + name + " is not of variant " +
+                               be->index.variant);
+    const std::string head = name.substr(0, pos);
+    p->cfg.bucket = std::stoi(name.substr(pos + tail.size()));
+    const std::string batch = "serve_decode_batch";
+    if (head == "serve_embed") {
+      p->fn = embed_program;
+      p->cfg.pixel_mean = be->pixel_mean;
+      p->cfg.pixel_std = be->pixel_std;
+    } else if (head == "serve_decode" || head == "serve_decode3") {
+      p->fn = decode_program;
+      p->cfg.multimask = head == "serve_decode3";
+    } else if (head.compare(0, batch.size(), batch) == 0 &&
+               head.size() > batch.size() &&
+               head.find_first_not_of("0123456789", batch.size()) ==
+                   std::string::npos) {
+      p->fn = decode_batch_program;
+      p->cfg.fork_streams = [be](int64_t n) { return fork_streams(be, n); };
+    } else if (head == "serve_amg") {
+      const dlimg_bundle::Index& ix = be->index;
+      if (ix.amg_grid <= 0)
+        throw std::runtime_error("program " + name + ": serving.txt has no "
+                                 "amg row");
+      p->fn = amg_program;
+      p->cfg.amg_grid = ix.amg_grid;
+      p->cfg.amg_masks = ix.amg_masks;
+      p->cfg.amg_prenms =
+          dlimg_bundle::prenms_pool(ix.amg_grid * ix.amg_grid, ix.amg_masks);
+    } else {
+      throw std::runtime_error("program " + name +
+                               " is none of serve_embed, serve_decode, "
+                               "serve_decode3, serve_decode_batch<N>, "
+                               "serve_amg, serve_birefnet");
+    }
   }
   for (const SpecRow& r : read_spec(be->dir + "/" + name + ".spec.txt")) {
-    if (r.kind == "ind") p->dynamic.push_back(r);
-    else if (r.kind == "inw") load_weight(be, r);
+    if (r.kind == "ind") {
+      p->dynamic.push_back(r);
+    } else if (r.kind == "inw") {
+      load_weight(be, r);
+      if (!prefix.empty()) {
+        if (r.name.compare(0, prefix.size(), prefix) != 0)
+          throw std::runtime_error(name + ": weight " + r.name +
+                                   " lacks the prefix " + prefix);
+        p->own[r.name.substr(prefix.size())] = be->weights.at(r.name);
+      }
+    }
   }
-  p->weights = &be->weights;
+  if (!prefix.empty()) check_birefnet_rows(be->index, p->own, name);
+  p->weights = prefix.empty() ? &be->weights : &p->own;
   p->host.resize(p->dynamic.size());
   Program* raw = p.get();
   be->programs[name] = std::move(p);
@@ -558,6 +657,22 @@ std::vector<Tensor> run_program(Backend* be, Program* p,
 #endif
 }
 
+// ROADMAP C6: the process's first call of MKL's vector math (at::sin of
+// the prompt encoder's dense positional encoding, 16 x 16 x 128 values at
+// image size 256, split over the OpenMP threads) now and then computes a
+// worker thread's share on another path, up to 2524 ulp from the usual
+// result; every later call gives the usual one. A CPU backend makes the
+// encoding's first sin and cos itself, on every thread of the pool, and
+// drops their results.
+void warm_vector_math() {
+  c10::InferenceMode guard;
+  const int64_t n =
+      at::internal::GRAIN_SIZE * std::max<int64_t>(1, at::get_num_threads());
+  Tensor x = at::linspace(-8.0, 8.0, n, at::kFloat);
+  at::sin(x);
+  at::cos(x);
+}
+
 bool bytes_equal(const Tensor& a, const Tensor& b) {
   Tensor x = a.contiguous().cpu(), y = b.contiguous().cpu();
   return x.scalar_type() == y.scalar_type() && x.sizes() == y.sizes() &&
@@ -601,6 +716,16 @@ Backend* create(const std::string& bundle_dir, int device, std::string* err) {
                                at::dtype(at::kDouble))
                         .to(at::kFloat)
                         .to(be->device);
+    // runtime/birefnet.py _imagenet_stats: float32 from Python's doubles.
+    be->imagenet_mean = at::tensor(std::vector<double>{0.485, 0.456, 0.406},
+                                   at::dtype(at::kDouble))
+                            .to(at::kFloat)
+                            .to(be->device);
+    be->imagenet_std = at::tensor(std::vector<double>{0.229, 0.224, 0.225},
+                                  at::dtype(at::kDouble))
+                           .to(at::kFloat)
+                           .to(be->device);
+    if (!be->device.is_cuda()) warm_vector_math();
     std::lock_guard<std::mutex> lk(g_registry_mu);
     g_registry.insert(be.get());
     if (err) err->clear();

@@ -17,8 +17,9 @@
 // Executable does (runtime/environment.py); the encoder's kernels (K1
 // fused LayerNorm and K2 TinyViT window attention for MobileSAM; K1, K3
 // add + LayerNorm, K4 global and K5 windowed rel-pos attention for a SAM
-// ViT) are launched through the port's kernel library, whose path the
-// bundle names. On the CPU the programs run eagerly and the kernels'
+// ViT) and automatic mask generation's P1 greedy box NMS are launched
+// through the port's kernel library, whose path the bundle names. A
+// BiRefNet program (segment_objects) is plain ATen. On the CPU the programs run eagerly and the kernels'
 // wrappers take their plain versions.
 //
 // One program runs at a time per backend, under its lock; host data a
@@ -128,8 +129,8 @@ typedef struct dlimg_serving_api {
   void (*release)(void* backend, void* buf);
   const char* (*last_error)(void);
   int (*cuda_available)(void);
-  // The launches of K1, K2, K3, K4 and K5, in that order, made by this
-  // library's programs (the first n into counts), and their reset.
+  // The launches of K1, K2, K3, K4, K5 and P1, in that order, made by
+  // this library's programs (the first n into counts), and their reset.
   void (*launches)(int64_t* counts, int n);
   void (*reset_launches)(void);
 } dlimg_serving_api;
@@ -138,8 +139,8 @@ typedef const dlimg_serving_api* (*dlimg_serving_init_fn)(void);
 
 // Exported by libdlimgedit_tpu_torch_serving.so.
 const dlimg_serving_api* dlimg_serving_init(void);
-// For test programs: the launches of K1, K2, K3, K4 and K5 (the first n
-// into counts, in that order) made by this library's programs since the
+// For test programs: the launches of K1, K2, K3, K4, K5 and P1 (the first
+// n into counts, in that order) made by this library's programs since the
 // process started or the last reset (a graph replay adds what its capture
 // counted), and the replay check: every captured graph of every live
 // backend replayed and its eager program run on the same static inputs,

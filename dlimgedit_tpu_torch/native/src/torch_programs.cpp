@@ -24,6 +24,7 @@ std::atomic<int64_t> g_levit_attention_launches{0};
 std::atomic<int64_t> g_add_layer_norm_launches{0};
 std::atomic<int64_t> g_relpos_global_launches{0};
 std::atomic<int64_t> g_relpos_windowed_launches{0};
+std::atomic<int64_t> g_greedy_nms_launches{0};
 
 namespace {
 
@@ -1149,6 +1150,560 @@ DecoderContext no_mask_context(const Weights& w, const ProgramConfig& c,
   return decoder_context(w, emb, dense_pe(w, c.image_size / 16), dense);
 }
 
+
+// ---------------------------------------------------------------------------
+// ops/amg.py and runtime/amg.py: automatic mask generation's selection
+// ---------------------------------------------------------------------------
+
+// point_grid: (n*n, 2) float32 (x, y) at the cell centres of the crop
+// (crop_w / crop_h: 0-d int32 device tensors).
+Tensor point_grid(int64_t n, const Tensor& crop_w, const Tensor& crop_h) {
+  Tensor f = (at::arange(n, on(crop_w, at::kFloat)) + 0.5) / n;
+  Tensor xs = f * crop_w;
+  Tensor ys = f * crop_h;
+  Tensor px = xs.unsqueeze(0).expand({n, n}).reshape({-1});
+  Tensor py = ys.unsqueeze(1).expand({n, n}).reshape({-1});
+  return at::stack({px, py}, -1);
+}
+
+// stability_scores: |m > +off| / |m > -off| over the valid pixels.
+Tensor stability_scores(const Tensor& logits, const Tensor& valid,
+                        double offset = 1.0) {
+  Tensor hi = at::bitwise_and(at::gt(logits, offset), valid);
+  Tensor lo = at::bitwise_and(at::gt(logits, -offset), valid);
+  Tensor hi_a = at::sum(hi, at::IntArrayRef{-1, -2}).to(at::kFloat);
+  Tensor lo_a = at::sum(lo, at::IntArrayRef{-1, -2}).to(at::kFloat);
+  return hi_a / clamp_min(lo_a, 1.0);
+}
+
+// mask_boxes: (..., L, L) bool -> (..., 4) float32 [x0, y0, x1, y1].
+Tensor mask_boxes(const Tensor& binary) {
+  const int64_t L = binary.size(-1);
+  Tensor idx = at::arange(L, on(binary, at::kLong));
+  Tensor rows = at::any(binary, -1);
+  Tensor cols = at::any(binary, -2);
+  Tensor y0 = at::amin(at::where(rows, idx, L), -1);
+  Tensor y1 = at::amax(at::where(rows, idx, -1), -1);
+  Tensor x0 = at::amin(at::where(cols, idx, L), -1);
+  Tensor x1 = at::amax(at::where(cols, idx, -1), -1);
+  return at::stack({x0, y0, x1, y1}, -1).to(at::kFloat);
+}
+
+// box_iou_matrix: (M, 4) inclusive pixel boxes -> (M, M) IoU.
+Tensor box_iou_matrix(const Tensor& boxes) {
+  std::vector<Tensor> b = boxes.unbind(1);
+  const Tensor &x0 = b[0], &y0 = b[1], &x1 = b[2], &y1 = b[3];
+  Tensor area = clamp_min(x1 - x0 + 1, 0.0) * clamp_min(y1 - y0 + 1, 0.0);
+  Tensor ix0 = at::maximum(x0.unsqueeze(1), x0.unsqueeze(0));
+  Tensor iy0 = at::maximum(y0.unsqueeze(1), y0.unsqueeze(0));
+  Tensor ix1 = at::minimum(x1.unsqueeze(1), x1.unsqueeze(0));
+  Tensor iy1 = at::minimum(y1.unsqueeze(1), y1.unsqueeze(0));
+  Tensor inter = clamp_min(ix1 - ix0 + 1, 0.0) * clamp_min(iy1 - iy0 + 1, 0.0);
+  Tensor uni = area.unsqueeze(1) + area.unsqueeze(0) - inter;
+  return inter / clamp_min(uni, 1.0);
+}
+
+// greedy_nms_plain: JAX's row loop over the IoU matrix.
+Tensor greedy_nms_plain(const Tensor& boxes, const Tensor& scores,
+                        const Tensor& thresh) {
+  const int64_t M = boxes.size(0);
+  Tensor over = at::gt(box_iou_matrix(boxes), thresh);
+  Tensor later = at::arange(M, on(boxes, at::kLong));
+  Tensor keep = at::gt(scores, 0.0);
+  for (int64_t i = 0; i < M; ++i)
+    keep = at::bitwise_and(
+        keep, at::bitwise_not(at::bitwise_and(
+                  at::bitwise_and(keep.select(0, i), over.select(0, i)),
+                  at::gt(later, i))));
+  return keep;
+}
+
+// nms_scratch_words: ceil(M / 64) words a row for 64 * ceil(M / 64) rows
+// at an even stride, then the live flags.
+int64_t nms_scratch_words(int64_t M) {
+  const int64_t nw = (M + 63) / 64;
+  return nw * 64 * (nw + nw % 2) + nw;
+}
+
+// ops/amg.py greedy_nms (P1): the kernels of csrc/greedy_nms.cu on a CUDA
+// tensor (one call, counted once; the threshold read through its pointer,
+// so a replay sees its current value), greedy_nms_plain on a CPU tensor.
+Tensor greedy_nms(const Tensor& boxes, const Tensor& scores,
+                  const Tensor& thresh, const ProgramConfig& c) {
+  const int64_t M = boxes.size(0);
+  if (boxes.dim() != 2 || boxes.size(1) != 4 || scores.dim() != 1 ||
+      scores.size(0) != M)
+    fail("greedy_nms: boxes must be (M, 4) and scores (M,)");
+  if (boxes.is_cpu()) return greedy_nms_plain(boxes, scores, thresh);
+  if (!boxes.is_cuda()) fail("greedy_nms: unsupported device");
+  if (thresh.numel() != 1 || thresh.scalar_type() != at::kFloat ||
+      thresh.device() != boxes.device())
+    fail("greedy_nms: on CUDA the threshold must be a one-element float32 "
+         "tensor on the boxes' device");
+  if (boxes.scalar_type() != at::kFloat || scores.scalar_type() != at::kFloat ||
+      !boxes.is_contiguous() || !scores.is_contiguous())
+    fail("greedy_nms: boxes and scores must be contiguous float32");
+  if (scores.device() != boxes.device())
+    fail("greedy_nms: boxes and scores must share a device");
+  if (reinterpret_cast<uintptr_t>(boxes.data_ptr()) % 16)
+    fail("greedy_nms: boxes must be 16-byte aligned");
+  if (c.kernels == nullptr || c.kernels->greedy_nms == nullptr)
+    fail("greedy_nms: the kernel library is not loaded");
+  Tensor keep = at::empty({M}, on(boxes, at::kBool));
+  if (M == 0) return keep;
+  const int64_t words = nms_scratch_words(M);
+  Tensor& scratch = *c.nms_scratch;
+  if (!scratch.defined() || scratch.numel() < words ||
+      scratch.device() != boxes.device()) {
+#ifdef DLIMG_SERVING_CUDA
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    cudaStreamIsCapturing(at::cuda::getCurrentCUDAStream().stream(), &status);
+    if (status != cudaStreamCaptureStatusNone)
+      fail("greedy_nms: its scratch is made by the eager warm-up, not in a "
+           "capture");
+#endif
+    scratch = at::empty({words}, on(boxes, at::kLong));
+  }
+  int rc = c.kernels->greedy_nms(boxes.data_ptr(), scores.data_ptr(),
+                                 thresh.data_ptr(), keep.data_ptr(),
+                                 scratch.data_ptr(), words, int(M),
+                                 current_stream());
+  if (rc != 0)
+    fail("CUDA kernel greedy_nms failed to launch: cudaError " +
+         std::to_string(rc));
+  ++g_greedy_nms_launches;
+  return keep;
+}
+
+// _chunk_size: the largest divisor of `total` that is <= cap.
+int64_t chunk_size(int64_t total, int64_t cap = 64) {
+  int64_t c = std::min(cap, total);
+  while (total % c) --c;
+  return c;
+}
+
+// _grid_and_valid: the (G, 2) prompt grid and the (L, L) low-res pixels
+// whose centres fall inside the crop.
+std::pair<Tensor, Tensor> grid_and_valid(const ProgramConfig& c,
+                                         const Tensor& sizes, int64_t grid) {
+  const int64_t L = 4 * (c.image_size / 16);  // SamConfig.mask_input_size
+  Tensor crop_h = sizes.select(0, 2), crop_w = sizes.select(0, 3);
+  Tensor pts = point_grid(grid, crop_w, crop_h);
+  Tensor centre = (at::arange(L, on(sizes, at::kFloat)) + 0.5) *
+                  (double(c.image_size) / double(L));
+  Tensor valid = at::bitwise_and(at::lt(centre.unsqueeze(1), crop_h.to(at::kFloat)),
+                                 at::lt(centre.unsqueeze(0), crop_w.to(at::kFloat)));
+  return {pts, valid};
+}
+
+// _decode3: N positive points (each with the (0, 0) pad point, label -1)
+// through decode_prompt_batch (the embedding expanded to N, multimask) ->
+// tokens 1..3: (N, 3, L, L) logits, (N, 3) predicted IoU.
+std::pair<Tensor, Tensor> decode3(const Weights& w, const ProgramConfig& c,
+                                  const Tensor& emb, const Tensor& pts) {
+  const int64_t n = pts.size(0);
+  Tensor coords = at::stack({pts, at::zeros_like(pts)}, 1);
+  Tensor labels = at::ones({n, 2}, on(pts, at::kFloat));
+  labels.select(1, 1).fill_(-1.0);
+  Tensor e = emb.expand({n, emb.size(1), emb.size(2), emb.size(3)});
+  DecoderContext ctx = no_mask_context(w, c, e);
+  Tensor sparse = embed_points(w, c, coords, labels).to(ctx.dtype);
+  auto [m, iou] = predict_masks_from(w, ctx, sparse, c.decoder_heads);
+  return {m.index({Slice(), Slice(1, 4)}), iou.index({Slice(), Slice(1, 4)})};
+}
+
+// _top_k: the k largest, descending, the lower index first on ties.
+std::pair<Tensor, Tensor> top_k(const Tensor& x, int64_t k) {
+  auto [values, idx] = at::sort(x, /*stable=*/true, /*dim=*/-1,
+                                /*descending=*/true);
+  return {values.index({Slice(at::indexing::None, k)}),
+          idx.index({Slice(at::indexing::None, k)})};
+}
+
+// ---------------------------------------------------------------------------
+// models/swin.py (BiRefNet's backbone); the relative-position index and the
+// shift masks are weights of the bundle ("tables.rel_pos_index",
+// "tables.shift_mask.<pH>x<pW>")
+// ---------------------------------------------------------------------------
+
+const Tensor& table(const Weights& w, const std::string& name) {
+  return W(w, "tables." + name);
+}
+
+std::string by(int64_t a, int64_t b) {
+  return std::to_string(a) + "x" + std::to_string(b);
+}
+
+// _window_attention: x (B, nW, w^2, C); mask (nW, w^2, w^2) or null.
+Tensor swin_window_attention(const Weights& w, const std::string& p,
+                             const Tensor& x, int64_t nh, const Tensor* mask) {
+  const int64_t B = x.size(0), nW = x.size(1), N = x.size(2), C = x.size(3);
+  const int64_t hd = C / nh;
+  Tensor qkv = linear(w, p + ".qkv", x).reshape({B, nW, N, 3, nh, hd});
+  Tensor q = qkv.select(3, 0), k = qkv.select(3, 1), v = qkv.select(3, 2);
+  Tensor attn = at::einsum("bwnhd,bwmhd->bwhnm",
+                           {q.to(at::kFloat), k.to(at::kFloat)}) *
+                std::pow(double(hd), -0.5);
+  Tensor bias = W(w, p + ".rel_bias")
+                    .index({table(w, "rel_pos_index").reshape({-1})})
+                    .reshape({N, N, nh})
+                    .permute({2, 0, 1});
+  attn = attn + bias.to(at::kFloat).unsqueeze(0).unsqueeze(0);
+  if (mask) attn = attn + mask->unsqueeze(0).unsqueeze(2);
+  attn = at::softmax(attn, -1).to(v.scalar_type());
+  Tensor out = at::einsum("bwhnm,bwmhd->bwnhd",
+                          {attn.to(at::kFloat), v.to(at::kFloat)})
+                   .to(v.scalar_type());
+  return linear(w, p + ".proj", out.reshape({B, nW, N, C}));
+}
+
+int64_t padded(int64_t n, int64_t window) {
+  return n + (window - n % window) % window;
+}
+
+// _attend_rows: window attention over whole rows of windows (rows already
+// padded and rolled by `shift`; the columns are padded and rolled here).
+Tensor swin_attend_rows(const Weights& w, const std::string& p, Tensor x,
+                        int64_t nh, int64_t window, int64_t shift,
+                        const Tensor* mask) {
+  const int64_t B = x.size(0), h = x.size(1), Wd = x.size(2), C = x.size(3);
+  const int64_t pad_r = (window - Wd % window) % window;
+  if (pad_r) x = at::pad(x, {0, 0, 0, pad_r});
+  const int64_t pW = Wd + pad_r;
+  if (shift > 0) x = at::roll(x, {-shift}, {2});
+  const int64_t nH = h / window, nW = pW / window;
+  x = x.reshape({B, nH, window, nW, window, C}).permute({0, 1, 3, 2, 4, 5});
+  x = x.reshape({B, nH * nW, window * window, C});
+  x = swin_window_attention(w, p, x, nh, mask);
+  x = x.reshape({B, nH, nW, window, window, C}).permute({0, 1, 3, 2, 4, 5});
+  x = x.reshape({B, h, pW, C});
+  if (shift > 0) x = at::roll(x, {shift}, {2});
+  return x.index({Slice(), Slice(), Slice(at::indexing::None, Wd)});
+}
+
+// _swin_tail: residual, norm2, MLP, residual.
+Tensor swin_tail(const Weights& w, const std::string& p,
+                 const Tensor& shortcut, const Tensor& attn, double eps) {
+  Tensor x = shortcut + attn;
+  Tensor y = layer_norm(w, p + ".norm2", x, eps);
+  y = linear(w, p + ".mlp.lin2", gelu_(linear(w, p + ".mlp.lin1", y)));
+  return x + y;
+}
+
+// _swin_block
+Tensor swin_block(const Weights& w, const std::string& p, const Tensor& x,
+                  int64_t nh, int64_t window, int64_t shift, double eps) {
+  const int64_t H = x.size(1);
+  Tensor y = layer_norm(w, p + ".norm1", x, eps);
+  const int64_t pad_b = (window - H % window) % window;
+  if (pad_b) y = at::pad(y, {0, 0, 0, 0, 0, pad_b});
+  Tensor mask;
+  if (shift > 0) {
+    y = at::roll(y, {-shift}, {1});
+    mask = table(w, "shift_mask." + by(H + pad_b, padded(y.size(2), window)));
+  }
+  y = swin_attend_rows(w, p, y, nh, window, shift,
+                       shift > 0 ? &mask : nullptr);
+  if (shift > 0) y = at::roll(y, {shift}, {1});
+  return swin_tail(w, p, x, y.index({Slice(), Slice(at::indexing::None, H)}),
+                   eps);
+}
+
+// _patch_merge: torch Swin-v1 PatchMerging's (h0w0, h1w0, h0w1, h1w1).
+Tensor swin_patch_merge(const Weights& w, const std::string& p, Tensor x,
+                        double eps) {
+  int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  const int64_t pad_b = H % 2, pad_r = Wd % 2;
+  if (pad_b || pad_r) {
+    x = at::pad(x, {0, 0, 0, pad_r, 0, pad_b});
+    H += pad_b;
+    Wd += pad_r;
+  }
+  x = x.reshape({B, H / 2, 2, Wd / 2, 2, C}).permute({0, 1, 3, 4, 2, 5});
+  x = x.reshape({B, H / 2, Wd / 2, 4 * C});
+  x = layer_norm(w, p + ".norm", x, eps);
+  return linear(w, p + ".reduction", x);
+}
+
+// swin_apply: the 4-stage pyramid, each stage's output layer-normed.
+std::vector<Tensor> swin_apply(const Weights& w, Tensor x,
+                               const BirefConfig& b) {
+  const std::string pe = "backbone.patch_embed";
+  x = conv2d_(x, W(w, pe + ".w"), b.patch_size);
+  x = x + W(w, pe + ".b").to(x.scalar_type());
+  x = layer_norm(w, pe + ".norm", x, b.layer_norm_eps);
+  std::vector<Tensor> feats;
+  for (int i = 0; i < 4; ++i) {
+    const std::string s = "backbone.stages." + std::to_string(i);
+    for (int j = 0; j < b.depths.at(i); ++j) {
+      const int64_t shift = j % 2 == 0 ? 0 : b.window / 2;
+      x = swin_block(w, s + ".blocks." + std::to_string(j), x,
+                     b.num_heads.at(i), b.window, shift, b.layer_norm_eps);
+    }
+    feats.push_back(layer_norm(w, s + ".out_norm", x, b.layer_norm_eps));
+    if (has(w, s + ".downsample.reduction.w"))
+      x = swin_patch_merge(w, s + ".downsample", x, b.layer_norm_eps);
+  }
+  return feats;
+}
+
+// ---------------------------------------------------------------------------
+// ops/deform.py: modulated deformable conv v2, one gather a tap
+// ---------------------------------------------------------------------------
+
+struct CornerStack {
+  Tensor stack;  // (B, (H+2) * (W+2), 4C)
+  int64_t H, W, Ws;
+};
+
+// _corner_stack: x padded (1 top / left, 2 bottom / right) and its four
+// 2x2-corner shifts concatenated on channels.
+CornerStack corner_stack(const Tensor& x) {
+  const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  using at::indexing::None;
+  Tensor xp = at::pad(x, {0, 0, 1, 2, 1, 2});
+  Tensor stack = at::cat({xp.index({Slice(), Slice(None, -1), Slice(None, -1)}),
+                          xp.index({Slice(), Slice(None, -1), Slice(1)}),
+                          xp.index({Slice(), Slice(1), Slice(None, -1)}),
+                          xp.index({Slice(), Slice(1), Slice(1)})},
+                         -1);
+  return {stack.reshape({B, (H + 2) * (Wd + 2), 4 * C}), H, Wd, Wd + 2};
+}
+
+// _bilinear_sample_stacked (float32 stack)
+Tensor bilinear_sample_stacked(const CornerStack& cs, const Tensor& py,
+                               const Tensor& px, int64_t C,
+                               at::ScalarType dtype) {
+  const int64_t B = cs.stack.size(0), oh = py.size(-2), ow = py.size(-1);
+  Tensor y0 = at::floor(py), x0 = at::floor(px);
+  Tensor wy = (py - y0).unsqueeze(-1), wx = (px - x0).unsqueeze(-1);
+  Tensor box = at::bitwise_and(
+      at::bitwise_and(at::bitwise_and(at::gt(py, -1.0), at::lt(py, cs.H)),
+                      at::gt(px, -1.0)),
+      at::lt(px, cs.W));
+  Tensor yc = (at::clamp(y0, std::optional<at::Scalar>(int64_t(-1)),
+                         std::optional<at::Scalar>(cs.H - 1)) + 1)
+                  .to(at::kLong);
+  Tensor xc = (at::clamp(x0, std::optional<at::Scalar>(int64_t(-1)),
+                         std::optional<at::Scalar>(cs.W - 1)) + 1)
+                  .to(at::kLong);
+  const int64_t rows = cs.stack.size(1);
+  Tensor idx = (yc * cs.Ws + xc).reshape({B, oh * ow});
+  idx = idx + at::arange(B, on(idx, at::kLong)).unsqueeze(1) * rows;
+  Tensor v4 = cs.stack.reshape({B * rows, 4 * C})
+                  .index_select(0, idx.reshape({-1}))
+                  .reshape({B, oh, ow, 4, C});
+  Tensor w00 = at::rsub(wy, 1) * at::rsub(wx, 1);
+  Tensor w01 = at::rsub(wy, 1) * wx;
+  Tensor w10 = wy * at::rsub(wx, 1);
+  Tensor w11 = wy * wx;
+  Tensor out = v4.select(3, 0) * w00 + v4.select(3, 1) * w01 +
+               v4.select(3, 2) * w10 + v4.select(3, 3) * w11;
+  return (out * box.unsqueeze(-1).to(out.scalar_type())).to(dtype);
+}
+
+// deform_conv2d: stride 1, dilation 1, one offset group, every row.
+Tensor deform_conv2d(const Tensor& x, const Tensor& offset, const Tensor& mask,
+                     const Tensor& wk, const Tensor* bias, int64_t padding) {
+  const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  const int64_t cout = wk.size(0), kh = wk.size(2), kw = wk.size(3);
+  CornerStack cs = corner_stack(x);
+  Tensor wmat = wk.to(at::kFloat).permute({2, 3, 1, 0});
+  Tensor ys = at::arange(0, H, on(x, offset.scalar_type())).unsqueeze(1);
+  Tensor xs = at::arange(Wd, on(x, offset.scalar_type())).unsqueeze(0);
+  Tensor acc = at::zeros({B * H * Wd, cout}, on(x, at::kFloat));
+  for (int64_t ky = 0; ky < kh; ++ky)
+    for (int64_t kx = 0; kx < kw; ++kx) {
+      const int64_t k = ky * kw + kx;
+      Tensor py = ys + (ky - padding) + offset.select(-1, 2 * k);
+      Tensor px = xs + (kx - padding) + offset.select(-1, 2 * k + 1);
+      Tensor val = bilinear_sample_stacked(cs, py, px, C, at::kFloat) *
+                   mask.index({Ellipsis, Slice(k, k + 1)});
+      acc.addmm_(val.reshape({B * H * Wd, C}), wmat.select(0, ky).select(0, kx));
+    }
+  Tensor out = acc.reshape({B, H, Wd, cout});
+  if (bias) out = out + bias->to(at::kFloat);
+  return out.to(x.scalar_type());
+}
+
+// ---------------------------------------------------------------------------
+// models/birefnet.py; the align-corners matrices are weights of the bundle
+// ("tables.ac.<n_out>x<n_in>")
+// ---------------------------------------------------------------------------
+
+// _conv: conv2d (+ b where the tree holds it).
+Tensor bconv(const Weights& w, const std::string& p, const Tensor& x,
+             int64_t padding = 0) {
+  Tensor y = conv2d_(x, W(w, p + ".w"), 1, padding);
+  if (has(w, p + ".b")) y = y + W(w, p + ".b").to(y.scalar_type());
+  return y;
+}
+
+// resize_align_corners: (B, H, W, C) -> (B, h, w, C) in float32, cast back.
+Tensor resize_align_corners(const Weights& w, const Tensor& x, int64_t h,
+                            int64_t wd) {
+  const int64_t H = x.size(1), Wd = x.size(2);
+  if (H == h && Wd == wd) return x;
+  Tensor y = at::einsum("ih,bhwc->biwc", {table(w, "ac." + by(h, H)),
+                                          x.to(at::kFloat)});
+  y = at::einsum("biwc,jw->bijc", {y, table(w, "ac." + by(wd, Wd))});
+  return y.to(x.scalar_type());
+}
+
+// _apply_deform: offsets and modulator in float32, the deform conv, ReLU.
+Tensor apply_deform(const Weights& w, const std::string& p, const Tensor& x,
+                    int64_t ks) {
+  const int64_t pad = ks / 2;
+  Tensor offset = bconv(w, p + ".offset", x, pad).to(at::kFloat);
+  Tensor modulator =
+      at::sigmoid(bconv(w, p + ".modulator", x, pad).to(at::kFloat)) * 2.0;
+  const std::string b = p + ".conv.b";
+  return at::relu(deform_conv2d(x, offset, modulator, W(w, p + ".conv.w"),
+                                has(w, b) ? &W(w, b) : nullptr, pad));
+}
+
+// _aspp_project: each branch's slice of the 1x1 projection summed in
+// float32, the global average branch a 1x1-pixel product, bias, ReLU.
+Tensor aspp_project(const Weights& w, const std::string& p,
+                    const std::vector<Tensor>& branches, const Tensor& mean,
+                    at::ScalarType dtype) {
+  Tensor gap = at::relu(bconv(w, p + ".gap", mean.to(dtype)));
+  const Tensor& pw = W(w, p + ".proj.w");
+  const int64_t cs = gap.size(-1);
+  Tensor y = conv2d_(branches[0], pw.index({Slice(), Slice(at::indexing::None,
+                                                           cs)}))
+                 .to(at::kFloat);
+  for (size_t i = 1; i < branches.size(); ++i)
+    y = y + conv2d_(branches[i],
+                    pw.index({Slice(), Slice(int64_t(i) * cs,
+                                             int64_t(i + 1) * cs)}))
+                .to(at::kFloat);
+  y = y + conv2d_(gap, pw.index({Slice(), Slice(int64_t(branches.size()) *
+                                                cs)}))
+              .to(at::kFloat);
+  y = y + W(w, p + ".proj.b").to(at::kFloat);
+  return at::relu(y).to(dtype);
+}
+
+// _apply_aspp: the 1x1 deform and the K deform branches, then the tail.
+Tensor apply_aspp(const Weights& w, const std::string& p, const Tensor& x,
+                  const BirefConfig& b) {
+  std::vector<Tensor> branches{apply_deform(w, p + ".aspp1", x, 1)};
+  for (size_t i = 0; i < b.aspp_kernel_sizes.size(); ++i)
+    branches.push_back(apply_deform(w, p + ".deforms." + std::to_string(i), x,
+                                    b.aspp_kernel_sizes[i]));
+  return aspp_project(w, p, branches,
+                      at::mean(x.to(at::kFloat), at::IntArrayRef{1, 2}, true),
+                      x.scalar_type());
+}
+
+// _apply_dec_blk: conv3x3 + ReLU, ASPPDeformable, conv3x3.
+Tensor dec_blk(const Weights& w, const std::string& p, Tensor x,
+               const BirefConfig& b) {
+  x = at::relu(bconv(w, p + ".conv_in", x, 1));
+  x = apply_aspp(w, p + ".aspp", x, b);
+  return bconv(w, p + ".conv_out", x, 1);
+}
+
+Tensor simple_convs(const Weights& w, const std::string& p, const Tensor& x) {
+  return bconv(w, p + ".conv_out", bconv(w, p + ".conv1", x, 1), 1);
+}
+
+// _gdt_gate: p * sigmoid(attn(relu(gdt conv(p)))).
+Tensor gdt_gate(const Weights& w, int idx, const Tensor& p) {
+  const std::string i = std::to_string(idx);
+  Tensor g = at::relu(bconv(w, "decoder.gdt" + i, p, 1));
+  Tensor attn = at::sigmoid(bconv(w, "decoder.gdt_attn" + i, g).to(at::kFloat));
+  return p * attn.to(p.scalar_type());
+}
+
+// _head_fold with _head_weights and _head_sum: the level-1 tail, the 1x1
+// head folded through the resize and the last SimpleConvs conv.
+Tensor head_fold(const Weights& w, const Tensor& p, const Tensor& x,
+                 int64_t S) {
+  const int64_t cp = p.size(-1);
+  const Tensor& head_w = W(w, "decoder.head.w");
+  Tensor wb = head_w.index({0, Slice(cp), 0, 0}).to(at::kFloat);
+  Tensor w_fold = at::einsum("cikl,c->ikl",
+                             {W(w, "decoder.ipt_blk1.conv_out.w").to(at::kFloat),
+                              wb})
+                      .unsqueeze(0);
+  Tensor bias;
+  if (has(w, "decoder.ipt_blk1.conv_out.b"))
+    bias = at::matmul(W(w, "decoder.ipt_blk1.conv_out.b").to(at::kFloat), wb);
+  if (has(w, "decoder.head.b")) {
+    Tensor hb = W(w, "decoder.head.b").to(at::kFloat);
+    bias = bias.defined() ? bias + hb : hb;
+  }
+  Tensor wa = head_w.index({Slice(), Slice(at::indexing::None, cp)});
+  Tensor a = resize_align_corners(w, conv2d_(p, wa), S, S);
+  Tensor t = bconv(w, "decoder.ipt_blk1.conv1", x, 1);
+  Tensor out = a + conv2d_(t, w_fold.to(t.scalar_type()), 1, 1)
+                       .to(a.scalar_type());
+  return bias.defined() ? out + bias.to(a.scalar_type()) : out;
+}
+
+// _get_patches: (tile x tile) patches stacked into channels, the W split
+// outer.
+Tensor get_patches(const Tensor& x, int64_t tile) {
+  const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
+  const int64_t nh = H / tile, nw = Wd / tile;
+  Tensor y = x.reshape({B, nh, tile, nw, tile, C})
+                 .index({Slice(), Slice(), Slice(0, tile)});
+  y = y.permute({0, 2, 4, 3, 1, 5});
+  return y.reshape({B, tile, tile, nw * nh * C});
+}
+
+// birefnet_apply: (B, S, S, 3) normalised pixels -> (B, S, S, 1) float32
+// logits.
+Tensor birefnet_apply(const Weights& w, const Tensor& x,
+                      const BirefConfig& b) {
+  const int64_t S = x.size(1);
+  std::vector<Tensor> feats = swin_apply(w, x, b);
+  if (b.mul_scl_ipt) {
+    Tensor x_half = resize_align_corners(w, x, S / 2, S / 2);
+    std::vector<Tensor> half = swin_apply(w, x_half, b);
+    for (size_t i = 0; i < feats.size(); ++i)
+      feats[i] = at::cat({feats[i],
+                          resize_align_corners(w, half[i], feats[i].size(1),
+                                               feats[i].size(2))},
+                         -1);
+  }
+  Tensor x1 = feats[0], x2 = feats[1], x3 = feats[2], x4 = feats[3];
+  if (b.cxt_num) {
+    std::vector<Tensor> ctx;
+    for (const Tensor& f : {x1, x2, x3})
+      ctx.push_back(resize_align_corners(w, f, x4.size(1), x4.size(2)));
+    std::vector<Tensor> parts(ctx.end() - b.cxt_num, ctx.end());
+    parts.push_back(x4);
+    x4 = at::cat(parts, -1);
+  }
+  x4 = dec_blk(w, "squeeze", x4, b);
+  // Level 4 (1/32)
+  Tensor pat = get_patches(x, x4.size(1));
+  x4 = at::cat({x4, simple_convs(w, "decoder.ipt_blk5", pat)}, -1);
+  Tensor p4 = gdt_gate(w, 4, dec_blk(w, "decoder.dec4", x4, b));
+  Tensor p3_in = resize_align_corners(w, p4, x3.size(1), x3.size(2));
+  p3_in = p3_in + bconv(w, "decoder.lat4", x3);
+  // Level 3 (1/16)
+  pat = get_patches(x, x3.size(1));
+  p3_in = at::cat({p3_in, simple_convs(w, "decoder.ipt_blk4", pat)}, -1);
+  Tensor p3 = gdt_gate(w, 3, dec_blk(w, "decoder.dec3", p3_in, b));
+  Tensor p2_in = resize_align_corners(w, p3, x2.size(1), x2.size(2));
+  p2_in = p2_in + bconv(w, "decoder.lat3", x2);
+  // Level 2 (1/8)
+  pat = get_patches(x, x2.size(1));
+  p2_in = at::cat({p2_in, simple_convs(w, "decoder.ipt_blk3", pat)}, -1);
+  Tensor p2 = gdt_gate(w, 2, dec_blk(w, "decoder.dec2", p2_in, b));
+  Tensor p1_in = resize_align_corners(w, p2, x1.size(1), x1.size(2));
+  p1_in = p1_in + bconv(w, "decoder.lat2", x1);
+  // Level 1 (1/4 -> 1/1): the head folded through the resize and concat.
+  pat = get_patches(x, x1.size(1));
+  p1_in = at::cat({p1_in, simple_convs(w, "decoder.ipt_blk2", pat)}, -1);
+  p1_in = dec_blk(w, "decoder.dec1", p1_in, b);
+  return head_fold(w, p1_in, x, S).to(at::kFloat);
+}
+
 }  // namespace
 
 // _build_embed_fn's run on one device: preprocess, encoder, float32.
@@ -1224,6 +1779,86 @@ std::vector<Tensor> decode_batch_program(const Weights& w,
     return pack_mask_bits(upsample_with(R, C, m)).reshape({-1});
   });
   return {at::cat(packed), iou};
+}
+
+// _build_amg_fn's run (refine off): pass A chunk by chunk, the filter and
+// the pre-NMS pool, P1, the top K, pass B on the winners, upsample, pack.
+std::vector<Tensor> amg_program(const Weights& w, const ProgramConfig& c,
+                                const std::vector<Tensor>& in) {
+  const Tensor& emb = in.at(0);
+  const Tensor& sizes = in.at(1);
+  const Tensor& thr = in.at(2);
+  if (c.amg_grid <= 0 || c.amg_masks <= 0 || c.amg_prenms <= 0)
+    fail("amg: the bundle names no grid, max_masks or pool");
+  auto [pts, valid] = grid_and_valid(c, sizes, c.amg_grid);
+  // _pass_a: (iou, stability, area, box) of every grid point's three masks,
+  // candidate index = point * 3 + token.
+  const int64_t G = pts.size(0), chunk = chunk_size(G);
+  std::vector<Tensor> ious, stabs, areas, boxes;
+  for (int64_t k = 0; k < G / chunk; ++k) {
+    auto [m, iou] = decode3(w, c, emb, pts.index({Slice(k * chunk,
+                                                         (k + 1) * chunk)}));
+    Tensor binary = at::bitwise_and(at::gt(m, 0), valid);
+    ious.push_back(iou);
+    stabs.push_back(stability_scores(m, valid));
+    areas.push_back(at::sum(binary, at::IntArrayRef{-1, -2}).to(at::kFloat));
+    boxes.push_back(mask_boxes(binary));
+  }
+  Tensor iou = at::cat(ious).reshape({-1});
+  Tensor stab = at::cat(stabs).reshape({-1});
+  Tensor area = at::cat(areas).reshape({-1});
+  Tensor box = at::cat(boxes).reshape({-1, 4});
+  // amg_pool: the filter, then the top-prenms candidates by score.
+  Tensor valid_area = at::sum(valid).to(at::kFloat);
+  Tensor ok = at::bitwise_and(
+      at::bitwise_and(
+          at::bitwise_and(at::ge(iou, thr.select(0, 0)),
+                          at::ge(stab, thr.select(0, 1))),
+          at::ge(area, clamp_min(thr.select(0, 3) * valid_area, 1.0))),
+      at::le(area, thr.select(0, 4) * valid_area));
+  auto [sc_p, idx_p] = top_k(at::where(ok, iou, -1.0), c.amg_prenms);
+  Tensor boxes_p = box.index({idx_p});
+  // _select: the NMS, then the top K winners.
+  Tensor keep = greedy_nms(boxes_p, sc_p, thr.index({Slice(2, 3)}), c);
+  auto [sc_f, j] = top_k(at::where(keep, sc_p, -1.0), c.amg_masks);
+  Tensor win = idx_p.index({j});
+  // Pass B: re-decode only the winners; select each one's token.
+  Tensor m3 = decode3(w, c, emb, pts.index({at::floor_divide(win, 3)})).first;
+  Tensor m = at::take_along_dim(m3, at::remainder(win, 3).view({-1, 1, 1, 1}),
+                                1)
+                 .select(1, 0);
+  // tail: upsample_mask_logits of m[None], pack_mask_bits, flattened.
+  Tensor R = composed_axis_matrix(c.bucket, m.size(-1), c.image_size,
+                                  sizes.select(0, 0), sizes.select(0, 2));
+  Tensor C = composed_axis_matrix(c.bucket, m.size(-1), c.image_size,
+                                  sizes.select(0, 1), sizes.select(0, 3));
+  Tensor logits = upsample_with(R, C, m.unsqueeze(0));
+  return {pack_mask_bits(logits).select(0, 0).reshape({-1}), sc_f,
+          stab.index({win}), area.index({win})};
+}
+
+// _build_birefnet_fn's run with no mesh: birefnet_input, birefnet_apply,
+// sigmoid_to_u8 of logits[0, :, :, 0].
+std::vector<Tensor> birefnet_program(const Weights& w, const ProgramConfig& c,
+                                     const std::vector<Tensor>& in) {
+  const Tensor& canvas = in.at(0);
+  const Tensor& sizes = in.at(1);
+  const BirefConfig& b = c.biref;
+  const int64_t S = b.resolution, bucket = canvas.size(0);
+  Tensor img = canvas.to(at::kFloat) / 255.0;
+  Tensor R = resample_matrix(S, bucket, scalar_of(double(S), canvas),
+                             scalar_of(sizes.select(0, 0), canvas), true);
+  Tensor C = resample_matrix(S, bucket, scalar_of(double(S), canvas),
+                             scalar_of(sizes.select(0, 1), canvas), true);
+  // apply_resample
+  Tensor x = at::einsum("ih,hwc->iwc", {R, img});
+  x = at::einsum("iwc,jw->ijc", {x, C});
+  x = ((x - c.imagenet_mean) / c.imagenet_std).unsqueeze(0)
+          .to(c.compute_dtype);
+  Tensor logits = birefnet_apply(w, x, b);
+  Tensor v = at::sigmoid(logits.select(0, 0).select(-1, 0).to(at::kFloat)) *
+             255.0;
+  return {at::floor(v).to(at::kByte)};
 }
 
 }  // namespace dlimg_torch

@@ -14,13 +14,27 @@
 //           largest_component off: the decoder's context once, then each
 //           prompt decoded and packed at batch 1, on the card each on a
 //           fork stream of the calling thread (_each_prompt)
+//   amg     runtime/amg.py::_build_amg_fn's run (no region refinement):
+//           pass A's batched multimask decodes chunk by chunk
+//           (parallel/batch.py decode_prompt_batch), the filter and the
+//           pre-NMS pool (a stable sort), P1 greedy_nms (ops/amg.py: the
+//           kernel on a CUDA tensor, its plain loop on a CPU tensor), the
+//           top K, pass B's re-decode of the winners, upsample and pack
+//   birefnet  runtime/birefnet.py::_build_birefnet_fn's run with no mesh:
+//           birefnet_input (resample, ImageNet normalisation),
+//           models/birefnet.py birefnet_apply (models/swin.py Swin v1,
+//           ops/deform.py deform_conv2d, the decoder), sigmoid_to_u8;
+//           plain ATen, no kernel of the port
 //
 // The encoder's kernel route is the bundle's (serving.txt): on, the
 // kernels' wrappers run (K1 / K2 for TinyViT; K1 / K3 / K4 / K5 for a
 // ViT), each launching its kernel on a CUDA tensor and computing its plain
 // version on a CPU tensor; off, the plain versions run.
 //
-// Weights are looked up by their state_dict name (the bundle's spec).
+// Weights are looked up by their state_dict name (the bundle's spec); a
+// BiRefNet program's without its kind's prefix, and its index tables
+// (Swin's relative-position index and shift masks, the align-corners
+// matrices) are weights too.
 #pragma once
 
 #include <ATen/ATen.h>
@@ -28,6 +42,7 @@
 #include <atomic>
 #include <functional>
 #include <map>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -57,20 +72,39 @@ struct Kernels {
   using RelposWindowed = int (*)(const void*, const void*, const void*,
                                  const void*, void*, int, int, int, int, int,
                                  int, int, int, int, float, void*);
+  // boxes, scores, thresh, keep, scratch, scratch words, m, stream
+  using GreedyNms = int (*)(const void*, const void*, const void*, void*,
+                            void*, long long, int, void*);
   LayerNorm layer_norm = nullptr;                    // K1
   AddLayerNorm add_layer_norm = nullptr;             // K3
   LevitAttention levit_attention = nullptr;          // K2
   RelposGlobal relpos_attention_global = nullptr;    // K4
   RelposWindowed relpos_attention_windowed = nullptr;  // K5
+  GreedyNms greedy_nms = nullptr;                    // P1
 };
 
-// Launch counters of K1, K2, K3, K4 and K5 (each launch on a CUDA tensor
-// adds one).
+// Launch counters of K1, K2, K3, K4, K5 and P1 (each launch on a CUDA
+// tensor adds one).
 extern std::atomic<int64_t> g_layer_norm_launches;
 extern std::atomic<int64_t> g_levit_attention_launches;
 extern std::atomic<int64_t> g_add_layer_norm_launches;
 extern std::atomic<int64_t> g_relpos_global_launches;
 extern std::atomic<int64_t> g_relpos_windowed_launches;
+extern std::atomic<int64_t> g_greedy_nms_launches;
+
+// A BiRefNet's configuration (serving.txt's birefnet_* rows:
+// models/birefnet.py BiRefNetConfig, models/swin.py SwinConfig).
+struct BirefConfig {
+  int resolution = 1024;  // the model's input side S (img_size)
+  std::vector<int> depths;     // Swin blocks per stage
+  std::vector<int> num_heads;  // per Swin stage
+  int window = 7;
+  int patch_size = 4;
+  double layer_norm_eps = 1e-5;
+  std::vector<int> aspp_kernel_sizes;
+  bool mul_scl_ipt = true;  // 'cat': the half-resolution pass
+  int cxt_num = 3;
+};
 
 struct ProgramConfig {
   int image_size = 1024;   // SamConfig.image_size
@@ -93,6 +127,17 @@ struct ProgramConfig {
   // decode_batch on the card: n streams (cudaStream_t) of the calling
   // thread, to fork each prompt's work onto.
   std::function<std::vector<void*>(int64_t n)> fork_streams;
+  // amg: the point grid's side, the winners K and the pre-NMS pool, and
+  // P1's scratch on the card (made by the eager warm-up, at its first
+  // launch; a capture reuses it).
+  int amg_grid = 0;
+  int amg_masks = 0;
+  int amg_prenms = 0;
+  std::shared_ptr<at::Tensor> nms_scratch = std::make_shared<at::Tensor>();
+  // birefnet: its configuration and ImageNet's statistics on the device.
+  BirefConfig biref;
+  at::Tensor imagenet_mean;
+  at::Tensor imagenet_std;
 };
 
 // (canvas u8 (S, S, 3), sizes i32 (4,)) -> {embedding f32 (1, E, E, C)}
@@ -108,5 +153,16 @@ std::vector<at::Tensor> decode_program(const Weights& w,
 std::vector<at::Tensor> decode_batch_program(
     const Weights& w, const ProgramConfig& c,
     const std::vector<at::Tensor>& in);
+
+// (embedding, sizes i32 (4,), thresholds f32 (6,)) -> {packed masks u8
+//   (K * bucket * bucket / 8,), scores f32 (K,), stabilities f32 (K,),
+//   areas f32 (K,)}, best first
+std::vector<at::Tensor> amg_program(const Weights& w, const ProgramConfig& c,
+                                    const std::vector<at::Tensor>& in);
+// (canvas u8 (bucket, bucket, 3), sizes i32 (2,) = (h, w)) -> {mask u8
+//   (S, S)}
+std::vector<at::Tensor> birefnet_program(const Weights& w,
+                                         const ProgramConfig& c,
+                                         const std::vector<at::Tensor>& in);
 
 }  // namespace dlimg_torch

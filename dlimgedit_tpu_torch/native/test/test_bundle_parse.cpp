@@ -7,8 +7,11 @@
 // named by a spec, so that every weight is stored once. serving.txt is
 // read through the backend's own parser (native/src/bundle.hpp): its
 // format (an older one is refused), encoder, kernel route and geometry,
-// and every bucket must have its embed and decode programs and one
-// serve_decode_batch<N> per batch size. The port's copy of the JAX
+// the amg grid and winners (and the pre-NMS pool they give), the BiRefNet
+// programs and configuration (a birefnet row without the configuration
+// rows is refused), and every bucket must have its embed and decode
+// programs, one serve_decode_batch<N> per batch size and with an amg row
+// its serve_amg, and each BiRefNet entry its serve_birefnet_<kind>_<bucket>. The port's copy of the JAX
 // package's native/test/test_bundle_parse.cpp.
 //
 //   test_bundle_parse <bundle_dir>    (exit 77 = skip, no dir given)
@@ -68,6 +71,42 @@ int main(int argc, char** argv) {
                 index.window_size, globals.c_str(), index.patch_size,
                 index.layer_norm_eps);
   std::printf("\n");
+  if (index.amg_grid > 0)
+    std::printf("serving.txt: amg grid %d, max_masks %d, pre-NMS pool %d\n",
+                index.amg_grid, index.amg_masks,
+                dlimg_bundle::prenms_pool(index.amg_grid * index.amg_grid,
+                                          index.amg_masks));
+  std::vector<std::string> want_biref;
+  if (!index.birefnet.empty()) {
+    std::string progs, depths, heads, chans, ks;
+    for (const auto& b : index.birefnet) {
+      progs += (progs.empty() ? "" : ",") + b.kind + ":" +
+               std::to_string(b.bucket) + ":" + std::to_string(b.resolution);
+      want_biref.push_back("serve_birefnet_" + b.kind + "_" +
+                           std::to_string(b.bucket));
+    }
+    auto join = [](const std::vector<int>& v) {
+      std::string out;
+      for (int x : v) out += (out.empty() ? "" : ",") + std::to_string(x);
+      return out;
+    };
+    std::printf("serving.txt: birefnet %s, embed_dim %d, depths [%s], "
+                "num_heads [%s], window %d, patch_size %d, layer_norm_eps "
+                "%g, decoder channels [%s], aspp kernel sizes [%s], "
+                "mul_scl_ipt %s, cxt_num %d\n", progs.c_str(),
+                index.birefnet_embed_dim, join(index.birefnet_depths).c_str(),
+                join(index.birefnet_num_heads).c_str(), index.birefnet_window,
+                index.birefnet_patch_size, index.birefnet_layer_norm_eps,
+                join(index.birefnet_decoder_channels).c_str(),
+                join(index.birefnet_aspp_kernel_sizes).c_str(),
+                index.birefnet_mul_scl_ipt.c_str(), index.birefnet_cxt_num);
+  }
+  for (const std::string& prog : want_biref)
+    if (!fs::exists(dir / (prog + ".spec.txt"))) {
+      std::fprintf(stderr, "FATAL: serving.txt names no program %s\n",
+                   prog.c_str());
+      return 1;
+    }
   for (int b : index.buckets) {
     const std::string tail = "_" + index.variant + "_" + std::to_string(b);
     std::vector<std::string> want = {"serve_embed" + tail,
@@ -75,6 +114,7 @@ int main(int argc, char** argv) {
                                      "serve_decode3" + tail};
     for (int n : index.batch)
       want.push_back("serve_decode_batch" + std::to_string(n) + tail);
+    if (index.amg_grid > 0) want.push_back("serve_amg" + tail);
     for (const std::string& prog : want)
       if (!fs::exists(dir / (prog + ".spec.txt"))) {
         std::fprintf(stderr, "FATAL: serving.txt names no program %s\n",

@@ -18,14 +18,29 @@
 //                       non-square image in a smaller bucket and a point
 //   image2.raw, golden2.raw  a second image of image.raw's size (and
 //                       bucket) and the first point prompt's mask on it
+//   amg.txt             (with an --amg bundle) "iou stability nms
+//                       max_masks count", golden_amg.raw (count masks of
+//                       image.raw) and golden_amg_acc.raw (count float32):
+//                       Segmentation.generate_masks
+//   birefnet.txt        (with a --birefnet bundle) n, then n rows "w h c":
+//                       birefnet<i>.raw and golden_birefnet<i>.raw, the
+//                       Python API's segment_objects; then "w h", an image
+//                       over every BiRefNet bucket
 // Legs: every prompt's mask, three masks and their accuracies, the small
 // image, compute_mask_batch of the first 3 prompts and of every prompt
 // (through the bundle's serve_decode_batch<N> programs where it has them,
 // padded slots included), and two threads that process image.raw and
 // image2.raw at once, round after round, each holding its own image's
-// mask and batch; masks byte-equal and accuracies bit-equal. Prints the
-// K1 / K2 / K3 / K4 / K5 launches of each process (the serving library's
-// counters; the main image once more, where its graph replays), holds
+// mask and batch; masks byte-equal and accuracies bit-equal;
+// generate_masks (twice: the second call replays its graph on the card)
+// with its count, masks and accuracies byte-equal; segment_objects of each
+// BiRefNet image within one grey level a pixel of the Python API (the C
+// host resizes with the native box filter, the Python API with numpy), and
+// the refusal of an image over every bucket (each served mask is written to
+// served_birefnet<i>.raw in the working directory). Prints the K1 / K2 / K3 / K4
+// / K5 / P1 launches of each process, generate_masks and segment_objects
+// (the serving library's counters; the main image once more, where its
+// graph replays), holds
 // every CUDA graph's replay against its eager run (out of the bundle's
 // programs, counted from its spec files), and with --time N prints the
 // medians of N process and compute_mask calls, one of each in turn. Exits
@@ -71,22 +86,24 @@ size_t count_diff(const uint8_t* a, const uint8_t* b, size_t n) {
   return d;
 }
 
-// The serving library's counters of K1..K5, through its exported C
+// The serving library's counters of K1..K5 and P1, through its exported C
 // function (it is loaded by the C library with RTLD_LOCAL; RTLD_NOLOAD
 // finds it by name).
 struct Launches {
-  int64_t k[5] = {};
+  int64_t k[6] = {};
   Launches operator-(const Launches& o) const {
     Launches d;
-    for (int i = 0; i < 5; ++i) d.k[i] = k[i] - o.k[i];
+    for (int i = 0; i < 6; ++i) d.k[i] = k[i] - o.k[i];
     return d;
   }
 };
 
-void print_launches(const char* what, const Launches& d) {
-  std::printf("launches per process %s: K1 %lld K2 %lld K3 %lld K4 %lld "
-              "K5 %lld\n", what, (long long)d.k[0], (long long)d.k[1],
-              (long long)d.k[2], (long long)d.k[3], (long long)d.k[4]);
+void print_launches(const char* what, const Launches& d,
+                    const char* per = "process") {
+  std::printf("launches per %s %s: K1 %lld K2 %lld K3 %lld K4 %lld K5 %lld "
+              "P1 %lld\n", per, what, (long long)d.k[0], (long long)d.k[1],
+              (long long)d.k[2], (long long)d.k[3], (long long)d.k[4],
+              (long long)d.k[5]);
 }
 
 struct Counters {
@@ -106,7 +123,7 @@ struct Counters {
   }
   Launches now() const {
     Launches l;
-    launches(l.k, 5);
+    launches(l.k, 6);
     return l;
   }
 };
@@ -345,6 +362,88 @@ int main(int argc, char** argv) {
                 2 * rounds * px, prompts.size(), batch_diffs);
     if (diff[0] + diff[1] + batch_diffs != 0)
       fatal("a mask of a concurrent process differs from the Python API's");
+  }
+
+  // generate_masks of the main image, twice (on the card the second call
+  // replays the graph the first captured), against the Python API's.
+  if (std::ifstream(dir + "/amg.txt")) {
+    std::ifstream am(dir + "/amg.txt");
+    float iou, stab, nms;
+    int max_masks, count;
+    if (!(am >> iou >> stab >> nms >> max_masks >> count))
+      fatal("bad amg.txt");
+    const std::string gm = read_file(dir + "/golden_amg.raw");
+    const std::string ga = read_file(dir + "/golden_amg_acc.raw");
+    if (gm.size() != size_t(count) * px || ga.size() != count * sizeof(float))
+      fatal("golden_amg sizes");
+    for (int call = 1; call <= 2; ++call) {
+      auto b4 = counters.now();
+      auto masks = seg.generate_masks(iou, stab, nms, max_masks);
+      print_launches(main_size.c_str(), counters.now() - b4,
+                     "generate_masks");
+      size_t d = 0, dacc = 0;
+      const size_t n = std::min(masks.size(), size_t(count));
+      for (size_t i = 0; i < n; ++i) {
+        d += count_diff(masks[i].image.pixels(),
+                        reinterpret_cast<const uint8_t*>(gm.data()) + i * px,
+                        px);
+        dacc += std::memcmp(&masks[i].accuracy, ga.data() + i * sizeof(float),
+                            sizeof(float)) != 0;
+      }
+      std::printf("generate_masks (call %d) vs the Python API: %zu of %d "
+                  "masks, %zu/%zu pixels differ, %zu/%d accuracies differ in "
+                  "bits\n", call, masks.size(), count, d, n * px, dacc,
+                  count);
+      if (masks.size() != size_t(count) || d != 0 || dacc != 0)
+        fatal("generate_masks differs from the Python API's");
+    }
+  }
+
+  // segment_objects of each BiRefNet image, within one grey level a pixel
+  // of the Python API's, then an image over every bucket, refused.
+  if (std::ifstream(dir + "/birefnet.txt")) {
+    std::ifstream bf(dir + "/birefnet.txt");
+    int n = 0;
+    if (!(bf >> n) || n <= 0) fatal("bad birefnet.txt");
+    for (int i = 0; i < n; ++i) {
+      int bw, bh, bc;
+      if (!(bf >> bw >> bh >> bc)) fatal("bad birefnet.txt row");
+      const std::string k = std::to_string(i);
+      const std::string bp = read_file(dir + "/birefnet" + k + ".raw");
+      const std::string bg = read_file(dir + "/golden_birefnet" + k + ".raw");
+      const size_t bn = size_t(bw) * bh;
+      if (bp.size() != bn * bc || bg.size() != bn) fatal("birefnet sizes");
+      const std::string what = std::to_string(bw) + "x" + std::to_string(bh);
+      auto b5 = counters.now();
+      dlimg::Image m = dlimg::segment_objects(view_of(bp, bw, bh, bc), env);
+      print_launches(what.c_str(), counters.now() - b5, "segment_objects");
+      // For the caller's own comparisons (the JAX package's masks).
+      std::ofstream("served_birefnet" + k + ".raw", std::ios::binary)
+          .write(reinterpret_cast<const char*>(m.pixels()), std::streamsize(bn));
+      size_t d = 0;
+      int worst = 0;
+      for (size_t j = 0; j < bn; ++j) {
+        int diff = std::abs(int(m.pixels()[j]) - int(uint8_t(bg[j])));
+        d += diff != 0;
+        worst = std::max(worst, diff);
+      }
+      std::printf("segment_objects %s (%s) vs the Python API: %zu/%zu "
+                  "pixels differ, by at most %d\n", what.c_str(),
+                  std::max(bw, bh) > 1536 ? "high_res" : "general", d, bn,
+                  worst);
+      if (worst > 1) fatal("a segment_objects mask differs by more than 1");
+    }
+    int ow, oh;
+    if (!(bf >> ow >> oh)) fatal("bad birefnet.txt refusal row");
+    const std::string over(size_t(ow) * oh * 3, '\0');
+    bool refused = false;
+    try {
+      dlimg::segment_objects(view_of(over, ow, oh, 3), env);
+    } catch (const std::exception& e) {
+      refused = true;
+      std::printf("segment_objects %dx%d: refused (%s)\n", ow, oh, e.what());
+    }
+    if (!refused) fatal("segment_objects of an image over every bucket ran");
   }
 
   // The main image again: the embed program's graph replays.

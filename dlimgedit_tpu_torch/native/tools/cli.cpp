@@ -250,6 +250,22 @@ int cmd_info() {
                         batch.empty() ? "none (compute_mask_batch decodes "
                                         "each prompt)"
                                       : batch.c_str());
+            if (index.amg_grid > 0)
+                std::printf("bundle amg: grid %d, %d masks, pre-NMS pool %d\n",
+                            index.amg_grid, index.amg_masks,
+                            dlimg_bundle::prenms_pool(
+                                index.amg_grid * index.amg_grid,
+                                index.amg_masks));
+            else
+                std::printf("bundle amg: none (generate_masks is refused)\n");
+            std::string biref;
+            for (auto const& b : index.birefnet)
+                biref += (biref.empty() ? "" : ",") + b.kind + ":" +
+                         std::to_string(b.bucket) + ":" +
+                         std::to_string(b.resolution);
+            std::printf("bundle birefnet: %s\n",
+                        biref.empty() ? "none (segment_objects is refused)"
+                                      : biref.c_str());
         }
     }
     return 0;

@@ -3,13 +3,17 @@ counterpart of the JAX package's ``tools/aot_export.py --program serving``.
 
     python -m dlimgedit_tpu_torch.tools.aot_export --out DIR --program serving
         [--variant mobile_sam|vit_b|vit_l|vit_h] [--buckets 512,1024]
-        [--batch-sizes 4,8] [--sam-image-size N] [--backend gpu|cpu]
-        [--compute-dtype bfloat16|float32] [--models DIR]
+        [--batch-sizes 4,8] [--amg GRID:MAX_MASKS]
+        [--birefnet general:1024,high_res:2048] [--sam-image-size N]
+        [--backend gpu|cpu] [--compute-dtype bfloat16|float32]
+        [--models DIR]
 
 A C or C++ host that sets ``DLIMG_PJRT_BUNDLE=DIR`` then serves
-``create_environment``, ``process``, ``compute_mask(s)`` and
-``compute_mask_batch`` through the port's C library with no Python in its
-process: the library dlopens ``libdlimgedit_tpu_torch_serving.so``
+``create_environment``, ``process``, ``compute_mask(s)``,
+``compute_mask_batch``, ``generate_masks`` (with ``--amg``) and
+``segment_objects`` (with ``--birefnet``) through the port's C library
+with no Python in its process: the library dlopens
+``libdlimgedit_tpu_torch_serving.so``
 (``python -m dlimgedit_tpu_torch.native_build --serving``), whose C++
 programs mirror the Python modules op for op (native/src/torch_programs.cpp).
 
@@ -20,7 +24,14 @@ TinyViT for MobileSAM, a SAM ViT for vit_b / vit_l / vit_h),
 ``serve_decode3_<variant>_<bucket>`` (three masks and their accuracies)
 and, per ``--batch-sizes`` entry N, ``serve_decode_batch<N>_<variant>_
 <bucket>`` (N prompts against one embedding, each mask ``compute_mask``'s
-for its prompt: runtime/segmentation.py ``_build_batch_decode_fn``), each as
+for its prompt: runtime/segmentation.py ``_build_batch_decode_fn``), with
+``--amg grid:K`` ``serve_amg_<variant>_<bucket>`` (runtime/amg.py
+``_build_amg_fn`` with K clamped to the grid's 3 * grid^2 candidates and
+the pre-NMS pool of ``_prenms_pool``, as ``generate_masks`` keys it; no
+region refinement), and per ``--birefnet kind:bucket`` entry
+``serve_birefnet_<kind>_<bucket>`` (runtime/birefnet.py
+``_build_birefnet_fn``: the canvas and its (h, w) to the (S, S) uint8
+mask at the model's resolution S), each as
   <name>.spec.txt   one row per argument, then per output:
                       inw <dtype> <d0,d1,..> <state_dict name>   a weight
                       ind <dtype> <d0,d1,..>                     dynamic
@@ -32,10 +43,15 @@ and, once for every program that names it, ``weights/<state_dict
 name>.npy``: the loaded module's tensor after every load-time transform
 (the compute-dtype cast, TinyViT's attention-bias index tables, a ViT
 block's rel-pos gather index ``rel_pos_idx``), bf16 as its 16 bits (the
-spec names the dtype). Then ``serving.txt`` (format, variant, backend,
-image_size, buckets, batch sizes, compute_dtype, decoder_heads, the
-encoder kind and its kernel route, and a ViT's geometry: num_heads,
-window_size, global_attn_indexes, patch_size, layer_norm_eps; parsed by
+spec names the dtype); a BiRefNet's under ``birefnet.<kind>.``, with the
+index tables its forward reads (``tables.rel_pos_index``, Swin's shift
+masks ``tables.shift_mask.<pH>x<pW>``, the align-corners matrices
+``tables.ac.<n_out>x<n_in>``), so that no program makes an index. Then
+``serving.txt`` (format, variant, backend, image_size, buckets, batch
+sizes, compute_dtype, decoder_heads, the encoder kind and its kernel
+route, a ViT's geometry: num_heads, window_size, global_attn_indexes,
+patch_size, layer_norm_eps; ``amg`` grid:K; ``birefnet``
+kind:bucket:resolution and the BiRefNet's configuration rows; parsed by
 native/src/bundle.hpp). A ``gpu`` bundle also names the port's kernel
 library in ``kernels_path.txt`` (built first, ops/cuda_build.py), as the
 JAX bundle names its PJRT plugin in ``plugin_path.txt``, and has the
@@ -43,15 +59,16 @@ encoder's kernel route on.
 
 Weights are random (seed 0) unless ``--models`` names a model directory
 (``<dir>/segmentation/mobile_sam.npz`` or ``sam_vit_<b|l|h>.npz``, e.g.
-from the converters). The
-options of later slices of this route (ROADMAP A8) raise ``DlimgError``:
-``--amg``, ``--birefnet``, ``--quantize``, ``--quantize-activations``,
-``--int8-deform``.
+from the converters; BiRefNet's
+``<dir>/segmentation/birefnet_*.npz``). The options of a later slice of
+this route (ROADMAP A8 (5), the int8 encoders) raise ``DlimgError``:
+``--quantize``, ``--quantize-activations``, ``--int8-deform``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import shutil
 import sys
 from pathlib import Path
@@ -62,6 +79,8 @@ import torch
 
 from ..errors import DlimgError
 from ..ops.preprocess import CANVAS_BUCKETS
+from ..runtime import amg as amg_lib
+from ..runtime import birefnet as birefnet_lib
 from ..runtime.environment import Environment
 from ..runtime.segmentation import (
     _build_batch_decode_fn,
@@ -71,19 +90,24 @@ from ..runtime.segmentation import (
 )
 from ..types import Backend, Options
 
-FORMAT = "dlimgedit_tpu_torch-serving-3"  # native/src/bundle.hpp kFormat
+FORMAT = "dlimgedit_tpu_torch-serving-4"  # native/src/bundle.hpp kFormat
 
 # The variants the route serves (models/sam.py make_config).
 VARIANTS = ("mobile_sam", "vit_t", "vit_b", "vit_l", "vit_h")
 
-# The JAX exporter's options that later slices of this route will serve.
+# The JAX exporter's options that a later slice of this route will serve.
 LATER_SLICES = {
-    "amg": ("--amg", "automatic mask generation"),
-    "birefnet": ("--birefnet", "BiRefNet segment_objects"),
     "quantize": ("--quantize", "the int8 encoders"),
     "quantize_activations": ("--quantize-activations", "the int8 encoders"),
-    "int8_deform": ("--int8-deform", "BiRefNet segment_objects"),
+    "int8_deform": ("--int8-deform", "BiRefNet's int8 deformable gathers"),
 }
+
+# serve_amg's sample thresholds, in the C ABI's layout (iou, stability,
+# nms, then no area filter and no region refinement), permissive so that
+# the samples keep candidates.
+AMG_SAMPLE_THRESHOLDS = (0.0, 0.0, 0.7, 0.0, 1.0, 0.0)
+
+BIREFNET_KINDS = ("general", "high_res")
 
 _NP_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
               torch.int64: "int64", torch.int32: "int32",
@@ -107,8 +131,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="model directory (default: seeded random weights)")
     ap.add_argument("--batch-sizes", default="",
                     help="comma list of serve_decode_batch<N> sizes")
-    ap.add_argument("--amg", default="")
-    ap.add_argument("--birefnet", default="")
+    ap.add_argument("--amg", default="",
+                    help="grid:max_masks: serve_amg programs (generate_masks)")
+    ap.add_argument("--birefnet", default="",
+                    help="comma list of kind:bucket (general | high_res): "
+                         "serve_birefnet programs (segment_objects)")
     ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--quantize-activations", action="store_true")
     ap.add_argument("--int8-deform", action="store_true")
@@ -123,8 +150,39 @@ def _refuse_later_slices(args: argparse.Namespace) -> None:
         if getattr(args, attr):
             raise DlimgError(
                 f"{flag}: {what} through the Python-free route is a later "
-                f"slice (ROADMAP A8); this bundle serves process, "
-                f"compute_mask(s) and compute_mask_batch")
+                f"slice (ROADMAP A8), its item (5); this bundle serves "
+                f"process, compute_mask(s), compute_mask_batch, "
+                f"generate_masks (--amg) and segment_objects (--birefnet)")
+
+
+def parse_amg(text: str) -> Optional[Tuple[int, int]]:
+    """--amg grid:max_masks -> (grid, max_masks clamped to the grid's
+    3 * grid^2 candidates, as ``generate_masks`` clamps it), or None."""
+    if not text:
+        return None
+    parts = text.split(":")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise DlimgError(f"--amg {text!r}: grid:max_masks, two positive "
+                         f"integers")
+    grid = int(parts[0])
+    return grid, min(int(parts[1]), 3 * grid * grid)
+
+
+def parse_birefnet(text: str) -> List[Tuple[str, int]]:
+    """--birefnet kind:bucket,... -> [(kind, bucket)], in order, once each."""
+    specs: List[Tuple[str, int]] = []
+    for tok in (t.strip() for t in text.split(",")):
+        if not tok:
+            continue
+        kind, _, bucket = tok.partition(":")
+        if kind not in BIREFNET_KINDS or not bucket.isdigit() \
+                or int(bucket) not in CANVAS_BUCKETS:
+            raise DlimgError(f"--birefnet {text!r}: each entry is kind:bucket "
+                             f"with kind one of {BIREFNET_KINDS} and bucket "
+                             f"one of CANVAS_BUCKETS {CANVAS_BUCKETS}")
+        if (kind, int(bucket)) not in specs:
+            specs.append((kind, int(bucket)))
+    return specs
 
 
 def _buckets(text: str) -> List[int]:
@@ -252,6 +310,105 @@ def write_program(out: Path, name: str, weights: Dict[str, torch.Tensor],
           flush=True)
 
 
+def _birefnet_tables(cfg, device) -> Dict[str, torch.Tensor]:
+    """The index tables a BiRefNet forward at ``cfg.img_size`` reads, from
+    the model's own functions (the tensors the Python forward uses):
+    Swin's relative-position index and shift masks at each stage's padded
+    size, both passes, and the align-corners matrices of every resize of
+    ``birefnet_apply``, named as the C++ looks them up."""
+    from ..models import birefnet as birefnet_model
+    from ..models import swin
+
+    sw, S, w = cfg.swin, cfg.img_size, cfg.swin.window
+    tables = {"tables.rel_pos_index": swin._rel_pos_index(w, device)}
+
+    def pyramid(n: int) -> List[int]:
+        h, sizes = n // sw.patch_size, []
+        for i in range(4):
+            if sw.depths[i] > 1 and w // 2 > 0:
+                p = swin._padded(h, w)
+                tables[f"tables.shift_mask.{p}x{p}"] = swin._shift_attn_mask(
+                    p, p, w, w // 2, device)
+            sizes.append(h)
+            h = (h + h % 2) // 2
+        return sizes
+
+    def ac(n_out: int, n_in: int) -> None:
+        if n_out != n_in:
+            tables[f"tables.ac.{n_out}x{n_in}"] = birefnet_model._ac_matrix(
+                n_out, n_in, device)
+
+    f = pyramid(S)
+    if cfg.mul_scl_ipt == "cat":
+        ac(S // 2, S)
+        for n_out, n_in in zip(f, pyramid(S // 2)):
+            ac(n_out, n_in)
+    if cfg.cxt_num:
+        for n_in in f[:3]:
+            ac(f[3], n_in)
+    for n_out, n_in in ((f[2], f[3]), (f[1], f[2]), (f[0], f[1]), (S, f[0])):
+        ac(n_out, n_in)
+    return tables
+
+
+def _birefnet_rows(cfg, programs: List[str]) -> str:
+    """serving.txt's birefnet rows (native/src/bundle.hpp)."""
+    sw = cfg.swin
+    return (f"birefnet\t{','.join(programs)}\n"
+            f"birefnet_embed_dim\t{sw.embed_dim}\n"
+            f"birefnet_depths\t{','.join(map(str, sw.depths))}\n"
+            f"birefnet_num_heads\t{','.join(map(str, sw.num_heads))}\n"
+            f"birefnet_window\t{sw.window}\n"
+            f"birefnet_patch_size\t{sw.patch_size}\n"
+            f"birefnet_layer_norm_eps\t{sw.layer_norm_eps!r}\n"
+            f"birefnet_decoder_channels\t{cfg.dec_inter_channels},"
+            f"{cfg.aspp_channelster},{cfg.gdt_channels}\n"
+            f"birefnet_aspp_kernel_sizes\t"
+            f"{','.join(map(str, cfg.aspp_kernel_sizes))}\n"
+            f"birefnet_mul_scl_ipt\t{cfg.mul_scl_ipt or 'none'}\n"
+            f"birefnet_cxt_num\t{cfg.cxt_num}\n")
+
+
+def export_birefnet(env: Environment, out: Path,
+                    specs: List[Tuple[str, int]], stored: Dict[str, str],
+                    rng: np.random.Generator) -> str:
+    """serve_birefnet_<kind>_<bucket> for each spec, on the environment's
+    BiRefNet executables (runtime/birefnet.py birefnet_segment's keys);
+    -> serving.txt's birefnet rows."""
+    if env.mesh is not None:
+        raise DlimgError("the Python-free route runs BiRefNet on one device: "
+                         "export with scaleout_devices off")
+    programs, shared = [], None
+    for kind, bucket in specs:
+        bb = env.birefnet_model(kind)
+        if bb.cfg.deform_int8_gather:
+            raise DlimgError("birefnet_int8_deform: BiRefNet's int8 "
+                             "deformable gathers through the Python-free "
+                             "route are a later slice (ROADMAP A8), its item "
+                             "(5)")
+        cfg = dataclasses.replace(bb.cfg, img_size=0)
+        if shared is not None and cfg != shared:
+            raise DlimgError("the BiRefNet kinds of one bundle share one "
+                             "configuration apart from the resolution")
+        shared = cfg
+        prefix = f"birefnet.{kind}."
+        weights = {prefix + k: v
+                   for k, v in (*_tensors(bb.model, ("",)).items(),
+                                *_birefnet_tables(bb.cfg, env.device).items())}
+        canvas = rng.integers(0, 256, (bucket, bucket, 3), dtype=np.uint8)
+        sizes = np.array([(3 * bucket) // 4, bucket], np.int32)
+        run = env.executable(
+            ("birefnet", kind, bucket),
+            lambda bb=bb, bucket=bucket: birefnet_lib._build_birefnet_fn(
+                bb, bucket), birefnet_lib._to_host)
+        mask = run(torch.from_numpy(canvas),
+                   env.sizes_on_device(tuple(sizes)))
+        write_program(out, f"serve_birefnet_{kind}_{bucket}", weights,
+                      [canvas, sizes], [mask], stored)
+        programs.append(f"{kind}:{bucket}:{bb.resolution}")
+    return _birefnet_rows(bb.cfg, programs)
+
+
 def make_environment(args: argparse.Namespace) -> Environment:
     extra = ({"sam_image_size": args.sam_image_size}
              if args.sam_image_size else {})
@@ -270,6 +427,8 @@ def export_serving(args: argparse.Namespace,
     _refuse_later_slices(args)
     buckets = _buckets(args.buckets)
     batch_sizes = _batch_sizes(args.batch_sizes)
+    amg = parse_amg(args.amg)
+    birefnet_specs = parse_birefnet(args.birefnet)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for stale in [*out.glob("serve_*"), out / "serving.txt",
@@ -331,6 +490,12 @@ def export_serving(args: argparse.Namespace,
             write_program(out, f"serve_decode_batch{nb}_{variant}_{b}",
                           decoder, [emb, bpts, blbl, sizes], [packed, iou],
                           stored)
+        if amg:
+            write_amg(env, bundle, out, variant, b, amg, emb, sizes, decoder,
+                      stored)
+    amg_row = f"amg\t{amg[0]}:{amg[1]}\n" if amg else ""
+    birefnet_rows = (export_birefnet(env, out, birefnet_specs, stored, rng)
+                     if birefnet_specs else "")
     (out / "serving.txt").write_text(
         f"format\t{FORMAT}\n"
         f"variant\t{variant}\n"
@@ -340,8 +505,27 @@ def export_serving(args: argparse.Namespace,
         f"batch\t{','.join(map(str, batch_sizes))}\n"
         f"compute_dtype\t{args.compute_dtype}\n"
         f"decoder_heads\t{bundle.cfg.decoder.num_heads}\n"
-        f"{encoder_rows}")
+        f"{encoder_rows}{amg_row}{birefnet_rows}")
     return env
+
+
+def write_amg(env: Environment, bundle, out: Path, variant: str, b: int,
+              amg: Tuple[int, int], emb: torch.Tensor, sizes: np.ndarray,
+              decoder: Dict[str, torch.Tensor],
+              stored: Dict[str, str]) -> None:
+    """serve_amg_<variant>_<b> on the executable ``generate_masks`` keys,
+    with the pool of ``_prenms_pool``."""
+    grid, k = amg
+    prenms = amg_lib._prenms_pool(grid * grid, k)
+    fn = env.executable(
+        ("amg", variant, b, grid, k, prenms, False),
+        lambda: amg_lib._build_amg_fn(bundle, b, grid, k, prenms),
+        amg_lib._to_host)
+    outs = fn(emb, env.sizes_on_device(tuple(sizes)),
+              env.floats_on_device(AMG_SAMPLE_THRESHOLDS))
+    write_program(out, f"serve_amg_{variant}_{b}", decoder,
+                  [emb, sizes, np.array(AMG_SAMPLE_THRESHOLDS, np.float32)],
+                  outs, stored)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -3,24 +3,34 @@ counterpart of the JAX package's ``tools/serving_check.py``.
 
     python -m dlimgedit_tpu_torch.tools.serving_check --dir DIR
         [--size 1024] [--variant mobile_sam|vit_b|vit_l|vit_h]
-        [--batch-sizes 4,8] [--sam-image-size N] [--backend gpu|cpu]
-        [--compute-dtype bfloat16] [--models DIR] [--time N]
+        [--batch-sizes 4,8] [--amg GRID:MAX_MASKS]
+        [--birefnet general:1024,high_res:2048] [--sam-image-size N]
+        [--backend gpu|cpu] [--compute-dtype bfloat16] [--models DIR]
+        [--time N]
 
 1. Exports a serving bundle (tools/aot_export.py) of the variant into
    DIR/bundle, for the buckets of a ``size`` x ``3/4 size`` image and of a
    smaller non-square one (``size * 500/1024`` x ``size * 375/1024``), with
-   ``serve_decode_batch<N>`` programs of the batch sizes.
+   ``serve_decode_batch<N>`` programs of the batch sizes, and with
+   ``--amg`` / ``--birefnet`` the ``serve_amg`` / ``serve_birefnet``
+   programs.
 2. Writes the port's Python API's results into DIR/check, with the
    exporter's environment (the same weights): ``compute_mask`` of 8
    points and 4 boxes, ``compute_masks`` of the first
    point, ``compute_mask_batch`` of them all, a point on the small
    image, and the first point on a second image of the main size (the
-   files test_serving.cpp reads).
+   files test_serving.cpp reads); with ``--amg`` ``generate_masks`` of the
+   main image at the bundle's grid and K (``AMG_THRESHOLDS``), with
+   ``--birefnet`` ``segment_objects`` of an image of the main size and,
+   where the bundle has a bucket for it, of one above 1536 px (the
+   high_res kind).
 3. Builds the serving library (``native_build.build_serving()``) and runs
    ``test_serving`` in a fresh process: the public C++ API with
    DLIMG_PJRT_BUNDLE set, no PYTHONPATH but a ``sitecustomize`` that
    leaves a marker file if an interpreter starts. It must hold every mask
-   byte-equal and every accuracy bit-equal, and leave no marker.
+   byte-equal and every accuracy bit-equal (generate_masks' count too),
+   every segment_objects mask within one grey level a pixel (the C host
+   resizes with the native box filter), and leave no marker.
 4. Runs ``test_serving_programs`` over every program (each against the
    exporter's Python outputs) and ``test_bundle_parse``.
 
@@ -43,11 +53,16 @@ import torch
 
 from .. import native_build
 from ..ops.preprocess import pick_bucket
-from ..runtime.segmentation import Segmentation
+from ..runtime.segmentation import Segmentation, segment_objects
 from ..types import Channels, Extent, Image, Point, Region
 from . import aot_export
 
 MARKER = "python-started"
+# generate_masks' thresholds in the check (iou, stability, nms): every
+# candidate the decoder rates above 0 passes, and NMS 1.0 suppresses none,
+# so that the winners are K (the exporter's samples take NMS 0.7, where
+# the NMS suppresses).
+AMG_THRESHOLDS = (0.0, 0.0, 1.0)
 
 
 def image_sizes(size: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -58,8 +73,8 @@ def image_sizes(size: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
 
 def bundle_args(out: Path, size: int, backend: str, sam_image_size: int = 0,
                 compute_dtype: str = "bfloat16", models: str = "",
-                variant: str = "mobile_sam",
-                batch_sizes: str = "") -> argparse.Namespace:
+                variant: str = "mobile_sam", batch_sizes: str = "",
+                amg: str = "", birefnet: str = "") -> argparse.Namespace:
     """The exporter's arguments for `size`'s two images."""
     main, small = image_sizes(size)
     buckets = sorted({pick_bucket(Extent(*main)), pick_bucket(Extent(*small))})
@@ -68,6 +83,10 @@ def bundle_args(out: Path, size: int, backend: str, sam_image_size: int = 0,
             "--compute-dtype", compute_dtype]
     if batch_sizes:
         argv += ["--batch-sizes", batch_sizes]
+    if amg:
+        argv += ["--amg", amg]
+    if birefnet:
+        argv += ["--birefnet", birefnet]
     if sam_image_size:
         argv += ["--sam-image-size", str(sam_image_size)]
     if models:
@@ -142,6 +161,58 @@ def write_goldens(env, check: Path, size: int, n_points: int, n_boxes: int,
             "second": second}
 
 
+def write_amg_goldens(env, check: Path, grid: int, max_masks: int) -> list:
+    """``generate_masks`` of the main image (image.raw) at the bundle's
+    grid and K (amg.txt, golden_amg.raw, golden_amg_acc.raw); -> the
+    masks."""
+    w, h, c = (int(v) for v in (check / "meta.txt").read_text().split())
+    px = np.frombuffer((check / "image.raw").read_bytes(),
+                       np.uint8).reshape(h, w, c)
+    seg = Segmentation.process(Image(Extent(w, h), Channels.rgba, px), env)
+    iou, stab, nms = AMG_THRESHOLDS
+    masks = seg.generate_masks(grid=grid, max_masks=max_masks,
+                               iou_thresh=iou, stability_thresh=stab,
+                               nms_thresh=nms)
+    (check / "amg.txt").write_text(
+        f"{iou!r} {stab!r} {nms!r} {max_masks} {len(masks)}\n")
+    (check / "golden_amg.raw").write_bytes(
+        b"".join(m.image.pixels.tobytes() for m in masks))
+    np.array([m.accuracy for m in masks], np.float32).tofile(
+        check / "golden_amg_acc.raw")
+    return masks
+
+
+def birefnet_images(size: int,
+                    buckets: Sequence[int]) -> List[Tuple[int, int]]:
+    """(w, h) of the BiRefNet check images: the main size, one above 1536
+    px (the high_res kind) where a bucket holds it, and last one over
+    every bucket (refused)."""
+    main, _ = image_sizes(size)
+    big = (2000, 1500)
+    out = [main] + ([big] if max(buckets) >= max(big) else [])
+    return out + [(max(buckets) + 8, 64)]
+
+
+def write_birefnet_goldens(env, check: Path, size: int,
+                           buckets: Sequence[int], seed: int = 1) -> list:
+    """``segment_objects`` of each image of ``birefnet_images`` but the
+    last (birefnet.txt, birefnet<i>.raw, golden_birefnet<i>.raw); -> the
+    (pixels, mask) of each."""
+    rng = np.random.default_rng(seed)
+    *images, over = birefnet_images(size, buckets)
+    rows, out = [f"{len(images)}"], []
+    for i, (w, h) in enumerate(images):
+        px = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        mask = segment_objects(Image(Extent(w, h), Channels.rgb, px), env)
+        out.append((px, mask.pixels.reshape(h, w)))
+        (check / f"birefnet{i}.raw").write_bytes(px.tobytes())
+        (check / f"golden_birefnet{i}.raw").write_bytes(out[-1][1].tobytes())
+        rows.append(f"{w} {h} 3")
+    rows.append(f"{over[0]} {over[1]}")
+    (check / "birefnet.txt").write_text("\n".join(rows) + "\n")
+    return out
+
+
 def fresh_env(work: Path, **extra) -> dict:
     """The environment of a fresh C++ process: no PYTHONPATH of the repo,
     but a sitecustomize that leaves ``work/python-started`` if an
@@ -211,6 +282,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--variant", default="mobile_sam")
     ap.add_argument("--batch-sizes", default="")
+    ap.add_argument("--amg", default="", help="grid:max_masks")
+    ap.add_argument("--birefnet", default="",
+                    help="comma list of kind:bucket")
     ap.add_argument("--sam-image-size", type=int, default=0)
     ap.add_argument("--backend", default="gpu", choices=["gpu", "cpu"])
     ap.add_argument("--compute-dtype", default="bfloat16",
@@ -223,8 +297,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     bundle, check = work / "bundle", work / "check"
     env = aot_export.export_serving(bundle_args(
         bundle, args.size, args.backend, args.sam_image_size,
-        args.compute_dtype, args.models, args.variant, args.batch_sizes))
+        args.compute_dtype, args.models, args.variant, args.batch_sizes,
+        args.amg, args.birefnet))
     write_goldens(env, check, args.size, 8, 4)
+    amg = aot_export.parse_amg(args.amg)
+    if amg:
+        write_amg_goldens(env, check, *amg)
+    specs = aot_export.parse_birefnet(args.birefnet)
+    if specs:
+        write_birefnet_goldens(env, check, args.size, [b for _, b in specs])
     build = native_build.build_serving()
     print(run_test_serving(build, bundle, check, work, args.backend,
                            args.time).stdout, end="")

@@ -19,7 +19,7 @@ A MobileSAM bundle (sam_image_size 64, float32, canvas buckets 256 and
   with the kernel route off (by the exporter and by the reader), and a
   bundle of the previous format.
 
-Both sides of a byte comparison run at one CPU thread (see
+Both sides of a byte comparison run at two CPU threads (see
 test_torch_serving_vit.py).
 """
 
@@ -34,7 +34,6 @@ from dlimgedit_tpu_torch.errors import DlimgError
 from dlimgedit_tpu_torch.tools import aot_export, serving_check
 
 from test_torch_native_bridge import IMAGE_SIZE, model_dir  # noqa: F401
-from test_torch_serving_vit import one_thread
 
 SIZE = 400  # a 400 x 300 image (bucket 512) and a 195 x 146 one (256)
 POINTS, BOXES = 3, 2
@@ -52,12 +51,11 @@ def build():
 def served(tmp_path_factory, model_dir, build):  # noqa: F811
     work = tmp_path_factory.mktemp("serving-batch")
     bundle, check = work / "bundle", work / "check"
-    with one_thread():
-        env = aot_export.export_serving(serving_check.bundle_args(
-            bundle, SIZE, "cpu", IMAGE_SIZE, "float32", str(model_dir),
-            batch_sizes="4,2"))
-        goldens = serving_check.write_goldens(env, check, SIZE, POINTS, BOXES)
-        run = serving_check.run_test_serving(build, bundle, check, work, "cpu")
+    env = aot_export.export_serving(serving_check.bundle_args(
+        bundle, SIZE, "cpu", IMAGE_SIZE, "float32", str(model_dir),
+        batch_sizes="4,2"))
+    goldens = serving_check.write_goldens(env, check, SIZE, POINTS, BOXES)
+    run = serving_check.run_test_serving(build, bundle, check, work, "cpu")
     return {"work": work, "bundle": bundle, "check": check, "env": env,
             "goldens": goldens, "stdout": run.stdout}
 
@@ -79,9 +77,8 @@ def test_batch_requests_equal_compute_mask_without_python(served):
 
 def test_every_program_with_the_batch_programs_equals_python(served, build):
     assert serving_check.programs(served["bundle"]) == PROGRAMS
-    with one_thread():
-        r = serving_check.run_test_programs(build, served["bundle"],
-                                            served["work"], "cpu")
+    r = serving_check.run_test_programs(build, served["bundle"],
+                                        served["work"], "cpu")
     for name in PROGRAMS:
         assert f"{name}: PASS" in r.stdout
     n = len(PROGRAMS)
@@ -91,7 +88,7 @@ def test_every_program_with_the_batch_programs_equals_python(served, build):
     assert ("serving.txt: variant mobile_sam, encoder tinyvit, kernel route "
             "off, batch sizes [2,4]\n") in r.stdout
     txt = (served["bundle"] / "serving.txt").read_text()
-    assert "format\tdlimgedit_tpu_torch-serving-3\n" in txt
+    assert "format\tdlimgedit_tpu_torch-serving-4\n" in txt
     assert "batch\t2,4\n" in txt
 
 
@@ -102,7 +99,7 @@ def test_the_batch_programs_serve_the_batch(served, build, tmp_path):
     shutil.copytree(served["bundle"], bundle)
     for f in bundle.glob("serve_decode_batch4_mobile_sam_512.*"):
         f.unlink()
-    with one_thread(), pytest.raises(RuntimeError) as e:
+    with pytest.raises(RuntimeError) as e:
         serving_check.run_test_serving(build, bundle, served["check"],
                                        tmp_path, "cpu")
     assert "serve_decode_batch4_mobile_sam_512" in str(e.value)
@@ -149,9 +146,9 @@ def test_the_reader_refuses_an_old_format_and_a_gpu_bundle_route_off(
     shutil.copytree(served["bundle"], bundle)
     txt = bundle / "serving.txt"
     if edit == "format_2":
-        txt.write_text(txt.read_text().replace("serving-3", "serving-2"))
-        why = ("names the bundle format 'dlimgedit_tpu_torch-serving-2', not "
-               "the port's dlimgedit_tpu_torch-serving-3")
+        txt.write_text(txt.read_text().replace("serving-4", "serving-3"))
+        why = ("names the bundle format 'dlimgedit_tpu_torch-serving-3', not "
+               "the port's dlimgedit_tpu_torch-serving-4")
     else:
         txt.write_text(txt.read_text().replace("backend\tcpu", "backend\tgpu"))
         why = "a gpu bundle must have the encoder's kernel route on"

@@ -21,8 +21,9 @@ DLIMG_PJRT_BUNDLE set, through libdlimgedit_tpu_torch_serving.so.
   are put back after the programs ran; ``test_bundle_parse`` reads every
   spec row. Each weight is stored once and held once, for every program.
 - The refusals: a JAX bundle, a bundle of the other backend, backend 1
-  without CUDA, the options of later slices, a bucket outside
-  CANVAS_BUCKETS, and a failed serving build each fail with a message.
+  without CUDA, the options of a later slice and malformed values of the
+  served ones, a bucket outside CANVAS_BUCKETS, and a failed serving build
+  each fail with a message.
 """
 
 import shutil
@@ -283,15 +284,17 @@ def test_backend_1_fails_without_cuda_and_a_bundle_keeps_its_backend(
 
 
 # The options the route refuses, and the words of each refusal: the later
-# slices name ROADMAP A8; the SAM ViTs and --batch-sizes are served, so
-# their cases hold the refusal of a size that is no batch size and of a
-# variant that is none of the route's.
+# slice (the int8 options) names ROADMAP A8; the SAM ViTs, --batch-sizes,
+# --amg and --birefnet are served, so their cases hold the refusal of a
+# malformed value and of a variant that is none of the route's.
 _REFUSALS = {"--batch-sizes": "each batch size must be a positive integer",
+             "--amg": "grid:max_masks, two positive integers",
+             "--birefnet": "each entry is kind:bucket",
              "--variant": "the Python-free route serves mobile_sam"}
 
 
 @pytest.mark.parametrize("extra", [
-    ["--amg", "4:8"], ["--batch-sizes", "0"], ["--birefnet", "general:256"],
+    ["--amg", "4"], ["--batch-sizes", "0"], ["--birefnet", "general:300"],
     ["--quantize"], ["--quantize-activations"], ["--int8-deform"],
     ["--variant", "sam2_hiera"]], ids=lambda e: e[0])
 def test_later_slice_options_raise(tmp_path, extra):
