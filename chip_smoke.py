@@ -339,7 +339,20 @@ printing its seconds:
      printed) and `test_bundle_parse`; then `process_ms` and `mask_ms` through this
      route, the embedded-interpreter library and the direct call, in this
      interpreter, medians of 20 with the three interleaved, the serving
-     library's K1 / K2 counts over its route's calls exact;
+     library's K1 / K2 counts over its route's calls exact. Then its int8
+     legs, MobileSAM 1024 in w8 and in w8a8 (`aot_export --quantize`,
+     `--quantize-activations`; bucket 1024): through the C library in
+     this interpreter, 3 points and a box (`compute_mask`), three masks
+     and `compute_mask_batch` of the four, each mask and accuracy byte
+     for byte the direct Python call's under the same `Options`, on the
+     capture and on the replay; the serving library's launches per
+     `process` exact (22 K1, 10 K2, and 40 P2 and 40 P3 in w8a8, 0 in w8:
+     `quant_linears`' 10 blocks x 4) with its int8-linear counts (40 s8
+     products in w8a8, 40 dequantised in w8); every graph's replay equal
+     to its eager run; the resident weights equal to the bundle's
+     files; `process_ms` through the route against the direct graphed
+     call, medians of 20 interleaved (failing above 1.5x: a row-major
+     `w_q8` sends cuBLASLt's int8 product to a slow path);
  18. the Python-free serving route with the SAM ViT encoders on cuda:0:
      ViT-B (with `--batch-sizes 4,8`) and ViT-H bundles, full width and
      depth, bf16, seeded weights (buckets 512 and 1024), as phase 17:
@@ -354,7 +367,9 @@ printing its seconds:
      included) and `test_bundle_parse`; then `process_ms` and `mask_ms`
      through the route against the direct call, in this interpreter,
      medians of 20 interleaved, the counts over the route's calls exact.
-     ViT-L runs ViT-B's code at other widths and is not run here;
+     ViT-L runs ViT-B's code at other widths and is not run here. Then
+     phase 17's int8 leg for ViT-H 1024 in w8a8: 1 K1, 63 K3, 4 K4, 28
+     K5 and 128 P2 and 128 P3 per `process` (32 blocks x 4);
  19. automatic mask generation and BiRefNet `segment_objects` on the
      Python-free route on cuda:0, from one bundle: MobileSAM 1024 bf16
      (buckets 512 and 1024) exported with `--amg 32:64` and `--birefnet
@@ -374,7 +389,12 @@ printing its seconds:
      AMG output byte for byte the Python executable's) and
      `test_bundle_parse`; then, in this interpreter through the C
      library, the same calls against the direct ones: `amg_ms` (medians
-     of 5) and `birefnet_ms` (medians of 10), interleaved. Its launches
+     of 5) and `birefnet_ms` (medians of 10), interleaved. Then its int8
+     leg: BiRefNet_lite `general` 1024 exported with `--int8-deform`,
+     `segment_objects` of a 1024x768 image through the C library on the
+     capture and on the replay, each within one grey level of the direct
+     call's (failing above 1), no kernel launched, its graph equal to its
+     eager run, `birefnet_ms` (medians of 5) interleaved. Its launches
      are checked here, not added to the kernels' sums.
 
 The line before the last is one JSON object with per-kernel numbers; the
@@ -395,7 +415,9 @@ reps 8, bf16 table). greedy_nms's are sums over phase 7's round 2 (three
 calls), each launch timed on the pool it had. P2's and P3's are sums over
 phase 9's counted round (round 2, replays) of its w8a8 paths, one image
 each; their library_ms is null (no one PyTorch call computes either; the
-products beside P3 are printed in phase 2).
+products beside P3 are printed in phase 2). `also_from_cpp` marks the
+kernels that the Python-free route's serving library also launches from
+C++ (K1-K5, P1, P2, P3; counted in phases 17-19, not in the sums).
 """
 
 from __future__ import annotations
@@ -737,6 +759,11 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
      "dlimgedit_tpu/ops/quant.py:75"),
 )
 QUANT_KERNELS = ("quantize_rows_int8", "int8_epilogue")
+# The kernels the Python-free route's serving library also launches from
+# C++ (phases 17-19, counted there and not in the sums).
+FROM_CPP = ("fused_layer_norm", "levit_window_attention",
+            "fused_add_layer_norm", "relpos_attention_global",
+            "relpos_attention_windowed", "greedy_nms", *QUANT_KERNELS)
 
 
 def fail(msg: str) -> None:
@@ -5825,6 +5852,313 @@ def drive_python_free_amg_birefnet(torch, np, dl, gpu_line) -> None:
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
 
+# Phases 17-19's int8 legs on the Python-free route: (phase, label,
+# variant, the exporter's int8 flags, P2 and P3 per `process`: one a
+# quantised linear, quant_linears' blocks x 4; w8 launches neither).
+INT8_SAM_LEGS = (
+    (17, "MobileSAM w8", "mobile_sam", ("--quantize",), 0),
+    (17, "MobileSAM w8a8", "mobile_sam", ("--quantize-activations",), 40),
+    (18, "ViT-H w8a8", "vit_h", ("--quantize-activations",), 128))
+# The quantised linears per `process` (s8 products or dequantised ones).
+INT8_LINEARS = {"mobile_sam": 40, "vit_h": 128}
+# The route's `process_ms` may be at most this many times the direct call's
+# (a row-major w_q8 sends cuBLASLt's int8 product to a path ~5x slower).
+INT8_ROUTE_SLOWDOWN = 1.5
+# The bf16 MobileSAM route's resident weights (phase 17; PERF.md §5), MiB.
+BF16_MOBILE_SAM_MIB = 28.29
+
+
+def serving_counts(ctypes, lib) -> tuple:
+    """The serving library's eight launch counters (K1..K5, P1, P2, P3),
+    then its two int8-linear counters (s8, dequantised)."""
+    for fn in (lib.dlimg_serving_launches, lib.dlimg_serving_int8_linears):
+        fn.argtypes = (ctypes.POINTER(ctypes.c_int64), ctypes.c_int)
+        fn.restype = None
+    k = (ctypes.c_int64 * 8)()
+    lib.dlimg_serving_launches(k, 8)
+    q = (ctypes.c_int64 * 2)()
+    lib.dlimg_serving_int8_linears(q, 2)
+    return tuple(k) + tuple(q)
+
+
+def held_weight_mib(ctypes, lib, np, bundle: Path, prefix: str = "") -> float:
+    """The serving library's resident weights in MiB; fails unless they are
+    the payload of the bundle's weight files named with `prefix` (those of
+    the programs that ran), each once."""
+    count, nbytes = ctypes.c_int64(), ctypes.c_int64()
+    lib.dlimg_serving_held_weights.argtypes = (
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64))
+    lib.dlimg_serving_held_weights.restype = None
+    lib.dlimg_serving_held_weights(ctypes.byref(count), ctypes.byref(nbytes))
+    files = list((bundle / "weights").glob(f"{prefix}*.npy"))
+    want = sum(np.load(f, mmap_mode="r").nbytes for f in files)
+    if (count.value, nbytes.value) != (len(files), want):
+        fail(f"the serving library holds {count.value} weights of "
+             f"{nbytes.value} bytes, the bundle stores {len(files)} of "
+             f"{want}")
+    return nbytes.value / 2**20
+
+
+def int8_counts(variant: str, per_process: int) -> tuple:
+    """The serving library's counters per int8 `process` of a variant:
+    K1..K5, P1, P2, P3 (P2 and P3 `per_process` each, 0 in w8), then the
+    s8 and the dequantised linears."""
+    base = (per_process_counts(32) if variant == "vit_h"
+            else (LN_PER_PROCESS, ATTN_PER_PROCESS, 0, 0, 0, 0))
+    n_lin = INT8_LINEARS[variant]
+    return base + ((per_process, per_process, n_lin, 0) if per_process
+                   else (0, 0, 0, n_lin))
+
+
+def drive_int8_sam_leg(torch, np, dl, gpu_line, phase, label, variant, flags,
+                       per_process) -> float:
+    """An int8 SAM leg of phases 17-18 (the module docstring's items 17 and
+    18): a bucket-1024 bundle of the variant exported with the int8 flags,
+    its masks through the C library byte for byte the direct call's on the
+    capture and on the replay, exact launches per `process`, `process_ms`
+    interleaved against the direct graphed call; -> the leg's seconds."""
+    import ctypes
+
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.tools import aot_export, serving_check
+
+    t0 = time.perf_counter()
+    b = native_build.build_serving()  # phase 17's build
+    lib = ctypes.CDLL(str(b.serving_library))
+    api = native_build.load_api(b.library)
+    opts = native_build.DlimgOptions(backend=1, model_directory=b".")
+    saved = {k: os.environ.get(k) for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE")}
+    want = int8_counts(variant, per_process)
+    tag = f"phase {phase} {label}"
+    handle = None
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = Path(tmp) / "bundle"
+        try:
+            env = aot_export.export_serving(aot_export.parse_args(
+                ["--out", str(bundle), "--backend", "gpu", "--variant",
+                 variant, "--buckets", "1024", *flags]))
+            (w, h), _ = serving_check.image_sizes(1024)
+            arr = np.random.default_rng(phase).integers(
+                0, 256, (h, w, 4), dtype=np.uint8)
+            img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr.copy())
+            direct = dl.Segmentation.process(img, env)
+            prompts = serving_check.prompts_for(w, h, 3, 1, seed=phase)
+            golden = [direct.compute_mask(p).pixels.tobytes() for p in prompts]
+            three = direct.compute_masks(prompts[0])
+            batch = direct.compute_mask_batch(prompts)
+            t_export = time.perf_counter() - t0
+
+            os.environ["DLIMG_PJRT_BUNDLE"] = str(bundle)
+            served = ctypes.c_void_p()
+            if api.create_environment(ctypes.byref(served),
+                                      ctypes.byref(opts)):
+                fail(f"{tag} create_environment: {api.last_error().decode()}")
+            handle = served
+            buf, stride = c_pixels(ctypes, np, arr, 0)
+            view = native_build.DlimgImageView(
+                width=w, height=h, channels=4, stride=stride,
+                pixels=ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            n = len(prompts)
+            outs, addrs = c_masks(ctypes, n, w * h)
+            slots = (u8p * n)(*[ctypes.cast(a, u8p) for a in addrs])
+            acc = (ctypes.c_float * n)()
+
+            def c_process():
+                s_ = ctypes.c_void_p()
+                if api.process_image_for_segmentation(
+                        ctypes.byref(s_), ctypes.byref(view), served):
+                    fail(f"{tag} process: {api.last_error().decode()}")
+                return s_
+
+            lib.dlimg_serving_reset_launches()
+            for rnd in ("capture", "replay"):
+                before = serving_counts(ctypes, lib)
+                seg = c_process()
+                got = tuple(a - b_ for a, b_ in
+                            zip(serving_counts(ctypes, lib), before))
+                if got != want:
+                    fail(f"{tag} ({rnd}): the serving library counted "
+                         f"K1..K5, P1, P2, P3, s8, dequantised {got} a "
+                         f"process, want {want}")
+                differ = 0
+                for i, p in enumerate(prompts):
+                    pt = (ctypes.c_int * 2)(p.x, p.y) \
+                        if isinstance(p, dl.Point) else None
+                    rg = None if pt else (ctypes.c_int * 4)(
+                        p.top_left.x, p.top_left.y, p.bottom_right.x,
+                        p.bottom_right.y)
+                    one = (u8p * 3)(slots[0], None, None)
+                    if api.get_segmentation_mask(seg, pt, rg, one, None):
+                        fail(f"{tag} compute_mask: "
+                             f"{api.last_error().decode()}")
+                    differ += bytes(outs[0]) != golden[i]
+                p0 = prompts[0]
+                if api.get_segmentation_mask(
+                        seg, (ctypes.c_int * 2)(p0.x, p0.y), None,
+                        (u8p * 3)(*slots[:3]), acc):
+                    fail(f"{tag} compute_masks: {api.last_error().decode()}")
+                differ += sum(bytes(outs[t]) != m.image.pixels.tobytes()
+                              or acc[t] != np.float32(m.accuracy)
+                              for t, m in enumerate(three))
+                flat = [v for p in prompts for v in (
+                    (p.x, p.y, 0, 0) if isinstance(p, dl.Point) else
+                    (p.top_left.x, p.top_left.y, p.bottom_right.x,
+                     p.bottom_right.y))]
+                if api.compute_mask_batch(
+                        seg, (ctypes.c_int * (4 * n))(*flat),
+                        (ctypes.c_int * n)(*[int(not isinstance(p, dl.Point))
+                                             for p in prompts]),
+                        n, slots, acc):
+                    fail(f"{tag} compute_mask_batch: "
+                         f"{api.last_error().decode()}")
+                differ += sum(bytes(outs[i]) != m.image.pixels.tobytes()
+                              or acc[i] != np.float32(m.accuracy)
+                              for i, m in enumerate(batch))
+                if differ:
+                    fail(f"{tag} ({rnd}): {differ} of {2 * n + 3} masks "
+                         f"through the route differ from the direct call's")
+                api.destroy_segmentation(seg)
+            report = ctypes.create_string_buffer(1 << 16)
+            held = lib.dlimg_serving_check_replays(report, len(report))
+            if held < 3:
+                fail(f"{tag}: graphs held against their eager runs: {held}: "
+                     f"{report.value.decode()}")
+            mib = held_weight_mib(ctypes, lib, np, bundle)
+            lib.dlimg_serving_reset_launches()
+            process_ms = interleaved_ms(torch, [
+                lambda: api.destroy_segmentation(c_process()),
+                lambda: dl.Segmentation.process(img, env)])
+            k = serving_counts(ctypes, lib)
+            if k != tuple(21 * v for v in want):
+                fail(f"{tag}: the serving library counted {k} over its "
+                     f"route's 21 process calls, want 21 x {want}")
+            if process_ms[0] > INT8_ROUTE_SLOWDOWN * process_ms[1]:
+                fail(f"{tag}: process_ms through the route {process_ms[0]:.3f}"
+                     f" is over {INT8_ROUTE_SLOWDOWN}x the direct call's "
+                     f"{process_ms[1]:.3f}")
+            print(f"e2e Python-free serving {label} {w}x{h} on {gpu_line}: "
+                  f"process_ms serving={process_ms[0]:.3f} direct="
+                  f"{process_ms[1]:.3f} (medians of 20, interleaved in this "
+                  f"interpreter); every mask and accuracy the direct call's "
+                  f"on the capture and on the replay ({2 * n + 3} a round), "
+                  f"{held} graphs equal to eager; per process K1..K5, P1, "
+                  f"P2, P3 {want[:8]}, s8 {want[8]}, dequantised {want[9]}; "
+                  f"resident weights {mib:.2f} MiB (bf16 MobileSAM "
+                  f"{BF16_MOBILE_SAM_MIB} MiB); export and goldens "
+                  f"{t_export:.1f} s", flush=True)
+            del direct, env
+        finally:
+            if handle is not None:
+                api.destroy_environment(handle)
+            restore_vars(saved)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"{tag}: {seconds:.1f} s", flush=True)
+    return seconds
+
+
+def drive_int8_birefnet_leg(torch, np, dl, gpu_line) -> float:
+    """Phase 19's int8 leg (the module docstring's item 19): BiRefNet_lite
+    `general` 1024 exported with `--int8-deform`, `segment_objects` of a
+    1024x768 image through the C library on the capture and on the
+    replay, each within one grey level of the direct call's, no kernel
+    launched; `birefnet_ms` interleaved; -> the leg's seconds."""
+    import ctypes
+
+    from dlimgedit_tpu_torch import native_build
+    from dlimgedit_tpu_torch.models.birefnet import seed_nonzero_init
+    from dlimgedit_tpu_torch.tools import aot_export
+
+    t0 = time.perf_counter()
+    b = native_build.build_serving()  # phase 17's build
+    lib = ctypes.CDLL(str(b.serving_library))
+    api = native_build.load_api(b.library)
+    opts = native_build.DlimgOptions(backend=1, model_directory=b".")
+    saved = {k: os.environ.get(k) for k in (*BRIDGE_VARS, "DLIMG_PJRT_BUNDLE")}
+    for var in ("DLIMG_BIREFNET_TEST_SLIM", "DLIMG_BIREFNET_RESOLUTION"):
+        os.environ.pop(var, None)
+    tag = "phase 19 BiRefNet_lite deform8"
+    handle = None
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = Path(tmp) / "bundle"
+        try:
+            args = aot_export.parse_args(
+                ["--out", str(bundle), "--backend", "gpu", "--buckets",
+                 "1024", "--birefnet", "general:1024", "--int8-deform"])
+            env = aot_export.make_environment(args)
+            bb = env.birefnet_model("general")
+            if not bb.cfg.deform_int8_gather:
+                fail(f"{tag}: the environment's BiRefNet gathers in float")
+            seed_nonzero_init(bb.model)
+            aot_export.export_serving(args, env=env)
+            w, h = 1024, 768
+            px = np.random.default_rng(19).integers(0, 256, (h, w, 3),
+                                                    dtype=np.uint8)
+            img = dl.Image(dl.Extent(w, h), dl.Channels.rgb, px.copy())
+            want = dl.segment_objects(img, env).pixels.reshape(-1)
+            t_export = time.perf_counter() - t0
+
+            os.environ["DLIMG_PJRT_BUNDLE"] = str(bundle)
+            served = ctypes.c_void_p()
+            if api.create_environment(ctypes.byref(served),
+                                      ctypes.byref(opts)):
+                fail(f"{tag} create_environment: {api.last_error().decode()}")
+            handle = served
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            buf, stride = c_pixels(ctypes, np, px, 0)
+            view = native_build.DlimgImageView(
+                width=w, height=h, channels=3, stride=stride,
+                pixels=ctypes.cast(buf, u8p))
+            out, addrs = c_masks(ctypes, 1, w * h)
+
+            def c_segment():
+                if api.segment_objects(ctypes.byref(view),
+                                       ctypes.cast(addrs[0], u8p), served):
+                    fail(f"{tag} segment_objects: "
+                         f"{api.last_error().decode()}")
+
+            lib.dlimg_serving_reset_launches()
+            worst = []
+            for rnd in ("capture", "replay"):
+                c_segment()
+                got = np.frombuffer(out[0], np.uint8)
+                worst.append(int(np.abs(got.astype(int)
+                                        - want.astype(int)).max()))
+                if worst[-1] > 1:
+                    fail(f"{tag} ({rnd}): the mask through the route differs "
+                         f"by {worst[-1]} from the direct call's")
+            k = serving_counts(ctypes, lib)
+            if any(k):
+                fail(f"{tag}: the serving library counted {k} over two "
+                     f"segment_objects (BiRefNet runs no kernel of the port)")
+            report = ctypes.create_string_buffer(1 << 16)
+            held = lib.dlimg_serving_check_replays(report, len(report))
+            if held < 1:
+                fail(f"{tag}: graphs held against their eager runs: {held}: "
+                     f"{report.value.decode()}")
+            mib = held_weight_mib(ctypes, lib, np, bundle, "birefnet.general.")
+            biref_ms = interleaved_ms(torch, [
+                c_segment, lambda: dl.segment_objects(img, env)], n=5)
+            print(f"e2e Python-free serving segment_objects BiRefNet_lite "
+                  f"deform8 {w}x{h} on {gpu_line}: birefnet_ms serving="
+                  f"{biref_ms[0]:.3f} direct={biref_ms[1]:.3f} (medians of "
+                  f"5, interleaved in this interpreter); final mask within "
+                  f"{worst[0]} / {worst[1]} quanta of the direct call's on "
+                  f"the capture / replay, {held} graph equal to eager; "
+                  f"resident weights {mib:.2f} MiB; export and golden "
+                  f"{t_export:.1f} s", flush=True)
+            del env
+        finally:
+            if handle is not None:
+                api.destroy_environment(handle)
+            restore_vars(saved)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"{tag}: {seconds:.1f} s", flush=True)
+    return seconds
+
+
 def seeded_birefnet(bn, torch, cfg):
     model = bn.init_birefnet(torch.Generator().manual_seed(0), cfg)
     bn.seed_nonzero_init(model)
@@ -6093,12 +6427,18 @@ def main() -> int:
 
     # -- 17. the Python-free serving route ---------------------------------
     drive_python_free(torch, np, dl, gpu_line)
+    int8_s = 0.0
+    for leg in INT8_SAM_LEGS[:2]:
+        int8_s += drive_int8_sam_leg(torch, np, dl, gpu_line, *leg)
 
     # -- 18. the SAM ViTs and the batch programs on that route -------------
     drive_python_free_vits(torch, np, dl, gpu_line)
+    int8_s += drive_int8_sam_leg(torch, np, dl, gpu_line, *INT8_SAM_LEGS[2])
 
     # -- 19. generate_masks and segment_objects on that route --------------
     drive_python_free_amg_birefnet(torch, np, dl, gpu_line)
+    int8_s += drive_int8_birefnet_leg(torch, np, dl, gpu_line)
+    print(f"phases 17-19's int8 legs: {int8_s:.1f} s", flush=True)
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -6114,7 +6454,8 @@ def main() -> int:
             "plain_ms": e["plain_ms"],
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
-            "library_ms": e["library_ms"]})
+            "library_ms": e["library_ms"],
+            "also_from_cpp": name in FROM_CPP})
     print(f"chip_smoke: phases 1-19 in {time.perf_counter() - run_t0:.1f} s "
           f"on {gpu_line}", flush=True)
     print(gpu_line)

@@ -11,12 +11,13 @@
 #include <sstream>
 #include <stdexcept>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace dlimg_bundle {
 
 // tools/aot_export.py FORMAT.
-constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-4";
+constexpr char kFormat[] = "dlimgedit_tpu_torch-serving-5";
 constexpr char kExporter[] =
     "python -m dlimgedit_tpu_torch.tools.aot_export --program serving";
 
@@ -63,7 +64,63 @@ struct Index {
   std::vector<int> birefnet_aspp_kernel_sizes;
   std::string birefnet_mul_scl_ipt;  // "cat" | "none"
   int birefnet_cxt_num = -1;
+  // The quant row (JAX's spelling: w8, a8, deform8, comma-separated):
+  // int8 encoder weights (Options.quantize_encoder), int8 activations
+  // too (quantize_activations; needs w8), BiRefNet's int8 corner stack
+  // (birefnet_int8_deform).
+  bool w8 = false;
+  bool a8 = false;
+  bool deform8 = false;
 };
+
+// The quant row's modes, as JAX's exporter spells the row; "none" when
+// the bundle has none.
+inline std::string quant_modes(const Index& idx) {
+  std::string out;
+  for (auto [on, name] : {std::pair<bool, const char*>{idx.w8, "w8"},
+                          {idx.a8, "a8"},
+                          {idx.deform8, "deform8"}})
+    if (on) out += (out.empty() ? "" : ",") + std::string(name);
+  return out.empty() ? "none" : out;
+}
+
+// serving.txt's quant row against the weight rows (state_dict name, rank)
+// of an embed program: with w8 every 2-D weight of a linear that
+// ops/quant.py quantize_encoder makes int8 (its last name segment in
+// QUANT_KEYS) is int8, w_q8 with a8 and w_q without; with no w8 none is.
+// -> "" when they agree, else what the weights hold.
+inline std::string quant_mismatch(
+    const Index& ix,
+    const std::vector<std::pair<std::string, size_t>>& weights) {
+  static const char* const kQuantKeys[] = {"qkv", "proj", "fc1",
+                                           "fc2", "lin1", "lin2"};
+  auto ends = [](const std::string& s, const std::string& suffix) {
+    return s.size() > suffix.size() &&
+           s.compare(s.size() - suffix.size(), suffix.size(), suffix) == 0;
+  };
+  int n_q = 0, n_q8 = 0, n_float = 0;
+  for (const auto& [name, rank] : weights) {
+    if (ends(name, ".w_q8")) {
+      ++n_q8;
+    } else if (ends(name, ".w_q")) {
+      ++n_q;
+    } else if (ends(name, ".w") && rank == 2) {
+      const std::string mod = name.substr(0, name.size() - 2);
+      const std::string last = mod.substr(mod.rfind('.') + 1);
+      for (const char* key : kQuantKeys) n_float += last == key;
+    }
+  }
+  const bool ok = ix.a8   ? n_q8 > 0 && n_q == 0 && n_float == 0
+                  : ix.w8 ? n_q > 0 && n_q8 == 0 && n_float == 0
+                          : n_q == 0 && n_q8 == 0;
+  if (ok) return "";
+  return "serving.txt's quant row (" + quant_modes(ix) +
+         ") does not match the weights: " + std::to_string(n_q8) +
+         " w_q8, " + std::to_string(n_q) + " w_q and " +
+         std::to_string(n_float) +
+         " float weights of the int8 linears (qkv, proj, fc1, fc2, lin1, "
+         "lin2)";
+}
 
 // runtime/amg.py _prenms_pool: the pre-NMS pool of a grid of G points (3G
 // candidates), at least 3/4 of them, floored at 256 and at 4x the winners.
@@ -107,8 +164,9 @@ inline bool flag(const std::string& val) {
 
 // Reads dir/serving.txt into *out. -> "" for a bundle of the port's
 // exporter, else why `dir` is none: a JAX bundle, another format (an
-// older export), a malformed or missing row, or a gpu bundle with the
-// encoder's kernel route off.
+// older export), a malformed or missing row, a quant row with an unknown
+// mode or a8 without w8, or a gpu bundle with the encoder's kernel route
+// off.
 inline std::string read_index(const std::string& dir, Index* out) {
   const std::string where = "DLIMG_PJRT_BUNDLE=" + dir;
   const std::string write = ": write the port's bundle with " +
@@ -121,6 +179,7 @@ inline std::string read_index(const std::string& dir, Index* out) {
   if (!f) return where + " holds no serving.txt" + write;
   Index idx;
   std::string line, format, quant;
+  bool has_quant = false;
   try {
     while (std::getline(f, line)) {
       auto t = line.find('\t');
@@ -129,7 +188,10 @@ inline std::string read_index(const std::string& dir, Index* out) {
       while (!val.empty() && (val.back() == '\r' || val.back() == ' '))
         val.pop_back();
       if (key == "format") format = val;
-      else if (key == "quant") quant = val;
+      else if (key == "quant") {
+        quant = val;
+        has_quant = true;
+      }
       else if (key == "variant") idx.variant = val;
       else if (key == "backend") idx.backend = val;
       else if (key == "compute_dtype") idx.compute_dtype = val;
@@ -184,10 +246,25 @@ inline std::string read_index(const std::string& dir, Index* out) {
     return where + ": serving.txt names the bundle format '" + format +
            "', not the port's " + std::string(kFormat) +
            " (an older export is not read)" + write;
-  if (!quant.empty())
-    return where + ": serving.txt names int8 programs (quant " + quant +
-           "): the int8 encoders through the Python-free route are a later "
-           "slice, ROADMAP A8 (5)" + write;
+  if (has_quant) {
+    std::stringstream qs(quant);
+    std::string mode;
+    bool any = false;
+    while (std::getline(qs, mode, ',')) {
+      any = true;
+      if (mode == "w8") idx.w8 = true;
+      else if (mode == "a8") idx.a8 = true;
+      else if (mode == "deform8") idx.deform8 = true;
+      else
+        return where + ": serving.txt's quant row names an unknown mode '" +
+               mode + "' (the modes are w8, a8, deform8)" + write;
+    }
+    if (!any)
+      return where + ": serving.txt's quant row names no mode" + write;
+    if (idx.a8 && !idx.w8)
+      return where + ": serving.txt's quant row names a8 without w8 (int8 "
+                     "activations run on int8 weights)" + write;
+  }
   if (idx.buckets.empty() || idx.variant.empty() || idx.backend.empty())
     return where + ": serving.txt has no variant, backend or buckets" + write;
   if (idx.encoder != "tinyvit" && idx.encoder != "vit")

@@ -28,7 +28,9 @@
 // compute_mask_batch of the bundle's variant (MobileSAM or a SAM ViT;
 // compute_mask_batch through the bundle's batch programs where it has
 // them), generate_masks (its serve_amg programs, --amg) and
-// segment_objects (its BiRefNet programs, --birefnet) run through the
+// segment_objects (its BiRefNet programs, --birefnet), with the encoders
+// and BiRefNet's gathers in int8 where the bundle's quant row says so
+// (--quantize, --quantize-activations, --int8-deform), run through the
 // port's serving library,
 // libdlimgedit_tpu_torch_serving.so (torch_backend.hpp: C++ on libtorch,
 // CUDA graphs and the port's kernels on cuda:0), which this library

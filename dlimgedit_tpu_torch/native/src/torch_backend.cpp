@@ -142,33 +142,39 @@ Tensor tensor_from_npy(const dlimg_npy::Npy& npy) {
       .clone();
 }
 
-// Launches of K1, K2, K3, K4, K5 and P1, in that order
-// (torch_programs.cpp's counters).
-constexpr int kKernels = 6;
-std::atomic<int64_t>* const kCounters[kKernels] = {
-    &g_layer_norm_launches, &g_levit_attention_launches,
+// torch_programs.cpp's counters: the launches of K1, K2, K3, K4, K5, P1,
+// P2 and P3, in that order (dlimg_serving_launches), then the int8
+// linears the dispatch took, s8 x s8 and dequantised
+// (dlimg_serving_int8_linears). A capture takes back what it counted and
+// each replay adds it again, for every counter.
+constexpr int kKernels = 8;
+constexpr int kCounted = kKernels + 2;
+std::atomic<int64_t>* const kCounters[kCounted] = {
+    &g_layer_norm_launches,     &g_levit_attention_launches,
     &g_add_layer_norm_launches, &g_relpos_global_launches,
-    &g_relpos_windowed_launches, &g_greedy_nms_launches};
+    &g_relpos_windowed_launches, &g_greedy_nms_launches,
+    &g_quantize_rows_launches,  &g_int8_epilogue_launches,
+    &g_int8_products,           &g_dequantised_products};
 
 struct Launches {
-  int64_t n[kKernels] = {};
+  int64_t n[kCounted] = {};
 };
 
 Launches counted() {
   Launches l;
-  for (int i = 0; i < kKernels; ++i) l.n[i] = kCounters[i]->load();
+  for (int i = 0; i < kCounted; ++i) l.n[i] = kCounters[i]->load();
   return l;
 }
 
 // after - before
 Launches since(const Launches& before) {
   Launches d = counted();
-  for (int i = 0; i < kKernels; ++i) d.n[i] -= before.n[i];
+  for (int i = 0; i < kCounted; ++i) d.n[i] -= before.n[i];
   return d;
 }
 
 void add_launches(const Launches& d, int sign) {
-  for (int i = 0; i < kKernels; ++i) *kCounters[i] += sign * d.n[i];
+  for (int i = 0; i < kCounted; ++i) *kCounters[i] += sign * d.n[i];
 }
 
 // models/common.py full_precision: float32 products and convolutions at
@@ -329,6 +335,10 @@ void load_kernels(Backend* be) {
       entry("dlimg_relpos_attention_windowed"));
   k.greedy_nms = reinterpret_cast<Kernels::GreedyNms>(
       entry("dlimg_greedy_nms"));
+  k.quantize_rows_int8 = reinterpret_cast<Kernels::QuantizeRows>(
+      entry("dlimg_quantize_rows_int8"));
+  k.int8_epilogue = reinterpret_cast<Kernels::Int8Epilogue>(
+      entry("dlimg_int8_epilogue"));
 }
 
 // The calling thread's first n fork streams, made at their first use.
@@ -350,7 +360,9 @@ std::vector<void*> fork_streams(Backend* be, int64_t n) {
 }
 
 // Weight row `r` in be->weights: read from weights/<name>.npy to the
-// device at its first use, else checked against the spec.
+// device at its first use, else checked against the spec. A w_q8 weight
+// (in, out) is held as a view of column-major storage, as QuantLinear
+// holds it: cuBLASLt's fast int8 products take only that layout.
 void load_weight(Backend* be, const SpecRow& r) {
   auto held = be->weights.find(r.name);
   if (held != be->weights.end()) {
@@ -372,7 +384,15 @@ void load_weight(Backend* be, const SpecRow& r) {
     throw std::runtime_error(path + ": " + npy.dtype + " (" +
                              dims_str(npy.shape) + ") is not the spec's " +
                              r.dtype + " (" + dims_str(r.dims) + ")");
-  be->weights[r.name] = tensor_from_npy(npy).to(be->device);
+  Tensor t = tensor_from_npy(npy).to(be->device);
+  const std::string q8 = ".w_q8";
+  if (r.name.size() > q8.size() &&
+      r.name.compare(r.name.size() - q8.size(), q8.size(), q8) == 0) {
+    if (t.dim() != 2)
+      throw std::runtime_error(path + ": a w_q8 weight is (in, out)");
+    t = t.t().contiguous().t();
+  }
+  be->weights[r.name] = t;
 }
 
 // A ProgramConfig with the bundle's rows (serving.txt) and the device's.
@@ -418,6 +438,7 @@ std::string birefnet_config(Backend* be, Program* p, const std::string& spec) {
   b.aspp_kernel_sizes = ix.birefnet_aspp_kernel_sizes;
   b.mul_scl_ipt = ix.birefnet_mul_scl_ipt == "cat";
   b.cxt_num = ix.birefnet_cxt_num;
+  b.deform8 = ix.deform8;
   p->cfg.imagenet_mean = be->imagenet_mean;
   p->cfg.imagenet_std = be->imagenet_std;
   p->fn = birefnet_program;
@@ -445,6 +466,19 @@ void check_birefnet_rows(const dlimg_bundle::Index& ix, const Weights& w,
     throw std::runtime_error(name + ": the weights do not match serving.txt's "
                              "birefnet_embed_dim, _depths or "
                              "_decoder_channels");
+}
+
+// serving.txt's quant row against an embed program's weights
+// (bundle.hpp quant_mismatch): a bundle whose row and weights disagree is
+// refused.
+void check_quant_rows(const dlimg_bundle::Index& ix,
+                      const std::vector<SpecRow>& rows,
+                      const std::string& name) {
+  std::vector<std::pair<std::string, size_t>> weights;
+  for (const SpecRow& r : rows)
+    if (r.kind == "inw") weights.emplace_back(r.name, r.dims.size());
+  const std::string problem = dlimg_bundle::quant_mismatch(ix, weights);
+  if (!problem.empty()) throw std::runtime_error(name + ": " + problem);
 }
 
 // serve_<embed|decode|decode3|decode_batch<N>|amg>_<variant>_<bucket>, or
@@ -499,7 +533,10 @@ Program* get_program(Backend* be, const std::string& name) {
                                "serve_amg, serve_birefnet");
     }
   }
-  for (const SpecRow& r : read_spec(be->dir + "/" + name + ".spec.txt")) {
+  const std::vector<SpecRow> rows =
+      read_spec(be->dir + "/" + name + ".spec.txt");
+  if (p->fn == embed_program) check_quant_rows(be->index, rows, name);
+  for (const SpecRow& r : rows) {
     if (r.kind == "ind") {
       p->dynamic.push_back(r);
     } else if (r.kind == "inw") {
@@ -980,6 +1017,13 @@ void c_launches(int64_t* counts, int n) {
   for (int i = 0; i < n && i < dlimg_torch::kKernels; ++i) counts[i] = l.n[i];
 }
 
+void c_int8_linears(int64_t* counts, int n) {
+  dlimg_torch::Launches l = dlimg_torch::counted();
+  for (int i = 0; i < n && i < dlimg_torch::kCounted - dlimg_torch::kKernels;
+       ++i)
+    counts[i] = l.n[dlimg_torch::kKernels + i];
+}
+
 void c_reset_launches() {
   for (auto* c : dlimg_torch::kCounters) *c = 0;
 }
@@ -1062,6 +1106,25 @@ extern "C" __attribute__((visibility("default"))) void dlimg_serving_launches(
 extern "C" __attribute__((visibility("default"))) void
 dlimg_serving_reset_launches(void) {
   c_reset_launches();
+}
+
+extern "C" __attribute__((visibility("default"))) void
+dlimg_serving_int8_linears(int64_t* counts, int n) {
+  c_int8_linears(counts, n);
+}
+
+extern "C" __attribute__((visibility("default"))) void
+dlimg_serving_held_weights(int64_t* count, int64_t* bytes) {
+  int64_t n = 0, b = 0;
+  std::lock_guard<std::mutex> reg(dlimg_torch::g_registry_mu);
+  for (dlimg_torch::Backend* be : dlimg_torch::g_registry) {
+    int64_t bn = 0, bb = 0;
+    dlimg_torch::held_weights(be, &bn, &bb);
+    n += bn;
+    b += bb;
+  }
+  if (count) *count = n;
+  if (bytes) *bytes = b;
 }
 
 extern "C" __attribute__((visibility("default"))) int

@@ -17,9 +17,11 @@
 // Executable does (runtime/environment.py); the encoder's kernels (K1
 // fused LayerNorm and K2 TinyViT window attention for MobileSAM; K1, K3
 // add + LayerNorm, K4 global and K5 windowed rel-pos attention for a SAM
-// ViT) and automatic mask generation's P1 greedy box NMS are launched
-// through the port's kernel library, whose path the bundle names. A
-// BiRefNet program (segment_objects) is plain ATen. On the CPU the programs run eagerly and the kernels'
+// ViT; P2 quantize_rows_int8 and P3 int8_epilogue around each s8 x s8
+// product of an int8 (w8a8) encoder) and automatic mask generation's P1
+// greedy box NMS are launched through the port's kernel library, whose
+// path the bundle names. A BiRefNet program (segment_objects) is plain
+// ATen (with deform8 its deformable convs gather from an int8 stack). On the CPU the programs run eagerly and the kernels'
 // wrappers take their plain versions.
 //
 // One program runs at a time per backend, under its lock; host data a
@@ -129,8 +131,9 @@ typedef struct dlimg_serving_api {
   void (*release)(void* backend, void* buf);
   const char* (*last_error)(void);
   int (*cuda_available)(void);
-  // The launches of K1, K2, K3, K4, K5 and P1, in that order, made by
-  // this library's programs (the first n into counts), and their reset.
+  // The launches of K1, K2, K3, K4, K5, P1, P2 and P3, in that order,
+  // made by this library's programs (the first n into counts; a caller
+  // may ask for fewer), and their reset.
   void (*launches)(int64_t* counts, int n);
   void (*reset_launches)(void);
 } dlimg_serving_api;
@@ -139,15 +142,20 @@ typedef const dlimg_serving_api* (*dlimg_serving_init_fn)(void);
 
 // Exported by libdlimgedit_tpu_torch_serving.so.
 const dlimg_serving_api* dlimg_serving_init(void);
-// For test programs: the launches of K1, K2, K3, K4, K5 and P1 (the first
-// n into counts, in that order) made by this library's programs since the
-// process started or the last reset (a graph replay adds what its capture
-// counted), and the replay check: every captured graph of every live
-// backend replayed and its eager program run on the same static inputs,
-// the outputs compared byte for byte, a line per graph into `report`;
-// -> the number of graphs held, -1 on a difference.
+// For test programs: the launches of K1, K2, K3, K4, K5, P1, P2 and P3
+// (the first n into counts, in that order) made by this library's programs
+// since the process started or the last reset (a graph replay adds what
+// its capture counted); the int8 linears the dispatch took in the same
+// span, on any device (counts[0] s8 x s8 products, counts[1] dequantised
+// w8 products; the first n); the weights held on the devices of every live
+// backend (tensors, bytes); and the replay check: every captured graph of
+// every live backend replayed and its eager program run on the same static
+// inputs, the outputs compared byte for byte, a line per graph into
+// `report`; -> the number of graphs held, -1 on a difference.
 void dlimg_serving_launches(int64_t* counts, int n);
 void dlimg_serving_reset_launches(void);
+void dlimg_serving_int8_linears(int64_t* counts, int n);
+void dlimg_serving_held_weights(int64_t* count, int64_t* bytes);
 int dlimg_serving_check_replays(char* report, size_t report_size);
 
 }  // extern "C"

@@ -25,6 +25,10 @@ std::atomic<int64_t> g_add_layer_norm_launches{0};
 std::atomic<int64_t> g_relpos_global_launches{0};
 std::atomic<int64_t> g_relpos_windowed_launches{0};
 std::atomic<int64_t> g_greedy_nms_launches{0};
+std::atomic<int64_t> g_quantize_rows_launches{0};
+std::atomic<int64_t> g_int8_epilogue_launches{0};
+std::atomic<int64_t> g_int8_products{0};
+std::atomic<int64_t> g_dequantised_products{0};
 
 namespace {
 
@@ -42,6 +46,10 @@ constexpr int64_t kLevitMaxTokens = 256;
 // ops/flash_attention.py KERNEL_HEAD_DIMS, WINDOW_MAX_SIDE.
 constexpr int64_t kRelposHeadDims[] = {64, 80};
 constexpr int64_t kWindowMaxSide = 16;
+// ops/quant.py QUANT_ROW_WIDTHS (P2's instances), INT8_MM_MIN_ROWS.
+constexpr int64_t kQuantRowWidths[] = {128, 160, 320, 512, 640, 768,
+                                       1024, 1280, 3072, 4096, 5120};
+constexpr int64_t kInt8MmMinRows = 17;
 // An absent Optional[int] of the Python signatures.
 constexpr int64_t kNone = -1;
 
@@ -144,11 +152,181 @@ Tensor layer_norm(const Weights& w, const std::string& p, const Tensor& x,
   return layer_norm_plain(x, W(w, p + ".scale"), W(w, p + ".bias"), eps);
 }
 
-// linear: x @ w (+ b), the weight in x's dtype.
-Tensor linear(const Weights& w, const std::string& p, const Tensor& x) {
-  Tensor y = at::matmul(x, W(w, p + ".w").to(x.scalar_type()));
+// ---------------------------------------------------------------------------
+// ops/quant.py: the int8 linears. P2 quantize_rows_int8 and P3
+// int8_epilogue launch their kernels on a CUDA tensor and compute their
+// plain versions on a CPU tensor; the s8 x s8 product is at::_int_mm.
+// ---------------------------------------------------------------------------
+
+// _div127: t / 127 as one IEEE division per element (through a 0-d tensor:
+// a scalar divisor becomes a reciprocal product on CUDA).
+Tensor div127(const Tensor& t) {
+  return t / at::full(at::IntArrayRef{}, 127.0, on(t, t.scalar_type()));
+}
+
+// quantize_activations_int8, P2's plain version: x (..., C) -> (q int8
+// (..., C), scale float32 (..., 1)).
+std::pair<Tensor, Tensor> quantize_activations_int8(const Tensor& x) {
+  Tensor x32 = x.to(at::kFloat);
+  Tensor scale = div127(clamp_min(at::amax(at::abs(x32), {-1}, true), 1e-8));
+  Tensor q = at::clamp(at::round(x32 / scale),
+                       std::optional<at::Scalar>(int64_t(-127)),
+                       std::optional<at::Scalar>(int64_t(127)))
+                 .to(at::kChar);
+  return {q, scale};
+}
+
+// int8_epilogue_plain, P3's plain version: (acc * x_scale) * w_scale
+// rounded to dtype, then the bias added in dtype.
+Tensor int8_epilogue_plain(const Tensor& acc, const Tensor& x_scale,
+                           const Tensor& w_scale, const Tensor* b,
+                           at::ScalarType dtype) {
+  Tensor y = (acc.to(at::kFloat) * x_scale * w_scale.to(at::kFloat)).to(dtype);
+  if (b) y = y + b->to(dtype);
+  return y;
+}
+
+// _check_cuda
+void check_quant_kernel(const char* name, const std::vector<Tensor>& ts,
+                        at::ScalarType dtype) {
+  if (dtype_code(dtype) < 0)
+    fail(std::string(name) + ": the CUDA kernel takes float32 or bfloat16, "
+         "not " + c10::toString(dtype));
+  for (const Tensor& t : ts) {
+    if (t.device() != ts[0].device())
+      fail(std::string(name) + ": all inputs must share a device");
+    if (!t.is_contiguous())
+      fail(std::string(name) + ": inputs must be contiguous");
+  }
+}
+
+// quantize_rows_int8 (P2): x (M, C) -> (q int8 (M, C), scale float32 (M, 1)).
+std::pair<Tensor, Tensor> quantize_rows_int8(const Tensor& x,
+                                             const Kernels* kernels) {
+  if (x.is_cpu()) return quantize_activations_int8(x);
+  if (!x.is_cuda()) fail("quantize_rows_int8: unsupported device");
+  check_quant_kernel("quantize_rows_int8", {x}, x.scalar_type());
+  const int64_t C = x.size(-1);
+  bool width_ok = false;
+  for (int64_t c : kQuantRowWidths) width_ok |= c == C;
+  if (!width_ok)
+    fail("quantize_rows_int8: no CUDA kernel for width " + std::to_string(C));
+  if (kernels == nullptr || kernels->quantize_rows_int8 == nullptr)
+    fail("quantize_rows_int8: the kernel library is not loaded");
+  Tensor q = at::empty(x.sizes(), on(x, at::kChar));
+  std::vector<int64_t> sdims = x.sizes().vec();
+  sdims.back() = 1;
+  Tensor scale = at::empty(sdims, on(x, at::kFloat));
+  int rc = kernels->quantize_rows_int8(
+      x.data_ptr(), q.data_ptr(), scale.data_ptr(), int(x.numel() / C),
+      int(C), dtype_code(x.scalar_type()), current_stream());
+  if (rc != 0)
+    fail("CUDA kernel quantize_rows_int8 failed to launch: cudaError " +
+         std::to_string(rc));
+  ++g_quantize_rows_launches;
+  return {q, scale};
+}
+
+// int8_epilogue (P3): acc (M, N) int32, x_scale (M, 1), w_scale (N,)
+// float32, b (N,) or null -> y (M, N) in dtype.
+Tensor int8_epilogue(const Tensor& acc, const Tensor& x_scale,
+                     const Tensor& w_scale, const Tensor* b,
+                     at::ScalarType dtype, const Kernels* kernels) {
+  const int64_t M = acc.size(0), N = acc.size(1);
+  if (x_scale.sizes() != at::IntArrayRef{M, 1} ||
+      w_scale.sizes() != at::IntArrayRef{N})
+    fail("int8_epilogue: x_scale must be (" + std::to_string(M) +
+         ", 1) and w_scale (" + std::to_string(N) + ",)");
+  if (b && b->sizes() != at::IntArrayRef{N})
+    fail("int8_epilogue: b must be (" + std::to_string(N) + ",)");
+  if (acc.is_cpu()) return int8_epilogue_plain(acc, x_scale, w_scale, b, dtype);
+  if (!acc.is_cuda()) fail("int8_epilogue: unsupported device");
+  Tensor bias = b ? b->to(dtype) : Tensor();
+  std::vector<Tensor> ts{acc, x_scale, w_scale};
+  if (b) ts.push_back(bias);
+  check_quant_kernel("int8_epilogue", ts, dtype);
+  if (acc.scalar_type() != at::kInt || x_scale.scalar_type() != at::kFloat ||
+      w_scale.scalar_type() != at::kFloat)
+    fail("int8_epilogue: acc must be int32, x_scale and w_scale float32");
+  if (N % 4 || reinterpret_cast<uintptr_t>(acc.data_ptr()) % 16)
+    fail("int8_epilogue: N (" + std::to_string(N) + ") must be a multiple of "
+         "4 and acc 16-byte aligned");
+  if (kernels == nullptr || kernels->int8_epilogue == nullptr)
+    fail("int8_epilogue: the kernel library is not loaded");
+  Tensor y = at::empty({M, N}, on(acc, dtype));
+  int rc = kernels->int8_epilogue(acc.data_ptr(), x_scale.data_ptr(),
+                                  w_scale.data_ptr(),
+                                  b ? bias.data_ptr() : nullptr, y.data_ptr(),
+                                  int(M), int(N), dtype_code(dtype),
+                                  current_stream());
+  if (rc != 0)
+    fail("CUDA kernel int8_epilogue failed to launch: cudaError " +
+         std::to_string(rc));
+  ++g_int8_epilogue_launches;
+  return y;
+}
+
+// pad_rows: q (M, K) with zero rows appended up to `rows`.
+Tensor pad_rows(const Tensor& q, int64_t rows = kInt8MmMinRows) {
+  const int64_t M = q.size(0);
+  if (M >= rows) return q;
+  return at::cat({q, at::zeros({rows - M, q.size(1)}, q.options())});
+}
+
+// int8_mm: (M, K) int8 x (K, N) int8 -> (M, N) int32, exact; on the card
+// cuBLASLt takes M > 16 (fewer rows are padded and sliced back) and K, N
+// multiples of 8 (another shape raises: no float product in its place).
+Tensor int8_mm(const Tensor& q, const Tensor& w_q8) {
+  const int64_t M = q.size(0), K = q.size(1), N = w_q8.size(1);
+  if (!q.is_cuda()) return at::_int_mm(q, w_q8);
+  if (K % 8 || N % 8)
+    fail("int8_mm: the CUDA int8 product needs K and N multiples of 8, got (" +
+         std::to_string(M) + ", " + std::to_string(K) + ") x (" +
+         std::to_string(K) + ", " + std::to_string(N) + ")");
+  return at::_int_mm(pad_rows(q), w_q8).slice(0, 0, M);
+}
+
+// int8_linear: y = (q_x @ w_q8) * x_scale * w_scale + b in x's dtype.
+Tensor int8_linear(const Weights& w, const std::string& p, const Tensor& x,
+                   const Kernels* kernels) {
+  const int64_t C = x.size(-1);
+  auto [q, x_scale] = quantize_rows_int8(x.reshape({-1, C}).contiguous(),
+                                         kernels);
+  Tensor acc = int8_mm(q, W(w, p + ".w_q8"));
+  const std::string b = p + ".b";
+  Tensor y = int8_epilogue(acc, x_scale, W(w, p + ".w_scale"),
+                           has(w, b) ? &W(w, b) : nullptr, x.scalar_type(),
+                           kernels);
+  ++g_int8_products;
+  std::vector<int64_t> dims = x.sizes().vec();
+  dims.back() = y.size(-1);
+  return y.reshape(dims);
+}
+
+// models/common.py linear: x @ w (+ b), dispatched on what the weights
+// hold: w_q8 runs int8_linear (its kernels from `kernels` on a CUDA
+// tensor), w_q is dequantised per call in float32 and rounded once to x's
+// dtype, w is used in x's dtype.
+Tensor linear(const Weights& w, const std::string& p, const Tensor& x,
+              const Kernels* kernels = nullptr) {
+  if (has(w, p + ".w_q8")) return int8_linear(w, p, x, kernels);
+  Tensor wt;
+  if (has(w, p + ".w_q")) {
+    wt = (W(w, p + ".w_q").to(at::kFloat) *
+          W(w, p + ".w_scale").to(at::kFloat))
+             .to(x.scalar_type());
+    ++g_dequantised_products;
+  } else {
+    wt = W(w, p + ".w").to(x.scalar_type());
+  }
+  Tensor y = at::matmul(x, wt);
   if (has(w, p + ".b")) y = y + W(w, p + ".b").to(x.scalar_type());
   return y;
+}
+
+// Whether the weights hold a linear at p, float or int8.
+bool has_linear(const Weights& w, const std::string& p) {
+  return has(w, p + ".w") || has(w, p + ".w_q") || has(w, p + ".w_q8");
 }
 
 // ---------------------------------------------------------------------------
@@ -515,14 +693,14 @@ Tensor tv_ln(const Weights& w, const std::string& p, const Tensor& x,
 Tensor tv_attention(const Weights& w, const std::string& p, Tensor x,
                     const ProgramConfig& c) {
   x = tv_ln(w, p + ".norm", x, c);
-  Tensor qkv = linear(w, p + ".qkv", x);
+  Tensor qkv = linear(w, p + ".qkv", x, c.kernels);
   const Tensor& biases = W(w, p + ".attention_biases");
   Tensor bias = biases.index({Slice(), W(w, p + ".bias_idxs")});
   Tensor out =
       c.kernel_route
           ? levit_window_attention(qkv, bias, biases.size(0), c.kernels)
           : levit_window_attention_plain(qkv, bias, biases.size(0));
-  return linear(w, p + ".proj", out);
+  return linear(w, p + ".proj", out, c.kernels);
 }
 
 Tensor tv_mbconv(const Weights& w, const std::string& p, Tensor x) {
@@ -543,8 +721,8 @@ Tensor tv_patch_merging(const Weights& w, const std::string& p, Tensor x,
 Tensor tv_mlp_ln(const Weights& w, const std::string& p, const Tensor& x,
                  const ProgramConfig& c) {
   Tensor y = tv_ln(w, p + ".norm", x, c);
-  y = gelu_(linear(w, p + ".fc1", y));
-  return linear(w, p + ".fc2", y);
+  y = gelu_(linear(w, p + ".fc1", y, c.kernels));
+  return linear(w, p + ".fc2", y, c.kernels);
 }
 
 // Block.forward, with attend's window partition (_window_partition /
@@ -607,7 +785,8 @@ Tensor tinyvit(const Weights& w, Tensor x, const ProgramConfig& c) {
   x = conv_bn(w, "encoder.patch_embed.conv2", x, 2, 1);
   for (int i = 0;; ++i) {
     const std::string s = "encoder.stages." + std::to_string(i);
-    if (!has(w, s + ".blocks.0." + (i == 0 ? "conv1.w" : "attn.qkv.w")))
+    if (i == 0 ? !has(w, s + ".blocks.0.conv1.w")
+               : !has_linear(w, s + ".blocks.0.attn.qkv"))
       break;
     for (int j = 0;; ++j) {
       const std::string b = s + ".blocks." + std::to_string(j);
@@ -615,7 +794,7 @@ Tensor tinyvit(const Weights& w, Tensor x, const ProgramConfig& c) {
         if (!has(w, b + ".conv1.w")) break;
         x = tv_mbconv(w, b, x);
       } else {
-        if (!has(w, b + ".attn.qkv.w")) break;
+        if (!has_linear(w, b + ".attn.qkv")) break;
         x = tv_block(w, b, x, c);
       }
     }
@@ -673,7 +852,7 @@ Tensor vit_attention(const Weights& w, const std::string& p, const Tensor& x,
   const int64_t Bn = x.size(0), h = x.size(1), wd = x.size(2), C = x.size(3);
   const int64_t nh = c.num_heads, hd = C / nh;
   const bool rel = has(w, p + ".rel_pos_h");
-  Tensor qkv = linear(w, p + ".qkv", x.reshape({Bn, h * wd, C}));
+  Tensor qkv = linear(w, p + ".qkv", x.reshape({Bn, h * wd, C}), c.kernels);
   qkv = qkv.reshape({Bn, h * wd, 3, nh, hd}).permute({2, 0, 3, 1, 4});
   Tensor q = qkv.select(0, 0), k = qkv.select(0, 1), v = qkv.select(0, 2);
   Tensor out;
@@ -699,7 +878,7 @@ Tensor vit_attention(const Weights& w, const std::string& p, const Tensor& x,
   }
   out = out.permute({0, 2, 1, 3}).reshape({Bn, h, wd, C});
   if (!apply_proj) return out;
-  return linear(w, p + ".proj", out);
+  return linear(w, p + ".proj", out, c.kernels);
 }
 
 // _vit_attn_branch on the normed x: a global block whole, a windowed one
@@ -718,7 +897,7 @@ Tensor vit_attn_branch(const Weights& w, const std::string& p,
                      skip_ok ? window - meta.pad_b : kNone);
   Tensor y = window_unpartition(wx.reshape({-1, window * window, C}), window,
                                 meta, H, Wd, C);
-  return linear(w, p + ".proj", y);
+  return linear(w, p + ".proj", y, c.kernels);
 }
 
 // _layer_norm / _add_layer_norm: K1 / K3 on the kernel route.
@@ -763,7 +942,8 @@ std::pair<Tensor, Tensor> vit_block_carry(const Weights& w,
   Tensor a = vit_attn_branch(w, p, y1, c, window);
   auto [h, y2] = vit_add_layer_norm(w, p + ".norm2", x, a, c);
   Tensor m = linear(w, p + ".mlp.lin2",
-                    gelu_(linear(w, p + ".mlp.lin1", y2)));
+                    gelu_(linear(w, p + ".mlp.lin1", y2, c.kernels)),
+                    c.kernels);
   return {h, m};
 }
 
@@ -777,7 +957,7 @@ Tensor sam_vit(const Weights& w, Tensor x, const ProgramConfig& c) {
   Tensor delta;
   for (int i = 0;; ++i) {
     const std::string b = "encoder.blocks." + std::to_string(i);
-    if (!has(w, b + ".qkv.w")) break;
+    if (!has_linear(w, b + ".qkv")) break;
     const bool global =
         std::find(c.global_attn_indexes.begin(), c.global_attn_indexes.end(),
                   i) != c.global_attn_indexes.end();
@@ -1454,11 +1634,13 @@ std::vector<Tensor> swin_apply(const Weights& w, Tensor x,
 struct CornerStack {
   Tensor stack;  // (B, (H+2) * (W+2), 4C)
   int64_t H, W, Ws;
+  Tensor scale;  // an int8 stack's 0-d float32 scale, else undefined
 };
 
 // _corner_stack: x padded (1 top / left, 2 bottom / right) and its four
-// 2x2-corner shifts concatenated on channels.
-CornerStack corner_stack(const Tensor& x) {
+// 2x2-corner shifts concatenated on channels; int8 quantises the stack
+// symmetrically, scale = max|x| / 127 on the device.
+CornerStack corner_stack(const Tensor& x, bool int8) {
   const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
   using at::indexing::None;
   Tensor xp = at::pad(x, {0, 0, 1, 2, 1, 2});
@@ -1467,10 +1649,20 @@ CornerStack corner_stack(const Tensor& x) {
                           xp.index({Slice(), Slice(1), Slice(None, -1)}),
                           xp.index({Slice(), Slice(1), Slice(1)})},
                          -1);
-  return {stack.reshape({B, (H + 2) * (Wd + 2), 4 * C}), H, Wd, Wd + 2};
+  stack = stack.reshape({B, (H + 2) * (Wd + 2), 4 * C});
+  Tensor scale;
+  if (int8) {
+    Tensor absmax = at::amax(at::abs(x.to(at::kFloat)));
+    scale = clamp_min(absmax, 1e-12) / 127.0;
+    stack = at::clamp(at::round(stack.to(at::kFloat) / scale),
+                      std::optional<at::Scalar>(int64_t(-127)),
+                      std::optional<at::Scalar>(int64_t(127)))
+                .to(at::kChar);
+  }
+  return {stack, H, Wd, Wd + 2, scale};
 }
 
-// _bilinear_sample_stacked (float32 stack)
+// _bilinear_sample_stacked: an int8 stack is dequantised after the gather.
 Tensor bilinear_sample_stacked(const CornerStack& cs, const Tensor& py,
                                const Tensor& px, int64_t C,
                                at::ScalarType dtype) {
@@ -1493,6 +1685,7 @@ Tensor bilinear_sample_stacked(const CornerStack& cs, const Tensor& py,
   Tensor v4 = cs.stack.reshape({B * rows, 4 * C})
                   .index_select(0, idx.reshape({-1}))
                   .reshape({B, oh, ow, 4, C});
+  if (cs.scale.defined()) v4 = v4.to(at::kFloat) * cs.scale;
   Tensor w00 = at::rsub(wy, 1) * at::rsub(wx, 1);
   Tensor w01 = at::rsub(wy, 1) * wx;
   Tensor w10 = wy * at::rsub(wx, 1);
@@ -1502,12 +1695,14 @@ Tensor bilinear_sample_stacked(const CornerStack& cs, const Tensor& py,
   return (out * box.unsqueeze(-1).to(out.scalar_type())).to(dtype);
 }
 
-// deform_conv2d: stride 1, dilation 1, one offset group, every row.
+// deform_conv2d: stride 1, dilation 1, one offset group, every row;
+// int8_gather: from an int8 corner stack.
 Tensor deform_conv2d(const Tensor& x, const Tensor& offset, const Tensor& mask,
-                     const Tensor& wk, const Tensor* bias, int64_t padding) {
+                     const Tensor& wk, const Tensor* bias, int64_t padding,
+                     bool int8_gather) {
   const int64_t B = x.size(0), H = x.size(1), Wd = x.size(2), C = x.size(3);
   const int64_t cout = wk.size(0), kh = wk.size(2), kw = wk.size(3);
-  CornerStack cs = corner_stack(x);
+  CornerStack cs = corner_stack(x, int8_gather);
   Tensor wmat = wk.to(at::kFloat).permute({2, 3, 1, 0});
   Tensor ys = at::arange(0, H, on(x, offset.scalar_type())).unsqueeze(1);
   Tensor xs = at::arange(Wd, on(x, offset.scalar_type())).unsqueeze(0);
@@ -1552,14 +1747,15 @@ Tensor resize_align_corners(const Weights& w, const Tensor& x, int64_t h,
 
 // _apply_deform: offsets and modulator in float32, the deform conv, ReLU.
 Tensor apply_deform(const Weights& w, const std::string& p, const Tensor& x,
-                    int64_t ks) {
+                    int64_t ks, bool int8_gather) {
   const int64_t pad = ks / 2;
   Tensor offset = bconv(w, p + ".offset", x, pad).to(at::kFloat);
   Tensor modulator =
       at::sigmoid(bconv(w, p + ".modulator", x, pad).to(at::kFloat)) * 2.0;
   const std::string b = p + ".conv.b";
   return at::relu(deform_conv2d(x, offset, modulator, W(w, p + ".conv.w"),
-                                has(w, b) ? &W(w, b) : nullptr, pad));
+                                has(w, b) ? &W(w, b) : nullptr, pad,
+                                int8_gather));
 }
 
 // _aspp_project: each branch's slice of the 1x1 projection summed in
@@ -1588,10 +1784,11 @@ Tensor aspp_project(const Weights& w, const std::string& p,
 // _apply_aspp: the 1x1 deform and the K deform branches, then the tail.
 Tensor apply_aspp(const Weights& w, const std::string& p, const Tensor& x,
                   const BirefConfig& b) {
-  std::vector<Tensor> branches{apply_deform(w, p + ".aspp1", x, 1)};
+  std::vector<Tensor> branches{
+      apply_deform(w, p + ".aspp1", x, 1, b.deform8)};
   for (size_t i = 0; i < b.aspp_kernel_sizes.size(); ++i)
     branches.push_back(apply_deform(w, p + ".deforms." + std::to_string(i), x,
-                                    b.aspp_kernel_sizes[i]));
+                                    b.aspp_kernel_sizes[i], b.deform8));
   return aspp_project(w, p, branches,
                       at::mean(x.to(at::kFloat), at::IntArrayRef{1, 2}, true),
                       x.scalar_type());

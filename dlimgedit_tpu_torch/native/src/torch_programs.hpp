@@ -31,6 +31,15 @@
 // ViT), each launching its kernel on a CUDA tensor and computing its plain
 // version on a CPU tensor; off, the plain versions run.
 //
+// An int8 bundle (serving.txt's quant row; ops/quant.py) holds the
+// encoder's attention and MLP linears as int8: `linear` dispatches on the
+// weights, as models/common.py's does. A w_q weight is dequantised per call
+// into the float product; a w_q8 weight runs ops/quant.py int8_linear: P2
+// quantize_rows_int8, the s8 x s8 product (at::_int_mm) and P3
+// int8_epilogue, each kernel on a CUDA tensor and its plain version on a
+// CPU tensor. With deform8 BiRefNet's deformable convs gather from an int8
+// corner stack (ops/deform.py _corner_stack(int8=True)).
+//
 // Weights are looked up by their state_dict name (the bundle's spec); a
 // BiRefNet program's without its kind's prefix, and its index tables
 // (Swin's relative-position index and shift masks, the align-corners
@@ -75,22 +84,36 @@ struct Kernels {
   // boxes, scores, thresh, keep, scratch, scratch words, m, stream
   using GreedyNms = int (*)(const void*, const void*, const void*, void*,
                             void*, long long, int, void*);
+  // x, q, scale, rows, cols, dtype, stream
+  using QuantizeRows = int (*)(const void*, void*, void*, int, int, int,
+                               void*);
+  // acc, x_scale, w_scale, b, y, rows, cols, dtype, stream
+  using Int8Epilogue = int (*)(const void*, const void*, const void*,
+                               const void*, void*, int, int, int, void*);
   LayerNorm layer_norm = nullptr;                    // K1
   AddLayerNorm add_layer_norm = nullptr;             // K3
   LevitAttention levit_attention = nullptr;          // K2
   RelposGlobal relpos_attention_global = nullptr;    // K4
   RelposWindowed relpos_attention_windowed = nullptr;  // K5
   GreedyNms greedy_nms = nullptr;                    // P1
+  QuantizeRows quantize_rows_int8 = nullptr;         // P2
+  Int8Epilogue int8_epilogue = nullptr;              // P3
 };
 
-// Launch counters of K1, K2, K3, K4, K5 and P1 (each launch on a CUDA
-// tensor adds one).
+// Launch counters of K1, K2, K3, K4, K5, P1, P2 and P3 (each launch on a
+// CUDA tensor adds one).
 extern std::atomic<int64_t> g_layer_norm_launches;
 extern std::atomic<int64_t> g_levit_attention_launches;
 extern std::atomic<int64_t> g_add_layer_norm_launches;
 extern std::atomic<int64_t> g_relpos_global_launches;
 extern std::atomic<int64_t> g_relpos_windowed_launches;
 extern std::atomic<int64_t> g_greedy_nms_launches;
+extern std::atomic<int64_t> g_quantize_rows_launches;
+extern std::atomic<int64_t> g_int8_epilogue_launches;
+// The int8 linears the dispatch of `linear` took, on any device: s8 x s8
+// products (a w_q8 weight) and per-call dequantised weights (w_q).
+extern std::atomic<int64_t> g_int8_products;
+extern std::atomic<int64_t> g_dequantised_products;
 
 // A BiRefNet's configuration (serving.txt's birefnet_* rows:
 // models/birefnet.py BiRefNetConfig, models/swin.py SwinConfig).
@@ -104,6 +127,9 @@ struct BirefConfig {
   std::vector<int> aspp_kernel_sizes;
   bool mul_scl_ipt = true;  // 'cat': the half-resolution pass
   int cxt_num = 3;
+  // The deformable convs gather from an int8 corner stack
+  // (deform_int8_gather; serving.txt's quant row, deform8).
+  bool deform8 = false;
 };
 
 struct ProgramConfig {

@@ -9,10 +9,14 @@
 // format (an older one is refused), encoder, kernel route and geometry,
 // the amg grid and winners (and the pre-NMS pool they give), the BiRefNet
 // programs and configuration (a birefnet row without the configuration
-// rows is refused), and every bucket must have its embed and decode
-// programs, one serve_decode_batch<N> per batch size and with an amg row
-// its serve_amg, and each BiRefNet entry its serve_birefnet_<kind>_<bucket>. The port's copy of the JAX
-// package's native/test/test_bundle_parse.cpp.
+// rows is refused), the quant row (an unknown mode and a8 without w8 are
+// refused; each embed program's weights must be int8 as the row says:
+// w_q8 with a8, w_q with w8 alone, neither without it), and every bucket
+// must have its embed and decode programs, one serve_decode_batch<N> per
+// batch size and with an amg row its serve_amg, and each BiRefNet entry
+// its serve_birefnet_<kind>_<bucket>. Counts the int8 weight rows and
+// their bytes. The port's copy of the JAX package's
+// native/test/test_bundle_parse.cpp.
 //
 //   test_bundle_parse <bundle_dir>    (exit 77 = skip, no dir given)
 
@@ -71,6 +75,8 @@ int main(int argc, char** argv) {
                 index.window_size, globals.c_str(), index.patch_size,
                 index.layer_norm_eps);
   std::printf("\n");
+  std::printf("serving.txt: quant %s\n",
+              dlimg_bundle::quant_modes(index).c_str());
   if (index.amg_grid > 0)
     std::printf("serving.txt: amg grid %d, max_masks %d, pre-NMS pool %d\n",
                 index.amg_grid, index.amg_masks,
@@ -122,7 +128,8 @@ int main(int argc, char** argv) {
         return 1;
       }
   }
-  int programs = 0, rows = 0, weights = 0, bf16_rows = 0;
+  int programs = 0, rows = 0, weights = 0, bf16_rows = 0, int8_rows = 0;
+  int64_t int8_bytes = 0;
   std::set<std::string> named;  // weights/ files the specs name
   for (const auto& ent : fs::directory_iterator(dir)) {
     const std::string fname = ent.path().filename().string();
@@ -135,6 +142,7 @@ int main(int argc, char** argv) {
     std::string line;
     int ind_idx = 0, out_idx = 0;
     ++programs;
+    std::vector<std::pair<std::string, size_t>> weight_rows;
     // Columns are single-space separated: "kind dtype dims [name]", and
     // dims may be empty (a scalar).
     while (std::getline(spec, line)) {
@@ -199,6 +207,22 @@ int main(int argc, char** argv) {
       ++rows;
       weights += kind == "inw";
       bf16_rows += dtype == "bfloat16";
+      if (kind == "inw") {
+        weight_rows.emplace_back(col[3], want_dims.size());
+        if (dtype == "int8") {
+          ++int8_rows;
+          int8_bytes += n;
+        }
+      }
+    }
+    if (prog.compare(0, 12, "serve_embed_") == 0) {
+      const std::string mismatch =
+          dlimg_bundle::quant_mismatch(index, weight_rows);
+      if (!mismatch.empty()) {
+        std::fprintf(stderr, "FATAL: %s: %s\n", prog.c_str(),
+                     mismatch.c_str());
+        return 1;
+      }
     }
   }
   if (programs == 0) {
@@ -216,7 +240,8 @@ int main(int argc, char** argv) {
       }
     }
   std::printf("bundle parse OK: %d programs, %d rows (%d weights, %d bf16), "
-              "%zu weight files\n", programs, rows, weights, bf16_rows,
-              stored);
+              "%d int8 weight rows of %lld bytes, %zu weight files\n",
+              programs, rows, weights, bf16_rows, int8_rows,
+              (long long)int8_bytes, stored);
   return 0;
 }

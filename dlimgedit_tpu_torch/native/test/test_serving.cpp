@@ -38,9 +38,10 @@
 // host resizes with the native box filter, the Python API with numpy), and
 // the refusal of an image over every bucket (each served mask is written to
 // served_birefnet<i>.raw in the working directory). Prints the K1 / K2 / K3 / K4
-// / K5 / P1 launches of each process, generate_masks and segment_objects
-// (the serving library's counters; the main image once more, where its
-// graph replays), holds
+// / K5 / P1 / P2 / P3 launches of each process, generate_masks and
+// segment_objects (the serving library's counters; the main image once
+// more, where its graph replays) and the int8 linears of each process (s8
+// x s8 products and dequantised w8 products, on any device), holds
 // every CUDA graph's replay against its eager run (out of the bundle's
 // programs, counted from its spec files), and with --time N prints the
 // medians of N process and compute_mask calls, one of each in turn. Exits
@@ -86,14 +87,15 @@ size_t count_diff(const uint8_t* a, const uint8_t* b, size_t n) {
   return d;
 }
 
-// The serving library's counters of K1..K5 and P1, through its exported C
-// function (it is loaded by the C library with RTLD_LOCAL; RTLD_NOLOAD
-// finds it by name).
+// The serving library's counters of K1..K5, P1, P2 and P3, then of the
+// int8 linears (s8 x s8, dequantised), through its exported C functions
+// (it is loaded by the C library with RTLD_LOCAL; RTLD_NOLOAD finds it by
+// name).
 struct Launches {
-  int64_t k[6] = {};
+  int64_t k[10] = {};
   Launches operator-(const Launches& o) const {
     Launches d;
-    for (int i = 0; i < 6; ++i) d.k[i] = k[i] - o.k[i];
+    for (int i = 0; i < 10; ++i) d.k[i] = k[i] - o.k[i];
     return d;
   }
 };
@@ -101,29 +103,37 @@ struct Launches {
 void print_launches(const char* what, const Launches& d,
                     const char* per = "process") {
   std::printf("launches per %s %s: K1 %lld K2 %lld K3 %lld K4 %lld K5 %lld "
-              "P1 %lld\n", per, what, (long long)d.k[0], (long long)d.k[1],
-              (long long)d.k[2], (long long)d.k[3], (long long)d.k[4],
-              (long long)d.k[5]);
+              "P1 %lld P2 %lld P3 %lld\n", per, what, (long long)d.k[0],
+              (long long)d.k[1], (long long)d.k[2], (long long)d.k[3],
+              (long long)d.k[4], (long long)d.k[5], (long long)d.k[6],
+              (long long)d.k[7]);
+  if (std::string(per) == "process")
+    std::printf("int8 linears per process %s: s8 %lld dequantised %lld\n",
+                what, (long long)d.k[8], (long long)d.k[9]);
 }
 
 struct Counters {
   using Fn = void (*)(int64_t*, int);
   using CheckFn = int (*)(char*, size_t);
   Fn launches = nullptr;
+  Fn int8_linears = nullptr;
   CheckFn check_replays = nullptr;
   void bind() {
     void* h = dlopen("libdlimgedit_tpu_torch_serving.so",
                      RTLD_NOW | RTLD_NOLOAD);
     if (!h) fatal("the serving library is not loaded in this process");
     launches = reinterpret_cast<Fn>(dlsym(h, "dlimg_serving_launches"));
+    int8_linears =
+        reinterpret_cast<Fn>(dlsym(h, "dlimg_serving_int8_linears"));
     check_replays =
         reinterpret_cast<CheckFn>(dlsym(h, "dlimg_serving_check_replays"));
-    if (!launches || !check_replays)
+    if (!launches || !int8_linears || !check_replays)
       fatal("the serving library lacks its counters");
   }
   Launches now() const {
     Launches l;
-    launches(l.k, 6);
+    launches(l.k, 8);
+    int8_linears(l.k + 8, 2);
     return l;
   }
 };

@@ -266,6 +266,12 @@ int cmd_info() {
             std::printf("bundle birefnet: %s\n",
                         biref.empty() ? "none (segment_objects is refused)"
                                       : biref.c_str());
+            std::printf("bundle quant: %s (encoder %s, BiRefNet gathers "
+                        "%s)\n", dlimg_bundle::quant_modes(index).c_str(),
+                        index.a8   ? "int8 weights and activations"
+                        : index.w8 ? "int8 weights"
+                                   : "float",
+                        index.deform8 ? "int8" : "float");
         }
     }
     return 0;

@@ -69,8 +69,13 @@ namespace {
 using Clock = std::chrono::steady_clock;
 
 constexpr size_t kMaxBody = 64u << 20;  // request body cap
-// The runtime mode /v1/info and the startup line report.
-constexpr char kMode[] = "embedded-python-pytorch";
+// The runtime mode /v1/info and the startup line report: the Python-free
+// serving bundle when DLIMG_PJRT_BUNDLE names one (the library then runs
+// no interpreter), else the embedded interpreter.
+char const* runtime_mode() {
+    return std::getenv("DLIMG_PJRT_BUNDLE") ? "pytorch-bundle"
+                                            : "embedded-python-pytorch";
+}
 
 // ---------------------------------------------------------------------------
 // Small helpers
@@ -671,7 +676,7 @@ class Server {
         // Parseable startup line (tests read the bound port from it).
         std::printf("dlimg-serve listening on %s:%d backend=%s mode=%s\n",
                     cfg_.host.c_str(), int(ntohs(addr.sin_port)),
-                    backend_name_.c_str(), kMode);
+                    backend_name_.c_str(), runtime_mode());
         std::fflush(stdout);
 
         std::vector<std::thread> workers;
@@ -842,7 +847,7 @@ class Server {
         if (req.path == "/v1/info") {
             return Response::json(
                 200, std::string("{\"backend\":\"") + backend_name_ +
-                         "\",\"mode\":\"" + kMode +
+                         "\",\"mode\":\"" + runtime_mode() +
                          "\",\"sessions\":" +
                          std::to_string(sessions_.size()) +
                          ",\"max_sessions\":" +

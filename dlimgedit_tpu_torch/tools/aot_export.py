@@ -6,12 +6,15 @@ counterpart of the JAX package's ``tools/aot_export.py --program serving``.
         [--batch-sizes 4,8] [--amg GRID:MAX_MASKS]
         [--birefnet general:1024,high_res:2048] [--sam-image-size N]
         [--backend gpu|cpu] [--compute-dtype bfloat16|float32]
+        [--quantize] [--quantize-activations] [--int8-deform]
         [--models DIR]
 
 A C or C++ host that sets ``DLIMG_PJRT_BUNDLE=DIR`` then serves
 ``create_environment``, ``process``, ``compute_mask(s)``,
 ``compute_mask_batch``, ``generate_masks`` (with ``--amg``) and
-``segment_objects`` (with ``--birefnet``) through the port's C library
+``segment_objects`` (with ``--birefnet``), also of int8 encoders
+(``--quantize``, ``--quantize-activations``) and of BiRefNet's int8
+deformable gathers (``--int8-deform``), through the port's C library
 with no Python in its process: the library dlopens
 ``libdlimgedit_tpu_torch_serving.so``
 (``python -m dlimgedit_tpu_torch.native_build --serving``), whose C++
@@ -42,7 +45,9 @@ mask at the model's resolution S), each as
 and, once for every program that names it, ``weights/<state_dict
 name>.npy``: the loaded module's tensor after every load-time transform
 (the compute-dtype cast, TinyViT's attention-bias index tables, a ViT
-block's rel-pos gather index ``rel_pos_idx``), bf16 as its 16 bits (the
+block's rel-pos gather index ``rel_pos_idx``; an int8 encoder's
+``*.w_q`` or ``*.w_q8`` int8 (in, out), row-major, and ``*.w_scale``
+float32 (out,), float32 also in a bf16 bundle), bf16 as its 16 bits (the
 spec names the dtype); a BiRefNet's under ``birefnet.<kind>.``, with the
 index tables its forward reads (``tables.rel_pos_index``, Swin's shift
 masks ``tables.shift_mask.<pH>x<pW>``, the align-corners matrices
@@ -51,8 +56,12 @@ masks ``tables.shift_mask.<pH>x<pW>``, the align-corners matrices
 sizes, compute_dtype, decoder_heads, the encoder kind and its kernel
 route, a ViT's geometry: num_heads, window_size, global_attn_indexes,
 patch_size, layer_norm_eps; ``amg`` grid:K; ``birefnet``
-kind:bucket:resolution and the BiRefNet's configuration rows; parsed by
-native/src/bundle.hpp). A ``gpu`` bundle also names the port's kernel
+kind:bucket:resolution and the BiRefNet's configuration rows; ``quant``
+with the int8 options, as the JAX exporter spells it: ``w8`` (int8
+weights, ``--quantize``), ``a8`` (int8 activations too,
+``--quantize-activations``, which implies ``--quantize``), ``deform8``
+(``--int8-deform``), comma-separated; parsed by native/src/bundle.hpp).
+A ``gpu`` bundle also names the port's kernel
 library in ``kernels_path.txt`` (built first, ops/cuda_build.py), as the
 JAX bundle names its PJRT plugin in ``plugin_path.txt``, and has the
 encoder's kernel route on.
@@ -60,9 +69,11 @@ encoder's kernel route on.
 Weights are random (seed 0) unless ``--models`` names a model directory
 (``<dir>/segmentation/mobile_sam.npz`` or ``sam_vit_<b|l|h>.npz``, e.g.
 from the converters; BiRefNet's
-``<dir>/segmentation/birefnet_*.npz``). The options of a later slice of
-this route (ROADMAP A8 (5), the int8 encoders) raise ``DlimgError``:
-``--quantize``, ``--quantize-activations``, ``--int8-deform``.
+``<dir>/segmentation/birefnet_*.npz``). The int8 options set the
+environment's ``Options`` (``quantize_encoder``, ``quantize_activations``,
+``birefnet_int8_deform``): the weights are what the loaded module holds
+after ``ops/quant.py::quantize_encoder``, and every recorded output is the
+Python path's under those options.
 """
 
 from __future__ import annotations
@@ -90,17 +101,10 @@ from ..runtime.segmentation import (
 )
 from ..types import Backend, Options
 
-FORMAT = "dlimgedit_tpu_torch-serving-4"  # native/src/bundle.hpp kFormat
+FORMAT = "dlimgedit_tpu_torch-serving-5"  # native/src/bundle.hpp kFormat
 
 # The variants the route serves (models/sam.py make_config).
 VARIANTS = ("mobile_sam", "vit_t", "vit_b", "vit_l", "vit_h")
-
-# The JAX exporter's options that a later slice of this route will serve.
-LATER_SLICES = {
-    "quantize": ("--quantize", "the int8 encoders"),
-    "quantize_activations": ("--quantize-activations", "the int8 encoders"),
-    "int8_deform": ("--int8-deform", "BiRefNet's int8 deformable gathers"),
-}
 
 # serve_amg's sample thresholds, in the C ABI's layout (iou, stability,
 # nms, then no area filter and no region refinement), permissive so that
@@ -111,7 +115,7 @@ BIREFNET_KINDS = ("general", "high_res")
 
 _NP_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
               torch.int64: "int64", torch.int32: "int32",
-              torch.uint8: "uint8"}
+              torch.uint8: "uint8", torch.int8: "int8"}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -136,23 +140,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--birefnet", default="",
                     help="comma list of kind:bucket (general | high_res): "
                          "serve_birefnet programs (segment_objects)")
-    ap.add_argument("--quantize", action="store_true")
-    ap.add_argument("--quantize-activations", action="store_true")
-    ap.add_argument("--int8-deform", action="store_true")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 encoder weights (Options.quantize_encoder)")
+    ap.add_argument("--quantize-activations", action="store_true",
+                    help="s8 x s8 encoder linears "
+                         "(Options.quantize_activations; implies --quantize)")
+    ap.add_argument("--int8-deform", action="store_true",
+                    help="BiRefNet's deformable convs gather from an int8 "
+                         "stack (Options.birefnet_int8_deform)")
     return ap.parse_args(argv)
 
 
-def _refuse_later_slices(args: argparse.Namespace) -> None:
+def _check_variant(args: argparse.Namespace) -> None:
     if args.variant not in VARIANTS:
         raise DlimgError(f"--variant {args.variant}: the Python-free route "
                          f"serves {', '.join(VARIANTS)}")
-    for attr, (flag, what) in LATER_SLICES.items():
-        if getattr(args, attr):
-            raise DlimgError(
-                f"{flag}: {what} through the Python-free route is a later "
-                f"slice (ROADMAP A8), its item (5); this bundle serves "
-                f"process, compute_mask(s), compute_mask_batch, "
-                f"generate_masks (--amg) and segment_objects (--birefnet)")
+
+
+def quant_mode(args: argparse.Namespace) -> str:
+    """The encoder's quantisation the arguments ask for, as
+    ``SamModelBundle.quant`` names it."""
+    return ("w8a8" if args.quantize_activations
+            else "w8" if args.quantize else "none")
+
+
+def quant_row(args: argparse.Namespace) -> str:
+    """serving.txt's quant row, as the JAX exporter writes it ("" when no
+    int8 option is on)."""
+    modes = [m for m, on in (
+        ("w8", args.quantize or args.quantize_activations),
+        ("a8", args.quantize_activations),
+        ("deform8", args.int8_deform)) if on]
+    return f"quant\t{','.join(modes)}\n" if modes else ""
 
 
 def parse_amg(text: str) -> Optional[Tuple[int, int]]:
@@ -371,7 +390,7 @@ def _birefnet_rows(cfg, programs: List[str]) -> str:
 
 def export_birefnet(env: Environment, out: Path,
                     specs: List[Tuple[str, int]], stored: Dict[str, str],
-                    rng: np.random.Generator) -> str:
+                    rng: np.random.Generator, int8_deform: bool) -> str:
     """serve_birefnet_<kind>_<bucket> for each spec, on the environment's
     BiRefNet executables (runtime/birefnet.py birefnet_segment's keys);
     -> serving.txt's birefnet rows."""
@@ -381,11 +400,11 @@ def export_birefnet(env: Environment, out: Path,
     programs, shared = [], None
     for kind, bucket in specs:
         bb = env.birefnet_model(kind)
-        if bb.cfg.deform_int8_gather:
-            raise DlimgError("birefnet_int8_deform: BiRefNet's int8 "
-                             "deformable gathers through the Python-free "
-                             "route are a later slice (ROADMAP A8), its item "
-                             "(5)")
+        if bb.cfg.deform_int8_gather != int8_deform:
+            raise DlimgError(f"the {kind} BiRefNet's deform_int8_gather is "
+                             f"{bb.cfg.deform_int8_gather}, --int8-deform "
+                             f"{int8_deform}: export with the environment's "
+                             f"options")
         cfg = dataclasses.replace(bb.cfg, img_size=0)
         if shared is not None and cfg != shared:
             raise DlimgError("the BiRefNet kinds of one bundle share one "
@@ -416,7 +435,10 @@ def make_environment(args: argparse.Namespace) -> Environment:
         backend=Backend.cpu if args.backend == "cpu" else Backend.gpu,
         model_directory=args.models or "models",
         allow_random_weights=not args.models,
-        compute_dtype=args.compute_dtype, sam_variant=args.variant, **extra))
+        compute_dtype=args.compute_dtype, sam_variant=args.variant,
+        quantize_encoder=args.quantize or args.quantize_activations,
+        quantize_activations=args.quantize_activations,
+        birefnet_int8_deform=args.int8_deform, **extra))
 
 
 def export_serving(args: argparse.Namespace,
@@ -424,7 +446,7 @@ def export_serving(args: argparse.Namespace,
     """Write the bundle into ``args.out``; -> the environment whose
     executables computed the sample outputs (``env`` when given: its
     options must be the arguments')."""
-    _refuse_later_slices(args)
+    _check_variant(args)
     buckets = _buckets(args.buckets)
     batch_sizes = _batch_sizes(args.batch_sizes)
     amg = parse_amg(args.amg)
@@ -439,9 +461,10 @@ def export_serving(args: argparse.Namespace,
     env = env if env is not None else make_environment(args)
     variant = "mobile_sam" if args.variant == "vit_t" else args.variant
     bundle = env.sam_model(variant)
-    if bundle.quant != "none":
-        raise DlimgError("the int8 encoders through the Python-free route "
-                         "are a later slice (ROADMAP A8)")
+    if bundle.quant != quant_mode(args):
+        raise DlimgError(f"the encoder is quantised {bundle.quant!r}, the "
+                         f"arguments ask for {quant_mode(args)!r}: export "
+                         f"with the environment's options")
     encoder_rows, route_on = _encoder_rows(bundle.cfg)
     if args.backend == "gpu" and not route_on:
         raise DlimgError("a gpu bundle runs the encoder's kernels: its "
@@ -494,7 +517,8 @@ def export_serving(args: argparse.Namespace,
             write_amg(env, bundle, out, variant, b, amg, emb, sizes, decoder,
                       stored)
     amg_row = f"amg\t{amg[0]}:{amg[1]}\n" if amg else ""
-    birefnet_rows = (export_birefnet(env, out, birefnet_specs, stored, rng)
+    birefnet_rows = (export_birefnet(env, out, birefnet_specs, stored, rng,
+                                     args.int8_deform)
                      if birefnet_specs else "")
     (out / "serving.txt").write_text(
         f"format\t{FORMAT}\n"
@@ -505,7 +529,7 @@ def export_serving(args: argparse.Namespace,
         f"batch\t{','.join(map(str, batch_sizes))}\n"
         f"compute_dtype\t{args.compute_dtype}\n"
         f"decoder_heads\t{bundle.cfg.decoder.num_heads}\n"
-        f"{encoder_rows}{amg_row}{birefnet_rows}")
+        f"{encoder_rows}{amg_row}{birefnet_rows}{quant_row(args)}")
     return env
 
 

@@ -6,14 +6,16 @@ counterpart of the JAX package's ``tools/serving_check.py``.
         [--batch-sizes 4,8] [--amg GRID:MAX_MASKS]
         [--birefnet general:1024,high_res:2048] [--sam-image-size N]
         [--backend gpu|cpu] [--compute-dtype bfloat16] [--models DIR]
-        [--time N]
+        [--quantize] [--quantize-activations] [--int8-deform] [--time N]
 
 1. Exports a serving bundle (tools/aot_export.py) of the variant into
    DIR/bundle, for the buckets of a ``size`` x ``3/4 size`` image and of a
    smaller non-square one (``size * 500/1024`` x ``size * 375/1024``), with
    ``serve_decode_batch<N>`` programs of the batch sizes, and with
    ``--amg`` / ``--birefnet`` the ``serve_amg`` / ``serve_birefnet``
-   programs.
+   programs; with ``--quantize`` / ``--quantize-activations`` the int8
+   encoder (w8 / w8a8) and with ``--int8-deform`` BiRefNet's int8
+   gathers, the exporter's environment under those options.
 2. Writes the port's Python API's results into DIR/check, with the
    exporter's environment (the same weights): ``compute_mask`` of 8
    points and 4 boxes, ``compute_masks`` of the first
@@ -74,7 +76,9 @@ def image_sizes(size: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
 def bundle_args(out: Path, size: int, backend: str, sam_image_size: int = 0,
                 compute_dtype: str = "bfloat16", models: str = "",
                 variant: str = "mobile_sam", batch_sizes: str = "",
-                amg: str = "", birefnet: str = "") -> argparse.Namespace:
+                amg: str = "", birefnet: str = "", quantize: bool = False,
+                quantize_activations: bool = False,
+                int8_deform: bool = False) -> argparse.Namespace:
     """The exporter's arguments for `size`'s two images."""
     main, small = image_sizes(size)
     buckets = sorted({pick_bucket(Extent(*main)), pick_bucket(Extent(*small))})
@@ -91,6 +95,10 @@ def bundle_args(out: Path, size: int, backend: str, sam_image_size: int = 0,
         argv += ["--sam-image-size", str(sam_image_size)]
     if models:
         argv += ["--models", models]
+    argv += [flag for flag, on in (
+        ("--quantize", quantize),
+        ("--quantize-activations", quantize_activations),
+        ("--int8-deform", int8_deform)) if on]
     return aot_export.parse_args(argv)
 
 
@@ -290,6 +298,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--models", default="")
+    ap.add_argument("--quantize", action="store_true")
+    ap.add_argument("--quantize-activations", action="store_true")
+    ap.add_argument("--int8-deform", action="store_true")
     ap.add_argument("--time", type=int, default=0,
                     help="also time N process and compute_mask calls")
     args = ap.parse_args(argv)
@@ -298,7 +309,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     env = aot_export.export_serving(bundle_args(
         bundle, args.size, args.backend, args.sam_image_size,
         args.compute_dtype, args.models, args.variant, args.batch_sizes,
-        args.amg, args.birefnet))
+        args.amg, args.birefnet, args.quantize, args.quantize_activations,
+        args.int8_deform))
     write_goldens(env, check, args.size, 8, 4)
     amg = aot_export.parse_amg(args.amg)
     if amg:

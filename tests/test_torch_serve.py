@@ -205,6 +205,44 @@ def test_info_reports_the_ports_mode(server):
         "cpu", "embedded-python-pytorch", 2)
 
 
+def test_info_reports_the_bundle_mode_with_a_serving_bundle(tmp_path):
+    """ROADMAP C7: with DLIMG_PJRT_BUNDLE naming a bundle of the port's
+    exporter the daemon serves through the Python-free route and says so
+    on its startup line and in /v1/info (its parent printed
+    ``mode=embedded-python-pytorch`` there whatever the variable said)."""
+    from dlimgedit_tpu_torch.tools import aot_export
+
+    exe = native_build.build_serving().executable("dlimg-serve")
+    bundle = tmp_path / "bundle"
+    aot_export.export_serving(aot_export.parse_args([
+        "--out", str(bundle), "--backend", "cpu", "--sam-image-size",
+        str(SAM_SIZE), "--buckets", "256", "--compute-dtype", "float32"]))
+    env = {k: v for k, v in os.environ.items() if k not in UNSET}
+    env.update(DLIMG_PJRT_BUNDLE=str(bundle), TMPDIR=str(tmp_path))
+    proc = subprocess.Popen(
+        [str(exe), "--port", "0", "--backend", "cpu", "--threads", "1"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        while line and "listening on" not in line:
+            line = proc.stdout.readline()
+        assert "listening on" in line, proc.stdout.read()
+        threading.Thread(target=proc.stdout.read, daemon=True).start()
+        assert line.rstrip().endswith("backend=cpu mode=pytorch-bundle"), line
+        base = f"http://127.0.0.1:{int(line.split(':')[-1].split()[0])}"
+        st, body, _ = _req(base, "GET", "/v1/info")
+        assert st == 200
+        info = json.loads(body)
+        assert (info["backend"], info["mode"]) == ("cpu", "pytorch-bundle")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def test_point_and_box_queries_match_the_python_api(server, direct):
     base, _ = server
     sid = _session(base)

@@ -21,8 +21,10 @@ with ``--amg 4:8`` (the JAX package's own serving case, 48 candidates):
 - ``test_serving_programs`` holds ``serve_amg`` (its samples at NMS 0.7,
   where the NMS suppresses) against the exporter's outputs;
   ``test_bundle_parse`` reads the amg row and its pool.
-- Refusals: ``generate_masks`` with a bundle exported without ``--amg``,
-  a malformed ``--amg``, and the int8 options, which name ROADMAP A8 (5).
+- Refusals: ``generate_masks`` with a bundle exported without ``--amg``
+  and a malformed ``--amg``. The int8 options beside ``--amg`` (ROADMAP
+  A8 (5)) export their quant row and a ``serve_amg`` that holds against
+  the exporter's outputs.
 """
 
 import shutil
@@ -179,12 +181,32 @@ def test_a_malformed_amg_raises(tmp_path, amg):
     assert not (tmp_path / "serving.txt").exists()
 
 
+# The int8 options beside --amg (ROADMAP A8 (5), served since format 5):
+# serving.txt's quant row as the JAX exporter spells it.
+_INT8_ROWS = {"--quantize": "w8", "--quantize-activations": "w8,a8",
+              "--int8-deform": "deform8"}
+
+
 @pytest.mark.parametrize("flag", ["--quantize", "--quantize-activations",
                                   "--int8-deform"])
-def test_the_int8_options_still_name_a8_5(tmp_path, flag):
-    args = aot_export.parse_args(["--out", str(tmp_path), "--backend", "cpu",
-                                  "--amg", "4:8", flag])
-    with pytest.raises(DlimgError, match=r"later slice \(ROADMAP A8\), its "
-                                         r"item \(5\)"):
-        aot_export.export_serving(args)
-    assert not (tmp_path / "serving.txt").exists()
+def test_the_int8_options_still_name_a8_5(tmp_path, model_dir, build,  # noqa: F811
+                                          flag):
+    """Each int8 option with --amg 4:8 exports A8 (5)'s bundle: its quant
+    row in the JAX exporter's spelling, and serve_amg on the int8 encoder's
+    embedding held against the exporter's outputs."""
+    args = aot_export.parse_args([
+        "--out", str(tmp_path / "bundle"), "--backend", "cpu",
+        "--sam-image-size", str(IMAGE_SIZE), "--buckets", "256",
+        "--compute-dtype", "float32", "--models", str(model_dir),
+        "--amg", "4:8", flag])
+    aot_export.export_serving(args)
+    rows = dict(ln.split("\t", 1) for ln in
+                (tmp_path / "bundle" / "serving.txt").read_text().splitlines())
+    assert rows["quant"] == _INT8_ROWS[flag] and rows["amg"] == "4:8"
+    r = subprocess.run(
+        [str(build.executable("test_serving_programs")), "cpu",
+         str(tmp_path / "bundle"), "serve_embed_mobile_sam_256",
+         "serve_amg_mobile_sam_256"], env=serving_check.fresh_env(tmp_path),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-2000:]
+    assert "serve_amg_mobile_sam_256: PASS" in r.stdout

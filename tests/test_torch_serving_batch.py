@@ -88,7 +88,7 @@ def test_every_program_with_the_batch_programs_equals_python(served, build):
     assert ("serving.txt: variant mobile_sam, encoder tinyvit, kernel route "
             "off, batch sizes [2,4]\n") in r.stdout
     txt = (served["bundle"] / "serving.txt").read_text()
-    assert "format\tdlimgedit_tpu_torch-serving-4\n" in txt
+    assert "format\tdlimgedit_tpu_torch-serving-5\n" in txt
     assert "batch\t2,4\n" in txt
 
 
@@ -146,9 +146,9 @@ def test_the_reader_refuses_an_old_format_and_a_gpu_bundle_route_off(
     shutil.copytree(served["bundle"], bundle)
     txt = bundle / "serving.txt"
     if edit == "format_2":
-        txt.write_text(txt.read_text().replace("serving-4", "serving-3"))
-        why = ("names the bundle format 'dlimgedit_tpu_torch-serving-3', not "
-               "the port's dlimgedit_tpu_torch-serving-4")
+        txt.write_text(txt.read_text().replace("serving-5", "serving-4"))
+        why = ("names the bundle format 'dlimgedit_tpu_torch-serving-4', not "
+               "the port's dlimgedit_tpu_torch-serving-5")
     else:
         txt.write_text(txt.read_text().replace("backend\tcpu", "backend\tgpu"))
         why = "a gpu bundle must have the encoder's kernel route on"

@@ -21,9 +21,10 @@ DLIMG_PJRT_BUNDLE set, through libdlimgedit_tpu_torch_serving.so.
   are put back after the programs ran; ``test_bundle_parse`` reads every
   spec row. Each weight is stored once and held once, for every program.
 - The refusals: a JAX bundle, a bundle of the other backend, backend 1
-  without CUDA, the options of a later slice and malformed values of the
-  served ones, a bucket outside CANVAS_BUCKETS, and a failed serving build
-  each fail with a message.
+  without CUDA, malformed values of the served options, the reader's
+  refusals of an int8 bundle (an unknown quant mode, a8 without w8, a
+  bundle read as format 4), a bucket outside CANVAS_BUCKETS, and a failed
+  serving build each fail with a message.
 """
 
 import shutil
@@ -283,25 +284,51 @@ def test_backend_1_fails_without_cuda_and_a_bundle_keeps_its_backend(
     assert "exported for backend gpu, not cpu" in r.stderr
 
 
-# The options the route refuses, and the words of each refusal: the later
-# slice (the int8 options) names ROADMAP A8; the SAM ViTs, --batch-sizes,
-# --amg and --birefnet are served, so their cases hold the refusal of a
-# malformed value and of a variant that is none of the route's.
+# The options the route refuses, and the words of each refusal. Every
+# option is served now: the cases of --batch-sizes, --amg and --birefnet
+# hold the refusal of a malformed value, --variant that of a variant that
+# is none of the route's. The int8 options export (tests/
+# test_torch_serving_int8.py), so their cases hold the reader's refusals
+# that still apply to their bundles (_INT8_REFUSALS).
 _REFUSALS = {"--batch-sizes": "each batch size must be a positive integer",
              "--amg": "grid:max_masks, two positive integers",
              "--birefnet": "each entry is kind:bucket",
              "--variant": "the Python-free route serves mobile_sam"}
+# flag -> (serving.txt's row as exported, the row written over it, the
+# reader's words): an unknown quant mode, a8 without w8 in a hand-written
+# row, and a bundle read as format 4.
+_INT8_REFUSALS = {
+    "--quantize": ("quant\tw8\n", "quant\tw8,w4\n",
+                   "quant row names an unknown mode 'w4'"),
+    "--quantize-activations": ("quant\tw8,a8\n", "quant\ta8\n",
+                               "quant row names a8 without w8"),
+    "--int8-deform": ("format\tdlimgedit_tpu_torch-serving-5\n",
+                      "format\tdlimgedit_tpu_torch-serving-4\n",
+                      "(an older export is not read)"),
+}
 
 
 @pytest.mark.parametrize("extra", [
     ["--amg", "4"], ["--batch-sizes", "0"], ["--birefnet", "general:300"],
     ["--quantize"], ["--quantize-activations"], ["--int8-deform"],
     ["--variant", "sam2_hiera"]], ids=lambda e: e[0])
-def test_later_slice_options_raise(tmp_path, extra):
+def test_later_slice_options_raise(tmp_path, build, extra):
+    if extra[0] in _INT8_REFUSALS:
+        exported, written, why = _INT8_REFUSALS[extra[0]]
+        aot_export.export_serving(aot_export.parse_args([
+            "--out", str(tmp_path), "--backend", "cpu", "--sam-image-size",
+            str(IMAGE_SIZE), "--buckets", "256", *extra]))
+        txt = tmp_path / "serving.txt"
+        assert exported in txt.read_text()
+        txt.write_text(txt.read_text().replace(exported, written))
+        p = subprocess.run([str(build.executable("test_bundle_parse")),
+                            str(tmp_path)], capture_output=True, text=True,
+                           timeout=300)
+        assert p.returncode == 1 and why in p.stderr, p.stderr
+        return
     args = aot_export.parse_args(["--out", str(tmp_path), "--backend", "cpu",
                                   *extra])
-    match = _REFUSALS.get(extra[0], r"later slice \(ROADMAP A8\)")
-    with pytest.raises(DlimgError, match=match):
+    with pytest.raises(DlimgError, match=_REFUSALS[extra[0]]):
         aot_export.export_serving(args)
     assert not (tmp_path / "serving.txt").exists()
 
