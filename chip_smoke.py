@@ -277,7 +277,9 @@ printing its seconds:
      table entry through `dlimg_init()`'s table with backend 1 on phase
      14's two images (process, a point and a region mask, three masks, a
      batch of 16, `generate_masks` grid 32 with 64 slots,
-     `segment_objects`, a PNG saved and loaded), every buffer byte for
+     `segment_objects`, a PNG saved and loaded through the library's own
+     codec: decoded by Pillow and by `load_image` to the saved pixels,
+     within 4x of Pillow's bytes), every buffer byte for
      byte against the Python API on an Environment of the same options,
      accuracies within 1e-6, launches exact (22 K1 and 10 K2 a `process`,
      one greedy_nms a `generate_masks`), `process_ms` and `mask_ms`
@@ -292,7 +294,8 @@ printing its seconds:
      where the batch a query rode in is not known, against the prompt's
      batch of 1 and `compute_mask`, and the prompt's batches of 1, 2, 4
      and 8 must all equal `compute_mask`: 16 of 16 prompts), each
-     endpoint's median wall, `/v1/stats`, the
+     endpoint's median wall, the host's PNG codecs timed (the library's
+     own, which the daemon runs, and Pillow's), `/v1/stats`, the
      sessions deleted and SIGTERM answered with exit 0; `dlimg segment`
      (its mask file equal to the direct call's), `test_cpp_api gpu` and
      `test_cpp_dynamic` exiting 0;
@@ -395,7 +398,20 @@ printing its seconds:
      capture and on the replay, each within one grey level of the direct
      call's (failing above 1), no kernel launched, its graph equal to its
      eager run, `birefnet_ms` (medians of 5) interleaved. Its launches
-     are checked here, not added to the kernels' sums.
+     are checked here, not added to the kernels' sums. Between the two,
+     its daemon leg: `dlimg-serve --backend gpu` with DLIMG_PJRT_BUNDLE
+     set to the bundle, in a fresh process with no interpreter (a
+     sitecustomize marker would show one), `pytorch-bundle` on its
+     startup line and in `/v1/info`, a compute process on the card, PNG
+     uploads decoded and every PNG it returns encoded by the library's own
+     codec: two sessions, 8 point and 4 box clicks at concurrency 1 and
+     16 at concurrency 4 (`batched_calls` above 0), `all=1`,
+     `/auto-masks` (grid 32, 64 slots), `/v1/segment`, each mask equal to
+     the direct call's, `/v1/remove-bg` within one grey level of
+     `segment_objects` (0 expected), SIGTERM answered with exit 0; `dlimg
+     segment` on the route alongside, its mask file equal to the direct
+     call's; the median click wall next to phase 15's embedded-mode
+     daemon's, and a served mask's bytes next to Pillow's.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -4443,14 +4459,17 @@ class Daemon:
     by a thread (a full pipe would block the embedded interpreter while it
     holds the GIL) and kept for a failure's message."""
 
-    def __init__(self, exe, args, apps_before):
-        """Start it; `apps_before` are the card's compute processes before
-        it (``compute_apps``)."""
+    def __init__(self, exe, args, apps_before, env=None, phase: int = 15):
+        """Start it, with `env` (else this process's environment);
+        `apps_before` are the card's compute processes before it
+        (``compute_apps``); `phase` names the phase in its failures."""
         self.apps_before = apps_before
+        self.phase = phase
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen([str(exe), "--port", "0", *args],
                                      stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True)
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env=env)
         self.lines = []
 
     def wait_listening(self) -> None:
@@ -4458,14 +4477,16 @@ class Daemon:
         while True:
             line = self.proc.stdout.readline()
             if not line:
-                fail(f"phase 15: dlimg-serve exited before it listened "
+                fail(f"phase {self.phase}: dlimg-serve exited before it "
+                     f"listened "
                      f"(exit {self.proc.wait()}): {''.join(self.lines)[-3000:]}")
             self.lines.append(line)
             if "listening on" in line:
                 break
             if time.perf_counter() - self.t0 > 300:
                 self.stop()
-                fail("phase 15: dlimg-serve did not listen within 300 s")
+                fail(f"phase {self.phase}: dlimg-serve did not listen "
+                     f"within 300 s")
         self.start_s = time.perf_counter() - self.t0
         self.port = int(line.split(":")[-1].split()[0])
         import threading
@@ -4496,7 +4517,8 @@ class Daemon:
         status, body, ms = self.request(method, path, data)
         if status not in (200, 204):
             self.stop()
-            fail(f"phase 15: {method} {path}: HTTP {status} {body[:500]!r}; "
+            fail(f"phase {self.phase}: {method} {path}: HTTP {status} "
+                 f"{body[:500]!r}; "
                  f"dlimg-serve said: {''.join(self.lines)[-2000:]}")
         return body, ms
 
@@ -4513,6 +4535,54 @@ class Daemon:
                 self.proc.wait()
                 return -9
         return self.proc.returncode
+
+
+def daemon_on_card(daemon) -> None:
+    """Fail unless the serving daemon is a compute process on the card."""
+    apps, phase = compute_apps(), daemon.phase
+    if str(daemon.proc.pid) in apps:
+        print(f"phase {phase} dlimg-serve: PID {daemon.proc.pid} among the "
+              f"card's compute processes {apps}", flush=True)
+    elif len(apps) == len(daemon.apps_before) + 1:
+        # nvidia-smi reports PIDs of another PID namespace (a container):
+        # the daemon shows as one more compute process on the card.
+        print(f"phase {phase} dlimg-serve: one more compute process on the "
+              f"card while it serves ({daemon.apps_before} -> {apps}; "
+              f"nvidia-smi reports PIDs outside this PID namespace)",
+              flush=True)
+    else:
+        fail(f"phase {phase}: dlimg-serve (PID {daemon.proc.pid}) is not on "
+             f"the card: compute processes {daemon.apps_before} before it "
+             f"started, {apps} while it serves")
+
+
+def native_codec_ms(ctypes, np, api, mask, png: bytes, work: Path):
+    """Medians of 5 of the C library's save_image of the (h, w) `mask` and
+    load_image of the PNG file `png`, through files in `work`: -> (encode
+    ms, the file's bytes, decode ms)."""
+    from dlimgedit_tpu_torch.native_build import DlimgImageView
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    m = np.ascontiguousarray(mask)
+    view = DlimgImageView(width=m.shape[1], height=m.shape[0], channels=1,
+                          stride=0, pixels=m.ctypes.data_as(u8p))
+    out, src = work / "native_mask.png", work / "native_in.png"
+    src.write_bytes(png)
+
+    def encode():
+        if api.save_image(ctypes.byref(view), str(out).encode()):
+            fail(f"save_image: {api.last_error().decode()}")
+
+    def decode():
+        ext, ch, px = (ctypes.c_int * 2)(), ctypes.c_int(), u8p()
+        if api.load_image(str(src).encode(), ext, ctypes.byref(ch),
+                          ctypes.byref(px)):
+            fail(f"load_image: {api.last_error().decode()}")
+        api.destroy_image(px)
+
+    enc = statistics.median(timed_ms(encode) for _ in range(5))
+    dec = statistics.median(timed_ms(decode) for _ in range(5))
+    return enc, out.stat().st_size, dec
 
 
 def timed_ms(fn) -> float:
@@ -4535,13 +4605,14 @@ def png_pixels(np, data: bytes):
     return np.asarray(PILImage.open(io.BytesIO(data)))
 
 
-def served_equal(np, data: bytes, image, label) -> None:
+def served_equal(np, data: bytes, image, label, phase: int = 15) -> None:
     """A PNG the daemon served, decoded, against a direct call's mask."""
     got = png_pixels(np, data)
     want = np.ascontiguousarray(image.pixels).reshape(got.shape)
     if not np.array_equal(got, want):
-        fail(f"phase 15 {label}: the served mask differs from the direct "
-             f"call's in {int((got != want).sum())} of {got.size} pixels")
+        fail(f"phase {phase} {label}: the served mask differs from the "
+             f"direct call's in {int((got != want).sum())} of {got.size} "
+             f"pixels")
 
 
 def library_calls(ctypes, np, api, handle, buf, stride, w, h, code, q):
@@ -4590,14 +4661,15 @@ class Host:
     holds `model_dir` (test_cpp_api's ./models); a thread waits for it,
     so its seconds are its own."""
 
-    def __init__(self, cmd, model_dir):
+    def __init__(self, cmd, model_dir, env=None):
         import threading
 
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(cmd, cwd=model_dir.parent,
                                      stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True,
-                                     env={**os.environ,
+                                     env={**(os.environ if env is None
+                                             else env),
                                           "TMPDIR": str(model_dir)})
         self.out = None
         self.waiter = threading.Thread(target=self._wait, daemon=True)
@@ -4612,7 +4684,7 @@ class Host:
         self.waiter.join(timeout=600)
         if self.out is None:
             self.proc.kill()
-            fail(f"phase 15: {self.proc.args[0]} ran over 600 s")
+            fail(f"{self.proc.args[0]} ran over 600 s")
         return self.proc.returncode, *self.out, self.seconds
 
     def kill(self) -> None:
@@ -4621,9 +4693,10 @@ class Host:
 
 
 def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
-                  model_dir):
+                  model_dir) -> float:
     """Phase 15, the C hosts through the port's own C library on cuda:0
-    (the module docstring's item 15)."""
+    (the module docstring's item 15); -> the daemon's median click at
+    concurrency 1, ms."""
     import ctypes
 
     from dlimgedit_tpu_torch import native_bridge as nb
@@ -4641,9 +4714,8 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
         build = native_build.build()
         print(f"phase 15 native build: {time.perf_counter() - t:.2f} s "
               f"({'built' if build.seconds is not None else 'found built'}), "
-              f"compiler {build.compiler}, codecs "
-              f"{list(build.codecs) or 'none: PNG through the bridge (Pillow)'}"
-              f" -> {build.directory}", flush=True)
+              f"compiler {build.compiler}, codecs {list(build.codecs)} (png "
+              f"built in) -> {build.directory}", flush=True)
         # BiRefNet_lite general, seeded nonzero offsets, as a bundle file.
         t = time.perf_counter()
         save_pytree(model_dir / "segmentation" / "birefnet_general.npz",
@@ -4768,8 +4840,6 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
               f"segment_objects (BiRefNet_lite general) equal to the direct "
               f"calls'", flush=True)
 
-        png_route = ("native libpng" if "libpng" in build.codecs
-                     else "the bridge (Pillow)")
         arr = rgba(np, 120, 160, 5)[:, :, :3]
         pbuf, pstride = c_pixels(ctypes, np, arr, 40)
         mine, theirs = model_dir / "library.png", model_dir / "direct.png"
@@ -4779,9 +4849,9 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
         if api.save_image(ctypes.byref(pview), str(mine).encode()):
             fail(f"phase 15 save_image: {api.last_error().decode()}")
         dl.Image(dl.Extent(160, 120), dl.Channels.rgb, arr).save(str(theirs))
-        if "libpng" not in build.codecs and (
-                mine.read_bytes() != theirs.read_bytes()):
-            fail("phase 15 save_image: the file differs from Image.save's")
+        if not np.array_equal(png_pixels(np, mine.read_bytes()), arr):
+            fail("phase 15 save_image: the file does not decode in Pillow to "
+                 "the saved pixels")
         ext, ch, px = (ctypes.c_int * 2)(), ctypes.c_int(), u8p()
         if api.load_image(str(mine).encode(), ext, ctypes.byref(ch),
                           ctypes.byref(px)):
@@ -4790,10 +4860,14 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
         api.destroy_image(px)
         if (ext[0], ext[1], ch.value) != (160, 120, 3) or got != arr.tobytes():
             fail("phase 15 load_image: not the saved pixels")
-        print(f"phase 15 library save_image / load_image of a PNG through "
-              f"{png_route}: pixels read back"
-              f"{'' if 'libpng' in build.codecs else ', bytes equal to Image.save'}",
-              flush=True)
+        size, pil_size = mine.stat().st_size, theirs.stat().st_size
+        if size > 4 * pil_size:
+            fail(f"phase 15 save_image: {size} bytes, over 4x Image.save's "
+                 f"{pil_size}")
+        print(f"phase 15 library save_image / load_image of a 160x120 RGB PNG "
+              f"through the port's own codec (png.cpp): decoded by Pillow and "
+              f"by load_image to the saved pixels; {size} bytes, Image.save "
+              f"(Pillow) {pil_size}", flush=True)
 
         # -- 4. dlimg segment, test_cpp_api, test_cpp_dynamic, finished ----------
         for name, host in running.items():
@@ -4851,7 +4925,8 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
 
         # -- 3. dlimg-serve -----------------------------------------------------
         try:
-            drive_daemon(np, dl, denv, daemon, gpu_line)
+            click_ms = drive_daemon(ctypes, np, dl, denv, daemon, gpu_line,
+                                    api, model_dir)
         finally:
             code_ = daemon.stop()
         if code_ != 0:
@@ -4870,11 +4945,15 @@ def drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
             daemon.stop()
         restore_vars(saved)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return click_ms
 
 
-def drive_daemon(np, dl, denv, daemon, gpu_line):
+def drive_daemon(ctypes, np, dl, denv, daemon, gpu_line, api, work):
     """Phase 15's dlimg-serve on cuda:0 against the direct calls on
-    `denv` (an Environment of the daemon's options)."""
+    `denv` (an Environment of the daemon's options); `api` is the C
+    library's table in this process (its PNG codec is timed), `work` a
+    directory for its files. -> the median HTTP wall of a click at
+    concurrency 1, ms."""
     import base64
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4903,20 +4982,7 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
             fail(f"phase 15 /v1/sessions: {meta}")
         sids.append(meta["id"])
     times = {"sessions (first, 2 at once)": [ms for _, ms in opened]}
-    apps = compute_apps()
-    if str(daemon.proc.pid) in apps:
-        print(f"phase 15 dlimg-serve: PID {daemon.proc.pid} among the card's "
-              f"compute processes {apps}", flush=True)
-    elif len(apps) == len(daemon.apps_before) + 1:
-        # nvidia-smi reports PIDs of another PID namespace (a container):
-        # the daemon shows as one more compute process on the card.
-        print(f"phase 15 dlimg-serve: one more compute process on the card "
-              f"while it serves ({daemon.apps_before} -> {apps}; nvidia-smi "
-              f"reports PIDs outside this PID namespace)", flush=True)
-    else:
-        fail(f"phase 15: dlimg-serve (PID {daemon.proc.pid}) is not on the "
-             f"card: compute processes {daemon.apps_before} before it "
-             f"started, {apps} while it serves")
+    daemon_on_card(daemon)
     for im in images:  # a session once the embeddings' graphs exist
         body, ms = daemon.ok("POST", "/v1/sessions", im[3])
         sids.append(json.loads(body)["id"])
@@ -5033,19 +5099,23 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
           f"masks, grid {BRIDGE_AMG_GRID}), /v1/segment and /v1/remove-bg "
           f"(BiRefNet_lite general, twice each) equal to the direct calls'",
           flush=True)
-    # The host's share: Pillow's PNG codec in this process on this host
-    # (the card's machine has no libpng, so the daemon's PNGs go through
-    # Pillow too), on a served mask and on the session image.
+    # The host's share: the PNG codecs in this process on this host, the
+    # library's own (png.cpp, the daemon's) and Pillow's, on a served mask
+    # and on the session image.
     from PIL import Image as PILImage
 
     mask_px = np.ascontiguousarray(want_seg.pixels).reshape(h, w)
+    n_encode, n_bytes, n_decode = native_codec_ms(ctypes, np, api, mask_px,
+                                                  png, work)
     encode = statistics.median(timed_ms(lambda: PILImage.fromarray(
         mask_px, mode="L").save(io.BytesIO(), format="PNG")) for _ in range(5))
     decode = statistics.median(timed_ms(lambda: png_pixels(np, png))
                                for _ in range(5))
-    print(f"phase 15 host PNG codec (Pillow, this process, medians of 5): "
-          f"encode of the /v1/segment mask {encode:.1f} ms "
-          f"({len(png_bytes(mask_px))} bytes), decode of the session image "
+    print(f"phase 15 host PNG codec (this process, medians of 5): the "
+          f"library's own (png.cpp, as the daemon runs it, through files) "
+          f"encode of the /v1/segment mask {n_encode:.1f} ms ({n_bytes} "
+          f"bytes), decode of the session image {n_decode:.1f} ms; Pillow "
+          f"encode {encode:.1f} ms ({len(png_bytes(mask_px))} bytes), decode "
           f"{decode:.1f} ms ({len(png)} bytes)", flush=True)
     summary = "; ".join(
         f"{k} " + (" and ".join(f"{ms:.1f}" for ms in v) + " ms" if len(v) <= 2
@@ -5062,6 +5132,7 @@ def drive_daemon(np, dl, denv, daemon, gpu_line):
         if daemon.request("POST", f"/v1/sessions/{sid}/mask?point=1,1")[0] \
                 != 404:
             fail(f"phase 15: session {sid} still answers after DELETE")
+    return statistics.median(c1_ms["point"] + c1_ms["box"])
 
 
 def tee(fn, *args, **kw):
@@ -5650,10 +5721,12 @@ SERVING_AMG = "32:64"
 SERVING_BIREFNET = "general:1024,high_res:2048"
 
 
-def drive_python_free_amg_birefnet(torch, np, dl, gpu_line) -> None:
+def drive_python_free_amg_birefnet(torch, np, dl, gpu_line,
+                                   embedded_click_ms=None) -> None:
     """Phase 19, generate_masks and segment_objects through the
     Python-free serving route on cuda:0 (the module docstring's item
-    19)."""
+    19); `embedded_click_ms` is phase 15's median click, printed beside
+    the route daemon's."""
     import ctypes
     import re
 
@@ -5844,13 +5917,209 @@ def drive_python_free_amg_birefnet(torch, np, dl, gpu_line) -> None:
                       f"interleaved; final mask within {worst} of the "
                       f"direct call's)", flush=True)
             api.destroy_segmentation(seg)
-            del direct, env
+            del direct
+            drive_route_daemon(np, dl, b, bundle, work, env, gpu_line,
+                               embedded_click_ms)
+            del env
         finally:
             if handle is not None:
                 api.destroy_environment(handle)
             restore_vars(saved)
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+
+def drive_route_daemon(np, dl, b, bundle: Path, work: Path, env,
+                       gpu_line, embedded_click_ms=None) -> None:
+    """Phase 19's daemon leg: `dlimg-serve --backend gpu` and `dlimg
+    segment` on the Python-free route (DLIMG_PJRT_BUNDLE = phase 19's
+    bundle, no interpreter: a sitecustomize marker would show one), PNGs
+    in and out through the library's own codec, every served mask held
+    against the direct call on `env`, the Environment that exported the
+    bundle."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlimgedit_tpu_torch.tools import serving_check
+
+    t0 = time.perf_counter()
+    leg = work / "daemon"
+    (leg / "cli").mkdir(parents=True)
+    fresh = serving_check.fresh_env(leg, DLIMG_PJRT_BUNDLE=str(bundle),
+                                    TMPDIR=str(leg))
+    w, h, _, _, seed = BRIDGE_IMAGES[0]
+    arr = rgba(np, h, w, seed)
+    png = png_bytes(arr)
+    (leg / "in.png").write_bytes(png)
+    cli_point = (w // 3, h // 2)
+    grid, slots = (int(v) for v in SERVING_AMG.split(":"))
+    apps_before = compute_apps()
+    daemon = Daemon(b.executable("dlimg-serve"), [
+        "--backend", "gpu", "--threads", "4", "--batch-window-ms",
+        str(SERVE_WINDOW_MS)], apps_before, env=fresh, phase=19)
+    cli = Host([str(b.executable("dlimg")), "segment", str(leg / "in.png"),
+                "--backend", "gpu", "--point",
+                f"{cli_point[0]},{cli_point[1]}", "-o",
+                str(leg / "cli_mask.png"), "--time"], leg / "cli", env=fresh)
+    try:
+        img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, arr)
+        direct = dl.Segmentation.process(img, env)
+        daemon.wait_listening()
+        if not daemon.lines[-1].rstrip().endswith(
+                "backend=gpu mode=pytorch-bundle"):
+            fail(f"phase 19 dlimg-serve: startup line {daemon.lines[-1]!r}")
+        info = json.loads(daemon.ok("GET", "/v1/info")[0])
+        if (info.get("backend"), info.get("mode")) != ("gpu",
+                                                       "pytorch-bundle"):
+            fail(f"phase 19 /v1/info: {info}")
+        times = {}
+        body, ms = daemon.ok("POST", "/v1/sessions", png)
+        sid = json.loads(body)["id"]
+        times["session (first: warm-up and capture)"] = [ms]
+        rc, out, err, took = cli.result()
+        if rc != 0:
+            fail(f"phase 19 dlimg segment: exit {rc}: {out[-1000:]} "
+                 f"{err[-2000:]}")
+        served_equal(np, (leg / "cli_mask.png").read_bytes(),
+                     direct.compute_mask(dl.Point(*cli_point)),
+                     "dlimg segment", 19)
+        phases = " ".join(line.strip() for line in err.splitlines()
+                          if line.startswith("[dlimg]"))
+        print(f"phase 19 dlimg segment on the route: exit 0 in {took:.1f} s, "
+              f"its mask file equal to the direct call's ({phases})",
+              flush=True)
+        daemon_on_card(daemon)
+        body, ms = daemon.ok("POST", "/v1/sessions", png)
+        times["session (again)"] = [ms]
+        sids = [sid, json.loads(body)["id"]]
+
+        rng = np.random.default_rng(19)
+
+        def point():
+            return int(rng.integers(0, w)), int(rng.integers(0, h))
+
+        def box():
+            x0, x1 = sorted(int(v) for v in rng.integers(0, w, 2))
+            y0, y1 = sorted(int(v) for v in rng.integers(0, h, 2))
+            return x0, y0, x1 + 1, y1 + 1
+
+        def prompt(v):
+            return (dl.Region(dl.Point(*v[:2]), dl.Point(*v[2:]))
+                    if len(v) == 4 else dl.Point(*v))
+
+        def query(v):
+            q = (f"box={v[0]},{v[1]},{v[2]},{v[3]}" if len(v) == 4
+                 else f"point={v[0]},{v[1]}")
+            return daemon.ok("POST", f"/v1/sessions/{sid}/mask?{q}")
+
+        n_points, n_boxes = SERVE_C1
+        c1 = [point() for _ in range(n_points)] + [box()
+                                                   for _ in range(n_boxes)]
+        c1_ms, mask_png = [], None
+        for v in c1:
+            body, ms = query(v)
+            want = direct.compute_mask(prompt(v))
+            served_equal(np, body, want, f"concurrency 1 {v}", 19)
+            c1_ms.append(ms)
+            if mask_png is None:
+                mask_png = (body, np.ascontiguousarray(want.pixels).reshape(
+                    h, w))
+        times["click, concurrency 1"] = c1_ms
+        stats0 = json.loads(daemon.ok("GET", "/v1/stats")[0])
+        c4 = [point() for _ in range(SERVE_C4)]
+        with ThreadPoolExecutor(4) as pool:
+            served = list(pool.map(query, c4))
+        for v, (body, _) in zip(c4, served):
+            served_equal(np, body, direct.compute_mask(prompt(v)),
+                         f"concurrency 4 {v}", 19)
+        times["click, concurrency 4"] = [ms for _, ms in served]
+        stats = json.loads(daemon.ok("GET", "/v1/stats")[0])
+        calls = stats["batched_calls"] - stats0["batched_calls"]
+        if not calls > 0 or stats["batched_prompts"] - \
+                stats0["batched_prompts"] != SERVE_C4:
+            fail(f"phase 19 concurrency 4: batched_calls {calls}, {stats}")
+        p3 = (w // 3, h // 3)
+        body, ms = daemon.ok("POST", f"/v1/sessions/{sid}/mask?point="
+                                     f"{p3[0]},{p3[1]}&all=1")
+        times["all=1"] = [ms]
+        served3 = json.loads(body)["masks"]
+        want3 = direct.compute_masks(dl.Point(*p3))
+        if len(served3) != 3:
+            fail(f"phase 19 all=1: {len(served3)} masks")
+        for i, (got, m) in enumerate(zip(served3, want3)):
+            served_equal(np, base64.b64decode(got["png_base64"]), m.image,
+                         f"all=1 mask {i}", 19)
+            if not abs(got["accuracy"] - m.accuracy) <= 5e-5:  # as %.4f
+                fail(f"phase 19 all=1: accuracy {got['accuracy']} != "
+                     f"{m.accuracy}")
+        iou, stab, nms = serving_check.AMG_THRESHOLDS
+        body, ms = daemon.ok("POST", f"/v1/sessions/{sid}/auto-masks?iou="
+                                     f"{iou}&stability={stab}&nms={nms}"
+                                     f"&max={slots}")
+        times["auto-masks (first: capture)"] = [ms]
+        auto = json.loads(body)["masks"]
+        want = direct.generate_masks(grid=grid, max_masks=slots,
+                                     iou_thresh=iou, stability_thresh=stab,
+                                     nms_thresh=nms)
+        if len(auto) != len(want) or not auto:
+            fail(f"phase 19 /auto-masks: {len(auto)} masks, {len(want)} "
+                 f"direct")
+        for i, (got, m) in enumerate(zip(auto, want)):
+            served_equal(np, base64.b64decode(got["png_base64"]), m.image,
+                         f"/auto-masks mask {i}", 19)
+        seg_point = (w // 2, h // 3)
+        body, ms = daemon.ok("POST", f"/v1/segment?point={seg_point[0]},"
+                                     f"{seg_point[1]}", png)
+        times["segment"] = [ms]
+        served_equal(np, body, direct.compute_mask(dl.Point(*seg_point)),
+                     "/v1/segment", 19)
+        body, ms = daemon.ok("POST", "/v1/remove-bg", png)
+        times["remove-bg (first: capture)"] = [ms]
+        want_obj = np.ascontiguousarray(
+            dl.segment_objects(img, env).pixels).reshape(h, w)
+        worst = int(np.abs(png_pixels(np, body).astype(int)
+                           - want_obj.astype(int)).max())
+        if worst > 1:
+            fail(f"phase 19 /v1/remove-bg: {worst} quanta from the direct "
+                 f"segment_objects")
+        print(f"phase 19 dlimg-serve on the route: {n_points} point and "
+              f"{n_boxes} box clicks at concurrency 1 and {SERVE_C4} at "
+              f"concurrency 4 ({calls} batched calls) equal to compute_mask; "
+              f"all=1 (3 masks), /auto-masks ({len(want)} masks, grid "
+              f"{grid}) and /v1/segment equal to the direct calls'; "
+              f"/v1/remove-bg (BiRefNet_lite general) within {worst} quanta "
+              f"of segment_objects", flush=True)
+        print(f"phase 19 /v1/stats: {daemon.ok('GET', '/v1/stats')[0].decode()}",
+              flush=True)
+        for s_ in sids:
+            daemon.ok("DELETE", f"/v1/sessions/{s_}")
+    finally:
+        cli.kill()
+        code = daemon.stop()
+    if code != 0:
+        fail(f"phase 19: dlimg-serve answered SIGTERM with exit {code}: "
+             f"{''.join(daemon.lines)[-2000:]}")
+    if (leg / serving_check.MARKER).exists():
+        fail("phase 19: dlimg-serve or dlimg started a Python interpreter")
+    mask_bytes, mask_px = mask_png
+    summary = "; ".join(
+        f"{k} " + (" and ".join(f"{ms:.1f}" for ms in v) + " ms" if len(v) <= 2
+                   else f"median {statistics.median(v):.1f} of {len(v)}")
+        for k, v in times.items())
+    embedded = (f"{embedded_click_ms:.1f} ms" if embedded_click_ms
+                else "not run in this process")
+    print(f"e2e dlimg-serve on the Python-free route, MobileSAM {w}x{h} on "
+          f"{gpu_line}, HTTP walls seen from this process (PNG in, PNG out, "
+          f"--batch-window-ms {SERVE_WINDOW_MS}): {summary}; click at "
+          f"concurrency 1: median {statistics.median(c1_ms):.1f} ms on the "
+          f"route, "
+          f"{embedded} in phase 15's embedded-mode daemon", flush=True)
+    print(f"phase 19 a served {w}x{h} mask: {len(mask_bytes)} bytes from the "
+          f"port's PNG encoder, {len(png_bytes(mask_px))} from Pillow's for "
+          f"the same mask", flush=True)
+    print(f"phase 19 daemon leg: SIGTERM answered with exit 0, no "
+          f"interpreter started; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
 
 # Phases 17-19's int8 legs on the Python-free route: (phase, label,
 # variant, the exporter's int8 flags, P2 and P3 per `process`: one a
@@ -6417,8 +6686,8 @@ def main() -> int:
         model_dir = Path(tmp) / "models"
         drive_bridge(torch, np, dl, counters, zero_counters, gpu_line, root,
                      model_dir)
-        drive_c_hosts(torch, np, dl, counters, zero_counters, gpu_line,
-                      model_dir)
+        embedded_click_ms = drive_c_hosts(torch, np, dl, counters,
+                                          zero_counters, gpu_line, model_dir)
 
     # -- 16. the device-memory tool and the examples ----------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -6436,7 +6705,7 @@ def main() -> int:
     int8_s += drive_int8_sam_leg(torch, np, dl, gpu_line, *INT8_SAM_LEGS[2])
 
     # -- 19. generate_masks and segment_objects on that route --------------
-    drive_python_free_amg_birefnet(torch, np, dl, gpu_line)
+    drive_python_free_amg_birefnet(torch, np, dl, gpu_line, embedded_click_ms)
     int8_s += drive_int8_birefnet_leg(torch, np, dl, gpu_line)
     print(f"phases 17-19's int8 legs: {int8_s:.1f} s", flush=True)
 

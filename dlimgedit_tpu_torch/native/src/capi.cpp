@@ -999,10 +999,11 @@ dlimg_Result api_segment_objects(dlimg_ImageView const* img, uint8_t* out_mask,
 dlimg_Result api_load_image(char const* filepath, int* out_extent,
                             int* out_channels, uint8_t** out_pixels) {
   return try_([&]() -> dlimg_Result {
-    // Native codec path first (libpng/libjpeg where the build found them,
-    // plus the built-in containers): no Python involved, mirroring the
-    // reference's stb layer (src/image.cpp:11-23). The bridge (Pillow)
-    // remains the fallback for what the native layer does not handle.
+    // Native codec path first (the port's own PNG codec, libjpeg where
+    // the build found it, the built-in containers): no Python involved,
+    // mirroring the reference's stb layer (src/image.cpp:11-23). The
+    // bridge (Pillow) remains the embedded mode's fallback for containers
+    // the native layer does not read (JPEG without libjpeg, TIFF, ...).
     {
         std::string err;
         int w = 0, h = 0, c = 0;
@@ -1021,10 +1022,12 @@ dlimg_Result api_load_image(char const* filepath, int* out_extent,
     }
     if (serving_bundle()) {
         // Serving mode starts no interpreter: a container the native
-        // codecs do not read is an error here.
+        // codecs do not read (JPEG in a build without libjpeg, TIFF, ...)
+        // is an error here. PNG is always read natively.
         set_error("load_image: unrecognised image format (native codecs: "
-                  "png/jpeg where built, bmp/tga; the Python codec fallback "
-                  "is disabled in serving mode, DLIMG_PJRT_BUNDLE)");
+                  "png, jpeg where built with libjpeg, bmp/tga/pnm/gif/psd/"
+                  "hdr/pic; the Python codec fallback is disabled in serving "
+                  "mode, DLIMG_PJRT_BUNDLE)");
         return dlimg_error;
     }
     if (!PyRuntime::get().ensure()) return dlimg_error;
@@ -1062,31 +1065,23 @@ dlimg_Result api_load_image(char const* filepath, int* out_extent,
 
 dlimg_Result api_save_image(dlimg_ImageView const* img, char const* filepath) {
   return try_([&]() -> dlimg_Result {
-    // Native PNG encoder (libpng) for the reference-supported channel
-    // orders mask/rgb/rgba (image.cpp:25-35); bgra/argb and libpng-less
-    // builds fall through to the bridge (which also rejects bgra/argb,
-    // with a descriptive error).
+    // The native PNG encoder (png.cpp) for the reference-supported channel
+    // orders mask/rgb/rgba (image.cpp:25-35), on every machine. bgra/argb
+    // fall through to the bridge in embedded mode (which also rejects
+    // them, with a descriptive error) and are refused in serving mode.
     if (img->channels == 1 || img->channels == 3 || img->channels == 4) {
         std::string err;
         if (dlimg_native::save_png(filepath, img->pixels, img->width,
                                    img->height, img->channels, img->stride,
                                    &err))
             return dlimg_success;
-        if (!err.empty()) {
-            set_error("save_image: " + err);
-            return dlimg_error;
-        }
+        set_error("save_image: " + err);
+        return dlimg_error;
     }
     if (serving_bundle()) {
-        set_error(img->channels == 1 || img->channels == 3 ||
-                          img->channels == 4
-                      ? "save_image: native PNG encoder unavailable (built "
-                        "without libpng); the Python codec fallback is "
-                        "disabled in serving mode (DLIMG_PJRT_BUNDLE)"
-                      : "save_image: unsupported channel order for the "
-                        "native PNG encoder (mask/rgb/rgba); the Python codec "
-                        "fallback is disabled in serving mode "
-                        "(DLIMG_PJRT_BUNDLE)");
+        set_error("save_image: unsupported channel order for the native PNG "
+                  "encoder (mask/rgb/rgba); the Python codec fallback is "
+                  "disabled in serving mode (DLIMG_PJRT_BUNDLE)");
         return dlimg_error;
     }
     if (!PyRuntime::get().ensure()) return dlimg_error;

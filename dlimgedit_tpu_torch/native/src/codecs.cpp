@@ -1,19 +1,25 @@
-// Native image codecs: libpng/libjpeg + built-in BMP/TGA/PNM/GIF/PSD/HDR/PIC.
+// Native image codecs: the port's own PNG codec (png.cpp), libjpeg where
+// the build finds it, and built-in BMP/TGA/PNM/GIF/PSD/HDR/PIC readers.
 //
-// A copy of the JAX package's native/src/codecs.cpp. Counterpart of the
+// Adapted from the JAX package's native/src/codecs.cpp. Counterpart of the
 // reference's stb-backed layer (its src/image.cpp:11-35) with the same
 // contract: decoded images keep their file-native channel count,
-// restricted to {1,3,4}; saving is PNG-only. Container coverage matches
-// what stbi_load accepts (the reference imposes no format restriction
-// beyond the channel check), including Softimage PIC. Semantics are spec-faithful, with stb's LDR
-// conventions where a conversion is needed: 16-bit samples narrow by
+// restricted to {1,3,4}; saving is PNG-only. PNG reads and writes go
+// through png.cpp on every machine (no libpng): it yields what the JAX
+// package's libpng path yields. Container coverage matches what stbi_load
+// accepts (the reference imposes no format restriction beyond the channel
+// check), including Softimage PIC. Semantics are spec-faithful, with stb's
+// LDR conventions where a conversion is needed: 16-bit samples narrow by
 // taking the high byte, GIF decodes the first frame onto a transparent
 // canvas, HDR tone-maps RGBE with gamma 2.2 / scale 1 (stb's
 // hdr_to_ldr defaults). Divergence, documented: PSD composites are
 // decoded per the spec WITHOUT stb's white-matte removal heuristic.
-// Independent implementation on the system codecs.
+// JPEG without libjpeg is left to the caller (the bridge in embedded
+// mode; an error in serving mode).
 
 #include "codecs.hpp"
+
+#include "png.hpp"
 
 #include <cmath>
 #include <cstdio>
@@ -21,9 +27,6 @@
 #include <cstring>
 #include <vector>
 
-#ifdef DLIMG_HAVE_LIBPNG
-#include <png.h>
-#endif
 #ifdef DLIMG_HAVE_LIBJPEG
 #include <csetjmp>
 #include <jpeglib.h>
@@ -42,80 +45,6 @@ struct File {
     File(File const&) = delete;
     File& operator=(File const&) = delete;
 };
-
-// ---------------------------------------------------------------------------
-// PNG (libpng)
-// ---------------------------------------------------------------------------
-
-#ifdef DLIMG_HAVE_LIBPNG
-
-uint8_t* load_png(std::FILE* f, int* w, int* h, int* channels,
-                  std::string* error) {
-    png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr,
-                                             nullptr, nullptr);
-    png_infop info = png ? png_create_info_struct(png) : nullptr;
-    // Locals written between setjmp and a potential longjmp must be
-    // volatile (C11 7.13.2.1 — non-volatile values are indeterminate after
-    // the jump) and must not have destructors (longjmp skips them), hence
-    // malloc'd row pointers instead of a std::vector.
-    uint8_t* volatile out = nullptr;
-    png_bytep* volatile rows = nullptr;
-    if (!png || !info) {
-        *error = "libpng: allocation failed";
-        png_destroy_read_struct(&png, &info, nullptr);
-        return nullptr;
-    }
-    if (setjmp(png_jmpbuf(png))) {  // libpng error path
-        *error = "libpng: decode failed";
-        std::free(rows);
-        std::free(out);
-        png_destroy_read_struct(&png, &info, nullptr);
-        return nullptr;
-    }
-    png_init_io(png, f);
-    png_read_info(png, info);
-
-    // Normalise to 8-bit {gray, rgb, rgba} keeping the native channel count
-    // (palette -> rgb(a), gray+alpha -> rgba like stb's 2->4 promotion is
-    // NOT done: gray+alpha stays 2ch in stb; the reference rejects 2ch, so
-    // promote GA to RGBA to stay within the {1,3,4} contract).
-    png_set_strip_16(png);
-    png_set_packing(png);
-    png_byte const ct = png_get_color_type(png, info);
-    if (ct == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-    if (ct == PNG_COLOR_TYPE_GRAY && png_get_bit_depth(png, info) < 8)
-        png_set_expand_gray_1_2_4_to_8(png);
-    if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-    // GRAY + tRNS becomes gray+alpha (2ch) after tRNS_to_alpha — promote it
-    // to RGBA exactly like GRAY_ALPHA so the {1,3,4} contract holds.
-    if (ct == PNG_COLOR_TYPE_GRAY_ALPHA ||
-        (ct == PNG_COLOR_TYPE_GRAY &&
-         png_get_valid(png, info, PNG_INFO_tRNS)))
-        png_set_gray_to_rgb(png);
-    png_read_update_info(png, info);
-
-    *w = int(png_get_image_width(png, info));
-    *h = int(png_get_image_height(png, info));
-    *channels = int(png_get_channels(png, info));
-    size_t rowbytes = png_get_rowbytes(png, info);
-    out = static_cast<uint8_t*>(std::malloc(rowbytes * *h));
-    rows = static_cast<png_bytep*>(std::malloc(sizeof(png_bytep) * *h));
-    if (!out || !rows) {
-        *error = "libpng: allocation failed";
-        std::free(rows);
-        std::free(out);
-        png_destroy_read_struct(&png, &info, nullptr);
-        return nullptr;
-    }
-    for (int y = 0; y < *h; ++y) rows[y] = out + size_t(y) * rowbytes;
-    png_read_image(png, rows);
-    png_read_end(png, nullptr);
-    std::free(rows);
-    png_destroy_read_struct(&png, &info, nullptr);
-    return out;
-}
-
-#endif  // DLIMG_HAVE_LIBPNG
 
 // ---------------------------------------------------------------------------
 // JPEG (libjpeg)
@@ -888,19 +817,6 @@ uint8_t* load_psd(std::FILE* f, int* w, int* h, int* channels,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Public entry points
-// ---------------------------------------------------------------------------
-
-bool available() {
-#if defined(DLIMG_HAVE_LIBPNG) && defined(DLIMG_HAVE_LIBJPEG)
-    return true;
-#else
-    return false;
-#endif
-}
-
-
-// ---------------------------------------------------------------------------
 // Softimage PIC (built-in)
 // ---------------------------------------------------------------------------
 //
@@ -1078,6 +994,10 @@ uint8_t* load_pic(std::FILE* f, int* w, int* h, int* channels,
     return out;
 }
 
+// ---------------------------------------------------------------------------
+// Public entry points
+// ---------------------------------------------------------------------------
+
 uint8_t* load_image(char const* path, int* w, int* h, int* channels,
                     std::string* error) {
     error->clear();
@@ -1091,18 +1011,16 @@ uint8_t* load_image(char const* path, int* w, int* h, int* channels,
     std::rewind(file.f);
     if (got >= 4 && magic[0] == 0x89 && magic[1] == 'P' && magic[2] == 'N' &&
         magic[3] == 'G') {
-#ifdef DLIMG_HAVE_LIBPNG
-        uint8_t* out = load_png(file.f, w, h, channels, error);
-#else
-        uint8_t* out = nullptr;
-        error->clear();
-#endif
-        if (out && *channels != 1 && *channels != 3 && *channels != 4) {
-            *error = "unsupported number of channels";
-            std::free(out);
+        std::vector<uint8_t> data;
+        uint8_t chunk[1 << 16];
+        for (size_t n; (n = std::fread(chunk, 1, sizeof chunk, file.f)) > 0;)
+            data.insert(data.end(), chunk, chunk + n);
+        if (std::ferror(file.f)) {
+            *error = std::string("reading ") + path + " failed";
             return nullptr;
         }
-        return out;
+        return dlimg_png::decode(data.data(), data.size(), w, h, channels,
+                                 error);
     }
     if (got >= 2 && magic[0] == 0xFF && magic[1] == 0xD8) {
 #ifdef DLIMG_HAVE_LIBJPEG
@@ -1138,55 +1056,21 @@ uint8_t* load_image(char const* path, int* w, int* h, int* channels,
 
 bool save_png(char const* path, uint8_t const* pixels, int w, int h,
               int channels, int stride, std::string* error) {
-#ifndef DLIMG_HAVE_LIBPNG
-    (void)path;
-    (void)pixels;
-    (void)w;
-    (void)h;
-    (void)channels;
-    (void)stride;
-    error->clear();  // no native encoder -> bridge fallback
-    return false;
-#else
     error->clear();
-    if (channels != 1 && channels != 3 && channels != 4) {
-        *error = "save_png: unsupported channel count";
+    std::vector<uint8_t> data;
+    if (!dlimg_png::encode(pixels, w, h, channels, stride, &data, error))
         return false;
-    }
-    if (stride <= 0) stride = w * channels;
     File file(path, "wb");
     if (!file.f) {
         *error = std::string("cannot open ") + path;
         return false;
     }
-    png_structp png = png_create_write_struct(PNG_LIBPNG_VER_STRING, nullptr,
-                                              nullptr, nullptr);
-    png_infop info = png ? png_create_info_struct(png) : nullptr;
-    if (!png || !info) {
-        *error = "libpng: allocation failed";
-        png_destroy_write_struct(&png, &info);
+    if (std::fwrite(data.data(), 1, data.size(), file.f) != data.size() ||
+        std::fflush(file.f) != 0) {
+        *error = std::string("writing ") + path + " failed";
         return false;
     }
-    if (setjmp(png_jmpbuf(png))) {
-        *error = "libpng: encode failed";
-        png_destroy_write_struct(&png, &info);
-        return false;
-    }
-    png_init_io(png, file.f);
-    int color = channels == 1   ? PNG_COLOR_TYPE_GRAY
-                : channels == 3 ? PNG_COLOR_TYPE_RGB
-                                : PNG_COLOR_TYPE_RGBA;
-    png_set_IHDR(png, info, w, h, 8, color, PNG_INTERLACE_NONE,
-                 PNG_COMPRESSION_TYPE_DEFAULT, PNG_FILTER_TYPE_DEFAULT);
-    png_write_info(png, info);
-    std::vector<png_bytep> rows(h);
-    for (int y = 0; y < h; ++y)
-        rows[y] = const_cast<png_bytep>(pixels + size_t(y) * stride);
-    png_write_image(png, rows.data());
-    png_write_end(png, nullptr);
-    png_destroy_write_struct(&png, &info);
     return true;
-#endif
 }
 
 }  // namespace dlimg_native

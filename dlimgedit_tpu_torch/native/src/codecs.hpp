@@ -1,12 +1,13 @@
-// Native image codecs for the C ABI of the PyTorch port (a copy of the JAX
-// package's native/src/codecs.hpp).
+// Native image codecs for the C ABI of the PyTorch port (adapted from the
+// JAX package's native/src/codecs.hpp).
 //
 // The reference's codec layer is native C (stb, its src/image.cpp:11-35:
-// load PNG/JPEG/BMP/TGA, save PNG). This layer uses the system
-// libpng/libjpeg for the compressed formats, where the build finds them,
-// and small built-in readers for the uncompressed containers — no Python
-// on the codec path. The embedded-Python bridge remains a fallback in
-// capi.cpp for anything these decoders reject.
+// load PNG/JPEG/BMP/TGA, save PNG). This layer reads and writes PNG with
+// the port's own codec (png.hpp, no libpng) on every machine, reads JPEG
+// with the system libjpeg where the build finds it, and has small
+// built-in readers for the uncompressed containers — no Python on the
+// codec path. The embedded-Python bridge remains a fallback in capi.cpp
+// for containers these decoders do not read.
 
 #pragma once
 
@@ -26,8 +27,5 @@ uint8_t* load_image(char const* path, int* w, int* h, int* channels,
 // BYTES; 0 means tight) as PNG. Returns true on success, else sets `error`.
 bool save_png(char const* path, uint8_t const* pixels, int w, int h,
               int channels, int stride, std::string* error);
-
-// True when this build has the native PNG+JPEG codecs compiled in.
-bool available();
 
 }  // namespace dlimg_native

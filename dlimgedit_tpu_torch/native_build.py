@@ -2,23 +2,41 @@
 native/CMakeLists.txt), with the C++ compiler called directly:
 
     python -m dlimgedit_tpu_torch.native_build [--serving]
+    python -m dlimgedit_tpu_torch.native_build --install PREFIX [--serving] [--tgz]
 
 builds (when not built yet) and prints the paths, the compiler and the
-codecs found.
+codecs. With ``--install`` it then writes the package's install tree under
+PREFIX (``install()``): ``lib/`` with the library's soname chain (and with
+``--serving`` the serving library beside it), ``include/dlimgedit/``,
+``bin/dlimg`` and ``bin/dlimg-serve``, and ``lib/cmake/dlimgedit/`` with
+``dlimgeditConfig.cmake`` and its version file, so that a CMake project
+finds it with ``find_package(dlimgedit 1.0 CONFIG)`` and links the
+imported target ``dlimgedit``, as it links the JAX package's install.
+``--tgz`` also writes ``dlimgedit_tpu_torch-linux-x64-1.0.0.tar.gz`` of that
+tree into the current directory (``write_tgz()``).
 
 From ``dlimgedit_tpu_torch/native/`` and ``csrc/hostops.cpp`` it builds
 
   libdlimgedit_tpu_torch.so  the dlimg_Api table (native/src/capi.cpp), the
-                             native codecs (native/src/codecs.cpp) and the
-                             host loops (csrc/hostops.cpp); it embeds the
-                             interpreter that runs this module and imports
-                             ``dlimgedit_tpu_torch.native_bridge``
+                             native codecs (native/src/codecs.cpp and the
+                             port's own PNG codec, native/src/png.cpp) and
+                             the host loops (csrc/hostops.cpp); it embeds
+                             the interpreter that runs this module and
+                             imports ``dlimgedit_tpu_torch.native_bridge``.
+                             Version 1.0.0: the file is
+                             ``libdlimgedit_tpu_torch.so.1.0.0``, its soname
+                             ``libdlimgedit_tpu_torch.so.1``, and
+                             ``libdlimgedit_tpu_torch.so -> .so.1 -> .so.1.0.0``
   dlimg                      the command-line tool (native/tools/cli.cpp)
   dlimg-serve                the HTTP daemon (native/tools/serve.cpp)
   test_cpp_api               the standalone embedder's smoke test
   test_cpp_dynamic           the ``dlopen`` client (DLIMGEDIT_LOAD_DYNAMIC)
+  test_cpp_surface           every declaration of the C++14 header
+  test_codecs                the native codecs, with the interpreter never
+                             started
 
-each executable with an ``$ORIGIN`` rpath to the library, all into
+each executable with the rpath ``$ORIGIN:$ORIGIN/../lib`` (the build
+directory, and an install tree's ``lib/`` from its ``bin/``), all into
 ``dlimgedit_tpu_torch/_build/native_<hash>/``. With ``--serving``
 (``build_serving()``) it also builds, into the same directory,
 
@@ -38,11 +56,12 @@ each executable with an ``$ORIGIN`` rpath to the library, all into
 so the embedded-mode library keeps its build time and links no libtorch.
 The hash covers every source and every flag: the compiler, the
 interpreter's paths (baked into the library: see the head of capi.cpp),
-the codecs and the torch installation. libpng and libjpeg are
-compiled in where a test program that includes their header links against
-them (CMake's ``find_package(PNG)`` / ``find_package(JPEG)`` in
-native/CMakeLists.txt); without them PNG and JPEG files go through the
-bridge (Pillow).
+the codecs and the torch installation. PNG is read and written by the
+port's own codec on every machine (no libpng); libjpeg is compiled in
+where a test program that includes its header links against it (CMake's
+``find_package(JPEG)`` in native/CMakeLists.txt); without it JPEG files go
+through the bridge (Pillow) in embedded mode and are refused in serving
+mode.
 
 Each translation unit compiles in its own process, all started together.
 The build runs at first use under a file lock and is renamed into place
@@ -65,6 +84,7 @@ import shutil
 import subprocess
 import sys
 import sysconfig
+import tarfile
 import tempfile
 import threading
 import time
@@ -79,6 +99,11 @@ NATIVE_DIR = PACKAGE_DIR / "native"
 INCLUDE_DIR = NATIVE_DIR / "include"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIBRARY_NAME = "libdlimgedit_tpu_torch.so"
+VERSION = "1.0.0"  # native/CMakeLists.txt's project(... VERSION 1.0.0)
+SONAME = f"{LIBRARY_NAME}.{VERSION.split('.')[0]}"
+LIBRARY_FILE = f"{LIBRARY_NAME}.{VERSION}"
+# An executable finds the library beside it, or in an install tree's lib/.
+EXE_RPATH = "-Wl,-rpath,$ORIGIN:$ORIGIN/../lib"
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-Wall", "-Wextra", "-pthread"]
 SERVING_LIBRARY = "libdlimgedit_tpu_torch_serving.so"
 SERVING_SOURCES = (NATIVE_DIR / "src" / "torch_backend.cpp",
@@ -92,6 +117,7 @@ SERVING_EXECUTABLES = {
 }
 LIBRARY_SOURCES = (NATIVE_DIR / "src" / "capi.cpp",
                    NATIVE_DIR / "src" / "codecs.cpp",
+                   NATIVE_DIR / "src" / "png.cpp",
                    PACKAGE_DIR / "csrc" / "hostops.cpp")
 # executable -> (source, links the library)
 EXECUTABLES = {
@@ -99,12 +125,16 @@ EXECUTABLES = {
     "dlimg-serve": (NATIVE_DIR / "tools" / "serve.cpp", True),
     "test_cpp_api": (NATIVE_DIR / "test" / "test_cpp_api.cpp", True),
     "test_cpp_dynamic": (NATIVE_DIR / "test" / "test_cpp_dynamic.cpp", False),
+    "test_cpp_surface": (NATIVE_DIR / "test" / "test_cpp_surface.cpp", True),
+    "test_codecs": (NATIVE_DIR / "test" / "test_codecs.cpp", True),
 }
-# codec -> (define, link flag, a program that needs both)
+# Executables that include Python.h and link libpython themselves.
+EMBEDDERS = ("test_codecs",)
+# The codecs every build has (native/src/png.cpp), and the system codecs
+# it compiles in where found: codec -> (define, link flag, a program that
+# needs both).
+BUILTIN_CODECS = ("png",)
 CODECS = {
-    "libpng": ("DLIMG_HAVE_LIBPNG", "-lpng",
-               "#include <png.h>\n"
-               "int main() { return png_access_version_number() == 0; }\n"),
     "libjpeg": ("DLIMG_HAVE_LIBJPEG", "-ljpeg",
                 "#include <cstdio>\n#include <jpeglib.h>\n"
                 "int main() { jpeg_error_mgr e; return !jpeg_std_error(&e); }\n"),
@@ -216,7 +246,7 @@ def _run_all(commands: Dict[str, List[str]]) -> Dict[str, subprocess.CompletedPr
 
 
 def find_codecs(cxx: str, work: Path) -> Tuple[str, ...]:
-    """The codecs whose header and library the compiler finds."""
+    """The system codecs whose header and library the compiler finds."""
     commands = {}
     for name, (_, lib, program) in CODECS.items():
         src = work / f"probe_{name}.cpp"
@@ -233,7 +263,7 @@ class NativeBuild:
 
     directory: Path
     compiler: str
-    codecs: Tuple[str, ...]
+    codecs: Tuple[str, ...]  # BUILTIN_CODECS, then the system codecs found
     seconds: Optional[float]  # None when this process found it built
 
     @property
@@ -318,7 +348,7 @@ class NativeBuilder:
         links = {}
         for name, (_, what) in executables.items():
             extra = {"library": [str(directory / LIBRARY_NAME),
-                                 "-Wl,-rpath,$ORIGIN", "-ldl"],
+                                 EXE_RPATH, "-ldl"],
                      "serving": [str(library), "-Wl,-rpath,$ORIGIN",
                                  *t_ldflags],
                      None: []}[what]
@@ -334,9 +364,10 @@ class NativeBuilder:
         py_cflags, py_ldflags = python_flags()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(prefix="probe-", dir=BUILD_DIR) as t:
-            codecs = find_codecs(cxx, Path(t))
-        codec_cflags = [f"-D{CODECS[c][0]}" for c in codecs]
-        codec_ldflags = [CODECS[c][1] for c in codecs]
+            found = find_codecs(cxx, Path(t))
+        codecs = (*BUILTIN_CODECS, *found)
+        codec_cflags = [f"-D{CODECS[c][0]}" for c in found]
+        codec_ldflags = [CODECS[c][1] for c in found]
         cflags = [*CXX_FLAGS, f"-I{INCLUDE_DIR}", *codec_cflags]
         h = hashlib.sha256(Path(__file__).read_bytes())  # the link lines
         for path in sources():
@@ -372,22 +403,33 @@ class NativeBuilder:
                 "-fvisibility=hidden", "-fvisibility-inlines-hidden",
                 "-c", str(src), "-o", str(obj / (src.stem + ".o"))]
         for name, (src, _) in EXECUTABLES.items():
-            commands[name] = [cxx, *cflags, "-c", str(src),
-                              "-o", str(obj / f"{name}.o")]
+            commands[name] = [cxx, *cflags,
+                              *(py_cflags if name in EMBEDDERS else []),
+                              "-c", str(src), "-o", str(obj / f"{name}.o")]
         _check(_run_all(commands))
-        library = work / LIBRARY_NAME
         _check(_run_all({LIBRARY_NAME: [
-            cxx, "-shared", "-pthread", f"-Wl,-soname,{LIBRARY_NAME}",
-            "-o", str(library),
+            cxx, "-shared", "-pthread", f"-Wl,-soname,{SONAME}",
+            "-o", str(work / LIBRARY_FILE),
             *(str(obj / (src.stem + ".o")) for src in LIBRARY_SOURCES),
             *codec_ldflags, *py_ldflags, "-ldl"]}))
+        soname_chain(work)
         links = {}
         for name, (_, links_library) in EXECUTABLES.items():
-            extra = ([str(library), "-Wl,-rpath,$ORIGIN"] if links_library
+            extra = ([str(work / LIBRARY_NAME), EXE_RPATH] if links_library
                      else ["-ldl"])
+            if name in EMBEDDERS:
+                extra += py_ldflags
             links[name] = [cxx, "-pthread", "-o", str(work / name),
                            str(obj / f"{name}.o"), *extra]
         _check(_run_all(links))
+
+
+def soname_chain(directory: Path) -> None:
+    """``LIBRARY_NAME -> SONAME -> LIBRARY_FILE`` in `directory`, as
+    CMake's VERSION / SOVERSION properties lay it out."""
+    for link, target in ((SONAME, LIBRARY_FILE), (LIBRARY_NAME, SONAME)):
+        (directory / link).unlink(missing_ok=True)
+        (directory / link).symlink_to(target)
 
 
 def _check(results: Dict[str, subprocess.CompletedProcess]) -> None:
@@ -475,26 +517,113 @@ def load_api(library: Path) -> DlimgApi:
     return api
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--serving"]):
-        print("usage: python -m dlimgedit_tpu_torch.native_build [--serving]",
-              file=sys.stderr)
-        return 2
-    serving = argv == ["--serving"]
+# lib/cmake/dlimgedit/ of an install tree: the imported target `dlimgedit`
+# (the JAX package's EXPORT_NAME) and a version file with CMake's
+# AnyNewerVersion rule, as write_basic_package_version_file writes it.
+CMAKE_CONFIG = """\
+# dlimgedit {version}: the C library of the PyTorch port
+# (dlimgedit_tpu_torch), found by find_package(dlimgedit CONFIG). It
+# defines the imported target `dlimgedit`.
+get_filename_component(_dlimgedit_prefix "${{CMAKE_CURRENT_LIST_DIR}}/../../.." ABSOLUTE)
+if(NOT TARGET dlimgedit)
+  add_library(dlimgedit SHARED IMPORTED)
+  set_target_properties(dlimgedit PROPERTIES
+    IMPORTED_LOCATION "${{_dlimgedit_prefix}}/lib/{library_file}"
+    IMPORTED_SONAME "{soname}"
+    INTERFACE_INCLUDE_DIRECTORIES "${{_dlimgedit_prefix}}/include")
+endif()
+unset(_dlimgedit_prefix)
+"""
+CMAKE_CONFIG_VERSION = """\
+# The version of dlimgedit (the PyTorch port's C library), compatible with
+# any request of this version or an older one (AnyNewerVersion).
+set(PACKAGE_VERSION "{version}")
+if(PACKAGE_VERSION VERSION_LESS PACKAGE_FIND_VERSION)
+  set(PACKAGE_VERSION_COMPATIBLE FALSE)
+else()
+  set(PACKAGE_VERSION_COMPATIBLE TRUE)
+  if(PACKAGE_FIND_VERSION STREQUAL PACKAGE_VERSION)
+    set(PACKAGE_VERSION_EXACT TRUE)
+  endif()
+endif()
+if(NOT CMAKE_SIZEOF_VOID_P STREQUAL "8")
+  set(PACKAGE_VERSION "${{PACKAGE_VERSION}} (64bit)")
+  set(PACKAGE_VERSION_UNSUITABLE TRUE)
+endif()
+"""
+INSTALLED_EXECUTABLES = ("dlimg", "dlimg-serve")
+TGZ_NAME = f"dlimgedit_tpu_torch-linux-x64-{VERSION}.tar.gz"
+
+
+def install(prefix: Path, serving: bool = False) -> Path:
+    """The install tree of the build (with the serving library when
+    `serving`) under `prefix`, written anew: -> `prefix`."""
     b = build_serving() if serving else build()
+    prefix = Path(prefix)
+    lib, bin_, inc = prefix / "lib", prefix / "bin", prefix / "include"
+    cmake = lib / "cmake" / "dlimgedit"
+    for d in (lib, bin_, cmake):
+        d.mkdir(parents=True, exist_ok=True)
+    shutil.copy2(b.directory / LIBRARY_FILE, lib / LIBRARY_FILE)
+    soname_chain(lib)
+    if serving:
+        shutil.copy2(b.serving_library, lib / SERVING_LIBRARY)
+    for name in INSTALLED_EXECUTABLES:
+        shutil.copy2(b.executable(name), bin_ / name)
+    shutil.rmtree(inc / "dlimgedit", ignore_errors=True)
+    shutil.copytree(INCLUDE_DIR / "dlimgedit", inc / "dlimgedit")
+    fields = dict(version=VERSION, library_file=LIBRARY_FILE, soname=SONAME)
+    (cmake / "dlimgeditConfig.cmake").write_text(CMAKE_CONFIG.format(**fields))
+    (cmake / "dlimgeditConfigVersion.cmake").write_text(
+        CMAKE_CONFIG_VERSION.format(**fields))
+    return prefix
+
+
+def write_tgz(prefix: Path, directory: Path) -> Path:
+    """``TGZ_NAME`` in `directory`: the tree under `prefix`, its members
+    named from the prefix (lib/, include/, bin/), links kept."""
+    path = Path(directory) / TGZ_NAME
+    with tarfile.open(path, "w:gz") as tar:
+        for entry in sorted(Path(prefix).iterdir()):
+            tar.add(entry, arcname=entry.name)
+    return path
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m dlimgedit_tpu_torch.native_build",
+        description="Build the port's C library and executables; with "
+                    "--install, write the package's install tree.")
+    ap.add_argument("--serving", action="store_true",
+                    help="also build the Python-free serving library")
+    ap.add_argument("--install", metavar="PREFIX",
+                    help="write lib/, include/, bin/ and lib/cmake/dlimgedit/ "
+                         "under PREFIX")
+    ap.add_argument("--tgz", action="store_true",
+                    help=f"with --install, also write {TGZ_NAME} of the "
+                         f"tree into the current directory")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.tgz and not args.install:
+        ap.error("--tgz needs --install PREFIX")
+    b = build_serving() if args.serving else build()
     took = ("already built" if b.seconds is None
             else f"built in {b.seconds:.2f} s")
-    print(f"compiler {b.compiler}; codecs: "
-          f"{', '.join(b.codecs) or 'none (PNG and JPEG through the bridge)'}; "
-          f"{took}")
-    print(f"{'library':<17}{b.library}")
+    print(f"compiler {b.compiler}; codecs: {', '.join(b.codecs)} "
+          f"(png built in; JPEG without libjpeg through the bridge); {took}")
+    print(f"{'library':<17}{b.library} -> {SONAME} -> {LIBRARY_FILE}")
     for name in EXECUTABLES:
         print(f"{name:<17}{b.executable(name)}")
-    if serving:
+    if args.serving:
         print(f"{'serving library':<17}{b.serving_library}")
         for name in SERVING_EXECUTABLES:
             print(f"{name:<17}{b.executable(name)}")
+    if args.install:
+        prefix = install(Path(args.install), args.serving)
+        print(f"{'installed':<17}{prefix.resolve()}")
+        if args.tgz:
+            print(f"{'archive':<17}{write_tgz(prefix, Path.cwd()).resolve()}")
     return 0
 
 

@@ -112,7 +112,7 @@ def main(out_path: str, model_dir: str, birefnet_tree: str, tif: str) -> int:
           "library's first call")
     build = native_build.build()
     api = native_build.load_api(build.library)
-    out = {"codecs": np.array(",".join(build.codecs))}
+    out = {}
 
     def ok(rc, what):
         check(rc == 0, f"{what}: rc {rc}: {api.last_error().decode()}")

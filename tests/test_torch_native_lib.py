@@ -12,9 +12,10 @@ sam_image_size 64 on JAX's seed-0 ``init_sam`` bundle.
   byte for byte against the port's bridge, and against JAX's bridge under
   tests/test_torch_native_bridge.py's rules: masks equal except where
   JAX's logit is within 1e-4 of zero, accuracies within 1e-4 (2e-5 for
-  generated masks), BiRefNet within 1 quantum, image files equal (decoded
-  pixels where the build has libpng: the library encodes with it, the
-  bridges with Pillow). The worker checks the error paths: backend 1
+  generated masks), BiRefNet within 1 quantum, image files written by the
+  library's own PNG encoder decoded to the saved pixels by both the
+  library and JAX's bridge, and within 4x of the bytes JAX's bridge
+  (Pillow) writes. The worker checks the error paths: backend 1
   without CUDA, and DLIMG_PJRT_BUNDLE naming a directory that is no
   serving bundle, fail with the port's messages.
 - ``dlimg segment`` writes the port's Python API's mask; ``dlimg
@@ -252,13 +253,12 @@ def test_image_files_match_jax(worker_out, tmp_path, code, pad):
     out, tmp = worker_out
     src = lw.pixels(code, 30 + code)
     assert out[f"loaded_{code}"].tobytes() == src.tobytes()
-    written = tmp / f"lib_{code}.png"
+    written = tmp / f"lib_{code}.png"  # the port's own PNG encoder's
     assert jnb.load_image(str(written)) == (W, H, code, src.tobytes())
-    if "libpng" not in str(out["codecs"]).split(","):  # the bridge wrote it
-        buf, stride = _buffer(src, pad)
-        jnb.save_image(ctypes.addressof(buf), W, H, code, stride,
-                       str(tmp_path / "jax.png"))
-        assert written.read_bytes() == (tmp_path / "jax.png").read_bytes()
+    buf, stride = _buffer(src, pad)
+    jnb.save_image(ctypes.addressof(buf), W, H, code, stride,
+                   str(tmp_path / "jax.png"))
+    assert written.stat().st_size <= 4 * (tmp_path / "jax.png").stat().st_size
 
 
 def test_bridge_codecs_match_jax(worker_out):
