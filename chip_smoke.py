@@ -52,9 +52,11 @@ printing its seconds:
      greedy_nms (an IoU bitmask kernel, then a one-warp scan, one call) at M = 256, 2304, 9216 and 14400 on seeded overlapping boxes,
      keep flags bit for bit against the plain row loop and a numpy
      mirror, each timed; then K1's time at
-     each of MobileSAM's shapes, back to back and inside a CUDA graph of
+     each of MobileSAM's shapes and of phase 12's sp-shard shapes (1372 and
+     2548 rows at 768 and 1280), back to back and inside a CUDA graph of
      100 launches (as the graphed main path runs it), beside an empty
-     kernel's both ways (the launch floor); P2 and P3 at every (M, K, N)
+     kernel's both ways (the launch floor) and with the launch plan the
+     kernel library computes for each; P2 and P3 at every (M, K, N)
      of the w8a8 main paths of phase 9, bit for bit against their plain
      versions in bf16 and float32 (P2's row scales spread over e^{+-2}),
      each bf16 linear shape also timed as cuBLASLt's s8 x s8 product
@@ -1418,52 +1420,77 @@ def check_nms_kernel(torch, np, ops):
 
 
 def k1_launch_floor(torch, ops, entries, restore_counters):
-    """K1 at each of MobileSAM's shapes (µs, bound), timed back to back as
-    phase 2 times it and inside a CUDA graph of 100 launches (as the main
-    path runs it since its executables are graphs), beside an empty kernel
-    (`torch.cuda._sleep(0)`) timed both ways, and the in-graph sum over
-    MobileSAM's main-path launches against the bound's."""
+    """K1 at each of MobileSAM's shapes and at phase 12's sp-shard shapes
+    (the windowed blocks' rows of 13 and 7 windows at ViT-B's and ViT-H's
+    widths, where most of K1's launches are), timed back to back as phase 2
+    times it and inside a CUDA graph of 100 launches (as the graphed main
+    path runs it), each beside its bound and its bound plus the launch floor
+    (an empty kernel, `torch.cuda._sleep(0)`, timed both ways), with the
+    launch plan the kernel library computes for it (lanes a row, rows a
+    warp, warps a block, blocks, row groups a warp); then the in-graph sums
+    over MobileSAM's main-path launches and over the sp shards' against
+    their bounds."""
+    import ctypes
+
+    from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
+
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     side = torch.cuda.Stream()
-    rows = {label: (ms, bound) for label, ms, bound in entries.rows}
-    graph_sum = bound_sum = 0.0
-    for n, C, eps, per in LN_SHAPES:
-        ms, bound = rows[ln_label(n, C)]
-        x = torch.randn((n, C), generator=gen, device=dev).to(torch.bfloat16)
-        scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)
-                 ).to(torch.bfloat16)
-        bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25
-                ).to(torch.bfloat16)
+
+    def in_graph_us(fn):
         graph = torch.cuda.CUDAGraph()
         side.wait_stream(torch.cuda.current_stream())
-        with restore_counters():
-            with torch.cuda.stream(side):
-                ops.fused_layer_norm(x, scale, bias, eps)
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(graph, stream=side):
-                for _ in range(100):
-                    ops.fused_layer_norm(x, scale, bias, eps)
-        in_graph = time_ms(torch, graph.replay) * 1e3 / 100
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(100):
+                fn()
+        us = time_ms(torch, graph.replay) * 1e3 / 100
         del graph
-        graph_sum += in_graph * per * len(IMAGES) / 1e3
-        bound_sum += bound * per * len(IMAGES)
-        print(f"K1 at MobileSAM's ({n},{C}): {ms * 1e3:.2f} us back to back, "
-              f"{in_graph:.2f} us in a CUDA graph of 100, bound "
-              f"{bound * 1e3:.2f} us ({bound * 1e3 / in_graph:.0%} of the "
-              f"in-graph time)")
-    eager_us = time_ms(torch, lambda: torch.cuda._sleep(0)) * 1e3
-    side.wait_stream(torch.cuda.current_stream())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(100):
-            torch.cuda._sleep(0)
-    graph_us = time_ms(torch, graph.replay) * 1e3 / 100
-    print(f"an empty kernel: {eager_us:.2f} us a launch back to back, "
-          f"{graph_us:.2f} us a kernel in a CUDA graph of 100", flush=True)
-    print(f"K1 over MobileSAM's {LN_PER_PROCESS * len(IMAGES)} main-path "
-          f"launches, in CUDA graphs: {graph_sum:.5f} ms against a bound of "
-          f"{bound_sum:.5f} ms ({bound_sum / graph_sum:.0%})", flush=True)
+        return us
+
+    eager_floor = time_ms(torch, lambda: torch.cuda._sleep(0)) * 1e3
+    graph_floor = in_graph_us(lambda: torch.cuda._sleep(0))
+    print(f"an empty kernel: {eager_floor:.2f} us a launch back to back, "
+          f"{graph_floor:.2f} us a kernel in a CUDA graph of 100", flush=True)
+    rows = {label: (ms, bound) for label, ms, bound in entries.rows}
+    sp = [(n, C, 1e-6, per) for n, C, per in phase12_shapes()["vit_ln"]
+          if n % 196 == 0]  # a shard's windows of 14 x 14 tokens
+    sums = {}
+    for group, shapes, images in (("MobileSAM's", LN_SHAPES, len(IMAGES)),
+                                  ("the sp shards'", sp, 1)):
+        for n, C, eps, per in shapes:
+            ms, bound = rows[ln_label(n, C)]
+            x = torch.randn((n, C), generator=gen, device=dev).to(torch.bfloat16)
+            scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)
+                     ).to(torch.bfloat16)
+            bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25
+                    ).to(torch.bfloat16)
+            side.wait_stream(torch.cuda.current_stream())
+            with restore_counters():
+                with torch.cuda.stream(side):  # warm-up off the capture
+                    ops.fused_layer_norm(x, scale, bias, eps)
+                torch.cuda.current_stream().wait_stream(side)
+                in_graph = in_graph_us(
+                    lambda: ops.fused_layer_norm(x, scale, bias, eps))
+            plan = (ctypes.c_int * 5)()
+            if LIBRARY.get().dlimg_layer_norm_plan(n, C, 1, plan):
+                fail(f"dlimg_layer_norm_plan ({n},{C}) failed")
+            total = sums.setdefault(group, [0, 0.0, 0.0])
+            total[0] += per * images
+            total[1] += in_graph * per * images / 1e3
+            total[2] += bound * per * images
+            print(f"K1 at {group} ({n},{C}): {ms * 1e3:.2f} us back to back "
+                  f"(bound + floor {bound * 1e3 + eager_floor:.2f}), "
+                  f"{in_graph:.2f} us in a CUDA graph of 100 (bound + floor "
+                  f"{bound * 1e3 + graph_floor:.2f}), bound "
+                  f"{bound * 1e3:.2f} us ({bound * 1e3 / in_graph:.0%} of the "
+                  f"in-graph time); plan (lanes a row, rows a warp, warps a "
+                  f"block, blocks, row groups a warp) {tuple(plan)}",
+                  flush=True)
+    for group, (launches, graph_sum, bound_sum) in sums.items():
+        print(f"K1 over {group} {launches} main-path launches, in CUDA "
+              f"graphs: {graph_sum:.5f} ms against a bound of "
+              f"{bound_sum:.5f} ms ({bound_sum / graph_sum:.0%})", flush=True)
 
 
 def rgba(np, h: int, w: int, seed: int):

@@ -44,6 +44,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, scale, bias, out, rows, cols, dtype, eps, stream
     "dlimg_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
+    # rows, cols, dtype, plan (5 ints out: K1's launch plan)
+    "dlimg_layer_norm_plan": [_I, _I, _I, _VP],
     # x, d, scale, bias, s_out, out, rows, cols, dtype, eps, stream
     "dlimg_add_layer_norm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP],
     # qkv, bias, out, g, n, nh, kd, dtype, scale, stream

@@ -4,7 +4,8 @@ Counterparts of dlimgedit_tpu/ops/fused_norm.py:64 ``fused_layer_norm``
 (K1) and :98 ``fused_add_layer_norm`` (K3, residual add + LayerNorm). On a
 CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/fused_layer_norm.cu`` (one read and one write of each activation,
-float32 statistics in registers). On a CPU tensor it computes the plain
+float32 statistics in registers; K1 moves 16 bytes a lane at a time, so its
+inputs must start on 16-byte boundaries). On a CPU tensor it computes the plain
 PyTorch version, ``layer_norm_plain`` or ``fused_add_layer_norm_plain``;
 the first is also what ``models.common.layer_norm`` runs.
 """
@@ -44,7 +45,7 @@ def fused_add_layer_norm_plain(x: torch.Tensor, delta: torch.Tensor,
     return s, layer_norm_plain(s, scale, bias, eps)
 
 
-def _check(name, x, scale, bias, delta=None):
+def _check(name, x, scale, bias, delta=None, aligned=False):
     C = x.shape[-1]
     if tuple(scale.shape) != (C,) or tuple(bias.shape) != (C,):
         raise DlimgError(f"{name}: scale {tuple(scale.shape)} and "
@@ -67,6 +68,9 @@ def _check(name, x, scale, bias, delta=None):
                          f"(have {KERNEL_WIDTHS})")
     if not all(t.is_contiguous() for t in tensors):
         raise DlimgError(f"{name}: inputs must be contiguous")
+    if aligned and any(t.data_ptr() % 16 for t in tensors):
+        raise DlimgError(f"{name}: the CUDA kernel reads 16 bytes at a time: "
+                         f"every input must start on a 16-byte boundary")
 
 
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -76,7 +80,7 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     CUDA tensors go through the K1 kernel (and count one launch in
     ``fused_layer_norm.launches``); CPU tensors through
     ``layer_norm_plain``."""
-    _check("fused_layer_norm", x, scale, bias)
+    _check("fused_layer_norm", x, scale, bias, aligned=True)
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     if not x.is_cuda:

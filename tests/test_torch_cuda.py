@@ -8,7 +8,10 @@ nor the JAX package, so on a GPU machine without JAX it runs with
 
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
-bf16 atol 2e-2. K3's s must equal the plain x + d bit for bit, and K8
+bf16 atol 2e-2. K1 runs at every width in both dtypes at row counts that
+its row groups, blocks and waves split unevenly, and refuses (raises, and
+its C entry point returns an error) an input that does not start on 16
+bytes. K3's s must equal the plain x + d bit for bit, and K8
 (the gather probe) its plain version: both sum in the same order.
 
 K2's large-bias case (bias of scale 4, bf16) fails at 2e-2 if the bias is
@@ -98,7 +101,9 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     windowed_attention_qkv,
     windowed_attention_qkv_plain,
 )
+from dlimgedit_tpu_torch.ops.cuda_build import DTYPE_CODES, LIBRARY
 from dlimgedit_tpu_torch.ops.fused_norm import (
+    KERNEL_WIDTHS,
     fused_add_layer_norm,
     fused_add_layer_norm_plain,
     fused_layer_norm,
@@ -130,7 +135,14 @@ def dev():
 @pytest.mark.parametrize("shape,eps", [((3 * 49, 128), 1e-5), ((2, 7, 160), 1e-5),
                                        ((33, 320), 1e-5), ((1, 4, 4, 256), 1e-6),
                                        ((1, 9, 7, 768), 1e-6), ((37, 1024), 1e-6),
-                                       ((65, 1280), 1e-6)])
+                                       ((65, 1280), 1e-6)] + [
+    # every width at row counts of 1 and 7 (a part of one row group), the sp
+    # shards' 1372 and 2548, MobileSAM's 17689 (more rows than a wave holds
+    # at the ViT widths: each warp walks several row groups), and 4097 and
+    # 70757, one past a multiple of any block's rows (at most 32) and, for
+    # 70757, more than a wave holds at every width
+    ((rows, C), 1e-6) for C in KERNEL_WIDTHS
+    for rows in (1, 7, 1372, 2548, 4097, 17689, 70757)])
 def test_fused_layer_norm_kernel_matches_plain(dev, shape, eps, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     C = shape[-1]
@@ -339,6 +351,37 @@ def test_kernels_raise_instead_of_falling_back(dev):
         relpos_attention_global(q, q, q, bhw, 7, 7)
     with pytest.raises(DlimgError):
         relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_norm_refuses_misaligned_inputs(dev, dtype):
+    """K1 moves 16 bytes a lane: a contiguous view 8 bytes off a 16-byte
+    boundary raises in the wrapper, and the C entry point, which the C++
+    serving library calls without the wrapper's checks, refuses it too
+    (cudaErrorInvalidValue) instead of faulting."""
+    C, rows = 128, 4
+    skip = 8 // torch.empty((), dtype=dtype).element_size()
+    base = torch.randn(rows * C + 16, device=dev).to(dtype)
+    x = base[skip:skip + rows * C].view(rows, C)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    scale = torch.ones(C, device=dev, dtype=dtype)
+    bias = torch.zeros(C, device=dev, dtype=dtype)
+    before = fused_layer_norm.launches
+    with pytest.raises(DlimgError, match="16-byte"):
+        fused_layer_norm(x, scale, bias)
+    with pytest.raises(DlimgError, match="16-byte"):
+        fused_layer_norm(base[:rows * C].view(rows, C), base[skip:skip + C], bias)
+    assert fused_layer_norm.launches == before
+    out = torch.empty((rows, C), device=dev, dtype=dtype)
+    rc = LIBRARY.get().dlimg_layer_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), rows,
+        C, DTYPE_CODES[str(dtype)], 1e-6, torch.cuda.current_stream().cuda_stream)
+    assert rc == 1  # cudaErrorInvalidValue
+    aligned = base[2 * skip:2 * skip + rows * C].view(rows, C)
+    assert aligned.data_ptr() % 16 == 0
+    torch.testing.assert_close(fused_layer_norm(aligned, scale, bias).float(),
+                               layer_norm_plain(aligned, scale, bias, 1e-6).float(),
+                               atol=TOL[dtype][0], rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -23,7 +23,11 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     levit_window_attention,
     levit_window_attention_plain,
 )
-from dlimgedit_tpu_torch.ops.fused_norm import fused_layer_norm, layer_norm_plain
+from dlimgedit_tpu_torch.ops.fused_norm import (
+    KERNEL_WIDTHS,
+    fused_layer_norm,
+    layer_norm_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -50,6 +54,10 @@ def _f32(x) -> np.ndarray:
     ((2, 7, 160), 1e-5),      # stage 2, rank 3
     ((5, 320), 1e-5),         # stage 3
     ((1, 4, 4, 256), 1e-6),   # neck, NHWC
+] + [
+    # ragged row counts, which the CUDA kernel's row groups and blocks split
+    # unevenly, at every width it has
+    ((rows, C), 1e-6) for C in KERNEL_WIDTHS for rows in (1, 3, 37, 197)
 ])
 def test_fused_layer_norm_matches_pallas(shape, eps, dtype):
     rng = np.random.default_rng(0)
