@@ -15,8 +15,10 @@ and K2 at the bands' rows and windows):
                                                  tensor cores), levit_attention.cu
                                                  (float32)
   K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
-  K7 relpos_attention_qkv                        tensor cores), relpos_attention.cu
-                                                 (float32)
+  K7 relpos_attention_qkv                        tensor cores); float32 K4 and K5
+                                                 relpos_attention_f32tc.cu (tensor
+                                                 cores, three TF32 passes), K7
+                                                 relpos_attention.cu (CUDA cores)
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
                                                  window_strip_attention.cu (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
@@ -33,7 +35,8 @@ printing its seconds:
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
      wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
-     mma.sync) spills or is missing from the report;
+     mma.sync; relpos_attention_f32tc.cu: float32 K4 and K5 on mma.sync
+     in three TF32 passes) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it (also
      the batched shapes of phases 10 and 11: MobileSAM's K1 and K2 and
@@ -68,14 +71,19 @@ printing its seconds:
      other phase runs with PyTorch's defaults, under which the port's
      entry points keep float32 at full precision themselves (every
      executable enters models/common.py::full_precision). In
-     bf16 it times kernel, plain version, the library yardstick
+     bf16, and in float32 at the main paths' shapes (K1-K6; K7 at its
+     own; the frames, sp and band shapes are held for values only), it
+     times kernel, plain version, the library yardstick
      (F.layer_norm; x + d then F.layer_norm, two calls;
      F.scaled_dot_product_attention with the materialised float bias, on
      the partitioned windows for K6 - it also prints SDPA's time with
      that partition, which K6 does not need, and of the partition alone;
      none for K8; timed only, never used by the port) and computes the
      least time the card could take
-     (bound); it prints kernel / library for each attention shape;
+     (bound; in float32 its products at a third of the TF32 tensor-core
+     peak, PEAK_F32_TC_FLOPS); it prints kernel / library for each
+     attention shape; the float32 rows go into the {"kernels": ...} line
+     as "<name>/float32", summed over phase 4's float32 `process` calls;
   3. checks the port on the card against the port on the CPU (float32,
      PyTorch's default TF32 flags in force):
      MobileSAM at image size 64 (embedding within 1e-4, masks equal) and
@@ -114,7 +122,12 @@ printing its seconds:
      launches K7 (no path of either package calls JAX's
      windowed_attention_qkv) or K8 (a measurement tool). Masks must be
      {0, 255} at the original extent. The embedding is held against the
-     plain path (kernels off): in float32 within relative L2 1e-5; in bf16
+     plain path (kernels off): in float32 within relative L2 1e-5 (that
+     float32 `process` with the kernels on, one an image, is the float32
+     bodies' main path: its launches are counted and checked as above, and
+     for ViT-B and ViT-H the graphed float32 `process_ms` at 1024x768 is
+     printed with the kernels on and off, medians of 5 after 2 warm-ups);
+     in bf16
      its relative L2 distance to the float32 result may be at most 1.1x the
      bf16 plain path's (the two bf16 paths round independently). It
      prints each path's device memory (max_memory_allocated above what
@@ -457,6 +470,14 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12           # float32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12      # bf16 tensor cores, dense
+# The float32 bound: max(bytes / HBM_BYTES_PER_S, products /
+# PEAK_F32_TC_FLOPS + other float32 operations / PEAK_F32_FLOPS). A
+# float32-accurate product costs three TF32 passes on the tensor cores
+# (hi.hi + hi.lo + lo.hi, hi = TF32(x), lo = TF32(x - hi); 495 TFLOP/s
+# dense TF32), the cheapest such product on this card. The same rule for
+# every float32 body, CUDA-core or tensor-core, so the yardstick does not
+# move with the design.
+PEAK_F32_TC_FLOPS = 495e12 / 3
 
 # Main-path shapes of one MobileSAM `process` call at image size 1024:
 # (rows, C, eps, launches per process) for K1 ...
@@ -734,13 +755,16 @@ SERVE_C4 = 16
 SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
-# The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu)
-# and bf16 K2 (csrc/levit_attention_tc.cu): phase 1 fails if one is missing
+# The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu),
+# bf16 K2 (csrc/levit_attention_tc.cu) and float32 K4 and K5 in three TF32
+# passes (csrc/relpos_attention_f32tc.cu): phase 1 fails if one is missing
 # from nvcc's report or spills.
-TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu"}
+TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu",
+              "relpos_attention_f32tc.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
-              "levit_window_kernel_tc")
+              "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
+              "relpos_window_kernel_f32tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
@@ -777,6 +801,32 @@ KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
      "dlimgedit_tpu/ops/quant.py:75"),
 )
 QUANT_KERNELS = ("quantize_rows_int8", "int8_epilogue")
+# The float32 bodies of K1-K7, timed in phase 2 at the main paths' shapes
+# (K7 at its own) and listed in the {"kernels": ...} line under
+# f32_key(name), with their own sources; their launches are those of phase
+# 4's float32 `process` calls with the kernels on.
+F32_SUFFIX = "/float32"
+# The variants whose graphed float32 `process` phase 4 times at 1024x768,
+# kernels on and off.
+F32_TIMED_VARIANTS = ("vit_b", "vit_h")
+F32_SOURCES = {
+    "fused_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+    "levit_window_attention": "dlimgedit_tpu_torch/csrc/levit_attention.cu",
+    "fused_add_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+    "relpos_attention_global":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
+    "relpos_attention_windowed":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
+    "windowed_attention_fused":
+        "dlimgedit_tpu_torch/csrc/window_strip_attention.cu",
+    "relpos_attention_qkv": "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+}
+
+
+def f32_key(name: str) -> str:
+    return name + F32_SUFFIX
+
+
 # The kernels the Python-free route's serving library also launches from
 # C++ (phases 17-19, counted there and not in the sums).
 FROM_CPP = ("fused_layer_norm", "levit_window_attention",
@@ -891,21 +941,25 @@ def window_label(G, N, hd, n_w, valid_rows):
 
 
 class Entries:
-    """Per-kernel sums over the main paths' launches (bf16 only), and the
-    numbers of one call at each kernel's first shape (for a kernel that no
-    main path launches). A kernel with no library yardstick records None."""
+    """Per-kernel sums over the main paths' launches, and the numbers of
+    one call at each kernel's first shape (for a kernel that no main path
+    launches). bf16 under the kernel's name; float32 (timed at the main
+    paths' shapes only, summed over phase 4's float32 `process` launches)
+    under ``f32_key(name)``. A kernel with no library yardstick records
+    None."""
 
     TIMES = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
 
     def __init__(self):
         self.by_name = {}
         self.first = {}
-        self.rows = []  # (label, kernel ms, bound ms) per shape
+        self.rows = []  # (label, dtype name, kernel ms, bound ms) per shape
         self.per_shape = {}  # (name, label) -> the times of one launch
 
     def record(self, label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
                launches, images=len(IMAGES)):
-        self.rows.append((label, ms, max(bytes_ms, ops_ms)))
+        dname = "float32" if name.endswith(F32_SUFFIX) else "bfloat16"
+        self.rows.append((label, dname, ms, max(bytes_ms, ops_ms)))
         vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
         self.first.setdefault(name, vals)
         self.per_shape.setdefault((name, label), vals)
@@ -939,12 +993,16 @@ class Entries:
 
 def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
                  nbytes, flops_mm, flops_f32, launches, entries, compare=None,
-                 images=len(IMAGES)):
-    """One kernel at one shape: max |kernel - plain| within `tol`; in bf16
-    also the times of kernel, plain version and library call (None: there
-    is no library yardstick), and the bound from the bytes moved and the
-    operations done. Returns the library call's time (None in float32 or
-    without a yardstick)."""
+                 images=len(IMAGES), f32_timed=False):
+    """One kernel at one shape: max |kernel - plain| within `tol`; in bf16,
+    and in float32 where ``f32_timed`` (the main paths' shapes), also the
+    times of kernel, plain version and library call (None: there is no
+    library yardstick), and the bound from the bytes moved and the
+    operations done: ``flops_mm`` products at the dtype's tensor-core rate
+    (float32: PEAK_F32_TC_FLOPS), ``flops_f32`` other operations at
+    PEAK_F32_FLOPS. A float32 entry is recorded under ``f32_key(name)``.
+    Returns the library call's time (None when not timed or without a
+    yardstick)."""
     t0 = time.perf_counter()
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -953,7 +1011,8 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
     del out, ref
     if not err <= tol:
         fail(f"{label} {dname}: max|diff| {err} > {tol}")
-    if dname != "bfloat16":
+    bf16 = dname == "bfloat16"
+    if not bf16 and not f32_timed:
         print(f"{label} {dname}: max|diff|={err:.3e} (atol {tol:g}) "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
         return None
@@ -961,7 +1020,8 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
     plain_ms = time_ms(torch, plain, PLAIN_SAMPLES, PLAIN_PER_SAMPLE)
     lib_ms = None if library is None else time_ms(torch, library)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (flops_mm / PEAK_BF16_TC_FLOPS + flops_f32 / PEAK_F32_FLOPS) * 1e3
+    ops_ms = (flops_mm / (PEAK_BF16_TC_FLOPS if bf16 else PEAK_F32_TC_FLOPS)
+              + flops_f32 / PEAK_F32_FLOPS) * 1e3
     lib = ("none" if lib_ms is None
            else f"{lib_ms:.5f} (kernel/library {ms / lib_ms:.2f}x)")
     print(f"{label} {dname} x{launches}: max|diff|={err:.3e} (atol {tol:g}) "
@@ -969,8 +1029,8 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
           f"bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-    entries.record(label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
-                   launches, images)
+    entries.record(label, name if bf16 else f32_key(name), err, ms, plain_ms,
+                   lib_ms, bytes_ms, ops_ms, launches, images)
     return lib_ms
 
 
@@ -984,11 +1044,14 @@ def nvcc_report(build_log: str):
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"([a-z_]+_kernel(?:_tc)?)I(.*)EEv", m.group(1))
+            name = re.search(r"([a-z_]+_kernel(?:_f32tc|_tc)?)I(.*)EEv",
+                             m.group(1))
             if name:
                 targs = name.group(2)
                 dtype = ("bf16 " if "bfloat16" in targs
-                         else "f32 " if targs.startswith("f") else "")
+                         else "f32 " if (targs.startswith("f")
+                                         or name.group(1).endswith("_f32tc"))
+                         else "")
                 kernel = (name.group(1), dtype + ",".join(
                     re.findall(r"L[ib](\d+)E", targs)))
             else:
@@ -1006,10 +1069,12 @@ def nvcc_report(build_log: str):
 
 
 def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
-                  attn_shapes=ATTN_SHAPES, images=len(IMAGES)):
+                  attn_shapes=ATTN_SHAPES, images=len(IMAGES),
+                  f32_timed=False):
     """Phase 2, MobileSAM's kernels K1 and K2 at their main-path shapes
     (``images``: the calls of the counted main-path run per shape's
-    launches: phase 4's two images, or phase 10's one batch)."""
+    launches: phase 4's two images, or phase 10's one batch; ``f32_timed``:
+    the float32 bodies timed too, at the main paths' shapes)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -1017,7 +1082,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
-        mm_flops = 1.0 if dtype == torch.bfloat16 else 0.0
+        tensor_cores = dtype == torch.bfloat16
         for rows, C, eps, per in ln_shapes:
             x = torch.randn((rows, C), generator=gen, device=dev).to(dtype)
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
@@ -1028,7 +1093,8 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
                 lambda: ops.layer_norm_plain(x, scale, bias, eps),
                 lambda: F.layer_norm(x, (C,), scale, bias, eps),
                 TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
-                7 * rows * C, per, entries, images=images)
+                7 * rows * C, per, entries, images=images,
+                f32_timed=f32_timed)
         for G, N, nh, per in attn_shapes:
             kd = 32
             qkv = torch.randn((G, N, nh * 3 * kd), generator=gen, device=dev).to(dtype)
@@ -1038,14 +1104,14 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
             mask = bias[None].expand(G, nh, N, N)
             mm = 4 * G * nh * N * N * kd
             check_kernel(
-                torch, levit_label(G, N, nh, mm_flops),
+                torch, levit_label(G, N, nh, tensor_cores),
                 "levit_window_attention", dname,
                 lambda: ops.levit_window_attention(qkv, bias, nh),
                 lambda: ops.levit_window_attention_plain(qkv, bias, nh),
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                 TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
-                mm * mm_flops, 7 * G * nh * N * N + mm * (1 - mm_flops), per,
-                entries, images=images)
+                mm, 7 * G * nh * N * N, per, entries, images=images,
+                f32_timed=f32_timed)
 
 
 def same_bits(a, b) -> float:
@@ -1134,11 +1200,13 @@ def relpos_mask(torch, bhw, grid_h, grid_w, folded, scale, dtype):
 def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                       add_ln_shapes=VIT_ADD_LN_SHAPES,
                       global_shapes=VIT_GLOBAL_SHAPES,
-                      window_shapes=VIT_WINDOW_SHAPES, images=len(IMAGES)):
+                      window_shapes=VIT_WINDOW_SHAPES, images=len(IMAGES),
+                      f32_timed=False):
     """Phase 2, the SAM ViT's kernels: K1 at the ViT widths, K3, K4, K5 at
     ViT-B's, ViT-L's and ViT-H's shapes at 1024, rel-pos tables nonzero
-    (``images`` as in ``check_kernels``). A window shape with n_w None
-    runs K5 without the pad-query skip (a batch of frames)."""
+    (``images`` and ``f32_timed`` as in ``check_kernels``). A window shape
+    with n_w None runs K5 without the pad-query skip (a batch of
+    frames)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -1146,7 +1214,6 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
-        bf16 = dtype == torch.bfloat16
         for (rows, C, per), (_, _, per3) in zip(ln_shapes, add_ln_shapes):
             x, d = (torch.randn((rows, C), generator=gen, device=dev).to(dtype)
                     for _ in range(2))
@@ -1159,7 +1226,8 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                     lambda: ops.layer_norm_plain(x, scale, bias, 1e-6),
                     lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
                     TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
-                    7 * rows * C, per, entries, images=images)
+                    7 * rows * C, per, entries, images=images,
+                    f32_timed=f32_timed)
             if per3 is None:  # only K1 at this shape
                 continue
 
@@ -1176,7 +1244,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 lambda: F.layer_norm(x + d, (C,), scale, bias, 1e-6),
                 TOL[("ln", dname)], (4 * rows * C + 2 * C) * es, 0,
                 8 * rows * C, per3, entries, compare=add_err,
-                images=images)
+                images=images, f32_timed=f32_timed)
         for nh, g, hd, per in global_shapes:
             N = g * g
             q, k, v = (torch.randn((nh, N, hd), generator=gen, device=dev).to(dtype)
@@ -1194,8 +1262,8 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], attn_mask=mask[None]),
                 TOL[("attn", dname)], (4 * nh * N * hd + nh * N * 2 * g) * es,
-                mm if bf16 else 0, 7 * nh * N * N + (0 if bf16 else mm), per,
-                entries, images=images)
+                mm, 7 * nh * N * N, per, entries, images=images,
+                f32_timed=f32_timed)
             del mask
         for W, nh, ws, hd, n_w, valid_rows, per in window_shapes:
             N, G = ws * ws, W * nh
@@ -1227,8 +1295,8 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                     q[None], k[None], v[None], attn_mask=mask[None]),
                 TOL[("attn", dname)],
                 (2 * G * N * hd + rows * (hd + 2 * ws) + G * N * hd) * es,
-                mm if bf16 else 0, 7 * rows * N + (0 if bf16 else mm), per,
-                entries, compare=win_err, images=images)
+                mm, 7 * rows * N, per, entries, compare=win_err,
+                images=images, f32_timed=f32_timed)
             del mask
 
 
@@ -1273,8 +1341,7 @@ def check_window_kernels(torch, ops, entries):
                     qw[None], kw[None], vw[None], attn_mask=mask[None]),
                 TOL[("attn", dname)],
                 (4 * B * grid * grid * C + 2 * ws * ws * hd) * es,
-                mm if bf16 else 0, 7 * G * n * n + (0 if bf16 else mm), per,
-                entries)
+                mm, 7 * G * n * n, per, entries, f32_timed=True)
             if bf16:
                 both_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                     *(t[None] for t in partition()), attn_mask=mask[None]))
@@ -1302,8 +1369,7 @@ def check_window_kernels(torch, ops, entries):
                     qkv[:, 0], qkv[:, 1], qkv[:, 2],
                     attn_mask=mask.view(W, nh, n, n)),
                 TOL[("attn", dname)], (4 * G * n * hd + G * n * 2 * ws) * es,
-                mm if bf16 else 0, 7 * G * n * n + (0 if bf16 else mm), 0,
-                entries)
+                mm, 7 * G * n * n, 0, entries, f32_timed=True)
             del mask
         table, layouts = ops.probe_inputs(dev, dtype)
         rows, lanes = PROBE_SHAPE
@@ -1452,7 +1518,8 @@ def k1_launch_floor(torch, ops, entries, restore_counters):
     graph_floor = in_graph_us(lambda: torch.cuda._sleep(0))
     print(f"an empty kernel: {eager_floor:.2f} us a launch back to back, "
           f"{graph_floor:.2f} us a kernel in a CUDA graph of 100", flush=True)
-    rows = {label: (ms, bound) for label, ms, bound in entries.rows}
+    rows = {label: (ms, bound) for label, dname, ms, bound in entries.rows
+            if dname == "bfloat16"}
     sp = [(n, C, 1e-6, per) for n, C, per in phase12_shapes()["vit_ln"]
           if n % 196 == 0]  # a shard's windows of 14 x 14 tokens
     sums = {}
@@ -1790,13 +1857,17 @@ def lcc_options(torch, dl, run, host_ms) -> None:
 
 
 def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
-                    fused=False):
+                    gpu_line, fused=False):
     """Phase 4 for one variant (with ``fused``, its bundle's
     fused_window_blocks set): process + the four mask entry points on both
     images; launch counts checked; the embedding held against the plain
-    path. Returns (env, images, segs, launches of round 2, (peak
-    allocated, allocated, reserved) device bytes of the path's model and
-    graphed rounds))."""
+    path, in float32 too (the float32 `process` with the kernels on, one an
+    image, launches the float32 bodies: ``want`` per call, checked and
+    returned); for ViT-B and ViT-H (partitioned) the graphed float32
+    `process_ms` at 1024x768 with the kernels on and off. Returns (env,
+    images, segs, launches of round 2, float32 launches, (peak allocated,
+    allocated, reserved) device bytes of the path's model and graphed
+    rounds))."""
     t0 = time.perf_counter()
     label = f"{variant}{' fused-window' if fused else ''}"
     torch.cuda.empty_cache()  # reserved = allocated, before the path
@@ -1909,6 +1980,7 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     plain_env = make_env("bfloat16", False)
     f32_plain_env = make_env("float32", False)
     f32_kernel_env = make_env("float32", True)
+    f32_launches = {k: 0 for k in counters()}
     for img, seg in zip(images, segs):
         counts = counters()
         plain = dl.Segmentation.process(img, plain_env).embedding
@@ -1916,6 +1988,8 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
         if counters() != counts:
             fail(f"{label}: the plain path launched a kernel")
         f32_k = dl.Segmentation.process(img, f32_kernel_env).embedding
+        for k, n in counters().items():
+            f32_launches[k] += n - counts[k]
         f32_err = rel_l2(torch, f32_k, ref)
         k_err, p_err = rel_l2(torch, seg.embedding, ref), rel_l2(torch, plain, ref)
         print(f"{label} embedding {img.extent.width}x{img.extent.height}, "
@@ -1929,10 +2003,29 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
         if not k_err <= 1.1 * p_err:
             fail(f"{label}: bf16 kernel path is further from float32 "
                  f"({k_err}) than the bf16 plain path ({p_err})")
+    expect = {k: want.get(k, 0) * len(images) for k in f32_launches}
+    if f32_launches != expect:
+        fail(f"{label}: float32 kernel launches {f32_launches} != {expect}")
+    if variant in F32_TIMED_VARIANTS and not fused:
+        img = images[0]
+        f32_ms = {}
+        for mode, e in (("on", f32_kernel_env), ("off", f32_plain_env)):
+            ts = []
+            for i in range(2 + 5):  # 2 warm-ups, then 5 timed
+                t = time.perf_counter()
+                dl.Segmentation.process(img, e)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    ts.append((time.perf_counter() - t) * 1e3)
+            f32_ms[mode] = statistics.median(ts)
+        print(f"e2e float32 {label} {img.extent.width}x{img.extent.height} "
+              f"on {gpu_line}: process_ms graphed kernels on "
+              f"{f32_ms['on']:.3f}, kernels off {f32_ms['off']:.3f} (medians "
+              f"of 5 after 2 warm-ups)", flush=True)
     del plain_env, f32_plain_env, f32_kernel_env
     torch.cuda.empty_cache()
     print(f"phase 4 {label}: {time.perf_counter() - t0:.1f} s", flush=True)
-    return env, images, segs, launches, memory
+    return env, images, segs, launches, f32_launches, memory
 
 
 def amg_thresholds(seg, bundle, kw):
@@ -6583,8 +6676,8 @@ def main() -> int:
     t0 = time.perf_counter()
     entries = Entries()
     with tf32_off(torch):  # the plain versions are float32 references
-        check_kernels(torch, ops, entries)
-        check_vit_kernels(torch, ops, entries)
+        check_kernels(torch, ops, entries, f32_timed=True)
+        check_vit_kernels(torch, ops, entries, f32_timed=True)
         check_kernels(torch, ops, entries, FRAMES_LN_SHAPES,
                       FRAMES_ATTN_SHAPES, images=1)
         for label, ln, add_ln, glob, win in BATCHED_VIT_SHAPES:
@@ -6613,6 +6706,7 @@ def main() -> int:
 
     # -- 4. main paths at full width -------------------------------------
     launches = {name: 0 for name in wrappers}
+    f32_launches = {name: 0 for name in wrappers}
     runs = {}
     for variant, want, fused in (
             ("mobile_sam", {"fused_layer_norm": LN_PER_PROCESS,
@@ -6621,8 +6715,9 @@ def main() -> int:
             ("vit_b", VIT_FUSED_PER_PROCESS, True),
             ("vit_l", vit_per_process(24), False),
             ("vit_h", vit_per_process(32), False)):
-        env, images, segs, counts, memory = drive_main_path(
-            torch, np, dl, variant, counters, zero_counters, want, fused)
+        env, images, segs, counts, f32_counts, memory = drive_main_path(
+            torch, np, dl, variant, counters, zero_counters, want, gpu_line,
+            fused)
         if variant == "mobile_sam":
             check_no_aliasing(torch, np, dl, env, images, segs)
             check_batch_contract(torch, dl, probe_masks, env, images)
@@ -6630,6 +6725,7 @@ def main() -> int:
             env, images, segs, memory)
         for name, n in counts.items():
             launches[name] += n
+            f32_launches[name] += f32_counts[name]
 
     # -- 5. the gather probe, briefly ------------------------------------
     t0 = time.perf_counter()
@@ -6752,6 +6848,22 @@ def main() -> int:
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
             "library_ms": e["library_ms"],
             "also_from_cpp": name in FROM_CPP})
+    for name, source, replaces in KERNELS:
+        if name not in F32_SOURCES:
+            continue
+        e = entries.numbers(f32_key(name), f32_launches[name])
+        if e["launches"] != f32_launches[name]:
+            fail(f"{f32_key(name)}: phase 2 timed {e['launches']} float32 "
+                 f"launches, phase 4's float32 paths made "
+                 f"{f32_launches[name]}")
+        kernels.append({
+            "name": f32_key(name), "route": "cuda",
+            "source": F32_SOURCES[name], "replaces": replaces,
+            "launches": f32_launches[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
+            "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
+            "library_ms": e["library_ms"], "also_from_cpp": name in FROM_CPP})
     print(f"chip_smoke: phases 1-19 in {time.perf_counter() - run_t0:.1f} s "
           f"on {gpu_line}", flush=True)
     print(gpu_line)

@@ -1,9 +1,11 @@
 // K4, K5 and K7: attention with the MViTv2 decomposed relative-position
 // bias of the SAM ViT encoders, exact float32 softmax.
 //
-// This file's CUDA-core body runs K4, K5 and K7 on float32 inputs; in bf16
-// (the ViT main paths' dtype) all three run on the tensor cores in
-// relpos_attention_tc.cu, and each C entry point picks the body by dtype.
+// This file holds the three C entry points, each of which picks its body by
+// dtype: in bf16 (the ViT main paths' dtype) all three run on the tensor
+// cores in relpos_attention_tc.cu; in float32 K4 and K5 run on the tensor
+// cores in three TF32 passes (relpos_attention_f32tc.cu) and K7 on this
+// file's CUDA-core body (Design, below).
 //
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
@@ -40,8 +42,9 @@
 // at N = 196 near the ridge: ~4 GFLOP against ~33 MB; K7 at ViT-B's
 // windows: ~3.0 GFLOP against ~33 MB (qkv, bias halves, output).
 //
-// Design: an EXACT two-pass softmax, so p is normalised before it is
-// rounded, exactly where the JAX kernel rounds it. K and V of a global head
+// Design of the CUDA-core body (float32 K7): an EXACT two-pass softmax, so
+// p is normalised before it is rounded, exactly where the JAX kernel rounds
+// it (the identity in float32; the body was written for bf16 K4 too). K and V of a global head
 // (4096 x 64 bf16 = 512 KB each) do not fit shared memory, so neither the
 // TPU's whole-row score tile nor a row of 4096 float scores per query of a
 // 64-row tile can stay on chip; instead key tiles are streamed twice. A
@@ -93,7 +96,9 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-template <typename T, int HD>
+// K7: group g = (window w, head h) reads q, k, v in place from the
+// (W, 3, nh, n, HD) qkv; plain bias, every row kept.
+template <int HD>
 __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
   constexpr int DJ = HD / 16;  // output columns per thread
@@ -112,45 +117,31 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const size_t gbase = static_cast<size_t>(g) * n;
-  size_t qbase = gbase, kbase = gbase, vbase = gbase;
-  if (a.qkv_heads > 0) {  // group g = (window w, head h) of the combined qkv
-    const size_t w = g / a.qkv_heads, h = g % a.qkv_heads;
-    const size_t hn = static_cast<size_t>(a.qkv_heads) * n;
-    qbase = w * 3 * hn + h * n;
-    kbase = qbase + hn;
-    vbase = kbase + hn;
-  }
-  const T* q = static_cast<const T*>(a.q) + qbase * HD;
-  const T* k = static_cast<const T*>(a.k) + kbase * HD;
-  const T* v = static_cast<const T*>(a.v) + vbase * HD;
-  const T* bhw = static_cast<const T*>(a.bhw) + gbase * ghw;
-  T* out = static_cast<T*>(a.out) + gbase * HD;
-  const int nq = g >= a.g_skip ? a.n_valid : n;  // rows whose output is kept
-
-  if (q0 >= nq) {  // a tile of skipped pad queries: zeros, nothing else
-    for (int e = tid; e < kRpBQ * HD; e += kRpThreads) {
-      const int r = q0 + e / HD;
-      if (r < n) out[static_cast<size_t>(r) * HD + e % HD] = from_float<T>(0.f);
-    }
-    return;
-  }
+  const size_t w = g / a.qkv_heads, h = g % a.qkv_heads;
+  const size_t hn = static_cast<size_t>(a.qkv_heads) * n;
+  const size_t qbase = w * 3 * hn + h * n;
+  const float* q = static_cast<const float*>(a.q) + qbase * HD;
+  const float* k = q + hn * HD;
+  const float* v = k + hn * HD;
+  const float* bhw = static_cast<const float*>(a.bhw) + gbase * ghw;
+  float* out = static_cast<float*>(a.out) + gbase * HD;
 
   for (int e = tid; e < kRpBQ * HD; e += kRpThreads) {
     const int r = e / HD, d = e % HD;
     qT[d * kRpQS + r] =
-        q0 + r < n ? to_float(q[static_cast<size_t>(q0 + r) * HD + d]) : 0.f;
+        q0 + r < n ? q[static_cast<size_t>(q0 + r) * HD + d] : 0.f;
   }
   for (int e = tid; e < kRpBQ * ghw; e += kRpThreads) {
     const int r = e / ghw, c = e % ghw;
     bs[r * bs_stride + c] =
-        q0 + r < n ? to_float(bhw[static_cast<size_t>(q0 + r) * ghw + c]) : 0.f;
+        q0 + r < n ? bhw[static_cast<size_t>(q0 + r) * ghw + c] : 0.f;
   }
 
   auto load_k = [&](int k0) {
     for (int e = tid; e < kRpBK * HD; e += kRpThreads) {
       const int c = e / HD, d = e % HD;
       kT[d * kRpKS + c] =
-          k0 + c < n ? to_float(k[static_cast<size_t>(k0 + c) * HD + d]) : 0.f;
+          k0 + c < n ? k[static_cast<size_t>(k0 + c) * HD + d] : 0.f;
     }
   };
 
@@ -187,8 +178,7 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
       for (int i = 0; i < 4; ++i) {
         const float* br = bs + (ty + 16 * i) * bs_stride;
         const float b = br[ky] + br[a.gh + kx];
-        s[i][j] = a.folded ? __fmul_rn(s[i][j] + b, a.scale)
-                           : __fadd_rn(__fmul_rn(s[i][j], a.scale), b);
+        s[i][j] = __fadd_rn(__fmul_rn(s[i][j], a.scale), b);
       }
     }
   };
@@ -234,7 +224,7 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
     load_k(k0);
     for (int e = tid; e < kRpBK * HD; e += kRpThreads) {
       const int c = e / HD;
-      vs[e] = k0 + c < n ? to_float(v[static_cast<size_t>(k0) * HD + e]) : 0.f;
+      vs[e] = k0 + c < n ? v[static_cast<size_t>(k0) * HD + e] : 0.f;
     }
     __syncthreads();
     float s[4][4];
@@ -244,7 +234,7 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m[i]) / l[i];
-        pT[(tx + 16 * j) * kRpPS + ty + 16 * i] = to_float(from_float<T>(p));
+        pT[(tx + 16 * j) * kRpPS + ty + 16 * i] = p;
       }
     __syncthreads();
     const int kc = min(kRpBK, n - k0);
@@ -268,48 +258,29 @@ __device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
     if (r >= n) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      out[static_cast<size_t>(r) * HD + tx + 16 * j] =
-          from_float<T>(r < nq ? o[i][j] : 0.f);
+      out[static_cast<size_t>(r) * HD + tx + 16 * j] = o[i][j];
   }
 }
 
-// Three entry kernels over one body, so that a profile tells K4, K5 and K7
-// apart.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kRpThreads, 2) relpos_global_kernel(RelposArgs a) {
-  relpos_attention_body<T, HD>(a);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kRpThreads, 2) relpos_window_kernel(RelposArgs a) {
-  relpos_attention_body<T, HD>(a);
-}
-
-template <typename T, int HD>
+// float32 K7 (K4 and K5 run in relpos_attention_f32tc.cu).
+template <int HD>
 __global__ void __launch_bounds__(kRpThreads, 2) relpos_qkv_kernel(RelposArgs a) {
-  relpos_attention_body<T, HD>(a);
+  relpos_attention_body<HD>(a);
 }
 
 enum RelposKind { kRelposGlobal, kRelposWindowed, kRelposQkv };
 
-template <typename T, int HD, int KIND>
-cudaError_t launch_relpos(const RelposArgs& a, int g, cudaStream_t stream) {
-  void (*kernel)(RelposArgs);  // only the instances that run are compiled
-  if constexpr (KIND == kRelposWindowed) {
-    kernel = &relpos_window_kernel<T, HD>;
-  } else if constexpr (KIND == kRelposQkv) {
-    kernel = &relpos_qkv_kernel<T, HD>;
-  } else {
-    kernel = &relpos_global_kernel<T, HD>;
-  }
+template <int HD>
+cudaError_t launch_relpos_qkv(const RelposArgs& a, int g, cudaStream_t stream) {
   const size_t smem = relpos_smem_bytes<HD>(a.gh + a.gw);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        &relpos_qkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((a.n + kRpBQ - 1) / kRpBQ, g);
-  kernel<<<grid, kRpThreads, smem, stream>>>(a);
+  relpos_qkv_kernel<HD><<<grid, kRpThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -319,11 +290,17 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
   if (g > 65535 || a.gh <= 0 || a.gw <= 0 || a.gh * a.gw != a.n || a.n_valid < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DLIMG_RP_CASE(T, HD) \
-  if (hd == HD) return launch_relpos<T, HD, KIND>(a, g, s);
   if (dtype == kDtypeF32) {
-    DLIMG_RP_CASE(float, 64)
-    DLIMG_RP_CASE(float, 80)
+    // K4 and K5 run in three TF32 passes on the tensor cores
+    // (relpos_attention_f32tc.cu), K7 on the CUDA-core body above.
+    if constexpr (KIND == kRelposGlobal) {
+      return relpos_global_f32tc(a, g, hd, s);
+    } else if constexpr (KIND == kRelposWindowed) {
+      return relpos_windowed_f32tc(a, g, hd, s);
+    } else {
+      if (hd == 64) return launch_relpos_qkv<64>(a, g, s);
+      if (hd == 80) return launch_relpos_qkv<80>(a, g, s);
+    }
   } else if (dtype == kDtypeBF16) {
     // bf16 runs on the tensor cores (relpos_attention_tc.cu); K7 is the
     // windowed body with a.qkv_heads set.
@@ -333,7 +310,6 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
       return relpos_windowed_tc(a, g, hd, s);
     }
   }
-#undef DLIMG_RP_CASE
   return cudaErrorInvalidValue;
 }
 

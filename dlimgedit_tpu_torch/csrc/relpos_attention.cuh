@@ -1,7 +1,8 @@
-// Arguments shared by the rel-pos attention kernels: K4, K5, K7 of
-// relpos_attention.cu (float32 CUDA-core body) and K6 of
-// window_strip_attention.cu (float32 CUDA-core body), whose bf16 routes run
-// on the tensor cores in relpos_attention_tc.cu.
+// Arguments shared by the rel-pos attention kernels: K4, K5, K7 (entry
+// points in relpos_attention.cu; float32 K4 and K5 in
+// relpos_attention_f32tc.cu, float32 K7 on relpos_attention.cu's CUDA-core
+// body) and K6 of window_strip_attention.cu (float32 CUDA-core body), whose
+// bf16 routes run on the tensor cores in relpos_attention_tc.cu.
 #pragma once
 
 #include "common.cuh"
@@ -40,5 +41,11 @@ cudaError_t relpos_global_tc(const RelposArgs& a, int g, int hd, cudaStream_t st
 // K5, and K7 when a.qkv_heads > 0.
 cudaError_t relpos_windowed_tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_tc(const StripArgs& a, int batch, int hd, cudaStream_t stream);
+
+// float32 K4 and K5 on the tensor cores in three TF32 passes
+// (relpos_attention_f32tc.cu); the same arguments, hd in {64, 80}. q, k, v
+// and out must start on 16 bytes.
+cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_windowed_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 
 }  // namespace dlimg

@@ -24,8 +24,10 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
 In bf16 K4, K5, K7 and K6 run on the tensor cores
 (``csrc/relpos_attention_tc.cu``; K5, K7 and K6 share one ``mma.sync``
-body), in float32 on the CUDA cores (``csrc/relpos_attention.cu`` for K4,
-K5 and K7, ``csrc/window_strip_attention.cu`` for K6).
+body). In float32 K4 and K5 run on the tensor cores with every product in
+three TF32 passes (``csrc/relpos_attention_f32tc.cu``; q, k, v must start
+on 16 bytes), K7 and K6 on the CUDA cores (``csrc/relpos_attention.cu``,
+``csrc/window_strip_attention.cu``).
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -267,6 +269,9 @@ def _check_relpos(name, q, k, v, bhw, grid_h, grid_w):
                          f"{KERNEL_HEAD_DIMS})")
     if not all(t.is_contiguous() for t in tensors):
         raise DlimgError(f"{name}: inputs must be contiguous")
+    if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise DlimgError(f"{name}: the float32 kernel reads q, k, v rows in "
+                         f"16-byte pieces; they must start on 16 bytes")
 
 
 def _check_window_side(name, dtype, grid_h, grid_w):

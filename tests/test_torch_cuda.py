@@ -67,6 +67,16 @@ int8 product cuBLASLt cannot take (16 rows) raises; and quantised
 replay bit-equal to their eager programs, with P2 and P3 launched once
 per quantised linear under w8a8 and never under w8.
 
+Float32 K4 and K5 (csrc/relpos_attention_f32tc.cu: every product in three
+TF32 passes on the tensor cores, a one-pass online softmax) hold the plain
+version at 2e-5 at hd 64 and 80, N = 196 (the ragged last key chunk), 4096
+and 16384 (K4 on a grid whose bias halves leave no room in shared memory
+and are read in place), folded and plain bias, with and without the pad-query skip (skipped
+rows exactly zero), G = 1 and 25 x 16, and on scores of large range (q of
+scale 4), where a single TF32 pass is off by ~4e-3
+(tests/test_torch_tf32x3.py emulates both on the CPU); a float32 q, k, v
+or out that does not start on 16 bytes is refused.
+
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
@@ -231,11 +241,12 @@ def test_fused_add_layer_norm_kernel_matches_plain(dev, shape, dtype):
                                rtol=0)
 
 
-def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed):
+def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed, q_scale=1.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     N = gh * gw
     q, k, v = (torch.randn((G, N, hd), generator=g, device=dev).to(dtype)
                for _ in range(3))
+    q = q * q_scale
     rh = 0.3 * torch.randn((gh, gh, hd), generator=g, device=dev)
     rw = 0.3 * torch.randn((gw, gw, hd), generator=g, device=dev)
     return q, k, v, _bias_halves(q, rh, rw, gh, gw, out_scale=out_scale)
@@ -245,7 +256,9 @@ def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed):
 @pytest.mark.parametrize("G,gh,gw,hd", [(2, 20, 20, 64), (3, 32, 32, 80),
                                         (1, 7, 9, 64), (2, 64, 64, 64),
                                         (1, 24, 40, 80),   # gw vs the 64-key tile
-                                        (2, 32, 32, 64)])  # ViT-B at 512
+                                        (2, 32, 32, 64),   # ViT-B at 512
+                                        (1, 64, 64, 80),   # ViT-H's global grid
+                                        (1, 14, 14, 80)])  # a ragged last chunk
 def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
     q, k, v, bhw = _relpos_inputs(dev, G, gh, gw, hd, dtype, 1.0, 3)
     before = relpos_attention_global.launches
@@ -264,6 +277,8 @@ def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
     (9, 2, 64, False, 3, 4),      # the unfolded bias
     (4, 3, 80, True, None, None),
     (6, 2, 80, False, 2, 3),      # 42 kept rows straddle a 16-row stripe
+    (1, 1, 64, True, None, None),  # one group
+    (25, 16, 80, False, 5, 8),    # ViT-H's windows, the unfolded bias
 ])
 def test_relpos_windowed_kernel_matches_plain(dev, W, heads, hd, folded, n_w,
                                               valid_rows, dtype):
@@ -280,6 +295,63 @@ def test_relpos_windowed_kernel_matches_plain(dev, W, heads, hd, folded, n_w,
                                rtol=0)
     if n_w:
         assert not got[-n_w * heads:, valid_rows * 14:].any()
+
+
+@pytest.mark.parametrize("kernel,W,heads,grid,hd,folded,n_w,valid_rows", [
+    ("global", 1, 1, 64, 64, False, None, None),
+    ("global", 1, 2, 64, 80, False, None, None),
+    ("global", 1, 3, 14, 80, False, None, None),
+    ("windowed", 25, 16, 14, 80, True, 5, 8),   # ViT-H's windows
+    ("windowed", 25, 12, 14, 64, False, 5, 8),  # ViT-B's, the unfolded bias
+    ("windowed", 9, 2, 14, 64, True, None, None),
+])
+def test_relpos_f32_kernels_large_range(dev, kernel, W, heads, grid, hd, folded,
+                                        n_w, valid_rows):
+    """Float32 K4 and K5 on scores of large range (q of scale 4): three
+    TF32 passes hold 2e-5 where one pass is off by ~4e-3."""
+    G = W * heads
+    scale = hd ** -0.5
+    q, k, v, bhw = _relpos_inputs(dev, G, grid, grid, hd, torch.float32,
+                                  1.0 / scale if folded else 1.0, 14,
+                                  q_scale=4.0)
+    if kernel == "global":
+        got = relpos_attention_global(q, k, v, bhw, grid, grid)
+        want = attention_relpos_plain(q, k, v, bhw, grid, grid)
+    else:
+        got = relpos_attention_windowed(q, k, v, bhw, grid, grid, heads,
+                                        folded, n_w, valid_rows)
+        want = attention_relpos_plain(q, k, v, bhw, grid, grid, folded=folded,
+                                      heads=heads, n_w=n_w,
+                                      valid_rows=valid_rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32][1], rtol=0)
+    if n_w:
+        assert not got[-n_w * heads:, valid_rows * grid:].any()
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_relpos_f32_global_kernel_bias_halves_in_place(dev, hd):
+    """Float32 K4 on a 128 x 128 grid, whose 128 rows of bias halves leave
+    no room beside the key chunks in shared memory: they are read in place
+    from device memory."""
+    q, k, v, bhw = _relpos_inputs(dev, 1, 128, 128, hd, torch.float32, 1.0, 17)
+    got = relpos_attention_global(q, k, v, bhw, 128, 128)
+    torch.cuda.synchronize()
+    want = attention_relpos_plain(q, k, v, bhw, 128, 128)
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32][1], rtol=0)
+
+
+def test_relpos_f32_kernels_refuse_unaligned_inputs(dev):
+    """The float32 tensor-core body reads q, k, v rows in 16-byte pieces: a
+    view that starts 4 bytes into its storage is refused, not read."""
+    q, k, v, bhw = _relpos_inputs(dev, 2, 14, 14, 64, torch.float32, 1.0, 16)
+    flat = torch.zeros(q.numel() + 1, device=dev)
+    shifted = flat[1:].view_as(q)
+    shifted.copy_(q)
+    with pytest.raises(DlimgError):
+        relpos_attention_global(shifted, k, v, bhw, 14, 14)
+    with pytest.raises(DlimgError):
+        relpos_attention_windowed(q, shifted, v, bhw, 14, 14, 2, False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
