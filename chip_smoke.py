@@ -12,15 +12,16 @@ and K2 at the bands' rows and windows):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
-                                                 tensor cores), levit_attention.cu
-                                                 (float32)
+                                                 tensor cores), levit_attention_f32tc.cu
+                                                 (float32, tensor cores, three
+                                                 TF32 passes)
   K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
   K7 relpos_attention_qkv                        tensor cores); float32 K4 and K5
                                                  relpos_attention_f32tc.cu (tensor
                                                  cores, three TF32 passes), K7
                                                  relpos_attention.cu (CUDA cores)
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
-                                                 window_strip_attention.cu (float32)
+                                                 relpos_attention_f32tc.cu (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
   greedy_nms (AMG's exact greedy box NMS; not    greedy_nms.cu
   a TPU kernel: JAX runs a lax.fori_loop)
@@ -35,21 +36,25 @@ printing its seconds:
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
      wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
-     mma.sync; relpos_attention_f32tc.cu: float32 K4 and K5 on mma.sync
-     in three TF32 passes) spills or is missing from the report;
+     mma.sync; relpos_attention_f32tc.cu: float32 K4, K5 and K6 on
+     mma.sync in three TF32 passes; levit_attention_f32tc.cu: float32 K2
+     likewise) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it (also
      the batched shapes of phases 10 and 11: MobileSAM's K1 and K2 and
      ViT-B's K1, K3, K4 and K5 at 4 frames, ViT-H's at 2, K5 without the
      pad-query skip)
-     (MobileSAM: K1, K2 - bf16 on the tensor cores, float32 on the CUDA
-     cores; SAM ViT-B, ViT-L (C 1024, 16 heads of 64) and ViT-H (C 1280,
+     (MobileSAM: K1, K2 - bf16 and float32 on the tensor cores; SAM
+     ViT-B, ViT-L (C 1024, 16 heads of 64) and ViT-H (C 1280,
      16 heads of 80): K1, K3, K4, K5; ViT-B with fused_window_blocks: K6 on
      the strips of a (1, 70, 70, 2304) qkv; K6 also at ViT-H's shape, with
      0 launches), with nonzero rel-pos tables; K4 also at grid 32 (ViT-B
      at 512, held with 0 launches: the
      general bias path of the bf16 kernel, a key tile spanning two grid
-     rows); K7 at ViT-B's and ViT-H's windows ((25, 3, 12, 196, 64) and
+     rows); the bf16 K4 once, untimed, on the general grids of a ViT at
+     2048 and 1536 ((1, 128, 128, 64), (1, 128, 128, 80): its bias rows
+     read in place, (1, 96, 96, 80); ROADMAP C8); K7 at ViT-B's and
+     ViT-H's windows ((25, 3, 12, 196, 64) and
      (25, 3, 16, 196, 80)); K8 at the gather probe's shapes (4096 x 128,
      row-replicated and per-lane indices, reps 8 and 16), bit for bit;
      greedy_nms (an IoU bitmask kernel, then a one-warp scan, one call) at M = 256, 2304, 9216 and 14400 on seeded overlapping boxes,
@@ -125,8 +130,9 @@ printing its seconds:
      plain path (kernels off): in float32 within relative L2 1e-5 (that
      float32 `process` with the kernels on, one an image, is the float32
      bodies' main path: its launches are counted and checked as above, and
-     for ViT-B and ViT-H the graphed float32 `process_ms` at 1024x768 is
-     printed with the kernels on and off, medians of 5 after 2 warm-ups);
+     for MobileSAM, ViT-B (windows partitioned and fused) and ViT-H the
+     graphed float32 `process_ms` at 1024x768 is printed with the kernels
+     on and off, medians of 5 after 2 warm-ups);
      in bf16
      its relative L2 distance to the float32 result may be at most 1.1x the
      bf16 plain path's (the two bf16 paths round independently). It
@@ -756,15 +762,17 @@ SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu),
-# bf16 K2 (csrc/levit_attention_tc.cu) and float32 K4 and K5 in three TF32
-# passes (csrc/relpos_attention_f32tc.cu): phase 1 fails if one is missing
-# from nvcc's report or spills.
+# bf16 K2 (csrc/levit_attention_tc.cu), float32 K4, K5 and K6 in three TF32
+# passes (csrc/relpos_attention_f32tc.cu) and float32 K2 likewise
+# (csrc/levit_attention_f32tc.cu): phase 1 fails if one is missing from
+# nvcc's report or spills.
 TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu",
-              "relpos_attention_f32tc.cu"}
+              "relpos_attention_f32tc.cu", "levit_attention_f32tc.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
-              "relpos_window_kernel_f32tc")
+              "relpos_window_kernel_f32tc", "window_strip_kernel_f32tc",
+              "levit_window_kernel_f32tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
@@ -806,19 +814,22 @@ QUANT_KERNELS = ("quantize_rows_int8", "int8_epilogue")
 # f32_key(name), with their own sources; their launches are those of phase
 # 4's float32 `process` calls with the kernels on.
 F32_SUFFIX = "/float32"
-# The variants whose graphed float32 `process` phase 4 times at 1024x768,
-# kernels on and off.
-F32_TIMED_VARIANTS = ("vit_b", "vit_h")
+# The paths (variant, fused_window_blocks) whose graphed float32 `process`
+# phase 4 times at 1024x768, kernels on and off: every float32 attention
+# body on a path (K2 MobileSAM, K4 / K5 the ViTs, K6 fused ViT-B).
+F32_TIMED_PATHS = (("mobile_sam", False), ("vit_b", False), ("vit_b", True),
+                   ("vit_h", False))
 F32_SOURCES = {
     "fused_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
-    "levit_window_attention": "dlimgedit_tpu_torch/csrc/levit_attention.cu",
+    "levit_window_attention":
+        "dlimgedit_tpu_torch/csrc/levit_attention_f32tc.cu",
     "fused_add_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
     "relpos_attention_global":
         "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
     "relpos_attention_windowed":
         "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
     "windowed_attention_fused":
-        "dlimgedit_tpu_torch/csrc/window_strip_attention.cu",
+        "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
     "relpos_attention_qkv": "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
 }
 
@@ -926,9 +937,8 @@ def add_ln_label(rows, C):
     return f"K3 fused_add_layer_norm ({rows},{C})"
 
 
-def levit_label(G, N, nh, tensor_cores):
-    return (f"K2 levit_window_attention ({G},{N},{nh * 3 * 32}) nh={nh} "
-            f"({'tensor' if tensor_cores else 'CUDA'} cores)")
+def levit_label(G, N, nh):
+    return f"K2 levit_window_attention ({G},{N},{nh * 3 * 32}) nh={nh}"
 
 
 def global_label(nh, N, hd):
@@ -1082,7 +1092,6 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
-        tensor_cores = dtype == torch.bfloat16
         for rows, C, eps, per in ln_shapes:
             x = torch.randn((rows, C), generator=gen, device=dev).to(dtype)
             scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
@@ -1104,7 +1113,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
             mask = bias[None].expand(G, nh, N, N)
             mm = 4 * G * nh * N * N * kd
             check_kernel(
-                torch, levit_label(G, N, nh, tensor_cores),
+                torch, levit_label(G, N, nh),
                 "levit_window_attention", dname,
                 lambda: ops.levit_window_attention(qkv, bias, nh),
                 lambda: ops.levit_window_attention_plain(qkv, bias, nh),
@@ -1382,6 +1391,39 @@ def check_window_kernels(torch, ops, entries):
                     lambda: ops.smem_gather_plain(table, idx, reps), None,
                     0.0, rows * lanes * (es + 4 + 4), 0, reps * rows * lanes,
                     0, entries)
+
+
+# The bf16 K4 on general grids larger than the main paths' (ROADMAP C8):
+# (groups, grid side, head width). A ViT at 2048 (ViT-B's and ViT-H's head
+# widths; at hd 80 the bias rows are read in place) and ViT-H at 1536.
+GENERAL_GRIDS = ((1, 128, 64), (1, 128, 80), (1, 96, 80))
+
+
+def check_general_grids(torch, ops):
+    """Phase 2, the bf16 K4 once at each GENERAL_GRIDS shape, untimed,
+    against its plain version (no main path launches it there)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for G, g, hd in GENERAL_GRIDS:
+        t0 = time.perf_counter()
+        q, k, v = (torch.randn((G, g * g, hd), generator=gen,
+                               device=dev).to(torch.bfloat16) for _ in range(3))
+        rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+                  for _ in range(2))
+        bhw = ops.bias_halves(q, rh, rw, g, g)
+        out = ops.relpos_attention_global(q, k, v, bhw, g, g)
+        ref = ops.attention_relpos_plain(q, k, v, bhw, g, g)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        if not err <= TOL[("attn", "bfloat16")]:
+            fail(f"{global_label(G, g * g, hd)} bfloat16 on a {g} x {g} "
+                 f"grid: max|diff| {err} > {TOL[('attn', 'bfloat16')]}")
+        print(f"{global_label(G, g * g, hd)} bfloat16, {g} x {g} grid (a "
+              f"general grid, C8): max|diff|={err:.3e} (atol "
+              f"{TOL[('attn', 'bfloat16')]:g}), untimed "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    torch.cuda.empty_cache()
 
 
 def np_greedy_nms(np, boxes, scores, thresh):
@@ -1863,8 +1905,8 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     images; launch counts checked; the embedding held against the plain
     path, in float32 too (the float32 `process` with the kernels on, one an
     image, launches the float32 bodies: ``want`` per call, checked and
-    returned); for ViT-B and ViT-H (partitioned) the graphed float32
-    `process_ms` at 1024x768 with the kernels on and off. Returns (env,
+    returned); on F32_TIMED_PATHS the graphed float32 `process_ms` at
+    1024x768 with the kernels on and off. Returns (env,
     images, segs, launches of round 2, float32 launches, (peak allocated,
     allocated, reserved) device bytes of the path's model and graphed
     rounds))."""
@@ -2006,7 +2048,7 @@ def drive_main_path(torch, np, dl, variant, counters, zero_counters, want,
     expect = {k: want.get(k, 0) * len(images) for k in f32_launches}
     if f32_launches != expect:
         fail(f"{label}: float32 kernel launches {f32_launches} != {expect}")
-    if variant in F32_TIMED_VARIANTS and not fused:
+    if (variant, fused) in F32_TIMED_PATHS:
         img = images[0]
         f32_ms = {}
         for mode, e in (("on", f32_kernel_env), ("off", f32_plain_env)):
@@ -3369,7 +3411,7 @@ def check_phase12_shapes(torch, ops, entries):
           if not entries.add(ln_label(k[0], k[1]), "fused_layer_norm", n)]
     attn = merge(sh["attn"], lambda r: r[:3])
     attn = [k + (n,) for k, n in attn.items()
-            if not entries.add(levit_label(*k, True), "levit_window_attention",
+            if not entries.add(levit_label(*k), "levit_window_attention",
                                n)]
     check_kernels(torch, ops, entries, ln, attn, images=1)
     vit_ln = {k: n for k, n in merge(sh["vit_ln"], lambda r: r[:2]).items()
@@ -3405,7 +3447,7 @@ def check_phase13_shapes(torch, ops, entries):
     ln = [k + (n,) for k, n in ln.items()
           if not entries.add(ln_label(k[0], k[1]), "fused_layer_norm", n)]
     attn = [k + (n,) for k, n in attn.items()
-            if not entries.add(levit_label(*k, True), "levit_window_attention",
+            if not entries.add(levit_label(*k), "levit_window_attention",
                                n)]
     check_kernels(torch, ops, entries, ln, attn, images=1)
 
@@ -6689,6 +6731,7 @@ def main() -> int:
         print("phase 2, phase 13's band shapes", flush=True)
         check_phase13_shapes(torch, ops, entries)
         check_window_kernels(torch, ops, entries)
+        check_general_grids(torch, ops)
         check_nms_kernel(torch, np, ops)
         k1_launch_floor(torch, ops, entries, restore_counters)
         gemm_ms = {"int_mm": 0.0, "int_mm_row_major": 0.0, "bf16": 0.0}

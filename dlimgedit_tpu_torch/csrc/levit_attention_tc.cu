@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel dlimgedit_tpu/ops/flash_attention.py:531
 // `levit_window_attention` (Pallas body `_levit_kernel`, :500). The function
-// and its rounding are JAX's (levit_attention.cu, whose CUDA-core body keeps
-// the float32 route, gives the arithmetic): for window g and head h, kd = 32,
+// and its rounding are JAX's (levit_attention.cu, the C entry point, gives
+// the arithmetic; float32 runs on this tiling in three TF32 passes,
+// levit_attention_f32tc.cu): for window g and head h, kd = 32,
 //   s = (q . k) * kd^-1/2 + bias[h]   float32, the bias added after the scale
 //   p = softmax(s), exact, normalised in float32, then rounded to bf16
 //   out = p . v                       float32 accumulation
@@ -18,7 +19,7 @@
 // 5.4, 2.0 and 3.8 us at MobileSAM's three shapes (G, N, nh 96) = (361, 49,
 // 384), (25, 196, 480), (100, 49, 960).
 //
-// What held the CUDA-core body back (levit_attention.cu): K and V staged
+// What held PR 1's CUDA-core body back (since deleted): K and V staged
 // with 2-byte loads, q . k as 32 shuffles and scalar FMAs a row, and p . v
 // broadcasting each of N probabilities with a shuffle. The design here
 // (K5's mma.sync body in relpos_attention_tc.cu, at head width 32):

@@ -1,6 +1,6 @@
-// K4 and K5 in float32 on Hopper's tensor cores: attention with the MViTv2
-// decomposed relative-position bias of the SAM ViT encoders, every product
-// in three TF32 passes.
+// K4, K5 and K6 in float32 on Hopper's tensor cores: attention with the
+// MViTv2 decomposed relative-position bias of the SAM ViT encoders, every
+// product in three TF32 passes.
 //
 // K4 (`relpos_global_f32tc`, kernel `relpos_global_kernel_f32tc`) replaces
 // the TPU kernel dlimgedit_tpu/ops/flash_attention.py:139
@@ -9,13 +9,20 @@
 // of hd 80). K5 (`relpos_windowed_f32tc`, kernel
 // `relpos_window_kernel_f32tc`) replaces :307 `_attention_head_fused`: the
 // windowed blocks (25 windows x heads of N = 196), folded or plain bias,
-// the pad-query skip of the bottom window row. Both TPU kernels request
-// `Precision.HIGHEST` for float32 operands (:148, :327): float32-accurate
-// products from several bf16 passes on the matrix unit. The arithmetic is
-// that of relpos_attention.cu's note (K7 in float32 stays on that file's
-// CUDA-core body; bf16 K4, K5 run in relpos_attention_tc.cu):
+// the pad-query skip of the bottom window row. K6 (`window_strip_f32tc`,
+// kernel `window_strip_kernel_f32tc`, C entry point in
+// window_strip_attention.cu) replaces :646 `windowed_attention_fused`
+// (body `_window_strip_kernel`, :575): K5's windows read in place from the
+// padded NHWC q, k, v, the bias halves computed in the block. The TPU
+// kernels request `Precision.HIGHEST` for float32 operands (:148, :327,
+// :606): float32-accurate products from several bf16 passes on the matrix
+// unit. The arithmetic is that of relpos_attention.cu's and
+// window_strip_attention.cu's notes (K7 in float32 stays on
+// relpos_attention.cu's CUDA-core body; bf16 K4, K5, K6 run in
+// relpos_attention_tc.cu):
 //   s[i, j] = (q_i . k_j) * scale + (bh[i, y_j] + bw[i, x_j])     plain
 //   s[i, j] = (q_i . k_j + (bh[i, y_j] + bw[i, x_j])) * scale     folded
+//   s[i, j] = ((q_i . k_j) * scale + bh[i, y_j]) + bw[i, x_j]     K6
 //   out[g, i] = softmax_j(s) . v, float32 throughout
 // and rows >= n_valid of groups >= g_skip written as zeros.
 //
@@ -55,8 +62,9 @@
 // the 495 TFLOP/s TF32 peak, against ~75 / ~117 MB of float32 q, k, v,
 // bias halves and output (22 / 35 us at 3.35 TB/s). K5 at N = 196 is near
 // the ridge: 2.7 GFLOP a ViT-B launch (with the skip; 16 us) against ~65 MB
-// (19 us). chip_smoke.py's float32 bound is that rule for every float32
-// body. The instruction itself, mma.sync m16n8k8 TF32, peaks at ~310 TFLOP/s
+// (19 us). K6 at ViT-B (300 windows x heads, no skip) does 3.2 GFLOP
+// (19 us) against 60 MB of its float32 qkv and output (18 us).
+// chip_smoke.py's float32 bound is that rule for every float32 body. The instruction itself, mma.sync m16n8k8 TF32, peaks at ~310 TFLOP/s
 // on this card (tools/time_f32_attention.py --mma-rate), ~103 TFLOP/s of
 // float32 products in three passes: wgmma is the way to the rest.
 //
@@ -75,8 +83,15 @@
 // computed from its index. K5: 7 warps (112 rows: N = 196 is two blocks,
 // 13 of their 14 stripes hold rows; the skipped groups' second block only
 // writes zeros), 40-key chunks (5 of them cover 196 keys, 4 masked);
-// windows of more than 256 keys take K4's body. K4's chunk products
-// accumulate from zero (see above) in registers beside o, K5's in o.
+// windows of more than 256 keys take K4's body. K6 is K5's block on a
+// window's tokens (`WindowRows32`: row r at ((r / ws) wp + r % ws) ts
+// floats from the window's first token), every row kept, its bias halves
+// computed by a prologue while chunk 0 lands (`compute_bias`: 4 lanes a
+// row half on the CUDA cores; with 16 lanes a row and 15-shuffle chains
+// it took 0.15-0.22 ms of a 0.29-0.36 ms ViT-B launch, with 4 lanes 0.06
+// of 0.21: tools/time_f32_attention.py `k6_no_bias`). K4's chunk products
+// accumulate from zero (see above) in registers beside o, K5's and K6's
+// in o.
 // - q . k: the head dims are permuted alike in q and K (a dot product does
 //   not care in which order its terms are summed): in k-steps 2p and 2p + 1
 //   the lane's k slots (lane % 4, lane % 4 + 4) hold dims 16p + 4 (lane % 4)
@@ -107,38 +122,6 @@
 namespace dlimg {
 namespace {
 
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo to ~2^-22 of x, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// c += a . b for one 16 x 8 x 8 tile, TF32 in, float32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in three TF32 passes: lo.hi, hi.lo, then hi.hi.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
 // Row stride (floats) of the staged bias halves: at least ghw, 8 mod 32.
 __host__ __device__ inline int f32_bias_stride(int ghw) { return (ghw + 23) / 32 * 32 + 8; }
 
@@ -156,13 +139,133 @@ struct F32Layout {
   }
 };
 
-// OG: output tiles whose p . v products of a chunk accumulate from zero
-// together (fewer, so fewer registers, at the cost of splitting p again
-// for each group); OG = 0: p . v accumulates in o's mma registers (rows of
-// at most 256 keys). GRID_ROW: a grid row is 64 keys. bias_smem: the bias halves staged
-// in shared memory (else read in place).
-template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
-__device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_smem) {
+// Where a block's rows lie. K4 / K5 (`DenseRows32`): q, k, v and out rows
+// r at r * HD from the group's first row; the caller's bias halves, n x
+// (gh + gw), from the block's first row.
+template <int HD>
+struct DenseRows32 {
+  static constexpr bool kStrip = false;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  const float* bhw;
+
+  __device__ __forceinline__ size_t in(int r) const { return static_cast<size_t>(r) * HD; }
+  __device__ __forceinline__ size_t out_off(int r) const { return static_cast<size_t>(r) * HD; }
+};
+
+// c[0 .. 15] summed over the 4 lanes of a quad: lane q of the quad ends
+// with the sums of columns 4q .. 4q + 3 in c[0 .. 3] (12 shuffles; each
+// step keeps half the columns and adds the partner lane's copy of them).
+__device__ __forceinline__ void quad_sum_scatter(float (&c)[16], int q) {
+  const bool up2 = q & 2, up1 = q & 1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float send = up2 ? c[j] : c[j + 8];
+    c[j] = (up2 ? c[j + 8] : c[j]) + __shfl_xor_sync(kFullMask, send, 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float send = up1 ? c[j] : c[j + 4];
+    c[j] = (up1 ? c[j + 4] : c[j]) + __shfl_xor_sync(kFullMask, send, 1);
+  }
+}
+
+// K6 (`WindowRows32`): the ws x ws tokens of one window of a padded (B,
+// hp, wp, *) grid, read in place. Token t of the window is t / ws rows and
+// t % ws columns from its first token; q, k, v rows are `ts` floats apart
+// (3C for the channel slices of the qkv output), out rows `c`. Each pointer
+// is at the window's first token and the head's first channel. The bias
+// halves are computed in the block (`compute_bias`).
+template <int HD>
+struct WindowRows32 {
+  static constexpr bool kStrip = true;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  const float* rh;  // gathered (ws, ws, HD) tables
+  const float* rw;
+  int ws, wp, ts, c;
+
+  __device__ __forceinline__ size_t tok(int t) const {
+    const int y = t / ws;
+    return static_cast<size_t>(y) * wp + (t - y * ws);
+  }
+  __device__ __forceinline__ size_t in(int r) const { return tok(r) * ts; }
+  __device__ __forceinline__ size_t out_off(int r) const { return tok(r) * c; }
+
+  // bh[i, y] = q_i . rh[y_i, y] and bw[i, x] = q_i . rw[x_i, x] of the
+  // block's rows q0 .. q0 + rows - 1, float32 on the CUDA cores, into
+  // [bh (ws) | bw (ws)] rows of `bs`. A task is one half of one row, on the
+  // 4 lanes of a quad: lane q holds q's dims 4 (q + 4j) .. + 3 (16-byte
+  // pieces; a quad reads 64 contiguous bytes at a time) and forms its part
+  // of the ws dot products, ws independent chains of HD / 4 FMAs; then
+  // `quad_sum_scatter` leaves 4 columns' sums in each lane. The bh tasks go
+  // in row order and the bw tasks in column order over the window
+  // positions that cover the block, so that the 8 quads of a warp mostly
+  // read one table row at a time (rh[y] or rw[x]). Every quad runs the same
+  // number of tasks, so the shuffles stay whole; a task outside the block's
+  // rows repeats its first row and stores nothing.
+  __device__ __forceinline__ void compute_bias(float* bs, int bstr, int q0, int rows, int tid,
+                                               int nthreads) const {
+    constexpr int PL = HD / 16;  // 16-byte pieces a lane
+    const int qd = tid & 3, grp = tid >> 2, groups = nthreads >> 2;
+    const int y0 = q0 / ws, ny = (q0 + rows - 1) / ws - y0 + 1;  // window rows touched
+    const int tasks = ny * ws, padded = (tasks + groups - 1) / groups * groups;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const float* table = half ? rw : rh;
+      for (int t = grp; t < padded; t += groups) {
+        const int y = y0 + (half ? t % ny : t / ws), x = half ? t / ny : t % ws;
+        const int r = y * ws + x - q0;
+        const bool ok = t < tasks && r >= 0 && r < rows;
+        const int i = q0 + (ok ? r : 0);
+        const float4* qr = reinterpret_cast<const float4*>(q + in(i)) + qd;
+        float4 qv[PL];
+#pragma unroll
+        for (int j = 0; j < PL; ++j) qv[j] = __ldg(qr + 4 * j);
+        const int yi = i / ws;
+        const float* tb = table + static_cast<size_t>(half ? i - yi * ws : yi) * ws * HD;
+        float cs[16];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          cs[c] = 0.f;
+          if (c < ws) {
+            const float4* tr = reinterpret_cast<const float4*>(tb + c * HD) + qd;
+#pragma unroll
+            for (int j = 0; j < PL; ++j) {
+              const float4 a = __ldg(tr + 4 * j), u = qv[j];
+              cs[c] = fmaf(u.w, a.w, fmaf(u.z, a.z, fmaf(u.y, a.y, fmaf(u.x, a.x, cs[c]))));
+            }
+          }
+        }
+        quad_sum_scatter(cs, qd);
+        if (ok) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * qd + e < ws) bs[r * bstr + half * ws + 4 * qd + e] = cs[e];
+        }
+      }
+    }
+  }
+};
+
+// The body of K4, K5 and K6 for the block of query rows q0 .. q0 + BQ - 1
+// of one group of n keys on a gh x gw grid (`Rows` says where its rows
+// lie and where its bias halves come from); rows below nq are computed,
+// the rest written as zeros. OG: output tiles whose p . v products of a
+// chunk accumulate from zero together (fewer, so fewer registers, at the
+// cost of splitting p again for each group); OG = 0: p . v accumulates in
+// o's mma registers (rows of at most 256 keys). GRID_ROW: a grid row is 64
+// keys. bias_smem: the bias halves staged in shared memory (else read in
+// place; K6 always stages the halves it computes).
+template <int HD, int NT, int WARPS, int OG, bool GRID_ROW, class Rows>
+__device__ __forceinline__ void f32tc_body(const Rows& g, const int n, const int gh,
+                                           const int gw, const int nq, const int q0,
+                                           const float scale, const bool folded,
+                                           const bool bias_smem) {
   static_assert(HD % 16 == 0 && (HD / 8) % (OG == 0 ? 1 : OG) == 0, "head width");
   using L = F32Layout<HD, NT, WARPS>;
   constexpr int THREADS = 32 * WARPS;
@@ -171,27 +274,22 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
   constexpr int DT = HD / 8;      // 8-column tiles of the output
   constexpr int CPR = HD / 4;     // 16-byte pieces of a row
   extern __shared__ __align__(16) float smem[];
-  const int n = a.n, gh = a.gh, gw = a.gw, ghw = gh + gw;
+  const int ghw = gh + gw;
   const int bstr = f32_bias_stride(ghw);
   float* raw = smem;                    // 2 x (K chunk, V chunk), rows of HD
   float* spl = raw + 2 * L::RAW;        // 2 x (K chunk, V chunk) split
   float* bs = spl + 2 * L::SPLIT;       // BQ rows of bias halves
 
-  const int g = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, gq = lane & 3;
-  const size_t base = static_cast<size_t>(g) * n;
-  const float* q = static_cast<const float*>(a.q) + base * HD;
-  const float* k = static_cast<const float*>(a.k) + base * HD;
-  const float* v = static_cast<const float*>(a.v) + base * HD;
-  const float* bhw = static_cast<const float*>(a.bhw) + (base + q0) * ghw;
-  float* out = static_cast<float*>(a.out) + base * HD;
-  const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
-  const int rows = min(BQ, n - q0);                        // the block's rows below n
+  const int rows = min(BQ, n - q0);  // the block's rows below n
 
   if (q0 >= nq) {  // a block of skipped pad queries: zeros, nothing else
-    float4* o4 = reinterpret_cast<float4*>(out + static_cast<size_t>(q0) * HD);
-    for (int e = tid; e < rows * CPR; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = tid; e < rows * CPR; e += THREADS) {
+      const int r = e / CPR;
+      *reinterpret_cast<float4*>(g.out + g.out_off(q0 + r) + (e - r * CPR) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     return;
   }
 
@@ -204,9 +302,9 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
         const int r = e / CPR, col = (e - r * CPR) * 4;
         const int key = c * BK + r;
         const bool ok = key < n;
-        const size_t off = static_cast<size_t>(ok ? key : 0) * HD + col;
-        cp_async16(rk + r * HD + col, k + off, ok);
-        cp_async16(rk + (BK + r) * HD + col, v + off, ok);
+        const size_t off = g.in(ok ? key : 0) + col;
+        cp_async16(rk + r * HD + col, g.k + off, ok);
+        cp_async16(rk + (BK + r) * HD + col, g.v + off, ok);
       }
     }
     cp_async_commit();
@@ -236,22 +334,33 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
     }
   };
 
-  // The first load group: the block's bias halves, then chunk 0.
-  if (bias_smem) {
-    if (ghw % 4 == 0 && reinterpret_cast<uintptr_t>(bhw) % 16 == 0) {
-      const int cpr = ghw / 4;
-      for (int e = tid; e < rows * cpr; e += THREADS) {
-        const int r = e / cpr, c = (e - r * cpr) * 4;
-        cp_async16(bs + r * bstr + c, bhw + static_cast<size_t>(r) * ghw + c, true);
+  // The first load group: the block's bias halves (K4, K5), then chunk 0;
+  // K6 computes its halves while chunk 0 lands.
+  const float* brows = bs;
+  int bld = bstr;
+  if constexpr (Rows::kStrip) {
+    load_chunk(0);
+    g.compute_bias(bs, bstr, q0, rows, tid, THREADS);
+  } else {
+    if (bias_smem) {
+      if (ghw % 4 == 0 && reinterpret_cast<uintptr_t>(g.bhw) % 16 == 0) {
+        const int cpr = ghw / 4;
+        for (int e = tid; e < rows * cpr; e += THREADS) {
+          const int r = e / cpr, c = (e - r * cpr) * 4;
+          cp_async16(bs + r * bstr + c, g.bhw + static_cast<size_t>(r) * ghw + c, true);
+        }
+      } else {
+        for (int e = tid; e < rows * ghw; e += THREADS) {
+          const int r = e / ghw;
+          bs[r * bstr + e - r * ghw] = g.bhw[e];
+        }
       }
     } else {
-      for (int e = tid; e < rows * ghw; e += THREADS) {
-        const int r = e / ghw;
-        bs[r * bstr + e - r * ghw] = bhw[e];
-      }
+      brows = g.bhw;
+      bld = ghw;
     }
+    load_chunk(0);
   }
-  load_chunk(0);
   cp_async_wait<0>();
   __syncthreads();
   split_chunk(0);
@@ -260,14 +369,12 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
   // This warp's stripe; rows past n repeat row n - 1 (never stored).
   const int lr0 = warp * 16 + gr, lr1 = lr0 + 8;  // rows in the block
   const bool active = q0 + warp * 16 < nq;        // the stripe holds a kept row
-  const float* brows = bias_smem ? bs : bhw;
-  const int bld = bias_smem ? bstr : ghw;
   const float* b0r = brows + min(lr0, rows - 1) * bld;
   const float* b1r = brows + min(lr1, rows - 1) * bld;
   uint32_t qh[2 * PAIRS][4], ql[2 * PAIRS][4];
   {
-    const float* qa = q + static_cast<size_t>(min(q0 + lr0, n - 1)) * HD + 4 * gq;
-    const float* qb = q + static_cast<size_t>(min(q0 + lr1, n - 1)) * HD + 4 * gq;
+    const float* qa = g.q + g.in(min(q0 + lr0, n - 1)) + 4 * gq;
+    const float* qb = g.q + g.in(min(q0 + lr1, n - 1)) + 4 * gq;
 #pragma unroll
     for (int p = 0; p < PAIRS; ++p) {
       const float4 x = __ldg(reinterpret_cast<const float4*>(qa + 16 * p));
@@ -291,7 +398,6 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float cl[2] = {-INFINITY, -INFINITY};  // running row max times log2 e
   float l[2] = {0.f, 0.f};               // this lane's part of the row sums
-  const float scale = a.scale;
   [[maybe_unused]] const float inv_gw = 1.f / static_cast<float>(gw);  // general grids
 
   for (int c = 0; c < n_chunks; ++c) {
@@ -323,7 +429,7 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
     // the chunk: scale, bias in the plain version's order, keys past n -inf.
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      float bias[4];
+      [[maybe_unused]] float bias[4];
       if constexpr (GRID_ROW) {  // the chunk lies in grid row y: bh[i, y] + bw[i, x]
         const int y = c * BK / 64, x = c * BK - 64 * y + 8 * j + 2 * gq;
         const float2 w0 = *reinterpret_cast<const float2*>(b0r + gh + x);
@@ -342,14 +448,24 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
           // and the float32 product errs by less for kk below 2^22.
           const int ky = __float2int_rz((static_cast<float>(kk) + 0.5f) * inv_gw);
           const int kx = gh + kk - ky * gw;
-          bias[e] = ok ? b0r[ky] + b0r[kx] : -INFINITY;
-          bias[2 + e] = ok ? b1r[ky] + b1r[kx] : -INFINITY;
+          if constexpr (Rows::kStrip) {  // K6's order: ((q.k) scale + bh) + bw
+            s[j][e] = ok ? __fadd_rn(__fadd_rn(__fmul_rn(s[j][e], scale), b0r[ky]), b0r[kx])
+                         : -INFINITY;
+            s[j][2 + e] = ok ? __fadd_rn(__fadd_rn(__fmul_rn(s[j][2 + e], scale), b1r[ky]),
+                                         b1r[kx])
+                             : -INFINITY;
+          } else {
+            bias[e] = ok ? b0r[ky] + b0r[kx] : -INFINITY;
+            bias[2 + e] = ok ? b1r[ky] + b1r[kx] : -INFINITY;
+          }
         }
       }
+      if constexpr (!Rows::kStrip) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = a.folded ? __fmul_rn(__fadd_rn(s[j][e], bias[e]), scale)
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = folded ? __fmul_rn(__fadd_rn(s[j][e], bias[e]), scale)
                            : __fadd_rn(__fmul_rn(s[j][e], scale), bias[e]);
+      }
     }
 
     // Online softmax: the row max over the chunk (4 lanes a row), the
@@ -446,25 +562,64 @@ __device__ __forceinline__ void f32tc_body(const RelposArgs& a, const bool bias_
   for (int dt = 0; dt < DT; ++dt) {
     const int col = 8 * dt + 2 * gq;
     if (row0 < n)
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row0) * HD + col) =
+      *reinterpret_cast<float2*>(g.out + g.out_off(row0) + col) =
           row0 < nq ? make_float2(o[dt][0] * inv[0], o[dt][1] * inv[0]) : make_float2(0.f, 0.f);
     if (row1 < n)
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row1) * HD + col) =
+      *reinterpret_cast<float2*>(g.out + g.out_off(row1) + col) =
           row1 < nq ? make_float2(o[dt][2] * inv[1], o[dt][3] * inv[1]) : make_float2(0.f, 0.f);
   }
 }
 
-// Two entry kernels over one body, so that a profile tells K4 and K5 apart.
+// K4 / K5 on group blockIdx.y, rows from blockIdx.x * BQ.
+template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
+__device__ __forceinline__ void dense_f32tc(const RelposArgs& a, const bool bias_smem) {
+  const int n = a.n, g = blockIdx.y, q0 = blockIdx.x * F32Layout<HD, NT, WARPS>::BQ;
+  const size_t base = static_cast<size_t>(g) * n;
+  const DenseRows32<HD> rows{static_cast<const float*>(a.q) + base * HD,
+                             static_cast<const float*>(a.k) + base * HD,
+                             static_cast<const float*>(a.v) + base * HD,
+                             static_cast<float*>(a.out) + base * HD,
+                             static_cast<const float*>(a.bhw) + (base + q0) * (a.gh + a.gw)};
+  const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
+  f32tc_body<HD, NT, WARPS, OG, GRID_ROW>(rows, n, a.gh, a.gw, nq, q0, a.scale, a.folded != 0,
+                                          bias_smem);
+}
+
+// Three entry kernels over one body, so that a profile tells K4, K5 and K6
+// apart.
 template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
 __global__ void __launch_bounds__(32 * WARPS, 1)
     relpos_global_kernel_f32tc(RelposArgs a, int bias_smem) {
-  f32tc_body<HD, NT, WARPS, OG, GRID_ROW>(a, bias_smem != 0);
+  dense_f32tc<HD, NT, WARPS, OG, GRID_ROW>(a, bias_smem != 0);
 }
 
 template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
 __global__ void __launch_bounds__(32 * WARPS, 1)
     relpos_window_kernel_f32tc(RelposArgs a, int bias_smem) {
-  f32tc_body<HD, NT, WARPS, OG, GRID_ROW>(a, bias_smem != 0);
+  dense_f32tc<HD, NT, WARPS, OG, GRID_ROW>(a, bias_smem != 0);
+}
+
+// K6: block blockIdx.x = ((b, wy, wx) window, head) * parts + part, head
+// fastest; every token of the padded grid is a query and a key (no skip),
+// the bias halves computed in the block, K6's order of the score's terms.
+template <int HD, int NT, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, 1) window_strip_kernel_f32tc(StripArgs a, int parts) {
+  const int ws = a.ws, nwx = a.wp / ws, nwy = a.hp / ws;
+  const int group = blockIdx.x / parts, part = blockIdx.x - group * parts;
+  const int head = group % a.nh, win = group / a.nh;
+  const int wx = win % nwx, wy = (win / nwx) % nwy, b = win / (nwx * nwy);
+  const size_t tok0 = (static_cast<size_t>(b) * a.hp + wy * ws) * a.wp + wx * ws;
+  const size_t in0 = tok0 * a.ts + static_cast<size_t>(head) * HD;
+  const size_t out0 = tok0 * a.c + static_cast<size_t>(head) * HD;
+  const WindowRows32<HD> rows{static_cast<const float*>(a.q) + in0,
+                              static_cast<const float*>(a.k) + in0,
+                              static_cast<const float*>(a.v) + in0,
+                              static_cast<float*>(a.out) + out0,
+                              static_cast<const float*>(a.rh),
+                              static_cast<const float*>(a.rw),
+                              ws, a.wp, a.ts, a.c};
+  f32tc_body<HD, NT, WARPS, 0, false>(rows, ws * ws, ws, ws, ws * ws,
+                                      part * F32Layout<HD, NT, WARPS>::BQ, a.scale, false, true);
 }
 
 template <int HD, int NT, int WARPS>
@@ -511,6 +666,31 @@ cudaError_t launch_window_f32tc(const RelposArgs& a, int g, cudaStream_t stream)
   return launch_f32tc<HD, 5, 7>(&relpos_window_kernel_f32tc<HD, 5, 7, 0, false>, a, g, stream);
 }
 
+// K6: K5's shape of block (7 warps, 40-key chunks, p . v in o), the
+// window's tokens read in place, 2 blocks a 14 x 14 window and head.
+template <int HD>
+cudaError_t launch_strip_f32tc(const StripArgs& a, int batch, cudaStream_t stream) {
+  using L = F32Layout<HD, 5, 7>;
+  // 16-byte loads of q, k, v rows and of the table rows (ts, c and HD
+  // multiples of 4 floats).
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.out) |
+       reinterpret_cast<uintptr_t>(a.rh) | reinterpret_cast<uintptr_t>(a.rw)) % 16 != 0 ||
+      a.ts % 4 != 0 || a.c % 4 != 0)
+    return cudaErrorInvalidValue;
+  const int parts = (a.ws * a.ws + L::BQ - 1) / L::BQ;
+  const long long blocks =
+      static_cast<long long>(batch) * (a.hp / a.ws) * (a.wp / a.ws) * a.nh * parts;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = &window_strip_kernel_f32tc<HD, 5, 7>;
+  const size_t smem = L::chunk_bytes() + L::bias_bytes(2 * a.ws);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), 32 * 7, smem, stream>>>(a, parts);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream) {
@@ -522,6 +702,15 @@ cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t
 cudaError_t relpos_windowed_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream) {
   if (hd == 64) return launch_window_f32tc<64>(a, g, stream);
   if (hd == 80) return launch_window_f32tc<80>(a, g, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t window_strip_f32tc(const StripArgs& a, int batch, int hd, cudaStream_t stream) {
+  // Windows of up to 16 x 16 tokens (`quad_sum_scatter`'s 16 columns; the
+  // caller checks ws * ws <= 208).
+  if (a.ws > 16) return cudaErrorInvalidValue;
+  if (hd == 64) return launch_strip_f32tc<64>(a, batch, stream);
+  if (hd == 80) return launch_strip_f32tc<80>(a, batch, stream);
   return cudaErrorInvalidValue;
 }
 

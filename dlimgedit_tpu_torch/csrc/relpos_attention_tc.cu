@@ -16,11 +16,12 @@
 // `windowed_attention_fused`: K5's body on windows read in place from the
 // padded NHWC q, k, v (the channel slices of the qkv output), bias halves
 // computed in the block, no skip.
-// The float32 routes stay on the CUDA-core bodies of relpos_attention.cu
-// (K4, K5, K7) and window_strip_attention.cu (K6), whose head notes give
-// the arithmetic; this file computes the same functions with the JAX
-// rounding: scores and softmax in float32, p normalised in float32 and then
-// rounded to bf16, p . v accumulated in float32.
+// The float32 routes run in relpos_attention_f32tc.cu (K4, K5, K6: three
+// TF32 passes) and on relpos_attention.cu's CUDA-core body (K7); the head
+// notes of relpos_attention.cu and window_strip_attention.cu give the
+// arithmetic. This file computes the same functions with the JAX rounding:
+// scores and softmax in float32, p normalised in float32 and then rounded
+// to bf16, p . v accumulated in float32.
 //
 // What bounds them on an H100. K4 at ViT-B: 4 G N^2 hd = 51.5 GFLOP of
 // minimal products (52 us at the bf16 peak) against ~25 MB moved (7.5 us),
@@ -87,10 +88,14 @@
 // its wait on every path and its registers are fenced, so ptxas keeps the
 // products asynchronous. When a key tile is one grid row (gw == 64, every
 // ViT grid at 1024) the row half bh[i, y] is one value per query row and
-// tile, and bw[i, x] is read as bf16 pairs; other grids look each key's
-// (y, x) up in a table in shared memory, padding keys a -inf column. TMA
-// loads from a producer warp and warpgroup ping-pong are later work
-// (ROADMAP queue D).
+// tile, and bw[i, x] is read as bf16 pairs. Other grids compute each
+// key's (y, x) from its index (padding keys score -inf), with the block's
+// bias rows in shared memory where they fit beside q and the stages (a
+// 128 x 128 grid at hd 64), else read in place from device memory, where
+// the 192 rows' halves stay in L2 (at hd 80); a grid-row grid whose bias
+// rows do not fit takes that general path. No grid asks for more than the
+// 227 KB a block may have. TMA loads from a producer warp and warpgroup
+// ping-pong are later work (ROADMAP queue D).
 #include <math.h>
 #include <stdint.h>
 
@@ -211,15 +216,6 @@ __device__ __forceinline__ void fence_operands(uint32_t (&r)[C][4]) {
   for (int i = 0; i < C; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// key j -> y | (gh + x) << 16 for j < n, `masked` for the tile padding.
-__device__ __forceinline__ void stage_key_table(int* kyx, int count, int n, int gh, int gw,
-                                                int masked, int tid, int nthreads) {
-  for (int j = tid; j < count; j += nthreads) {
-    const int ky = j / gw;
-    kyx[j] = j < n ? ky | ((gh + j - ky * gw) << 16) : masked;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -647,9 +643,8 @@ constexpr int kGlbStages = 5;              // K tiles, and V tiles, in shared me
 constexpr int kGlbAhead = kGlbStages - 1;  // tiles loaded ahead of the one read
 
 // Row stride (elements) of the block's bf16 bias halves in shared memory:
-// 16-byte rows, room for column ghw (-inf, looked up by the padding keys of
-// general grids), and a word stride of 4 mod 32, so that the bw pairs of a
-// warp (8 rows x 4 lanes) fall on 32 banks.
+// 16-byte rows of more than ghw columns and a word stride of 4 mod 32, so
+// that the bw pairs of a warp (8 rows x 4 lanes) fall on 32 banks.
 __host__ __device__ inline int glb_bias_stride(int ghw) { return (ghw + 56) / 64 * 64 + 8; }
 
 // 64 rows x HD columns as wgmma's K-major core matrices without swizzle:
@@ -665,11 +660,13 @@ template <int HD>
 struct GlbLayout {
   static constexpr int TILE = kGlbBK * HD;    // a K or V tile in core matrices
   static constexpr int Q_ROWS = kGlbBM * HD;  // the block's q rows in core matrices
-  static size_t bytes(int ghw, int kyx_count) {
+  // q, the stages and, with bias_smem, the block's bias rows.
+  __host__ __device__ static size_t bytes(int ghw, bool bias_smem) {
     return sizeof(bf16) * (Q_ROWS + 2 * kGlbStages * TILE +
-                           static_cast<size_t>(kGlbBM) * glb_bias_stride(ghw)) +
-           sizeof(int) * kyx_count;
+                           (bias_smem ? static_cast<size_t>(kGlbBM) * glb_bias_stride(ghw) : 0));
   }
+  // Whether the bias rows fit in shared memory beside q and the stages.
+  __host__ __device__ static bool bias_fits(int ghw) { return bytes(ghw, true) <= kMaxSmem; }
 };
 
 // A thread's running state of K4: the row statistics (pass 1), then p of
@@ -695,14 +692,14 @@ struct GlobalCtx {
   static constexpr int CPR = HD / 8;
   bf16* ks;           // kGlbStages K tiles
   bf16* vs;           // kGlbStages V tiles
-  const bf16* b0r;    // bias halves of this lane's two rows
+  const bf16* b0r;    // bias halves of this lane's two rows (shared or device memory)
   const bf16* b1r;
-  const int* kyx;     // key -> (y, gh + x) (general grids)
   const bf16* k;
   const bf16* v;
   uint64_t desc_q;    // this warpgroup's 64 q rows
-  int n, n_tiles, gh, tid, lane;
+  int n, n_tiles, gh, gw, tid, lane;
   float scale;
+  float inv_gw;       // 1 / gw (general grids)
 
   // K or V tile t into its stage as wgmma's core matrices (key r, dims
   // 8c .. 8c + 7 at chunk core_chunk(r, c)); consecutive threads write
@@ -766,13 +763,17 @@ struct GlobalCtx {
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int2 kt2 = *reinterpret_cast<const int2*>(kyx + t * kGlbBK + 8 * j + 2 * gq);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int te = e ? kt2.y : kt2.x;
-          const int ky = te & 0xffff, kx = te >> 16;
-          s[j][e] = fmaf(s[j][e], scale, bf(b0r[ky]) + bf(b0r[kx]));
-          s[j][2 + e] = fmaf(s[j][2 + e], scale, bf(b1r[ky]) + bf(b1r[kx]));
+          const int key = t * kGlbBK + 8 * j + 2 * gq + e;
+          const bool ok = key < n;
+          const int kk = ok ? key : n - 1;
+          // kk / gw: (kk + 1/2) / gw is at least 1 / (2 gw) from an integer,
+          // and the float32 product errs by less for kk below 2^22.
+          const int ky = __float2int_rz((static_cast<float>(kk) + 0.5f) * inv_gw);
+          const int kx = gh + kk - ky * gw;
+          s[j][e] = ok ? fmaf(s[j][e], scale, bf(b0r[ky]) + bf(b0r[kx])) : -INFINITY;
+          s[j][2 + e] = ok ? fmaf(s[j][2 + e], scale, bf(b1r[ky]) + bf(b1r[kx])) : -INFINITY;
         }
       }
     }
@@ -941,7 +942,9 @@ __global__ void __launch_bounds__(kGlbThreads, 1) relpos_global_kernel_tc(Relpos
   bf16* bs = vs + kGlbStages * L::TILE;          // kGlbBM x bstr bias halves
   const int n = a.n, gh = a.gh, ghw = gh + a.gw;
   const int bstr = glb_bias_stride(ghw);
-  int* kyx = reinterpret_cast<int*>(bs + kGlbBM * bstr);  // general grids only
+  // The bias rows in shared memory where they fit (always on a grid-row
+  // grid: its launcher takes the general kernel otherwise), else in place.
+  const bool bias_smem = GRID_ROW || L::bias_fits(ghw);
 
   const int g = blockIdx.y, q0 = blockIdx.x * kGlbBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -952,11 +955,15 @@ __global__ void __launch_bounds__(kGlbThreads, 1) relpos_global_kernel_tc(Relpos
   const int n_tiles = (n + kGlbBK - 1) / kGlbBK;
   const int rows = min(kGlbBM, n - q0);      // the block's query rows below n
   const int r0 = warp * 16 + (lane >> 2);  // this lane's rows in the block: r0, r0 + 8
+  // In place, rows past n repeat row n - 1 (their results are never stored).
+  const bf16* b0r = bias_smem ? bs + r0 * bstr : bhw + min(r0, rows - 1) * ghw;
+  const bf16* b1r = bias_smem ? bs + (r0 + 8) * bstr : bhw + min(r0 + 8, rows - 1) * ghw;
 
   const GlobalCtx<HD, GRID_ROW> c{
-      ks, vs, bs + r0 * bstr, bs + (r0 + 8) * bstr, kyx,
+      ks, vs, b0r, b1r,
       static_cast<const bf16*>(a.k) + base * HD, static_cast<const bf16*>(a.v) + base * HD,
-      gmma_desc(qs + (warp >> 2) * 64 * HD, 128, 16 * HD), n, n_tiles, gh, tid, lane, a.scale};
+      gmma_desc(qs + (warp >> 2) * 64 * HD, 128, 16 * HD), n, n_tiles, gh, a.gw, tid, lane,
+      a.scale, 1.f / static_cast<float>(a.gw)};
 
   // The first load group: the block's q rows and bias halves (16-byte
   // chunks where the rows allow), then K tiles 0 .. kGlbAhead - 1.
@@ -966,21 +973,19 @@ __global__ void __launch_bounds__(kGlbThreads, 1) relpos_global_kernel_tc(Relpos
     cp_async16(qs + core_chunk<HD>(r, col) * 8,
                q + static_cast<size_t>(ok ? q0 + r : 0) * HD + col * 8, ok);
   }
-  if (ghw % 8 == 0 && reinterpret_cast<uintptr_t>(bhw) % 16 == 0) {
-    const int cpr = ghw / 8;
-    for (int e = tid; e < rows * cpr; e += kGlbThreads) {
-      const int r = e / cpr, col = (e - r * cpr) * 8;
-      cp_async16(bs + r * bstr + col, bhw + r * ghw + col, true);
+  if (bias_smem) {
+    if (ghw % 8 == 0 && reinterpret_cast<uintptr_t>(bhw) % 16 == 0) {
+      const int cpr = ghw / 8;
+      for (int e = tid; e < rows * cpr; e += kGlbThreads) {
+        const int r = e / cpr, col = (e - r * cpr) * 8;
+        cp_async16(bs + r * bstr + col, bhw + r * ghw + col, true);
+      }
+    } else {
+      for (int e = tid; e < rows * ghw; e += kGlbThreads) {
+        const int r = e / ghw;
+        bs[r * bstr + e - r * ghw] = bhw[e];
+      }
     }
-  } else {
-    for (int e = tid; e < rows * ghw; e += kGlbThreads) {
-      const int r = e / ghw;
-      bs[r * bstr + e - r * ghw] = bhw[e];
-    }
-  }
-  if constexpr (!GRID_ROW) {  // padding keys look up column ghw, which holds -inf
-    stage_key_table(kyx, n_tiles * kGlbBK, n, gh, a.gw, ghw | (ghw << 16), tid, kGlbThreads);
-    for (int r = tid; r < kGlbBM; r += kGlbThreads) bs[r * bstr + ghw] = __float2bfloat16(-INFINITY);
   }
 #pragma unroll
   for (int t = 0; t < kGlbAhead; ++t) c.template load_ahead<false>(t);
@@ -1029,11 +1034,21 @@ __global__ void __launch_bounds__(kGlbThreads, 1) relpos_global_kernel_tc(Relpos
   }
 }
 
+// A grid-row grid whose bias rows do not fit in shared memory takes the
+// general kernel, which reads them in place, so no launch asks for more
+// than kMaxSmem (q and the stages alone take 104 KB at hd 64, 130 KB at hd
+// 80). The general kernel's keys are below 2^22 (the index arithmetic of
+// `add_bias`).
 template <int HD, bool GRID_ROW>
 cudaError_t launch_global_tc(const RelposArgs& a, int g, cudaStream_t stream) {
+  using L = GlbLayout<HD>;
+  const int ghw = a.gh + a.gw;
+  if constexpr (GRID_ROW) {
+    if (!L::bias_fits(ghw)) return launch_global_tc<HD, false>(a, g, stream);
+  }
+  if (!GRID_ROW && a.n >= (1 << 22)) return cudaErrorInvalidValue;
   auto kernel = &relpos_global_kernel_tc<HD, GRID_ROW>;
-  const int n_tiles = (a.n + kGlbBK - 1) / kGlbBK;
-  const size_t smem = GlbLayout<HD>::bytes(a.gh + a.gw, GRID_ROW ? 0 : n_tiles * kGlbBK);
+  const size_t smem = L::bytes(ghw, GRID_ROW || L::bias_fits(ghw));
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;

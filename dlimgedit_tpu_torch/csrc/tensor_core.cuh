@@ -1,7 +1,10 @@
 // Device helpers of the port's tensor-core kernels (relpos_attention_tc.cu:
-// bf16 K4, K5, K7, K6; levit_attention_tc.cu: bf16 K2): 16-byte cp.async,
-// ldmatrix, the mma.sync m16n8k16 bf16 product, ex2, bf16 packing, and the
-// reductions over the 4 lanes that share a row of an mma accumulator.
+// bf16 K4, K5, K7, K6; levit_attention_tc.cu: bf16 K2;
+// relpos_attention_f32tc.cu: float32 K4, K5, K6; levit_attention_f32tc.cu:
+// float32 K2): 16-byte cp.async, ldmatrix, the mma.sync m16n8k16 bf16
+// product, the TF32 split and the m16n8k8 TF32 product in three passes,
+// ex2, bf16 packing, and the reductions over the 4 lanes that share a row
+// of an mma accumulator.
 #pragma once
 
 #include <stdint.h>
@@ -12,6 +15,7 @@ namespace dlimg {
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -53,6 +57,38 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// TF32 (`cvt.rna.tf32.f32`: 10 mantissa bits, ties away from zero).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 of x, both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b for one 16 x 8 x 8 tile, TF32 in, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in three TF32 passes: lo.hi, hi.lo, then hi.hi (the small
+// terms first), each operand split as hi + lo.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -170,8 +170,10 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 
 
-def check_launch(name: str, rc: int) -> None:
+def check_launch(name: str, rc: int, shape: str = "") -> None:
     """Raise if a C entry point reported a CUDA error (its return value is
-    the cudaError_t of the launch)."""
+    the cudaError_t of the launch); ``shape`` names the call's shape."""
     if rc != 0:
-        raise DlimgError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        at = f" on {shape}" if shape else ""
+        raise DlimgError(f"CUDA kernel {name} failed to launch{at}: "
+                         f"cudaError {rc}")

@@ -3,9 +3,10 @@
 Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
   * ``levit_window_attention`` (K2; JAX :531): TinyViT's window attention
-    with a static per-head bias, in bf16 on the tensor cores
-    (``csrc/levit_attention_tc.cu``), in float32 on the CUDA cores
-    (``csrc/levit_attention.cu``);
+    with a static per-head bias, on the tensor cores in bf16
+    (``csrc/levit_attention_tc.cu``) and in float32, every product in three
+    TF32 passes (``csrc/levit_attention_f32tc.cu``; float32 qkv must start
+    on 16 bytes);
   * ``flash_attention_relpos`` (JAX :443): the SAM ViT's attention with the
     decomposed relative-position bias, routed as in JAX to
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
@@ -24,10 +25,12 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
 In bf16 K4, K5, K7 and K6 run on the tensor cores
 (``csrc/relpos_attention_tc.cu``; K5, K7 and K6 share one ``mma.sync``
-body). In float32 K4 and K5 run on the tensor cores with every product in
-three TF32 passes (``csrc/relpos_attention_f32tc.cu``; q, k, v must start
-on 16 bytes), K7 and K6 on the CUDA cores (``csrc/relpos_attention.cu``,
-``csrc/window_strip_attention.cu``).
+body). In float32 K4, K5 and K6 run on the tensor cores with every product
+in three TF32 passes (``csrc/relpos_attention_f32tc.cu``, one body; q, k, v
+must start on 16 bytes, and K6's token stride be a multiple of 4 floats),
+K7 on the CUDA cores (``csrc/relpos_attention.cu``). The C entry points of
+K2 and K6 are ``csrc/levit_attention.cu`` and
+``csrc/window_strip_attention.cu``.
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -52,7 +55,7 @@ from ..errors import DlimgError
 from .cuda_build import DTYPE_CODES, LIBRARY, check_launch
 
 # The K2 kernels' head width and largest window (csrc/levit_attention.cu,
-# csrc/levit_attention_tc.cu).
+# the entry point of csrc/levit_attention_tc.cu and _f32tc.cu).
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_TOKENS = 256
 # Head widths K4, K5, K6 and K7 are instantiated for:
@@ -62,9 +65,9 @@ KERNEL_HEAD_DIMS = (64, 80)
 # kBiasSide: 16 bias columns a half, score rows of up to 256 keys); the
 # routers send wider bf16 windows to K4.
 WINDOW_MAX_SIDE = 16
-# The largest window K6 takes (csrc/window_strip_attention.cu kWsMaxN, 13
-# keys a lane; the bf16 instances of csrc/relpos_attention_tc.cu, score
-# rows of 208 keys): SAM's 14 x 14 windows.
+# The largest window K6 takes (csrc/window_strip_attention.cu; the bf16
+# instances of csrc/relpos_attention_tc.cu hold score rows of 208 keys):
+# SAM's 14 x 14 windows.
 STRIP_MAX_TOKENS = 208
 
 
@@ -114,6 +117,10 @@ def _check(qkv, bias, num_heads):
                          f"{KERNEL_MAX_TOKENS}, got kd={kd}, N={N}")
     if not (qkv.is_contiguous() and bias.is_contiguous()):
         raise DlimgError("levit_window_attention: inputs must be contiguous")
+    if qkv.dtype == torch.float32 and qkv.data_ptr() % 16:
+        raise DlimgError("levit_window_attention: the float32 kernel reads "
+                         "qkv rows in 16-byte pieces; qkv must start on 16 "
+                         "bytes")
     return kd
 
 
@@ -124,9 +131,9 @@ def levit_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     qkv: (G, N, nh * 3 * kd), the qkv linear's output per window;
     bias: (nh, N, N), the gathered attention-bias table. Returns
     (G, N, nh * kd). CUDA tensors go through the K2 kernel (and count one
-    launch in ``levit_window_attention.launches``); the bf16 kernel reads
-    qkv in 16-byte chunks, so a view that does not start on 16 bytes is
-    cloned."""
+    launch in ``levit_window_attention.launches``); both kernels read qkv
+    in 16-byte chunks: a bf16 view that does not start on 16 bytes is
+    cloned, a float32 one raises."""
     kd = _check(qkv, bias, num_heads)
     if qkv.device.type == "cpu":
         return levit_window_attention_plain(qkv, bias, num_heads)
@@ -300,7 +307,8 @@ def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bhw.data_ptr(),
         out.data_ptr(), G, N, hd, grid_h, grid_w, DTYPE_CODES[str(q.dtype)],
         float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(name, rc)
+    check_launch(name, rc, f"{G} groups of a {grid_h} x {grid_w} grid, "
+                 f"head width {hd}, {q.dtype}")
     relpos_attention_global.launches += 1
     return out
 
@@ -611,11 +619,11 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
                          f"{STRIP_MAX_TOKENS})")
     if (any(t.data_ptr() % 16 for t in (q, k, v))
             or ts * q.element_size() % 16):
-        raise DlimgError(f"{name}: the CUDA kernel reads q, k, v in 16-byte "
+        raise DlimgError(f"{name}: the CUDA kernels read q, k, v in 16-byte "
                          f"chunks: their data and token stride must be "
-                         f"16-byte aligned")
-    # The bf16 kernel reads table rows in 16-byte loads too: a table view
-    # that does not start on 16 bytes is cloned (2 ws^2 hd values).
+                         f"16-byte aligned (float32: ts a multiple of 4)")
+    # The kernels read table rows in 16-byte loads too: a table view that
+    # does not start on 16 bytes is cloned (2 ws^2 hd values).
     rh_t, rw_t = (t.to(q.dtype).contiguous() for t in (rh, rw))
     rh_t, rw_t = (t.clone() if t.data_ptr() % 16 else t for t in (rh_t, rw_t))
     out = torch.empty((B, Hp, Wp, C), dtype=q.dtype, device=q.device)

@@ -72,12 +72,10 @@ LAYERS = (  # first match wins; matched against the lower-cased kernel name
     ("greedy_nms scan (AMG)", ("greedy_nms_scan_kernel",)),
     ("K3 fused_add_layer_norm", ("add_layer_norm_kernel<",)),
     ("K1 fused_layer_norm", ("layer_norm_kernel<",)),
-    ("K2 levit_window_attention", ("levit_attention_kernel",
-                                   "levit_window_kernel_tc")),
+    ("K2 levit_window_attention", ("levit_window_kernel",)),
     ("K4 relpos_attention_global", ("relpos_global_kernel",)),
     ("K5 relpos_attention_windowed", ("relpos_window_kernel",)),
-    ("K6 windowed_attention_fused", ("window_strip_attention_kernel",
-                                     "window_strip_kernel_tc")),
+    ("K6 windowed_attention_fused", ("window_strip_kernel",)),
     ("K7 relpos_attention_qkv", ("relpos_qkv_kernel",)),
     ("P2 quantize_rows_int8", ("quantize_rows_kernel",)),
     ("P3 int8_epilogue", ("int8_epilogue_kernel",)),

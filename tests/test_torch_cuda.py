@@ -67,22 +67,30 @@ int8 product cuBLASLt cannot take (16 rows) raises; and quantised
 replay bit-equal to their eager programs, with P2 and P3 launched once
 per quantised linear under w8a8 and never under w8.
 
-Float32 K4 and K5 (csrc/relpos_attention_f32tc.cu: every product in three
-TF32 passes on the tensor cores, a one-pass online softmax) hold the plain
-version at 2e-5 at hd 64 and 80, N = 196 (the ragged last key chunk), 4096
-and 16384 (K4 on a grid whose bias halves leave no room in shared memory
-and are read in place), folded and plain bias, with and without the pad-query skip (skipped
-rows exactly zero), G = 1 and 25 x 16, and on scores of large range (q of
-scale 4), where a single TF32 pass is off by ~4e-3
-(tests/test_torch_tf32x3.py emulates both on the CPU); a float32 q, k, v
-or out that does not start on 16 bytes is refused.
+Float32 K4, K5 and K6 (csrc/relpos_attention_f32tc.cu) and float32 K2
+(csrc/levit_attention_f32tc.cu): every product in three TF32 passes on the
+tensor cores. K4 and K5 hold the plain version at 2e-5 at hd 64 and 80, N
+= 196 (the ragged last key chunk), 4096 and 16384 (K4 on a grid whose bias
+halves leave no room in shared memory and are read in place), folded and
+plain bias, with and without the pad-query skip (skipped rows exactly
+zero), G = 1 and 25 x 16, and on scores of large range (q of scale 4),
+where a single TF32 pass is off by ~4e-3 (tests/test_torch_tf32x3.py
+emulates K2, K4, K5 and K6 on the CPU); K2 at every N from 1 to 256, K6
+with q, k, v as slices and contiguous and with large tables. A float32 q,
+k, v or out (K2: qkv) that does not start on 16 bytes is refused.
+
+The bf16 K4 on grids whose rows are not 64 keys (C8): a 128 x 128 grid at
+hd 64 (bias rows in shared memory, each key's (y, x) computed from its
+index) and hd 80 (the bias rows read in place), and a 96 x 96 grid at hd
+80, where the old key table overflowed shared memory (cudaError 1).
 
 K6's large-table case holds the rounding of its bias halves: q and the
 tables are multiples of 1/4 (rh, rw of scale ~3), so every float32 sum of
 their products is exact in any order and the halves (~24 in size, bf16
 steps of 1/8) round the same on both sides; rounding bh + bw together, or
 scaling before rounding, moves scores by up to half such a step and the
-output by more than the tolerance.
+output by more than the tolerance. In float32 the same inputs hold the
+order of the score's terms, ((q.k) scale + bh) + bw, with exact halves.
 """
 
 import dataclasses
@@ -184,12 +192,13 @@ def test_levit_attention_kernel_matches_plain(dev, G, N, nh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [1, 17, 48, 49, 64, 65, 196, 208, 256])
+@pytest.mark.parametrize("N", range(1, 257))
 def test_levit_attention_kernel_every_window_size(dev, N, dtype):
-    """bf16 K2 on the tensor cores (instances of 64, 208 and 256 keys; N
+    """K2 on the tensor cores, bf16 and float32 (three TF32 passes), at
+    every N its entry point takes (instances of 64, 208 and 256 keys; N
     above 64 splits a (window, head) group's 16-row stripes over blocks of
-    4) and float32 K2 on the CUDA cores; qkv a view that starts 16 bytes
-    into its storage and, for bf16, one that does not start on 16 bytes."""
+    4); qkv a view that starts 16 bytes into its storage and, for bf16, one
+    that does not start on 16 bytes."""
     g = torch.Generator(device=dev).manual_seed(10)
     G, nh = 3, 2
     base = torch.randn((G * N * nh * 96 + 8,), generator=g, device=dev).to(dtype)
@@ -258,7 +267,10 @@ def _relpos_inputs(dev, G, gh, gw, hd, dtype, out_scale, seed, q_scale=1.0):
                                         (1, 24, 40, 80),   # gw vs the 64-key tile
                                         (2, 32, 32, 64),   # ViT-B at 512
                                         (1, 64, 64, 80),   # ViT-H's global grid
-                                        (1, 14, 14, 80)])  # a ragged last chunk
+                                        (1, 14, 14, 80),   # a ragged last chunk
+                                        # C8: a ViT at 2048 and at 1536
+                                        (1, 128, 128, 64), (1, 128, 128, 80),
+                                        (1, 96, 96, 80)])
 def test_relpos_global_kernel_matches_plain(dev, G, gh, gw, hd, dtype):
     q, k, v, bhw = _relpos_inputs(dev, G, gh, gw, hd, dtype, 1.0, 3)
     before = relpos_attention_global.launches
@@ -352,6 +364,44 @@ def test_relpos_f32_kernels_refuse_unaligned_inputs(dev):
         relpos_attention_global(shifted, k, v, bhw, 14, 14)
     with pytest.raises(DlimgError):
         relpos_attention_windowed(q, shifted, v, bhw, 14, 14, 2, False)
+
+
+def test_levit_and_window_strip_f32_kernels_refuse_unaligned_inputs(dev):
+    """Float32 K2 and K6 read their operands in 16-byte pieces: a view that
+    starts 4 bytes into its storage raises in the wrapper (nothing
+    launched), and the C entry points, which the C++ serving library calls
+    without the wrappers' checks, return an error instead of reading it."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    stream = torch.cuda.current_stream().cuda_stream
+    G, N, nh = 2, 49, 2
+    flat = torch.randn(G * N * nh * 96 + 1, generator=g, device=dev)
+    qkv = flat[1:].view(G, N, nh * 96)
+    bias = torch.randn((nh, N, N), generator=g, device=dev)
+    before = levit_window_attention.launches
+    with pytest.raises(DlimgError, match="16 bytes"):
+        levit_window_attention(qkv, bias, nh)
+    assert levit_window_attention.launches == before
+    out = torch.empty((G, N, nh * 32), device=dev)
+    assert LIBRARY.get().dlimg_levit_attention(
+        qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), G, N, nh, 32,
+        DTYPE_CODES["torch.float32"], 32 ** -0.5, stream) != 0
+
+    B, grid, heads, hd, ws = 1, 14, 2, 64, 14
+    C = heads * hd
+    flat = torch.randn(B * grid * grid * 3 * C + 1, generator=g, device=dev)
+    qkv = flat[1:].view(B, grid, grid, 3 * C)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=g, device=dev)
+              for _ in range(2))
+    before = windowed_attention_fused.launches
+    with pytest.raises(DlimgError, match="16-byte"):
+        windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    assert windowed_attention_fused.launches == before
+    out = torch.empty((B, grid, grid, C), device=dev)
+    assert LIBRARY.get().dlimg_window_strip_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
+        out.data_ptr(), B, grid, grid, C, 3 * C, ws, heads, hd,
+        DTYPE_CODES["torch.float32"], hd ** -0.5, stream) != 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -516,11 +566,13 @@ def test_window_strip_kernel_contiguous_operands(dev, B, grid, heads, hd, ws,
                                rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["slices", "contiguous"])
 @pytest.mark.parametrize("hd", [64, 80])
-def test_window_strip_kernel_large_tables(dev, hd, layout):
-    """bf16, rel-pos tables of scale ~3 on values whose bias sums are
-    exact (see the module note): the halves' rounding order decides."""
+def test_window_strip_kernel_large_tables(dev, hd, layout, dtype):
+    """Rel-pos tables of scale ~3 on values whose bias sums are exact (see
+    the module note): in bf16 the halves' rounding order decides, in
+    float32 the order of the score's terms."""
     g = torch.Generator(device=dev).manual_seed(9)
     B, grid, heads, ws = 1, 42, 4, 14
     C = heads * hd
@@ -531,15 +583,14 @@ def test_window_strip_kernel_large_tables(dev, hd, layout):
 
     qkv = torch.randn((B, grid, grid, 3 * C), generator=g, device=dev)
     qkv[..., :C] = quarters((B, grid, grid, C), 1.0, 4.0)
-    q, k, v = _strip_operands(qkv.to(torch.bfloat16), layout)
-    rh, rw = (quarters((ws, ws, hd), 3.0, 12.0).to(torch.bfloat16)
-              for _ in range(2))
+    q, k, v = _strip_operands(qkv.to(dtype), layout)
+    rh, rw = (quarters((ws, ws, hd), 3.0, 12.0).to(dtype) for _ in range(2))
     got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
     torch.cuda.synchronize()
     want = windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
                                           num_heads=heads)
-    torch.testing.assert_close(got.float(), want.float(),
-                               atol=TOL[torch.bfloat16][1], rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype][1],
+                               rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,13 +1,20 @@
-"""The arithmetic of float32 K4 and K5 on the tensor cores, on the CPU.
+"""The arithmetic of the float32 attention kernels on the tensor cores, on
+the CPU.
 
-csrc/relpos_attention_f32tc.cu computes every product of float32 K4 and
-K5 in three TF32 passes (hi = TF32(x), lo = TF32(x - hi), a product
-lo.hi + hi.lo + hi.hi, TF32 rounding being `cvt.rna.tf32.f32`: 10 mantissa
-bits, ties away from zero) with a one-pass online softmax over key chunks
-(32 keys for K4, 40 for K5), exp as 2^(s log2 e - m log2 e). That kernel
-runs only on the card; this file emulates its arithmetic in float32 with
-torch on the CPU, from numpy-seeded inputs, and holds it against the port's
-plain version (`attention_relpos_plain`) at chip_smoke.py's float32
+csrc/relpos_attention_f32tc.cu (float32 K4, K5 and K6) and
+csrc/levit_attention_f32tc.cu (float32 K2) compute every product in three
+TF32 passes (hi = TF32(x), lo = TF32(x - hi), a product lo.hi + hi.lo +
+hi.hi, TF32 rounding being `cvt.rna.tf32.f32`: 10 mantissa bits, ties away
+from zero). K4, K5 and K6 run a one-pass online softmax over key chunks (32
+keys for K4, 40 for K5 and K6), exp as 2^(s log2 e - m log2 e); K6 computes
+its bias halves in float32 (CUDA cores) and adds them in its own order,
+((q.k) scale + bh) + bw. K2 keeps the whole score row and normalises p in
+float32 before p . v, the bias added after the scale. Those kernels run
+only on the card; this file emulates their arithmetic in float32 with
+torch on the CPU, from numpy-seeded inputs, and holds it against the
+port's plain versions (`attention_relpos_plain`,
+`windowed_attention_fused_plain`, `levit_window_attention_plain`) and, for
+K6 and K2, the JAX kernels in interpret mode, at chip_smoke.py's float32
 tolerance, atol 2e-5: the design's precision argument, pinned before any
 card time is spent. A single TF32 pass (what PyTorch's `allow_tf32` gives)
 exceeds that tolerance on scores of large range (q of scale 4), so the
@@ -17,18 +24,31 @@ the kernel's note deals with (K4's p . v of each chunk accumulates from
 zero) and only the card tests can check.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dlimgedit_tpu.ops.flash_attention import (
+    levit_window_attention as jax_levit_window_attention,
+)
+from dlimgedit_tpu.ops.flash_attention import (
+    windowed_attention_fused as jax_windowed_attention_fused,
+)
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
+    _from_windows,
+    _to_windows,
     attention_relpos_plain,
+    levit_window_attention_plain,
+    windowed_attention_fused_plain,
 )
+
+torch.set_num_threads(2)
 
 ATOL = 2e-5
 LOG2E = 1.4426950408889634
-K4_CHUNK, K5_CHUNK = 32, 40
+K4_CHUNK, K5_CHUNK, K6_CHUNK = 32, 40, 40
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -54,28 +74,74 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
-def attention_tf32(q, k, v, bhw, gh, gw, *, folded, passes, chunk):
-    """The kernel's arithmetic: chunks of `chunk` keys, scores in the plain
-    version's order, online softmax with the row constant m log2 e."""
-    G, N, hd = q.shape
-    scale = hd ** -0.5
-    tok = torch.arange(N)
-    b = bhw.float()
-    bias = b[:, :, :gh][:, :, tok // gw] + b[:, :, gh:][:, :, tok % gw]
-    cl = torch.full((G, N, 1), -float("inf"))
-    l = torch.zeros((G, N, 1))
-    o = torch.zeros((G, N, hd))
+def online_tf32(q, k, v, score, *, passes, chunk):
+    """The online-softmax body of K4, K5 and K6: chunks of `chunk` keys,
+    score(qk, k0, k1) the scores of keys k0 .. k1 - 1 from their products,
+    the row constant m log2 e."""
+    *lead, N, hd = q.shape
+    cl = torch.full((*lead, N, 1), -float("inf"))
+    l = torch.zeros((*lead, N, 1))
+    o = torch.zeros((*lead, N, hd))
     for k0 in range(0, N, chunk):
-        qk = product(q, k[:, k0:k0 + chunk].transpose(1, 2), passes)
-        bt = bias[:, :, k0:k0 + chunk]
-        s = (qk + bt) * scale if folded else qk * scale + bt
+        k1 = min(k0 + chunk, N)
+        s = score(product(q, k[..., k0:k1, :].transpose(-1, -2), passes), k0, k1)
         cn = torch.maximum(cl, s.amax(-1, keepdim=True) * LOG2E)
         alpha = torch.exp2(cl - cn)
         p = torch.exp2(s * LOG2E - cn)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + product(p, v[:, k0:k0 + chunk], passes)
+        o = o * alpha + product(p, v[..., k0:k1, :], passes)
         cl = cn
     return o / l
+
+
+def attention_tf32(q, k, v, bhw, gh, gw, *, folded, passes, chunk):
+    """K4 / K5's arithmetic: scores in the plain version's order."""
+    N, hd = q.shape[1:]
+    scale = hd ** -0.5
+    tok = torch.arange(N)
+    b = bhw.float()
+    bias = b[:, :, :gh][:, :, tok // gw] + b[:, :, gh:][:, :, tok % gw]
+
+    def score(qk, k0, k1):
+        bt = bias[:, :, k0:k1]
+        return (qk + bt) * scale if folded else qk * scale + bt
+    return online_tf32(q, k, v, score, passes=passes, chunk=chunk)
+
+
+def window_strip_tf32(q, k, v, rh, rw, *, ws, num_heads, passes,
+                      chunk=K6_CHUNK):
+    """K6's arithmetic on (B, Hp, Wp, C) q, k, v: the windows' bias halves
+    in float32, s = ((q.k) scale + bh[i, y_j]) + bw[i, x_j], K5's online
+    softmax over 40-key chunks."""
+    B, Hp, Wp, C = q.shape
+    hd = C // num_heads
+    n = ws * ws
+    scale = hd ** -0.5
+    qw, kw, vw = (_to_windows(t, ws, num_heads).float() for t in (q, k, v))
+    tok = torch.arange(n)
+    yi, xi = tok // ws, tok % ws
+    bh = torch.einsum("gnid,iyd->gniy", qw, rh.float()[yi])
+    bw = torch.einsum("gnid,ixd->gnix", qw, rw.float()[xi])
+
+    def score(qk, k0, k1):
+        return qk * scale + bh[..., yi[k0:k1]] + bw[..., xi[k0:k1]]
+    o = online_tf32(qw, kw, vw, score, passes=passes, chunk=chunk)
+    return _from_windows(o, B, Hp, Wp, ws)
+
+
+def levit_tf32(qkv, bias, num_heads, *, passes):
+    """K2's arithmetic: the whole score row, s = (q.k) scale + bias, exact
+    softmax, p normalised in float32 (times 1 / l), then p . v."""
+    G, N, H = qkv.shape
+    kd = H // (3 * num_heads)
+    q, k, v = (qkv.reshape(G, N, num_heads, 3 * kd)[..., i * kd:(i + 1) * kd]
+               .permute(0, 2, 1, 3) for i in range(3))
+    s = product(q, k.transpose(-1, -2), passes) * kd ** -0.5 + bias[None]
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s * LOG2E - m * LOG2E)
+    p = p * (1.0 / p.sum(-1, keepdim=True))
+    out = product(p, v, passes)
+    return out.permute(0, 2, 1, 3).reshape(G, N, num_heads * kd)
 
 
 def inputs(G, gh, gw, hd, q_scale, folded, seed):
@@ -135,3 +201,101 @@ def test_tf32_rounding_and_split():
     hi, lo = split(y)
     assert torch.equal(tf32_rna(hi), hi) and torch.equal(tf32_rna(lo), lo)
     assert ((hi + lo - y).abs() <= y.abs() * 2.0 ** -22).all()
+
+
+def strip_inputs(heads, hd, q_scale, seed, B=1, grid=14, ws=14):
+    """q, k, v as the channel slices of one (B, grid, grid, 3C) qkv, the
+    gathered (ws, ws, hd) tables, numpy arrays beside the tensors."""
+    rng = np.random.default_rng(seed)
+    C = heads * hd
+    qkv = rng.standard_normal((B, grid, grid, 3 * C), dtype=np.float32)
+    qkv[..., :C] *= q_scale
+    rh, rw = ((0.3 * rng.standard_normal((ws, ws, hd))).astype(np.float32)
+              for _ in range(2))
+    return qkv, rh, rw
+
+
+def strip_ops(qkv, C):
+    return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_window_strip_three_tf32_passes_match_plain_and_pallas(hd, q_scale):
+    """K6 at SAM's 14 x 14 window (196 keys: four 40-key chunks and one of
+    36 with 4 masked), two heads, against the plain version and JAX's
+    `windowed_attention_fused` in interpret mode."""
+    heads, ws = 2, 14
+    qkv, rh, rw = strip_inputs(heads, hd, q_scale, seed=hd)
+    C = heads * hd
+    tq, trh, trw = (torch.from_numpy(a) for a in (qkv, rh, rw))
+    got = window_strip_tf32(*strip_ops(tq, C), trh, trw, ws=ws,
+                            num_heads=heads, passes=3)
+    plain = windowed_attention_fused_plain(*strip_ops(tq, C), trh, trw, ws=ws,
+                                           num_heads=heads)
+    assert (got - plain).abs().max().item() <= ATOL
+    jq = jnp.asarray(qkv)
+    want = jax_windowed_attention_fused(*strip_ops(jq, C), jnp.asarray(rh),
+                                        jnp.asarray(rw), ws=ws,
+                                        num_heads=heads, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_window_strip_padded_grid_matches_plain(hd):
+    """K6 over a padded 28 x 28 grid of four windows, three heads."""
+    heads, ws = 3, 14
+    qkv, rh, rw = strip_inputs(heads, hd, 1.0, seed=hd + 1, grid=28)
+    C = heads * hd
+    tq, trh, trw = (torch.from_numpy(a) for a in (qkv, rh, rw))
+    got = window_strip_tf32(*strip_ops(tq, C), trh, trw, ws=ws,
+                            num_heads=heads, passes=3)
+    plain = windowed_attention_fused_plain(*strip_ops(tq, C), trh, trw, ws=ws,
+                                           num_heads=heads)
+    assert (got - plain).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_window_strip_one_tf32_pass_exceeds_the_tolerance(hd):
+    heads, ws = 2, 14
+    qkv, rh, rw = strip_inputs(heads, hd, 4.0, seed=hd)
+    C = heads * hd
+    tq, trh, trw = (torch.from_numpy(a) for a in (qkv, rh, rw))
+    got = window_strip_tf32(*strip_ops(tq, C), trh, trw, ws=ws,
+                            num_heads=heads, passes=1)
+    plain = windowed_attention_fused_plain(*strip_ops(tq, C), trh, trw, ws=ws,
+                                           num_heads=heads)
+    assert (got - plain).abs().max().item() > ATOL
+
+
+def levit_inputs(G, N, nh, q_scale, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((G, N, nh * 96), dtype=np.float32)
+    qkv.reshape(G, N, nh, 96)[..., :32] *= q_scale
+    bias = (0.5 * rng.standard_normal((nh, N, N))).astype(np.float32)
+    return qkv, bias
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("N", [49, 196])
+def test_levit_three_tf32_passes_match_plain_and_pallas(N, q_scale):
+    """K2 at TinyViT's windows of 7 x 7 and 14 x 14 tokens."""
+    G, nh = 2, 3
+    qkv, bias = levit_inputs(G, N, nh, q_scale, seed=N)
+    tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    got = levit_tf32(tq, tb, nh, passes=3)
+    plain = levit_window_attention_plain(tq, tb, nh)
+    assert (got - plain).abs().max().item() <= ATOL
+    want = jax_levit_window_attention(jnp.asarray(qkv), jnp.asarray(bias),
+                                      num_heads=nh, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("N", [49, 196])
+def test_levit_one_tf32_pass_exceeds_the_tolerance(N):
+    G, nh = 2, 3
+    qkv, bias = levit_inputs(G, N, nh, 4.0, seed=N)
+    tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+    got = levit_tf32(tq, tb, nh, passes=1)
+    plain = levit_window_attention_plain(tq, tb, nh)
+    assert (got - plain).abs().max().item() > ATOL
