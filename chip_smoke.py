@@ -16,10 +16,11 @@ and K2 at the bands' rows and windows):
                                                  (float32, tensor cores, three
                                                  TF32 passes)
   K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
-  K7 relpos_attention_qkv                        tensor cores); float32 K4 and K5
-                                                 relpos_attention_f32tc.cu (tensor
-                                                 cores, three TF32 passes), K7
-                                                 relpos_attention.cu (CUDA cores)
+  K7 relpos_attention_qkv                        tensor cores); float32 K4, K5 and
+                                                 K7 relpos_attention_f32tc.cu
+                                                 (tensor cores, three TF32
+                                                 passes); C entry points
+                                                 relpos_attention.cu
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
                                                  relpos_attention_f32tc.cu (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
@@ -36,7 +37,7 @@ printing its seconds:
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
      wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
-     mma.sync; relpos_attention_f32tc.cu: float32 K4, K5 and K6 on
+     mma.sync; relpos_attention_f32tc.cu: float32 K4, K5, K6 and K7 on
      mma.sync in three TF32 passes; levit_attention_f32tc.cu: float32 K2
      likewise) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
@@ -762,8 +763,8 @@ SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu),
-# bf16 K2 (csrc/levit_attention_tc.cu), float32 K4, K5 and K6 in three TF32
-# passes (csrc/relpos_attention_f32tc.cu) and float32 K2 likewise
+# bf16 K2 (csrc/levit_attention_tc.cu), float32 K4, K5, K6 and K7 in three
+# TF32 passes (csrc/relpos_attention_f32tc.cu) and float32 K2 likewise
 # (csrc/levit_attention_f32tc.cu): phase 1 fails if one is missing from
 # nvcc's report or spills.
 TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu",
@@ -772,7 +773,7 @@ TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
               "relpos_window_kernel_f32tc", "window_strip_kernel_f32tc",
-              "levit_window_kernel_f32tc")
+              "relpos_qkv_kernel_f32tc", "levit_window_kernel_f32tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
@@ -830,7 +831,8 @@ F32_SOURCES = {
         "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
     "windowed_attention_fused":
         "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
-    "relpos_attention_qkv": "dlimgedit_tpu_torch/csrc/relpos_attention.cu",
+    "relpos_attention_qkv":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_f32tc.cu",
 }
 
 

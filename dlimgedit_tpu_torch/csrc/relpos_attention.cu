@@ -3,9 +3,8 @@
 //
 // This file holds the three C entry points, each of which picks its body by
 // dtype: in bf16 (the ViT main paths' dtype) all three run on the tensor
-// cores in relpos_attention_tc.cu; in float32 K4 and K5 run on the tensor
-// cores in three TF32 passes (relpos_attention_f32tc.cu) and K7 on this
-// file's CUDA-core body (Design, below).
+// cores in relpos_attention_tc.cu; in float32 all three run on the tensor
+// cores in three TF32 passes (relpos_attention_f32tc.cu).
 //
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
@@ -41,248 +40,11 @@
 // ~25 MB of q, k, v, bias halves and output (7.5 us at 3.35 TB/s). K5 is
 // at N = 196 near the ridge: ~4 GFLOP against ~33 MB; K7 at ViT-B's
 // windows: ~3.0 GFLOP against ~33 MB (qkv, bias halves, output).
-//
-// Design of the CUDA-core body (float32 K7): an EXACT two-pass softmax, so
-// p is normalised before it is rounded, exactly where the JAX kernel rounds
-// it (the identity in float32; the body was written for bf16 K4 too). K and V of a global head
-// (4096 x 64 bf16 = 512 KB each) do not fit shared memory, so neither the
-// TPU's whole-row score tile nor a row of 4096 float scores per query of a
-// 64-row tile can stay on chip; instead key tiles are streamed twice. A
-// block of 256 threads owns 64 query rows of one group:
-//   pass 1 streams K in 64-key tiles and keeps each row's running max m and
-//          sum l of exp(s - m) (statistics only, no probabilities);
-//   pass 2 streams K and V again, recomputes the scores, forms
-//          p = exp(s - m) / l, rounds it to the dtype, stages it in shared
-//          memory and accumulates p . v in registers.
-// Recomputing q . k costs 1.5x the minimal operations in exchange for the
-// JAX rounding of p. Each thread owns a 4 x 4 cell of the 64 x 64 score
-// tile (rows ty + 16 i, keys tx + 16 j) and 4 x hd/16 outputs; q and K sit
-// transposed in shared memory with padded rows so that the inner products
-// read without bank conflicts, and row reductions are shuffles across the
-// 16 lanes that share a row. The block's bias halves (64 x (gh + gw)) are
-// staged once. All arithmetic is float32 on the CUDA cores, which keeps the
-// body exact for float32 (2e-5 against the plain version needs float32
-// products, not TF32).
-#include <math.h>
-
 #include "relpos_attention.cuh"
 
 namespace dlimg {
 
-constexpr int kRpThreads = 256;
-constexpr int kRpBQ = 64;         // query rows per block
-constexpr int kRpBK = 64;         // keys per tile
-constexpr int kRpQS = kRpBQ + 1;  // row stride of q^T in shared memory
-constexpr int kRpKS = kRpBK + 1;  // row stride of K^T
-constexpr int kRpPS = kRpBQ + 2;  // row stride of p^T (conflict-free stores)
-
-template <int HD>
-size_t relpos_smem_bytes(int ghw) {
-  return sizeof(float) *
-         (static_cast<size_t>(HD) * (kRpQS + kRpKS) + static_cast<size_t>(kRpBK) * HD +
-          static_cast<size_t>(kRpBK) * kRpPS + static_cast<size_t>(kRpBQ) * (ghw + 1));
-}
-
-// Reductions over the 16 lanes (tx = 0..15) that hold one query row.
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-  return v;
-}
-
-// K7: group g = (window w, head h) reads q, k, v in place from the
-// (W, 3, nh, n, HD) qkv; plain bias, every row kept.
-template <int HD>
-__device__ __forceinline__ void relpos_attention_body(const RelposArgs& a) {
-  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
-  constexpr int DJ = HD / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  const int ghw = a.gh + a.gw;
-  const int bs_stride = ghw + 1;
-  float* qT = smem;               // HD x kRpQS
-  float* kT = qT + HD * kRpQS;    // HD x kRpKS
-  float* vs = kT + HD * kRpKS;    // kRpBK x HD
-  float* pT = vs + kRpBK * HD;    // kRpBK x kRpPS
-  float* bs = pT + kRpBK * kRpPS; // kRpBQ x bs_stride
-
-  const int n = a.n;
-  const int g = blockIdx.y;
-  const int q0 = blockIdx.x * kRpBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t gbase = static_cast<size_t>(g) * n;
-  const size_t w = g / a.qkv_heads, h = g % a.qkv_heads;
-  const size_t hn = static_cast<size_t>(a.qkv_heads) * n;
-  const size_t qbase = w * 3 * hn + h * n;
-  const float* q = static_cast<const float*>(a.q) + qbase * HD;
-  const float* k = q + hn * HD;
-  const float* v = k + hn * HD;
-  const float* bhw = static_cast<const float*>(a.bhw) + gbase * ghw;
-  float* out = static_cast<float*>(a.out) + gbase * HD;
-
-  for (int e = tid; e < kRpBQ * HD; e += kRpThreads) {
-    const int r = e / HD, d = e % HD;
-    qT[d * kRpQS + r] =
-        q0 + r < n ? q[static_cast<size_t>(q0 + r) * HD + d] : 0.f;
-  }
-  for (int e = tid; e < kRpBQ * ghw; e += kRpThreads) {
-    const int r = e / ghw, c = e % ghw;
-    bs[r * bs_stride + c] =
-        q0 + r < n ? bhw[static_cast<size_t>(q0 + r) * ghw + c] : 0.f;
-  }
-
-  auto load_k = [&](int k0) {
-    for (int e = tid; e < kRpBK * HD; e += kRpThreads) {
-      const int c = e / HD, d = e % HD;
-      kT[d * kRpKS + c] =
-          k0 + c < n ? k[static_cast<size_t>(k0 + c) * HD + d] : 0.f;
-    }
-  };
-
-  // This thread's 4 x 4 scores of the tile at key k0: rows ty + 16 i, keys
-  // k0 + tx + 16 j; keys past n score -inf.
-  auto scores = [&](int k0, float (&s)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qT[d * kRpQS + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kT[d * kRpKS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-      if (key >= n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
-        continue;
-      }
-      const int ky = key / a.gw;
-      const int kx = key - ky * a.gw;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* br = bs + (ty + 16 * i) * bs_stride;
-        const float b = br[ky] + br[a.gh + kx];
-        s[i][j] = __fadd_rn(__fmul_rn(s[i][j], a.scale), b);
-      }
-    }
-  };
-
-  const int n_tiles = (n + kRpBK - 1) / kRpBK;
-
-  // Pass 1: each row's max m and sum l of exp(s - m) over all keys.
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kRpBK;
-    __syncthreads();
-    load_k(k0);
-    __syncthreads();
-    float s[4][4];
-    scores(k0, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float tmax =
-          row_max16(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float mn = fmaxf(m[i], tmax);
-      float ts = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + row_sum16(ts);
-      m[i] = mn;
-    }
-  }
-
-  // Pass 2: p = exp(s - m) / l rounded to the dtype, out = p . v.
-  float o[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kRpBK;
-    __syncthreads();
-    load_k(k0);
-    for (int e = tid; e < kRpBK * HD; e += kRpThreads) {
-      const int c = e / HD;
-      vs[e] = k0 + c < n ? v[static_cast<size_t>(k0) * HD + e] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4];
-    scores(k0, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m[i]) / l[i];
-        pT[(tx + 16 * j) * kRpPS + ty + 16 * i] = p;
-      }
-    __syncthreads();
-    const int kc = min(kRpBK, n - k0);
-#pragma unroll 4
-    for (int c = 0; c < kc; ++c) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = pT[c * kRpPS + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      out[static_cast<size_t>(r) * HD + tx + 16 * j] = o[i][j];
-  }
-}
-
-// float32 K7 (K4 and K5 run in relpos_attention_f32tc.cu).
-template <int HD>
-__global__ void __launch_bounds__(kRpThreads, 2) relpos_qkv_kernel(RelposArgs a) {
-  relpos_attention_body<HD>(a);
-}
-
 enum RelposKind { kRelposGlobal, kRelposWindowed, kRelposQkv };
-
-template <int HD>
-cudaError_t launch_relpos_qkv(const RelposArgs& a, int g, cudaStream_t stream) {
-  const size_t smem = relpos_smem_bytes<HD>(a.gh + a.gw);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        &relpos_qkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((a.n + kRpBQ - 1) / kRpBQ, g);
-  relpos_qkv_kernel<HD><<<grid, kRpThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 template <int KIND>
 int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
@@ -291,15 +53,13 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32) {
-    // K4 and K5 run in three TF32 passes on the tensor cores
-    // (relpos_attention_f32tc.cu), K7 on the CUDA-core body above.
+    // Three TF32 passes on the tensor cores (relpos_attention_f32tc.cu).
     if constexpr (KIND == kRelposGlobal) {
       return relpos_global_f32tc(a, g, hd, s);
     } else if constexpr (KIND == kRelposWindowed) {
       return relpos_windowed_f32tc(a, g, hd, s);
     } else {
-      if (hd == 64) return launch_relpos_qkv<64>(a, g, s);
-      if (hd == 80) return launch_relpos_qkv<80>(a, g, s);
+      return relpos_qkv_f32tc(a, g, hd, s);
     }
   } else if (dtype == kDtypeBF16) {
     // bf16 runs on the tensor cores (relpos_attention_tc.cu); K7 is the

@@ -1,8 +1,8 @@
 // Arguments shared by the rel-pos attention kernels: K4, K5, K7 (entry
 // points in relpos_attention.cu) and K6 (entry point in
 // window_strip_attention.cu). bf16 runs on the tensor cores in
-// relpos_attention_tc.cu; float32 K4, K5 and K6 in relpos_attention_f32tc.cu
-// (three TF32 passes), float32 K7 on relpos_attention.cu's CUDA-core body.
+// relpos_attention_tc.cu, float32 on the tensor cores in three TF32 passes
+// in relpos_attention_f32tc.cu.
 #pragma once
 
 #include "common.cuh"
@@ -42,12 +42,14 @@ cudaError_t relpos_global_tc(const RelposArgs& a, int g, int hd, cudaStream_t st
 cudaError_t relpos_windowed_tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_tc(const StripArgs& a, int batch, int hd, cudaStream_t stream);
 
-// float32 K4, K5 and K6 on the tensor cores in three TF32 passes
+// float32 K4, K5, K7 and K6 on the tensor cores in three TF32 passes
 // (relpos_attention_f32tc.cu); the same arguments, hd in {64, 80}. q, k, v
-// and out must start on 16 bytes (K6: also rh and rw, and ts a multiple
-// of 4 floats).
+// and out must start on 16 bytes (K7: the qkv tensor; K6: also rh and rw,
+// and ts a multiple of 4 floats).
 cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t relpos_windowed_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+// K7: a.q (= a.k = a.v) is the (W, 3, a.qkv_heads, n, HD) qkv, a.qkv_heads > 0.
+cudaError_t relpos_qkv_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_f32tc(const StripArgs& a, int batch, int hd, cudaStream_t stream);
 
 }  // namespace dlimg

@@ -1,6 +1,6 @@
-// K4, K5 and K6 in float32 on Hopper's tensor cores: attention with the
-// MViTv2 decomposed relative-position bias of the SAM ViT encoders, every
-// product in three TF32 passes.
+// K4, K5, K6 and K7 in float32 on Hopper's tensor cores: attention with
+// the MViTv2 decomposed relative-position bias of the SAM ViT encoders,
+// every product in three TF32 passes.
 //
 // K4 (`relpos_global_f32tc`, kernel `relpos_global_kernel_f32tc`) replaces
 // the TPU kernel dlimgedit_tpu/ops/flash_attention.py:139
@@ -13,12 +13,15 @@
 // kernel `window_strip_kernel_f32tc`, C entry point in
 // window_strip_attention.cu) replaces :646 `windowed_attention_fused`
 // (body `_window_strip_kernel`, :575): K5's windows read in place from the
-// padded NHWC q, k, v, the bias halves computed in the block. The TPU
-// kernels request `Precision.HIGHEST` for float32 operands (:148, :327,
+// padded NHWC q, k, v, the bias halves computed in the block. K7
+// (`relpos_qkv_f32tc`, kernel `relpos_qkv_kernel_f32tc`) replaces :382
+// `windowed_attention_qkv` (body `_head_loop_kernel_qkv`, :285): K5's
+// windows with q, k and v read in place as the components of one (W, 3,
+// nh, N, hd) tensor, the plain bias, every row kept. The TPU kernels
+// request `Precision.HIGHEST` for float32 operands (:148, :295, :327,
 // :606): float32-accurate products from several bf16 passes on the matrix
 // unit. The arithmetic is that of relpos_attention.cu's and
-// window_strip_attention.cu's notes (K7 in float32 stays on
-// relpos_attention.cu's CUDA-core body; bf16 K4, K5, K6 run in
+// window_strip_attention.cu's notes (bf16 K4, K5, K6, K7 run in
 // relpos_attention_tc.cu):
 //   s[i, j] = (q_i . k_j) * scale + (bh[i, y_j] + bw[i, x_j])     plain
 //   s[i, j] = (q_i . k_j + (bh[i, y_j] + bw[i, x_j])) * scale     folded
@@ -47,15 +50,14 @@
 // (at most 105 steps) held 2e-5 with o in the mma accumulators, which
 // leaves the registers that its hd-80 instance needs not to spill.
 //
-// One pass of softmax. relpos_attention.cu streams the keys twice so that p
-// is normalised before it is rounded to the activation dtype. In float32
-// that rounding is the identity, so the online softmax (FlashAttention's:
-// a running max m and sum l per row, the output rescaled by exp(m_old -
-// m_new) and divided by l once at the end) is the same function up to the
-// order of float32 roundings (~1e-7), and q . k is computed once. exp(x) is
-// ex2(x log2 e - m log2 e), the row constant m log2 e one rounded value
-// used for every term and every rescale of the row, so it cancels in the
-// division by l.
+// One pass of softmax. The JAX kernels normalise p before they round it to
+// the activation dtype. In float32 that rounding is the identity, so the
+// online softmax (FlashAttention's: a running max m and sum l per row, the
+// output rescaled by exp(m_old - m_new) and divided by l once at the end)
+// is the same function up to the order of float32 roundings (~1e-7), and
+// q . k is computed once. exp(x) is ex2(x log2 e - m log2 e), the row
+// constant m log2 e one rounded value used for every term and every
+// rescale of the row, so it cancels in the division by l.
 //
 // What bounds it on an H100: operations. K4 does 4 G N^2 hd products
 // (51.5 GFLOP at ViT-B 1024; 85.9 at ViT-H), 0.31 / 0.52 ms at a third of
@@ -63,7 +65,8 @@
 // bias halves and output (22 / 35 us at 3.35 TB/s). K5 at N = 196 is near
 // the ridge: 2.7 GFLOP a ViT-B launch (with the skip; 16 us) against ~65 MB
 // (19 us). K6 at ViT-B (300 windows x heads, no skip) does 3.2 GFLOP
-// (19 us) against 60 MB of its float32 qkv and output (18 us).
+// (19 us) against 60 MB of its float32 qkv and output (18 us). K7 at ViT-B's
+// windows (no skip) does 3.0 GFLOP (18 us) against 67 MB (20 us).
 // chip_smoke.py's float32 bound is that rule for every float32 body. The instruction itself, mma.sync m16n8k8 TF32, peaks at ~310 TFLOP/s
 // on this card (tools/time_f32_attention.py --mma-rate), ~103 TFLOP/s of
 // float32 products in three passes: wgmma is the way to the rest.
@@ -83,7 +86,9 @@
 // computed from its index. K5: 7 warps (112 rows: N = 196 is two blocks,
 // 13 of their 14 stripes hold rows; the skipped groups' second block only
 // writes zeros), 40-key chunks (5 of them cover 196 keys, 4 masked);
-// windows of more than 256 keys take K4's body. K6 is K5's block on a
+// windows of more than 256 keys take K4's body. K7 is K5's block (K4's
+// above 256 keys, on the general grid path) with its group's q, k, v
+// found in the qkv tensor. K6 is K5's block on a
 // window's tokens (`WindowRows32`: row r at ((r / ws) wp + r % ws) ts
 // floats from the window's first token), every row kept, its bias halves
 // computed by a prologue while chunk 0 lands (`compute_bias`: 4 lanes a
@@ -139,9 +144,9 @@ struct F32Layout {
   }
 };
 
-// Where a block's rows lie. K4 / K5 (`DenseRows32`): q, k, v and out rows
-// r at r * HD from the group's first row; the caller's bias halves, n x
-// (gh + gw), from the block's first row.
+// Where a block's rows lie. K4 / K5 / K7 (`DenseRows32`): q, k, v and out
+// rows r at r * HD from the group's first row; the caller's bias halves, n
+// x (gh + gw), from the block's first row.
 template <int HD>
 struct DenseRows32 {
   static constexpr bool kStrip = false;
@@ -570,23 +575,33 @@ __device__ __forceinline__ void f32tc_body(const Rows& g, const int n, const int
   }
 }
 
-// K4 / K5 on group blockIdx.y, rows from blockIdx.x * BQ.
-template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
+// K4 / K5 on group blockIdx.y, rows from blockIdx.x * BQ. QKV (K7): group
+// g = (window w, head h) reads q, k, v in place from the (W, 3, nh, n, HD)
+// qkv in a.q: q at (3 w nh n + h n) HD, k and v each nh n HD after the
+// one before.
+template <int HD, int NT, int WARPS, int OG, bool GRID_ROW, bool QKV = false>
 __device__ __forceinline__ void dense_f32tc(const RelposArgs& a, const bool bias_smem) {
   const int n = a.n, g = blockIdx.y, q0 = blockIdx.x * F32Layout<HD, NT, WARPS>::BQ;
   const size_t base = static_cast<size_t>(g) * n;
-  const DenseRows32<HD> rows{static_cast<const float*>(a.q) + base * HD,
-                             static_cast<const float*>(a.k) + base * HD,
-                             static_cast<const float*>(a.v) + base * HD,
-                             static_cast<float*>(a.out) + base * HD,
+  const float* q = static_cast<const float*>(a.q) + base * HD;
+  const float* k = static_cast<const float*>(a.k) + base * HD;
+  const float* v = static_cast<const float*>(a.v) + base * HD;
+  if constexpr (QKV) {
+    const int w = g / a.qkv_heads, h = g - w * a.qkv_heads;
+    const size_t hn = static_cast<size_t>(a.qkv_heads) * n * HD;
+    q = static_cast<const float*>(a.q) + 3 * w * hn + static_cast<size_t>(h) * n * HD;
+    k = q + hn;
+    v = k + hn;
+  }
+  const DenseRows32<HD> rows{q, k, v, static_cast<float*>(a.out) + base * HD,
                              static_cast<const float*>(a.bhw) + (base + q0) * (a.gh + a.gw)};
   const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
   f32tc_body<HD, NT, WARPS, OG, GRID_ROW>(rows, n, a.gh, a.gw, nq, q0, a.scale, a.folded != 0,
                                           bias_smem);
 }
 
-// Three entry kernels over one body, so that a profile tells K4, K5 and K6
-// apart.
+// Four entry kernels over one body, so that a profile tells K4, K5, K6 and
+// K7 apart.
 template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
 __global__ void __launch_bounds__(32 * WARPS, 1)
     relpos_global_kernel_f32tc(RelposArgs a, int bias_smem) {
@@ -597,6 +612,12 @@ template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
 __global__ void __launch_bounds__(32 * WARPS, 1)
     relpos_window_kernel_f32tc(RelposArgs a, int bias_smem) {
   dense_f32tc<HD, NT, WARPS, OG, GRID_ROW>(a, bias_smem != 0);
+}
+
+template <int HD, int NT, int WARPS, int OG, bool GRID_ROW>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+    relpos_qkv_kernel_f32tc(RelposArgs a, int bias_smem) {
+  dense_f32tc<HD, NT, WARPS, OG, GRID_ROW, true>(a, bias_smem != 0);
 }
 
 // K6: block blockIdx.x = ((b, wy, wx) window, head) * parts + part, head
@@ -666,6 +687,17 @@ cudaError_t launch_window_f32tc(const RelposArgs& a, int g, cudaStream_t stream)
   return launch_f32tc<HD, 5, 7>(&relpos_window_kernel_f32tc<HD, 5, 7, 0, false>, a, g, stream);
 }
 
+// K7: K5's launch on the qkv kernel; windows of more than kWindowKeys keys
+// take K4's block on the general grid path. launch_f32tc's 16-byte check of
+// a.q covers every group's q, k and v (HD floats a row).
+template <int HD>
+cudaError_t launch_qkv_f32tc(const RelposArgs& a, int g, cudaStream_t stream) {
+  if (a.n > kWindowKeys)
+    return launch_f32tc<HD, 4, 8>(&relpos_qkv_kernel_f32tc<HD, 4, 8, HD / 8, false>, a, g,
+                                  stream);
+  return launch_f32tc<HD, 5, 7>(&relpos_qkv_kernel_f32tc<HD, 5, 7, 0, false>, a, g, stream);
+}
+
 // K6: K5's shape of block (7 warps, 40-key chunks, p . v in o), the
 // window's tokens read in place, 2 blocks a 14 x 14 window and head.
 template <int HD>
@@ -702,6 +734,12 @@ cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t
 cudaError_t relpos_windowed_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream) {
   if (hd == 64) return launch_window_f32tc<64>(a, g, stream);
   if (hd == 80) return launch_window_f32tc<80>(a, g, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t relpos_qkv_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream) {
+  if (hd == 64) return launch_qkv_f32tc<64>(a, g, stream);
+  if (hd == 80) return launch_qkv_f32tc<80>(a, g, stream);
   return cudaErrorInvalidValue;
 }
 

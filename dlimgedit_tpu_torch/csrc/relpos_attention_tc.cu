@@ -16,10 +16,9 @@
 // `windowed_attention_fused`: K5's body on windows read in place from the
 // padded NHWC q, k, v (the channel slices of the qkv output), bias halves
 // computed in the block, no skip.
-// The float32 routes run in relpos_attention_f32tc.cu (K4, K5, K6: three
-// TF32 passes) and on relpos_attention.cu's CUDA-core body (K7); the head
-// notes of relpos_attention.cu and window_strip_attention.cu give the
-// arithmetic. This file computes the same functions with the JAX rounding:
+// The float32 routes run in relpos_attention_f32tc.cu (K4, K5, K6, K7:
+// three TF32 passes); the head notes of relpos_attention.cu and
+// window_strip_attention.cu give the arithmetic. This file computes the same functions with the JAX rounding:
 // scores and softmax in float32, p normalised in float32 and then rounded
 // to bf16, p . v accumulated in float32.
 //

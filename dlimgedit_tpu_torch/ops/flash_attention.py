@@ -25,12 +25,12 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
 In bf16 K4, K5, K7 and K6 run on the tensor cores
 (``csrc/relpos_attention_tc.cu``; K5, K7 and K6 share one ``mma.sync``
-body). In float32 K4, K5 and K6 run on the tensor cores with every product
-in three TF32 passes (``csrc/relpos_attention_f32tc.cu``, one body; q, k, v
-must start on 16 bytes, and K6's token stride be a multiple of 4 floats),
-K7 on the CUDA cores (``csrc/relpos_attention.cu``). The C entry points of
-K2 and K6 are ``csrc/levit_attention.cu`` and
-``csrc/window_strip_attention.cu``.
+body). In float32 they run on the tensor cores with every product in three
+TF32 passes (``csrc/relpos_attention_f32tc.cu``, one body; q, k, v, and
+K7's qkv, must start on 16 bytes, and K6's token stride be a multiple of 4
+floats). The C entry points are ``csrc/relpos_attention.cu`` (K4, K5, K7),
+``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
+(K6).
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -463,6 +463,9 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     _check_window_side(name, qkv.dtype, grid_h, grid_w)
     if not (qkv.is_contiguous() and bhw.is_contiguous()):
         raise DlimgError(f"{name}: inputs must be contiguous")
+    if qkv.dtype == torch.float32 and qkv.data_ptr() % 16:
+        raise DlimgError(f"{name}: the float32 kernel reads q, k, v rows in "
+                         f"16-byte pieces; qkv must start on 16 bytes")
     out = torch.empty((W, nh, N, hd), dtype=qkv.dtype, device=qkv.device)
     rc = LIBRARY.get().dlimg_relpos_attention_qkv(
         qkv.data_ptr(), bhw.data_ptr(), out.data_ptr(), W, nh, N, hd, grid_h,

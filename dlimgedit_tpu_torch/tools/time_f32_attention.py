@@ -1,16 +1,16 @@
-"""Float32 attention kernels (K2, K4, K5, K6) of this checkout and of another, on one GPU.
+"""Float32 attention kernels (K2, K4, K5, K6, K7) of this checkout and of another, on one GPU.
 
     python3 -m dlimgedit_tpu_torch.tools.time_f32_attention [--parent DIR]
-        [--variants NAME,...] [--kernels K4,K5,K6,K2] [--samples N]
+        [--variants NAME,...] [--kernels K4,K5,K6,K7,K2] [--samples N]
 
 Builds the attention sources of csrc/ (relpos_attention*.cu,
 window_strip_attention.cu, levit_attention*.cu and the headers) once per
 variant, one nvcc each, all started together, into a library with the C
 entry points dlimg_relpos_attention_global (K4),
-dlimg_relpos_attention_windowed (K5), dlimg_window_strip_attention (K6)
-and dlimg_levit_attention (K2):
+dlimg_relpos_attention_windowed (K5), dlimg_window_strip_attention (K6),
+dlimg_relpos_attention_qkv (K7) and dlimg_levit_attention (K2):
 
-  design       the sources as they are (float32 K4, K5 and K6 in three
+  design       the sources as they are (float32 K4, K5, K6 and K7 in three
                TF32 passes, relpos_attention_f32tc.cu; K2 likewise,
                levit_attention_f32tc.cu);
   p_shuffle    relpos_attention_f32tc.cu with p moved into the mma A
@@ -30,9 +30,11 @@ The ablations (`UNCHECKED`) compute something else: their values are
 not held, only timed. At each float32 shape of these kernels on
 chip_smoke.py's main paths
 (K4_SHAPES, K5_SHAPES, K6_SHAPES, K2_SHAPES, with their launches in phase
-4's float32 `process` calls), every variant is held against the plain
+4's float32 `process` calls; K7_SHAPES, chip_smoke.py's VIT_QKV_SHAPES,
+which no path launches), every variant is held against the plain
 version (ops.flash_attention.attention_relpos_plain,
-windowed_attention_fused_plain, levit_window_attention_plain; TF32 off,
+windowed_attention_fused_plain, windowed_attention_qkv_plain,
+levit_window_attention_plain; TF32 off,
 atol 2e-5, skipped pad-query rows zero) and timed: CUDA events around 10
 launches behind a spin kernel, the median of N samples, the variants in
 turn and then in reverse order (each variant's time the mean of its two).
@@ -41,7 +43,8 @@ materialised float bias (the library yardstick of chip_smoke.py; for K6 on
 windows partitioned beforehand) and the
 float32 bound (chip_smoke.py's rule: products at a third of the 495
 TFLOP/s TF32 peak, the softmax's other operations at 67 TFLOP/s, bytes at
-3.35 TB/s). Prints per shape the times in ms, then the launch-weighted sums.
+3.35 TB/s). Prints per shape the times in ms, then the launch-weighted sums
+of the kernels that a path launches.
 With --mma-rate it first times the one product instruction of the design
 alone (mma.sync m16n8k8 TF32, independent accumulators back to back, 8 to
 32 warps an SM; one chain for its latency). Needs CUDA and nvcc.
@@ -67,6 +70,7 @@ from ..ops.flash_attention import (
     attention_relpos_plain,
     levit_window_attention_plain,
     windowed_attention_fused_plain,
+    windowed_attention_qkv_plain,
 )
 from .sweep_layer_norm import time_us
 
@@ -84,7 +88,10 @@ K5_SHAPES = ((25, 12, 14, 64, 5, 8, 16), (25, 16, 14, 64, 5, 8, 40),
 # MobileSAM's three stages (chip_smoke.py ATTN_SHAPES).
 K6_SHAPES = ((1, 70, 12, 64, 14, 16), (1, 70, 16, 80, 14, 0))
 K2_SHAPES = ((361, 49, 4, 4), (25, 196, 5, 12), (100, 49, 10, 4))
-KERNELS = ("K4", "K5", "K6", "K2")
+# K7: (windows, heads, window, head width, launches): ViT-B's and ViT-H's
+# windows as one (W, 3, nh, N, hd) qkv; no path launches K7.
+K7_SHAPES = ((25, 12, 14, 64, 0), (25, 16, 14, 80, 0))
+KERNELS = ("K4", "K5", "K6", "K7", "K2")
 ATOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
@@ -145,7 +152,8 @@ VARIANTS = {
 # Variants whose values differ from the plain version's by design.
 UNCHECKED = ("k6_no_bias", "k2_no_bias")
 ENTRIES = ("dlimg_relpos_attention_global", "dlimg_relpos_attention_windowed",
-           "dlimg_window_strip_attention", "dlimg_levit_attention")
+           "dlimg_window_strip_attention", "dlimg_relpos_attention_qkv",
+           "dlimg_levit_attention")
 SOURCES = ("relpos_attention*.cu", "window_strip_attention.cu",
            "levit_attention*.cu")
 
@@ -227,7 +235,7 @@ def ptxas_report(log: str) -> list:
     instance of a float32 attention kernel in an nvcc -Xptxas -v log."""
     rows, kernel, spill = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?((?:relpos_(?:global|window)|"
+        m = re.search(r"Compiling entry function '\S*?((?:relpos_(?:global|window|qkv)|"
                       r"window_strip|levit_window|levit_attention|"
                       r"window_strip_attention)_kernel\w*?)I(\w*?)EEv", line)
         if m:
@@ -360,6 +368,23 @@ def cases(dev, gen, kernels):
                    4 * G * n * n * hd + 4 * G * n * ws * hd, 7 * G * n * n,
                    (qkv, rh, rw))
             del mask
+    if "K7" in kernels:
+        for W, nh, ws, hd, launches in K7_SHAPES:
+            N, G = ws * ws, W * nh
+            qkv = torch.randn((W, 3, nh, N, hd), generator=gen, device=dev)
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = _bias_halves(qkv[:, 0].reshape(G, N, hd), rh, rw, ws, ws)
+            mask = relpos_mask(bhw, ws, False, 1.0).view(W, nh, N, N)
+            want = windowed_attention_qkv_plain(qkv, bhw, ws, ws)
+            args = (*_ptrs(qkv, bhw), None, W, nh, N, hd, ws, ws)
+            yield (f"K7 ({W},3,{nh},{N},{hd})", "qkv", launches, args,
+                   hd ** -0.5, want,
+                   lambda qkv=qkv, mask=mask: F.scaled_dot_product_attention(
+                       qkv[:, 0], qkv[:, 1], qkv[:, 2], attn_mask=mask),
+                   (4 * G * N * hd + G * N * 2 * ws) * 4, 4 * G * N * N * hd,
+                   7 * G * N * N, (qkv, bhw))
+            del mask
     if "K2" in kernels:
         for G, N, nh, launches in K2_SHAPES:
             kd = 32
@@ -381,8 +406,10 @@ def cases(dev, gen, kernels):
 ENTRY = {"global": "dlimg_relpos_attention_global",
          "windowed": "dlimg_relpos_attention_windowed",
          "strip": "dlimg_window_strip_attention",
+         "qkv": "dlimg_relpos_attention_qkv",
          "levit": "dlimg_levit_attention"}
-KIND_LABEL = {"global": "K4", "windowed": "K5", "strip": "K6", "levit": "K2"}
+KIND_LABEL = {"global": "K4", "windowed": "K5", "strip": "K6", "qkv": "K7",
+              "levit": "K2"}
 
 
 def main(argv=None) -> int:
@@ -466,6 +493,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         for kind, total in sums.items():
             n = int(total.pop("launches"))
+            if not n:  # on no path (K7)
+                continue
             print(f"{KIND_LABEL[kind]} float32 over {n} launches "
                   f"(ms): " + ", ".join(f"{k} {t:.5f}" for k, t in total.items()),
                   flush=True)

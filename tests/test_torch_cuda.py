@@ -366,6 +366,28 @@ def test_relpos_f32_kernels_refuse_unaligned_inputs(dev):
         relpos_attention_windowed(q, shifted, v, bhw, 14, 14, 2, False)
 
 
+def test_relpos_qkv_f32_kernel_refuses_unaligned_input(dev):
+    """Float32 K7 reads q, k, v rows of its qkv in 16-byte pieces: a qkv
+    view that starts 4 bytes into its storage raises in the wrapper
+    (nothing launched), and the C entry point returns an error instead of
+    reading it."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    W, heads, hd, g = 2, 2, 64, 14
+    n = g * g
+    flat = torch.randn(W * 3 * heads * n * hd + 1, generator=gen, device=dev)
+    qkv = flat[1:].view(W, 3, heads, n, hd)
+    bhw = torch.randn((W * heads, n, 2 * g), generator=gen, device=dev)
+    before = relpos_attention_qkv.launches
+    with pytest.raises(DlimgError, match="16 bytes"):
+        relpos_attention_qkv(qkv, bhw, g, g)
+    assert relpos_attention_qkv.launches == before
+    out = torch.empty((W, heads, n, hd), device=dev)
+    assert LIBRARY.get().dlimg_relpos_attention_qkv(
+        qkv.data_ptr(), bhw.data_ptr(), out.data_ptr(), W, heads, n, hd, g, g,
+        DTYPE_CODES["torch.float32"], hd ** -0.5,
+        torch.cuda.current_stream().cuda_stream) != 0
+
+
 def test_levit_and_window_strip_f32_kernels_refuse_unaligned_inputs(dev):
     """Float32 K2 and K6 read their operands in 16-byte pieces: a view that
     starts 4 bytes into its storage raises in the wrapper (nothing
@@ -593,9 +615,15 @@ def test_window_strip_kernel_large_tables(dev, hd, layout, dtype):
                                rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("W,heads,hd,g", [(25, 12, 64, 14), (25, 16, 80, 14),
-                                          (3, 2, 64, 5), (2, 3, 80, 14)])
+QKV_SHAPES = [(25, 12, 64, 14), (25, 16, 80, 14), (3, 2, 64, 5),
+              (2, 3, 80, 14)]
+
+
+# Float32 also at a 17 x 17 window (289 keys), which takes K4's body; the
+# bf16 kernel refuses windows with a side above 16.
+@pytest.mark.parametrize("dtype,W,heads,hd,g", [
+    (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+    for shape in QKV_SHAPES] + [(torch.float32, 2, 3, 64, 17)])
 def test_relpos_qkv_kernel_matches_plain(dev, W, heads, hd, g, dtype):
     gen = torch.Generator(device=dev).manual_seed(6)
     qkv = torch.randn((W, 3, heads, g * g, hd), generator=gen,

@@ -1,20 +1,21 @@
 """The arithmetic of the float32 attention kernels on the tensor cores, on
 the CPU.
 
-csrc/relpos_attention_f32tc.cu (float32 K4, K5 and K6) and
+csrc/relpos_attention_f32tc.cu (float32 K4, K5, K6 and K7) and
 csrc/levit_attention_f32tc.cu (float32 K2) compute every product in three
 TF32 passes (hi = TF32(x), lo = TF32(x - hi), a product lo.hi + hi.lo +
 hi.hi, TF32 rounding being `cvt.rna.tf32.f32`: 10 mantissa bits, ties away
 from zero). K4, K5 and K6 run a one-pass online softmax over key chunks (32
-keys for K4, 40 for K5 and K6), exp as 2^(s log2 e - m log2 e); K6 computes
+keys for K4, 40 for K5, K6 and K7), exp as 2^(s log2 e - m log2 e); K6 computes
 its bias halves in float32 (CUDA cores) and adds them in its own order,
 ((q.k) scale + bh) + bw. K2 keeps the whole score row and normalises p in
 float32 before p . v, the bias added after the scale. Those kernels run
 only on the card; this file emulates their arithmetic in float32 with
 torch on the CPU, from numpy-seeded inputs, and holds it against the
 port's plain versions (`attention_relpos_plain`,
-`windowed_attention_fused_plain`, `levit_window_attention_plain`) and, for
-K6 and K2, the JAX kernels in interpret mode, at chip_smoke.py's float32
+`windowed_attention_fused_plain`, `windowed_attention_qkv_plain`,
+`levit_window_attention_plain`) and, for K6, K7 and K2, the JAX kernels in
+interpret mode, at chip_smoke.py's float32
 tolerance, atol 2e-5: the design's precision argument, pinned before any
 card time is spent. A single TF32 pass (what PyTorch's `allow_tf32` gives)
 exceeds that tolerance on scores of large range (q of scale 4), so the
@@ -35,6 +36,9 @@ from dlimgedit_tpu.ops.flash_attention import (
 from dlimgedit_tpu.ops.flash_attention import (
     windowed_attention_fused as jax_windowed_attention_fused,
 )
+from dlimgedit_tpu.ops.flash_attention import (
+    windowed_attention_qkv as jax_windowed_attention_qkv,
+)
 from dlimgedit_tpu_torch.ops.flash_attention import (
     _bias_halves,
     _from_windows,
@@ -42,6 +46,7 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     attention_relpos_plain,
     levit_window_attention_plain,
     windowed_attention_fused_plain,
+    windowed_attention_qkv_plain,
 )
 
 torch.set_num_threads(2)
@@ -266,6 +271,36 @@ def test_window_strip_one_tf32_pass_exceeds_the_tolerance(hd):
     plain = windowed_attention_fused_plain(*strip_ops(tq, C), trh, trw, ws=ws,
                                            num_heads=heads)
     assert (got - plain).abs().max().item() > ATOL
+
+
+# K7: SAM's 14 x 14 window in K5's 40-key chunks; a 17 x 17 window (289
+# keys, above K5's 256) in K4's 32-key chunks.
+QKV_CASES = [(14, K5_CHUNK), (17, K4_CHUNK)]
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("g,chunk", QKV_CASES)
+@pytest.mark.parametrize("hd", [64, 80])
+def test_qkv_three_tf32_passes_match_plain_and_pallas(hd, g, chunk, q_scale):
+    """K7's arithmetic: K5's (K4's above 256 keys) on the q, k, v
+    components of a (W, 3, nh, N, hd) qkv, the plain bias, every row."""
+    W, nh, N = 2, 2, g * g
+    rng = np.random.default_rng(hd + g)
+    qkv = rng.standard_normal((W, 3, nh, N, hd), dtype=np.float32)
+    qkv[:, 0] *= q_scale
+    rh, rw = (0.3 * rng.standard_normal((g, g, hd), dtype=np.float32)
+              for _ in range(2))
+    tqkv = torch.from_numpy(qkv)
+    q, k, v = (tqkv[:, c].reshape(W * nh, N, hd) for c in range(3))
+    bhw = _bias_halves(q, torch.from_numpy(rh), torch.from_numpy(rw), g, g)
+    got = attention_tf32(q, k, v, bhw, g, g, folded=False, passes=3,
+                         chunk=chunk).reshape(W, nh, N, hd)
+    err = (got - windowed_attention_qkv_plain(tqkv, bhw, g, g)).abs().max()
+    assert err.item() <= ATOL, err.item()
+    pallas = np.asarray(jax_windowed_attention_qkv(
+        jnp.asarray(qkv), jnp.asarray(rh), jnp.asarray(rw), grid_h=g,
+        grid_w=g, interpret=True))
+    assert np.abs(got.numpy() - pallas).max() <= ATOL
 
 
 def levit_inputs(G, N, nh, q_scale, seed):
