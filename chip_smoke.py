@@ -762,13 +762,14 @@ SERVE_C4 = 16
 SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
-# The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu),
-# bf16 K2 (csrc/levit_attention_tc.cu), float32 K4, K5, K6 and K7 in three
-# TF32 passes (csrc/relpos_attention_f32tc.cu) and float32 K2 likewise
-# (csrc/levit_attention_f32tc.cu): phase 1 fails if one is missing from
-# nvcc's report or spills.
-TC_SOURCES = {"relpos_attention_tc.cu", "levit_attention_tc.cu",
-              "relpos_attention_f32tc.cu", "levit_attention_f32tc.cu"}
+# The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu,
+# and _pad.cu: the padded head widths), bf16 K2 (csrc/levit_attention_tc.cu),
+# float32 K4, K5, K6 and K7 in three TF32 passes (csrc/relpos_attention_f32tc.cu
+# and _pad.cu) and float32 K2 likewise (csrc/levit_attention_f32tc.cu):
+# phase 1 fails if one is missing from nvcc's report or spills.
+TC_SOURCES = {"relpos_attention_tc.cu", "relpos_attention_tc_pad.cu",
+              "levit_attention_tc.cu", "relpos_attention_f32tc.cu",
+              "relpos_attention_f32tc_pad.cu", "levit_attention_f32tc.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
@@ -1386,11 +1387,20 @@ def check_window_kernels(torch, ops, entries):
         rows, lanes = PROBE_SHAPE
         for layout, idx in layouts.items():
             for reps in PROBE_REPS:
+                # The library yardstick where one call gathers the same rows:
+                # with one index a table row (row-replicated), the reps' rows
+                # of every output row in one `index_select` (the sum over
+                # the reps, the kernel's, left out).
+                gather_rows = ((idx[:, 0].long()[:, None]
+                                + torch.arange(reps, device=dev)) % rows
+                               ).reshape(-1)
+                library = (None if layout != "row-replicated" else
+                           lambda: table.index_select(0, gather_rows))
                 check_kernel(
                     torch, f"K8 smem_gather ({rows},{lanes}) {layout} "
                     f"reps={reps}", "smem_gather", dname,
                     lambda: ops.smem_gather(table, idx, reps),
-                    lambda: ops.smem_gather_plain(table, idx, reps), None,
+                    lambda: ops.smem_gather_plain(table, idx, reps), library,
                     0.0, rows * lanes * (es + 4 + 4), 0, reps * rows * lanes,
                     0, entries)
 
@@ -6598,6 +6608,407 @@ def seeded_birefnet(bn, torch, cfg):
     return model
 
 
+# Phase 20: the kernels' input ranges (C9-C11): every width and head width
+# the JAX functions take and the port's kernels now take too, in both dtypes;
+# every kernel on a strided and on a misaligned view; two SAM ViTs whose
+# heads are 32 and 128 wide.
+ANY_LN_WIDTHS = (1, 3, 96, 200, 384, 1536, 2050)
+PAD_HEAD_DIMS = tuple(hd for hd in range(8, 129, 8) if hd not in (64, 80))
+# (embed, heads, depth, global blocks): head widths 32 and 128.
+ANY_VITS = ((256, 8, 4, (1, 3)), (1024, 8, 4, (1, 3)))
+# Timed for information (bf16 and float32; K1 rows, K4 heads of a 64 x 64
+# grid, K5 25 windows of 8 heads at 14 x 14 with the bottom row skipped).
+ANY_TIMED_LN = ((4096, 96), (4096, 384), (4096, 2050))
+ANY_TIMED_HD = (32, 128)
+
+
+def _shifted(torch, t):
+    """A copy of t as a contiguous view one element into its storage (off
+    16 bytes)."""
+    flat = torch.zeros(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = flat[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+def _strided(torch, t):
+    """A copy of t as a view whose last axis is not dense (every other
+    element of a wider tensor)."""
+    wide = torch.zeros(t.shape[:-1] + (2 * t.shape[-1],), device=t.device,
+                       dtype=t.dtype)
+    out = wide[..., ::2]
+    out.copy_(t)
+    return out
+
+
+def check_any_widths(torch, ops, held):
+    """K1 / K3 at widths without instances of their own and K4-K7 at every
+    padded head width, both dtypes, each against its plain version. The
+    LayerNorms are held against the plain version on the CPU: at C = 3 the
+    order of a 3-term sum moves an ill-conditioned one-pass variance beyond
+    1e-5 (the CPU's and the kernel's sums run in order)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        ln_tol, attn_tol = TOL[("ln", dname)], TOL[("attn", dname)]
+        for C in ANY_LN_WIDTHS:
+            x, d = (torch.randn((1372, C), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
+            bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
+            cpu = [t.cpu() for t in (x, d, scale, bias)]
+            held(f"K1 (1372, {C}) {dname}", "fused_layer_norm",
+                 lambda: ops.fused_layer_norm(x, scale, bias, 1e-6).cpu(),
+                 lambda: ops.layer_norm_plain(cpu[0], cpu[2], cpu[3], 1e-6),
+                 ln_tol)
+            k3 = {}
+
+            def add_ln():
+                k3["s"], k3["y"] = ops.fused_add_layer_norm(x, d, scale, bias, 1e-6)
+                return k3["s"].cpu(), k3["y"].cpu()
+
+            def add_err(a, b):  # s bit for bit, then y within the tolerance
+                if not torch.equal(a[0], b[0]):
+                    fail(f"phase 20 K3 (1372, {C}) {dname}: s differs from x + d")
+                return (a[1].float() - b[1].float()).abs().max().item()
+            held(f"K3 (1372, {C}) {dname}", "fused_add_layer_norm", add_ln,
+                 lambda: ops.fused_add_layer_norm_plain(*cpu, 1e-6), ln_tol,
+                 compare=add_err)
+            held(f"K3 = x + d, then K1 (1372, {C}) {dname}", "fused_layer_norm",
+                 lambda: ops.fused_layer_norm(k3["s"], scale, bias, 1e-6),
+                 lambda: k3["y"], 0.0)
+        for hd in PAD_HEAD_DIMS:
+            for G, g in ((2, 20), (1, 64)):
+                q, k, v = (torch.randn((G, g * g, hd), generator=gen, device=dev)
+                           .to(dtype) for _ in range(3))
+                rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+                          for _ in range(2))
+                bhw = ops.bias_halves(q, rh, rw, g, g)
+                held(f"K4 {G} x {g}x{g} hd {hd} {dname}",
+                     "relpos_attention_global",
+                     lambda: ops.relpos_attention_global(q, k, v, bhw, g, g),
+                     lambda: ops.attention_relpos_plain(q, k, v, bhw, g, g),
+                     attn_tol)
+            for W, nh, ws, n_w, valid in ((4, 3, 14, 2, 5), (2, 2, 16, None, None)):
+                folded = hd + 2 * ws <= 128
+                q, k, v = (torch.randn((W * nh, ws * ws, hd), generator=gen,
+                                       device=dev).to(dtype) for _ in range(3))
+                rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                          for _ in range(2))
+                bhw = ops.bias_halves(q, rh, rw, ws, ws, out_scale=(
+                    1.0 / hd ** -0.5) if folded else 1.0)
+                held(f"K5 {W}x{nh} {ws}x{ws} hd {hd} {dname}",
+                     "relpos_attention_windowed",
+                     lambda: ops.relpos_attention_windowed(
+                         q, k, v, bhw, ws, ws, nh, folded, n_w, valid),
+                     lambda: ops.attention_relpos_plain(
+                         q, k, v, bhw, ws, ws, folded=folded, heads=nh,
+                         n_w=n_w, valid_rows=valid), attn_tol)
+            qkv = torch.randn((3, 3, 2, 196, hd), generator=gen, device=dev).to(dtype)
+            bhw = torch.randn((6, 196, 28), generator=gen, device=dev).to(dtype)
+            held(f"K7 3x2 14x14 hd {hd} {dname}", "relpos_attention_qkv",
+                 lambda: ops.relpos_attention_qkv(qkv, bhw, 14, 14),
+                 lambda: ops.windowed_attention_qkv_plain(qkv, bhw, 14, 14),
+                 attn_tol)
+            C = 3 * hd
+            x = torch.randn((1, 28, 28, 3 * C), generator=gen, device=dev).to(dtype)
+            q, k, v = x[..., :C], x[..., C:2 * C], x[..., 2 * C:]
+            rh, rw = (0.3 * torch.randn((14, 14, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            held(f"K6 (1, 28, 28) 3 heads hd {hd} {dname}",
+                 "windowed_attention_fused",
+                 lambda: ops.windowed_attention_fused(q, k, v, rh, rw, ws=14,
+                                                      num_heads=3),
+                 lambda: ops.windowed_attention_fused_plain(
+                     q, k, v, rh, rw, ws=14, num_heads=3), attn_tol)
+
+
+def check_any_views(torch, ops, held):
+    """Every kernel on a strided view and on a contiguous view off 16 bytes
+    (``kernel_operand`` copies either), against its plain version on the
+    same view."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        ln_tol, attn_tol = TOL[("ln", dname)], TOL[("attn", dname)]
+        for view in ("strided", "misaligned"):
+            mk = (lambda t: _strided(torch, t)) if view == "strided" else (
+                lambda t: _shifted(torch, t))
+            x = mk(torch.randn((1372, 768), generator=gen, device=dev).to(dtype))
+            d = mk(torch.randn((1372, 768), generator=gen, device=dev).to(dtype))
+            scale = mk((0.25 + 0.5 * torch.rand((768,), generator=gen,
+                                                device=dev)).to(dtype))
+            bias = (0.5 * torch.rand((768,), generator=gen, device=dev) - 0.25).to(dtype)
+            held(f"K1 {view} {dname}", "fused_layer_norm",
+                 lambda: ops.fused_layer_norm(x, scale, bias, 1e-6),
+                 lambda: ops.layer_norm_plain(x, scale, bias, 1e-6), ln_tol)
+
+            def add_err(a, b):
+                if not torch.equal(a[0], b[0]):
+                    fail(f"phase 20 K3 {view} {dname}: s differs from x + d")
+                return (a[1].float() - b[1].float()).abs().max().item()
+            held(f"K3 {view} {dname}", "fused_add_layer_norm",
+                 lambda: ops.fused_add_layer_norm(x, d, scale, bias, 1e-6),
+                 lambda: ops.fused_add_layer_norm_plain(x, d, scale, bias, 1e-6),
+                 ln_tol, compare=add_err)
+            qkv = mk(torch.randn((8, 49, 4 * 96), generator=gen, device=dev).to(dtype))
+            lbias = (0.5 * torch.randn((4, 49, 49), generator=gen, device=dev)).to(dtype)
+            held(f"K2 {view} {dname}", "levit_window_attention",
+                 lambda: ops.levit_window_attention(qkv, lbias, 4),
+                 lambda: ops.levit_window_attention_plain(qkv, lbias, 4), attn_tol)
+            q, k, v = (mk(torch.randn((6, 196, 64), generator=gen, device=dev)
+                          .to(dtype)) for _ in range(3))
+            rh, rw = (0.3 * torch.randn((14, 14, 64), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = mk(ops.bias_halves(q, rh, rw, 14, 14))
+            held(f"K4 {view} {dname}", "relpos_attention_global",
+                 lambda: ops.relpos_attention_global(q, k, v, bhw, 14, 14),
+                 lambda: ops.attention_relpos_plain(q, k, v, bhw, 14, 14), attn_tol)
+            held(f"K5 {view} {dname}", "relpos_attention_windowed",
+                 lambda: ops.relpos_attention_windowed(q, k, v, bhw, 14, 14, 2,
+                                                       False),
+                 lambda: ops.attention_relpos_plain(q, k, v, bhw, 14, 14,
+                                                    heads=2), attn_tol)
+            qkv5 = mk(torch.randn((3, 3, 2, 196, 64), generator=gen, device=dev)
+                      .to(dtype))
+            held(f"K7 {view} {dname}", "relpos_attention_qkv",
+                 lambda: ops.relpos_attention_qkv(qkv5, bhw, 14, 14),
+                 lambda: ops.windowed_attention_qkv_plain(qkv5, bhw, 14, 14),
+                 attn_tol)
+            xs = [mk(torch.randn((1, 28, 28, 128), generator=gen, device=dev)
+                     .to(dtype)) for _ in range(3)]
+            rh6 = mk((0.3 * torch.randn((14, 14, 64), generator=gen, device=dev))
+                     .to(dtype))
+            held(f"K6 {view} {dname}", "windowed_attention_fused",
+                 lambda: ops.windowed_attention_fused(*xs, rh6, rh6, ws=14,
+                                                      num_heads=2),
+                 lambda: ops.windowed_attention_fused_plain(*xs, rh6, rh6, ws=14,
+                                                            num_heads=2),
+                 attn_tol)
+            table = mk((0.5 * torch.randn((512, 128), generator=gen, device=dev))
+                       .to(dtype))
+            idx = mk(torch.randint(0, 512, (512, 128), generator=gen, device=dev,
+                                   dtype=torch.int32))
+            held(f"K8 {view} {dname}", "smem_gather",
+                 lambda: ops.smem_gather(table, idx, 4),
+                 lambda: ops.smem_gather_plain(table, idx, 4), 0.0)
+            xq = mk(torch.randn((37, 768), generator=gen, device=dev).to(dtype))
+            held(f"P2 {view} {dname}", "quantize_rows_int8",
+                 lambda: ops.quantize_rows_int8(xq),
+                 lambda: ops.quantize_activations_int8(xq), 0.0,
+                 compare=lambda a, b: max((a[0].int() - b[0].int()).abs().max().item(),
+                                          (a[1] - b[1]).abs().max().item()))
+            acc = mk(torch.randint(-2 ** 20, 2 ** 20, (37, 768), generator=gen,
+                                   device=dev, dtype=torch.int32))
+            xsc = mk(torch.rand((37, 1), generator=gen, device=dev) * 1e-3)
+            wsc = mk(torch.rand((768,), generator=gen, device=dev) * 1e-2)
+            held(f"P3 {view} {dname}", "int8_epilogue",
+                 lambda: ops.int8_epilogue(acc, xsc, wsc, bias, dtype),
+                 lambda: ops.int8_epilogue_plain(acc, xsc, wsc, bias, dtype), 0.0)
+        boxes = torch.rand((300, 4), generator=gen, device=dev) * 500
+        boxes = torch.cat([boxes[:, :2], boxes[:, :2] + boxes[:, 2:] / 4], 1)
+        scores = torch.sort(torch.rand((300,), generator=gen, device=dev),
+                            descending=True).values
+        thresh = torch.full((1,), 0.5, device=dev)
+        for view in ("strided", "misaligned"):
+            if dtype != torch.float32:
+                break
+            mk = (lambda t: _strided(torch, t)) if view == "strided" else (
+                lambda t: _shifted(torch, t))
+            b, s = mk(boxes), mk(scores)
+            held(f"P1 {view}", "greedy_nms",
+                 lambda: ops.greedy_nms(b, s, thresh),
+                 lambda: ops.greedy_nms_plain(b, s, thresh), 0.0,
+                 compare=lambda a, c: float((a != c).sum().item()))
+
+
+def time_any_widths(torch, ops, gpu_line):
+    """K1 at ANY_TIMED_LN against F.layer_norm, K4 and K5 at ANY_TIMED_HD
+    against SDPA, both dtypes (for information: these widths are on no
+    main path); each with its bound as phase 2 computes it."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        es = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 else PEAK_F32_TC_FLOPS
+        for n, C in ANY_TIMED_LN:
+            x = torch.randn((n, C), generator=gen, device=dev).to(dtype)
+            scale = (0.25 + 0.5 * torch.rand((C,), generator=gen, device=dev)).to(dtype)
+            bias = (0.5 * torch.rand((C,), generator=gen, device=dev) - 0.25).to(dtype)
+            bound = max((2 * n * C + 2 * C) * es / HBM_BYTES_PER_S,
+                        7 * n * C / PEAK_F32_FLOPS) * 1e3
+            rows.append((f"K1 ({n}, {C})", dname,
+                         time_ms(torch, lambda: ops.fused_layer_norm(x, scale, bias, 1e-6)),
+                         time_ms(torch, lambda: F.layer_norm(x, (C,), scale, bias, 1e-6)),
+                         "F.layer_norm", bound))
+        for hd in ANY_TIMED_HD:
+            nh, g = 8, 64
+            N = g * g
+            q, k, v = (torch.randn((nh, N, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, g, g)
+            mask = relpos_mask(torch, bhw, g, g, False, 1.0, dtype)
+            bound = max((4 * nh * N * hd + nh * N * 2 * g) * es / HBM_BYTES_PER_S,
+                        4 * nh * N * N * hd / peak + 7 * nh * N * N / PEAK_F32_FLOPS) * 1e3
+            rows.append((f"K4 {nh} heads {g}x{g} hd {hd}", dname,
+                         time_ms(torch, lambda: ops.relpos_attention_global(
+                             q, k, v, bhw, g, g)),
+                         time_ms(torch, lambda: F.scaled_dot_product_attention(
+                             q[None], k[None], v[None], attn_mask=mask[None])),
+                         "SDPA", bound))
+            del mask
+            W, ws, n_w, valid = 25, 14, 5, 8
+            G, n = W * nh, ws * ws
+            folded = hd + 2 * ws <= 128
+            scale = hd ** -0.5
+            q, k, v = (torch.randn((G, n, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, ws, ws,
+                                  out_scale=1.0 / scale if folded else 1.0)
+            mask = relpos_mask(torch, bhw, ws, ws, folded, scale, dtype)
+            kept = (W - n_w) * nh * n + n_w * nh * valid * ws
+            bound = max((2 * G * n * hd + kept * (hd + 2 * ws) + G * n * hd) * es
+                        / HBM_BYTES_PER_S,
+                        4 * kept * n * hd / peak + 7 * kept * n / PEAK_F32_FLOPS) * 1e3
+            rows.append((f"K5 {W}x{nh} {ws}x{ws} hd {hd}", dname,
+                         time_ms(torch, lambda: ops.relpos_attention_windowed(
+                             q, k, v, bhw, ws, ws, nh, folded, n_w, valid)),
+                         time_ms(torch, lambda: F.scaled_dot_product_attention(
+                             q[None], k[None], v[None], attn_mask=mask[None])),
+                         "SDPA", bound))
+            del mask
+    for label, dname, ms, lib, lib_name, bound in rows:
+        print(f"phase 20 timed {label} {dname} on {gpu_line}: kernel_ms={ms:.5f} "
+              f"{lib_name}_ms={lib:.5f} (kernel/library {ms / lib:.2f}x) "
+              f"bound_ms={bound:.5f} ({100 * bound / ms:.0f}% of it)", flush=True)
+
+
+def check_any_vits(torch, np, dl, counters, zero_counters):
+    """Two SAM ViTs at ANY_VITS (head widths 32 and 128), seeded random
+    weights, at 1024 on a 1024x768 image: `process` on the card with the
+    kernels in bf16 and in float32, held against the CPU's float32 result
+    by phase 4's rules (float32 kernels within relative L2 1e-5; bf16
+    kernels no further than 1.1x the bf16 plain path on the card), each
+    call's launches exact."""
+    import copy
+
+    from dlimgedit_tpu_torch.models import sam as sam_mod
+    from dlimgedit_tpu_torch.models import vit_sam
+    from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
+
+    w, h = IMAGES[0][:2]
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 20))
+    for embed, heads, depth, glob in ANY_VITS:
+        t0 = time.perf_counter()
+        hd = embed // heads
+        enc = vit_sam.SamViTConfig(img_size=1024, embed_dim=embed, depth=depth,
+                                   num_heads=heads, global_attn_indexes=glob)
+        base_cfg = dataclasses.replace(sam_mod.make_config("vit_b", 1024),
+                                       encoder_vit=enc)
+        model = sam_mod.init_sam(torch.Generator().manual_seed(20), base_cfg)
+        seed_vit_extras(torch, model, seed=20)
+
+        def embedding(backend, dtype, kernels):
+            env = dl.Environment(dl.Options(
+                backend=backend, allow_random_weights=True, compute_dtype=dtype,
+                sam_variant="vit_b", model_directory="no-such-directory"))
+            cfg = dataclasses.replace(base_cfg, encoder_vit=dataclasses.replace(
+                enc, use_flash_attention=kernels))
+            bundle = SamModelBundle(cfg, copy.deepcopy(model).to(env.device),
+                                    env.compute_dtype)
+            if env._sam_models["vit_b"].get_or_create(lambda: bundle) is not bundle:
+                fail("phase 20: the injected ViT bundle was not taken")
+            zero_counters()
+            emb = dl.Segmentation.process(img, env).embedding.float().cpu()
+            return emb, {k: v for k, v in counters().items() if v}
+
+        want = {"fused_layer_norm": 1, "fused_add_layer_norm": 2 * depth - 1,
+                "relpos_attention_global": len(glob),
+                "relpos_attention_windowed": depth - len(glob)}
+        ref, _ = embedding(dl.Backend.cpu, "float32", False)
+        f32, f32_n = embedding(dl.Backend.gpu, "float32", True)
+        bf16, bf16_n = embedding(dl.Backend.gpu, "bfloat16", True)
+        plain, plain_n = embedding(dl.Backend.gpu, "bfloat16", False)
+        if plain_n:
+            fail(f"phase 20 ViT hd {hd}: the plain path launched {plain_n}")
+        for n, label in ((f32_n, "float32"), (bf16_n, "bf16")):
+            if n != want:
+                fail(f"phase 20 ViT hd {hd} {label}: launches {n} != {want}")
+        if not all(bool(torch.isfinite(e).all()) and tuple(e.shape) == (1, 64, 64, 256)
+                   for e in (ref, f32, bf16)):
+            fail(f"phase 20 ViT hd {hd}: bad embedding")
+        f32_err, k_err, p_err = (rel_l2(torch, e, ref) for e in (f32, bf16, plain))
+        print(f"phase 20 ViT embed {embed}, {heads} heads of {hd}, depth {depth} "
+              f"at 1024, {w}x{h}, relative L2 to the CPU's float32: card float32 "
+              f"kernels {f32_err:.3e} (limit 1e-5); card bf16 kernels "
+              f"{k_err:.4e}, card bf16 plain {p_err:.4e} (limit 1.1x); launches "
+              f"a process {bf16_n} [{time.perf_counter() - t0:.1f} s]", flush=True)
+        if not f32_err <= 1e-5:
+            fail(f"phase 20 ViT hd {hd}: float32 kernels off the CPU: {f32_err}")
+        if not k_err <= 1.1 * p_err:
+            fail(f"phase 20 ViT hd {hd}: bf16 kernels ({k_err}) further from "
+                 f"float32 than the bf16 plain path ({p_err})")
+        del model
+        torch.cuda.empty_cache()
+
+
+def drive_any_inputs(torch, np, dl, ops, counters, zero_counters, gpu_line,
+                     main_copies):
+    """Phase 20: C9-C11, the kernels' input ranges. Every kernel against its
+    plain version at the widths and head widths no main path uses and on
+    strided and misaligned views, in both dtypes, each call counted as one
+    launch of its kernel (no plain path on the card); the layout helper's
+    copies over phases 2-4 (``main_copies``) must be 0; the ViTs at head
+    widths 32 and 128 against the CPU."""
+    from dlimgedit_tpu_torch.ops.cuda_build import kernel_operand
+
+    t0 = time.perf_counter()
+    if main_copies:
+        fail(f"phase 20: kernel_operand copied {main_copies} operands over "
+             f"phases 2-4 (the main paths' operands must be dense and aligned)")
+    print("phase 20: kernel_operand made 0 copies over phases 2-4", flush=True)
+    expected = {name: 0 for name in counters()}
+    worst = {}
+
+    def held(label, name, kernel, plain, tol, compare=None):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (compare or (lambda a, b: (a.float().cpu() - b.float().cpu()
+                                         ).abs().max().item()))(out, ref)
+        if not err <= tol:
+            fail(f"phase 20 {label}: max|diff| {err} > {tol}")
+        expected[name] += 1
+        key = (name, "float32" if "float32" in label else "bfloat16")
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    zero_counters()
+    copies = kernel_operand.copies
+    with tf32_off(torch):
+        check_any_widths(torch, ops, held)
+        check_any_views(torch, ops, held)
+    got = counters()
+    if got != expected:
+        fail(f"phase 20: kernel launches {got} != the calls made {expected}")
+    print(f"phase 20: every call launched its kernel once: {got}; "
+          f"kernel_operand copies {kernel_operand.copies - copies}; max|diff| "
+          f"by kernel and dtype {json.dumps({f'{n}/{d}': e for (n, d), e in sorted(worst.items())})}",
+          flush=True)
+    with tf32_off(torch):
+        time_any_widths(torch, ops, gpu_line)
+    check_any_vits(torch, np, dl, counters, zero_counters)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     run_t0 = time.perf_counter()
     import torch
@@ -6625,7 +7036,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.ops import flash_attention as fa
     from dlimgedit_tpu_torch.ops import fused_norm as fn
     from dlimgedit_tpu_torch.ops import quant
-    from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY
+    from dlimgedit_tpu_torch.ops.cuda_build import LIBRARY, kernel_operand
     from dlimgedit_tpu_torch.parallel import batch as pbatch
     from dlimgedit_tpu_torch.tools import probe_batch_masks as probe_masks
     from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
@@ -6718,6 +7129,7 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions -------------------------
     t0 = time.perf_counter()
+    copies_before = kernel_operand.copies
     entries = Entries()
     with tf32_off(torch):  # the plain versions are float32 references
         check_kernels(torch, ops, entries, f32_timed=True)
@@ -6771,6 +7183,8 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] += n
             f32_launches[name] += f32_counts[name]
+
+    main_copies = kernel_operand.copies - copies_before  # phases 2-4
 
     # -- 5. the gather probe, briefly ------------------------------------
     t0 = time.perf_counter()
@@ -6877,6 +7291,10 @@ def main() -> int:
     int8_s += drive_int8_birefnet_leg(torch, np, dl, gpu_line)
     print(f"phases 17-19's int8 legs: {int8_s:.1f} s", flush=True)
 
+    # -- 20. the kernels' input ranges: any width, head width, view -------
+    drive_any_inputs(torch, np, dl, ops, counters, zero_counters, gpu_line,
+                     main_copies)
+
     kernels = []
     for name, source, replaces in KERNELS:
         e = (nms_row if name == "greedy_nms"
@@ -6909,7 +7327,7 @@ def main() -> int:
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
             "library_ms": e["library_ms"], "also_from_cpp": name in FROM_CPP})
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - run_t0:.1f} s "
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - run_t0:.1f} s "
           f"on {gpu_line}", flush=True)
     print(gpu_line)
     print(json.dumps({"kernels": kernels}))

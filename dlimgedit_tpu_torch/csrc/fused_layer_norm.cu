@@ -66,10 +66,40 @@
 // computes on zeros and stores nothing.
 //
 // Every pointer must be 16-byte aligned: the entry point returns
-// cudaErrorInvalidValue otherwise (the Python wrapper raises first).
+// cudaErrorInvalidValue otherwise (the Python wrapper makes every operand
+// dense and aligned first, ops/cuda_build.py `kernel_operand`).
 //
-// K3 keeps the earlier design: one warp per row, VPL = C / 32 values per
-// lane (lane l owns columns l, l + 32, ...), in blocks of 8 warps.
+// K3 keeps the earlier design at those widths: one warp per row, VPL =
+// C / 32 values per lane (lane l owns columns l, l + 32, ...), in blocks
+// of 8 warps.
+//
+// Any other width C >= 1 (the JAX kernels take any C) runs a width-generic
+// body, for K1 and K3 alike (`ADD`), the C of a call a kernel argument:
+// a row is nch = ceil(C sizeof(T) / 16) chunks, the last of them partial
+// where C sizeof(T) is not a multiple of 16: its columns past C load as
+// zeros and are not stored (scale and bias likewise), and the statistics
+// take the true C. At small C a row's one-pass variance can be a tiny
+// difference of two large terms (3 close values: var ~1e-6 of E[x^2]), so
+// the statistics are formed with the plain version's roundings: a mean is
+// the sum times float32(1 / C) (as XLA forms JAX's jnp.mean), the squares
+// and mean^2 are rounded before they are summed and subtracted (no fused
+// multiply-add), and a lane sums its values in order, as the CPU sums a
+// short row. (The instances of KERNEL_WIDTHS keep their arithmetic, which
+// at their widths moves the output by far less.) Such a row does not start
+// on 16 bytes, so its
+// chunks are read and written value by value; a row whose bytes are a
+// multiple of 16 moves whole chunks. Rows of up to 32 kLnMaxChunksPerLane
+// chunks run `layer_norm_any_kernel`: K1's lanes rule and launch plan, the
+// fewest of 4, 8, 16, 32 lanes that hold the row in at most
+// kLnMaxChunksPerLane chunks a lane (a lane's chunks past nch are zeros).
+// Wider rows (bf16 above 1280, float32 above 640) run
+// `layer_norm_wide_kernel`: a block of kLnWideThreads threads a row, the
+// sums reduced over its warps through shared memory, the row read a second
+// time (from L2) to normalise it. With ADD the body forms s = x + d rounded
+// to the dtype, writes it and normalises it; K1 on that s runs the same
+// body in the same order of summation, so at these widths K3 equals x + d
+// followed by K1 bit for bit. These bodies are right first; their speed is
+// later work.
 #include <cstdint>
 
 #include "common.cuh"
@@ -290,21 +320,30 @@ struct LayerNormWidth {
   }
 };
 
+// The widths with instances of their own (ops/fused_norm.py
+// KERNEL_WIDTHS): K1's LayerNormWidth and K3's VPL = C / 32 kernels.
+#define DLIMG_LN_WIDTHS(X) X(128) X(160) X(256) X(320) X(768) X(1024) X(1280)
+
+bool instance_width(int cols) {
+  switch (cols) {
+#define DLIMG_LN_CASE(C) case C:
+    DLIMG_LN_WIDTHS(DLIMG_LN_CASE)
+#undef DLIMG_LN_CASE
+    return true;
+    default:
+      return false;
+  }
+}
+
 // f(LayerNormWidth<T, C>{}) for a width C of KERNEL_WIDTHS; other widths
-// are refused.
+// are refused (the caller takes the width-generic bodies for them).
 template <typename T, typename F>
 cudaError_t with_width(int cols, F f) {
   switch (cols) {
 #define DLIMG_LN_WIDTH(C) \
   case C:                 \
     return f(LayerNormWidth<T, C>{});
-    DLIMG_LN_WIDTH(128)
-    DLIMG_LN_WIDTH(160)
-    DLIMG_LN_WIDTH(256)
-    DLIMG_LN_WIDTH(320)
-    DLIMG_LN_WIDTH(768)
-    DLIMG_LN_WIDTH(1024)
-    DLIMG_LN_WIDTH(1280)
+    DLIMG_LN_WIDTHS(DLIMG_LN_WIDTH)
 #undef DLIMG_LN_WIDTH
     default:
       return cudaErrorInvalidValue;
@@ -394,55 +433,339 @@ cudaError_t dispatch_add_layer_norm(const void* x, const void* d, const void* sc
                                     int rows, int cols, float eps,
                                     cudaStream_t stream) {
   switch (cols) {
-#define DLIMG_LN_CASE(VPL)                                                        \
-  case VPL * 32:                                                                  \
-    return launch_add_layer_norm<T, VPL>(x, d, scale, bias, s_out, out, rows, eps, \
-                                         stream);
-    DLIMG_LN_CASE(4)
-    DLIMG_LN_CASE(5)
-    DLIMG_LN_CASE(8)
-    DLIMG_LN_CASE(10)
-    DLIMG_LN_CASE(24)
-    DLIMG_LN_CASE(32)
-    DLIMG_LN_CASE(40)
+#define DLIMG_LN_CASE(C)                                                              \
+  case C:                                                                             \
+    return launch_add_layer_norm<T, C / 32>(x, d, scale, bias, s_out, out, rows, eps, \
+                                            stream);
+    DLIMG_LN_WIDTHS(DLIMG_LN_CASE)
 #undef DLIMG_LN_CASE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K3 at any other width
+// ---------------------------------------------------------------------------
+
+constexpr int kLnWideThreads = 256;
+constexpr int kLnWideBlocksPerSm = 8;
+
+// The raw bits of a value of T.
+template <typename T> struct Bits;
+template <> struct Bits<float> { using B = uint32_t; };
+template <> struct Bits<__nv_bfloat16> { using B = uint16_t; };
+
+// Columns c0 .. c0 + 16 / sizeof(T) - 1 of a row as a packed chunk (the
+// layout Chunk<T> unpacks): zeros past C. `vec`: C sizeof(T) is a multiple
+// of 16 and the row starts on 16 bytes, so the chunk is one 16-byte load.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk_masked(const T* __restrict__ row, int c0, int C,
+                                                   bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(row + c0);
+  using B = typename Bits<T>::B;
+  constexpr int N = 16 / sizeof(T), PER = 4 / sizeof(T);  // values a 32-bit word
+  const B* r = reinterpret_cast<const B*>(row);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (c0 + k < C) w[k / PER] |= static_cast<uint32_t>(r[c0 + k]) << (32 / PER * (k % PER));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Stores the columns below C of a packed chunk at c0.
+template <typename T>
+__device__ __forceinline__ void store_chunk_masked(T* __restrict__ row, int c0, int C, bool vec,
+                                                   const uint4& u) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(row + c0) = u;
+    return;
+  }
+  using B = typename Bits<T>::B;
+  constexpr int N = 16 / sizeof(T), PER = 4 / sizeof(T);
+  B* r = reinterpret_cast<B*>(row);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (c0 + k < C) r[c0 + k] = static_cast<B>(w[k / PER] >> (32 / PER * (k % PER)));
+}
+
+// The chunk at c0 of the row at `base` as the body normalises it: x, or
+// with ADD s = x + d rounded to T (written to s_out when `write`).
+template <typename T, bool ADD>
+__device__ __forceinline__ uint4 row_chunk(const T* __restrict__ x, const T* __restrict__ d,
+                                           T* __restrict__ s_out, size_t base, int c0, int C,
+                                           bool vec, bool write) {
+  const uint4 u = load_chunk_masked(x + base, c0, C, vec);
+  if constexpr (!ADD) {
+    return u;
+  } else {
+    using V = Chunk<T>;
+    float a[V::kValues], b[V::kValues];
+    V::unpack(u, a);
+    V::unpack(load_chunk_masked(d + base, c0, C, vec), b);
+#pragma unroll
+    for (int k = 0; k < V::kValues; ++k) a[k] += b[k];
+    const uint4 s = V::pack(a);
+    if (write) store_chunk_masked(s_out + base, c0, C, vec, s);
+    return s;
+  }
+}
+
+// (x - mean) inv scale + bias of one chunk, stored below C.
+template <typename T>
+__device__ __forceinline__ void normalize_chunk(const uint4& u, const T* __restrict__ scale,
+                                                const T* __restrict__ bias, T* __restrict__ orow,
+                                                int c0, int C, bool vec, float mean, float inv) {
+  using V = Chunk<T>;
+  float f[V::kValues], a[V::kValues], b[V::kValues];
+  V::unpack(u, f);
+  V::unpack(load_chunk_masked(scale, c0, C, vec), a);
+  V::unpack(load_chunk_masked(bias, c0, C, vec), b);
+#pragma unroll
+  for (int k = 0; k < V::kValues; ++k) f[k] = (f[k] - mean) * inv * a[k] + b[k];
+  store_chunk_masked(orow, c0, C, vec, V::pack(f));
+}
+
+// Rows of up to L kLnMaxChunksPerLane chunks: L lanes a row, 32 / L rows a
+// warp, row groups walked at a stride of the grid's warps (K1's plan).
+template <typename T, int L, bool ADD>
+__global__ void __launch_bounds__(kLnMaxWarpsPerBlock * 32)
+layer_norm_any_kernel(const T* __restrict__ x, const T* __restrict__ d,
+                      const T* __restrict__ scale, const T* __restrict__ bias,
+                      T* __restrict__ s_out, T* __restrict__ out, int rows, int C,
+                      int vec_rows, float eps) {
+  using V = Chunk<T>;
+  constexpr int N = V::kValues;
+  constexpr int CPL = kLnMaxChunksPerLane;
+  constexpr int kRowsPerWarp = 32 / L;
+  const bool vec = vec_rows != 0;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane / L, gl = lane % L;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int warps = gridDim.x * blockDim.x / 32;
+  const int groups = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const int nch = (C + N - 1) / N;
+  const float inv_c = 1.f / static_cast<float>(C);
+  for (int g = warp; g < groups; g += warps) {  // uniform over the warp
+    const int row = g * kRowsPerWarp + sub;
+    const bool live = row < rows;
+    const size_t base = static_cast<size_t>(live ? row : 0) * C;
+    uint4 v[CPL];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int ch = gl + L * j;
+      v[j] = live && ch < nch ? row_chunk<T, ADD>(x, d, s_out, base, ch * N, C, vec, true)
+                              : make_uint4(0u, 0u, 0u, 0u);
+      float f[N];
+      V::unpack(v[j], f);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        s += f[k];
+        s2 += __fmul_rn(f[k], f[k]);  // rounded squares, as the plain version's
+      }
+    }
+    s = group_sum<L>(s);
+    s2 = group_sum<L>(s2);
+    const float mean = s * inv_c;
+    const float var = fmaxf(__fsub_rn(s2 * inv_c, __fmul_rn(mean, mean)), 0.f);
+    const float inv = rsqrtf(var + eps);
+    if (!live) continue;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int ch = gl + L * j;
+      if (ch < nch) normalize_chunk(v[j], scale, bias, out + base, ch * N, C, vec, mean, inv);
+    }
+  }
+}
+
+// Wider rows: a block of kLnWideThreads a row (rows walked at a stride of
+// the grid), thread t taking chunks t, t + kLnWideThreads, ...; the sums
+// reduced over the warps in shared memory in warp order, the row read again
+// to normalise it (with ADD, s formed again from x + d: the same values).
+template <typename T, bool ADD>
+__global__ void __launch_bounds__(kLnWideThreads)
+layer_norm_wide_kernel(const T* __restrict__ x, const T* __restrict__ d,
+                       const T* __restrict__ scale, const T* __restrict__ bias,
+                       T* __restrict__ s_out, T* __restrict__ out, int rows, int C,
+                       int vec_rows, float eps) {
+  using V = Chunk<T>;
+  constexpr int N = V::kValues;
+  constexpr int W = kLnWideThreads / 32;
+  __shared__ float red[2][W];
+  const bool vec = vec_rows != 0;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nch = (C + N - 1) / N;
+  const float inv_c = 1.f / static_cast<float>(C);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = static_cast<size_t>(row) * C;
+    float s = 0.f, s2 = 0.f;
+    for (int ch = tid; ch < nch; ch += kLnWideThreads) {
+      float f[N];
+      V::unpack(row_chunk<T, ADD>(x, d, s_out, base, ch * N, C, vec, true), f);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        s += f[k];
+        s2 += __fmul_rn(f[k], f[k]);
+      }
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      red[0][warp] = s;
+      red[1][warp] = s2;
+    }
+    __syncthreads();
+    s = 0.f;
+    s2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      s += red[0][w];
+      s2 += red[1][w];
+    }
+    __syncthreads();  // red is written again for the next row
+    const float mean = s * inv_c;
+    const float var = fmaxf(__fsub_rn(s2 * inv_c, __fmul_rn(mean, mean)), 0.f);
+    const float inv = rsqrtf(var + eps);
+    for (int ch = tid; ch < nch; ch += kLnWideThreads)
+      normalize_chunk(row_chunk<T, ADD>(x, d, s_out, base, ch * N, C, vec, false), scale, bias,
+                      out + base, ch * N, C, vec, mean, inv);
+  }
+}
+
+// The lanes a row of `cols` values of `size` bytes takes in
+// layer_norm_any_kernel (K1's rule), or 0 for layer_norm_wide_kernel.
+int any_lanes(int cols, int size) {
+  const long long chunks = (static_cast<long long>(cols) * size + 15) / 16;
+  for (int l = 4; l <= 32; l *= 2)
+    if ((chunks + l - 1) / l <= kLnMaxChunksPerLane) return l;
+  return 0;
+}
+
+// The width-generic bodies at (T, ADD): the plan and one launch.
+template <typename T, bool ADD>
+struct AnyWidth {
+  template <int L>
+  static LnPlan lanes_plan(int rows) {
+    static const int sms = device_sms();
+    static const int resident = [] {
+      int blocks = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, layer_norm_any_kernel<T, L, ADD>, kLnMaxWarpsPerBlock * 32, 0);
+      return blocks * kLnMaxWarpsPerBlock;
+    }();
+    const int wave = resident < kLnWaveWarpsPerSm ? resident : kLnWaveWarpsPerSm;
+    return ln_plan(rows, L, sms > 0 ? sms : 1, wave > 0 ? wave : 1);
+  }
+
+  // plan[0] = 0 and one block of kLnWideThreads a row for the wide body.
+  static LnPlan plan(int rows, int cols) {
+    switch (any_lanes(cols, sizeof(T))) {
+      case 4: return lanes_plan<4>(rows);
+      case 8: return lanes_plan<8>(rows);
+      case 16: return lanes_plan<16>(rows);
+      case 32: return lanes_plan<32>(rows);
+      default: {
+        static const int sms = device_sms();
+        const int most = (sms > 0 ? sms : 1) * kLnWideBlocksPerSm;
+        LnPlan p{};
+        p.warps_per_block = kLnWideThreads / 32;
+        p.blocks = rows < most ? rows : most;
+        p.groups_per_warp = (rows + p.blocks - 1) / p.blocks;  // rows a block
+        return p;
+      }
+    }
+  }
+
+  template <int L>
+  static void launch_lanes(const LnPlan& p, const T* x, const T* d, const T* scale,
+                           const T* bias, T* s_out, T* out, int rows, int cols, int vec,
+                           float eps, cudaStream_t stream) {
+    layer_norm_any_kernel<T, L, ADD><<<p.blocks, p.warps_per_block * 32, 0, stream>>>(
+        x, d, scale, bias, s_out, out, rows, cols, vec, eps);
+  }
+
+  static cudaError_t launch(const void* x, const void* d, const void* scale, const void* bias,
+                            void* s_out, void* out, int rows, int cols, float eps,
+                            cudaStream_t stream) {
+    const LnPlan p = plan(rows, cols);
+    const T *xt = static_cast<const T*>(x), *dt = static_cast<const T*>(d);
+    const T *st = static_cast<const T*>(scale), *bt = static_cast<const T*>(bias);
+    T *so = static_cast<T*>(s_out), *ot = static_cast<T*>(out);
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(d) |
+                           reinterpret_cast<uintptr_t>(scale) |
+                           reinterpret_cast<uintptr_t>(bias) |
+                           reinterpret_cast<uintptr_t>(s_out) | reinterpret_cast<uintptr_t>(out);
+    const int vec = cols % Chunk<T>::kValues == 0 && ptrs % 16 == 0;
+    switch (p.lanes) {
+      case 4: launch_lanes<4>(p, xt, dt, st, bt, so, ot, rows, cols, vec, eps, stream); break;
+      case 8: launch_lanes<8>(p, xt, dt, st, bt, so, ot, rows, cols, vec, eps, stream); break;
+      case 16: launch_lanes<16>(p, xt, dt, st, bt, so, ot, rows, cols, vec, eps, stream); break;
+      case 32: launch_lanes<32>(p, xt, dt, st, bt, so, ot, rows, cols, vec, eps, stream); break;
+      default:
+        layer_norm_wide_kernel<T, ADD><<<p.blocks, kLnWideThreads, 0, stream>>>(
+            xt, dt, st, bt, so, ot, rows, cols, vec, eps);
+    }
+    return cudaGetLastError();
+  }
+};
+
+template <bool ADD, typename F>
+cudaError_t with_any_width(int dtype, F f) {
+  if (dtype == kDtypeF32) return f(AnyWidth<float, ADD>{});
+  if (dtype == kDtypeBF16) return f(AnyWidth<__nv_bfloat16, ADD>{});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace dlimg
 
-// Widths the kernels are instantiated for; the Python wrappers check
-// against the same list (ops/fused_norm.py KERNEL_WIDTHS).
+// K1: out = LN(x) over rows of `cols` values. The widths of KERNEL_WIDTHS
+// run their own instances, any other cols >= 1 the width-generic bodies.
+// Every pointer must start on 16 bytes.
 extern "C" int dlimg_layer_norm(const void* x, const void* scale, const void* bias,
                                 void* out, int rows, int cols, int dtype,
                                 float eps, void* stream) {
   using namespace dlimg;
   if (rows <= 0) return 0;
-  if (!aligned16(x) || !aligned16(scale) || !aligned16(bias) || !aligned16(out))
+  if (cols <= 0 || !aligned16(x) || !aligned16(scale) || !aligned16(bias) ||
+      !aligned16(out))
     return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!instance_width(cols))
+    return with_any_width<false>(dtype, [&](auto w) {
+      return decltype(w)::launch(x, x, scale, bias, out, out, rows, cols, eps, s);
+    });
   return with_type_and_width(dtype, cols, [&](auto width) {
-    return decltype(width)::launch(x, scale, bias, out, rows, eps,
-                                   static_cast<cudaStream_t>(stream));
+    return decltype(width)::launch(x, scale, bias, out, rows, eps, s);
   });
 }
 
 // K1's launch plan for (rows, cols, dtype): plan[0..4] = lanes a row, rows
-// a warp, warps a block, blocks, row groups a warp.
+// a warp, warps a block, blocks, row groups a warp; for rows too wide for
+// a warp's registers (the width-generic wide body) lanes a row = 0, then
+// 0, warps a block, blocks, rows a block.
 extern "C" int dlimg_layer_norm_plan(int rows, int cols, int dtype, int* plan) {
   using namespace dlimg;
-  if (rows <= 0 || plan == nullptr) return cudaErrorInvalidValue;
-  return with_type_and_width(dtype, cols, [&](auto width) {
-    const LnPlan p = decltype(width)::plan(rows);
+  if (rows <= 0 || cols <= 0 || plan == nullptr) return cudaErrorInvalidValue;
+  auto write = [&](const LnPlan& p) {
     const int v[5] = {p.lanes, p.rows_per_warp, p.warps_per_block, p.blocks,
                       p.groups_per_warp};
     for (int i = 0; i < 5; ++i) plan[i] = v[i];
     return cudaGetLastError();
+  };
+  if (!instance_width(cols))
+    return with_any_width<false>(dtype, [&](auto w) {
+      return write(decltype(w)::plan(rows, cols));
+    });
+  return with_type_and_width(dtype, cols, [&](auto width) {
+    return write(decltype(width)::plan(rows));
   });
 }
 
-// K3: s_out = x + d (rounded to the dtype), out = LN(s_out).
+// K3: s_out = x + d (rounded to the dtype), out = LN(s_out). The widths of
+// KERNEL_WIDTHS take any alignment; the width-generic bodies move 16-byte
+// chunks only where every pointer starts on 16 bytes.
 extern "C" int dlimg_add_layer_norm(const void* x, const void* d, const void* scale,
                                     const void* bias, void* s_out, void* out,
                                     int rows, int cols, int dtype, float eps,
@@ -450,7 +773,12 @@ extern "C" int dlimg_add_layer_norm(const void* x, const void* d, const void* sc
   using namespace dlimg;
   if (d == nullptr) return cudaErrorInvalidValue;
   if (rows <= 0) return 0;
+  if (cols <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!instance_width(cols))
+    return with_any_width<true>(dtype, [&](auto w) {
+      return decltype(w)::launch(x, d, scale, bias, s_out, out, rows, cols, eps, s);
+    });
   if (dtype == kDtypeF32)
     return dispatch_add_layer_norm<float>(x, d, scale, bias, s_out, out, rows, cols,
                                           eps, s);

@@ -49,7 +49,8 @@ enum RelposKind { kRelposGlobal, kRelposWindowed, kRelposQkv };
 template <int KIND>
 int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
   if (g <= 0 || a.n <= 0) return 0;
-  if (g > 65535 || a.gh <= 0 || a.gw <= 0 || a.gh * a.gw != a.n || a.n_valid < 0)
+  if (g > 65535 || a.gh <= 0 || a.gw <= 0 || a.gh * a.gw != a.n || a.n_valid < 0 ||
+      hd != a.hd || padded_head_width(hd) == 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32) {
@@ -76,14 +77,15 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
 }  // namespace dlimg
 
 // q, k, v, out: (g, n, hd); bhw: (g, n, gh + gw); all contiguous and of one
-// dtype; n == gh * gw; hd in {64, 80} (ops/flash_attention.py
-// KERNEL_HEAD_DIMS).
+// dtype; n == gh * gw; hd a multiple of 8 from 8 to 128 (64 and 80 run
+// instances of their own, the others padded ones: relpos_attention.cuh
+// `padded_head_width`; ops/flash_attention.py KERNEL_HEAD_DIMS).
 extern "C" int dlimg_relpos_attention_global(const void* q, const void* k,
                                              const void* v, const void* bhw,
                                              void* out, int g, int n, int hd, int gh,
                                              int gw, int dtype, float scale,
                                              void* stream) {
-  const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g, n, scale, 0, 0};
+  const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g, n, scale, 0, 0, hd};
   return dlimg::relpos_entry<dlimg::kRelposGlobal>(a, g, hd, dtype, stream);
 }
 
@@ -96,7 +98,7 @@ extern "C" int dlimg_relpos_attention_windowed(const void* q, const void* k,
                                                int g_skip, int n_valid, int dtype,
                                                float scale, void* stream) {
   const dlimg::RelposArgs a{q, k, v, bhw, out, n, gh, gw, g_skip, n_valid, scale,
-                            folded, 0};
+                            folded, 0, hd};
   return dlimg::relpos_entry<dlimg::kRelposWindowed>(a, g, hd, dtype, stream);
 }
 
@@ -107,6 +109,6 @@ extern "C" int dlimg_relpos_attention_qkv(const void* qkv, const void* bhw, void
                                           int dtype, float scale, void* stream) {
   if (nh <= 0) return cudaErrorInvalidValue;
   const int g = w * nh;
-  const dlimg::RelposArgs a{qkv, qkv, qkv, bhw, out, n, gh, gw, g, n, scale, 0, nh};
+  const dlimg::RelposArgs a{qkv, qkv, qkv, bhw, out, n, gh, gw, g, n, scale, 0, nh, hd};
   return dlimg::relpos_entry<dlimg::kRelposQkv>(a, g, hd, dtype, stream);
 }

@@ -20,6 +20,7 @@ struct RelposArgs {
   float scale;
   int folded;
   int qkv_heads;  // > 0: q, k, v are components of one (W, 3, qkv_heads, n, HD)
+  int hd;         // the rows' head width (a padded instance computes at a wider HD)
 };
 
 // K6: windows read in place from padded NHWC tensors.
@@ -30,26 +31,53 @@ struct StripArgs {
   const void* rh;  // (ws, ws, HD) contiguous, activation dtype
   const void* rw;
   void* out;       // (B, hp, wp, c) contiguous
-  int hp, wp, c, ts, ws, nh;
+  int hp, wp, c, ts, ws, nh;  // head width c / nh
   float scale;
 };
 
-// bf16 K4, K5 / K7 and K6 on the tensor cores (relpos_attention_tc.cu); g
-// groups of a.n tokens (K6: `batch` images of windows), head width hd in
-// {64, 80}. Each returns the launch's error.
+// The head widths the kernels take: hd 64 and 80 run instances of their
+// own; every other multiple of 8 from 8 to 128 an instance at a padded
+// width of 32, 96 or 128, which this returns (0 for a width none takes).
+inline int padded_head_width(int hd) {
+  if (hd < 8 || hd > 128 || hd % 8 != 0) return 0;
+  return hd <= 32 ? 32 : hd <= 96 ? 96 : 128;
+}
+
+// The head width a kernel body computes at (HD) and the one its rows hold:
+// HD itself, or with PAD (a padded instance) the run-time hd < HD, whose
+// columns past hd the body loads as zeros and does not store.
+template <int HD, bool PAD>
+struct HeadWidth {
+  static constexpr bool kPad = PAD;
+  int hd;
+  __device__ __forceinline__ int width() const { return PAD ? hd : HD; }
+};
+
+// bf16 K4, K5 / K7 and K6 on the tensor cores (relpos_attention_tc.cu at
+// hd 64 and 80, relpos_attention_tc_pad.cu, the `_pad` functions, at the
+// other widths); g groups of a.n tokens (K6: `batch` images of windows),
+// head width hd = a.hd. Each returns the launch's error.
 cudaError_t relpos_global_tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 // K5, and K7 when a.qkv_heads > 0.
 cudaError_t relpos_windowed_tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_tc(const StripArgs& a, int batch, int hd, cudaStream_t stream);
+cudaError_t relpos_global_tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_windowed_tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t window_strip_tc_pad(const StripArgs& a, int batch, int hd, cudaStream_t stream);
 
 // float32 K4, K5, K7 and K6 on the tensor cores in three TF32 passes
-// (relpos_attention_f32tc.cu); the same arguments, hd in {64, 80}. q, k, v
-// and out must start on 16 bytes (K7: the qkv tensor; K6: also rh and rw,
-// and ts a multiple of 4 floats).
+// (relpos_attention_f32tc.cu at hd 64 and 80, relpos_attention_f32tc_pad.cu
+// at the other widths); the same arguments. q, k, v and out must start on
+// 16 bytes (K7: the qkv tensor; K6: also rh and rw, and ts a multiple of 4
+// floats).
 cudaError_t relpos_global_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t relpos_windowed_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 // K7: a.q (= a.k = a.v) is the (W, 3, a.qkv_heads, n, HD) qkv, a.qkv_heads > 0.
 cudaError_t relpos_qkv_f32tc(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_f32tc(const StripArgs& a, int batch, int hd, cudaStream_t stream);
+cudaError_t relpos_global_f32tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_windowed_f32tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_qkv_f32tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t window_strip_f32tc_pad(const StripArgs& a, int batch, int hd, cudaStream_t stream);
 
 }  // namespace dlimg

@@ -35,7 +35,8 @@
 // have ts = 3c), 16-byte aligned, ts a multiple of 16 bytes; rh, rw:
 // (ws, ws, hd) contiguous, 16-byte aligned; out: (b, hp, wp, c)
 // contiguous, 16-byte aligned; c == nh * hd, hp and wp multiples of ws,
-// ws * ws <= 208, hd in {64, 80} (ops/flash_attention.py KERNEL_HEAD_DIMS).
+// ws * ws <= 208, hd a multiple of 8 from 8 to 128 (ops/flash_attention.py
+// KERNEL_HEAD_DIMS).
 extern "C" int dlimg_window_strip_attention(const void* q, const void* k, const void* v,
                                             const void* rh, const void* rw, void* out,
                                             int b, int hp, int wp, int c, int ts, int ws,
@@ -43,7 +44,8 @@ extern "C" int dlimg_window_strip_attention(const void* q, const void* k, const 
                                             void* stream) {
   if (b <= 0 || hp <= 0 || wp <= 0) return 0;
   if (ws <= 0 || ws * ws > 208 || hp % ws || wp % ws || nh <= 0 || nh > 65535 ||
-      c != nh * hd || ts < c || static_cast<long long>(b) * (hp / ws) * (wp / ws) > 65535)
+      c != nh * hd || ts < c || dlimg::padded_head_width(hd) == 0 ||
+      static_cast<long long>(b) * (hp / ws) * (wp / ws) > 65535)
     return cudaErrorInvalidValue;
   const dlimg::StripArgs a{q, k, v, rh, rw, out, hp, wp, c, ts, ws, nh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

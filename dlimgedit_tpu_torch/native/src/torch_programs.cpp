@@ -139,8 +139,9 @@ Tensor conv_bn(const Weights& w, const std::string& p, const Tensor& x,
 Tensor layer_norm_plain(const Tensor& x, const Tensor& scale,
                         const Tensor& bias, double eps) {
   Tensor x32 = x.to(at::kFloat);
-  Tensor mean = at::mean(x32, at::IntArrayRef{-1}, true);
-  Tensor mean_sq = at::mean(x32 * x32, at::IntArrayRef{-1}, true);
+  const double inv_c = 1.0 / static_cast<double>(x.size(-1));  // as XLA's mean
+  Tensor mean = at::sum(x32, at::IntArrayRef{-1}, true) * inv_c;
+  Tensor mean_sq = at::sum(x32 * x32, at::IntArrayRef{-1}, true) * inv_c;
   Tensor var = clamp_min(mean_sq - mean * mean, 0.0);
   Tensor y = (x32 - mean) * at::rsqrt(var + eps);
   return (y * scale.to(at::kFloat) + bias.to(at::kFloat))

@@ -22,7 +22,7 @@ import torch
 
 from ..errors import DlimgError
 from .connected import _label_components
-from .cuda_build import LIBRARY, check_launch
+from .cuda_build import LIBRARY, check_launch, kernel_operand
 
 
 def point_grid(n: int, crop_w: torch.Tensor, crop_h: torch.Tensor) -> torch.Tensor:
@@ -178,13 +178,12 @@ def greedy_nms(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
         raise DlimgError("greedy_nms: on CUDA the threshold must be a "
                          "one-element float32 tensor on the boxes' device")
     tensors = (boxes_sorted, scores_sorted)
-    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
-        raise DlimgError("greedy_nms: boxes and scores must be contiguous "
-                         "float32")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise DlimgError("greedy_nms: boxes and scores must be float32")
     if scores_sorted.device != boxes_sorted.device:
         raise DlimgError("greedy_nms: boxes and scores must share a device")
-    if boxes_sorted.data_ptr() % 16:
-        raise DlimgError("greedy_nms: boxes must be 16-byte aligned")
+    # The boxes are read as 16-byte rows (the threshold as one float).
+    boxes_sorted, scores_sorted = (kernel_operand(t) for t in tensors)
     keep = torch.empty((M,), dtype=torch.bool, device=boxes_sorted.device)
     if M == 0:
         return keep

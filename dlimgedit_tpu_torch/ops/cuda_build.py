@@ -170,6 +170,27 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 
 
+def kernel_operand(t):
+    """``t`` as a kernel reads it: dense (row-major) and starting on a
+    16-byte boundary, the layout every kernel's 16-byte loads take.
+
+    Returns ``t`` itself when it already is; otherwise ``t.contiguous()``,
+    or a clone where that is still off 16 bytes (a contiguous view at an
+    odd storage offset), and counts the copy in ``kernel_operand.copies``.
+    Every wrapper passes every pointer it hands a kernel through this one
+    rule, so a kernel takes any view the plain version takes; the main
+    paths' operands are dense and aligned, and the count over them stays
+    0. The C entry points still refuse a misaligned pointer."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    kernel_operand.copies += 1
+    c = t.contiguous()
+    return c.clone() if c.data_ptr() % 16 else c
+
+
+kernel_operand.copies = 0
+
+
 def check_launch(name: str, rc: int, shape: str = "") -> None:
     """Raise if a C entry point reported a CUDA error (its return value is
     the cudaError_t of the launch); ``shape`` names the call's shape."""

@@ -5,8 +5,7 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
   * ``levit_window_attention`` (K2; JAX :531): TinyViT's window attention
     with a static per-head bias, on the tensor cores in bf16
     (``csrc/levit_attention_tc.cu``) and in float32, every product in three
-    TF32 passes (``csrc/levit_attention_f32tc.cu``; float32 qkv must start
-    on 16 bytes);
+    TF32 passes (``csrc/levit_attention_f32tc.cu``);
   * ``flash_attention_relpos`` (JAX :443): the SAM ViT's attention with the
     decomposed relative-position bias, routed as in JAX to
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
@@ -24,13 +23,17 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     NHWC q, k, v, bias halves computed in the kernel.
 
 In bf16 K4, K5, K7 and K6 run on the tensor cores
-(``csrc/relpos_attention_tc.cu``; K5, K7 and K6 share one ``mma.sync``
+(``csrc/relpos_attention_tc.cuh``; K5, K7 and K6 share one ``mma.sync``
 body). In float32 they run on the tensor cores with every product in three
-TF32 passes (``csrc/relpos_attention_f32tc.cu``, one body; q, k, v, and
-K7's qkv, must start on 16 bytes, and K6's token stride be a multiple of 4
-floats). The C entry points are ``csrc/relpos_attention.cu`` (K4, K5, K7),
-``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
-(K6).
+TF32 passes (``csrc/relpos_attention_f32tc.cuh``, one body). Both take
+every head width of ``KERNEL_HEAD_DIMS``: 64 and 80 (the ViTs') have
+instances of their own, the others run an instance at a padded width of
+32, 96 or 128. The C entry points are ``csrc/relpos_attention.cu`` (K4, K5,
+K7), ``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
+(K6). Every kernel reads its operands in 16-byte pieces: each wrapper
+passes every operand through ``kernel_operand`` (dense and on 16 bytes; a
+copy only for a view that is not), except K6's q, k and v, which it reads
+in place where their layout allows.
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -52,15 +55,17 @@ from typing import Optional, Tuple
 import torch
 
 from ..errors import DlimgError
-from .cuda_build import DTYPE_CODES, LIBRARY, check_launch
+from .cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
 
 # The K2 kernels' head width and largest window (csrc/levit_attention.cu,
 # the entry point of csrc/levit_attention_tc.cu and _f32tc.cu).
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_TOKENS = 256
-# Head widths K4, K5, K6 and K7 are instantiated for:
-# SAM ViT-B/L (64) and ViT-H (80).
-KERNEL_HEAD_DIMS = (64, 80)
+# Head widths K4, K5, K6 and K7 take: every multiple of 8 from 8 to 128.
+# SAM ViT-B/L (64) and ViT-H (80) have instances of their own; the others
+# run an instance at a padded width of 32, 96 or 128
+# (csrc/relpos_attention.cuh ``padded_head_width``).
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
 # The largest window side the bf16 K5 and K7 take (csrc/relpos_attention_tc.cu
 # kBiasSide: 16 bias columns a half, score rows of up to 256 keys); the
 # routers send wider bf16 windows to K4.
@@ -115,12 +120,6 @@ def _check(qkv, bias, num_heads):
         raise DlimgError(f"levit_window_attention: the CUDA kernel takes "
                          f"kd == {KERNEL_HEAD_DIM} and N <= "
                          f"{KERNEL_MAX_TOKENS}, got kd={kd}, N={N}")
-    if not (qkv.is_contiguous() and bias.is_contiguous()):
-        raise DlimgError("levit_window_attention: inputs must be contiguous")
-    if qkv.dtype == torch.float32 and qkv.data_ptr() % 16:
-        raise DlimgError("levit_window_attention: the float32 kernel reads "
-                         "qkv rows in 16-byte pieces; qkv must start on 16 "
-                         "bytes")
     return kd
 
 
@@ -132,16 +131,14 @@ def levit_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     bias: (nh, N, N), the gathered attention-bias table. Returns
     (G, N, nh * kd). CUDA tensors go through the K2 kernel (and count one
     launch in ``levit_window_attention.launches``); both kernels read qkv
-    in 16-byte chunks: a bf16 view that does not start on 16 bytes is
-    cloned, a float32 one raises."""
+    in 16-byte chunks, which ``kernel_operand`` sees to."""
     kd = _check(qkv, bias, num_heads)
     if qkv.device.type == "cpu":
         return levit_window_attention_plain(qkv, bias, num_heads)
     if not qkv.is_cuda:
         raise DlimgError(f"levit_window_attention: unsupported device "
                          f"{qkv.device}")
-    if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
-        qkv = qkv.clone()
+    qkv, bias = kernel_operand(qkv), kernel_operand(bias)
     G, N, _ = qkv.shape
     out = torch.empty((G, N, num_heads * kd), dtype=qkv.dtype,
                       device=qkv.device)
@@ -271,14 +268,13 @@ def _check_relpos(name, q, k, v, bhw, grid_h, grid_w):
                                               for t in tensors):
         raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
                          f"inputs of one dtype")
+    _check_head_dim(name, hd)
+
+
+def _check_head_dim(name, hd):
     if hd not in KERNEL_HEAD_DIMS:
-        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
-                         f"{KERNEL_HEAD_DIMS})")
-    if not all(t.is_contiguous() for t in tensors):
-        raise DlimgError(f"{name}: inputs must be contiguous")
-    if q.dtype == torch.float32 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise DlimgError(f"{name}: the float32 kernel reads q, k, v rows in "
-                         f"16-byte pieces; they must start on 16 bytes")
+        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (the "
+                         f"kernels take multiples of 8 from 8 to 128)")
 
 
 def _check_window_side(name, dtype, grid_h, grid_w):
@@ -301,6 +297,7 @@ def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
         return attention_relpos_plain(q, k, v, bhw, grid_h, grid_w)
     if not q.is_cuda:
         raise DlimgError(f"{name}: unsupported device {q.device}")
+    q, k, v, bhw = (kernel_operand(t) for t in (q, k, v, bhw))
     G, N, hd = q.shape
     out = torch.empty_like(q)
     rc = LIBRARY.get().dlimg_relpos_attention_global(
@@ -339,6 +336,7 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
                                       valid_rows=valid_rows)
     if not q.is_cuda:
         raise DlimgError(f"{name}: unsupported device {q.device}")
+    q, k, v, bhw = (kernel_operand(t) for t in (q, k, v, bhw))
     G, N, hd = q.shape
     _check_window_side(name, q.dtype, grid_h, grid_w)
     g_skip, n_valid = _skip_rows(G, N, grid_h, grid_w, heads, n_w, valid_rows)
@@ -348,7 +346,8 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
         out.data_ptr(), G, N, hd, grid_h, grid_w, int(folded), g_skip,
         n_valid, DTYPE_CODES[str(q.dtype)], float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(name, rc)
+    check_launch(name, rc, f"{G} groups of a {grid_h} x {grid_w} window, "
+                 f"head width {hd}, {q.dtype}")
     relpos_attention_windowed.launches += 1
     return out
 
@@ -457,21 +456,16 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     if str(qkv.dtype) not in DTYPE_CODES or bhw.dtype != qkv.dtype:
         raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
                          f"inputs of one dtype")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
-                         f"{KERNEL_HEAD_DIMS})")
+    _check_head_dim(name, hd)
     _check_window_side(name, qkv.dtype, grid_h, grid_w)
-    if not (qkv.is_contiguous() and bhw.is_contiguous()):
-        raise DlimgError(f"{name}: inputs must be contiguous")
-    if qkv.dtype == torch.float32 and qkv.data_ptr() % 16:
-        raise DlimgError(f"{name}: the float32 kernel reads q, k, v rows in "
-                         f"16-byte pieces; qkv must start on 16 bytes")
+    qkv, bhw = kernel_operand(qkv), kernel_operand(bhw)
     out = torch.empty((W, nh, N, hd), dtype=qkv.dtype, device=qkv.device)
     rc = LIBRARY.get().dlimg_relpos_attention_qkv(
         qkv.data_ptr(), bhw.data_ptr(), out.data_ptr(), W, nh, N, hd, grid_h,
         grid_w, DTYPE_CODES[str(qkv.dtype)], float(hd ** -0.5),
         torch.cuda.current_stream(qkv.device).cuda_stream)
-    check_launch(name, rc)
+    check_launch(name, rc, f"{W} windows of {nh} heads of a {grid_h} x "
+                 f"{grid_w} window, head width {hd}, {qkv.dtype}")
     relpos_attention_qkv.launches += 1
     return out
 
@@ -554,13 +548,8 @@ def windowed_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
     return _from_windows(out, B, Hp, Wp, ws)
 
 
-def _strip_token_stride(name: str, q, k, v, rh, rw, ws: int,
-                        num_heads: int) -> int:
-    """Check the operands of K6 and return the token stride of q, k, v:
-    (B, Hp, Wp, C) views with one set of strides, unit channel stride and
-    dense rows (contiguous, or the channel slices of one (B, Hp, Wp, 3C)
-    qkv tensor, token stride 3C). Any other layout raises: the kernel
-    reads the windows in place and the wrapper never copies them."""
+def _check_strip(name: str, q, k, v, rh, rw, ws: int, num_heads: int) -> int:
+    """Check the shapes of K6's operands and return the head width."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise DlimgError(f"{name}: q, k, v must be (B, Hp, Wp, C) of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -579,14 +568,24 @@ def _strip_token_stride(name: str, q, k, v, rh, rw, ws: int,
                              f"({ws}, {ws}, {hd}) table, got {tuple(t.shape)}")
     if any(t.device != q.device for t in (k, v, rh, rw)):
         raise DlimgError(f"{name}: all inputs must share a device")
+    return hd
+
+
+def _strip_token_stride(q, k, v) -> Optional[int]:
+    """The token stride at which K6 reads q, k, v in place, or None: (B,
+    Hp, Wp, C) views with one set of strides, unit channel stride and dense
+    rows (contiguous, or the channel slices of one (B, Hp, Wp, 3C) qkv
+    tensor, token stride 3C), each starting on 16 bytes, the token stride a
+    multiple of 16 bytes (the kernels' 16-byte loads). The wrapper makes q,
+    k and v dense for any other layout."""
+    B, Hp, Wp, C = q.shape
     st = q.stride()
     ts = st[2]
     if (k.stride() != st or v.stride() != st or st[3] != 1 or ts < C
             or st[1] != Wp * ts or (B > 1 and st[0] != Hp * Wp * ts)):
-        raise DlimgError(f"{name}: q, k, v must share strides with unit "
-                         f"channel stride and dense rows (contiguous, or the "
-                         f"channel slices of one qkv tensor), got strides "
-                         f"{st}, {k.stride()}, {v.stride()}")
+        return None
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or ts * q.element_size() % 16:
+        return None
     return ts
 
 
@@ -600,11 +599,12 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
     q, k, v: (B, Hp, Wp, C) with Hp % ws == Wp % ws == 0 and C = nh * hd,
     typically the three channel slices of the qkv linear's output; rh, rw:
     gathered (ws, ws, hd) tables. Returns (B, Hp, Wp, C), contiguous. CUDA
-    tensors go through K6, which reads q, k, v in place (one launch
-    counted in ``windowed_attention_fused.launches``); CPU tensors through
-    ``windowed_attention_fused_plain``."""
+    tensors go through K6, which reads q, k, v in place where their layout
+    allows (``_strip_token_stride``; else the three are made dense, token
+    stride C), one launch counted in ``windowed_attention_fused.launches``;
+    CPU tensors through ``windowed_attention_fused_plain``."""
     name = "windowed_attention_fused"
-    ts = _strip_token_stride(name, q, k, v, rh, rw, ws, num_heads)
+    hd = _check_strip(name, q, k, v, rh, rw, ws, num_heads)
     if q.device.type == "cpu":
         return windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
                                               num_heads=num_heads)
@@ -615,27 +615,23 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
         raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
                          f"q, k, v of one dtype")
     B, Hp, Wp, C = q.shape
-    hd = C // num_heads
-    if hd not in KERNEL_HEAD_DIMS or ws * ws > STRIP_MAX_TOKENS:
-        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (have "
-                         f"{KERNEL_HEAD_DIMS}) or window {ws} (ws * ws <= "
-                         f"{STRIP_MAX_TOKENS})")
-    if (any(t.data_ptr() % 16 for t in (q, k, v))
-            or ts * q.element_size() % 16):
-        raise DlimgError(f"{name}: the CUDA kernels read q, k, v in 16-byte "
-                         f"chunks: their data and token stride must be "
-                         f"16-byte aligned (float32: ts a multiple of 4)")
-    # The kernels read table rows in 16-byte loads too: a table view that
-    # does not start on 16 bytes is cloned (2 ws^2 hd values).
-    rh_t, rw_t = (t.to(q.dtype).contiguous() for t in (rh, rw))
-    rh_t, rw_t = (t.clone() if t.data_ptr() % 16 else t for t in (rh_t, rw_t))
+    _check_head_dim(name, hd)
+    if ws * ws > STRIP_MAX_TOKENS:
+        raise DlimgError(f"{name}: no CUDA kernel for window {ws} (ws * ws "
+                         f"<= {STRIP_MAX_TOKENS})")
+    ts = _strip_token_stride(q, k, v)
+    if ts is None:
+        q, k, v = (kernel_operand(t) for t in (q, k, v))
+        ts = C
+    rh_t, rw_t = (kernel_operand(t.to(q.dtype)) for t in (rh, rw))
     out = torch.empty((B, Hp, Wp, C), dtype=q.dtype, device=q.device)
     rc = LIBRARY.get().dlimg_window_strip_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh_t.data_ptr(),
         rw_t.data_ptr(), out.data_ptr(), B, Hp, Wp, C, ts, ws, num_heads, hd,
         DTYPE_CODES[str(q.dtype)], float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(name, rc)
+    check_launch(name, rc, f"a ({B}, {Hp}, {Wp}, {C}) grid of {ws} x {ws} "
+                 f"windows, head width {hd}, {q.dtype}")
     windowed_attention_fused.launches += 1
     return out
 

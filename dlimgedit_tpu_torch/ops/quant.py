@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..errors import DlimgError
-from .cuda_build import DTYPE_CODES, LIBRARY, check_launch
+from .cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
 
 # Module names (exact last path segment) eligible for quantisation: the 2-D
 # matmul weights of the attention and MLP blocks. Exact matching, so that a
@@ -93,8 +93,6 @@ def _check_cuda(name: str, tensors, dtype: torch.dtype) -> None:
                          f"not {dtype}")
     if any(t.device != tensors[0].device for t in tensors):
         raise DlimgError(f"{name}: all inputs must share a device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise DlimgError(f"{name}: inputs must be contiguous")
 
 
 def quantize_rows_int8(x: torch.Tensor):
@@ -102,8 +100,9 @@ def quantize_rows_int8(x: torch.Tensor):
     scale float32 (..., 1)), JAX's ``quantize_activations_int8``.
 
     On a CUDA tensor it launches P2 (counted in
-    ``quantize_rows_int8.launches``; C in ``QUANT_ROW_WIDTHS``, x
-    contiguous); on a CPU tensor it runs ``quantize_activations_int8``."""
+    ``quantize_rows_int8.launches``; C in ``QUANT_ROW_WIDTHS``, x through
+    ``kernel_operand``); on a CPU tensor it runs
+    ``quantize_activations_int8``."""
     if x.device.type == "cpu":
         return quantize_activations_int8(x)
     if not x.is_cuda:
@@ -113,6 +112,7 @@ def quantize_rows_int8(x: torch.Tensor):
     if C not in QUANT_ROW_WIDTHS:
         raise DlimgError(f"quantize_rows_int8: no CUDA kernel for width {C} "
                          f"(have {QUANT_ROW_WIDTHS})")
+    x = kernel_operand(x)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
     rc = LIBRARY.get().dlimg_quantize_rows_int8(
@@ -134,8 +134,9 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
     or None -> y (M, N) in ``dtype`` (see ``int8_epilogue_plain``).
 
     On a CUDA tensor it launches P3 (counted in ``int8_epilogue.launches``;
-    N a multiple of 4, acc 16-byte aligned, b cast to ``dtype``); on a CPU
-    tensor it runs ``int8_epilogue_plain``."""
+    N a multiple of 4, b cast to ``dtype``); on a CPU
+    tensor it runs ``int8_epilogue_plain``. Every operand goes through
+    ``kernel_operand``."""
     M, N = acc.shape
     if tuple(x_scale.shape) != (M, 1) or tuple(w_scale.shape) != (N,):
         raise DlimgError(f"int8_epilogue: x_scale {tuple(x_scale.shape)} must "
@@ -154,9 +155,10 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
             or w_scale.dtype != torch.float32):
         raise DlimgError("int8_epilogue: acc must be int32, x_scale and "
                          "w_scale float32")
-    if N % 4 or acc.data_ptr() % 16:
-        raise DlimgError(f"int8_epilogue: N ({N}) must be a multiple of 4 and "
-                         f"acc 16-byte aligned")
+    if N % 4:
+        raise DlimgError(f"int8_epilogue: N ({N}) must be a multiple of 4")
+    acc, x_scale, w_scale = (kernel_operand(t) for t in (acc, x_scale, w_scale))
+    b = None if b is None else kernel_operand(b)
     y = torch.empty((M, N), dtype=dtype, device=acc.device)
     rc = LIBRARY.get().dlimg_int8_epilogue(
         acc.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),

@@ -3,7 +3,7 @@
     python3 -m dlimgedit_tpu_torch.tools.ablate_window_body
 
 Builds the kernel sources again, with parts of the tensor-core window body
-of csrc/relpos_attention_tc.cu compiled out, and times each build's K5, K7
+of csrc/relpos_attention_tc.cuh compiled out, and times each build's K5, K7
 and K6 entry points at ViT-B's and ViT-H's shapes at 1024 (CUDA events
 around back-to-back launches, median of 10 samples):
 
@@ -32,7 +32,7 @@ import torch
 
 from ..ops import cuda_build
 
-# (anchor line in relpos_attention_tc.cu, lines inserted before it)
+# (anchor line in relpos_attention_tc.cuh, lines inserted before it)
 SWITCHES = (
     ("    const int m0 = min(gr, ws - 1), m1 = min(gr + 8, ws - 1);\n",
      "#ifdef ABLATE_PROLOGUE\n"
@@ -58,12 +58,12 @@ def build(work: Path) -> dict:
     """One library per variant, all compiled at once; name -> ctypes CDLL."""
     src = work / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, src)
-    tc = src / "relpos_attention_tc.cu"
+    tc = src / "relpos_attention_tc.cuh"  # the bf16 bodies
     text = tc.read_text()
     for anchor, insert in SWITCHES:
         if text.count(anchor) != 1:
             raise SystemExit(f"ablate_window_body: the line {anchor.strip()!r} "
-                             f"is not in relpos_attention_tc.cu once")
+                             f"is not in relpos_attention_tc.cuh once")
         text = text.replace(anchor, insert + anchor)
     tc.write_text(text)
     nvcc, sources = cuda_build._nvcc(), sorted(map(str, src.glob("*.cu")))

@@ -33,7 +33,7 @@ from typing import Sequence
 import torch
 
 from ..errors import DlimgError
-from ..ops.cuda_build import DTYPE_CODES, LIBRARY, check_launch
+from ..ops.cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
 
 ROWS, LANES = 4096, 128
 # Row chunks per slab: 16 chunks x 8 bf16 slabs = 128 blocks for the
@@ -71,11 +71,10 @@ def smem_gather(table: torch.Tensor, idx: torch.Tensor,
     if not table.is_cuda:
         raise DlimgError(f"{name}: unsupported device {table.device}")
     rows, lanes = table.shape
-    if (str(table.dtype) not in DTYPE_CODES or rows > MAX_ROWS
-            or not (table.is_contiguous() and idx.is_contiguous())):
-        raise DlimgError(f"{name}: the CUDA kernel takes a contiguous float32 "
-                         f"or bfloat16 table of at most {MAX_ROWS} rows and "
-                         f"contiguous indices")
+    if str(table.dtype) not in DTYPE_CODES or rows > MAX_ROWS:
+        raise DlimgError(f"{name}: the CUDA kernel takes a float32 or "
+                         f"bfloat16 table of at most {MAX_ROWS} rows")
+    table, idx = kernel_operand(table), kernel_operand(idx)
     out = torch.empty((rows, lanes), dtype=torch.float32, device=table.device)
     rc = LIBRARY.get().dlimg_gather_probe(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, lanes, reps,

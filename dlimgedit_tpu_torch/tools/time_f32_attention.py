@@ -74,7 +74,7 @@ from ..ops.flash_attention import (
 )
 from .sweep_layer_norm import time_us
 
-F32_SOURCE = "relpos_attention_f32tc.cu"
+F32_SOURCE = "relpos_attention_f32tc.cuh"  # the float32 bodies
 # K4: (heads, grid, head width, launches); K5: (windows, heads, window,
 # head width, n_w, valid_rows, launches): chip_smoke.py's VIT_GLOBAL_SHAPES
 # and VIT_WINDOW_SHAPES with their launches over phase 4's two float32
@@ -115,7 +115,7 @@ P_SHUFFLE = (
     "split(odd ? z1 : z0, ph[2], pl[2]);",
     "split(odd ? w1 : w0, ph[3], pl[3]);",
 )
-# Variant -> [(text in relpos_attention_f32tc.cu, its replacement)] or
+# Variant -> [(text in relpos_attention_f32tc.cuh, its replacement)] or
 # [(source, text, replacement)]; the tool stops if a text is not in its
 # source exactly once.
 VARIANTS = {
@@ -134,10 +134,10 @@ VARIANTS = {
         ("""__global__ void __launch_bounds__(32 * WARPS, 1)
     relpos_global_kernel_f32tc""", """__global__ void __launch_bounds__(32 * WARPS, 2)
     relpos_global_kernel_f32tc"""),
-        ("launch_f32tc<HD, 4, 8>(&relpos_global_kernel_f32tc<HD, 4, 8, HD / 8, true>",
-         "launch_f32tc<HD, 2, 4>(&relpos_global_kernel_f32tc<HD, 2, 4, HD / 8, true>"),
-        ("launch_f32tc<HD, 4, 8>(&relpos_global_kernel_f32tc<HD, 4, 8, HD / 8, false>",
-         "launch_f32tc<HD, 2, 4>(&relpos_global_kernel_f32tc<HD, 2, 4, HD / 8, false>"),
+        ("launch_f32tc<HD, 4, 8>(&relpos_global_kernel_f32tc<HD, 4, 8, OG, true, PAD>",
+         "launch_f32tc<HD, 2, 4>(&relpos_global_kernel_f32tc<HD, 2, 4, OG, true, PAD>"),
+        ("launch_f32tc<HD, 4, 8>(&relpos_global_kernel_f32tc<HD, 4, 8, OG, false, PAD>",
+         "launch_f32tc<HD, 2, 4>(&relpos_global_kernel_f32tc<HD, 2, 4, OG, false, PAD>"),
     ],
     "k6_no_bias": [
         ("    g.compute_bias(bs, bstr, q0, rows, tid, THREADS);\n", ""),

@@ -9,10 +9,14 @@ nor the JAX package, so on a GPU machine without JAX it runs with
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 Tolerances as there: float32 atol 1e-5 (LayerNorm) / 2e-5 (attention),
 bf16 atol 2e-2. K1 runs at every width in both dtypes at row counts that
-its row groups, blocks and waves split unevenly, and refuses (raises, and
-its C entry point returns an error) an input that does not start on 16
-bytes. K3's s must equal the plain x + d bit for bit, and K8
-(the gather probe) its plain version: both sum in the same order.
+its row groups, blocks and waves split unevenly; K1 and K3 also at widths
+without instances of their own (C 1-4100: a masked last chunk, rows wider
+than a warp holds), and on strided views and views that do not start on
+16 bytes, which the wrappers copy (``kernel_operand``) while the C entry
+point still refuses them. K3's s must equal the plain x + d bit for bit,
+and K8 (the gather probe) its plain version: both sum in the same order.
+K4-K7 run at every head width other than 64 and 80 that is a multiple of
+8 up to 128 (the padded instances), and raise at 36 and 136.
 
 K2's large-bias case (bias of scale 4, bf16) fails at 2e-2 if the bias is
 added before the scale (max |diff| ~3) or the biased score is rounded to
@@ -77,7 +81,8 @@ zero), G = 1 and 25 x 16, and on scores of large range (q of scale 4),
 where a single TF32 pass is off by ~4e-3 (tests/test_torch_tf32x3.py
 emulates K2, K4, K5 and K6 on the CPU); K2 at every N from 1 to 256, K6
 with q, k, v as slices and contiguous and with large tables. A float32 q,
-k, v or out (K2: qkv) that does not start on 16 bytes is refused.
+k, v (K2: qkv) that does not start on 16 bytes is copied by the wrapper and
+gives the aligned input's result bit for bit; the C entry points refuse it.
 
 The bf16 K4 on grids whose rows are not 64 keys (C8): a 128 x 128 grid at
 hd 64 (bias rows in shared memory, each key's (y, x) computed from its
@@ -119,7 +124,7 @@ from dlimgedit_tpu_torch.ops.flash_attention import (
     windowed_attention_qkv,
     windowed_attention_qkv_plain,
 )
-from dlimgedit_tpu_torch.ops.cuda_build import DTYPE_CODES, LIBRARY
+from dlimgedit_tpu_torch.ops.cuda_build import DTYPE_CODES, LIBRARY, kernel_operand
 from dlimgedit_tpu_torch.ops.fused_norm import (
     KERNEL_WIDTHS,
     fused_add_layer_norm,
@@ -353,24 +358,46 @@ def test_relpos_f32_global_kernel_bias_halves_in_place(dev, hd):
     torch.testing.assert_close(got, want, atol=TOL[torch.float32][1], rtol=0)
 
 
-def test_relpos_f32_kernels_refuse_unaligned_inputs(dev):
-    """The float32 tensor-core body reads q, k, v rows in 16-byte pieces: a
-    view that starts 4 bytes into its storage is refused, not read."""
-    q, k, v, bhw = _relpos_inputs(dev, 2, 14, 14, 64, torch.float32, 1.0, 16)
-    flat = torch.zeros(q.numel() + 1, device=dev)
-    shifted = flat[1:].view_as(q)
-    shifted.copy_(q)
-    with pytest.raises(DlimgError):
-        relpos_attention_global(shifted, k, v, bhw, 14, 14)
-    with pytest.raises(DlimgError):
-        relpos_attention_windowed(q, shifted, v, bhw, 14, 14, 2, False)
+def _shifted(t, elems=1):
+    """A copy of t as a contiguous view that starts `elems` elements into
+    its storage (4 bytes in float32, 2 in bf16: off 16 bytes)."""
+    flat = torch.zeros(t.numel() + elems, device=t.device, dtype=t.dtype)
+    out = flat[elems:].view_as(t)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
 
 
-def test_relpos_qkv_f32_kernel_refuses_unaligned_input(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relpos_kernels_take_unaligned_inputs(dev, dtype):
+    """K4 and K5 read q, k, v rows in 16-byte pieces: a view that starts 4
+    bytes (bf16: 2) into its storage is copied by ``kernel_operand`` (one
+    copy counted each), the kernel launches, and the result equals the
+    aligned input's bit for bit."""
+    q, k, v, bhw = _relpos_inputs(dev, 2, 14, 14, 64, dtype, 1.0, 16)
+    shifted = _shifted(q)
+    want_g = relpos_attention_global(q, k, v, bhw, 14, 14)
+    want_w = relpos_attention_windowed(q, k, v, bhw, 14, 14, 2, False)
+    copies = kernel_operand.copies
+    launches = (relpos_attention_global.launches,
+                relpos_attention_windowed.launches)
+    got_g = relpos_attention_global(shifted, k, v, bhw, 14, 14)
+    got_w = relpos_attention_windowed(q, _shifted(k), v, bhw, 14, 14, 2, False)
+    torch.cuda.synchronize()
+    assert (relpos_attention_global.launches,
+            relpos_attention_windowed.launches) == (launches[0] + 1,
+                                                    launches[1] + 1)
+    assert kernel_operand.copies == copies + 2
+    torch.testing.assert_close(got_g, want_g, atol=0, rtol=0)
+    torch.testing.assert_close(got_w, want_w, atol=0, rtol=0)
+
+
+def test_relpos_qkv_f32_kernel_takes_unaligned_input(dev):
     """Float32 K7 reads q, k, v rows of its qkv in 16-byte pieces: a qkv
-    view that starts 4 bytes into its storage raises in the wrapper
-    (nothing launched), and the C entry point returns an error instead of
-    reading it."""
+    view that starts 4 bytes into its storage is copied by the wrapper and
+    the kernel launches, equal to the aligned input's result; the C entry
+    point, which the C++ serving library calls without the wrapper, still
+    returns an error instead of reading it."""
     gen = torch.Generator(device=dev).manual_seed(19)
     W, heads, hd, g = 2, 2, 64, 14
     n = g * g
@@ -378,9 +405,11 @@ def test_relpos_qkv_f32_kernel_refuses_unaligned_input(dev):
     qkv = flat[1:].view(W, 3, heads, n, hd)
     bhw = torch.randn((W * heads, n, 2 * g), generator=gen, device=dev)
     before = relpos_attention_qkv.launches
-    with pytest.raises(DlimgError, match="16 bytes"):
-        relpos_attention_qkv(qkv, bhw, g, g)
-    assert relpos_attention_qkv.launches == before
+    got = relpos_attention_qkv(qkv, bhw, g, g)
+    want = relpos_attention_qkv(qkv.clone(), bhw, g, g)
+    torch.cuda.synchronize()
+    assert relpos_attention_qkv.launches == before + 2
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
     out = torch.empty((W, heads, n, hd), device=dev)
     assert LIBRARY.get().dlimg_relpos_attention_qkv(
         qkv.data_ptr(), bhw.data_ptr(), out.data_ptr(), W, heads, n, hd, g, g,
@@ -388,11 +417,13 @@ def test_relpos_qkv_f32_kernel_refuses_unaligned_input(dev):
         torch.cuda.current_stream().cuda_stream) != 0
 
 
-def test_levit_and_window_strip_f32_kernels_refuse_unaligned_inputs(dev):
-    """Float32 K2 and K6 read their operands in 16-byte pieces: a view that
-    starts 4 bytes into its storage raises in the wrapper (nothing
-    launched), and the C entry points, which the C++ serving library calls
-    without the wrappers' checks, return an error instead of reading it."""
+def test_levit_and_window_strip_f32_kernels_take_unaligned_inputs(dev):
+    """Float32 K2 and K6 read their operands in 16-byte pieces: on a view
+    that starts 4 bytes into its storage the wrapper copies (K6: q, k and
+    v made dense, token stride C) and the kernel launches, equal to the
+    aligned input's result; the C entry points, which the C++ serving
+    library calls without the wrappers, still return an error instead of
+    reading it."""
     g = torch.Generator(device=dev).manual_seed(18)
     stream = torch.cuda.current_stream().cuda_stream
     G, N, nh = 2, 49, 2
@@ -400,9 +431,11 @@ def test_levit_and_window_strip_f32_kernels_refuse_unaligned_inputs(dev):
     qkv = flat[1:].view(G, N, nh * 96)
     bias = torch.randn((nh, N, N), generator=g, device=dev)
     before = levit_window_attention.launches
-    with pytest.raises(DlimgError, match="16 bytes"):
-        levit_window_attention(qkv, bias, nh)
-    assert levit_window_attention.launches == before
+    got = levit_window_attention(qkv, bias, nh)
+    want = levit_window_attention(qkv.clone(), bias, nh)
+    torch.cuda.synchronize()
+    assert levit_window_attention.launches == before + 2
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
     out = torch.empty((G, N, nh * 32), device=dev)
     assert LIBRARY.get().dlimg_levit_attention(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), G, N, nh, 32,
@@ -416,9 +449,14 @@ def test_levit_and_window_strip_f32_kernels_refuse_unaligned_inputs(dev):
     rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=g, device=dev)
               for _ in range(2))
     before = windowed_attention_fused.launches
-    with pytest.raises(DlimgError, match="16-byte"):
-        windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
-    assert windowed_attention_fused.launches == before
+    got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    aligned = qkv.clone()
+    want = windowed_attention_fused(aligned[..., :C], aligned[..., C:2 * C],
+                                    aligned[..., 2 * C:], rh, rw, ws=ws,
+                                    num_heads=heads)
+    torch.cuda.synchronize()
+    assert windowed_attention_fused.launches == before + 2
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
     out = torch.empty((B, grid, grid, C), device=dev)
     assert LIBRARY.get().dlimg_window_strip_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
@@ -475,34 +513,43 @@ def test_wide_bf16_windows_route_to_the_global_kernel(dev, hd):
 
 
 def test_kernels_raise_instead_of_falling_back(dev):
-    x = torch.zeros(4, 96, device=dev)  # no kernel for C = 96
-    with pytest.raises(DlimgError):
-        fused_layer_norm(x, torch.ones(96, device=dev), torch.zeros(96, device=dev))
-    qkv = torch.zeros(2, 49, 4 * 3 * 16, device=dev)  # head width 16
+    """What no kernel takes raises on the card (no plain version there):
+    float16, K2 at kd 16, and K4 / K5 / K7 / K6 at head widths 36 (not a
+    multiple of 8) and 136 (above 128)."""
+    qkv = torch.zeros(2, 49, 4 * 3 * 16, device=dev)  # kd 16: no K2
     with pytest.raises(DlimgError):
         levit_window_attention(qkv, torch.zeros(4, 49, 49, device=dev), 4)
     x = torch.zeros(4, 128, device=dev, dtype=torch.float16)
     with pytest.raises(DlimgError):
         fused_layer_norm(x, torch.ones(128, device=dev, dtype=torch.float16),
                          torch.zeros(128, device=dev, dtype=torch.float16))
-    x = torch.zeros(4, 96, device=dev)
     with pytest.raises(DlimgError):
-        fused_add_layer_norm(x, x, torch.ones(96, device=dev),
-                             torch.zeros(96, device=dev))
-    q = torch.zeros(2, 49, 32, device=dev)  # head width 32: no K4 / K5
-    bhw = torch.zeros(2, 49, 14, device=dev)
-    with pytest.raises(DlimgError):
-        relpos_attention_global(q, q, q, bhw, 7, 7)
-    with pytest.raises(DlimgError):
-        relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)
+        fused_add_layer_norm(x, x, torch.ones(128, device=dev, dtype=torch.float16),
+                             torch.zeros(128, device=dev, dtype=torch.float16))
+    for hd in (36, 136):
+        q = torch.zeros(2, 49, hd, device=dev)
+        bhw = torch.zeros(2, 49, 14, device=dev)
+        with pytest.raises(DlimgError):
+            relpos_attention_global(q, q, q, bhw, 7, 7)
+        with pytest.raises(DlimgError):
+            relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)
+        with pytest.raises(DlimgError):
+            relpos_attention_qkv(torch.zeros(1, 3, 2, 49, hd, device=dev), bhw,
+                                 7, 7)
+        x = torch.zeros(1, 7, 7, 2 * hd, device=dev)
+        with pytest.raises(DlimgError):
+            windowed_attention_fused(x, x, x, torch.zeros(7, 7, hd, device=dev),
+                                     torch.zeros(7, 7, hd, device=dev), ws=7,
+                                     num_heads=2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_layer_norm_refuses_misaligned_inputs(dev, dtype):
+def test_fused_layer_norm_takes_misaligned_inputs(dev, dtype):
     """K1 moves 16 bytes a lane: a contiguous view 8 bytes off a 16-byte
-    boundary raises in the wrapper, and the C entry point, which the C++
-    serving library calls without the wrapper's checks, refuses it too
-    (cudaErrorInvalidValue) instead of faulting."""
+    boundary (x, then scale) is copied by the wrapper and the kernel
+    launches, equal to the aligned input's result bit for bit; the C entry
+    point, which the C++ serving library calls without the wrapper, still
+    refuses it (cudaErrorInvalidValue) instead of faulting."""
     C, rows = 128, 4
     skip = 8 // torch.empty((), dtype=dtype).element_size()
     base = torch.randn(rows * C + 16, device=dev).to(dtype)
@@ -511,11 +558,17 @@ def test_fused_layer_norm_refuses_misaligned_inputs(dev, dtype):
     scale = torch.ones(C, device=dev, dtype=dtype)
     bias = torch.zeros(C, device=dev, dtype=dtype)
     before = fused_layer_norm.launches
-    with pytest.raises(DlimgError, match="16-byte"):
-        fused_layer_norm(x, scale, bias)
-    with pytest.raises(DlimgError, match="16-byte"):
-        fused_layer_norm(base[:rows * C].view(rows, C), base[skip:skip + C], bias)
-    assert fused_layer_norm.launches == before
+    got = fused_layer_norm(x, scale, bias)
+    got_scale = fused_layer_norm(base[:rows * C].view(rows, C),
+                                 base[skip:skip + C], bias)
+    torch.cuda.synchronize()
+    assert fused_layer_norm.launches == before + 2
+    torch.testing.assert_close(got, fused_layer_norm(x.clone(), scale, bias),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(
+        got_scale, fused_layer_norm(base[:rows * C].view(rows, C).clone(),
+                                    base[skip:skip + C].clone(), bias),
+        atol=0, rtol=0)
     out = torch.empty((rows, C), device=dev, dtype=dtype)
     rc = LIBRARY.get().dlimg_layer_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), rows,
@@ -526,6 +579,135 @@ def test_fused_layer_norm_refuses_misaligned_inputs(dev, dtype):
     torch.testing.assert_close(fused_layer_norm(aligned, scale, bias).float(),
                                layer_norm_plain(aligned, scale, bias, 1e-6).float(),
                                atol=TOL[dtype][0], rtol=0)
+
+
+# C10: K1 and K3 at widths without instances of their own: a masked last
+# chunk (C 1, 3, 96, 200: lanes 4-32), rows too wide for a warp's registers
+# (1536, 2050 in both dtypes, 4100), and 384 (float32 on 32 lanes, bf16 on
+# 8), at row counts that fill no row group, the sp shards' 1372, and 4097.
+ANY_WIDTHS = (1, 3, 96, 200, 384, 1536, 2050, 4100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", ANY_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 7, 1372, 4097])
+def test_layer_norm_kernels_any_width(dev, C, rows, dtype):
+    """K1 and K3 against their plain versions on the CPU (the function the
+    CPU tests hold against JAX): at C = 3 a row's one-pass variance can be
+    ~1e-3 of its mean square, so the order of the 3-term sums (the CPU's and
+    the kernel's are sequential; a CUDA reduction's need not be) moves the
+    output by up to 6e-5. K3's s equals x + d bit for bit and its LN(s)
+    equals K1 on that s bit for bit (one body)."""
+    g = torch.Generator(device=dev).manual_seed(C + rows)
+    x, d = (torch.randn((rows, C), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    scale = (0.25 + 0.5 * torch.rand(C, generator=g, device=dev)).to(dtype)
+    bias = (0.5 * torch.rand(C, generator=g, device=dev) - 0.25).to(dtype)
+    before = (fused_layer_norm.launches, fused_add_layer_norm.launches)
+    y = fused_layer_norm(x, scale, bias, 1e-6)
+    s, ys = fused_add_layer_norm(x, d, scale, bias, 1e-6)
+    y_of_s = fused_layer_norm(s, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm.launches,
+            fused_add_layer_norm.launches) == (before[0] + 2, before[1] + 1)
+    x, d, scale, bias = (t.cpu() for t in (x, d, scale, bias))
+    torch.testing.assert_close(y.cpu().float(),
+                               layer_norm_plain(x, scale, bias, 1e-6).float(),
+                               atol=TOL[dtype][0], rtol=0)
+    want_s, want_y = fused_add_layer_norm_plain(x, d, scale, bias, 1e-6)
+    torch.testing.assert_close(s.cpu(), want_s, atol=0, rtol=0)
+    torch.testing.assert_close(ys.cpu().float(), want_y.float(),
+                               atol=TOL[dtype][0], rtol=0)
+    torch.testing.assert_close(ys, y_of_s, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [96, 200, 768])
+def test_layer_norm_kernels_take_any_view(dev, C, dtype):
+    """A strided view (every other row) and a view off 16 bytes go through
+    ``kernel_operand`` (a copy each), and K1 / K3 give what the dense
+    aligned copies give, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(C)
+    big = torch.randn((2 * 37, C + 1), generator=g, device=dev).to(dtype)
+    strided = big[::2, :C]
+    assert not strided.is_contiguous()
+    off = _shifted(torch.randn((37, C), generator=g, device=dev).to(dtype))
+    scale = (0.25 + 0.5 * torch.rand(C, generator=g, device=dev)).to(dtype)
+    bias = (0.5 * torch.rand(C, generator=g, device=dev) - 0.25).to(dtype)
+    for x in (strided, off):
+        copies = kernel_operand.copies
+        y = fused_layer_norm(x, scale, bias)
+        s, ys = fused_add_layer_norm(x, off, scale, bias)
+        torch.cuda.synchronize()
+        assert kernel_operand.copies > copies
+        dense = x.contiguous().clone()
+        torch.testing.assert_close(y, fused_layer_norm(dense, scale, bias),
+                                   atol=0, rtol=0)
+        want_s, want_y = fused_add_layer_norm(dense, off.clone(), scale, bias)
+        torch.testing.assert_close(s, want_s, atol=0, rtol=0)
+        torch.testing.assert_close(ys, want_y, atol=0, rtol=0)
+
+
+# C11: every head width the kernels take other than 64 and 80 (the padded
+# instances at 32, 96 and 128).
+PAD_HEAD_DIMS = [hd for hd in range(8, 129, 8) if hd not in (64, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", PAD_HEAD_DIMS)
+def test_relpos_kernels_every_head_width(dev, hd, dtype):
+    """K4 (a 20 x 20 grid, and a 64 x 64 one whose key tiles are grid
+    rows), K5 (14 x 14 windows, the folded bias where hd + 28 <= 128, the
+    pad-query skip; 16 x 16 windows, 256-key rows), K7 and K6 at head
+    width hd, each against its plain version."""
+    tol = TOL[dtype][1]
+    for G, grid in ((2, 20), (1, 64)):
+        q, k, v, bhw = _relpos_inputs(dev, G, grid, grid, hd, dtype, 1.0, hd)
+        before = relpos_attention_global.launches
+        got = relpos_attention_global(q, k, v, bhw, grid, grid)
+        torch.cuda.synchronize()
+        assert relpos_attention_global.launches == before + 1
+        want = attention_relpos_plain(q, k, v, bhw, grid, grid)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    for W, heads, ws, n_w, valid_rows in ((4, 3, 14, 2, 5), (2, 2, 16, None, None)):
+        folded = hd + 2 * ws <= 128
+        q, k, v, bhw = _relpos_inputs(dev, W * heads, ws, ws, hd, dtype,
+                                      1.0 / hd ** -0.5 if folded else 1.0, hd + 1)
+        before = relpos_attention_windowed.launches
+        got = relpos_attention_windowed(q, k, v, bhw, ws, ws, heads, folded,
+                                        n_w, valid_rows)
+        torch.cuda.synchronize()
+        assert relpos_attention_windowed.launches == before + 1
+        want = attention_relpos_plain(q, k, v, bhw, ws, ws, folded=folded,
+                                      heads=heads, n_w=n_w,
+                                      valid_rows=valid_rows)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+        if n_w:
+            assert not got[-n_w * heads:, valid_rows * ws:].any()
+    gen = torch.Generator(device=dev).manual_seed(hd + 2)
+    W, heads, ws = 3, 2, 14
+    qkv = torch.randn((W, 3, heads, ws * ws, hd), generator=gen, device=dev).to(dtype)
+    bhw = torch.randn((W * heads, ws * ws, 2 * ws), generator=gen, device=dev).to(dtype)
+    before = relpos_attention_qkv.launches
+    got = relpos_attention_qkv(qkv, bhw, ws, ws)
+    torch.cuda.synchronize()
+    assert relpos_attention_qkv.launches == before + 1
+    want = windowed_attention_qkv_plain(qkv, bhw, ws, ws)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    B, grid, heads, ws = 1, 28, 3, 14
+    C = heads * hd
+    qkv = torch.randn((B, grid, grid, 3 * C), generator=gen, device=dev).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+              for _ in range(2))
+    before = windowed_attention_fused.launches
+    got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+    torch.cuda.synchronize()
+    assert windowed_attention_fused.launches == before + 1
+    want = windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                          num_heads=heads)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -673,12 +855,12 @@ def test_smem_gather_kernel_ragged_shapes(dev, rows, lanes, dtype):
 
 
 def test_new_kernels_raise_instead_of_falling_back(dev):
-    x = torch.zeros(1, 28, 28, 3 * 96, device=dev)  # head width 48: no K6
-    q, k, v = x[..., :96], x[..., 96:192], x[..., 192:]
-    rh = torch.zeros(14, 14, 48, device=dev)
+    x = torch.zeros(1, 28, 28, 3 * 72, device=dev)  # head width 36: no K6
+    q, k, v = x[..., :72], x[..., 72:144], x[..., 144:]
+    rh = torch.zeros(14, 14, 36, device=dev)
     with pytest.raises(DlimgError):
         windowed_attention_fused(q, k, v, rh, rh, ws=14, num_heads=2)
-    qkv = torch.zeros(2, 3, 2, 49, 32, device=dev)  # head width 32: no K7
+    qkv = torch.zeros(2, 3, 2, 49, 136, device=dev)  # head width 136: no K7
     with pytest.raises(DlimgError):
         relpos_attention_qkv(qkv, torch.zeros(4, 49, 14, device=dev), 7, 7)
     # bf16 windows with a side above 16 (the tensor-core body's bias

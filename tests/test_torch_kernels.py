@@ -19,6 +19,7 @@ from dlimgedit_tpu.ops.flash_attention import (
 )
 from dlimgedit_tpu.ops.fused_norm import fused_layer_norm as jax_fused_layer_norm
 from dlimgedit_tpu_torch.errors import DlimgError
+from dlimgedit_tpu_torch.ops.cuda_build import kernel_operand
 from dlimgedit_tpu_torch.ops.flash_attention import (
     levit_window_attention,
     levit_window_attention_plain,
@@ -30,6 +31,10 @@ from dlimgedit_tpu_torch.ops.fused_norm import (
 )
 
 torch.set_num_threads(2)
+
+# Widths without an instance of their own (csrc/fused_layer_norm.cu's
+# width-generic bodies on the card).
+ANY_WIDTHS = (1, 3, 96, 200, 384, 1536, 2050)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -56,8 +61,11 @@ def _f32(x) -> np.ndarray:
     ((1, 4, 4, 256), 1e-6),   # neck, NHWC
 ] + [
     # ragged row counts, which the CUDA kernel's row groups and blocks split
-    # unevenly, at every width it has
-    ((rows, C), 1e-6) for C in KERNEL_WIDTHS for rows in (1, 3, 37, 197)
+    # unevenly, at every width with an instance of its own and at widths
+    # the width-generic bodies take (a masked last chunk; rows wider than a
+    # warp's registers hold)
+    ((rows, C), 1e-6) for C in KERNEL_WIDTHS + ANY_WIDTHS
+    for rows in (1, 3, 37, 197)
 ])
 def test_fused_layer_norm_matches_pallas(shape, eps, dtype):
     rng = np.random.default_rng(0)
@@ -131,3 +139,27 @@ def test_levit_window_attention_rejects_bad_shapes(case):
         qkv = torch.zeros(98, 384)
     with pytest.raises(DlimgError):
         levit_window_attention(qkv, bias, nh)
+
+
+@pytest.mark.parametrize("case", ["strided", "offset", "aligned"])
+def test_kernel_operand_layout_rule(case):
+    """The one layout rule of every wrapper (ops/cuda_build.py): a strided
+    view comes back dense, a contiguous view off 16 bytes as a copy on 16
+    bytes, each counted as one copy; a dense aligned tensor comes back as
+    the same object, no copy counted. The values never change."""
+    base = torch.arange(2 * 64 * 33, dtype=torch.float32).reshape(2 * 64, 33)
+    assert base.data_ptr() % 16 == 0
+    t = {"strided": base[::2, :32],
+         "offset": base.view(-1)[1:1 + 64 * 32].view(64, 32),
+         "aligned": base}[case]
+    assert (t.data_ptr() % 16 != 0) == (case == "offset")
+    copies = kernel_operand.copies
+    got = kernel_operand(t)
+    if case == "aligned":
+        assert got is t
+        assert kernel_operand.copies == copies
+    else:
+        assert got is not t
+        assert kernel_operand.copies == copies + 1
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    torch.testing.assert_close(got, t, atol=0, rtol=0)

@@ -22,7 +22,10 @@ exceeds that tolerance on scores of large range (q of scale 4), so the
 card's check against the plain version catches such a shortcut. The
 emulation rounds its float32 sums; the tensor cores truncate theirs, which
 the kernel's note deals with (K4's p . v of each chunk accumulates from
-zero) and only the card tests can check.
+zero) and only the card tests can check. The padded instances (head
+widths other than 64 and 80, computed at 32, 96 or 128 with zero columns)
+are emulated too: with each product summed term by term in order, the
+padded arithmetic equals the true width's bit for bit.
 """
 
 import jax.numpy as jnp
@@ -30,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from dlimgedit_tpu.ops.flash_attention import (
+    flash_attention_relpos as jax_flash_attention_relpos,
+)
 from dlimgedit_tpu.ops.flash_attention import (
     levit_window_attention as jax_levit_window_attention,
 )
@@ -79,7 +85,26 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
-def online_tf32(q, k, v, score, *, passes, chunk):
+def product_in_order(a: torch.Tensor, b: torch.Tensor, passes: int = 3
+                     ) -> torch.Tensor:
+    """``product`` with each pass's sum taken term by term in the order of
+    the contraction index (one float32 rounding a term), so that its bits
+    do not depend on how a library blocks a product: zero terms appended to
+    the contraction (a padded head width) leave every sum as it was."""
+    ah, al = split(a)
+    bh, bl = split(b)
+
+    def in_order(x, y):
+        acc = torch.zeros(x.shape[:-1] + y.shape[-1:])
+        for t in range(x.shape[-1]):
+            acc = acc + x[..., t:t + 1] * y[..., t:t + 1, :]
+        return acc
+    if passes == 1:
+        return in_order(ah, bh)
+    return in_order(al, bh) + in_order(ah, bl) + in_order(ah, bh)
+
+
+def online_tf32(q, k, v, score, *, passes, chunk, prod=product):
     """The online-softmax body of K4, K5 and K6: chunks of `chunk` keys,
     score(qk, k0, k1) the scores of keys k0 .. k1 - 1 from their products,
     the row constant m log2 e."""
@@ -89,20 +114,23 @@ def online_tf32(q, k, v, score, *, passes, chunk):
     o = torch.zeros((*lead, N, hd))
     for k0 in range(0, N, chunk):
         k1 = min(k0 + chunk, N)
-        s = score(product(q, k[..., k0:k1, :].transpose(-1, -2), passes), k0, k1)
+        s = score(prod(q, k[..., k0:k1, :].transpose(-1, -2), passes), k0, k1)
         cn = torch.maximum(cl, s.amax(-1, keepdim=True) * LOG2E)
         alpha = torch.exp2(cl - cn)
         p = torch.exp2(s * LOG2E - cn)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + product(p, v[..., k0:k1, :], passes)
+        o = o * alpha + prod(p, v[..., k0:k1, :], passes)
         cl = cn
     return o / l
 
 
-def attention_tf32(q, k, v, bhw, gh, gw, *, folded, passes, chunk):
-    """K4 / K5's arithmetic: scores in the plain version's order."""
+def attention_tf32(q, k, v, bhw, gh, gw, *, folded, passes, chunk,
+                   prod=product, scale=None):
+    """K4 / K5's arithmetic: scores in the plain version's order; the
+    scale hd^-1/2 of q's width unless given (a padded width's is the true
+    hd's)."""
     N, hd = q.shape[1:]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     tok = torch.arange(N)
     b = bhw.float()
     bias = b[:, :, :gh][:, :, tok // gw] + b[:, :, gh:][:, :, tok % gw]
@@ -110,7 +138,7 @@ def attention_tf32(q, k, v, bhw, gh, gw, *, folded, passes, chunk):
     def score(qk, k0, k1):
         bt = bias[:, :, k0:k1]
         return (qk + bt) * scale if folded else qk * scale + bt
-    return online_tf32(q, k, v, score, passes=passes, chunk=chunk)
+    return online_tf32(q, k, v, score, passes=passes, chunk=chunk, prod=prod)
 
 
 def window_strip_tf32(q, k, v, rh, rw, *, ws, num_heads, passes,
@@ -334,3 +362,51 @@ def test_levit_one_tf32_pass_exceeds_the_tolerance(N):
     got = levit_tf32(tq, tb, nh, passes=1)
     plain = levit_window_attention_plain(tq, tb, nh)
     assert (got - plain).abs().max().item() > ATOL
+
+
+# A padded instance of the float32 K4 / K5 / K6 / K7 (csrc/relpos_attention_
+# f32tc.cuh, PAD) computes at width 32, 96 or 128 on rows of hd dims, the
+# columns past hd zeros: (true hd, padded width).
+PADDED = [(8, 32), (24, 32), (32, 32), (48, 96), (88, 96), (96, 96),
+          (104, 128)]
+
+
+@pytest.mark.parametrize("route", ["windowed", "global"])
+@pytest.mark.parametrize("hd,width", PADDED)
+def test_padded_width_tf32_equals_true_width_and_matches_pallas(hd, width,
+                                                                route):
+    """The three-pass arithmetic at the padded width (q, k, v with zero
+    columns up to `width`, the true hd's scale, the output's first hd
+    columns) equals the true-width arithmetic bit for bit, the products
+    summed term by term in order: the TF32 split of a zero is zero, and a
+    zero term leaves a float32 sum as it was. Both match JAX's
+    `flash_attention_relpos` in interpret mode within 2e-5: K5 (two heads of
+    7 x 7 windows, 40-key chunks, folded where hd + 14 <= 128, as JAX routes
+    it) and K4 (a 9 x 11 grid, 32-key chunks, the plain bias)."""
+    if route == "windowed":
+        G, gh, gw, heads, chunk = 2 * 2, 7, 7, 2, K5_CHUNK
+        folded = hd + gh + gw <= 128
+    else:
+        G, gh, gw, heads, chunk, folded = 2, 9, 11, None, K4_CHUNK, False
+    rng = np.random.default_rng(hd + width)
+    N = gh * gw
+    q, k, v = (rng.standard_normal((G, N, hd), dtype=np.float32)
+               for _ in range(3))
+    rh = (0.3 * rng.standard_normal((gh, gh, hd))).astype(np.float32)
+    rw = (0.3 * rng.standard_normal((gw, gw, hd))).astype(np.float32)
+    tq, tk, tv, trh, trw = (torch.from_numpy(a) for a in (q, k, v, rh, rw))
+    scale = hd ** -0.5
+    bhw = _bias_halves(tq, trh, trw, gh, gw,
+                       out_scale=1.0 / scale if folded else 1.0)
+    true = attention_tf32(tq, tk, tv, bhw, gh, gw, folded=folded, passes=3,
+                          chunk=chunk, prod=product_in_order)
+    pad = [torch.nn.functional.pad(t, (0, width - hd)) for t in (tq, tk, tv)]
+    padded = attention_tf32(*pad, bhw, gh, gw, folded=folded, passes=3,
+                            chunk=chunk, prod=product_in_order, scale=scale)
+    assert not padded[..., hd:].any()
+    assert torch.equal(padded[..., :hd], true)
+    want = jax_flash_attention_relpos(
+        *(jnp.asarray(a) for a in (q, k, v, rh, rw)), grid_h=gh, grid_w=gw,
+        heads=heads, interpret=True)
+    np.testing.assert_allclose(true.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

@@ -1,6 +1,7 @@
 """The port's SAM ViT kernel modules against the JAX package's Pallas
 kernels, run in interpret mode on the CPU: K1 at the ViT widths, K3
-(residual add + LayerNorm), and the rel-pos attention router
+(residual add + LayerNorm, also at widths without a card instance of their
+own), and the rel-pos attention router (also at head widths 8-128)
 ``flash_attention_relpos`` with its two kernels' plain versions (K5:
 windowed, folded and unfolded bias, pad-query skip; K4: grouped, at N = 400
 and N = 1024, the two JAX query blockings). On CPU tensors the wrappers
@@ -90,7 +91,9 @@ def test_fused_layer_norm_vit_widths_match_pallas(C, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1, 4, 6, 768), (37, 1024), (3, 5, 1280)])
+@pytest.mark.parametrize("shape", [(1, 4, 6, 768), (37, 1024), (3, 5, 1280)] + [
+    # widths the width-generic bodies take on the card, at ragged row counts
+    (rows, C) for C in (1, 3, 96, 200, 384, 1536, 2050) for rows in (1, 3, 37, 197)])
 def test_fused_add_layer_norm_matches_pallas(shape, dtype):
     x, d, scale, bias = _ln_inputs(shape, 1)
     (jx, tx), (jd, td), (js, ts), (jb, tb) = (
@@ -160,6 +163,36 @@ def test_flash_attention_relpos_matches_pallas(case, dtype):
                                  heads=heads, n_w=n_w, valid_rows=valid_rows)
     assert (relpos_attention_global.launches,
             relpos_attention_windowed.launches) == launches
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATTN_ATOL[dtype],
+                               rtol=0)
+
+
+# Head widths other than the ViTs' 64 and 80, which the card runs on the
+# padded instances (32, 96 and 128) of K4 and K5.
+PAD_HEAD_DIMS = (8, 16, 32, 48, 96, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["windowed", "global"])
+@pytest.mark.parametrize("hd", PAD_HEAD_DIMS)
+def test_flash_attention_relpos_head_widths_match_pallas(hd, route, dtype):
+    """K5 (3 x 2 windows of 7 x 7 with 2 heads, the bottom window row
+    skipped below row 4; folded where hd + 14 <= 128) and K4 (a 10 x 12
+    grid) at head width hd, through ``flash_attention_relpos``."""
+    if route == "windowed":
+        G, gh, gw, heads, n_w, valid_rows = 6 * 2, 7, 7, 2, 2, 4
+    else:
+        G, gh, gw, heads, n_w, valid_rows = 2, 10, 12, None, None, None
+    arrays = _attn_inputs(G, gh, gw, hd, seed=hd)
+    (jq, tq), (jk, tk), (jv, tv), (jrh, trh), (jrw, trw) = (
+        _pair(a, dtype) for a in arrays)
+    want = jax_flash_attention_relpos(jq, jk, jv, jrh, jrw, grid_h=gh,
+                                      grid_w=gw, heads=heads, interpret=True,
+                                      n_w=n_w, valid_rows=valid_rows)
+    assert relpos_route(tq.dtype, G, gh, gw, heads) == route
+    got = flash_attention_relpos(tq, tk, tv, trh, trw, grid_h=gh, grid_w=gw,
+                                 heads=heads, n_w=n_w, valid_rows=valid_rows)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(_f32(got), _f32(want), atol=ATTN_ATOL[dtype],
                                rtol=0)

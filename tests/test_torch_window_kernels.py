@@ -6,12 +6,13 @@ all inputs from numpy seeds:
     a (2, 8, 12) padded grid, with 2 heads of 16 and 4 heads of 64 (JAX's
     ``_head_group`` then splits the channels into two strips), and at SAM's
     own window, one 14 x 14 window with 1 or 2 heads of 64 (the window the
-    bf16 kernel tiles by 16-row stripes); q, k and v passed as the channel
+    bf16 kernel tiles by 16-row stripes), and at the head widths of the
+    card's padded instances (8-128, ws 4); q, k and v passed as the channel
     slices of one qkv tensor;
   * K7 ``windowed_attention_qkv`` against JAX ``windowed_attention_qkv(...,
     interpret=True)`` at the shapes of JAX's
-    ``test_combined_qkv_kernel_matches_dense`` and at a 14 x 14 window of
-    2 heads of 64;
+    ``test_combined_qkv_kernel_matches_dense``, at a 14 x 14 window of
+    2 heads of 64, and at the padded instances' head widths;
   * K8 ``smem_gather`` (the gather probe) against a numpy transcription of
     tools/probe_vmem_gather.py ``gather_kernel`` (the JAX tool has no
     interpret switch), bit for bit: both sum in the same order.
@@ -79,6 +80,11 @@ STRIP_CASES = {"2x16": (2, 8, 12, 2, 16, 4),
                "4x64_two_strips": (2, 8, 12, 4, 64, 4),
                "1x64_ws14": (1, 14, 14, 1, 64, 14),
                "2x64_ws14": (1, 14, 14, 2, 64, 14)}
+# Head widths other than the ViTs' 64 and 80, which the card runs on the
+# padded instances (32, 96 and 128) of K6 and K7.
+PAD_HEAD_DIMS = (8, 16, 32, 48, 96, 128)
+STRIP_CASES.update({f"2x{hd}_pad": (1, 8, 8, 2, hd, 4) for hd in PAD_HEAD_DIMS
+                    if hd != 16})
 
 
 def _strip_inputs(B, Hp, Wp, heads, hd, ws, seed):
@@ -134,11 +140,17 @@ def test_windowed_attention_fused_plain_matches_dense_reference():
 @pytest.mark.parametrize("case", ["grid", "heads", "table", "strides",
                                   "shapes"])
 def test_windowed_attention_fused_rejects_bad_operands(case):
+    """Shapes that do not fit are refused. Strides are not a shape: q, k, v
+    with different strides (case "strides") are taken as JAX takes any
+    array, and give what the same values give contiguous."""
     B, Hp, Wp, heads, hd, ws = 1, 8, 8, 2, 16, 4
     C = heads * hd
-    qkv = torch.zeros(B, Hp, Wp, 3 * C)
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(rng.standard_normal((B, Hp, Wp, 3 * C),
+                                               dtype=np.float32))
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    rh = rw = torch.zeros(ws, ws, hd)
+    rh = rw = torch.from_numpy(rng.standard_normal((ws, ws, hd),
+                                                   dtype=np.float32))
     if case == "grid":
         ws = 3
         rh = rw = torch.zeros(ws, ws, hd)
@@ -148,6 +160,11 @@ def test_windowed_attention_fused_rejects_bad_operands(case):
         rw = torch.zeros(2 * ws - 1, hd)  # raw, not gathered
     elif case == "strides":
         k = k.contiguous()  # q, v keep the qkv slices' strides
+        got = windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads)
+        want = windowed_attention_fused(q.contiguous(), k, v.contiguous(), rh,
+                                        rw, ws=ws, num_heads=heads)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        return
     else:
         v = v[:, :, :4]
     with pytest.raises(DlimgError):
@@ -155,16 +172,19 @@ def test_windowed_attention_fused_rejects_bad_operands(case):
 
 
 def test_windowed_attention_fused_takes_transposed_views_only_as_slices():
-    """A permuted view (channel stride != 1) is refused: the kernel reads in
-    place and the wrapper never copies; the same data made contiguous is
-    taken."""
-    x = torch.zeros(1, 16, 8, 8).permute(0, 2, 3, 1)  # (1, 8, 8, 16)
-    rh = torch.zeros(4, 4, 8)
-    with pytest.raises(DlimgError):
-        windowed_attention_fused(x, x, x, rh, rh, ws=4, num_heads=2)
+    """A permuted view (channel stride != 1) is taken, as any view: on the
+    card the wrapper makes q, k, v dense (the kernel reads in place only
+    slices with unit channel stride), and the result equals that of the
+    same data made contiguous."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8), dtype=np.float32)
+                         ).permute(0, 2, 3, 1)  # (1, 8, 8, 16)
+    rh = torch.from_numpy(rng.standard_normal((4, 4, 8), dtype=np.float32))
+    out = windowed_attention_fused(x, x, x, rh, rh, ws=4, num_heads=2)
     y = x.contiguous()
-    out = windowed_attention_fused(y, y, y, rh, rh, ws=4, num_heads=2)
+    want = windowed_attention_fused(y, y, y, rh, rh, ws=4, num_heads=2)
     assert out.shape == (1, 8, 8, 16)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
 
 
 def _check_qkv_against_pallas(windows, gh, gw, hd, heads, dtype, seed):
@@ -188,6 +208,14 @@ def _check_qkv_against_pallas(windows, gh, gw, hd, heads, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_windowed_attention_qkv_matches_pallas(dtype):
     _check_qkv_against_pallas(3, 5, 5, 16, 2, dtype, seed=7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", PAD_HEAD_DIMS)
+def test_windowed_attention_qkv_head_widths_match_pallas(hd, dtype):
+    """K7 at the head widths of the padded instances: 2 windows of 5 x 5,
+    2 heads."""
+    _check_qkv_against_pallas(2, 5, 5, hd, 2, dtype, seed=hd)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
