@@ -12,11 +12,15 @@ and K2 at the bands' rows and windows):
 
   K1 fused_layer_norm, K3 fused_add_layer_norm   fused_layer_norm.cu
   K2 levit_window_attention                      levit_attention_tc.cu (bf16,
-                                                 tensor cores), levit_attention_f32tc.cu
+                                                 tensor cores; float16
+                                                 levit_attention_tc_f16.cu),
+                                                 levit_attention_f32tc.cu
                                                  (float32, tensor cores, three
                                                  TF32 passes)
   K4 relpos_attention_global, K5 ..._windowed,  relpos_attention_tc.cu (bf16,
-  K7 relpos_attention_qkv                        tensor cores); float32 K4, K5 and
+  K7 relpos_attention_qkv                        tensor cores; float16
+                                                 relpos_attention_tc_f16.cu);
+                                                 float32 K4, K5 and
                                                  K7 relpos_attention_f32tc.cu
                                                  (tensor cores, three TF32
                                                  passes); C entry points
@@ -37,8 +41,9 @@ printing its seconds:
      nvcc's register and spill report, one line per kernel instance; it
      fails if a tensor-core kernel (relpos_attention_tc.cu: bf16 K4 on
      wgmma; K5, K7 and K6 on mma.sync; levit_attention_tc.cu: bf16 K2 on
-     mma.sync; relpos_attention_f32tc.cu: float32 K4, K5, K6 and K7 on
-     mma.sync in three TF32 passes; levit_attention_f32tc.cu: float32 K2
+     mma.sync; their float16 instances in the _f16 sources;
+     relpos_attention_f32tc.cu: float32 K4, K5, K6 and K7 on mma.sync in
+     three TF32 passes; levit_attention_f32tc.cu: float32 K2
      likewise) spills or is missing from the report;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it (also
@@ -433,7 +438,25 @@ printing its seconds:
      `segment_objects` (0 expected), SIGTERM answered with exit 0; `dlimg
      segment` on the route alongside, its mask file equal to the direct
      call's; the median click wall next to phase 15's embedded-mode
-     daemon's, and a served mask's bytes next to Pillow's.
+     daemon's, and a served mask's bytes next to Pillow's;
+ 20. the kernels' input ranges (ROADMAP C9-C12): every kernel against its
+     plain version at widths and head widths no main path uses and on
+     strided and misaligned views, in bf16 and float32, each call one
+     launch (`kernel_operand`'s copies over phases 2-4 must be 0); its
+     float16 leg: every kernel (K1-K8, P2, P3) in float16 once at each of
+     the F16_* main-path shapes, one counted launch a shape (the plain
+     version, the timing and the library yardstick uncounted), held
+     against its plain version within two float16 steps at |out| < 4
+     (atol 4e-3, K6 5e-3; the attention kernels' mean |diff| within 2e-5,
+     which a body that rounds p to bf16 exceeds; K3's s, K8, P2 and P3
+     bit for bit) and timed as phase 2 times bf16, its rows
+     "<name>/float16" in the {"kernels": ...} line (sums over those
+     shapes, launches those of that run); `int8_linear` at in / out
+     widths that are not multiples of 8 ((100, 36), (96, 98)) in float16
+     and bf16: one P2, one `torch._int_mm` on the zero-padded operands and
+     one P3 a call, the int32 product equal to the plain one and the
+     output to the CPU's bit for bit; K1, K4, K5 timed at new widths; two
+     SAM ViTs with heads 32 and 128 wide against the CPU.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -763,13 +786,16 @@ SERVE_BATCHES = (1, 2, 4, 8)
 SERVE_WINDOW_MS = 2
 
 # The tensor-core kernels, bf16 K4, K5, K7 and K6 (csrc/relpos_attention_tc.cu,
-# and _pad.cu: the padded head widths), bf16 K2 (csrc/levit_attention_tc.cu),
+# and _pad.cu: the padded head widths; float16 in _tc_f16.cu and
+# _tc_f16_pad.cu), bf16 K2 (csrc/levit_attention_tc.cu; float16 _tc_f16.cu),
 # float32 K4, K5, K6 and K7 in three TF32 passes (csrc/relpos_attention_f32tc.cu
 # and _pad.cu) and float32 K2 likewise (csrc/levit_attention_f32tc.cu):
 # phase 1 fails if one is missing from nvcc's report or spills.
 TC_SOURCES = {"relpos_attention_tc.cu", "relpos_attention_tc_pad.cu",
-              "levit_attention_tc.cu", "relpos_attention_f32tc.cu",
-              "relpos_attention_f32tc_pad.cu", "levit_attention_f32tc.cu"}
+              "relpos_attention_tc_f16.cu", "relpos_attention_tc_f16_pad.cu",
+              "levit_attention_tc.cu", "levit_attention_tc_f16.cu",
+              "relpos_attention_f32tc.cu", "relpos_attention_f32tc_pad.cu",
+              "levit_attention_f32tc.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
@@ -777,7 +803,23 @@ TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_f32tc", "levit_window_kernel_f32tc")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
-       ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2}
+       ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2,
+       # float16: two float16 steps at |out| < 4 (2^-9 each); the
+       # LayerNorms' outputs reach 4, where one step is 3.9e-3
+       ("ln", "float16"): 4e-3, ("attn", "float16"): 4e-3}
+# K6 ("strip"): as attention but in float16, where its bias halves, summed
+# in another order than the plain version's, now and then round to float16
+# apart and move a logit by one step at |bias| ~ 8 (4.4e-3 measured).
+TOL.update({("strip", d): TOL[("attn", d)] for d in ("float32", "bfloat16")})
+TOL[("strip", "float16")] = 5e-3
+# Float16 attention also holds the mean |kernel - plain|: a float16 body
+# that rounds p to bf16 moves most outputs by a step (on an H100, at the
+# main paths' shapes: the bodies' mean 1.3e-7 to 1.4e-6, with p rounded to
+# bf16 1.7e-4 to 5.6e-4; tools/f16_rounding_check.py).
+F16_MEAN_TOL = {name: 2e-5 for name in (
+    "levit_window_attention", "relpos_attention_global",
+    "relpos_attention_windowed", "windowed_attention_fused",
+    "relpos_attention_qkv")}
 
 KERNELS = (  # name, source, the TPU kernel it replaces (K1 ... K8)
     ("fused_layer_norm", "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
@@ -839,6 +881,33 @@ F32_SOURCES = {
 
 def f32_key(name: str) -> str:
     return name + F32_SUFFIX
+
+
+# Phase 20's float16 leg: every kernel in float16 once at its main-path
+# shapes (the rows "<name>/float16" of the {"kernels": ...} line, their
+# launches those of that one run, each shape once), with its own sources.
+F16_SUFFIX = "/float16"
+F16_SOURCES = {
+    "fused_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+    "levit_window_attention":
+        "dlimgedit_tpu_torch/csrc/levit_attention_tc_f16.cu",
+    "fused_add_layer_norm": "dlimgedit_tpu_torch/csrc/fused_layer_norm.cu",
+    "relpos_attention_global":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_tc_f16.cu",
+    "relpos_attention_windowed":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_tc_f16.cu",
+    "windowed_attention_fused":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_tc_f16.cu",
+    "relpos_attention_qkv":
+        "dlimgedit_tpu_torch/csrc/relpos_attention_tc_f16.cu",
+    "smem_gather": "dlimgedit_tpu_torch/csrc/gather_probe.cu",
+    "quantize_rows_int8": "dlimgedit_tpu_torch/csrc/quantize_rows.cu",
+    "int8_epilogue": "dlimgedit_tpu_torch/csrc/quantize_rows.cu",
+}
+
+
+def f16_key(name: str) -> str:
+    return name + F16_SUFFIX
 
 
 # The kernels the Python-free route's serving library also launches from
@@ -971,7 +1040,8 @@ class Entries:
 
     def record(self, label, name, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
                launches, images=len(IMAGES)):
-        dname = "float32" if name.endswith(F32_SUFFIX) else "bfloat16"
+        dname = ("float32" if name.endswith(F32_SUFFIX) else
+                 "float16" if name.endswith(F16_SUFFIX) else "bfloat16")
         self.rows.append((label, dname, ms, max(bytes_ms, ops_ms)))
         vals = dict(zip(self.TIMES, (ms, plain_ms, lib_ms, bytes_ms, ops_ms)))
         self.first.setdefault(name, vals)
@@ -1006,34 +1076,48 @@ class Entries:
 
 def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
                  nbytes, flops_mm, flops_f32, launches, entries, compare=None,
-                 images=len(IMAGES), f32_timed=False):
-    """One kernel at one shape: max |kernel - plain| within `tol`; in bf16,
-    and in float32 where ``f32_timed`` (the main paths' shapes), also the
-    times of kernel, plain version and library call (None: there is no
-    library yardstick), and the bound from the bytes moved and the
-    operations done: ``flops_mm`` products at the dtype's tensor-core rate
-    (float32: PEAK_F32_TC_FLOPS), ``flops_f32`` other operations at
-    PEAK_F32_FLOPS. A float32 entry is recorded under ``f32_key(name)``.
-    Returns the library call's time (None when not timed or without a
-    yardstick)."""
+                 images=len(IMAGES), f32_timed=False,
+                 uncounted=contextlib.nullcontext):
+    """One kernel at one shape: max |kernel - plain| within `tol` (and, for
+    float16 attention, the mean within ``F16_MEAN_TOL``); in bf16
+    and float16, and in float32 where ``f32_timed`` (the main paths'
+    shapes), also the times of kernel, plain version and library call
+    (None: there is no library yardstick), and the bound from the bytes
+    moved and the operations done: ``flops_mm`` products at the dtype's
+    tensor-core rate (bf16 and float16 989 TFLOP/s; float32:
+    PEAK_F32_TC_FLOPS), ``flops_f32`` other operations at PEAK_F32_FLOPS. A
+    float32 entry is recorded under ``f32_key(name)``, a float16 one under
+    ``f16_key(name)``. The first kernel call is the one a launch counter
+    may count: every other call runs inside ``uncounted()``. Returns the
+    library call's time (None when not timed or without a yardstick)."""
     t0 = time.perf_counter()
-    out, ref = kernel(), plain()
+    out = kernel()
+    with uncounted():
+        ref = plain()
     torch.cuda.synchronize()
     err = (compare or (lambda a, b: (a.float() - b.float()).abs().max().item())
            )(out, ref)
+    mean_tol = F16_MEAN_TOL.get(name) if dname == "float16" else None
+    if mean_tol is not None:
+        mean = (out.float() - ref.float()).abs().mean().item()
+        print(f"{label} {dname}: mean|diff|={mean:.3e} (limit {mean_tol:g})",
+              flush=True)
+        if not mean <= mean_tol:
+            fail(f"{label} {dname}: mean|diff| {mean} > {mean_tol}")
     del out, ref
     if not err <= tol:
         fail(f"{label} {dname}: max|diff| {err} > {tol}")
-    bf16 = dname == "bfloat16"
-    if not bf16 and not f32_timed:
+    half = dname in ("bfloat16", "float16")
+    if not half and not f32_timed:
         print(f"{label} {dname}: max|diff|={err:.3e} (atol {tol:g}) "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
         return None
-    ms = time_ms(torch, kernel)
-    plain_ms = time_ms(torch, plain, PLAIN_SAMPLES, PLAIN_PER_SAMPLE)
-    lib_ms = None if library is None else time_ms(torch, library)
+    with uncounted():
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, PLAIN_SAMPLES, PLAIN_PER_SAMPLE)
+        lib_ms = None if library is None else time_ms(torch, library)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (flops_mm / (PEAK_BF16_TC_FLOPS if bf16 else PEAK_F32_TC_FLOPS)
+    ops_ms = (flops_mm / (PEAK_BF16_TC_FLOPS if half else PEAK_F32_TC_FLOPS)
               + flops_f32 / PEAK_F32_FLOPS) * 1e3
     lib = ("none" if lib_ms is None
            else f"{lib_ms:.5f} (kernel/library {ms / lib_ms:.2f}x)")
@@ -1042,57 +1126,25 @@ def check_kernel(torch, label, name, dname, kernel, plain, library, tol,
           f"bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-    entries.record(label, name if bf16 else f32_key(name), err, ms, plain_ms,
-                   lib_ms, bytes_ms, ops_ms, launches, images)
+    key = {"bfloat16": name, "float16": f16_key(name)}.get(dname, f32_key(name))
+    entries.record(label, key, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms,
+                   launches, images)
     return lib_ms
-
-
-def nvcc_report(build_log: str):
-    """nvcc's per-kernel lines, (source, kernel, template arguments,
-    registers, spill store bytes), from the -Xptxas -v log of the build."""
-    rows, source, kernel = [], None, None
-    for line in build_log.splitlines():
-        if line.startswith("== "):
-            source = line[3:].strip()
-            continue
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = re.search(r"([a-z_]+_kernel(?:_f32tc|_tc)?)I(.*)EEv",
-                             m.group(1))
-            if name:
-                targs = name.group(2)
-                dtype = ("bf16 " if "bfloat16" in targs
-                         else "f32 " if (targs.startswith("f")
-                                         or name.group(1).endswith("_f32tc"))
-                         else "")
-                kernel = (name.group(1), dtype + ",".join(
-                    re.findall(r"L[ib](\d+)E", targs)))
-            else:
-                kernel = (m.group(1), "")
-            spill = None
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and kernel:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernel:
-            rows.append((source, kernel[0], kernel[1], int(m.group(1)), spill))
-            kernel = None
-    return rows
 
 
 def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
                   attn_shapes=ATTN_SHAPES, images=len(IMAGES),
-                  f32_timed=False):
+                  f32_timed=False, dtypes=None, uncounted=contextlib.nullcontext):
     """Phase 2, MobileSAM's kernels K1 and K2 at their main-path shapes
     (``images``: the calls of the counted main-path run per shape's
     launches: phase 4's two images, or phase 10's one batch; ``f32_timed``:
-    the float32 bodies timed too, at the main paths' shapes)."""
+    the float32 bodies timed too, at the main paths' shapes; ``dtypes``:
+    bf16 and float32 unless given; ``uncounted`` as in ``check_kernel``)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         for rows, C, eps, per in ln_shapes:
@@ -1106,7 +1158,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
                 lambda: F.layer_norm(x, (C,), scale, bias, eps),
                 TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
                 7 * rows * C, per, entries, images=images,
-                f32_timed=f32_timed)
+                f32_timed=f32_timed, uncounted=uncounted)
         for G, N, nh, per in attn_shapes:
             kd = 32
             qkv = torch.randn((G, N, nh * 3 * kd), generator=gen, device=dev).to(dtype)
@@ -1123,7 +1175,7 @@ def check_kernels(torch, ops, entries, ln_shapes=LN_SHAPES,
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                 TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
                 mm, 7 * G * nh * N * N, per, entries, images=images,
-                f32_timed=f32_timed)
+                f32_timed=f32_timed, uncounted=uncounted)
 
 
 def same_bits(a, b) -> float:
@@ -1135,7 +1187,9 @@ def same_bits(a, b) -> float:
     return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
 
 
-def check_quant_kernels(torch, ops, entries, gemm_ms):
+def check_quant_kernels(torch, ops, entries, gemm_ms, dtypes=None,
+                        paths=QUANT_PATHS, launches=None,
+                        uncounted=contextlib.nullcontext):
     """Phase 2, P2 and P3 at every shape of the w8a8 main paths (phase 9:
     per linear, M tokens, K its input width, N its output width), bit for
     bit against their plain versions in bf16 and float32, bf16 timed; at
@@ -1143,15 +1197,20 @@ def check_quant_kernels(torch, ops, entries, gemm_ms):
     beside: cuBLASLt's s8 x s8 (``torch._int_mm``, what the w8a8 path
     runs, with the weight column-major as ``QuantLinear`` stores it, and
     row-major for the record) and the bf16 ``x @ w`` it replaces. Adds the
-    products' times over the main paths' launches to ``gemm_ms``."""
+    products' times over the main paths' launches to ``gemm_ms``. With
+    ``launches``, each shape of ``paths`` is recorded with that many
+    launches; ``dtypes`` and ``uncounted`` as in ``check_kernels``."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     p2, p3 = {}, {}
-    for variant, _ in QUANT_PATHS:
+    for variant, _ in paths:
         for M, K, N, per in quant_linears(variant):
-            p2[(M, K)] = p2.get((M, K), 0) + per
-            p3[(M, K, N)] = p3.get((M, K, N), 0) + per
-    for dtype in (torch.bfloat16, torch.float32):
+            if launches is not None:
+                p2[(M, K)], p3[(M, K, N)] = launches, launches
+            else:
+                p2[(M, K)] = p2.get((M, K), 0) + per
+                p3[(M, K, N)] = p3.get((M, K, N), 0) + per
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         for (M, C), per in sorted(p2.items()):
@@ -1163,7 +1222,7 @@ def check_quant_kernels(torch, ops, entries, gemm_ms):
                 dname, lambda: ops.quantize_rows_int8(x),
                 lambda: ops.quantize_activations_int8(x), None, 0.0,
                 M * C * (es + 1) + 4 * M, 0, 5 * M * C, per, entries,
-                compare=same_bits, images=1)
+                compare=same_bits, images=1, uncounted=uncounted)
         for (M, K, N), per in sorted(p3.items()):
             q = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                               dtype=torch.int8)
@@ -1178,7 +1237,7 @@ def check_quant_kernels(torch, ops, entries, gemm_ms):
                 dname, lambda: ops.int8_epilogue(acc, xs, ws, b, dtype),
                 lambda: ops.int8_epilogue_plain(acc, xs, ws, b, dtype), None,
                 0.0, M * N * (4 + es) + 4 * M + N * (4 + es), 0, 4 * M * N, per,
-                entries, compare=same_bits, images=1)
+                entries, compare=same_bits, images=1, uncounted=uncounted)
             if dtype == torch.bfloat16:
                 xb = torch.randn((M, K), generator=gen, device=dev).to(dtype)
                 wb = torch.randn((K, N), generator=gen, device=dev).to(dtype)
@@ -1213,17 +1272,18 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                       add_ln_shapes=VIT_ADD_LN_SHAPES,
                       global_shapes=VIT_GLOBAL_SHAPES,
                       window_shapes=VIT_WINDOW_SHAPES, images=len(IMAGES),
-                      f32_timed=False):
+                      f32_timed=False, dtypes=None,
+                      uncounted=contextlib.nullcontext):
     """Phase 2, the SAM ViT's kernels: K1 at the ViT widths, K3, K4, K5 at
     ViT-B's, ViT-L's and ViT-H's shapes at 1024, rel-pos tables nonzero
-    (``images`` and ``f32_timed`` as in ``check_kernels``). A window shape
-    with n_w None runs K5 without the pad-query skip (a batch of
-    frames)."""
+    (``images``, ``f32_timed``, ``dtypes`` and ``uncounted`` as in
+    ``check_kernels``). A window shape with n_w None runs K5 without the
+    pad-query skip (a batch of frames)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         for (rows, C, per), (_, _, per3) in zip(ln_shapes, add_ln_shapes):
@@ -1239,7 +1299,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                     lambda: F.layer_norm(x, (C,), scale, bias, 1e-6),
                     TOL[("ln", dname)], (2 * rows * C + 2 * C) * es, 0,
                     7 * rows * C, per, entries, images=images,
-                    f32_timed=f32_timed)
+                    f32_timed=f32_timed, uncounted=uncounted)
             if per3 is None:  # only K1 at this shape
                 continue
 
@@ -1256,7 +1316,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 lambda: F.layer_norm(x + d, (C,), scale, bias, 1e-6),
                 TOL[("ln", dname)], (4 * rows * C + 2 * C) * es, 0,
                 8 * rows * C, per3, entries, compare=add_err,
-                images=images, f32_timed=f32_timed)
+                images=images, f32_timed=f32_timed, uncounted=uncounted)
         for nh, g, hd, per in global_shapes:
             N = g * g
             q, k, v = (torch.randn((nh, N, hd), generator=gen, device=dev).to(dtype)
@@ -1275,7 +1335,7 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                     q[None], k[None], v[None], attn_mask=mask[None]),
                 TOL[("attn", dname)], (4 * nh * N * hd + nh * N * 2 * g) * es,
                 mm, 7 * nh * N * N, per, entries, images=images,
-                f32_timed=f32_timed)
+                f32_timed=f32_timed, uncounted=uncounted)
             del mask
         for W, nh, ws, hd, n_w, valid_rows, per in window_shapes:
             N, G = ws * ws, W * nh
@@ -1308,23 +1368,28 @@ def check_vit_kernels(torch, ops, entries, ln_shapes=VIT_LN_SHAPES,
                 TOL[("attn", dname)],
                 (2 * G * N * hd + rows * (hd + 2 * ws) + G * N * hd) * es,
                 mm, 7 * rows * N, per, entries, compare=win_err,
-                images=images, f32_timed=f32_timed)
+                images=images, f32_timed=f32_timed, uncounted=uncounted)
             del mask
 
 
-def check_window_kernels(torch, ops, entries):
+def check_window_kernels(torch, ops, entries, dtypes=None, strip_shapes=None,
+                         probe_reps=PROBE_REPS, probe_layouts=None, launches=0,
+                         images=len(IMAGES), uncounted=contextlib.nullcontext):
     """Phase 2, the last three kernels: K6 at the fused-window path's
-    shapes (ViT-B, and ViT-H's), K7 at ViT-B's and ViT-H's windows, K8 at
-    the gather probe's shapes."""
+    shapes (ViT-B, and ViT-H's; ``strip_shapes``), K7 at ViT-B's and
+    ViT-H's windows, K8 at the gather probe's shapes (``probe_reps``, the
+    index layouts ``probe_layouts``, all unless given); K7 and K8 recorded
+    with ``launches`` each (no main path launches them); ``images``,
+    ``dtypes`` and ``uncounted`` as in ``check_kernels``."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         es = torch.empty((), dtype=dtype).element_size()
         bf16 = dtype == torch.bfloat16
-        for B, grid, nh, hd, ws, per in VIT_STRIP_SHAPES:
+        for B, grid, nh, hd, ws, per in strip_shapes or VIT_STRIP_SHAPES:
             C, n, nw = nh * hd, ws * ws, grid // ws
             G = B * nw * nw * nh
             qkv = torch.randn((B, grid, grid, 3 * C), generator=gen,
@@ -1351,10 +1416,11 @@ def check_window_kernels(torch, ops, entries):
                     q, k, v, rh, rw, ws=ws, num_heads=nh),
                 lambda: F.scaled_dot_product_attention(
                     qw[None], kw[None], vw[None], attn_mask=mask[None]),
-                TOL[("attn", dname)],
+                TOL[("strip", dname)],
                 (4 * B * grid * grid * C + 2 * ws * ws * hd) * es,
-                mm, 7 * G * n * n, per, entries, f32_timed=True)
-            if bf16:
+                mm, 7 * G * n * n, per, entries, images=images, f32_timed=True,
+                uncounted=uncounted)
+            if bf16 and strip_shapes is None:
                 both_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                     *(t[None] for t in partition()), attn_mask=mask[None]))
                 print(f"{label} {dname}: SDPA yardstick without the partition "
@@ -1381,12 +1447,15 @@ def check_window_kernels(torch, ops, entries):
                     qkv[:, 0], qkv[:, 1], qkv[:, 2],
                     attn_mask=mask.view(W, nh, n, n)),
                 TOL[("attn", dname)], (4 * G * n * hd + G * n * 2 * ws) * es,
-                mm, 7 * G * n * n, 0, entries, f32_timed=True)
+                mm, 7 * G * n * n, launches, entries, images=images,
+                f32_timed=True, uncounted=uncounted)
             del mask
         table, layouts = ops.probe_inputs(dev, dtype)
         rows, lanes = PROBE_SHAPE
         for layout, idx in layouts.items():
-            for reps in PROBE_REPS:
+            if probe_layouts is not None and layout not in probe_layouts:
+                continue
+            for reps in probe_reps:
                 # The library yardstick where one call gathers the same rows:
                 # with one index a table row (row-replicated), the reps' rows
                 # of every output row in one `index_select` (the sum over
@@ -1402,7 +1471,7 @@ def check_window_kernels(torch, ops, entries):
                     lambda: ops.smem_gather(table, idx, reps),
                     lambda: ops.smem_gather_plain(table, idx, reps), library,
                     0.0, rows * lanes * (es + 4 + 4), 0, reps * rows * lanes,
-                    0, entries)
+                    launches, entries, images=images, uncounted=uncounted)
 
 
 # The bf16 K4 on general grids larger than the main paths' (ROADMAP C8):
@@ -2612,9 +2681,9 @@ def quant_shapes(quant_mod):
     block (warm-ups and captures; a replay runs none)."""
     shapes, real = [], quant_mod.int8_mm
 
-    def record(q, w):
-        shapes.append((q.shape[0], q.shape[1], w.shape[1]))
-        return real(q, w)
+    def record(q, w, n):
+        shapes.append((q.shape[0], q.shape[1], n))
+        return real(q, w, n)
 
     quant_mod.int8_mm = record
     try:
@@ -6620,6 +6689,26 @@ ANY_VITS = ((256, 8, 4, (1, 3)), (1024, 8, 4, (1, 3)))
 # grid, K5 25 windows of 8 heads at 14 x 14 with the bottom row skipped).
 ANY_TIMED_LN = ((4096, 96), (4096, 384), (4096, 2050))
 ANY_TIMED_HD = (32, 128)
+# Its float16 leg: every kernel in float16 once at each of these main-path
+# shapes (launches 1 a shape): K1 at MobileSAM's four widths and the ViTs',
+# K3 and K4-K5 at ViT-B's, ViT-L's and ViT-H's, K2 at MobileSAM's, K6 at
+# the fused ViT-B's and ViT-H's grids, K7 at ViT-B's and ViT-H's windows,
+# K8 at the probe's shape (reps 8, row-replicated indices: the layout with
+# a library yardstick, as its bf16 row has), P2 and P3 at the
+# w8a8 ViT-B's linears; then int8_linear at in / out widths that are not
+# multiples of 8, in float16 and bf16.
+F16_LN_SHAPES = [(rows, C, eps, 1) for rows, C, eps, _ in LN_SHAPES
+                 if (rows, C) in ((17689, 128), (4900, 160), (4900, 320),
+                                  (4096, 256))]
+F16_ATTN_SHAPES = [(G, N, nh, 1) for G, N, nh, _ in ATTN_SHAPES]
+F16_VIT_LN = [(rows, C, 1) for rows, C, _ in VIT_LN_SHAPES]
+F16_VIT_ADD_LN = [(rows, C, 1) for rows, C, _ in VIT_ADD_LN_SHAPES]
+F16_GLOBAL = [(nh, g, hd, 1) for nh, g, hd, per in VIT_GLOBAL_SHAPES if per]
+F16_WINDOW = [shape[:-1] + (1,) for shape in VIT_WINDOW_SHAPES]
+F16_STRIP = [shape[:-1] + (1,) for shape in VIT_STRIP_SHAPES]
+F16_PROBE_REPS, F16_PROBE_LAYOUTS = (8,), ("row-replicated",)
+F16_QUANT_PATHS = (("vit_b", False),)
+F16_INT8_WIDTHS = ((100, 36), (96, 98))
 
 
 def _shifted(torch, t):
@@ -6962,14 +7051,108 @@ def check_any_vits(torch, np, dl, counters, zero_counters):
         torch.cuda.empty_cache()
 
 
-def drive_any_inputs(torch, np, dl, ops, counters, zero_counters, gpu_line,
-                     main_copies):
+def check_float16(torch, ops, counters, zero_counters, restore_counters,
+                  gpu_line):
+    """Phase 20's float16 leg: each kernel at the F16_* shapes, one counted
+    launch a shape (the plain version, the timing and the library yardstick
+    inside ``restore_counters``), held against its plain version on the same
+    inputs within TOL's float16 atol (K3's s, K8, P2 and P3 bit for bit)
+    and timed as phase 2 times bf16. Returns (the entries, the launches of
+    the counted run), which must be one a shape."""
+    entries = Entries()
+    half = (torch.float16,)
+    zero_counters()
+    with tf32_off(torch):
+        check_kernels(torch, ops, entries, F16_LN_SHAPES, F16_ATTN_SHAPES,
+                      images=1, dtypes=half, uncounted=restore_counters)
+        check_vit_kernels(torch, ops, entries, F16_VIT_LN, F16_VIT_ADD_LN,
+                          F16_GLOBAL, F16_WINDOW, images=1, dtypes=half,
+                          uncounted=restore_counters)
+        check_window_kernels(torch, ops, entries, dtypes=half,
+                             strip_shapes=F16_STRIP,
+                             probe_reps=F16_PROBE_REPS,
+                             probe_layouts=F16_PROBE_LAYOUTS, launches=1,
+                             images=1, uncounted=restore_counters)
+        check_quant_kernels(torch, ops, entries, {}, dtypes=half,
+                            paths=F16_QUANT_PATHS, launches=1,
+                            uncounted=restore_counters)
+    launches = {name: n for name, n in counters().items() if n}
+    want = {name[:-len(F16_SUFFIX)]: e["launches"]
+            for name, e in entries.by_name.items()}
+    if launches != want or set(want) != set(F16_SOURCES):
+        fail(f"phase 20 float16: launches {launches} != one a shape {want} "
+             f"(every kernel of {sorted(F16_SOURCES)})")
+    for label, dname, ms, bound in entries.rows:
+        print(f"phase 20 float16 {label} on {gpu_line}: kernel_ms={ms:.5f} "
+              f"bound_ms={bound:.5f} ({100 * bound / ms:.0f}% of it)",
+              flush=True)
+    return entries, launches
+
+
+def check_int8_any_width(torch, quant, counters, zero_counters):
+    """Phase 20: ``int8_linear`` at F16_INT8_WIDTHS (C or N not a multiple
+    of 8) in float16 and bf16 on a (2, 77, C) input: one P2, one
+    ``torch._int_mm`` on the zero-padded operands and one P3 a call, the
+    int32 product equal to the plain one, the output equal to the CPU's
+    bit for bit."""
+    from dlimgedit_tpu_torch.models.common import QuantLinear
+
+    dev = torch.device("cuda", 0)
+    int_mm = torch._int_mm
+    for C, N in F16_INT8_WIDTHS:
+        for dtype in (torch.float16, torch.bfloat16):
+            g = torch.Generator().manual_seed(C + N)
+            w_q, w_scale = quant.quantize_weight(
+                0.05 * torch.randn((C, N), generator=g))
+            lin = QuantLinear(w_q, w_scale, (0.1 * torch.randn(N, generator=g)
+                                             ).to(dtype), act_int8=True)
+            x = torch.randn((2, 77, C), generator=g).to(dtype)
+            want = quant.int8_linear(lin, x)
+            lin = lin.to(dev)
+            products = []
+
+            def counted(a, b):
+                products.append((tuple(a.shape), tuple(b.shape)))
+                return int_mm(a, b)
+
+            zero_counters()
+            torch._int_mm = counted
+            try:
+                got = quant.int8_linear(lin, x.to(dev))
+                torch.cuda.synchronize()
+            finally:
+                torch._int_mm = int_mm
+            n = {k: v for k, v in counters().items() if v}
+            C8, N8 = -(-C // 8) * 8, -(-N // 8) * 8
+            if (n != {"quantize_rows_int8": 1, "int8_epilogue": 1}
+                    or products != [((154, C8), (C8, N8))]):
+                fail(f"phase 20 int8_linear ({C}, {N}) {dtype}: launches {n}, "
+                     f"products {products}")
+            q, _ = quant.quantize_rows_int8(x.to(dev).reshape(-1, C))
+            acc = quant.int8_mm(q, lin.w_q8_mm, N)
+            if not torch.equal(acc.cpu(), q.cpu().int() @ w_q.int()):
+                fail(f"phase 20 int8_linear ({C}, {N}): the int32 product "
+                     f"differs from the plain one")
+            if not torch.equal(got.cpu(), want):
+                fail(f"phase 20 int8_linear ({C}, {N}) {dtype}: the output "
+                     f"differs from the CPU's: max|diff| "
+                     f"{(got.cpu().float() - want.float()).abs().max().item()}")
+            print(f"phase 20 int8_linear ({C}, {N}) {dtype}: P2, _int_mm on "
+                  f"({154}, {C8}) x ({C8}, {N8}), P3; the int32 product equal "
+                  f"to the plain one, the output to the CPU's bit for bit",
+                  flush=True)
+
+
+def drive_any_inputs(torch, np, dl, ops, quant, counters, zero_counters,
+                     restore_counters, gpu_line, main_copies):
     """Phase 20: C9-C11, the kernels' input ranges. Every kernel against its
     plain version at the widths and head widths no main path uses and on
     strided and misaligned views, in both dtypes, each call counted as one
     launch of its kernel (no plain path on the card); the layout helper's
-    copies over phases 2-4 (``main_copies``) must be 0; the ViTs at head
-    widths 32 and 128 against the CPU."""
+    copies over phases 2-4 (``main_copies``) must be 0; every kernel in
+    float16 (``check_float16``) and int8_linear at widths that are not
+    multiples of 8; the ViTs at head widths 32 and 128 against the CPU.
+    Returns the float16 leg's (entries, launches)."""
     from dlimgedit_tpu_torch.ops.cuda_build import kernel_operand
 
     t0 = time.perf_counter()
@@ -7003,10 +7186,17 @@ def drive_any_inputs(torch, np, dl, ops, counters, zero_counters, gpu_line,
           f"kernel_operand copies {kernel_operand.copies - copies}; max|diff| "
           f"by kernel and dtype {json.dumps({f'{n}/{d}': e for (n, d), e in sorted(worst.items())})}",
           flush=True)
+    t1 = time.perf_counter()
+    f16 = check_float16(torch, ops, counters, zero_counters, restore_counters,
+                        gpu_line)
+    check_int8_any_width(torch, quant, counters, zero_counters)
+    print(f"phase 20, float16 and int8 at any width: "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     with tf32_off(torch):
         time_any_widths(torch, ops, gpu_line)
     check_any_vits(torch, np, dl, counters, zero_counters)
     print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return f16
 
 
 def main() -> int:
@@ -7040,6 +7230,7 @@ def main() -> int:
     from dlimgedit_tpu_torch.parallel import batch as pbatch
     from dlimgedit_tpu_torch.tools import probe_batch_masks as probe_masks
     from dlimgedit_tpu_torch.tools import probe_smem_gather as probe
+    from dlimgedit_tpu_torch.tools.build_report import nvcc_report
 
     ops = types.SimpleNamespace(
         fused_layer_norm=fn.fused_layer_norm,
@@ -7292,8 +7483,9 @@ def main() -> int:
     print(f"phases 17-19's int8 legs: {int8_s:.1f} s", flush=True)
 
     # -- 20. the kernels' input ranges: any width, head width, view -------
-    drive_any_inputs(torch, np, dl, ops, counters, zero_counters, gpu_line,
-                     main_copies)
+    f16_entries, f16_launches = drive_any_inputs(
+        torch, np, dl, ops, quant, counters, zero_counters, restore_counters,
+        gpu_line, main_copies)
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -7327,6 +7519,18 @@ def main() -> int:
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
             "library_ms": e["library_ms"], "also_from_cpp": name in FROM_CPP})
+    for name, source, replaces in KERNELS:
+        if name not in F16_SOURCES:
+            continue
+        e = f16_entries.numbers(f16_key(name), f16_launches[name])
+        kernels.append({
+            "name": f16_key(name), "route": "cuda",
+            "source": F16_SOURCES[name], "replaces": replaces,
+            "launches": f16_launches[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
+            "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
+            "library_ms": e["library_ms"], "also_from_cpp": False})
     print(f"chip_smoke: phases 1-20 in {time.perf_counter() - run_t0:.1f} s "
           f"on {gpu_line}", flush=True)
     print(gpu_line)

@@ -1,9 +1,11 @@
 // Helpers shared by the port's kernels: element conversion and warp
-// reductions. Element types: float (code 0) and __nv_bfloat16 (code 1), the
-// codes the Python wrappers pass.
+// reductions. Element types: float (code 0), __nv_bfloat16 (code 1) and
+// __half (float16, code 2), the codes the Python wrappers pass
+// (ops/cuda_build.py DTYPE_CODES).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace dlimg {
@@ -11,14 +13,19 @@ namespace dlimg {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeF16 = 2;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -13,6 +13,14 @@
 // and the statistics are taken on the ROUNDED s, so (s, LN(s)) bit-match
 // the plain `x + d` followed by K1.
 //
+// Element types: float32, bf16 and float16, the same bodies for each (a
+// float16 row moves in 16-byte chunks of 8 values, as bf16). JAX treats
+// float16 as it treats bf16: float32 statistics, the output rounded once,
+// K3's s rounded to the dtype and read back. Float16 K3 runs the
+// width-generic body at every width: in float16 ptxas spilled its C / 32
+// values-a-lane instances (4 bytes at C = 768; asked for two blocks an SM,
+// 32 bytes at C = 1024).
+//
 // What bounds both on an H100: bytes. K1 reads each row and writes it once,
 // and reads scale and bias once: (2 * rows * C + 2 * C) * sizeof(T) bytes
 // at 3.35 TB/s (a (1372, 1280) bf16 call: 7.03 MB, 2.10 us). K3 reads x and
@@ -115,7 +123,8 @@ constexpr int kLnMinWarpsPerBlock = 1;
 constexpr int kLnWaveWarpsPerSm = 32;
 constexpr int kLnMaxChunksPerLane = 5;
 
-// A 16-byte chunk of a row as float32 values.
+// A 16-byte chunk of a row as float32 values (4 float32, or 8 bf16 or
+// float16).
 template <typename T> struct Chunk;
 
 template <> struct Chunk<float> {
@@ -147,6 +156,28 @@ template <> struct Chunk<__nv_bfloat16> {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return (static_cast<unsigned>(__bfloat16_as_ushort(h.y)) << 16) |
            __bfloat16_as_ushort(h.x);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
+
+template <> struct Chunk<__half> {
+  static constexpr int kValues = 8;
+  // The value at the lower address is the word's low half.
+  static __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  static __device__ __forceinline__ unsigned pack2(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
   }
   static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
     return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
@@ -354,6 +385,7 @@ template <typename F>
 cudaError_t with_type_and_width(int dtype, int cols, F f) {
   if (dtype == kDtypeF32) return with_width<float>(cols, f);
   if (dtype == kDtypeBF16) return with_width<__nv_bfloat16>(cols, f);
+  if (dtype == kDtypeF16) return with_width<__half>(cols, f);
   return cudaErrorInvalidValue;
 }
 
@@ -455,6 +487,7 @@ constexpr int kLnWideBlocksPerSm = 8;
 template <typename T> struct Bits;
 template <> struct Bits<float> { using B = uint32_t; };
 template <> struct Bits<__nv_bfloat16> { using B = uint16_t; };
+template <> struct Bits<__half> { using B = uint16_t; };
 
 // Columns c0 .. c0 + 16 / sizeof(T) - 1 of a row as a packed chunk (the
 // layout Chunk<T> unpacks): zeros past C. `vec`: C sizeof(T) is a multiple
@@ -715,6 +748,7 @@ template <bool ADD, typename F>
 cudaError_t with_any_width(int dtype, F f) {
   if (dtype == kDtypeF32) return f(AnyWidth<float, ADD>{});
   if (dtype == kDtypeBF16) return f(AnyWidth<__nv_bfloat16, ADD>{});
+  if (dtype == kDtypeF16) return f(AnyWidth<__half, ADD>{});
   return cudaErrorInvalidValue;
 }
 
@@ -764,8 +798,8 @@ extern "C" int dlimg_layer_norm_plan(int rows, int cols, int dtype, int* plan) {
 }
 
 // K3: s_out = x + d (rounded to the dtype), out = LN(s_out). The widths of
-// KERNEL_WIDTHS take any alignment; the width-generic bodies move 16-byte
-// chunks only where every pointer starts on 16 bytes.
+// KERNEL_WIDTHS take any alignment; the width-generic bodies (every width in
+// float16) move 16-byte chunks only where every pointer starts on 16 bytes.
 extern "C" int dlimg_add_layer_norm(const void* x, const void* d, const void* scale,
                                     const void* bias, void* s_out, void* out,
                                     int rows, int cols, int dtype, float eps,
@@ -775,7 +809,7 @@ extern "C" int dlimg_add_layer_norm(const void* x, const void* d, const void* sc
   if (rows <= 0) return 0;
   if (cols <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!instance_width(cols))
+  if (!instance_width(cols) || dtype == kDtypeF16)
     return with_any_width<true>(dtype, [&](auto w) {
       return decltype(w)::launch(x, d, scale, bias, s_out, out, rows, cols, eps, s);
     });

@@ -140,7 +140,8 @@ cudaError_t launch_gather_probe(const T* table, const int* idx, float* out, int 
 
 }  // namespace dlimg
 
-// table: (rows, lanes) contiguous, float32 or bfloat16; idx: (rows, lanes)
+// table: (rows, lanes) contiguous, float32, bfloat16 or float16 (the
+// loads of a 2-byte element, as bf16); idx: (rows, lanes)
 // int32 contiguous; out: (rows, lanes) float32. rows * 32 bytes must fit a
 // block's shared memory (rows <= 7264).
 extern "C" int dlimg_gather_probe(const void* table, const void* idx, void* out, int rows,
@@ -158,5 +159,8 @@ extern "C" int dlimg_gather_probe(const void* table, const void* idx, void* out,
   if (dtype == dlimg::kDtypeBF16)
     return dlimg::launch_gather_probe(static_cast<const __nv_bfloat16*>(table), ip, op,
                                       rows, lanes, reps, row_chunks, s);
+  if (dtype == dlimg::kDtypeF16)
+    return dlimg::launch_gather_probe(static_cast<const __half*>(table), ip, op, rows,
+                                      lanes, reps, row_chunks, s);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // K2: LeViT-bias window attention (TinyViT), exact softmax: the C entry
 // point, which picks the body by dtype. bf16, the main path's dtype, runs
-// in levit_attention_tc.cu (mma.sync bf16), float32 in
-// levit_attention_f32tc.cu (mma.sync TF32 in three passes); both on one
+// in levit_attention_tc.cu (mma.sync bf16), float16 on the same body in
+// levit_attention_tc_f16.cu (mma.sync f16), float32 in
+// levit_attention_f32tc.cu (mma.sync TF32 in three passes); all on one
 // tiling, whose notes give the bound and the design.
 //
 // Replaces the TPU kernel dlimgedit_tpu/ops/flash_attention.py:531
@@ -17,10 +18,12 @@
 
 namespace dlimg {
 
-// bf16 and float32 K2 on the tensor cores (levit_attention_tc.cu,
-// levit_attention_f32tc.cu); the launch's error.
+// bf16, float16 and float32 K2 on the tensor cores (levit_attention_tc.cu,
+// levit_attention_tc_f16.cu, levit_attention_f32tc.cu); the launch's error.
 cudaError_t levit_attention_tc(const void* qkv, const void* bias, void* out, int g, int n,
                                int nh, float scale, cudaStream_t stream);
+cudaError_t levit_attention_tc_f16(const void* qkv, const void* bias, void* out, int g, int n,
+                                   int nh, float scale, cudaStream_t stream);
 cudaError_t levit_attention_f32tc(const void* qkv, const void* bias, void* out, int g, int n,
                                   int nh, float scale, cudaStream_t stream);
 
@@ -40,5 +43,7 @@ extern "C" int dlimg_levit_attention(const void* qkv, const void* bias, void* ou
     return dlimg::levit_attention_f32tc(qkv, bias, out, g, n, nh, scale, s);
   if (dtype == dlimg::kDtypeBF16)
     return dlimg::levit_attention_tc(qkv, bias, out, g, n, nh, scale, s);
+  if (dtype == dlimg::kDtypeF16)
+    return dlimg::levit_attention_tc_f16(qkv, bias, out, g, n, nh, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -11,7 +11,7 @@
 //   out = p . v                       float32 accumulation
 // with q, k, v = the head's three kd-column slices of the qkv linear's
 // output row, out the head's kd columns of an nh * kd row. bf16 runs in
-// levit_attention_tc.cu, on the same tiling.
+// levit_attention_tc.cuh, on the same tiling.
 //
 // Three TF32 passes, as relpos_attention_f32tc.cu (float32 K4, K5, K6)
 // does and for its reasons (tests/test_torch_tf32x3.py emulates them on
@@ -27,7 +27,7 @@
 // TB/s) against 0.44, 0.61 and 0.31 GFLOP (three passes at a third of the
 // 495 TFLOP/s TF32 peak: 2.7, 3.7 and 1.9 us).
 //
-// Design (levit_attention_tc.cu's tiling, f32tc's fragments):
+// Design (levit_attention_tc.cuh's tiling, f32tc's fragments):
 // - One block of 4 warps per (window, head, up to 64 query rows); a warp
 //   owns one 16-row stripe. N = 49 is one block of 4 stripes a group;
 //   N = 196 has 13 stripes over 4 blocks, each staging the group's K and V

@@ -3,8 +3,9 @@
 //
 // This file holds the three C entry points, each of which picks its body by
 // dtype: in bf16 (the ViT main paths' dtype) all three run on the tensor
-// cores in relpos_attention_tc.cu; in float32 all three run on the tensor
-// cores in three TF32 passes (relpos_attention_f32tc.cu).
+// cores in relpos_attention_tc.cu, in float16 on the same bodies in
+// relpos_attention_tc_f16.cu; in float32 all three run on the tensor cores
+// in three TF32 passes (relpos_attention_f32tc.cu).
 //
 // K4 (`dlimg_relpos_attention_global`) replaces the TPU kernel
 // dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped` (Pallas
@@ -69,6 +70,13 @@ int relpos_entry(const RelposArgs& a, int g, int hd, int dtype, void* stream) {
       return relpos_global_tc(a, g, hd, s);
     } else {
       return relpos_windowed_tc(a, g, hd, s);
+    }
+  } else if (dtype == kDtypeF16) {
+    // float16 on the same bodies (relpos_attention_tc_f16.cu).
+    if constexpr (KIND == kRelposGlobal) {
+      return relpos_global_tc_f16(a, g, hd, s);
+    } else {
+      return relpos_windowed_tc_f16(a, g, hd, s);
     }
   }
   return cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // Arguments shared by the rel-pos attention kernels: K4, K5, K7 (entry
 // points in relpos_attention.cu) and K6 (entry point in
-// window_strip_attention.cu). bf16 runs on the tensor cores in
-// relpos_attention_tc.cu, float32 on the tensor cores in three TF32 passes
-// in relpos_attention_f32tc.cu.
+// window_strip_attention.cu). bf16 and float16 run on the tensor cores
+// (relpos_attention_tc.cuh's bodies; relpos_attention_tc*.cu), float32 on
+// the tensor cores in three TF32 passes in relpos_attention_f32tc.cu.
 #pragma once
 
 #include "common.cuh"
@@ -64,6 +64,16 @@ cudaError_t window_strip_tc(const StripArgs& a, int batch, int hd, cudaStream_t 
 cudaError_t relpos_global_tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t relpos_windowed_tc_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
 cudaError_t window_strip_tc_pad(const StripArgs& a, int batch, int hd, cudaStream_t stream);
+
+// float16 K4, K5 / K7 and K6: the same bodies with .f16 products
+// (relpos_attention_tc_f16.cu at hd 64 and 80, relpos_attention_tc_f16_pad.cu
+// at the other widths); the same arguments.
+cudaError_t relpos_global_tc_f16(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_windowed_tc_f16(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t window_strip_tc_f16(const StripArgs& a, int batch, int hd, cudaStream_t stream);
+cudaError_t relpos_global_tc_f16_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t relpos_windowed_tc_f16_pad(const RelposArgs& a, int g, int hd, cudaStream_t stream);
+cudaError_t window_strip_tc_f16_pad(const StripArgs& a, int batch, int hd, cudaStream_t stream);
 
 // float32 K4, K5, K7 and K6 on the tensor cores in three TF32 passes
 // (relpos_attention_f32tc.cu at hd 64 and 80, relpos_attention_f32tc_pad.cu

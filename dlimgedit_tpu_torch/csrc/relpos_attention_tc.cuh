@@ -1,10 +1,12 @@
-// The bodies of the bf16 tensor-core kernels K4, K5, K7 and K6: the
-// design is the note below. relpos_attention_tc.cu instantiates them at
-// hd 64 and 80, relpos_attention_tc_pad.cu at the padded widths.
+// The bodies of the bf16 and float16 tensor-core kernels K4, K5, K7 and K6:
+// the design is the note below. relpos_attention_tc.cu instantiates them
+// in bf16 at hd 64 and 80, relpos_attention_tc_pad.cu in bf16 at the
+// padded widths; relpos_attention_tc_f16.cu and relpos_attention_tc_f16_pad.cu
+// likewise in float16.
 //
-// K4, K5, K7 and K6 in bfloat16 on Hopper's tensor cores: attention with
-// the decomposed relative-position bias of the SAM ViT encoders, exact
-// softmax.
+// K4, K5, K7 and K6 in bfloat16 and float16 on Hopper's tensor cores:
+// attention with the decomposed relative-position bias of the SAM ViT
+// encoders, exact softmax.
 //
 // K4 (`relpos_global_tc`, kernel `relpos_global_kernel_tc`) replaces the TPU
 // kernel dlimgedit_tpu/ops/flash_attention.py:139 `_attention_grouped`: the
@@ -24,7 +26,15 @@
 // three TF32 passes); the head notes of relpos_attention.cu and
 // window_strip_attention.cu give the arithmetic. This file computes the same functions with the JAX rounding:
 // scores and softmax in float32, p normalised in float32 and then rounded
-// to bf16, p . v accumulated in float32.
+// to the activation dtype, p . v accumulated in float32.
+//
+// Element types. Every body is templated on its 16-bit element type T,
+// __nv_bfloat16 or __half (`Half2<T>`, tensor_core.cuh): JAX rounds
+// float16 where it rounds bf16 (Precision.HIGHEST is for float32 only;
+// products accumulate in float32; p and K6's bias halves are rounded to
+// the input dtype), so a float16 kernel is the bf16 one with `.f16` in
+// its mma.sync and wgmma products and float16 roundings. Both have the
+// same instances.
 //
 // What bounds them on an H100. K4 at ViT-B: 4 G N^2 hd = 51.5 GFLOP of
 // minimal products (52 us at the bf16 peak) against ~25 MB moved (7.5 us),
@@ -116,6 +126,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "relpos_attention.cuh"
 #include "tensor_core.cuh"
 
@@ -159,111 +171,133 @@ __device__ __forceinline__ void fence_operands(float (&d)[R][C]) {
     for (int j = 0; j < C; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
 
+// The wgmma products below write their element type's name ("bf16" or
+// "f16") into one instruction text.
+#define DLIMG_WGMMA_SS_64x64(TY)                                                              \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                         \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),          \
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),          \
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),          \
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),          \
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),          \
+        "+f"(d[7][2]), "+f"(d[7][3])                                                        \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+#define DLIMG_WGMMA_RS_N64(TY)                                                                \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "    \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                           \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),          \
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),          \
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),          \
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),          \
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),          \
+        "+f"(d[7][2]), "+f"(d[7][3])                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define DLIMG_WGMMA_RS_N80(TY)                                                                \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "                                            \
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"                                           \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),          \
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),          \
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),          \
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),          \
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),          \
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),          \
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define DLIMG_WGMMA_RS_N32(TY)                                                                \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "              \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                           \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),          \
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),          \
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),          \
+        "+f"(d[3][3])                                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
+
 // d (+)= a . b for a 64 x 64 x 16 tile of the warpgroup, a and b K-major
-// in shared memory; d in the mma.sync C layout for each warp's 16 rows,
-// d[i] covering columns 8i .. 8i + 7.
+// in shared memory, elements of type T; d in the mma.sync C layout for
+// each warp's 16 rows, d[i] covering columns 8i .. 8i + 7.
+template <typename T>
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[8][4], uint64_t desc_a,
                                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsF16<T>) {
+    DLIMG_WGMMA_SS_64x64("f16");
+  } else {
+    DLIMG_WGMMA_SS_64x64("bf16");
+  }
+}
+
+// Output tiles T0 .. N - 1 of d (8 columns a tile) as an array of their own.
+template <int T0, int N>
+__device__ __forceinline__ float (&tiles_from(float (&d)[N][4]))[N - T0][4] {
+  return *reinterpret_cast<float(*)[N - T0][4]>(&d[T0]);
 }
 
 // d += a . b for a 64 x N x 16 tile of the warpgroup (N = 32, 64, 80, 96
 // or 128, the head width), a (this warp's 16 rows, the mma.sync A-fragment
-// layout) in registers, b MN-major (transposed) in shared memory.
-template <int N>
+// layout) in registers, b MN-major (transposed) in shared memory, elements
+// of type T. N = 96 and 128 are two products: columns 0 .. 63, then the
+// rest from the core matrix 8 columns on (core matrices lie 128 bytes
+// apart along N, so the descriptor's address moves 1024 bytes).
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_64xNx16_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                                                 uint64_t desc_b);
-
-template <>
-__device__ __forceinline__ void wgmma_64xNx16_rs<64>(float (&d)[8][4], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+                                                 uint64_t desc_b) {
+  if constexpr (N == 96) {
+    wgmma_64xNx16_rs<T, 64>(*reinterpret_cast<float(*)[8][4]>(&d[0]), a, desc_b);
+    wgmma_64xNx16_rs<T, 32>(tiles_from<8>(d), a, desc_b + 64);
+  } else if constexpr (N == 128) {
+    wgmma_64xNx16_rs<T, 64>(*reinterpret_cast<float(*)[8][4]>(&d[0]), a, desc_b);
+    wgmma_64xNx16_rs<T, 64>(tiles_from<8>(d), a, desc_b + 64);
+  } else if constexpr (N == 64) {
+    if constexpr (kIsF16<T>) {
+      DLIMG_WGMMA_RS_N64("f16");
+    } else {
+      DLIMG_WGMMA_RS_N64("bf16");
+    }
+  } else if constexpr (N == 80) {
+    if constexpr (kIsF16<T>) {
+      DLIMG_WGMMA_RS_N80("f16");
+    } else {
+      DLIMG_WGMMA_RS_N80("bf16");
+    }
+  } else {
+    static_assert(N == 32, "head widths 32, 64, 80, 96 and 128");
+    if constexpr (kIsF16<T>) {
+      DLIMG_WGMMA_RS_N32("f16");
+    } else {
+      DLIMG_WGMMA_RS_N32("bf16");
+    }
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_64xNx16_rs<80>(float (&d)[10][4], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
-        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_64xNx16_rs<32>(float (&d)[4][4], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// Output tiles T .. N - 1 of d (8 columns a tile) as an array of their own.
-template <int T, int N>
-__device__ __forceinline__ float (&tiles_from(float (&d)[N][4]))[N - T][4] {
-  return *reinterpret_cast<float(*)[N - T][4]>(&d[T]);
-}
-
-// N = 96 and 128 as two products: columns 0 .. 63, then the rest from the
-// core matrix 8 columns on (core matrices lie 128 bytes apart along N, so
-// the descriptor's address moves 1024 bytes).
-template <>
-__device__ __forceinline__ void wgmma_64xNx16_rs<96>(float (&d)[12][4], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  wgmma_64xNx16_rs<64>(*reinterpret_cast<float(*)[8][4]>(&d[0]), a, desc_b);
-  wgmma_64xNx16_rs<32>(tiles_from<8>(d), a, desc_b + 64);
-}
-
-template <>
-__device__ __forceinline__ void wgmma_64xNx16_rs<128>(float (&d)[16][4], const uint32_t (&a)[4],
-                                                      uint64_t desc_b) {
-  wgmma_64xNx16_rs<64>(*reinterpret_cast<float(*)[8][4]>(&d[0]), a, desc_b);
-  wgmma_64xNx16_rs<64>(tiles_from<8>(d), a, desc_b + 64);
-}
+#undef DLIMG_WGMMA_SS_64x64
+#undef DLIMG_WGMMA_RS_N64
+#undef DLIMG_WGMMA_RS_N80
+#undef DLIMG_WGMMA_RS_N32
 
 template <int C>
 __device__ __forceinline__ void fence_operands(uint32_t (&r)[C][4]) {
@@ -279,7 +313,7 @@ __device__ __forceinline__ void fence_operands(uint32_t (&r)[C][4]) {
 
 constexpr int kWinThreads = 128;  // 4 warps, each taking 16-row stripes in turn
 
-// The bias halves of the window body, in shared memory as bf16 rows of
+// The bias halves of the window body, in shared memory as 16-bit rows of
 // kBiasCols: a query row's [bh (16 columns) | bw (16)], and a key's one-hot
 // [ky | 16 + kx] (zero past n), so that the bias is two more depth steps
 // of the score product (`window_tc_body`). Windows of up to 16 x 16.
@@ -288,14 +322,15 @@ constexpr int kBiasCols = 2 * kBiasSide + 8;  // + 8: 16-byte rows on distinct b
 
 // Where a group of K5 or K7 keeps its rows: q, k, v and out rows r at
 // r * hd from their pointers (hd = HD, or with PAD the rows' own head width:
-// `HeadWidth`); the caller's bf16 bias halves, n x (gh + gw).
-template <int HD, bool PAD>
+// `HeadWidth`); the caller's bias halves, n x (gh + gw); elements of type T.
+template <typename T, int HD, bool PAD>
 struct DenseRows : HeadWidth<HD, PAD> {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
-  const bf16* bhw;
+  using Elem = T;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
+  const T* bhw;
 
   __device__ __forceinline__ size_t in(int r) const {
     return static_cast<size_t>(r) * this->width();
@@ -303,38 +338,39 @@ struct DenseRows : HeadWidth<HD, PAD> {
   __device__ __forceinline__ size_t out_off(int r) const { return in(r); }
 
   // The kept rows' bias halves, zero-padded to 16 columns each.
-  __device__ __forceinline__ void stage_bias(bf16* ba, int nq, int gh, int gw, int tid, int,
+  __device__ __forceinline__ void stage_bias(T* ba, int nq, int gh, int gw, int tid, int,
                                              int) const {
     const int ghw = gh + gw;
     for (int e = tid; e < nq * kBiasSide; e += kWinThreads) {
       const int r = e / kBiasSide, c = 2 * (e - r * kBiasSide);  // c, c + 1 < 32
       const int half = c / kBiasSide, cc = c - half * kBiasSide;
       const int lim = half ? gw : gh;
-      const bf16* src = bhw + static_cast<size_t>(r) * ghw + (half ? gh : 0) + cc;
-      const bf16 zero = __float2bfloat16_rn(0.f);
-      __nv_bfloat162 w;
+      const T* src = bhw + static_cast<size_t>(r) * ghw + (half ? gh : 0) + cc;
+      const T zero = from_float<T>(0.f);
+      typename Half2<T>::Pair w;
       w.x = cc < lim ? src[0] : zero;
       w.y = cc + 1 < lim ? src[1] : zero;
-      *reinterpret_cast<__nv_bfloat162*>(ba + r * kBiasCols + c) = w;
+      *reinterpret_cast<typename Half2<T>::Pair*>(ba + r * kBiasCols + c) = w;
     }
   }
 };
 
 // c[t] += (rows r0, r1 of A) . (rows t0, t1 of B)^T for one 16 x 16 tile
 // over HD: A rows gr (r0) and gr + 8 (r1), B rows gr (t0, columns 0 .. 7)
-// and 8 + gr (t1, columns 8 .. 15), each row HD contiguous bf16 in device
-// memory. A dot product does not care in which order its HD terms are
+// and 8 + gr (t1, columns 8 .. 15), each row HD contiguous values of type T
+// in device memory. A dot product does not care in which order its HD terms are
 // summed, so A and B share a permutation of the head dims that lets each
 // lane read 16 bytes a row: in depth step 2j (2j + 1) the lane's four
 // k slots {2gq, 2gq + 1, 2gq + 8, 2gq + 9} hold dims 32j + 8gq + 0 .. 3
 // (4 .. 7); at hd 80 the last step holds dims 64 + 4gq + 0 .. 3 (8 bytes).
 // With PAD the rows hold hd < HD dims: the 16-byte pieces past hd are zeros.
-template <int HD, bool PAD>
-__device__ __forceinline__ void bias_tile(float (&c)[2][4], const bf16* r0, const bf16* r1,
-                                          const bf16* t0, const bf16* t1, int gq, int hd) {
+template <typename T, int HD, bool PAD>
+__device__ __forceinline__ void bias_tile(float (&c)[2][4], const T* r0, const T* r1,
+                                          const T* t0, const T* t1, int gq, int hd) {
   static_assert(!PAD || HD % 32 == 0, "padded widths are whole depth-step pairs");
+  using H = Half2<T>;
   constexpr int PAIRS = HD / 32;
-  const bf16* rows[4] = {r0, r1, t0, t1};
+  const T* rows[4] = {r0, r1, t0, t1};
   uint4 w[4][PAIRS];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -346,11 +382,11 @@ __device__ __forceinline__ void bias_tile(float (&c)[2][4], const bf16* r0, cons
 #pragma unroll
   for (int j = 0; j < PAIRS; ++j) {
     const uint32_t lo[4] = {w[0][j].x, w[1][j].x, w[0][j].y, w[1][j].y};
-    mma_bf16(c[0], lo, w[2][j].x, w[2][j].y);
-    mma_bf16(c[1], lo, w[3][j].x, w[3][j].y);
+    H::mma(c[0], lo, w[2][j].x, w[2][j].y);
+    H::mma(c[1], lo, w[3][j].x, w[3][j].y);
     const uint32_t hi[4] = {w[0][j].z, w[1][j].z, w[0][j].w, w[1][j].w};
-    mma_bf16(c[0], hi, w[2][j].z, w[2][j].w);
-    mma_bf16(c[1], hi, w[3][j].z, w[3][j].w);
+    H::mma(c[0], hi, w[2][j].z, w[2][j].w);
+    H::mma(c[1], hi, w[3][j].z, w[3][j].w);
   }
   if constexpr (HD % 32 != 0) {
     static_assert(HD % 32 == 16, "a last depth step of 16 dims");
@@ -359,8 +395,8 @@ __device__ __forceinline__ void bias_tile(float (&c)[2][4], const bf16* r0, cons
     for (int r = 0; r < 4; ++r)
       x[r] = __ldg(reinterpret_cast<const uint2*>(rows[r] + 32 * PAIRS + 4 * gq));
     const uint32_t a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
-    mma_bf16(c[0], a, x[2].x, x[2].y);
-    mma_bf16(c[1], a, x[3].x, x[3].y);
+    H::mma(c[0], a, x[2].x, x[2].y);
+    H::mma(c[1], a, x[3].x, x[3].y);
   }
 }
 
@@ -370,14 +406,15 @@ __device__ __forceinline__ void bias_tile(float (&c)[2][4], const bf16* r0, cons
 // for the channel slices of the qkv output), out rows `c`. Each pointer is
 // at the window's first token and the head's first channel; the tables are
 // (ws, ws, hd).
-template <int HD, bool PAD>
+template <typename T, int HD, bool PAD>
 struct WindowRows : HeadWidth<HD, PAD> {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
-  const bf16* rh;  // gathered (ws, ws, HD) tables
-  const bf16* rw;
+  using Elem = T;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
+  const T* rh;  // gathered (ws, ws, HD) tables
+  const T* rw;
   int ws, wp, ts, c;
 
   __device__ __forceinline__ size_t tok(int t) const {
@@ -389,39 +426,40 @@ struct WindowRows : HeadWidth<HD, PAD> {
 
   // The bias halves of every row, computed here as the TPU kernel does:
   // bh[i, y] = q_i . rh[y_i, y] and bw[i, x] = q_i . rw[x_i, x], float32
-  // sums of the bf16 products on mma.sync, each half rounded to bf16 on
-  // its own. Step u of a warp takes the ws tokens of window row u against
+  // sums of the products on mma.sync, each half rounded to the dtype on
+  // its own (JAX's bh.astype(qn.dtype)). Step u of a warp takes the ws tokens of window row u against
   // rh[u] (their bh) and those of window column u against rw[u] (their
   // bw), two independent 16 x 16 tiles whose 16 columns are the rows' 16
   // bias columns (those past ws written as zeros; tile rows past ws repeat
   // row ws - 1 and are dropped).
-  __device__ __forceinline__ void stage_bias(bf16* ba, int, int, int, int, int warp,
+  __device__ __forceinline__ void stage_bias(T* ba, int, int, int, int, int warp,
                                              int lane) const {
+    using H = Half2<T>;
     const int gr = lane >> 2, gq = lane & 3;
     const int m0 = min(gr, ws - 1), m1 = min(gr + 8, ws - 1);
     for (int u = warp; u < ws; u += kWinThreads / 32) {
       float c[2][2][4] = {};  // [bh, bw][columns 0 .. 7, 8 .. 15][fragment]
       const int hd = this->width();
-      const bf16* th = rh + static_cast<size_t>(u) * ws * hd;
-      const bf16* tw = rw + static_cast<size_t>(u) * ws * hd;
-      bias_tile<HD, PAD>(c[0], q + in(u * ws + m0), q + in(u * ws + m1), th + m0 * hd,
-                         th + m1 * hd, gq, hd);
-      bias_tile<HD, PAD>(c[1], q + in(m0 * ws + u), q + in(m1 * ws + u), tw + m0 * hd,
-                         tw + m1 * hd, gq, hd);
+      const T* th = rh + static_cast<size_t>(u) * ws * hd;
+      const T* tw = rw + static_cast<size_t>(u) * ws * hd;
+      bias_tile<T, HD, PAD>(c[0], q + in(u * ws + m0), q + in(u * ws + m1), th + m0 * hd,
+                            th + m1 * hd, gq, hd);
+      bias_tile<T, HD, PAD>(c[1], q + in(m0 * ws + u), q + in(m1 * ws + u), tw + m0 * hd,
+                            tw + m1 * hd, gq, hd);
       // c[h][t][e]: tile row gr (+ 8 for e >= 2), column 8 t + 2 gq + (e & 1).
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int m = gr + 8 * hi;
         if (m >= ws) continue;
-        bf16* rowh = ba + (u * ws + m) * kBiasCols + 2 * gq;
-        bf16* roww = ba + (m * ws + u) * kBiasCols + kBiasSide + 2 * gq;
+        T* rowh = ba + (u * ws + m) * kBiasCols + 2 * gq;
+        T* roww = ba + (m * ws + u) * kBiasCols + kBiasSide + 2 * gq;
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
           const int col = 8 * t + 2 * gq;
           const float* ch = c[0][t] + 2 * hi;
           const float* cw = c[1][t] + 2 * hi;
-          st_u32(rowh + 8 * t, pack_bf16(col < ws ? ch[0] : 0.f, col + 1 < ws ? ch[1] : 0.f));
-          st_u32(roww + 8 * t, pack_bf16(col < ws ? cw[0] : 0.f, col + 1 < ws ? cw[1] : 0.f));
+          st_u32(rowh + 8 * t, H::pack(col < ws ? ch[0] : 0.f, col + 1 < ws ? ch[1] : 0.f));
+          st_u32(roww + 8 * t, H::pack(col < ws ? cw[0] : 0.f, col + 1 < ws ? cw[1] : 0.f));
         }
       }
     }
@@ -446,6 +484,8 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
                                                const int n, const int gh, const int gw,
                                                const int nq, const float alpha,
                                                const float gamma) {
+  using T = typename Rows::Elem;
+  using H = Half2<T>;
   constexpr bool PAD = Rows::kPad;
   constexpr int OP = HD > 80 ? 2 : 1;  // column parts of p . v
   constexpr int PW = HD / OP;          // columns a part
@@ -458,10 +498,10 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
   constexpr int CPR = HD / 8;      // 16-byte chunks of a row
   constexpr int BS = kBiasCols;
   const int hd = g.width();
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // NP x KS
-  bf16* vs = ks + NP * KS;                       // NP x KS
-  bf16* oh = vs + NP * KS;                       // NP x BS: keys' one-hot rows
-  bf16* ba = oh + NP * BS;                       // NP x BS: rows' bias halves (nq staged)
+  T* ks = reinterpret_cast<T*>(smem_raw);  // NP x KS
+  T* vs = ks + NP * KS;                    // NP x KS
+  T* oh = vs + NP * KS;                    // NP x BS: keys' one-hot rows
+  T* ba = oh + NP * BS;                    // NP x BS: rows' bias halves (nq staged)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, gq = lane & 3;
@@ -477,7 +517,7 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
   for (int e = tid; e < NP * kBiasSide; e += kWinThreads) {  // one-hot pairs
     const int j = e / kBiasSide, c = 2 * (e - j * kBiasSide);
     const int ky = j / gw, hit = c < kBiasSide ? ky : kBiasSide + j - ky * gw;
-    const uint32_t one = 0x3f80u;  // bf16 1.0
+    const uint32_t one = H::kOne;  // 1.0 in the dtype
     st_u32(oh + j * BS + c, j >= n ? 0u : hit == c ? one : hit == c + 1 ? one << 16 : 0u);
   }
   g.stage_bias(ba, nq, gh, gw, tid, warp, lane);
@@ -501,8 +541,8 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
     // their results are never stored).
     uint32_t qa[KSTEPS][4];
     {
-      const bf16* q0 = g.q + g.in(min(r0, n - 1)) + 2 * gq;
-      const bf16* q1 = g.q + g.in(min(r1, n - 1)) + 2 * gq;
+      const T* q0 = g.q + g.in(min(r0, n - 1)) + 2 * gq;
+      const T* q1 = g.q + g.in(min(r1, n - 1)) + 2 * gq;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         const bool lo = !PAD || 16 * kk < hd, hi = !PAD || 16 * kk + 8 < hd;
@@ -524,8 +564,8 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
         uint32_t b[4];
         ldsm_x4(b, ks + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * KS + 16 * kk +
                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+        H::mma(s[2 * jp], qa[kk], b[0], b[1]);
+        H::mma(s[2 * jp + 1], qa[kk], b[2], b[3]);
       }
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -544,8 +584,8 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
         uint32_t b[4];
         ldsm_x4(b, oh + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * BS + 16 * kb +
                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], a, b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+        H::mma(s[2 * jp], a, b[0], b[1]);
+        H::mma(s[2 * jp + 1], a, b[2], b[3]);
       }
     }
 
@@ -575,7 +615,7 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
     }
     const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
 
-    // p rounded to bf16, straight into the A fragments of p . v; output
+    // p rounded to the dtype, straight into the A fragments of p . v; output
     // columns part * PW .. part * PW + PW - 1.
 #pragma unroll
     for (int part = 0; part < OP; ++part) {
@@ -586,17 +626,17 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
         for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < NP / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0] * i0, s[2 * kk][1] * i0),
-                                pack_bf16(s[2 * kk][2] * i1, s[2 * kk][3] * i1),
-                                pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
-                                pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
+        const uint32_t pa[4] = {H::pack(s[2 * kk][0] * i0, s[2 * kk][1] * i0),
+                                H::pack(s[2 * kk][2] * i1, s[2 * kk][3] * i1),
+                                H::pack(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
+                                H::pack(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
 #pragma unroll
         for (int dp = 0; dp < DT / 2; ++dp) {
           uint32_t b[4];
           ldsm_x4_trans(b, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * KS +
                                part * PW + 16 * dp + (lane >> 4) * 8);
-          mma_bf16(o[2 * dp], pa, b[0], b[1]);
-          mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+          H::mma(o[2 * dp], pa, b[0], b[1]);
+          H::mma(o[2 * dp + 1], pa, b[2], b[3]);
         }
       }
       // The output tile goes out through this stripe's bias rows (read above
@@ -605,15 +645,15 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
       // 4-byte stores straight from the accumulators were a large share of
       // its time.)
       constexpr int HW = PW / 2, CH = HW / 8;  // columns, 16-byte chunks a half row
-      bf16* stage = ba + 16 * st * BS;
+      T* stage = ba + 16 * st * BS;
       __syncwarp();
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int dt = h * DT / 2; dt < (h + 1) * DT / 2; ++dt) {
           const int c = 8 * dt - h * HW + 2 * gq;
-          st_u32(stage + gr * BS + c, r0 < nq ? pack_bf16(o[dt][0], o[dt][1]) : 0u);
-          st_u32(stage + (gr + 8) * BS + c, r1 < nq ? pack_bf16(o[dt][2], o[dt][3]) : 0u);
+          st_u32(stage + gr * BS + c, r0 < nq ? H::pack(o[dt][0], o[dt][1]) : 0u);
+          st_u32(stage + (gr + 8) * BS + c, r1 < nq ? H::pack(o[dt][2], o[dt][3]) : 0u);
         }
         __syncwarp();
 #pragma unroll
@@ -632,18 +672,18 @@ __device__ __forceinline__ void window_tc_body(unsigned char* smem_raw, const Ro
 
 // Three entry kernels over one body, so that a profile tells K5, K7 and K6
 // apart. K5: group g's rows at g * n, folded or plain bias, pad-query skip.
-template <int HD, int NP, bool PAD>
+template <typename T, int HD, int NP, bool PAD>
 __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(RelposArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, g = blockIdx.x;
   const size_t hd = PAD ? a.hd : HD;
   const size_t base = static_cast<size_t>(g) * n;
-  const DenseRows<HD, PAD> rows{{a.hd},
-                                static_cast<const bf16*>(a.q) + base * hd,
-                                static_cast<const bf16*>(a.k) + base * hd,
-                                static_cast<const bf16*>(a.v) + base * hd,
-                                static_cast<bf16*>(a.out) + base * hd,
-                                static_cast<const bf16*>(a.bhw) + base * (a.gh + a.gw)};
+  const DenseRows<T, HD, PAD> rows{{a.hd},
+                                   static_cast<const T*>(a.q) + base * hd,
+                                   static_cast<const T*>(a.k) + base * hd,
+                                   static_cast<const T*>(a.v) + base * hd,
+                                   static_cast<T*>(a.out) + base * hd,
+                                   static_cast<const T*>(a.bhw) + base * (a.gh + a.gw)};
   const int nq = g >= a.g_skip ? min(a.n_valid, n) : n;  // rows whose output is kept
   window_tc_body<HD, NP>(smem_raw, rows, n, a.gh, a.gw, nq, a.folded ? 1.f : a.scale,
                          a.folded ? a.scale * kLog2e : kLog2e);
@@ -652,7 +692,7 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_window_kernel_tc(Relpos
 // K7: group g = (window w, head h) reads q, k, v in place from the
 // (W, 3, nh, n, HD) qkv at w 3 nh n + h n and one and two nh n further;
 // output and bias halves at g * n. Plain bias, every row kept.
-template <int HD, int NP, bool PAD>
+template <typename T, int HD, int NP, bool PAD>
 __global__ void __launch_bounds__(kWinThreads, 2) relpos_qkv_kernel_tc(RelposArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, nh = a.qkv_heads, g = blockIdx.x;
@@ -660,17 +700,17 @@ __global__ void __launch_bounds__(kWinThreads, 2) relpos_qkv_kernel_tc(RelposArg
   const size_t hn = static_cast<size_t>(nh) * n;
   const size_t qbase = static_cast<size_t>(g / nh) * 3 * hn + static_cast<size_t>(g % nh) * n;
   const size_t base = static_cast<size_t>(g) * n;
-  const bf16* qkv = static_cast<const bf16*>(a.q);
-  const DenseRows<HD, PAD> rows{{a.hd}, qkv + qbase * hd, qkv + (qbase + hn) * hd,
-                                qkv + (qbase + 2 * hn) * hd, static_cast<bf16*>(a.out) + base * hd,
-                                static_cast<const bf16*>(a.bhw) + base * (a.gh + a.gw)};
+  const T* qkv = static_cast<const T*>(a.q);
+  const DenseRows<T, HD, PAD> rows{{a.hd}, qkv + qbase * hd, qkv + (qbase + hn) * hd,
+                                   qkv + (qbase + 2 * hn) * hd, static_cast<T*>(a.out) + base * hd,
+                                   static_cast<const T*>(a.bhw) + base * (a.gh + a.gw)};
   window_tc_body<HD, NP>(smem_raw, rows, n, a.gh, a.gw, n, a.scale, kLog2e);
 }
 
 // K6: block g = ((b, wy, wx) window, head), head fastest; every token of
 // the padded grid is a query and a key (no skip), the bias halves are
 // computed in the block.
-template <int HD, int NP, bool PAD>
+template <typename T, int HD, int NP, bool PAD>
 __global__ void __launch_bounds__(kWinThreads, 2) window_strip_kernel_tc(StripArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ws = a.ws, nwx = a.wp / ws, nwy = a.hp / ws;
@@ -680,14 +720,14 @@ __global__ void __launch_bounds__(kWinThreads, 2) window_strip_kernel_tc(StripAr
   const size_t tok0 = (static_cast<size_t>(b) * a.hp + wy * ws) * a.wp + wx * ws;
   const size_t in0 = tok0 * a.ts + static_cast<size_t>(head) * hd;
   const size_t out0 = tok0 * a.c + static_cast<size_t>(head) * hd;
-  const WindowRows<HD, PAD> rows{{static_cast<int>(hd)},
-                                 static_cast<const bf16*>(a.q) + in0,
-                            static_cast<const bf16*>(a.k) + in0,
-                            static_cast<const bf16*>(a.v) + in0,
-                            static_cast<bf16*>(a.out) + out0,
-                            static_cast<const bf16*>(a.rh),
-                            static_cast<const bf16*>(a.rw),
-                            ws, a.wp, a.ts, a.c};
+  const WindowRows<T, HD, PAD> rows{{static_cast<int>(hd)},
+                                    static_cast<const T*>(a.q) + in0,
+                                    static_cast<const T*>(a.k) + in0,
+                                    static_cast<const T*>(a.v) + in0,
+                                    static_cast<T*>(a.out) + out0,
+                                    static_cast<const T*>(a.rh),
+                                    static_cast<const T*>(a.rw),
+                                    ws, a.wp, a.ts, a.c};
   window_tc_body<HD, NP>(smem_raw, rows, ws * ws, ws, ws, ws * ws, a.scale, kLog2e);
 }
 
@@ -698,7 +738,7 @@ template <int HD, int NP, class Args>
 cudaError_t launch_window_tc(void (*kernel)(Args), const Args& a, long long blocks,
                              cudaStream_t stream) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(bf16) * 2 * NP * (HD + 8 + kBiasCols);
+  const size_t smem = 2 * 2 * NP * (HD + 8 + kBiasCols);  // 2-byte elements
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -708,11 +748,11 @@ cudaError_t launch_window_tc(void (*kernel)(Args), const Args& a, long long bloc
   return cudaGetLastError();
 }
 
-template <int HD, int NP, bool PAD>
+template <typename T, int HD, int NP, bool PAD>
 cudaError_t launch_relpos_window_tc(const RelposArgs& a, int g, cudaStream_t stream) {
   return a.qkv_heads > 0
-             ? launch_window_tc<HD, NP>(&relpos_qkv_kernel_tc<HD, NP, PAD>, a, g, stream)
-             : launch_window_tc<HD, NP>(&relpos_window_kernel_tc<HD, NP, PAD>, a, g, stream);
+             ? launch_window_tc<HD, NP>(&relpos_qkv_kernel_tc<T, HD, NP, PAD>, a, g, stream)
+             : launch_window_tc<HD, NP>(&relpos_window_kernel_tc<T, HD, NP, PAD>, a, g, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -724,7 +764,7 @@ constexpr int kGlbBK = 64;                 // keys a tile
 constexpr int kGlbStages = 5;              // K tiles, and V tiles, in shared memory
 constexpr int kGlbAhead = kGlbStages - 1;  // tiles loaded ahead of the one read
 
-// Row stride (elements) of the block's bf16 bias halves in shared memory:
+// Row stride (elements) of the block's 16-bit bias halves in shared memory:
 // 16-byte rows of more than ghw columns and a word stride of 4 mod 32, so
 // that the bw pairs of a warp (8 rows x 4 lanes) fall on 32 banks.
 __host__ __device__ inline int glb_bias_stride(int ghw) { return (ghw + 56) / 64 * 64 + 8; }
@@ -774,16 +814,17 @@ struct GlbAcc {
 // stage a load overwrites held the tile of the step before, whose products
 // every warpgroup retired before this step's barrier. With PAD, rows of
 // hd < HD dims (a padded instance): q, K and V columns past hd load as zeros.
-template <int HD, bool GRID_ROW, bool PAD>
+template <typename T, int HD, bool GRID_ROW, bool PAD>
 struct GlobalCtx {
   using L = GlbLayout<HD>;
+  using H = Half2<T>;
   static constexpr int CPR = HD / 8;
-  bf16* ks;           // kGlbStages K tiles
-  bf16* vs;           // kGlbStages V tiles
-  const bf16* b0r;    // bias halves of this lane's two rows (shared or device memory)
-  const bf16* b1r;
-  const bf16* k;
-  const bf16* v;
+  T* ks;           // kGlbStages K tiles
+  T* vs;           // kGlbStages V tiles
+  const T* b0r;    // bias halves of this lane's two rows (shared or device memory)
+  const T* b1r;
+  const T* k;
+  const T* v;
   uint64_t desc_q;    // this warpgroup's 64 q rows
   int n, n_tiles, gh, gw, tid, lane;
   float scale;
@@ -793,8 +834,8 @@ struct GlobalCtx {
   // K or V tile t into its stage as wgmma's core matrices (key r, dims
   // 8c .. 8c + 7 at chunk core_chunk(r, c)); consecutive threads write
   // consecutive 16-byte chunks. K is read K-major, V MN-major.
-  __device__ __forceinline__ void load_tile(bf16* stages, const bf16* src, int t) const {
-    bf16* dst = stages + (t % kGlbStages) * L::TILE;
+  __device__ __forceinline__ void load_tile(T* stages, const T* src, int t) const {
+    T* dst = stages + (t % kGlbStages) * L::TILE;
     for (int e = tid; e < kGlbBK * CPR; e += L::THREADS) {
       const int key = t * kGlbBK + (e >> 3) / CPR * 8 + (e & 7);
       const int col = (e >> 3) % CPR * 8;
@@ -833,7 +874,8 @@ struct GlobalCtx {
     fence_operands(s);  // no register copy may land between the fence and the products
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) wgmma_64x64x16(s, desc_q + 16 * kk, desc_k + 16 * kk, kk);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_64x64x16<T>(s, desc_q + 16 * kk, desc_k + 16 * kk, kk);
     wgmma_commit();
     fence_operands(s);
   }
@@ -849,10 +891,10 @@ struct GlobalCtx {
       for (int j = 0; j < 8; ++j) {
         const uint32_t w0 = *reinterpret_cast<const uint32_t*>(b0r + gh + 8 * j + 2 * gq);
         const uint32_t w1 = *reinterpret_cast<const uint32_t*>(b1r + gh + 8 * j + 2 * gq);
-        s[j][0] = fmaf(s[j][0], scale, bf_lo(w0));
-        s[j][1] = fmaf(s[j][1], scale, bf_hi(w0));
-        s[j][2] = fmaf(s[j][2], scale, bf_lo(w1));
-        s[j][3] = fmaf(s[j][3], scale, bf_hi(w1));
+        s[j][0] = fmaf(s[j][0], scale, H::lo(w0));
+        s[j][1] = fmaf(s[j][1], scale, H::hi(w0));
+        s[j][2] = fmaf(s[j][2], scale, H::lo(w1));
+        s[j][3] = fmaf(s[j][3], scale, H::hi(w1));
       }
     } else {
 #pragma unroll
@@ -866,8 +908,10 @@ struct GlobalCtx {
           // and the float32 product errs by less for kk below 2^22.
           const int ky = __float2int_rz((static_cast<float>(kk) + 0.5f) * inv_gw);
           const int kx = gh + kk - ky * gw;
-          s[j][e] = ok ? fmaf(s[j][e], scale, bf(b0r[ky]) + bf(b0r[kx])) : -INFINITY;
-          s[j][2 + e] = ok ? fmaf(s[j][2 + e], scale, bf(b1r[ky]) + bf(b1r[kx])) : -INFINITY;
+          s[j][e] = ok ? fmaf(s[j][e], scale, to_float(b0r[ky]) + to_float(b0r[kx]))
+                       : -INFINITY;
+          s[j][2 + e] = ok ? fmaf(s[j][2 + e], scale, to_float(b1r[ky]) + to_float(b1r[kx]))
+                           : -INFINITY;
         }
       }
     }
@@ -875,8 +919,8 @@ struct GlobalCtx {
 
   __device__ __forceinline__ void row_half(int t, float& h0, float& h1) const {
     if constexpr (GRID_ROW) {  // tile t is grid row t
-      h0 = bf(b0r[t]);
-      h1 = bf(b1r[t]);
+      h0 = to_float(b0r[t]);
+      h1 = to_float(b1r[t]);
     } else {
       h0 = h1 = 0.f;
     }
@@ -906,7 +950,7 @@ struct GlobalCtx {
   }
 
   // Pass 2 on tile t: p = 2^((u + h) log2 e - m) with m = max log2 e +
-  // log2 l (so p is normalised), rounded to bf16 straight into the A
+  // log2 l (so p is normalised), rounded to the dtype straight into the A
   // fragments of p . v.
   __device__ __forceinline__ void probabilities(const float (&s)[8][4], int t, const float (&m)[2],
                                                 uint32_t (&pa)[4][4]) const {
@@ -918,8 +962,8 @@ struct GlobalCtx {
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const float(&r)[4] = s[2 * kk + hi];
-        pa[kk][2 * hi] = pack_bf16(ex2(fmaf(r[0], kLog2e, c0)), ex2(fmaf(r[1], kLog2e, c0)));
-        pa[kk][2 * hi + 1] = pack_bf16(ex2(fmaf(r[2], kLog2e, c1)), ex2(fmaf(r[3], kLog2e, c1)));
+        pa[kk][2 * hi] = H::pack(ex2(fmaf(r[0], kLog2e, c0)), ex2(fmaf(r[1], kLog2e, c0)));
+        pa[kk][2 * hi + 1] = H::pack(ex2(fmaf(r[2], kLog2e, c1)), ex2(fmaf(r[3], kLog2e, c1)));
       }
     }
   }
@@ -934,7 +978,7 @@ struct GlobalCtx {
     fence_operands(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_64xNx16_rs<HD>(o, pa[kk], desc_v + 2 * HD * kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_64xNx16_rs<T, HD>(o, pa[kk], desc_v + 2 * HD * kk);
     wgmma_commit();
     fence_operands(pa);
     fence_operands(o);
@@ -1024,17 +1068,18 @@ struct GlobalCtx {
   }
 };
 
-template <int HD, bool GRID_ROW, bool PAD>
+template <typename T, int HD, bool GRID_ROW, bool PAD>
 __global__ void __launch_bounds__(GlbLayout<HD>::THREADS, 1) relpos_global_kernel_tc(RelposArgs a) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
   using L = GlbLayout<HD>;
+  using H = Half2<T>;
   constexpr int CPR = HD / 8;
   constexpr int kGlbBM = L::BM, kGlbThreads = L::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kGlbBM q rows, core matrices
-  bf16* ks = qs + L::Q_ROWS;                     // kGlbStages K tiles
-  bf16* vs = ks + kGlbStages * L::TILE;          // kGlbStages V tiles
-  bf16* bs = vs + kGlbStages * L::TILE;          // kGlbBM x bstr bias halves
+  T* qs = reinterpret_cast<T*>(smem_raw);  // kGlbBM q rows, core matrices
+  T* ks = qs + L::Q_ROWS;                  // kGlbStages K tiles
+  T* vs = ks + kGlbStages * L::TILE;       // kGlbStages V tiles
+  T* bs = vs + kGlbStages * L::TILE;       // kGlbBM x bstr bias halves
   const int n = a.n, gh = a.gh, ghw = gh + a.gw;
   const int bstr = glb_bias_stride(ghw);
   // The bias rows in shared memory where they fit (always on a grid-row
@@ -1045,19 +1090,19 @@ __global__ void __launch_bounds__(GlbLayout<HD>::THREADS, 1) relpos_global_kerne
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hd = PAD ? a.hd : HD;
   const size_t base = static_cast<size_t>(g) * n;
-  const bf16* q = static_cast<const bf16*>(a.q) + base * hd;
-  const bf16* bhw = static_cast<const bf16*>(a.bhw) + (base + q0) * ghw;
-  bf16* out = static_cast<bf16*>(a.out) + base * hd;
+  const T* q = static_cast<const T*>(a.q) + base * hd;
+  const T* bhw = static_cast<const T*>(a.bhw) + (base + q0) * ghw;
+  T* out = static_cast<T*>(a.out) + base * hd;
   const int n_tiles = (n + kGlbBK - 1) / kGlbBK;
   const int rows = min(kGlbBM, n - q0);      // the block's query rows below n
   const int r0 = warp * 16 + (lane >> 2);  // this lane's rows in the block: r0, r0 + 8
   // In place, rows past n repeat row n - 1 (their results are never stored).
-  const bf16* b0r = bias_smem ? bs + r0 * bstr : bhw + min(r0, rows - 1) * ghw;
-  const bf16* b1r = bias_smem ? bs + (r0 + 8) * bstr : bhw + min(r0 + 8, rows - 1) * ghw;
+  const T* b0r = bias_smem ? bs + r0 * bstr : bhw + min(r0, rows - 1) * ghw;
+  const T* b1r = bias_smem ? bs + (r0 + 8) * bstr : bhw + min(r0 + 8, rows - 1) * ghw;
 
-  const GlobalCtx<HD, GRID_ROW, PAD> c{
+  const GlobalCtx<T, HD, GRID_ROW, PAD> c{
       ks, vs, b0r, b1r,
-      static_cast<const bf16*>(a.k) + base * hd, static_cast<const bf16*>(a.v) + base * hd,
+      static_cast<const T*>(a.k) + base * hd, static_cast<const T*>(a.v) + base * hd,
       gmma_desc(qs + (warp >> 2) * 64 * HD, 128, 16 * HD), n, n_tiles, gh, a.gw, tid, lane,
       a.scale, 1.f / static_cast<float>(a.gw), hd};
 
@@ -1131,9 +1176,9 @@ __global__ void __launch_bounds__(GlbLayout<HD>::THREADS, 1) relpos_global_kerne
     const int col = 8 * dt + 2 * (lane & 3);
     if (PAD && 8 * dt >= hd) continue;
     if (row0 < n)
-      st_u32(out + static_cast<size_t>(row0) * hd + col, pack_bf16(acc.o[dt][0], acc.o[dt][1]));
+      st_u32(out + static_cast<size_t>(row0) * hd + col, H::pack(acc.o[dt][0], acc.o[dt][1]));
     if (row1 < n)
-      st_u32(out + static_cast<size_t>(row1) * hd + col, pack_bf16(acc.o[dt][2], acc.o[dt][3]));
+      st_u32(out + static_cast<size_t>(row1) * hd + col, H::pack(acc.o[dt][2], acc.o[dt][3]));
   }
 }
 
@@ -1142,15 +1187,15 @@ __global__ void __launch_bounds__(GlbLayout<HD>::THREADS, 1) relpos_global_kerne
 // than kMaxSmem (q and the stages alone take 104 KB at hd 64, 130 KB at hd
 // 80). The general kernel's keys are below 2^22 (the index arithmetic of
 // `add_bias`).
-template <int HD, bool GRID_ROW, bool PAD>
+template <typename T, int HD, bool GRID_ROW, bool PAD>
 cudaError_t launch_global_tc(const RelposArgs& a, int g, cudaStream_t stream) {
   using L = GlbLayout<HD>;
   const int ghw = a.gh + a.gw;
   if constexpr (GRID_ROW) {
-    if (!L::bias_fits(ghw)) return launch_global_tc<HD, false, PAD>(a, g, stream);
+    if (!L::bias_fits(ghw)) return launch_global_tc<T, HD, false, PAD>(a, g, stream);
   }
   if (!GRID_ROW && a.n >= (1 << 22)) return cudaErrorInvalidValue;
-  auto kernel = &relpos_global_kernel_tc<HD, GRID_ROW, PAD>;
+  auto kernel = &relpos_global_kernel_tc<T, HD, GRID_ROW, PAD>;
   const size_t smem = L::bytes(ghw, GRID_ROW || L::bias_fits(ghw));
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1163,29 +1208,78 @@ cudaError_t launch_global_tc(const RelposArgs& a, int g, cudaStream_t stream) {
 // K4 at head width HD (rows of a.hd dims with PAD): a key tile is one grid
 // row when gw == 64; gh even keeps the bw pairs 4-byte aligned in shared
 // memory.
-template <int HD, bool PAD>
+template <typename T, int HD, bool PAD>
 cudaError_t global_tc(const RelposArgs& a, int g, cudaStream_t stream) {
   const bool row = a.gw == kGlbBK && a.gh % 2 == 0;
-  return row ? launch_global_tc<HD, true, PAD>(a, g, stream)
-             : launch_global_tc<HD, false, PAD>(a, g, stream);
+  return row ? launch_global_tc<T, HD, true, PAD>(a, g, stream)
+             : launch_global_tc<T, HD, false, PAD>(a, g, stream);
 }
 
 // K5 / K7 at head width HD: windows of up to 16 x 16, score rows of 208
 // keys up to 208 (14 x 14 windows: 13 stripes), else 256.
-template <int HD, bool PAD>
+template <typename T, int HD, bool PAD>
 cudaError_t windowed_tc(const RelposArgs& a, int g, cudaStream_t stream) {
   if (a.gh > kBiasSide || a.gw > kBiasSide) return cudaErrorInvalidValue;
-  return a.n <= 208 ? launch_relpos_window_tc<HD, 208, PAD>(a, g, stream)
-                    : launch_relpos_window_tc<HD, 256, PAD>(a, g, stream);
+  return a.n <= 208 ? launch_relpos_window_tc<T, HD, 208, PAD>(a, g, stream)
+                    : launch_relpos_window_tc<T, HD, 256, PAD>(a, g, stream);
 }
 
 // K6 at head width HD: windows of up to 14 x 14 tokens (the caller checks
 // ws * ws <= 208).
-template <int HD, bool PAD>
+template <typename T, int HD, bool PAD>
 cudaError_t strip_tc(const StripArgs& a, int batch, cudaStream_t stream) {
   if (a.ws > 14) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(batch) * (a.hp / a.ws) * (a.wp / a.ws) * a.nh;
-  return launch_window_tc<HD, 208>(&window_strip_kernel_tc<HD, 208, PAD>, a, blocks, stream);
+  return launch_window_tc<HD, 208>(&window_strip_kernel_tc<T, HD, 208, PAD>, a, blocks, stream);
+}
+
+// The instances of element type T at hd 64 and 80 (the ViTs' widths), and
+// at a padded width (every other multiple of 8 up to 128). Each
+// relpos_attention_tc*.cu file compiles one element type at one of the two
+// sets of widths, so that the four build in parallel.
+template <typename T>
+cudaError_t global_at_instance_width(const RelposArgs& a, int g, int hd, cudaStream_t s) {
+  return hd == 64 ? global_tc<T, 64, false>(a, g, s) : global_tc<T, 80, false>(a, g, s);
+}
+
+template <typename T>
+cudaError_t windowed_at_instance_width(const RelposArgs& a, int g, int hd, cudaStream_t s) {
+  return hd == 64 ? windowed_tc<T, 64, false>(a, g, s) : windowed_tc<T, 80, false>(a, g, s);
+}
+
+template <typename T>
+cudaError_t strip_at_instance_width(const StripArgs& a, int batch, int hd, cudaStream_t s) {
+  return hd == 64 ? strip_tc<T, 64, false>(a, batch, s) : strip_tc<T, 80, false>(a, batch, s);
+}
+
+template <typename T>
+cudaError_t global_at_padded_width(const RelposArgs& a, int g, int hd, cudaStream_t s) {
+  switch (padded_head_width(hd)) {
+    case 32: return global_tc<T, 32, true>(a, g, s);
+    case 96: return global_tc<T, 96, true>(a, g, s);
+    case 128: return global_tc<T, 128, true>(a, g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t windowed_at_padded_width(const RelposArgs& a, int g, int hd, cudaStream_t s) {
+  switch (padded_head_width(hd)) {
+    case 32: return windowed_tc<T, 32, true>(a, g, s);
+    case 96: return windowed_tc<T, 96, true>(a, g, s);
+    case 128: return windowed_tc<T, 128, true>(a, g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t strip_at_padded_width(const StripArgs& a, int batch, int hd, cudaStream_t s) {
+  switch (padded_head_width(hd)) {
+    case 32: return strip_tc<T, 32, true>(a, batch, s);
+    case 96: return strip_tc<T, 96, true>(a, batch, s);
+    case 128: return strip_tc<T, 128, true>(a, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

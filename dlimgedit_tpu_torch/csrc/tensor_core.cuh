@@ -1,10 +1,11 @@
-// Device helpers of the port's tensor-core kernels (relpos_attention_tc.cu:
-// bf16 K4, K5, K7, K6; levit_attention_tc.cu: bf16 K2;
-// relpos_attention_f32tc.cu: float32 K4, K5, K6; levit_attention_f32tc.cu:
-// float32 K2): 16-byte cp.async, ldmatrix, the mma.sync m16n8k16 bf16
-// product, the TF32 split and the m16n8k8 TF32 product in three passes,
-// ex2, bf16 packing, and the reductions over the 4 lanes that share a row
-// of an mma accumulator.
+// Device helpers of the port's tensor-core kernels (relpos_attention_tc.cuh:
+// bf16 and float16 K4, K5, K7, K6; levit_attention_tc.cuh: bf16 and float16
+// K2; relpos_attention_f32tc.cuh: float32 K4, K5, K6, K7;
+// levit_attention_f32tc.cu: float32 K2): 16-byte cp.async, ldmatrix, the
+// mma.sync m16n8k16 bf16 and float16 products, the TF32 split and the
+// m16n8k8 TF32 product in three passes, ex2, the packing of two 16-bit
+// values (`Half2<T>`), and the reductions over the 4 lanes that share a
+// row of an mma accumulator.
 #pragma once
 
 #include <stdint.h>
@@ -37,13 +38,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -54,6 +55,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b for one 16 x 8 x 16 tile (float16 in, float32 accumulate).
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -107,11 +118,52 @@ __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-__device__ __forceinline__ uint32_t ldg_u32(const bf16* p) {
+// Two floats rounded to float16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// What the bf16 and float16 tensor-core bodies do with their element type
+// T: the m16n8k16 product, two floats rounded into one 32-bit pair (`lo`
+// the lower column), the float value of a pair's low and high half, the
+// bits of 1.0, and the two-element vector type. JAX rounds float16 where it rounds bf16 (only float32
+// takes Precision.HIGHEST), so one body serves both.
+template <typename T> struct Half2;
+
+template <> struct Half2<bf16> {
+  using Pair = __nv_bfloat162;
+  static constexpr uint32_t kOne = 0x3f80u;
+  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    mma_bf16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+  static __device__ __forceinline__ float lo(uint32_t v) { return bf_lo(v); }
+  static __device__ __forceinline__ float hi(uint32_t v) { return bf_hi(v); }
+};
+
+template <> struct Half2<__half> {
+  using Pair = __half2;
+  static constexpr uint32_t kOne = 0x3c00u;
+  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    mma_f16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_f16(lo, hi); }
+  static __device__ __forceinline__ float lo(uint32_t v) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v & 0xffffu)));
+  }
+  static __device__ __forceinline__ float hi(uint32_t v) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v >> 16)));
+  }
+};
+
+__device__ __forceinline__ uint32_t ldg_u32(const void* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-__device__ __forceinline__ void st_u32(bf16* p, uint32_t v) {
+__device__ __forceinline__ void st_u32(void* p, uint32_t v) {
   *reinterpret_cast<uint32_t*>(p) = v;
 }
 

@@ -4,7 +4,8 @@
 // computed in the kernel, exact softmax. This file holds the C entry
 // point, which picks the body by dtype: bf16 (the ViT's dtype) runs on the
 // tensor cores in relpos_attention_tc.cu (`window_strip_kernel_tc`,
-// mma.sync bf16), float32 in relpos_attention_f32tc.cu
+// mma.sync bf16), float16 on the same body in relpos_attention_tc_f16.cu,
+// float32 in relpos_attention_f32tc.cu
 // (`window_strip_kernel_f32tc`, mma.sync TF32 in three passes).
 //
 // Replaces the TPU kernel dlimgedit_tpu/ops/flash_attention.py:646
@@ -51,5 +52,6 @@ extern "C" int dlimg_window_strip_attention(const void* q, const void* k, const 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dlimg::kDtypeF32) return dlimg::window_strip_f32tc(a, b, hd, s);
   if (dtype == dlimg::kDtypeBF16) return dlimg::window_strip_tc(a, b, hd, s);
+  if (dtype == dlimg::kDtypeF16) return dlimg::window_strip_tc_f16(a, b, hd, s);
   return cudaErrorInvalidValue;
 }

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_norm import layer_norm_plain
-from ..ops.quant import dequantize_weight, int8_linear
+from ..ops.quant import dequantize_weight, int8_linear, pad_int8_weight
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -108,13 +108,23 @@ class QuantLinear(nn.Module):
     is an (in, out) view of column-major storage: cuBLASLt's fast int8
     kernels take the product only in that layout ("TN"); with a row-major
     weight ``torch._int_mm`` falls back to a kernel ~5x slower on an
-    H100."""
+    H100. cuBLASLt's int8 product takes only widths that are multiples of
+    8: where in or out is not one, the module also holds ``w_q8_mm``,
+    ``w_q8`` with zero rows and columns up to them, column-major
+    (``ops/quant.py::pad_int8_weight``), the weight ``int8_linear``
+    multiplies by. It is a non-persistent buffer: no leaf of the tree, it
+    moves with the module, and ``load_state_dict`` writes it again, in
+    place, from the ``w_q8`` it loads."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor,
                  b: Optional[torch.Tensor] = None, act_int8: bool = False):
         super().__init__()
         if act_int8:
             self.w_q8 = _param(w_q.t().contiguous().t())
+            if w_q.shape[0] % 8 or w_q.shape[1] % 8:
+                self.register_buffer("w_q8_mm", pad_int8_weight(w_q),
+                                     persistent=False)
+                self.register_load_state_dict_post_hook(_pad_loaded_w_q8)
         else:
             self.w_q = _param(w_q)
         self.w_scale = _param(w_scale)
@@ -123,6 +133,12 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(self, x)
+
+
+def _pad_loaded_w_q8(module: QuantLinear, incompatible_keys) -> None:
+    K, N = module.w_q8.shape
+    with torch.no_grad():
+        module.w_q8_mm[:K, :N].copy_(module.w_q8)
 
 
 class Conv(nn.Module):

@@ -34,8 +34,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
-# Element-type codes of the C entry points (csrc/common.cuh).
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+# Element-type codes of the C entry points (csrc/common.cuh): the dtypes
+# every kernel takes (P1, greedy_nms, takes float32 boxes only).
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
+KERNEL_DTYPES = "float32, bfloat16 or float16"
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int

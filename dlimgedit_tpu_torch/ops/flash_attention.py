@@ -3,16 +3,17 @@
 Counterpart of dlimgedit_tpu/ops/flash_attention.py:
 
   * ``levit_window_attention`` (K2; JAX :531): TinyViT's window attention
-    with a static per-head bias, on the tensor cores in bf16
-    (``csrc/levit_attention_tc.cu``) and in float32, every product in three
+    with a static per-head bias, on the tensor cores in bf16 and float16
+    (``csrc/levit_attention_tc.cuh``; ``levit_attention_tc.cu``,
+    ``levit_attention_tc_f16.cu``) and in float32, every product in three
     TF32 passes (``csrc/levit_attention_f32tc.cu``);
   * ``flash_attention_relpos`` (JAX :443): the SAM ViT's attention with the
     decomposed relative-position bias, routed as in JAX to
     ``relpos_attention_windowed`` (K5; JAX ``_attention_head_fused``, :307)
     for windows (N <= 256 with ``heads`` given) and to
     ``relpos_attention_global`` (K4; JAX ``_attention_grouped``, :139)
-    otherwise, and a bf16 window wider than the tensor-core K5 takes to K4
-    (``relpos_route``);
+    otherwise, and a bf16 or float16 window wider than the tensor-core K5
+    takes to K4 (``relpos_route``);
   * ``windowed_attention_qkv`` (JAX :382): windows whose q, k, v are the
     components of one (W, 3, nh, N, hd) tensor, through
     ``relpos_attention_qkv`` (K7, a third entry point beside K4 and K5;
@@ -22,11 +23,13 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     ``fused_window_blocks`` path, windows read in place from the padded
     NHWC q, k, v, bias halves computed in the kernel.
 
-In bf16 K4, K5, K7 and K6 run on the tensor cores
-(``csrc/relpos_attention_tc.cuh``; K5, K7 and K6 share one ``mma.sync``
-body). In float32 they run on the tensor cores with every product in three
-TF32 passes (``csrc/relpos_attention_f32tc.cuh``, one body). Both take
-every head width of ``KERNEL_HEAD_DIMS``: 64 and 80 (the ViTs') have
+In bf16 and float16 K4, K5, K7 and K6 run on the tensor cores
+(``csrc/relpos_attention_tc.cuh``, one body for both 16-bit types, as JAX
+rounds float16 where it rounds bf16; K5, K7 and K6 share one ``mma.sync``
+body), and so does K2 (``csrc/levit_attention_tc.cuh``). In float32 they
+run on the tensor cores with every product in three TF32 passes
+(``csrc/relpos_attention_f32tc.cuh``, one body). All take every head
+width of ``KERNEL_HEAD_DIMS``: 64 and 80 (the ViTs') have
 instances of their own, the others run an instance at a padded width of
 32, 96 or 128. The C entry points are ``csrc/relpos_attention.cu`` (K4, K5,
 K7), ``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
@@ -55,7 +58,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..errors import DlimgError
-from .cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
+from .cuda_build import (DTYPE_CODES, KERNEL_DTYPES, LIBRARY, check_launch,
+                         kernel_operand)
 
 # The K2 kernels' head width and largest window (csrc/levit_attention.cu,
 # the entry point of csrc/levit_attention_tc.cu and _f32tc.cu).
@@ -66,13 +70,13 @@ KERNEL_MAX_TOKENS = 256
 # run an instance at a padded width of 32, 96 or 128
 # (csrc/relpos_attention.cuh ``padded_head_width``).
 KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
-# The largest window side the bf16 K5 and K7 take (csrc/relpos_attention_tc.cu
-# kBiasSide: 16 bias columns a half, score rows of up to 256 keys); the
-# routers send wider bf16 windows to K4.
+# The largest window side the bf16 and float16 K5 and K7 take
+# (csrc/relpos_attention_tc.cuh kBiasSide: 16 bias columns a half, score rows
+# of up to 256 keys); the routers send wider 16-bit windows to K4.
 WINDOW_MAX_SIDE = 16
-# The largest window K6 takes (csrc/window_strip_attention.cu; the bf16
-# instances of csrc/relpos_attention_tc.cu hold score rows of 208 keys):
-# SAM's 14 x 14 windows.
+# The largest window K6 takes (csrc/window_strip_attention.cu; the bf16 and
+# float16 instances of csrc/relpos_attention_tc.cuh hold score rows of 208
+# keys): SAM's 14 x 14 windows.
 STRIP_MAX_TOKENS = 208
 
 
@@ -114,7 +118,7 @@ def _check(qkv, bias, num_heads):
         return kd
     if str(qkv.dtype) not in DTYPE_CODES or bias.dtype != qkv.dtype:
         raise DlimgError(f"levit_window_attention: the CUDA kernel takes "
-                         f"float32 or bfloat16 qkv and bias of one dtype, got "
+                         f"{KERNEL_DTYPES} qkv and bias of one dtype, got "
                          f"{qkv.dtype} and {bias.dtype}")
     if kd != KERNEL_HEAD_DIM or not 0 < N <= KERNEL_MAX_TOKENS:
         raise DlimgError(f"levit_window_attention: the CUDA kernel takes "
@@ -266,7 +270,7 @@ def _check_relpos(name, q, k, v, bhw, grid_h, grid_w):
         return
     if str(q.dtype) not in DTYPE_CODES or any(t.dtype != q.dtype
                                               for t in tensors):
-        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+        raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"inputs of one dtype")
     _check_head_dim(name, hd)
 
@@ -278,10 +282,10 @@ def _check_head_dim(name, hd):
 
 
 def _check_window_side(name, dtype, grid_h, grid_w):
-    if dtype == torch.bfloat16 and max(grid_h, grid_w) > WINDOW_MAX_SIDE:
-        raise DlimgError(f"{name}: the bf16 CUDA kernel takes windows of at "
-                         f"most {WINDOW_MAX_SIDE} x {WINDOW_MAX_SIDE} tokens, "
-                         f"got {grid_h} x {grid_w}")
+    if not _window_fits(dtype, grid_h, grid_w):
+        raise DlimgError(f"{name}: the {dtype} CUDA kernel takes windows of "
+                         f"at most {WINDOW_MAX_SIDE} x {WINDOW_MAX_SIDE} "
+                         f"tokens, got {grid_h} x {grid_w}")
 
 
 def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
@@ -361,9 +365,9 @@ def _jax_window(G: int, N: int, heads: Optional[int]) -> bool:
 
 
 def _window_fits(dtype: torch.dtype, grid_h: int, grid_w: int) -> bool:
-    """Whether K5 / K7 take a window of this grid: the bf16 (tensor-core)
+    """Whether K5 / K7 take a window of this grid: the bf16 and float16
     body takes sides of at most WINDOW_MAX_SIDE, float32 any."""
-    return dtype != torch.bfloat16 or max(grid_h, grid_w) <= WINDOW_MAX_SIDE
+    return dtype == torch.float32 or max(grid_h, grid_w) <= WINDOW_MAX_SIDE
 
 
 def relpos_route(dtype: torch.dtype, G: int, grid_h: int, grid_w: int,
@@ -371,7 +375,7 @@ def relpos_route(dtype: torch.dtype, G: int, grid_h: int, grid_w: int,
     """The kernel ``flash_attention_relpos`` runs on G groups of a
     grid_h x grid_w grid: "windowed" (K5) where JAX routes to its windowed
     kernel and the window fits K5, else "global" (K4; its general bias path
-    for a bf16 window with a side above WINDOW_MAX_SIDE)."""
+    for a bf16 or float16 window with a side above WINDOW_MAX_SIDE)."""
     if (_jax_window(G, grid_h * grid_w, heads)
             and _window_fits(dtype, grid_h, grid_w)):
         return "windowed"
@@ -390,10 +394,11 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel K5 runs, with the folded bias when hd + gh + gw <= 128 and the
     pad-query skip given by n_w / valid_rows; otherwise the global kernel
     K4. The routing is JAX's (flash_attention.py:464), except that a bf16
-    window with a side above WINDOW_MAX_SIDE goes to K4 (``relpos_route``):
-    there the bias is unfolded (at hd 64 the scale 1/8 is a power of two,
-    so both forms round alike) and the skipped pad-query rows are zeroed
-    afterwards, as JAX's windowed kernel leaves them."""
+    or float16 window with a side above WINDOW_MAX_SIDE goes to K4
+    (``relpos_route``): there the bias is unfolded (at hd 64 the scale 1/8
+    is a power of two, so both forms round alike) and the skipped
+    pad-query rows are zeroed afterwards, as JAX's windowed kernel leaves
+    them."""
     G, N, hd = q.shape
     if rh.dim() == 2:
         rh_g, rw_g = _gathered_tables(rh, rw, grid_h, grid_w, q.dtype)
@@ -454,7 +459,7 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     if not qkv.is_cuda:
         raise DlimgError(f"{name}: unsupported device {qkv.device}")
     if str(qkv.dtype) not in DTYPE_CODES or bhw.dtype != qkv.dtype:
-        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+        raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"inputs of one dtype")
     _check_head_dim(name, hd)
     _check_window_side(name, qkv.dtype, grid_h, grid_w)
@@ -482,9 +487,9 @@ def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
     qkv: (W, 3, nh, N, hd) window-major; rh / rw raw (2*g-1, hd) or
     gathered (g, g, hd) tables. Returns (W, nh, N, hd). The bias halves
     come from the q component, unscaled, outside the kernel (JAX :413-417);
-    the attention is ``relpos_attention_qkv`` (K7), or for a bf16 window
-    with a side above WINDOW_MAX_SIDE K4's general bias path on the copied
-    q, k, v components (the same function)."""
+    the attention is ``relpos_attention_qkv`` (K7), or for a bf16 or
+    float16 window with a side above WINDOW_MAX_SIDE K4's general bias path
+    on the copied q, k, v components (the same function)."""
     W, _, nh, N, hd = qkv.shape
     if rh.dim() == 2:
         rh_g, rw_g = _gathered_tables(rh, rw, grid_h, grid_w, qkv.dtype)
@@ -612,7 +617,7 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
         raise DlimgError(f"{name}: unsupported device {q.device}")
     if str(q.dtype) not in DTYPE_CODES or any(t.dtype != q.dtype
                                               for t in (k, v)):
-        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+        raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"q, k, v of one dtype")
     B, Hp, Wp, C = q.shape
     _check_head_dim(name, hd)

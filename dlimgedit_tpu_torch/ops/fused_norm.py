@@ -6,7 +6,9 @@ CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/fused_layer_norm.cu`` (one read and one write of each activation,
 float32 statistics in registers; the kernels move 16 bytes a lane at a
 time, so every operand goes through ``kernel_operand``: dense and on a
-16-byte boundary). Any width C >= 1 is taken: the widths of
+16-byte boundary). The kernels take float32, bfloat16 and float16 (JAX
+rounds float16 as bf16: float32 statistics, the output rounded once, K3's
+s rounded and read back). Any width C >= 1 is taken: the widths of
 ``KERNEL_WIDTHS`` have instances of their own, other widths a masked
 last chunk (rows of up to 160 chunks on 4-32 lanes) or a block a row
 (wider rows). On a CPU tensor it computes the plain PyTorch version,
@@ -19,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..errors import DlimgError
-from .cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
+from .cuda_build import (DTYPE_CODES, KERNEL_DTYPES, LIBRARY, check_launch,
+                         kernel_operand)
 
 # Row widths with instances of their own in csrc/fused_layer_norm.cu (the
 # main paths' widths): TinyViT's stages (128, 160, 320) and its neck (256);
@@ -68,8 +71,8 @@ def _check(name, x, scale, bias, delta=None):
     if not x.is_cuda:
         return
     if str(x.dtype) not in DTYPE_CODES:
-        raise DlimgError(f"{name}: the CUDA kernel takes float32 or "
-                         f"bfloat16, not {x.dtype}")
+        raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES}, "
+                         f"not {x.dtype}")
     if any(t.dtype != x.dtype for t in tensors):
         raise DlimgError(f"{name}: every input must have x's dtype on CUDA")
 

@@ -16,8 +16,10 @@ are the port's kernels P2 ``quantize_rows_int8`` and P3 ``int8_epilogue``
 (``csrc/quantize_rows.cu``; port-only, since XLA fuses them on the TPU);
 on a CPU tensor they are their plain versions, JAX's
 ``quantize_activations_int8`` and the epilogue of its ``int8_linear``,
-which the kernels equal bit for bit. The s8 x s8 product itself stays a
-library call, as JAX leaves it to XLA.
+which the kernels equal bit for bit. Both take float32, bfloat16 and
+float16 activations of any width. The s8 x s8 product itself stays a
+library call, as JAX leaves it to XLA; cuBLASLt takes it only at widths
+that are multiples of 8, so ``int8_mm`` pads with zeros (exact).
 """
 
 from __future__ import annotations
@@ -28,17 +30,18 @@ import torch
 from torch import nn
 
 from ..errors import DlimgError
-from .cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
+from .cuda_build import (DTYPE_CODES, KERNEL_DTYPES, LIBRARY, check_launch,
+                         kernel_operand)
 
 # Module names (exact last path segment) eligible for quantisation: the 2-D
 # matmul weights of the attention and MLP blocks. Exact matching, so that a
 # module merely containing "proj" in its name is never caught.
 QUANT_KEYS = frozenset({"qkv", "proj", "fc1", "fc2", "lin1", "lin2"})
 
-# Row widths P2 is instantiated for (csrc/quantize_rows.cu): TinyViT's
-# token widths (128, 160, 320) and MLP widths (512, 640, 1280), the SAM
-# ViT-B, -L and -H widths (768, 1024, 1280) and MLP widths (3072, 4096,
-# 5120).
+# Row widths with P2 instances of their own (csrc/quantize_rows.cu):
+# TinyViT's token widths (128, 160, 320) and MLP widths (512, 640, 1280), the
+# SAM ViT-B, -L and -H widths (768, 1024, 1280) and MLP widths (3072, 4096,
+# 5120). Every other width runs the width-generic body.
 QUANT_ROW_WIDTHS = (128, 160, 320, 512, 640, 768, 1024, 1280, 3072, 4096, 5120)
 
 
@@ -89,7 +92,7 @@ def int8_epilogue_plain(acc: torch.Tensor, x_scale: torch.Tensor,
 
 def _check_cuda(name: str, tensors, dtype: torch.dtype) -> None:
     if str(dtype) not in DTYPE_CODES:
-        raise DlimgError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
+        raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES}, "
                          f"not {dtype}")
     if any(t.device != tensors[0].device for t in tensors):
         raise DlimgError(f"{name}: all inputs must share a device")
@@ -100,18 +103,14 @@ def quantize_rows_int8(x: torch.Tensor):
     scale float32 (..., 1)), JAX's ``quantize_activations_int8``.
 
     On a CUDA tensor it launches P2 (counted in
-    ``quantize_rows_int8.launches``; C in ``QUANT_ROW_WIDTHS``, x through
-    ``kernel_operand``); on a CPU tensor it runs
-    ``quantize_activations_int8``."""
+    ``quantize_rows_int8.launches``; any C, x through ``kernel_operand``);
+    on a CPU tensor it runs ``quantize_activations_int8``."""
     if x.device.type == "cpu":
         return quantize_activations_int8(x)
     if not x.is_cuda:
         raise DlimgError(f"quantize_rows_int8: unsupported device {x.device}")
     _check_cuda("quantize_rows_int8", (x,), x.dtype)
     C = x.shape[-1]
-    if C not in QUANT_ROW_WIDTHS:
-        raise DlimgError(f"quantize_rows_int8: no CUDA kernel for width {C} "
-                         f"(have {QUANT_ROW_WIDTHS})")
     x = kernel_operand(x)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
@@ -134,8 +133,8 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
     or None -> y (M, N) in ``dtype`` (see ``int8_epilogue_plain``).
 
     On a CUDA tensor it launches P3 (counted in ``int8_epilogue.launches``;
-    N a multiple of 4, b cast to ``dtype``); on a CPU
-    tensor it runs ``int8_epilogue_plain``. Every operand goes through
+    any N, b cast to ``dtype``); on a CPU tensor it runs
+    ``int8_epilogue_plain``. Every operand goes through
     ``kernel_operand``."""
     M, N = acc.shape
     if tuple(x_scale.shape) != (M, 1) or tuple(w_scale.shape) != (N,):
@@ -155,8 +154,6 @@ def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
             or w_scale.dtype != torch.float32):
         raise DlimgError("int8_epilogue: acc must be int32, x_scale and "
                          "w_scale float32")
-    if N % 4:
-        raise DlimgError(f"int8_epilogue: N ({N}) must be a multiple of 4")
     acc, x_scale, w_scale = (kernel_operand(t) for t in (acc, x_scale, w_scale))
     b = None if b is None else kernel_operand(b)
     y = torch.empty((M, N), dtype=dtype, device=acc.device)
@@ -187,34 +184,49 @@ def pad_rows(q: torch.Tensor, rows: int = INT8_MM_MIN_ROWS) -> torch.Tensor:
     return torch.cat([q, q.new_zeros((rows - M,) + tuple(q.shape[1:]))])
 
 
-def int8_mm(q: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact. On the card
-    cuBLASLt's int8 product needs M > 16, so fewer rows are padded with
-    zero rows and the result sliced back (``pad_rows``); K and N must be
-    multiples of 8, and another shape raises here rather than falling
-    back to a float product. It is fast only with ``w_q8`` column-major,
-    as ``QuantLinear`` stores it."""
+def _up8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def pad_int8_weight(w_q8: torch.Tensor) -> torch.Tensor:
+    """``w_q8`` (K, N) with zero rows and columns appended up to multiples
+    of 8, column-major (the layout cuBLASLt's fast int8 kernels take)."""
+    K, N = w_q8.shape
+    out = w_q8.new_zeros((_up8(N), _up8(K))).t()
+    out[:K, :N] = w_q8
+    return out
+
+
+def int8_mm(q: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """(M, K) int8 q times the first K rows and ``n`` columns of ``w``,
+    int8 (K', N') with K' >= K and N' >= n -> (M, n) int32, exact. ``w`` is
+    the weight the product runs on: a ``QuantLinear``'s ``w_q8`` or, where
+    its widths are not multiples of 8, its zero-padded ``w_q8_mm``
+    (``pad_int8_weight``). q gets zero columns up to K' (they meet the
+    weight's zero rows), and the columns beyond ``n`` are sliced off. On
+    the card cuBLASLt's int8 product needs M > 16 (fewer rows get zero
+    rows, ``pad_rows``) and K' and N' multiples of 8; it is fast only with
+    ``w`` column-major, as ``QuantLinear`` stores it."""
     M, K = q.shape
-    N = w_q8.shape[1]
-    if not q.is_cuda:
-        return torch._int_mm(q, w_q8)
-    if K % 8 or N % 8:
-        raise DlimgError(f"int8_mm: the CUDA int8 product needs K and N "
-                         f"multiples of 8, got ({M}, {K}) x ({K}, {N})")
-    return torch._int_mm(pad_rows(q), w_q8)[:M]
+    if w.shape[0] != K:
+        q = torch.nn.functional.pad(q, (0, w.shape[0] - K))
+    if q.is_cuda:
+        q = pad_rows(q)
+    return torch._int_mm(q, w)[:M, :n].contiguous()
 
 
 def int8_linear(params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """s8 x s8 -> s32 linear with dynamic per-token activation scales:
-    y = (q_x @ w_q8) * x_scale * w_scale + b, in x's dtype. ``params``
-    holds ``w_q8`` (int8 (in, out)), ``w_scale`` (float32 (out,)) and
-    optionally ``b``. The output is contiguous (..., out)."""
-    C = x.shape[-1]
+    y = (q_x @ w_q8) * x_scale * w_scale + b, in x's dtype, at any width.
+    ``params`` holds ``w_q8`` (int8 (in, out)), ``w_scale`` (float32
+    (out,)), optionally ``b``, and ``w_q8_mm`` where in or out is not a
+    multiple of 8 (``QuantLinear``). The output is contiguous (..., out)."""
+    C, N = x.shape[-1], params.w_q8.shape[1]
     q, x_scale = quantize_rows_int8(x.reshape(-1, C).contiguous())
-    acc = int8_mm(q, params.w_q8)
+    acc = int8_mm(q, getattr(params, "w_q8_mm", params.w_q8), N)
     y = int8_epilogue(acc, x_scale, params.w_scale, getattr(params, "b", None),
                       x.dtype)
-    return y.reshape(x.shape[:-1] + (y.shape[-1],))
+    return y.reshape(x.shape[:-1] + (N,))
 
 
 def quantize_encoder(encoder: nn.Module, act_int8: bool = False) -> nn.Module:

@@ -379,13 +379,16 @@ class _Replica:
         self._seen = self._versions()
 
     def _copy_pairs(self):
-        """(source view of a master leaf, replica tensor) for every
-        replica tensor that does not already share the master's memory."""
+        """(source view of a master leaf or buffer, replica tensor) for
+        every replica tensor that does not already share the master's
+        memory. Non-persistent buffers are copied too: a buffer made from
+        a weight (``QuantLinear``'s ``w_q8_mm``) follows it."""
         if self.module is self.master:
             return []
-        mine = _leaves(self.module)
+        mine = {**dict(self.module.named_buffers()), **_leaves(self.module)}
         pairs = []
-        for k, src in _leaves(self.master).items():
+        for k, src in {**dict(self.master.named_buffers()),
+                       **_leaves(self.master)}.items():
             path = k.rpartition(".")[0]
             if path in self.dims and k.endswith(".w"):
                 n = len(self.module.get_submodule(path).w_shards)

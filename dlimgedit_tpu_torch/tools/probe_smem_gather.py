@@ -33,7 +33,8 @@ from typing import Sequence
 import torch
 
 from ..errors import DlimgError
-from ..ops.cuda_build import DTYPE_CODES, LIBRARY, check_launch, kernel_operand
+from ..ops.cuda_build import (DTYPE_CODES, KERNEL_DTYPES, LIBRARY, check_launch,
+                               kernel_operand)
 
 ROWS, LANES = 4096, 128
 # Row chunks per slab: 16 chunks x 8 bf16 slabs = 128 blocks for the
@@ -57,8 +58,8 @@ def smem_gather_plain(table: torch.Tensor, idx: torch.Tensor,
 def smem_gather(table: torch.Tensor, idx: torch.Tensor,
                 reps: int) -> torch.Tensor:
     """K8 on a CUDA tensor (one launch counted in ``smem_gather.launches``),
-    ``smem_gather_plain`` on a CPU tensor. table: (rows, lanes) float32 or
-    bfloat16; idx: (rows, lanes) int32. Returns (rows, lanes) float32."""
+    ``smem_gather_plain`` on a CPU tensor. table: (rows, lanes) float32,
+    bfloat16 or float16; idx: (rows, lanes) int32. Returns (rows, lanes) float32."""
     name = "smem_gather"
     if table.dim() != 2 or tuple(idx.shape) != tuple(table.shape):
         raise DlimgError(f"{name}: table and idx must be (rows, lanes) of one "
@@ -72,8 +73,8 @@ def smem_gather(table: torch.Tensor, idx: torch.Tensor,
         raise DlimgError(f"{name}: unsupported device {table.device}")
     rows, lanes = table.shape
     if str(table.dtype) not in DTYPE_CODES or rows > MAX_ROWS:
-        raise DlimgError(f"{name}: the CUDA kernel takes a float32 or "
-                         f"bfloat16 table of at most {MAX_ROWS} rows")
+        raise DlimgError(f"{name}: the CUDA kernel takes a {KERNEL_DTYPES} "
+                         f"table of at most {MAX_ROWS} rows")
     table, idx = kernel_operand(table), kernel_operand(idx)
     out = torch.empty((rows, lanes), dtype=torch.float32, device=table.device)
     rc = LIBRARY.get().dlimg_gather_probe(

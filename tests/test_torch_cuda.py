@@ -16,7 +16,18 @@ than a warp holds), and on strided views and views that do not start on
 point still refuses them. K3's s must equal the plain x + d bit for bit,
 and K8 (the gather probe) its plain version: both sum in the same order.
 K4-K7 run at every head width other than 64 and 80 that is a multiple of
-8 up to 128 (the padded instances), and raise at 36 and 136.
+8 up to 128 (the padded instances), and raise at 36 and 136, as a
+float64 input does (no plain path and no cast on the card).
+
+Float16 (``-k float16``): every kernel the JAX functions run in float16
+(K1-K8, P2, P3) at the main paths' shapes, one launch each, against its
+plain version on the same inputs within two float16 steps at |out| < 4
+(atol 4e-3; K6 5e-3, whose bias halves round apart now and then), the
+attention kernels' mean |diff| within F16_MEAN_ATOL (a body that rounds
+p to bf16 exceeds it), K3's s, K8, P2 and P3 bit for bit. The int8
+linears at in / out widths that are not multiples of 8 (``-k any_width``):
+P2, cuBLASLt's product on the zero-padded operands and P3, the int32
+product equal to the plain one and the output to the CPU's bit for bit.
 
 K2's large-bias case (bias of scale 4, bf16) fails at 2e-2 if the bias is
 added before the scale (max |diff| ~3) or the biased score is rounded to
@@ -143,7 +154,20 @@ from dlimgedit_tpu_torch.runtime.environment import COUNTED_KERNELS, SamModelBun
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+# (LayerNorm, attention) atol by dtype. float16: two float16 steps at
+# |out| < 4 (2^-9 each); the LayerNorms' outputs reach 4, where one step is
+# 3.9e-3.
+TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2),
+       torch.float16: (4e-3, 4e-3)}
+# K6 in float16: its bias halves, summed in another order than the plain
+# version's, now and then round to float16 apart and move a logit by one
+# step at |bias| ~ 8 (4.4e-3 measured on an H100).
+F16_STRIP_ATOL = 5e-3
+# The float16 attention kernels' mean |kernel - plain|: a float16 body that
+# rounds p to bf16 moves most outputs by a step (on an H100: the bodies'
+# mean 1.3e-7 to 1.4e-6, with p rounded to bf16 1.7e-4 to 5.6e-4;
+# tools/f16_rounding_check.py).
+F16_MEAN_ATOL = 2e-5
 
 
 @pytest.fixture
@@ -513,19 +537,21 @@ def test_wide_bf16_windows_route_to_the_global_kernel(dev, hd):
 
 
 def test_kernels_raise_instead_of_falling_back(dev):
-    """What no kernel takes raises on the card (no plain version there):
-    float16, K2 at kd 16, and K4 / K5 / K7 / K6 at head widths 36 (not a
-    multiple of 8) and 136 (above 128)."""
+    """What no kernel takes raises on the card (no plain version there, no
+    cast): float64, K2 at kd 16, and K4 / K5 / K7 / K6 at head widths 36
+    (not a multiple of 8) and 136 (above 128)."""
     qkv = torch.zeros(2, 49, 4 * 3 * 16, device=dev)  # kd 16: no K2
     with pytest.raises(DlimgError):
         levit_window_attention(qkv, torch.zeros(4, 49, 49, device=dev), 4)
-    x = torch.zeros(4, 128, device=dev, dtype=torch.float16)
+    x = torch.zeros(4, 128, device=dev, dtype=torch.float64)
     with pytest.raises(DlimgError):
-        fused_layer_norm(x, torch.ones(128, device=dev, dtype=torch.float16),
-                         torch.zeros(128, device=dev, dtype=torch.float16))
+        fused_layer_norm(x, torch.ones(128, device=dev, dtype=torch.float64),
+                         torch.zeros(128, device=dev, dtype=torch.float64))
     with pytest.raises(DlimgError):
-        fused_add_layer_norm(x, x, torch.ones(128, device=dev, dtype=torch.float16),
-                             torch.zeros(128, device=dev, dtype=torch.float16))
+        fused_add_layer_norm(x, x, torch.ones(128, device=dev, dtype=torch.float64),
+                             torch.zeros(128, device=dev, dtype=torch.float64))
+    with pytest.raises(DlimgError):
+        quant.quantize_rows_int8(x)
     for hd in (36, 136):
         q = torch.zeros(2, 49, hd, device=dev)
         bhw = torch.zeros(2, 49, 14, device=dev)
@@ -541,6 +567,169 @@ def test_kernels_raise_instead_of_falling_back(dev):
             windowed_attention_fused(x, x, x, torch.zeros(7, 7, hd, device=dev),
                                      torch.zeros(7, 7, hd, device=dev), ws=7,
                                      num_heads=2)
+
+
+# -- float16: every kernel the JAX functions run in float16 ---------------
+
+def _f16(dev, shape, g, scale=1.0):
+    return (scale * torch.randn(shape, generator=g, device=dev)).to(torch.float16)
+
+
+def _f16_case(dev, case, g):
+    """(wrapper, kernel call, plain call, compare) for one float16 case at
+    a main path's shape (``F16_CASES``); compare returns the max |diff|."""
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
+    kind, shape = case.split(" ", 1)
+    dims = tuple(int(v) for v in shape.split("x"))
+    if kind in ("K1", "K3"):
+        rows, C = dims
+        x, d = _f16(dev, (rows, C), g), _f16(dev, (rows, C), g)
+        scale = (0.25 + 0.5 * torch.rand(C, generator=g, device=dev)).half()
+        bias = (0.5 * torch.rand(C, generator=g, device=dev) - 0.25).half()
+        if kind == "K1":
+            return (fused_layer_norm, lambda: fused_layer_norm(x, scale, bias, 1e-6),
+                    lambda: layer_norm_plain(x, scale, bias, 1e-6), diff)
+
+        def add_diff(a, b):
+            assert torch.equal(a[0], b[0])  # s = x + d rounded: bit for bit
+            return diff(a[1], b[1])
+        return (fused_add_layer_norm,
+                lambda: fused_add_layer_norm(x, d, scale, bias, 1e-6),
+                lambda: fused_add_layer_norm_plain(x, d, scale, bias, 1e-6), add_diff)
+    if kind == "K2":
+        G, N, nh = dims
+        qkv, bias = _f16(dev, (G, N, nh * 96), g), _f16(dev, (nh, N, N), g, 0.5)
+        return (levit_window_attention, lambda: levit_window_attention(qkv, bias, nh),
+                lambda: levit_window_attention_plain(qkv, bias, nh), diff)
+    if kind in ("K4", "K5"):
+        G, side, hd = dims
+        q, k, v = (_f16(dev, (G, side * side, hd), g) for _ in range(3))
+        rh, rw = (_f16(dev, (side, side, hd), g, 0.3) for _ in range(2))
+        if kind == "K4":
+            bhw = _bias_halves(q, rh, rw, side, side)
+            return (relpos_attention_global,
+                    lambda: relpos_attention_global(q, k, v, bhw, side, side),
+                    lambda: attention_relpos_plain(q, k, v, bhw, side, side), diff)
+        heads = 12 if hd == 64 else 16
+        bhw = _bias_halves(q, rh, rw, side, side, out_scale=hd ** 0.5)
+        return (relpos_attention_windowed,
+                lambda: relpos_attention_windowed(q, k, v, bhw, side, side, heads,
+                                                  True, 5, 8),
+                lambda: attention_relpos_plain(q, k, v, bhw, side, side, folded=True,
+                                               heads=heads, n_w=5, valid_rows=8), diff)
+    if kind == "K6":
+        grid, heads, hd = dims
+        C = heads * hd
+        qkv = _f16(dev, (1, grid, grid, 3 * C), g)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        rh, rw = (_f16(dev, (14, 14, hd), g, 0.3) for _ in range(2))
+        return (windowed_attention_fused,
+                lambda: windowed_attention_fused(q, k, v, rh, rw, ws=14, num_heads=heads),
+                lambda: windowed_attention_fused_plain(q, k, v, rh, rw, ws=14,
+                                                       num_heads=heads), diff)
+    if kind == "K7":
+        W, nh, hd = dims
+        qkv = _f16(dev, (W, 3, nh, 196, hd), g)
+        bhw = _f16(dev, (W * nh, 196, 28), g)
+        return (relpos_attention_qkv, lambda: relpos_attention_qkv(qkv, bhw, 14, 14),
+                lambda: windowed_attention_qkv_plain(qkv, bhw, 14, 14), diff)
+    if kind == "K8":
+        table, layouts = probe_inputs(dev, torch.float16)
+        idx = layouts["row-replicated" if dims == (0,) else "per-lane"]
+        return (smem_gather, lambda: smem_gather(table, idx, 8),
+                lambda: smem_gather_plain(table, idx, 8), diff)
+    if kind == "P2":
+        rows, C = dims
+        x = _activations(dev, rows, C, torch.float16, C)
+
+        def bits(a, b):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            return 0.0
+        return (quant.quantize_rows_int8, lambda: quant.quantize_rows_int8(x),
+                lambda: quant.quantize_activations_int8(x), bits)
+    rows, N = dims  # P3
+    acc = torch.randint(-2**24, 2**24, (rows, N), generator=g, device=dev,
+                        dtype=torch.int32)
+    xs = torch.rand((rows, 1), generator=g, device=dev) * 1e-2
+    ws = torch.rand((N,), generator=g, device=dev) * 1e-3
+    b = _f16(dev, (N,), g)
+    return (quant.int8_epilogue,
+            lambda: quant.int8_epilogue(acc, xs, ws, b, torch.float16),
+            lambda: quant.int8_epilogue_plain(acc, xs, ws, b, torch.float16),
+            lambda a, c: 0.0 if torch.equal(a, c) else diff(a, c) + 1.0)
+
+
+# Main paths' shapes: K1 MobileSAM's stage 1 and the ViT widths, K3 ViT-B
+# and ViT-H, K2 MobileSAM's three, K4 (heads, 64 x 64 grid, hd) and K5 (25
+# windows x heads, 14 x 14, hd) at ViT-B and ViT-H, K6 the fused ViT-B's
+# and ViT-H's (1, 70, 70) grids, K7 ViT-B's and ViT-H's windows, K8 the
+# probe's two index layouts (0 row-replicated, 1 per-lane), P2 / P3 at
+# ViT-B's qkv and fc1 linears and odd widths.
+F16_CASES = ["K1 17689x128", "K1 4096x768", "K1 1372x1280", "K3 4096x768",
+             "K3 4096x1280", "K2 361x49x4", "K2 25x196x5", "K2 100x49x10",
+             "K4 12x64x64", "K4 16x64x80", "K5 300x14x64", "K5 400x14x80",
+             "K6 70x12x64", "K6 70x16x80", "K7 25x12x64", "K7 25x16x80",
+             "K8 0", "K8 1", "P2 4096x768", "P2 4096x3072", "P2 37x100",
+             "P3 4096x2304", "P3 4096x768", "P3 37x36"]
+
+
+@pytest.mark.parametrize("case", F16_CASES)
+def test_float16_kernel_matches_plain(dev, case):
+    """Each kernel in float16 launches once (no plain path, no cast) and
+    holds its plain version on the same inputs: K3's s, K8, P2 and P3 bit
+    for bit, the others within TOL (K6 F16_STRIP_ATOL), the attention
+    kernels' mean |diff| within F16_MEAN_ATOL."""
+    g = torch.Generator(device=dev).manual_seed(len(case) * 7 + ord(case[1]))
+    wrapper, kernel, plain, compare = _f16_case(dev, case, g)
+    before = wrapper.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    out = got[0] if isinstance(got, tuple) else got
+    assert out.dtype in (torch.float16, torch.float32, torch.int8)
+    want = plain()
+    err = compare(got, want)
+    tol = {"K1": TOL[torch.float16][0], "K3": TOL[torch.float16][0],
+           "K6": F16_STRIP_ATOL, "K8": 0.0}.get(case[:2], TOL[torch.float16][1])
+    assert err <= (tol if case[0] == "K" else 0.0), (case, err)
+    if case[:2] in ("K2", "K4", "K5", "K6", "K7"):
+        mean = (got.float() - want.float()).abs().mean().item()
+        assert mean <= F16_MEAN_ATOL, (case, mean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("C,N", [(100, 36), (96, 98)])
+def test_int8_linear_any_width_on_card(dev, C, N, dtype, monkeypatch):
+    """An s8 x s8 linear whose in or out width is not a multiple of 8 runs
+    P2, cuBLASLt's int8 product on the zero-padded operands and P3 (one
+    launch each), its int32 product equal to the plain int32 product and
+    its output to the CPU's bit for bit."""
+    g = torch.Generator().manual_seed(C + N)
+    w_q, w_scale = quant.quantize_weight(0.05 * torch.randn((C, N), generator=g))
+    lin = QuantLinear(w_q, w_scale, 0.1 * torch.randn(N, generator=g),
+                      act_int8=True)
+    lin.b.data = lin.b.data.to(dtype)
+    x = torch.randn((2, 77, C), generator=g).to(dtype)
+    want = quant.int8_linear(lin, x)
+    lin = lin.to(dev)
+    products = []
+    int_mm = torch._int_mm
+
+    def counted(a, b):
+        products.append((a.shape, b.shape))
+        return int_mm(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", counted)
+    before = (quant.quantize_rows_int8.launches, quant.int8_epilogue.launches)
+    got = quant.int8_linear(lin, x.to(dev))
+    torch.cuda.synchronize()
+    assert (quant.quantize_rows_int8.launches,
+            quant.int8_epilogue.launches) == (before[0] + 1, before[1] + 1)
+    assert products == [((154, -(-C // 8) * 8), (-(-C // 8) * 8, -(-N // 8) * 8))]
+    assert got.shape == (2, 77, N) and torch.equal(got.cpu(), want)
+    q, _ = quant.quantize_rows_int8(x.to(dev).reshape(-1, C))
+    acc = quant.int8_mm(q, lin.w_q8_mm, N)
+    assert torch.equal(acc.cpu(), q.cpu().int() @ w_q.int())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1146,9 +1335,14 @@ def test_greedy_nms_raises_instead_of_falling_back(dev):
         greedy_nms(boxes, scores, torch.tensor([0.5]))  # on the host
     with pytest.raises(DlimgError):
         greedy_nms(boxes.double(), scores, torch.tensor([0.5], device=dev))
-    with pytest.raises(DlimgError):
-        greedy_nms(boxes.view(-1)[1:-3].reshape(-1, 4), scores[1:],
-                   torch.tensor([0.5], device=dev))  # not 16-byte aligned
+    # A view off 16 bytes is no refusal: the wrapper copies it
+    # (kernel_operand) and the kernel keeps what it keeps on a dense copy.
+    thresh = torch.tensor([0.5], device=dev)
+    shifted = boxes.view(-1)[1:-3].reshape(-1, 4)
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(
+        greedy_nms(shifted, scores[1:], thresh),
+        greedy_nms(shifted.clone(), scores[1:].clone(), thresh), atol=0, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1328,18 +1522,25 @@ def test_quant_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch):
     acc = torch.zeros((40, 960), dtype=torch.int32, device=dev)
     quant.int8_epilogue(acc, s, torch.ones(960, device=dev), None, x.dtype)
     torch.cuda.synchronize()
-    with pytest.raises(DlimgError, match="no CUDA kernel for width"):
-        quant.quantize_rows_int8(torch.randn((40, 96), device=dev))
-    with pytest.raises(DlimgError, match="multiples of 8"):
-        quant.int8_mm(torch.zeros((32, 324), dtype=torch.int8, device=dev),
-                      torch.zeros((324, 960), dtype=torch.int8, device=dev))
+    # Any width: a width without an instance of its own launches P2's
+    # width-generic body, and an int8 product at K = 324 (not a multiple
+    # of 8) pads with zeros, exact.
+    before = quant.quantize_rows_int8.launches
+    quant.quantize_rows_int8(torch.randn((40, 96), device=dev))
+    assert quant.quantize_rows_int8.launches == before + 1
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randint(-127, 128, (32, 324), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (324, 960), generator=gen, dtype=torch.int8)
+    assert torch.equal(
+        quant.int8_mm(q.to(dev), quant.pad_int8_weight(w.to(dev)), 960).cpu(),
+        torch._int_mm(q, w))
     # Fewer than 17 rows are padded for cuBLASLt and sliced back: exact.
     gen = torch.Generator().manual_seed(0)
     for M in (1, 4, 16):
         q = torch.randint(-127, 128, (M, 320), generator=gen, dtype=torch.int8)
         w = torch.randint(-127, 128, (320, 960), generator=gen,
                           dtype=torch.int8)
-        got = quant.int8_mm(q.to(dev), w.to(dev).t().contiguous().t())
+        got = quant.int8_mm(q.to(dev), w.to(dev).t().contiguous().t(), 960)
         assert got.shape == (M, 960)
         assert torch.equal(got.cpu(), torch._int_mm(q, w))
 
