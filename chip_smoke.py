@@ -27,6 +27,9 @@ and K2 at the bands' rows and windows):
                                                  relpos_attention.cu
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
                                                  relpos_attention_f32tc.cu (float32)
+  K2, K4-K7 at the geometries their tuned        attention_general.cu (bf16,
+  instances do not take (phase 20 only)          float16), attention_general_f32.cu
+                                                 (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
   greedy_nms (AMG's exact greedy box NMS; not    greedy_nms.cu
   a TPU kernel: JAX runs a lax.fori_loop)
@@ -44,7 +47,9 @@ printing its seconds:
      mma.sync; their float16 instances in the _f16 sources;
      relpos_attention_f32tc.cu: float32 K4, K5, K6 and K7 on mma.sync in
      three TF32 passes; levit_attention_f32tc.cu: float32 K2
-     likewise) spills or is missing from the report;
+     likewise; attention_general.cu, _f32.cu: the general attention body)
+     spills or is missing from the report; the port's C library and
+     serving library (phases 14-19) build in a thread beside it;
   2. holds each kernel against its plain PyTorch version on the card, in
      bfloat16 and float32, at every shape the main paths give it (also
      the batched shapes of phases 10 and 11: MobileSAM's K1 and K2 and
@@ -455,8 +460,19 @@ printing its seconds:
      widths that are not multiples of 8 ((100, 36), (96, 98)) in float16
      and bf16: one P2, one `torch._int_mm` on the zero-padded operands and
      one P3 a call, the int32 product equal to the plain one and the
-     output to the CPU's bit for bit; K1, K4, K5 timed at new widths; two
-     SAM ViTs with heads 32 and 128 wide against the CPU.
+     output to the CPU's bit for bit; K1, K4, K5 timed at new widths; SAM
+     ViTs with heads 32, 36, 128 and 136 wide (and at 36 once with
+     `fused_window_blocks` at window 16) against the CPU; its general
+     leg (C12's geometry): no call of phases 2-19 reached the general
+     attention body (csrc/attention_general.cuh; every wrapper's
+     `general_launches` 0), then every general policy (K2's table, K4 /
+     K5 / K7's halves, K6's computed halves) in float32, bf16 and
+     float16 at GENERAL_SHAPES against its plain version, each call one
+     launch of the general body, timed in bf16 as phase 2 times its rows
+     ("<name>/general" in the {"kernels": ...} line, one geometry each,
+     launches those of that run); a MobileSAM whose TinyViT has the 512
+     variant's windows (16, 16, 32, 16) through `process` at 1024 (K2
+     tuned at N 256, general at N 1024) against the CPU.
 
 The line before the last is one JSON object with per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. Kernel and library times are
@@ -789,18 +805,21 @@ SERVE_WINDOW_MS = 2
 # and _pad.cu: the padded head widths; float16 in _tc_f16.cu and
 # _tc_f16_pad.cu), bf16 K2 (csrc/levit_attention_tc.cu; float16 _tc_f16.cu),
 # float32 K4, K5, K6 and K7 in three TF32 passes (csrc/relpos_attention_f32tc.cu
-# and _pad.cu) and float32 K2 likewise (csrc/levit_attention_f32tc.cu):
-# phase 1 fails if one is missing from nvcc's report or spills.
+# and _pad.cu) and float32 K2 likewise (csrc/levit_attention_f32tc.cu), and
+# the general attention body (csrc/attention_general.cu, _f32.cu): phase 1
+# fails if one is missing from nvcc's report or spills.
 TC_SOURCES = {"relpos_attention_tc.cu", "relpos_attention_tc_pad.cu",
               "relpos_attention_tc_f16.cu", "relpos_attention_tc_f16_pad.cu",
               "levit_attention_tc.cu", "levit_attention_tc_f16.cu",
               "relpos_attention_f32tc.cu", "relpos_attention_f32tc_pad.cu",
-              "levit_attention_f32tc.cu"}
+              "levit_attention_f32tc.cu", "attention_general.cu",
+              "attention_general_f32.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
               "relpos_window_kernel_f32tc", "window_strip_kernel_f32tc",
-              "relpos_qkv_kernel_f32tc", "levit_window_kernel_f32tc")
+              "relpos_qkv_kernel_f32tc", "levit_window_kernel_f32tc",
+              "attention_general_kernel")
 
 TOL = {("ln", "float32"): 1e-5, ("attn", "float32"): 2e-5,
        ("ln", "bfloat16"): 2e-2, ("attn", "bfloat16"): 2e-2,
@@ -6679,12 +6698,16 @@ def seeded_birefnet(bn, torch, cfg):
 
 # Phase 20: the kernels' input ranges (C9-C11): every width and head width
 # the JAX functions take and the port's kernels now take too, in both dtypes;
-# every kernel on a strided and on a misaligned view; two SAM ViTs whose
-# heads are 32 and 128 wide.
+# every kernel on a strided and on a misaligned view; SAM ViTs whose heads
+# are 32, 36, 128 and 136 wide.
 ANY_LN_WIDTHS = (1, 3, 96, 200, 384, 1536, 2050)
 PAD_HEAD_DIMS = tuple(hd for hd in range(8, 129, 8) if hd not in (64, 80))
-# (embed, heads, depth, global blocks): head widths 32 and 128.
-ANY_VITS = ((256, 8, 4, (1, 3)), (1024, 8, 4, (1, 3)))
+# (embed, heads, depth, global blocks, window, fused_window_blocks): head
+# widths 32 and 128 (the tuned padded instances), 36 and 136 (the general
+# body: K4 and K5, and K6 on windows of 16 x 16).
+ANY_VITS = ((256, 8, 4, (1, 3), 14, False), (1024, 8, 4, (1, 3), 14, False),
+            (288, 8, 2, (1,), 14, False), (1088, 8, 2, (1,), 14, False),
+            (288, 8, 2, (1,), 16, True))
 # Timed for information (bf16 and float32; K1 rows, K4 heads of a 64 x 64
 # grid, K5 25 windows of 8 heads at 14 x 14 with the bottom row skipped).
 ANY_TIMED_LN = ((4096, 96), (4096, 384), (4096, 2050))
@@ -6982,73 +7005,146 @@ def time_any_widths(torch, ops, gpu_line):
               f"bound_ms={bound:.5f} ({100 * bound / ms:.0f}% of it)", flush=True)
 
 
-def check_any_vits(torch, np, dl, counters, zero_counters):
-    """Two SAM ViTs at ANY_VITS (head widths 32 and 128), seeded random
-    weights, at 1024 on a 1024x768 image: `process` on the card with the
-    kernels in bf16 and in float32, held against the CPU's float32 result
-    by phase 4's rules (float32 kernels within relative L2 1e-5; bf16
-    kernels no further than 1.1x the bf16 plain path on the card), each
-    call's launches exact."""
+def held_encoder(torch, dl, label, variant, model, cfg_with, img, counters,
+                 general_counts, zero_counters, want, want_general):
+    """`process` of a seeded ``model`` injected as ``variant``'s bundle, at
+    1024 on ``img``: on the CPU in float32 without kernels (the reference),
+    on the card in float32 and bf16 with them (``cfg_with(True)``) and in
+    bf16 without (``cfg_with(False)``), held by phase 4's rules (float32
+    kernels within relative L2 1e-5 of the CPU; bf16 kernels no further
+    from it than 1.1x the bf16 plain path), each card call's launches
+    ``want`` and general-body launches ``want_general`` exactly, the plain
+    path none."""
     import copy
 
+    from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
+
+    t0 = time.perf_counter()
+
+    def embedding(backend, dtype, kernels):
+        env = dl.Environment(dl.Options(
+            backend=backend, allow_random_weights=True, compute_dtype=dtype,
+            sam_variant=variant, model_directory="no-such-directory"))
+        bundle = SamModelBundle(cfg_with(kernels), copy.deepcopy(model).to(env.device),
+                                env.compute_dtype)
+        if env._sam_models[variant].get_or_create(lambda: bundle) is not bundle:
+            fail(f"phase 20 {label}: the injected bundle was not taken")
+        zero_counters()
+        general = general_counts()
+        emb = dl.Segmentation.process(img, env).embedding.float().cpu()
+        return emb, ({k: v for k, v in counters().items() if v},
+                     {k: v - general[k] for k, v in general_counts().items()
+                      if v != general[k]})
+
+    ref, _ = embedding(dl.Backend.cpu, "float32", False)
+    f32, f32_n = embedding(dl.Backend.gpu, "float32", True)
+    bf16, bf16_n = embedding(dl.Backend.gpu, "bfloat16", True)
+    plain, plain_n = embedding(dl.Backend.gpu, "bfloat16", False)
+    if plain_n != ({}, {}):
+        fail(f"phase 20 {label}: the plain path launched {plain_n}")
+    for n, dname in ((f32_n, "float32"), (bf16_n, "bf16")):
+        if n != (want, want_general):
+            fail(f"phase 20 {label} {dname}: launches {n} != "
+                 f"{(want, want_general)} (all, general)")
+    if not all(bool(torch.isfinite(e).all()) and tuple(e.shape) == (1, 64, 64, 256)
+               for e in (ref, f32, bf16)):
+        fail(f"phase 20 {label}: bad embedding")
+    f32_err, k_err, p_err = (rel_l2(torch, e, ref) for e in (f32, bf16, plain))
+    print(f"phase 20 {label} at 1024, {img.extent.width}x{img.extent.height}, "
+          f"relative L2 to the CPU's float32: card float32 kernels "
+          f"{f32_err:.3e} (limit 1e-5); card bf16 kernels {k_err:.4e}, card "
+          f"bf16 plain {p_err:.4e} (limit 1.1x); launches a process "
+          f"{bf16_n[0]}, of the general body {bf16_n[1]} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    if not f32_err <= 1e-5:
+        fail(f"phase 20 {label}: float32 kernels off the CPU: {f32_err}")
+    if not k_err <= 1.1 * p_err:
+        fail(f"phase 20 {label}: bf16 kernels ({k_err}) further from float32 "
+             f"than the bf16 plain path ({p_err})")
+
+
+def check_any_vits(torch, np, dl, counters, general_counts, zero_counters):
+    """SAM ViTs at ANY_VITS (head widths 32, 36, 128, 136; 36 once with
+    ``fused_window_blocks`` at window 16), seeded random weights, held by
+    ``held_encoder``; at 36 and 136 K4 and K5 (K6) run the general body.
+    The fused ViT's plain path is the partitioned one (the fused path
+    launches K6 whatever ``use_flash_attention`` says)."""
     from dlimgedit_tpu_torch.models import sam as sam_mod
     from dlimgedit_tpu_torch.models import vit_sam
-    from dlimgedit_tpu_torch.runtime.environment import SamModelBundle
+    from dlimgedit_tpu_torch.ops.flash_attention import attention_body
 
     w, h = IMAGES[0][:2]
     img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 20))
-    for embed, heads, depth, glob in ANY_VITS:
-        t0 = time.perf_counter()
+    for embed, heads, depth, glob, window, fused in ANY_VITS:
         hd = embed // heads
         enc = vit_sam.SamViTConfig(img_size=1024, embed_dim=embed, depth=depth,
-                                   num_heads=heads, global_attn_indexes=glob)
+                                   num_heads=heads, global_attn_indexes=glob,
+                                   window_size=window)
         base_cfg = dataclasses.replace(sam_mod.make_config("vit_b", 1024),
                                        encoder_vit=enc)
         model = sam_mod.init_sam(torch.Generator().manual_seed(20), base_cfg)
         seed_vit_extras(torch, model, seed=20)
 
-        def embedding(backend, dtype, kernels):
-            env = dl.Environment(dl.Options(
-                backend=backend, allow_random_weights=True, compute_dtype=dtype,
-                sam_variant="vit_b", model_directory="no-such-directory"))
-            cfg = dataclasses.replace(base_cfg, encoder_vit=dataclasses.replace(
-                enc, use_flash_attention=kernels))
-            bundle = SamModelBundle(cfg, copy.deepcopy(model).to(env.device),
-                                    env.compute_dtype)
-            if env._sam_models["vit_b"].get_or_create(lambda: bundle) is not bundle:
-                fail("phase 20: the injected ViT bundle was not taken")
-            zero_counters()
-            emb = dl.Segmentation.process(img, env).embedding.float().cpu()
-            return emb, {k: v for k, v in counters().items() if v}
+        def cfg_with(kernels):
+            return dataclasses.replace(base_cfg, encoder_vit=dataclasses.replace(
+                enc, use_flash_attention=kernels,
+                fused_window_blocks=fused and kernels))
 
+        windowed = ("windowed_attention_fused" if fused
+                    else "relpos_attention_windowed")
         want = {"fused_layer_norm": 1, "fused_add_layer_norm": 2 * depth - 1,
-                "relpos_attention_global": len(glob),
-                "relpos_attention_windowed": depth - len(glob)}
-        ref, _ = embedding(dl.Backend.cpu, "float32", False)
-        f32, f32_n = embedding(dl.Backend.gpu, "float32", True)
-        bf16, bf16_n = embedding(dl.Backend.gpu, "bfloat16", True)
-        plain, plain_n = embedding(dl.Backend.gpu, "bfloat16", False)
-        if plain_n:
-            fail(f"phase 20 ViT hd {hd}: the plain path launched {plain_n}")
-        for n, label in ((f32_n, "float32"), (bf16_n, "bf16")):
-            if n != want:
-                fail(f"phase 20 ViT hd {hd} {label}: launches {n} != {want}")
-        if not all(bool(torch.isfinite(e).all()) and tuple(e.shape) == (1, 64, 64, 256)
-                   for e in (ref, f32, bf16)):
-            fail(f"phase 20 ViT hd {hd}: bad embedding")
-        f32_err, k_err, p_err = (rel_l2(torch, e, ref) for e in (f32, bf16, plain))
-        print(f"phase 20 ViT embed {embed}, {heads} heads of {hd}, depth {depth} "
-              f"at 1024, {w}x{h}, relative L2 to the CPU's float32: card float32 "
-              f"kernels {f32_err:.3e} (limit 1e-5); card bf16 kernels "
-              f"{k_err:.4e}, card bf16 plain {p_err:.4e} (limit 1.1x); launches "
-              f"a process {bf16_n} [{time.perf_counter() - t0:.1f} s]", flush=True)
-        if not f32_err <= 1e-5:
-            fail(f"phase 20 ViT hd {hd}: float32 kernels off the CPU: {f32_err}")
-        if not k_err <= 1.1 * p_err:
-            fail(f"phase 20 ViT hd {hd}: bf16 kernels ({k_err}) further from "
-                 f"float32 than the bf16 plain path ({p_err})")
+                "relpos_attention_global": len(glob), windowed: depth - len(glob)}
+        bodies = {"relpos_attention_global": attention_body(
+                      "relpos_attention_global", torch.bfloat16, hd, 4096, 64, 64),
+                  windowed: attention_body(windowed, torch.bfloat16, hd,
+                                           window * window, window, window, heads)}
+        want_general = {k: want[k] for k, b in bodies.items() if b == "general"}
+        label = (f"ViT embed {embed}, {heads} heads of {hd}, depth {depth}"
+                 + (f", fused windows of {window}" if fused else ""))
+        held_encoder(torch, dl, label, "vit_b", model, cfg_with, img, counters,
+                     general_counts, zero_counters, want, want_general)
         del model
         torch.cuda.empty_cache()
+
+
+# A MobileSAM whose TinyViT has the 512 variant's windows: stages 1 and 3
+# windows of 16 (N = 256, the tuned K2), stage 2's six blocks windows of 32
+# (N = 1024, the general body).
+TINYVIT_512_WINDOWS = (16, 16, 32, 16)
+
+
+def check_tinyvit_windows(torch, np, dl, counters, general_counts,
+                          zero_counters):
+    """MobileSAM at 1024 with TINYVIT_512_WINDOWS, seeded random weights
+    and attention biases, held by ``held_encoder``: 22 K1 and 10 K2 a
+    `process`, 6 of them on the general body."""
+    from dlimgedit_tpu_torch.models import sam as sam_mod
+
+    w, h = IMAGES[0][:2]
+    img = dl.Image(dl.Extent(w, h), dl.Channels.rgba, rgba(np, h, w, 21))
+    base = sam_mod.make_config("mobile_sam", 1024)
+    tiny = dataclasses.replace(base.encoder_tiny, window_sizes=TINYVIT_512_WINDOWS)
+    base_cfg = dataclasses.replace(base, encoder_tiny=tiny)
+    model = sam_mod.init_sam(torch.Generator().manual_seed(21), base_cfg)
+    gen = torch.Generator().manual_seed(22)
+    with torch.no_grad():
+        for name, p in model.encoder.named_parameters():
+            if name.endswith("attention_biases"):
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+
+    def cfg_with(kernels):
+        return dataclasses.replace(base_cfg, encoder_tiny=dataclasses.replace(
+            tiny, use_fused_norm=kernels, use_flash_attention=kernels))
+
+    blocks = sum(base_cfg.encoder_tiny.depths[1:])
+    general = base_cfg.encoder_tiny.depths[TINYVIT_512_WINDOWS.index(32)]
+    held_encoder(torch, dl, f"MobileSAM, TinyViT windows {TINYVIT_512_WINDOWS}",
+                 "mobile_sam", model, cfg_with, img, counters, general_counts,
+                 zero_counters, {"fused_layer_norm": LN_PER_PROCESS,
+                                 "levit_window_attention": blocks},
+                 {"levit_window_attention": general})
+    del model
+    torch.cuda.empty_cache()
 
 
 def check_float16(torch, ops, counters, zero_counters, restore_counters,
@@ -7087,6 +7183,158 @@ def check_float16(torch, ops, counters, zero_counters, restore_counters,
               f"bound_ms={bound:.5f} ({100 * bound / ms:.0f}% of it)",
               flush=True)
     return entries, launches
+
+
+# Phase 20's general leg: each kernel's general body at one geometry that a
+# configuration gives it, in float32, bf16 and float16 (the rows
+# "<name>/general" of the {"kernels": ...} line: bf16, one launch each): K2
+# at the 512-variant MobileSAM's stage 2 at 1024 (4 windows of 32 x 32, 5
+# heads of kd 32); K4 and K5 at the hd-36 ViT's (embed 288, 8 heads) global
+# 64 x 64 grid and 25 windows of 14 x 14 (the bottom row skipped below row
+# 8); K7 at the hd-136 ViT's (embed 1088) windows; K6 at the hd-36 ViT's 16
+# x 16 windows of its 64 x 64 grid.
+GENERAL_SUFFIX = "/general"
+GENERAL_SOURCE = "dlimgedit_tpu_torch/csrc/attention_general.cu"
+GENERAL_K2 = (4, 1024, 5, 32)        # G, N, heads, kd
+GENERAL_K4 = (8, 64, 36)             # heads, grid, hd
+GENERAL_K5 = (25, 8, 14, 36, 5, 8)   # windows, heads, ws, hd, n_w, valid_rows
+GENERAL_K7 = (25, 8, 14, 136)        # windows, heads, ws, hd
+GENERAL_K6 = (1, 64, 8, 36, 16)      # B, grid, heads, hd, ws
+
+
+def check_general(torch, ops, counters, general_counts, zero_counters,
+                  restore_counters, gpu_line):
+    """Phase 20's general leg: K2, K4, K5, K7 and K6 at their GENERAL_*
+    geometries in bf16, float16 and float32, each against its plain version
+    (TOL; float16's mean |diff| too) and each call one launch of the general
+    body (the plain version, the timing and the SDPA yardstick uncounted);
+    bf16 and float16 timed as phase 2 times bf16, bound as there. Returns
+    the entries (bf16 under each kernel's name)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    entries = Entries()
+    zero_counters()
+    before = general_counts()
+    dtypes = (torch.bfloat16, torch.float16, torch.float32)
+    with tf32_off(torch):
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[1]
+            es = torch.empty((), dtype=dtype).element_size()
+
+            def randn(*shape, scale=1.0):
+                return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+            def check(label, name, kernel, plain, library, tol, nbytes, mm, f32):
+                check_kernel(torch, f"{label} general", name, dname, kernel,
+                             plain, library, tol, nbytes, mm, f32, 1, entries,
+                             images=1, uncounted=restore_counters)
+
+            G, N, nh, kd = GENERAL_K2
+            qkv, lbias = randn(G, N, nh * 3 * kd), randn(nh, N, N, scale=0.5)
+            q5 = qkv.view(G, N, nh, 3, kd)
+            lq, lk, lv = (q5[:, :, :, i].transpose(1, 2) for i in range(3))
+            check(levit_label(G, N, nh), "levit_window_attention",
+                  lambda: ops.levit_window_attention(qkv, lbias, nh),
+                  lambda: ops.levit_window_attention_plain(qkv, lbias, nh),
+                  lambda: F.scaled_dot_product_attention(
+                      lq, lk, lv, attn_mask=lbias[None].expand(G, nh, N, N)),
+                  TOL[("attn", dname)], (G * N * nh * 4 * kd + nh * N * N) * es,
+                  4 * G * nh * N * N * kd, 7 * G * nh * N * N)
+
+            nh, g, hd = GENERAL_K4
+            N = g * g
+            q, k, v = (randn(nh, N, hd) for _ in range(3))
+            rh, rw = (0.3 * torch.randn((g, g, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, g, g)
+            mask = relpos_mask(torch, bhw, g, g, False, 1.0, dtype)
+            check(global_label(nh, N, hd), "relpos_attention_global",
+                  lambda: ops.relpos_attention_global(q, k, v, bhw, g, g),
+                  lambda: ops.attention_relpos_plain(q, k, v, bhw, g, g),
+                  lambda: F.scaled_dot_product_attention(
+                      q[None], k[None], v[None], attn_mask=mask[None]),
+                  TOL[("attn", dname)], (4 * nh * N * hd + nh * N * 2 * g) * es,
+                  4 * nh * N * N * hd, 7 * nh * N * N)
+            del mask
+
+            W, nh, ws, hd, n_w, valid = GENERAL_K5
+            N, G, scale = ws * ws, W * nh, hd ** -0.5
+            folded = hd + 2 * ws <= 128
+            q, k, v = (randn(G, N, hd) for _ in range(3))
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw = ops.bias_halves(q, rh, rw, ws, ws,
+                                  out_scale=1.0 / scale if folded else 1.0)
+            mask = relpos_mask(torch, bhw, ws, ws, folded, scale, dtype)
+            rows = (W - n_w) * nh * N + n_w * nh * valid * ws
+            check(window_label(G, N, hd, n_w, valid), "relpos_attention_windowed",
+                  lambda: ops.relpos_attention_windowed(q, k, v, bhw, ws, ws, nh,
+                                                        folded, n_w, valid),
+                  lambda: ops.attention_relpos_plain(
+                      q, k, v, bhw, ws, ws, folded=folded, heads=nh, n_w=n_w,
+                      valid_rows=valid),
+                  lambda: F.scaled_dot_product_attention(
+                      q[None], k[None], v[None], attn_mask=mask[None]),
+                  TOL[("attn", dname)],
+                  (2 * G * N * hd + rows * (hd + 2 * ws) + G * N * hd) * es,
+                  4 * rows * N * hd, 7 * rows * N)
+            del mask
+
+            W, nh, ws, hd = GENERAL_K7
+            n, G = ws * ws, W * nh
+            qkv7 = randn(W, 3, nh, n, hd)
+            rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=gen, device=dev)
+                      for _ in range(2))
+            bhw7 = ops.bias_halves(qkv7[:, 0].reshape(G, n, hd), rh, rw, ws, ws)
+            mask = relpos_mask(torch, bhw7, ws, ws, False, 1.0, dtype)
+            check(f"K7 relpos_attention_qkv ({W},3,{nh},{n},{hd})",
+                  "relpos_attention_qkv",
+                  lambda: ops.relpos_attention_qkv(qkv7, bhw7, ws, ws),
+                  lambda: ops.windowed_attention_qkv_plain(qkv7, bhw7, ws, ws),
+                  lambda: F.scaled_dot_product_attention(
+                      qkv7[:, 0], qkv7[:, 1], qkv7[:, 2],
+                      attn_mask=mask.view(W, nh, n, n)),
+                  TOL[("attn", dname)], (4 * G * n * hd + G * n * 2 * ws) * es,
+                  4 * G * n * n * hd, 7 * G * n * n)
+            del mask
+
+            B, grid, nh, hd, ws = GENERAL_K6
+            C, n, nw = nh * hd, ws * ws, grid // ws
+            G = B * nw * nw * nh
+            qkv6 = randn(B, grid, grid, 3 * C)
+            q, k, v = qkv6[..., :C], qkv6[..., C:2 * C], qkv6[..., 2 * C:]
+            rh, rw = (randn(ws, ws, hd, scale=0.3) for _ in range(2))
+            parts = qkv6.view(B, nw, ws, nw, ws, 3, nh, hd).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, G, n, hd)
+            mask = relpos_mask(torch, ops.bias_halves(parts[0], rh, rw, ws, ws),
+                               ws, ws, False, 1.0, dtype)
+            check(f"K6 windowed_attention_fused ({B},{grid},{grid},{C}) ws={ws}",
+                  "windowed_attention_fused",
+                  lambda: ops.windowed_attention_fused(q, k, v, rh, rw, ws=ws,
+                                                       num_heads=nh),
+                  lambda: ops.windowed_attention_fused_plain(
+                      q, k, v, rh, rw, ws=ws, num_heads=nh),
+                  lambda: F.scaled_dot_product_attention(
+                      parts[0][None], parts[1][None], parts[2][None],
+                      attn_mask=mask[None]),
+                  TOL[("strip", dname)],
+                  (4 * B * grid * grid * C + 2 * ws * ws * hd) * es,
+                  4 * G * n * n * hd + 4 * G * n * ws * hd, 7 * G * n * n)
+            del mask, parts
+    launches = {name: n for name, n in counters().items() if n}
+    general = {name: n - before[name] for name, n in general_counts().items()
+               if n != before[name]}
+    want = {name: len(dtypes) for name in general_counts()}
+    if launches != want or general != want:
+        fail(f"phase 20 general: launches {launches}, of the general body "
+             f"{general}, != one a dtype {want}")
+    for label, dname, ms, bound in entries.rows:
+        print(f"phase 20 {label} {dname} on {gpu_line}: kernel_ms={ms:.5f} "
+              f"bound_ms={bound:.5f} ({100 * bound / ms:.0f}% of it)",
+              flush=True)
+    return entries
 
 
 def check_int8_any_width(torch, quant, counters, zero_counters):
@@ -7143,16 +7391,21 @@ def check_int8_any_width(torch, quant, counters, zero_counters):
                   flush=True)
 
 
-def drive_any_inputs(torch, np, dl, ops, quant, counters, zero_counters,
-                     restore_counters, gpu_line, main_copies):
+def drive_any_inputs(torch, np, dl, ops, quant, counters, general_counts,
+                     zero_counters, restore_counters, gpu_line, main_copies,
+                     main_general):
     """Phase 20: C9-C11, the kernels' input ranges. Every kernel against its
     plain version at the widths and head widths no main path uses and on
     strided and misaligned views, in both dtypes, each call counted as one
     launch of its kernel (no plain path on the card); the layout helper's
     copies over phases 2-4 (``main_copies``) must be 0; every kernel in
     float16 (``check_float16``) and int8_linear at widths that are not
-    multiples of 8; the ViTs at head widths 32 and 128 against the CPU.
-    Returns the float16 leg's (entries, launches)."""
+    multiples of 8; the ViTs at head widths 32, 36, 128 and 136 against the
+    CPU; the general leg: no call of phases 2-19 reached the general
+    attention body (``main_general``), every general policy at its
+    GENERAL_* geometry (``check_general``) and a MobileSAM with the 512
+    variant's windows. Returns the float16 leg's (entries, launches) and
+    the general leg's entries."""
     from dlimgedit_tpu_torch.ops.cuda_build import kernel_operand
 
     t0 = time.perf_counter()
@@ -7160,6 +7413,11 @@ def drive_any_inputs(torch, np, dl, ops, quant, counters, zero_counters,
         fail(f"phase 20: kernel_operand copied {main_copies} operands over "
              f"phases 2-4 (the main paths' operands must be dense and aligned)")
     print("phase 20: kernel_operand made 0 copies over phases 2-4", flush=True)
+    if any(main_general.values()):
+        fail(f"phase 20: phases 2-19 launched the general attention body: "
+             f"{main_general}")
+    print(f"phase 20: the general attention body launched 0 times over "
+          f"phases 2-19: {main_general}", flush=True)
     expected = {name: 0 for name in counters()}
     worst = {}
 
@@ -7194,9 +7452,35 @@ def drive_any_inputs(torch, np, dl, ops, quant, counters, zero_counters,
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     with tf32_off(torch):
         time_any_widths(torch, ops, gpu_line)
-    check_any_vits(torch, np, dl, counters, zero_counters)
+    t1 = time.perf_counter()
+    general = check_general(torch, ops, counters, general_counts,
+                            zero_counters, restore_counters, gpu_line)
+    check_tinyvit_windows(torch, np, dl, counters, general_counts,
+                          zero_counters)
+    check_any_vits(torch, np, dl, counters, general_counts, zero_counters)
+    print(f"phase 20, the general body and the encoders at any head width: "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
-    return f16
+    return f16, general
+
+
+def prebuild_native() -> None:
+    """Start the port's C library and serving library building (phases
+    14-19 run them) on the host's cores beside nvcc's kernel build, in a
+    thread; phases 15 and 17 take the finished build (``native_build``
+    holds a lock while it builds). A failure here is left to them: their
+    own calls build again and report it."""
+    import threading
+
+    from dlimgedit_tpu_torch import native_build
+
+    def build():
+        try:
+            native_build.build_serving()
+        except Exception:  # phases 15 and 17 build again and report it
+            pass
+
+    threading.Thread(target=build, daemon=True).start()
 
 
 def main() -> int:
@@ -7262,6 +7546,15 @@ def main() -> int:
     def counters():
         return {name: w.launches for name, w in wrappers.items()}
 
+    # The attention wrappers also count their general-body launches; these
+    # counts are never zeroed between phases (phase 20 holds phases 2-19's
+    # at 0).
+    attention = {name: w for name, w in wrappers.items()
+                 if hasattr(w, "general_launches")}
+
+    def general_counts():
+        return {name: w.general_launches for name, w in attention.items()}
+
     def zero_counters():
         for w in wrappers.values():
             w.launches = 0
@@ -7270,12 +7563,14 @@ def main() -> int:
     def restore_counters():
         """Leave the counters as they were (around a capture that is not a
         launch of the main path)."""
-        saved = counters()
+        saved, saved_general = counters(), general_counts()
         try:
             yield
         finally:
             for name, w in wrappers.items():
                 w.launches = saved[name]
+            for name, w in attention.items():
+                w.general_launches = saved_general[name]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7290,6 +7585,7 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
+    prebuild_native()
     LIBRARY.get()
     print(f"phase 1, kernel build: {time.perf_counter() - t0:.2f} s -> "
           f"{LIBRARY.path}")
@@ -7320,6 +7616,8 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions -------------------------
     t0 = time.perf_counter()
+    for w in attention.values():
+        w.general_launches = 0
     copies_before = kernel_operand.copies
     entries = Entries()
     with tf32_off(torch):  # the plain versions are float32 references
@@ -7483,9 +7781,10 @@ def main() -> int:
     print(f"phases 17-19's int8 legs: {int8_s:.1f} s", flush=True)
 
     # -- 20. the kernels' input ranges: any width, head width, view -------
-    f16_entries, f16_launches = drive_any_inputs(
-        torch, np, dl, ops, quant, counters, zero_counters, restore_counters,
-        gpu_line, main_copies)
+    main_general = general_counts()  # phases 2-19
+    (f16_entries, f16_launches), general_entries = drive_any_inputs(
+        torch, np, dl, ops, quant, counters, general_counts, zero_counters,
+        restore_counters, gpu_line, main_copies, main_general)
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -7527,6 +7826,18 @@ def main() -> int:
             "name": f16_key(name), "route": "cuda",
             "source": F16_SOURCES[name], "replaces": replaces,
             "launches": f16_launches[name], "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
+            "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
+            "library_ms": e["library_ms"], "also_from_cpp": False})
+    for name, _, replaces in KERNELS:
+        if name not in attention:
+            continue
+        e = general_entries.numbers(name, 1)
+        kernels.append({
+            "name": name + GENERAL_SUFFIX, "route": "cuda",
+            "source": GENERAL_SOURCE, "replaces": replaces,
+            "launches": e["launches"], "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",

@@ -1,8 +1,13 @@
-// Arguments shared by the rel-pos attention kernels: K4, K5, K7 (entry
-// points in relpos_attention.cu) and K6 (entry point in
+// Arguments shared by the tuned rel-pos attention kernels: K4, K5, K7
+// (entry points in relpos_attention.cu) and K6 (entry point in
 // window_strip_attention.cu). bf16 and float16 run on the tensor cores
 // (relpos_attention_tc.cuh's bodies; relpos_attention_tc*.cu), float32 on
-// the tensor cores in three TF32 passes in relpos_attention_f32tc.cu.
+// the tensor cores in three TF32 passes in relpos_attention_f32tc.cu. Their
+// tuned ranges: head widths that are multiples of 8 up to 128 (64 and 80
+// instances of their own, the others padded ones: `padded_head_width`),
+// 16-bit K5 / K7 windows with sides up to 16 and K6 windows of up to 208
+// tokens; the entry points send every other geometry to the general body
+// (attention_general.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -35,9 +40,10 @@ struct StripArgs {
   float scale;
 };
 
-// The head widths the kernels take: hd 64 and 80 run instances of their
-// own; every other multiple of 8 from 8 to 128 an instance at a padded
-// width of 32, 96 or 128, which this returns (0 for a width none takes).
+// The head widths the tuned instances take: hd 64 and 80 run instances of
+// their own; every other multiple of 8 from 8 to 128 an instance at a
+// padded width of 32, 96 or 128, which this returns (0 for a width they do
+// not take: the general body's, attention_general.cuh).
 inline int padded_head_width(int hd) {
   if (hd < 8 || hd > 128 || hd % 8 != 0) return 0;
   return hd <= 32 ? 32 : hd <= 96 ? 96 : 128;

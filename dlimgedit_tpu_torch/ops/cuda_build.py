@@ -61,6 +61,8 @@ _SIGNATURES = {
     "dlimg_relpos_attention_qkv": [_VP] * 3 + [_I] * 7 + [_F, _VP],
     # q, k, v, rh, rw, out, b, hp, wp, c, ts, ws, nh, hd, dtype, scale, stream
     "dlimg_window_strip_attention": [_VP] * 6 + [_I] * 9 + [_F, _VP],
+    # kernel, dtype, hd, n, gh, gw, heads: 0 tuned, 1 general
+    "dlimg_attention_route": [_I] * 7,
     # table, idx, out, rows, lanes, reps, row_chunks, dtype, stream
     "dlimg_gather_probe": [_VP] * 3 + [_I] * 5 + [_VP],
     # boxes, scores, thresh, keep, scratch, scratch words, m, stream

@@ -23,20 +23,37 @@ Counterpart of dlimgedit_tpu/ops/flash_attention.py:
     ``fused_window_blocks`` path, windows read in place from the padded
     NHWC q, k, v, bias halves computed in the kernel.
 
-In bf16 and float16 K4, K5, K7 and K6 run on the tensor cores
-(``csrc/relpos_attention_tc.cuh``, one body for both 16-bit types, as JAX
-rounds float16 where it rounds bf16; K5, K7 and K6 share one ``mma.sync``
-body), and so does K2 (``csrc/levit_attention_tc.cuh``). In float32 they
-run on the tensor cores with every product in three TF32 passes
-(``csrc/relpos_attention_f32tc.cuh``, one body). All take every head
-width of ``KERNEL_HEAD_DIMS``: 64 and 80 (the ViTs') have
-instances of their own, the others run an instance at a padded width of
-32, 96 or 128. The C entry points are ``csrc/relpos_attention.cu`` (K4, K5,
-K7), ``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
-(K6). Every kernel reads its operands in 16-byte pieces: each wrapper
-passes every operand through ``kernel_operand`` (dense and on 16 bytes; a
-copy only for a view that is not), except K6's q, k and v, which it reads
-in place where their layout allows.
+Every geometry the JAX functions take runs a hand-written kernel on the
+card: K2 at any kd and N, K4-K7 at any head width, K6 on any window, any
+group count. Two kinds of body serve them, and ``attention_body`` says
+which a call runs (the C entry points apply the same rule, ``csrc/
+attention_general.cuh`` ``attention_tuned``):
+
+  * the tuned instances, which every main path's shape takes: K2 at kd
+    ``TUNED_KD`` and N <= ``TUNED_MAX_TOKENS``; K4-K7 at the head widths of
+    ``TUNED_HEAD_DIMS`` (64 and 80, the ViTs', have instances of their own,
+    the others run an instance at a padded width of 32, 96 or 128), bf16
+    and float16 K5 / K7 windows with sides up to ``TUNED_WINDOW_SIDE`` and
+    K6 windows of up to ``TUNED_STRIP_TOKENS`` tokens. In bf16 and float16
+    K4, K5, K7 and K6 run on the tensor cores (``csrc/
+    relpos_attention_tc.cuh``, one body for both 16-bit types, as JAX
+    rounds float16 where it rounds bf16; K5, K7 and K6 share one
+    ``mma.sync`` body), and so does K2 (``csrc/levit_attention_tc.cuh``).
+    In float32 they run on the tensor cores with every product in three
+    TF32 passes (``csrc/relpos_attention_f32tc.cuh``, one body). A tuned
+    launch of more than 65535 groups is split into several by the C entry
+    point;
+  * the general body (``csrc/attention_general.cuh``; bf16 and float16 in
+    ``attention_general.cu``, float32 in ``attention_general_f32.cu``): a
+    run-time head width, keys in chunks of 64, any group count; a launch
+    counts in its wrapper's ``launches`` and ``general_launches``.
+
+The C entry points are ``csrc/relpos_attention.cu`` (K4, K5, K7),
+``csrc/levit_attention.cu`` (K2) and ``csrc/window_strip_attention.cu``
+(K6). Each wrapper passes every operand through ``kernel_operand`` (dense
+and on 16 bytes; a copy only for a view that is not), except K6's q, k and
+v, which it reads in place where their layout allows; the general body
+then loads rows in the widest pieces their head width and strides allow.
 
 The other kernels of the port are K1 and K3 (``ops/fused_norm.py``,
 ``csrc/fused_layer_norm.cu``) and K8, the shared-memory gather probe
@@ -61,23 +78,62 @@ from ..errors import DlimgError
 from .cuda_build import (DTYPE_CODES, KERNEL_DTYPES, LIBRARY, check_launch,
                          kernel_operand)
 
-# The K2 kernels' head width and largest window (csrc/levit_attention.cu,
-# the entry point of csrc/levit_attention_tc.cu and _f32tc.cu).
-KERNEL_HEAD_DIM = 32
-KERNEL_MAX_TOKENS = 256
-# Head widths K4, K5, K6 and K7 take: every multiple of 8 from 8 to 128.
-# SAM ViT-B/L (64) and ViT-H (80) have instances of their own; the others
-# run an instance at a padded width of 32, 96 or 128
+# The tuned K2 instances' head width and largest window
+# (csrc/levit_attention_tc.cuh, levit_attention_f32tc.cu); other kd and N
+# run the general body.
+TUNED_KD = 32
+TUNED_MAX_TOKENS = 256
+# Head widths the tuned K4, K5, K6 and K7 take: every multiple of 8 from 8
+# to 128. SAM ViT-B/L (64) and ViT-H (80) have instances of their own; the
+# others run an instance at a padded width of 32, 96 or 128
 # (csrc/relpos_attention.cuh ``padded_head_width``).
-KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
-# The largest window side the bf16 and float16 K5 and K7 take
+TUNED_HEAD_DIMS = tuple(range(8, 129, 8))
+# The largest window side the tuned bf16 and float16 K5 and K7 take
 # (csrc/relpos_attention_tc.cuh kBiasSide: 16 bias columns a half, score rows
-# of up to 256 keys); the routers send wider 16-bit windows to K4.
-WINDOW_MAX_SIDE = 16
-# The largest window K6 takes (csrc/window_strip_attention.cu; the bf16 and
-# float16 instances of csrc/relpos_attention_tc.cuh hold score rows of 208
-# keys): SAM's 14 x 14 windows.
-STRIP_MAX_TOKENS = 208
+# of up to 256 keys); the routers send wider 16-bit windows to K4, the
+# low-level wrappers to the general body.
+TUNED_WINDOW_SIDE = 16
+# The largest window the tuned K6 takes (the bf16 and float16 instances of
+# csrc/relpos_attention_tc.cuh hold score rows of 208 keys): SAM's 14 x 14
+# windows.
+TUNED_STRIP_TOKENS = 208
+# The groups a tuned K4 / K5 / K7 launch takes (gridDim.y); K7's launches
+# are split by whole windows, so its heads must not exceed it.
+TUNED_MAX_GROUPS = 65535
+# The wrappers in the order of the C rule's kernel codes
+# (csrc/attention_general.cuh ``AttentionKernel``).
+ATTENTION_KERNELS = ("levit_window_attention", "relpos_attention_global",
+                     "relpos_attention_windowed", "relpos_attention_qkv",
+                     "windowed_attention_fused")
+
+
+def attention_body(kernel: str, dtype: torch.dtype, hd: int, n: int = 0,
+                   grid_h: int = 0, grid_w: int = 0, heads: int = 0) -> str:
+    """"tuned" or "general": the CUDA body that ``kernel`` (a name of
+    ``ATTENTION_KERNELS``) runs at this dtype and geometry. n: tokens of a
+    group (K2); grid_h, grid_w: K4-K7's grid, K6's window (ws, ws); heads:
+    K7's. The C entry points apply the same rule
+    (``csrc/attention_general.cuh`` ``attention_tuned``); every main path's
+    shape is tuned."""
+    if kernel == "levit_window_attention":
+        tuned = hd == TUNED_KD and 0 < n <= TUNED_MAX_TOKENS
+    else:
+        tuned = hd in TUNED_HEAD_DIMS
+        if kernel in ("relpos_attention_windowed", "relpos_attention_qkv"):
+            tuned = tuned and _window_fits(dtype, grid_h, grid_w)
+        if kernel == "relpos_attention_qkv":
+            tuned = tuned and heads <= TUNED_MAX_GROUPS
+        if kernel == "windowed_attention_fused":
+            tuned = tuned and grid_h * grid_w <= TUNED_STRIP_TOKENS
+    return "tuned" if tuned else "general"
+
+
+def _count(fn, body: str) -> None:
+    """Count one launch of ``fn``'s kernel, and in ``general_launches`` too
+    when ``body`` is "general"."""
+    fn.launches += 1
+    if body == "general":
+        fn.general_launches += 1
 
 
 def levit_window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -120,10 +176,6 @@ def _check(qkv, bias, num_heads):
         raise DlimgError(f"levit_window_attention: the CUDA kernel takes "
                          f"{KERNEL_DTYPES} qkv and bias of one dtype, got "
                          f"{qkv.dtype} and {bias.dtype}")
-    if kd != KERNEL_HEAD_DIM or not 0 < N <= KERNEL_MAX_TOKENS:
-        raise DlimgError(f"levit_window_attention: the CUDA kernel takes "
-                         f"kd == {KERNEL_HEAD_DIM} and N <= "
-                         f"{KERNEL_MAX_TOKENS}, got kd={kd}, N={N}")
     return kd
 
 
@@ -133,9 +185,10 @@ def levit_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
     qkv: (G, N, nh * 3 * kd), the qkv linear's output per window;
     bias: (nh, N, N), the gathered attention-bias table. Returns
-    (G, N, nh * kd). CUDA tensors go through the K2 kernel (and count one
-    launch in ``levit_window_attention.launches``); both kernels read qkv
-    in 16-byte chunks, which ``kernel_operand`` sees to."""
+    (G, N, nh * kd). CUDA tensors go through the K2 kernel, tuned at kd 32
+    and N <= 256, else the general body (``attention_body``; one launch
+    counted in ``levit_window_attention.launches``, and a general one in
+    ``.general_launches`` too)."""
     kd = _check(qkv, bias, num_heads)
     if qkv.device.type == "cpu":
         return levit_window_attention_plain(qkv, bias, num_heads)
@@ -151,12 +204,15 @@ def levit_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), G, N, num_heads, kd,
         DTYPE_CODES[str(qkv.dtype)], float(kd ** -0.5),
         torch.cuda.current_stream(qkv.device).cuda_stream)
-    check_launch("levit_window_attention", rc)
-    levit_window_attention.launches += 1
+    check_launch("levit_window_attention", rc, f"{G} windows of {N} tokens, "
+                 f"{num_heads} heads of kd {kd}, {qkv.dtype}")
+    _count(levit_window_attention,
+           attention_body("levit_window_attention", qkv.dtype, kd, n=N))
     return out
 
 
 levit_window_attention.launches = 0
+levit_window_attention.general_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -272,29 +328,16 @@ def _check_relpos(name, q, k, v, bhw, grid_h, grid_w):
                                               for t in tensors):
         raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"inputs of one dtype")
-    _check_head_dim(name, hd)
-
-
-def _check_head_dim(name, hd):
-    if hd not in KERNEL_HEAD_DIMS:
-        raise DlimgError(f"{name}: no CUDA kernel for head width {hd} (the "
-                         f"kernels take multiples of 8 from 8 to 128)")
-
-
-def _check_window_side(name, dtype, grid_h, grid_w):
-    if not _window_fits(dtype, grid_h, grid_w):
-        raise DlimgError(f"{name}: the {dtype} CUDA kernel takes windows of "
-                         f"at most {WINDOW_MAX_SIDE} x {WINDOW_MAX_SIDE} "
-                         f"tokens, got {grid_h} x {grid_w}")
 
 
 def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bhw: torch.Tensor, grid_h: int,
                             grid_w: int) -> torch.Tensor:
     """Rel-pos attention over G groups of N = grid_h * grid_w tokens (the
-    ViT's global blocks). CUDA tensors go through K4 (one launch counted in
-    ``relpos_attention_global.launches``); CPU tensors through
-    ``attention_relpos_plain``."""
+    ViT's global blocks). CUDA tensors go through K4, tuned or general
+    (``attention_body``; one launch counted in
+    ``relpos_attention_global.launches``, a general one also in
+    ``.general_launches``); CPU tensors through ``attention_relpos_plain``."""
     name = "relpos_attention_global"
     _check_relpos(name, q, k, v, bhw, grid_h, grid_w)
     if q.device.type == "cpu":
@@ -310,11 +353,13 @@ def relpos_attention_global(q: torch.Tensor, k: torch.Tensor,
         float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(name, rc, f"{G} groups of a {grid_h} x {grid_w} grid, "
                  f"head width {hd}, {q.dtype}")
-    relpos_attention_global.launches += 1
+    _count(relpos_attention_global,
+           attention_body(name, q.dtype, hd, N, grid_h, grid_w))
     return out
 
 
 relpos_attention_global.launches = 0
+relpos_attention_global.general_launches = 0
 
 
 def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
@@ -326,9 +371,11 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     """Rel-pos attention over windows: G = windows * heads groups, head
     fastest, with the folded bias when ``folded`` and the pad-query skip of
     the last ``n_w`` windows (only their first ``valid_rows`` window rows
-    are computed; the rest are zero). CUDA tensors go through K5 (one launch
-    counted in ``relpos_attention_windowed.launches``); CPU tensors through
-    ``attention_relpos_plain``."""
+    are computed; the rest are zero). CUDA tensors go through K5, tuned or
+    general (``attention_body``: a bf16 or float16 window with a side above
+    TUNED_WINDOW_SIDE runs the general body here; one launch counted in
+    ``relpos_attention_windowed.launches``, a general one also in
+    ``.general_launches``); CPU tensors through ``attention_relpos_plain``."""
     name = "relpos_attention_windowed"
     _check_relpos(name, q, k, v, bhw, grid_h, grid_w)
     if q.shape[0] % heads:
@@ -342,7 +389,6 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
         raise DlimgError(f"{name}: unsupported device {q.device}")
     q, k, v, bhw = (kernel_operand(t) for t in (q, k, v, bhw))
     G, N, hd = q.shape
-    _check_window_side(name, q.dtype, grid_h, grid_w)
     g_skip, n_valid = _skip_rows(G, N, grid_h, grid_w, heads, n_w, valid_rows)
     out = torch.empty_like(q)
     rc = LIBRARY.get().dlimg_relpos_attention_windowed(
@@ -352,11 +398,13 @@ def relpos_attention_windowed(q: torch.Tensor, k: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(name, rc, f"{G} groups of a {grid_h} x {grid_w} window, "
                  f"head width {hd}, {q.dtype}")
-    relpos_attention_windowed.launches += 1
+    _count(relpos_attention_windowed,
+           attention_body(name, q.dtype, hd, N, grid_h, grid_w))
     return out
 
 
 relpos_attention_windowed.launches = 0
+relpos_attention_windowed.general_launches = 0
 
 
 def _jax_window(G: int, N: int, heads: Optional[int]) -> bool:
@@ -365,17 +413,18 @@ def _jax_window(G: int, N: int, heads: Optional[int]) -> bool:
 
 
 def _window_fits(dtype: torch.dtype, grid_h: int, grid_w: int) -> bool:
-    """Whether K5 / K7 take a window of this grid: the bf16 and float16
-    body takes sides of at most WINDOW_MAX_SIDE, float32 any."""
-    return dtype == torch.float32 or max(grid_h, grid_w) <= WINDOW_MAX_SIDE
+    """Whether the tuned K5 / K7 take a window of this grid: the bf16 and
+    float16 body takes sides of at most TUNED_WINDOW_SIDE, float32 any."""
+    return dtype == torch.float32 or max(grid_h, grid_w) <= TUNED_WINDOW_SIDE
 
 
 def relpos_route(dtype: torch.dtype, G: int, grid_h: int, grid_w: int,
                  heads: Optional[int]) -> str:
     """The kernel ``flash_attention_relpos`` runs on G groups of a
     grid_h x grid_w grid: "windowed" (K5) where JAX routes to its windowed
-    kernel and the window fits K5, else "global" (K4; its general bias path
-    for a bf16 or float16 window with a side above WINDOW_MAX_SIDE)."""
+    kernel and the window fits the tuned K5, else "global" (K4; its general
+    bias path for a bf16 or float16 window with a side above
+    TUNED_WINDOW_SIDE)."""
     if (_jax_window(G, grid_h * grid_w, heads)
             and _window_fits(dtype, grid_h, grid_w)):
         return "windowed"
@@ -394,7 +443,7 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel K5 runs, with the folded bias when hd + gh + gw <= 128 and the
     pad-query skip given by n_w / valid_rows; otherwise the global kernel
     K4. The routing is JAX's (flash_attention.py:464), except that a bf16
-    or float16 window with a side above WINDOW_MAX_SIDE goes to K4
+    or float16 window with a side above TUNED_WINDOW_SIDE goes to K4
     (``relpos_route``): there the bias is unfolded (at hd 64 the scale 1/8
     is a power of two, so both forms round alike) and the skipped
     pad-query rows are zeroed afterwards, as JAX's windowed kernel leaves
@@ -439,8 +488,10 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     """Rel-pos attention over windows whose q, k, v are the components of
     one (W, 3, nh, N, hd) tensor, read in place; bhw: (W * nh, N, gh + gw)
     unfolded bias halves. Returns (W, nh, N, hd). CUDA tensors go through
-    K7 (one launch counted in ``relpos_attention_qkv.launches``); CPU
-    tensors through ``windowed_attention_qkv_plain``."""
+    K7, tuned or general (``attention_body``; one launch counted in
+    ``relpos_attention_qkv.launches``, a general one also in
+    ``.general_launches``); CPU tensors through
+    ``windowed_attention_qkv_plain``."""
     name = "relpos_attention_qkv"
     if qkv.dim() != 5 or qkv.shape[1] != 3:
         raise DlimgError(f"{name}: qkv must be (W, 3, nh, N, hd), got "
@@ -461,8 +512,6 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
     if str(qkv.dtype) not in DTYPE_CODES or bhw.dtype != qkv.dtype:
         raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"inputs of one dtype")
-    _check_head_dim(name, hd)
-    _check_window_side(name, qkv.dtype, grid_h, grid_w)
     qkv, bhw = kernel_operand(qkv), kernel_operand(bhw)
     out = torch.empty((W, nh, N, hd), dtype=qkv.dtype, device=qkv.device)
     rc = LIBRARY.get().dlimg_relpos_attention_qkv(
@@ -471,11 +520,13 @@ def relpos_attention_qkv(qkv: torch.Tensor, bhw: torch.Tensor, grid_h: int,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     check_launch(name, rc, f"{W} windows of {nh} heads of a {grid_h} x "
                  f"{grid_w} window, head width {hd}, {qkv.dtype}")
-    relpos_attention_qkv.launches += 1
+    _count(relpos_attention_qkv,
+           attention_body(name, qkv.dtype, hd, N, grid_h, grid_w, nh))
     return out
 
 
 relpos_attention_qkv.launches = 0
+relpos_attention_qkv.general_launches = 0
 
 
 def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
@@ -488,7 +539,7 @@ def windowed_attention_qkv(qkv: torch.Tensor, rh: torch.Tensor,
     gathered (g, g, hd) tables. Returns (W, nh, N, hd). The bias halves
     come from the q component, unscaled, outside the kernel (JAX :413-417);
     the attention is ``relpos_attention_qkv`` (K7), or for a bf16 or
-    float16 window with a side above WINDOW_MAX_SIDE K4's general bias path
+    float16 window with a side above TUNED_WINDOW_SIDE K4's general bias path
     on the copied q, k, v components (the same function)."""
     W, _, nh, N, hd = qkv.shape
     if rh.dim() == 2:
@@ -606,8 +657,10 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
     gathered (ws, ws, hd) tables. Returns (B, Hp, Wp, C), contiguous. CUDA
     tensors go through K6, which reads q, k, v in place where their layout
     allows (``_strip_token_stride``; else the three are made dense, token
-    stride C), one launch counted in ``windowed_attention_fused.launches``;
-    CPU tensors through ``windowed_attention_fused_plain``."""
+    stride C), tuned or general (``attention_body``: any window and head
+    width), one launch counted in ``windowed_attention_fused.launches``, a
+    general one also in ``.general_launches``; CPU tensors through
+    ``windowed_attention_fused_plain``."""
     name = "windowed_attention_fused"
     hd = _check_strip(name, q, k, v, rh, rw, ws, num_heads)
     if q.device.type == "cpu":
@@ -620,10 +673,6 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
         raise DlimgError(f"{name}: the CUDA kernel takes {KERNEL_DTYPES} "
                          f"q, k, v of one dtype")
     B, Hp, Wp, C = q.shape
-    _check_head_dim(name, hd)
-    if ws * ws > STRIP_MAX_TOKENS:
-        raise DlimgError(f"{name}: no CUDA kernel for window {ws} (ws * ws "
-                         f"<= {STRIP_MAX_TOKENS})")
     ts = _strip_token_stride(q, k, v)
     if ts is None:
         q, k, v = (kernel_operand(t) for t in (q, k, v))
@@ -637,11 +686,13 @@ def windowed_attention_fused(q: torch.Tensor, k: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(name, rc, f"a ({B}, {Hp}, {Wp}, {C}) grid of {ws} x {ws} "
                  f"windows, head width {hd}, {q.dtype}")
-    windowed_attention_fused.launches += 1
+    _count(windowed_attention_fused,
+           attention_body(name, q.dtype, hd, ws * ws, ws, ws, num_heads))
     return out
 
 
 windowed_attention_fused.launches = 0
+windowed_attention_fused.general_launches = 0
 
 
 def attention_reference(q, k, v, rh, rw, grid_h: int, grid_w: int):

@@ -137,13 +137,20 @@ COUNTED_KERNELS = (
 _CAPTURE_LOCK = threading.Lock()
 
 
+# Every count the executables keep: each kernel's ``launches``, then the
+# attention wrappers' ``general_launches`` (their general-body launches).
+_COUNTS = (tuple((k, "launches") for k in COUNTED_KERNELS)
+           + tuple((k, "general_launches") for k in COUNTED_KERNELS
+                   if hasattr(k, "general_launches")))
+
+
 def launch_counts() -> Tuple[int, ...]:
-    return tuple(k.launches for k in COUNTED_KERNELS)
+    return tuple(getattr(k, attr) for k, attr in _COUNTS)
 
 
 def add_launches(delta: Sequence[int]) -> None:
-    for k, d in zip(COUNTED_KERNELS, delta):
-        k.launches += d
+    for (k, attr), d in zip(_COUNTS, delta):
+        setattr(k, attr, getattr(k, attr) + d)
 
 
 def _as_tuple(outputs) -> Tuple[torch.Tensor, ...]:

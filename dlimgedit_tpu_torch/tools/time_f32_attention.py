@@ -4,9 +4,9 @@
         [--variants NAME,...] [--kernels K4,K5,K6,K7,K2] [--samples N]
 
 Builds the attention sources of csrc/ (relpos_attention*.cu,
-window_strip_attention.cu, levit_attention*.cu and the headers) once per
-variant, one nvcc each, all started together, into a library with the C
-entry points dlimg_relpos_attention_global (K4),
+window_strip_attention.cu, levit_attention*.cu, attention_general*.cu and
+the headers) once per variant, one nvcc each, all started together, into a
+library with the C entry points dlimg_relpos_attention_global (K4),
 dlimg_relpos_attention_windowed (K5), dlimg_window_strip_attention (K6),
 dlimg_relpos_attention_qkv (K7) and dlimg_levit_attention (K2):
 
@@ -155,7 +155,7 @@ ENTRIES = ("dlimg_relpos_attention_global", "dlimg_relpos_attention_windowed",
            "dlimg_window_strip_attention", "dlimg_relpos_attention_qkv",
            "dlimg_levit_attention")
 SOURCES = ("relpos_attention*.cu", "window_strip_attention.cu",
-           "levit_attention*.cu")
+           "levit_attention*.cu", "attention_general*.cu")
 
 # --mma-rate: the rate of the one product instruction the design runs
 # (mma.sync m16n8k8, TF32 in, float32 accumulate: 2048 operations), each

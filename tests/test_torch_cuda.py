@@ -16,8 +16,13 @@ than a warp holds), and on strided views and views that do not start on
 point still refuses them. K3's s must equal the plain x + d bit for bit,
 and K8 (the gather probe) its plain version: both sum in the same order.
 K4-K7 run at every head width other than 64 and 80 that is a multiple of
-8 up to 128 (the padded instances), and raise at 36 and 136, as a
-float64 input does (no plain path and no cast on the card).
+8 up to 128 (the padded instances). Every other geometry the JAX
+functions take (K2 at any kd and N, K4-K7 at any head width, 16-bit K5 /
+K7 windows with a side above 16, K6 on any window, more than 65535
+groups) launches the general body (csrc/attention_general.cuh) and holds
+the plain version at these tolerances, each call counted in its
+wrapper's ``general_launches``; no main path's shape reaches it. A
+float64 input raises (no plain path and no cast on the card).
 
 Float16 (``-k float16``): every kernel the JAX functions run in float16
 (K1-K8, P2, P3) at the main paths' shapes, one launch each, against its
@@ -122,7 +127,9 @@ from dlimgedit_tpu_torch.models import sam, vit_sam
 from dlimgedit_tpu_torch.models.common import QuantLinear
 from dlimgedit_tpu_torch.ops.amg import box_iou_matrix, greedy_nms, greedy_nms_plain
 from dlimgedit_tpu_torch.ops.flash_attention import (
+    ATTENTION_KERNELS,
     _bias_halves,
+    attention_body,
     attention_relpos_plain,
     flash_attention_relpos,
     levit_window_attention,
@@ -538,11 +545,15 @@ def test_wide_bf16_windows_route_to_the_global_kernel(dev, hd):
 
 def test_kernels_raise_instead_of_falling_back(dev):
     """What no kernel takes raises on the card (no plain version there, no
-    cast): float64, K2 at kd 16, and K4 / K5 / K7 / K6 at head widths 36
-    (not a multiple of 8) and 136 (above 128)."""
-    qkv = torch.zeros(2, 49, 4 * 3 * 16, device=dev)  # kd 16: no K2
-    with pytest.raises(DlimgError):
-        levit_window_attention(qkv, torch.zeros(4, 49, 49, device=dev), 4)
+    cast): float64. K2 at kd 16 and K4 / K5 / K7 / K6 at head widths 36
+    (not a multiple of 8) and 136 (above 128), which raised before the
+    general body, launch it and hold their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(39)
+    qkv = torch.randn((2, 49, 4 * 3 * 16), generator=g, device=dev)  # kd 16
+    lbias = 0.5 * torch.randn((4, 49, 49), generator=g, device=dev)
+    _general_matches(levit_window_attention,
+                     lambda: levit_window_attention(qkv, lbias, 4),
+                     lambda: levit_window_attention_plain(qkv, lbias, 4))
     x = torch.zeros(4, 128, device=dev, dtype=torch.float64)
     with pytest.raises(DlimgError):
         fused_layer_norm(x, torch.ones(128, device=dev, dtype=torch.float64),
@@ -552,21 +563,31 @@ def test_kernels_raise_instead_of_falling_back(dev):
                              torch.zeros(128, device=dev, dtype=torch.float64))
     with pytest.raises(DlimgError):
         quant.quantize_rows_int8(x)
+    with pytest.raises(DlimgError):
+        levit_window_attention(qkv.double(), lbias.double(), 4)
     for hd in (36, 136):
-        q = torch.zeros(2, 49, hd, device=dev)
-        bhw = torch.zeros(2, 49, 14, device=dev)
-        with pytest.raises(DlimgError):
-            relpos_attention_global(q, q, q, bhw, 7, 7)
-        with pytest.raises(DlimgError):
-            relpos_attention_windowed(q, q, q, bhw, 7, 7, 2, True)
-        with pytest.raises(DlimgError):
-            relpos_attention_qkv(torch.zeros(1, 3, 2, 49, hd, device=dev), bhw,
-                                 7, 7)
-        x = torch.zeros(1, 7, 7, 2 * hd, device=dev)
-        with pytest.raises(DlimgError):
-            windowed_attention_fused(x, x, x, torch.zeros(7, 7, hd, device=dev),
-                                     torch.zeros(7, 7, hd, device=dev), ws=7,
-                                     num_heads=2)
+        q, k, v, bhw = _relpos_inputs(dev, 2, 7, 7, hd, torch.float32, 1.0, hd)
+        _general_matches(relpos_attention_global,
+                         lambda: relpos_attention_global(q, k, v, bhw, 7, 7),
+                         lambda: attention_relpos_plain(q, k, v, bhw, 7, 7))
+        _general_matches(relpos_attention_windowed,
+                         lambda: relpos_attention_windowed(q, k, v, bhw, 7, 7,
+                                                           2, True),
+                         lambda: attention_relpos_plain(q, k, v, bhw, 7, 7,
+                                                        folded=True, heads=2))
+        qkv5 = torch.randn((1, 3, 2, 49, hd), generator=g, device=dev)
+        _general_matches(relpos_attention_qkv,
+                         lambda: relpos_attention_qkv(qkv5, bhw, 7, 7),
+                         lambda: windowed_attention_qkv_plain(qkv5, bhw, 7, 7))
+        x = torch.randn((1, 7, 7, 3 * 2 * hd), generator=g, device=dev)
+        q6, k6, v6 = x[..., :2 * hd], x[..., 2 * hd:4 * hd], x[..., 4 * hd:]
+        rh, rw = (0.3 * torch.randn((7, 7, hd), generator=g, device=dev)
+                  for _ in range(2))
+        _general_matches(windowed_attention_fused,
+                         lambda: windowed_attention_fused(q6, k6, v6, rh, rw,
+                                                          ws=7, num_heads=2),
+                         lambda: windowed_attention_fused_plain(
+                             q6, k6, v6, rh, rw, ws=7, num_heads=2))
 
 
 # -- float16: every kernel the JAX functions run in float16 ---------------
@@ -1044,28 +1065,201 @@ def test_smem_gather_kernel_ragged_shapes(dev, rows, lanes, dtype):
 
 
 def test_new_kernels_raise_instead_of_falling_back(dev):
-    x = torch.zeros(1, 28, 28, 3 * 72, device=dev)  # head width 36: no K6
+    """K6 at head width 36, K7 at 136 and bf16 8 x 32 windows on the
+    low-level K5 / K7 wrappers (a side above the tuned body's 16; the
+    routers send them to K4), which raised before the general body, launch
+    it and hold their plain versions; a gather table no slab holds raises."""
+    g = torch.Generator(device=dev).manual_seed(40)
+    x = torch.randn((1, 28, 28, 3 * 72), generator=g, device=dev)  # hd 36
     q, k, v = x[..., :72], x[..., 72:144], x[..., 144:]
-    rh = torch.zeros(14, 14, 36, device=dev)
-    with pytest.raises(DlimgError):
-        windowed_attention_fused(q, k, v, rh, rh, ws=14, num_heads=2)
-    qkv = torch.zeros(2, 3, 2, 49, 136, device=dev)  # head width 136: no K7
-    with pytest.raises(DlimgError):
-        relpos_attention_qkv(qkv, torch.zeros(4, 49, 14, device=dev), 7, 7)
-    # bf16 windows with a side above 16 (the tensor-core body's bias
-    # columns): the low-level wrappers refuse them; flash_attention_relpos
-    # and windowed_attention_qkv route them to K4 (see above)
-    qkv = torch.zeros(2, 3, 2, 8 * 32, 64, device=dev, dtype=torch.bfloat16)
-    bhw = torch.zeros(4, 8 * 32, 40, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(DlimgError):
-        relpos_attention_qkv(qkv, bhw, 8, 32)
+    rh = 0.3 * torch.randn((14, 14, 36), generator=g, device=dev)
+    _general_matches(windowed_attention_fused,
+                     lambda: windowed_attention_fused(q, k, v, rh, rh, ws=14,
+                                                      num_heads=2),
+                     lambda: windowed_attention_fused_plain(q, k, v, rh, rh,
+                                                            ws=14, num_heads=2))
+    qkv = torch.randn((2, 3, 2, 49, 136), generator=g, device=dev)  # hd 136
+    bhw = torch.randn((4, 49, 14), generator=g, device=dev)
+    _general_matches(relpos_attention_qkv,
+                     lambda: relpos_attention_qkv(qkv, bhw, 7, 7),
+                     lambda: windowed_attention_qkv_plain(qkv, bhw, 7, 7))
+    qkv = torch.randn((2, 3, 2, 8 * 32, 64), generator=g,
+                      device=dev).to(torch.bfloat16)
+    bhw = torch.randn((4, 8 * 32, 40), generator=g, device=dev).to(torch.bfloat16)
+    _general_matches(relpos_attention_qkv,
+                     lambda: relpos_attention_qkv(qkv, bhw, 8, 32),
+                     lambda: windowed_attention_qkv_plain(qkv, bhw, 8, 32))
     q = qkv[:, 0].reshape(4, 8 * 32, 64)
-    with pytest.raises(DlimgError):
-        relpos_attention_windowed(q, q, q, bhw, 8, 32, 2, False)
+    _general_matches(relpos_attention_windowed,
+                     lambda: relpos_attention_windowed(q, q, q, bhw, 8, 32, 2,
+                                                       False),
+                     lambda: attention_relpos_plain(q, q, q, bhw, 8, 32, heads=2))
     table = torch.zeros(8000, 16, device=dev)  # 8000 rows: no slab fits
     with pytest.raises(DlimgError):
         smem_gather(table, torch.zeros(8000, 16, dtype=torch.int32,
                                        device=dev), 2)
+
+
+# -- the general attention body (csrc/attention_general.cuh) ----------------
+
+def _general_matches(wrapper, kernel, plain, general=True, strip=False):
+    """One launch of ``wrapper``'s kernel (and of its general body when
+    ``general``), held against the plain version on the same inputs at
+    the output dtype's tolerance (float16: K6 F16_STRIP_ATOL, and the mean
+    |diff| within F16_MEAN_ATOL)."""
+    before = (wrapper.launches, wrapper.general_launches)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.general_launches) == (
+        before[0] + 1, before[1] + int(general))
+    want = plain()
+    tol = F16_STRIP_ATOL if strip and got.dtype == torch.float16 else TOL[got.dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if got.dtype == torch.float16:
+        assert (got.float() - want.float()).abs().mean().item() <= F16_MEAN_ATOL
+    return got
+
+
+def _general_case(dev, case, dtype, seed):
+    """(wrapper, kernel call, plain call, K6) for one GENERAL_CASES entry."""
+    kind, dims = case.split(" ", 1)
+    d = [int(t) for t in dims.split("x")]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    if kind == "K2":
+        kd, N, G, nh = d
+        qkv, bias = randn(G, N, nh * 3 * kd), randn(nh, N, N, scale=0.5)
+        return (levit_window_attention, lambda: levit_window_attention(qkv, bias, nh),
+                lambda: levit_window_attention_plain(qkv, bias, nh), False)
+    if kind == "K4":
+        G, gh, gw, hd = d
+        q, k, v, bhw = _relpos_inputs(dev, G, gh, gw, hd, dtype, 1.0, seed)
+        return (relpos_attention_global,
+                lambda: relpos_attention_global(q, k, v, bhw, gh, gw),
+                lambda: attention_relpos_plain(q, k, v, bhw, gh, gw), False)
+    if kind == "K5":
+        W, heads, gh, gw, hd, n_w, valid = d
+        folded = hd + gh + gw <= 128
+        q, k, v, bhw = _relpos_inputs(dev, W * heads, gh, gw, hd, dtype,
+                                      1.0 / hd ** -0.5 if folded else 1.0, seed)
+        return (relpos_attention_windowed,
+                lambda: relpos_attention_windowed(q, k, v, bhw, gh, gw, heads,
+                                                  folded, n_w, valid),
+                lambda: attention_relpos_plain(q, k, v, bhw, gh, gw, folded=folded,
+                                               heads=heads, n_w=n_w,
+                                               valid_rows=valid), False)
+    if kind == "K7":
+        W, nh, gh, gw, hd = d
+        qkv = randn(W, 3, nh, gh * gw, hd)
+        bhw = _bias_halves(qkv[:, 0].reshape(W * nh, gh * gw, hd),
+                           0.3 * torch.randn((gh, gh, hd), generator=g, device=dev),
+                           0.3 * torch.randn((gw, gw, hd), generator=g, device=dev),
+                           gh, gw)
+        return (relpos_attention_qkv, lambda: relpos_attention_qkv(qkv, bhw, gh, gw),
+                lambda: windowed_attention_qkv_plain(qkv, bhw, gh, gw), False)
+    B, Hp, Wp, heads, hd, ws = d  # K6: q, k, v the slices of one qkv
+    C = heads * hd
+    qkv = randn(B, Hp, Wp, 3 * C)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    rh, rw = (0.3 * torch.randn((ws, ws, hd), generator=g, device=dev)
+              for _ in range(2))
+    return (windowed_attention_fused,
+            lambda: windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=heads),
+            lambda: windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                                   num_heads=heads), True)
+
+
+# The geometries the tuned instances do not take: K2 "kd x N x G x nh"; K4
+# "G x gh x gw x hd"; K5 "W x heads x gh x gw x hd x n_w x valid_rows"
+# (folded where hd + gh + gw <= 128); K7 "W x nh x gh x gw x hd"; K6
+# "B x Hp x Wp x heads x hd x ws". Head widths 1-256 (not multiples of 8,
+# or above 128: two or more column parts), K2 at kd 8-48 and windows of
+# 257-1024 tokens, K6 windows of 225-1024 tokens, bf16 and float16 K5 / K7
+# windows of 8 x 32 (float32 takes those tuned).
+GENERAL_HEAD_DIMS = (1, 4, 12, 36, 100, 136, 200, 256)
+GENERAL_CASES = (
+    [f"K2 {kd}x{N}x2x2" for kd in (8, 12, 48) for N in (49, 576)]
+    + ["K2 32x257x2x3", "K2 32x1024x2x5"]
+    + [f"K4 2x10x12x{hd}" for hd in GENERAL_HEAD_DIMS] + ["K4 1x64x64x36"]
+    + [f"K5 3x2x7x7x{hd}x1x4" for hd in GENERAL_HEAD_DIMS]
+    + ["K5 2x2x2x128x36x1x1", "K5 3x2x8x32x64x1x5"]
+    + [f"K7 3x2x7x7x{hd}" for hd in GENERAL_HEAD_DIMS] + ["K7 2x2x8x32x64"]
+    + [f"K6 1x{ws}x{2 * ws}x2x{hd}x{ws}" for ws in (15, 16, 24) for hd in (36, 64)]
+    + [f"K6 1x14x14x2x{hd}x7" for hd in GENERAL_HEAD_DIMS] + ["K6 1x32x32x2x64x32"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GENERAL_CASES)
+def test_general_body_matches_plain(dev, case, dtype):
+    """Each geometry launches the general body once (float32's 8 x 32 K5 /
+    K7 windows: the tuned body) and holds the plain version."""
+    wrapper, kernel, plain, strip = _general_case(dev, case, dtype,
+                                                  len(case) + ord(case[1]))
+    general = not (dtype == torch.float32 and "8x32" in case)
+    _general_matches(wrapper, kernel, plain, general=general, strip=strip)
+
+
+# (wrapper, tuned head width, general head width): G = 70000 groups, more
+# than a tuned K4 / K5 / K7 grid's 65535 (the entry point splits the
+# launch; K7 by whole windows) and K6 windows likewise.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", ["tuned", "general"])
+@pytest.mark.parametrize("kind", ["K4", "K5", "K7", "K6"])
+def test_more_than_65535_groups(dev, kind, body, dtype):
+    hd = 64 if body == "tuned" else 36
+    if kind == "K4":
+        case = f"K4 70000x2x2x{hd}"
+    elif kind == "K5":  # the skip's first group, 69998, lies in the second launch
+        case = f"K5 35000x2x2x2x{hd}x1x1"
+    elif kind == "K7":
+        case = f"K7 35000x2x2x2x{hd}"
+    else:
+        case = f"K6 1x2x140000x1x{hd // 8 if body == 'tuned' else 4}x2"
+    wrapper, kernel, plain, strip = _general_case(dev, case, dtype, 70)
+    got = _general_matches(wrapper, kernel, plain, general=body == "general",
+                           strip=strip)
+    if kind == "K5":
+        assert not got[-2:, 2:].any()
+
+
+# The main paths' shapes (chip_smoke.py phases 2 and 4): K2 at MobileSAM's,
+# K4 / K5 / K7 / K6 at ViT-B's and ViT-H's.
+MAIN_PATH_CASES = ["K2 32x49x361x4", "K2 32x196x25x5", "K2 32x49x100x10",
+                   "K4 12x64x64x64", "K4 16x64x64x80",
+                   "K5 25x12x14x14x64x5x8", "K5 25x16x14x14x80x5x8",
+                   "K7 25x12x14x14x64", "K7 25x16x14x14x80",
+                   "K6 1x70x70x12x64x14", "K6 1x70x70x16x80x14"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_main_path_shapes_never_reach_the_general_body(dev, dtype):
+    """Every main path's shape launches its tuned instance once and the
+    general body never (the tuned values are held by the tests above and
+    chip_smoke.py phase 2), and the C entry points' rule
+    (``dlimg_attention_route``) agrees with ``attention_body`` over a sweep
+    of kernels, head widths, windows and grids."""
+    for case in MAIN_PATH_CASES:
+        wrapper, kernel, _, _ = _general_case(dev, case, dtype, 3)
+        before = (wrapper.launches, wrapper.general_launches)
+        out = kernel()
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.general_launches) == (
+            before[0] + 1, before[1]), case
+        assert bool(torch.isfinite(out).all()), case
+    code = DTYPE_CODES[str(dtype)]
+    route = LIBRARY.get().dlimg_attention_route
+    for i, name in enumerate(ATTENTION_KERNELS):
+        for hd in (1, 4, 8, 12, 32, 36, 64, 80, 100, 128, 136, 256):
+            for n, gh, gw in ((49, 7, 7), (196, 14, 14), (225, 15, 15),
+                              (256, 16, 16), (256, 8, 32), (576, 24, 24),
+                              (1024, 32, 32), (4096, 64, 64)):
+                for heads in (2, 70000):
+                    want = attention_body(name, dtype, hd, n, gh, gw, heads)
+                    assert route(i, code, hd, n, gh, gw, heads) == (
+                        want == "general"), (name, hd, n, gh, gw, heads)
 
 
 # -- the executable cache as CUDA graphs ------------------------------------
