@@ -27,8 +27,9 @@ and K2 at the bands' rows and windows):
                                                  relpos_attention.cu
   K6 windowed_attention_fused                    relpos_attention_tc.cu (bf16),
                                                  relpos_attention_f32tc.cu (float32)
-  K2, K4-K7 at the geometries their tuned        attention_general.cu (bf16,
-  instances do not take (phase 20 only)          float16), attention_general_f32.cu
+  K2, K4-K7 at the geometries their tuned        attention_general.cu (bf16),
+  instances do not take (phase 20 only)          attention_general_f16.cu
+                                                 (float16), attention_general_f32.cu
                                                  (float32)
   K8 smem_gather (the gather probe)              gather_probe.cu
   greedy_nms (AMG's exact greedy box NMS; not    greedy_nms.cu
@@ -47,7 +48,8 @@ printing its seconds:
      mma.sync; their float16 instances in the _f16 sources;
      relpos_attention_f32tc.cu: float32 K4, K5, K6 and K7 on mma.sync in
      three TF32 passes; levit_attention_f32tc.cu: float32 K2
-     likewise; attention_general.cu, _f32.cu: the general attention body)
+     likewise; attention_general.cu, _f16.cu, _f32.cu: the general
+     attention body)
      spills or is missing from the report; the port's C library and
      serving library (phases 14-19) build in a thread beside it;
   2. holds each kernel against its plain PyTorch version on the card, in
@@ -468,9 +470,10 @@ printing its seconds:
      `general_launches` 0), then every general policy (K2's table, K4 /
      K5 / K7's halves, K6's computed halves) in float32, bf16 and
      float16 at GENERAL_SHAPES against its plain version, each call one
-     launch of the general body, timed in bf16 as phase 2 times its rows
-     ("<name>/general" in the {"kernels": ...} line, one geometry each,
-     launches those of that run); a MobileSAM whose TinyViT has the 512
+     launch of the general body, timed in every dtype as phase 2 times
+     its rows ("<name>/general", "<name>/general/float16" and
+     "<name>/general/float32" in the {"kernels": ...} line, one geometry
+     each, launches those of that run); a MobileSAM whose TinyViT has the 512
      variant's windows (16, 16, 32, 16) through `process` at 1024 (K2
      tuned at N 256, general at N 1024) against the CPU.
 
@@ -806,14 +809,14 @@ SERVE_WINDOW_MS = 2
 # _tc_f16_pad.cu), bf16 K2 (csrc/levit_attention_tc.cu; float16 _tc_f16.cu),
 # float32 K4, K5, K6 and K7 in three TF32 passes (csrc/relpos_attention_f32tc.cu
 # and _pad.cu) and float32 K2 likewise (csrc/levit_attention_f32tc.cu), and
-# the general attention body (csrc/attention_general.cu, _f32.cu): phase 1
+# the general attention body (csrc/attention_general.cu, _f16.cu, _f32.cu): phase 1
 # fails if one is missing from nvcc's report or spills.
 TC_SOURCES = {"relpos_attention_tc.cu", "relpos_attention_tc_pad.cu",
               "relpos_attention_tc_f16.cu", "relpos_attention_tc_f16_pad.cu",
               "levit_attention_tc.cu", "levit_attention_tc_f16.cu",
               "relpos_attention_f32tc.cu", "relpos_attention_f32tc_pad.cu",
               "levit_attention_f32tc.cu", "attention_general.cu",
-              "attention_general_f32.cu"}
+              "attention_general_f16.cu", "attention_general_f32.cu"}
 TC_KERNELS = ("relpos_global_kernel_tc", "relpos_window_kernel_tc",
               "relpos_qkv_kernel_tc", "window_strip_kernel_tc",
               "levit_window_kernel_tc", "relpos_global_kernel_f32tc",
@@ -1395,7 +1398,8 @@ def check_window_kernels(torch, ops, entries, dtypes=None, strip_shapes=None,
                          probe_reps=PROBE_REPS, probe_layouts=None, launches=0,
                          images=len(IMAGES), uncounted=contextlib.nullcontext):
     """Phase 2, the last three kernels: K6 at the fused-window path's
-    shapes (ViT-B, and ViT-H's; ``strip_shapes``), K7 at ViT-B's and
+    shapes (ViT-B, and ViT-H's; ``strip_shapes``; in phase 2 also ViT-B's at
+    K6_WORST_SEED, ``check_k6_worst_draw``), K7 at ViT-B's and
     ViT-H's windows, K8 at the gather probe's shapes (``probe_reps``, the
     index layouts ``probe_layouts``, all unless given); K7 and K8 recorded
     with ``launches`` each (no main path launches them); ``images``,
@@ -1448,6 +1452,8 @@ def check_window_kernels(torch, ops, entries, dtypes=None, strip_shapes=None,
                       f"does not make) {time_ms(torch, partition):.5f} ms",
                       flush=True)
             del mask, qw, kw, vw
+        if bf16 and strip_shapes is None:
+            check_k6_worst_draw(torch, ops)
         for W, nh, ws, hd in VIT_QKV_SHAPES:
             n, G = ws * ws, W * nh
             qkv = torch.randn((W, 3, nh, n, hd), generator=gen,
@@ -1491,6 +1497,44 @@ def check_window_kernels(torch, ops, entries, dtypes=None, strip_shapes=None,
                     lambda: ops.smem_gather_plain(table, idx, reps), library,
                     0.0, rows * lanes * (es + 4 + 4), 0, reps * rows * lanes,
                     launches, entries, images=images, uncounted=uncounted)
+
+
+# C13: the tuned bf16 K6 at the fused-window ViT-B's shape on the draw of
+# seeds 0-63 (tests/test_torch_cuda.py's K6 scheme) whose |kernel - plain|
+# was largest while the kernel rounded its float32 bias halves (0.0234;
+# tools/k6_draws.py).
+K6_WORST_SEED = 21
+
+
+def check_k6_worst_draw(torch, ops):
+    """Phase 2's K6 at K6_WORST_SEED: within TOL of its plain version and
+    within one bf16 step, at each window and head's largest output, of the
+    float64 evaluations at its rounding points (tools/k6_draws.py)."""
+    from dlimgedit_tpu_torch.tools import k6_draws
+
+    t0 = time.perf_counter()
+    B, grid, nh, hd, ws = k6_draws.SHAPE
+    C = nh * hd
+    qkv, rh, rw = k6_draws.draw(K6_WORST_SEED, torch.bfloat16,
+                                torch.device("cuda", 0))
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    out = ops.windowed_attention_fused(q, k, v, rh, rw, ws=ws, num_heads=nh)
+    ref = ops.windowed_attention_fused_plain(q, k, v, rh, rw, ws=ws,
+                                             num_heads=nh)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    exact, jax_points, _ = k6_draws.references(q, k, v, rh, rw, torch.bfloat16)
+    steps = [((out.double() - r).abs()
+              / k6_draws.group_step(r, torch.bfloat16)).max().item()
+             for r in (exact, jax_points)]
+    label = (f"K6 windowed_attention_fused ({B},{grid},{grid},{C}) "
+             f"seed {K6_WORST_SEED}")
+    print(f"{label} bfloat16: max|diff|={err:.3e} (atol "
+          f"{TOL[('strip', 'bfloat16')]:g}); from float64 {steps[0]:.3f} and "
+          f"from JAX's rounding points {steps[1]:.3f} bf16 steps (limit 1) "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    if not err <= TOL[("strip", "bfloat16")] or not max(steps) <= 1.0:
+        fail(f"{label}: max|diff| {err}, steps from float64 {steps}")
 
 
 # The bf16 K4 on general grids larger than the main paths' (ROADMAP C8):
@@ -7186,8 +7230,9 @@ def check_float16(torch, ops, counters, zero_counters, restore_counters,
 
 
 # Phase 20's general leg: each kernel's general body at one geometry that a
-# configuration gives it, in float32, bf16 and float16 (the rows
-# "<name>/general" of the {"kernels": ...} line: bf16, one launch each): K2
+# configuration gives it, in bf16, float16 and float32 (the rows
+# "<name>/general", "<name>/general/float16" and "<name>/general/float32" of
+# the {"kernels": ...} line, one launch each, each timed): K2
 # at the 512-variant MobileSAM's stage 2 at 1024 (4 windows of 32 x 32, 5
 # heads of kd 32); K4 and K5 at the hd-36 ViT's (embed 288, 8 heads) global
 # 64 x 64 grid and 25 windows of 14 x 14 (the bottom row skipped below row
@@ -7195,6 +7240,9 @@ def check_float16(torch, ops, counters, zero_counters, restore_counters,
 # x 16 windows of its 64 x 64 grid.
 GENERAL_SUFFIX = "/general"
 GENERAL_SOURCE = "dlimgedit_tpu_torch/csrc/attention_general.cu"
+GENERAL_SOURCES = {"bfloat16": GENERAL_SOURCE,
+                   "float16": "dlimgedit_tpu_torch/csrc/attention_general_f16.cu",
+                   "float32": "dlimgedit_tpu_torch/csrc/attention_general_f32.cu"}
 GENERAL_K2 = (4, 1024, 5, 32)        # G, N, heads, kd
 GENERAL_K4 = (8, 64, 36)             # heads, grid, hd
 GENERAL_K5 = (25, 8, 14, 36, 5, 8)   # windows, heads, ws, hd, n_w, valid_rows
@@ -7208,8 +7256,9 @@ def check_general(torch, ops, counters, general_counts, zero_counters,
     geometries in bf16, float16 and float32, each against its plain version
     (TOL; float16's mean |diff| too) and each call one launch of the general
     body (the plain version, the timing and the SDPA yardstick uncounted);
-    bf16 and float16 timed as phase 2 times bf16, bound as there. Returns
-    the entries (bf16 under each kernel's name)."""
+    every dtype timed as phase 2 times bf16, bound as there (float32 by the
+    PEAK_F32_TC_FLOPS rule). Returns the entries (bf16 under each kernel's
+    name, float16 and float32 under f16_key and f32_key of it)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -7229,7 +7278,8 @@ def check_general(torch, ops, counters, general_counts, zero_counters,
             def check(label, name, kernel, plain, library, tol, nbytes, mm, f32):
                 check_kernel(torch, f"{label} general", name, dname, kernel,
                              plain, library, tol, nbytes, mm, f32, 1, entries,
-                             images=1, uncounted=restore_counters)
+                             images=1, f32_timed=True,
+                             uncounted=restore_counters)
 
             G, N, nh, kd = GENERAL_K2
             qkv, lbias = randn(G, N, nh * 3 * kd), randn(nh, N, N, scale=0.5)
@@ -7830,18 +7880,21 @@ def main() -> int:
             "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
             "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
             "library_ms": e["library_ms"], "also_from_cpp": False})
-    for name, _, replaces in KERNELS:
-        if name not in attention:
-            continue
-        e = general_entries.numbers(name, 1)
-        kernels.append({
-            "name": name + GENERAL_SUFFIX, "route": "cuda",
-            "source": GENERAL_SOURCE, "replaces": replaces,
-            "launches": e["launches"], "max_abs_err": e["max_abs_err"],
-            "ms": e["ms"], "plain_ms": e["plain_ms"],
-            "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
-            "bound_by": "bytes" if e["bytes_ms"] >= e["ops_ms"] else "operations",
-            "library_ms": e["library_ms"], "also_from_cpp": False})
+    for dname, suffix in (("bfloat16", ""), ("float16", F16_SUFFIX),
+                          ("float32", F32_SUFFIX)):
+        for name, _, replaces in KERNELS:
+            if name not in attention:
+                continue
+            e = general_entries.numbers(name + suffix, 1)
+            kernels.append({
+                "name": name + GENERAL_SUFFIX + suffix, "route": "cuda",
+                "source": GENERAL_SOURCES[dname], "replaces": replaces,
+                "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+                "ms": e["ms"], "plain_ms": e["plain_ms"],
+                "bound_ms": max(e["bytes_ms"], e["ops_ms"]),
+                "bound_by": ("bytes" if e["bytes_ms"] >= e["ops_ms"]
+                             else "operations"),
+                "library_ms": e["library_ms"], "also_from_cpp": False})
     print(f"chip_smoke: phases 1-20 in {time.perf_counter() - run_t0:.1f} s "
           f"on {gpu_line}", flush=True)
     print(gpu_line)

@@ -77,12 +77,11 @@
 // partitioned or copied), one block per (image, window, head). K6 fills
 // the bias halves itself before the stripes: for each window row (and
 // column) a 16 x 16 x hd product of its tokens' q rows with the table
-// slice rh[y] (rw[x]) on mma.sync, each half rounded to bf16 on its own as
-// the TPU kernel rounds. q and the tables are read from device memory (staging
-// them would cost the shared memory that lets two blocks share an SM at
-// hd 80) in 16-byte loads, the head dims permuted alike in both operands
-// (`bias_tile`), not in the stripes' 4-byte fragment loads, each of which
-// touches 8 lines.
+// slice rh[y] (rw[x]) on the float64 tensor cores (mma.sync m8n8k4), each
+// half's exact sum correctly rounded to the dtype (ROADMAP C13). q and the
+// tables are read from device memory (staging them would cost the shared
+// memory that lets two blocks share an SM at hd 80) in 4-byte loads, each
+// lane's depth slot a run of dims in both operands.
 //
 // K4 design (`wgmma`): K and V of a global head (512 KB each at ViT-B) do
 // not fit 227 KB, so 64-key tiles stream through a five-stage cp.async ring,
@@ -355,49 +354,22 @@ struct DenseRows : HeadWidth<HD, PAD> {
   }
 };
 
-// c[t] += (rows r0, r1 of A) . (rows t0, t1 of B)^T for one 16 x 16 tile
-// over HD: A rows gr (r0) and gr + 8 (r1), B rows gr (t0, columns 0 .. 7)
-// and 8 + gr (t1, columns 8 .. 15), each row HD contiguous values of type T
-// in device memory. A dot product does not care in which order its HD terms are
-// summed, so A and B share a permutation of the head dims that lets each
-// lane read 16 bytes a row: in depth step 2j (2j + 1) the lane's four
-// k slots {2gq, 2gq + 1, 2gq + 8, 2gq + 9} hold dims 32j + 8gq + 0 .. 3
-// (4 .. 7); at hd 80 the last step holds dims 64 + 4gq + 0 .. 3 (8 bytes).
-// With PAD the rows hold hd < HD dims: the 16-byte pieces past hd are zeros.
-template <typename T, int HD, bool PAD>
-__device__ __forceinline__ void bias_tile(float (&c)[2][4], const T* r0, const T* r1,
-                                          const T* t0, const T* t1, int gq, int hd) {
-  static_assert(!PAD || HD % 32 == 0, "padded widths are whole depth-step pairs");
-  using H = Half2<T>;
-  constexpr int PAIRS = HD / 32;
-  const T* rows[4] = {r0, r1, t0, t1};
-  uint4 w[4][PAIRS];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < PAIRS; ++j)
-      w[r][j] = !PAD || 32 * j + 8 * gq < hd
-                    ? __ldg(reinterpret_cast<const uint4*>(rows[r] + 32 * j + 8 * gq))
-                    : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int j = 0; j < PAIRS; ++j) {
-    const uint32_t lo[4] = {w[0][j].x, w[1][j].x, w[0][j].y, w[1][j].y};
-    H::mma(c[0], lo, w[2][j].x, w[2][j].y);
-    H::mma(c[1], lo, w[3][j].x, w[3][j].y);
-    const uint32_t hi[4] = {w[0][j].z, w[1][j].z, w[0][j].w, w[1][j].w};
-    H::mma(c[0], hi, w[2][j].z, w[2][j].w);
-    H::mma(c[1], hi, w[3][j].z, w[3][j].w);
-  }
-  if constexpr (HD % 32 != 0) {
-    static_assert(HD % 32 == 16, "a last depth step of 16 dims");
-    uint2 x[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      x[r] = __ldg(reinterpret_cast<const uint2*>(rows[r] + 32 * PAIRS + 4 * gq));
-    const uint32_t a[4] = {x[0].x, x[1].x, x[0].y, x[1].y};
-    H::mma(c[0], a, x[2].x, x[2].y);
-    H::mma(c[1], a, x[3].x, x[3].y);
-  }
+// c (8 x 8) += a (8 x 4) . b (4 x 8) in float64 on the tensor cores
+// (mma.sync m8n8k4): lane (g, t) = (lane / 4, lane % 4) holds a[g][t],
+// b[t][g] and c[g][2t], c[g][2t + 1].
+__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// float64 x rounded to odd in float32 (toward zero, the last bit set when
+// inexact): its rounding to a 16-bit type is the correct rounding of x.
+__device__ __forceinline__ float round_to_odd(double x) {
+  float f = __double2float_rz(x);
+  if (static_cast<double>(f) != x) f = __uint_as_float(__float_as_uint(f) | 1u);
+  return f;
 }
 
 // K6's group: the ws x ws tokens of one window of a padded (B, hp, wp, *)
@@ -424,42 +396,59 @@ struct WindowRows : HeadWidth<HD, PAD> {
   __device__ __forceinline__ size_t in(int r) const { return tok(r) * ts; }
   __device__ __forceinline__ size_t out_off(int r) const { return tok(r) * c; }
 
-  // The bias halves of every row, computed here as the TPU kernel does:
-  // bh[i, y] = q_i . rh[y_i, y] and bw[i, x] = q_i . rw[x_i, x], float32
-  // sums of the products on mma.sync, each half rounded to the dtype on
-  // its own (JAX's bh.astype(qn.dtype)). Step u of a warp takes the ws tokens of window row u against
-  // rh[u] (their bh) and those of window column u against rw[u] (their
-  // bw), two independent 16 x 16 tiles whose 16 columns are the rows' 16
-  // bias columns (those past ws written as zeros; tile rows past ws repeat
-  // row ws - 1 and are dropped).
+  // The bias halves of every row, as the TPU kernel defines them: bh[i, y]
+  // = q_i . rh[y_i, y] and bw[i, x] = q_i . rw[x_i, x], each the sum of its
+  // products correctly rounded to the dtype (JAX's bh.astype(qn.dtype) of
+  // the exact sum, as the plain version rounds it; a float32 sum, in each
+  // implementation's own order, rounds to the other side of a midpoint now
+  // and then and moves a row's logits by a step of the bias: ROADMAP C13).
+  // Step u of a warp takes the ws tokens of window row u against rh[u]
+  // (their bh) and those of window column u against rw[u] (their bw): two
+  // 16 x 16 tiles, each four 8 x 8 tiles of float64 mma.sync over the
+  // depth, whose sums of 16-bit products are exact; lane slot t of a step
+  // holds dims t hd / 4 + s, s + 1 (a sum's order does not matter), the
+  // columns past ws written as zeros, tile rows past ws repeating row ws -
+  // 1 and dropped.
   __device__ __forceinline__ void stage_bias(T* ba, int, int, int, int, int warp,
                                              int lane) const {
     using H = Half2<T>;
     const int gr = lane >> 2, gq = lane & 3;
-    const int m0 = min(gr, ws - 1), m1 = min(gr + 8, ws - 1);
+    const int hd = this->width(), kq = hd / 4;  // a lane slot's dims (a multiple of 2)
     for (int u = warp; u < ws; u += kWinThreads / 32) {
-      float c[2][2][4] = {};  // [bh, bw][columns 0 .. 7, 8 .. 15][fragment]
-      const int hd = this->width();
-      const T* th = rh + static_cast<size_t>(u) * ws * hd;
-      const T* tw = rw + static_cast<size_t>(u) * ws * hd;
-      bias_tile<T, HD, PAD>(c[0], q + in(u * ws + m0), q + in(u * ws + m1), th + m0 * hd,
-                            th + m1 * hd, gq, hd);
-      bias_tile<T, HD, PAD>(c[1], q + in(m0 * ws + u), q + in(m1 * ws + u), tw + m0 * hd,
-                            tw + m1 * hd, gq, hd);
-      // c[h][t][e]: tile row gr (+ 8 for e >= 2), column 8 t + 2 gq + (e & 1).
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int m = gr + 8 * hi;
-        if (m >= ws) continue;
-        T* rowh = ba + (u * ws + m) * kBiasCols + 2 * gq;
-        T* roww = ba + (m * ws + u) * kBiasCols + kBiasSide + 2 * gq;
+      for (int h = 0; h < 2; ++h) {  // bh, bw
+        const T* tab = (h ? rw : rh) + static_cast<size_t>(u) * ws * hd;
+        const T* a[2];
+        const T* b[2];
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int col = 8 * t + 2 * gq;
-          const float* ch = c[0][t] + 2 * hi;
-          const float* cw = c[1][t] + 2 * hi;
-          st_u32(rowh + 8 * t, H::pack(col < ws ? ch[0] : 0.f, col + 1 < ws ? ch[1] : 0.f));
-          st_u32(roww + 8 * t, H::pack(col < ws ? cw[0] : 0.f, col + 1 < ws ? cw[1] : 0.f));
+        for (int i = 0; i < 2; ++i) {
+          const int m = min(8 * i + gr, ws - 1);
+          a[i] = q + in(h ? m * ws + u : u * ws + m) + gq * kq;
+          b[i] = tab + static_cast<size_t>(m) * hd + gq * kq;
+        }
+        double c[2][2][2] = {};  // [token tile][column tile][fragment]
+        for (int d = 0; d < kq; d += 2) {
+          const uint32_t wa[2] = {ldg_u32(a[0] + d), ldg_u32(a[1] + d)};
+          const uint32_t wb[2] = {ldg_u32(b[0] + d), ldg_u32(b[1] + d)};
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                mma_f64(c[i][j], e ? H::hi(wa[i]) : H::lo(wa[i]), e ? H::hi(wb[j]) : H::lo(wb[j]));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = 8 * i + gr;
+          if (m >= ws) continue;
+          T* row = ba + (h ? m * ws + u : u * ws + m) * kBiasCols + h * kBiasSide;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = 8 * j + 2 * gq;
+            st_u32(row + col, H::pack(col < ws ? round_to_odd(c[i][j][0]) : 0.f,
+                                      col + 1 < ws ? round_to_odd(c[i][j][1]) : 0.f));
+          }
         }
       }
     }

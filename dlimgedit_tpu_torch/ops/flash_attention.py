@@ -43,9 +43,10 @@ attention_general.cuh`` ``attention_tuned``):
     TF32 passes (``csrc/relpos_attention_f32tc.cuh``, one body). A tuned
     launch of more than 65535 groups is split into several by the C entry
     point;
-  * the general body (``csrc/attention_general.cuh``; bf16 and float16 in
-    ``attention_general.cu``, float32 in ``attention_general_f32.cu``): a
-    run-time head width, keys in chunks of 64, any group count; a launch
+  * the general body (``csrc/attention_general.cuh``; bf16 in
+    ``attention_general.cu``, float16 in ``attention_general_f16.cu``,
+    float32 in ``attention_general_f32.cu``): a run-time head width, keys
+    in chunks of 64 or 32 copied asynchronously, any group count; a launch
     counts in its wrapper's ``launches`` and ``general_launches``.
 
 The C entry points are ``csrc/relpos_attention.cu`` (K4, K5, K7),
@@ -575,15 +576,33 @@ def _from_windows(t: torch.Tensor, B: int, Hp: int, Wp: int, ws: int
     return t.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, Hp, Wp, nh * hd)
 
 
+def _round_exact(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float64 ``x`` correctly rounded to ``dtype`` (to nearest, ties to
+    even): for a 16-bit dtype through float32 rounded to odd (toward zero,
+    the last bit set when inexact), whose rounding to 16 bits is then the
+    correct rounding of ``x``."""
+    f = x.float()
+    if dtype == torch.float32:
+        return f
+    over = f.double().abs() > x.abs()
+    f = torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+    bits = f.view(torch.int32)
+    bits = torch.where(f.double() != x, bits | 1, bits)
+    return bits.view(torch.float32).to(dtype)
+
+
 def windowed_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, rh: torch.Tensor,
                                    rw: torch.Tensor, *, ws: int,
                                    num_heads: int) -> torch.Tensor:
     """The plain version of K6, with the JAX strip kernel's rounding:
     bh[i, y] = sum_d q[i, d] rh[i // ws, y, d] and bw[i, x] (rw[i % ws])
-    in float32 from the dtype's q and tables, each rounded to the dtype;
-    s = ((q.k) * scale + bh[i, y_j]) + bw[i, x_j] in float32; exact
-    softmax, p rounded to the dtype before p.v, which accumulates in
+    from the dtype's q and tables, each rounded to the dtype (in 16 bits the
+    sum is taken in float64, exact for these products, and correctly
+    rounded: a float32 sum, JAX's, rounds to the other side of a midpoint
+    now and then, and its order is each implementation's own; in float32 a
+    float32 sum); s = ((q.k) * scale + bh[i, y_j]) + bw[i, x_j] in float32;
+    exact softmax, p rounded to the dtype before p.v, which accumulates in
     float32. Every token of the padded grid gets its output."""
     B, Hp, Wp, C = q.shape
     dtype = q.dtype
@@ -594,8 +613,12 @@ def windowed_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
     yi, xi = tok // ws, tok % ws
     rh_e = rh.to(dtype).float()[yi]   # (n, ws, hd): rh[y_i]
     rw_e = rw.to(dtype).float()[xi]   # (n, ws, hd): rw[x_i]
-    bh = torch.einsum("gnid,iyd->gniy", qw, rh_e).to(dtype).float()
-    bw = torch.einsum("gnid,ixd->gnix", qw, rw_e).to(dtype).float()
+    wide = torch.float32 if dtype == torch.float32 else torch.float64
+    qs = qw.to(wide)
+    bh = _round_exact(torch.einsum("gnid,iyd->gniy", qs, rh_e.to(wide)).double(),
+                      dtype).float()
+    bw = _round_exact(torch.einsum("gnid,ixd->gnix", qs, rw_e.to(wide)).double(),
+                      dtype).float()
     s = (qw @ kw.transpose(-1, -2)) * (hd ** -0.5)
     s = s + bh[..., yi]
     s = s + bw[..., xi]

@@ -34,7 +34,7 @@ from ..ops import cuda_build
 
 # (anchor line in relpos_attention_tc.cuh, lines inserted before it)
 SWITCHES = (
-    ("    const int m0 = min(gr, ws - 1), m1 = min(gr + 8, ws - 1);\n",
+    ("    const int hd = this->width(), kq = hd / 4;  // a lane slot's dims (a multiple of 2)\n",
      "#ifdef ABLATE_PROLOGUE\n"
      "    for (int e = threadIdx.x; e < ws * ws * kBiasCols; e += kWinThreads)\n"
      "      ba[e] = __float2bfloat16_rn(0.f);\n"
